@@ -1,0 +1,137 @@
+"""Bidirectional name <-> fixed-width-id dictionary over the uid table.
+
+Mirrors ``opentsdb_tpu/uid/uniqueid.py`` of the JAX package, copied rather
+than imported: the port imports nothing of that package.
+
+Schema parity with reference src/uid/UniqueId.java: forward mapping is
+row=name, family 'id', qualifier=kind -> uid bytes; reverse mapping is
+row=uid, family 'name', qualifier=kind -> name; the allocation counter lives
+in row b"\\x00", family 'id', qualifier=kind (:47-53).
+
+Allocation follows the same lock-free discipline (:227-356): atomic-increment
+the MAXID cell, check the id fits the width, CAS the *reverse* mapping into
+existence first (a dangling reverse mapping is harmless; a forward mapping
+without reverse is not), then CAS the forward mapping — the loser of a
+concurrent race leaks one id and retries, discovering the winner's id.
+"""
+
+from __future__ import annotations
+
+import struct
+import threading
+
+from opentsdb_tpu_torch.core.errors import NoSuchUniqueId, NoSuchUniqueName
+from opentsdb_tpu_torch.storage.kv import KVStore
+
+ID_FAMILY = b"id"
+NAME_FAMILY = b"name"
+MAXID_ROW = b"\x00"
+MAX_ATTEMPTS_ASSIGN_ID = 3
+
+class UniqueId:
+    """One UID dictionary of a given kind ('metrics' | 'tagk' | 'tagv')."""
+
+    def __init__(self, store: KVStore, table: str, kind: str,
+                 width: int = 3) -> None:
+        if not kind:
+            raise ValueError("empty kind")
+        if not 1 <= width <= 8:
+            raise ValueError(f"invalid width: {width}")
+        self._store = store
+        self._table = table
+        self._kind = kind
+        self._kindb = kind.encode("iso-8859-1")
+        self._width = width
+        # name -> id and id -> name caches; immutable mappings so stale
+        # entries are impossible (reference UniqueId.java:73-83).
+        self._id_cache: dict[str, bytes] = {}
+        self._name_cache: dict[bytes, str] = {}
+        self._lock = threading.Lock()
+
+    # -- lookups ----------------------------------------------------------
+
+    def get_name(self, uid: bytes) -> str:
+        """id -> name, raising NoSuchUniqueId when absent."""
+        if len(uid) != self._width:
+            raise ValueError(
+                f"wrong id.length = {len(uid)} which is != {self._width} "
+                f"required for '{self._kind}'")
+        name = self._name_cache.get(uid)
+        if name is not None:
+            return name
+        cells = self._store.get(self._table, uid, NAME_FAMILY)
+        for c in cells:
+            if c.qualifier == self._kindb:
+                name = c.value.decode("iso-8859-1")
+                self._name_cache[uid] = name
+                self._id_cache.setdefault(name, uid)
+                return name
+        raise NoSuchUniqueId(self._kind, uid)
+
+    def get_id(self, name: str) -> bytes:
+        """name -> id, raising NoSuchUniqueName when absent."""
+        uid = self._id_cache.get(name)
+        if uid is not None:
+            return uid
+        cells = self._store.get(self._table, name.encode("iso-8859-1"),
+                                ID_FAMILY)
+        for c in cells:
+            if c.qualifier == self._kindb:
+                uid = c.value
+                if len(uid) != self._width:
+                    raise IllegalStateError(
+                        f"Found id.length = {len(uid)} which is != "
+                        f"{self._width} required for '{self._kind}'")
+                self._id_cache[name] = uid
+                self._name_cache.setdefault(uid, name)
+                return uid
+        raise NoSuchUniqueName(self._kind, name)
+
+    # -- allocation -------------------------------------------------------
+
+    def get_or_create_id(self, name: str) -> bytes:
+        """Lookup-or-allocate with the reverse-then-forward CAS discipline."""
+        attempt = MAX_ATTEMPTS_ASSIGN_ID
+        while attempt > 0:
+            attempt -= 1
+            try:
+                return self.get_id(name)
+            except NoSuchUniqueName:
+                pass
+            with self._lock:
+                new_id = self._store.atomic_increment(
+                    self._table, MAXID_ROW, ID_FAMILY, self._kindb)
+                row = struct.pack(">q", new_id)
+                if any(row[: 8 - self._width]):
+                    raise IllegalStateError(
+                        f"All Unique IDs for {self._kind} on {self._width} "
+                        "bytes are already assigned!")
+                row = row[8 - self._width:]
+                # Reverse mapping first (see module docstring).
+                if not self._store.compare_and_set(
+                        self._table, row, NAME_FAMILY, self._kindb, None,
+                        name.encode("iso-8859-1")):
+                    # Freshly allocated id already mapped: corruption; the
+                    # reference logs and proceeds, we do the same.
+                    pass
+                if not self._store.compare_and_set(
+                        self._table, name.encode("iso-8859-1"), ID_FAMILY,
+                        self._kindb, None, row):
+                    # Lost the allocation race: the id is leaked; retry to
+                    # discover the winner's id.
+                    continue
+                self._id_cache[name] = row
+                self._name_cache[row] = name
+                return row
+        raise IllegalStateError(
+            f"Failed to assign an ID for kind='{self._kind}' name='{name}'")
+
+    # -- admin ------------------------------------------------------------
+
+
+    def __str__(self) -> str:
+        return f"UniqueId(table={self._table}, kind={self._kind})"
+
+
+class IllegalStateError(RuntimeError):
+    """Unrecoverable UID-table inconsistency (id overflow, width mismatch)."""
