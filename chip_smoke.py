@@ -6,10 +6,17 @@
 2. Builds every kernel of ``opentsdb_tpu_torch/csrc`` with nvcc for sm_90a
    (one nvcc per source, all started together).
 3. Kernel phase: holds each CUDA kernel against its plain PyTorch version
-   on the card, at the shapes the main path gives it, and times the
-   kernel, the plain version and the one-call library yardstick with CUDA
-   events (median of 20 runs), beside the least time the card needs for
-   the bytes and operations.
+   on the card, at the shapes the main path gives it (and once more with
+   the series stage's points randomly permuted, so unsorted ids are held
+   at scale too), and times the kernel, the plain version and the
+   one-call library yardstick with CUDA events (median of 20 runs),
+   beside the least time the card needs for the bytes and operations.
+   The kernel is timed three ways: as it comes (inputs may sit in the
+   50 MB L2; the clock starts on an idle card, so the wrapper's host time
+   counts), cold (a 128 MB buffer written before each run: device time
+   with a cold L2, the wrapper's host time hidden behind that write), and
+   as device time alone with a warm L2 (20 runs queued back to back behind
+   a GPU sleep). Compare cold with the last, not with the first.
 4. Path phase: starts the port's daemon on loopback, ingests the repo's
    benchmark corpus (10,000 series x 1,000 points over 7 days = 10M
    points, bench.py gen_workload's shape) through ``TSDB.add_batch`` plus
@@ -53,6 +60,7 @@ from opentsdb_tpu_torch.utils.config import Config
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+L2_FLUSH_BYTES = 128 << 20    # written between cold runs: > the 50 MB L2
 BASE = 1356998400             # hour-aligned epoch, as bench.py
 SERIES, POINTS, SPAN = 10_000, 1_000, 7 * 86400
 TELNET_SERIES, TELNET_POINTS = 20, 20
@@ -74,13 +82,18 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def median_ms(fn, reps: int = 20) -> float:
+def median_ms(fn, reps: int = 20, flush: torch.Tensor | None = None) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs, after one
-    warm-up run."""
+    warm-up run. With ``flush``, that buffer is written before each run,
+    outside the events, so every run starts with a cold L2; the write is
+    still running when ``fn`` is called, so the host's time in ``fn`` up to
+    its launch is hidden and the result is device time alone."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -89,6 +102,24 @@ def median_ms(fn, reps: int = 20) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back runs queued
+    behind a GPU sleep, so the host's time in the wrapper overlaps the
+    device's work instead of adding to it (``median_ms`` starts its clock
+    on an idle card and so counts the host's time to the first launch)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(10_000_000)   # ~5 ms at H100 clocks: room to queue
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -124,12 +155,16 @@ def series_tags(s: int) -> dict:
 # Kernel phase
 # ---------------------------------------------------------------------------
 
-def kernel_phase(ts: np.ndarray, vals: np.ndarray) -> tuple[list, list]:
+def kernel_phase(ts: np.ndarray, vals: np.ndarray) -> list:
     """Each kernel against its plain version at the path's shapes: the
     series stage of a 1h downsample over the whole corpus (N = 10M points
-    into 16384 x 256 + 1 segments) and the group stage of a 10-dc
-    group-by (16384 rows of [in_range | value | mask] x 256 buckets into
-    16 groups)."""
+    into 16384 x 256 + 1 segments), the same with the points randomly
+    permuted, the group stage of a 10-dc group-by (16384 rows of
+    [in_range | value | mask] x 256 buckets into 16 groups), and that of a
+    ``{host=*}`` group-by, laid out as the executor lays it out: one series
+    per group, gmap sorted, the 6384 padding rows (empty: zero sums, -inf
+    for max) all in the last of 16384 groups. segment_minmax is timed as
+    the path calls it, for one output (max)."""
     dev = torch.device(DEVICE)
     S, B = 16384, 256
     nseg = S * B + 1
@@ -142,6 +177,8 @@ def kernel_phase(ts: np.ndarray, vals: np.ndarray) -> tuple[list, list]:
         torch.ones_like(v), v,
         torch.from_numpy((rel - bucket * INTERVAL).astype(np.float32))
         .to(dev)], dim=1)
+    perm = torch.from_numpy(
+        np.random.default_rng(3).permutation(seg.numel())).to(dev)
     rng = np.random.default_rng(1)
     rows = np.zeros((S, 3 * B), np.float32)
     rows[:SERIES, :B] = 1.0
@@ -151,14 +188,26 @@ def kernel_phase(ts: np.ndarray, vals: np.ndarray) -> tuple[list, list]:
     gmap_np[:SERIES] = np.arange(SERIES) % 10
     rows_t = torch.from_numpy(rows).to(dev)
     gmap = torch.from_numpy(gmap_np).to(dev)
+    host_gmap_np = np.full(S, S - 1, np.int32)
+    host_gmap_np[:SERIES] = np.arange(SERIES)
+    host_gmap = torch.from_numpy(host_gmap_np).to(dev)
+    host_max = rows_t[:, B:2 * B].clone()
+    host_max[SERIES:] = float("-inf")
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
 
+    v1 = v[:, None].contiguous()
     cases = [
         ("segment_sum", "series stage", feat, seg, nseg),
+        ("segment_sum", "series stage, permuted", feat[perm], seg[perm],
+         nseg),
         ("segment_sum", "group stage", rows_t, gmap, 16),
-        ("segment_minmax", "series stage", v[:, None].contiguous(), seg,
+        ("segment_sum", "group stage {host=*}", rows_t, host_gmap, S),
+        ("segment_minmax", "series stage", v1, seg, nseg),
+        ("segment_minmax", "series stage, permuted", v1[perm], seg[perm],
          nseg),
         ("segment_minmax", "group stage", rows_t[:, B:2 * B].contiguous(),
          gmap, 16),
+        ("segment_minmax", "group stage {host=*}", host_max, host_gmap, S),
     ]
     results = []
     for name, stage, x, ids, ns in cases:
@@ -167,7 +216,7 @@ def kernel_phase(ts: np.ndarray, vals: np.ndarray) -> tuple[list, list]:
             got = segment_reduce.segment_sum(x, ids, ns)
             want = segment_reduce.segment_sum_plain(x, ids, ns)
             torch.cuda.synchronize()
-            if stage == "series stage":
+            if stage.startswith("series stage"):
                 # Counts and bucket-relative timestamp sums are integral
                 # and below 2^24: exact. Value sums: float32, another
                 # (run-dependent) order: rtol 1e-5.
@@ -183,13 +232,19 @@ def kernel_phase(ts: np.ndarray, vals: np.ndarray) -> tuple[list, list]:
             def library(x=x, ids=ids, ns=ns):
                 return torch.zeros((ns, x.shape[1]), device=dev) \
                     .index_add_(0, ids, x)
-            fn = segment_reduce.segment_sum
-            plain = segment_reduce.segment_sum_plain
-            nbytes = n * k * 4 + n * 4 + ns * k * 4
-            ops = n * k
+
+            def fn(x=x, ids=ids, ns=ns):
+                return segment_reduce.segment_sum(x, ids, ns)
+
+            def plain(x=x, ids=ids, ns=ns):
+                return segment_reduce.segment_sum_plain(x, ids, ns)
         else:
-            got = segment_reduce.segment_minmax(x, ids, ns)
-            want = segment_reduce.segment_minmax_plain(x, ids, ns)
+            # Min and max: exact, for each output alone and for both.
+            mn, mx = segment_reduce.segment_minmax_plain(x, ids, ns)
+            want = (mn, mx, mn, mx)
+            got = (*segment_reduce.segment_minmax(x, ids, ns),
+                   segment_reduce.segment_minmax(x, ids, ns, need="min"),
+                   segment_reduce.segment_minmax(x, ids, ns, need="max"))
             torch.cuda.synchronize()
             for a, b in zip(got, want):
                 if not torch.equal(a, b):
@@ -199,32 +254,36 @@ def kernel_phase(ts: np.ndarray, vals: np.ndarray) -> tuple[list, list]:
             idx = ids.long()[:, None].expand(-1, k)
 
             def library(x=x, idx=idx, ns=ns):
-                # Two scatter_reduce_ calls: no single PyTorch call
-                # returns both.
-                shape = (ns, x.shape[1])
-                return (torch.full(shape, float("inf"), device=dev)
-                        .scatter_reduce_(0, idx, x, "amin"),
-                        torch.full(shape, float("-inf"), device=dev)
-                        .scatter_reduce_(0, idx, x, "amax"))
-            fn = segment_reduce.segment_minmax
-            plain = segment_reduce.segment_minmax_plain
-            nbytes = n * k * 4 + n * 4 + 2 * ns * k * 4
-            ops = 2 * n * k
-        b_ms, b_by = bound_ms(nbytes, ops)
+                return torch.full((ns, x.shape[1]), float("-inf"),
+                                  device=dev).scatter_reduce_(0, idx, x,
+                                                              "amax")
+
+            def fn(x=x, ids=ids, ns=ns):
+                return segment_reduce.segment_minmax(x, ids, ns, need="max")
+
+            def plain(x=x, ids=ids, ns=ns):
+                return segment_reduce.segment_minmax_plain(x, ids, ns,
+                                                           need="max")
+        # One output either way: each input byte read once, each output
+        # byte written once; one add or compare per element.
+        b_ms, b_by = bound_ms(n * k * 4 + n * 4 + ns * k * 4, n * k)
         res = {
             "name": name, "stage": stage, "n": n, "k": k, "segments": ns,
             "max_abs_err": err,
-            "ms": median_ms(lambda: fn(x, ids, ns)),
-            "plain_ms": median_ms(lambda: plain(x, ids, ns)),
+            "ms": median_ms(fn),
+            "ms_cold": median_ms(fn, flush=flush),
+            "ms_device": device_ms(fn),
+            "plain_ms": median_ms(plain),
             "library_ms": median_ms(library),
             "bound_ms": b_ms, "bound_by": b_by,
         }
         log(f"kernel {name} [{stage}] N={n} K={k} S={ns}: "
-            f"{res['ms']:.4f} ms (plain {res['plain_ms']:.4f}, library "
-            f"{res['library_ms']:.4f}, bound {b_ms:.4f} by {b_by}), "
-            f"max_abs_err {err:g}")
+            f"{res['ms']:.4f} ms, cold {res['ms_cold']:.4f}, device "
+            f"{res['ms_device']:.4f} (plain "
+            f"{res['plain_ms']:.4f}, library {res['library_ms']:.4f}, "
+            f"bound {b_ms:.4f} by {b_by}), max_abs_err {err:g}")
         results.append(res)
-    del feat, rows_t
+    del feat, rows_t, host_max, cases, flush
     torch.cuda.empty_cache()
     return results
 

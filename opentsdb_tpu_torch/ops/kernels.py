@@ -73,10 +73,10 @@ def _segment_moments(vals: torch.Tensor, seg: torch.Tensor,
                          num_segments)[:, 0]
     if "min" in need:
         mn = segment_minmax(torch.where(valid, vals, _POS_INF)[:, None],
-                            seg, num_segments)[0][:, 0]
+                            seg, num_segments, need="min")[:, 0]
     if "max" in need:
         mx = segment_minmax(torch.where(valid, vals, _NEG_INF)[:, None],
-                            seg, num_segments)[1][:, 0]
+                            seg, num_segments, need="max")[:, 0]
     if extra is not None:
         return count, total, m2, mn, mx, sums[:, -1]
     return count, total, m2, mn, mx
@@ -238,10 +238,10 @@ def _group_stage(filled, in_range, series_mask, gmap, *, num_groups,
         g_m2 = segment_sum(centered * centered, gmap, num_groups)
     if "min" in need:
         g_mn = segment_minmax(torch.where(in_range, filled, _POS_INF),
-                              gmap, num_groups)[0]
+                              gmap, num_groups, need="min")
     if "max" in need:
         g_mx = segment_minmax(torch.where(in_range, filled, _NEG_INF),
-                              gmap, num_groups)[1]
+                              gmap, num_groups, need="max")
     gv = _finish(agg_group, g_count, g_total, g_m2, g_mn, g_mx)
     return gv, g_real > 0
 

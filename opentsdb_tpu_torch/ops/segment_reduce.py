@@ -6,9 +6,11 @@ their plain PyTorch versions.
 per-(series, bucket) and per-(group, bucket) reduction under every
 downsampled query (``ops/kernels.py`` ``_segment_moments`` and
 ``_group_stage``). ``segment_minmax`` replaces the XLA
-``segment_min``/``segment_max`` in the same two places. The source file
-says how each kernel is built for Hopper, what bounds it and why it uses
-atomics.
+``segment_min``/``segment_max`` in the same two places and, like them,
+computes only the output the caller asks for (``need=``). The source file
+says how each kernel is built for Hopper, what bounds it and which of its
+two designs (run merge for many segments, shared-memory privatisation for
+few) a call takes.
 
 Each wrapper takes its plain version only for tensors that lie on the CPU;
 for CUDA tensors it launches its kernel on the calling thread's current
@@ -57,16 +59,22 @@ def _check(vals: torch.Tensor, seg: torch.Tensor, num_segments: int) -> None:
 
 
 def _launch(fn, vals: torch.Tensor, seg: torch.Tensor, num_segments: int,
-            *outs: torch.Tensor) -> None:
+            *outs: torch.Tensor | None) -> None:
+    """Launch ``fn`` on the current stream; an output passed as None is
+    not computed (a null pointer to the kernel)."""
     if vals.device.type != "cuda":
         raise ValueError(f"no kernel for device {vals.device}")
     vals = vals.contiguous()
     seg = seg.contiguous()
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    # The current stream's raw handle: torch.cuda.current_stream() builds
+    # a Stream object first, ~4 us of host time per call, about what a
+    # small kernel runs. The binding is private to PyTorch (checked
+    # against torch 2.11); tests/test_torch_cuda.py exercises it.
+    stream = torch._C._cuda_getCurrentRawStream(vals.device.index)
     with torch.cuda.device(vals.device):
         rc = fn(vals.data_ptr(), seg.data_ptr(), vals.shape[0],
                 vals.shape[1], num_segments,
-                *(o.data_ptr() for o in outs), stream)
+                *(None if o is None else o.data_ptr() for o in outs), stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
 
@@ -97,34 +105,54 @@ def segment_sum(feat: torch.Tensor, seg: torch.Tensor,
 segment_sum.launches = 0
 
 
+_NEEDS = ("min", "max", "both")
+
+
+def _check_need(need: str) -> None:
+    if need not in _NEEDS:
+        raise ValueError(f"need must be one of {_NEEDS}, got {need!r}")
+
+
 def segment_minmax_plain(vals: torch.Tensor, seg: torch.Tensor,
-                         num_segments: int):
+                         num_segments: int, need: str = "both"):
     """Plain PyTorch ``segment_minmax``: masked ``scatter_reduce_``."""
+    _check_need(need)
     keep = (seg >= 0) & (seg < num_segments)
     v = vals[keep]
     idx = seg[keep].long()[:, None].expand(-1, vals.shape[1])
     shape = (num_segments, vals.shape[1])
-    mn = torch.full(shape, float("inf"), dtype=vals.dtype,
-                    device=vals.device)
-    mx = torch.full(shape, float("-inf"), dtype=vals.dtype,
-                    device=vals.device)
-    return (mn.scatter_reduce_(0, idx, v, "amin"),
-            mx.scatter_reduce_(0, idx, v, "amax"))
+    mn = mx = None
+    if need != "max":
+        mn = torch.full(shape, float("inf"), dtype=vals.dtype,
+                        device=vals.device).scatter_reduce_(0, idx, v, "amin")
+    if need != "min":
+        mx = torch.full(shape, float("-inf"), dtype=vals.dtype,
+                        device=vals.device).scatter_reduce_(0, idx, v, "amax")
+    return (mn, mx) if need == "both" else (mn if need == "min" else mx)
 
 
 def segment_minmax(vals: torch.Tensor, seg: torch.Tensor,
-                   num_segments: int):
-    """Per-segment (min, max) of [N, K] float32 values by [N] int32 ids,
-    each [num_segments, K]; +inf / -inf for a segment with no element."""
+                   num_segments: int, need: str = "both"):
+    """Per-segment min and max of [N, K] float32 values by [N] int32 ids,
+    each [num_segments, K]; +inf / -inf for a segment with no element.
+
+    ``need`` is "min" or "max" for that one tensor alone (the other is not
+    computed), or "both" for the pair (min, max)."""
     _check(vals, seg, num_segments)
+    _check_need(need)
     if vals.device.type == "cpu":
-        return segment_minmax_plain(vals, seg, num_segments)
+        return segment_minmax_plain(vals, seg, num_segments, need)
     shape = (num_segments, vals.shape[1])
-    mn = torch.empty(shape, dtype=torch.float32, device=vals.device)
-    mx = torch.empty(shape, dtype=torch.float32, device=vals.device)
+    mn = mx = None
+    if need != "max":
+        mn = torch.full(shape, float("inf"), dtype=torch.float32,
+                        device=vals.device)
+    if need != "min":
+        mx = torch.full(shape, float("-inf"), dtype=torch.float32,
+                        device=vals.device)
     _launch(_kernels().segment_minmax_f32, vals, seg, num_segments, mn, mx)
     segment_minmax.launches += 1
-    return mn, mx
+    return (mn, mx) if need == "both" else (mn if need == "min" else mx)
 
 
 segment_minmax.launches = 0

@@ -97,3 +97,185 @@ def test_downsample_on_card_matches_cpu(card, agg_down, agg_group, rate):
                                            msg=key)
             else:
                 assert torch.equal(g, w), key
+
+
+def _ints(rng, shape):
+    # Integral float32 values: their sums are exact in any order (well
+    # below 2^24), so the kernels' sums compare bit for bit.
+    return rng.integers(-8, 9, shape).astype(np.float32)
+
+
+def _on(card, x, misaligned=False):
+    """x on the card; misaligned puts it 4 bytes past a 16-byte boundary
+    (a contiguous view into a larger buffer), so the kernels take their
+    unvectorised loads."""
+    t = torch.from_numpy(x)
+    if not misaligned:
+        return t.to(card)
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+def _check_all(f, s, nseg):
+    """Sum bit-exact (integral inputs) and min/max bit-exact against the
+    plain versions, for every need= variant."""
+    got = segment_sum(f, s, nseg)
+    assert torch.equal(got, segment_sum_plain(f, s, nseg))
+    mn, mx = segment_minmax(f, s, nseg)
+    want_mn, want_mx = segment_minmax_plain(f, s, nseg)
+    assert torch.equal(mn, want_mn) and torch.equal(mx, want_mx)
+    assert torch.equal(segment_minmax(f, s, nseg, need="min"), want_mn)
+    assert torch.equal(segment_minmax(f, s, nseg, need="max"), want_mx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("k", [1, 3, 5])
+@pytest.mark.parametrize("run", [1, 31, 32, 33, 1_000_000])
+def test_sorted_runs(card, run, k, misaligned):
+    """Sorted ids in runs of every length around the thread (8 points),
+    warp (256) and tile (2048) edges, and one run of 1M points across
+    many tiles and blocks; 100 empty segments past the last id keep the
+    run-merge design."""
+    rng = np.random.default_rng(run + k)
+    n = 3_000_000 if run == 1_000_000 else 100_003
+    ids = (np.arange(n) // run).astype(np.int32)
+    nseg = int(ids[-1]) + 101
+    f = _on(card, _ints(rng, (n, k)), misaligned)
+    _check_all(f, torch.from_numpy(ids).to(card), nseg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_sorted_ids_with_dropped_ids(card, k):
+    """Trash ids (-1) and ids past the end inside sorted runs break the
+    runs and drop out; they never merge into a neighbouring run."""
+    rng = np.random.default_rng(k)
+    n, nseg = 200_000, 200_000 // 7 + 1
+    ids = (np.arange(n) // 7).astype(np.int32)
+    ids[::5] = -1
+    ids[3::11] = nseg + 3
+    ids[6::13] = nseg
+    f = _on(card, _ints(rng, (n, k)))
+    _check_all(f, torch.from_numpy(ids).to(card), nseg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("k", [1, 3, 256, 768])
+@pytest.mark.parametrize("nseg", [2, 16, 64, 65])
+def test_few_segments(card, nseg, k, misaligned):
+    """Few segments, many columns, unsorted ids (with -1 and past-the-end
+    ones): the privatised design up to 64 segments, run merge at 65."""
+    rng = np.random.default_rng(nseg * 1000 + k)
+    n = 16384
+    ids = rng.integers(-1, nseg + 1, n).astype(np.int32)
+    f = _on(card, _ints(rng, (n, k)), misaligned)
+    _check_all(f, torch.from_numpy(ids).to(card), nseg)
+    # Non-integral values, thousands per segment: two float32 sums in
+    # different orders differ by up to ~n * eps * sum|x|, so the bound is
+    # 1e-5 of each output's sum of magnitudes rather than of the
+    # (cancelling) sum itself.
+    v = _on(card, rng.normal(0, 1, (n, k)).astype(np.float32), misaligned)
+    s = torch.from_numpy(ids).to(card)
+    scale = segment_sum_plain(v.abs(), s, nseg)
+    err = (segment_sum(v, s, nseg) - segment_sum_plain(v, s, nseg)).abs()
+    assert bool((err <= 1e-5 * scale).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 256, 768])
+@pytest.mark.parametrize("per_group", [1, 3, 16])
+def test_many_groups_executor_layout(card, per_group, k):
+    """The group stage of a group-by into many groups, laid out as the
+    executor builds it: sorted gmap, per_group series per group, and the
+    padding rows (empty) all in group G-1, one long run."""
+    rng = np.random.default_rng(per_group * 1000 + k)
+    S, series = 4096, 3000
+    groups = -(-series // per_group)
+    G = 1 << (groups - 1).bit_length()
+    ids = np.full(S, G - 1, np.int32)
+    ids[:series] = np.arange(series) // per_group
+    x = _ints(rng, (S, k))
+    x[series:] = 0.0
+    _check_all(_on(card, x), torch.from_numpy(ids).to(card), G)
+
+
+_SPECIAL = np.array(
+    [0.0, -0.0, np.inf, -np.inf, 1.0, -1.0,
+     np.finfo(np.float32).max, -np.finfo(np.float32).max,
+     np.finfo(np.float32).tiny, -np.finfo(np.float32).tiny,
+     np.float32(1e-45), np.float32(-1e-45)], np.float32)
+
+
+def _order_keys(x):
+    """The _order_key mapping of the JAX package's kernels.py, as int64."""
+    b = x.view(torch.int32).long() & 0xFFFFFFFF
+    return torch.where(b >= 0x80000000, ~b & 0xFFFFFFFF, b | 0x80000000)
+
+
+def _from_keys(k):
+    b = torch.where(k >= 0x80000000, k & 0x7FFFFFFF, ~k & 0xFFFFFFFF)
+    return (b - (b >= 0x80000000).long() * (1 << 32)).to(torch.int32) \
+        .view(torch.float32)
+
+
+def _order_key_minmax(x, ids, nseg):
+    """Test-only reference: min and max of the order keys through
+    scatter_reduce_ on int64, mapped back to floats; -0.0 < +0.0."""
+    keep = (ids >= 0) & (ids < nseg)
+    keys = _order_keys(x[keep])
+    idx = ids[keep].long()[:, None].expand(-1, x.shape[1])
+    shape = (nseg, x.shape[1])
+    pos = _order_keys(torch.tensor([np.inf], dtype=torch.float32))
+    neg = _order_keys(torch.tensor([-np.inf], dtype=torch.float32))
+    mn = pos.expand(shape).clone().scatter_reduce_(0, idx, keys, "amin")
+    mx = neg.expand(shape).clone().scatter_reduce_(0, idx, keys, "amax")
+    return _from_keys(mn), _from_keys(mx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 256])
+@pytest.mark.parametrize("nseg,sorted_ids", [
+    (16, False), (5000, False), (5000, True)])
+def test_minmax_special_values_bit_exact(card, nseg, sorted_ids, k):
+    """+-0.0, +-inf and the float32 extremes: min and max bit for bit
+    equal to the order-key reference, in both designs."""
+    rng = np.random.default_rng(nseg + k)
+    n = 50_000
+    x = rng.choice(_SPECIAL, (n, k))
+    ids = (np.sort(rng.integers(-1, nseg + 1, n)) if sorted_ids
+           else rng.integers(-1, nseg + 1, n)).astype(np.int32)
+    want_mn, want_mx = _order_key_minmax(torch.from_numpy(x),
+                                         torch.from_numpy(ids), nseg)
+    f, s = torch.from_numpy(x).to(card), torch.from_numpy(ids).to(card)
+    for got, want in ((segment_minmax(f, s, nseg, need="min"), want_mn),
+                      (segment_minmax(f, s, nseg, need="max"), want_mx),
+                      *zip(segment_minmax(f, s, nseg), (want_mn, want_mx))):
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need", ["min", "max", "both"])
+@pytest.mark.parametrize("nseg", [16, 300_000])
+def test_minmax_need(card, need, nseg):
+    """need= computes one output (or both), counted as one launch, equal
+    to the plain version with the same need=."""
+    rng = np.random.default_rng(nseg)
+    n = 1_000_000
+    f = torch.from_numpy(rng.normal(0, 1, (n, 2)).astype(np.float32)) \
+        .to(card)
+    s = torch.from_numpy(rng.integers(-1, nseg + 1, n).astype(np.int32)) \
+        .to(card)
+    before = segment_minmax.launches
+    got = segment_minmax(f, s, nseg, need=need)
+    assert segment_minmax.launches == before + 1
+    want = segment_minmax_plain(f, s, nseg, need=need)
+    if need == "both":
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    else:
+        assert torch.equal(got, want)

@@ -94,6 +94,90 @@ def test_segment_minmax_matches_xla_exactly(n, nseg, k):
     np.testing.assert_array_equal(got_mx.numpy(), want_mx)
 
 
+# The two id patterns the card kernels specialise on, as (kind, n, m, k):
+# "sorted" ids in runs of m points (the series stage; -1 and past-the-end
+# ids inside the runs), "few" segments, m of them, of many columns with
+# unsorted ids (the group stage), on both sides of the 64-segment switch,
+# and many "groups" of m series each, laid out as the executor lays out a
+# group-by such as {host=*}: sorted ids, the empty padding rows one run in
+# the last group.
+CLASSES = [
+    ("sorted", 5000, 1000, 1),
+    ("sorted", 4099, 33, 3),
+    ("sorted", 3000, 1, 2),
+    ("sorted", 2048, 32, 5),
+    ("few", 600, 2, 768),
+    ("few", 600, 16, 256),
+    ("few", 600, 64, 3),
+    ("few", 600, 65, 768),
+    ("groups", 600, 1, 768),
+    ("groups", 600, 3, 256),
+]
+
+
+def _class_case(kind, n, m, k, seed=0):
+    rng = np.random.default_rng(seed)
+    feat = rng.normal(0, 1, (n, k)).astype(np.float32)
+    if kind == "sorted":
+        seg = (np.arange(n) // m).astype(np.int32)
+        nseg = int(seg[-1]) + 3
+        seg[::17] = -1
+        seg[5::23] = nseg
+    elif kind == "few":
+        nseg = m
+        seg = rng.integers(-1, nseg + 1, n).astype(np.int32)
+    else:
+        series = n * 3 // 4
+        nseg = 1 << (-(-series // m) - 1).bit_length()
+        seg = np.full(n, nseg - 1, np.int32)
+        seg[:series] = np.arange(series) // m
+        feat[series:] = 0.0
+    return feat, seg, nseg
+
+
+@pytest.mark.parametrize("kind,n,m,k", CLASSES)
+def test_segment_sum_shape_classes_match_pallas_and_xla(kind, n, m, k):
+    feat, seg, nseg = _class_case(kind, n, m, k)
+    got = segment_sum(torch.from_numpy(feat), torch.from_numpy(seg),
+                      nseg).numpy()
+    want_pallas = np.asarray(pallas_segment_sum(
+        jnp.asarray(feat), jnp.asarray(seg), nseg, interpret=True))
+    want_xla = np.asarray(jax.ops.segment_sum(
+        jnp.asarray(feat), jnp.asarray(np.where(seg < nseg, seg, -1)),
+        nseg))
+    # Another summation order, as above: rtol/atol 1e-5 (runs of up to
+    # 1000 values of unit scale).
+    np.testing.assert_allclose(got, want_pallas, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, want_xla, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("need", ["min", "max", "both"])
+@pytest.mark.parametrize("kind,n,m,k", CLASSES)
+def test_segment_minmax_need_matches_xla_exactly(kind, n, m, k, need):
+    feat, seg, nseg = _class_case(kind, n, m, k, seed=1)
+    got = segment_minmax(torch.from_numpy(feat), torch.from_numpy(seg),
+                         nseg, need=need)
+    ids = jnp.asarray(np.where(seg < nseg, seg, -1))
+    want = {"min": np.asarray(jax.ops.segment_min(jnp.asarray(feat), ids,
+                                                  nseg)),
+            "max": np.asarray(jax.ops.segment_max(jnp.asarray(feat), ids,
+                                                  nseg))}
+    if need == "both":
+        assert len(got) == 2
+        np.testing.assert_array_equal(got[0].numpy(), want["min"])
+        np.testing.assert_array_equal(got[1].numpy(), want["max"])
+    else:
+        np.testing.assert_array_equal(got.numpy(), want[need])
+
+
+def test_segment_minmax_rejects_unknown_need():
+    f, s = torch.zeros((4, 2)), torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        segment_minmax(f, s, 3, need="mean")
+    with pytest.raises(ValueError):
+        segment_minmax_plain(f, s, 3, need="mean")
+
+
 def test_wrappers_take_plain_version_on_cpu_without_counting():
     feat, seg = _case(64, 9, 3)
     f, s = torch.from_numpy(feat), torch.from_numpy(seg)
