@@ -6,9 +6,10 @@
 2. Builds every kernel of ``opentsdb_tpu_torch/csrc`` with nvcc for sm_90a
    (one nvcc per source, all started together).
 3. Kernel phase: holds each CUDA kernel against its plain PyTorch version
-   on the card, at the shapes the main path gives it (and once more with
-   the series stage's points randomly permuted, so unsorted ids are held
-   at scale too), and times the kernel, the plain version and the
+   on the card, at the shapes the two query paths give it (the window's
+   chunk fold, the scan path's series stage, once more with its points
+   randomly permuted so unsorted ids are held at scale too, and the group
+   stages both share), and times the kernel, the plain version and the
    one-call library yardstick with CUDA events (median of 20 runs),
    beside the least time the card needs for the bytes and operations.
    The kernel is timed three ways: as it comes (inputs may sit in the
@@ -17,15 +18,39 @@
    with a cold L2, the wrapper's host time hidden behind that write), and
    as device time alone with a warm L2 (20 runs queued back to back behind
    a GPU sleep). Compare cold with the last, not with the first.
-4. Path phase: starts the port's daemon on loopback, ingests the repo's
-   benchmark corpus (10,000 series x 1,000 points over 7 days = 10M
-   points, bench.py gen_workload's shape) through ``TSDB.add_batch`` plus
-   a few hundred telnet ``put`` lines, then answers five ``/q`` queries
-   over HTTP. Kernel launch counts are zeroed just before and read just
-   after, and every answer is checked against the float64 oracle
-   (``ops/oracle.py``) on the same stored points.
-5. Prints the card line first; at the end the per-query and ingest
-   lines, the kernels line and, last, the ok line.
+4. Path phase: starts the port's daemon on loopback with its default
+   settings (the resident device window on), ingests the repo's benchmark
+   corpus (10,000 series x 1,000 points over 7 days = 10M points,
+   bench.py gen_workload's shape) through ``TSDB.add_batch`` plus a few
+   hundred telnet ``put`` lines, then answers five ``/q`` queries over
+   HTTP, each once cold (the first run of a (range, interval,
+   downsample) key builds the window's chunk stage) and WARM_REPS times
+   warm. Every answer must say ``"rollup": "resident"`` and raise the
+   window's hit count by one: a query that falls back to the scan fails.
+   Then, in process: each query's chunk-stage time and apply-and-fetch
+   time (synchronised); the same five queries on the port's scan path on
+   the same TSDB (window set aside; host scan and device stage timed),
+   each answer held against the resident one, and both against the
+   float64 oracle (``ops/oracle.py``); one warm resident query and one
+   stage build under ``torch.profiler`` for the device-busy share.
+   Each path (the HTTP queries, the scan loop) is driven with the kernel
+   launch counts set to 0 just before it and read just after; a stage
+   build and each scan-path query must launch ``segment_sum``, and each
+   path must launch both kernels.
+5. Window-at-budget phase: a ``DeviceWindow`` filled directly to the
+   default budget, 2^26 points (16,384 series x 4,096 points over 7 days,
+   appended per series); its chunk stage and apply for ``sum:1h-avg`` and
+   ``max:1h-max`` timed with CUDA events beside the stage's byte bound and
+   held against the same functions on CPU tensors; then one more staging
+   batch must evict the oldest chunk, advance ``complete_from`` and turn a
+   query reaching before it away.
+6. Prints the card line first; at the end the per-query, ingest,
+   profiler and budget lines, the kernels line and, last, the ok line.
+   In the kernels line each kernel's top-level numbers are the resident
+   path's: its launches beside the times at the chunk-fold shape. Under
+   ``paths`` each path's launches stand beside the times at its own shape
+   (the scan path's: the series stage). Both counts include the group
+   stages' launches, whose times are in the details line.
 
 Any failure raises and exits nonzero before the last line. Without a CUDA
 card, or without the package beside it, it exits nonzero and prints no
@@ -51,10 +76,13 @@ import numpy as np
 import torch
 
 from opentsdb_tpu_torch.core.tsdb import TSDB
-from opentsdb_tpu_torch.ops import cuda_build, segment_reduce
-from opentsdb_tpu_torch.query.executor import QueryExecutor, QuerySpec
+from opentsdb_tpu_torch.ops import cuda_build, kernels as wk, segment_reduce
+from opentsdb_tpu_torch.query.executor import (QueryExecutor, QuerySpec,
+                                               _filter_key, _pad64,
+                                               _pad_size)
 from opentsdb_tpu_torch.query.grammar import parse_m
 from opentsdb_tpu_torch.server.tsd import TSDServer
+from opentsdb_tpu_torch.storage.devstore import DeviceWindow
 from opentsdb_tpu_torch.storage.kv import MemKVStore
 from opentsdb_tpu_torch.utils.config import Config
 
@@ -70,8 +98,15 @@ QUERIES = ["sum:1h-avg:bench.metric",
            "max:1h-max:bench.metric{host=h00001}",
            "dev:1h-avg:bench.metric",
            "sum:rate:1h-avg:bench.metric"]
-QUERY_REPS = 3
+WARM_REPS = 5                 # warm /q runs per query, after the first
 DEVICE = "cuda"
+STAGING = 1 << 20             # Config device_window_staging
+# The window's first chunk at the smoke's ingest: whole 1,000-point
+# series batches until the staging threshold is crossed.
+FOLD_POINTS = -(-STAGING // POINTS) * POINTS
+# Window-at-budget phase: the default resident budget (Config
+# device_window_points), as 16,384 series x 4,096 points over SPAN.
+BUDGET_SERIES, BUDGET_POINTS = 16_384, 4_096
 
 
 def fail(msg: str):
@@ -156,10 +191,13 @@ def series_tags(s: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def kernel_phase(ts: np.ndarray, vals: np.ndarray) -> list:
-    """Each kernel against its plain version at the path's shapes: the
-    series stage of a 1h downsample over the whole corpus (N = 10M points
-    into 16384 x 256 + 1 segments), the same with the points randomly
-    permuted, the group stage of a 10-dc group-by (16384 rows of
+    """Each kernel against its plain version at the paths' shapes: the
+    resident window's fold of its first chunk for a 1h downsample
+    (_chunk_fold: N = 1,049,000 points into 16384 x 256 + 1 segments,
+    K = 2 count + value columns for segment_sum, the value column for
+    max), the scan path's series stage of a 1h downsample over the whole
+    corpus (N = 10M points, K = 3, same segments), the same with the
+    points randomly permuted, the group stage of a 10-dc group-by (16384 rows of
     [in_range | value | mask] x 256 buckets into 16 groups), and that of a
     ``{host=*}`` group-by, laid out as the executor lays it out: one series
     per group, gmap sorted, the 6384 padding rows (empty: zero sums, -inf
@@ -196,12 +234,16 @@ def kernel_phase(ts: np.ndarray, vals: np.ndarray) -> list:
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
 
     v1 = v[:, None].contiguous()
+    fold = feat[:FOLD_POINTS, :2].contiguous()
     cases = [
+        ("segment_sum", "window chunk fold", fold, seg[:FOLD_POINTS], nseg),
         ("segment_sum", "series stage", feat, seg, nseg),
         ("segment_sum", "series stage, permuted", feat[perm], seg[perm],
          nseg),
         ("segment_sum", "group stage", rows_t, gmap, 16),
         ("segment_sum", "group stage {host=*}", rows_t, host_gmap, S),
+        ("segment_minmax", "window chunk fold", v1[:FOLD_POINTS],
+         seg[:FOLD_POINTS], nseg),
         ("segment_minmax", "series stage", v1, seg, nseg),
         ("segment_minmax", "series stage, permuted", v1[perm], seg[perm],
          nseg),
@@ -216,12 +258,12 @@ def kernel_phase(ts: np.ndarray, vals: np.ndarray) -> list:
             got = segment_reduce.segment_sum(x, ids, ns)
             want = segment_reduce.segment_sum_plain(x, ids, ns)
             torch.cuda.synchronize()
-            if stage.startswith("series stage"):
+            if not stage.startswith("group stage"):
                 # Counts and bucket-relative timestamp sums are integral
                 # and below 2^24: exact. Value sums: float32, another
                 # (run-dependent) order: rtol 1e-5.
                 if not torch.equal(got[:, 0], want[:, 0]) \
-                        or not torch.equal(got[:, 2], want[:, 2]):
+                        or not torch.equal(got[:, 2:], want[:, 2:]):
                     fail(f"{name} {stage}: integral sums differ")
                 torch.testing.assert_close(got[:, 1], want[:, 1],
                                            rtol=1e-5, atol=1e-5)
@@ -283,7 +325,7 @@ def kernel_phase(ts: np.ndarray, vals: np.ndarray) -> list:
             f"{res['plain_ms']:.4f}, library {res['library_ms']:.4f}, "
             f"bound {b_ms:.4f} by {b_by}), max_abs_err {err:g}")
         results.append(res)
-    del feat, rows_t, host_max, cases, flush
+    del feat, fold, rows_t, host_max, cases, flush
     torch.cuda.empty_cache()
     return results
 
@@ -355,34 +397,197 @@ def spec_of(expr: str) -> QuerySpec:
                      p.counter, p.counter_max, p.reset_value)
 
 
-def check_against_oracle(expr: str, got: list, want) -> float:
-    """The JSON answer against the float64 oracle's results: same groups,
-    tags and timestamps; values within rtol 1e-4 plus 1e-5 of the
-    answer's largest magnitude (float32 sums over 10k series, in a
-    run-dependent order; rate sums cancel across series, so a pure
-    relative bound would be meaningless near zero). Returns the largest
-    relative-to-scale error."""
+def check_answer(expr: str, got: list, want, rtol: float,
+                 against: str) -> float:
+    """The JSON answer against ``want``'s results: same groups, tags and
+    timestamps; values within ``rtol`` plus 1e-5 of the answer's largest
+    magnitude (float32 sums over 10k series, in a run-dependent order;
+    rate sums cancel across series, so a pure relative bound would be
+    meaningless near zero). Returns the largest relative-to-scale
+    error."""
     if len(got) != len(want):
-        fail(f"{expr}: {len(got)} groups, oracle {len(want)}")
+        fail(f"{expr}: {len(got)} groups, {against} {len(want)}")
     worst = 0.0
     for g, w in zip(got, want):
         if g["tags"] != w.tags:
-            fail(f"{expr}: tags {g['tags']} vs oracle {w.tags}")
+            fail(f"{expr}: tags {g['tags']} vs {against} {w.tags}")
         ts = np.array([int(t) for t in g["dps"]], np.int64)
         vals = np.array(list(g["dps"].values()), np.float64)
         if not np.array_equal(ts, w.timestamps):
-            fail(f"{expr}: timestamps differ from the oracle's")
+            fail(f"{expr}: timestamps differ from the {against}'s")
         if not np.isfinite(vals).all() or len(vals) == 0:
             fail(f"{expr}: empty or non-finite answer")
         scale = float(np.abs(w.values).max())
-        tol = 1e-4 * np.abs(w.values) + 1e-5 * scale
+        tol = rtol * np.abs(w.values) + 1e-5 * scale
         err = np.abs(vals - w.values)
         if (err > tol).any():
             i = int(np.argmax(err - tol))
-            fail(f"{expr}: value {vals[i]!r} vs oracle {w.values[i]!r} "
-                 f"at {ts[i]}")
+            fail(f"{expr}: value {vals[i]!r} vs {against} "
+                 f"{w.values[i]!r} at {ts[i]}")
         worst = max(worst, float((err / max(scale, 1e-30)).max()))
     return worst
+
+
+KERNELS = ("segment_sum", "segment_minmax")
+
+
+def launches() -> tuple[int, int]:
+    return (segment_reduce.segment_sum.launches,
+            segment_reduce.segment_minmax.launches)
+
+
+def zero_launches() -> None:
+    segment_reduce.segment_sum.launches = 0
+    segment_reduce.segment_minmax.launches = 0
+
+
+def path_launches(path: str) -> dict:
+    """The counts since zero_launches(), read just after ``path`` ran;
+    a kernel the path never launched fails the run."""
+    out = dict(zip(KERNELS, launches()))
+    for name, n in out.items():
+        if n == 0:
+            fail(f"the {path} never launched {name}")
+    return out
+
+
+def ingest(tsdb: TSDB, port: int, ts: np.ndarray, vals: np.ndarray) -> dict:
+    """The corpus through add_batch, then telnet puts; the window mirrors
+    every write."""
+    t0 = time.perf_counter()
+    for s in range(SERIES):
+        tsdb.add_batch("bench.metric", ts[s], vals[s], series_tags(s))
+    t_batch = time.perf_counter() - t0
+    rng = np.random.default_rng(2)
+    lines = []
+    for s in range(TELNET_SERIES):
+        tt = np.sort(rng.choice(SPAN, TELNET_POINTS, replace=False))
+        for t, v in zip(tt + BASE, rng.normal(100, 1, TELNET_POINTS)):
+            lines.append(f"put bench.metric {t} {v:.4f} host=t{s:02d} "
+                         f"dc=dc{s % 10}")
+    t1 = time.perf_counter()
+    said = telnet(port, lines)
+    t_telnet = time.perf_counter() - t1
+    if "put:" in said or "opentsdb_tpu_torch" not in said:
+        fail(f"telnet ingest answered: {said[:500]!r}")
+    points = SERIES * POINTS + len(lines)
+    out = {"points": points, "batch_s": t_batch, "telnet_s": t_telnet,
+           "telnet_lines": len(lines),
+           "points_per_s": points / (t_batch + t_telnet),
+           "window_appended": tsdb.devwindow.appended_points}
+    if out["window_appended"] != points:
+        fail(f"the window mirrored {out['window_appended']} of {points} "
+             f"points")
+    log(f"ingest: {points} points in {t_batch + t_telnet:.1f} s "
+        f"({out['points_per_s']:,.0f} points/s, window mirroring on)")
+    return out
+
+
+def http_resident(port: int, dw: DeviceWindow, ex: QueryExecutor,
+                  expr: str, start: int, end: int) -> tuple[dict, list]:
+    """One /q run that must be served from the window: every group says
+    "rollup": "resident" and the window's hit count rises by one."""
+    target = "/q?" + urllib.parse.urlencode(
+        {"start": start, "end": end, "m": expr, "json": ""})
+    before, hits = launches(), dw.window_hits
+    keys = set(ex._dw_stage_cache.keys())
+    q0 = time.perf_counter()
+    status, body = http_get(port, target)
+    wall = (time.perf_counter() - q0) * 1e3
+    if status != 200:
+        fail(f"{expr}: HTTP {status}: {body[:300]!r}")
+    answer = json.loads(body)
+    if not answer or any(g["rollup"] != "resident" for g in answer):
+        fail(f"{expr}: not served from the resident window: "
+             f"{[g.get('rollup') for g in answer]}")
+    if dw.window_hits != hits + 1:
+        fail(f"{expr}: window hits {hits} -> {dw.window_hits}, not +1")
+    after = launches()
+    return {"wall_ms": wall,
+            "stage_built": bool(set(ex._dw_stage_cache.keys()) - keys),
+            "segment_sum": after[0] - before[0],
+            "segment_minmax": after[1] - before[1]}, answer
+
+
+def sync_ms(fn) -> tuple[float, object]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def stage_and_apply(ex: QueryExecutor, dw: DeviceWindow, spec: QuerySpec,
+                    start: int, end: int) -> dict:
+    """In process, synchronised, median of 3 after a warm-up: the chunk
+    stage (window_series_stage_chunks) and the apply plus the fetch of
+    its clipped grids, as _run_devwindow calls them, on the executor's
+    cached include/gmap."""
+    muid = ex.tsdb.metrics.get_id(spec.metric)
+    cols = dw.chunk_columns(muid, start, end)
+    interval, dsagg = spec.downsample
+    qbase = start - start % interval
+    num_buckets = _pad_size(int((end - qbase) // interval + 1))
+
+    def stage():
+        return wk.window_series_stage_chunks(
+            cols.chunks, start - cols.epoch, end - cols.epoch,
+            qbase - cols.epoch,
+            num_series=_pad_size(len(cols.series_keys)),
+            num_buckets=num_buckets, interval=interval, agg_down=dsagg,
+            **ex._rate_kw(spec))
+
+    grids = stage()  # warm-up: the allocator's first blocks
+    stage_runs = [sync_ms(stage)[0] for _ in range(3)]
+    exact, group_bys = ex._tag_filters(spec.tags)
+    _, include, gmap = ex._dw_mask_cache.get(
+        (dw.instance_id, muid, _filter_key(exact, group_bys)))
+    groups, _ = ex._devwindow_groups(dw, muid, cols, exact, group_bys)
+    ngroups = 1 if len(groups) == 1 else _pad_size(len(groups))
+    b_out = min(num_buckets, _pad64(int((end - qbase) // interval + 1)))
+
+    def apply():
+        gv, gm = wk.window_moment_apply(
+            *grids[:4], include, gmap, num_groups=ngroups,
+            agg_group=spec.aggregator,
+            g_out=min(ngroups, _pad64(len(groups))), b_out=b_out)
+        return gv.cpu().numpy(), gm.cpu().numpy()
+
+    apply()  # warm-up
+    apply_runs = [sync_ms(apply)[0] for _ in range(3)]
+    return {"chunks": len(cols.chunks),
+            "stage_ms": statistics.median(stage_runs),
+            "stage_ms_runs": stage_runs,
+            "apply_fetch_ms": statistics.median(apply_runs)}
+
+
+def profile_share(ex: QueryExecutor, spec: QuerySpec, start: int,
+                  end: int) -> dict:
+    """One resident query in process under torch.profiler: device-busy
+    share = the summed durations of the card's activities (kernels,
+    copies, fills) over the query's wall time. "not measured" when the
+    trace holds no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_ms, (_, plan, _) = sync_ms(
+            lambda: ex.run_with_plan(spec, start, end))
+    if plan != "resident":
+        fail(f"profiled query took plan {plan!r}")
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    by_name: dict = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall_ms, "device_events": len(dev),
+            "device_busy_ms": busy_ms if dev else "not measured",
+            "device_busy_share": busy_ms / wall_ms if dev
+            else "not measured",
+            "top_device_ms": top}
 
 
 def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
@@ -390,87 +595,241 @@ def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
                 Config(auto_create_metrics=True, port=0, bind="127.0.0.1",
                        device=DEVICE),
                 start_compaction_thread=True)
+    dw = tsdb.devwindow
+    if dw is None:
+        fail("the daemon's TSDB came up without the resident window")
     daemon = Daemon(tsdb)
-    out: dict = {"queries": {}}
+    ex = daemon.server.executor
+    out: dict = {"queries": {}, "launches": {}}
     try:
-        segment_reduce.segment_sum.launches = 0
-        segment_reduce.segment_minmax.launches = 0
-        t0 = time.perf_counter()
-        for s in range(SERIES):
-            tsdb.add_batch("bench.metric", ts[s], vals[s], series_tags(s))
-        t_batch = time.perf_counter() - t0
-        rng = np.random.default_rng(2)
-        lines = []
-        for s in range(TELNET_SERIES):
-            tt = np.sort(rng.choice(SPAN, TELNET_POINTS, replace=False))
-            for t, v in zip(tt + BASE, rng.normal(100, 1, TELNET_POINTS)):
-                lines.append(f"put bench.metric {t} {v:.4f} host=t{s:02d} "
-                             f"dc=dc{s % 10}")
-        t1 = time.perf_counter()
-        said = telnet(daemon.port, lines)
-        t_telnet = time.perf_counter() - t1
-        if "put:" in said or "opentsdb_tpu_torch" not in said:
-            fail(f"telnet ingest answered: {said[:500]!r}")
-        points = SERIES * POINTS + len(lines)
-        out["ingest"] = {
-            "points": points, "batch_s": t_batch, "telnet_s": t_telnet,
-            "telnet_lines": len(lines),
-            "points_per_s": points / (t_batch + t_telnet)}
-        log(f"ingest: {points} points in {t_batch + t_telnet:.1f} s "
-            f"({out['ingest']['points_per_s']:,.0f} points/s)")
-
+        out["ingest"] = ingest(tsdb, daemon.port, ts, vals)
         start, end = BASE, BASE + SPAN - 1
         answers = {}
+        zero_launches()
         for expr in QUERIES:
-            target = "/q?" + urllib.parse.urlencode(
-                {"start": start, "end": end, "m": expr, "json": ""})
-            before = (segment_reduce.segment_sum.launches,
-                      segment_reduce.segment_minmax.launches)
-            walls = []
-            for _ in range(QUERY_REPS):
-                q0 = time.perf_counter()
-                status, body = http_get(daemon.port, target)
-                walls.append((time.perf_counter() - q0) * 1e3)
-                if status != 200:
-                    fail(f"{expr}: HTTP {status}: {body[:300]!r}")
-            launched = (segment_reduce.segment_sum.launches - before[0],
-                        segment_reduce.segment_minmax.launches - before[1])
-            answers[expr] = json.loads(body)
+            runs = []
+            for _ in range(1 + WARM_REPS):
+                run, answers[expr] = http_resident(daemon.port, dw, ex,
+                                                   expr, start, end)
+                runs.append(run)
+            first, warm = runs[0], runs[1:]
+            if first["stage_built"] and first["segment_sum"] == 0:
+                fail(f"{expr}: its stage build launched no segment_sum")
             out["queries"][expr] = {
-                "p50_ms": statistics.median(walls), "wall_ms": walls,
-                "launches_per_query": {
-                    "segment_sum": launched[0] // QUERY_REPS,
-                    "segment_minmax": launched[1] // QUERY_REPS}}
-            log(f"query {expr}: p50 {statistics.median(walls):.1f} ms "
-                f"(runs {', '.join(f'{w:.1f}' for w in walls)})")
-        out["launches"] = {
-            "segment_sum": segment_reduce.segment_sum.launches,
-            "segment_minmax": segment_reduce.segment_minmax.launches}
-        for name, n in out["launches"].items():
-            if n == 0:
-                fail(f"the main path never launched {name}")
+                "first_ms": first["wall_ms"],
+                "first_built_stage": first["stage_built"],
+                "first_launches": {k: first[k] for k in KERNELS},
+                "warm_p50_ms": statistics.median(
+                    r["wall_ms"] for r in warm),
+                "warm_ms": [r["wall_ms"] for r in warm],
+                "warm_launches_per_query": {
+                    k: sum(r[k] for r in warm) / len(warm)
+                    for k in KERNELS}}
+            q = out["queries"][expr]
+            log(f"query {expr}: first {q['first_ms']:.1f} ms (stage "
+                f"built: {q['first_built_stage']}), warm p50 "
+                f"{q['warm_p50_ms']:.1f} ms (runs "
+                f"{', '.join(f'{w:.1f}' for w in q['warm_ms'])})")
+        out["launches"]["resident"] = path_launches("resident path")
+        out["window"] = {"resident_points": dw._total_points,
+                         "hits": dw.window_hits,
+                         "misses": dw.window_misses,
+                         "dirty_fallbacks": dw.dirty_fallbacks}
 
-        # Where a query's time goes (the host scan vs the device stage:
-        # upload, kernels, download), in process, once per query; then
-        # the HTTP answer against the float64 oracle (the port's copied
-        # ops/oracle.py) on the same spans.
-        ex = QueryExecutor(tsdb)
+        # In process: where a resident query's time goes.
+        for expr in QUERIES:
+            out["queries"][expr].update(
+                stage_and_apply(ex, dw, spec_of(expr), start, end))
+
+        # The same queries on the scan path of the same TSDB (window set
+        # aside): host scan and device stage timed, launches counted.
+        scans = {}
+        tsdb.devwindow = None
+        try:
+            zero_launches()
+            for expr in QUERIES:
+                spec = spec_of(expr)
+                q = out["queries"][expr]
+                before = launches()
+                s0 = time.perf_counter()
+                groups = ex._find_spans(spec, start, end)
+                s1 = time.perf_counter()
+                scans[expr] = (groups, ex._execute_groups(spec, groups,
+                                                          start, end))
+                torch.cuda.synchronize()
+                q["scan_ms"] = (s1 - s0) * 1e3
+                q["execute_ms"] = (time.perf_counter() - s1) * 1e3
+                q["scan_launches"] = {
+                    k: a - b for k, a, b in zip(KERNELS, launches(),
+                                                before)}
+                if q["scan_launches"]["segment_sum"] == 0:
+                    fail(f"{expr}: the scan path launched no segment_sum")
+            out["launches"]["scan"] = path_launches("scan path")
+        finally:
+            tsdb.devwindow = dw
+
+        # Each resident answer against the scan path's, and both against
+        # the float64 oracle on the scanned spans.
         oracle = QueryExecutor(tsdb, backend="cpu")
         for expr in QUERIES:
             spec = spec_of(expr)
             q = out["queries"][expr]
-            s0 = time.perf_counter()
-            groups = ex._find_spans(spec, start, end)
-            s1 = time.perf_counter()
-            ex._execute_groups(spec, groups, start, end)
-            torch.cuda.synchronize()
-            q["scan_ms"] = (s1 - s0) * 1e3
-            q["execute_ms"] = (time.perf_counter() - s1) * 1e3
-            q["oracle_rel_err"] = check_against_oracle(
+            groups, scan = scans.pop(expr)
+            q["scan_rel_err"] = check_answer(expr, answers[expr], scan,
+                                             1e-5, "scan path")
+            q["oracle_rel_err"] = check_answer(
                 expr, answers[expr],
-                oracle._execute_groups(spec, groups, start, end))
+                oracle._execute_groups(spec, groups, start, end), 1e-4,
+                "oracle")
+            log(f"query {expr}: {q['chunks']} chunks, stage "
+                f"{q['stage_ms']:.2f} ms, apply+fetch "
+                f"{q['apply_fetch_ms']:.2f} ms; scan path: scan "
+                f"{q['scan_ms']:.0f} ms + device stage "
+                f"{q['execute_ms']:.0f} ms, launches "
+                f"{q['scan_launches']}")
+
+        # torch.profiler over one warm resident query, and over one whose
+        # stage is rebuilt (its cache entry dropped first).
+        spec = spec_of(QUERIES[1])
+        out["profile_warm"] = profile_share(ex, spec, start, end)
+        for k in ex._dw_stage_cache.keys():
+            ex._dw_stage_cache.pop(k)
+        out["profile_stage_build"] = profile_share(ex, spec, start, end)
+        for k in ("profile_warm", "profile_stage_build"):
+            log(f"{k} {QUERIES[1]}: {out[k]}")
     finally:
         daemon.stop()
+    return out
+
+
+def budget_phase() -> dict:
+    """A DeviceWindow filled to the default budget, folded on the card
+    and on the CPU, then pushed past it."""
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(5)
+    step = SPAN // BUDGET_POINTS
+    t0 = time.perf_counter()
+    ts = (BASE + np.arange(BUDGET_POINTS, dtype=np.int64) * step
+          + rng.integers(0, step // 2, (BUDGET_SERIES, BUDGET_POINTS)))
+    vals = (100 + np.cumsum(rng.standard_normal(
+        (BUDGET_SERIES, BUDGET_POINTS), dtype=np.float32), axis=1))
+    gen_s = time.perf_counter() - t0
+    muid = b"\x00\x00\x09"
+
+    def skey(s):
+        return muid + b"\x00\x00\x01" + s.to_bytes(3, "big")
+
+    budget = BUDGET_SERIES * BUDGET_POINTS
+    dw = DeviceWindow(staging_points=STAGING, max_points=budget,
+                      device=dev)
+    t0 = time.perf_counter()
+    for s in range(BUDGET_SERIES):
+        dw.append(muid, skey(s), ts[s], vals[s])
+    dw.flush()
+    fill_s = time.perf_counter() - t0
+    if dw._total_points != budget or dw.evicted_points:
+        fail(f"budget fill: {dw._total_points} resident, "
+             f"{dw.evicted_points} evicted")
+    start, end = BASE, BASE + SPAN - 1
+    cols = dw.chunk_columns(muid, start, end)
+    resident_bytes = sum(t.numel() * t.element_size()
+                         for c in cols.chunks for t in c)
+    cpu_chunks = [tuple(t.cpu() for t in c) for c in cols.chunks]
+    S, B = BUDGET_SERIES, _pad_size(SPAN // INTERVAL + 1)
+    nseg = S * B + 1
+    out = {"points": budget, "series": S, "chunks": len(cols.chunks),
+           "resident_bytes": resident_bytes, "gen_s": gen_s,
+           "fill_s": fill_s, "fill_points_per_s": budget / fill_s,
+           "queries": {}}
+    include = torch.ones(S, dtype=torch.bool, device=dev)
+    gmap = torch.zeros(S, dtype=torch.int32, device=dev)
+    for name, dsagg, agg_group in (("sum:1h-avg", "avg", "sum"),
+                                   ("max:1h-max", "max", "max")):
+        kw = dict(num_series=S, num_buckets=B, interval=INTERVAL)
+        need = wk._needs(dsagg)
+        qbase = start - start % INTERVAL
+        args = (start - cols.epoch, end - cols.epoch, qbase - cols.epoch)
+
+        def stage(chunks=cols.chunks, dsagg=dsagg):
+            return wk.window_series_stage_chunks(chunks, *args,
+                                                 agg_down=dsagg, **kw)
+
+        grids = stage()
+
+        def apply(grids=grids, agg_group=agg_group):
+            return wk.window_moment_apply(
+                *grids[:4], include, gmap, num_groups=1,
+                agg_group=agg_group)
+
+        stage_ms = median_ms(stage, reps=5)
+        apply_ms = median_ms(apply, reps=5)
+        # Each resident byte read once, each accumulator the stage keeps
+        # (count + sum, or count + max) written once.
+        acc_bytes = nseg * 4 * (1 + len(need))
+        b_ms, b_by = bound_ms(resident_bytes + acc_bytes, 0)
+        # The same functions on CPU tensors (the plain versions).
+        got_acc = wk._fold_chunks(cols.chunks, *args, need=need, **kw)
+        want_acc = wk._fold_chunks(cpu_chunks, *args, need=need, **kw)
+        want = stage(cpu_chunks)
+        cpu_include, cpu_gmap = include.cpu(), gmap.cpu()
+        wv, wm = wk.window_moment_apply(*want[:4], cpu_include, cpu_gmap,
+                                        num_groups=1, agg_group=agg_group)
+        gv, gm = apply()
+        if not torch.equal(got_acc[0].cpu(), want_acc[0]):
+            fail(f"budget {name}: counts differ from the CPU's")
+        if dsagg == "max":
+            if not torch.equal(got_acc[4].cpu(), want_acc[4]) \
+                    or not torch.equal(grids[0].cpu(), want[0]):
+                fail(f"budget {name}: max not exact against the CPU")
+        else:
+            torch.testing.assert_close(got_acc[1].cpu(), want_acc[1],
+                                       rtol=1e-5, atol=1e-3)
+            torch.testing.assert_close(grids[0].cpu(), want[0], rtol=1e-5,
+                                       atol=1e-5)
+        for g, w, what in ((grids[1], want[1], "series mask"),
+                           (grids[3], want[3], "in_range"),
+                           (grids[4], want[4], "presence"),
+                           (gm, wm, "group mask")):
+            if not torch.equal(g.cpu(), w):
+                fail(f"budget {name}: {what} differs from the CPU's")
+        torch.testing.assert_close(grids[2].cpu(), want[2], rtol=1e-5,
+                                   atol=1e-5)
+        torch.testing.assert_close(gv.cpu(), wv, rtol=1e-5, atol=1e-3)
+        if not bool(torch.isfinite(gv[gm]).all()) or not bool(gm.any()):
+            fail(f"budget {name}: empty or non-finite answer")
+        out["queries"][name] = {
+            "stage_ms": stage_ms, "apply_ms": apply_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / stage_ms}
+        log(f"budget {name}: stage {stage_ms:.3f} ms (bound {b_ms:.4f} "
+            f"ms by {b_by}, {len(cols.chunks)} chunks), apply "
+            f"{apply_ms:.3f} ms")
+        del grids, got_acc, want_acc, want
+
+    # One more staging batch, later in time: the oldest chunk goes.
+    mw = dw._metrics[muid]
+    oldest_max = mw.chunks[0]["max_ts"]
+    per = STAGING // BUDGET_POINTS
+    later = BASE + SPAN + np.arange(BUDGET_POINTS, dtype=np.int64) * step
+    for s in range(per):
+        dw.append(muid, skey(s), later, np.ones(BUDGET_POINTS, np.float32))
+    dw.flush()
+    if dw.evicted_points != STAGING:
+        fail(f"budget eviction: {dw.evicted_points} points evicted")
+    if mw.complete_from != oldest_max + 1:
+        fail(f"budget eviction: complete_from {mw.complete_from}, "
+             f"wanted {oldest_max + 1}")
+    if dw.chunk_columns(muid, start, int(later[-1])) is not None:
+        fail("budget eviction: a query before complete_from was served")
+    kept = dw.chunk_columns(muid, mw.complete_from, int(later[-1]))
+    if kept is None or len(kept.chunks) != len(cols.chunks):
+        fail("budget eviction: the kept window does not serve")
+    out["eviction"] = {"evicted_points": dw.evicted_points,
+                       "complete_from": mw.complete_from,
+                       "chunks_after": len(kept.chunks)}
+    log(f"budget eviction: {out['eviction']}")
+    del dw, cols, kept, cpu_chunks
+    torch.cuda.empty_cache()
     return out
 
 
@@ -495,32 +854,50 @@ def main() -> int:
     kernels = kernel_phase(ts, vals)
     with tempfile.TemporaryDirectory() as wal_dir:
         path = path_phase(ts, vals, wal_dir)
+    del ts, vals
+    budget = budget_phase()
 
+    # Each path's launches beside the times at that path's shape.
+    shape = {"resident": "window chunk fold", "scan": "series stage"}
+    by_case = {(r["name"], r["stage"]): r for r in kernels}
     line = []
-    for res in kernels:
-        if res["stage"] != "series stage":
-            continue
+    for name in KERNELS:
+        paths = {}
+        for p, stage in shape.items():
+            r = by_case[(name, stage)]
+            paths[p] = {"stage": stage,
+                        "launches": path["launches"][p][name],
+                        **{k: r[k] for k in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}}
         line.append({
-            "name": res["name"], "route": "cuda",
+            "name": name, "route": "cuda",
             "source": "opentsdb_tpu_torch/csrc/segment_reduce.cu",
             "replaces": ("opentsdb_tpu/ops/pallas_kernels.py:77"
-                         if res["name"] == "segment_sum"
+                         if name == "segment_sum"
                          else "opentsdb_tpu/ops/kernels.py:95"),
-            "launches": path["launches"][res["name"]],
-            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": res["bound_by"], "library_ms": res["library_ms"]})
+            **paths["resident"], "paths": paths})
     log(json.dumps({"details": {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-        "build_s": build_s, "kernel_cases": kernels, "path": path}}))
+        "build_s": build_s, "kernel_cases": kernels, "path": path,
+        "budget": budget}}))
     for expr, q in path["queries"].items():
-        print(json.dumps({"query": expr, "p50_ms": q["p50_ms"],
-                          "scan_ms": q["scan_ms"],
-                          "execute_ms": q["execute_ms"],
-                          "launches_per_query": q["launches_per_query"],
+        print(json.dumps({"query": expr, "plan": "resident", **q,
                           "card": smi}))
     print(json.dumps({"ingest_points_per_s":
-                      path["ingest"]["points_per_s"], "card": smi}))
+                      path["ingest"]["points_per_s"],
+                      "window": path["window"],
+                      "launches": path["launches"], "card": smi}))
+    for k in ("profile_warm", "profile_stage_build"):
+        p = path[k]
+        print(json.dumps({k: QUERIES[1], "wall_ms": p["wall_ms"],
+                          "device_busy_ms": p["device_busy_ms"],
+                          "device_busy_share": p["device_busy_share"],
+                          "card": smi}))
+    print(json.dumps({"window_at_budget": {
+        k: budget[k] for k in ("points", "chunks", "resident_bytes",
+                               "fill_points_per_s", "queries",
+                               "eviction")}, "card": smi}))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,11 @@ Mirrors ``opentsdb_tpu/core/tsdb.py`` of the JAX package: the write path
 (``add_point``, the columnar ``add_batch`` that stores one pre-compacted
 cell per row-hour), row-key construction, row compaction and the
 columnar read path (``scan_series``) — byte for byte the same rows, so
-either package reads what the other wrote.
+either package reads what the other wrote — and the resident device
+window (``storage/devstore.py``): on by default on the device backend,
+mirrored from every write and warmed from what storage already holds.
 
-Left out of this slice (all off here; see ROADMAP): the resident device
+Left out of this slice (all off here; see ROADMAP): the mesh-sharded
 window, live sketches, rollups, tenant accounting, checkpoints and the
 cluster tier.
 """
@@ -22,6 +24,7 @@ from opentsdb_tpu_torch.core.compaction import CompactionQueue
 from opentsdb_tpu_torch.core.const import (MAX_TIMESPAN, TIMESTAMP_BYTES,
                                            UID_WIDTH)
 from opentsdb_tpu_torch.core.errors import IllegalDataError
+from opentsdb_tpu_torch.storage.devstore import DeviceWindow
 from opentsdb_tpu_torch.storage.kv import KVStore
 from opentsdb_tpu_torch.uid.uniqueid import UniqueId
 from opentsdb_tpu_torch.utils.config import Config, resolve_device
@@ -46,6 +49,34 @@ class TSDB:
         self.tagv = UniqueId(store, uidtable, "tagv", 3)
         self.compactionq = CompactionQueue(
             self, start_thread=start_compaction_thread)
+        # Device-resident columnar hot window (storage/devstore.py):
+        # ingest mirrors into device memory so queries skip the scan and
+        # the host->device copy. The oracle backend has nothing to serve
+        # from it.
+        self.devwindow = None
+        if self.config.device_window and self.config.backend != "cpu":
+            self.devwindow = DeviceWindow(
+                staging_points=self.config.device_window_staging,
+                max_points=self.config.device_window_points,
+                device=self.device)
+            self._warm_devwindow()
+
+    def _warm_devwindow(self) -> None:
+        """Mirror what storage already holds (a replayed WAL, the port's
+        or the JAX package's) into the device window, one append per
+        series, so it covers history from before this process started.
+
+        Corrupt storage (conflicting duplicates — IllegalDataError, the
+        fsck signal) disables the window outright: a partially warmed
+        window would claim coverage it doesn't have."""
+        try:
+            _, per_series = self.scan_series(b"", b"\xff" * 64)
+        except IllegalDataError:
+            self.devwindow = None
+            return
+        for skey, cols in per_series.items():
+            self.devwindow.append(skey[:UID_WIDTH], skey, cols.timestamps,
+                                  cols.values)
 
     # ------------------------------------------------------------------
     # Row-key construction
@@ -106,6 +137,10 @@ class TSDB:
         self.store.put(self.table, row, FAMILY, qual, buf, durable=durable)
         if self.config.enable_compactions:
             self.compactionq.add(row)
+        if self.devwindow is not None:
+            self.devwindow.append(metric_uid, codec.series_key(row),
+                                  np.asarray([timestamp], np.int64),
+                                  np.asarray([value], np.float32))
 
     def add_batch(self, metric: str, timestamps: np.ndarray,
                   values: np.ndarray, tag_map: dict[str, str],
@@ -169,6 +204,9 @@ class TSDB:
             for i, e in enumerate(existed):
                 if e:
                     self.compactionq.add(kb[i * L:(i + 1) * L])
+        if self.devwindow is not None:
+            self.devwindow.append(metric_uid, codec.series_key(kb[:L]),
+                                  ts_s, f_s.astype(np.float32))
         return len(ts_s)
 
     # ------------------------------------------------------------------

@@ -1,12 +1,21 @@
 """The downsample + group-by core of the query path, in PyTorch.
 
-Mirrors the scan-path half of ``opentsdb_tpu/ops/kernels.py``:
-``_segment_moments``, ``_finish``, ``gap_fill``, ``bucket_rate``,
-``step_fill``, ``group_moments``, ``_group_stage``, ``_series_stage``,
-``downsample_group`` and ``downsample_multigroup``, with the same
-arguments, padding and results. Every segment sum, min and max goes
-through the port's own kernels (``ops/segment_reduce.py``); the rest is
-plain tensor code on whatever device the inputs lie on.
+Mirrors two halves of ``opentsdb_tpu/ops/kernels.py``, with the same
+names, arguments, padding and results:
+
+- the scan path: ``_segment_moments``, ``_finish``, ``gap_fill``,
+  ``bucket_rate``, ``step_fill``, ``group_moments``, ``_group_stage``,
+  ``_series_stage``, ``downsample_group`` and ``downsample_multigroup``;
+- the resident-window path (``storage/devstore.py``), over the window's
+  chunk list: ``_chunk_fold``, ``_chunk_stage_finish``,
+  ``window_series_stage_chunks``, ``_shrink_wrap`` and
+  ``window_moment_apply``. The JAX package's stage over concatenated
+  columns (``window_series_stage``, ``window_query``) is left out: the
+  executor serves only from the chunks.
+
+Every segment sum, min and max goes through the port's own kernels
+(``ops/segment_reduce.py``); the rest is plain tensor code on whatever
+device the inputs lie on.
 
 Layout, as in the JAX package: all points of a query in one flat [N]
 stream with a parallel [N] series id; timestamps are int32 offsets from
@@ -380,3 +389,190 @@ def downsample_multigroup(ts: torch.Tensor, vals: torch.Tensor,
         "series_mask": series_mask,
         "presence": presence,
     }
+
+
+# ---------------------------------------------------------------------------
+# Resident-window stages (storage/devstore.py query path)
+# ---------------------------------------------------------------------------
+
+def _merge_min(acc: torch.Tensor, x: torch.Tensor) -> None:
+    """acc = min(acc, x) in place, with -0.0 below +0.0 (the order of the
+    segment_minmax kernel), so a chunk-by-chunk minimum equals one pass."""
+    take = (x < acc) | ((x == acc) & torch.signbit(x))
+    torch.where(take, x, acc, out=acc)
+
+
+def _merge_max(acc: torch.Tensor, x: torch.Tensor) -> None:
+    """acc = max(acc, x) in place, with +0.0 above -0.0."""
+    take = (x > acc) | ((x == acc) & ~torch.signbit(x))
+    torch.where(take, x, acc, out=acc)
+
+
+def _chunk_fold(rel_ts, vals, sid, count, total, m2, mn, mx,
+                lo, hi, shift, *, num_series, num_buckets, interval,
+                need):
+    """Fold ONE resident chunk into the per-(series, bucket) accumulators,
+    in place (the JAX package donates them); points outside [lo, hi] go
+    to the trash segment ``nseg - 1``. Accumulators ``need`` does not ask
+    for may be None and stay so. Chunks hold no padding, so every point
+    is valid (the JAX package's ``valid`` column has no counterpart).
+
+    ``lo``/``hi`` bound the window-relative timestamps; ``shift`` (qbase -
+    epoch) rebases them onto the query's bucket grid.
+
+    Count and value sum ride one stacked K = 2 ``segment_sum``. ``m2``
+    accumulates the exact pairwise (Chan et al.) combination: the chunk's
+    M2 is centered on the CHUNK-local segment means, then corrected by
+    the mean shift against the running accumulators BEFORE they take the
+    chunk's count and sum. Min and max each ask ``segment_minmax`` for
+    their one output. Returns (count, total, m2, mn, mx)."""
+    lo, hi, shift = int(lo), int(hi), int(shift)
+    nseg = num_series * num_buckets + 1
+    ok = (rel_ts >= lo) & (rel_ts <= hi)
+    bucket = torch.clamp(
+        torch.div(rel_ts - shift, interval, rounding_mode="floor"),
+        0, num_buckets - 1)
+    seg = torch.where(ok, sid * num_buckets + bucket,
+                      nseg - 1).to(torch.int32)
+    with_sum = "sum" in need or "m2" in need
+    cols = [ok.to(torch.float32)]
+    if with_sum:
+        cols.append(torch.where(ok, vals, 0.0))
+    sums = segment_sum(torch.stack(cols, dim=1), seg, nseg)
+    c_cnt = sums[:, 0]
+    if "m2" in need:
+        c_tot = sums[:, 1]
+        c_mean = c_tot / torch.clamp(c_cnt, min=1.0)
+        centered = torch.where(ok, vals - c_mean[seg.long()], 0.0)
+        c_m2 = segment_sum((centered * centered)[:, None], seg,
+                           nseg)[:, 0]
+        a_mean = total / torch.clamp(count, min=1.0)
+        tot_n = count + c_cnt
+        delta = c_mean - a_mean
+        corr = torch.where(tot_n > 0,
+                           delta * delta * count * c_cnt
+                           / torch.clamp(tot_n, min=1.0), 0.0)
+        m2.add_(c_m2).add_(corr)
+    count.add_(c_cnt)
+    if with_sum:
+        total.add_(sums[:, 1])
+    if "min" in need:
+        _merge_min(mn, segment_minmax(
+            torch.where(ok, vals, _POS_INF)[:, None], seg, nseg,
+            need="min")[:, 0])
+    if "max" in need:
+        _merge_max(mx, segment_minmax(
+            torch.where(ok, vals, _NEG_INF)[:, None], seg, nseg,
+            need="max")[:, 0])
+    return count, total, m2, mn, mx
+
+
+def _fold_chunks(chunks, lo, hi, shift, *, num_series, num_buckets,
+                 interval, need):
+    """Fresh accumulators on the chunks' device, folded chunk by chunk.
+    Returns (count, total, m2, mn, mx); those ``need`` leaves out are
+    None."""
+    chunks = list(chunks)
+    dev = chunks[0][0].device
+    nseg = num_series * num_buckets + 1
+
+    def full(fill):
+        return torch.full((nseg,), fill, dtype=torch.float32, device=dev)
+
+    with_sum = "sum" in need or "m2" in need
+    acc = (full(0.0), full(0.0) if with_sum else None,
+           full(0.0) if "m2" in need else None,
+           full(_POS_INF) if "min" in need else None,
+           full(_NEG_INF) if "max" in need else None)
+    for rel_ts, vals, sid in chunks:
+        acc = _chunk_fold(rel_ts, vals, sid, *acc, lo, hi, shift,
+                          num_series=num_series, num_buckets=num_buckets,
+                          interval=interval, need=need)
+    return acc
+
+
+def _chunk_stage_finish(count, total, m2, mn, mx, *, num_series,
+                        num_buckets, interval, agg_down, rate=False,
+                        counter_max=0.0, reset_value=0.0, counter=False,
+                        drop_resets=False):
+    """Accumulators -> the window stage contract (trash segment sliced
+    off)."""
+    per = _finish(agg_down, count, total, m2, mn, mx)
+    shape = (num_series, num_buckets)
+    series_values = per[:-1].reshape(shape)
+    series_mask = count[:-1].reshape(shape) > 0
+    presence = series_mask.any(dim=1)  # pre-rate, like downsample_group
+    if rate:
+        series_values, series_mask = bucket_rate(
+            series_values, series_mask, interval, counter_max,
+            reset_value, counter=counter, drop_resets=drop_resets)
+    fill = step_fill if rate else gap_fill
+    filled, in_range = fill(series_values, series_mask, num_buckets)
+    return series_values, series_mask, filled, in_range, presence
+
+
+def window_series_stage_chunks(chunks, lo, hi, shift, *, num_series,
+                               num_buckets, interval, agg_down,
+                               rate=False, counter_max=0.0,
+                               reset_value=0.0, counter=False,
+                               drop_resets=False):
+    """The heavy, FILTER-INDEPENDENT half of a resident-window query, over
+    the window's RAW CHUNK LIST: range masking + per-series downsample
+    [+ rate] + the row-local fill. No include mask and no grouping, so
+    one cached stage serves every panel over the same (metric, range,
+    interval, downsample) whatever its tag filter, group-by or group
+    aggregator. No concatenated copy of the columns ever exists, so peak
+    device memory is the resident chunks + one accumulator set + one
+    chunk's transients. Every moment family merges exactly (dev through
+    the chunk-locally centered M2 + Chan mean-shift correction,
+    _chunk_fold).
+
+    ``chunks``: a non-empty iterable of (rel_ts, values, sid) tensors on
+    one device. Returns (series_values, series_mask, filled,
+    in_range, presence)."""
+    acc = _fold_chunks(chunks, lo, hi, shift, num_series=num_series,
+                       num_buckets=num_buckets, interval=interval,
+                       need=_needs(agg_down))
+    return _chunk_stage_finish(
+        *acc, num_series=num_series, num_buckets=num_buckets,
+        interval=interval, agg_down=agg_down, rate=rate,
+        counter_max=counter_max, reset_value=reset_value,
+        counter=counter, drop_resets=drop_resets)
+
+
+def _packbits(mask: torch.Tensor) -> torch.Tensor:
+    """np.packbits(mask, axis=1), byte for byte, for a [G, b] bool mask
+    with b a multiple of 8: big-endian bit order within each byte."""
+    g, b = mask.shape
+    weights = (2 ** torch.arange(7, -1, -1, device=mask.device)) \
+        .to(torch.uint8)
+    return (mask.reshape(g, b // 8, 8).to(torch.uint8) * weights) \
+        .sum(dim=2, dtype=torch.uint8)
+
+
+def _shrink_wrap(gv, gm, g_out, b_out):
+    """Clip apply outputs to the (64-quantized) live group/bucket counts
+    and bit-pack the mask before they cross to the host. The JAX
+    package's opt-in bfloat16 wire (``wire_bf16``) has no caller here and
+    is left out."""
+    return gv[..., :g_out, :b_out], _packbits(gm[:g_out, :b_out])
+
+
+def window_moment_apply(series_values, series_mask, filled, in_range,
+                        include, gmap, *, num_groups, agg_group,
+                        g_out=None, b_out=None):
+    """Cheap per-query half of a resident-window MOMENT query: include
+    masking (row-wise — identical to having filtered the points upstream,
+    since fill is row-local) + group aggregation over the cached [S, B]
+    stage grids, shrink-wrapped for the fetch when g_out/b_out are
+    given."""
+    sm = series_mask & include[:, None]
+    if agg_group in NOLERP_AGGS:
+        f, ir = series_values, sm
+    else:
+        f, ir = filled, in_range & include[:, None]
+    gv, gm = _group_stage(f, ir, sm, gmap,
+                          num_groups=num_groups, agg_group=agg_group)
+    if g_out is None:
+        return gv, gm
+    return _shrink_wrap(gv, gm, g_out, b_out)

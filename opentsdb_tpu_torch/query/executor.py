@@ -19,10 +19,18 @@ Backends: 'device' runs ops/kernels.py on the torch device (padded
 shapes); 'cpu' runs the float64 numpy oracle. Both agree bit-for-bit on
 grids and to float32 tolerance on values.
 
+Plans, as in the JAX package: a downsampled moment query is served first
+from the resident device window (``storage/devstore.py``) when it exactly
+covers the range — plan label "resident": no storage scan, no upload of
+points, only the [S]-sized include/group maps (cached) and the
+filter-independent [S, B] stage (cached per data version) — and
+otherwise from the storage scan, plan "raw". There is no rollup tier or
+fragment cache here.
+
 Not ported yet, and answered with 400 "not yet ported" on the device
 backend instead of being run elsewhere: percentile group aggregators and
-un-downsampled queries (the union-grid kernels). The plan label is always
-"raw": there is no resident window, rollup tier or fragment cache here.
+un-downsampled queries (the union-grid kernels); the window declines
+both.
 """
 
 from __future__ import annotations
@@ -36,9 +44,10 @@ import torch
 from opentsdb_tpu_torch.core import codec
 from opentsdb_tpu_torch.core.const import (MAX_TIMESPAN, TIMESTAMP_BYTES,
                                            UID_WIDTH)
-from opentsdb_tpu_torch.core.errors import BadRequestError
+from opentsdb_tpu_torch.core.errors import BadRequestError, NoSuchUniqueName
 from opentsdb_tpu_torch.ops import kernels, oracle
 from opentsdb_tpu_torch.query.aggregators import Aggregators
+from opentsdb_tpu_torch.utils.lru import LRUCache
 
 
 class QuerySpec(NamedTuple):
@@ -79,6 +88,13 @@ class QueryExecutor:
             raise ValueError(f"unknown backend {self.backend!r} "
                              f"(device or cpu)")
         self.device = tsdb.device
+        # Resident-window caches: per (window instance, metric, filter)
+        # the series plan and the device include/gmap maps, both
+        # revalidated against the directory generation; per data version
+        # and (range, interval, downsample) the stage grids.
+        self._dw_mask_cache = LRUCache(128)
+        self._dw_plan_cache = LRUCache(128)
+        self._dw_stage_cache = LRUCache(4)
 
     # ------------------------------------------------------------------
     # Planning: scan + span assembly + grouping
@@ -180,8 +196,9 @@ class QueryExecutor:
 
     def run_with_plan(self, spec: QuerySpec, start: int, end: int,
                       ) -> tuple[list[QueryResult], str, bool]:
-        """run() plus the plan label ("raw": the scan path is the only
-        plan here) and whether the answer came from a cache (never)."""
+        """run() plus the plan label ("resident" when the device window
+        served it, else "raw") and whether the answer came from a cache
+        (never: the window's stage cache holds grids, not answers)."""
         if end <= start:
             raise BadRequestError(
                 f"end time {end} is <= start time {start}")
@@ -196,6 +213,9 @@ class QueryExecutor:
             if agg.kind == "percentile":
                 raise not_yet_ported(
                     f"percentile group aggregator {spec.aggregator!r}")
+        dev = self._run_devwindow(spec, start, end, agg)
+        if dev is not None:
+            return dev, "resident", False
         groups = self._find_spans(spec, start, end)
         return self._execute_groups(spec, groups, start, end), "raw", False
 
@@ -350,6 +370,205 @@ class QueryExecutor:
             results.append((grid_ts, gv[gi][mask].astype(np.float64)))
         return results
 
+    # -- device-resident window path ----------------------------------
+
+    def _run_devwindow(self, spec: QuerySpec, start: int, end: int,
+                       agg) -> list[QueryResult] | None:
+        """Serve the query from the device-resident window
+        (storage/devstore.py) when it exactly covers [start, end]: no
+        storage scan, no host->device point upload — the host only
+        filters the series directory and uploads [S]-sized maps. Returns
+        None to fall back to the scan path (oracle backend, no window,
+        un-downsampled or percentile queries, dirty/evicted windows,
+        unknown UIDs, out-of-int32 epochs/ranges, device out of
+        memory)."""
+        dw = self.tsdb.devwindow
+        if (dw is None or self.backend == "cpu" or not spec.downsample
+                or agg.kind != "moment"
+                or Aggregators.get(spec.downsample[1]).kind != "moment"):
+            return None
+        interval, dsagg = spec.downsample
+        qbase = start - start % interval
+        imin, imax = -(2**31), 2**31 - 1
+        # Rebased in-range timestamps span up to end - qbase; past int32
+        # they would wrap in the kernels. Checked BEFORE touching the
+        # window: chunk_columns() forces a staged upload + drain.
+        if end - qbase > imax:
+            return None
+        try:
+            metric_uid = self.tsdb.metrics.get_id(spec.metric)
+            exact, group_bys = self._tag_filters(spec.tags)
+        except NoSuchUniqueName:
+            return None  # the scan path raises the canonical error
+        cols = dw.chunk_columns(metric_uid, start, end)
+        if cols is None:
+            return None
+        groups, named = self._devwindow_groups(
+            dw, metric_uid, cols, exact, group_bys)
+        if not groups:
+            return []
+        # The shift (qbase - epoch) takes part in device arithmetic
+        # (rel_ts - shift), unlike lo/hi, which only compare and clamp
+        # safely: past int32, fall back rather than mis-bucket.
+        if not imin <= qbase - cols.epoch <= imax:
+            return None
+        num_buckets = _pad_size(int((end - qbase) // interval + 1))
+        S_pad = _pad_size(len(cols.series_keys))
+        if S_pad * num_buckets >= 2**31:
+            # The per-(series, bucket) segment ids are int32.
+            return None
+        gkeys = sorted(groups)
+        G = _pad_size(len(gkeys))
+        # Device include/gmap, cached per (window instance, metric,
+        # filter); the generation lives in the VALUE, so a directory
+        # growth overwrites in place and dead generations never
+        # accumulate device tensors.
+        mkey = (dw.instance_id, metric_uid, _filter_key(exact, group_bys))
+        hit = self._dw_mask_cache.get(mkey)
+        if hit is not None and hit[0] == cols.generation:
+            include, gmap = hit[1], hit[2]
+        else:
+            include = np.zeros(S_pad, bool)
+            gmap = np.full(S_pad, G - 1, np.int32)
+            for gi, gkey in enumerate(gkeys):
+                for sid in groups[gkey]:
+                    include[sid] = True
+                    gmap[sid] = gi
+            include = torch.from_numpy(include).to(dw.device)
+            gmap = torch.from_numpy(gmap).to(dw.device)
+            self._dw_mask_cache.put(mkey, (cols.generation, include, gmap))
+        ngroups = 1 if len(gkeys) == 1 else G
+        rate_kw = self._rate_kw(spec)
+        # The heavy N-point half (range mask + per-series downsample
+        # [+ rate] + fill) is FILTER-INDEPENDENT: it caches per (window
+        # instance, metric, data version, range, interval, downsample,
+        # rate), so every panel over the same range pays only the
+        # [S, B]-sized apply.
+        skey = (dw.instance_id, metric_uid, cols.version, start, end,
+                interval, dsagg, tuple(sorted(rate_kw.items())))
+        cache = self._dw_stage_cache
+        stage = cache.get(skey)
+        if stage is None:
+            try:
+                grids = kernels.window_series_stage_chunks(
+                    cols.chunks, min(max(start - cols.epoch, imin), imax),
+                    min(max(end - cols.epoch, imin), imax),
+                    qbase - cols.epoch, num_series=S_pad,
+                    num_buckets=num_buckets, interval=interval,
+                    agg_down=dsagg, **rate_kw)
+            except torch.cuda.OutOfMemoryError:
+                # A window filled near the device's memory can still run
+                # out building the stage grids: the scan path serves.
+                return None
+            # [5] fills with the host copy of presence on first fetch.
+            stage = list(grids) + [None]
+            # Stages of this metric's EARLIER data versions can never hit
+            # again (version is monotonic) but each pins [S, B] grids the
+            # window's own budget can't see: drop them.
+            for k in cache.keys():
+                if k[:2] == (dw.instance_id, metric_uid) \
+                        and k[2] != cols.version:
+                    cache.pop(k)
+            cache.put(skey, stage)
+        sv, sm, filled, in_range, presence_dev = stage[:5]
+        # Shrink-wrap the fetch: clip to the live group/bucket counts
+        # (64-quantized) and bit-pack the mask on the device.
+        b_live = int((end - qbase) // interval + 1)
+        g_out = min(ngroups, _pad64(len(gkeys)))
+        b_out = min(num_buckets, _pad64(b_live))
+        try:
+            gv, gm = kernels.window_moment_apply(
+                sv, sm, filled, in_range, include, gmap,
+                num_groups=ngroups, agg_group=spec.aggregator,
+                g_out=g_out, b_out=b_out)
+            gv, gm = gv.cpu().numpy(), gm.cpu().numpy()
+            if stage[5] is None:
+                stage[5] = presence_dev.cpu().numpy()
+        except torch.cuda.OutOfMemoryError:
+            # Drop the stage too: it pins grids in the very memory that
+            # just ran out.
+            cache.pop(skey, None)
+            return None
+        # Series with no in-range points must not shape group labels or
+        # emit empty groups — the scan path never sees them.
+        has_points = stage[5]
+        gm = np.unpackbits(gm, axis=1, count=b_out).astype(bool)
+        results = []
+        for gi, gkey in enumerate(gkeys):
+            live = [sid for sid in groups[gkey] if has_points[sid]]
+            if not live:
+                continue
+            spans = [_Span(cols.series_keys[sid], named[sid], None, None)
+                     for sid in live]
+            tags, aggregated = self._group_tags(spans)
+            mask = gm[gi]
+            grid_ts = (np.flatnonzero(mask).astype(np.int64) * interval
+                       + qbase)
+            results.append(QueryResult(
+                spec.metric, tags, aggregated, grid_ts,
+                gv[gi][mask].astype(np.float64)))
+        return results
+
+    def _devwindow_groups(self, dw, metric_uid: bytes, cols, exact,
+                          group_bys):
+        """Filter + group the window's series directory on host UIDs.
+
+        Returns ({group_key_tuple: [sid]}, {sid: named_tags}); cached per
+        (window instance, metric, filter) until the directory grows.
+        ``dw`` is the window ``cols`` came from, so a window swap between
+        the two cannot cache the old window's plan under the new one's
+        instance_id."""
+        fkey = (dw.instance_id, metric_uid, _filter_key(exact, group_bys))
+        hit = self._dw_plan_cache.get(fkey)
+        if hit is not None and hit[0] == cols.generation:
+            return hit[1], hit[2]
+        groups, named = self._series_groups(cols.series_keys, exact,
+                                            group_bys)
+        self._dw_plan_cache.put(fkey, (cols.generation, groups, named))
+        return groups, named
+
+    @staticmethod
+    def _series_selector(exact, group_bys):
+        """The tag-filter/group-by predicate of the window plan:
+        series_key -> group key tuple when the series matches, None when
+        filtered out (the scan path's row-key regexp, on UIDs)."""
+        group_by_keys = sorted(k for k, _ in group_bys)
+        want = dict(exact)
+        gb = {k: (set(v) if v else None) for k, v in group_bys}
+
+        def selector(skey: bytes):
+            tag_uids = codec.series_tag_uids(skey)
+            for k, v in want.items():
+                if tag_uids.get(k) != v:
+                    return None
+            for k, allowed in gb.items():
+                v = tag_uids.get(k)
+                if v is None or (allowed is not None
+                                 and v not in allowed):
+                    return None
+            return tuple(tag_uids.get(k, b"") for k in group_by_keys)
+
+        return selector
+
+    def _named_tags(self, skey: bytes) -> dict[str, str]:
+        return {self.tsdb.tagk.get_name(k): self.tsdb.tagv.get_name(v)
+                for k, v in codec.series_tag_uids(skey).items()}
+
+    def _series_groups(self, series_keys, exact, group_bys):
+        """Filter + group a series-key directory on host UIDs via
+        ``_series_selector``; sid = position in ``series_keys``. Returns
+        ({group_key_tuple: [sid]}, {sid: named_tags})."""
+        selector = self._series_selector(exact, group_bys)
+        groups: dict[tuple, list[int]] = {}
+        named: dict[int, dict[str, str]] = {}
+        for sid, skey in enumerate(series_keys):
+            g = selector(skey)
+            if g is None:
+                continue
+            groups.setdefault(g, []).append(sid)
+            named[sid] = self._named_tags(skey)
+        return groups, named
+
 
 def _u32(v: int) -> bytes:
     return int(v).to_bytes(4, "big")
@@ -362,3 +581,18 @@ def _pad_size(n: int) -> int:
     while size < n:
         size *= 2
     return size
+
+
+def _pad64(n: int) -> int:
+    """Round up to a multiple of 64 (min 64): the fetch-slice quantum of
+    the window path, as in the JAX package."""
+    return max((n + 63) // 64 * 64, 64)
+
+
+def _filter_key(exact, group_bys):
+    """Canonical hashable form of a UID-level (exact, group_bys) tag
+    filter — the shared component of the window's plan and mask cache
+    keys."""
+    return (tuple(sorted(exact)),
+            tuple(sorted((k, tuple(v) if v else None)
+                         for k, v in group_bys)))

@@ -3,7 +3,10 @@
 Mirrors the ``tsd`` subcommand of ``opentsdb_tpu/tools/cli.py`` (the
 reference's TSDMain.java). The daemon serves on the CUDA card unless
 ``--device cpu`` is given; ``--backend cpu`` answers queries with the
-float64 oracle instead of the kernels. Run it with
+float64 oracle instead of the kernels. As in the JAX package's daemon,
+the resident device window is on: ingest (and, at start-up, what the WAL
+holds) is mirrored into device memory, and downsampled moment queries
+are served from it (``"rollup": "resident"`` in the /q JSON). Run it with
 
     python -m opentsdb_tpu_torch.tools.cli tsd --port 4242 \\
         --wal /var/tsdb/wal --auto-metric

@@ -1,7 +1,8 @@
 """The port's configuration object and device resolution.
 
 Mirrors ``opentsdb_tpu/utils/config.py`` of the JAX package, trimmed to
-the fields this port reads, plus ``device``: where the query kernels run.
+the fields this port reads (the resident window's among them, with the
+JAX package's defaults), plus ``device``: where the query kernels run.
 ``backend="cpu"`` keeps its JAX-package meaning — the float64 numpy
 oracle answers every query (``ops/oracle.py``) — and is independent of
 ``device``.
@@ -36,6 +37,14 @@ class Config:
     # built for one NVIDIA H100, and a missing card is an error, never a
     # silent CPU run. Tests pass "cpu".
     device: str = "cuda"
+
+    # Device-resident columnar hot window (storage/devstore.py): ingest is
+    # mirrored into device memory so downsampled moment queries skip the
+    # storage scan and the per-query host-to-device copy. The JAX
+    # package's names and defaults.
+    device_window: bool = True
+    device_window_staging: int = 1 << 20   # points per upload chunk
+    device_window_points: int = 1 << 26    # resident budget, all metrics
 
     # network
     port: int = 4242

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card, against their plain versions and
-against the same downsample core on the CPU.
+against the same downsample core and resident-window stages on the CPU.
 
 Every test here is marked ``cuda`` and skips where no card is present.
 This file imports neither JAX nor the JAX package, so it also runs on a
@@ -19,6 +19,7 @@ from opentsdb_tpu_torch.ops.segment_reduce import (
     segment_sum,
     segment_sum_plain,
 )
+from opentsdb_tpu_torch.storage.devstore import DeviceWindow
 
 AGGS = ("sum", "min", "max", "avg", "dev", "count", "zimsum", "mimmin",
         "mimmax")
@@ -279,3 +280,175 @@ def test_minmax_need(card, need, nseg):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
     else:
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Resident-window stage and apply: on the card vs the same on the CPU
+# ---------------------------------------------------------------------------
+
+MUID = b"\x00\x00\x01"
+T0, SPAN, IV = 1_700_000_000, 86_400, 3600
+WINDOW_AGGS = ("sum", "avg", "dev", "min", "max", "count", "rate")
+
+
+def _skey(s):
+    return MUID + b"\x00\x00\x01" + s.to_bytes(3, "big")
+
+
+def _series(rng, n_series, points, values=None):
+    """Per series: strictly increasing timestamps over SPAN, values."""
+    step = SPAN // points
+    out = []
+    for s in range(n_series):
+        ts = T0 + np.arange(points) * step + rng.integers(0, step // 2,
+                                                          points)
+        v = (rng.normal(100, 5, points) if values is None
+             else rng.choice(values, points)).astype(np.float32)
+        out.append((ts.astype(np.int64), v))
+    return out
+
+
+def _appends(layout, rng, values=None):
+    """(series, timestamps, values) appends for one layout."""
+    if layout == "interleaved":
+        # One point per append, round robin: sids change every point.
+        data = _series(rng, 40, 100, values)
+        return [(s, data[s][0][i:i + 1], data[s][1][i:i + 1])
+                for i in range(100) for s in range(40)], 1024
+    if layout == "many_chunks":
+        data = _series(rng, 300, 700, values)
+        return [(s, ts, v) for s, (ts, v) in enumerate(data)], 1000
+    data = _series(rng, 200, 1000, values)         # "sorted"
+    return [(s, ts, v) for s, (ts, v) in enumerate(data)], 1 << 16
+
+
+def _window_pair(card, layout, values=None):
+    """The same appends into a window on the card and one on the CPU;
+    their chunk lists, cut at the same points."""
+    appends, staging = _appends(layout, np.random.default_rng(7), values)
+    out = []
+    for dev in (card, "cpu"):
+        dw = DeviceWindow(staging_points=staging, max_points=1 << 26,
+                          background=False, device=dev)
+        for s, ts, v in appends:
+            dw.append(MUID, _skey(s), ts, v)
+        out.append(dw.chunk_columns(MUID, T0, T0 + SPAN))
+    return out
+
+
+def _stage(cols, agg):
+    s_pad = 1 << max(4, (len(cols.series_keys) - 1).bit_length())
+    return kernels.window_series_stage_chunks(
+        cols.chunks, 600, SPAN - 600, 0, num_series=s_pad,
+        num_buckets=32, interval=IV, agg_down="avg" if agg == "rate"
+        else agg, rate=agg == "rate")
+
+
+def _assert_stage_close(got, want, exact):
+    for name, g, w in zip(("sv", "sm", "filled", "in_range", "presence"),
+                          got, want):
+        g = g.cpu()
+        if w.dtype == torch.bool or (exact and name == "sv"):
+            assert torch.equal(g, w), name
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5,
+                                       msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", WINDOW_AGGS)
+@pytest.mark.parametrize("layout", ["sorted", "interleaved", "many_chunks"])
+def test_window_stage_on_card_matches_cpu(card, layout, agg):
+    """window_series_stage_chunks and window_moment_apply on the card vs
+    the same functions on CPU tensors of the same chunk lists: masks
+    identical, count/min/max exact, sums within rtol 1e-5 (dev merges
+    chunk-local M2 across chunk boundaries); the {dc=*}-like and the
+    {host=*} group layouts."""
+    gpu, cpu = _window_pair(card, layout)
+    assert len(gpu.chunks) == len(cpu.chunks)
+    if layout == "many_chunks":
+        assert len(gpu.chunks) > 100
+    launches = segment_sum.launches
+    got, want = _stage(gpu, agg), _stage(cpu, agg)
+    torch.cuda.synchronize()
+    assert segment_sum.launches > launches
+    _assert_stage_close(got, want, exact=agg in ("min", "max", "count"))
+    s_pad = got[0].shape[0]
+    n = len(cpu.series_keys)
+    include = torch.arange(s_pad) < n
+    few = torch.where(include, torch.arange(s_pad) % 10, 15).int()
+    host = torch.where(include, torch.arange(s_pad), s_pad - 1).int()
+    for gmap, groups, agg_group in ((few, 16, "sum"), (few, 16, "max"),
+                                    (host, s_pad, "sum"),
+                                    (host, s_pad, "mimmax")):
+        gv, gm = kernels.window_moment_apply(
+            *got[:4], include.to(card), gmap.to(card), num_groups=groups,
+            agg_group=agg_group, g_out=min(groups, 64 * (-(-n // 64))),
+            b_out=32)
+        wv, wm = kernels.window_moment_apply(
+            *want[:4], include, gmap, num_groups=groups,
+            agg_group=agg_group, g_out=min(groups, 64 * (-(-n // 64))),
+            b_out=32)
+        assert torch.equal(gm.cpu(), wm)
+        torch.testing.assert_close(gv.cpu(), wv, rtol=1e-5, atol=1e-5)
+
+
+_WINDOW_SPECIAL = np.array([0.0, -0.0, np.inf, -np.inf, 1.0, -1.0,
+                            np.finfo(np.float32).max], np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", ["min", "max"])
+@pytest.mark.parametrize("layout", ["sorted", "interleaved"])
+def test_window_minmax_special_values_exact(card, layout, agg):
+    """Min and max stages over +-0.0, +-inf and float32 extremes: exact
+    against the CPU (as IEEE values: +0.0 and -0.0 compare equal; the
+    plain CPU version does not order them), and the group stage of the
+    no-lerp max on top."""
+    gpu, cpu = _window_pair(card, layout, values=_WINDOW_SPECIAL)
+    got, want = _stage(gpu, agg), _stage(cpu, agg)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    s_pad = got[0].shape[0]
+    gmap = (torch.arange(s_pad) % 10).int()
+    include = torch.ones(s_pad, dtype=torch.bool)
+    gv, gm = kernels.window_moment_apply(
+        *got[:4], include.to(card), gmap.to(card), num_groups=16,
+        agg_group="mim" + agg)
+    wv, wm = kernels.window_moment_apply(
+        *want[:4], include, gmap, num_groups=16, agg_group="mim" + agg)
+    assert torch.equal(gv.cpu(), wv) and torch.equal(gm.cpu(), wm)
+
+
+@pytest.mark.cuda
+def test_window_eviction_at_budget(card):
+    """A window on the card filled to a (reduced) budget evicts its
+    oldest chunk on the next batch, advances complete_from, declines a
+    query reaching before it, and folds what stays like the CPU."""
+    staging, budget = 1 << 14, 1 << 18
+    dw = DeviceWindow(staging_points=staging, max_points=budget,
+                      device=card)
+    data = _series(np.random.default_rng(1), 64, 4096)
+    for s, (ts, v) in enumerate(data):
+        dw.append(MUID, _skey(s), ts, v)
+    dw.flush()
+    assert dw.evicted_points == 0 and dw._total_points == budget
+    mw = dw._metrics[MUID]
+    oldest_max = mw.chunks[0]["max_ts"]
+    for s in range(4):   # one more staging batch, later in time
+        ts = T0 + SPAN + np.arange(4096, dtype=np.int64)
+        dw.append(MUID, _skey(s), ts, np.ones(4096, np.float32))
+    dw.flush()
+    assert dw.evicted_points == staging
+    assert mw.complete_from == oldest_max + 1
+    assert dw.chunk_columns(MUID, T0, T0 + 2 * SPAN) is None
+    cols = dw.chunk_columns(MUID, mw.complete_from, T0 + 2 * SPAN)
+    assert cols is not None and len(cols.chunks) == budget // staging
+    cpu_chunks = [tuple(x.cpu() for x in c) for c in cols.chunks]
+    for agg in ("avg", "max"):
+        kw = dict(num_series=64, num_buckets=64, interval=IV, agg_down=agg)
+        got = kernels.window_series_stage_chunks(
+            cols.chunks, 0, 2 * SPAN, 0, **kw)
+        want = kernels.window_series_stage_chunks(
+            cpu_chunks, 0, 2 * SPAN, 0, **kw)
+        _assert_stage_close(got, want, exact=agg == "max")

@@ -1,6 +1,7 @@
-"""The port's slice as a whole: the same put stream into the JAX package
-(TSDB + QueryExecutor on JAX's CPU backend) and into the port (TSDB +
-executor on device="cpu"), the same /q expressions through both.
+"""The port's scan path as a whole: the same put stream into the JAX
+package (TSDB + QueryExecutor on JAX's CPU backend) and into the port
+(TSDB + executor on device="cpu"), both with the resident window off, the
+same /q expressions through both. (The window path: test_torch_window.py.)
 
 Contract (opentsdb_tpu/query/executor.py:16-18): identical groups, tags
 and timestamps; count, min and max values exact; float32 sums, means and
@@ -71,7 +72,8 @@ def _jax_tsdb(wal=None):
 
 def _port_tsdb(wal=None):
     return TSDB(MemKVStore(wal_path=wal),
-                Config(auto_create_metrics=True, device="cpu"),
+                Config(auto_create_metrics=True, device="cpu",
+                       device_window=False),
                 start_compaction_thread=False)
 
 
