@@ -17,26 +17,47 @@
    counts), cold (a 128 MB buffer written before each run: device time
    with a cold L2, the wrapper's host time hidden behind that write), and
    as device time alone with a warm L2 (20 runs queued back to back behind
-   a GPU sleep). Compare cold with the last, not with the first.
+   a GPU sleep). Compare cold with the last, not with the first. The
+   rank-select kernel is held the same way on the window's sum:1h-avg
+   stage grid (columns at one quantile and at three; grouped by dc and by
+   host) and on the contributions of an un-downsampled p95 over
+   {dc=dc0}'s first day; the interpolate-and-reduce kernel on that day's
+   union grid (against its plain composition) and on all series for the
+   week (~302k grid points; the plain composition does not fit, so the
+   sums are held against float64 at 256 grid points drawn with a seed).
 4. Path phase: starts the port's daemon on loopback with its default
    settings (the resident device window on), ingests the repo's benchmark
    corpus (10,000 series x 1,000 points over 7 days = 10M points,
    bench.py gen_workload's shape) through ``TSDB.add_batch`` plus a few
-   hundred telnet ``put`` lines, then answers five ``/q`` queries over
-   HTTP, each once cold (the first run of a (range, interval,
-   downsample) key builds the window's chunk stage) and WARM_REPS times
-   warm. Every answer must say ``"rollup": "resident"`` and raise the
-   window's hit count by one: a query that falls back to the scan fails.
+   hundred telnet ``put`` lines, then answers ten ``/q`` queries over
+   HTTP (five moment and five percentile group aggregators), each once
+   cold (the first run of a (range, interval, downsample) key builds the
+   window's chunk stage) and WARM_REPS times warm. Every answer must say
+   ``"rollup": "resident"`` and raise the window's hit count by one: a
+   query that falls back to the scan fails; every run of a percentile
+   query must launch the rank select. Then four queries without a
+   downsampler over HTTP, which the window declines (``"rollup": "raw"``):
+   ``sum`` over every series for the week, ``zimsum`` and ``p95`` of
+   ``{dc=dc0}`` over the first day, ``sum:rate`` of one host over the
+   week; each must launch interp_moments (the percentile: the select).
    Then, in process: each query's chunk-stage time and apply-and-fetch
-   time (synchronised); the same five queries on the port's scan path on
-   the same TSDB (window set aside; host scan and device stage timed),
-   each answer held against the resident one, and both against the
-   float64 oracle (``ops/oracle.py``); one warm resident query and one
-   stage build under ``torch.profiler`` for the device-busy share.
-   Each path (the HTTP queries, the scan loop) is driven with the kernel
+   time (synchronised); one host scan of every series over the week
+   (timed), whose spans, regrouped as a scan with each query's filter
+   groups them, feed the same five queries on the port's scan path on
+   the same TSDB (window set aside; device stage timed), each answer held
+   against the resident one, and both against the float64 oracle
+   (``ops/oracle.py``); the same spans hold the percentile answers
+   against the scan path's kernels and the float64 oracle (the oracle
+   downsamples each series once), and the un-downsampled answers against
+   the oracle (the full-width sum at 256 sampled grid points). One scan
+   serves them all, to keep the run's time down.
+   one warm resident query and one stage build under ``torch.profiler``
+   for the device-busy share. Each path (the resident HTTP queries, the
+   un-downsampled HTTP queries, the scan loop) is driven with the kernel
    launch counts set to 0 just before it and read just after; a stage
-   build and each scan-path query must launch ``segment_sum``, and each
-   path must launch both kernels.
+   build and each scan-path query must launch ``segment_sum``, the
+   resident path its three kernels, the scan loop both segment kernels
+   and the un-downsampled path interp_moments and masked_select.
 5. Window-at-budget phase: a ``DeviceWindow`` filled directly to the
    default budget, 2^26 points (16,384 series x 4,096 points over 7 days,
    appended per series); its chunk stage and apply for ``sum:1h-avg`` and
@@ -46,11 +67,15 @@
    query reaching before it away.
 6. Prints the card line first; at the end the per-query, ingest,
    profiler and budget lines, the kernels line and, last, the ok line.
-   In the kernels line each kernel's top-level numbers are the resident
-   path's: its launches beside the times at the chunk-fold shape. Under
-   ``paths`` each path's launches stand beside the times at its own shape
-   (the scan path's: the series stage). Both counts include the group
-   stages' launches, whose times are in the details line.
+   In the kernels line each kernel's top-level numbers are its first
+   path's: the segment kernels' and the select's the resident path's
+   (at the chunk-fold shape and the columns select at one quantile),
+   interp_moments' the un-downsampled path's (at the one-day {dc=dc0}
+   shape; its full-width numbers under ``full_width``). Under ``paths``
+   each path's launches stand beside the times at its own shape (the scan
+   path's: the series stage; the select's un-downsampled path: the p95
+   contributions). Counts include the group stages' launches, whose times
+   are in the details line.
 
 Any failure raises and exits nonzero before the last line. Without a CUDA
 card, or without the package beside it, it exits nonzero and prints no
@@ -76,10 +101,13 @@ import numpy as np
 import torch
 
 from opentsdb_tpu_torch.core.tsdb import TSDB
-from opentsdb_tpu_torch.ops import cuda_build, kernels as wk, segment_reduce
-from opentsdb_tpu_torch.query.executor import (QueryExecutor, QuerySpec,
-                                               _filter_key, _pad64,
-                                               _pad_size)
+from opentsdb_tpu_torch.ops import (cuda_build, interp_moments,
+                                    kernels as wk, masked_select, oracle,
+                                    segment_reduce)
+from opentsdb_tpu_torch.query.aggregators import Aggregators
+from opentsdb_tpu_torch.query.executor import (QueryExecutor, QueryResult,
+                                               QuerySpec, _filter_key,
+                                               _pad64, _pad_size, _Span)
 from opentsdb_tpu_torch.query.grammar import parse_m
 from opentsdb_tpu_torch.server.tsd import TSDServer
 from opentsdb_tpu_torch.storage.devstore import DeviceWindow
@@ -98,6 +126,20 @@ QUERIES = ["sum:1h-avg:bench.metric",
            "max:1h-max:bench.metric{host=h00001}",
            "dev:1h-avg:bench.metric",
            "sum:rate:1h-avg:bench.metric"]
+# Percentile group aggregators, served from the window like the moments
+# (the three share sum:1h-avg's stage).
+PCT_QUERIES = ["p50:1h-avg:bench.metric",
+               "p95:1h-avg:bench.metric",
+               "p99:1h-avg:bench.metric",
+               "p95:1h-avg:bench.metric{dc=*}",
+               "p95:1h-avg:bench.metric{host=*}"]
+DAY = 86400
+# Queries without a downsampler (the window declines them: plan "raw"),
+# each with the length of its range from BASE.
+UNION_QUERIES = [("sum:bench.metric", SPAN),
+                 ("zimsum:bench.metric{dc=dc0}", DAY),
+                 ("p95:bench.metric{dc=dc0}", DAY),
+                 ("sum:rate:bench.metric{host=h00001}", SPAN)]
 WARM_REPS = 5                 # warm /q runs per query, after the first
 DEVICE = "cuda"
 STAGING = 1 << 20             # Config device_window_staging
@@ -330,6 +372,209 @@ def kernel_phase(ts: np.ndarray, vals: np.ndarray) -> list:
     return results
 
 
+def padded_rows(ts: np.ndarray, vals: np.ndarray, rows: np.ndarray,
+                end: int):
+    """The executor's un-downsampled layout for corpus series ``rows``
+    over [BASE, end]: left-aligned [S, T] int32 offsets from the earliest
+    first timestamp, float32 values, [S] counts (numpy)."""
+    keep = ts[rows] <= end
+    counts = keep.sum(axis=1).astype(np.int32)
+    T = _pad_size(int(counts.max()))
+    base = int(ts[rows, 0].min())
+    tp = np.zeros((len(rows), T), np.int32)
+    vp = np.zeros((len(rows), T), np.float32)
+    cols = np.arange(ts.shape[1])
+    for i, s in enumerate(rows):
+        tp[i, :counts[i]] = ts[s][cols < counts[i]] - base
+        vp[i, :counts[i]] = vals[s][cols < counts[i]]
+    return tp, vp, counts
+
+
+def in_range_pairs(tp: np.ndarray, counts: np.ndarray,
+                   grid: np.ndarray) -> int:
+    """(series, grid point) pairs inside a series' [first, last]: the
+    pairs this run's data makes the interpolate-and-reduce kernel
+    compute."""
+    first = tp[:, 0]
+    last = tp[np.arange(len(tp)), counts - 1]
+    return int((np.searchsorted(grid, last, side="right")
+                - np.searchsorted(grid, first, side="left")).sum())
+
+
+def time_case(res: dict, fn, plain, library, flush) -> dict:
+    res.update({"ms": median_ms(fn), "ms_cold": median_ms(fn, flush=flush),
+                "ms_device": device_ms(fn),
+                "plain_ms": median_ms(plain) if plain else None,
+                "library_ms": median_ms(library) if library else None})
+    log(f"kernel {res['name']} [{res['stage']}]: {res['ms']:.4f} ms, cold "
+        f"{res['ms_cold']:.4f}, device {res['ms_device']:.4f} (plain "
+        f"{res['plain_ms']}, library {res['library_ms']}, bound "
+        f"{res['bound_ms']:.4f} by {res['bound_by']}), max_abs_err "
+        f"{res['max_abs_err']:g}")
+    return res
+
+
+def select_interp_phase(ts: np.ndarray, vals: np.ndarray) -> list:
+    """The rank-select and interpolate-and-reduce kernels against their
+    plain versions, at the shapes the percentile and un-downsampled
+    paths give them:
+    - select, columns: the window's sum:1h-avg stage (filled and in_range
+      [16384, 256]) at one quantile, as a query asks, and at
+      p50/p95/p99 in one call; yardstick one torch.nanquantile over the
+      NaN-masked grid;
+    - select, grouped: the same grid by dc (16 groups) and by host
+      (16384 groups, one series each plus the padding group);
+    - select, union: p95 over {dc=dc0}'s contributions on its first day's
+      union grid (1000 series x ~42k points);
+    - interp_moments over {dc=dc0}'s first day (held against the plain
+      composition) and over all series for the week (~302k points: the
+      plain composition would need ~12 GB per [S, U] array, so the sums
+      are held against float64 at 256 grid points drawn with a seed)."""
+    dev = torch.device(DEVICE)
+    S, B = 16384, 256
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    chunk = (torch.from_numpy((ts - BASE).reshape(-1).astype(np.int32))
+             .to(dev), torch.from_numpy(vals.reshape(-1)).to(dev),
+             torch.from_numpy(np.repeat(np.arange(SERIES, dtype=np.int32),
+                                        POINTS)).to(dev))
+    _, _, filled, in_range, _ = wk.window_series_stage_chunks(
+        [chunk], 0, SPAN - 1, 0, num_series=S, num_buckets=B,
+        interval=INTERVAL, agg_down="avg")
+    del chunk
+    dc_np = np.full(S, 15, np.int32)
+    dc_np[:SERIES] = np.arange(SERIES) % 10
+    host_np = np.full(S, S - 1, np.int32)
+    host_np[:SERIES] = np.arange(SERIES)
+    results = []
+
+    def same(got, want, what):
+        torch.cuda.synchronize()
+        # Both select exact rank keys and lerp with separate roundings.
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   equal_nan=True, msg=what)
+        return float((got - want).abs().nan_to_num(0.0).max())
+
+    def select_case(stage, x, m, q, layout=None, library=True):
+        rows, cols = x.shape
+        if layout is None:
+            def fn():
+                return masked_select.select_columns(x, m, q)
+
+            def plain():
+                return masked_select.select_columns_plain(x, m, q)
+            G, extra = 1, 0
+        else:
+            def fn():
+                return masked_select.select_groups(x, m, layout, q)
+
+            def plain():
+                return masked_select.select_groups_plain(x, m, layout, q)
+            G = layout.offsets.numel() - 1
+            extra = 4 * (rows + G + 1 + layout.big.numel())
+        lib = None
+        if library:
+            qt = torch.tensor(q, device=dev)
+            nan_grid = torch.where(m, x, float("nan"))
+
+            def lib():
+                return torch.nanquantile(nan_grid, qt, dim=0,
+                                         interpolation="linear")
+        err = same(fn(), plain(), f"masked_select {stage}")
+        b_ms, b_by = bound_ms(rows * cols * 5 + extra + len(q) * G * cols * 4,
+                              rows * cols)
+        return time_case({"name": "masked_select", "stage": stage,
+                          "rows": rows, "cols": cols, "groups": G,
+                          "quantiles": len(q), "max_abs_err": err,
+                          "bound_ms": b_ms, "bound_by": b_by},
+                         fn, plain, lib, flush)
+
+    results.append(select_case("window select, columns", filled, in_range,
+                               [0.95]))
+    results.append(select_case("window select, columns, p50/p95/p99",
+                               filled, in_range, [0.5, 0.95, 0.99]))
+    for stage, gmap, G in (("window select {dc=*}", dc_np, 16),
+                           ("window select {host=*}", host_np, S)):
+        results.append(select_case(
+            stage, filled, in_range, [0.95],
+            layout=masked_select.group_layout(gmap, G, dev), library=False))
+    del filled, in_range
+
+    def interp_case(stage, rows, end, plain_ok):
+        tp, vp, counts = padded_rows(ts, vals, rows, end)
+        t = [torch.from_numpy(a).to(dev) for a in (tp, vp, counts)]
+        grid, gmask = wk.union_grid(t[0], t[2])
+        grid = grid[:int(gmask.sum())]
+        grid_np = grid.cpu().numpy()
+
+        def fn():
+            return interp_moments.interp_moments(*t, grid, with_m2=False)
+
+        def plain():
+            return interp_moments.interp_moments_plain(*t, grid,
+                                                       with_m2=False)
+        got = fn()
+        torch.cuda.synchronize()
+        if plain_ok:
+            want = plain()
+            torch.cuda.synchronize()
+            for i in (0, 3, 4):   # count, min, max: the same operations
+                if not torch.equal(got[i], want[i]):
+                    fail(f"interp_moments {stage}: output {i} not exact")
+            torch.testing.assert_close(got[1], want[1], rtol=1e-5,
+                                       atol=1e-3)
+            err = float((got[1] - want[1]).abs().max())
+        else:
+            pick = np.sort(np.random.default_rng(12).choice(
+                len(grid_np), 256, replace=False))
+            x = grid_np[pick]
+            tot = np.zeros(256)
+            cnt = np.zeros(256)
+            for i in range(len(tp)):
+                row = tp[i, :counts[i]]
+                inside = (x >= row[0]) & (x <= row[-1])
+                tot[inside] += np.interp(x[inside], row,
+                                         vp[i, :counts[i]].astype(np.float64))
+                cnt += inside
+            if not np.array_equal(got[0].cpu().numpy()[pick], cnt):
+                fail(f"interp_moments {stage}: counts differ from float64")
+            g_tot = got[1].cpu().numpy()[pick].astype(np.float64)
+            scale = float(np.abs(tot).max())
+            diff = np.abs(g_tot - tot)
+            if (diff > 1e-4 * np.abs(tot) + 1e-5 * scale).any():
+                fail(f"interp_moments {stage}: sums differ from float64")
+            err = float(diff.max())
+        S_, T_ = tp.shape
+        U = len(grid_np)
+        pairs = in_range_pairs(tp, counts, grid_np)
+        # Per in-range pair: 2 int->float conversions, max, divide,
+        # subtract, multiply, add (the lerp), then count, sum, min, max.
+        b_ms, b_by = bound_ms(S_ * T_ * 8 + S_ * 4 + U * 4 + 4 * U * 4,
+                              11 * pairs)
+        res = {"name": "interp_moments", "stage": stage, "series": S_,
+               "row_points": T_, "grid_points": U, "in_range_pairs": pairs,
+               "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by}
+        if not plain_ok:
+            res["plain_note"] = ("not measured: the plain composition "
+                                 "needs an [S, U] array per step")
+        return time_case(res, fn, plain if plain_ok else None, None,
+                         flush), (t, grid)
+
+    dc0 = np.arange(0, SERIES, 10)
+    res, (t, grid) = interp_case("union {dc=dc0} one day", dc0,
+                                 BASE + DAY - 1, True)
+    results.append(res)
+    contrib, cmask = wk.series_contributions(*t, grid)
+    results.append(select_case("union p95 {dc=dc0} one day", contrib, cmask,
+                               [0.95], library=False))
+    del contrib, cmask, t, grid
+    res, _ = interp_case("union full width", np.arange(SERIES),
+                         BASE + SPAN - 1, False)
+    results.append(res)
+    del flush
+    torch.cuda.empty_cache()
+    return results
+
+
 # ---------------------------------------------------------------------------
 # Path phase
 # ---------------------------------------------------------------------------
@@ -428,25 +673,34 @@ def check_answer(expr: str, got: list, want, rtol: float,
     return worst
 
 
-KERNELS = ("segment_sum", "segment_minmax")
+KERNELS = ("segment_sum", "segment_minmax", "masked_select",
+           "interp_moments")
 
 
-def launches() -> tuple[int, int]:
+def launches() -> tuple[int, int, int, int]:
+    """Kernel launches per kernel; masked_select counts both of its
+    entry points."""
     return (segment_reduce.segment_sum.launches,
-            segment_reduce.segment_minmax.launches)
+            segment_reduce.segment_minmax.launches,
+            masked_select.select_columns.launches
+            + masked_select.select_groups.launches,
+            interp_moments.interp_moments.launches)
 
 
 def zero_launches() -> None:
     segment_reduce.segment_sum.launches = 0
     segment_reduce.segment_minmax.launches = 0
+    masked_select.select_columns.launches = 0
+    masked_select.select_groups.launches = 0
+    interp_moments.interp_moments.launches = 0
 
 
-def path_launches(path: str) -> dict:
+def path_launches(path: str, kernels: tuple) -> dict:
     """The counts since zero_launches(), read just after ``path`` ran;
-    a kernel the path never launched fails the run."""
+    a kernel of ``kernels`` the path never launched fails the run."""
     out = dict(zip(KERNELS, launches()))
-    for name, n in out.items():
-        if n == 0:
+    for name in kernels:
+        if out[name] == 0:
             fail(f"the {path} never launched {name}")
     return out
 
@@ -505,8 +759,147 @@ def http_resident(port: int, dw: DeviceWindow, ex: QueryExecutor,
     after = launches()
     return {"wall_ms": wall,
             "stage_built": bool(set(ex._dw_stage_cache.keys()) - keys),
-            "segment_sum": after[0] - before[0],
-            "segment_minmax": after[1] - before[1]}, answer
+            **{k: a - b for k, a, b in zip(KERNELS, after, before)}}, answer
+
+
+def http_union(port: int, expr: str, start: int,
+               end: int) -> tuple[list, dict]:
+    """One /q run of a query without a downsampler: every group says
+    "rollup": "raw"; a moment query must launch interp_moments and a
+    percentile one masked_select."""
+    target = "/q?" + urllib.parse.urlencode(
+        {"start": start, "end": end, "m": expr, "json": ""})
+    before = launches()
+    q0 = time.perf_counter()
+    status, body = http_get(port, target)
+    wall = (time.perf_counter() - q0) * 1e3
+    if status != 200:
+        fail(f"{expr}: HTTP {status}: {body[:300]!r}")
+    answer = json.loads(body)
+    if not answer or any(g["rollup"] != "raw" for g in answer):
+        fail(f"{expr}: not answered by the scan path: "
+             f"{[g.get('rollup') for g in answer]}")
+    got = {k: a - b for k, a, b in zip(KERNELS, launches(), before)}
+    need = ("masked_select" if Aggregators.get(spec_of(expr).aggregator)
+            .kind == "percentile" else "interp_moments")
+    if got[need] == 0:
+        fail(f"{expr}: launched no {need}")
+    run = {"wall_ms": wall, "launches": got, "groups": len(answer),
+           "points": sum(len(g["dps"]) for g in answer)}
+    log(f"union query {expr}: {wall:.1f} ms, {run['points']} points, "
+        f"launches {got}")
+    return answer, run
+
+
+def regroup(ex: QueryExecutor, spans: list, tags: dict) -> dict:
+    """Spans of one scan grouped as a scan with ``tags`` would group
+    them (the executor's own series selector on UIDs)."""
+    selector = ex._series_selector(*ex._tag_filters(tags))
+    groups: dict = {}
+    for sp in spans:
+        g = selector(sp.series_key)
+        if g is not None:
+            groups.setdefault(g, []).append(sp)
+    return groups
+
+
+def trim(spans: list, start: int, end: int) -> list:
+    out = []
+    for sp in spans:
+        m = (sp.timestamps >= start) & (sp.timestamps <= end)
+        if m.any():
+            out.append(_Span(sp.series_key, sp.tags, sp.timestamps[m],
+                             sp.values[m]))
+    return out
+
+
+def oracle_percentiles(ex: QueryExecutor, spec: QuerySpec, groups: dict,
+                       downsampled: dict) -> list:
+    """The float64 oracle's answer to a downsampled percentile query from
+    per-series oracle downsamples computed once (``downsampled``: series
+    key -> (bucket starts, values)): oracle.group_aggregate per group; a
+    group of one series answers its own buckets, which is what the
+    quantile of one value is."""
+    out = []
+    for gkey in sorted(groups):
+        spans = groups[gkey]
+        series = [downsampled[sp.series_key] for sp in spans]
+        if len(series) == 1:
+            ts, vals = series[0]
+        else:
+            ts, vals = oracle.group_aggregate(series, spec.aggregator)
+        tags, aggregated = ex._group_tags(spans)
+        out.append(QueryResult(spec.metric, tags, aggregated, ts, vals))
+    return out
+
+
+def sampled_sum_check(answer: list, spans: list, seed: int = 11) -> dict:
+    """The full-width un-downsampled sum against float64 at 256 of its
+    grid points drawn with a seed: per series np.interp inside its
+    [first, last], summed. The grid itself must be the union of the
+    spans' timestamps."""
+    (g,) = answer
+    ts = np.array([int(t) for t in g["dps"]], np.int64)
+    vals = np.array(list(g["dps"].values()), np.float64)
+    union = np.unique(np.concatenate([sp.timestamps for sp in spans]))
+    if not np.array_equal(ts, union):
+        fail("sum:bench.metric: the grid is not the union of the series")
+    pick = np.sort(np.random.default_rng(seed).choice(len(ts), 256,
+                                                      replace=False))
+    x = ts[pick]
+    want = np.zeros(len(x))
+    for sp in spans:
+        inside = (x >= sp.timestamps[0]) & (x <= sp.timestamps[-1])
+        want[inside] += np.interp(x[inside], sp.timestamps, sp.values)
+    scale = float(np.abs(want).max())
+    err = np.abs(vals[pick] - want)
+    if (err > 1e-4 * np.abs(want) + 1e-5 * scale).any():
+        i = int(np.argmax(err))
+        fail(f"sum:bench.metric: {vals[pick][i]!r} vs float64 {want[i]!r} "
+             f"at {x[i]}")
+    return {"points": len(ts), "sampled": len(x),
+            "rel_err": float(err.max() / scale)}
+
+
+def new_answer_checks(ex: QueryExecutor, tsdb: TSDB, spans: list,
+                      answers: dict, union_answers: dict, start: int,
+                      end: int) -> dict:
+    """Given the spans of one host scan of every series over the week:
+    the resident percentile answers against the scan path's kernels on
+    them and against the oracle; the union answers against the oracle on
+    the spans trimmed to their range (the full-width sum: sampled)."""
+    out: dict = {}
+    s0 = time.perf_counter()
+    downsampled = {sp.series_key: oracle.downsample(
+        sp.timestamps, sp.values, INTERVAL, "avg", mode="aligned",
+        bucket_ts="start") for sp in spans}
+    out["oracle_downsample_ms"] = (time.perf_counter() - s0) * 1e3
+    for expr in PCT_QUERIES:
+        spec = spec_of(expr)
+        g = regroup(ex, spans, spec.tags)
+        scan = ex._execute_groups(spec, g, start, end)
+        out[expr] = {
+            "scan_rel_err": check_answer(expr, answers[expr], scan, 1e-5,
+                                         "scan path"),
+            "oracle_rel_err": check_answer(
+                expr, answers[expr],
+                oracle_percentiles(ex, spec, g, downsampled), 1e-4,
+                "oracle")}
+        log(f"check {expr}: {out[expr]}")
+    cpu = QueryExecutor(tsdb, backend="cpu")
+    for expr, span in UNION_QUERIES:
+        if expr == "sum:bench.metric":
+            out[expr] = sampled_sum_check(union_answers[expr], spans)
+        else:
+            spec = spec_of(expr)
+            q_end = start + span - 1
+            g = regroup(ex, trim(spans, start, q_end), spec.tags)
+            out[expr] = {"oracle_rel_err": check_answer(
+                expr, union_answers[expr],
+                cpu._execute_groups(spec, g, start, q_end), 1e-4,
+                "oracle")}
+        log(f"check {expr}: {out[expr]}")
+    return out
 
 
 def sync_ms(fn) -> tuple[float, object]:
@@ -540,17 +933,24 @@ def stage_and_apply(ex: QueryExecutor, dw: DeviceWindow, spec: QuerySpec,
     grids = stage()  # warm-up: the allocator's first blocks
     stage_runs = [sync_ms(stage)[0] for _ in range(3)]
     exact, group_bys = ex._tag_filters(spec.tags)
-    _, include, gmap = ex._dw_mask_cache.get(
+    _, include, gmap, layout = ex._dw_mask_cache.get(
         (dw.instance_id, muid, _filter_key(exact, group_bys)))
     groups, _ = ex._devwindow_groups(dw, muid, cols, exact, group_bys)
     ngroups = 1 if len(groups) == 1 else _pad_size(len(groups))
-    b_out = min(num_buckets, _pad64(int((end - qbase) // interval + 1)))
+    shrink = dict(g_out=min(ngroups, _pad64(len(groups))),
+                  b_out=min(num_buckets,
+                            _pad64(int((end - qbase) // interval + 1))))
+    agg = Aggregators.get(spec.aggregator)
 
     def apply():
-        gv, gm = wk.window_moment_apply(
-            *grids[:4], include, gmap, num_groups=ngroups,
-            agg_group=spec.aggregator,
-            g_out=min(ngroups, _pad64(len(groups))), b_out=b_out)
+        if agg.kind == "percentile":
+            gv, gm = wk.window_quantile_apply(
+                grids[1], grids[2], grids[3], include, gmap,
+                [agg.quantile], num_groups=ngroups, layout=layout, **shrink)
+        else:
+            gv, gm = wk.window_moment_apply(
+                *grids[:4], include, gmap, num_groups=ngroups,
+                agg_group=spec.aggregator, **shrink)
         return gv.cpu().numpy(), gm.cpu().numpy()
 
     apply()  # warm-up
@@ -606,7 +1006,7 @@ def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
         start, end = BASE, BASE + SPAN - 1
         answers = {}
         zero_launches()
-        for expr in QUERIES:
+        for expr in QUERIES + PCT_QUERIES:
             runs = []
             for _ in range(1 + WARM_REPS):
                 run, answers[expr] = http_resident(daemon.port, dw, ex,
@@ -615,6 +1015,9 @@ def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
             first, warm = runs[0], runs[1:]
             if first["stage_built"] and first["segment_sum"] == 0:
                 fail(f"{expr}: its stage build launched no segment_sum")
+            if expr in PCT_QUERIES and any(r["masked_select"] == 0
+                                           for r in runs):
+                fail(f"{expr}: a run launched no masked_select")
             out["queries"][expr] = {
                 "first_ms": first["wall_ms"],
                 "first_built_stage": first["stage_built"],
@@ -630,19 +1033,40 @@ def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
                 f"built: {q['first_built_stage']}), warm p50 "
                 f"{q['warm_p50_ms']:.1f} ms (runs "
                 f"{', '.join(f'{w:.1f}' for w in q['warm_ms'])})")
-        out["launches"]["resident"] = path_launches("resident path")
+        out["launches"]["resident"] = path_launches("resident path",
+                                                    KERNELS[:3])
         out["window"] = {"resident_points": dw._total_points,
                          "hits": dw.window_hits,
                          "misses": dw.window_misses,
                          "dirty_fallbacks": dw.dirty_fallbacks}
 
+        # Queries without a downsampler over HTTP: the window declines
+        # them, the scan path answers on the union grid.
+        union_answers = {}
+        out["union"] = {}
+        zero_launches()
+        for expr, span in UNION_QUERIES:
+            union_answers[expr], out["union"][expr] = http_union(
+                daemon.port, expr, start, start + span - 1)
+        out["launches"]["union"] = path_launches(
+            "union path", ("masked_select", "interp_moments"))
+
         # In process: where a resident query's time goes.
-        for expr in QUERIES:
+        for expr in QUERIES + PCT_QUERIES:
             out["queries"][expr].update(
                 stage_and_apply(ex, dw, spec_of(expr), start, end))
 
-        # The same queries on the scan path of the same TSDB (window set
-        # aside): host scan and device stage timed, launches counted.
+        # The same queries on the scan path of the same TSDB: one host
+        # scan of every series over the week (timed), its spans regrouped
+        # per query as a scan with that filter groups them, then each
+        # query's device stage (timed, launches counted).
+        s0 = time.perf_counter()
+        week = ex._find_spans(spec_of("sum:bench.metric{host=*}"), start,
+                              end)
+        spans = [sp for g in sorted(week) for sp in week[g]]
+        out["scan_ms"] = (time.perf_counter() - s0) * 1e3
+        log(f"host scan of every series over the week: "
+            f"{out['scan_ms']:.0f} ms, {len(spans)} spans")
         scans = {}
         tsdb.devwindow = None
         try:
@@ -651,20 +1075,19 @@ def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
                 spec = spec_of(expr)
                 q = out["queries"][expr]
                 before = launches()
-                s0 = time.perf_counter()
-                groups = ex._find_spans(spec, start, end)
+                groups = regroup(ex, spans, spec.tags)
                 s1 = time.perf_counter()
                 scans[expr] = (groups, ex._execute_groups(spec, groups,
                                                           start, end))
                 torch.cuda.synchronize()
-                q["scan_ms"] = (s1 - s0) * 1e3
                 q["execute_ms"] = (time.perf_counter() - s1) * 1e3
                 q["scan_launches"] = {
                     k: a - b for k, a, b in zip(KERNELS, launches(),
                                                 before)}
                 if q["scan_launches"]["segment_sum"] == 0:
                     fail(f"{expr}: the scan path launched no segment_sum")
-            out["launches"]["scan"] = path_launches("scan path")
+            out["launches"]["scan"] = path_launches("scan path",
+                                                    KERNELS[:2])
         finally:
             tsdb.devwindow = dw
 
@@ -683,10 +1106,15 @@ def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
                 "oracle")
             log(f"query {expr}: {q['chunks']} chunks, stage "
                 f"{q['stage_ms']:.2f} ms, apply+fetch "
-                f"{q['apply_fetch_ms']:.2f} ms; scan path: scan "
-                f"{q['scan_ms']:.0f} ms + device stage "
+                f"{q['apply_fetch_ms']:.2f} ms; scan path: device stage "
                 f"{q['execute_ms']:.0f} ms, launches "
                 f"{q['scan_launches']}")
+
+        # The percentile and union answers against the same spans: the
+        # resident percentiles against the scan path's device kernels on
+        # them, and every new answer against the float64 oracle.
+        out["checks"] = new_answer_checks(ex, tsdb, spans, answers,
+                                          union_answers, start, end)
 
         # torch.profiler over one warm resident query, and over one whose
         # stage is rebuilt (its cache entry dropped first).
@@ -851,32 +1279,48 @@ def main() -> int:
     log(f"built {cuda_build.sources()} in {build_s:.1f} s")
 
     ts, vals = corpus()
-    kernels = kernel_phase(ts, vals)
+    kernels = kernel_phase(ts, vals) + select_interp_phase(ts, vals)
     with tempfile.TemporaryDirectory() as wal_dir:
         path = path_phase(ts, vals, wal_dir)
     del ts, vals
     budget = budget_phase()
 
-    # Each path's launches beside the times at that path's shape.
-    shape = {"resident": "window chunk fold", "scan": "series stage"}
+    # Each path's launches beside the times at that path's shape; the
+    # first path listed gives a kernel's top-level numbers.
+    fold = {"resident": "window chunk fold", "scan": "series stage"}
+    shapes = {
+        "segment_sum": fold, "segment_minmax": fold,
+        "masked_select": {"resident": "window select, columns",
+                          "union": "union p95 {dc=dc0} one day"},
+        "interp_moments": {"union": "union {dc=dc0} one day"}}
+    where = {
+        "segment_sum": ("segment_reduce.cu",
+                        "opentsdb_tpu/ops/pallas_kernels.py:77"),
+        "segment_minmax": ("segment_reduce.cu",
+                           "opentsdb_tpu/ops/kernels.py:95"),
+        "masked_select": ("masked_select.cu",
+                          "opentsdb_tpu/ops/kernels.py:818"),
+        "interp_moments": ("interp_moments.cu",
+                           "opentsdb_tpu/ops/kernels.py:1100")}
+    numbers = ("max_abs_err", "ms", "ms_cold", "ms_device", "plain_ms",
+               "bound_ms", "bound_by", "library_ms")
     by_case = {(r["name"], r["stage"]): r for r in kernels}
     line = []
-    for name in KERNELS:
+    for name, shape in shapes.items():
         paths = {}
         for p, stage in shape.items():
             r = by_case[(name, stage)]
             paths[p] = {"stage": stage,
                         "launches": path["launches"][p][name],
-                        **{k: r[k] for k in (
-                            "max_abs_err", "ms", "plain_ms", "bound_ms",
-                            "bound_by", "library_ms")}}
-        line.append({
-            "name": name, "route": "cuda",
-            "source": "opentsdb_tpu_torch/csrc/segment_reduce.cu",
-            "replaces": ("opentsdb_tpu/ops/pallas_kernels.py:77"
-                         if name == "segment_sum"
-                         else "opentsdb_tpu/ops/kernels.py:95"),
-            **paths["resident"], "paths": paths})
+                        **{k: r[k] for k in numbers}}
+        entry = {"name": name, "route": "cuda",
+                 "source": f"opentsdb_tpu_torch/csrc/{where[name][0]}",
+                 "replaces": where[name][1],
+                 **paths[next(iter(shape))], "paths": paths}
+        if name == "interp_moments":
+            r = by_case[(name, "union full width")]
+            entry["full_width"] = {k: r[k] for k in numbers}
+        line.append(entry)
     log(json.dumps({"details": {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "kernel_cases": kernels, "path": path,
@@ -884,6 +1328,9 @@ def main() -> int:
     for expr, q in path["queries"].items():
         print(json.dumps({"query": expr, "plan": "resident", **q,
                           "card": smi}))
+    for expr, run in path["union"].items():
+        print(json.dumps({"query": expr, "plan": "raw", **run,
+                          "check": path["checks"][expr], "card": smi}))
     print(json.dumps({"ingest_points_per_s":
                       path["ingest"]["points_per_s"],
                       "window": path["window"],

@@ -8,14 +8,21 @@ names, arguments, padding and results:
   ``_series_stage``, ``downsample_group`` and ``downsample_multigroup``;
 - the resident-window path (``storage/devstore.py``), over the window's
   chunk list: ``_chunk_fold``, ``_chunk_stage_finish``,
-  ``window_series_stage_chunks``, ``_shrink_wrap`` and
-  ``window_moment_apply``. The JAX package's stage over concatenated
-  columns (``window_series_stage``, ``window_query``) is left out: the
-  executor serves only from the chunks.
+  ``window_series_stage_chunks``, ``_shrink_wrap``,
+  ``window_moment_apply`` and ``window_quantile_apply``. The JAX package's
+  stage over concatenated columns (``window_series_stage``,
+  ``window_query``) is left out: the executor serves only from the chunks;
+- percentile group aggregation: ``_order_key``, ``_key_to_float``,
+  ``masked_quantile_axis0``, ``masked_quantile_groups`` and
+  ``downsample_multigroup_quantile``;
+- the un-downsampled (union-grid) path: ``flat_rate``, ``union_grid``,
+  ``series_contributions`` and ``group_interpolate``.
 
 Every segment sum, min and max goes through the port's own kernels
-(``ops/segment_reduce.py``); the rest is plain tensor code on whatever
-device the inputs lie on.
+(``ops/segment_reduce.py``), every quantile through the rank-select kernel
+(``ops/masked_select.py``) and every union-grid moment reduction through
+the interpolate-and-reduce kernel (``ops/interp_moments.py``); the rest is
+plain tensor code on whatever device the inputs lie on.
 
 Layout, as in the JAX package: all points of a query in one flat [N]
 stream with a parallel [N] series id; timestamps are int32 offsets from
@@ -35,6 +42,10 @@ from __future__ import annotations
 import torch
 
 from opentsdb_tpu_torch.core.const import NOLERP_AGGS
+from opentsdb_tpu_torch.ops import masked_select
+from opentsdb_tpu_torch.ops.interp_moments import (interp_moments,
+                                                   series_contributions)
+from opentsdb_tpu_torch.ops.masked_select import GroupLayout, group_layout
 from opentsdb_tpu_torch.ops.segment_reduce import segment_minmax, segment_sum
 
 _NEG_INF = float("-inf")
@@ -392,6 +403,79 @@ def downsample_multigroup(ts: torch.Tensor, vals: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Percentile group aggregation
+# ---------------------------------------------------------------------------
+
+def _order_key(vals: torch.Tensor) -> torch.Tensor:
+    """Monotone f32 -> uint32 mapping (IEEE total order): x < y iff
+    key(x) < key(y); int64 values in [0, 2^32) (see
+    ``masked_select.order_key``)."""
+    return masked_select.order_key(vals)
+
+
+def _key_to_float(key: torch.Tensor) -> torch.Tensor:
+    """Inverse of _order_key."""
+    return masked_select.key_to_float(key)
+
+
+def masked_quantile_axis0(vals: torch.Tensor, mask: torch.Tensor, q):
+    """Per-column quantiles across series (axis 0) with a validity mask:
+    numpy's linear interpolation at position (n-1)*q between the sorted
+    valid values of each column; a column with no valid entry gives 0.
+    ``q`` is [K]; returns [K, B]. The selected values are exact rank
+    statistics (the rank-select kernel, ``ops/masked_select.py``)."""
+    return masked_select.select_columns(vals, mask, q)
+
+
+def masked_quantile_groups(vals: torch.Tensor, mask: torch.Tensor,
+                           gmap: torch.Tensor, q, *, num_groups: int,
+                           layout: GroupLayout | None = None):
+    """Per-(group, bucket) quantiles across member series, all groups in
+    one call; ``gmap`` [S] maps each row to its group, and per group the
+    semantics are masked_quantile_axis0's on that group's rows alone.
+    ``layout`` is ``group_layout(gmap, num_groups)`` when the caller keeps
+    one (built on the host otherwise). Returns [K, G, B]."""
+    if layout is None:
+        layout = group_layout(gmap, num_groups, vals.device)
+    return masked_select.select_groups(vals, mask, layout, q)
+
+
+def downsample_multigroup_quantile(
+        ts: torch.Tensor, vals: torch.Tensor, sid: torch.Tensor,
+        valid: torch.Tensor, group_of_sid: torch.Tensor, q, *,
+        num_series: int, num_groups: int, num_buckets: int, interval: int,
+        agg_down: str, rate: bool = False, counter_max: float = 0.0,
+        reset_value: float = 0.0, counter: bool = False,
+        drop_resets: bool = False, layout: GroupLayout | None = None):
+    """Downsample [+ rate] + per-group PERCENTILE aggregation for many
+    group-by buckets in one call (the percentile sibling of
+    downsample_multigroup): series stage, optional bucket rates, gap or
+    step fill between each series' real buckets, then quantile ``q[0]``
+    across member series. Returns dict with group_values [G, B],
+    group_mask [G, B], series_values, series_mask."""
+    series_values, series_mask, _ = _series_stage(
+        ts, vals, sid, valid, num_series=num_series,
+        num_buckets=num_buckets, interval=interval, agg_down=agg_down,
+        with_ts=False)
+    if rate:
+        series_values, series_mask = bucket_rate(
+            series_values, series_mask, interval, counter_max,
+            reset_value, counter=counter, drop_resets=drop_resets)
+    fill = step_fill if rate else gap_fill
+    filled, in_range = fill(series_values, series_mask, num_buckets)
+    gv = masked_quantile_groups(filled, in_range, group_of_sid, q,
+                                num_groups=num_groups, layout=layout)
+    real = segment_sum(series_mask.to(torch.float32), group_of_sid,
+                       num_groups) > 0
+    return {
+        "group_values": gv[0],
+        "group_mask": real,
+        "series_values": series_values,
+        "series_mask": series_mask,
+    }
+
+
+# ---------------------------------------------------------------------------
 # Resident-window stages (storage/devstore.py query path)
 # ---------------------------------------------------------------------------
 
@@ -576,3 +660,115 @@ def window_moment_apply(series_values, series_mask, filled, in_range,
     if g_out is None:
         return gv, gm
     return _shrink_wrap(gv, gm, g_out, b_out)
+
+
+def window_quantile_apply(series_mask, filled, in_range, include, gmap, q,
+                          *, num_groups, g_out=None, b_out=None,
+                          layout: GroupLayout | None = None):
+    """Cheap per-query half of a resident-window PERCENTILE query (the
+    JAX package's ``_quantile_apply``): include masking + [G, B] masked
+    quantiles ``q[0]`` from the cached stage's filled grid (quantiles
+    always take the lerp/step fill family). Excluded and padded series
+    carry no valid bucket, so wherever gmap sends them they add nothing;
+    ``layout`` is gmap's ``group_layout`` when num_groups > 1."""
+    sm = series_mask & include[:, None]
+    ir = in_range & include[:, None]
+    if num_groups == 1:
+        gv = masked_quantile_axis0(filled, ir, q)[:1]
+        gm = sm.any(dim=0)[None]
+    else:
+        gv = masked_quantile_groups(filled, ir, gmap, q,
+                                    num_groups=num_groups,
+                                    layout=layout)[0]
+        gm = segment_sum(sm.to(torch.float32), gmap, num_groups) > 0
+    if g_out is None:
+        return gv, gm
+    return _shrink_wrap(gv, gm, g_out, b_out)
+
+
+# ---------------------------------------------------------------------------
+# Un-downsampled queries: flat rate and union-grid aggregation
+# ---------------------------------------------------------------------------
+
+def flat_rate(ts: torch.Tensor, vals: torch.Tensor, sid: torch.Tensor,
+              valid: torch.Tensor, counter_max: float = 0.0,
+              reset_value: float = 0.0, *, counter: bool = False,
+              drop_resets: bool = False):
+    """Per-point rate of change within each series, in flat layout.
+
+    Requires points sorted by (sid, ts) — the natural scan order. The
+    first point of each series yields no rate (its valid bit clears),
+    matching oracle.rate. ``counter`` adds rollover correction at
+    counter_max; ``drop_resets``/reset_value zeroes implausible spikes.
+    The JAX package's carry arguments (its time-sharded path) are left
+    out. Returns (rates [N] float32 at each point's own ts, valid [N])."""
+    prev_ts = torch.roll(ts, 1)
+    prev_v = torch.roll(vals, 1)
+    ok = valid & torch.roll(valid, 1) & (torch.roll(sid, 1) == sid)
+    if ok.numel():
+        ok[0] = False
+    dt = torch.clamp((ts - prev_ts).to(torch.float32), min=1e-9)
+    dv = vals - prev_v
+    if counter:
+        dv = torch.where(dv < 0, dv + counter_max, dv)
+    r = dv / dt
+    if drop_resets:
+        r = torch.where(torch.abs(r) > reset_value, 0.0, r)
+    return torch.where(ok, r, 0.0), ok
+
+
+def union_grid(ts: torch.Tensor, counts: torch.Tensor):
+    """Deduplicated sorted union of S padded timestamp rows.
+
+    ts is [S, T] int32 left-aligned; counts [S]. Returns (grid [S*T]
+    int32, gmask [S*T] bool) with real entries compacted to the front."""
+    S, T = ts.shape
+    idx = torch.arange(T, device=ts.device)
+    flat = torch.where(idx[None, :] < counts[:, None], ts, _I32_BIG) \
+        .reshape(-1)
+    sorted_ts = torch.sort(flat).values
+    first = torch.ones_like(sorted_ts, dtype=torch.bool)
+    first[1:] = sorted_ts[1:] != sorted_ts[:-1]
+    gmask = first & (sorted_ts != _I32_BIG)
+    order = torch.argsort(~gmask, stable=True)
+    return sorted_ts[order], gmask[order]
+
+
+def group_interpolate(ts: torch.Tensor, vals: torch.Tensor,
+                      counts: torch.Tensor, *, agg: str,
+                      interp: str = "lerp"):
+    """Aggregate S padded series on the union of their timestamps.
+
+    Args:
+      ts:     [S, T] int32, each row sorted, left-aligned (valid prefix).
+      vals:   [S, T] float32.
+      counts: [S] int32 valid-point counts per row.
+      interp: 'lerp', 'step' (last-value hold, for rates) or 'none'.
+
+    Returns (grid [S*T] int32, out [S*T] float32, gmask [S*T] bool): the
+    deduplicated union grid (padded; gmask marks real entries) and the
+    aggregate at each grid point. A series contributes exact values at
+    its own timestamps, interpolation elsewhere, nothing outside its
+    [first, last] (reference SGIterator semantics, SpanGroup.java:370-796).
+
+    The moments at the U real grid points come from ``interp_moments``
+    over the compacted grid (on the card, one fused kernel that never
+    holds the [S, U] contributions); the padded entries get the moments
+    of no contribution, so ``out`` equals the JAX package's everywhere."""
+    grid, gmask = union_grid(ts, counts)
+    U = int(gmask.sum())
+    need_m2 = "m2" in _needs(agg)
+    c, t, m2, mn, mx = interp_moments(ts, vals, counts, grid[:U],
+                                      interp=interp, with_m2=need_m2)
+    n = grid.shape[0]
+
+    def padded(x, fill):
+        out = torch.full((n,), fill, dtype=torch.float32, device=ts.device)
+        out[:U] = x
+        return out
+
+    cnt = padded(c, 0.0)
+    out = _finish(agg, cnt, padded(t, 0.0),
+                  padded(m2, 0.0) if need_m2 else None, padded(mn, _POS_INF),
+                  padded(mx, _NEG_INF))
+    return grid, out, gmask & (cnt > 0)

@@ -19,18 +19,17 @@ Backends: 'device' runs ops/kernels.py on the torch device (padded
 shapes); 'cpu' runs the float64 numpy oracle. Both agree bit-for-bit on
 grids and to float32 tolerance on values.
 
-Plans, as in the JAX package: a downsampled moment query is served first
-from the resident device window (``storage/devstore.py``) when it exactly
-covers the range — plan label "resident": no storage scan, no upload of
-points, only the [S]-sized include/group maps (cached) and the
-filter-independent [S, B] stage (cached per data version) — and
-otherwise from the storage scan, plan "raw". There is no rollup tier or
-fragment cache here.
-
-Not ported yet, and answered with 400 "not yet ported" on the device
-backend instead of being run elsewhere: percentile group aggregators and
-un-downsampled queries (the union-grid kernels); the window declines
-both.
+Plans, as in the JAX package: a downsampled query with a moment or
+percentile group aggregator is served first from the resident device
+window (``storage/devstore.py``) when it exactly covers the range — plan
+label "resident": no storage scan, no upload of points, only the [S]-sized
+include/group maps (cached) and the filter-independent [S, B] stage
+(cached per data version) — and otherwise from the storage scan, plan
+"raw". Queries without a downsampler always take the scan: their spans
+are aggregated on the union of their timestamps (``group_interpolate``,
+or the union-grid quantile), with rates taken per point first. Percentile
+downsamplers (``1h-p95``) run on the float64 oracle, as in the JAX
+package. There is no rollup tier or fragment cache here.
 """
 
 from __future__ import annotations
@@ -206,13 +205,6 @@ class QueryExecutor:
         if agg.kind == "cardinality":
             raise BadRequestError(
                 "use the /distinct endpoint for cardinality queries")
-        if self.backend != "cpu" and not self._oracle_downsample(spec):
-            if not spec.downsample:
-                raise not_yet_ported(
-                    "queries without a downsampler (union-grid kernels)")
-            if agg.kind == "percentile":
-                raise not_yet_ported(
-                    f"percentile group aggregator {spec.aggregator!r}")
         dev = self._run_devwindow(spec, start, end, agg)
         if dev is not None:
             return dev, "resident", False
@@ -236,11 +228,14 @@ class QueryExecutor:
             # Ranges wider than int32 seconds (>68 years) would wrap the
             # int32 offsets the kernels use; the oracle serves them, as
             # in the JAX package.
-            qbase = start - start % spec.downsample[0]
+            qbase = (start - start % spec.downsample[0] if spec.downsample
+                     else start)
             use_cpu = end - qbase > 2**31 - 1
-        # A wide group-by batches into ONE kernel call for all groups.
+        # A wide downsampled group-by batches into ONE kernel call for all
+        # groups; un-downsampled group-bys run per group, as in the JAX
+        # package.
         per_group = None
-        if not use_cpu and len(gkeys) > 1:
+        if not use_cpu and len(gkeys) > 1 and spec.downsample:
             per_group = self._run_device_multigroup(
                 spec, [groups[k] for k in gkeys], start, end)
         results = []
@@ -316,23 +311,110 @@ class QueryExecutor:
 
     def _run_device(self, spec: QuerySpec, spans: list[_Span], start: int,
                     end: int):
-        """One group through downsample_group (the JAX package's
-        _tpu_downsample_group): flat downsample [+ rate] + cross-series
-        group in one call."""
+        """One group on the device (the JAX package's _run_tpu). With a
+        downsampler: downsample_group (its _tpu_downsample_group), flat
+        downsample [+ rate] + cross-series group in one call; a
+        percentile group aggregator takes the per-series buckets, fills
+        them and selects across series. Without one: the union grid."""
+        if not spec.downsample:
+            return self._run_device_union(spec, spans)
         interval, dsagg = spec.downsample
         qbase = start - start % interval
         # Power-of-two padding, as in the JAX package, so both compute on
         # identical grids; padded series/buckets hold no points.
         num_buckets = _pad_size(int((end - qbase) // interval + 1))
+        agg = Aggregators.get(spec.aggregator)
         rel, vals, sid, valid = self._flatten_spans(spans, qbase)
         out = kernels.downsample_group(
             rel, vals, sid, valid, num_series=_pad_size(len(spans)),
             num_buckets=num_buckets, interval=interval, agg_down=dsagg,
-            agg_group=spec.aggregator, **self._rate_kw(spec))
+            agg_group=spec.aggregator if agg.kind == "moment" else "count",
+            **self._rate_kw(spec))
         gmask = out["group_mask"].cpu().numpy()
-        values = out["group_values"].cpu().numpy()[gmask]
+        if agg.kind == "percentile":
+            # Post-rate buckets when spec.rate: rates step-hold, plain
+            # values lerp.
+            fill = kernels.step_fill if spec.rate else kernels.gap_fill
+            filled, in_range = fill(out["series_values"],
+                                    out["series_mask"], num_buckets)
+            gv = kernels.masked_quantile_axis0(filled, in_range,
+                                               [agg.quantile])[0]
+        else:
+            gv = out["group_values"]
+        values = gv.cpu().numpy()[gmask]
         grid_ts = np.flatnonzero(gmask).astype(np.int64) * interval + qbase
         return grid_ts, values.astype(np.float64)
+
+    def _run_device_union(self, spec: QuerySpec, spans: list[_Span]):
+        """An un-downsampled group (the JAX package's _run_tpu general
+        branch): optional per-point rate, then aggregation on the union
+        of the spans' timestamps, relative to the earliest first one."""
+        series = [(sp.timestamps, sp.values) for sp in spans]
+        if spec.rate:
+            series = [s for s in self._device_rate(series, spec)
+                      if len(s[0])]
+        if not series:
+            return (np.empty(0, np.int64), np.empty(0, np.float64))
+        counts = np.array([len(s[0]) for s in series], np.int32)
+        S, T = len(series), _pad_size(int(counts.max()))
+        base = min(int(s[0][0]) for s in series)
+        # Left-aligned padded rows, filled in bulk.
+        rows = np.repeat(np.arange(S), counts)
+        cols = np.arange(len(rows)) - np.repeat(
+            np.cumsum(counts) - counts, counts)
+        ts_pad = np.zeros((S, T), np.int32)
+        val_pad = np.zeros((S, T), np.float32)
+        ts_pad[rows, cols] = np.concatenate([s[0] for s in series]) - base
+        val_pad[rows, cols] = np.concatenate([s[1] for s in series])
+        dev = self.device
+        ts_t, val_t, cnt_t = (torch.from_numpy(x).to(dev)
+                              for x in (ts_pad, val_pad, counts))
+        interp = self._interp(spec)
+        agg = Aggregators.get(spec.aggregator)
+        if agg.kind == "percentile":
+            grid, out = self._device_quantile_grid(ts_t, val_t, cnt_t,
+                                                   agg.quantile, interp)
+        else:
+            grid, out, gmask = kernels.group_interpolate(
+                ts_t, val_t, cnt_t, agg=spec.aggregator, interp=interp)
+            grid, out = grid[gmask], out[gmask]
+        return (grid.cpu().numpy().astype(np.int64) + base,
+                out.cpu().numpy().astype(np.float64))
+
+    @staticmethod
+    def _device_quantile_grid(ts_pad, val_pad, counts, q: float,
+                              interp: str):
+        """Union-grid percentile (the JAX package's _tpu_quantile_grid):
+        the grid once, each series' contributions at its U real points
+        ([S, U], which must fit on the device), then the quantile across
+        series. Returns (grid [U], values [U])."""
+        grid, gmask = kernels.union_grid(ts_pad, counts)
+        grid = grid[:int(gmask.sum())]
+        contrib, cmask = kernels.series_contributions(
+            ts_pad, val_pad, counts, grid, interp=interp)
+        return grid, kernels.masked_quantile_axis0(contrib, cmask, [q])[0]
+
+    def _device_rate(self, series, spec: QuerySpec):
+        """Rate each series on the device with the flat kernel (the JAX
+        package's _tpu_rate); [(ts, rates)] aligned with ``series``."""
+        lens = [len(s[0]) for s in series]
+        ts = np.concatenate([s[0] for s in series]).astype(np.int64)
+        base = int(ts.min()) if len(ts) else 0
+        vals = np.concatenate([s[1] for s in series]).astype(np.float32)
+        sid = np.repeat(np.arange(len(series), dtype=np.int32), lens)
+        dev = self.device
+        rates, ok = kernels.flat_rate(
+            torch.from_numpy((ts - base).astype(np.int32)).to(dev),
+            torch.from_numpy(vals).to(dev), torch.from_numpy(sid).to(dev),
+            torch.ones(len(ts), dtype=torch.bool, device=dev),
+            counter_max=spec.counter_max,
+            reset_value=spec.reset_value or 0.0,
+            counter=spec.counter,
+            drop_resets=spec.reset_value is not None)
+        rates, ok = rates.cpu().numpy(), ok.cpu().numpy()
+        cut = np.cumsum(lens)[:-1]
+        return [(t[m], r[m].astype(np.float64)) for t, r, m in zip(
+            np.split(ts, cut), np.split(rates, cut), np.split(ok, cut))]
 
     def _run_device_multigroup(self, spec: QuerySpec,
                                span_groups: list[list[_Span]],
@@ -355,11 +437,21 @@ class QueryExecutor:
         gmap = np.full(S, G - 1, np.int32)
         gmap[:len(group_of_sid)] = group_of_sid
         rel, vals, sid, valid = self._flatten_spans(all_spans, qbase)
-        out = kernels.downsample_multigroup(
-            rel, vals, sid, valid, torch.from_numpy(gmap).to(self.device),
-            num_series=S, num_groups=G, num_buckets=num_buckets,
-            interval=interval, agg_down=dsagg, agg_group=spec.aggregator,
-            **self._rate_kw(spec))
+        gmap_t = torch.from_numpy(gmap).to(self.device)
+        agg = Aggregators.get(spec.aggregator)
+        if agg.kind == "percentile":
+            out = kernels.downsample_multigroup_quantile(
+                rel, vals, sid, valid, gmap_t, [agg.quantile],
+                num_series=S, num_groups=G, num_buckets=num_buckets,
+                interval=interval, agg_down=dsagg,
+                layout=kernels.group_layout(gmap, G, self.device),
+                **self._rate_kw(spec))
+        else:
+            out = kernels.downsample_multigroup(
+                rel, vals, sid, valid, gmap_t, num_series=S, num_groups=G,
+                num_buckets=num_buckets, interval=interval,
+                agg_down=dsagg, agg_group=spec.aggregator,
+                **self._rate_kw(spec))
         gv = out["group_values"].cpu().numpy()
         gm = out["group_mask"].cpu().numpy()
         results = []
@@ -379,12 +471,13 @@ class QueryExecutor:
         storage scan, no host->device point upload — the host only
         filters the series directory and uploads [S]-sized maps. Returns
         None to fall back to the scan path (oracle backend, no window,
-        un-downsampled or percentile queries, dirty/evicted windows,
+        un-downsampled queries, percentile downsamplers, dirty/evicted
+        windows,
         unknown UIDs, out-of-int32 epochs/ranges, device out of
         memory)."""
         dw = self.tsdb.devwindow
         if (dw is None or self.backend == "cpu" or not spec.downsample
-                or agg.kind != "moment"
+                or agg.kind not in ("moment", "percentile")
                 or Aggregators.get(spec.downsample[1]).kind != "moment"):
             return None
         interval, dsagg = spec.downsample
@@ -419,14 +512,15 @@ class QueryExecutor:
             return None
         gkeys = sorted(groups)
         G = _pad_size(len(gkeys))
-        # Device include/gmap, cached per (window instance, metric,
+        # Device include/gmap (and, for a group-by, gmap's rows sorted by
+        # group for the rank select), cached per (window instance, metric,
         # filter); the generation lives in the VALUE, so a directory
         # growth overwrites in place and dead generations never
         # accumulate device tensors.
         mkey = (dw.instance_id, metric_uid, _filter_key(exact, group_bys))
         hit = self._dw_mask_cache.get(mkey)
         if hit is not None and hit[0] == cols.generation:
-            include, gmap = hit[1], hit[2]
+            include, gmap, layout = hit[1:]
         else:
             include = np.zeros(S_pad, bool)
             gmap = np.full(S_pad, G - 1, np.int32)
@@ -434,9 +528,12 @@ class QueryExecutor:
                 for sid in groups[gkey]:
                     include[sid] = True
                     gmap[sid] = gi
+            layout = (kernels.group_layout(gmap, G, dw.device)
+                      if len(gkeys) > 1 else None)
             include = torch.from_numpy(include).to(dw.device)
             gmap = torch.from_numpy(gmap).to(dw.device)
-            self._dw_mask_cache.put(mkey, (cols.generation, include, gmap))
+            self._dw_mask_cache.put(mkey, (cols.generation, include, gmap,
+                                           layout))
         ngroups = 1 if len(gkeys) == 1 else G
         rate_kw = self._rate_kw(spec)
         # The heavy N-point half (range mask + per-series downsample
@@ -477,10 +574,16 @@ class QueryExecutor:
         g_out = min(ngroups, _pad64(len(gkeys)))
         b_out = min(num_buckets, _pad64(b_live))
         try:
-            gv, gm = kernels.window_moment_apply(
-                sv, sm, filled, in_range, include, gmap,
-                num_groups=ngroups, agg_group=spec.aggregator,
-                g_out=g_out, b_out=b_out)
+            if agg.kind == "percentile":
+                gv, gm = kernels.window_quantile_apply(
+                    sm, filled, in_range, include, gmap, [agg.quantile],
+                    num_groups=ngroups, g_out=g_out, b_out=b_out,
+                    layout=layout)
+            else:
+                gv, gm = kernels.window_moment_apply(
+                    sv, sm, filled, in_range, include, gmap,
+                    num_groups=ngroups, agg_group=spec.aggregator,
+                    g_out=g_out, b_out=b_out)
             gv, gm = gv.cpu().numpy(), gm.cpu().numpy()
             if stage[5] is None:
                 stage[5] = presence_dev.cpu().numpy()

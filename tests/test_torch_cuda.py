@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from opentsdb_tpu_torch.ops import kernels
+from opentsdb_tpu_torch.ops import interp_moments as im_mod
+from opentsdb_tpu_torch.ops import kernels, masked_select
 from opentsdb_tpu_torch.ops.segment_reduce import (
     segment_minmax,
     segment_minmax_plain,
@@ -452,3 +453,212 @@ def test_window_eviction_at_budget(card):
         want = kernels.window_series_stage_chunks(
             cpu_chunks, 0, 2 * SPAN, 0, **kw)
         _assert_stage_close(got, want, exact=agg == "max")
+
+
+# ---------------------------------------------------------------------------
+# masked_select: the rank-select kernel against its plain version
+# ---------------------------------------------------------------------------
+
+QS = [0.0, 0.5, 0.95, 0.99, 0.999, 1.0]
+
+
+def _select_grid(rng, S, B, case="normal"):
+    vals = rng.normal(100, 20, (S, B)).astype(np.float32)
+    if case == "ties":
+        vals = np.round(vals / 25).astype(np.float32)
+    elif case == "special":
+        vals = rng.choice(_WINDOW_SPECIAL, (S, B)).astype(np.float32)
+    mask = rng.random((S, B)) > 0.3
+    mask[:, 0] = False              # all-masked column
+    if S > 3:
+        mask[:, 1] = False
+        mask[3, 1] = True           # one valid entry
+    return torch.from_numpy(vals), torch.from_numpy(mask)
+
+
+def _same(got, want):
+    """Kernel against plain on the card: both select exact rank keys and
+    lerp with separate float32 roundings, so bit-identical (NaN where an
+    infinity meets its opposite on both sides)."""
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,B,case", [
+    (1, 37, "normal"), (2, 64, "ties"), (32, 40, "normal"),
+    (33, 40, "ties"), (1000, 257, "normal"), (1000, 100, "special"),
+    (16384, 256, "normal"), (16384, 256, "ties"), (300, 42001, "normal")])
+def test_select_columns_matches_plain(card, S, B, case):
+    rng = np.random.default_rng(S + B)
+    vals, mask = _select_grid(rng, S, B, case)
+    v, m = vals.to(card), mask.to(card)
+    n0 = masked_select.select_columns.launches
+    got = masked_select.select_columns(v, m, QS)
+    assert masked_select.select_columns.launches == n0 + 1
+    want = masked_select.select_columns_plain(v, m, QS)
+    torch.cuda.synchronize()
+    assert got.shape == (len(QS), B)
+    _same(got, want)
+    assert (got[:, 0] == 0).all()
+
+
+def _layout_gmap(kind, S):
+    """Group maps as the executor lays them out."""
+    if kind == "host":      # one series per group, padding in the last
+        real = S * 10020 // 16384
+        gmap = np.full(S, S - 1)
+        gmap[:real] = np.arange(real)
+        return gmap, S
+    if kind == "dc":        # 10 groups of ~S/16, padding into group 15
+        real = S * 10020 // 16384
+        gmap = np.full(S, 15)
+        gmap[:real] = np.arange(real) % 10
+        return gmap, 16
+    if kind == "edges":     # groups of 0, 1, 32 and 33 rows and the rest
+        sizes = [0, 1, 32, 33, 0, S - 66]
+        return np.repeat(np.arange(len(sizes)), sizes), len(sizes)
+    raise ValueError(kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,S,B", [
+    ("host", 16384, 256), ("dc", 16384, 256), ("edges", 400, 37),
+    ("host", 64, 33), ("dc", 2048, 100)])
+def test_select_groups_matches_plain(card, kind, S, B):
+    rng = np.random.default_rng(S)
+    vals, mask = _select_grid(rng, S, B, "ties" if kind == "edges"
+                              else "normal")
+    gmap, G = _layout_gmap(kind, S)
+    gmap = rng.permutation(gmap).astype(np.int32) if kind == "edges" \
+        else gmap.astype(np.int32)
+    layout = masked_select.group_layout(gmap, G, card)
+    v, m = vals.to(card), mask.to(card)
+    n0 = masked_select.select_groups.launches
+    got = masked_select.select_groups(v, m, layout, QS[1:4])
+    assert masked_select.select_groups.launches == n0 + 1
+    want = masked_select.select_groups_plain(v, m, layout, QS[1:4])
+    torch.cuda.synchronize()
+    assert got.shape == (3, G, B)
+    _same(got, want)
+
+
+@pytest.mark.cuda
+def test_select_rejects_bad_inputs(card):
+    v = torch.zeros((4, 8), device=card)
+    with pytest.raises(ValueError):
+        masked_select.select_columns(v, torch.ones((4, 8), device=card), [0.5])
+    with pytest.raises(ValueError):
+        masked_select.select_columns(v.double(),
+                                     torch.ones((4, 8), dtype=torch.bool,
+                                                device=card), [0.5])
+    lay = masked_select.group_layout(np.zeros(4, np.int32), 1)  # on the CPU
+    with pytest.raises(ValueError):
+        masked_select.select_groups(v, torch.ones_like(v, dtype=torch.bool),
+                                    lay, [0.5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [False, True])
+def test_percentile_stages_on_card_match_cpu(card, rate):
+    """downsample_multigroup_quantile and window_quantile_apply on the
+    card against the CPU: masks identical, values within float32
+    tolerance (the buckets are float32 sums in another order)."""
+    rng = np.random.default_rng(2)
+    n, S, B, G, iv = 20000, 256, 64, 8, 60
+    host = [torch.from_numpy(x) for x in (
+        rng.integers(0, B * iv, n).astype(np.int32),
+        rng.normal(10, 3, n).astype(np.float32),
+        rng.integers(0, S - 6, n).astype(np.int32),
+        rng.random(n) > 0.1,
+        np.concatenate([rng.integers(0, G, S - 6),
+                        np.full(6, G - 1)]).astype(np.int32))]
+    kw = dict(num_series=S, num_groups=G, num_buckets=B, interval=iv,
+              agg_down="avg", rate=rate)
+    got = kernels.downsample_multigroup_quantile(
+        *(x.to(card) for x in host), [0.95], **kw)
+    want = kernels.downsample_multigroup_quantile(*host, [0.95], **kw)
+    assert torch.equal(got["group_mask"].cpu(), want["group_mask"])
+    torch.testing.assert_close(got["group_values"].cpu(),
+                               want["group_values"], rtol=1e-5, atol=1e-4)
+    fill = kernels.step_fill if rate else kernels.gap_fill
+    filled, in_range = fill(want["series_values"], want["series_mask"], B)
+    include = torch.from_numpy(rng.random(S) > 0.2)
+    for groups, gmap in ((1, torch.zeros(S, dtype=torch.int32)),
+                         (G, host[4])):
+        args = (want["series_mask"], filled, in_range, include, gmap)
+        wv, wm = kernels.window_quantile_apply(*args, [0.5],
+                                               num_groups=groups)
+        gv, gm = kernels.window_quantile_apply(
+            *(a.to(card) for a in args), [0.5], num_groups=groups)
+        assert torch.equal(gm.cpu(), wm)
+        torch.testing.assert_close(gv.cpu(), wv, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# interp_moments: the fused union-grid kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _padded_rows(rng, S, T, span, dups=False):
+    counts = rng.integers(1, T + 1, S).astype(np.int32)
+    counts[0] = 1
+    ts = np.zeros((S, T), np.int32)
+    for s in range(S):
+        if dups:
+            row = np.sort(rng.integers(0, span, counts[s]))
+        else:
+            row = np.sort(rng.choice(span, counts[s], replace=False))
+        ts[s, :counts[s]] = row
+    vals = rng.normal(50, 10, (S, T)).astype(np.float32)
+    return ts, vals, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp", ["lerp", "step", "none"])
+@pytest.mark.parametrize("S,T,span,extra", [
+    (7, 16, 100, 0), (300, 64, 5000, 37), (600, 32, 20000, 0)])
+def test_interp_moments_matches_plain(card, interp, S, T, span, extra):
+    """Count, min and max exact (the same float32 operations each side);
+    total and M2 within rtol 1e-5 (the kernel adds series in order, the
+    plain sum in its own). The grid holds the union of the rows (shared
+    timestamps across series), points before and after every series'
+    range, and U is not a multiple of the 256-point tile."""
+    rng = np.random.default_rng(S)
+    ts, vals, counts = _padded_rows(rng, S, T, span, dups=S == 300)
+    t = [torch.from_numpy(x).to(card) for x in (ts, vals, counts)]
+    grid, gmask = kernels.union_grid(*t[::2])
+    grid = grid[:int(gmask.sum())]
+    if extra:
+        grid = torch.cat([torch.arange(-extra, 0, device=card,
+                                       dtype=torch.int32), grid,
+                          grid[-1] + 1 + torch.arange(
+                              extra, device=card, dtype=torch.int32)])
+    assert grid.numel() % 256
+    n0 = im_mod.interp_moments.launches
+    got = im_mod.interp_moments(*t, grid, interp=interp)
+    assert im_mod.interp_moments.launches == n0 + 1
+    want = im_mod.interp_moments_plain(*t, grid, interp=interp)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("count", "total", "m2", "min", "max"), got,
+                          want):
+        if name in ("count", "min", "max"):
+            assert torch.equal(g, w), name
+        else:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-3)
+    cnt, _, m2, *_ = im_mod.interp_moments(*t, grid, interp=interp,
+                                           with_m2=False)
+    assert m2 is None and torch.equal(cnt, want[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", AGGS)
+def test_group_interpolate_on_card_matches_cpu(card, agg):
+    rng = np.random.default_rng(9)
+    ts, vals, counts = _padded_rows(rng, 40, 32, 3000)
+    host = [torch.from_numpy(x) for x in (ts, vals, counts)]
+    for interp in ("lerp", "step", "none"):
+        wg, wo, wm = kernels.group_interpolate(*host, agg=agg, interp=interp)
+        gg, go, gm = kernels.group_interpolate(
+            *(x.to(card) for x in host), agg=agg, interp=interp)
+        assert torch.equal(gg.cpu(), wg) and torch.equal(gm.cpu(), wm)
+        torch.testing.assert_close(go.cpu()[wm], wo[wm], rtol=1e-5,
+                                   atol=1e-4)

@@ -21,7 +21,6 @@ from opentsdb_tpu.query.executor import QueryExecutor as JaxExecutor
 from opentsdb_tpu.query.executor import QuerySpec as JaxSpec
 from opentsdb_tpu.storage.kv import MemKVStore as JaxStore
 from opentsdb_tpu.utils.config import Config as JaxConfig
-from opentsdb_tpu_torch.core.errors import BadRequestError
 from opentsdb_tpu_torch.core.tsdb import TSDB
 from opentsdb_tpu_torch.query.aggregators import Aggregators
 from opentsdb_tpu_torch.query.executor import QueryExecutor, QuerySpec
@@ -103,17 +102,24 @@ def _ts(first, n):
 class TestFallbacks:
     def test_undownsampled_declined(self, tsdb):
         """The window declines un-downsampled queries (as the JAX one
-        does); the port's scan path answers them 400 until the
-        union-grid kernels are ported."""
+        does); the scan path answers them on the union grid, to float32
+        tolerance of the float64 oracle."""
         _load(tsdb, series=2)
-        spec = QuerySpec("m.cpu", {}, "sum")
         ex = QueryExecutor(tsdb)
-        h0 = tsdb.devwindow.window_hits
-        assert ex._run_devwindow(spec, BT, BT + 7200,
-                                 Aggregators.get("sum")) is None
-        with pytest.raises(BadRequestError, match="not yet ported"):
-            ex.run(spec, BT, BT + 7200)
-        assert tsdb.devwindow.window_hits == h0
+        for agg in ("sum", "p95"):
+            spec = QuerySpec("m.cpu", {}, agg)
+            h0 = tsdb.devwindow.window_hits
+            assert ex._run_devwindow(spec, BT, BT + 7200,
+                                     Aggregators.get(agg)) is None
+            got, plan, _ = ex.run_with_plan(spec, BT, BT + 7200)
+            assert plan == "raw" and got
+            assert tsdb.devwindow.window_hits == h0
+            (want,) = QueryExecutor(tsdb, backend="cpu").run(spec, BT,
+                                                             BT + 7200)
+            np.testing.assert_array_equal(got[0].timestamps,
+                                          want.timestamps)
+            np.testing.assert_allclose(got[0].values, want.values,
+                                       rtol=1e-5, atol=1e-4)
 
     def test_oracle_backend_skips_window(self, tsdb):
         _load(tsdb, series=2)

@@ -17,7 +17,6 @@ from opentsdb_tpu.query.executor import QuerySpec as JaxSpec
 from opentsdb_tpu.query.grammar import parse_m
 from opentsdb_tpu.storage.kv import MemKVStore as JaxStore
 from opentsdb_tpu.utils.config import Config as JaxConfig
-from opentsdb_tpu_torch.core.errors import BadRequestError
 from opentsdb_tpu_torch.core.tsdb import TSDB
 from opentsdb_tpu_torch.query.executor import QueryExecutor, QuerySpec
 from opentsdb_tpu_torch.storage.kv import MemKVStore
@@ -87,8 +86,11 @@ def _specs(expr):
 
 def _assert_same(want, got, expr):
     assert len(got) == len(want), expr
-    exact = parse_m(expr).aggregator in ("min", "max", "count") \
-        and not parse_m(expr).rate
+    p = parse_m(expr)
+    # Union-grid lerps may round apart from XLA's (min and max of them
+    # too); counts stay exact.
+    exact = p.aggregator in ("min", "max", "count") and not p.rate \
+        and (p.downsample is not None or p.aggregator == "count")
     for w, g in zip(want, got):
         assert g.metric == w.metric and g.tags == w.tags
         assert g.aggregated_tags == w.aggregated_tags
@@ -145,17 +147,61 @@ def test_stored_rows_byte_identical(both):
         assert got == want
 
 
+# Un-downsampled queries (the union grid, rates per point first) and
+# percentile group aggregators (the rank select), held against the JAX
+# package on the same stream. Lerped quantiles and union-grid sums are
+# float32 arithmetic in another order: rtol 1e-5, as the moments.
+UNPORTED = [
+    "avg:sys.cpu.user{dc=*}", "dev:sys.cpu.user",
+    "zimsum:sys.cpu.user", "mimmin:sys.cpu.user{dc=*}",
+    "mimmax:sys.cpu.user", "min:sys.cpu.user", "max:sys.cpu.user{host=*}",
+    "count:sys.cpu.user", "sum:rate:sys.cpu.user",
+    "sum:rate{counter,,}:net.bytes{host=*}", "p95:sys.cpu.user",
+    "p50:rate:sys.cpu.user{dc=*}", "p99:1h-avg:sys.cpu.user",
+    "p95:10m-avg:sys.cpu.user{host=*}", "p50:rate:10m-avg:sys.cpu.user{dc=*}",
+    "p999:1m-max:sys.cpu.user{dc=*}",
+]
+
+
 @pytest.mark.parametrize("expr,what", [
     ("p95:1h-avg:sys.cpu.user", "percentile group aggregator"),
     ("sum:sys.cpu.user", "without a downsampler"),
 ])
 def test_unported_queries_answer_400(both, expr, what):
+    """The two query kinds the port once refused (a {what}) now answer
+    the JAX package's answer on the scan path."""
+    jt, pt = both
+    jspec, pspec = _specs(expr)
+    want = JaxExecutor(jt, backend="tpu").run(jspec, START, END)
+    got, plan, _ = QueryExecutor(pt).run_with_plan(pspec, START, END)
+    assert plan == "raw" and got, what
+    _assert_same(want, got, expr)
+
+
+@pytest.mark.parametrize("expr", UNPORTED)
+def test_percentile_and_undownsampled_match_jax(both, expr):
+    jt, pt = both
+    jspec, pspec = _specs(expr)
+    want = JaxExecutor(jt, backend="tpu").run(jspec, START, END)
+    got, plan, _ = QueryExecutor(pt).run_with_plan(pspec, START, END)
+    assert plan == "raw" and got, expr
+    _assert_same(want, got, expr)
+
+
+@pytest.mark.parametrize("expr", ["sum:sys.cpu.user{host=*}",
+                                  "p95:sys.cpu.user", "dev:sys.cpu.user"])
+def test_undownsampled_matches_oracle(both, expr):
+    """The float64 oracle as the tiebreak: the union-grid answers equal
+    the port's own oracle backend to float32 tolerance."""
     _, pt = both
-    _, spec = _specs(expr)
-    with pytest.raises(BadRequestError) as ei:
-        QueryExecutor(pt).run(spec, START, END)
-    assert ei.value.status == 400
-    assert "not yet ported" in str(ei.value) and what in str(ei.value)
+    _, pspec = _specs(expr)
+    got = QueryExecutor(pt).run(pspec, START, END)
+    want = QueryExecutor(pt, backend="cpu").run(pspec, START, END)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.timestamps, w.timestamps)
+        np.testing.assert_allclose(g.values, w.values, rtol=1e-4,
+                                   atol=1e-4)
 
 
 def test_port_opens_jax_wal(tmp_path):

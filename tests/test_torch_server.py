@@ -134,6 +134,37 @@ def test_telnet_puts_then_query_ascii_and_json():
     assert k == len(rows)
 
 
+@pytest.mark.parametrize("m,spec", [
+    ("p95:10m-avg:sys.load", JaxSpec("sys.load", {}, "p95",
+                                     downsample=(600, "avg"))),
+    ("p50:sys.load%7Bhost=*%7D", JaxSpec("sys.load", {"host": "*"}, "p50")),
+    ("sum:sys.load", JaxSpec("sys.load", {}, "sum")),
+])
+def test_percentile_and_undownsampled_ascii_match_jax(m, spec):
+    """/q answers a percentile group aggregator and a query without a
+    downsampler with the JAX answer's lines: same timestamps and tags,
+    values within rtol 1e-5 (float32 in another order)."""
+    pts = _points()
+
+    async def drive(port):
+        await _telnet(port, _lines(pts))
+        return await _get(port, f"/q?start={START}&end={END}&m={m}&ascii")
+
+    status, body = _serve(drive)
+    assert status == 200
+    want = _jax_answer(pts, spec)
+    rows = [ln.split() for ln in body.decode().splitlines()]
+    assert len(rows) == sum(len(w.timestamps) for w in want) > 0
+    k = 0
+    for w in want:
+        tags = [f"{t}={v}" for t, v in sorted(w.tags.items())]
+        for t, v in zip(w.timestamps, w.values):
+            assert rows[k][:2] == ["sys.load", str(t)]
+            assert rows[k][3:] == tags
+            np.testing.assert_allclose(float(rows[k][2]), v, rtol=1e-5)
+            k += 1
+
+
 def _start_cli(wal):
     """``python -m opentsdb_tpu_torch.tools.cli tsd`` on loopback with
     device cpu; (process, port) once it says it is ready."""
@@ -173,7 +204,7 @@ def test_cli_daemon_serves_and_keeps_its_wal(tmp_path):
 
 
 @pytest.mark.parametrize("target,status,text", [
-    ("/q?start=1&m=p95:1h-avg:sys.load&ascii", 400, "not yet ported"),
+    ("/q?start=1&m=p95:1h-avg:sys.load&ascii", 200, "sys.load 13569"),
     ("/q?start=1&m=sum:1h-avg:sys.load", 400, "not yet ported"),
     ("/q?start=1&m=sum:1h-avg:nope&ascii", 400, "No such name"),
     ("/sketch?m=sys.load", 400, "not yet ported"),

@@ -22,7 +22,6 @@ from opentsdb_tpu.query.executor import QueryExecutor as JaxExecutor
 from opentsdb_tpu.query.executor import QuerySpec as JaxSpec
 from opentsdb_tpu.storage.kv import MemKVStore as JaxStore
 from opentsdb_tpu.utils.config import Config as JaxConfig
-from opentsdb_tpu_torch.core.errors import BadRequestError
 from opentsdb_tpu_torch.core.tsdb import TSDB
 from opentsdb_tpu_torch.ops import kernels as tk
 from opentsdb_tpu_torch.query.executor import QueryExecutor, QuerySpec
@@ -263,6 +262,14 @@ PERCENTILE_SPECS = [
          downsample=(600, "avg")),
     dict(metric="m.cpu", tags={"dc": "*"}, aggregator="p50", rate=True,
          downsample=(600, "avg")),
+    dict(metric="m.cpu", tags={"dc": "*"}, aggregator="p99",
+         downsample=(300, "max")),
+    dict(metric="m.cpu", tags={"host": "*"}, aggregator="p50",
+         downsample=(600, "sum")),
+    dict(metric="m.cpu", tags={}, aggregator="p95", rate=True,
+         downsample=(600, "avg")),
+    dict(metric="m.cpu", tags={"host": "h1|h2|h5"}, aggregator="p999",
+         downsample=(600, "avg")),
 ]
 
 
@@ -336,11 +343,29 @@ def test_window_answers_match_jax_window(both_windows, fields):
 @pytest.mark.parametrize("fields", PERCENTILE_SPECS, ids=_spec_id)
 def test_percentile_group_aggregators_still_answer_400(both_windows,
                                                        fields):
+    """Percentile group aggregators are served from the window (the rank
+    select over the cached stage's filled grid), as the JAX window serves
+    them: same groups, tags and timestamps; values within rtol 1e-5."""
+    jt, pt = both_windows
+    jh, ph = jt.devwindow.window_hits, pt.devwindow.window_hits
+    want = JaxExecutor(jt, backend="tpu").run(JaxSpec(**fields), BT,
+                                              BT + 7200)
+    got, plan, _ = QueryExecutor(pt).run_with_plan(QuerySpec(**fields), BT,
+                                                   BT + 7200)
+    assert jt.devwindow.window_hits == jh + 1
+    assert pt.devwindow.window_hits == ph + 1
+    assert plan == "resident" and got
+    _assert_results(got, want)
+
+
+def test_percentile_downsampler_declined(both_windows):
+    """A percentile DOWNSAMPLER (1h-p95) stays on the float64 oracle, as
+    in the JAX package: the window declines it."""
     _, pt = both_windows
     hits = pt.devwindow.window_hits
-    with pytest.raises(BadRequestError) as ei:
-        QueryExecutor(pt).run(QuerySpec(**fields), BT, BT + 7200)
-    assert ei.value.status == 400 and "not yet ported" in str(ei.value)
+    spec = QuerySpec("m.cpu", {}, "sum", downsample=(600, "p95"))
+    got, plan, _ = QueryExecutor(pt).run_with_plan(spec, BT, BT + 7200)
+    assert plan == "raw" and got
     assert pt.devwindow.window_hits == hits
 
 
@@ -374,7 +399,8 @@ def _compare_scan(tsdb, spec, start=BT, end=BT + 7200, expect_hit=True):
     return got
 
 
-@pytest.mark.parametrize("fields", MOMENT_SPECS, ids=_spec_id)
+@pytest.mark.parametrize("fields", MOMENT_SPECS + PERCENTILE_SPECS,
+                         ids=_spec_id)
 def test_equals_scan_path(port, fields):
     _load(port)
     _compare_scan(port, QuerySpec(**fields))
