@@ -21,10 +21,14 @@
    rank-select kernel is held the same way on the window's sum:1h-avg
    stage grid (columns at one quantile and at three; grouped by dc and by
    host) and on the contributions of an un-downsampled p95 over
-   {dc=dc0}'s first day; the interpolate-and-reduce kernel on that day's
+   {dc=dc0}'s first day (yardstick for the columns cases: one
+   torch.nanquantile); the interpolate-and-reduce kernel on that day's
    union grid (against its plain composition) and on all series for the
-   week (~302k grid points; the plain composition does not fit, so the
-   sums are held against float64 at 256 grid points drawn with a seed).
+   week (~302k grid points; the plain composition does not fit whole, so
+   at 256 grid points drawn with a seed the kernel is held against it and
+   its sums against float64). The details line records each select
+   case's launch plan (cluster width, clusters the card co-schedules,
+   rows staged per block) and interp_moments' tile.
 4. Path phase: starts the port's daemon on loopback with its default
    settings (the resident device window on), ingests the repo's benchmark
    corpus (10,000 series x 1,000 points over 7 days = 10M points,
@@ -482,10 +486,17 @@ def select_interp_phase(ts: np.ndarray, vals: np.ndarray) -> list:
         err = same(fn(), plain(), f"masked_select {stage}")
         b_ms, b_by = bound_ms(rows * cols * 5 + extra + len(q) * G * cols * 4,
                               rows * cols)
+        n_big = (int(rows > masked_select.SMALL_ROWS) if layout is None
+                 else layout.big.numel())
+        # The large groups' cluster width and how many such clusters the
+        # card co-schedules at the launch's shared memory.
+        plan = masked_select.launch_plan(rows, cols, n_big, len(q)) \
+            if n_big else None
         return time_case({"name": "masked_select", "stage": stage,
                           "rows": rows, "cols": cols, "groups": G,
                           "quantiles": len(q), "max_abs_err": err,
-                          "bound_ms": b_ms, "bound_by": b_by},
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "launch_plan": plan},
                          fn, plain, lib, flush)
 
     results.append(select_case("window select, columns", filled, in_range,
@@ -537,6 +548,16 @@ def select_interp_phase(ts: np.ndarray, vals: np.ndarray) -> list:
                 cnt += inside
             if not np.array_equal(got[0].cpu().numpy()[pick], cnt):
                 fail(f"interp_moments {stage}: counts differ from float64")
+            # The plain composition fits at the sampled points alone.
+            at = torch.from_numpy(pick).to(dev)
+            want = interp_moments.interp_moments_plain(*t, grid[at],
+                                                       with_m2=False)
+            for i in (0, 3, 4):
+                if not torch.equal(got[i][at], want[i]):
+                    fail(f"interp_moments {stage}: output {i} not exact "
+                         f"against the plain version")
+            torch.testing.assert_close(got[1][at], want[1], rtol=1e-5,
+                                       atol=1e-3)
             g_tot = got[1].cpu().numpy()[pick].astype(np.float64)
             scale = float(np.abs(tot).max())
             diff = np.abs(g_tot - tot)
@@ -552,7 +573,8 @@ def select_interp_phase(ts: np.ndarray, vals: np.ndarray) -> list:
                               11 * pairs)
         res = {"name": "interp_moments", "stage": stage, "series": S_,
                "row_points": T_, "grid_points": U, "in_range_pairs": pairs,
-               "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by}
+               "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+               "tile": interp_moments.tile_shape(U)}
         if not plain_ok:
             res["plain_note"] = ("not measured: the plain composition "
                                  "needs an [S, U] array per step")
@@ -565,7 +587,7 @@ def select_interp_phase(ts: np.ndarray, vals: np.ndarray) -> list:
     results.append(res)
     contrib, cmask = wk.series_contributions(*t, grid)
     results.append(select_case("union p95 {dc=dc0} one day", contrib, cmask,
-                               [0.95], library=False))
+                               [0.95]))
     del contrib, cmask, t, grid
     res, _ = interp_case("union full width", np.arange(SERIES),
                          BASE + SPAN - 1, False)

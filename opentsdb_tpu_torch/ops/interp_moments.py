@@ -37,8 +37,23 @@ def _kernels() -> ctypes.CDLL:
         lib.interp_moments_f32.argtypes = [p, p, p, i64, i64, p, i64, i32,
                                            p, p, p, p, p, p]
         lib.interp_moments_f32.restype = ctypes.c_int
+        lib.interp_moments_tile.argtypes = [i64, p]
+        lib.interp_moments_tile.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def tile_shape(U: int) -> dict:
+    """The tile the kernel launches for ``U`` grid points on the current
+    CUDA device: threads per block, grid points per thread and grid points
+    per block (four threads take each point, one per quarter of the
+    series)."""
+    out = (ctypes.c_int32 * 3)()
+    rc = _kernels().interp_moments_tile(U, out)
+    if rc != 0:
+        raise RuntimeError(f"interp_moments_tile failed: CUDA error {rc}")
+    return {"threads": out[0], "points_per_thread": out[1],
+            "tile_points": out[2]}
 
 
 def series_contributions(ts: torch.Tensor, vals: torch.Tensor,

@@ -47,6 +47,8 @@ def _kernels() -> ctypes.CDLL:
         lib.masked_select_groups.argtypes = [p, p, i64, i64, p, p, i64, p,
                                              i64, p, i32, p, p]
         lib.masked_select_groups.restype = ctypes.c_int
+        lib.masked_select_plan.argtypes = [i64, i64, i64, i32, p]
+        lib.masked_select_plan.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -78,6 +80,23 @@ def group_layout(gmap, num_groups: int,
     big = np.flatnonzero(sizes > SMALL_ROWS).astype(np.int32)
     return GroupLayout(*(torch.from_numpy(x).to(device)
                          for x in (order, offsets, big)))
+
+
+def launch_plan(S: int, B: int, n_big: int, k: int) -> dict:
+    """How the kernel runs its large groups (the columns entry: one group
+    of S rows; the grouped entry: ``n_big`` groups of more than SMALL_ROWS
+    rows, S rows in all) for the first chunk of ``k`` quantiles on the
+    current CUDA device: the cluster width, how many such clusters the card
+    runs at once at the launch's shared memory, the rows a block stages in
+    shared memory (a larger share is counted from device memory), whether
+    the counters are 32-bit and the dynamic shared memory in bytes."""
+    out = (ctypes.c_int32 * 5)()
+    rc = _kernels().masked_select_plan(S, B, n_big, k, out)
+    if rc != 0:
+        raise RuntimeError(f"masked_select_plan failed: CUDA error {rc}")
+    return {"cluster": out[0], "coresident_clusters": out[1],
+            "stage_rows": out[2], "wide_counters": bool(out[3]),
+            "smem_bytes": out[4]}
 
 
 def order_key(vals: torch.Tensor) -> torch.Tensor:

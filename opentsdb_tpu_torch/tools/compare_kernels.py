@@ -1,55 +1,94 @@
-"""Time the segment-reduce kernels of several checkouts of this repo against
-each other on one NVIDIA card, at the group-stage shapes of the query path.
+"""Time the hand-written kernels of several checkouts of this repo against
+each other on one NVIDIA card, at the shapes of the query paths.
 
     git archive <rev> | tar -x -C DIR      # one directory per revision
-    python -m opentsdb_tpu_torch.tools.compare_kernels DIR [DIR ...]
+    python -m opentsdb_tpu_torch.tools.compare_kernels [--kernels K,..] \\
+        DIR [DIR ...]
 
-Each DIR's ``opentsdb_tpu_torch/csrc/segment_reduce.cu`` is built with nvcc
-(the port's own flags, all builds started together) and called through its
-C interface, so revisions whose wrappers differ compare on the same inputs.
-Each case is checked against ``index_add_`` / ``scatter_reduce_`` and timed
-as device time per call: 20 calls queued back to back behind a GPU sleep,
-the output filled before the calls and not refilled. The revisions run in
-turns A B .. B A, twice. ``segment_minmax_f32`` is asked for both outputs,
-the one request every revision answers. One JSON line per case goes to
-standard output, after the card's name and power limit.
+Kernels (``--kernels``, default all three):
+- ``segment_reduce``: ``segment_sum_f32`` and ``segment_minmax_f32`` at
+  the group-stage shapes;
+- ``masked_select``: ``masked_select_columns`` on the resident window's
+  ``sum:1h-avg`` stage grid [16384, 256] at q = 0.95 and at p50/p95/p99,
+  ``masked_select_groups`` on it by dc (16 groups) and by host (16384),
+  and the columns entry on the contributions of a p95 over ``{dc=dc0}``'s
+  first day on its union grid [1000, ~41.6k];
+- ``interp_moments``: ``interp_moments_f32`` on that day's union grid and
+  on all 10,000 series for the week (~302k grid points).
+The data is ``chip_smoke.py``'s corpus (10,000 series x 1,000 points over
+7 days, drawn from seed 0), staged by this checkout's own functions.
+
+Each DIR's ``opentsdb_tpu_torch/csrc/<kernel>.cu`` is built with nvcc (the
+port's own flags, all builds started together) and called through its C
+interface, so revisions whose wrappers differ compare on the same inputs.
+Each case is checked against this checkout's plain PyTorch version (the
+select bit for bit; interp_moments' count, min and max exactly and its
+total within rtol 1e-5, at full width on 4,096 grid points drawn with a
+seed, where the plain composition fits) and timed as device time per call:
+20 calls queued back to back behind a GPU sleep, outputs filled before the
+calls and not refilled. The revisions run in turns A B .. B A, twice.
+``segment_minmax_f32`` is asked for both outputs, the one request every
+revision answers. One JSON line per case goes to standard output, after
+the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
 import subprocess
 import sys
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from opentsdb_tpu_torch.ops import interp_moments, kernels as wk, \
+    masked_select
 from opentsdb_tpu_torch.ops.cuda_build import NVCC_FLAGS, _nvcc
+from opentsdb_tpu_torch.query.executor import _pad_size
 
-SOURCE = os.path.join("opentsdb_tpu_torch", "csrc", "segment_reduce.cu")
+SOURCES = ("segment_reduce", "masked_select", "interp_moments")
 S, B, SERIES = 16384, 256, 10_000    # chip_smoke.py's group stage
+POINTS, SPAN, DAY, INTERVAL = 1_000, 7 * 86400, 86400, 3600
+BASE = 1356998400
 
 
-def build(dirs: list[str]) -> list[ctypes.CDLL]:
+def bind(lib: ctypes.CDLL, kernel: str) -> ctypes.CDLL:
+    """Set the argument types of ``kernel``'s C entry points."""
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    if kernel == "segment_reduce":
+        lib.segment_sum_f32.argtypes = [p, p, i64, i32, i64, p, p]
+        lib.segment_minmax_f32.argtypes = [p, p, i64, i32, i64, p, p, p]
+    elif kernel == "masked_select":
+        lib.masked_select_columns.argtypes = [p, p, i64, i64, p, i32, p, p]
+        lib.masked_select_groups.argtypes = [p, p, i64, i64, p, p, i64, p,
+                                             i64, p, i32, p, p]
+    else:
+        lib.interp_moments_f32.argtypes = [p, p, p, i64, i64, p, i64, i32,
+                                           p, p, p, p, p, p]
+    return lib
+
+
+def build(dirs: list[str], kernels=SOURCES) -> list[dict]:
+    """Per DIR, {kernel: its loaded library}, every nvcc started at once."""
     jobs = []
     for d in dirs:
-        out = os.path.join(d, "_compare_segment_reduce.so")
-        jobs.append((out, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", out, os.path.join(d, SOURCE)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    libs = []
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
-    for out, proc in jobs:
+        for k in kernels:
+            out = os.path.join(d, f"_compare_{k}.so")
+            jobs.append((d, k, out, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", out,
+                 os.path.join(d, "opentsdb_tpu_torch", "csrc", k + ".cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    libs: dict[str, dict] = {d: {} for d in dirs}
+    for d, k, out, proc in jobs:
         log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {out}:\n{log}")
-        lib = ctypes.CDLL(os.path.abspath(out))
-        lib.segment_sum_f32.argtypes = [p, p, i64, i32, i64, p, p]
-        lib.segment_minmax_f32.argtypes = [p, p, i64, i32, i64, p, p, p]
-        libs.append(lib)
-    return libs
+        libs[d][k] = bind(ctypes.CDLL(os.path.abspath(out)), k)
+    return [libs[d] for d in dirs]
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -66,10 +105,35 @@ def device_ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def cases(seed: int = 1):
-    """(op, label, rows, gmap, groups): the group stage of chip_smoke.py's
-    corpus, by the executor's layout (gmap sorted, padding rows in the last
-    group; empty rows hold 0 for sums and -inf for max)."""
+class Case(NamedTuple):
+    """One shape of one kernel: ``fill`` resets the outputs, ``call(lib)``
+    launches a revision's kernel on them, ``check()`` holds the outputs
+    against the plain version and returns the largest absolute error."""
+    kernel: str
+    label: str
+    info: dict
+    fill: Callable[[], None]
+    call: Callable[[ctypes.CDLL], None]
+    check: Callable[[], float]
+
+
+def _stream() -> int:
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
+
+
+def _rc(rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA error {rc}")
+
+
+def _nothing() -> None:
+    pass
+
+
+def segment_cases(dev, seed: int = 1) -> list[Case]:
+    """The group stage of chip_smoke.py's corpus, by the executor's layout
+    (gmap sorted, padding rows in the last group; empty rows hold 0 for
+    sums and -inf for max)."""
     rng = np.random.default_rng(seed)
     real = (100 + rng.normal(0, 5, (SERIES, B))).astype(np.float32)
     rows = np.zeros((S, 3 * B), np.float32)
@@ -84,37 +148,23 @@ def cases(seed: int = 1):
     host[:SERIES] = np.arange(SERIES)
     runs = np.ones((S, 3 * B), np.float32)
     runs[:, B:2 * B] = 100 + rng.normal(0, 5, (S, B))
-    return [
-        ("sum", "{dc=*}: 16 groups", rows, dc, 16),
-        ("minmax", "{dc=*}: 16 groups", vals, dc, 16),
-        ("sum", "{host=*}: 16384 groups, 1 series each", rows, host, S),
-        ("minmax", "{host=*}: 16384 groups, 1 series each", vals, host, S),
-        ("sum", "1024 groups, 16 series each", runs,
-         (np.arange(S) // 16).astype(np.int32), 1024),
-    ]
-
-
-def main(dirs: list[str]) -> int:
-    if not dirs or not torch.cuda.is_available():
-        print(__doc__, file=sys.stderr)
-        return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip()
-    print(smi, flush=True)
-    libs = build(dirs)
-    dev = torch.device("cuda")
-    order = list(range(len(dirs)))
-    order = order + order[::-1]
-    for op, label, x_np, g_np, ns in cases():
+    out = []
+    for op, label, x_np, g_np, ns in [
+            ("sum", "{dc=*}: 16 groups", rows, dc, 16),
+            ("minmax", "{dc=*}: 16 groups", vals, dc, 16),
+            ("sum", "{host=*}: 16384 groups, 1 series each", rows, host, S),
+            ("minmax", "{host=*}: 16384 groups, 1 series each", vals, host,
+             S),
+            ("sum", "1024 groups, 16 series each", runs,
+             (np.arange(S) // 16).astype(np.int32), 1024)]:
         x = torch.from_numpy(x_np).to(dev)
         g = torch.from_numpy(g_np).to(dev)
         n, k = x.shape
         idx = g.long()[:, None].expand(-1, k)
         shape = (ns, k)
         if op == "sum":
-            want = (torch.zeros(shape, device=dev).index_add_(0, g.long(), x),)
+            want = (torch.zeros(shape, device=dev).index_add_(0, g.long(),
+                                                              x),)
             outs = (torch.zeros(shape, device=dev),)
         else:
             want = (torch.full(shape, float("inf"), device=dev)
@@ -125,12 +175,10 @@ def main(dirs: list[str]) -> int:
                     torch.empty(shape, device=dev))
 
         def call(lib, outs=outs, x=x, g=g, n=n, k=k, ns=ns, op=op):
-            fn = lib.segment_sum_f32 if op == "sum" else lib.segment_minmax_f32
-            rc = fn(x.data_ptr(), g.data_ptr(), n, k, ns,
-                    *(o.data_ptr() for o in outs),
-                    torch._C._cuda_getCurrentRawStream(dev.index or 0))
-            if rc != 0:
-                raise RuntimeError(f"CUDA error {rc}")
+            fn = lib.segment_sum_f32 if op == "sum" \
+                else lib.segment_minmax_f32
+            _rc(fn(x.data_ptr(), g.data_ptr(), n, k, ns,
+                   *(o.data_ptr() for o in outs), _stream()))
 
         def fill(outs=outs, op=op):
             if op == "sum":
@@ -139,26 +187,217 @@ def main(dirs: list[str]) -> int:
                 outs[0].fill_(float("inf"))
                 outs[1].fill_(float("-inf"))
 
-        errs = []
-        for lib in libs:
-            fill()
-            call(lib)
-            torch.cuda.synchronize()
+        def check(outs=outs, want=want):
             for got, w in zip(outs, want):
                 torch.testing.assert_close(got, w, rtol=1e-5, atol=1e-5)
-            errs.append(max(float((o - w).abs().nan_to_num(0.0).max())
-                            for o, w in zip(outs, want)))
-        times: list[list[float]] = [[] for _ in dirs]
-        for _ in range(2):
-            for i in order:
-                fill()
-                times[i].append(device_ms(lambda lib=libs[i]: call(lib)))
-        print(json.dumps({
-            "op": op, "case": label, "n": n, "k": k, "groups": ns,
-            "card": smi, "revisions": [
+            return max(float((o - w).abs().nan_to_num(0.0).max())
+                       for o, w in zip(outs, want))
+
+        out.append(Case("segment_reduce", label,
+                        {"op": op, "n": n, "k": k, "groups": ns},
+                        fill, call, check))
+    return out
+
+
+def corpus(seed: int = 0):
+    """chip_smoke.py's corpus: 10,000 series x 1,000 jittered timestamps
+    over 7 days, random-walk float32 values from 100."""
+    rng = np.random.default_rng(seed)
+    step = SPAN // POINTS
+    ts0 = np.arange(POINTS, dtype=np.int64) * step
+    jitter = rng.integers(0, step // 2, (SERIES, POINTS))
+    ts = BASE + np.minimum(ts0[None, :] + jitter, SPAN - 1)
+    vals = (np.cumsum(rng.normal(0, 1.0, (SERIES, POINTS)), axis=1)
+            + 100.0).astype(np.float32)
+    return ts, vals
+
+
+def padded_rows(ts, vals, rows, end):
+    """The executor's un-downsampled layout of corpus series ``rows`` over
+    [BASE, end]: left-aligned [S, T] int32 offsets, float32 values, [S]
+    int32 counts (numpy)."""
+    keep = ts[rows] <= end
+    counts = keep.sum(axis=1).astype(np.int32)
+    T = _pad_size(int(counts.max()))
+    base = int(ts[rows, 0].min())
+    tp = np.zeros((len(rows), T), np.int32)
+    vp = np.zeros((len(rows), T), np.float32)
+    for i, s in enumerate(rows):
+        tp[i, :counts[i]] = ts[s, :counts[i]] - base
+        vp[i, :counts[i]] = vals[s, :counts[i]]
+    return tp, vp, counts
+
+
+def union_inputs(dev, ts, vals, rows, end):
+    """[ts, vals, counts] tensors of ``padded_rows`` and their union grid,
+    compacted to its U real points."""
+    t = [torch.from_numpy(a).to(dev)
+         for a in padded_rows(ts, vals, rows, end)]
+    grid, gmask = wk.union_grid(t[0], t[2])
+    return t, grid[:int(gmask.sum())].contiguous()
+
+
+def _same(got, want) -> float:
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    return float((got - want).abs().nan_to_num(0.0).max())
+
+
+def select_cases(dev, ts, vals) -> list[Case]:
+    chunk = (torch.from_numpy((ts - BASE).reshape(-1).astype(np.int32))
+             .to(dev), torch.from_numpy(vals.reshape(-1)).to(dev),
+             torch.from_numpy(np.repeat(np.arange(SERIES, dtype=np.int32),
+                                        POINTS)).to(dev))
+    _, _, filled, in_range, _ = wk.window_series_stage_chunks(
+        [chunk], 0, SPAN - 1, 0, num_series=S, num_buckets=B,
+        interval=INTERVAL, agg_down="avg")
+    del chunk
+    t, grid = union_inputs(dev, ts, vals, np.arange(0, SERIES, 10),
+                           BASE + DAY - 1)
+    contrib, cmask = wk.series_contributions(*t, grid)
+    del t, grid
+
+    def case(label, x, m, q, gmap=None, groups=1):
+        rows, cols = x.shape
+        qh = np.asarray(q, np.float32)
+        if gmap is None:
+            lay = None
+            want = masked_select.select_columns_plain(x, m, q)
+        else:
+            lay = masked_select.group_layout(gmap, groups, dev)
+            want = masked_select.select_groups_plain(x, m, lay, q)
+        out = torch.empty_like(want)
+
+        def call(lib):
+            if lay is None:
+                _rc(lib.masked_select_columns(
+                    x.data_ptr(), m.data_ptr(), rows, cols, qh.ctypes.data,
+                    len(q), out.data_ptr(), _stream()))
+            else:
+                _rc(lib.masked_select_groups(
+                    x.data_ptr(), m.data_ptr(), rows, cols,
+                    lay.order.data_ptr(), lay.offsets.data_ptr(), groups,
+                    lay.big.data_ptr(), lay.big.shape[0], qh.ctypes.data,
+                    len(q), out.data_ptr(), _stream()))
+
+        return Case("masked_select", label,
+                    {"rows": rows, "cols": cols, "groups": groups,
+                     "quantiles": len(q)},
+                    _nothing, call, lambda: _same(out, want))
+
+    dc = np.full(S, 15, np.int32)
+    dc[:SERIES] = np.arange(SERIES) % 10
+    host = np.full(S, S - 1, np.int32)
+    host[:SERIES] = np.arange(SERIES)
+    return [
+        case("window columns, q=0.95", filled, in_range, [0.95]),
+        case("window columns, p50/p95/p99", filled, in_range,
+             [0.5, 0.95, 0.99]),
+        case("union p95 {dc=dc0} one day", contrib, cmask, [0.95]),
+        case("window {dc=*}: 16 groups", filled, in_range, [0.95], dc, 16),
+        case("window {host=*}: 16384 groups", filled, in_range, [0.95],
+             host, S),
+    ]
+
+
+def interp_cases(dev, ts, vals, sample: int = 4096) -> list[Case]:
+    """The one-day grid is checked whole; at full width the plain [S, U]
+    composition does not fit, so it is checked at ``sample`` grid points
+    drawn with a seed."""
+    out = []
+    for label, rows, end in (
+            ("union {dc=dc0} one day", np.arange(0, SERIES, 10),
+             BASE + DAY - 1),
+            ("union full width", np.arange(SERIES), BASE + SPAN - 1)):
+        t, grid = union_inputs(dev, ts, vals, rows, end)
+        U = grid.shape[0]
+        pick = torch.arange(U, device=dev)
+        if t[0].shape[0] * U > 1 << 28:
+            pick = torch.from_numpy(np.sort(np.random.default_rng(12).choice(
+                U, sample, replace=False))).to(dev)
+        want = interp_moments.interp_moments_plain(*t, grid[pick],
+                                                   with_m2=False)
+        res = [torch.empty(U, device=dev) for _ in range(4)]
+
+        def call(lib, t=t, grid=grid, res=res, U=U):
+            cnt, tot, mn, mx = res
+            _rc(lib.interp_moments_f32(
+                t[0].data_ptr(), t[1].data_ptr(), t[2].data_ptr(),
+                t[0].shape[0], t[0].shape[1], grid.data_ptr(), U, 0,
+                cnt.data_ptr(), tot.data_ptr(), None, mn.data_ptr(),
+                mx.data_ptr(), _stream()))
+
+        def check(res=res, pick=pick, want=want):
+            cnt, tot, mn, mx = (r[pick] for r in res)
+            for got, w in ((cnt, want[0]), (mn, want[3]), (mx, want[4])):
+                if not torch.equal(got, w):
+                    raise AssertionError("count/min/max not exact")
+            torch.testing.assert_close(tot, want[1], rtol=1e-5, atol=1e-3)
+            return float((tot - want[1]).abs().max())
+
+        out.append(Case("interp_moments", label,
+                        {"series": t[0].shape[0], "row_points":
+                         t[0].shape[1], "grid_points": U,
+                         "checked_points": pick.numel()},
+                        _nothing, call, check))
+    return out
+
+
+def cases(dev, kernels=SOURCES) -> list[Case]:
+    out = []
+    if "segment_reduce" in kernels:
+        out += segment_cases(dev)
+    if "masked_select" in kernels or "interp_moments" in kernels:
+        ts, vals = corpus()
+        if "masked_select" in kernels:
+            out += select_cases(dev, ts, vals)
+        if "interp_moments" in kernels:
+            out += interp_cases(dev, ts, vals)
+    return out
+
+
+def compare(case: Case, names: list[str], libs: list[dict],
+            card: str) -> dict:
+    """Check every revision on ``case``, then time them in turns A B .. B A,
+    twice."""
+    errs = []
+    for lib in libs:
+        case.fill()
+        case.call(lib[case.kernel])
+        torch.cuda.synchronize()
+        errs.append(case.check())
+    order = list(range(len(libs)))
+    order = order + order[::-1]
+    times: list[list[float]] = [[] for _ in libs]
+    for _ in range(2):
+        for i in order:
+            case.fill()
+            times[i].append(device_ms(
+                lambda lib=libs[i][case.kernel]: case.call(lib)))
+    return {"kernel": case.kernel, "case": case.label, **case.info,
+            "card": card, "revisions": [
                 {"dir": d, "device_ms": t, "median_ms": float(np.median(t)),
                  "max_abs_err": e}
-                for d, t, e in zip(dirs, times, errs)]}), flush=True)
+                for d, t, e in zip(names, times, errs)]}
+
+
+def main(argv: list[str]) -> int:
+    ap = argparse.ArgumentParser(add_help=False)
+    ap.add_argument("--kernels", default=",".join(SOURCES))
+    ap.add_argument("dirs", nargs="*")
+    args = ap.parse_args(argv)
+    kernels = tuple(args.kernels.split(","))
+    if not args.dirs or not torch.cuda.is_available() \
+            or not set(kernels) <= set(SOURCES):
+        print(__doc__, file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    libs = build(args.dirs, kernels)
+    for case in cases(torch.device("cuda"), kernels):
+        print(json.dumps(compare(case, args.dirs, libs, smi)), flush=True)
     return 0
 
 

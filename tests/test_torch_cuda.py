@@ -662,3 +662,202 @@ def test_group_interpolate_on_card_matches_cpu(card, agg):
         assert torch.equal(gg.cpu(), wg) and torch.equal(gm.cpu(), wm)
         torch.testing.assert_close(go.cpu()[wm], wo[wm], rtol=1e-5,
                                    atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# masked_select: the staged radix select's launch plans and edge cases
+# ---------------------------------------------------------------------------
+
+# One 32-column tile of S rows: the plan widens the cluster while a block
+# keeps 256 rows (1, 2, 4, 8, 16 blocks), stages a block's share while it
+# fits in shared memory, counts from device memory past that (40,000
+# rows), and takes 32-bit counters past 65,535 rows a block (1.1M rows).
+_PLAN_ROWS = [300, 600, 1200, 2100, 4200, 40_000, 1_100_000]
+
+
+def _columns_vs_plain(card, vals, mask, q):
+    v, m = vals.to(card), mask.to(card)
+    n0 = masked_select.select_columns.launches
+    got = masked_select.select_columns(v, m, q)
+    assert masked_select.select_columns.launches == n0 + 1
+    want = masked_select.select_columns_plain(v, m, q)
+    torch.cuda.synchronize()
+    _same(got, want)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", _PLAN_ROWS)
+def test_select_columns_at_each_plan(card, S):
+    rng = np.random.default_rng(S)
+    B = 8 if S > 100_000 else 32
+    vals, mask = _select_grid(rng, S, B, "ties")
+    _columns_vs_plain(card, vals, mask, [0.25, 0.95, 0.99])
+
+
+@pytest.mark.cuda
+def test_select_plans_cover_every_path(card):
+    """The shapes above reach every cluster width up to 8 (16 where the
+    card co-schedules such clusters), a block share staged and one counted
+    from device memory, and both counter widths."""
+    plans = [masked_select.launch_plan(S, 8 if S > 100_000 else 32, 1, 3)
+             for S in _PLAN_ROWS]
+    widths = {p["cluster"] for p in plans}
+    assert {1, 2, 4, 8} <= widths
+    shares = [-(-S // p["cluster"]) for S, p in zip(_PLAN_ROWS, plans)]
+    assert any(s <= p["stage_rows"] for s, p in zip(shares, plans))
+    assert any(s > p["stage_rows"] for s, p in zip(shares, plans))
+    assert any(p["wide_counters"] for p in plans)
+    assert not all(p["wide_counters"] for p in plans)
+    assert all(p["coresident_clusters"] >= 1 for p in plans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("over", [0, 1])
+def test_select_rows_around_the_staging_limit(card, over):
+    """A block's share just at what its shared memory stages, and one row
+    past it (the whole group then counts from device memory)."""
+    big = masked_select.launch_plan(60_000, 32, 1, 3)
+    C, cap = big["cluster"], big["stage_rows"]
+    S = C * cap + over
+    plan = masked_select.launch_plan(S, 32, 1, 3)
+    assert plan["cluster"] == C
+    assert (-(-S // C) > plan["stage_rows"]) == bool(over)
+    rng = np.random.default_rng(S)
+    vals, mask = _select_grid(rng, S, 32, "ties")
+    _columns_vs_plain(card, vals, mask, [0.5, 0.95, 0.999])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 7])
+@pytest.mark.parametrize("S", [200, 5000])
+def test_select_quantile_chunks_with_duplicates(card, S, k):
+    """k quantiles in chunks of three; values on a coarse lattice, so runs
+    of equal keys span the floor and ceil ranks."""
+    rng = np.random.default_rng(S + k)
+    vals = rng.integers(-3, 4, (S, 70)).astype(np.float32)
+    mask = torch.from_numpy(rng.random((S, 70)) > 0.2)
+    q = np.linspace(0.0, 1.0, k + 2)[1:-1].astype(np.float32).tolist()
+    got = _columns_vs_plain(card, torch.from_numpy(vals), mask, q)
+    assert got.shape == (k, 70)
+    gmap = rng.integers(0, 5, S).astype(np.int32)
+    layout = masked_select.group_layout(gmap, 5, card)
+    v, m = torch.from_numpy(vals).to(card), mask.to(card)
+    got = masked_select.select_groups(v, m, layout, q)
+    want = masked_select.select_groups_plain(v, m, layout, q)
+    torch.cuda.synchronize()
+    _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [40, 3000])
+def test_select_special_columns(card, S):
+    """Signed zeros, infinities, NaN, all-masked and single-valid columns
+    (column 0 all masked, column 1 one valid entry, column 2 only zeros of
+    both signs, column 3 only infinities)."""
+    rng = np.random.default_rng(S)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, 1.0, -1.0, np.nan],
+                       np.float32)
+    vals = rng.choice(special, (S, 40)).astype(np.float32)
+    vals[:, 2] = rng.choice([0.0, -0.0], S)
+    vals[:, 3] = rng.choice([np.inf, -np.inf], S)
+    mask = rng.random((S, 40)) > 0.3
+    mask[:, 0] = False
+    mask[:, 1] = False
+    mask[S // 2, 1] = True
+    got = _columns_vs_plain(card, torch.from_numpy(vals),
+                            torch.from_numpy(mask), QS)
+    assert (got[:, 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [37, 256])
+def test_select_groups_gathered_out_of_order(card, B):
+    """Large groups whose rows lie scattered through the grid (the layout
+    gathers them through ``order``), beside small groups and a padding
+    group of masked rows."""
+    rng = np.random.default_rng(B)
+    S = 12_000
+    vals, mask = _select_grid(rng, S, B)
+    sizes = [3000, 2000, 40, 33, 32, 1, 0, 4000, 2894]
+    gmap = rng.permutation(np.repeat(np.arange(len(sizes)), sizes)) \
+        .astype(np.int32)
+    mask[torch.from_numpy(gmap == len(sizes) - 1)] = False
+    layout = masked_select.group_layout(gmap, len(sizes), card)
+    v, m = vals.to(card), mask.to(card)
+    got = masked_select.select_groups(v, m, layout, [0.5, 0.95])
+    want = masked_select.select_groups_plain(v, m, layout, [0.5, 0.95])
+    torch.cuda.synchronize()
+    _same(got, want)
+    assert (got[:, -1] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# interp_moments: the register-blocked kernel's tiles and edge cases
+# ---------------------------------------------------------------------------
+
+def _interp_vs_plain(card, ts, vals, counts, grid, interp):
+    t = [torch.from_numpy(x).to(card) for x in (ts, vals, counts)]
+    g = torch.from_numpy(grid.astype(np.int32)).to(card)
+    got = im_mod.interp_moments(*t, g, interp=interp)
+    want = im_mod.interp_moments_plain(*t, g, interp=interp)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("count", "total", "m2", "min", "max"), got, want):
+        if name in ("count", "min", "max"):
+            assert torch.equal(a, b), name
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interp", ["lerp", "step", "none"])
+def test_interp_edge_series(card, interp):
+    """S = 300 (each quarter of a block takes 75 series, not a multiple of
+    its 64-series batch); series of one
+    point; series that start and end inside a tile; a dense series with
+    64 samples inside one tile (more than one staging step holds);
+    duplicate timestamps; grid points before, between and after every
+    series."""
+    rng = np.random.default_rng(5)
+    S, T, span = 300, 64, 40_000
+    ts, vals, counts = _padded_rows(rng, S, T, span, dups=True)
+    counts[1:5] = 1
+    ts[1:5, 0] = rng.integers(0, span, 4)
+    ts[5, :T] = 5000 + np.arange(T)      # dense: 64 samples in ~64 s
+    counts[5] = T
+    ts[6, :3] = [7000, 7000, 7005]      # duplicates inside a tile
+    counts[6] = 3
+    grid = np.unique(np.concatenate([
+        ts[np.arange(T)[None, :] < counts[:, None]],
+        rng.integers(-500, span + 500, 3000), [-10**6, 10**6]]))
+    tile = im_mod.tile_shape(len(grid))["tile_points"]
+    if len(grid) % tile == 0:
+        grid = np.delete(grid, len(grid) // 2)
+    assert len(grid) % im_mod.tile_shape(len(grid))["tile_points"]
+    _interp_vs_plain(card, ts, vals, counts, grid, interp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 2, 4, 8])
+def test_interp_points_per_thread(card, P):
+    """Grids long enough for 1, 2, 4 and 8 points a thread (the kernel's
+    choice grows with the grid; the shortest grid at each, found through
+    the tile query, plus a ragged 77 points), 40 series sampled at random
+    over them (some points on a sample, most between)."""
+    U = 64
+    while im_mod.tile_shape(U)["points_per_thread"] < P:
+        U *= 2
+    U += 77
+    assert im_mod.tile_shape(U)["points_per_thread"] == P
+    rng = np.random.default_rng(U)
+    grid = np.sort(rng.choice(4 * U, U, replace=False)).astype(np.int32)
+    S, T = 40, 4096
+    counts = rng.integers(1, T + 1, S).astype(np.int32)
+    ts = np.zeros((S, T), np.int32)
+    for s in range(S):
+        pts = np.concatenate([rng.choice(grid, counts[s] // 2),
+                              rng.integers(-100, 4 * U + 100,
+                                           counts[s] - counts[s] // 2)])
+        ts[s, :counts[s]] = np.sort(pts)
+    vals = rng.normal(50, 10, (S, T)).astype(np.float32)
+    _interp_vs_plain(card, ts, vals, counts, grid, "lerp")

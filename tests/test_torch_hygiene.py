@@ -56,3 +56,29 @@ def test_cpu_is_only_taken_when_asked():
     assert QueryExecutor(tsdb).device == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+_IMPORT_SMOKE = """
+import sys
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.")
+             or m == "opentsdb_tpu" or m.startswith("opentsdb_tpu."))
+print(bad)
+"""
+
+
+def test_chip_smoke_imports_no_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_SMOKE], cwd=ROOT, check=True,
+        capture_output=True, text=True, timeout=120).stdout
+    assert out.strip() == "[]"
+
+
+def test_device_window_defaults_to_the_card(monkeypatch):
+    from opentsdb_tpu_torch.storage.devstore import DeviceWindow
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceWindow(background=False)
+    assert DeviceWindow(background=False, device="cpu").device \
+        == torch.device("cpu")
