@@ -62,15 +62,37 @@
    build and each scan-path query must launch ``segment_sum``, the
    resident path its three kernels, the scan loop both segment kernels
    and the un-downsampled path interp_moments and masked_select.
-5. Window-at-budget phase: a ``DeviceWindow`` filled directly to the
+5. Restart phase, on the path phase's daemon and corpus at full width:
+   ``TSDB.checkpoint()`` spills the ingested store to its first sstable
+   generation (rows, generation bytes and seconds printed); a few hundred
+   telnet ``put`` lines add 20 series (one point per series and hour, so
+   their sums are exact in any order); the ten resident queries must still
+   answer ``"rollup": "resident"`` (their answers are the reference below);
+   a second checkpoint makes two generations. The daemon shuts down (which
+   checkpoints once more), and a new TSDB and daemon open the same WAL:
+   opening the generations, replaying ``<wal>.old`` and the WAL, and the
+   window's warm-up from the tiers are timed apart. With the launch counts
+   set to 0, the ten queries run once cold and WARM_REPS times warm: each
+   must be resident, the path must launch segment_sum, segment_minmax and
+   masked_select, and each answer must equal the reference (max and the
+   percentiles exactly, the sums within the resident tolerance). Then
+   ``sum:rate`` of ``{host=h00001}`` over the week without a downsampler,
+   read from the generations, must launch interp_moments and match the
+   float64 oracle, and one host scan of every series over the week from
+   the generations is timed beside the path phase's scan of the memtable.
+   (The card's machine has no JAX, so the crossings with the JAX package's
+   store directories run only in the CPU tests,
+   ``tests/test_torch_checkpoint.py``.)
+6. Window-at-budget phase: a ``DeviceWindow`` filled directly to the
    default budget, 2^26 points (16,384 series x 4,096 points over 7 days,
    appended per series); its chunk stage and apply for ``sum:1h-avg`` and
    ``max:1h-max`` timed with CUDA events beside the stage's byte bound and
    held against the same functions on CPU tensors; then one more staging
    batch must evict the oldest chunk, advance ``complete_from`` and turn a
    query reaching before it away.
-6. Prints the card line first; at the end the per-query, ingest,
-   profiler and budget lines, the kernels line and, last, the ok line.
+7. Prints the card line first; at the end the per-query, ingest,
+   profiler, restart and budget lines, the kernels line and, last, the ok
+   line.
    In the kernels line each kernel's top-level numbers are its first
    path's: the segment kernels' and the select's the resident path's
    (at the chunk-fold shape and the columns select at one quantile),
@@ -89,6 +111,7 @@ result. The full details go to standard error as one JSON line.
 from __future__ import annotations
 
 import asyncio
+import gc
 import http.client
 import json
 import os
@@ -145,6 +168,12 @@ UNION_QUERIES = [("sum:bench.metric", SPAN),
                  ("p95:bench.metric{dc=dc0}", DAY),
                  ("sum:rate:bench.metric{host=h00001}", SPAN)]
 WARM_REPS = 5                 # warm /q runs per query, after the first
+# Restart phase: telnet series added between its two checkpoints, each
+# with one point in each of EXTRA_POINTS distinct hours (one point per
+# series and 1h bucket: their sums are exact in any order).
+EXTRA_SERIES, EXTRA_POINTS = 20, 15
+# Restart phase's un-downsampled query over the generations.
+RESTART_UNION = "sum:rate:bench.metric{host=h00001}"
 DEVICE = "cuda"
 STAGING = 1 << 20             # Config device_window_staging
 # The window's first chunk at the smoke's ingest: whole 1,000-point
@@ -630,8 +659,12 @@ class Daemon:
         return self.server.port
 
     def stop(self) -> None:
+        """Stop the server, which shuts the TSDB down (a checkpoint, the
+        store closed); a second call does nothing."""
+        if not self.thread.is_alive():
+            return
         self.loop.call_soon_threadsafe(self.server.request_shutdown)
-        self.thread.join(120)
+        self.thread.join(600)
         if self.thread.is_alive():
             fail("daemon did not stop")
 
@@ -1147,8 +1180,179 @@ def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
         out["profile_stage_build"] = profile_share(ex, spec, start, end)
         for k in ("profile_warm", "profile_stage_build"):
             log(f"{k} {QUERIES[1]}: {out[k]}")
+
+        out["restart"] = restart_phase(tsdb, daemon,
+                                       os.path.join(wal_dir, "wal"))
     finally:
         daemon.stop()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Restart phase
+# ---------------------------------------------------------------------------
+
+def generation_bytes(tsdb: TSDB) -> tuple[int, int]:
+    """(generations, bytes on disk) of the store's sstable tier."""
+    paths = [g.path for g in tsdb.store._ssts]
+    return len(paths), sum(os.path.getsize(p) for p in paths)
+
+
+def gc_full_ms() -> float:
+    t0 = time.perf_counter()
+    gc.collect()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def timed_checkpoint(tsdb: TSDB, what: str) -> dict:
+    t0 = time.perf_counter()
+    rows = tsdb.checkpoint()
+    secs = time.perf_counter() - t0
+    gens, nbytes = generation_bytes(tsdb)
+    if rows <= 0 or os.path.exists(tsdb.store._wal_path + ".old"):
+        fail(f"{what}: spilled {rows} rows, <wal>.old left behind")
+    out = {"rows": rows, "seconds": secs, "rows_per_s": rows / secs,
+           "generations": gens, "generation_bytes": nbytes}
+    log(f"{what}: {rows} rows in {secs:.2f} s ({rows / secs:,.0f} rows/s), "
+        f"{gens} generation(s), {nbytes} bytes")
+    return out
+
+
+def same_answer(expr: str, got: list, want: list, exact: bool) -> float:
+    """A JSON answer after the restart against the same query's before
+    it: same groups, tags and timestamps; values equal where ``exact``,
+    else within the resident tolerance (rtol 1e-5 + 1e-5 x scale).
+    Returns the largest relative-to-scale difference."""
+    if len(got) != len(want):
+        fail(f"{expr}: {len(got)} groups after the restart, {len(want)} "
+             f"before")
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g["tags"] != w["tags"] or list(g["dps"]) != list(w["dps"]):
+            fail(f"{expr}: tags or timestamps changed across the restart")
+        a = np.array(list(g["dps"].values()), np.float64)
+        b = np.array(list(w["dps"].values()), np.float64)
+        if not np.isfinite(a).all():
+            fail(f"{expr}: non-finite answer after the restart")
+        scale = max(float(np.abs(b).max()), 1e-30)
+        err = np.abs(a - b)
+        if exact and (a != b).any():
+            i = int(np.argmax(err))
+            fail(f"{expr}: {a[i]!r} after the restart, {b[i]!r} before")
+        if (err > 1e-5 * np.abs(b) + 1e-5 * scale).any():
+            fail(f"{expr}: answers differ across the restart")
+        worst = max(worst, float(err.max() / scale))
+    return worst
+
+
+def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
+    """Checkpoint the ingested store, add a few hundred telnet puts and
+    checkpoint again (two generations), shut the daemon down (which
+    checkpoints once more), open a new TSDB and daemon on the same WAL
+    (timing the generations' open, the replay and the window's warm-up
+    from the tiers), then the resident queries against their answers
+    from before the restart and one un-downsampled query and one host
+    scan over the generations."""
+    out: dict = {}
+    start, end = BASE, BASE + SPAN - 1
+    # One full garbage collection with the ingested memtable live, and one
+    # in the restarted process (rows in the generations): the collector's
+    # cost in each state, beside the warm queries' outliers.
+    out["gc_full_ms"] = {"memtable": gc_full_ms()}
+    out["checkpoint_1"] = timed_checkpoint(tsdb, "checkpoint 1")
+
+    rng = np.random.default_rng(3)
+    lines = []
+    for s in range(EXTRA_SERIES):
+        hours = np.sort(rng.choice(SPAN // 3600, EXTRA_POINTS,
+                                   replace=False))
+        tt = BASE + hours * 3600 + rng.integers(0, 3600, EXTRA_POINTS)
+        for t, v in zip(tt, rng.normal(100, 1, EXTRA_POINTS)):
+            lines.append(f"put bench.metric {t} {v:.4f} host=u{s:02d} "
+                         f"dc=dc{s % 10}")
+    said = telnet(daemon.port, lines)
+    if "put:" in said:
+        fail(f"telnet puts between the checkpoints answered: "
+             f"{said[:500]!r}")
+    # Between the two checkpoints the window still answers; these answers
+    # are the reference for after the restart.
+    dw, ex = tsdb.devwindow, daemon.server.executor
+    before = {expr: http_resident(daemon.port, dw, ex, expr, start, end)[1]
+              for expr in QUERIES + PCT_QUERIES}
+    out["checkpoint_2"] = timed_checkpoint(tsdb, "checkpoint 2")
+    if out["checkpoint_2"]["generations"] != 2:
+        fail(f"{out['checkpoint_2']['generations']} generations after two "
+             f"checkpoints")
+
+    t0 = time.perf_counter()
+    daemon.stop()
+    out["shutdown_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = MemKVStore(wal_path=wal)
+    tsdb2 = TSDB(store, Config(auto_create_metrics=True, port=0,
+                               bind="127.0.0.1", device=DEVICE),
+                 start_compaction_thread=True)
+    out["boot_s"] = time.perf_counter() - t0
+    out["open_generations_s"] = store.open_seconds["generations"]
+    out["replay_s"] = store.open_seconds["replay"]
+    out["warm_s"] = tsdb2.warm_seconds
+    out["generations"], out["generation_bytes"] = generation_bytes(tsdb2)
+    dw2 = tsdb2.devwindow
+    points = SERIES * POINTS + TELNET_SERIES * TELNET_POINTS \
+        + EXTRA_SERIES * EXTRA_POINTS
+    if dw2 is None or dw2.appended_points != points:
+        fail(f"the window warmed {dw2 and dw2.appended_points} of {points} "
+             f"points from the tiers")
+    log(f"restart: shutdown {out['shutdown_s']:.1f} s; boot "
+        f"{out['boot_s']:.1f} s (generations {out['open_generations_s']:.2f}"
+        f" s, replay {out['replay_s']:.2f} s, window warm-up "
+        f"{out['warm_s']:.1f} s); {out['generations']} generations, "
+        f"{out['generation_bytes']} bytes")
+
+    out["gc_full_ms"]["after_restart"] = gc_full_ms()
+    log(f"full gc: {out['gc_full_ms']}")
+    daemon2 = Daemon(tsdb2)
+    try:
+        ex2 = daemon2.server.executor
+        out["queries"] = {}
+        zero_launches()
+        for expr in QUERIES + PCT_QUERIES:
+            runs = [http_resident(daemon2.port, dw2, ex2, expr, start, end)
+                    for _ in range(1 + WARM_REPS)]
+            exact = (expr in PCT_QUERIES
+                     or spec_of(expr).aggregator in ("min", "max", "count"))
+            worst = max(same_answer(expr, a, before[expr], exact)
+                        for _, a in runs)
+            out["queries"][expr] = {
+                "first_ms": runs[0][0]["wall_ms"],
+                "warm_p50_ms": statistics.median(
+                    r["wall_ms"] for r, _ in runs[1:]),
+                "warm_ms": [r["wall_ms"] for r, _ in runs[1:]],
+                "exact": exact, "rel_diff_vs_before": worst}
+        out["launches_resident"] = path_launches(
+            "resident path after the restart", KERNELS[:3])
+
+        zero_launches()
+        answer, out["union"] = http_union(daemon2.port, RESTART_UNION,
+                                          start, end)
+        out["launches_union"] = path_launches(
+            "union query after the restart", ("interp_moments",))
+        s0 = time.perf_counter()
+        week = ex2._find_spans(spec_of("sum:bench.metric{host=*}"), start,
+                               end)
+        out["generation_scan_ms"] = (time.perf_counter() - s0) * 1e3
+        spans = [sp for g in sorted(week) for sp in week[g]]
+        spec = spec_of(RESTART_UNION)
+        out["union"]["oracle_rel_err"] = check_answer(
+            RESTART_UNION, answer,
+            QueryExecutor(tsdb2, backend="cpu")._execute_groups(
+                spec, regroup(ex2, spans, spec.tags), start, end),
+            1e-4, "oracle")
+        log(f"host scan of every series over the week from the "
+            f"generations: {out['generation_scan_ms']:.0f} ms, "
+            f"{len(spans)} spans")
+    finally:
+        daemon2.stop()
     return out
 
 
@@ -1363,6 +1567,17 @@ def main() -> int:
                           "device_busy_ms": p["device_busy_ms"],
                           "device_busy_share": p["device_busy_share"],
                           "card": smi}))
+    r = path["restart"]
+    print(json.dumps({"restart": {
+        "checkpoints": [r["checkpoint_1"], r["checkpoint_2"]],
+        **{k: r[k] for k in ("shutdown_s", "boot_s", "open_generations_s",
+                             "replay_s", "warm_s", "generations",
+                             "generation_bytes", "generation_scan_ms",
+                             "gc_full_ms")},
+        "memtable_scan_ms": path["scan_ms"],
+        "queries": r["queries"], "union": r["union"],
+        "launches": {"resident": r["launches_resident"],
+                     "union": r["launches_union"]}}, "card": smi}))
     print(json.dumps({"window_at_budget": {
         k: budget[k] for k in ("points", "chunks", "resident_bytes",
                                "fill_points_per_s", "queries",

@@ -14,10 +14,14 @@ by design:
   per wake-up, which replaces the skip-list-ordered iteration (:936-950)
   without needing ordered traversal.
 
-Error discipline matches the reference: unexpected errors are counted and
-dropped (the port's store never throttles), and on memory
+Error discipline matches the reference: PleaseThrottle re-enqueues the row
+and backs off (:797-808), other errors are counted and dropped, and on memory
 pressure the whole queue can be discarded — it is reconstructible soft state
 (SURVEY.md §5.4).
+
+The flusher thread also drives the periodic checkpoint
+(``Config.checkpoint_interval``; 0 = off): it spills the memtable to the
+sstable tier and truncates the WAL.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import time
 
 from opentsdb_tpu_torch.core import codec
 from opentsdb_tpu_torch.core.const import MAX_TIMESPAN
-from opentsdb_tpu_torch.core.errors import IllegalDataError
+from opentsdb_tpu_torch.core.errors import (IllegalDataError,
+                                             PleaseThrottleError)
 
 LOG = logging.getLogger(__name__)
 
@@ -47,6 +52,8 @@ class CompactionQueue:
         self.min_flush_threshold = cfg.compaction_min_flush_threshold
         self.max_concurrent_flushes = cfg.compaction_max_concurrent_flushes
         self.flush_speed = cfg.compaction_flush_speed
+        self.checkpoint_interval = cfg.checkpoint_interval
+        self._last_checkpoint = time.time()
         # stats (reference :118-132)
         self.trivial_compactions = 0
         self.complex_compactions = 0
@@ -84,10 +91,15 @@ class CompactionQueue:
             for k in eligible:
                 del self._queue[k]
         done = 0
-        for key in eligible:
+        for idx, key in enumerate(eligible):
             try:
                 self._tsdb.compact_row(key)
                 done += 1
+            except PleaseThrottleError:
+                with self._lock:  # re-enqueue and stop pushing the engine
+                    for k in eligible[idx:]:
+                        self._queue[k] = codec.parse_row_key(k).base_time
+                break
             except IllegalDataError:
                 self.errors += 1
                 LOG.exception("Uncompactable row %s", key.hex())
@@ -100,6 +112,12 @@ class CompactionQueue:
     def _loop(self) -> None:
         while not self._stop.wait(self.flush_interval):
             try:
+                now = time.time()
+                if (self.checkpoint_interval
+                        and now - self._last_checkpoint
+                        >= self.checkpoint_interval):
+                    self._tsdb.checkpoint()
+                    self._last_checkpoint = now
                 size = len(self._queue)
                 if size <= self.min_flush_threshold:
                     continue

@@ -14,6 +14,17 @@ class IllegalDataError(Exception):
     """
 
 
+class PleaseThrottleError(Exception):
+    """Backpressure signal from the storage engine.
+
+    Parity with asynchbase's PleaseThrottleException: callers should slow
+    down, switch to synchronous writes, or re-enqueue the work (reference
+    CompactionQueue.java:797-808, TextImporter.java:106-126). A batched
+    put that throttles part way carries the applied cells' flags as
+    ``partial_existed``.
+    """
+
+
 class BadRequestError(Exception):
     """An HTTP 400-class client error (reference src/tsd/BadRequestException.java)."""
 

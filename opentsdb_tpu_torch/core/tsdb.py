@@ -8,13 +8,20 @@ either package reads what the other wrote — and the resident device
 window (``storage/devstore.py``): on by default on the device backend,
 mirrored from every write and warmed from what storage already holds.
 
+``checkpoint()`` spills the store to its sstable tier (``storage/kv.py``)
+and ``shutdown()`` takes one whenever the store has a WAL, as the JAX
+package does under its default config; the window is warmed from every
+tier at start-up.
+
 Left out of this slice (all off here; see ROADMAP): the mesh-sharded
-window, live sketches, rollups, tenant accounting, checkpoints and the
-cluster tier.
+window, live sketches, rollups, tenant accounting and the cluster tier.
+Their snapshots in a JAX store directory are left, at each checkpoint, in
+a state the JAX package rebuilds exactly from (``MemKVStore.checkpoint``).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as np
@@ -23,7 +30,8 @@ from opentsdb_tpu_torch.core import codec, codec_np, tags as tags_mod
 from opentsdb_tpu_torch.core.compaction import CompactionQueue
 from opentsdb_tpu_torch.core.const import (MAX_TIMESPAN, TIMESTAMP_BYTES,
                                            UID_WIDTH)
-from opentsdb_tpu_torch.core.errors import IllegalDataError
+from opentsdb_tpu_torch.core.errors import (IllegalDataError,
+                                             PleaseThrottleError)
 from opentsdb_tpu_torch.storage.devstore import DeviceWindow
 from opentsdb_tpu_torch.storage.kv import KVStore
 from opentsdb_tpu_torch.uid.uniqueid import UniqueId
@@ -47,6 +55,9 @@ class TSDB:
         self.metrics = UniqueId(store, uidtable, "metrics", 3)
         self.tagk = UniqueId(store, uidtable, "tagk", 3)
         self.tagv = UniqueId(store, uidtable, "tagv", 3)
+        # One checkpoint at a time (the compaction thread's timer and an
+        # explicit call may race).
+        self._checkpoint_lock = threading.Lock()
         self.compactionq = CompactionQueue(
             self, start_thread=start_compaction_thread)
         # Device-resident columnar hot window (storage/devstore.py):
@@ -54,6 +65,7 @@ class TSDB:
         # the host->device copy. The oracle backend has nothing to serve
         # from it.
         self.devwindow = None
+        self.warm_seconds = 0.0
         if self.config.device_window and self.config.backend != "cpu":
             self.devwindow = DeviceWindow(
                 staging_points=self.config.device_window_staging,
@@ -62,13 +74,15 @@ class TSDB:
             self._warm_devwindow()
 
     def _warm_devwindow(self) -> None:
-        """Mirror what storage already holds (a replayed WAL, the port's
-        or the JAX package's) into the device window, one append per
-        series, so it covers history from before this process started.
+        """Mirror what storage already holds (the sstable generations and
+        the replayed WAL, the port's or the JAX package's) into the device
+        window, one append per series, so it covers history from before
+        this process started. ``warm_seconds`` keeps the time it took.
 
         Corrupt storage (conflicting duplicates — IllegalDataError, the
         fsck signal) disables the window outright: a partially warmed
         window would claim coverage it doesn't have."""
+        t0 = time.perf_counter()
         try:
             _, per_series = self.scan_series(b"", b"\xff" * 64)
         except IllegalDataError:
@@ -77,6 +91,7 @@ class TSDB:
         for skey, cols in per_series.items():
             self.devwindow.append(skey[:UID_WIDTH], skey, cols.timestamps,
                                   cols.values)
+        self.warm_seconds = time.perf_counter() - t0
 
     # ------------------------------------------------------------------
     # Row-key construction
@@ -196,18 +211,33 @@ class TSDB:
         keys[:, UID_WIDTH:UID_WIDTH + TIMESTAMP_BYTES] = (
             base[row_starts].astype(">u4").view(np.uint8).reshape(-1, 4))
         kb = keys.tobytes()
-        existed = self.store.put_many_columnar(
-            self.table, FAMILY, kb, L, quals, vals, durable=durable)
-        # Rows that already held cells now hold several: queue them so the
-        # per-batch compacted cells merge into one.
-        if self.config.enable_compactions and any(existed):
-            for i, e in enumerate(existed):
-                if e:
-                    self.compactionq.add(kb[i * L:(i + 1) * L])
+        try:
+            existed = self.store.put_many_columnar(
+                self.table, FAMILY, kb, L, quals, vals, durable=durable)
+        except PleaseThrottleError as e:
+            # The rows that did apply still need compaction; they will
+            # never reach the window (this raise skips its append), and a
+            # retry of the batch would fail its order check anyway: drop
+            # the metric's window so queries take the scan path instead of
+            # a partial view.
+            self._queue_compactions(kb, L, e.partial_existed)
+            if self.devwindow is not None:
+                self.devwindow.invalidate(metric_uid)
+            raise
+        self._queue_compactions(kb, L, existed)
         if self.devwindow is not None:
             self.devwindow.append(metric_uid, codec.series_key(kb[:L]),
                                   ts_s, f_s.astype(np.float32))
         return len(ts_s)
+
+    def _queue_compactions(self, kb: bytes, L: int,
+                           existed: list[bool]) -> None:
+        """Rows that already held cells now hold several: queue them so
+        the per-batch compacted cells merge into one."""
+        if self.config.enable_compactions and any(existed):
+            for i, e in enumerate(existed):
+                if e:
+                    self.compactionq.add(kb[i * L:(i + 1) * L])
 
     # ------------------------------------------------------------------
     # Compaction
@@ -333,15 +363,29 @@ class TSDB:
         self.compactionq.flush(cutoff=int(time.time()) - MAX_TIMESPAN - 1)
         self.store.flush()
 
+    def checkpoint(self) -> int:
+        """Spill the store's memtable to its sstable tier and truncate the
+        WAL (``MemKVStore.checkpoint``). Returns rows spilled, 0 when the
+        store keeps no WAL."""
+        ckpt = getattr(self.store, "checkpoint", None)
+        if ckpt is None:
+            return 0
+        with self._checkpoint_lock:
+            return ckpt()
+
     def shutdown(self) -> None:
-        """Idempotent: stop and drain the compaction queue, flush the WAL,
-        close the store (which releases the WAL's single-writer lock even
-        when the flush raises)."""
+        """Idempotent: stop and drain the compaction queue, checkpoint
+        when the store has a WAL (the JAX package checkpoints at every
+        clean shutdown under its default config), flush the WAL, close the
+        store (which releases the WAL's single-writer lock even when the
+        checkpoint or the flush raises)."""
         if getattr(self, "_shutdown_done", False):
             return
         self._shutdown_done = True
         try:
             self.compactionq.shutdown()
+            if getattr(self.store, "_wal_path", None):
+                self.checkpoint()
             self.store.flush()
         finally:
             close = getattr(self.store, "close", None)

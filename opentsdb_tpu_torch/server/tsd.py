@@ -28,7 +28,9 @@ import torch
 
 from opentsdb_tpu_torch import __version__
 from opentsdb_tpu_torch.core import tags as tags_mod
-from opentsdb_tpu_torch.core.errors import BadRequestError, NoSuchUniqueName
+from opentsdb_tpu_torch.core.errors import (BadRequestError,
+                                             NoSuchUniqueName,
+                                             PleaseThrottleError)
 from opentsdb_tpu_torch.query.aggregators import Aggregators
 from opentsdb_tpu_torch.query.executor import (QueryExecutor, QuerySpec,
                                                not_yet_ported)
@@ -215,6 +217,8 @@ class TSDServer:
             writer.write(f"put: unknown metric: {e}\n".encode())
         except (ValueError, ArithmeticError) as e:
             writer.write(f"put: illegal argument: {e}\n".encode())
+        except PleaseThrottleError as e:
+            writer.write(f"put: Please throttle writes: {e}\n".encode())
 
     # ------------------------------------------------------------------
     # HTTP protocol

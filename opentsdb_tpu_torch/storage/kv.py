@@ -1,30 +1,58 @@
-"""Ordered key-value store: in-memory memtable + append-only WAL.
+"""Ordered key-value store: memtable + append-only WAL + sstable spill tier.
 
-Mirrors ``opentsdb_tpu/storage/kv.py`` of the JAX package, trimmed to the
-memtable tier: ``KVStore`` and ``MemKVStore`` with the WAL append and
+Mirrors ``opentsdb_tpu/storage/kv.py`` of the JAX package, copied rather
+than imported: ``KVStore`` and ``MemKVStore`` with the WAL append and
 replay, batched and columnar puts, ordered scans with a row-key regexp,
-and the atomic counter/CAS pair the UID tables need. The WAL record
-format is byte-identical to the JAX package's, so this store opens and
-replays a WAL that the JAX ``MemKVStore`` wrote (and vice versa).
+the atomic counter/CAS pair the UID tables need, throttling, and the
+spill tier: ``checkpoint()`` spills the memtable to immutable sstable
+generations (``storage/sstable.py``) named by a manifest and truncates the
+WAL. The WAL records, the generation files and the manifest are
+byte-identical to the JAX package's, so each package opens a store
+directory the other wrote, checkpointed or crashed in the middle of a
+checkpoint.
 
-Not ported yet (the JAX store's spill tier and its satellites): sstable
-generations and checkpoints, sharding, bloom filters, group commit, the
-cluster epoch fence, throttling and fault points. A WAL directory that
-holds any of their on-disk artifacts is refused at open rather than
-half-read.
+- Reads merge the tiers (generations oldest first, then a frozen
+  mid-checkpoint memtable, then the live memtable); deletes over spilled
+  rows leave tombstones (a None cell, or a row key in ``_Table.row_tombs``)
+  that the next checkpoint applies in a full merge.
+- ``checkpoint()`` never stalls ingest on the spill: under the lock it
+  freezes the memtable and rotates the WAL to ``<wal>.old``; the spill
+  runs without the lock; a second brief lock swaps the generations in,
+  writes the manifest and unlinks ``<wal>.old``. A crash anywhere recovers
+  by replaying ``<wal>.old`` then the WAL over whichever generations the
+  manifest names (replay is idempotent).
+- Backpressure: once a table holds ``throttle_rows`` live rows, puts that
+  would create a new row raise PleaseThrottleError (a batch applies its
+  prefix and reports it in ``partial_existed``).
+
+Not ported yet, each refused rather than half-read where it leaves
+something on disk: a sharded store (``SHARDS.json``; ROADMAP queue A item
+3), the cluster epoch fence and WAL epoch headers (item 10), TSST4
+generations (item 5, refused by the sstable reader); and without an
+on-disk trace: read-only replicas (item 10), WAL group commit and fault
+points (item 3), the dirty-base stamps and ``chunk_state`` (item 2) and
+the rollup tier's spill-key record (item 6).
 """
 
 from __future__ import annotations
 
 import fcntl
+import json
 import os
 import re
 import struct
 import threading
+import time
+import zlib
 from bisect import bisect_left
 from typing import Iterator, NamedTuple
 
 import numpy as np
+
+from opentsdb_tpu_torch.core.const import TIMESTAMP_BYTES, UID_WIDTH
+from opentsdb_tpu_torch.core.errors import PleaseThrottleError
+from opentsdb_tpu_torch.storage.sstable import (SSTable, merge_sstables,
+                                                write_sstable_bulk)
 
 _REC = struct.Struct(">BI")  # op, payload length
 
@@ -34,6 +62,20 @@ _OP_DELETE = 2
 _OP_DELETE_ROW = 3
 _OP_PUT_BATCH = 4   # one columnar record for a whole put_many batch
 _OP_EPOCH = 5       # cluster-mode segment header (fence not ported)
+
+# Row-key bytes holding the base time (core/codec.row_key): the bloom
+# probe hashes the key around them.
+_BASE_LO = UID_WIDTH
+_BASE_HI = UID_WIDTH + TIMESTAMP_BYTES
+
+# A sharded store's manifest, at the root of the directory its --wal
+# names (the JAX package's storage/sharded.py).
+_SHARDS_NAME = "SHARDS.json"
+
+# Version written into <wal>.tenants.json at each checkpoint: any value
+# but the JAX package's 1 makes its next open rebuild tenant accounting
+# from storage (MemKVStore._retire_snapshots).
+_FOREIGN_TENANTS_VERSION = 0
 
 
 class Cell(NamedTuple):
@@ -62,6 +104,9 @@ class KVStore:
 
     def delete(self, table: str, key: bytes, family: bytes,
                qualifiers: list[bytes]) -> None:
+        raise NotImplementedError
+
+    def delete_row(self, table: str, key: bytes) -> None:
         raise NotImplementedError
 
     def scan_raw(self, table: str, start: bytes, stop: bytes,
@@ -120,14 +165,21 @@ class _Table:
     ``k in rows`` and a purge rewrites the runs when those dominate.
     """
 
-    __slots__ = ("rows", "base", "delta", "pending", "stale")
+    __slots__ = ("rows", "base", "delta", "pending", "stale", "row_tombs",
+                 "tombs")
 
     def __init__(self) -> None:
-        self.rows: dict[bytes, dict[tuple[bytes, bytes], bytes]] = {}
+        # Cell value None = tombstone masking a spilled sstable cell.
+        self.rows: dict[bytes, dict[tuple[bytes, bytes], bytes | None]] = {}
         self.base: list[bytes] = []
         self.delta: list[bytes] = []
         self.pending: set[bytes] = set()
         self.stale = 0  # deleted keys still present in base/delta
+        self.row_tombs: set[bytes] = set()  # whole-row masks over sstables
+        # Cell tombstones ever written into rows: a tier with none cannot
+        # mask lower-generation cells, so checkpoint may spill it as a new
+        # generation without a merge.
+        self.tombs = 0
 
     def _absorb(self) -> None:
         """Fold pending inserts into delta; compact when thresholds hit.
@@ -176,7 +228,7 @@ class _Table:
 
 
 class MemKVStore(KVStore):
-    """In-memory ordered KV with optional WAL persistence.
+    """In-memory ordered KV with optional WAL persistence and spill tier.
 
     Thread-safe: a single lock guards all mutation (ingest is batched above
     this layer, so lock traffic is per batch, not per point). Every
@@ -189,19 +241,48 @@ class MemKVStore(KVStore):
     # order, so the split is invisible).
     _WAL_BATCH_LIMIT = 1 << 30
 
-    def __init__(self, wal_path: str | None = None) -> None:
+    # Generation cap: at this many, a checkpoint collapses a size-tiered
+    # suffix of the generations (_select_merge_suffix).
+    _MAX_GENERATIONS = 8
+
+    def __init__(self, wal_path: str | None = None,
+                 throttle_rows: int | None = None,
+                 max_generations: int | None = None) -> None:
+        """``throttle_rows``: live rows per table past which puts that
+        create a row raise PleaseThrottleError. ``max_generations``
+        overrides the generation cap (at least 2)."""
         self._tables: dict[str, _Table] = {}
         self._lock = threading.RLock()
+        if max_generations is not None:
+            if max_generations < 2:
+                raise ValueError(
+                    f"max_generations must be >= 2, got {max_generations}")
+            self._MAX_GENERATIONS = max_generations
+        self.throttle_rows = throttle_rows
         self._wal_path = wal_path
         self._wal = None
         self._lockfd: int | None = None
+        # Spill tier: sstable generations, OLDEST FIRST.
+        self._ssts: list[SSTable] = []
+        self._sst_path = wal_path + ".sst" if wal_path else None
+        # Immutable middle tier while a checkpoint's spill is in flight.
+        self._frozen: dict[str, _Table] | None = None
+        # Seconds the last open spent loading generations and replaying
+        # <wal>.old + the WAL.
+        self.open_seconds = {"generations": 0.0, "replay": 0.0}
         if not wal_path:
             return
-        _refuse_unported_artifacts(wal_path)
+        if os.path.exists(os.path.join(wal_path, _SHARDS_NAME)):
+            raise RuntimeError(
+                f"{wal_path!r} is a sharded store ({_SHARDS_NAME}); "
+                f"sharded stores are not ported yet (ROADMAP queue A "
+                f"item 3)")
         os.makedirs(os.path.dirname(os.path.abspath(wal_path)),
                     exist_ok=True)
         # Single-writer lock on a side file (the JAX store's convention,
-        # so the two packages also exclude each other on one WAL).
+        # so the two packages also exclude each other on one WAL), taken
+        # before recovery touches disk: _generation_paths deletes stray
+        # generation files.
         self._lockfd = os.open(wal_path + ".lock",
                                os.O_CREAT | os.O_RDWR, 0o644)
         try:
@@ -212,18 +293,101 @@ class MemKVStore(KVStore):
             raise RuntimeError(
                 f"WAL path {wal_path!r} is locked by another store")
         try:
-            if os.path.exists(wal_path):
-                valid = self._replay(wal_path)
-                if valid < os.path.getsize(wal_path):
-                    # Torn record at the tail (crash mid-write): truncate
-                    # so appends continue from the last valid boundary.
-                    with open(wal_path, "r+b") as f:
-                        f.truncate(valid)
-            self._wal = open(wal_path, "ab")
+            self._open_tiers(wal_path)
         except BaseException:
+            for sst in self._ssts:
+                sst.close()
+            self._ssts = []
             os.close(self._lockfd)
             self._lockfd = None
             raise
+
+    def _open_tiers(self, wal_path: str) -> None:
+        """Load the generations, replay <wal>.old (a checkpoint that a
+        crash interrupted) then the WAL, truncating a torn tail of either,
+        and open the WAL for append."""
+        t0 = time.perf_counter()
+        for path in self._generation_paths():
+            sst = SSTable(path)
+            self._ssts.append(sst)
+            for name in sst.tables():
+                self._table(name)
+        t1 = time.perf_counter()
+        for path in (wal_path + ".old", wal_path):
+            if os.path.exists(path):
+                valid = self._replay(path)
+                if valid < os.path.getsize(path):
+                    # Torn record at the tail (crash mid-write): truncate
+                    # so appends continue from the last valid boundary.
+                    with open(path, "r+b") as f:
+                        f.truncate(valid)
+        self._wal = open(wal_path, "ab")
+        self.open_seconds = {"generations": t1 - t0,
+                             "replay": time.perf_counter() - t1}
+
+    # -- generation set -----------------------------------------------------
+
+    def _generation_paths(self) -> list[str]:
+        """Live spill generations, oldest first. The manifest (written
+        atomically on every checkpoint) is the source of truth: generation
+        files it does not name (crash leftovers between a merge's manifest
+        write and its unlinks) are deleted here, because loading them
+        would resurrect cells a merge already dropped. No manifest = the
+        legacy layout, the single ``<wal>.sst``."""
+        man = self._sst_path + ".manifest"
+        d = os.path.dirname(os.path.abspath(self._sst_path))
+        if not os.path.exists(man):
+            return [self._sst_path] if os.path.exists(self._sst_path) \
+                else []
+        with open(man) as f:
+            names = json.load(f)
+        liveset = set(names)
+        base = os.path.basename(self._sst_path)
+        for fn in os.listdir(d):
+            if (fn == base or fn.startswith(base + ".g")) \
+                    and fn not in liveset \
+                    and not fn.endswith(".tmp") \
+                    and not fn.endswith(".manifest"):
+                try:
+                    os.unlink(os.path.join(d, fn))
+                except OSError:
+                    pass
+        # A generation the manifest names but the disk lacks is not
+        # skipped (the JAX store skips it): opening it raises, since the
+        # store cannot be read whole.
+        return [os.path.join(d, fn) for fn in names]
+
+    def _write_manifest(self, paths: list[str]) -> None:
+        """Atomically record the live generation set (tmp + rename +
+        directory fsync, the sstable writer's durability contract)."""
+        man = self._sst_path + ".manifest"
+        tmp = man + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump([os.path.basename(p) for p in paths], f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, man)
+        dfd = os.open(os.path.dirname(os.path.abspath(man)), os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+
+    def _next_generation_path(self) -> str:
+        used = set()
+        d = os.path.dirname(os.path.abspath(self._sst_path))
+        prefix = os.path.basename(self._sst_path) + ".g"
+        for fn in os.listdir(d):
+            if fn.startswith(prefix) and not fn.endswith(".tmp") \
+                    and not fn.endswith(".manifest"):
+                try:
+                    used.add(int(fn[len(prefix):]))
+                except ValueError:
+                    continue
+        n = 1
+        while n in used:
+            n += 1
+        return self._sst_path + f".g{n}"
 
     # -- table helpers ----------------------------------------------------
 
@@ -236,6 +400,88 @@ class MemKVStore(KVStore):
     def ensure_table(self, table: str) -> None:
         with self._lock:
             self._table(table)
+
+    def memtable_keys(self, table: str) -> list[bytes]:
+        """Row keys in the live memtable only (excludes spilled tiers).
+        After crash recovery this is exactly the WAL-replayed set."""
+        with self._lock:
+            return list(self._table(table).rows)
+
+    def row_count(self, table: str) -> int:
+        with self._lock:
+            keys = set(self._table(table).rows)
+            ft = self._frozen.get(table) if self._frozen else None
+            if ft is not None:
+                keys |= set(ft.rows)
+            for sst in self._ssts:
+                keys.update(sst.scan_keys(table, b"", None))
+            return sum(1 for k in keys if self._merged_row(table, k))
+
+    def has_row(self, table: str, key: bytes) -> bool:
+        with self._lock:
+            return self._has_row_locked(table, key)
+
+    def _has_row_locked(self, table: str, key: bytes) -> bool:
+        row = self._table(table).rows.get(key)
+        if row:
+            # Tombstones (None cells) only exist once a lower tier does;
+            # the pure-memtable path stays one dict probe.
+            if not self._ssts and self._frozen is None:
+                return True
+            if any(v is not None for v in row.values()):
+                return True
+        return self._merged_row(table, key) is not None
+
+    def _merged_row(self, table: str,
+                    key: bytes) -> dict[tuple[bytes, bytes], bytes] | None:
+        """Lower tiers (generations, then the frozen memtable) overlaid
+        with the live memtable's cells and tombstones. Caller holds the
+        lock."""
+        t = self._table(table)
+        if not self._ssts and self._frozen is None:
+            return t.rows.get(key) or None
+        ft = self._frozen.get(table) if self._frozen else None
+        merged: dict[tuple[bytes, bytes], bytes] = {}
+        if not (key in t.row_tombs
+                or (ft is not None and key in ft.row_tombs)):
+            # Generations never hold tombstones (a tombstoned frozen tier
+            # forces a full merge), so a plain overlay is the whole story.
+            for sst in self._ssts:
+                cells = sst.get(table, key)
+                if cells:
+                    for f, q, v in cells:
+                        merged[(f, q)] = v
+        rows = [t.rows.get(key)]
+        if ft is not None and key not in t.row_tombs:
+            rows.insert(0, ft.rows.get(key))
+        for row in rows:
+            if row:
+                for ck, v in row.items():
+                    if v is None:
+                        merged.pop(ck, None)
+                    else:
+                        merged[ck] = v
+        return merged or None
+
+    def _lower_tier_has(self, table: str, key: bytes) -> bool:
+        """Does any tier below the live memtable hold this key? (Decides
+        whether a delete must leave tombstones.) Each generation's series
+        bloom is probed before its key bisect: blooms cover every indexed
+        key, so present keys always pass."""
+        ft = self._frozen.get(table) if self._frozen else None
+        if ft is not None and key in ft.rows:
+            return True
+        if not self._ssts:
+            return False
+        h = None
+        if len(key) >= _BASE_HI:
+            h = zlib.crc32(key[_BASE_HI:], zlib.crc32(key[:_BASE_LO]))
+        for sst in self._ssts:
+            if h is not None and not sst.bloom_may_contain_hash(table, h):
+                continue
+            if sst.has_key(table, key):
+                return True
+        return False
 
     # -- WAL --------------------------------------------------------------
 
@@ -324,7 +570,8 @@ class MemKVStore(KVStore):
                 if op == _OP_EPOCH:
                     raise RuntimeError(
                         f"WAL {path!r} carries cluster epoch headers; the "
-                        f"cluster write tier is not ported yet")
+                        f"cluster write tier is not ported yet (ROADMAP "
+                        f"queue A item 10)")
                 parts = self._split_payload(payload)
                 table = parts[0].decode()
                 if op == _OP_PUT:
@@ -377,9 +624,254 @@ class MemKVStore(KVStore):
                         self._wal.close()
                         self._wal = None
             finally:
+                for sst in self._ssts:
+                    sst.close()
+                self._ssts = []
                 if self._lockfd is not None:
                     os.close(self._lockfd)
                     self._lockfd = None
+
+    # -- checkpoint / spill -----------------------------------------------
+
+    def checkpoint(self) -> int:
+        """Spill the memtable to a new sstable generation and drop the
+        pre-checkpoint WAL records. Returns rows written (0: no WAL, a
+        checkpoint already in flight, or nothing to spill).
+
+        Normally the frozen memtable spills alone as a new generation.
+        When the generation count reaches _MAX_GENERATIONS, a size-tiered
+        partial merge collapses only the newest suffix of generations
+        (plus the frozen tier) that the next-older generation does not
+        dwarf. A FULL merge of every generation runs when the frozen tier
+        holds tombstones: they must mask cells in every lower generation,
+        and a partial merge would drop them for the kept prefix.
+
+        Three phases, so that ingest and queries never wait on the spill:
+          1. (lock) freeze the memtable as an immutable middle tier and
+             rotate the WAL: pre-checkpoint records move to <wal>.old.
+          2. (no lock) write the new generation to a temp file, fsync,
+             rename it into place.
+          3. (lock) open it, write the manifest (the authoritative
+             generation set), drop the frozen tier, unlink the merged
+             generations and <wal>.old.
+        <wal>.old survives until the new generation is durable; recovery
+        replays <wal>.old then the WAL, idempotently, over any manifest
+        state."""
+        if self._sst_path is None:
+            return 0
+        old_path = self._wal_path + ".old"
+        with self._lock:
+            if self._frozen is not None:
+                return 0  # a spill is already in flight
+            self._retire_snapshots()
+            self._frozen = self._tables
+            self._tables = {name: _Table() for name in self._frozen}
+            if self._wal is not None:
+                self._wal.close()
+                if os.path.exists(old_path):
+                    # A crash-recovered .old is still live state: append
+                    # the current WAL to it rather than clobbering it.
+                    with open(old_path, "ab") as dst, \
+                            open(self._wal_path, "rb") as src:
+                        dst.write(src.read())
+                        dst.flush()
+                        os.fsync(dst.fileno())
+                    # Recreate the WAL under a fresh inode (empty tmp +
+                    # os.replace, allocated while the old WAL is still
+                    # linked) rather than truncating in place: readers
+                    # that key a replay position on the WAL's inode never
+                    # see a reset offset in the same file.
+                    tmp = self._wal_path + ".rotate"
+                    self._wal = open(tmp, "wb")
+                    os.replace(tmp, self._wal_path)
+                else:
+                    os.replace(self._wal_path, old_path)
+                    self._wal = open(self._wal_path, "ab")
+            frozen = self._frozen
+            gens = list(self._ssts)
+            tombstoned = any(ft.row_tombs or ft.tombs
+                             for ft in frozen.values())
+            if tombstoned:
+                keep: list[SSTable] = []
+                merge_gens = gens
+            elif len(gens) + 1 >= self._MAX_GENERATIONS:
+                keep, merge_gens = self._select_merge_suffix(gens)
+            else:
+                keep, merge_gens = gens, []
+            use_merge = tombstoned or bool(merge_gens)
+            empty = not any(ft.rows or ft.row_tombs
+                            for ft in frozen.values())
+            out_path = self._next_generation_path()
+
+        if empty:
+            # Nothing to spill, but the rotation above must still
+            # conclude: a WAL whose records net out to an empty memtable
+            # holds no state the generations lack, and keeping <wal>.old
+            # would let churn grow it without bound.
+            with self._lock:
+                self._frozen = None
+                if os.path.exists(old_path):
+                    os.unlink(old_path)
+            return 0
+
+        try:
+            if use_merge:
+                n = merge_sstables(out_path, merge_gens, {
+                    name: (ft.rows, ft.row_tombs, bool(ft.tombs))
+                    for name, ft in frozen.items()})
+            else:
+                # No tombstones in the frozen tier: every cell value is
+                # bytes and no lower generation needs reading.
+                n = write_sstable_bulk(out_path, {
+                    name: ([k for k in sorted(ft.rows) if ft.rows[k]],
+                           ft.rows)
+                    for name, ft in frozen.items()})
+        except Exception:
+            # Disk full or similar: thaw the frozen tier back under the
+            # live memtable so the store is not wedged. <wal>.old stays;
+            # the next checkpoint appends the live WAL to it.
+            with self._lock:
+                self._thaw_frozen_locked()
+            raise
+
+        with self._lock:
+            new_sst = None
+            unlink_new = True
+            try:
+                new_sst = SSTable(out_path)
+                # The new generation replaces exactly the merged suffix
+                # (all of them on a full merge, none on a plain spill);
+                # everything in `keep` is older than what it holds.
+                self._ssts = keep + [new_sst]
+                try:
+                    # Manifest BEFORE unlinking: a crash in between
+                    # leaves strays the next open deletes.
+                    self._write_manifest([s.path for s in self._ssts])
+                except Exception:
+                    old = keep + merge_gens
+                    self._ssts = old
+                    # The new manifest may already be durable (the
+                    # rename landed, the directory fsync failed):
+                    # restore the old one before unlinking the new file,
+                    # or keep the file if even that fails. Both (old
+                    # manifest, stray new file) and (new manifest, new
+                    # file) are consistent.
+                    try:
+                        self._write_manifest([s.path for s in old])
+                    except Exception:
+                        unlink_new = False
+                    raise
+            except Exception:
+                if new_sst is not None:
+                    new_sst.close()
+                if unlink_new:
+                    try:
+                        os.unlink(out_path)
+                    except OSError:
+                        pass
+                self._thaw_frozen_locked()
+                raise
+            self._frozen = None
+            for g in merge_gens:
+                path = g.path
+                g.close()
+                try:
+                    os.unlink(path)
+                except OSError:
+                    pass
+            if os.path.exists(old_path):
+                os.unlink(old_path)
+        return n
+
+    def _retire_snapshots(self) -> None:
+        """Leave the JAX package's snapshots beside the WAL in a state
+        its next open rebuilds exactly from, before anything spills.
+
+        The JAX daemon keeps ``<wal>.sketches`` and
+        ``<wal>.tenants.json``, each covering the sstable tier, and on
+        open re-folds only the WAL-replayed memtable on top of them. This
+        store keeps neither, so rows it spills would be missing from
+        both: the sketch snapshot is removed (without one the JAX package
+        re-folds all of storage), and the tenant snapshot is replaced by
+        a file of a foreign version, which the JAX package rejects and
+        answers with a full storage rescan (exact totals). A missing
+        tenant file is not enough: without one, and without tenant
+        limits, the JAX package skips the rescan.
+
+        A JAX rollup tier (``<wal>.rollup-<res>/``) would need its
+        summaries folded at every spill, which this port cannot do yet:
+        such a store is refused here (ROADMAP queue A item 6)."""
+        d = os.path.dirname(os.path.abspath(self._wal_path))
+        base = os.path.basename(self._wal_path)
+        rollups = sorted(fn for fn in os.listdir(d)
+                         if fn.startswith(base + ".rollup"))
+        if rollups:
+            raise RuntimeError(
+                f"{self._wal_path!r} has a rollup tier beside it "
+                f"({rollups}); checkpointing it would leave its summaries "
+                f"behind the spilled rows, and rollups are not ported yet "
+                f"(ROADMAP queue A item 6)")
+        sketches = self._wal_path + ".sketches"
+        if os.path.exists(sketches):
+            os.unlink(sketches)
+        tenants = self._wal_path + ".tenants.json"
+        with open(tenants + ".tmp", "w") as f:
+            json.dump({"version": _FOREIGN_TENANTS_VERSION,
+                       "written_by": "opentsdb_tpu_torch",
+                       "note": "this store keeps no tenant accounting; "
+                               "rebuild it from storage"}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tenants + ".tmp", tenants)
+        dfd = os.open(d, os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+
+    @staticmethod
+    def _select_merge_suffix(gens: list[SSTable],
+                             ) -> tuple[list[SSTable], list[SSTable]]:
+        """Size-tiered pick at the generation cap: absorb older
+        generations into the merge only while each is no larger than
+        everything newer already being merged, so the oldest, largest
+        generations are kept verbatim and write amplification stays
+        logarithmic. The frozen tier's footprint is estimated as the
+        newest generation's size. Returns (keep-prefix, merge-suffix),
+        both age-ordered."""
+        def size(g):
+            try:
+                return os.path.getsize(g.path)
+            except OSError:
+                return None  # unreadable: too big to absorb
+        i = len(gens) - 1          # always absorb the newest
+        acc = 2 * (size(gens[-1]) or 0)
+        while i > 0:
+            s = size(gens[i - 1])
+            if s is None or s > acc:
+                break
+            acc += s
+            i -= 1
+        return gens[:i], gens[i:]
+
+    def _thaw_frozen_locked(self) -> None:
+        """Fold the frozen tier back under the live memtable after a
+        failed checkpoint (caller holds the lock). Live cells win; row
+        tombstones written while the spill was in flight keep masking the
+        thawed rows; the tombstone count travels with the rows, so the
+        retry still takes the full merge."""
+        for name, ft in self._frozen.items():
+            live = self._table(name)
+            for k, row in ft.rows.items():
+                if k in live.row_tombs:
+                    continue  # deleted while the spill was in flight
+                merged = dict(row)
+                merged.update(live.rows.get(k, {}))
+                live.rows[k] = merged
+            live.row_tombs |= ft.row_tombs
+            live.tombs += ft.tombs
+            live.pending.update(ft.rows)
+        self._frozen = None
 
     # -- mutation ---------------------------------------------------------
 
@@ -395,11 +887,20 @@ class MemKVStore(KVStore):
     def _apply_delete(self, table: str, key: bytes, family: bytes,
                       qualifiers: list[bytes]) -> None:
         t = self._table(table)
+        spilled = (key not in t.row_tombs
+                   and self._lower_tier_has(table, key))
         row = t.rows.get(key)
         if row is None:
-            return
+            if not spilled:
+                return
+            row = t.rows[key] = {}
+            t.pending.add(key)
         for q in qualifiers:
-            row.pop((family, q), None)
+            if spilled:
+                row[(family, q)] = None  # tombstone masks the sstable cell
+                t.tombs += 1
+            else:
+                row.pop((family, q), None)
         if not row:
             del t.rows[key]
             t.stale += 1
@@ -408,10 +909,26 @@ class MemKVStore(KVStore):
         t = self._table(table)
         if t.rows.pop(key, None) is not None:
             t.stale += 1
+        if key not in t.row_tombs and self._lower_tier_has(table, key):
+            t.row_tombs.add(key)
+
+    def _throttle_error(self, table: str) -> PleaseThrottleError:
+        return PleaseThrottleError(
+            f"table '{table}' holds >= {self.throttle_rows} rows")
+
+    def _check_throttle(self, table: str, key: bytes) -> None:
+        # Only puts that would create a NEW row throttle: updates to
+        # existing rows (compaction rewrites among them, which relieve
+        # pressure) must keep flowing or backpressure never clears.
+        rows = self._table(table).rows
+        if self.throttle_rows is not None \
+                and len(rows) >= self.throttle_rows and key not in rows:
+            raise self._throttle_error(table)
 
     def put(self, table: str, key: bytes, family: bytes, qualifier: bytes,
             value: bytes, durable: bool = True) -> None:
         with self._lock:
+            self._check_throttle(table, key)
             if durable:
                 self._wal_append(_OP_PUT, table.encode(), key, family,
                                  qualifier, value)
@@ -424,8 +941,13 @@ class MemKVStore(KVStore):
         """Batched put with cell i's key the i-th ``key_len``-byte slice of
         ``key_blob``. Returns, per cell, True when the row held other
         cells by the time this one landed (it existed before the batch,
-        or an earlier cell of the batch hit it) — the rows the caller must
-        queue for compaction."""
+        in any tier, or an earlier cell of the batch hit it): the rows
+        the caller must queue for compaction.
+
+        When a cell would create a row past ``throttle_rows``, the cells
+        before it stay applied, their WAL record is written, and the
+        PleaseThrottleError raised carries their flags as
+        ``partial_existed``."""
         n = len(quals)
         L = key_len
         if len(vals) != n or len(key_blob) != n * L:
@@ -437,21 +959,46 @@ class MemKVStore(KVStore):
         if n == 0:
             return []
         keys = [key_blob[i:i + L] for i in range(0, n * L, L)]
+        existed: list[bool] = []
         with self._lock:
             t = self._table(table)
             rows = t.rows
-            existed = []
-            for k, q, v in zip(keys, quals, vals):
-                row = rows.get(k)
-                existed.append(row is not None)
-                if row is None:
-                    rows[k] = {(family, q): v}
-                    t.pending.add(k)
-                else:
+            # With no lower tiers the memtable is the whole truth, so
+            # existence is one dict probe.
+            pure_mem = not self._ssts and self._frozen is None
+            throttle = self.throttle_rows
+            batch_ok = False
+            try:
+                for k, q, v in zip(keys, quals, vals):
+                    row = rows.get(k)
+                    if row is None:
+                        if throttle is not None and len(rows) >= throttle:
+                            err = self._throttle_error(table)
+                            err.partial_existed = existed
+                            raise err
+                        e = not pure_mem and self._has_row_locked(table, k)
+                        row = rows[k] = {}
+                        t.pending.add(k)
+                    else:
+                        e = pure_mem or self._has_row_locked(table, k)
                     row[(family, q)] = v
-            if durable:
-                self._wal_append_batch_columnar(table.encode(), family,
-                                                key_blob, n, L, quals, vals)
+                    existed.append(e)
+                batch_ok = True
+            finally:
+                # The applied prefix is acknowledged (on success, or via
+                # partial_existed), so its record reaches the OS before
+                # the call returns or raises. A WAL failure must not
+                # replace a throttle error in flight: callers rely on
+                # partial_existed.
+                m = len(existed)
+                if durable and m:
+                    try:
+                        self._wal_append_batch_columnar(
+                            table.encode(), family, key_blob[:m * L], m, L,
+                            quals[:m], vals[:m])
+                    except Exception:
+                        if batch_ok:
+                            raise
         return existed
 
     def delete(self, table: str, key: bytes, family: bytes,
@@ -461,18 +1008,44 @@ class MemKVStore(KVStore):
                              *qualifiers)
             self._apply_delete(table, key, family, qualifiers)
 
+    def delete_row(self, table: str, key: bytes) -> None:
+        with self._lock:
+            self._wal_append(_OP_DELETE_ROW, table.encode(), key)
+            self._apply_delete_row(table, key)
+
     # -- reads ------------------------------------------------------------
 
     def get(self, table: str, key: bytes,
             family: bytes | None = None) -> list[Cell]:
         with self._lock:
-            row = self._table(table).rows.get(key)
+            row = self._merged_row(table, key)
             if not row:
                 return []
             cells = [Cell(key, f, q, v) for (f, q), v in row.items()
                      if family is None or f == family]
         cells.sort(key=lambda c: (c.family, c.qualifier))
         return cells
+
+    def _snapshot_keys(self, table: str, start: bytes,
+                       stop: bytes) -> list[bytes]:
+        """Key snapshot across all tiers (live memtable, frozen tier,
+        generations; row tombstones excluded). Caller holds the lock."""
+        t = self._table(table)
+        keys = t.range_keys(start, stop)
+        ft = self._frozen.get(table) if self._frozen else None
+        extra = set()
+        if ft is not None:
+            extra.update(k for k in ft.range_keys(start, stop)
+                         if k not in t.rows and k not in t.row_tombs)
+        for sst in self._ssts:
+            extra.update(
+                k for k in sst.scan_keys(table, start, stop)
+                if k not in t.rows and k not in t.row_tombs
+                and not (ft is not None and (k in ft.rows
+                                             or k in ft.row_tombs)))
+        if extra:
+            keys = sorted(set(keys) | extra)
+        return keys
 
     def scan_raw(self, table: str, start: bytes, stop: bytes,
                  family: bytes | None = None,
@@ -487,23 +1060,84 @@ class MemKVStore(KVStore):
         mid-scan are skipped, rows mutated mid-scan show their new cells."""
         pattern = re.compile(key_regexp, re.S) if key_regexp else None
         with self._lock:
-            keys = self._table(table).range_keys(start, stop)
+            keys = self._snapshot_keys(table, start, stop)
         if pattern is not None:
             keys = [k for k in keys if pattern.match(k)]
         for i in range(0, len(keys), chunk):
-            out = []
+            ck = keys[i:i + chunk]
             with self._lock:
-                rows_get = self._table(table).rows.get
-                for key in keys[i:i + chunk]:
-                    row = rows_get(key)
+                # Tier state is read under the lock each chunk: a
+                # checkpoint may freeze the memtable between chunks.
+                if not self._ssts and self._frozen is None:
+                    rows_get = self._table(table).rows.get
+                    rows = ((key, rows_get(key)) for key in ck)
+                elif pattern is not None:
+                    # Selective regexp scans touch few rows: per-key
+                    # merged reads beat extracting whole key ranges.
+                    rows = ((key, self._merged_row(table, key))
+                            for key in ck)
+                else:
+                    hi = keys[i + chunk] if i + chunk < len(keys) \
+                        else (stop or None)
+                    rows = self._merged_range(table, ck, hi)
+                out = []
+                for key, row in rows:
                     if not row:
                         continue
                     items = [(q, v) for (f, q), v in row.items()
-                             if family is None or f == family]
+                             if v is not None
+                             and (family is None or f == family)]
                     if items:
                         items.sort()
                         out.append((key, items))
             yield from out
+
+    def _merged_range(self, table: str, ck: list[bytes],
+                      hi: bytes | None):
+        """(key, merged row) for the sorted keys ``ck`` (all < ``hi``):
+        each generation is range-read once for the chunk instead of probed
+        per key. Overlay order and tombstones are _merged_row's. Caller
+        holds the lock."""
+        t = self._table(table)
+        ft = self._frozen.get(table) if self._frozen else None
+        # Row tombstones suppress generation rows before the decode.
+        masked = t.row_tombs
+        if ft is not None and ft.row_tombs:
+            masked = masked | ft.row_tombs
+        merged: dict[bytes, dict] = {}
+        lo = ck[0]
+        for sst in self._ssts:
+            for key, cells in sst.iter_rows_range(table, lo, hi,
+                                                  skip=masked):
+                row = merged.get(key)
+                if row is None:
+                    row = merged[key] = {}
+                for f, q, v in cells:
+                    row[(f, q)] = v
+        if ft is not None:
+            for key in ft.range_keys(lo, hi):
+                if key in t.row_tombs:
+                    continue
+                row = merged.setdefault(key, {})
+                for ckey, v in ft.rows[key].items():
+                    if v is None:
+                        row.pop(ckey, None)
+                    else:
+                        row[ckey] = v
+        live_get = t.rows.get
+        for key in ck:
+            row = merged.get(key)
+            lrow = live_get(key)
+            if lrow:
+                if row is None:
+                    row = dict(lrow)
+                else:
+                    for ckey, v in lrow.items():
+                        if v is None:
+                            row.pop(ckey, None)
+                        else:
+                            row[ckey] = v
+            yield key, row
 
     # -- atomics ----------------------------------------------------------
 
@@ -513,10 +1147,13 @@ class MemKVStore(KVStore):
         value (initialized from 0 like HBase's ICV); logged as the
         absolute value so replay is idempotent."""
         with self._lock:
-            row = self._table(table).rows.get(key)
+            row = self._merged_row(table, key)
             cur = row.get((family, qualifier)) if row else None
             value = (struct.unpack(">q", cur)[0] if cur else 0) + amount
-            self.put(table, key, family, qualifier, struct.pack(">q", value))
+            packed = struct.pack(">q", value)
+            self._wal_append(_OP_PUT, table.encode(), key, family,
+                             qualifier, packed)
+            self._apply_put(table, key, family, qualifier, packed)
         return value
 
     def compare_and_set(self, table: str, key: bytes, family: bytes,
@@ -525,27 +1162,11 @@ class MemKVStore(KVStore):
         """Atomic CAS: write only if the cell currently equals ``expected``
         (None = cell must not exist). Returns success."""
         with self._lock:
-            row = self._table(table).rows.get(key)
+            row = self._merged_row(table, key)
             cur = row.get((family, qualifier)) if row else None
             if cur != expected:
                 return False
-            self.put(table, key, family, qualifier, value)
+            self._wal_append(_OP_PUT, table.encode(), key, family,
+                             qualifier, value)
+            self._apply_put(table, key, family, qualifier, value)
         return True
-
-
-def _refuse_unported_artifacts(wal_path: str) -> None:
-    """The JAX store keeps checkpointed data beside the WAL (sstable
-    generations, a manifest, an interrupted checkpoint's ``.old`` WAL).
-    This port replays the WAL alone, so such a directory would read as
-    silently incomplete: refuse it."""
-    d = os.path.dirname(os.path.abspath(wal_path))
-    base = os.path.basename(wal_path)
-    if not os.path.isdir(d):
-        return
-    found = sorted(fn for fn in os.listdir(d)
-                   if fn == base + ".old" or fn == base + ".sst"
-                   or fn.startswith(base + ".sst."))
-    if found:
-        raise RuntimeError(
-            f"WAL {wal_path!r} has spilled state beside it ({found}); the "
-            f"sstable/checkpoint tier is not ported yet")

@@ -4,9 +4,12 @@ Mirrors the ``tsd`` subcommand of ``opentsdb_tpu/tools/cli.py`` (the
 reference's TSDMain.java). The daemon serves on the CUDA card unless
 ``--device cpu`` is given; ``--backend cpu`` answers queries with the
 float64 oracle instead of the kernels. As in the JAX package's daemon,
-the resident device window is on: ingest (and, at start-up, what the WAL
-holds) is mirrored into device memory, and downsampled moment queries
-are served from it (``"rollup": "resident"`` in the /q JSON). Run it with
+the resident device window is on: ingest (and, at start-up, what the
+sstable generations and the WAL hold) is mirrored into device memory, and
+downsampled moment queries are served from it (``"rollup": "resident"``
+in the /q JSON). With ``--wal`` the store spills to sstable generations
+beside the WAL at every ``--checkpoint-interval`` seconds and at shutdown,
+in the JAX package's formats. Run it with
 
     python -m opentsdb_tpu_torch.tools.cli tsd --port 4242 \\
         --wal /var/tsdb/wal --auto-metric
@@ -25,10 +28,13 @@ from opentsdb_tpu_torch.utils.config import Config
 
 
 def cmd_tsd(args) -> int:
-    tsdb = TSDB(MemKVStore(wal_path=args.wal), Config(
+    cfg = Config(
         table=args.table, uidtable=args.uidtable, backend=args.backend,
         device=args.device, auto_create_metrics=args.auto_metric,
-        port=args.port, bind=args.bind, flush_interval=args.flush_interval))
+        port=args.port, bind=args.bind, flush_interval=args.flush_interval,
+        checkpoint_interval=args.checkpoint_interval)
+    tsdb = TSDB(MemKVStore(wal_path=args.wal,
+                           throttle_rows=cfg.throttle_rows), cfg)
     server = TSDServer(tsdb)
 
     async def main():
@@ -65,6 +71,9 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--port", type=int, default=4242)
     p.add_argument("--bind", default="0.0.0.0")
     p.add_argument("--flush-interval", type=float, default=10.0)
+    p.add_argument("--checkpoint-interval", type=float, default=0.0,
+                   help="seconds between sstable spills + WAL truncation "
+                        "(0 disables; requires --wal)")
     p.set_defaults(func=cmd_tsd)
     args = parser.parse_args(argv)
     return args.func(args)

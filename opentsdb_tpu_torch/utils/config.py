@@ -1,8 +1,8 @@
 """The port's configuration object and device resolution.
 
 Mirrors ``opentsdb_tpu/utils/config.py`` of the JAX package, trimmed to
-the fields this port reads (the resident window's among them, with the
-JAX package's defaults), plus ``device``: where the query kernels run.
+the fields this port reads (the resident window's and the spill tier's
+among them, with the JAX package's defaults), plus ``device``: where the query kernels run.
 ``backend="cpu"`` keeps its JAX-package meaning — the float64 numpy
 oracle answers every query (``ops/oracle.py``) — and is independent of
 ``device``.
@@ -21,6 +21,7 @@ class Config:
     # storage
     table: str = "tsdb"
     uidtable: str = "tsdb-uid"
+    throttle_rows: int | None = None  # memtable rows before PleaseThrottle
 
     # core behavior (names mirror the reference's system properties)
     auto_create_metrics: bool = False   # tsd.core.auto_create_metrics
@@ -29,6 +30,7 @@ class Config:
     compaction_min_flush_threshold: int = 100
     compaction_max_concurrent_flushes: int = 10_000
     compaction_flush_speed: int = 2
+    checkpoint_interval: float = 0.0    # spill+WAL-truncate period (s); 0=off
 
     # compute: 'device' = the port's kernels on ``device``; 'cpu' = the
     # float64 numpy oracle.

@@ -861,3 +861,79 @@ def test_interp_points_per_thread(card, P):
         ts[s, :counts[s]] = np.sort(pts)
     vals = rng.normal(50, 10, (S, T)).astype(np.float32)
     _interp_vs_plain(card, ts, vals, counts, grid, "lerp")
+
+
+# ---------------------------------------------------------------------------
+# A store checkpointed on the CPU, reopened on the card
+# ---------------------------------------------------------------------------
+
+RESTART_QUERIES = [
+    dict(metric="m.cpu", tags={}, aggregator="sum", downsample=(600, "avg")),
+    dict(metric="m.cpu", tags={"host": "*"}, aggregator="max",
+         downsample=(600, "max")),
+    dict(metric="m.cpu", tags={"dc": "*"}, aggregator="dev",
+         downsample=(1800, "avg")),
+    dict(metric="m.cpu", tags={}, aggregator="count", rate=True,
+         downsample=(600, "avg")),
+    dict(metric="m.cpu", tags={"dc": "*"}, aggregator="p95",
+         downsample=(600, "avg")),
+]
+
+
+@pytest.mark.cuda
+def test_checkpointed_store_warms_the_window_on_card(card, tmp_path):
+    """A TSDB on the CPU ingests, checkpoints twice and shuts down (which
+    checkpoints again). Reopened on the CPU and then on the card, each
+    warms its window from the generations and the WAL; the card's
+    resident answers equal the CPU's: grids identical, count, min and max
+    exact, sums within float32 tolerance."""
+    from opentsdb_tpu_torch.core.tsdb import TSDB
+    from opentsdb_tpu_torch.query.executor import QueryExecutor, QuerySpec
+    from opentsdb_tpu_torch.storage.kv import MemKVStore
+    from opentsdb_tpu_torch.utils.config import Config
+
+    wal = str(tmp_path / "wal")
+    rng = np.random.default_rng(11)
+
+    def open_tsdb(device):
+        return TSDB(MemKVStore(wal_path=wal),
+                    Config(auto_create_metrics=True, device=device),
+                    start_compaction_thread=False)
+
+    tsdb = open_tsdb("cpu")
+    for part in range(3):
+        for h in range(16):
+            ts = T0 + part * SPAN + np.sort(
+                rng.choice(SPAN, 400, replace=False))
+            tsdb.add_batch("m.cpu", ts, rng.normal(50, 10, 400),
+                           {"host": f"h{h}", "dc": f"dc{h % 4}"})
+        if part < 2:
+            assert tsdb.checkpoint() > 0
+    tsdb.shutdown()
+    answers = {}
+    for device in ("cpu", card):
+        tsdb = open_tsdb(str(device))
+        try:
+            assert tsdb.devwindow.appended_points == 3 * 16 * 400
+            ex = QueryExecutor(tsdb)
+            got = []
+            for fields in RESTART_QUERIES:
+                res, plan, _ = ex.run_with_plan(QuerySpec(**fields), T0,
+                                                T0 + 3 * SPAN - 1)
+                assert plan == "resident" and res
+                got.append(res)
+            answers[str(device)] = got
+        finally:
+            tsdb.shutdown()
+    for fields, want, got in zip(RESTART_QUERIES, answers["cpu"],
+                                 answers[str(card)]):
+        exact = fields["aggregator"] in ("max", "count")
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.tags == w.tags
+            np.testing.assert_array_equal(g.timestamps, w.timestamps)
+            if exact:
+                np.testing.assert_array_equal(g.values, w.values)
+            else:
+                np.testing.assert_allclose(g.values, w.values, rtol=1e-5,
+                                           atol=1e-5)

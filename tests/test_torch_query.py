@@ -241,10 +241,14 @@ def test_port_opens_jax_wal(tmp_path):
 
 
 def test_port_refuses_spilled_jax_store(tmp_path):
+    """The port opens TSST1-3 generations (test_torch_checkpoint.py) but
+    refuses a store spilled to compressed TSST4 blocks, which it cannot
+    read yet, rather than serve it in part."""
     wal = str(tmp_path / "wal")
     jt = _jax_tsdb(wal)
+    jt.store.sstable_codec = "tsst4"
     _feed(jt, _stream()[:2])
     jt.checkpoint()
     jt.shutdown()
-    with pytest.raises(RuntimeError, match="not ported"):
+    with pytest.raises(RuntimeError, match="not ported yet .*item 5"):
         MemKVStore(wal_path=wal)
