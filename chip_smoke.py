@@ -28,7 +28,16 @@
    at 256 grid points drawn with a seed the kernel is held against it and
    its sums against float64). The details line records each select
    case's launch plan (cluster width, clusters the card co-schedules,
-   rows staged per block) and interp_moments' tile.
+   rows staged per block) and interp_moments' tile. The sketch kernels
+   (``csrc/sketches.cu``) the same way, at the daemon's shapes: the
+   t-digest fold of one hand-off of ``Config.sketch_flush_points`` (1,049
+   series x 1,000 values) and of the 4096-value chunk, the HLL fold of
+   one hand-off's host and dc UIDs and of all the corpus' at p = 12 and
+   of dc0's hosts at p = 14,
+   the estimate over the p = 12 stack, and the merged quantile over all
+   10,000 digests (S = 16,384 rows, 2,097,152 entries); folds and
+   registers exact against their plain versions, estimates within rtol
+   1e-6, quantiles within rtol 1e-4 (and the same on every run).
 4. Path phase: starts the port's daemon on loopback with its default
    settings (the resident device window on), ingests the repo's benchmark
    corpus (10,000 series x 1,000 points over 7 days = 10M points,
@@ -44,6 +53,19 @@
    ``sum`` over every series for the week, ``zimsum`` and ``p95`` of
    ``{dc=dc0}`` over the first day, ``sum:rate`` of one host over the
    week; each must launch interp_moments (the percentile: the select).
+   Before those, right after ingest (the live sketches fold every value:
+   the ingest rate is printed beside the smoke's earlier figure, taken
+   before the sketches were ported, and the
+   sketches' hand-offs, fold calls, state bytes and final drain), the
+   sketch routes over HTTP: ``/sketch`` p50/p95/p99 over every series,
+   ``{dc=dc0}`` and ``{host=h00001}``, each within SKETCH_RANK_TOL in rank
+   of the exact float32 values of those series; ``/distinct`` of host and
+   dc (streaming) within ``hll_error`` of 10,020 and 10; a ranged
+   ``/sketch`` over ``{dc=dc0}`` (``"rollup": "raw"``, equal to the exact
+   quantiles) and a ranged ``/distinct`` with ``tags=dc=dc0`` (the HLL
+   kernel at p = 14) within ``hll_error`` of 1,002. The four sketch
+   kernels' launch counts are set to 0 before ingest and read after these
+   queries: each must have launched.
    Then, in process: each query's chunk-stage time and apply-and-fetch
    time (synchronised); one host scan of every series over the week
    (timed), whose spans, regrouped as a scan with each query's filter
@@ -80,6 +102,10 @@
    read from the generations, must launch interp_moments and match the
    float64 oracle, and one host scan of every series over the week from
    the generations is timed beside the path phase's scan of the memtable.
+   The sketch snapshot's save (inside checkpoint 1) and load (at boot)
+   are timed, and after the restart every sketch route answers byte for
+   byte as before it (the state is the snapshot: the memtable is empty),
+   launching the HLL fold, the estimate and the merged quantile.
    (The card's machine has no JAX, so the crossings with the JAX package's
    store directories run only in the CPU tests,
    ``tests/test_torch_checkpoint.py``.)
@@ -90,14 +116,16 @@
    held against the same functions on CPU tensors; then one more staging
    batch must evict the oldest chunk, advance ``complete_from`` and turn a
    query reaching before it away.
-7. Prints the card line first; at the end the per-query, ingest,
-   profiler, restart and budget lines, the kernels line and, last, the ok
-   line.
+7. Prints the card line first; at the end the per-query, sketch,
+   ingest, profiler, restart and budget lines, the kernels line (eight
+   kernels) and, last, the ok line.
    In the kernels line each kernel's top-level numbers are its first
    path's: the segment kernels' and the select's the resident path's
    (at the chunk-fold shape and the columns select at one quantile),
    interp_moments' the un-downsampled path's (at the one-day {dc=dc0}
-   shape; its full-width numbers under ``full_width``). Under ``paths``
+   shape; its full-width numbers under ``full_width``), the sketch
+   kernels' the sketch path's (their other shapes under
+   ``other_cases``). Under ``paths``
    each path's launches stand beside the times at its own shape (the scan
    path's: the series stage; the select's un-downsampled path: the p95
    contributions). Counts include the group stages' launches, whose times
@@ -130,13 +158,16 @@ import torch
 from opentsdb_tpu_torch.core.tsdb import TSDB
 from opentsdb_tpu_torch.ops import (cuda_build, interp_moments,
                                     kernels as wk, masked_select, oracle,
-                                    segment_reduce)
+                                    segment_reduce, sketches)
 from opentsdb_tpu_torch.query.aggregators import Aggregators
 from opentsdb_tpu_torch.query.executor import (QueryExecutor, QueryResult,
                                                QuerySpec, _filter_key,
                                                _pad64, _pad_size, _Span)
 from opentsdb_tpu_torch.query.grammar import parse_m
 from opentsdb_tpu_torch.server.tsd import TSDServer
+from opentsdb_tpu_torch.sketch.bounds import hll_error
+from opentsdb_tpu_torch.stats.livesketch import LiveSketches
+from opentsdb_tpu_torch.stats.livesketch import _pad as _sk_pad
 from opentsdb_tpu_torch.storage.devstore import DeviceWindow
 from opentsdb_tpu_torch.storage.kv import MemKVStore
 from opentsdb_tpu_torch.utils.config import Config
@@ -182,6 +213,16 @@ FOLD_POINTS = -(-STAGING // POINTS) * POINTS
 # Window-at-budget phase: the default resident budget (Config
 # device_window_points), as 16,384 series x 4,096 points over SPAN.
 BUDGET_SERIES, BUDGET_POINTS = 16_384, 4_096
+# Sketch routes: the quantiles asked, and how far in rank (share of the
+# exact values) a t-digest answer may lie from its quantile. The digests
+# hold 128 centroids: the merged digest of 10,020 series is itself
+# compressed to 128, whose k1 clusters near the median each hold ~1.2% of
+# the weight; an answer interpolated inside one lands within half that.
+SKETCH_QS = [0.5, 0.95, 0.99]
+SKETCH_RANK_TOL = 0.01
+# The ingest rate of this smoke's last run before the live sketches folded
+# at ingest (PERF.md; NVIDIA H100 80GB HBM3, 700 W).
+INGEST_WITHOUT_SKETCHES_POINTS_PER_S = 531446.9595197901
 
 
 def fail(msg: str):
@@ -762,34 +803,56 @@ def path_launches(path: str, kernels: tuple) -> dict:
 
 def ingest(tsdb: TSDB, port: int, ts: np.ndarray, vals: np.ndarray) -> dict:
     """The corpus through add_batch, then telnet puts; the window mirrors
-    every write."""
+    every write and the live sketches buffer every value (folding on
+    their own thread at each hand-off). After the rate's clock stops, the
+    sketches' remaining buffer is folded and timed apart."""
     t0 = time.perf_counter()
     for s in range(SERIES):
         tsdb.add_batch("bench.metric", ts[s], vals[s], series_tags(s))
     t_batch = time.perf_counter() - t0
     rng = np.random.default_rng(2)
     lines = []
+    telnet_vals = []
     for s in range(TELNET_SERIES):
         tt = np.sort(rng.choice(SPAN, TELNET_POINTS, replace=False))
         for t, v in zip(tt + BASE, rng.normal(100, 1, TELNET_POINTS)):
             lines.append(f"put bench.metric {t} {v:.4f} host=t{s:02d} "
                          f"dc=dc{s % 10}")
+            telnet_vals.append((f"t{s:02d}", f"dc{s % 10}",
+                                float(f"{v:.4f}")))
     t1 = time.perf_counter()
     said = telnet(port, lines)
     t_telnet = time.perf_counter() - t1
     if "put:" in said or "opentsdb_tpu_torch" not in said:
         fail(f"telnet ingest answered: {said[:500]!r}")
     points = SERIES * POINTS + len(lines)
+    t2 = time.perf_counter()
+    sk = tsdb.sketches
+    sk.flush()
     out = {"points": points, "batch_s": t_batch, "telnet_s": t_telnet,
            "telnet_lines": len(lines),
            "points_per_s": points / (t_batch + t_telnet),
-           "window_appended": tsdb.devwindow.appended_points}
+           "without_sketches_points_per_s":
+               INGEST_WITHOUT_SKETCHES_POINTS_PER_S,
+           "window_appended": tsdb.devwindow.appended_points,
+           "sketch_drain_s": time.perf_counter() - t2,
+           "sketch_hand_offs": sk.hand_offs,
+           "sketch_fold_calls": sk.fold_calls,
+           "sketch_state_bytes": sk.state_bytes(),
+           "sketch_series": sk.series_count()}
     if out["window_appended"] != points:
         fail(f"the window mirrored {out['window_appended']} of {points} "
              f"points")
+    if out["sketch_series"] != SERIES + TELNET_SERIES:
+        fail(f"the sketches hold {out['sketch_series']} series")
     log(f"ingest: {points} points in {t_batch + t_telnet:.1f} s "
-        f"({out['points_per_s']:,.0f} points/s, window mirroring on)")
-    return out
+        f"({out['points_per_s']:,.0f} points/s, window mirroring on, "
+        f"sketches folding; earlier run without sketches: "
+        f"{INGEST_WITHOUT_SKETCHES_POINTS_PER_S:,.0f}); sketch drain "
+        f"{out['sketch_drain_s']:.2f} s, {sk.hand_offs} hand-offs, "
+        f"{sk.fold_calls} fold calls, {out['sketch_state_bytes']} bytes "
+        f"of sketch state")
+    return out, telnet_vals
 
 
 def http_resident(port: int, dw: DeviceWindow, ex: QueryExecutor,
@@ -1057,8 +1120,18 @@ def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
     ex = daemon.server.executor
     out: dict = {"queries": {}, "launches": {}}
     try:
-        out["ingest"] = ingest(tsdb, daemon.port, ts, vals)
+        zero_sketch_launches()
+        out["ingest"], telnet_vals = ingest(tsdb, daemon.port, ts, vals)
         start, end = BASE, BASE + SPAN - 1
+        # The sketch routes, right after ingest: the folds' launches
+        # (ingest and the first query's flush) and the queries' count for
+        # this path.
+        out["sketch"] = sketch_path(tsdb, daemon.port, vals, telnet_vals,
+                                    start, end)
+        out["launches"]["sketch"] = sketch_launches()
+        for name, n in out["launches"]["sketch"].items():
+            if n == 0:
+                fail(f"the sketch path never launched {name}")
         answers = {}
         zero_launches()
         for expr in QUERIES + PCT_QUERIES:
@@ -1260,6 +1333,7 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
     # cost in each state, beside the warm queries' outliers.
     out["gc_full_ms"] = {"memtable": gc_full_ms()}
     out["checkpoint_1"] = timed_checkpoint(tsdb, "checkpoint 1")
+    out["checkpoint_1"]["sketch_save_s"] = tsdb.sketch_save_seconds
 
     rng = np.random.default_rng(3)
     lines = []
@@ -1279,6 +1353,7 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
     dw, ex = tsdb.devwindow, daemon.server.executor
     before = {expr: http_resident(daemon.port, dw, ex, expr, start, end)[1]
               for expr in QUERIES + PCT_QUERIES}
+    sketch_before = sketch_answers(daemon.port, start, end)
     out["checkpoint_2"] = timed_checkpoint(tsdb, "checkpoint 2")
     if out["checkpoint_2"]["generations"] != 2:
         fail(f"{out['checkpoint_2']['generations']} generations after two "
@@ -1296,6 +1371,7 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
     out["open_generations_s"] = store.open_seconds["generations"]
     out["replay_s"] = store.open_seconds["replay"]
     out["warm_s"] = tsdb2.warm_seconds
+    out["sketch_load_s"] = tsdb2.sketch_load_seconds
     out["generations"], out["generation_bytes"] = generation_bytes(tsdb2)
     dw2 = tsdb2.devwindow
     points = SERIES * POINTS + TELNET_SERIES * TELNET_POINTS \
@@ -1306,8 +1382,11 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
     log(f"restart: shutdown {out['shutdown_s']:.1f} s; boot "
         f"{out['boot_s']:.1f} s (generations {out['open_generations_s']:.2f}"
         f" s, replay {out['replay_s']:.2f} s, window warm-up "
-        f"{out['warm_s']:.1f} s); {out['generations']} generations, "
-        f"{out['generation_bytes']} bytes")
+        f"{out['warm_s']:.1f} s, sketch snapshot load "
+        f"{out['sketch_load_s']:.3f} s, saved in checkpoint 1 in "
+        f"{out['checkpoint_1']['sketch_save_s']:.3f} s); "
+        f"{out['generations']} generations, {out['generation_bytes']} "
+        f"bytes")
 
     out["gc_full_ms"]["after_restart"] = gc_full_ms()
     log(f"full gc: {out['gc_full_ms']}")
@@ -1331,6 +1410,25 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
                 "exact": exact, "rel_diff_vs_before": worst}
         out["launches_resident"] = path_launches(
             "resident path after the restart", KERNELS[:3])
+
+        # The sketch routes answer from the loaded snapshot (the memtable
+        # is empty): byte for byte their answers from before the restart.
+        zero_sketch_launches()
+        after = sketch_answers(daemon2.port, start, end)
+        for name, a in after.items():
+            if a["body"] != sketch_before[name]["body"]:
+                fail(f"sketch {name}: {a['body'][:200]!r} after the "
+                     f"restart, {sketch_before[name]['body'][:200]!r} "
+                     f"before")
+        out["launches_sketch"] = sketch_launches()
+        for name in ("hll_fold", "hll_estimate", "merged_quantile"):
+            if out["launches_sketch"][name] == 0:
+                fail(f"the sketch routes after the restart never "
+                     f"launched {name}")
+        out["sketch"] = {name: {"wall_ms": a["wall_ms"],
+                                "wall_ms_before": sketch_before[name][
+                                    "wall_ms"], "same_bytes": True}
+                         for name, a in after.items()}
 
         zero_launches()
         answer, out["union"] = http_union(daemon2.port, RESTART_UNION,
@@ -1487,6 +1585,393 @@ def budget_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Sketch kernels (csrc/sketches.cu)
+# ---------------------------------------------------------------------------
+
+SKETCH_KERNELS = ("tdigest_fold", "hll_fold", "hll_estimate",
+                  "merged_quantile")
+
+
+def sketch_launches() -> dict:
+    return {k: getattr(sketches, k).launches for k in SKETCH_KERNELS}
+
+
+def zero_sketch_launches() -> None:
+    for k in SKETCH_KERNELS:
+        getattr(sketches, k).launches = 0
+
+
+def corpus_tag_uids() -> tuple[np.ndarray, np.ndarray]:
+    """The tag-value UIDs the daemon gives the corpus' hosts and dcs:
+    UniqueId assigns them in first-use order, host before dc within a
+    series (series s < 10 brings a new dc)."""
+    s = np.arange(SERIES)
+    host = np.where(s < 10, 2 * s + 1, s + 11).astype(np.int32)
+    dc = (2 * np.arange(10) + 2).astype(np.int32)
+    return host, dc
+
+
+def fold_bound(rows: int, K: int, P: int) -> tuple:
+    """Bytes: each folded row's centroids read and written (8 B each),
+    the batch and its mask read once; operations: the bitonic network's
+    compare-exchanges over pow2(K + P) keys and ~20 float operations an
+    entry for the cluster formula."""
+    n2 = 1 << (K + P - 1).bit_length()
+    lg = n2.bit_length() - 1
+    nbytes = rows * (K * 16 + P * 5 + 4)
+    ops = rows * (n2 // 2 * lg * (lg + 1) // 2 + 20 * (K + P))
+    return bound_ms(nbytes, ops)
+
+
+def sketch_kernel_phase(vals: np.ndarray) -> list:
+    """Each sketch kernel against its plain version on the card, at the
+    shapes the daemon gives it:
+    - tdigest_fold: one hand-off of Config.sketch_flush_points from the
+      corpus (the first 1,049 series' 1,000 values, P = 1024, in a
+      2048-row call, empty digests: every series is new), and the
+      4096-value chunk (1024 digests of 1,000 values each, with 4096 more
+      values a row);
+    - hll_fold: one hand-off's host and dc UIDs (the first 1,049 series'
+      hosts, their 10 dcs) into the (metric, host) and (metric, dc)
+      registers at p = 12 (8 x 2,048 items, 6 rows padded); all the
+      corpus' hosts and dcs at once (8 x 16,384); and the UIDs of dc0's
+      1,000 corpus hosts into one row at p = 14 (distinct_tagv);
+    - hll_estimate: over the p = 12 stack holding every host and dc;
+    - merged_quantile: p50/p95/p99 over all 10,000 corpus digests (S =
+      16,384 rows of which 10,000 valid, 2,097,152 entries).
+    Each is timed like the other kernels; the library yardstick is one
+    scatter_reduce_ (amax) over precomputed ranks for the HLL fold and
+    one torch.sort of the composite keys for the merged quantile; the
+    fold and the estimate have no single PyTorch call."""
+    dev = torch.device(DEVICE)
+    K = Config.sketch_compression
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    results = []
+
+    def case(name, stage, fn, plain, library, check, bound):
+        check()
+        res = {"name": name, "stage": stage, **check.result,
+               "bound_ms": bound[0], "bound_by": bound[1]}
+        return time_case(res, fn, plain, library, flush)
+
+    # Fold at the path's shape: one hand-off (the daemon's stack then holds
+    # _pad(first) rows, and the call pads its rows the same way).
+    first = min(-(-Config.sketch_flush_points // POINTS), SERIES)
+    rows, P = _sk_pad(first), _sk_pad(POINTS)
+    stack_m = torch.zeros((rows, K), device=dev)
+    stack_w = torch.zeros((rows, K), device=dev)
+    batch = np.zeros((rows, P), np.float32)
+    batch[:first, :POINTS] = vals[:first]
+    valid = np.zeros((rows, P), bool)
+    valid[:first, :POINTS] = True
+    idx = np.full(rows, rows, np.int32)
+    idx[:first] = np.arange(first)
+    fold_args = [torch.from_numpy(a).to(dev) for a in (idx, batch, valid)]
+
+    def fold_check(args=fold_args, m0=stack_m, w0=stack_w, P=P):
+        m1, w1, m2, w2 = m0.clone(), w0.clone(), m0.clone(), w0.clone()
+        sketches.tdigest_fold(m1, w1, args[0], args[1], valid=args[2],
+                              compression=K)
+        sketches.tdigest_fold_plain(m2, w2, args[0], args[1], args[2],
+                                    compression=K)
+        torch.cuda.synchronize()
+        # Weights: integral float32 sums, exact. Means: the plain
+        # version's scatter_add adds in atomic order: rtol 1e-5.
+        if not torch.equal(w1, w2):
+            fail(f"tdigest_fold P={P}: cluster weights differ")
+        torch.testing.assert_close(m1, m2, rtol=1e-5, atol=1e-6)
+        fold_check.result = {"rows": int((args[0] < m0.shape[0]).sum()),
+                             "K": K, "P": P,
+                             "max_abs_err": float((m1 - m2).abs().max())}
+        return m1, w1
+
+    def mk_fold(args, m0, w0, plain=False):
+        m, w = m0.clone(), w0.clone()
+        f = sketches.tdigest_fold_plain if plain else sketches.tdigest_fold
+
+        def run():
+            if plain:
+                f(m, w, args[0], args[1], args[2], compression=K)
+            else:
+                f(m, w, args[0], args[1], valid=args[2], compression=K)
+        return run
+
+    results.append(case(
+        "tdigest_fold", "one hand-off (1,049 series x 1,000 values)",
+        mk_fold(fold_args, stack_m, stack_w),
+        mk_fold(fold_args, stack_m, stack_w, plain=True), None, fold_check,
+        fold_bound(first, K, P)))
+    folded_m, folded_w = fold_check(fold_args, stack_m, stack_w, P)
+
+    # Fold at the 4096-value chunk, into digests of 1,000 values.
+    P4 = LiveSketches._MAX_CHUNK
+    rows4 = min(LiveSketches._MAX_FOLD_CELLS // P4, first,
+                vals.size // P4)
+    m0, w0 = folded_m[:rows4].contiguous(), folded_w[:rows4].contiguous()
+    chunk = vals.reshape(-1)[:rows4 * P4].reshape(rows4, P4)
+    args4 = [torch.arange(rows4, dtype=torch.int32, device=dev),
+             torch.from_numpy(np.ascontiguousarray(chunk)).to(dev),
+             torch.ones((rows4, P4), dtype=torch.bool, device=dev)]
+
+    def fold4_check():
+        fold_check(args4, m0, w0, P4)
+        fold4_check.result = fold_check.result
+
+    results.append(case(
+        "tdigest_fold", "4096-value chunk (1,024 rows)",
+        mk_fold(args4, m0, w0), mk_fold(args4, m0, w0, plain=True), None,
+        fold4_check, fold_bound(rows4, K, P4)))
+
+    # HLL folds: one hand-off's host and dc rows at p = 12 (the first
+    # `first` series' hosts and their dcs, padded as _fold_buffers pads
+    # them); every corpus host and dc at p = 12 (the stack's state once
+    # all is folded, which the estimate reads); dc0's hosts at p = 14.
+    host, dc = corpus_tag_uids()
+    hll_cases = []
+
+    def hll_rows(uid_rows, C):
+        H, U = _sk_pad(len(uid_rows)), _sk_pad(max(map(len, uid_rows)))
+        items = np.zeros((H, U), np.int32)
+        valid = np.zeros((H, U), bool)
+        for i, u in enumerate(uid_rows):
+            items[i, :len(u)] = u
+            valid[i, :len(u)] = True
+        idx = np.full(H, C, np.int32)
+        idx[:len(uid_rows)] = np.arange(len(uid_rows))
+        return idx, items, valid
+
+    hand_off = [host[:first], np.unique(dc[np.arange(first) % 10])]
+    hll_cases.append(("one hand-off: host + dc, p = 12", 12, _sk_pad(2),
+                      *hll_rows(hand_off, _sk_pad(2))))
+    hll_cases.append(("all hosts + dcs, p = 12", 12, _sk_pad(2),
+                      *hll_rows([host, dc], _sk_pad(2))))
+    dc0 = host[::10]
+    items14 = np.zeros((1, _pad_size(len(dc0))), np.int32)
+    items14[0, :len(dc0)] = dc0
+    valid14 = np.zeros(items14.shape, bool)
+    valid14[0, :len(dc0)] = True
+    hll_cases.append(("dc0's hosts, p = 14 (distinct_tagv)", 14, 1,
+                      np.zeros(1, np.int32), items14, valid14))
+    regs12 = None
+    for stage, p, C, idx_h, items_h, valid_h in hll_cases:
+        a = [torch.from_numpy(x).to(dev) for x in (idx_h, items_h, valid_h)]
+        regs0 = torch.zeros((C, 1 << p), dtype=torch.int32, device=dev)
+        n_items = int(valid_h.sum())
+
+        def hll_check(a=a, regs0=regs0, p=p, n_items=n_items):
+            r1, r2 = regs0.clone(), regs0.clone()
+            sketches.hll_fold(r1, *a, p=p)
+            sketches.hll_fold_plain(r2, *a, p=p)
+            torch.cuda.synchronize()
+            if not torch.equal(r1, r2):
+                fail(f"hll_fold p={p}: registers differ")
+            hll_check.result = {"p": p, "rows": list(a[1].shape),
+                                "items": n_items, "max_abs_err": 0.0}
+            hll_check.regs = r1
+
+        keep = a[0] < C
+        reg_idx, rank = sketches._hll_ranks(a[1][keep], a[2][keep], p)
+        tgt = torch.zeros((int(keep.sum()), (1 << p) + 1),
+                          dtype=torch.int32, device=dev)
+
+        def library(tgt=tgt, reg_idx=reg_idx, rank=rank):
+            return tgt.scatter_reduce_(1, reg_idx, rank, "amax")
+
+        def fn(a=a, r=regs0.clone(), p=p):
+            sketches.hll_fold(r, *a, p=p)
+
+        def plain(a=a, r=regs0.clone(), p=p):
+            sketches.hll_fold_plain(r, *a, p=p)
+        # Bytes: the live rows' registers read and written, their valid
+        # bytes and valid items read (padded rows return at once).
+        rows_used = int(keep.sum().item())
+        results.append(case(
+            "hll_fold", stage, fn, plain, library, hll_check,
+            bound_ms(rows_used * ((1 << p) * 8 + items_h.shape[1])
+                     + 4 * n_items, 10 * n_items)))
+        if stage.startswith("all hosts"):
+            regs12 = hll_check.regs
+
+    # Estimate over the p = 12 stack.
+    def est_check(regs=regs12):
+        got = sketches.hll_estimate(regs)
+        want = sketches.hll_estimate_plain(regs)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        if not torch.equal(torch.round(got), torch.round(want)):
+            fail("hll_estimate: rounded estimates differ")
+        est_check.result = {"rows": regs.shape[0],
+                            "estimates": got[:2].tolist(),
+                            "max_abs_err": float((got - want).abs().max())}
+
+    results.append(case(
+        "hll_estimate", "over the p = 12 stack (8 x 4096)",
+        lambda: sketches.hll_estimate(regs12),
+        lambda: sketches.hll_estimate_plain(regs12), None, est_check,
+        bound_ms(regs12.numel() * 4 + regs12.shape[0] * 4,
+                 3 * regs12.numel())))
+
+    # Merged quantile over all corpus digests.
+    S = _sk_pad(SERIES)
+    mq_m = torch.zeros((S, K), device=dev)
+    mq_w = torch.zeros((S, K), device=dev)
+    per = LiveSketches._MAX_FOLD_CELLS // P
+    for lo in range(0, SERIES, per):
+        hi = min(lo + per, SERIES)
+        b = torch.zeros((per, P), device=dev)
+        b[:hi - lo, :POINTS] = torch.from_numpy(vals[lo:hi]).to(dev)
+        v = torch.zeros((per, P), dtype=torch.bool, device=dev)
+        v[:hi - lo, :POINTS] = True
+        ids = torch.full((per,), S, dtype=torch.int32, device=dev)
+        ids[:hi - lo] = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+        sketches.tdigest_fold(mq_m, mq_w, ids, b, valid=v, compression=K)
+    mq_idx = torch.arange(S, dtype=torch.int32, device=dev)
+    mq_valid = mq_idx < SERIES
+    qs = torch.tensor(SKETCH_QS, dtype=torch.float32, device=dev)
+
+    def mq_check():
+        got = sketches.merged_quantile(mq_m, mq_w, mq_idx, mq_valid, qs,
+                                       compression=K)
+        again = sketches.merged_quantile(mq_m, mq_w, mq_idx, mq_valid, qs,
+                                         compression=K)
+        want = sketches.merged_quantile_plain(mq_m, mq_w, mq_idx, mq_valid,
+                                              qs, compression=K)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail("merged_quantile: two runs on one state differ")
+        # A cluster's mean sums up to ~2e4 centroids in float32, in
+        # another order than the plain version's atomics: ~sqrt(n) eps of
+        # the sum, so rtol 1e-4.
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+        exact = np.quantile(vals.astype(np.float64), SKETCH_QS)
+        mq_check.result = {
+            "S": S, "K": K, "entries": S * K, "quantiles": got.tolist(),
+            "exact": exact.tolist(),
+            "max_abs_err": float((got - want).abs().max())}
+
+    keyf = torch.where(mq_w > 0, mq_m, torch.full_like(mq_m, float("inf")))
+    comp = sketches._sort_keys(keyf.reshape(-1))
+    # Bytes: only the valid rows' centroids are read (mq_load skips the
+    # rest); operations: the network over pow2 of the valid entries.
+    n2 = 1 << (SERIES * K - 1).bit_length()
+    lg = n2.bit_length() - 1
+    results.append(case(
+        "merged_quantile", "all series, S = 16,384 (2,097,152 entries)",
+        lambda: sketches.merged_quantile(mq_m, mq_w, mq_idx, mq_valid, qs,
+                                         compression=K),
+        lambda: sketches.merged_quantile_plain(mq_m, mq_w, mq_idx,
+                                               mq_valid, qs, compression=K),
+        lambda: torch.sort(comp), mq_check,
+        bound_ms(SERIES * K * 8 + S * 5 + 3 * 8,
+                 n2 // 2 * lg * (lg + 1) // 2 + 20 * n2)))
+    del stack_m, stack_w, folded_m, folded_w, mq_m, mq_w, comp, flush
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
+# Sketch path: /sketch and /distinct on the daemon
+# ---------------------------------------------------------------------------
+
+def sketch_targets(start: int, end: int) -> list:
+    """The smoke's /sketch and /distinct requests: all-time quantiles over
+    every series, {dc=dc0} and {host=h00001}; streaming distinct hosts and
+    dcs; one ranged /sketch and one ranged /distinct over {dc=dc0}."""
+    q = "p50,p95,p99"
+    return [
+        ("all", "/sketch?" + urllib.parse.urlencode(
+            {"m": "bench.metric", "q": q})),
+        ("dc0", "/sketch?" + urllib.parse.urlencode(
+            {"m": "bench.metric{dc=dc0}", "q": q})),
+        ("h00001", "/sketch?" + urllib.parse.urlencode(
+            {"m": "bench.metric{host=h00001}", "q": q})),
+        ("distinct host", "/distinct?metric=bench.metric&tagk=host"),
+        ("distinct dc", "/distinct?metric=bench.metric&tagk=dc"),
+        ("ranged dc0", "/sketch?" + urllib.parse.urlencode(
+            {"m": "bench.metric{dc=dc0}", "q": q, "start": start,
+             "end": end})),
+        ("ranged distinct dc0", "/distinct?" + urllib.parse.urlencode(
+            {"metric": "bench.metric", "tagk": "host", "tags": "dc=dc0",
+             "start": start, "end": end})),
+    ]
+
+
+def sketch_answers(port: int, start: int, end: int) -> dict:
+    out = {}
+    for name, target in sketch_targets(start, end):
+        q0 = time.perf_counter()
+        status, body = http_get(port, target)
+        wall = (time.perf_counter() - q0) * 1e3
+        if status != 200:
+            fail(f"{target}: HTTP {status}: {body[:300]!r}")
+        out[name] = {"wall_ms": wall, "body": body}
+    return out
+
+
+def rank_error(sorted_vals: np.ndarray, value: float, q: float) -> float:
+    """How far q lies outside [share of the exact values below ``value``,
+    share at or below it]: 0 when ``value`` sits at quantile q."""
+    n = len(sorted_vals)
+    a = np.searchsorted(sorted_vals, np.float32(value), side="left") / n
+    b = np.searchsorted(sorted_vals, np.float32(value), side="right") / n
+    return 0.0 if a <= q <= b else float(min(abs(a - q), abs(b - q)))
+
+
+def sketch_path(tsdb: TSDB, port: int, vals: np.ndarray, telnet: list,
+                start: int, end: int) -> dict:
+    """The sketch routes on the daemon after ingest, each answer held
+    against the corpus: quantiles within SKETCH_RANK_TOL in rank of the
+    exact float32 values of the selected series, the ranged /sketch
+    equal to their exact quantiles, distinct counts within hll_error of
+    the truth (10,020 hosts, 10 dcs; 1,002 hosts in dc0)."""
+    answers = sketch_answers(port, start, end)
+    host_of = {f"h{s:05d}": s for s in range(SERIES)}
+    t_vals = np.array([v for _, _, v in telnet], np.float32)
+    t_dc0 = np.array([v for _, d, v in telnet if d == "dc0"], np.float32)
+    pools = {"all": np.concatenate([vals.reshape(-1), t_vals]),
+             "dc0": np.concatenate([vals[::10].reshape(-1), t_dc0]),
+             "h00001": vals[host_of["h00001"]]}
+    series = {"all": SERIES + TELNET_SERIES, "dc0": SERIES // 10 + 2,
+              "h00001": 1}
+    out = {}
+    for name, pool in pools.items():
+        a = json.loads(answers[name]["body"])
+        srt = np.sort(pool)
+        errs = {qk: rank_error(srt, v, float(qk))
+                for qk, v in a["quantiles"].items()}
+        if a["series"] != series[name]:
+            fail(f"/sketch {name}: {a['series']} series, want "
+                 f"{series[name]}")
+        if max(errs.values()) > SKETCH_RANK_TOL:
+            fail(f"/sketch {name}: rank errors {errs} beyond "
+                 f"{SKETCH_RANK_TOL}")
+        out[name] = {"wall_ms": answers[name]["wall_ms"],
+                     "quantiles": a["quantiles"], "rank_err": errs}
+        if name == "dc0":
+            r = json.loads(answers["ranged dc0"]["body"])
+            exact = np.quantile(pool.astype(np.float64), SKETCH_QS)
+            if r.get("rollup") != "raw" or list(r["quantiles"].values()) \
+                    != exact.tolist():
+                fail(f"ranged /sketch dc0: {r} vs exact {exact.tolist()}")
+            out["ranged dc0"] = {"wall_ms": answers["ranged dc0"]["wall_ms"],
+                                 "rollup": r["rollup"],
+                                 "quantiles": r["quantiles"]}
+    for name, truth, p in (("distinct host", SERIES + TELNET_SERIES, 12),
+                           ("distinct dc", 10, 12),
+                           ("ranged distinct dc0", SERIES // 10 + 2, 14)):
+        a = json.loads(answers[name]["body"])
+        n = a["distinct"]
+        bound = hll_error(p, n)
+        if abs(n - truth) > bound:
+            fail(f"/distinct {name}: {n}, truth {truth}, bound {bound}")
+        out[name] = {"wall_ms": answers[name]["wall_ms"], "distinct": n,
+                     "truth": truth, "hll_error": bound,
+                     "source": a["source"]}
+    log(f"sketch routes: {out}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1505,7 +1990,8 @@ def main() -> int:
     log(f"built {cuda_build.sources()} in {build_s:.1f} s")
 
     ts, vals = corpus()
-    kernels = kernel_phase(ts, vals) + select_interp_phase(ts, vals)
+    kernels = (kernel_phase(ts, vals) + select_interp_phase(ts, vals)
+               + sketch_kernel_phase(vals))
     with tempfile.TemporaryDirectory() as wal_dir:
         path = path_phase(ts, vals, wal_dir)
     del ts, vals
@@ -1518,7 +2004,13 @@ def main() -> int:
         "segment_sum": fold, "segment_minmax": fold,
         "masked_select": {"resident": "window select, columns",
                           "union": "union p95 {dc=dc0} one day"},
-        "interp_moments": {"union": "union {dc=dc0} one day"}}
+        "interp_moments": {"union": "union {dc=dc0} one day"},
+        "tdigest_fold": {
+            "sketch": "one hand-off (1,049 series x 1,000 values)"},
+        "hll_fold": {"sketch": "one hand-off: host + dc, p = 12"},
+        "hll_estimate": {"sketch": "over the p = 12 stack (8 x 4096)"},
+        "merged_quantile": {
+            "sketch": "all series, S = 16,384 (2,097,152 entries)"}}
     where = {
         "segment_sum": ("segment_reduce.cu",
                         "opentsdb_tpu/ops/pallas_kernels.py:77"),
@@ -1527,7 +2019,13 @@ def main() -> int:
         "masked_select": ("masked_select.cu",
                           "opentsdb_tpu/ops/kernels.py:818"),
         "interp_moments": ("interp_moments.cu",
-                           "opentsdb_tpu/ops/kernels.py:1100")}
+                           "opentsdb_tpu/ops/kernels.py:1100"),
+        "tdigest_fold": ("sketches.cu",
+                         "opentsdb_tpu/stats/livesketch.py:436"),
+        "hll_fold": ("sketches.cu", "opentsdb_tpu/stats/livesketch.py:451"),
+        "hll_estimate": ("sketches.cu", "opentsdb_tpu/ops/sketches.py:196"),
+        "merged_quantile": ("sketches.cu",
+                            "opentsdb_tpu/stats/livesketch.py:460")}
     numbers = ("max_abs_err", "ms", "ms_cold", "ms_device", "plain_ms",
                "bound_ms", "bound_by", "library_ms")
     by_case = {(r["name"], r["stage"]): r for r in kernels}
@@ -1546,6 +2044,12 @@ def main() -> int:
         if name == "interp_moments":
             r = by_case[(name, "union full width")]
             entry["full_width"] = {k: r[k] for k in numbers}
+        others = [r for r in kernels if r["name"] == name
+                  and r["stage"] not in shape.values()
+                  and name in SKETCH_KERNELS]
+        if others:
+            entry["other_cases"] = {r["stage"]: {k: r[k] for k in numbers}
+                                    for r in others}
         line.append(entry)
     log(json.dumps({"details": {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -1557,8 +2061,10 @@ def main() -> int:
     for expr, run in path["union"].items():
         print(json.dumps({"query": expr, "plan": "raw", **run,
                           "check": path["checks"][expr], "card": smi}))
+    print(json.dumps({"sketch": path["sketch"], "card": smi}))
     print(json.dumps({"ingest_points_per_s":
                       path["ingest"]["points_per_s"],
+                      "ingest": {k: v for k, v in path["ingest"].items()},
                       "window": path["window"],
                       "launches": path["launches"], "card": smi}))
     for k in ("profile_warm", "profile_stage_build"):
@@ -1576,8 +2082,11 @@ def main() -> int:
                              "gc_full_ms")},
         "memtable_scan_ms": path["scan_ms"],
         "queries": r["queries"], "union": r["union"],
+        "sketch_save_s": r["checkpoint_1"]["sketch_save_s"],
+        "sketch_load_s": r["sketch_load_s"], "sketch": r["sketch"],
         "launches": {"resident": r["launches_resident"],
-                     "union": r["launches_union"]}}, "card": smi}))
+                     "union": r["launches_union"],
+                     "sketch": r["launches_sketch"]}}, "card": smi}))
     print(json.dumps({"window_at_budget": {
         k: budget[k] for k in ("points", "chunks", "resident_bytes",
                                "fill_points_per_s", "queries",

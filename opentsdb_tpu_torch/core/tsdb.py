@@ -8,19 +8,28 @@ either package reads what the other wrote — and the resident device
 window (``storage/devstore.py``): on by default on the device backend,
 mirrored from every write and warmed from what storage already holds.
 
-``checkpoint()`` spills the store to its sstable tier (``storage/kv.py``)
-and ``shutdown()`` takes one whenever the store has a WAL, as the JAX
-package does under its default config; the window is warmed from every
-tier at start-up.
+Live sketches (``stats/livesketch.py``, on by default as in the JAX
+package): every write registers its series in the sketch directory before
+the store put, and a fully applied write folds its values into the
+series' t-digest and its tag values into the (metric, tag key) HLLs.
+
+``checkpoint()`` saves the sketch snapshot ``<wal>.sketches`` and then
+spills the store to its sstable tier (``storage/kv.py``), so the snapshot
+covers the spilled tier; ``shutdown()`` takes a checkpoint whenever the
+store has a WAL, as the JAX package does under its default config. At
+start-up the sketches load the snapshot and re-fold the WAL-replayed
+memtable on top of it (or, without one, re-fold all of storage), and the
+window is warmed from every tier.
 
 Left out of this slice (all off here; see ROADMAP): the mesh-sharded
-window, live sketches, rollups, tenant accounting and the cluster tier.
-Their snapshots in a JAX store directory are left, at each checkpoint, in
-a state the JAX package rebuilds exactly from (``MemKVStore.checkpoint``).
+window, rollups, tenant accounting, replicas and the cluster tier. The
+tenant snapshot in a JAX store directory is left, at each checkpoint, in a
+state the JAX package rebuilds exactly from (``MemKVStore.checkpoint``).
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 
@@ -32,6 +41,7 @@ from opentsdb_tpu_torch.core.const import (MAX_TIMESPAN, TIMESTAMP_BYTES,
                                            UID_WIDTH)
 from opentsdb_tpu_torch.core.errors import (IllegalDataError,
                                              PleaseThrottleError)
+from opentsdb_tpu_torch.stats.livesketch import LiveSketches
 from opentsdb_tpu_torch.storage.devstore import DeviceWindow
 from opentsdb_tpu_torch.storage.kv import KVStore
 from opentsdb_tpu_torch.uid.uniqueid import UniqueId
@@ -58,8 +68,16 @@ class TSDB:
         # One checkpoint at a time (the compaction thread's timer and an
         # explicit call may race).
         self._checkpoint_lock = threading.Lock()
+        self.sketch_save_seconds = 0.0
         self.compactionq = CompactionQueue(
             self, start_thread=start_compaction_thread)
+        # Streaming sketch state (stats/livesketch.py): loaded from the
+        # checkpoint snapshot when one exists (then re-folding only the
+        # WAL-replayed memtable), else rebuilt from a full storage scan.
+        self.sketches = None
+        self.sketch_load_seconds = 0.0
+        if self.config.enable_sketches:
+            self._init_sketches()
         # Device-resident columnar hot window (storage/devstore.py):
         # ingest mirrors into device memory so queries skip the scan and
         # the host->device copy. The oracle backend has nothing to serve
@@ -92,6 +110,78 @@ class TSDB:
             self.devwindow.append(skey[:UID_WIDTH], skey, cols.timestamps,
                                   cols.values)
         self.warm_seconds = time.perf_counter() - t0
+
+    # ------------------------------------------------------------------
+    # Streaming sketches
+    # ------------------------------------------------------------------
+
+    def _sketch_path(self) -> str | None:
+        wal = getattr(self.store, "_wal_path", None)
+        return wal + ".sketches" if wal else None
+
+    def _init_sketches(self) -> None:
+        """Load the snapshot and re-fold the live memtable on top of it
+        (rows read without the spilled tiers, so nothing the snapshot
+        covers folds twice), or, without a snapshot, build the sketches
+        from all of storage. ``sketch_load_seconds`` keeps the load's
+        time."""
+        path = self._sketch_path()
+        cfg = self.config
+        if path and os.path.exists(path):
+            t0 = time.perf_counter()
+            self.sketches = LiveSketches.load(
+                path, flush_points=cfg.sketch_flush_points,
+                device=self.device)
+            self.sketch_load_seconds = time.perf_counter() - t0
+            self._refold(
+                (k, self.read_row(k, self.store.memtable_cells(
+                    self.table, k, FAMILY)))
+                for k in self.store.memtable_keys(self.table))
+            return
+        self.sketches = LiveSketches(
+            compression=cfg.sketch_compression, hll_p=cfg.sketch_hll_p,
+            flush_points=cfg.sketch_flush_points, device=self.device)
+        self._refold(self._scan_rows())
+
+    def _scan_rows(self):
+        """Every stored row, in row-key order, as (row key, columns): the
+        JAX package's full re-fold reads storage this way, one row-hour
+        at a time, and the fold's buffering follows that order."""
+        _, per_series = self.scan_series(b"", b"\xff" * 64)
+        rows = []
+        for skey, cols in per_series.items():
+            base = cols.timestamps - cols.timestamps % MAX_TIMESPAN
+            cuts = np.flatnonzero(np.diff(base)) + 1
+            starts = np.concatenate(([0], cuts))
+            ends = np.concatenate((cuts, [len(base)]))
+            for a, b in zip(starts.tolist(), ends.tolist()):
+                key = codec.row_key(skey[:UID_WIDTH], int(base[a]), ())
+                rows.append((key + skey[UID_WIDTH:], skey, a, b))
+        rows.sort()
+        for key, skey, a, b in rows:
+            cols = per_series[skey]
+            yield key, codec.Columns(cols.timestamps[a:b],
+                                     cols.values[a:b],
+                                     cols.int_values[a:b],
+                                     cols.is_float[a:b])
+
+    def _refold(self, rows) -> None:
+        for key, cols in rows:
+            if len(cols.timestamps) == 0:
+                continue
+            pr = codec.parse_row_key(key)
+            self.sketches.observe(
+                codec.series_key(key), cols.values,
+                [(pr.metric_uid, k, v) for k, v in pr.tag_uids])
+        self.sketches.flush()
+
+    def _observe(self, series_key: bytes, metric_uid: bytes,
+                 pairs: list[tuple[bytes, bytes]],
+                 values: np.ndarray) -> None:
+        if self.sketches is None:
+            return
+        self.sketches.observe(
+            series_key, values, [(metric_uid, k, v) for k, v in pairs])
 
     # ------------------------------------------------------------------
     # Row-key construction
@@ -149,11 +239,17 @@ class TSDB:
         metric_uid, pairs = self._row_parts(metric, tag_map)
         row = codec.row_key(metric_uid, base_ts, pairs)
         qual = codec.encode_qualifier(timestamp - base_ts, flags)
+        skey = codec.series_key(row)
+        # The sketch directory learns the series before storage holds it.
+        if self.sketches is not None:
+            self.sketches.note_series(skey)
         self.store.put(self.table, row, FAMILY, qual, buf, durable=durable)
         if self.config.enable_compactions:
             self.compactionq.add(row)
+        self._observe(skey, metric_uid, pairs,
+                      np.asarray([value], np.float64))
         if self.devwindow is not None:
-            self.devwindow.append(metric_uid, codec.series_key(row),
+            self.devwindow.append(metric_uid, skey,
                                   np.asarray([timestamp], np.int64),
                                   np.asarray([value], np.float32))
 
@@ -211,6 +307,12 @@ class TSDB:
         keys[:, UID_WIDTH:UID_WIDTH + TIMESTAMP_BYTES] = (
             base[row_starts].astype(">u4").view(np.uint8).reshape(-1, 4))
         kb = keys.tobytes()
+        skey = codec.series_key(kb[:L])
+        # The sketch directory learns the series before any row of it is
+        # visible in storage (over-registering a batch that then fails is
+        # harmless).
+        if self.sketches is not None:
+            self.sketches.note_series(skey)
         try:
             existed = self.store.put_many_columnar(
                 self.table, FAMILY, kb, L, quals, vals, durable=durable)
@@ -225,9 +327,14 @@ class TSDB:
                 self.devwindow.invalidate(metric_uid)
             raise
         self._queue_compactions(kb, L, existed)
-        if self.devwindow is not None:
-            self.devwindow.append(metric_uid, codec.series_key(kb[:L]),
-                                  ts_s, f_s.astype(np.float32))
+        # The sketch fold covers fully applied batches only (a throttled
+        # batch raised above); one float32 conversion serves the sketches
+        # and the window.
+        if self.sketches is not None or self.devwindow is not None:
+            f32 = f_s.astype(np.float32)
+            self._observe(skey, metric_uid, pairs, f32)
+            if self.devwindow is not None:
+                self.devwindow.append(metric_uid, skey, ts_s, f32)
         return len(ts_s)
 
     def _queue_compactions(self, kb: bytes, L: int,
@@ -279,6 +386,24 @@ class TSDB:
     # ------------------------------------------------------------------
     # Read path
     # ------------------------------------------------------------------
+
+    def read_row(self, key: bytes, cells: list) -> codec.Columns:
+        """Decode one row's cells (possibly several) into sorted columnar
+        arrays (the JAX package's ``TSDB.read_row``)."""
+        base_ts = codec.key_base_time(key)
+        kept = [c for c in cells
+                if len(c.qualifier) % 2 == 0 and c.qualifier]
+        if not kept:
+            return codec.Columns(np.zeros(0, np.int64),
+                                 np.zeros(0, np.float64),
+                                 np.zeros(0, np.int64), np.zeros(0, bool))
+        ts, f, i, isf, _ = codec_np.decode_cells_flat(
+            [c.qualifier for c in kept], [c.value for c in kept],
+            np.full(len(kept), base_ts, np.int64))
+        if len(kept) == 1:
+            return codec.Columns(ts, f, i, isf)
+        d, f, i, isf = codec_np.sort_dedup(ts, f, i, isf)
+        return codec.Columns(d, f, i, isf)
 
     def scan_series(self, start_key: bytes, stop_key: bytes,
                     key_regexp: bytes | None = None,
@@ -364,13 +489,33 @@ class TSDB:
         self.store.flush()
 
     def checkpoint(self) -> int:
-        """Spill the store's memtable to its sstable tier and truncate the
-        WAL (``MemKVStore.checkpoint``). Returns rows spilled, 0 when the
-        store keeps no WAL."""
+        """Save the sketch snapshot, then spill the store's memtable to its
+        sstable tier and truncate the WAL (``MemKVStore.checkpoint``).
+        Returns rows spilled, 0 when the store keeps no WAL.
+
+        The snapshot commits before the spill, as in the JAX package: a
+        crash in between leaves a snapshot that already covers the
+        still-replayable memtable, whose re-fold then counts it twice
+        (exact for HLLs, within sketch tolerance for digests), instead of
+        a snapshot missing folds the truncated WAL can no longer replay.
+        ``sketch_save_seconds`` keeps the last save's time.
+
+        Without sketches a snapshot left by an earlier run would miss the
+        rows spilled now, and the JAX package's next open would load it
+        and re-fold only the memtable, under-counting. So it is removed,
+        and that open re-folds all of storage (ROADMAP queue C, reference
+        note 5)."""
         ckpt = getattr(self.store, "checkpoint", None)
         if ckpt is None:
             return 0
         with self._checkpoint_lock:
+            path = self._sketch_path()
+            if path and self.sketches is not None:
+                t0 = time.perf_counter()
+                self.sketches.save(path)
+                self.sketch_save_seconds = time.perf_counter() - t0
+            elif path and os.path.exists(path):
+                os.unlink(path)
             return ckpt()
 
     def shutdown(self) -> None:

@@ -30,6 +30,14 @@ are aggregated on the union of their timestamps (``group_interpolate``,
 or the union-grid quantile), with rates taken per point first. Percentile
 downsamplers (``1h-p95``) run on the float64 oracle, as in the JAX
 package. There is no rollup tier or fragment cache here.
+
+Sketch queries (``/sketch`` and ``/distinct``) read the live sketches
+(``stats/livesketch.py``) without a storage scan: quantiles of the merged
+t-digests of the matching series, and the HyperLogLog estimate of a
+(metric, tag key)'s distinct values. With a time range, with no rollup
+tier to serve it, they take the JAX package's exact fallbacks: the pooled
+float32 values' quantiles, an exact count of tag values, or, with a tag
+filter, the tag values' HyperLogLog at p = 14 (``distinct_tagv``).
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ from opentsdb_tpu_torch.core import codec
 from opentsdb_tpu_torch.core.const import (MAX_TIMESPAN, TIMESTAMP_BYTES,
                                            UID_WIDTH)
 from opentsdb_tpu_torch.core.errors import BadRequestError, NoSuchUniqueName
-from opentsdb_tpu_torch.ops import kernels, oracle
+from opentsdb_tpu_torch.ops import kernels, oracle, sketches
 from opentsdb_tpu_torch.query.aggregators import Aggregators
 from opentsdb_tpu_torch.utils.lru import LRUCache
 
@@ -671,6 +679,153 @@ class QueryExecutor:
             groups.setdefault(g, []).append(sid)
             named[sid] = self._named_tags(skey)
         return groups, named
+
+    # ------------------------------------------------------------------
+    # Streaming-sketch queries (no storage rescan)
+    # ------------------------------------------------------------------
+
+    def _sketch_series(self, metric: str, tags: dict[str, str],
+                       ) -> list[bytes]:
+        """Series keys with sketch state matching metric + tag filter,
+        selected from the sketch slot directory: the scan path's UID
+        regexp, minus the base-time bytes."""
+        metric_uid = self.tsdb.metrics.get_id(metric)
+        exact, group_bys = self._tag_filters(tags)
+        regexp = self._build_regexp(exact, group_bys, prefix=UID_WIDTH)
+        pattern = re.compile(regexp, re.S) if regexp else None
+        return [k for k in self.tsdb.sketches.series_keys()
+                if k.startswith(metric_uid)
+                and (pattern is None or pattern.match(k))]
+
+    def sketch_quantiles(self, metric: str, tags: dict[str, str],
+                         qs: list[float], start: int | None = None,
+                         end: int | None = None,
+                         max_error: float | None = None) -> dict:
+        """Quantiles of the matching series' merged value distribution.
+
+        Without a range: the merged per-series t-digests folded at ingest,
+        each series' whole history, no storage rescan. With [start, end]:
+        with no rollup tier to serve it, the JAX package's exact raw
+        fallback (``max_error`` is a budget only a tier could use)."""
+        if start is not None or end is not None:
+            if start is None or end is None or end <= start:
+                raise BadRequestError(
+                    "sketch range needs both start and end (end > start)")
+            return self._sketch_quantiles_range(metric, tags, qs, start,
+                                                end)
+        sk = self.tsdb.sketches
+        if sk is None:
+            raise BadRequestError(
+                "streaming sketches are disabled (enable_sketches)")
+        keys = self._sketch_series(metric, tags)
+        out = sk.quantile(keys, np.asarray(qs, np.float32))
+        if out is None:
+            raise BadRequestError(
+                f"no sketch state for metric {metric} with those tags")
+        return {"metric": metric, "series": len(keys),
+                "quantiles": {f"{q:g}": float(v)
+                              for q, v in zip(qs, out)}}
+
+    def _sketch_quantiles_range(self, metric: str, tags: dict[str, str],
+                                qs: list[float], start: int,
+                                end: int) -> dict:
+        """Exact quantiles of every in-range value, pooled as float32
+        (the digests' precision), as the JAX package answers when its
+        rollup tier cannot serve the range."""
+        groups = self._find_spans(QuerySpec(metric, tags), start, end)
+        vals = [sp.values for spans in groups.values() for sp in spans]
+        if not vals:
+            raise BadRequestError(f"no data for metric {metric} in range")
+        pool = np.concatenate(vals)
+        est = np.quantile(pool.astype(np.float32).astype(np.float64),
+                          np.clip(qs, 0.0, 1.0))
+        return {"metric": metric, "series": len(vals), "rollup": "raw",
+                "quantiles": {f"{q:g}": float(v)
+                              for q, v in zip(qs, est)}}
+
+    def sketch_distinct(self, metric: str, tagk: str,
+                        start: int | None = None,
+                        end: int | None = None) -> int | None:
+        """Distinct-tagv count for a metric's tag key: the streaming HLL
+        estimate without a range (None when the pair has no sketch
+        state), an exact count over the series with data in the range
+        with one."""
+        return self.sketch_distinct_with_source(metric, tagk, start,
+                                                end)[0]
+
+    def sketch_distinct_with_source(
+            self, metric: str, tagk: str, start: int | None = None,
+            end: int | None = None) -> tuple[int | None, str]:
+        """sketch_distinct() plus the label of what answered this call:
+        "stream" (no range) or "scan" (the exact ranged count; "rollup"
+        needs the tier this port does not have yet)."""
+        if start is not None or end is not None:
+            if start is None or end is None or end <= start:
+                raise BadRequestError(
+                    "distinct range needs both start and end")
+            return self._sketch_distinct_range(metric, tagk, start, end)
+        sk = self.tsdb.sketches
+        if sk is None:
+            return None, "stream"
+        try:
+            return (sk.distinct(self.tsdb.metrics.get_id(metric),
+                                self.tsdb.tagk.get_id(tagk)), "stream")
+        except NoSuchUniqueName:
+            return None, "stream"
+
+    def _sketch_distinct_range(self, metric: str, tagk: str, start: int,
+                               end: int) -> tuple[int, str]:
+        self.tsdb.tagk.get_id(tagk)  # an unknown tag key is a 400
+        return (self.distinct_tagv(metric, {}, tagk, start, end,
+                                   exact=True), "scan")
+
+    def sketch_distinct_values(self, metric: str, tags: dict[str, str],
+                               start: int, end: int) -> dict:
+        """Count of distinct values a metric took over a range: with no
+        rollup tier, the JAX package's exact fallback over the float32
+        bit patterns of every in-range value."""
+        groups = self._find_spans(QuerySpec(metric, tags), start, end)
+        uniq: set = set()
+        for spans in groups.values():
+            for sp in spans:
+                uniq.update(np.unique(sp.values.astype(np.float32)
+                                      .view(np.uint32)).tolist())
+        return {"metric": metric, "rollup": "raw",
+                "distinct_values": len(uniq)}
+
+    def distinct_tagv(self, metric: str, tags: dict[str, str],
+                      tagk: str, start: int, end: int,
+                      exact: bool | None = None) -> int:
+        """Count distinct values of ``tagk`` among matching series.
+
+        The HyperLogLog fold at p = 14 on the device backend (the kernel
+        on a card), exact set counting on the cpu backend or when
+        ``exact`` is forced, as in the JAX package."""
+        spec = QuerySpec(metric, {**tags, tagk: "*"})
+        groups = self._find_spans(spec, start, end)
+        uids = []
+        for spans in groups.values():
+            for sp in spans:
+                v = sp.tags.get(tagk)
+                if v is not None:
+                    uids.append(int.from_bytes(
+                        self.tsdb.tagv.get_id(v), "big"))
+        if exact or (exact is None and self.backend == "cpu"):
+            return len(set(uids))
+        if not uids:
+            return 0
+        pad = _pad_size(len(uids))
+        items = np.zeros((1, pad), np.int32)
+        items[0, :len(uids)] = uids
+        valid = np.zeros((1, pad), bool)
+        valid[0, :len(uids)] = True
+        regs = sketches.hll_init(device=self.device)[None]
+        sketches.hll_fold(
+            regs, torch.zeros(1, dtype=torch.int32, device=self.device),
+            torch.from_numpy(items).to(self.device),
+            torch.from_numpy(valid).to(self.device),
+            p=sketches.DEFAULT_HLL_P)
+        return int(round(float(sketches.hll_estimate(regs)[0])))
 
 
 def _u32(v: int) -> bytes:

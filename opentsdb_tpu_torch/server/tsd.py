@@ -5,13 +5,15 @@ the first-byte protocol sniff (a capital ASCII letter means HTTP,
 reference PipelineFactory :68-98); the telnet ``put``, ``version`` and
 ``exit`` commands, with pipelined bursts of ``put`` lines decoded in
 columnar batches; and HTTP ``/q`` (``ascii`` and ``json`` output),
+``/sketch`` (quantiles of the live t-digests), ``/distinct`` (distinct
+tag values from the live HyperLogLogs, or counted over a range),
 ``/aggregators`` and ``/version``. Queries run in a thread pool off the
 event loop, so ingest keeps flowing while they compute; each pool thread
 launches its kernels on its own current CUDA stream.
 
 Not ported yet, and answered with 400 "not yet ported": PNG graphs
-(``/q`` without ``ascii``/``json``), ``/distinct``, ``/sketch`` and
-``/forecast``. Other paths are 404.
+(``/q`` without ``ascii``/``json``) and ``/forecast``. Other paths are
+404.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from opentsdb_tpu_torch.query.executor import (QueryExecutor, QuerySpec,
                                                not_yet_ported)
 from opentsdb_tpu_torch.query.grammar import parse_m
 from opentsdb_tpu_torch.server import wire
+from opentsdb_tpu_torch.sketch.bounds import hll_error
 from opentsdb_tpu_torch.utils import timeparse
 
 LOG = logging.getLogger(__name__)
@@ -50,6 +53,21 @@ _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
             413: "Payload Too Large",
             431: "Request Header Fields Too Large",
             500: "Internal Server Error"}
+
+
+def _parse_max_error(q) -> float | None:
+    """The ``max_error=`` budget of /sketch: a positive relative
+    half-width, or None when absent."""
+    if "max_error" not in q:
+        return None
+    try:
+        max_error = float(q["max_error"])
+    except ValueError:
+        raise BadRequestError(
+            f"invalid max_error: {q['max_error']}") from None
+    if max_error <= 0:
+        raise BadRequestError("max_error must be > 0")
+    return max_error
 
 
 def _put_prefix_len(buf: bytes) -> int:
@@ -81,8 +99,8 @@ class TSDServer:
             "/aggregators": self._http_aggregators,
             "/version": self._http_version,
             "/q": self._query,
-            "/distinct": self._not_ported,
-            "/sketch": self._not_ported,
+            "/distinct": self._distinct,
+            "/sketch": self._sketch,
             "/forecast": self._not_ported,
         }
 
@@ -265,8 +283,9 @@ class TSDServer:
             data = data[clen:]  # no route of this subset reads a body
             keep = (version.strip().upper() == "HTTP/1.1"
                     and headers.get("connection", "").lower() != "close")
+            extra: dict = {}
             try:
-                status, ctype, body = await self._route(target)
+                status, ctype, body, extra = await self._route(target)
             except (BadRequestError, NoSuchUniqueName) as e:
                 status = getattr(e, "status", 400)
                 ctype, body = "text/plain", f"{e}\n".encode()
@@ -274,24 +293,27 @@ class TSDServer:
                 LOG.exception("HTTP error on %s", target)
                 status, ctype = 500, "text/plain"
                 body = f"Internal Server Error: {e}\n".encode()
-            await self._respond(writer, status, ctype, body, keep)
+            await self._respond(writer, status, ctype, body, keep, extra)
             if not keep:
                 return
 
     async def _respond(self, writer, status: int, ctype: str, body: bytes,
-                       keep: bool) -> None:
+                       keep: bool, extra: dict | None = None) -> None:
         hdrs = [f"HTTP/1.1 {status} {_REASONS.get(status, 'OK')}",
                 f"Content-Type: {ctype}",
                 f"Content-Length: {len(body)}",
                 f"Connection: {'keep-alive' if keep else 'close'}"]
+        hdrs.extend(f"{k}: {v}" for k, v in (extra or {}).items())
         writer.write(("\r\n".join(hdrs) + "\r\n\r\n").encode() + body)
         await writer.drain()
 
-    async def _route(self, target: str):
+    async def _route(self, target: str) -> tuple:
+        """(status, content type, body, extra headers): every handler
+        returns that shape."""
         parsed = urllib.parse.urlsplit(target)
         handler = self.http_routes.get(parsed.path.rstrip("/") or "/")
         if handler is None:
-            return 404, "text/plain", b"Page Not Found\n"
+            return 404, "text/plain", b"Page Not Found\n", {}
         params = urllib.parse.parse_qs(parsed.query, keep_blank_values=True)
         q = {k: v[-1] for k, v in params.items()}
         out = handler(q, params, parsed.path)
@@ -301,14 +323,14 @@ class TSDServer:
 
     def _http_aggregators(self, q, params, path) -> tuple:
         return (200, "application/json",
-                json.dumps(Aggregators.available()).encode())
+                json.dumps(Aggregators.available()).encode(), {})
 
     def _http_version(self, q, params, path) -> tuple:
         if "json" in q:
             return (200, "application/json", json.dumps({
                 "version": __version__, "torch": torch.__version__,
-                "device": str(self.executor.device)}).encode())
-        return 200, "text/plain", self._version_text().encode()
+                "device": str(self.executor.device)}).encode(), {})
+        return 200, "text/plain", self._version_text().encode(), {}
 
     def _not_ported(self, q, params, path) -> tuple:
         raise not_yet_ported(path)
@@ -346,9 +368,106 @@ class TSDServer:
             results.extend(rs)
             plans.extend([plan] * len(rs))
         if "ascii" in q:
-            return 200, "text/plain", self._ascii_output(results).encode()
+            return (200, "text/plain", self._ascii_output(results).encode(),
+                    {})
         return (200, "application/json",
-                json.dumps(self._json_output(results, plans)).encode())
+                json.dumps(self._json_output(results, plans)).encode(), {})
+
+    async def _distinct(self, q, params, path) -> tuple:
+        """Distinct values of one tag key. Without ``start`` (or with
+        ``stream``): the streaming per-(metric, tagk) HLL estimate, all
+        time, with its error bound. With a range: an exact count over the
+        series with data in it, or, with a tag filter, ``distinct_tagv``.
+        Bodies, errors and the X-Tsd-Approx header are the JAX daemon's."""
+        for req in ("metric", "tagk"):
+            if req not in q:
+                raise BadRequestError(f"Missing parameter: {req}")
+        loop = asyncio.get_running_loop()
+        if "stream" in q or "start" not in q:
+            if "end" in q and "stream" not in q:
+                raise BadRequestError(
+                    "distinct range needs start= (end= alone would "
+                    "silently answer all-time)")
+            n = await loop.run_in_executor(
+                self._pool, self.executor.sketch_distinct, q["metric"],
+                q["tagk"])
+            if n is None:
+                raise BadRequestError(
+                    f"no streaming sketch state for metric {q['metric']}"
+                    f" / tagk {q['tagk']} (pass start= for a scan)")
+            err = hll_error(self.config.sketch_hll_p, n)
+            body = json.dumps({
+                "metric": q["metric"], "tagk": q["tagk"], "distinct": n,
+                "source": "stream",
+                "approx": {"kind": "hll", "error": err}}).encode()
+            return (200, "application/json", body,
+                    {"X-Tsd-Approx": f"hll;error={err:.6g}"})
+        now = int(time.time())
+        start = timeparse.parse_date(q["start"], now=now)
+        end = timeparse.parse_date(q["end"], now=now) if "end" in q else now
+        tag_map: dict[str, str] = {}
+        if "tags" in q and q["tags"]:
+            for t in q["tags"].split(","):
+                tags_mod.parse(tag_map, t)
+        if not tag_map:
+            n, source = await loop.run_in_executor(
+                self._pool, self.executor.sketch_distinct_with_source,
+                q["metric"], q["tagk"], start, end)
+        else:
+            n = await loop.run_in_executor(
+                self._pool, self.executor.distinct_tagv, q["metric"],
+                tag_map, q["tagk"], start, end)
+            source = "scan"
+        body = json.dumps({"metric": q["metric"], "tagk": q["tagk"],
+                           "distinct": n, "source": source}).encode()
+        return 200, "application/json", body, {}
+
+    async def _sketch(self, q, params, path) -> tuple:
+        """All-time percentiles of the matching series' merged t-digests
+        (``m=metric{tag=v,...}``, ``q=p50,p99`` or ``0.5,0.99``), or,
+        with ``start``, the exact quantiles over the range."""
+        if "m" not in q:
+            raise BadRequestError("Missing parameter: m")
+        tag_map: dict[str, str] = {}
+        try:
+            metric = tags_mod.parse_with_metric(q["m"], tag_map)
+        except ValueError as e:
+            raise BadRequestError(str(e)) from None
+        qs = []
+        for part in q.get("q", "p50,p95,p99").split(","):
+            part = part.strip()
+            try:
+                if part.startswith("p") and part[1:].isdigit():
+                    d = part[1:]
+                    # p5 -> 0.05, p99 -> 0.99; three or more digits follow
+                    # the decimal point: p999 -> 0.999.
+                    qs.append(int(d) / 100 if len(d) <= 2
+                              else int(d) / 10 ** len(d))
+                else:
+                    qs.append(float(part))
+            except ValueError:
+                raise BadRequestError(f"bad quantile: {part}") from None
+            if not 0.0 <= qs[-1] <= 1.0:
+                raise BadRequestError(f"quantile out of range: {part}")
+        start = end = None
+        if "start" in q:
+            now = int(time.time())
+            start = timeparse.parse_date(q["start"], now=now)
+            end = (timeparse.parse_date(q["end"], now=now)
+                   if "end" in q else now)
+        elif "end" in q:
+            raise BadRequestError(
+                "sketch range needs start= (end= alone would silently "
+                "answer all-time)")
+        max_error = _parse_max_error(q)
+        loop = asyncio.get_running_loop()
+        out = await loop.run_in_executor(
+            self._pool, self.executor.sketch_quantiles, metric, tag_map,
+            qs, start, end, max_error)
+        # No answer here is approximate beyond the digests' own error:
+        # the JAX daemon's X-Tsd-Approx header on /sketch comes only with
+        # a rollup tier's answers.
+        return 200, "application/json", json.dumps(out).encode(), {}
 
     @staticmethod
     def _fmt_value(v: float) -> str:

@@ -407,6 +407,19 @@ class MemKVStore(KVStore):
         with self._lock:
             return list(self._table(table).rows)
 
+    def memtable_cells(self, table: str, key: bytes,
+                       family: bytes | None = None) -> list[Cell]:
+        """Live-memtable cells of one row, without the spilled tiers
+        (tombstones excluded): the sketch re-fold at start-up reads rows
+        through this, so cells the snapshot covers are not folded
+        twice."""
+        with self._lock:
+            row = self._table(table).rows.get(key)
+            if not row:
+                return []
+            return [Cell(key, f, q, v) for (f, q), v in row.items()
+                    if v is not None and (family is None or f == family)]
+
     def row_count(self, table: str) -> int:
         with self._lock:
             keys = set(self._table(table).rows)
@@ -787,16 +800,16 @@ class MemKVStore(KVStore):
         """Leave the JAX package's snapshots beside the WAL in a state
         its next open rebuilds exactly from, before anything spills.
 
-        The JAX daemon keeps ``<wal>.sketches`` and
-        ``<wal>.tenants.json``, each covering the sstable tier, and on
-        open re-folds only the WAL-replayed memtable on top of them. This
-        store keeps neither, so rows it spills would be missing from
-        both: the sketch snapshot is removed (without one the JAX package
-        re-folds all of storage), and the tenant snapshot is replaced by
-        a file of a foreign version, which the JAX package rejects and
-        answers with a full storage rescan (exact totals). A missing
-        tenant file is not enough: without one, and without tenant
-        limits, the JAX package skips the rescan.
+        The JAX daemon keeps ``<wal>.tenants.json`` (and
+        ``<wal>.sketches``, which ``TSDB.checkpoint`` saves or removes),
+        covering the sstable tier, and on open re-folds only the
+        WAL-replayed memtable on top of it.
+
+        This store keeps no tenant accounting, so the tenant snapshot is
+        replaced by a file of a foreign version, which the JAX package
+        rejects and answers with a full storage rescan (exact totals). A
+        missing tenant file is not enough: without one, and without
+        tenant limits, the JAX package skips the rescan.
 
         A JAX rollup tier (``<wal>.rollup-<res>/``) would need its
         summaries folded at every spill, which this port cannot do yet:
@@ -811,9 +824,6 @@ class MemKVStore(KVStore):
                 f"({rollups}); checkpointing it would leave its summaries "
                 f"behind the spilled rows, and rollups are not ported yet "
                 f"(ROADMAP queue A item 6)")
-        sketches = self._wal_path + ".sketches"
-        if os.path.exists(sketches):
-            os.unlink(sketches)
         tenants = self._wal_path + ".tenants.json"
         with open(tenants + ".tmp", "w") as f:
             json.dump({"version": _FOREIGN_TENANTS_VERSION,

@@ -1,8 +1,9 @@
 """The port's configuration object and device resolution.
 
 Mirrors ``opentsdb_tpu/utils/config.py`` of the JAX package, trimmed to
-the fields this port reads (the resident window's and the spill tier's
-among them, with the JAX package's defaults), plus ``device``: where the query kernels run.
+the fields this port reads (the resident window's, the spill tier's and
+the live sketches' among them, with the JAX package's defaults), plus
+``device``: where the query kernels run.
 ``backend="cpu"`` keeps its JAX-package meaning — the float64 numpy
 oracle answers every query (``ops/oracle.py``) — and is independent of
 ``device``.
@@ -39,6 +40,14 @@ class Config:
     # built for one NVIDIA H100, and a missing card is an error, never a
     # silent CPU run. Tests pass "cpu".
     device: str = "cuda"
+
+    # Streaming sketches (stats/livesketch.py): a t-digest per series and
+    # a HyperLogLog per (metric, tag key), folded on the device at ingest.
+    # The JAX package's names and defaults.
+    enable_sketches: bool = True
+    sketch_compression: int = 128       # t-digest centroids per series
+    sketch_hll_p: int = 12              # 2^p registers per (metric, tagk)
+    sketch_flush_points: int = 1 << 20  # buffered points before a fold
 
     # Device-resident columnar hot window (storage/devstore.py): ingest is
     # mirrored into device memory so downsampled moment queries skip the

@@ -10,7 +10,9 @@ Contracts:
   match the JAX package's (opentsdb_tpu/query/executor.py:16-18: grids
   identical, count/min/max exact, float32 sums within rtol 1e-5);
 - a directory the port checkpointed gives the JAX package the tenant and
-  sketch counts of a run that never saw the port;
+  sketch counts of a run that never saw the port, and the sketch snapshot
+  the port saved in its checkpoints is the one the JAX run saved (HLL
+  registers and digest weights equal, means within rtol 1e-6);
 - throttling applies a batch in part exactly as the JAX store does, and
   the telnet reply is byte-identical.
 """
@@ -715,7 +717,9 @@ def test_port_serves_jax_checkpointed_store(tmp_path, sketches):
         pt.devwindow = dw
     finally:
         pt.shutdown()
-    assert not os.path.exists(w + ".sketches")
+    # The port keeps sketches (its default): its checkpoints save the
+    # snapshot in place of removing it.
+    assert os.path.exists(w + ".sketches")
 
 
 def test_jax_serves_port_checkpointed_store(tmp_path):
@@ -746,7 +750,14 @@ def test_jax_serves_port_checkpointed_store(tmp_path):
             ref.checkpoint()
     ref.shutdown()
     assert _dir_bytes(wa) == _dir_bytes(wb)
-    assert not os.path.exists(wa + ".sketches")
+    snaps = [np.load(w + ".sketches", allow_pickle=True) for w in (wa, wb)]
+    for key in ("td_keys", "hll_metric", "hll_tagk", "meta", "hll_regs",
+                "td_weights"):
+        np.testing.assert_array_equal(snaps[0][key], snaps[1][key])
+    # Means: float32 sums in the same order; asin may differ in the last
+    # ulp, which moves no entry here (the weights are equal).
+    np.testing.assert_allclose(snaps[0]["td_means"], snaps[1]["td_means"],
+                               rtol=1e-6)
 
     out = {}
     for name, w in (("port", wa), ("ref", wb)):
@@ -838,3 +849,70 @@ def test_refuses_to_checkpoint_beside_a_rollup_tier(tmp_path):
         assert again.store.row_count(T) > 0
     finally:
         again.store.close()
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_sketch_snapshot_crosses(tmp_path, writer):
+    """One package (rollups off, sketches on: the defaults) ingests part
+    0, checkpoints (saving <wal>.sketches before the spill), ingests part
+    1 and crashes. Each package then opens its own copy of the directory:
+    it loads the snapshot and re-folds the WAL-replayed memtable on top.
+    Rows the memtable does not touch are the snapshot's, bit for bit, in
+    both; the slot maps and HLL registers of the two recovered states are
+    identical, each digest's total weight equal, and their quantiles
+    within the t-digest tolerance (rtol 0.02)."""
+    import shutil
+    parts = _parts()
+    # After the checkpoint, only hosts h0 and h1 write (and h5 first
+    # appears in part 2, so its series are new to the snapshot).
+    tail = [x for x in parts[1] + parts[2]
+            if x[1]["host"] in ("h0", "h1", "h5")]
+    w = _wal(tmp_path, "w")
+    db = _jax_tsdb(w) if writer == "jax" else _port_tsdb(w)
+    _ingest(db, parts[0] + [x for x in parts[1]
+                            if x[1]["host"] not in ("h0", "h1")])
+    assert db.checkpoint() > 0
+    _ingest(db, tail)
+    db.store.flush()
+    if writer == "jax":
+        db.store._simulate_crash()
+    else:
+        db.store.close()
+    snap = np.load(w + ".sketches", allow_pickle=True)
+    copies = {}
+    for name in ("jax", "port"):
+        d = tmp_path / name
+        shutil.copytree(tmp_path / "w", d)
+        copies[name] = str(d / "wal")
+    jt = _jax_tsdb(copies["jax"])
+    pt = _port_tsdb(copies["port"])
+    try:
+        js, ps = jt.sketches, pt.sketches
+        js.flush()
+        ps.flush()
+        assert ps._td_slots == js._td_slots
+        assert ps._hll_slots == js._hll_slots
+        np.testing.assert_array_equal(ps._hll_regs.numpy(),
+                                      np.asarray(js._hll_regs))
+        pw = ps._td_weights.numpy()
+        np.testing.assert_array_equal(pw.sum(1),
+                                      np.asarray(js._td_weights).sum(1))
+        refolded = {pt.metrics.get_id(m) + b"".join(
+            k + v for k, v in pt.resolve_tags(tags, create=False))
+            for m, tags, _, _ in tail}
+        kept = [s for k, s in ps._td_slots.items() if k not in refolded]
+        assert kept and len(kept) < len(ps._td_slots)
+        np.testing.assert_array_equal(pw[kept], snap["td_weights"][kept])
+        np.testing.assert_array_equal(ps._td_means.numpy()[kept],
+                                      snap["td_means"][kept])
+        keys = ps.series_keys()
+        np.testing.assert_allclose(
+            ps.quantile(keys, [0.05, 0.5, 0.95]),
+            np.asarray(js.quantile(keys, [0.05, 0.5, 0.95])), rtol=0.02)
+        for tagk in ("host", "dc"):
+            uid = (pt.metrics.get_id("sys.cpu.user"),
+                   pt.tagk.get_id(tagk))
+            assert ps.distinct(*uid) == js.distinct(*uid)
+    finally:
+        jt.shutdown()
+        pt.shutdown()

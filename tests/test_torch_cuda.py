@@ -937,3 +937,232 @@ def test_checkpointed_store_warms_the_window_on_card(card, tmp_path):
             else:
                 np.testing.assert_allclose(g.values, w.values, rtol=1e-5,
                                            atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Sketch kernels (csrc/sketches.cu)
+# ---------------------------------------------------------------------------
+
+def _sk():
+    from opentsdb_tpu_torch.ops import sketches
+    return sketches
+
+
+def _digest_stack(sk, rng, C, K, device, n=600):
+    means = torch.zeros(C, K, device=device)
+    weights = torch.zeros(C, K, device=device)
+    for s in range(0, C, 2):
+        v = torch.from_numpy(rng.normal(s, 1 + s % 3, n).astype(np.float32))
+        sk.tdigest_fold_plain(means, weights,
+                              torch.tensor([s], dtype=torch.int32,
+                                           device=device),
+                              v[None].to(device),
+                              torch.ones(1, n, dtype=torch.bool,
+                                         device=device), compression=K)
+    return means, weights
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,special", [(8, False), (1024, False),
+                                       (1024, True), (4096, False),
+                                       (8064, False)])
+def test_tdigest_fold_matches_plain(card, P, special):
+    """The fold kernel against its plain version on the card (the same
+    CUDA asinf): cluster weights exact (integral float32 sums), means
+    within rtol 1e-5 (the plain version's scatter_add adds in atomic
+    order); padded rows (idx = C) and untouched rows left alone."""
+    sk = _sk()
+    rng = np.random.default_rng(P)
+    C, K = 16, 128
+    means, weights = _digest_stack(sk, rng, C, K, card)
+    idx = torch.tensor([3, 0, 9, 14, 7, C, C, C], dtype=torch.int32,
+                       device=card)
+    batch = rng.normal(2, 3, (8, P)).astype(np.float32)
+    if special:
+        batch[0, :100] = 0.0
+        batch[0, 100:200] = -0.0
+        batch[1, :] = 1.5
+        batch[2, ::2] = np.round(batch[2, ::2])
+    batch = torch.from_numpy(batch).to(card)
+    valid = torch.from_numpy(rng.random((8, P)) < 0.8).to(card)
+    before = sk.tdigest_fold.launches
+    m1, w1 = means.clone(), weights.clone()
+    sk.tdigest_fold(m1, w1, idx, batch, valid=valid, compression=K)
+    torch.cuda.synchronize()
+    assert sk.tdigest_fold.launches == before + 1
+    m2, w2 = means.clone(), weights.clone()
+    sk.tdigest_fold_plain(m2, w2, idx, batch, valid, compression=K)
+    assert torch.equal(w1, w2)
+    torch.testing.assert_close(m1, m2, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_tdigest_merge_form_and_determinism(card):
+    sk = _sk()
+    rng = np.random.default_rng(1)
+    K = 128
+    means, weights = _digest_stack(sk, rng, 8, K, card, n=3000)
+    idx = torch.tensor([1, 3], dtype=torch.int32, device=card)
+    src = torch.tensor([4, 6], device=card)
+    outs = []
+    for _ in range(2):
+        m, w = means.clone(), weights.clone()
+        sk.tdigest_fold(m, w, idx, means[src].contiguous(),
+                        batch_weights=weights[src].contiguous(),
+                        compression=K)
+        outs.append((m, w))
+    m2, w2 = means.clone(), weights.clone()
+    sk.tdigest_fold_plain(m2, w2, idx, means[src], weights_b=weights[src],
+                          compression=K)
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], w2)
+    torch.testing.assert_close(outs[0][0], m2, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [4, 12, 14])
+def test_hll_fold_and_estimate_match_plain(card, p):
+    """Registers bit-identical; estimates within rtol 1e-6 (float32 sums
+    of powers of two in another order)."""
+    sk = _sk()
+    rng = np.random.default_rng(p)
+    H, U, C = 6, 5000, 8
+    regs = torch.from_numpy(rng.integers(0, 4, (C, 1 << p))
+                            .astype(np.int32)).to(card)
+    idx = torch.tensor([4, 0, 7, 2, C, C], dtype=torch.int32, device=card)
+    items = np.concatenate([
+        rng.integers(-2**31, 2**31, (H, U - 3)),
+        np.tile([0, -1, -2**31], (H, 1))], axis=1).astype(np.int32)
+    items = torch.from_numpy(items).to(card)
+    valid = torch.from_numpy(rng.random((H, U)) < 0.7).to(card)
+    r1 = regs.clone()
+    sk.hll_fold(r1, idx, items, valid, p=p)
+    r2 = regs.clone()
+    sk.hll_fold_plain(r2, idx, items, valid, p=p)
+    assert torch.equal(r1, r2)
+    est = sk.hll_estimate(r1)
+    want = sk.hll_estimate_plain(r1)
+    torch.testing.assert_close(est, want, rtol=1e-6, atol=0)
+    assert torch.equal(torch.round(est), torch.round(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 16, 1024, 16384])
+def test_merged_quantile_matches_plain(card, S):
+    """The merged quantile (global sort, scans, cluster sums) against
+    its plain version on the card: within rtol 1e-4, since a cluster's
+    mean is a float32 sum of up to ~2e4 centroids at S = 16,384, added in
+    another order by the plain version's atomics (rounding ~sqrt(n) eps,
+    ~1e-5 of the sum); the same state answers bit-identically twice."""
+    sk = _sk()
+    rng = np.random.default_rng(S)
+    K = 128
+    C = max(S, 4)
+    means, weights = _digest_stack(sk, rng, min(C, 64), K, card, n=300)
+    if C > 64:
+        reps = -(-C // 64)
+        means = means.repeat(reps, 1)[:C].contiguous()
+        weights = weights.repeat(reps, 1)[:C].contiguous()
+    pad = 1
+    while pad < S:
+        pad *= 2
+    sel = rng.choice(C, S, replace=False).astype(np.int32)
+    idx = torch.zeros(pad, dtype=torch.int32, device=card)
+    idx[:S] = torch.from_numpy(sel).to(card)
+    valid = torch.arange(pad, device=card) < S
+    q = torch.tensor([0.0, 0.01, 0.5, 0.95, 0.99, 1.0], device=card)
+    got = sk.merged_quantile(means, weights, idx, valid, q, compression=K)
+    again = sk.merged_quantile(means, weights, idx, valid, q,
+                               compression=K)
+    want = sk.merged_quantile_plain(means, weights, idx, valid, q,
+                                    compression=K)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_live_sketches_on_card_match_cpu(card):
+    """The same observe stream into stacks on the card (folded by the
+    kernels, on the folder thread) and on the CPU: slots and HLL
+    registers identical, each digest's total weight exact, quantiles
+    within the t-digest tolerance."""
+    from opentsdb_tpu_torch.stats.livesketch import LiveSketches
+    rng = np.random.default_rng(2)
+    sks = [LiveSketches(flush_points=5000, device=d) for d in (card, "cpu")]
+    for i in range(300):
+        v = rng.normal(i % 13, 2, 1 + i % 50)
+        tags = [(b"m", b"k", int(i % 37).to_bytes(3, "big"))]
+        for s in sks:
+            s.observe(b"s%03d" % (i % 40), v, tags)
+    for s in sks:
+        s.flush()
+    gpu, cpu = sks
+    assert gpu._td_slots == cpu._td_slots
+    assert torch.equal(gpu._hll_regs.cpu(), cpu._hll_regs)
+    assert torch.equal(gpu._td_weights.sum(1).cpu(),
+                       cpu._td_weights.sum(1))
+    keys = cpu.series_keys()
+    np.testing.assert_allclose(gpu.quantile(keys, [0.1, 0.5, 0.9]),
+                               cpu.quantile(keys, [0.1, 0.5, 0.9]),
+                               rtol=0.02)
+    assert gpu.distinct(b"m", b"k") == cpu.distinct(b"m", b"k") == 37
+
+
+@pytest.mark.cuda
+def test_merge_from_on_card_matches_cpu(card):
+    """merge_from on stacks on the card (the fold kernel with the
+    incoming digests as the batch, register max) against the same merge
+    on the CPU: slots and registers identical, total weights exact,
+    quantiles within the t-digest tolerance."""
+    from opentsdb_tpu_torch.stats.livesketch import LiveSketches
+    rng = np.random.default_rng(4)
+    feed = [(b"s%02d" % (i % 7), b"s%02d" % (i % 11),
+             rng.normal(0, 1, 300), rng.normal(2, 1, 300),
+             [(b"m", b"k", int(i).to_bytes(3, "big"))]) for i in range(30)]
+    merged = []
+    for device in (card, "cpu"):
+        a, b = (LiveSketches(device=device) for _ in range(2))
+        for ka, kb, va, vb, tags in feed:
+            a.observe(ka, va, tags)
+            b.observe(kb, vb, tags)
+        launches = _sk().tdigest_fold.launches
+        a.merge_from(b)
+        if device == card:
+            assert _sk().tdigest_fold.launches > launches
+        merged.append(a)
+    gpu, cpu = merged
+    assert gpu._td_slots == cpu._td_slots
+    assert torch.equal(gpu._hll_regs.cpu(), cpu._hll_regs)
+    assert torch.equal(gpu._td_weights.sum(1).cpu(), cpu._td_weights.sum(1))
+    keys = cpu.series_keys()
+    np.testing.assert_allclose(gpu.quantile(keys, [0.1, 0.5, 0.9]),
+                               cpu.quantile(keys, [0.1, 0.5, 0.9]),
+                               rtol=0.02)
+
+
+@pytest.mark.cuda
+def test_sketch_queries_on_card_launch_kernels(card):
+    from opentsdb_tpu_torch.core.tsdb import TSDB
+    from opentsdb_tpu_torch.query.executor import QueryExecutor
+    from opentsdb_tpu_torch.storage.kv import MemKVStore
+    from opentsdb_tpu_torch.utils.config import Config
+    sk = _sk()
+    rng = np.random.default_rng(3)
+    t = TSDB(MemKVStore(), Config(auto_create_metrics=True,
+                                  device_window=False),
+             start_compaction_thread=False)
+    for h in range(20):
+        t.add_batch("m", 1356998400 + np.arange(200) * 30,
+                    rng.normal(50, 10, 200), {"host": f"h{h:02d}"})
+    before = (sk.tdigest_fold.launches, sk.hll_fold.launches,
+              sk.hll_estimate.launches, sk.merged_quantile.launches)
+    ex = QueryExecutor(t)
+    assert ex.sketch_distinct("m", "host") == 20
+    out = ex.sketch_quantiles("m", {}, [0.5])
+    assert 45 < out["quantiles"]["0.5"] < 55 and out["series"] == 20
+    assert ex.distinct_tagv("m", {}, "host", 1356998400,
+                            1356998400 + 7200) == 20
+    after = (sk.tdigest_fold.launches, sk.hll_fold.launches,
+             sk.hll_estimate.launches, sk.merged_quantile.launches)
+    assert all(a > b for a, b in zip(after, before))
+    t.shutdown()

@@ -82,3 +82,22 @@ def test_device_window_defaults_to_the_card(monkeypatch):
         DeviceWindow(background=False)
     assert DeviceWindow(background=False, device="cpu").device \
         == torch.device("cpu")
+
+
+def test_live_sketches_default_to_the_card(monkeypatch, tmp_path):
+    from opentsdb_tpu_torch.ops import sketches
+    from opentsdb_tpu_torch.stats.livesketch import LiveSketches
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LiveSketches(background=False)
+    sk = LiveSketches(background=False, device="cpu")
+    assert sk.device == torch.device("cpu")
+    path = str(tmp_path / "s.npz")
+    sk.save(path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LiveSketches.load(path)
+    assert LiveSketches.load(path, device="cpu").device \
+        == torch.device("cpu")
+    for init in (sketches.tdigest_init, sketches.hll_init):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            init()

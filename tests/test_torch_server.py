@@ -207,7 +207,8 @@ def test_cli_daemon_serves_and_keeps_its_wal(tmp_path):
     ("/q?start=1&m=p95:1h-avg:sys.load&ascii", 200, "sys.load 13569"),
     ("/q?start=1&m=sum:1h-avg:sys.load", 400, "not yet ported"),
     ("/q?start=1&m=sum:1h-avg:nope&ascii", 400, "No such name"),
-    ("/sketch?m=sys.load", 400, "not yet ported"),
+    ("/sketch?m=sys.load", 200, '"series": 1'),
+    ("/forecast?m=sys.load", 400, "not yet ported"),
     ("/aggregators", 200, "mimmax"),
     ("/version", 200, "opentsdb_tpu_torch"),
     ("/nothing", 404, "Not Found"),
@@ -220,3 +221,97 @@ def test_http_surface(target, status, text):
     got_status, body = _serve(drive)
     assert got_status == status
     assert text in body.decode()
+
+
+# ---------------------------------------------------------------------------
+# /sketch and /distinct against the JAX daemon
+# ---------------------------------------------------------------------------
+
+SKETCH_TARGETS = [
+    "/sketch?m=sys.load",
+    "/sketch?m=sys.load%7Bhost=a%7D&q=p5,0.5,p999",
+    "/sketch?m=sys.load%7Bhost=a%7Cb%7D&q=0.25",
+    f"/sketch?m=sys.load&start={START}&end={END}",
+    f"/sketch?m=sys.load%7Bhost=b%7D&start={START}&end={END}&q=p90",
+    "/distinct?metric=sys.load&tagk=host",
+    "/distinct?metric=sys.load&tagk=dc&stream",
+    f"/distinct?metric=sys.load&tagk=host&start={START}&end={END}",
+    f"/distinct?metric=sys.load&tagk=host&start={START}&end={END}"
+    "&tags=dc=x",
+    # The 400s.
+    "/sketch",
+    "/sketch?m=sys.load&q=p50,abc",
+    "/sketch?m=sys.load&q=1.5",
+    "/sketch?m=sys.load&end=123",
+    "/sketch?m=sys.load&max_error=0",
+    "/sketch?m=sys.load&max_error=abc",
+    f"/sketch?m=sys.load&start={END}&end={START}",
+    "/sketch?m=nope",
+    "/sketch?m=sys.load%7Bhost=zzz%7D",
+    "/distinct?metric=sys.load",
+    "/distinct?metric=sys.load&tagk=host&end=5",
+    "/distinct?metric=sys.load&tagk=rack",
+    "/distinct?metric=nope&tagk=host",
+    f"/distinct?metric=sys.load&tagk=rack&start={START}&end={END}",
+]
+
+
+async def _get_raw(port, target):
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {target} HTTP/1.1\r\nConnection: close\r\n\r\n"
+                 .encode())
+    await writer.drain()
+    raw = await asyncio.wait_for(reader.read(), 30)
+    writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    lines = head.decode().split("\r\n")
+    hdrs = dict(ln.split(": ", 1) for ln in lines[1:])
+    return int(lines[0].split()[1]), hdrs, body
+
+
+def _sketch_answers(server_cls, tsdb):
+    server = server_cls(tsdb)
+
+    async def main():
+        await server.start()
+        try:
+            await _telnet(server.port, _lines(_points()))
+            return [await _get_raw(server.port, t) for t in SKETCH_TARGETS]
+        finally:
+            await server.stop()
+    return asyncio.run(main())
+
+
+def test_sketch_and_distinct_match_jax_daemon():
+    """The same puts, then the same /sketch and /distinct requests, to
+    both daemons: statuses, error bodies, ranged answers, distinct counts
+    and the X-Tsd-Approx header byte-identical; the all-time quantiles
+    (merged t-digests) within the t-digest tolerance, rtol 0.02."""
+    from opentsdb_tpu.server.tsd import TSDServer as JaxServer
+    cfg = dict(auto_create_metrics=True, port=0, bind="127.0.0.1")
+    jt = JaxTSDB(JaxStore(), JaxConfig(device_window=False, **cfg),
+                 start_compaction_thread=False)
+    want = _sketch_answers(JaxServer, jt)
+    pt = TSDB(MemKVStore(), Config(device="cpu", **cfg),
+              start_compaction_thread=False)
+    got = _sketch_answers(TSDServer, pt)
+    statuses = []
+    for target, (gs, gh, gb), (ws, wh, wb) in zip(SKETCH_TARGETS, got,
+                                                  want):
+        statuses.append(gs)
+        assert gs == ws, target
+        assert gh.get("X-Tsd-Approx") == wh.get("X-Tsd-Approx"), target
+        if gs == 200 and target.startswith("/sketch") \
+                and "start=" not in target:
+            g, w = json.loads(gb), json.loads(wb)
+            assert g["metric"] == w["metric"]
+            assert g["series"] == w["series"]
+            assert list(g["quantiles"]) == list(w["quantiles"])
+            np.testing.assert_allclose(list(g["quantiles"].values()),
+                                       list(w["quantiles"].values()),
+                                       rtol=0.02)
+        else:
+            assert gb == wb, target
+    assert statuses.count(200) == 9
+    assert json.loads(got[5][2])["distinct"] == 3
+    assert json.loads(got[3][2])["rollup"] == "raw"
