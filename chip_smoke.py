@@ -1612,16 +1612,37 @@ def corpus_tag_uids() -> tuple[np.ndarray, np.ndarray]:
     return host, dc
 
 
-def fold_bound(rows: int, K: int, P: int) -> tuple:
-    """Bytes: each folded row's centroids read and written (8 B each),
-    the batch and its mask read once; operations: the bitonic network's
-    compare-exchanges over pow2(K + P) keys and ~20 float operations an
-    entry for the cluster formula."""
-    n2 = 1 << (K + P - 1).bit_length()
-    lg = n2.bit_length() - 1
-    nbytes = rows * (K * 16 + P * 5 + 4)
-    ops = rows * (n2 // 2 * lg * (lg + 1) // 2 + 20 * (K + P))
+def sort_bound(nbytes: float, live: torch.Tensor) -> tuple:
+    """Bound of a compress that sorts ``live`` entries a row (one count a
+    row): the bytes it must move against n log2 n comparisons plus ~20
+    float operations (the cluster formula) per live entry, whichever is
+    larger. Counts what this run's data needs, whatever the kernel's
+    design."""
+    n = live.to(torch.float64)
+    ops = float((n * torch.log2(n.clamp(min=1)) + 20 * n).sum())
     return bound_ms(nbytes, ops)
+
+
+def fold_bound(idx, valid, m0, w0) -> tuple:
+    """Bytes: each folded row's centroids read and written (8 B each way),
+    the batch and its mask read once; operations: sort_bound's, over each
+    row's entries of nonzero weight (old centroids and valid values)."""
+    keep = idx < m0.shape[0]
+    rows = idx[keep].long()
+    K, P = m0.shape[1], valid.shape[1]
+    live = (w0[rows] != 0).sum(1) + valid[keep].sum(1)
+    return sort_bound(len(rows) * (K * 16 + P * 5 + 4), live)
+
+
+def fold_sort_keys(idx, batch, valid, m0, w0) -> torch.Tensor:
+    """The composite keys of each folded row's K + P entries: the fold's
+    library yardstick sorts them along dim 1 (its sort alone)."""
+    keep = idx < m0.shape[0]
+    rows = idx[keep].long()
+    m = torch.cat([m0[rows], batch[keep]], 1)
+    w = torch.cat([w0[rows], valid[keep].to(torch.float32)], 1)
+    return sketches._sort_keys(
+        torch.where(w > 0, m, torch.full_like(m, float("inf"))))
 
 
 def sketch_kernel_phase(vals: np.ndarray) -> list:
@@ -1641,9 +1662,10 @@ def sketch_kernel_phase(vals: np.ndarray) -> list:
     - merged_quantile: p50/p95/p99 over all 10,000 corpus digests (S =
       16,384 rows of which 10,000 valid, 2,097,152 entries).
     Each is timed like the other kernels; the library yardstick is one
-    scatter_reduce_ (amax) over precomputed ranks for the HLL fold and
-    one torch.sort of the composite keys for the merged quantile; the
-    fold and the estimate have no single PyTorch call."""
+    scatter_reduce_ (amax) over precomputed ranks for the HLL fold, and
+    for the t-digest fold and the merged quantile one torch.sort of their
+    composite keys (their sort alone: each row's along dim 1 for the
+    fold); the estimate has no single PyTorch call."""
     dev = torch.device(DEVICE)
     K = Config.sketch_compression
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
@@ -1697,11 +1719,13 @@ def sketch_kernel_phase(vals: np.ndarray) -> list:
                 f(m, w, args[0], args[1], valid=args[2], compression=K)
         return run
 
+    keys1 = fold_sort_keys(*fold_args, stack_m, stack_w)
     results.append(case(
         "tdigest_fold", "one hand-off (1,049 series x 1,000 values)",
         mk_fold(fold_args, stack_m, stack_w),
-        mk_fold(fold_args, stack_m, stack_w, plain=True), None, fold_check,
-        fold_bound(first, K, P)))
+        mk_fold(fold_args, stack_m, stack_w, plain=True),
+        lambda: torch.sort(keys1, dim=1), fold_check,
+        fold_bound(fold_args[0], fold_args[2], stack_m, stack_w)))
     folded_m, folded_w = fold_check(fold_args, stack_m, stack_w, P)
 
     # Fold at the 4096-value chunk, into digests of 1,000 values.
@@ -1718,10 +1742,12 @@ def sketch_kernel_phase(vals: np.ndarray) -> list:
         fold_check(args4, m0, w0, P4)
         fold4_check.result = fold_check.result
 
+    keys4 = fold_sort_keys(*args4, m0, w0)
     results.append(case(
         "tdigest_fold", "4096-value chunk (1,024 rows)",
-        mk_fold(args4, m0, w0), mk_fold(args4, m0, w0, plain=True), None,
-        fold4_check, fold_bound(rows4, K, P4)))
+        mk_fold(args4, m0, w0), mk_fold(args4, m0, w0, plain=True),
+        lambda: torch.sort(keys4, dim=1), fold4_check,
+        fold_bound(args4[0], args4[2], m0, w0)))
 
     # HLL folds: one hand-off's host and dc rows at p = 12 (the first
     # `first` series' hosts and their dcs, padded as _fold_buffers pads
@@ -1852,10 +1878,10 @@ def sketch_kernel_phase(vals: np.ndarray) -> list:
 
     keyf = torch.where(mq_w > 0, mq_m, torch.full_like(mq_m, float("inf")))
     comp = sketches._sort_keys(keyf.reshape(-1))
-    # Bytes: only the valid rows' centroids are read (mq_load skips the
-    # rest); operations: the network over pow2 of the valid entries.
-    n2 = 1 << (SERIES * K - 1).bit_length()
-    lg = n2.bit_length() - 1
+    # Bytes: only the valid rows' centroids are read, with the selection
+    # and the quantiles; operations: sort_bound's over the entries of
+    # nonzero weight.
+    mq_live = (mq_w[mq_idx[mq_valid].long()] != 0).sum().reshape(1)
     results.append(case(
         "merged_quantile", "all series, S = 16,384 (2,097,152 entries)",
         lambda: sketches.merged_quantile(mq_m, mq_w, mq_idx, mq_valid, qs,
@@ -1863,9 +1889,10 @@ def sketch_kernel_phase(vals: np.ndarray) -> list:
         lambda: sketches.merged_quantile_plain(mq_m, mq_w, mq_idx,
                                                mq_valid, qs, compression=K),
         lambda: torch.sort(comp), mq_check,
-        bound_ms(SERIES * K * 8 + S * 5 + 3 * 8,
-                 n2 // 2 * lg * (lg + 1) // 2 + 20 * n2)))
+        sort_bound(SERIES * K * 8 + S * 5 + 3 * 8, mq_live)))
+    results[-1]["live_entries"] = int(mq_live)
     del stack_m, stack_w, folded_m, folded_w, mq_m, mq_w, comp, flush
+    del keys1, keys4
     torch.cuda.empty_cache()
     return results
 

@@ -23,53 +23,56 @@
 //   compress of S selected rows x K centroids, then sketches.py
 //   tdigest_quantile on the result.
 //
-// What bounds them. The HLL kernels and the merged quantile move few bytes
-// per entry (4-16) and do a handful of integer or float operations on each:
-// bytes bound them, as for every reduction of this port. The fold is a sort:
-// a bitonic network over N2 = pow2(K + P) keys takes N2/2 * log2(N2) *
-// (log2(N2) + 1) / 2 compare-exchanges, ~43 a byte of the row's input at
-// the smoke's K + P = 1152 entries, so on paper operations bound it; in
-// practice shared-memory latency and the block-wide barriers between the
-// network's 66 steps do.
+// One fact shapes both t-digest kernels: an entry of weight +0.0 or -0.0
+// can be dropped before the sort without changing a bit of the answer. Its
+// key is +inf, it adds zero to every cumulative sum and to the total, and
+// it lands in the trash cluster. So both kernels sort only the entries
+// whose weight is not zero (an entry of NaN or negative weight stays: it
+// enters cum and total), in index order, and a stable sort of their 32-bit
+// order keys gives jnp.argsort's order: no index in the key, no padding to
+// a power of two.
 //
-// Design.
-// - tdigest_fold_f32: one block per row. The row's K centroids and P
-//   batch entries land in shared memory with 64-bit sort keys: the
-//   order-preserving uint32 image of the key float in the high half
-//   (-0.0 read as +0.0, every NaN as the canonical one, which then sorts
-//   after +inf: jnp.argsort's comparator), the entry's index in the low
-//   half, so the keys are distinct and an unstable network gives the stable
-//   order. A bitonic sort in shared memory (K + P <= 8192 entries, up to
-//   160 KB with the dynamic shared-memory opt-in), a block-wide scan of the
-//   sorted weights (each thread a contiguous chunk, then a scan of the chunk
-//   totals), the cluster of each entry, and then thread c sums cluster c's
-//   entries in sorted order, one after another: the order of XLA's
-//   sequential segment_sum on the CPU, so weights match exactly and means
-//   to the last bit wherever the cluster ids agree. Padded rows (idx
-//   outside [0, C)) return at once.
-// - hll_fold_i32: one block per register row: the row in shared memory
-//   (16 KB at p = 12, 64 KB at p = 14, the opt-in again), shared-memory
-//   atomicMax of each item's rank, the row written back. Integer registers:
-//   bit-identical to the JAX package's.
-// - hll_estimate_f32: one block per row; 2^-r is built from its exponent
-//   bits (exact), summed in a fixed tree, then the JAX package's
-//   corrections in float32.
-// - tdigest_merged_quantile_f32: several launches. Keys for the S x K
-//   entries (rows where valid is false weigh 0); a global bitonic sort
-//   (tiles of 2048 keys sorted and merged in shared memory, the longer
-//   strides in global passes); a scan of the sorted weights in tiles plus a
-//   scan of the tile totals; per tile, each entry's cluster and, one warp a
-//   cluster, the tile's sums for the clusters it touches (a fixed order:
-//   the answer is the same on every run, so a restart that reloads the
-//   same state answers bit for bit the same); the clusters' sums over tiles
-//   in tile order; then one block sorts the delta centroids and
-//   interpolates the quantiles.
+// What bounds them, and what the design does about it.
+// - The merged quantile reads each live centroid once (8 bytes) and does
+//   ~log2(n) comparisons' worth of work per entry: bytes and launches
+//   bound it. It sorts with an LSD radix sort written here: four passes of
+//   8 bits over the live entries, each pass a count (every block's digit
+//   counts over its run of 2048-entry tiles), one scan per digit over the
+//   blocks, and a scatter: each block ranks its tiles in order, stably
+//   (per warp round, the lanes of equal digit found by ballots, warps in
+//   tile order), stages a tile in shared memory in digit order and writes
+//   it out as runs. The first pass reads the digests directly and drops
+//   the zero-weight entries and invalid rows on the way (the compaction
+//   costs no pass of its own); the payload (mean, weight) travels with the
+//   key, so the weight scan and the cluster pass read it in sorted order
+//   with coalesced loads. 15 kernel launches and a memset (the bitonic
+//   network it replaces took ~71 launches over 2^21 padded 64-bit keys at
+//   the daemon's 16,384 rows).
+// - The fold sorts K + P <= 8192 entries a row in one block: four stable
+//   8-bit passes, four block barriers a pass (66 and 91 network steps
+//   before). The keys stay in registers (R a thread, R in {4, 8, 16}),
+//   ranked per warp round as above; the block is sized to the row (at
+//   most 16 warps) and holds 6 bytes a key while sorting, 14 after, so 3
+//   to 4 rows share an SM even at the 4096-value chunk (1 before).
+// - The HLL kernels move few bytes per entry (4-16) and do a handful of
+//   integer operations on each: bytes bound them, and at the daemon's
+//   shapes the launch does.
+//
+// Fixed orders. The fold sums each cluster's entries one after another in
+// sorted order: the order of XLA's sequential segment_sum on the CPU, so
+// weights match exactly and means to the last bit wherever the cluster ids
+// agree. The merged quantile sums in a fixed order and never with float
+// atomics (per tile, one warp a cluster over the tile's entries; over the
+// tiles, 8 threads a cluster in turn and a fixed shuffle tree), so the
+// same state answers the same bytes every time, across a restart too.
+// Integer atomics (digit counts) give the same counts in any order.
 //
 // Arithmetic. Every float operation of the cluster and interpolation
 // formulas is written as __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn in
 // the JAX expression's order, so nvcc contracts none of them into an FMA.
 // asinf, logf and log1pf are CUDA's (within 2 ulp, as XLA's are): an entry
 // whose k lies within a few ulps of an integer may land in the next cluster.
+// The total is clamped as jnp.maximum clamps it: a NaN total stays NaN.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -80,7 +83,9 @@ constexpr float kQLo = 1e-7f;
 constexpr float kQHi = 0.99999988079071044921875f;  // float32(1 - 1e-7)
 constexpr float kTiny = 1e-30f;
 constexpr float kPiF = 3.14159274101257324219f;     // float32(pi)
-constexpr int kMaxFoldThreads = 1024;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kDigits = 256;                        // 8-bit radix digits
+constexpr int kPasses = 4;
 
 __device__ __forceinline__ uint32_t ord_key(float x) {
   if (x == 0.0f) return 0x80000000u;  // -0.0 and +0.0 are one key
@@ -89,14 +94,26 @@ __device__ __forceinline__ uint32_t ord_key(float x) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
+// The 32-bit order key of an entry: where(w > 0, mean, +inf).
+__device__ __forceinline__ uint32_t entry_key32(float mean, float w) {
+  return ord_key(w > 0.0f ? mean : __int_as_float(0x7F800000));
+}
+
+// The final step's 64-bit key: order key, then the centroid's index.
 __device__ __forceinline__ uint64_t entry_key(float mean, float w,
                                               uint32_t i) {
-  float k = w > 0.0f ? mean : __int_as_float(0x7F800000);  // +inf
-  return (static_cast<uint64_t>(ord_key(k)) << 32) | i;
+  return (static_cast<uint64_t>(entry_key32(mean, w)) << 32) | i;
+}
+
+// jnp.maximum(total, 1e-30): NaN stays NaN (fmaxf would drop it).
+__device__ __forceinline__ float clamp_total(float total) {
+  return isnan(total) ? total : fmaxf(total, kTiny);
 }
 
 // The k1 cluster of an entry of weight w > 0 at inclusive cumulative
-// weight cum: sketches.py _compress, operation by operation.
+// weight cum: sketches.py _compress, operation by operation. (A NaN q
+// clamps to kQLo here and lands in cluster 0, where XLA's NaN -> int32
+// conversion puts it too.)
 __device__ __forceinline__ int cluster_of(float cum, float w, float total,
                                           float scale, float half_delta,
                                           int delta) {
@@ -108,37 +125,52 @@ __device__ __forceinline__ int cluster_of(float cum, float w, float total,
   return c < 0 ? 0 : (c > delta - 1 ? delta - 1 : c);
 }
 
-__host__ __device__ __forceinline__ int64_t pow2_at_least(int64_t n) {
-  int64_t p = 1;
-  while (p < n) p <<= 1;
-  return p;
-}
-
-// The lower index of the p-th compare-exchange pair (i, i + j) of a
-// bitonic step with stride j: every thread takes whole pairs, none idles.
-__device__ __forceinline__ int64_t pair_low(int64_t p, int64_t j) {
-  return ((p & ~(j - 1)) << 1) | (p & (j - 1));
-}
-
-__device__ __forceinline__ void compare_exchange(uint64_t* keys, int64_t i,
-                                                 int64_t j, bool up) {
-  uint64_t a = keys[i], b = keys[i + j];
-  if ((a > b) == up) {
-    keys[i] = b;
-    keys[i + j] = a;
+// Stable rank of this lane's key among the warp's keys of the same digit:
+// those of earlier rounds (wcnt, the warp's own digit counts) and of lower
+// lanes in this round. Every lane of the warp calls it; a lane that holds
+// no key (live false) takes part and gets no rank. The lanes holding the
+// same digit are found with one ballot a digit bit (cheaper than
+// __match_any_sync, which the card runs as a slow loop).
+__device__ __forceinline__ uint32_t warp_rank(int digit, bool live,
+                                              uint32_t* wcnt) {
+  const int lane = threadIdx.x & 31;
+  unsigned peers = __ballot_sync(kFull, live);
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const bool bit = (digit >> b) & 1;
+    const unsigned votes = __ballot_sync(kFull, bit);
+    peers &= bit ? votes : ~votes;
   }
+  const unsigned lower = peers & ((1u << lane) - 1u);
+  uint32_t pre = live ? wcnt[digit] : 0u;
+  __syncwarp();
+  if (live && lower == 0) wcnt[digit] = pre + __popc(peers);
+  __syncwarp();
+  return pre + __popc(lower);
 }
 
-// One compare-exchange step (k, j) of an ascending bitonic network over
-// keys[0, n2) held by the block; direction from the global index.
-__device__ __forceinline__ void bitonic_step_shared(uint64_t* keys,
-                                                    int64_t n2, int64_t base,
-                                                    int64_t k, int64_t j) {
-  for (int64_t p = threadIdx.x; p < (n2 >> 1); p += blockDim.x) {
-    int64_t i = pair_low(p, j);
-    compare_exchange(keys, i, j, ((base + i) & k) == 0);
+// Exclusive scan of cnt[0, 256) in place by warp 0 (8 digits a lane);
+// returns the sum to warp 0's lanes.
+__device__ __forceinline__ uint32_t warp_scan_digits(uint32_t* cnt) {
+  const int lane = threadIdx.x & 31;
+  uint32_t v[8], s = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    v[j] = cnt[lane * 8 + j];
+    s += v[j];
   }
-  __syncthreads();
+  uint32_t x = s;
+  for (int o = 1; o < 32; o <<= 1) {
+    uint32_t y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  uint32_t run = x - s;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    cnt[lane * 8 + j] = run;
+    run += v[j];
+  }
+  return __shfl_sync(kFull, x, 31);
 }
 
 // Inclusive scan of vals[0, n) in place by the block: each thread sums a
@@ -147,7 +179,6 @@ __device__ __forceinline__ void bitonic_step_shared(uint64_t* keys,
 // blockDim.x is a multiple of 32, at most 1024; tsum holds 32 floats.
 // Returns the total to all.
 __device__ float block_scan_inclusive(float* vals, int n, float* tsum) {
-  const unsigned full = 0xFFFFFFFFu;
   const int T = blockDim.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = T >> 5;
   int per = (n + T - 1) / T;
@@ -160,17 +191,17 @@ __device__ float block_scan_inclusive(float* vals, int n, float* tsum) {
   }
   float x = run;  // inclusive scan of the chunk totals within the warp
   for (int o = 1; o < 32; o <<= 1) {
-    float y = __shfl_up_sync(full, x, o);
+    float y = __shfl_up_sync(kFull, x, o);
     if (lane >= o) x = __fadd_rn(x, y);
   }
-  float excl = __shfl_up_sync(full, x, 1);
+  float excl = __shfl_up_sync(kFull, x, 1);
   if (lane == 0) excl = 0.0f;
   if (lane == 31) tsum[warp] = x;
   __syncthreads();
   if (warp == 0) {
     float t = lane < nw ? tsum[lane] : 0.0f;
     for (int o = 1; o < 32; o <<= 1) {
-      float y = __shfl_up_sync(full, t, o);
+      float y = __shfl_up_sync(kFull, t, o);
       if (lane >= o) t = __fadd_rn(t, y);
     }
     if (lane < nw) tsum[lane] = t;  // inclusive over the warps
@@ -183,97 +214,184 @@ __device__ float block_scan_inclusive(float* vals, int n, float* tsum) {
   return total;
 }
 
+// Sum of x over the block in a fixed order (a shuffle tree per warp, then
+// the warps in order); red holds 32 floats. Returns the sum to all.
+__device__ float block_sum_fixed(float x, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = 16; o > 0; o >>= 1) x = __fadd_rn(x, __shfl_down_sync(kFull, x, o));
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  float s = 0.0f;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w)
+    s = __fadd_rn(s, red[w]);
+  __syncthreads();
+  return s;
+}
+
 // ---------------------------------------------------------------------------
 // t-digest fold: one block per digest row
 // ---------------------------------------------------------------------------
 
-__global__ void tdigest_fold_kernel(float* __restrict__ means,
-                                    float* __restrict__ weights, int64_t C,
-                                    int K, const int32_t* __restrict__ idx,
-                                    const float* __restrict__ batch,
-                                    const uint8_t* __restrict__ valid,
-                                    const float* __restrict__ bweights,
-                                    int P, int n2, float scale) {
+constexpr uint32_t kNoRank = 0xFFFFFFFFu;
+
+// Shared bytes of a fold block: W warps of R keys a thread for K + P = n
+// entries. Sorting: keys (u32) and entry indices (u16), the warps' digit
+// counts and the digit starts; after: sorted means (in the keys' place),
+// weights, cumulative weights, cluster ids (in the indices' place) and the
+// clusters' first and last entries.
+__host__ __device__ inline int fold_smem(int n, int K, int W, int R) {
+  const int cap = W * 32 * R;
+  return cap * 4 + (W + 1) * kDigits * 4 + n * 8 + K * 8 + cap * 2;
+}
+
+template <int R>
+__global__ void __launch_bounds__(512, 2) tdigest_fold_kernel(
+    float* __restrict__ means, float* __restrict__ weights, int64_t C, int K,
+    const int32_t* __restrict__ idx, const float* __restrict__ batch,
+    const uint8_t* __restrict__ valid, const float* __restrict__ bweights,
+    int P, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float tsum[32];
-  __shared__ int nonmono;
+  __shared__ uint32_t nlive;
   const int64_t r = blockIdx.x;
   const int32_t slot = idx[r];
   if (slot < 0 || slot >= C) return;  // padding row: the whole block
   const int n = K + P;
-  uint64_t* keys = reinterpret_cast<uint64_t*>(smem);    // [n2]
-  float* vm = reinterpret_cast<float*>(keys + n2);       // [n] means
-  float* vw = vm + n;                                    // [n] weights
-  float* buf = vw + n;                                   // [n] cum, then ids
-  int* cl = reinterpret_cast<int*>(buf);
-  int* first = cl + n;                                   // [K] run starts
-  for (int c = threadIdx.x; c < K; c += blockDim.x) first[c] = -1;
-  if (threadIdx.x == 0) nonmono = 0;
+  const int W = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int cap = W * 32 * R;
+  uint32_t* skey = reinterpret_cast<uint32_t*>(smem);     // [cap]
+  uint32_t* wcnt_all = skey + cap;                        // [W][256]
+  uint32_t* dstart = wcnt_all + W * kDigits;              // [256]
+  float* sw = reinterpret_cast<float*>(dstart + kDigits);  // [n] weights
+  float* cum = sw + n;                                    // [n]
+  int* first = reinterpret_cast<int*>(cum + n);           // [K] first entry
+  int* last = first + K;                                  // [K] last entry
+  uint16_t* sidx = reinterpret_cast<uint16_t*>(last + K);  // [cap]
+  float* sm = reinterpret_cast<float*>(skey);             // sorted means
+  uint16_t* cl = sidx;                                    // cluster ids
+  uint32_t* wcnt = wcnt_all + warp * kDigits;
+  for (int c = threadIdx.x; c < K; c += blockDim.x) {
+    first[c] = 0x7FFFFFFF;
+    last[c] = -1;
+  }
 
   float* mrow = means + static_cast<int64_t>(slot) * K;
   float* wrow = weights + static_cast<int64_t>(slot) * K;
-  for (int i = threadIdx.x; i < n2; i += blockDim.x) {
-    if (i < n) {
-      float m, w;
-      if (i < K) {
-        m = mrow[i];
-        w = wrow[i];
-      } else {
-        int64_t b = r * P + (i - K);
-        m = batch[b];
-        w = valid ? (valid[b] ? 1.0f : 0.0f) : bweights[b];
-      }
-      vm[i] = m;
-      vw[i] = w;
-      keys[i] = entry_key(m, w, static_cast<uint32_t>(i));
+  const int64_t b0 = r * P;
+  auto load = [&](int e, float* m, float* w) {
+    if (e < K) {
+      *m = mrow[e];
+      *w = wrow[e];
     } else {
-      keys[i] = ~0ull;  // padding sorts last
+      *m = batch[b0 + e - K];
+      *w = valid ? (valid[b0 + e - K] ? 1.0f : 0.0f) : bweights[b0 + e - K];
     }
+  };
+
+  // Four stable passes of 8 bits. Thread (warp, lane) holds the entries
+  // warp * 32R + j * 32 + lane, j < R: a warp's entries are a contiguous
+  // run in order, so ranking the warps' rounds in turn is stable. Pass 0
+  // reads the row, drops the zero-weight entries, and leaves the live ones
+  // (nlive of them) compacted at the front.
+  // key[j] and, packed, the entry's index (low 16 bits) and its rank
+  // within the warp (high 16), or kNoRank for no entry: two registers a
+  // key, and no predicate array (Hopper has 7 predicate registers).
+  uint32_t key[R], pr[R];
+  uint32_t m = static_cast<uint32_t>(n);
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int shift = 8 * pass;
+    for (int j = lane; j < kDigits; j += 32) wcnt[j] = 0;
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const uint32_t p = warp * 32 * R + j * 32 + lane;
+      key[j] = 0;
+      pr[j] = kNoRank;
+      if (p < m) {
+        if (pass == 0) {
+          float mv, wv;
+          load(static_cast<int>(p), &mv, &wv);
+          key[j] = entry_key32(mv, wv);
+          if (!(wv == 0.0f)) pr[j] = p;  // NaN weights stay
+        } else {
+          key[j] = skey[p];
+          pr[j] = sidx[p];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const bool live = pr[j] != kNoRank;
+      const uint32_t rk = warp_rank((key[j] >> shift) & 0xFF, live, wcnt);
+      if (live) pr[j] |= rk << 16;
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < kDigits; d += blockDim.x) {
+      uint32_t run = 0;
+      for (int w = 0; w < W; ++w) {
+        const uint32_t c = wcnt_all[w * kDigits + d];
+        wcnt_all[w * kDigits + d] = run;
+        run += c;
+      }
+      dstart[d] = run;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const uint32_t t = warp_scan_digits(dstart);
+      if (lane == 0) nlive = t;
+    }
+    __syncthreads();
+    m = nlive;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (pr[j] == kNoRank) continue;
+      const int d = (key[j] >> shift) & 0xFF;
+      const uint32_t pos = dstart[d] + wcnt[d] + (pr[j] >> 16);
+      skey[pos] = key[j];
+      sidx[pos] = static_cast<uint16_t>(pr[j] & 0xFFFFu);
+    }
+    __syncthreads();
+  }
+
+  // The m live entries in sorted order: means, weights, their scan.
+  const int nl = static_cast<int>(m);
+  for (int i = threadIdx.x; i < nl; i += blockDim.x) {
+    float mv, wv;
+    load(sidx[i], &mv, &wv);
+    sm[i] = mv;
+    sw[i] = wv;
+    cum[i] = wv;
   }
   __syncthreads();
-  for (int64_t k = 2; k <= n2; k <<= 1)
-    for (int64_t j = k >> 1; j > 0; j >>= 1)
-      bitonic_step_shared(keys, n2, 0, k, j);
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    buf[i] = vw[static_cast<uint32_t>(keys[i])];
-  __syncthreads();
-  float total = fmaxf(block_scan_inclusive(buf, n, tsum), kTiny);
+  const float total = clamp_total(block_scan_inclusive(cum, nl, tsum));
   const float half_delta = static_cast<float>(K / 2) +
                            (K % 2 ? 0.5f : 0.0f);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float w = vw[static_cast<uint32_t>(keys[i])];
-    float cum = buf[i];
-    cl[i] = w > 0.0f ? cluster_of(cum, w, total, scale, half_delta, K) : K;
+  for (int i = threadIdx.x; i < nl; i += blockDim.x) {
+    const float w = sw[i];
+    cl[i] = static_cast<uint16_t>(
+        w > 0.0f ? cluster_of(cum[i], w, total, scale, half_delta, K) : K);
   }
   __syncthreads();
-  // The ids are non-decreasing in sorted order (cumulative weights only
-  // grow), so each cluster is one run: note where each run starts. Where
-  // they are not (weight-0 entries interleaved with +inf or NaN means at
-  // the end), every thread scans all entries instead.
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    int c = cl[i], prev = i ? cl[i - 1] : -1;
-    if (c < prev) nonmono = 1;
-    if (c != prev && c < K) first[c] = i;
+  // Where each cluster's entries start and end in sorted order. The ids
+  // are non-decreasing (cumulative weights only grow), so each cluster is
+  // one run; where they are not (asinf is not monotone to the last ulp,
+  // and weights may be negative or NaN), the range spans the strays.
+  for (int i = threadIdx.x; i < nl; i += blockDim.x) {
+    const int c = cl[i];
+    if (c < K && (i == 0 || cl[i - 1] != c)) atomicMin(&first[c], i);
+    if (c < K && (i == nl - 1 || cl[i + 1] != c)) atomicMax(&last[c], i);
   }
   __syncthreads();
   // Cluster c's entries in sorted order, one after another (XLA's
   // sequential segment_sum order).
   for (int c = threadIdx.x; c < K; c += blockDim.x) {
     float ws = 0.0f, ms = 0.0f;
-    int i = 0, stop = n;
-    if (!nonmono) {
-      i = first[c];
-      if (i < 0) i = stop = 0;  // no entry in cluster c
-    }
-    for (; i < stop; ++i) {
+    for (int i = first[c]; i <= last[c]; ++i) {
       if (cl[i] == c) {
-        uint32_t e = static_cast<uint32_t>(keys[i]);
-        float w = vw[e];
+        const float w = sw[i];
         ws = __fadd_rn(ws, w);
-        ms = __fadd_rn(ms, __fmul_rn(vm[e], w));
-      } else if (!nonmono) {
-        break;  // the end of c's run
+        ms = __fadd_rn(ms, __fmul_rn(sm[i], w));
       }
     }
     mrow[c] = ws > 0.0f ? __fdiv_rn(ms, fmaxf(ws, kTiny)) : 0.0f;
@@ -373,14 +491,19 @@ __global__ void hll_estimate_kernel(const int32_t* __restrict__ regs, int m,
 }
 
 // ---------------------------------------------------------------------------
-// Merged quantile: keys, global sort, scan, cluster sums, interpolation
+// Merged quantile: radix sort of the live entries, scan, cluster sums,
+// interpolation
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = 2048;        // keys a block sorts in shared memory
-constexpr int kTileThreads = 1024;
-constexpr int kScanTile = 2048;    // sorted entries a scan / bin block takes
+constexpr int kSortTile = 2048;     // entries a radix block ranks
+constexpr int kSortThreads = 256;   // 8 warps, 8 rounds of 32 each
+constexpr int kSortWarps = kSortThreads / 32;
+constexpr int kSortRounds = kSortTile / kSortThreads;
+constexpr int kSortBlocks = 512;   // blocks of a scatter launch
+constexpr int kCountSplit = 4;     // count blocks per scatter block
+constexpr int kScanTile = 2048;     // sorted entries a scan / bin block takes
 constexpr int kScanThreads = 256;
-constexpr int kFinalThreads = 256;
+constexpr int kFinalThreads = 1024;
 
 struct MqEntry {
   const float* means;
@@ -390,136 +513,295 @@ struct MqEntry {
   const uint8_t* valid;
 };
 
-__device__ __forceinline__ void mq_load(const MqEntry& e, uint32_t i,
-                                        float* m, float* w) {
-  uint32_t s = i / static_cast<uint32_t>(e.K);
-  uint32_t c = i - s * static_cast<uint32_t>(e.K);
-  if (e.valid[s]) {
-    int64_t off = static_cast<int64_t>(e.idx[s]) * e.K + c;
-    *m = e.means[off];
-    *w = e.weights[off];
-  } else {
-    *m = 0.0f;
-    *w = 0.0f;
-  }
+// Entry p of the flat [S * K] selection, in index order. False when it
+// weighs zero: a row where valid is false, or a weight of +0.0 or -0.0.
+__device__ __forceinline__ bool mq_input(const MqEntry& e, int64_t p,
+                                         uint32_t* key, float2* mw) {
+  const uint32_t pp = static_cast<uint32_t>(p);  // n < 2^32
+  const uint32_t s = pp / static_cast<uint32_t>(e.K);
+  if (!e.valid[s]) return false;
+  const int64_t off = static_cast<int64_t>(e.idx[s]) * e.K +
+                      (pp - s * static_cast<uint32_t>(e.K));
+  const float w = e.weights[off];
+  if (w == 0.0f) return false;  // NaN weights stay
+  const float m = e.means[off];
+  *key = entry_key32(m, w);
+  *mw = make_float2(m, w);
+  return true;
 }
 
-__global__ void mq_keys_kernel(MqEntry e, int64_t n, int64_t n2,
-                               uint64_t* __restrict__ keys) {
-  int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n2) return;
-  if (i < n) {
-    float m, w;
-    mq_load(e, static_cast<uint32_t>(i), &m, &w);
-    keys[i] = entry_key(m, w, static_cast<uint32_t>(i));
-  } else {
-    keys[i] = ~0ull;
-  }
+// The length pass `pass` sorts: the n input entries, then the live ones.
+__device__ __forceinline__ int64_t mq_len(int pass, int64_t n,
+                                          const uint32_t* nlive) {
+  return pass == 0 ? n : static_cast<int64_t>(*nlive);
 }
 
-// The network's steps (k, j) with kfrom <= k <= kto and j < tile, in shared
-// memory over one tile: with kfrom == 2 and kto == tile the tile's whole
-// sort; with kfrom == kto == k the tail (j < tile) of a longer stage k.
-__global__ void mq_sort_tile_kernel(uint64_t* __restrict__ keys, int tile,
-                                    int64_t kfrom, int64_t kto) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint64_t* s = reinterpret_cast<uint64_t*>(smem);
-  int64_t base = static_cast<int64_t>(blockIdx.x) * tile;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) s[i] = keys[base + i];
+// The tiles [*t0, *t1) of scatter block b: the len entries cut into
+// tiles of kSortTile, dealt out in order, an equal run to each of
+// kSortBlocks.
+__device__ __forceinline__ void mq_tiles(int64_t len, int b, int64_t* t0,
+                                         int64_t* t1) {
+  const int64_t tiles = (len + kSortTile - 1) / kSortTile;
+  const int64_t per = (tiles + kSortBlocks - 1) / kSortBlocks;
+  const int64_t a = static_cast<int64_t>(b) * per;
+  *t0 = a < tiles ? a : tiles;
+  *t1 = a + per < tiles ? a + per : tiles;
+}
+
+// Per scatter block b, its count of each digit over its tiles, from
+// kCountSplit count blocks (tiles dealt out in turn; one histogram a warp
+// in shared memory, then summed) adding into hist[d * kSortBlocks + b],
+// zeroed beforehand; the digit totals added into dtot.
+__global__ void __launch_bounds__(kSortThreads) mq_count_kernel(
+    MqEntry e, const uint32_t* __restrict__ keys, int pass, int64_t n,
+    const uint32_t* __restrict__ nlive, uint32_t* __restrict__ hist,
+    uint32_t* __restrict__ dtot) {
+  __shared__ uint32_t h[kSortWarps][kDigits];
+  for (int i = threadIdx.x; i < kSortWarps * kDigits; i += blockDim.x)
+    h[i / kDigits][i % kDigits] = 0;
   __syncthreads();
-  for (int64_t k = kfrom; k <= kto; k <<= 1) {
-    int64_t j0 = (k >> 1) < tile ? (k >> 1) : (tile >> 1);
-    for (int64_t j = j0; j > 0; j >>= 1)
-      bitonic_step_shared(s, tile, base, k, j);
+  const int64_t len = mq_len(pass, n, nlive);
+  const int b = blockIdx.x / kCountSplit;
+  int64_t t0, t1;
+  mq_tiles(len, b, &t0, &t1);
+  const int shift = 8 * pass;
+  uint32_t* wh = h[threadIdx.x >> 5];
+  for (int64_t t = t0 + blockIdx.x % kCountSplit; t < t1; t += kCountSplit) {
+    const int64_t hi = (t + 1) * kSortTile < len ? (t + 1) * kSortTile : len;
+    for (int64_t p = t * kSortTile + threadIdx.x; p < hi; p += blockDim.x) {
+      uint32_t key = 0;
+      float2 mw;
+      const bool live = pass == 0 ? mq_input(e, p, &key, &mw) : true;
+      if (pass != 0) key = keys[p];
+      if (live) atomicAdd(&wh[(key >> shift) & 0xFF], 1u);
+    }
   }
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) keys[base + i] = s[i];
+  __syncthreads();
+  for (int d = threadIdx.x; d < kDigits; d += blockDim.x) {
+    uint32_t c = 0;
+    for (int w = 0; w < kSortWarps; ++w) c += h[w][d];
+    if (c) {
+      atomicAdd(&hist[d * kSortBlocks + b], c);
+      atomicAdd(&dtot[d], c);
+    }
+  }
 }
 
-__global__ void mq_sort_global_kernel(uint64_t* __restrict__ keys,
-                                      int64_t n2, int64_t k, int64_t j) {
-  int64_t p = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (p >= (n2 >> 1)) return;
-  int64_t i = pair_low(p, j);
-  compare_exchange(keys, i, j, (i & k) == 0);
+// Block d: the exclusive offsets of digit d in each count block, in
+// place: the counts of the smaller digits, then digit d's counts in the
+// blocks before. Pass 0 also stores the number of live entries.
+__global__ void __launch_bounds__(kSortBlocks) mq_scan_digits_kernel(
+    uint32_t* __restrict__ hist, const uint32_t* __restrict__ dtot,
+    uint32_t* __restrict__ nlive) {
+  __shared__ uint32_t wsum[32];
+  __shared__ uint32_t base_s;
+  const int d = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  if (warp == 0) {
+    uint32_t b = 0;
+    for (int j = lane; j < d; j += 32) b += dtot[j];
+    for (int o = 16; o > 0; o >>= 1) b += __shfl_down_sync(kFull, b, o);
+    if (lane == 0) {
+      base_s = b;
+      if (nlive && d == kDigits - 1) *nlive = b + dtot[d];
+    }
+  }
+  uint32_t* col = hist + d * kSortBlocks;
+  const uint32_t v = col[threadIdx.x];  // blockDim.x == kSortBlocks
+  uint32_t x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) wsum[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    uint32_t t = lane < nw ? wsum[lane] : 0u;
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(kFull, t, o);
+      if (lane >= o) t += y;
+    }
+    if (lane < nw) wsum[lane] = t;  // inclusive over the warps
+  }
+  __syncthreads();
+  col[threadIdx.x] = base_s + (warp ? wsum[warp - 1] : 0u) + x - v;
 }
 
-// Tile-local inclusive scan of the sorted weights; tile totals out.
-__global__ void mq_scan_tiles_kernel(MqEntry e,
-                                     const uint64_t* __restrict__ keys,
-                                     int64_t n, float* __restrict__ cum,
-                                     float* __restrict__ tile_total) {
+// Per block, its tiles in order: the stable rank of each live entry among
+// the tile's entries of its digit (warps in tile order, each ranking its
+// rounds in turn with __match_any_sync), the tile staged in shared memory
+// in digit order and written out as runs after the block's entries of the
+// same digit in earlier tiles. Keys are not written on the last pass
+// (kdst null): only the payload is read after it.
+__global__ void __launch_bounds__(kSortThreads) mq_scatter_kernel(
+    MqEntry e, int pass, const uint32_t* __restrict__ ksrc,
+    const float2* __restrict__ vsrc, uint32_t* __restrict__ kdst,
+    float2* __restrict__ vdst, int64_t n,
+    const uint32_t* __restrict__ nlive, const uint32_t* __restrict__ hist) {
+  __shared__ uint32_t wcnt_all[kSortWarps][kDigits];
+  __shared__ uint32_t dstart[kDigits];
+  __shared__ uint32_t run[kDigits];  // where the next entry of d goes
+  __shared__ uint32_t sk[kSortTile];
+  __shared__ float2 sv[kSortTile];
+  __shared__ uint32_t tile_live;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t len = mq_len(pass, n, nlive);
+  int64_t t0, t1;
+  mq_tiles(len, blockIdx.x, &t0, &t1);
+  if (t0 >= t1) return;  // the whole block
+  for (int d = threadIdx.x; d < kDigits; d += blockDim.x)
+    run[d] = hist[d * kSortBlocks + blockIdx.x];
+  uint32_t* wcnt = wcnt_all[warp];
+  const int shift = 8 * pass;
+  for (int64_t t = t0; t < t1; ++t) {
+    const int64_t base = t * kSortTile;
+    for (int j = lane; j < kDigits; j += 32) wcnt[j] = 0;
+    __syncwarp();
+    uint32_t key[kSortRounds], rank[kSortRounds];  // kNoRank: no entry
+    float2 val[kSortRounds];
+#pragma unroll
+    for (int j = 0; j < kSortRounds; ++j) {
+      const int64_t p = base + warp * 32 * kSortRounds + j * 32 + lane;
+      key[j] = 0;
+      rank[j] = kNoRank;
+      if (p < len) {
+        if (pass == 0) {
+          if (mq_input(e, p, &key[j], &val[j])) rank[j] = 0;
+        } else {
+          key[j] = ksrc[p];
+          val[j] = vsrc[p];
+          rank[j] = 0;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kSortRounds; ++j) {
+      const bool live = rank[j] != kNoRank;
+      const uint32_t rk = warp_rank((key[j] >> shift) & 0xFF, live, wcnt);
+      if (live) rank[j] = rk;
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < kDigits; d += blockDim.x) {
+      uint32_t r = 0;
+      for (int w = 0; w < kSortWarps; ++w) {
+        const uint32_t c = wcnt_all[w][d];
+        wcnt_all[w][d] = r;
+        r += c;
+      }
+      dstart[d] = r;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      const uint32_t tl = warp_scan_digits(dstart);
+      if (lane == 0) tile_live = tl;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kSortRounds; ++j) {
+      if (rank[j] == kNoRank) continue;
+      const int d = (key[j] >> shift) & 0xFF;
+      const uint32_t pos = dstart[d] + wcnt[d] + rank[j];
+      sk[pos] = key[j];
+      sv[pos] = val[j];
+    }
+    __syncthreads();
+    const int cnt = static_cast<int>(tile_live);
+    for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+      const uint32_t k = sk[i];
+      const int d = (k >> shift) & 0xFF;
+      const int64_t g = static_cast<int64_t>(run[d]) + (i - dstart[d]);
+      if (kdst) kdst[g] = k;
+      vdst[g] = sv[i];
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < kDigits; d += blockDim.x)
+      run[d] += (d + 1 < kDigits ? dstart[d + 1] : tile_live) - dstart[d];
+  }
+}
+
+// The sorted weights of one scan tile, scanned as mq_bins_kernel scans
+// them; its total out.
+__global__ void __launch_bounds__(kScanThreads) mq_tile_totals_kernel(
+    const float2* __restrict__ v, const uint32_t* __restrict__ nlive,
+    float* __restrict__ tile_total) {
   __shared__ float vals[kScanTile];
   __shared__ float tsum[32];
-  int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile;
-  int cnt = static_cast<int>(n - base < kScanTile ? n - base : kScanTile);
-  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-    float m, w;
-    mq_load(e, static_cast<uint32_t>(keys[base + i]), &m, &w);
-    vals[i] = w;
-  }
+  const int64_t m = *nlive;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile;
+  if (base >= m) return;
+  const int cnt = static_cast<int>(m - base < kScanTile ? m - base
+                                                         : kScanTile);
+  for (int i = threadIdx.x; i < cnt; i += blockDim.x) vals[i] = v[base + i].y;
   __syncthreads();
-  float total = block_scan_inclusive(vals, cnt, tsum);
-  for (int i = threadIdx.x; i < cnt; i += blockDim.x) cum[base + i] = vals[i];
+  const float total = block_scan_inclusive(vals, cnt, tsum);
   if (threadIdx.x == 0) tile_total[blockIdx.x] = total;
 }
 
-// Exclusive prefix of the tile totals (in tile order) and the grand total
-// at offs[ntiles]; one block.
-__global__ void mq_scan_totals_kernel(const float* __restrict__ tile_total,
-                                      int64_t ntiles,
-                                      float* __restrict__ offs) {
-  if (threadIdx.x != 0) return;
-  float acc = 0.0f;
-  for (int64_t t = 0; t < ntiles; ++t) {
-    offs[t] = acc;
-    acc = __fadd_rn(acc, tile_total[t]);
-  }
-  offs[ntiles] = acc;
-}
-
-// Per tile: each entry's cluster, then one warp a cluster in the tile's
-// range: lanes sum every 32nd entry in order, a fixed shuffle tree joins
-// them. partial[tile][c] = (weight sum, mean * weight sum).
-__global__ void mq_bins_kernel(MqEntry e, const uint64_t* __restrict__ keys,
-                               int64_t n, const float* __restrict__ cum,
-                               const float* __restrict__ offs,
-                               int64_t ntiles, int delta, float scale,
-                               float half_delta,
-                               float2* __restrict__ partial) {
+// Per scan tile: its offset (the tiles before, summed in a fixed order)
+// and the grand total, the tile's inclusive scan, each entry's cluster,
+// then one warp a cluster in the tile's range: lanes sum every 32nd entry
+// in order, a fixed shuffle tree joins them. partial[c][tile] = (weight
+// sum, mean * weight sum), zero for the clusters the tile does not touch;
+// a cluster's row holds nt tiles.
+__global__ void __launch_bounds__(kScanThreads) mq_bins_kernel(
+    const float2* __restrict__ v, const uint32_t* __restrict__ nlive,
+    const float* __restrict__ tile_total, int delta, float scale,
+    float half_delta, int64_t nt, float2* __restrict__ partial) {
   __shared__ float sm[kScanTile];
   __shared__ float sw[kScanTile];
+  __shared__ float cum[kScanTile];
   __shared__ int scl[kScanTile];
+  __shared__ float red[32];
   __shared__ int crange[2];
-  int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile;
-  int cnt = static_cast<int>(n - base < kScanTile ? n - base : kScanTile);
-  float total = fmaxf(offs[ntiles], kTiny);
-  float off = offs[blockIdx.x];
+  const int64_t m = *nlive;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile;
+  if (base >= m) return;
+  const int cnt = static_cast<int>(m - base < kScanTile ? m - base
+                                                         : kScanTile);
+  const int64_t ntiles = (m + kScanTile - 1) / kScanTile;
+  float before = 0.0f, all = 0.0f;
+  for (int64_t j = threadIdx.x; j < ntiles; j += blockDim.x) {
+    const float x = tile_total[j];
+    if (j < static_cast<int64_t>(blockIdx.x)) before = __fadd_rn(before, x);
+    all = __fadd_rn(all, x);
+  }
+  const float off = block_sum_fixed(before, red);
+  const float total = clamp_total(block_sum_fixed(all, red));
   if (threadIdx.x == 0) {
     crange[0] = delta;
     crange[1] = -1;
   }
+  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+    const float2 x = v[base + i];
+    sm[i] = x.x;
+    sw[i] = x.y;
+    cum[i] = x.y;
+  }
   __syncthreads();
+  block_scan_inclusive(cum, cnt, red);
   int lo = delta, hi = -1;
   for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-    float m, w;
-    mq_load(e, static_cast<uint32_t>(keys[base + i]), &m, &w);
+    const float w = sw[i];
     int c = delta;
     if (w > 0.0f) {
-      c = cluster_of(__fadd_rn(cum[base + i], off), w, total, scale,
-                     half_delta, delta);
+      c = cluster_of(__fadd_rn(cum[i], off), w, total, scale, half_delta,
+                     delta);
       lo = min(lo, c);
       hi = max(hi, c);
     }
-    sm[i] = m;
-    sw[i] = w;
     scl[i] = c;
   }
   atomicMin(&crange[0], lo);
   atomicMax(&crange[1], hi);
   __syncthreads();
+  const int c0 = crange[0], c1 = crange[1];
+  float2* out = partial + blockIdx.x;
+  for (int c = threadIdx.x; c < delta; c += blockDim.x)
+    if (c < c0 || c > c1) out[c * nt] = make_float2(0.0f, 0.0f);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
-  for (int c = crange[0] + warp; c <= crange[1]; c += nwarps) {
+  for (int c = c0 + warp; c <= c1; c += nwarps) {
     float ws = 0.0f, ms = 0.0f;
     for (int i = lane; i < cnt; i += 32) {
       if (scl[i] == c) {
@@ -528,21 +810,23 @@ __global__ void mq_bins_kernel(MqEntry e, const uint64_t* __restrict__ keys,
       }
     }
     for (int o = 16; o > 0; o >>= 1) {
-      ws = __fadd_rn(ws, __shfl_down_sync(0xFFFFFFFFu, ws, o));
-      ms = __fadd_rn(ms, __shfl_down_sync(0xFFFFFFFFu, ms, o));
+      ws = __fadd_rn(ws, __shfl_down_sync(kFull, ws, o));
+      ms = __fadd_rn(ms, __shfl_down_sync(kFull, ms, o));
     }
-    if (lane == 0)
-      partial[static_cast<int64_t>(blockIdx.x) * delta + c] =
-          make_float2(ws, ms);
+    if (lane == 0) out[c * nt] = make_float2(ws, ms);
   }
 }
 
-// One block: the delta clusters' sums over tiles (in tile order), the
-// centroids sorted as tdigest_quantile sorts them, the quantiles.
-__global__ void mq_final_kernel(const float2* __restrict__ partial,
-                                int64_t ntiles, int delta,
-                                const float* __restrict__ q, int Q,
-                                float* __restrict__ out) {
+// One block: the delta clusters' sums over the tiles (8 threads a
+// cluster take the tiles in turn, a fixed shuffle tree joins them), the
+// centroids sorted as
+// tdigest_quantile sorts them, the quantiles. With digest, the merged
+// digest's means and weights are stored there too ([2, delta]).
+__global__ void __launch_bounds__(kFinalThreads) mq_final_kernel(
+    const float2* __restrict__ partial, int64_t nt,
+    const uint32_t* __restrict__ nlive, int delta,
+    const float* __restrict__ q, int Q, float* __restrict__ out,
+    float* __restrict__ digest) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* key = reinterpret_cast<uint64_t*>(smem);  // [delta] sort keys
   float* cm = reinterpret_cast<float*>(key + delta);  // cluster means
@@ -551,17 +835,36 @@ __global__ void mq_final_kernel(const float2* __restrict__ partial,
   float* sw = sm + delta;                             // sorted weights
   float* centers = sw + delta;                        // [delta]
   __shared__ int nreal_s;
-  for (int c = threadIdx.x; c < delta; c += blockDim.x) {
+  const int64_t ntiles = (static_cast<int64_t>(*nlive) + kScanTile - 1) /
+                         kScanTile;
+  const int sub = threadIdx.x & 7;
+  // Every thread of a warp runs the same number of rounds (blockDim.x is
+  // a multiple of 32), so the shuffles see whole warps.
+  for (int c0 = 0; c0 < delta; c0 += blockDim.x >> 3) {
+    const int c = c0 + (threadIdx.x >> 3);
     float ws = 0.0f, ms = 0.0f;
-    for (int64_t t = 0; t < ntiles; ++t) {
-      float2 v = partial[t * delta + c];
-      ws = __fadd_rn(ws, v.x);
-      ms = __fadd_rn(ms, v.y);
+    if (c < delta) {
+#pragma unroll 4
+      for (int64_t t = sub; t < ntiles; t += 8) {
+        const float2 v = partial[c * nt + t];
+        ws = __fadd_rn(ws, v.x);
+        ms = __fadd_rn(ms, v.y);
+      }
     }
-    float mean = ws > 0.0f ? __fdiv_rn(ms, fmaxf(ws, kTiny)) : 0.0f;
-    cm[c] = mean;
-    cw[c] = ws;
-    key[c] = entry_key(mean, ws, static_cast<uint32_t>(c));
+    for (int o = 4; o > 0; o >>= 1) {
+      ws = __fadd_rn(ws, __shfl_down_sync(kFull, ws, o));
+      ms = __fadd_rn(ms, __shfl_down_sync(kFull, ms, o));
+    }
+    if (sub == 0 && c < delta) {
+      const float mean = ws > 0.0f ? __fdiv_rn(ms, fmaxf(ws, kTiny)) : 0.0f;
+      cm[c] = mean;
+      cw[c] = ws;
+      key[c] = entry_key(mean, ws, static_cast<uint32_t>(c));
+      if (digest) {
+        digest[c] = mean;
+        digest[delta + c] = ws;
+      }
+    }
   }
   __syncthreads();
   for (int c = threadIdx.x; c < delta; c += blockDim.x) {
@@ -611,21 +914,34 @@ __global__ void mq_final_kernel(const float2* __restrict__ partial,
   }
 }
 
+// Scratch of the merged quantile for n = S * K entries: keys and payloads
+// in two buffers each (the passes alternate), each pass's digit counts
+// per scatter block, the digit totals of each pass and the live count,
+// the scan tiles' totals and their cluster sums.
 struct MqLayout {
-  int64_t n2, ntiles, keys, cum, totals, offs, partial, bytes;
+  int64_t nt, keys[2], vals[2], hist, dtot, tile_total, partial, bytes;
 };
 
 __host__ MqLayout mq_layout(int64_t n, int delta) {
   auto up = [](int64_t b) { return (b + 255) & ~int64_t(255); };
   MqLayout l;
-  l.n2 = pow2_at_least(n < 2 ? 2 : n);
-  l.ntiles = (n + kScanTile - 1) / kScanTile;
-  l.keys = 0;
-  l.cum = l.keys + up(l.n2 * 8);
-  l.totals = l.cum + up(n * 4);
-  l.offs = l.totals + up(l.ntiles * 4);
-  l.partial = l.offs + up((l.ntiles + 1) * 4);
-  l.bytes = l.partial + up(l.ntiles * delta * 8);
+  l.nt = (n + kScanTile - 1) / kScanTile;
+  int64_t at = 0;
+  for (int b = 0; b < 2; ++b) {
+    l.vals[b] = at;
+    at += up(n * 8);
+    l.keys[b] = at;
+    at += up(n * 4);
+  }
+  l.hist = at;  // one region a pass, then dtot: one memset zeroes both
+  at += kPasses * kSortBlocks * kDigits * 4;
+  l.dtot = at;
+  at += up((kPasses * kDigits + 1) * 4);
+  l.tile_total = at;
+  at += up(l.nt * 4);
+  l.partial = at;
+  at += up(l.nt * delta * 8);
+  l.bytes = at;
   return l;
 }
 
@@ -633,6 +949,81 @@ cudaError_t set_smem(const void* fn, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               bytes);
+}
+
+template <int R>
+int launch_fold(float* means, float* weights, int64_t C, int K,
+                const int32_t* idx, int64_t rows, const float* batch,
+                const uint8_t* valid, const float* bweights, int P,
+                cudaStream_t stream) {
+  const int n = K + P;
+  const int W = (n + 32 * R - 1) / (32 * R);
+  const int smem = fold_smem(n, K, W, R);
+  cudaError_t err = set_smem(
+      reinterpret_cast<const void*>(tdigest_fold_kernel<R>), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale = static_cast<float>(K) / kPiF;
+  tdigest_fold_kernel<R><<<static_cast<unsigned>(rows), W * 32, smem,
+                           stream>>>(means, weights, C, K, idx, batch, valid,
+                                     bweights, P, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int mq_run(const float* means, const float* weights, int K,
+           const int32_t* idx, const uint8_t* valid, int64_t S,
+           const float* q, int Q, int delta, void* scratch,
+           int64_t scratch_bytes, float* out, float* digest,
+           cudaStream_t stream) {
+  const int64_t n = S * K;
+  if (n <= 0 || n >= (int64_t(1) << 32) || delta <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  MqLayout l = mq_layout(n, delta);
+  if (scratch_bytes < l.bytes) return static_cast<int>(cudaErrorInvalidValue);
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  uint32_t* keys[2];
+  float2* vals[2];
+  for (int b = 0; b < 2; ++b) {
+    keys[b] = reinterpret_cast<uint32_t*>(base + l.keys[b]);
+    vals[b] = reinterpret_cast<float2*>(base + l.vals[b]);
+  }
+  uint32_t* hist = reinterpret_cast<uint32_t*>(base + l.hist);
+  uint32_t* dtot = reinterpret_cast<uint32_t*>(base + l.dtot);
+  uint32_t* nlive = dtot + kPasses * kDigits;
+  float* tile_total = reinterpret_cast<float*>(base + l.tile_total);
+  float2* partial = reinterpret_cast<float2*>(base + l.partial);
+  MqEntry e{means, weights, K, idx, valid};
+  const float scale = static_cast<float>(delta) / kPiF;
+  const float half_delta = static_cast<float>(delta / 2) +
+                           (delta % 2 ? 0.5f : 0.0f);
+  const unsigned nt = static_cast<unsigned>(l.nt);
+  cudaError_t err = cudaMemsetAsync(hist, 0, l.tile_total - l.hist,
+                                    stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // Pass p writes buffer p & 1; pass 0 reads the digests themselves.
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int src = (pass + 1) & 1, dst = pass & 1;
+    uint32_t* tot = dtot + pass * kDigits;
+    uint32_t* ph = hist + pass * kSortBlocks * kDigits;
+    mq_count_kernel<<<kSortBlocks * kCountSplit, kSortThreads, 0, stream>>>(
+        e, keys[src], pass, n, nlive, ph, tot);
+    mq_scan_digits_kernel<<<kDigits, kSortBlocks, 0, stream>>>(
+        ph, tot, pass == 0 ? nlive : nullptr);
+    mq_scatter_kernel<<<kSortBlocks, kSortThreads, 0, stream>>>(
+        e, pass, keys[src], vals[src],
+        pass == kPasses - 1 ? nullptr : keys[dst], vals[dst], n, nlive,
+        ph);
+  }
+  const float2* sorted = vals[(kPasses - 1) & 1];
+  mq_tile_totals_kernel<<<nt, kScanThreads, 0, stream>>>(sorted, nlive,
+                                                         tile_total);
+  mq_bins_kernel<<<nt, kScanThreads, 0, stream>>>(
+      sorted, nlive, tile_total, delta, scale, half_delta, l.nt, partial);
+  const int fsmem = delta * 8 + delta * 5 * 4;
+  err = set_smem(reinterpret_cast<const void*>(mq_final_kernel), fsmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mq_final_kernel<<<1, kFinalThreads, fsmem, stream>>>(
+      partial, l.nt, nlive, delta, q, Q, out, digest);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -647,18 +1038,17 @@ int tdigest_fold_f32(float* means, float* weights, int64_t C, int32_t K,
                      cudaStream_t stream) {
   if (R <= 0) return 0;
   const int n = K + P;
-  const int n2 = static_cast<int>(pow2_at_least(n));
-  int threads = n2 / 2;  // one compare-exchange pair a thread
-  threads = threads < 128 ? 128 : (threads > kMaxFoldThreads
-                                       ? kMaxFoldThreads : threads);
-  const int smem = n2 * 8 + n * 12 + K * 4;
-  cudaError_t err = set_smem(reinterpret_cast<const void*>(
-                                 tdigest_fold_kernel), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = static_cast<float>(K) / kPiF;
-  tdigest_fold_kernel<<<static_cast<unsigned>(R), threads, smem, stream>>>(
-      means, weights, C, K, idx, batch, valid, bweights, P, n2, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (K <= 0 || P < 0 || n > 16 * 32 * 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // The fewest keys a thread that keep the block within 16 warps.
+  if (n <= 16 * 32 * 4)
+    return launch_fold<4>(means, weights, C, K, idx, R, batch, valid,
+                          bweights, P, stream);
+  if (n <= 16 * 32 * 8)
+    return launch_fold<8>(means, weights, C, K, idx, R, batch, valid,
+                          bweights, P, stream);
+  return launch_fold<16>(means, weights, C, K, idx, R, batch, valid,
+                         bweights, P, stream);
 }
 
 // Fold item row r (U int32 items, valid[r, j]) into register row idx[r] of
@@ -698,57 +1088,20 @@ int tdigest_merged_quantile_f32(const float* means, const float* weights,
                                 const float* q, int32_t Q, int32_t delta,
                                 void* scratch, int64_t scratch_bytes,
                                 float* out, cudaStream_t stream) {
-  const int64_t n = S * K;
-  if (n <= 0 || Q <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  MqLayout l = mq_layout(n, delta);
-  if (scratch_bytes < l.bytes) return static_cast<int>(cudaErrorInvalidValue);
-  unsigned char* base = static_cast<unsigned char*>(scratch);
-  uint64_t* keys = reinterpret_cast<uint64_t*>(base + l.keys);
-  float* cum = reinterpret_cast<float*>(base + l.cum);
-  float* totals = reinterpret_cast<float*>(base + l.totals);
-  float* offs = reinterpret_cast<float*>(base + l.offs);
-  float2* partial = reinterpret_cast<float2*>(base + l.partial);
-  MqEntry e{means, weights, K, idx, valid};
-  const float scale = static_cast<float>(delta) / kPiF;
-  const float half_delta = static_cast<float>(delta / 2) +
-                           (delta % 2 ? 0.5f : 0.0f);
-  cudaError_t err;
+  if (Q <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return mq_run(means, weights, K, idx, valid, S, q, Q, delta, scratch,
+                scratch_bytes, out, nullptr, stream);
+}
 
-  const int64_t n2 = l.n2;
-  mq_keys_kernel<<<static_cast<unsigned>((n2 + 255) / 256), 256, 0,
-                   stream>>>(e, n, n2, keys);
-  const int tile = static_cast<int>(n2 < kTile ? n2 : kTile);
-  const int tthreads = tile / 2 < kTileThreads ? (tile / 2 < 32 ? 32
-                                                                : tile / 2)
-                                               : kTileThreads;
-  const int tsmem = tile * 8;
-  err = set_smem(reinterpret_cast<const void*>(mq_sort_tile_kernel), tsmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned tiles = static_cast<unsigned>(n2 / tile);
-  mq_sort_tile_kernel<<<tiles, tthreads, tsmem, stream>>>(keys, tile, 2,
-                                                         tile);
-  for (int64_t k = 2 * static_cast<int64_t>(tile); k <= n2; k <<= 1) {
-    for (int64_t j = k >> 1; j >= tile; j >>= 1)
-      mq_sort_global_kernel<<<static_cast<unsigned>((n2 / 2 + 255) / 256),
-                              256, 0, stream>>>(keys, n2, k, j);
-    mq_sort_tile_kernel<<<tiles, tthreads, tsmem, stream>>>(keys, tile, k,
-                                                           k);
-  }
-  mq_scan_tiles_kernel<<<static_cast<unsigned>(l.ntiles), kScanThreads, 0,
-                         stream>>>(e, keys, n, cum, totals);
-  mq_scan_totals_kernel<<<1, 32, 0, stream>>>(totals, l.ntiles, offs);
-  err = cudaMemsetAsync(partial, 0, l.ntiles * delta * sizeof(float2),
-                        stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mq_bins_kernel<<<static_cast<unsigned>(l.ntiles), kScanThreads, 0,
-                   stream>>>(e, keys, n, cum, offs, l.ntiles, delta, scale,
-                             half_delta, partial);
-  const int fsmem = delta * 8 + delta * 5 * 4;
-  err = set_smem(reinterpret_cast<const void*>(mq_final_kernel), fsmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mq_final_kernel<<<1, kFinalThreads, fsmem, stream>>>(partial, l.ntiles,
-                                                       delta, q, Q, out);
-  return static_cast<int>(cudaGetLastError());
+// The merged digest itself, for tests: digest[0, :] its delta means,
+// digest[1, :] its weights (the same launches, no quantiles).
+int tdigest_merged_digest_f32(const float* means, const float* weights,
+                              int32_t K, const int32_t* idx,
+                              const uint8_t* valid, int64_t S, int32_t delta,
+                              void* scratch, int64_t scratch_bytes,
+                              float* digest, cudaStream_t stream) {
+  return mq_run(means, weights, K, idx, valid, S, nullptr, 0, delta,
+                scratch, scratch_bytes, nullptr, digest, stream);
 }
 
 }  // extern "C"

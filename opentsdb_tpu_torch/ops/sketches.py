@@ -21,7 +21,8 @@ CUDA tensor:
   stack, in place (``_fold_hlls``; ``distinct_tagv``'s one-row fold);
 - ``hll_estimate``: the cardinality estimate of each register row;
 - ``merged_quantile``: compress S selected digest rows into one digest
-  and interpolate quantiles in it (``_merged_quantile``).
+  and interpolate quantiles in it (``_merged_quantile``);
+  ``merged_digest`` returns that digest instead, for tests.
 
 Each wrapper takes its plain version only for tensors that lie on the
 CPU; for CUDA tensors it launches its kernel on the calling thread's
@@ -34,8 +35,10 @@ and +0.0 as equal and puts NaN (of either sign) after +inf. The sorts
 here order by a composite int64 key: the order-preserving image of the
 float key (zeros and NaNs canonicalised) in the high 32 bits, the
 entry's index in the low 32, so both versions reproduce that order
-exactly. Cumulative weights are sums of integer-valued float32 weights,
-exact below 2^24 in any order. The cluster arithmetic is the JAX
+exactly. (The kernels drop the entries of weight +-0 first, which changes
+no bit of the answer, and sort the 32-bit image stably: the same order.)
+Cumulative weights are sums of integer-valued float32 weights, exact
+below 2^24 in any order. The cluster arithmetic is the JAX
 expression's, operation by operation in float32; only ``asin`` differs
 (XLA's, PyTorch's and CUDA's each within ~2 ulp), which can move an
 entry whose k lies within a few ulps of an integer to the next cluster.
@@ -275,8 +278,11 @@ def _kernels() -> ctypes.CDLL:
             p, p, i32, p, p, i64, p, i32, i32, p, i64, p, p]
         lib.tdigest_merged_quantile_scratch.argtypes = [i64, i32]
         lib.tdigest_merged_quantile_scratch.restype = i64
+        lib.tdigest_merged_digest_f32.argtypes = [
+            p, p, i32, p, p, i64, i32, p, i64, p, p]
         for fn in (lib.tdigest_fold_f32, lib.hll_fold_i32,
-                   lib.hll_estimate_f32, lib.tdigest_merged_quantile_f32):
+                   lib.hll_estimate_f32, lib.tdigest_merged_quantile_f32,
+                   lib.tdigest_merged_digest_f32):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -482,15 +488,30 @@ def hll_estimate(registers: torch.Tensor) -> torch.Tensor:
 hll_estimate.launches = 0
 
 
+def _check_merged(means, weights, idx, valid, compression, what):
+    _check_stack(means, weights, idx, what)
+    if valid.shape != idx.shape or valid.dtype != torch.bool \
+            or valid.device != means.device:
+        raise ValueError(f"{what}: valid must be a bool mask of "
+                         "idx's shape, on the stacks' device")
+    if means.shape[1] != compression:
+        raise ValueError(f"{what}: stacks hold {means.shape[1]} "
+                         f"centroids a row, compression is {compression}")
+
+
+def _merged_scratch(lib, means, S, compression) -> torch.Tensor:
+    n = S * means.shape[1]
+    return torch.empty(
+        int(lib.tdigest_merged_quantile_scratch(n, compression)),
+        dtype=torch.uint8, device=means.device)
+
+
 def merged_quantile_plain(means, weights, idx, valid, q, *,
                           compression: int) -> torch.Tensor:
     """Plain ``merged_quantile``."""
-    m = torch.where(valid[:, None], means[idx.long()],
-                    torch.zeros((), device=means.device)).reshape(-1)
-    w = torch.where(valid[:, None], weights[idx.long()],
-                    torch.zeros((), device=means.device)).reshape(-1)
-    mm, ww = _compress_rows(m[None], w[None], compression)
-    return tdigest_quantile(mm[0], ww[0], q)
+    mm, ww = merged_digest_plain(means, weights, idx, valid,
+                                 compression=compression)
+    return tdigest_quantile(mm, ww, q)
 
 
 def merged_quantile(means: torch.Tensor, weights: torch.Tensor,
@@ -500,18 +521,12 @@ def merged_quantile(means: torch.Tensor, weights: torch.Tensor,
     distribution of digest rows idx[valid]: the S x K selected centroids
     (rows where valid is False weigh 0) compressed into one digest of
     ``compression`` centroids, then interpolated; [Q] float32."""
-    _check_stack(means, weights, idx, "merged_quantile")
-    if valid.shape != idx.shape or valid.dtype != torch.bool \
-            or valid.device != means.device:
-        raise ValueError("merged_quantile: valid must be a bool mask of "
-                         "idx's shape, on the stacks' device")
+    _check_merged(means, weights, idx, valid, compression,
+                  "merged_quantile")
     if q.dim() != 1 or q.dtype != torch.float32 \
             or q.device != means.device:
         raise ValueError("merged_quantile: q must be [Q] float32 on the "
                          "stacks' device")
-    if means.shape[1] != compression:
-        raise ValueError(f"merged_quantile: stacks hold {means.shape[1]} "
-                         f"centroids a row, compression is {compression}")
     if means.device.type == "cpu":
         return merged_quantile_plain(means, weights, idx, valid, q,
                                      compression=compression)
@@ -519,10 +534,7 @@ def merged_quantile(means: torch.Tensor, weights: torch.Tensor,
         raise ValueError(f"no kernel for device {means.device}")
     lib = _kernels()
     S, K = idx.shape[0], means.shape[1]
-    n = S * K
-    scratch = torch.empty(
-        int(lib.tdigest_merged_quantile_scratch(n, compression)),
-        dtype=torch.uint8, device=means.device)
+    scratch = _merged_scratch(lib, means, S, compression)
     out = torch.empty(q.shape[0], dtype=torch.float32, device=means.device)
     _run(lib.tdigest_merged_quantile_f32, means, means.data_ptr(),
          weights.data_ptr(), K, idx.contiguous().data_ptr(),
@@ -534,6 +546,41 @@ def merged_quantile(means: torch.Tensor, weights: torch.Tensor,
 
 
 merged_quantile.launches = 0
+
+
+def merged_digest_plain(means, weights, idx, valid, *, compression: int):
+    """Plain ``merged_digest``."""
+    m = torch.where(valid[:, None], means[idx.long()],
+                    torch.zeros((), device=means.device)).reshape(-1)
+    w = torch.where(valid[:, None], weights[idx.long()],
+                    torch.zeros((), device=means.device)).reshape(-1)
+    mm, ww = _compress_rows(m[None], w[None], compression)
+    return mm[0], ww[0]
+
+
+def merged_digest(means: torch.Tensor, weights: torch.Tensor,
+                  idx: torch.Tensor, valid: torch.Tensor, *,
+                  compression: int):
+    """The merged digest ``merged_quantile`` interpolates in: (means,
+    weights), [compression] float32 each, computed by the same kernel
+    launches. For tests: it lets them hold the merged digest's weights
+    exactly against the plain compress. Launches are not counted."""
+    _check_merged(means, weights, idx, valid, compression, "merged_digest")
+    if means.device.type == "cpu":
+        return merged_digest_plain(means, weights, idx, valid,
+                                   compression=compression)
+    if means.device.type != "cuda":
+        raise ValueError(f"no kernel for device {means.device}")
+    lib = _kernels()
+    S, K = idx.shape[0], means.shape[1]
+    scratch = _merged_scratch(lib, means, S, compression)
+    out = torch.empty((2, compression), dtype=torch.float32,
+                      device=means.device)
+    _run(lib.tdigest_merged_digest_f32, means, means.data_ptr(),
+         weights.data_ptr(), K, idx.contiguous().data_ptr(),
+         valid.contiguous().data_ptr(), S, compression, scratch.data_ptr(),
+         scratch.numel(), out.data_ptr())
+    return out[0], out[1]
 
 
 # ---------------------------------------------------------------------------

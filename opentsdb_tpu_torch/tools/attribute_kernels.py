@@ -22,6 +22,13 @@ for clusters of 1 to 16 blocks. Cases and timing are those of
 ``compare_kernels`` (device ms, median of 3 runs of 20 queued calls).
 One JSON line per case on standard output, after the card's name and
 power limit.
+
+    python -m opentsdb_tpu_torch.tools.attribute_kernels --sketches DIR
+
+does the same for DIR's ``sketches.cu`` t-digest fold as redesigned for
+Hopper (the fold cases of ``compare_kernels --kernels sketches``):
+1 or 2 radix passes instead of 4; the block returning right after its
+sort; the cluster sums left out.
 """
 
 from __future__ import annotations
@@ -87,6 +94,12 @@ extern "C" int attr_clusters(int C, int smem, int* out) {
 """
 
 
+SKETCH_VARIANTS = {
+    "base": [], "passes_1": ["-DATTR_FOLD_PASSES=1"],
+    "passes_2": ["-DATTR_FOLD_PASSES=2"], "sort_only": ["-DATTR_SORT_ONLY"],
+    "no_sums": ["-DATTR_NO_SUMS"]}
+
+
 def _patch(src: str, edits: list[tuple[str, str]]) -> str:
     for old, new in edits:
         if src.count(old) != 1:
@@ -138,6 +151,51 @@ extern "C" int attr_set_pos(const int32_t* p) {
 """
 
 
+def sketch_source(src: str) -> str:
+    return _patch(src, [
+        ("constexpr int kPasses = 4;\n",
+         "constexpr int kPasses = 4;\n#ifndef ATTR_FOLD_PASSES\n"
+         "#define ATTR_FOLD_PASSES 4\n#endif\n"),
+        ("pass < kPasses; ++pass) {\n    const int shift = 8 * pass;\n"
+         "    for (int j = lane;",
+         "pass < ATTR_FOLD_PASSES; ++pass) {\n"
+         "    const int shift = 8 * pass;\n    for (int j = lane;"),
+        ("  // The m live entries in sorted order",
+         "#ifdef ATTR_SORT_ONLY\n  return;\n#endif\n"
+         "  // The m live entries in sorted order"),
+        ("  for (int c = threadIdx.x; c < K; c += blockDim.x) {\n"
+         "    float ws = 0.0f, ms = 0.0f;\n    for (int i = first[c];",
+         "#ifdef ATTR_NO_SUMS\n  return;\n#endif\n"
+         "  for (int c = threadIdx.x; c < K; c += blockDim.x) {\n"
+         "    float ws = 0.0f, ms = 0.0f;\n    for (int i = first[c];"),
+    ])
+
+
+def sketch_main(root: str, smi: str) -> int:
+    csrc = os.path.join(root, "opentsdb_tpu_torch", "csrc")
+    out_dir = os.path.join(root, "_attribute")
+    os.makedirs(out_dir, exist_ok=True)
+    print(json.dumps({"ptxas": "sketches", "lines": ptxas(
+        os.path.join(csrc, "sketches.cu"))}), flush=True)
+    with open(os.path.join(csrc, "sketches.cu")) as f:
+        libs = build(out_dir, "sketches", sketch_source(f.read()),
+                     SKETCH_VARIANTS)
+    _, vals = ck.corpus()
+    for case in ck.sketch_cases(torch.device("cuda"), vals)[:2]:
+        case.fill()
+        case.call(libs["base"])
+        torch.cuda.synchronize()
+        err = case.check()
+        row = {}
+        for name, lib in libs.items():
+            case.fill()
+            row[name] = timed(lambda lib=lib: case.call(lib))
+        print(json.dumps({"kernel": case.kernel, "case": case.label,
+                          **case.info, "max_abs_err": err,
+                          "device_ms": row, "card": smi}), flush=True)
+    return 0
+
+
 def ptxas(path: str) -> list[str]:
     r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
                         os.devnull, path], capture_output=True, text=True)
@@ -169,17 +227,20 @@ def timed(fn) -> float:
 
 
 def main(argv: list[str]) -> int:
-    if len(argv) != 1 or not torch.cuda.is_available():
+    sk = argv[:1] == ["--sketches"]
+    if len(argv) != 1 + sk or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
-    csrc = os.path.join(argv[0], "opentsdb_tpu_torch", "csrc")
-    out_dir = os.path.join(argv[0], "_attribute")
-    os.makedirs(out_dir, exist_ok=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
+    if sk:
+        return sketch_main(argv[1], smi)
+    csrc = os.path.join(argv[0], "opentsdb_tpu_torch", "csrc")
+    out_dir = os.path.join(argv[0], "_attribute")
+    os.makedirs(out_dir, exist_ok=True)
     for k in ("masked_select", "interp_moments"):
         print(json.dumps({"ptxas": k, "lines": ptxas(
             os.path.join(csrc, k + ".cu"))}), flush=True)

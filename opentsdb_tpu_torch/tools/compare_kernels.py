@@ -5,7 +5,7 @@ each other on one NVIDIA card, at the shapes of the query paths.
     python -m opentsdb_tpu_torch.tools.compare_kernels [--kernels K,..] \\
         DIR [DIR ...]
 
-Kernels (``--kernels``, default all three):
+Kernels (``--kernels``, default all four):
 - ``segment_reduce``: ``segment_sum_f32`` and ``segment_minmax_f32`` at
   the group-stage shapes;
 - ``masked_select``: ``masked_select_columns`` on the resident window's
@@ -14,7 +14,11 @@ Kernels (``--kernels``, default all three):
   and the columns entry on the contributions of a p95 over ``{dc=dc0}``'s
   first day on its union grid [1000, ~41.6k];
 - ``interp_moments``: ``interp_moments_f32`` on that day's union grid and
-  on all 10,000 series for the week (~302k grid points).
+  on all 10,000 series for the week (~302k grid points);
+- ``sketches``: ``tdigest_fold_f32`` at one ingest hand-off and at the
+  4096-value chunk, ``tdigest_merged_quantile_f32`` over all 10,000
+  series' digests (each revision's own scratch size); the fold's outputs
+  must be bit-identical between the revisions.
 The data is ``chip_smoke.py``'s corpus (10,000 series x 1,000 points over
 7 days, drawn from seed 0), staged by this checkout's own functions.
 
@@ -29,7 +33,8 @@ seed, where the plain composition fits) and timed as device time per call:
 calls and not refilled. The revisions run in turns A B .. B A, twice.
 ``segment_minmax_f32`` is asked for both outputs, the one request every
 revision answers. One JSON line per case goes to standard output, after
-the card's name and power limit.
+the card's name and power limit; with ``--breakdown`` a second line gives
+each revision's device time per kernel name (``torch.profiler``, 5 calls).
 """
 
 from __future__ import annotations
@@ -46,11 +51,13 @@ import numpy as np
 import torch
 
 from opentsdb_tpu_torch.ops import interp_moments, kernels as wk, \
-    masked_select
+    masked_select, sketches
 from opentsdb_tpu_torch.ops.cuda_build import NVCC_FLAGS, _nvcc
 from opentsdb_tpu_torch.query.executor import _pad_size
+from opentsdb_tpu_torch.stats.livesketch import LiveSketches, _pad
+from opentsdb_tpu_torch.utils.config import Config
 
-SOURCES = ("segment_reduce", "masked_select", "interp_moments")
+SOURCES = ("segment_reduce", "masked_select", "interp_moments", "sketches")
 S, B, SERIES = 16384, 256, 10_000    # chip_smoke.py's group stage
 POINTS, SPAN, DAY, INTERVAL = 1_000, 7 * 86400, 86400, 3600
 BASE = 1356998400
@@ -66,9 +73,16 @@ def bind(lib: ctypes.CDLL, kernel: str) -> ctypes.CDLL:
         lib.masked_select_columns.argtypes = [p, p, i64, i64, p, i32, p, p]
         lib.masked_select_groups.argtypes = [p, p, i64, i64, p, p, i64, p,
                                              i64, p, i32, p, p]
-    else:
+    elif kernel == "interp_moments":
         lib.interp_moments_f32.argtypes = [p, p, p, i64, i64, p, i64, i32,
                                            p, p, p, p, p, p]
+    else:
+        lib.tdigest_fold_f32.argtypes = [p, p, i64, i32, p, i64, p, p, p,
+                                         i32, p]
+        lib.tdigest_merged_quantile_f32.argtypes = [
+            p, p, i32, p, p, i64, p, i32, i32, p, i64, p, p]
+        lib.tdigest_merged_quantile_scratch.argtypes = [i64, i32]
+        lib.tdigest_merged_quantile_scratch.restype = i64
     return lib
 
 
@@ -342,16 +356,133 @@ def interp_cases(dev, ts, vals, sample: int = 4096) -> list[Case]:
     return out
 
 
+def sketch_cases(dev, vals) -> list[Case]:
+    """chip_smoke.py's sketch kernel shapes: the t-digest fold of one
+    hand-off (the first 1,049 series' 1,000 values into empty digests,
+    2,048 rows of 1,024) and of the 4096-value chunk (1,024 of those
+    digests), and the merged quantile p50/p95/p99 over all 10,000 digests
+    (S = 16,384). A fold's outputs must be bit-identical between the
+    revisions (each sums a cluster's entries in sorted order) and hold
+    against the plain version (weights exact, means rtol 1e-5); merged
+    quantiles within rtol 1e-4 of the plain version's and of the first
+    revision's."""
+    K = Config.sketch_compression
+    first = min(-(-Config.sketch_flush_points // POINTS), SERIES)
+    rows, P = _pad(first), _pad(POINTS)
+    batch = torch.zeros((rows, P), device=dev)
+    batch[:first, :POINTS] = torch.from_numpy(vals[:first]).to(dev)
+    valid = torch.zeros((rows, P), dtype=torch.bool, device=dev)
+    valid[:first, :POINTS] = True
+    idx = torch.full((rows,), rows, dtype=torch.int32, device=dev)
+    idx[:first] = torch.arange(first, dtype=torch.int32, device=dev)
+    zeros = torch.zeros((rows, K), device=dev)
+    folded = [zeros.clone(), zeros.clone()]
+    sketches.tdigest_fold_plain(*folded, idx, batch, valid, compression=K)
+    P4 = LiveSketches._MAX_CHUNK
+    rows4 = LiveSketches._MAX_FOLD_CELLS // P4
+    chunk = torch.from_numpy(np.ascontiguousarray(
+        vals.reshape(-1)[:rows4 * P4].reshape(rows4, P4))).to(dev)
+
+    def fold_case(label, m0, w0, idx, batch, valid):
+        m0, w0 = m0.contiguous(), w0.contiguous()
+        m, w = m0.clone(), w0.clone()
+        want = [m0.clone(), w0.clone()]
+        sketches.tdigest_fold_plain(*want, idx, batch, valid, compression=K)
+        first_out: list = []
+
+        def fill():
+            m.copy_(m0)
+            w.copy_(w0)
+
+        def call(lib):
+            _rc(lib.tdigest_fold_f32(
+                m.data_ptr(), w.data_ptr(), m.shape[0], K, idx.data_ptr(),
+                idx.shape[0], batch.data_ptr(), valid.data_ptr(), None,
+                batch.shape[1], _stream()))
+
+        def check():
+            if not torch.equal(w, want[1]):
+                raise AssertionError("fold weights differ from the plain")
+            torch.testing.assert_close(m, want[0], rtol=1e-5, atol=1e-6)
+            if not first_out:
+                first_out.extend([m.clone(), w.clone()])
+            elif not (torch.equal(m, first_out[0])
+                      and torch.equal(w, first_out[1])):
+                raise AssertionError("fold outputs differ between the "
+                                     "revisions")
+            return float((m - want[0]).abs().max())
+
+        return Case("sketches", label,
+                    {"rows": int((idx < m0.shape[0]).sum()), "K": K,
+                     "P": batch.shape[1]}, fill, call, check)
+
+    S = _pad(SERIES)
+    mq_m = torch.zeros((S, K), device=dev)
+    mq_w = torch.zeros((S, K), device=dev)
+    per = LiveSketches._MAX_FOLD_CELLS // P
+    for lo in range(0, SERIES, per):
+        hi = min(lo + per, SERIES)
+        b = torch.zeros((hi - lo, P), device=dev)
+        b[:, :POINTS] = torch.from_numpy(vals[lo:hi]).to(dev)
+        v = torch.zeros((hi - lo, P), dtype=torch.bool, device=dev)
+        v[:, :POINTS] = True
+        sketches.tdigest_fold_plain(
+            mq_m, mq_w, torch.arange(lo, hi, dtype=torch.int32, device=dev),
+            b, v, compression=K)
+    mq_idx = torch.arange(S, dtype=torch.int32, device=dev)
+    mq_valid = mq_idx < SERIES
+    qs = torch.tensor([0.5, 0.95, 0.99], device=dev)
+    mq_want = sketches.merged_quantile_plain(mq_m, mq_w, mq_idx, mq_valid,
+                                             qs, compression=K)
+    mq_out = torch.empty(3, device=dev)
+    scratch: dict = {}
+    mq_first: list = []
+
+    def mq_call(lib):
+        if id(lib) not in scratch:
+            scratch[id(lib)] = torch.empty(
+                int(lib.tdigest_merged_quantile_scratch(S * K, K)),
+                dtype=torch.uint8, device=dev)
+        buf = scratch[id(lib)]
+        _rc(lib.tdigest_merged_quantile_f32(
+            mq_m.data_ptr(), mq_w.data_ptr(), K, mq_idx.data_ptr(),
+            mq_valid.data_ptr(), S, qs.data_ptr(), 3, K, buf.data_ptr(),
+            buf.numel(), mq_out.data_ptr(), _stream()))
+
+    def mq_check():
+        torch.testing.assert_close(mq_out, mq_want, rtol=1e-4, atol=1e-5)
+        if not mq_first:
+            mq_first.append(mq_out.clone())
+        torch.testing.assert_close(mq_out, mq_first[0], rtol=1e-4,
+                                   atol=1e-5)
+        return float((mq_out - mq_want).abs().max())
+
+    return [
+        fold_case("tdigest_fold one hand-off (1,049 series x 1,000 "
+                  "values)", zeros, zeros, idx, batch, valid),
+        fold_case("tdigest_fold 4096-value chunk (1,024 rows)",
+                  folded[0][:rows4], folded[1][:rows4],
+                  torch.arange(rows4, dtype=torch.int32, device=dev),
+                  chunk, torch.ones((rows4, P4), dtype=torch.bool,
+                                    device=dev)),
+        Case("sketches", "tdigest_merged_quantile all series, S = 16,384 "
+             "(2,097,152 entries)",
+             {"S": S, "K": K, "valid_rows": SERIES}, _nothing, mq_call,
+             mq_check)]
+
+
 def cases(dev, kernels=SOURCES) -> list[Case]:
     out = []
     if "segment_reduce" in kernels:
         out += segment_cases(dev)
-    if "masked_select" in kernels or "interp_moments" in kernels:
+    if {"masked_select", "interp_moments", "sketches"} & set(kernels):
         ts, vals = corpus()
         if "masked_select" in kernels:
             out += select_cases(dev, ts, vals)
         if "interp_moments" in kernels:
             out += interp_cases(dev, ts, vals)
+        if "sketches" in kernels:
+            out += sketch_cases(dev, vals)
     return out
 
 
@@ -380,9 +511,31 @@ def compare(case: Case, names: list[str], libs: list[dict],
                 for d, t, e in zip(names, times, errs)]}
 
 
+def breakdown(case: Case, names: list[str], libs: list[dict],
+              reps: int = 5) -> dict:
+    """Device time per call of each CUDA kernel one call of ``case``
+    launches, per revision: ``reps`` calls under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for name, lib in zip(names, libs):
+        case.fill()
+        case.call(lib[case.kernel])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                case.call(lib[case.kernel])
+            torch.cuda.synchronize()
+        out[name] = {e.key: {"us": e.device_time_total / reps,
+                             "calls": e.count / reps}
+                     for e in prof.key_averages()
+                     if e.device_time_total > 0}
+    return {"kernel": case.kernel, "case": case.label, "breakdown": out}
+
+
 def main(argv: list[str]) -> int:
     ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("--kernels", default=",".join(SOURCES))
+    ap.add_argument("--breakdown", action="store_true")
     ap.add_argument("dirs", nargs="*")
     args = ap.parse_args(argv)
     kernels = tuple(args.kernels.split(","))
@@ -398,6 +551,8 @@ def main(argv: list[str]) -> int:
     libs = build(args.dirs, kernels)
     for case in cases(torch.device("cuda"), kernels):
         print(json.dumps(compare(case, args.dirs, libs, smi)), flush=True)
+        if args.breakdown:
+            print(json.dumps(breakdown(case, args.dirs, libs)), flush=True)
     return 0
 
 

@@ -1080,6 +1080,151 @@ def test_merged_quantile_matches_plain(card, S):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
+FOLD_CASES = ["batch_all_invalid", "interleaved_empty", "equal_means",
+              "max_entries", "nan_inf_means"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FOLD_CASES)
+def test_tdigest_fold_edge_rows(card, case):
+    """The fold's radix sort and zero-weight drop at the rows that test
+    them, against the plain version: a batch with no valid value, old
+    centroids with empties between them, batch values equal to old
+    centroid means (ties between old and new entries keep index order),
+    K + P = 8192, and NaN and +-inf means of positive weight. Cluster
+    weights exact, means within rtol 1e-5 (the plain version's
+    scatter_add adds in atomic order)."""
+    sk = _sk()
+    rng = np.random.default_rng(len(case))
+    C, K = 16, 128
+    P = 8192 - K if case == "max_entries" else 1024
+    means, weights = _digest_stack(sk, rng, C, K, card)
+    idx = torch.tensor([3, 0, 9, 14, C, C], dtype=torch.int32, device=card)
+    batch = torch.from_numpy(rng.normal(2, 3, (6, P)).astype(np.float32)) \
+        .to(card)
+    valid = torch.from_numpy(rng.random((6, P)) < 0.8).to(card)
+    if case == "batch_all_invalid":
+        valid[0] = False
+    elif case in ("interleaved_empty", "max_entries"):
+        weights[:, 1::2] = 0.0
+        means[:, 1::2] = torch.from_numpy(
+            rng.normal(0, 4, (C, K // 2)).astype(np.float32)).to(card)
+        valid[:, ::3] = False
+    elif case == "equal_means":
+        for r in range(4):
+            src = means[idx[r]][weights[idx[r]] > 0]
+            batch[r, :len(src)] = src
+            batch[r, len(src):2 * len(src)] = src.flip(0)
+    else:
+        means[3, 5], means[0, 7], means[9, 9] = (float("nan"),
+                                                 float("inf"),
+                                                 float("-inf"))
+        weights[3, 5] = weights[0, 7] = weights[9, 9] = 2.0
+        batch[:, :3] = torch.tensor([float("nan"), float("inf"),
+                                     float("-inf")], device=card)
+        valid[:, :3] = True
+    m1, w1 = means.clone(), weights.clone()
+    sk.tdigest_fold(m1, w1, idx, batch, valid=valid, compression=K)
+    m2, w2 = means.clone(), weights.clone()
+    sk.tdigest_fold_plain(m2, w2, idx, batch, valid, compression=K)
+    torch.cuda.synchronize()
+    assert torch.equal(w1, w2)
+    torch.testing.assert_close(m1, m2, rtol=1e-5, atol=1e-6, equal_nan=True)
+
+
+
+@pytest.mark.cuda
+def test_tdigest_fold_nan_weight(card):
+    """A NaN weight stays in the fold (only weights of +-0 are dropped)
+    and makes the total NaN, as jnp.maximum keeps it: every positive
+    entry then lands in cluster 0, in the kernel as in the plain
+    version."""
+    sk = _sk()
+    rng = np.random.default_rng(7)
+    K = 128
+    means, weights = _digest_stack(sk, rng, 4, K, card)
+    bm = torch.from_numpy(rng.normal(0, 1, (2, K)).astype(np.float32)) \
+        .to(card)
+    bw = torch.from_numpy(rng.integers(0, 3, (2, K)).astype(np.float32)) \
+        .to(card)
+    bw[0, 9] = float("nan")
+    bw[1, 3] = -0.0
+    idx = torch.tensor([0, 2], dtype=torch.int32, device=card)
+    m1, w1 = means.clone(), weights.clone()
+    sk.tdigest_fold(m1, w1, idx, bm, batch_weights=bw, compression=K)
+    m2, w2 = means.clone(), weights.clone()
+    sk.tdigest_fold_plain(m2, w2, idx, bm, weights_b=bw, compression=K)
+    torch.cuda.synchronize()
+    assert torch.equal(w1, w2)
+    assert int((w1[0] > 0).sum()) == 1
+    torch.testing.assert_close(m1, m2, rtol=1e-5, atol=1e-6, equal_nan=True)
+
+def _bulk_stack(sk, rng, C, K, device, n=300):
+    """C digests of n values each (row s centred on s % 50), one plain
+    fold call."""
+    means = torch.zeros(C, K, device=device)
+    weights = torch.zeros(C, K, device=device)
+    vals = rng.normal(np.arange(C)[:, None] % 50, 1 + np.arange(C)[:, None]
+                      % 3, (C, n)).astype(np.float32)
+    sk.tdigest_fold_plain(means, weights,
+                          torch.arange(C, dtype=torch.int32, device=device),
+                          torch.from_numpy(vals).to(device),
+                          torch.ones(C, n, dtype=torch.bool, device=device),
+                          compression=K)
+    return means, weights
+
+
+MERGED_CASES = ["daemon_shape", "duplicated_rows", "one_valid_row",
+                "q_ends"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MERGED_CASES)
+def test_merged_quantile_edge_selections(card, case):
+    """The merged quantile's radix sort at the selections that test it:
+    the daemon's shape (10,000 valid of 16,384 rows), 64 digests repeated
+    256 times (equal keys in every radix tile), one valid row of 1,024,
+    and q = 0 and 1 alone. Quantiles within rtol 1e-4 of the plain version
+    (cluster means sum ~2e4 centroids in another order) and bit-identical
+    on a second run; the merged digest's weights, integral sums below
+    2^24, exactly the plain compress's."""
+    sk = _sk()
+    rng = np.random.default_rng(len(case))
+    K = 128
+    q = torch.tensor([0.0, 0.01, 0.5, 0.95, 0.99, 1.0], device=card)
+    if case == "daemon_shape":
+        means, weights = _bulk_stack(sk, rng, 10_000, K, card)
+        S = 16384
+        idx = torch.arange(S, dtype=torch.int32, device=card) % 10_000
+        valid = torch.arange(S, device=card) < 10_000
+    elif case == "duplicated_rows":
+        means, weights = _bulk_stack(sk, rng, 64, K, card)
+        idx = (torch.arange(64 * 256, device=card) % 64).to(torch.int32)
+        valid = torch.ones(idx.shape[0], dtype=torch.bool, device=card)
+    elif case == "one_valid_row":
+        means, weights = _bulk_stack(sk, rng, 1024, K, card)
+        idx = torch.arange(1024, dtype=torch.int32, device=card)
+        valid = idx == 517
+    else:
+        means, weights = _bulk_stack(sk, rng, 256, K, card)
+        idx = torch.arange(256, dtype=torch.int32, device=card)
+        valid = torch.ones(256, dtype=torch.bool, device=card)
+        q = torch.tensor([0.0, 1.0], device=card)
+    got = sk.merged_quantile(means, weights, idx, valid, q, compression=K)
+    again = sk.merged_quantile(means, weights, idx, valid, q,
+                               compression=K)
+    want = sk.merged_quantile_plain(means, weights, idx, valid, q,
+                                    compression=K)
+    dm, dw = sk.merged_digest(means, weights, idx, valid, compression=K)
+    pm, pw = sk.merged_digest_plain(means, weights, idx, valid,
+                                    compression=K)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(dw, pw)
+    torch.testing.assert_close(dm, pm, rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.cuda
 def test_live_sketches_on_card_match_cpu(card):
     """The same observe stream into stacks on the card (folded by the

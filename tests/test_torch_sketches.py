@@ -260,6 +260,141 @@ def test_merged_quantile_matches_jax(S):
 
 
 # ---------------------------------------------------------------------------
+# The kernels' premise: an entry of weight +0.0 or -0.0 can be dropped
+# ---------------------------------------------------------------------------
+
+PREMISE_CASES = ["one_valid_row", "interleaved_empty", "signed_zeros",
+                 "inf_nan_means", "nan_weight"]
+PREMISE_Q = np.array([0.0, 0.01, 0.5, 0.95, 0.99, 1.0], np.float32)
+FOLD_ROW = 2
+
+
+def _premise_inputs(case):
+    """A stack of JAX-folded digests (integral weights), a selection with
+    a repeated row, and one fold batch, edited per case."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    C, P = 6, 200
+    means = np.zeros((C, K), np.float32)
+    weights = np.zeros((C, K), np.float32)
+    for s in range(C):
+        means[s], weights[s] = _digest(rng, 300 + 50 * s, s, 1.0)
+    idx = np.array([0, 1, 2, 3, 4, 5, 0, 2], np.int32)
+    valid = np.ones(len(idx), bool)
+    batch = rng.normal(1, 2, P).astype(np.float32)
+    bvalid = rng.random(P) < 0.7
+    if case == "one_valid_row":
+        valid[:] = False
+        valid[2] = True
+        bvalid[:] = False
+        bvalid[17] = True
+    elif case == "interleaved_empty":
+        weights[:, 1::3] = 0.0
+        means[:, 1::3] = rng.normal(0, 5, means[:, 1::3].shape)
+        bvalid[::2] = False
+    elif case == "signed_zeros":
+        weights[:, 2::4] = -0.0
+        weights[:, 3::7] = 0.0
+        means[:, 5::9] = -0.0
+        batch[::5] = -0.0
+        batch[1::5] = 0.0
+    elif case == "inf_nan_means":
+        for s, c, v in ((1, 4, np.inf), (2, 7, np.nan), (3, 9, -np.inf),
+                        (2, 11, np.inf)):
+            means[s, c] = v
+            weights[s, c] = max(weights[s, c], 1.0)
+        batch[[3, 8, 9]] = [np.inf, np.nan, -np.inf]
+        bvalid[[3, 8, 9]] = True
+    else:  # nan_weight: one centroid of the fold row weighs NaN
+        weights[FOLD_ROW, 10] = np.nan
+    return means, weights, idx, valid, batch, bvalid
+
+
+def _same(a, b):
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def _fold_entries(means, weights, batch, bvalid):
+    return (np.concatenate([means[FOLD_ROW], batch]),
+            np.concatenate([weights[FOLD_ROW], bvalid.astype(np.float32)]))
+
+
+def _jax_compress(m, w):
+    return tuple(np.asarray(a) for a in jsk._compress(
+        jnp.asarray(m), jnp.asarray(w), compression=K))
+
+
+def _port_compress(m, w):
+    return tuple(a.numpy() for a in psk._compress(_t(m), _t(w),
+                                                  compression=K))
+
+
+@pytest.mark.parametrize("case", PREMISE_CASES)
+def test_fold_drops_zero_weights_exactly(case):
+    """The fold's compress of a row's K centroids and P batch entries is
+    bit-identical with the entries of weight +-0 removed in index order,
+    in the JAX package and in the port's plain version (the batched
+    ``tdigest_fold_plain`` included); a NaN weight is kept, and removing
+    it too would change the answer. The port agrees with the JAX package
+    as the other compress tests hold it."""
+    means, weights, _, _, batch, bvalid = _premise_inputs(case)
+    m, w = _fold_entries(means, weights, batch, bvalid)
+    keep = ~(w == 0)
+    jfull, jkept = _jax_compress(m, w), _jax_compress(m[keep], w[keep])
+    pfull, pkept = _port_compress(m, w), _port_compress(m[keep], w[keep])
+    for a, b in zip(jfull + pfull, jkept + pkept):
+        _same(a, b)
+    pm, pw = _t(means.copy()), _t(weights.copy())
+    psk.tdigest_fold_plain(pm, pw, _t(np.array([FOLD_ROW], np.int32)),
+                           _t(batch[None]), _t(bvalid[None]),
+                           compression=K)
+    _same(pm[FOLD_ROW].numpy(), pkept[0])
+    _same(pw[FOLD_ROW].numpy(), pkept[1])
+    _assert_compress_close(*jfull, *pfull, m, w, K)
+    if case == "nan_weight":
+        live = keep & ~np.isnan(w)
+        assert not np.array_equal(_jax_compress(m[live], w[live])[0],
+                                  jfull[0], equal_nan=True)
+
+
+@pytest.mark.parametrize("case", PREMISE_CASES)
+def test_merged_quantile_drops_zero_weights_exactly(case):
+    """The merged quantile over a selection (invalid rows weigh 0) is
+    bit-identical, means, weights and quantiles, to the compress and
+    interpolation of its entries of nonzero weight in index order, in the
+    JAX package and in the port's plain version; a NaN weight is kept
+    (removing it changes the answer). Port and JAX package agree within
+    the tolerance of test_merged_quantile_matches_jax."""
+    means, weights, idx, valid, _, _ = _premise_inputs(case)
+    m = np.where(valid[:, None], means[idx], 0.0).reshape(-1)
+    w = np.where(valid[:, None], weights[idx], 0.0).reshape(-1)
+    keep = ~(w == 0)
+    want = np.asarray(jls._merged_quantile(
+        jnp.asarray(means), jnp.asarray(weights), jnp.asarray(idx),
+        jnp.asarray(valid), jnp.asarray(PREMISE_Q), compression=K))
+    jkept = _jax_compress(m[keep], w[keep])
+    _same(want, np.asarray(jsk.tdigest_quantile(
+        *map(jnp.asarray, jkept), jnp.asarray(PREMISE_Q))))
+    got = psk.merged_quantile_plain(_t(means), _t(weights), _t(idx),
+                                    _t(valid), _t(PREMISE_Q),
+                                    compression=K).numpy()
+    dm, dw = psk.merged_digest_plain(_t(means), _t(weights), _t(idx),
+                                     _t(valid), compression=K)
+    pkept = _port_compress(m[keep], w[keep])
+    _same(dm.numpy(), pkept[0])
+    _same(dw.numpy(), pkept[1])
+    _same(got, psk.tdigest_quantile(_t(pkept[0]), _t(pkept[1]),
+                                    _t(PREMISE_Q)).numpy())
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    if case == "nan_weight":
+        live = keep & ~np.isnan(w)
+        assert np.isnan(w).sum() == 2  # the row is selected twice
+        jl = _jax_compress(m[live], w[live])
+        other = np.asarray(jsk.tdigest_quantile(
+            *map(jnp.asarray, jl), jnp.asarray(PREMISE_Q)))
+        assert not np.array_equal(other, want, equal_nan=True)
+
+
+# ---------------------------------------------------------------------------
 # HyperLogLog
 # ---------------------------------------------------------------------------
 
