@@ -32,12 +32,16 @@
    (``csrc/sketches.cu``) the same way, at the daemon's shapes: the
    t-digest fold of one hand-off of ``Config.sketch_flush_points`` (1,049
    series x 1,000 values) and of the 4096-value chunk, the HLL fold of
-   one hand-off's host and dc UIDs and of all the corpus' at p = 12 and
-   of dc0's hosts at p = 14,
-   the estimate over the p = 12 stack, and the merged quantile over all
-   10,000 digests (S = 16,384 rows, 2,097,152 entries); folds and
-   registers exact against their plain versions, estimates within rtol
-   1e-6, quantiles within rtol 1e-4 (and the same on every run).
+   one hand-off's host and dc UIDs and of all the corpus' at p = 12, of
+   dc0's hosts at p = 14, of the hand-off's hosts in four rows that name
+   one slot, and of every host and dc again into the stack they raised
+   (the steady-state re-fold), the estimate over the p = 12 stack, and
+   the merged quantile over all 10,000 digests (S = 16,384 rows,
+   2,097,152 entries); folds and registers exact against their plain
+   versions, estimates within rtol 1e-6, quantiles within rtol 1e-4 (and
+   the same on every run). Beside them the card's launch floor: an empty
+   kernel launched the way the sketch wrappers launch theirs, timed the
+   same three ways, and the host's time in each step of a wrapper call.
 4. Path phase: starts the port's daemon on loopback with its default
    settings (the resident device window on), ingests the repo's benchmark
    corpus (10,000 series x 1,000 points over 7 days = 10M points,
@@ -117,7 +121,8 @@
    batch must evict the oldest chunk, advance ``complete_from`` and turn a
    query reaching before it away.
 7. Prints the card line first; at the end the per-query, sketch,
-   ingest, profiler, restart and budget lines, the kernels line (eight
+   ingest, profiler, restart, budget and launch-floor lines, the kernels
+   line (eight
    kernels) and, last, the ok line.
    In the kernels line each kernel's top-level numbers are its first
    path's: the segment kernels' and the select's the resident path's
@@ -141,6 +146,7 @@ from __future__ import annotations
 import asyncio
 import gc
 import http.client
+import itertools
 import json
 import os
 import socket
@@ -1645,6 +1651,78 @@ def fold_sort_keys(idx, batch, valid, m0, w0) -> torch.Tensor:
         torch.where(w > 0, m, torch.full_like(m, float("inf"))))
 
 
+def host_us(fn, reps: int = 1000) -> float:
+    """Mean host time of one call of ``fn`` in microseconds, over ``reps``
+    calls after a warm-up, the card drained before and after (what a
+    call launches runs faster than the host issues it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def launch_floor(flush, regs, fold_args, fold_regs, library) -> dict:
+    """The card's launch floor: an empty kernel launched the way the
+    sketch wrappers launch theirs (``sketches.empty_launch``), timed as
+    the kernels are (``ms``, ``ms_cold``, ``ms_device``); and the host's
+    time in each step of a wrapper call, beside whole calls of the HLL
+    wrappers (a hand-off's fold, the estimate over ``regs``) and of the
+    fold's ``scatter_reduce_`` yardstick."""
+    dev = regs.get_device()
+    device = regs.device
+    lib = sketches._kernels()
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+
+    def empty():
+        sketches.empty_launch(dev)
+
+    def guarded():  # the guard entered around every launch
+        with torch.cuda.device(device):
+            lib.empty_launch(torch._C._cuda_getCurrentRawStream(dev))
+
+    def enter_exit():
+        with torch.cuda.device(device):
+            pass
+
+    # Every check runs; the plain fold of no items returns at once.
+    empty_fold = (torch.zeros((8, 1 << 12), dtype=torch.int32),
+                  torch.zeros(0, dtype=torch.int32),
+                  torch.zeros((0, 2048), dtype=torch.int32),
+                  torch.zeros((0, 2048), dtype=torch.bool))
+
+    steps = {
+        "tensor.device": lambda: regs.device,
+        "tensor.get_device()": regs.get_device,
+        "torch.cuda.device enter + exit": enter_exit,
+        "torch._C._cuda_getDevice": torch._C._cuda_getDevice,
+        "torch._C._cuda_getCurrentRawStream":
+            lambda: torch._C._cuda_getCurrentRawStream(dev),
+        "contiguous() of a contiguous tensor": regs.contiguous,
+        "data_ptr()": regs.data_ptr,
+        "torch.empty(8) on the card":
+            lambda: torch.empty(8, device=device),
+        "ctypes call of the empty kernel": lambda: lib.empty_launch(stream),
+        "empty_launch (the wrappers' launch path)": empty,
+        "empty launch under torch.cuda.device": guarded,
+        "hll_fold's checks (a call on empty CPU tensors)":
+            lambda: sketches.hll_fold(*empty_fold, p=12),
+        "hll_fold, one hand-off": lambda: sketches.hll_fold(
+            fold_regs, *fold_args, p=12),
+        "hll_estimate, the p = 12 stack": lambda: sketches.hll_estimate(regs),
+        "scatter_reduce_ yardstick, one hand-off": library}
+    res = {"name": "launch_floor", "stage": "empty kernel",
+           "ms": median_ms(empty), "ms_cold": median_ms(empty, flush=flush),
+           "ms_device": device_ms(empty),
+           "host_us": {k: host_us(f) for k, f in steps.items()}}
+    log(f"launch floor: {res['ms']:.4f} ms, cold {res['ms_cold']:.4f}, "
+        f"device {res['ms_device']:.4f}; host us {res['host_us']}")
+    return res
+
+
 def sketch_kernel_phase(vals: np.ndarray) -> list:
     """Each sketch kernel against its plain version on the card, at the
     shapes the daemon gives it:
@@ -1756,7 +1834,7 @@ def sketch_kernel_phase(vals: np.ndarray) -> list:
     host, dc = corpus_tag_uids()
     hll_cases = []
 
-    def hll_rows(uid_rows, C):
+    def hll_rows(uid_rows, C, slots=None):
         H, U = _sk_pad(len(uid_rows)), _sk_pad(max(map(len, uid_rows)))
         items = np.zeros((H, U), np.int32)
         valid = np.zeros((H, U), bool)
@@ -1764,25 +1842,36 @@ def sketch_kernel_phase(vals: np.ndarray) -> list:
             items[i, :len(u)] = u
             valid[i, :len(u)] = True
         idx = np.full(H, C, np.int32)
-        idx[:len(uid_rows)] = np.arange(len(uid_rows))
+        idx[:len(uid_rows)] = (np.arange(len(uid_rows)) if slots is None
+                               else slots)
         return idx, items, valid
 
     hand_off = [host[:first], np.unique(dc[np.arange(first) % 10])]
     hll_cases.append(("one hand-off: host + dc, p = 12", 12, _sk_pad(2),
-                      *hll_rows(hand_off, _sk_pad(2))))
+                      *hll_rows(hand_off, _sk_pad(2)), None))
     hll_cases.append(("all hosts + dcs, p = 12", 12, _sk_pad(2),
-                      *hll_rows([host, dc], _sk_pad(2))))
+                      *hll_rows([host, dc], _sk_pad(2)), None))
     dc0 = host[::10]
     items14 = np.zeros((1, _pad_size(len(dc0))), np.int32)
     items14[0, :len(dc0)] = dc0
     valid14 = np.zeros(items14.shape, bool)
     valid14[0, :len(dc0)] = True
     hll_cases.append(("dc0's hosts, p = 14 (distinct_tagv)", 14, 1,
-                      np.zeros(1, np.int32), items14, valid14))
+                      np.zeros(1, np.int32), items14, valid14, None))
+    # The hand-off's hosts in four rows that all name slot 0 (the max over
+    # every row that names a slot), its dcs in slot 1.
+    quarter = -(-first // 4)
+    hll_cases.append(("one hand-off, the hosts in 4 rows on one slot",
+                      12, _sk_pad(2), *hll_rows(
+                          [host[i:min(i + quarter, first)]
+                           for i in range(0, first, quarter)]
+                          + [hand_off[1]], _sk_pad(2), [0, 0, 0, 0, 1]),
+                      None))
     regs12 = None
-    for stage, p, C, idx_h, items_h, valid_h in hll_cases:
+    for stage, p, C, idx_h, items_h, valid_h, start in hll_cases:
         a = [torch.from_numpy(x).to(dev) for x in (idx_h, items_h, valid_h)]
-        regs0 = torch.zeros((C, 1 << p), dtype=torch.int32, device=dev)
+        regs0 = (torch.zeros((C, 1 << p), dtype=torch.int32, device=dev)
+                 if start is None else start)
         n_items = int(valid_h.sum())
 
         def hll_check(a=a, regs0=regs0, p=p, n_items=n_items):
@@ -1804,20 +1893,43 @@ def sketch_kernel_phase(vals: np.ndarray) -> list:
         def library(tgt=tgt, reg_idx=reg_idx, rank=rank):
             return tgt.scatter_reduce_(1, reg_idx, rank, "amax")
 
-        def fn(a=a, r=regs0.clone(), p=p):
-            sketches.hll_fold(r, *a, p=p)
+        # Each timed call folds into a stack of its own, as it stood before
+        # the case (the kernel skips the atomic of a rank that raises
+        # nothing, so a call into a stack it raised already would time the
+        # re-fold instead): 63 calls in time_case.
+        stacks = itertools.cycle([regs0.clone() for _ in range(64)])
+
+        def fn(a=a, stacks=stacks, p=p):
+            sketches.hll_fold(next(stacks), *a, p=p)
 
         def plain(a=a, r=regs0.clone(), p=p):
             sketches.hll_fold_plain(r, *a, p=p)
-        # Bytes: the live rows' registers read and written, their valid
-        # bytes and valid items read (padded rows return at once).
+        # Bytes: every mask byte of the folded rows and each valid item
+        # read once, each register the items name read once and each one
+        # they raise written once (padded rows return at once).
         rows_used = int(keep.sum().item())
+        live = reg_idx < (1 << p)
+        slots = a[0][keep].long()[:, None].expand_as(reg_idx)
+        touched = int(torch.unique(slots[live] * (1 << p)
+                                   + reg_idx[live]).numel())
+        after = regs0.clone()
+        sketches.hll_fold_plain(after, *a, p=p)
+        raised = int((after != regs0).sum())
         results.append(case(
             "hll_fold", stage, fn, plain, library, hll_check,
-            bound_ms(rows_used * ((1 << p) * 8 + items_h.shape[1])
-                     + 4 * n_items, 10 * n_items)))
+            bound_ms(rows_used * items_h.shape[1] + 4 * n_items
+                     + 4 * touched + 4 * raised, 10 * n_items)))
+        results[-1].update(touched=touched, raised=raised)
+        if stage.startswith("one hand-off:"):
+            handoff = (a, hll_check.regs, library)
         if stage.startswith("all hosts"):
             regs12 = hll_check.regs
+            # Steady state: every host and dc folded again into the stack
+            # they raised (each hand-off of a running daemon re-folds the
+            # tag values it saw since the last one).
+            hll_cases.append(("every host and dc again into the stack "
+                              "they raised, p = 12", 12, C, idx_h, items_h,
+                              valid_h, regs12))
 
     # Estimate over the p = 12 stack.
     def est_check(regs=regs12):
@@ -1837,6 +1949,8 @@ def sketch_kernel_phase(vals: np.ndarray) -> list:
         lambda: sketches.hll_estimate_plain(regs12), None, est_check,
         bound_ms(regs12.numel() * 4 + regs12.shape[0] * 4,
                  3 * regs12.numel())))
+
+    results.append(launch_floor(flush, regs12, *handoff))
 
     # Merged quantile over all corpus digests.
     S = _sk_pad(SERIES)
@@ -2118,6 +2232,8 @@ def main() -> int:
         k: budget[k] for k in ("points", "chunks", "resident_bytes",
                                "fill_points_per_s", "queries",
                                "eviction")}, "card": smi}))
+    print(json.dumps({"launch_floor": next(
+        r for r in kernels if r["name"] == "launch_floor"), "card": smi}))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

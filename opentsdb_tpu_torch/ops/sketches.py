@@ -274,6 +274,7 @@ def _kernels() -> ctypes.CDLL:
                                          i32, p]
         lib.hll_fold_i32.argtypes = [p, i64, i32, p, i64, p, p, i32, p]
         lib.hll_estimate_f32.argtypes = [p, i64, i32, p, p]
+        lib.empty_launch.argtypes = [p]
         lib.tdigest_merged_quantile_f32.argtypes = [
             p, p, i32, p, p, i64, p, i32, i32, p, i64, p, p]
         lib.tdigest_merged_quantile_scratch.argtypes = [i64, i32]
@@ -282,21 +283,29 @@ def _kernels() -> ctypes.CDLL:
             p, p, i32, p, p, i64, i32, p, i64, p, p]
         for fn in (lib.tdigest_fold_f32, lib.hll_fold_i32,
                    lib.hll_estimate_f32, lib.tdigest_merged_quantile_f32,
-                   lib.tdigest_merged_digest_f32):
+                   lib.tdigest_merged_digest_f32, lib.empty_launch):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
-
-
-def _run(fn, t: torch.Tensor, *args) -> None:
-    with torch.cuda.device(t.device):
-        rc = fn(*args, _stream(t))
+def _launch(fn, dev: int, *args) -> None:
+    """Launch ``fn`` on the current stream of card ``dev``. The device
+    guard is entered only when ``dev`` is not the thread's current card:
+    its enter and exit cost about as much host time as the launch."""
+    if dev == torch._C._cuda_getDevice():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
+
+
+def empty_launch(dev: int) -> None:
+    """Launch an empty kernel on card ``dev`` the way the wrappers launch
+    theirs: the launch floor, for measurements. Not counted."""
+    _launch(_kernels().empty_launch, dev)
 
 
 def _check_stack(means, weights, idx, what):
@@ -378,11 +387,11 @@ def tdigest_fold(means: torch.Tensor, weights: torch.Tensor,
         return
     batch = batch.contiguous()
     mask = mask.contiguous()
-    _run(_kernels().tdigest_fold_f32, means, means.data_ptr(),
-         weights.data_ptr(), means.shape[0], K, idx.contiguous().data_ptr(),
-         R, batch.data_ptr(),
-         mask.data_ptr() if valid is not None else None,
-         mask.data_ptr() if batch_weights is not None else None, P)
+    _launch(_kernels().tdigest_fold_f32, means.get_device(),
+            means.data_ptr(), weights.data_ptr(), means.shape[0], K,
+            idx.contiguous().data_ptr(), R, batch.data_ptr(),
+            mask.data_ptr() if valid is not None else None,
+            mask.data_ptr() if batch_weights is not None else None, P)
     tdigest_fold.launches += 1
 
 
@@ -390,53 +399,64 @@ tdigest_fold.launches = 0
 
 
 def hll_fold_plain(regs, idx, items, valid, *, p: int) -> None:
-    """Plain ``hll_fold``."""
-    H = regs.shape[0]
-    keep = (idx >= 0) & (idx < H)
-    rows = idx[keep].long()
-    reg_idx, rank = _hll_ranks(items[keep], valid[keep], p)
-    new = torch.zeros((len(rows), (1 << p) + 1), dtype=torch.int32,
-                      device=regs.device)
-    new.scatter_reduce_(1, reg_idx, rank, "amax")
-    regs[rows] = torch.maximum(regs[rows], new[:, :1 << p])
+    """Plain ``hll_fold``: one ``scatter_reduce_`` (amax) of every valid
+    item's rank into the flattened stack, so a slot that several rows
+    name takes the max over all of them. Items of skipped rows and
+    invalid items carry rank 0, which raises no register."""
+    C, m = regs.shape[0], 1 << p
+    if C == 0 or items.numel() == 0:
+        return
+    keep = (idx >= 0) & (idx < C)
+    reg, rank = _hll_ranks(items, valid & keep[:, None], p)
+    live = reg < m
+    flat = idx.long().clamp(0, C - 1)[:, None] * m + reg
+    regs.view(-1).scatter_reduce_(
+        0, torch.where(live, flat, 0).reshape(-1),
+        torch.where(live, rank, 0).reshape(-1), "amax")
 
 
 def hll_fold(regs: torch.Tensor, idx: torch.Tensor, items: torch.Tensor,
              valid: torch.Tensor, *, p: int) -> None:
     """Fold row r of the [H, U] int32 ``items`` (``valid`` its mask) into
     register row idx[r] of the [C, 2^p] int32 stack, in place: register
-    = max(register, rank) over the items hashed to it. Rows with idx
-    outside [0, C) are skipped; the idx of a call must be distinct."""
-    if regs.dim() != 2 or regs.dtype != torch.int32 \
+    = max(register, rank) over the items hashed to it. A slot that
+    several rows name takes the max over all of their items, as
+    ``_fold_hlls``' ``.at[idx].max`` does. Rows with idx outside [0, C)
+    are skipped, negative ones included (where the JAX function wraps a
+    negative idx: ROADMAP.md queue C, reference note 7)."""
+    # The checks read each attribute once, and the device type through
+    # is_cpu / is_cuda: on a card the whole call is host time.
+    if regs.dtype != torch.int32 or regs.dim() != 2 \
             or regs.shape[1] != 1 << p or not regs.is_contiguous():
         raise ValueError(f"hll_fold: registers must be a contiguous "
                          f"[C, {1 << p}] int32 stack, got "
                          f"{tuple(regs.shape)} {regs.dtype}")
-    if idx.dim() != 1 or idx.dtype != torch.int32:
+    if idx.dtype != torch.int32 or idx.dim() != 1:
         raise ValueError("hll_fold: idx must be [H] int32")
-    if items.dim() != 2 or items.dtype != torch.int32 \
-            or items.shape[0] != idx.shape[0] \
-            or valid.shape != items.shape or valid.dtype != torch.bool:
+    H = idx.shape[0]
+    shape = items.shape
+    if items.dtype != torch.int32 or len(shape) != 2 or shape[0] != H \
+            or valid.dtype != torch.bool or valid.shape != shape:
         raise ValueError("hll_fold: items must be [H, U] int32 with a "
                          "bool mask of the same shape")
-    for t in (idx, items, valid):
-        if t.device != regs.device:
-            raise ValueError(f"hll_fold: tensors on {regs.device} and "
-                             f"{t.device}")
+    dev = regs.device
+    if idx.device != dev or items.device != dev or valid.device != dev:
+        other = next(t.device for t in (idx, items, valid)
+                     if t.device != dev)
+        raise ValueError(f"hll_fold: tensors on {dev} and {other}")
     if not 4 <= p <= 18:
         raise ValueError(f"hll_fold: p must be in [4, 18], got {p}")
-    if regs.device.type == "cpu":
+    if regs.is_cpu:
         hll_fold_plain(regs, idx, items, valid, p=p)
         return
-    if regs.device.type != "cuda":
-        raise ValueError(f"no kernel for device {regs.device}")
-    if idx.shape[0] == 0:
+    if not regs.is_cuda:
+        raise ValueError(f"no kernel for device {dev}")
+    if H == 0:
         return
-    items = items.contiguous()
-    valid = valid.contiguous()
-    _run(_kernels().hll_fold_i32, regs, regs.data_ptr(), regs.shape[0], p,
-         idx.contiguous().data_ptr(), idx.shape[0], items.data_ptr(),
-         valid.data_ptr(), items.shape[1])
+    _launch(_kernels().hll_fold_i32, dev.index, regs.data_ptr(),
+            regs.shape[0], p, idx.contiguous().data_ptr(), H,
+            items.contiguous().data_ptr(), valid.contiguous().data_ptr(),
+            shape[1])
     hll_fold.launches += 1
 
 
@@ -444,10 +464,19 @@ hll_fold.launches = 0
 
 
 def hll_estimate_plain(registers: torch.Tensor) -> torch.Tensor:
-    """Plain ``hll_estimate`` over the last axis."""
+    """Plain ``hll_estimate`` over the last axis. The sum of 2^-r is the
+    kernel's: exact in int64 as 2^(33 - r) for r in [0, 33] (every
+    register a fold writes), rounded to float32 once and scaled by 2^-33;
+    any other register adds 2^-r in float32. The JAX function sums the
+    float32 terms, which can land an ulp away from the exact sum."""
     m = registers.shape[-1]
     alpha = 0.7213 / (1.0 + 1.079 / m)
-    inv = torch.exp2(-registers.to(torch.float32)).sum(-1)
+    r = registers.to(torch.int64)
+    fits = (r >= 0) & (r <= 33)
+    exact = torch.where(fits, torch.ones_like(r) << (33 - r.clamp(0, 33)),
+                        0).sum(-1)
+    rest = torch.where(fits, 0.0, torch.exp2(-registers.to(torch.float32)))
+    inv = exact.to(torch.float32) * np.float32(2.0 ** -33) + rest.sum(-1)
     raw = torch.tensor(np.float32(alpha * m * m),
                        device=registers.device) / inv
     zeros = (registers == 0).sum(-1).to(torch.float32)
@@ -464,25 +493,28 @@ def hll_estimate(registers: torch.Tensor) -> torch.Tensor:
     """Cardinality estimate with small- and large-range corrections, of
     one [2^p] register row (a scalar) or of each row of [H, 2^p] ([H]),
     float32."""
-    if registers.dtype != torch.int32 or registers.dim() not in (1, 2):
+    nd = registers.dim()
+    if registers.dtype != torch.int32 or nd not in (1, 2):
         raise ValueError(f"hll_estimate: registers must be [2^p] or "
                          f"[H, 2^p] int32, got {tuple(registers.shape)} "
                          f"{registers.dtype}")
     m = registers.shape[-1]
     if m < 16 or m & (m - 1):
         raise ValueError(f"hll_estimate: {m} registers a row is not 2^p")
-    if registers.device.type == "cpu":
+    if registers.is_cpu:
         return hll_estimate_plain(registers)
-    if registers.device.type != "cuda":
+    if not registers.is_cuda:
         raise ValueError(f"no kernel for device {registers.device}")
-    rows = registers.reshape(-1, m).contiguous()
-    out = torch.empty(rows.shape[0], dtype=torch.float32,
-                      device=rows.device)
-    if rows.shape[0]:
-        _run(_kernels().hll_estimate_f32, rows, rows.data_ptr(),
-             rows.shape[0], m, out.data_ptr())
+    rows = (registers if nd == 2 else registers[None]).contiguous()
+    if rows.data_ptr() % 16:  # the kernel loads 16 bytes at a time
+        rows = rows.clone()
+    R = rows.shape[0]
+    out = torch.empty(R, dtype=torch.float32, device=rows.device)
+    if R:
+        _launch(_kernels().hll_estimate_f32, rows.get_device(),
+                rows.data_ptr(), R, m, out.data_ptr())
         hll_estimate.launches += 1
-    return out.reshape(registers.shape[:-1])
+    return out if nd == 2 else out[0]
 
 
 hll_estimate.launches = 0
@@ -536,11 +568,11 @@ def merged_quantile(means: torch.Tensor, weights: torch.Tensor,
     S, K = idx.shape[0], means.shape[1]
     scratch = _merged_scratch(lib, means, S, compression)
     out = torch.empty(q.shape[0], dtype=torch.float32, device=means.device)
-    _run(lib.tdigest_merged_quantile_f32, means, means.data_ptr(),
-         weights.data_ptr(), K, idx.contiguous().data_ptr(),
-         valid.contiguous().data_ptr(), S, q.contiguous().data_ptr(),
-         q.shape[0], compression, scratch.data_ptr(), scratch.numel(),
-         out.data_ptr())
+    _launch(lib.tdigest_merged_quantile_f32, means.get_device(),
+            means.data_ptr(), weights.data_ptr(), K,
+            idx.contiguous().data_ptr(), valid.contiguous().data_ptr(), S,
+            q.contiguous().data_ptr(), q.shape[0], compression,
+            scratch.data_ptr(), scratch.numel(), out.data_ptr())
     merged_quantile.launches += 1
     return out
 
@@ -576,10 +608,11 @@ def merged_digest(means: torch.Tensor, weights: torch.Tensor,
     scratch = _merged_scratch(lib, means, S, compression)
     out = torch.empty((2, compression), dtype=torch.float32,
                       device=means.device)
-    _run(lib.tdigest_merged_digest_f32, means, means.data_ptr(),
-         weights.data_ptr(), K, idx.contiguous().data_ptr(),
-         valid.contiguous().data_ptr(), S, compression, scratch.data_ptr(),
-         scratch.numel(), out.data_ptr())
+    _launch(lib.tdigest_merged_digest_f32, means.get_device(),
+            means.data_ptr(), weights.data_ptr(), K,
+            idx.contiguous().data_ptr(), valid.contiguous().data_ptr(), S,
+            compression, scratch.data_ptr(), scratch.numel(),
+            out.data_ptr())
     return out[0], out[1]
 
 

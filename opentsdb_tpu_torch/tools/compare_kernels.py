@@ -15,10 +15,12 @@ Kernels (``--kernels``, default all four):
   first day on its union grid [1000, ~41.6k];
 - ``interp_moments``: ``interp_moments_f32`` on that day's union grid and
   on all 10,000 series for the week (~302k grid points);
-- ``sketches``: ``tdigest_fold_f32`` at one ingest hand-off and at the
-  4096-value chunk, ``tdigest_merged_quantile_f32`` over all 10,000
-  series' digests (each revision's own scratch size); the fold's outputs
-  must be bit-identical between the revisions.
+- ``sketches``: ``hll_fold_i32`` and ``hll_estimate_f32`` at
+  chip_smoke.py's HLL shapes (``hll_cases``), ``tdigest_fold_f32`` at
+  one ingest hand-off and at the 4096-value chunk,
+  ``tdigest_merged_quantile_f32`` over all 10,000 series' digests (each
+  revision's own scratch size); the t-digest fold's outputs must be
+  bit-identical between the revisions.
 The data is ``chip_smoke.py``'s corpus (10,000 series x 1,000 points over
 7 days, drawn from seed 0), staged by this checkout's own functions.
 
@@ -30,7 +32,10 @@ select bit for bit; interp_moments' count, min and max exactly and its
 total within rtol 1e-5, at full width on 4,096 grid points drawn with a
 seed, where the plain composition fits) and timed as device time per call:
 20 calls queued back to back behind a GPU sleep, outputs filled before the
-calls and not refilled. The revisions run in turns A B .. B A, twice.
+calls and not refilled; and as chip_smoke.py's ``ms`` (the median of 20
+single calls from an idle card: the C entry point's host time counts,
+the same Python for every revision). The revisions run in turns A B .. B
+A, twice.
 ``segment_minmax_f32`` is asked for both outputs, the one request every
 revision answers. One JSON line per case goes to standard output, after
 the card's name and power limit; with ``--breakdown`` a second line gives
@@ -83,6 +88,8 @@ def bind(lib: ctypes.CDLL, kernel: str) -> ctypes.CDLL:
             p, p, i32, p, p, i64, p, i32, i32, p, i64, p, p]
         lib.tdigest_merged_quantile_scratch.argtypes = [i64, i32]
         lib.tdigest_merged_quantile_scratch.restype = i64
+        lib.hll_fold_i32.argtypes = [p, i64, i32, p, i64, p, p, i32, p]
+        lib.hll_estimate_f32.argtypes = [p, i64, i32, p, p]
     return lib
 
 
@@ -117,6 +124,23 @@ def device_ms(fn, reps: int = 20) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def median_ms(fn, reps: int = 20) -> float:
+    """chip_smoke.py's ``ms``: the median over ``reps`` single calls, each
+    timed from an idle card, so the host's time up to the launch counts."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
 
 
 class Case(NamedTuple):
@@ -457,7 +481,7 @@ def sketch_cases(dev, vals) -> list[Case]:
                                    atol=1e-5)
         return float((mq_out - mq_want).abs().max())
 
-    return [
+    return [*hll_cases(dev, first), *[
         fold_case("tdigest_fold one hand-off (1,049 series x 1,000 "
                   "values)", zeros, zeros, idx, batch, valid),
         fold_case("tdigest_fold 4096-value chunk (1,024 rows)",
@@ -468,7 +492,104 @@ def sketch_cases(dev, vals) -> list[Case]:
         Case("sketches", "tdigest_merged_quantile all series, S = 16,384 "
              "(2,097,152 entries)",
              {"S": S, "K": K, "valid_rows": SERIES}, _nothing, mq_call,
-             mq_check)]
+             mq_check)]]
+
+
+def hll_cases(dev, first: int, pool: int = 24) -> list[Case]:
+    """chip_smoke.py's HLL shapes: the fold of one hand-off's host and dc
+    tag-value UIDs at p = 12 (8 x 2,048 items), of every corpus host and
+    dc (8 x 16,384), of dc0's 1,000 hosts at p = 14 (one row of 1,024),
+    of the hand-off's hosts in four rows that name one slot, and of every
+    host and dc again into the stack they raised; the estimate over that
+    stack. Each timed call folds into its own copy of the starting stack
+    (``pool`` copies, refilled before each run of calls). Registers must
+    equal the plain version's, except in the repeated-slot case, where a
+    revision's error is reported instead (a kernel that stages a row
+    per block loses rows there); estimates within rtol 1e-6 of the plain
+    version's."""
+    host = np.where(np.arange(SERIES) < 10, 2 * np.arange(SERIES) + 1,
+                    np.arange(SERIES) + 11).astype(np.int32)
+    dc = (2 * np.arange(10) + 2).astype(np.int32)
+
+    def rows(uid_rows, slots, C, H=None, U=None):
+        H = H or _pad(len(uid_rows))
+        U = U or _pad(max(map(len, uid_rows)))
+        items = np.zeros((H, U), np.int32)
+        valid = np.zeros((H, U), bool)
+        for i, u in enumerate(uid_rows):
+            items[i, :len(u)] = u
+            valid[i, :len(u)] = True
+        idx = np.full(H, C, np.int32)
+        idx[:len(slots)] = slots
+        return [torch.from_numpy(a).to(dev) for a in (idx, items, valid)]
+
+    def fold_case(label, p, C, args, start=None, exact=True):
+        regs0 = (torch.zeros((C, 1 << p), dtype=torch.int32, device=dev)
+                 if start is None else start)
+        want = regs0.clone()
+        sketches.hll_fold_plain(want, *args, p=p)
+        stacks = torch.empty((pool, *regs0.shape), dtype=torch.int32,
+                             device=dev)
+        turn = [0]
+        idx, items, valid = args
+
+        def fill():
+            stacks.copy_(regs0.expand_as(stacks))
+            turn[0] = 0
+
+        def call(lib):
+            r = stacks[turn[0] % pool]
+            turn[0] += 1
+            _rc(lib.hll_fold_i32(r.data_ptr(), C, p, idx.data_ptr(),
+                                 idx.shape[0], items.data_ptr(),
+                                 valid.data_ptr(), items.shape[1],
+                                 _stream()))
+
+        def check():
+            got = stacks[0]
+            if exact and not torch.equal(got, want):
+                raise AssertionError(f"{label}: registers differ")
+            return float((got - want).abs().max())
+
+        return Case("sketches", label,
+                    {"p": p, "rows": list(items.shape),
+                     "items": int(valid.sum())}, fill, call, check), want
+
+    hand_off = [host[:first], np.unique(dc[np.arange(first) % 10])]
+    quarter = -(-first // 4)
+    split = [host[i:min(i + quarter, first)]
+             for i in range(0, first, quarter)]
+    dc0 = host[::10]
+    one, _ = fold_case("hll_fold one hand-off: host + dc, p = 12", 12, 8,
+                       rows(hand_off, [0, 1], 8))
+    every_args = rows([host, dc], [0, 1], 8)
+    every, raised = fold_case("hll_fold all hosts + dcs, p = 12", 12, 8,
+                              every_args)
+    p14, _ = fold_case("hll_fold dc0's hosts, p = 14 (distinct_tagv)", 14,
+                       1, rows([dc0], [0], 1, H=1, U=_pad_size(len(dc0))))
+    rep, _ = fold_case("hll_fold one hand-off, the hosts in 4 rows on one "
+                       "slot", 12, 8,
+                       rows(split + [hand_off[1]], [0, 0, 0, 0, 1], 8),
+                       exact=False)
+    again, _ = fold_case("hll_fold every host and dc again into the stack "
+                         "they raised, p = 12", 12, 8, every_args,
+                         start=raised)
+    est = torch.empty(raised.shape[0], device=dev)
+    est_want = sketches.hll_estimate_plain(raised)
+
+    def est_call(lib):
+        _rc(lib.hll_estimate_f32(raised.data_ptr(), raised.shape[0],
+                                 raised.shape[1], est.data_ptr(),
+                                 _stream()))
+
+    def est_check():
+        torch.testing.assert_close(est, est_want, rtol=1e-6, atol=0)
+        return float((est - est_want).abs().max())
+
+    return [one, every, p14, rep, again,
+            Case("sketches", "hll_estimate over the p = 12 stack (8 x "
+                 "4096)", {"rows": raised.shape[0], "m": raised.shape[1]},
+                 _nothing, est_call, est_check)]
 
 
 def cases(dev, kernels=SOURCES) -> list[Case]:
@@ -499,16 +620,19 @@ def compare(case: Case, names: list[str], libs: list[dict],
     order = list(range(len(libs)))
     order = order + order[::-1]
     times: list[list[float]] = [[] for _ in libs]
+    host: list[list[float]] = [[] for _ in libs]
     for _ in range(2):
         for i in order:
-            case.fill()
-            times[i].append(device_ms(
-                lambda lib=libs[i][case.kernel]: case.call(lib)))
+            lib = libs[i][case.kernel]
+            for clock, out in ((device_ms, times[i]), (median_ms, host[i])):
+                case.fill()
+                out.append(clock(lambda: case.call(lib)))
     return {"kernel": case.kernel, "case": case.label, **case.info,
             "card": card, "revisions": [
                 {"dir": d, "device_ms": t, "median_ms": float(np.median(t)),
+                 "ms": h, "median_of_ms": float(np.median(h)),
                  "max_abs_err": e}
-                for d, t, e in zip(names, times, errs)]}
+                for d, t, h, e in zip(names, times, host, errs)]}
 
 
 def breakdown(case: Case, names: list[str], libs: list[dict],

@@ -1020,10 +1020,10 @@ def test_tdigest_merge_form_and_determinism(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("p", [4, 12, 14])
+@pytest.mark.parametrize("p", [4, 12, 14, 18])
 def test_hll_fold_and_estimate_match_plain(card, p):
-    """Registers bit-identical; estimates within rtol 1e-6 (float32 sums
-    of powers of two in another order)."""
+    """Registers bit-identical; estimates within rtol 1e-6 (the same
+    exact sum; the logs are CUDA's in both)."""
     sk = _sk()
     rng = np.random.default_rng(p)
     H, U, C = 6, 5000, 8
@@ -1044,6 +1044,154 @@ def test_hll_fold_and_estimate_match_plain(card, p):
     want = sk.hll_estimate_plain(r1)
     torch.testing.assert_close(est, want, rtol=1e-6, atol=0)
     assert torch.equal(torch.round(est), torch.round(want))
+
+
+def _hll_items(rng, H, U):
+    return torch.from_numpy(rng.integers(-2**31, 2**31, (H, U))
+                            .astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [4, 12, 14, 18])
+@pytest.mark.parametrize("case", ["repeated", "invalid_rows", "one_row",
+                                  "outside", "unaligned"])
+def test_hll_fold_edge_rows_match_plain(card, p, case):
+    """Registers bit-identical to the plain version's (the max over every
+    row that names a slot): three rows on one slot beside two distinct
+    ones, rows with no valid item, a single row, slots outside [0, C)
+    (negative ones skipped too) and a batch whose rows are not a whole
+    number of 16-byte loads."""
+    sk = _sk()
+    rng = np.random.default_rng(p)
+    C, U = 4, 1024
+    idx = {"repeated": [1, 3, 1, 0, 1], "invalid_rows": [0, 1, 2, 3, 2],
+           "one_row": [2], "outside": [-1, 0, C, -7, 3],
+           "unaligned": [3, 3, 0, 1, 2]}[case]
+    H = len(idx)
+    if case == "unaligned":
+        U = 1021
+    items = _hll_items(rng, H, U).to(card)
+    valid = torch.from_numpy(rng.random((H, U)) < 0.6).to(card)
+    if case == "invalid_rows":
+        valid[1] = False
+        valid[4] = False
+    regs = torch.from_numpy(rng.integers(0, 3, (C, 1 << p))
+                            .astype(np.int32)).to(card)
+    idx = torch.tensor(idx, dtype=torch.int32, device=card)
+    before = sk.hll_fold.launches
+    r1, r2 = regs.clone(), regs.clone()
+    sk.hll_fold(r1, idx, items, valid, p=p)
+    sk.hll_fold_plain(r2, idx, items, valid, p=p)
+    torch.cuda.synchronize()
+    assert sk.hll_fold.launches == before + 1
+    assert torch.equal(r1, r2)
+    if case == "outside":
+        assert torch.equal(r1[[1, 2]], regs[[1, 2]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [4, 12, 14])
+def test_hll_refold_changes_nothing(card, p):
+    """Folding the same items again into the stack they raised (what
+    every hand-off of a steady deployment does) leaves it bit for bit as
+    it was, and equal to the plain version's."""
+    sk = _sk()
+    rng = np.random.default_rng(p + 100)
+    C, H, U = 8, 8, 2048
+    items = _hll_items(rng, H, U).to(card)
+    valid = torch.from_numpy(rng.random((H, U)) < 0.5).to(card)
+    idx = torch.tensor([0, 1, 2, 3, 4, 5, C, C], dtype=torch.int32,
+                       device=card)
+    regs = torch.zeros((C, 1 << p), dtype=torch.int32, device=card)
+    sk.hll_fold(regs, idx, items, valid, p=p)
+    once = regs.clone()
+    sk.hll_fold(regs, idx, items, valid, p=p)
+    want = torch.zeros_like(regs)
+    sk.hll_fold_plain(want, idx, items, valid, p=p)
+    sk.hll_fold_plain(want, idx, items, valid, p=p)
+    assert torch.equal(regs, once) and torch.equal(regs, want)
+
+
+def _unhash32(sk, h):
+    """The item whose hash32 is ``h`` (uint32 in int64): the murmur3
+    finalizer's inverse."""
+    h = h ^ (h >> 16)
+    h = sk._mul32(h, 0x7ED1B41D)
+    h = h ^ (h >> 13) ^ (h >> 26)
+    h = sk._mul32(h, 0xA5CB9243)
+    return h ^ (h >> 16)
+
+
+@pytest.mark.cuda
+def test_hll_rank_of_every_w_at_p4(card):
+    """The kernel's rank of every w < 2^28 (p = 4: the widest w, where
+    float32 rounding of w decides floor(log2 w) near each power of two)
+    equals the plain version's: in each chunk of 2^24 w, register j of
+    row r gets the one item whose hash is (j << 28) | w with w = lo +
+    16 r + j."""
+    sk = _sk()
+    p, bits = 4, 28
+    chunk = 1 << 24
+    rows = chunk // 16
+    j = torch.arange(16, device=card, dtype=torch.int64)
+    idx = torch.arange(rows, dtype=torch.int32, device=card)
+    valid = torch.ones((rows, 16), dtype=torch.bool, device=card)
+    for lo in range(0, 1 << bits, chunk):
+        w = lo + torch.arange(chunk, device=card, dtype=torch.int64)
+        h = (j.repeat(rows) << bits) | w
+        items = _unhash32(sk, h).to(torch.int32).reshape(rows, 16)
+        assert torch.equal(sk.hash32(items.reshape(-1)), h)
+        got = torch.zeros((rows, 16), dtype=torch.int32, device=card)
+        sk.hll_fold(got, idx, items, valid, p=p)
+        want = torch.zeros_like(got)
+        sk.hll_fold_plain(want, idx, items, valid, p=p)
+        assert torch.equal(got, want), f"w in [{lo}, {lo + chunk})"
+        # Rank 0 where float32(w) rounds up to 2^28 (w >= 2^28 - 8), as
+        # the JAX package's frexp gives it.
+        assert int(got.min()) >= 0 and int(got.max()) <= bits + 1
+        assert int((got == 0).sum()) == (8 if lo + chunk == 1 << bits
+                                         else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,fill", [(4, 27), (12, None), (14, None),
+                                    (18, None)])
+def test_hll_estimate_ranges_match_plain(card, p, fill):
+    """Estimates within rtol 1e-6 of the plain version's and equal once
+    rounded, on stacks filled to each of the estimate's ranges (empty,
+    the small-range count of zeros, the raw sum) and, with 16 registers
+    of 27, the large-range correction; the same on every run."""
+    sk = _sk()
+    rng = np.random.default_rng(p)
+    if fill is not None:
+        regs = torch.full((1, 1 << p), fill, dtype=torch.int32, device=card)
+    else:
+        regs = torch.zeros((4, 1 << p), dtype=torch.int32, device=card)
+        for r, n in enumerate([0, (1 << p) // 8, 1 << p, 20 << p]):
+            items = _hll_items(rng, 1, max(n, 1)).to(card)
+            valid = torch.full(items.shape, n > 0, device=card)
+            sk.hll_fold(regs, torch.tensor([r], dtype=torch.int32,
+                                           device=card), items, valid, p=p)
+    est = sk.hll_estimate(regs)
+    want = sk.hll_estimate_plain(regs)
+    torch.testing.assert_close(est, want, rtol=1e-6, atol=0)
+    assert torch.equal(torch.round(est), torch.round(want))
+    assert torch.equal(sk.hll_estimate(regs), est)
+    if fill is not None:
+        assert float(est[0]) > 2.0 ** 32 / 30
+
+
+@pytest.mark.cuda
+def test_hll_estimate_unaligned_rows(card):
+    """A row that starts off a 16-byte boundary is copied, not misread."""
+    sk = _sk()
+    flat = torch.randint(0, 20, (1 + 4096,), dtype=torch.int32,
+                         device=card)
+    row = flat[1:]
+    assert row.data_ptr() % 16
+    torch.testing.assert_close(sk.hll_estimate(row),
+                               sk.hll_estimate_plain(row), rtol=1e-6,
+                               atol=0)
 
 
 @pytest.mark.cuda

@@ -440,8 +440,62 @@ def test_hll_fold_rows_match_jax_batch_fold():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _fold_both(regs, idx, items, valid, p):
+    """(JAX ``_fold_hlls``, the port's ``hll_fold``) on the same inputs."""
+    want = np.asarray(jls._fold_hlls(jnp.asarray(regs), jnp.asarray(idx),
+                                     jnp.asarray(items), jnp.asarray(valid),
+                                     p=p))
+    got = _t(regs.copy())
+    psk.hll_fold(got, _t(idx), _t(items), _t(valid), p=p)
+    return want, got.numpy()
+
+
+@pytest.mark.parametrize("case", ["two_rows_one_slot", "three_share_one"])
+def test_hll_fold_repeated_slot_matches_jax(case):
+    """A slot that several rows name takes the max over all of them, as
+    ``.at[idx].max`` does."""
+    if case == "two_rows_one_slot":
+        p, C, idx = 12, 3, np.array([1, 1], np.int32)
+        items = np.random.default_rng(0).integers(
+            0, 2**31 - 1, (2, 256)).astype(np.int32)
+        valid = np.ones(items.shape, bool)
+    else:
+        p, C, idx = 10, 6, np.array([4, 2, 4, 0, 4, 6, 6, 6], np.int32)
+        rng = np.random.default_rng(21)
+        items = rng.integers(-2**31, 2**31, (8, 400)).astype(np.int32)
+        valid = rng.random(items.shape) < 0.8
+    regs = np.zeros((C, 1 << p), np.int32)
+    if case == "three_share_one":
+        regs[:] = np.random.default_rng(22).integers(0, 3, regs.shape)
+    want, got = _fold_both(regs, idx, items, valid, p)
+    np.testing.assert_array_equal(got, want)
+    if case == "two_rows_one_slot":
+        assert (got[1] != 0).sum() == 480
+
+
+def test_hll_fold_skips_rows_outside_the_stack():
+    """Rows whose idx is negative or >= C are skipped (ROADMAP.md queue C,
+    reference note 7): the port equals the JAX fold with those rows'
+    slots set to C. The JAX fold itself wraps a negative idx (row C - 1
+    gets row 0's registers joined with the row's items), which the port
+    deliberately does not copy."""
+    rng = np.random.default_rng(23)
+    p, C = 12, 4
+    regs = rng.integers(0, 3, (C, 1 << p)).astype(np.int32)
+    idx = np.array([-1, 0, C, 2, -3, C + 5], np.int32)
+    items = rng.integers(-2**31, 2**31, (6, 300)).astype(np.int32)
+    valid = rng.random(items.shape) < 0.7
+    skipped = np.where((idx >= 0) & (idx < C), idx, C).astype(np.int32)
+    want, got = _fold_both(regs, skipped, items, valid, p)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[[1, 3]], regs[[1, 3]])
+    wrapped, _ = _fold_both(regs, idx, items, valid, p)
+    assert not np.array_equal(wrapped[C - 1], regs[C - 1])
+
+
 @pytest.mark.parametrize("p,fill", [(12, 0), (12, 10), (12, 10_020),
-                                    (14, 10), (14, 200_000), (4, 5000)])
+                                    (14, 10), (14, 200_000), (4, 5000),
+                                    (18, 1 << 18), (18, 20 << 18)])
 def test_hll_estimate_matches_jax(p, fill):
     rng = np.random.default_rng(fill)
     regs = np.asarray(jsk.hll_add(jsk.hll_init(p), jnp.asarray(
