@@ -57,6 +57,9 @@
    ``sum`` over every series for the week, ``zimsum`` and ``p95`` of
    ``{dc=dc0}`` over the first day, ``sum:rate`` of one host over the
    week; each must launch interp_moments (the percentile: the select).
+   No checkpoint has run yet, so every chunk of the week holds memtable
+   rows: the fragment cache must have bypassed every chunk (no hit, no
+   miss, every answer ``"cached": false``); the counters are printed.
    Before those, right after ingest (the live sketches fold every value:
    the ingest rate is printed beside the smoke's earlier figure, taken
    before the sketches were ported, and the
@@ -105,7 +108,20 @@
    ``sum:rate`` of ``{host=h00001}`` over the week without a downsampler,
    read from the generations, must launch interp_moments and match the
    float64 oracle, and one host scan of every series over the week from
-   the generations is timed beside the path phase's scan of the memtable.
+   the generations is timed beside the path phase's scan of the memtable,
+   then timed again from the fragment cache it filled (its spans must
+   equal the cold scan's array for array). The memtable is empty here, so
+   every chunk is clean: the scan fast path runs at full width. The
+   ``{host=h00001}`` query's chunk scans must skip every generation whose
+   series bloom lacks that host (checkpoint 2's holds only the telnet
+   u-series), and ``bloom_files_skipped`` must rise then. That query, and
+   ``zimsum`` and ``p95`` of ``{dc=dc0}`` over the first day, run a second
+   time: each repeat must say ``"cached": true``, carry the first run's
+   bytes but for that flag, and launch its kernel again; the ranged
+   ``/sketch`` and ``/distinct`` of ``{dc=dc0}`` run again and must answer
+   the same bytes. The hit, miss and bypass counts, the bloom skips and
+   what the fragment cache holds (entries, points, bytes of host RAM) are
+   printed.
    The sketch snapshot's save (inside checkpoint 1) and load (at boot)
    are timed, and after the restart every sketch route answers byte for
    byte as before it (the state is the snapshot: the memtable is empty),
@@ -887,10 +903,11 @@ def http_resident(port: int, dw: DeviceWindow, ex: QueryExecutor,
 
 
 def http_union(port: int, expr: str, start: int,
-               end: int) -> tuple[list, dict]:
+               end: int) -> tuple[list, dict, bytes]:
     """One /q run of a query without a downsampler: every group says
     "rollup": "raw"; a moment query must launch interp_moments and a
-    percentile one masked_select."""
+    percentile one masked_select. Returns the answer, the run's record
+    (whether every group said "cached": true among it) and the body."""
     target = "/q?" + urllib.parse.urlencode(
         {"start": start, "end": end, "m": expr, "json": ""})
     before = launches()
@@ -909,10 +926,49 @@ def http_union(port: int, expr: str, start: int,
     if got[need] == 0:
         fail(f"{expr}: launched no {need}")
     run = {"wall_ms": wall, "launches": got, "groups": len(answer),
-           "points": sum(len(g["dps"]) for g in answer)}
+           "points": sum(len(g["dps"]) for g in answer),
+           "cached": all(g["cached"] for g in answer)}
     log(f"union query {expr}: {wall:.1f} ms, {run['points']} points, "
-        f"launches {got}")
-    return answer, run
+        f"cached {run['cached']}, launches {got}")
+    return answer, run, body
+
+
+def qcache_counters(ex: QueryExecutor, store: MemKVStore) -> dict:
+    """The executor's fragment-cache counters, the store's bloom skips,
+    and what the shared fragment cache holds: entries, points (its cost)
+    and the bytes of their columns in host RAM."""
+    cache = ex._frag_cache
+    nbytes = 0
+    for key in cache.keys():
+        ent = cache.peek(key)
+        if ent is not None:
+            nbytes += sum(c.timestamps.nbytes + c.values.nbytes
+                          + c.int_values.nbytes + c.is_float.nbytes
+                          for c in ent[1].values())
+    return {"hits": ex.qcache_hits, "misses": ex.qcache_misses,
+            "bypasses": ex.qcache_bypasses,
+            "bloom_files_skipped": store.bloom_files_skipped,
+            "fragments": len(cache), "fragment_points": cache.cost,
+            "fragment_bytes": nbytes}
+
+
+def repeat_union(port: int, expr: str, start: int, end: int,
+                 first: tuple | None = None) -> dict:
+    """A second /q run of an un-downsampled query on a daemon whose
+    memtable holds none of the range: it must come from the fragment
+    cache ("cached": true) with the first run's bytes but for that flag,
+    and launch its kernel again (http_union checks that). ``first``: an
+    earlier http_union result of the same request, else one is made."""
+    _, r1, b1 = first or http_union(port, expr, start, end)
+    _, r2, b2 = http_union(port, expr, start, end)
+    if not r2["cached"]:
+        fail(f"{expr}: the repeat was not served from the fragment cache")
+    if b1.replace(b'"cached": false', b'"cached": true') != b2:
+        fail(f"{expr}: the cached repeat's body differs from the first's")
+    return {"first_ms": r1["wall_ms"], "repeat_ms": r2["wall_ms"],
+            "first_cached": r1["cached"], "repeat_cached": r2["cached"],
+            "same_bytes": True,
+            "launches": [r1["launches"], r2["launches"]]}
 
 
 def regroup(ex: QueryExecutor, spans: list, tags: dict) -> dict:
@@ -1180,10 +1236,20 @@ def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
         out["union"] = {}
         zero_launches()
         for expr, span in UNION_QUERIES:
-            union_answers[expr], out["union"][expr] = http_union(
+            union_answers[expr], out["union"][expr], _ = http_union(
                 daemon.port, expr, start, start + span - 1)
         out["launches"]["union"] = path_launches(
             "union path", ("masked_select", "interp_moments"))
+        # Before any checkpoint every chunk of the week holds memtable
+        # rows: the fragment cache is bypassed, nothing is cached, and the
+        # answers are the whole-range scan's.
+        out["qcache"] = qcache_counters(ex, tsdb.store)
+        if out["qcache"]["hits"] or out["qcache"]["misses"] \
+                or not out["qcache"]["bypasses"] \
+                or any(r["cached"] for r in out["union"].values()):
+            fail(f"the fragment cache served the live memtable: "
+                 f"{out['qcache']}")
+        log(f"fragment cache before any checkpoint: {out['qcache']}")
 
         # In process: where a resident query's time goes.
         for expr in QUERIES + PCT_QUERIES:
@@ -1437,24 +1503,83 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
                          for name, a in after.items()}
 
         zero_launches()
-        answer, out["union"] = http_union(daemon2.port, RESTART_UNION,
-                                          start, end)
+        store = tsdb2.store
+        skipped0 = store.bloom_files_skipped
+        first_union = http_union(daemon2.port, RESTART_UNION, start, end)
+        answer, out["union"], _ = first_union
         out["launches_union"] = path_launches(
             "union query after the restart", ("interp_moments",))
-        s0 = time.perf_counter()
-        week = ex2._find_spans(spec_of("sum:bench.metric{host=*}"), start,
-                               end)
-        out["generation_scan_ms"] = (time.perf_counter() - s0) * 1e3
-        spans = [sp for g in sorted(week) for sp in week[g]]
+        # The candidate-series hint of {host=h00001} against each
+        # generation's series bloom: checkpoint 2's generation holds only
+        # the telnet u-series, so its chunk scans must skip it.
         spec = spec_of(RESTART_UNION)
+        hint = ex2._series_hint(tsdb2.metrics.get_id(spec.metric),
+                                *ex2._tag_filters(spec.tags))
+        without = sum(not g.bloom_may_contain(tsdb2.table, hint)
+                      for g in store._ssts)
+        out["bloom"] = {"generations": len(store._ssts),
+                        "generations_without_h00001": without,
+                        "files_skipped": store.bloom_files_skipped
+                        - skipped0}
+        if (without > 0) != (out["bloom"]["files_skipped"] > 0):
+            fail(f"{RESTART_UNION}: bloom skips {out['bloom']}")
+        if without == 0:
+            log(f"no generation lacks h00001's series ({len(store._ssts)} "
+                f"generations): nothing for the bloom to skip")
+        s0 = time.perf_counter()
+        info: dict = {}
+        week = ex2._find_spans(spec_of("sum:bench.metric{host=*}"), start,
+                               end, info)
+        out["generation_scan_ms"] = (time.perf_counter() - s0) * 1e3
+        if info.get("cached"):
+            fail("the first {host=*} scan after the restart was cached")
+        # The same scan again, now from the fragments: the same spans,
+        # array for array.
+        s0 = time.perf_counter()
+        info = {}
+        warm = ex2._find_spans(spec_of("sum:bench.metric{host=*}"), start,
+                               end, info)
+        out["generation_scan_warm_ms"] = (time.perf_counter() - s0) * 1e3
+        if not info.get("cached") or sorted(warm) != sorted(week) or any(
+                not (np.array_equal(a.timestamps, b.timestamps)
+                     and np.array_equal(a.values, b.values))
+                for g in week for a, b in zip(week[g], warm[g])):
+            fail("the warm {host=*} scan differs from the cold one")
+        del warm
+        spans = [sp for g in sorted(week) for sp in week[g]]
         out["union"]["oracle_rel_err"] = check_answer(
             RESTART_UNION, answer,
             QueryExecutor(tsdb2, backend="cpu")._execute_groups(
                 spec, regroup(ex2, spans, spec.tags), start, end),
             1e-4, "oracle")
         log(f"host scan of every series over the week from the "
-            f"generations: {out['generation_scan_ms']:.0f} ms, "
-            f"{len(spans)} spans")
+            f"generations: {out['generation_scan_ms']:.0f} ms cold, "
+            f"{out['generation_scan_warm_ms']:.0f} ms from the fragment "
+            f"cache, {len(spans)} spans")
+        del week, spans
+
+        # Repeats served from the fragment cache, byte for byte: the
+        # un-downsampled queries (their kernels launched again) and the
+        # ranged sketch routes, whose first runs came just after boot.
+        zero_launches()
+        out["repeats"] = {RESTART_UNION: repeat_union(
+            daemon2.port, RESTART_UNION, start, end, first_union)}
+        for expr, span in UNION_QUERIES[1:3]:
+            out["repeats"][expr] = repeat_union(daemon2.port, expr, start,
+                                                start + span - 1)
+        out["launches_repeats"] = path_launches(
+            "cached repeats after the restart",
+            ("masked_select", "interp_moments"))
+        again = sketch_answers(daemon2.port, start, end)
+        for name in ("ranged dc0", "ranged distinct dc0"):
+            if again[name]["body"] != after[name]["body"]:
+                fail(f"sketch {name}: the repeat's body differs")
+            out["repeats"][name] = {"first_ms": after[name]["wall_ms"],
+                                    "repeat_ms": again[name]["wall_ms"],
+                                    "same_bytes": True}
+        out["qcache"] = qcache_counters(ex2, store)
+        log(f"fragment cache after the restart: {out['qcache']}; bloom "
+            f"{out['bloom']}; repeats {out['repeats']}")
     finally:
         daemon2.stop()
     return out
@@ -2207,7 +2332,9 @@ def main() -> int:
                       path["ingest"]["points_per_s"],
                       "ingest": {k: v for k, v in path["ingest"].items()},
                       "window": path["window"],
-                      "launches": path["launches"], "card": smi}))
+                      "launches": path["launches"],
+                      "qcache_before_checkpoint": path["qcache"],
+                      "card": smi}))
     for k in ("profile_warm", "profile_stage_build"):
         p = path[k]
         print(json.dumps({k: QUERIES[1], "wall_ms": p["wall_ms"],
@@ -2220,14 +2347,16 @@ def main() -> int:
         **{k: r[k] for k in ("shutdown_s", "boot_s", "open_generations_s",
                              "replay_s", "warm_s", "generations",
                              "generation_bytes", "generation_scan_ms",
-                             "gc_full_ms")},
+                             "generation_scan_warm_ms", "gc_full_ms",
+                             "bloom", "qcache", "repeats")},
         "memtable_scan_ms": path["scan_ms"],
         "queries": r["queries"], "union": r["union"],
         "sketch_save_s": r["checkpoint_1"]["sketch_save_s"],
         "sketch_load_s": r["sketch_load_s"], "sketch": r["sketch"],
         "launches": {"resident": r["launches_resident"],
                      "union": r["launches_union"],
-                     "sketch": r["launches_sketch"]}}, "card": smi}))
+                     "sketch": r["launches_sketch"],
+                     "repeats": r["launches_repeats"]}}, "card": smi}))
     print(json.dumps({"window_at_budget": {
         k: budget[k] for k in ("points", "chunks", "resident_bytes",
                                "fill_points_per_s", "queries",

@@ -407,12 +407,14 @@ class TSDB:
 
     def scan_series(self, start_key: bytes, stop_key: bytes,
                     key_regexp: bytes | None = None,
-                    batch_cells: int = 1 << 18):
+                    batch_cells: int = 1 << 18, series_hint=None):
         """Whole-range columnar scan regrouped BY SERIES: returns
         (series_keys, per_series Columns dict) with one global (series,
         timestamp) lexsort and one vectorized dedup pass. Duplicate
         (series, ts) points collapse when value-equal and raise
-        IllegalDataError otherwise (reference complexCompact :600-679)."""
+        IllegalDataError otherwise (reference complexCompact :600-679).
+        ``series_hint`` goes to the store's scan (``scan_raw``), which may
+        skip the generations it rules out."""
         quals: list[bytes] = []
         vals: list[bytes] = []
         bases: list[int] = []
@@ -430,7 +432,8 @@ class TSDB:
 
         for key, items in self.store.scan_raw(
                 self.table, start_key, stop_key,
-                family=FAMILY, key_regexp=key_regexp):
+                family=FAMILY, key_regexp=key_regexp,
+                series_hint=series_hint):
             base = codec.key_base_time(key)
             skey = codec.series_key(key)
             si = skey_index.get(skey)

@@ -29,7 +29,17 @@ include/group maps (cached) and the filter-independent [S, B] stage
 are aggregated on the union of their timestamps (``group_interpolate``,
 or the union-grid quantile), with rates taken per point first. Percentile
 downsamplers (``1h-p95``) run on the float64 oracle, as in the JAX
-package. There is no rollup tier or fragment cache here.
+package. There is no rollup tier here.
+
+The scan reads through the fragment cache (``_scan_selector``, on by
+default as in the JAX package): the range splits into row-span-aligned
+chunks, and each chunk with no memtable rows and no row create/remove
+since its fragment was decoded serves from a per-store LRU of decoded
+columns (``MemKVStore.chunk_state``); chunks with memtable rows are
+scanned afresh every time. A warm answer is bit-identical to a cold scan.
+The scan passes the storage a candidate-series hint from the sketch
+directory, so generations whose series bloom holds none of the selector's
+series are skipped.
 
 Sketch queries (``/sketch`` and ``/distinct``) read the live sketches
 (``stats/livesketch.py``) without a storage scan: quantiles of the merged
@@ -43,6 +53,8 @@ filter, the tag values' HyperLogLog at p = 14 (``distinct_tagv``).
 from __future__ import annotations
 
 import re
+import threading
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -54,7 +66,33 @@ from opentsdb_tpu_torch.core.const import (MAX_TIMESPAN, TIMESTAMP_BYTES,
 from opentsdb_tpu_torch.core.errors import BadRequestError, NoSuchUniqueName
 from opentsdb_tpu_torch.ops import kernels, oracle, sketches
 from opentsdb_tpu_torch.query.aggregators import Aggregators
+from opentsdb_tpu_torch.storage.sstable import series_hash
 from opentsdb_tpu_torch.utils.lru import LRUCache
+
+# One fragment cache PER STORE, shared by every QueryExecutor over it, so
+# a second executor over the same store starts warm. Keyed by store
+# identity through a weak map: a closed store's cache dies with it, and
+# id() reuse cannot alias two stores. Fragment keys carry the table name,
+# so two TSDBs sharing one store under different tables cannot cross-serve.
+_FRAG_CACHES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_FRAG_CACHES_LOCK = threading.Lock()
+
+
+def _shared_frag_cache(store, max_entries: int,
+                       max_points: int) -> LRUCache:
+    with _FRAG_CACHES_LOCK:
+        cache = _FRAG_CACHES.get(store)
+        if cache is None:
+            cache = LRUCache(max_entries, max_cost=max_points)
+            _FRAG_CACHES[store] = cache
+        elif (cache.max_entries != max_entries
+              or cache.max_cost != max_points):
+            # A later executor with other bounds rebounds the shared
+            # instance in place (the newest config wins): earlier
+            # executors hold direct references, and replacing the entry
+            # would strand them on an orphaned cache.
+            cache.resize(max_entries, max_cost=max_points)
+        return cache
 
 
 class QuerySpec(NamedTuple):
@@ -102,6 +140,18 @@ class QueryExecutor:
         self._dw_mask_cache = LRUCache(128)
         self._dw_plan_cache = LRUCache(128)
         self._dw_stage_cache = LRUCache(4)
+        cfg = tsdb.config
+        # Fragment cache: decoded per-(selector, aligned time-chunk)
+        # columns, bounded by cached POINTS; one per store, shared by
+        # every executor over it.
+        self._frag_cache = _shared_frag_cache(
+            tsdb.store, cfg.qcache_fragments, cfg.qcache_points)
+        # Candidate-series hint per (metric, filter), revalidated on the
+        # metric's directory size; bounded in total cached hashes.
+        self._ident_cache = LRUCache(256, max_cost=1 << 21)
+        self.qcache_hits = 0
+        self.qcache_misses = 0
+        self.qcache_bypasses = 0
 
     # ------------------------------------------------------------------
     # Planning: scan + span assembly + grouping
@@ -149,19 +199,18 @@ class QueryExecutor:
                 exact.append((k, self.tsdb.tagv.get_id(value)))
         return exact, group_bys
 
-    def _find_spans(self, spec: QuerySpec, start: int, end: int):
+    def _find_spans(self, spec: QuerySpec, start: int, end: int,
+                    info: dict | None = None):
         """Scan matching rows into per-series columnar spans, grouped by
-        the distinct combinations of group-by tag values."""
+        the distinct combinations of group-by tag values. ``info``, when
+        given, receives {"cached": bool}: True iff every fragment of the
+        range served from the warm cache."""
         metric_uid = self.tsdb.metrics.get_id(spec.metric)
         exact, group_bys = self._tag_filters(spec.tags)
         group_by_keys = sorted(k for k, _ in group_bys)
         regexp = self._build_regexp(exact, group_bys)
-        b_lo = codec.base_time(max(start, 0))
-        b_hi = min(codec.base_time(min(end, 0xFFFFFFFF)), 0xFFFFFFFF)
-        per_series = self.tsdb.scan_series(
-            metric_uid + _u32(b_lo),
-            metric_uid + _u32(min(b_hi + MAX_TIMESPAN, 0xFFFFFFFF)),
-            key_regexp=regexp)[1]
+        per_series = self._scan_selector(metric_uid, exact, group_bys,
+                                         regexp, start, end, info)
         groups: dict[tuple, list[_Span]] = {}
         for skey, cat in per_series.items():
             m = (cat.timestamps >= start) & (cat.timestamps <= end)
@@ -175,6 +224,138 @@ class QueryExecutor:
             groups.setdefault(gkey, []).append(_Span(
                 skey, named, cat.timestamps[m], cat.values[m]))
         return groups
+
+    # -- fragment cache (the query fast path) ----------------------------
+
+    def _series_hint(self, metric_uid: bytes, exact, group_bys,
+                     ) -> np.ndarray | None:
+        """uint64 identity hashes of every known series matching the
+        selector: a pruning hint for the per-generation series blooms.
+        Read from the sketch slot directory, which the write path keeps a
+        superset of the series with stored data (``TSDB.add_point`` and
+        ``add_batch`` register with ``note_series`` before the put). None,
+        which never prunes, without sketches or when nothing matches."""
+        sk = self.tsdb.sketches
+        if sk is None:
+            return None
+        fkey = (metric_uid, _filter_key(exact, group_bys))
+        # Revalidate on THIS metric's directory size (it only grows): a
+        # new series under another metric leaves the cached hint valid.
+        count = sk.metric_series_count(metric_uid)
+        ent = self._ident_cache.get(fkey)
+        if ent is not None and ent[0] == count:
+            return ent[1]
+        regexp = self._build_regexp(exact, group_bys, prefix=UID_WIDTH)
+        pattern = re.compile(regexp, re.S) if regexp else None
+        hashes = [series_hash(k) for k in sk.metric_series_keys(metric_uid)
+                  if pattern is None or pattern.match(k)]
+        hint = np.asarray(hashes, np.uint64) if hashes else None
+        self._ident_cache.put(fkey, (count, hint), cost=max(len(hashes), 1))
+        return hint
+
+    def _scan_chunk(self, metric_uid: bytes, regexp, hint,
+                    c_lo: int, c_hi: int) -> dict:
+        """Scan + decode the rows of base times [c_lo, c_hi) into a
+        per-series Columns dict (a chunk's: the cacheable fragment
+        unit)."""
+        return self.tsdb.scan_series(
+            metric_uid + _u32(c_lo), metric_uid + _u32(min(c_hi, 0xFFFFFFFF)),
+            key_regexp=regexp, series_hint=hint)[1]
+
+    def _scan_selector(self, metric_uid: bytes, exact, group_bys,
+                       regexp, start: int, end: int,
+                       info: dict | None = None) -> dict:
+        """Per-series columns for a selector over [start, end] (the full
+        covering row range: the caller masks to the exact bounds).
+
+        The range splits into row-span-aligned chunks; a chunk serves
+        from the fragment cache when (a) the store has no memtable
+        ("dirty") rows in it now and (b) no base in it carries a row
+        create/remove stamp newer than the fragment
+        (``MemKVStore.chunk_state``: stamps outlive refcounts, so a
+        create-then-delete that nets a chunk back to clean still
+        invalidates fragments built in between). Dirty chunks bypass the
+        cache both ways (scanned afresh, never stored), so a live tail is
+        re-read every time while frozen history serves from RAM. Chunks
+        align to the row span, so per-chunk decode + concatenation
+        reproduces the whole-range decode order: answers are
+        bit-identical to a cold scan."""
+        tsdb = self.tsdb
+        cfg = tsdb.config
+        store = tsdb.store
+        hint = self._series_hint(metric_uid, exact, group_bys)
+        b_lo = codec.base_time(max(start, 0))
+        b_hi = min(codec.base_time(min(end, 0xFFFFFFFF)), 0xFFFFFFFF)
+
+        def full_scan() -> dict:
+            return self._scan_chunk(metric_uid, regexp, hint, b_lo,
+                                    b_hi + MAX_TIMESPAN)
+
+        chunk_s = cfg.qcache_chunk_s - cfg.qcache_chunk_s % MAX_TIMESPAN
+        if not cfg.qcache or chunk_s <= 0 or b_hi < b_lo:
+            return full_scan()
+        c0 = b_lo - b_lo % chunk_s
+        nchunks = (b_hi - c0) // chunk_s + 1
+        if nchunks > cfg.qcache_max_chunks:
+            # All-time-style ranges: per-chunk scan setup would cost more
+            # than it saves, and caching them would flush the dashboard
+            # working set.
+            return full_scan()
+        table = tsdb.table
+        fkey = (table, metric_uid, _filter_key(exact, group_bys))
+        chunks = [c0 + i * chunk_s for i in range(nchunks)]
+        # States read BEFORE each scan: content can only get newer between
+        # the state read and the scan, so a racing mutation stamps its
+        # bases past the fragment's tagged seq and the next lookup
+        # invalidates, never the reverse.
+        states = [store.chunk_state(table, c, c + chunk_s) for c in chunks]
+        if all(st[3] for st in states):
+            # Nothing cacheable (an all-memtable store, a fully hot
+            # range): one unchunked scan beats per-chunk setup.
+            self.qcache_bypasses += nchunks
+            if info is not None:
+                info["cached"] = False
+            return full_scan()
+        parts: dict[bytes, list] = {}
+        all_hit = True
+        for c, (seqs, floors, stamps, dirty) in zip(chunks, states):
+            key = (fkey, c, chunk_s)
+            if dirty:
+                self.qcache_bypasses += 1
+                all_hit = False
+                frag = self._scan_chunk(metric_uid, regexp, hint, c,
+                                        c + chunk_s)
+            else:
+                ent = self._frag_cache.get(key)
+                if ent is not None and all(
+                        e >= f and m <= e
+                        for e, f, m in zip(ent[0], floors, stamps)):
+                    self.qcache_hits += 1
+                    frag = ent[1]
+                else:
+                    self.qcache_misses += 1
+                    all_hit = False
+                    frag = self._scan_chunk(metric_uid, regexp, hint, c,
+                                            c + chunk_s)
+                    cost = sum(len(cols.timestamps)
+                               for cols in frag.values())
+                    self._frag_cache.put(key, (seqs, frag),
+                                         cost=max(cost, 1))
+            for skey, cols in frag.items():
+                parts.setdefault(skey, []).append(cols)
+        if info is not None:
+            info["cached"] = all_hit
+        out: dict[bytes, codec.Columns] = {}
+        for skey, lst in parts.items():
+            if len(lst) == 1:
+                out[skey] = lst[0]
+            else:
+                out[skey] = codec.Columns(
+                    np.concatenate([c.timestamps for c in lst]),
+                    np.concatenate([c.values for c in lst]),
+                    np.concatenate([c.int_values for c in lst]),
+                    np.concatenate([c.is_float for c in lst]))
+        return out
 
     @staticmethod
     def _group_tags(spans: list[_Span]):
@@ -204,8 +385,10 @@ class QueryExecutor:
     def run_with_plan(self, spec: QuerySpec, start: int, end: int,
                       ) -> tuple[list[QueryResult], str, bool]:
         """run() plus the plan label ("resident" when the device window
-        served it, else "raw") and whether the answer came from a cache
-        (never: the window's stage cache holds grids, not answers)."""
+        served it, else "raw") and whether the scan's every fragment
+        came from the warm fragment cache (always False for "resident",
+        as in the JAX package: the window's stage cache holds grids, not
+        scanned columns)."""
         if end <= start:
             raise BadRequestError(
                 f"end time {end} is <= start time {start}")
@@ -216,8 +399,10 @@ class QueryExecutor:
         dev = self._run_devwindow(spec, start, end, agg)
         if dev is not None:
             return dev, "resident", False
-        groups = self._find_spans(spec, start, end)
-        return self._execute_groups(spec, groups, start, end), "raw", False
+        info: dict = {}
+        groups = self._find_spans(spec, start, end, info)
+        return (self._execute_groups(spec, groups, start, end), "raw",
+                bool(info.get("cached")))
 
     @staticmethod
     def _oracle_downsample(spec: QuerySpec) -> bool:
@@ -850,7 +1035,7 @@ def _pad64(n: int) -> int:
 def _filter_key(exact, group_bys):
     """Canonical hashable form of a UID-level (exact, group_bys) tag
     filter — the shared component of the window's plan and mask cache
-    keys."""
+    keys, the fragment keys and the series-hint keys."""
     return (tuple(sorted(exact)),
             tuple(sorted((k, tuple(v) if v else None)
                          for k, v in group_bys)))

@@ -355,6 +355,7 @@ class TSDServer:
         loop = asyncio.get_running_loop()
         results = []
         plans = []
+        cached = []
         for m in ms:
             parsed = parse_m(m)
             spec = QuerySpec(
@@ -363,15 +364,17 @@ class TSDServer:
                 downsample=parsed.downsample, counter=parsed.counter,
                 counter_max=parsed.counter_max,
                 reset_value=parsed.reset_value)
-            rs, plan, _ = await loop.run_in_executor(
+            rs, plan, hit = await loop.run_in_executor(
                 self._pool, self.executor.run_with_plan, spec, start, end)
             results.extend(rs)
             plans.extend([plan] * len(rs))
+            cached.extend([hit] * len(rs))
         if "ascii" in q:
             return (200, "text/plain", self._ascii_output(results).encode(),
                     {})
         return (200, "application/json",
-                json.dumps(self._json_output(results, plans)).encode(), {})
+                json.dumps(self._json_output(results, plans,
+                                             cached)).encode(), {})
 
     async def _distinct(self, q, params, path) -> tuple:
         """Distinct values of one tag key. Without ``start`` (or with
@@ -486,13 +489,15 @@ class TSDServer:
         return "\n".join(out) + ("\n" if out else "")
 
     @staticmethod
-    def _json_output(results, plans) -> list:
+    def _json_output(results, plans, cached) -> list:
         return [{
             "metric": r.metric,
             "tags": r.tags,
             "aggregateTags": r.aggregated_tags,
             "rollup": plans[i],
-            "cached": False,
+            # Fragment-cache provenance: True iff this sub-query's whole
+            # range served from warm decoded fragments.
+            "cached": bool(cached[i]),
             "dps": {str(int(t)): float(v)
                     for t, v in zip(r.timestamps, r.values)},
         } for i, r in enumerate(results)]

@@ -24,14 +24,25 @@ checkpoint.
 - Backpressure: once a table holds ``throttle_rows`` live rows, puts that
   would create a new row raise PleaseThrottleError (a batch applies its
   prefix and reports it in ``partial_existed``).
+- The query fast path's invalidation spine: ``mutation_seq`` moves on
+  every mutating call and every checkpoint tier transition; each tier
+  keeps, per base time, a refcount of the rows and row tombstones that
+  name it (``_Table.dirty``, O(1) per created or removed row) and the seq
+  of the last such transition (``_Table.touch``), folded into
+  ``_base_stamps`` when the tier retires. ``dirty_bases`` and
+  ``chunk_state`` read them; the executor's fragment cache validates
+  against them. ``scan_raw``'s ``series_hint`` skips generations whose
+  series bloom holds none of the candidate series
+  (``bloom_files_skipped``).
 
 Not ported yet, each refused rather than half-read where it leaves
 something on disk: a sharded store (``SHARDS.json``; ROADMAP queue A item
 3), the cluster epoch fence and WAL epoch headers (item 10), TSST4
 generations (item 5, refused by the sstable reader); and without an
-on-disk trace: read-only replicas (item 10), WAL group commit and fault
-points (item 3), the dirty-base stamps and ``chunk_state`` (item 2) and
-the rollup tier's spill-key record (item 6).
+on-disk trace: read-only replicas with their ``refresh`` and the rebuild's
+stamp-floor jump (item 10), WAL group commit, fault points and per-shard
+mutation seqs (item 3), and the rollup tier's spill-key record with its
+undrained dirty set ``_spill_dirty`` (item 6).
 """
 
 from __future__ import annotations
@@ -112,7 +123,11 @@ class KVStore:
     def scan_raw(self, table: str, start: bytes, stop: bytes,
                  family: bytes | None = None,
                  key_regexp: bytes | None = None,
+                 series_hint: np.ndarray | None = None,
                  ) -> Iterator[tuple[bytes, list[tuple[bytes, bytes]]]]:
+        """``series_hint``: optional uint64 array of series-identity
+        hashes (sstable.series_hash), a SUPERSET of the series the caller
+        keeps; a pure pruning hint that a store may ignore."""
         raise NotImplementedError
 
     def atomic_increment(self, table: str, key: bytes, family: bytes,
@@ -166,7 +181,7 @@ class _Table:
     """
 
     __slots__ = ("rows", "base", "delta", "pending", "stale", "row_tombs",
-                 "tombs")
+                 "tombs", "dirty", "touch")
 
     def __init__(self) -> None:
         # Cell value None = tombstone masking a spilled sstable cell.
@@ -180,6 +195,50 @@ class _Table:
         # mask lower-generation cells, so checkpoint may spill it as a new
         # generation without a merge.
         self.tombs = 0
+        # Dirty-base index: base time -> refcount of the keys (rows and
+        # row_tombs entries, counted apart: a key can be in both) whose
+        # base-time bytes name it, kept O(1) per row created or removed so
+        # dirty_bases never sweeps the key list.
+        self.dirty: dict[int, int] = {}
+        # Per base, the store mutation_seq of the last row create/remove.
+        # A create-then-delete nets the refcount back to zero (the base
+        # reads clean again), but a fragment scanned in between may hold
+        # the transient row: the stamp outlives the refcount, so such a
+        # fragment never validates (MemKVStore.chunk_state).
+        self.touch: dict[int, int] = {}
+
+    def dirty_add(self, key: bytes, seq: int) -> None:
+        if len(key) >= _BASE_HI:
+            b = int.from_bytes(key[_BASE_LO:_BASE_HI], "big")
+            d = self.dirty
+            d[b] = d.get(b, 0) + 1
+            self.touch[b] = seq
+
+    def dirty_sub(self, key: bytes, seq: int) -> None:
+        if len(key) >= _BASE_HI:
+            b = int.from_bytes(key[_BASE_LO:_BASE_HI], "big")
+            d = self.dirty
+            n = d.get(b, 0) - 1
+            if n <= 0:
+                d.pop(b, None)
+            else:
+                d[b] = n
+            self.touch[b] = seq
+
+    def rebuild_dirty(self, seq: int) -> None:
+        """Recompute the dirty-base index from the keys (the thaw, where
+        refcounting through the merge-back would be error-prone for an
+        exceptional branch). Every involved base's stamp jumps to
+        ``seq``: any fragment built across the thaw is invalid."""
+        d: dict[int, int] = {}
+        for ks in (self.rows, self.row_tombs):
+            for k in ks:
+                if len(k) >= _BASE_HI:
+                    b = int.from_bytes(k[_BASE_LO:_BASE_HI], "big")
+                    d[b] = d.get(b, 0) + 1
+        for b in d:
+            self.touch[b] = seq
+        self.dirty = d
 
     def _absorb(self) -> None:
         """Fold pending inserts into delta; compact when thresholds hit.
@@ -270,6 +329,32 @@ class MemKVStore(KVStore):
         # Seconds the last open spent loading generations and replaying
         # <wal>.old + the WAL.
         self.open_seconds = {"generations": 0.0, "replay": 0.0}
+        # Monotonic mutation counter, bumped per mutating CALL (not per
+        # cell) and per checkpoint tier transition: an unchanged seq means
+        # the stored rows cannot have changed.
+        self.mutation_seq = 0
+        # The fragment cache's invalidation spine: per (table, base), the
+        # mutation_seq of the last row create/remove that touched it,
+        # folded in from each tier's ``touch`` map when the tier retires
+        # (phase-3 drop, empty-checkpoint drop, thaw), so the signal
+        # outlives the memtable generation that made it. A fragment built
+        # at seq E over a clean base range is still exact iff no base in
+        # the range carries a stamp > E and E >= _stamp_floor: rows enter
+        # or leave the visible data only through stamped memtable
+        # transitions, and a checkpoint merely moves them between tiers.
+        # The floor stays 0 here: only a replica's rebuild (not ported)
+        # raises it.
+        self._base_stamps: dict[str, dict[int, int]] = {}
+        self._stamp_floor = 0
+        # Lazy snapshots for range queries, rebuilt when mutation_seq
+        # moves: table -> (seq, sorted bases, aligned stamps) and
+        # table -> (seq, sorted dirty bases).
+        self._stamps_snap: dict[str, tuple[int, np.ndarray,
+                                           np.ndarray]] = {}
+        self._dirty_snap: dict[str, tuple[int, np.ndarray]] = {}
+        # Generations skipped by the series-bloom prefilter (scan_raw
+        # with a series_hint).
+        self.bloom_files_skipped = 0
         if not wal_path:
             return
         if os.path.exists(os.path.join(wal_path, _SHARDS_NAME)):
@@ -400,6 +485,70 @@ class MemKVStore(KVStore):
     def ensure_table(self, table: str) -> None:
         with self._lock:
             self._table(table)
+
+    @property
+    def mutation_seqs(self) -> tuple[int, ...]:
+        """Per-shard mutation sequence vector (a single store is one
+        shard)."""
+        return (self.mutation_seq,)
+
+    def dirty_bases(self, table: str) -> np.ndarray:
+        """Sorted unique base times whose rows the immutable sstable
+        tiers do not fully cover: live memtable rows and row tombstones,
+        and the frozen mid-checkpoint tier's. Kept incrementally
+        (``_Table.dirty``), so deriving it never sweeps the key list;
+        cached per mutation_seq."""
+        with self._lock:
+            snap = self._dirty_snap.get(table)
+            if snap is not None and snap[0] == self.mutation_seq:
+                return snap[1]
+            bases = set(self._table(table).dirty)
+            if self._frozen is not None:
+                ft = self._frozen.get(table)
+                if ft is not None:
+                    bases.update(ft.dirty)
+            arr = np.fromiter(bases, np.int64, len(bases))
+            arr.sort()
+            self._dirty_snap[table] = (self.mutation_seq, arr)
+            return arr
+
+    def chunk_state(self, table: str, lo: int, hi: int,
+                    ) -> tuple[tuple[int, ...], tuple[int, ...],
+                               tuple[int, ...], bool]:
+        """Fragment-cache validation state for base range [lo, hi):
+        ``(seqs, floors, stamps, dirty)``, one element per shard (one,
+        here). A fragment tagged with seq E over this range is still
+        exact iff the range is clean (not ``dirty``), E >= floor, and no
+        base in the range carries a transition stamp > E (``stamps`` is
+        the range's newest stamp across the store-level map and every
+        live tier's touch map)."""
+        d = self.dirty_bases(table)
+        dirty = bool(len(d)) and \
+            int(np.searchsorted(d, lo)) < int(np.searchsorted(d, hi))
+        with self._lock:
+            seq = self.mutation_seq
+            snap = self._stamps_snap.get(table)
+            if snap is None or snap[0] != seq:
+                m = dict(self._base_stamps.get(table, {}))
+                tiers = [self._table(table)]
+                if self._frozen is not None:
+                    ft = self._frozen.get(table)
+                    if ft is not None:
+                        tiers.append(ft)
+                for t in tiers:
+                    for b, v in t.touch.items():
+                        if m.get(b, -1) < v:
+                            m[b] = v
+                bases = np.fromiter(m.keys(), np.int64, len(m))
+                stamps = np.fromiter(m.values(), np.int64, len(m))
+                order = np.argsort(bases)
+                snap = (seq, bases[order], stamps[order])
+                self._stamps_snap[table] = snap
+            _, bases, stamps = snap
+            a = int(np.searchsorted(bases, lo))
+            b = int(np.searchsorted(bases, hi))
+            stamp = int(stamps[a:b].max()) if b > a else 0
+            return ((seq,), (self._stamp_floor,), (stamp,), dirty)
 
     def memtable_keys(self, table: str) -> list[bytes]:
         """Row keys in the live memtable only (excludes spilled tiers).
@@ -679,6 +828,7 @@ class MemKVStore(KVStore):
             self._retire_snapshots()
             self._frozen = self._tables
             self._tables = {name: _Table() for name in self._frozen}
+            self.mutation_seq += 1
             if self._wal is not None:
                 self._wal.close()
                 if os.path.exists(old_path):
@@ -722,7 +872,9 @@ class MemKVStore(KVStore):
             # holds no state the generations lack, and keeping <wal>.old
             # would let churn grow it without bound.
             with self._lock:
+                self._fold_touch_locked(self._frozen)
                 self._frozen = None
+                self.mutation_seq += 1
                 if os.path.exists(old_path):
                     os.unlink(old_path)
             return 0
@@ -785,6 +937,12 @@ class MemKVStore(KVStore):
                 self._thaw_frozen_locked()
                 raise
             self._frozen = None
+            self.mutation_seq += 1
+            # The frozen tier retires: its transition stamps fold into the
+            # store-level map, so fragments built while (or before) its
+            # rows were live keep invalidating, bases a create-then-delete
+            # netted back to clean included.
+            self._fold_touch_locked(frozen)
             for g in merge_gens:
                 path = g.path
                 g.close()
@@ -864,6 +1022,17 @@ class MemKVStore(KVStore):
             i -= 1
         return gens[:i], gens[i:]
 
+    def _fold_touch_locked(self, tables: dict[str, _Table]) -> None:
+        """Fold retiring tiers' transition stamps into the store-level
+        map (max wins). Caller holds the lock."""
+        for name, ft in tables.items():
+            if not ft.touch:
+                continue
+            st = self._base_stamps.setdefault(name, {})
+            for b, v in ft.touch.items():
+                if st.get(b, -1) < v:
+                    st[b] = v
+
     def _thaw_frozen_locked(self) -> None:
         """Fold the frozen tier back under the live memtable after a
         failed checkpoint (caller holds the lock). Live cells win; row
@@ -881,7 +1050,10 @@ class MemKVStore(KVStore):
             live.row_tombs |= ft.row_tombs
             live.tombs += ft.tombs
             live.pending.update(ft.rows)
+            live.rebuild_dirty(self.mutation_seq + 1)
+        self._fold_touch_locked(self._frozen)
         self._frozen = None
+        self.mutation_seq += 1
 
     # -- mutation ---------------------------------------------------------
 
@@ -892,6 +1064,7 @@ class MemKVStore(KVStore):
         if row is None:
             row = t.rows[key] = {}
             t.pending.add(key)
+            t.dirty_add(key, self.mutation_seq)
         row[(family, qualifier)] = value
 
     def _apply_delete(self, table: str, key: bytes, family: bytes,
@@ -905,6 +1078,7 @@ class MemKVStore(KVStore):
                 return
             row = t.rows[key] = {}
             t.pending.add(key)
+            t.dirty_add(key, self.mutation_seq)
         for q in qualifiers:
             if spilled:
                 row[(family, q)] = None  # tombstone masks the sstable cell
@@ -914,13 +1088,16 @@ class MemKVStore(KVStore):
         if not row:
             del t.rows[key]
             t.stale += 1
+            t.dirty_sub(key, self.mutation_seq)
 
     def _apply_delete_row(self, table: str, key: bytes) -> None:
         t = self._table(table)
         if t.rows.pop(key, None) is not None:
             t.stale += 1
+            t.dirty_sub(key, self.mutation_seq)
         if key not in t.row_tombs and self._lower_tier_has(table, key):
             t.row_tombs.add(key)
+            t.dirty_add(key, self.mutation_seq)
 
     def _throttle_error(self, table: str) -> PleaseThrottleError:
         return PleaseThrottleError(
@@ -939,6 +1116,7 @@ class MemKVStore(KVStore):
             value: bytes, durable: bool = True) -> None:
         with self._lock:
             self._check_throttle(table, key)
+            self.mutation_seq += 1
             if durable:
                 self._wal_append(_OP_PUT, table.encode(), key, family,
                                  qualifier, value)
@@ -971,6 +1149,8 @@ class MemKVStore(KVStore):
         keys = [key_blob[i:i + L] for i in range(0, n * L, L)]
         existed: list[bool] = []
         with self._lock:
+            self.mutation_seq += 1
+            seq = self.mutation_seq
             t = self._table(table)
             rows = t.rows
             # With no lower tiers the memtable is the whole truth, so
@@ -989,6 +1169,8 @@ class MemKVStore(KVStore):
                         e = not pure_mem and self._has_row_locked(table, k)
                         row = rows[k] = {}
                         t.pending.add(k)
+                        # One dirty entry per created row, never per point.
+                        t.dirty_add(k, seq)
                     else:
                         e = pure_mem or self._has_row_locked(table, k)
                     row[(family, q)] = v
@@ -1014,12 +1196,14 @@ class MemKVStore(KVStore):
     def delete(self, table: str, key: bytes, family: bytes,
                qualifiers: list[bytes]) -> None:
         with self._lock:
+            self.mutation_seq += 1
             self._wal_append(_OP_DELETE, table.encode(), key, family,
                              *qualifiers)
             self._apply_delete(table, key, family, qualifiers)
 
     def delete_row(self, table: str, key: bytes) -> None:
         with self._lock:
+            self.mutation_seq += 1
             self._wal_append(_OP_DELETE_ROW, table.encode(), key)
             self._apply_delete_row(table, key)
 
@@ -1036,10 +1220,12 @@ class MemKVStore(KVStore):
         cells.sort(key=lambda c: (c.family, c.qualifier))
         return cells
 
-    def _snapshot_keys(self, table: str, start: bytes,
-                       stop: bytes) -> list[bytes]:
+    def _snapshot_keys(self, table: str, start: bytes, stop: bytes,
+                       skip_paths: set[str] | None = None) -> list[bytes]:
         """Key snapshot across all tiers (live memtable, frozen tier,
-        generations; row tombstones excluded). Caller holds the lock."""
+        generations; row tombstones excluded). ``skip_paths``:
+        generations the series-bloom prefilter proved irrelevant. Caller
+        holds the lock."""
         t = self._table(table)
         keys = t.range_keys(start, stop)
         ft = self._frozen.get(table) if self._frozen else None
@@ -1048,6 +1234,8 @@ class MemKVStore(KVStore):
             extra.update(k for k in ft.range_keys(start, stop)
                          if k not in t.rows and k not in t.row_tombs)
         for sst in self._ssts:
+            if skip_paths and sst.path in skip_paths:
+                continue
             extra.update(
                 k for k in sst.scan_keys(table, start, stop)
                 if k not in t.rows and k not in t.row_tombs
@@ -1060,17 +1248,35 @@ class MemKVStore(KVStore):
     def scan_raw(self, table: str, start: bytes, stop: bytes,
                  family: bytes | None = None,
                  key_regexp: bytes | None = None, chunk: int = 1024,
+                 series_hint: np.ndarray | None = None,
                  ) -> Iterator[tuple[bytes, list[tuple[bytes, bytes]]]]:
         """Rows with key in [start, stop) as (key, sorted [(qualifier,
         value), ...]), the lock taken once per ``chunk`` keys.
         ``key_regexp`` applies a DOTALL bytes regex to the whole key (the
         HBase KeyRegexpFilter the reference's tag filtering uses).
 
+        ``series_hint`` (see KVStore.scan_raw) prunes the generations
+        whose series bloom holds none of the candidates. The skips are
+        decided once per scan, under the lock, against the generation set
+        of that moment and matched by path afterwards: a generation
+        swapped in mid-scan is not skipped, and one dropped mid-scan
+        vanishes from the tiers as in any scan. A hint of None or an
+        empty one never prunes.
+
         Snapshot semantics: keys are snapshotted at call time; rows deleted
         mid-scan are skipped, rows mutated mid-scan show their new cells."""
         pattern = re.compile(key_regexp, re.S) if key_regexp else None
         with self._lock:
-            keys = self._snapshot_keys(table, start, stop)
+            skip_paths: set[str] | None = None
+            if series_hint is not None and len(series_hint) \
+                    and self._ssts:
+                skip_paths = set()
+                for sst in self._ssts:
+                    if not sst.bloom_may_contain(table, series_hint):
+                        skip_paths.add(sst.path)
+                        self.bloom_files_skipped += 1
+                skip_paths = skip_paths or None
+            keys = self._snapshot_keys(table, start, stop, skip_paths)
         if pattern is not None:
             keys = [k for k in keys if pattern.match(k)]
         for i in range(0, len(keys), chunk):
@@ -1089,7 +1295,7 @@ class MemKVStore(KVStore):
                 else:
                     hi = keys[i + chunk] if i + chunk < len(keys) \
                         else (stop or None)
-                    rows = self._merged_range(table, ck, hi)
+                    rows = self._merged_range(table, ck, hi, skip_paths)
                 out = []
                 for key, row in rows:
                     if not row:
@@ -1103,11 +1309,11 @@ class MemKVStore(KVStore):
             yield from out
 
     def _merged_range(self, table: str, ck: list[bytes],
-                      hi: bytes | None):
+                      hi: bytes | None, skip_paths: set[str] | None):
         """(key, merged row) for the sorted keys ``ck`` (all < ``hi``):
         each generation is range-read once for the chunk instead of probed
-        per key. Overlay order and tombstones are _merged_row's. Caller
-        holds the lock."""
+        per key, those in ``skip_paths`` not at all. Overlay order and
+        tombstones are _merged_row's. Caller holds the lock."""
         t = self._table(table)
         ft = self._frozen.get(table) if self._frozen else None
         # Row tombstones suppress generation rows before the decode.
@@ -1117,6 +1323,8 @@ class MemKVStore(KVStore):
         merged: dict[bytes, dict] = {}
         lo = ck[0]
         for sst in self._ssts:
+            if skip_paths and sst.path in skip_paths:
+                continue
             for key, cells in sst.iter_rows_range(table, lo, hi,
                                                   skip=masked):
                 row = merged.get(key)
@@ -1161,6 +1369,7 @@ class MemKVStore(KVStore):
             cur = row.get((family, qualifier)) if row else None
             value = (struct.unpack(">q", cur)[0] if cur else 0) + amount
             packed = struct.pack(">q", value)
+            self.mutation_seq += 1
             self._wal_append(_OP_PUT, table.encode(), key, family,
                              qualifier, packed)
             self._apply_put(table, key, family, qualifier, packed)
@@ -1176,6 +1385,7 @@ class MemKVStore(KVStore):
             cur = row.get((family, qualifier)) if row else None
             if cur != expected:
                 return False
+            self.mutation_seq += 1
             self._wal_append(_OP_PUT, table.encode(), key, family,
                              qualifier, value)
             self._apply_put(table, key, family, qualifier, value)

@@ -1,8 +1,9 @@
 """The port's configuration object and device resolution.
 
 Mirrors ``opentsdb_tpu/utils/config.py`` of the JAX package, trimmed to
-the fields this port reads (the resident window's, the spill tier's and
-the live sketches' among them, with the JAX package's defaults), plus
+the fields this port reads (the resident window's, the spill tier's, the
+live sketches' and the fragment cache's among them, with the JAX
+package's defaults), plus
 ``device``: where the query kernels run.
 ``backend="cpu"`` keeps its JAX-package meaning — the float64 numpy
 oracle answers every query (``ops/oracle.py``) — and is independent of
@@ -40,6 +41,18 @@ class Config:
     # built for one NVIDIA H100, and a missing card is an error, never a
     # silent CPU run. Tests pass "cpu".
     device: str = "cuda"
+
+    # Query fast path (query/executor.py, the fragment cache): decoded
+    # per-(selector, aligned time-chunk) columns, validated against the
+    # store's mutation seq, per-base transition stamps and dirty-base set
+    # (MemKVStore.chunk_state). Chunks with memtable rows are re-read on
+    # every query; clean history serves from RAM, bit-identical to a cold
+    # scan. The JAX package's names and defaults.
+    qcache: bool = True
+    qcache_chunk_s: int = 6 * 3600   # chunk width (rounded to row span)
+    qcache_points: int = 1 << 24     # total cached points across fragments
+    qcache_fragments: int = 1024     # max distinct fragments
+    qcache_max_chunks: int = 512     # wider ranges scan unchunked/uncached
 
     # Streaming sketches (stats/livesketch.py): a t-digest per series and
     # a HyperLogLog per (metric, tag key), folded on the device at ingest.
