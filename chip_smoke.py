@@ -42,8 +42,11 @@
    the same on every run). Beside them the card's launch floor: an empty
    kernel launched the way the sketch wrappers launch theirs, timed the
    same three ways, and the host's time in each step of a wrapper call.
-4. Path phase: starts the port's daemon on loopback with its default
-   settings (the resident device window on), ingests the repo's benchmark
+4. Path phase: starts the port's daemon on loopback as ``tsdb tsd`` does
+   (``tools/cli.py``: the default settings, so the resident device window,
+   the live sketches and tenant accounting on, and the heap frozen out of
+   cycle collection once the store is open; the collections during ingest
+   and their pauses are recorded), ingests the repo's benchmark
    corpus (10,000 series x 1,000 points over 7 days = 10M points,
    bench.py gen_workload's shape) through ``TSDB.add_batch`` plus a few
    hundred telnet ``put`` lines, then answers ten ``/q`` queries over
@@ -72,7 +75,16 @@
    quantiles) and a ranged ``/distinct`` with ``tags=dc=dc0`` (the HLL
    kernel at p = 14) within ``hll_error`` of 1,002. The four sketch
    kernels' launch counts are set to 0 before ingest and read after these
-   queries: each must have launched.
+   queries: each must have launched. Then HTTP ingest: 200 new series x
+   1,000 points through ``/api/put?tenant=smoke``, half as JSON bodies and
+   half as put lines, in bodies of at most 10,000 points (timed: the HTTP
+   ingest rate), and the same points through telnet on the connection's
+   tenant ``smoke-telnet`` under another metric; ``sum:1h-avg`` and
+   ``max:1h-max`` of each by host must agree (the max exactly), and
+   ``/api/tenants`` must show ``default`` (the corpus and the telnet
+   series, 10,020) in the HLL tier within 3 standard errors, the two new
+   tenants at exactly 200 in the exact tier, and ``bench.metric`` as the
+   top prefix.
    Then, in process: each query's chunk-stage time and apply-and-fetch
    time (synchronised); one host scan of every series over the week
    (timed), whose spans, regrouped as a scan with each query's filter
@@ -125,19 +137,33 @@
    The sketch snapshot's save (inside checkpoint 1) and load (at boot)
    are timed, and after the restart every sketch route answers byte for
    byte as before it (the state is the snapshot: the memtable is empty),
-   launching the HLL fold, the estimate and the merged quantile.
+   launching the HLL fold, the estimate and the merged quantile. So is
+   the tenant snapshot's (its bytes too): the new daemon must load it,
+   not rebuild, and answer ``/api/tenants`` as before the restart but for
+   the count of snapshots written. The full ``gc.collect()`` is timed
+   with the memtable live and after the restart, each daemon's heap
+   frozen at its open. Last, the store's tenant file is replaced by the
+   version-0 file the port wrote before it kept accounting: a new open
+   must rebuild from all of storage (timed) with exact totals, and its
+   checkpoint must write a real snapshot.
    (The card's machine has no JAX, so the crossings with the JAX package's
    store directories run only in the CPU tests,
    ``tests/test_torch_checkpoint.py``.)
-6. Window-at-budget phase: a ``DeviceWindow`` filled directly to the
+6. Refusal phase: a small second daemon on the card with
+   ``tenant_max_series=1`` must refuse a new series over telnet (the bulk
+   path's and the per-line path's declared lines) and over ``/api/put``
+   (the 429 body naming the limit), while its existing series keeps
+   ingesting.
+7. Window-at-budget phase: a ``DeviceWindow`` filled directly to the
    default budget, 2^26 points (16,384 series x 4,096 points over 7 days,
    appended per series); its chunk stage and apply for ``sum:1h-avg`` and
    ``max:1h-max`` timed with CUDA events beside the stage's byte bound and
    held against the same functions on CPU tensors; then one more staging
    batch must evict the oldest chunk, advance ``complete_from`` and turn a
    query reaching before it away.
-7. Prints the card line first; at the end the per-query, sketch,
-   ingest, profiler, restart, budget and launch-floor lines, the kernels
+8. Prints the card line first; at the end the per-query, sketch,
+   ingest, profiler, tenants, restart, budget and launch-floor lines, the
+   kernels
    line (eight
    kernels) and, last, the ok line.
    In the kernels line each kernel's top-level numbers are its first
@@ -192,7 +218,10 @@ from opentsdb_tpu_torch.stats.livesketch import LiveSketches
 from opentsdb_tpu_torch.stats.livesketch import _pad as _sk_pad
 from opentsdb_tpu_torch.storage.devstore import DeviceWindow
 from opentsdb_tpu_torch.storage.kv import MemKVStore
+from opentsdb_tpu_torch.tenant.accounting import hll_rel_error
+from opentsdb_tpu_torch.tools.cli import open_tsdb
 from opentsdb_tpu_torch.utils.config import Config
+from opentsdb_tpu_torch.utils.gctune import tune_for_ingest
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -245,6 +274,23 @@ SKETCH_RANK_TOL = 0.01
 # The ingest rate of this smoke's last run before the live sketches folded
 # at ingest (PERF.md; NVIDIA H100 80GB HBM3, 700 W).
 INGEST_WITHOUT_SKETCHES_POINTS_PER_S = 531446.9595197901
+# HTTP ingest (/api/put): new series of HTTP_POINTS points each, half of
+# them posted as JSON bodies and half as put lines, under ?tenant=smoke,
+# in bodies of at most HTTP_BODY_POINTS points (a JSON point takes ~80
+# bytes; the daemon takes bodies up to 1 MiB). The same points go through
+# telnet, on the tenant TELNET_TENANT, under another metric.
+HTTP_SERIES, HTTP_POINTS, HTTP_BODY_POINTS = 200, 1_000, 10_000
+HTTP_TENANT, TELNET_TENANT = "smoke", "smoke-telnet"
+HTTP_QUERIES = ["sum:1h-avg:{m}{{host=*}}", "max:1h-max:{m}{{host=*}}"]
+# The full gc.collect() this smoke measured before the daemon froze its
+# heap (PERF.md; NVIDIA H100 80GB HBM3, 700 W): with the memtable live,
+# and after the restart.
+GC_FULL_MS_UNTUNED = {"memtable": 283.1, "after_restart": 209.3}
+# The version-0 tenant file each checkpoint of the port wrote before it
+# kept tenant accounting; an open must rebuild from storage over it.
+OLD_TENANT_MARKER = {"version": 0, "written_by": "opentsdb_tpu_torch",
+                     "note": "this store keeps no tenant accounting; "
+                             "rebuild it from storage"}
 
 
 def fail(msg: str):
@@ -732,9 +778,15 @@ class Daemon:
             fail("daemon did not stop")
 
 
-def telnet(port: int, lines: list[str]) -> str:
+def telnet(port: int, lines: list[str], pause: bool = False) -> str:
+    """Send ``lines``, then ``version`` and ``exit``; everything the
+    daemon answered. ``pause`` waits before the last two, so a last
+    ``put`` line takes the per-line path, not the bulk path."""
     with socket.create_connection(("127.0.0.1", port), timeout=120) as s:
-        s.sendall(("\n".join(lines) + "\nversion\nexit\n").encode())
+        s.sendall(("\n".join(lines) + "\n").encode())
+        if pause:
+            time.sleep(0.3)
+        s.sendall(b"version\nexit\n")
         chunks = []
         while True:
             data = s.recv(65536)
@@ -752,6 +804,23 @@ def http_get(port: int, target: str) -> tuple[int, bytes]:
         return resp.status, resp.read()
     finally:
         conn.close()
+
+
+def http_post(port: int, target: str, body: bytes) -> tuple[int, bytes]:
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", target, body=body)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def http_json(port: int, target: str):
+    status, body = http_get(port, target)
+    if status != 200:
+        fail(f"{target}: HTTP {status}: {body[:300]!r}")
+    return json.loads(body)
 
 
 def spec_of(expr: str) -> QuerySpec:
@@ -1170,20 +1239,53 @@ def profile_share(ex: QueryExecutor, spec: QuerySpec, start: int,
             "top_device_ms": top}
 
 
+def open_daemon_tsdb(wal: str) -> TSDB:
+    """The TSDB as ``tsdb tsd`` opens it (tools/cli.py cmd_tsd): the
+    default Config (the window, the sketches and tenant accounting on),
+    then the heap frozen out of cycle collection."""
+    tsdb = open_tsdb(Config(auto_create_metrics=True, port=0,
+                            bind="127.0.0.1", device=DEVICE), wal)
+    tune_for_ingest()
+    if tsdb.devwindow is None or tsdb.tenants is None:
+        fail("the daemon's TSDB came up without the resident window or "
+             "tenant accounting")
+    return tsdb
+
+
+class GcClock:
+    """Collections and their pause per generation while installed as a
+    ``gc.callbacks`` entry."""
+
+    def __init__(self) -> None:
+        self.count, self.ms, self._t = [0, 0, 0], [0.0, 0.0, 0.0], 0.0
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t = time.perf_counter()
+        else:
+            g = info["generation"]
+            self.count[g] += 1
+            self.ms[g] += (time.perf_counter() - self._t) * 1e3
+
+
 def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
-    tsdb = TSDB(MemKVStore(wal_path=os.path.join(wal_dir, "wal")),
-                Config(auto_create_metrics=True, port=0, bind="127.0.0.1",
-                       device=DEVICE),
-                start_compaction_thread=True)
+    tsdb = open_daemon_tsdb(os.path.join(wal_dir, "wal"))
     dw = tsdb.devwindow
-    if dw is None:
-        fail("the daemon's TSDB came up without the resident window")
     daemon = Daemon(tsdb)
     ex = daemon.server.executor
     out: dict = {"queries": {}, "launches": {}}
     try:
         zero_sketch_launches()
-        out["ingest"], telnet_vals = ingest(tsdb, daemon.port, ts, vals)
+        clock = GcClock()
+        gc.callbacks.append(clock)
+        try:
+            out["ingest"], telnet_vals = ingest(tsdb, daemon.port, ts, vals)
+        finally:
+            gc.callbacks.remove(clock)
+        out["ingest"]["gc"] = {"collections": clock.count,
+                               "pause_ms": clock.ms}
+        log(f"gc during ingest (heap frozen at open): collections per "
+            f"generation {clock.count}, pause ms {clock.ms}")
         start, end = BASE, BASE + SPAN - 1
         # The sketch routes, right after ingest: the folds' launches
         # (ingest and the first query's flush) and the queries' count for
@@ -1194,6 +1296,7 @@ def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
         for name, n in out["launches"]["sketch"].items():
             if n == 0:
                 fail(f"the sketch path never launched {name}")
+        out["tenants"] = http_put_phase(daemon.port, start, end)
         answers = {}
         zero_launches()
         for expr in QUERIES + PCT_QUERIES:
@@ -1334,6 +1437,164 @@ def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# HTTP ingest and tenants
+# ---------------------------------------------------------------------------
+
+def http_points():
+    """HTTP_SERIES x HTTP_POINTS points, from a seed: one point every 600 s
+    over the week with a jitter below it, values with three decimals."""
+    rng = np.random.default_rng(9)
+    ts = (BASE + np.arange(HTTP_POINTS, dtype=np.int64) * 600
+          + rng.integers(0, 600, (HTTP_SERIES, HTTP_POINTS)))
+    vals = np.round(rng.normal(50, 5, (HTTP_SERIES, HTTP_POINTS)), 3)
+    return ts, vals
+
+
+def http_bodies(metric: str, ts: np.ndarray, vals: np.ndarray) -> list:
+    """/api/put bodies of at most HTTP_BODY_POINTS points: the first half
+    of the series as JSON datapoint arrays, the second as put lines
+    without the verb."""
+    per = HTTP_BODY_POINTS // HTTP_POINTS
+    half = HTTP_SERIES // 2
+    bodies = []
+    for a in range(0, HTTP_SERIES, per):
+        rows = range(a, min(a + per, HTTP_SERIES))
+        if a < half:
+            bodies.append(json.dumps(
+                [{"metric": metric, "timestamp": int(t), "value": float(v),
+                  "tags": {"host": f"s{s:03d}"}}
+                 for s in rows for t, v in zip(ts[s], vals[s])],
+                separators=(",", ":")).encode())
+        else:
+            bodies.append("".join(
+                f"{metric} {t} {v} host=s{s:03d}\n"
+                for s in rows
+                for t, v in zip(ts[s].tolist(), vals[s].tolist()))
+                .encode())
+    return bodies
+
+
+def http_put_phase(port: int, start: int, end: int) -> dict:
+    """New series through /api/put under ?tenant=smoke (JSON and put-line
+    bodies, timed: the HTTP ingest rate), the same points through telnet
+    on another tenant under another metric, /q of each held against the
+    other, and /api/tenants: the corpus' tenant in the HLL tier within 3
+    standard errors of its true count, the two new tenants exact."""
+    ts, vals = http_points()
+    bodies = http_bodies("smoke.http", ts, vals)
+    if max(len(b) for b in bodies) > 1 << 20:
+        fail("an /api/put body is over the daemon's 1 MiB bound")
+    t0 = time.perf_counter()
+    for body in bodies:
+        status, resp = http_post(port, f"/api/put?tenant={HTTP_TENANT}",
+                                 body)
+        got = json.loads(resp) if status == 200 else None
+        if got is None or got["errors"] or got["points"] * len(bodies) \
+                != HTTP_SERIES * HTTP_POINTS:
+            fail(f"/api/put answered {status}: {resp[:300]!r}")
+    http_s = time.perf_counter() - t0
+    points = HTTP_SERIES * HTTP_POINTS
+    lines = [f"tenant {TELNET_TENANT}"] + [
+        f"put smoke.telnet {t} {v} host=s{s:03d}"
+        for s in range(HTTP_SERIES)
+        for t, v in zip(ts[s].tolist(), vals[s].tolist())]
+    t0 = time.perf_counter()
+    said = telnet(port, lines)
+    telnet_s = time.perf_counter() - t0
+    if "put:" in said or not said.startswith(f"tenant {TELNET_TENANT}\n"):
+        fail(f"telnet answered: {said[:500]!r}")
+    out = {"http_points": points, "http_bodies": len(bodies),
+           "http_body_bytes_max": max(len(b) for b in bodies),
+           "http_s": http_s, "http_points_per_s": points / http_s,
+           "telnet_points_per_s": points / telnet_s, "queries": {}}
+    for expr in HTTP_QUERIES:
+        got = {}
+        for metric in ("smoke.http", "smoke.telnet"):
+            m = expr.format(m=metric)
+            got[metric] = http_json(port, "/q?" + urllib.parse.urlencode(
+                {"start": start, "end": end, "m": m, "json": ""}))
+        if len(got["smoke.http"]) != HTTP_SERIES:
+            fail(f"{expr}: {len(got['smoke.http'])} groups")
+        out["queries"][expr.format(m="smoke.*")] = same_answer(
+            expr, got["smoke.http"], got["smoke.telnet"],
+            exact=expr.startswith("max"))
+    info = http_json(port, "/api/tenants")
+    t = info["tenants"]
+    truth = SERIES + TELNET_SERIES
+    err = 3 * hll_rel_error(info["hll_p"]) * truth
+    if (t["default"]["tier"] != "hll"
+            or abs(t["default"]["series"] - truth) > err
+            or t[HTTP_TENANT]["series"] != HTTP_SERIES
+            or t[TELNET_TENANT]["series"] != HTTP_SERIES
+            or t[HTTP_TENANT]["tier"] != "exact"
+            or t[HTTP_TENANT]["points"] != points
+            or info["tracked_series"] != truth + 2 * HTTP_SERIES
+            or t["default"]["top_prefixes"][0]["prefix"] != "bench.metric"):
+        fail(f"/api/tenants: {json.dumps(info)[:2000]}")
+    out["api_tenants"] = {
+        "tracked_series": info["tracked_series"],
+        "series": {k: v["series"] for k, v in t.items()},
+        "tiers": {k: v["tier"] for k, v in t.items()},
+        "default_error_bound": err,
+        "top_prefix": t["default"]["top_prefixes"][0],
+        "top_series": t["default"]["top_series"][0]}
+    log(f"/api/put: {points} points in {len(bodies)} bodies, "
+        f"{out['http_points_per_s']:,.0f} points/s (telnet "
+        f"{out['telnet_points_per_s']:,.0f}); /q http vs telnet "
+        f"{out['queries']}; /api/tenants {out['api_tenants']}")
+    return out
+
+
+def refusal_phase() -> dict:
+    """A small second daemon on the card with tenant_max_series=1: a new
+    series refuses over telnet (the bulk path's and the per-line path's
+    declared lines) and over /api/put (the 429 body naming the limit);
+    the existing series keeps ingesting."""
+    tsdb = open_tsdb(Config(auto_create_metrics=True, port=0,
+                            bind="127.0.0.1", device=DEVICE,
+                            tenant_max_series=1), None)
+    daemon = Daemon(tsdb)
+    try:
+        port = daemon.port
+        said = [telnet(port, ["tenant t", f"put lim.m {BASE} 1 id=0"]),
+                telnet(port, ["tenant t", f"put lim.m {BASE + 60} 2 id=0",
+                              f"put lim.m {BASE} 1 id=1"]),
+                telnet(port, ["tenant t", f"put lim.m {BASE} 1 id=2"],
+                       pause=True)]
+        limit = ("tenant 't' series limit exceeded: 1 >= 1 (new series "
+                 "refused; existing series keep ingesting)")
+        want = [None, f"put: tenant series limit exceeded: lim.m: "
+                f"[tenant-limit] {limit}\n",
+                f"put: tenant series limit exceeded: {limit}\n"]
+        for got, line in zip(said, want):
+            body = got.split("\n", 1)[1].rsplit("opentsdb_tpu_torch", 1)[0]
+            if line is None and "put:" in got or line and body != line:
+                fail(f"telnet refusal: {got!r}")
+        refused = http_post(port, "/api/put?tenant=t",
+                            f"lim.m {BASE} 1 id=3\n".encode())
+        kept = http_post(port, "/api/put?tenant=t",
+                         f"lim.m {BASE + 120} 3 id=0\n".encode())
+        body = json.loads(refused[1])
+        if (refused[0] != 429 or body["limit"] != 1 or body["points"]
+                or "[tenant-limit]" not in body["error"]
+                or kept[0] != 200 or json.loads(kept[1])["points"] != 1):
+            fail(f"/api/put refusal: {refused!r} {kept!r}")
+        rows = http_get(port, "/q?" + urllib.parse.urlencode(
+            {"start": BASE, "end": BASE + 3600, "m": "sum:lim.m{id=*}",
+             "ascii": ""}))[1].decode().splitlines()
+        ent = http_json(port, "/api/tenants")["tenants"]["t"]
+        if len(rows) != 3 or ent["series"] != 1 or ent["refused"] != 3 \
+                or ent["points"] != 3:
+            fail(f"after the refusals: {rows} {ent}")
+    finally:
+        daemon.stop()
+    out = {"telnet_lines": want[1:], "http_429": body,
+           "tenant": {k: ent[k] for k in ("series", "refused", "points")}}
+    log(f"refusal: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Restart phase
 # ---------------------------------------------------------------------------
 
@@ -1406,6 +1667,8 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
     out["gc_full_ms"] = {"memtable": gc_full_ms()}
     out["checkpoint_1"] = timed_checkpoint(tsdb, "checkpoint 1")
     out["checkpoint_1"]["sketch_save_s"] = tsdb.sketch_save_seconds
+    out["checkpoint_1"]["tenant_save_s"] = tsdb.tenant_save_seconds
+    out["checkpoint_1"]["tenant_snapshot_bytes"] = tsdb.tenant_snapshot_bytes
 
     rng = np.random.default_rng(3)
     lines = []
@@ -1426,6 +1689,7 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
     before = {expr: http_resident(daemon.port, dw, ex, expr, start, end)[1]
               for expr in QUERIES + PCT_QUERIES}
     sketch_before = sketch_answers(daemon.port, start, end)
+    tenants_before = http_json(daemon.port, "/api/tenants")
     out["checkpoint_2"] = timed_checkpoint(tsdb, "checkpoint 2")
     if out["checkpoint_2"]["generations"] != 2:
         fail(f"{out['checkpoint_2']['generations']} generations after two "
@@ -1435,19 +1699,21 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
     daemon.stop()
     out["shutdown_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    store = MemKVStore(wal_path=wal)
-    tsdb2 = TSDB(store, Config(auto_create_metrics=True, port=0,
-                               bind="127.0.0.1", device=DEVICE),
-                 start_compaction_thread=True)
+    tsdb2 = open_daemon_tsdb(wal)
+    store = tsdb2.store
     out["boot_s"] = time.perf_counter() - t0
     out["open_generations_s"] = store.open_seconds["generations"]
     out["replay_s"] = store.open_seconds["replay"]
     out["warm_s"] = tsdb2.warm_seconds
     out["sketch_load_s"] = tsdb2.sketch_load_seconds
+    out["tenant_load_s"] = tsdb2.tenant_load_seconds
+    if tsdb2.tenants.rebuilt:
+        fail("the restarted daemon rebuilt tenant accounting instead of "
+             "loading its snapshot")
     out["generations"], out["generation_bytes"] = generation_bytes(tsdb2)
     dw2 = tsdb2.devwindow
     points = SERIES * POINTS + TELNET_SERIES * TELNET_POINTS \
-        + EXTRA_SERIES * EXTRA_POINTS
+        + EXTRA_SERIES * EXTRA_POINTS + 2 * HTTP_SERIES * HTTP_POINTS
     if dw2 is None or dw2.appended_points != points:
         fail(f"the window warmed {dw2 and dw2.appended_points} of {points} "
              f"points from the tiers")
@@ -1456,15 +1722,30 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
         f" s, replay {out['replay_s']:.2f} s, window warm-up "
         f"{out['warm_s']:.1f} s, sketch snapshot load "
         f"{out['sketch_load_s']:.3f} s, saved in checkpoint 1 in "
-        f"{out['checkpoint_1']['sketch_save_s']:.3f} s); "
+        f"{out['checkpoint_1']['sketch_save_s']:.3f} s; tenant snapshot "
+        f"load {out['tenant_load_s']:.3f} s, saved in checkpoint 1 in "
+        f"{out['checkpoint_1']['tenant_save_s']:.3f} s, "
+        f"{out['checkpoint_1']['tenant_snapshot_bytes']} bytes); "
         f"{out['generations']} generations, {out['generation_bytes']} "
         f"bytes")
 
     out["gc_full_ms"]["after_restart"] = gc_full_ms()
-    log(f"full gc: {out['gc_full_ms']}")
+    log(f"full gc, heap frozen at each open: {out['gc_full_ms']} (before "
+        f"the daemon froze it: {GC_FULL_MS_UNTUNED})")
     daemon2 = Daemon(tsdb2)
     try:
         ex2 = daemon2.server.executor
+        # The loaded tenant snapshot answers as the daemon did before the
+        # restart, but for the count of snapshots this process wrote.
+        tenants_after = http_json(daemon2.port, "/api/tenants")
+        if {k: v for k, v in tenants_after.items()
+                if k != "snapshots_written"} != {
+                k: v for k, v in tenants_before.items()
+                if k != "snapshots_written"}:
+            fail(f"/api/tenants changed across the restart: "
+                 f"{json.dumps(tenants_after)[:1000]} vs "
+                 f"{json.dumps(tenants_before)[:1000]}")
+        out["tenants_same_after_restart"] = True
         out["queries"] = {}
         zero_launches()
         for expr in QUERIES + PCT_QUERIES:
@@ -1582,6 +1863,43 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
             f"{out['bloom']}; repeats {out['repeats']}")
     finally:
         daemon2.stop()
+    out["marker_rebuild"] = marker_rebuild(wal, tenants_before)
+    return out
+
+
+def marker_rebuild(wal: str, want: dict) -> dict:
+    """The store as the port left it before it kept tenant accounting: a
+    version-0 tenant file in place of the snapshot. An open rebuilds from
+    all of storage (timed: the one-time cost of the transition), with
+    exact totals on the default tenant, and its checkpoint writes a real
+    snapshot."""
+    path = wal + ".tenants.json"
+    with open(path, "w") as f:
+        json.dump(OLD_TENANT_MARKER, f)
+    tsdb = open_tsdb(Config(auto_create_metrics=True, device=DEVICE,
+                            device_window=False), wal)
+    try:
+        acct = tsdb.tenants
+        info = acct.snapshot_info()
+        total = want["tracked_series"]
+        est = info["tenants"]["default"]["series"]
+        if (not acct.rebuilt or info["tracked_series"] != total
+                or info["total_series"] != total
+                or acct.recovered_series != total
+                or abs(est - total) > 3 * hll_rel_error(info["hll_p"])
+                * total):
+            fail(f"the rebuild over the old marker: {info}")
+        out = {"rebuild_s": tsdb.tenant_load_seconds, "series": total,
+               "default_estimate": est}
+        tsdb.checkpoint()
+        with open(path) as f:
+            out["snapshot_version_after_checkpoint"] = json.load(f)[
+                "version"]
+        if out["snapshot_version_after_checkpoint"] != 1:
+            fail("the checkpoint after the rebuild wrote no snapshot")
+    finally:
+        tsdb.shutdown()
+    log(f"tenant rebuild over the old version-0 marker: {out}")
     return out
 
 
@@ -2261,6 +2579,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as wal_dir:
         path = path_phase(ts, vals, wal_dir)
     del ts, vals
+    refusal = refusal_phase()
     budget = budget_phase()
 
     # Each path's launches beside the times at that path's shape; the
@@ -2320,7 +2639,7 @@ def main() -> int:
     log(json.dumps({"details": {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "kernel_cases": kernels, "path": path,
-        "budget": budget}}))
+        "refusal": refusal, "budget": budget}}))
     for expr, q in path["queries"].items():
         print(json.dumps({"query": expr, "plan": "resident", **q,
                           "card": smi}))
@@ -2342,6 +2661,21 @@ def main() -> int:
                           "device_busy_share": p["device_busy_share"],
                           "card": smi}))
     r = path["restart"]
+    print(json.dumps({"tenants": {
+        "http_ingest": {k: v for k, v in path["tenants"].items()
+                        if k != "api_tenants"},
+        "api_tenants": path["tenants"]["api_tenants"],
+        "snapshot_bytes": r["checkpoint_1"]["tenant_snapshot_bytes"],
+        "snapshot_save_s": r["checkpoint_1"]["tenant_save_s"],
+        "snapshot_load_s": r["tenant_load_s"],
+        "same_after_restart": r["tenants_same_after_restart"],
+        "marker_rebuild": r["marker_rebuild"],
+        "refusal": refusal,
+        "gc_full_ms": r["gc_full_ms"],
+        "gc_full_ms_untuned": GC_FULL_MS_UNTUNED,
+        "gc_during_ingest": path["ingest"]["gc"],
+        "ingest_points_per_s": path["ingest"]["points_per_s"]},
+        "card": smi}))
     print(json.dumps({"restart": {
         "checkpoints": [r["checkpoint_1"], r["checkpoint_2"]],
         **{k: r[k] for k in ("shutdown_s", "boot_s", "open_generations_s",

@@ -21,14 +21,23 @@ start-up the sketches load the snapshot and re-fold the WAL-replayed
 memtable on top of it (or, without one, re-fold all of storage), and the
 window is warmed from every tier.
 
+Tenant accounting (``tenant/``, on by default as in the JAX package):
+every write resolves its series behind the tenant gate (with limits
+enforced, a series that needs a new UID is checked against its tenant's
+budget before any UID is minted), counts a NEW series per tenant before
+the store put, and counts the points after it. The checkpoint saves the
+accountant's ``<wal>.tenants.json`` before the spill, beside the sketch
+snapshot; at start-up it is loaded and the WAL-replayed memtable's series
+folded on top, or, when the file is torn or foreign (a file another
+writer marked for a rebuild among them), rebuilt from all of storage.
+
 Left out of this slice (all off here; see ROADMAP): the mesh-sharded
-window, rollups, tenant accounting, replicas and the cluster tier. The
-tenant snapshot in a JAX store directory is left, at each checkpoint, in a
-state the JAX package rebuilds exactly from (``MemKVStore.checkpoint``).
+window, rollups, replicas and the cluster tier.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import threading
 import time
@@ -40,12 +49,18 @@ from opentsdb_tpu_torch.core.compaction import CompactionQueue
 from opentsdb_tpu_torch.core.const import (MAX_TIMESPAN, TIMESTAMP_BYTES,
                                            UID_WIDTH)
 from opentsdb_tpu_torch.core.errors import (IllegalDataError,
+                                             NoSuchUniqueName,
                                              PleaseThrottleError)
 from opentsdb_tpu_torch.stats.livesketch import LiveSketches
 from opentsdb_tpu_torch.storage.devstore import DeviceWindow
 from opentsdb_tpu_torch.storage.kv import KVStore
+from opentsdb_tpu_torch.storage.sstable import series_hash
+from opentsdb_tpu_torch.tenant.accounting import TenantAccountant
+from opentsdb_tpu_torch.tenant.limits import TenantLimiter, parse_overrides
 from opentsdb_tpu_torch.uid.uniqueid import UniqueId
 from opentsdb_tpu_torch.utils.config import Config, resolve_device
+
+LOG = logging.getLogger(__name__)
 
 FAMILY = b"t"
 
@@ -69,6 +84,23 @@ class TSDB:
         # explicit call may race).
         self._checkpoint_lock = threading.Lock()
         self.sketch_save_seconds = 0.0
+        # Tenant cardinality control plane (tenant/): per-tenant series
+        # accounting + heavy hitters + admission limits, fed from this
+        # write path's series-identity hash; set up once the window is
+        # warm (None before, and on a read-only store).
+        # ``tenant_load_seconds`` keeps the start-up load (or rebuild),
+        # ``tenant_save_seconds`` / ``tenant_snapshot_bytes`` the last
+        # save's.
+        self.tenants = None
+        self.tenant_limits = None
+        self.tenant_load_seconds = 0.0
+        self.tenant_save_seconds = 0.0
+        self.tenant_snapshot_bytes = 0
+        # skey -> "metric{k=v,...}" memo for the heavy-hitter summary:
+        # the label is invariant per series, so the ingest path must not
+        # rebuild (sort + join) it every batch. Cleared wholesale at the
+        # cap.
+        self._series_labels: dict[bytes, str] = {}
         self.compactionq = CompactionQueue(
             self, start_thread=start_compaction_thread)
         # Streaming sketch state (stats/livesketch.py): loaded from the
@@ -90,6 +122,9 @@ class TSDB:
                 max_points=self.config.device_window_points,
                 device=self.device)
             self._warm_devwindow()
+        if (self.config.tenant_accounting
+                and not getattr(store, "read_only", False)):
+            self._init_tenants()
 
     def _warm_devwindow(self) -> None:
         """Mirror what storage already holds (the sstable generations and
@@ -184,6 +219,115 @@ class TSDB:
             series_key, values, [(metric_uid, k, v) for k, v in pairs])
 
     # ------------------------------------------------------------------
+    # Tenant cardinality control plane (tenant/)
+    # ------------------------------------------------------------------
+
+    def _tenants_path(self) -> str | None:
+        """``<wal>.tenants.json`` beside a single-file WAL (a sharded
+        store's root ``TENANTS.json`` comes with ROADMAP queue A item
+        3)."""
+        wal = getattr(self.store, "_wal_path", None)
+        return wal + ".tenants.json" if wal else None
+
+    def _init_tenants(self) -> None:
+        """Load the snapshot and re-fold the WAL-replayed memtable's
+        series on top — the snapshot commits BEFORE each spill, so it
+        always covers the sstable tier and the memtable delta is
+        everything it can be missing. A torn or foreign state file
+        rebuilds from a full storage scan instead (totals exact;
+        per-tenant splits land on the default tenant, declared via
+        recovered_series)."""
+        t0 = time.perf_counter()
+        cfg = self.config
+        self.tenant_limits = TenantLimiter(
+            max_series=cfg.tenant_max_series,
+            global_max=cfg.tenant_global_max_series,
+            mode=cfg.tenant_limit_mode,
+            overrides=parse_overrides(cfg.tenant_overrides))
+        path = self._tenants_path()
+        acct = None
+        if path and os.path.exists(path):
+            try:
+                acct = TenantAccountant.load(
+                    path, exact_cutoff=cfg.tenant_exact_cutoff,
+                    hll_p=cfg.tenant_hll_p, topk=cfg.tenant_topk)
+            except Exception as e:
+                LOG.warning("tenant snapshot at %s torn/foreign (%r); "
+                            "rebuilding tenant accounting from "
+                            "storage", path, e)
+        if acct is not None:
+            acct.fold_recovered(self._memtable_series_hashes())
+        else:
+            torn = bool(path and os.path.exists(path))
+            acct = TenantAccountant(
+                path=path, exact_cutoff=cfg.tenant_exact_cutoff,
+                hll_p=cfg.tenant_hll_p, topk=cfg.tenant_topk)
+            if torn or self.tenant_limits.enabled:
+                # The full scan is REQUIRED under enforcement (the limiter
+                # must never refuse a pre-existing series as "new"), and a
+                # torn snapshot means accounting was live here: recover it
+                # exactly.
+                acct.fold_recovered(self._storage_series_hashes())
+            else:
+                # Observability only, no snapshot (first boot, or a store
+                # from before accounting): no checkpoint ever committed
+                # a snapshot, so fold the memtable delta only; the first
+                # checkpoint makes this a one-time transition.
+                acct.fold_recovered(self._memtable_series_hashes())
+            acct.rebuilt = torn
+        self.tenants = acct
+        self.tenant_load_seconds = time.perf_counter() - t0
+
+    def _memtable_series_hashes(self):
+        return (series_hash(codec.series_key(k))
+                for k in self.store.memtable_keys(self.table))
+
+    def _storage_series_hashes(self):
+        """Every distinct series-identity hash currently in storage
+        (raw key scan, no cell decode) — the rebuild source when the
+        snapshot is gone."""
+        seen: set[int] = set()
+        for key, _items in self.store.scan_raw(self.table, b"",
+                                               b"\xff" * 64):
+            h = series_hash(codec.series_key(key))
+            if h not in seen:
+                seen.add(h)
+                yield h
+
+    def _admit_series(self, tenant: str, skey: bytes,
+                      metric: str) -> None:
+        """Tenant admission + accounting for one about-to-be-written
+        series; raises TenantLimitError (enforce mode) when the series
+        is NEW and the tenant (or the directory) is over budget.
+        Counting happens here, BEFORE the storage put, mirroring the
+        sketch directory's note_series placement."""
+        acct = self.tenants
+        if acct is None:
+            return
+        h = series_hash(skey)
+        if acct.seen(h):
+            return
+        self.tenant_limits.admit_new_series(acct, tenant)
+        acct.note_new_series(tenant, h, metric)
+
+    _SERIES_LABEL_CAP = 65536
+
+    def _account_points(self, tenant: str, metric: str,
+                        tag_map: dict, n: int, skey: bytes) -> None:
+        if self.tenants is None or n <= 0:
+            return
+        label = self._series_labels.get(skey)
+        if label is None:
+            label = metric
+            if tag_map:
+                label += "{" + ",".join(
+                    f"{k}={v}" for k, v in sorted(tag_map.items())) + "}"
+            if len(self._series_labels) >= self._SERIES_LABEL_CAP:
+                self._series_labels.clear()
+            self._series_labels[skey] = label
+        self.tenants.note_points(tenant, label, n)
+
+    # ------------------------------------------------------------------
     # Row-key construction
     # ------------------------------------------------------------------
 
@@ -210,6 +354,32 @@ class TSDB:
                       else self.metrics.get_id(metric))
         return metric_uid, self.resolve_tags(tag_map, create_tags)
 
+    def _row_parts_admitted(self, tenant: str, metric: str,
+                            tag_map: dict[str, str],
+                            ) -> tuple[bytes, list[tuple[bytes, bytes]]]:
+        """``_row_parts`` behind the tenant gate. With enforcement on,
+        resolve WITHOUT creating first: a missing UID means the series
+        is certainly NEW, so the tenant/global budget check runs before
+        ``get_or_create`` allocates durable UID mappings — a refused
+        series must not grow the metric/tagk/tagv maps. When every UID
+        resolves the combination may still be new: ``_admit_series``
+        settles it against the seen-set once the series hash exists."""
+        if (self.tenants is None or not self.tenant_limits.enabled
+                or self.tenant_limits.mode != "enforce"):
+            return self._row_parts(metric, tag_map)
+        try:
+            return self._row_parts(metric, tag_map, create_metric=False,
+                                   create_tags=False)
+        except NoSuchUniqueName:
+            if not self.config.auto_create_metrics:
+                # The metric itself may be the missing piece, and it can
+                # never be created here: that put dies as "unknown
+                # metric" regardless of any budget, so it must not count
+                # as a tenant refusal. Re-raises NoSuchUniqueName if so.
+                self.metrics.get_id(metric)
+            self.tenant_limits.admit_new_series(self.tenants, tenant)
+            return self._row_parts(metric, tag_map)
+
     def row_key_for(self, metric: str, tag_map: dict[str, str],
                     base_ts: int, create_metric: bool | None = None,
                     create_tags: bool = True) -> bytes:
@@ -222,7 +392,8 @@ class TSDB:
     # ------------------------------------------------------------------
 
     def add_point(self, metric: str, timestamp: int, value: int | float,
-                  tag_map: dict[str, str], durable: bool = True) -> None:
+                  tag_map: dict[str, str], durable: bool = True,
+                  tenant: str = "default") -> None:
         """Store one data point (reference TSDB.addPoint :236-352)."""
         if timestamp & ~0xFFFFFFFF:
             raise ValueError(
@@ -236,16 +407,21 @@ class TSDB:
         else:
             buf, flags = codec.encode_long(value)
         base_ts = codec.base_time(timestamp)
-        metric_uid, pairs = self._row_parts(metric, tag_map)
+        metric_uid, pairs = self._row_parts_admitted(tenant, metric,
+                                                     tag_map)
         row = codec.row_key(metric_uid, base_ts, pairs)
         qual = codec.encode_qualifier(timestamp - base_ts, flags)
         skey = codec.series_key(row)
-        # The sketch directory learns the series before storage holds it.
+        # Tenant admission first (a refused NEW series leaves no trace),
+        # then the sketch directory learns the series before storage
+        # holds it.
+        self._admit_series(tenant, skey, metric)
         if self.sketches is not None:
             self.sketches.note_series(skey)
         self.store.put(self.table, row, FAMILY, qual, buf, durable=durable)
         if self.config.enable_compactions:
             self.compactionq.add(row)
+        self._account_points(tenant, metric, tag_map, 1, skey)
         self._observe(skey, metric_uid, pairs,
                       np.asarray([value], np.float64))
         if self.devwindow is not None:
@@ -257,7 +433,8 @@ class TSDB:
                   values: np.ndarray, tag_map: dict[str, str],
                   durable: bool = True,
                   is_float: np.ndarray | None = None,
-                  int_values: np.ndarray | None = None) -> int:
+                  int_values: np.ndarray | None = None,
+                  tenant: str = "default") -> int:
         """Columnar ingest for one series: one pre-compacted cell per
         row-hour.
 
@@ -265,8 +442,9 @@ class TSDB:
         stored as 4-byte floats (matching telnet ingest), int points on
         their smallest widths. ``is_float`` types points individually
         within a float-dtyped ``values`` array, with ``int_values`` (int64)
-        alongside to keep integers above 2^53 exact. Returns the points
-        written."""
+        alongside to keep integers above 2^53 exact. ``tenant`` is charged
+        for the series (raising TenantLimitError when it is NEW and over
+        budget) and its points. Returns the points written."""
         timestamps = np.asarray(timestamps, dtype=np.int64)
         if timestamps.size == 0:
             return 0
@@ -298,7 +476,8 @@ class TSDB:
             ([0], np.flatnonzero(np.diff(base)) + 1))
         quals, vals = codec_np.encode_cells_multi(deltas, f_s, i_s, m_s,
                                                   row_starts)
-        metric_uid, pairs = self._row_parts(metric, tag_map)
+        metric_uid, pairs = self._row_parts_admitted(tenant, metric,
+                                                     tag_map)
         tmpl = bytes(codec.row_key(metric_uid, 0, pairs))
         # All row keys in one pass: broadcast the template, stamp the
         # base-time bytes, keep the contiguous blob for the columnar put.
@@ -308,9 +487,12 @@ class TSDB:
             base[row_starts].astype(">u4").view(np.uint8).reshape(-1, 4))
         kb = keys.tobytes()
         skey = codec.series_key(kb[:L])
-        # The sketch directory learns the series before any row of it is
-        # visible in storage (over-registering a batch that then fails is
-        # harmless).
+        # Tenant admission precedes both the directory registration and
+        # the put: a NEW series from an over-budget tenant refuses here
+        # before any byte lands. The sketch directory then learns the
+        # series before any row of it is visible in storage
+        # (over-registering a batch that then fails is harmless).
+        self._admit_series(tenant, skey, metric)
         if self.sketches is not None:
             self.sketches.note_series(skey)
         try:
@@ -327,6 +509,8 @@ class TSDB:
                 self.devwindow.invalidate(metric_uid)
             raise
         self._queue_compactions(kb, L, existed)
+        n = len(ts_s)
+        self._account_points(tenant, metric, tag_map, n, skey)
         # The sketch fold covers fully applied batches only (a throttled
         # batch raised above); one float32 conversion serves the sketches
         # and the window.
@@ -335,7 +519,7 @@ class TSDB:
             self._observe(skey, metric_uid, pairs, f32)
             if self.devwindow is not None:
                 self.devwindow.append(metric_uid, skey, ts_s, f32)
-        return len(ts_s)
+        return n
 
     def _queue_compactions(self, kb: bytes, L: int,
                            existed: list[bool]) -> None:
@@ -492,7 +676,7 @@ class TSDB:
         self.store.flush()
 
     def checkpoint(self) -> int:
-        """Save the sketch snapshot, then spill the store's memtable to its
+        """Save the sketch and tenant snapshots, then spill the store's memtable to its
         sstable tier and truncate the WAL (``MemKVStore.checkpoint``).
         Returns rows spilled, 0 when the store keeps no WAL.
 
@@ -501,7 +685,10 @@ class TSDB:
         still-replayable memtable, whose re-fold then counts it twice
         (exact for HLLs, within sketch tolerance for digests), instead of
         a snapshot missing folds the truncated WAL can no longer replay.
-        ``sketch_save_seconds`` keeps the last save's time.
+        ``sketch_save_seconds`` keeps the last save's time. The tenant
+        snapshot takes the same place for the same reason (its folds are
+        idempotent by series hash); without accounting the store marks
+        the tenant file foreign instead (``MemKVStore._retire_snapshots``).
 
         Without sketches a snapshot left by an earlier run would miss the
         rows spilled now, and the JAX package's next open would load it
@@ -509,8 +696,6 @@ class TSDB:
         and that open re-folds all of storage (ROADMAP queue C, reference
         note 5)."""
         ckpt = getattr(self.store, "checkpoint", None)
-        if ckpt is None:
-            return 0
         with self._checkpoint_lock:
             path = self._sketch_path()
             if path and self.sketches is not None:
@@ -519,14 +704,24 @@ class TSDB:
                 self.sketch_save_seconds = time.perf_counter() - t0
             elif path and os.path.exists(path):
                 os.unlink(path)
-            return ckpt()
+            if self.tenants is not None:
+                self._save_tenants()
+            if ckpt is None:
+                return 0
+            return ckpt(tenant_marker=self.tenants is None)
+
+    def _save_tenants(self) -> None:
+        t0 = time.perf_counter()
+        self.tenant_snapshot_bytes = self.tenants.save()
+        self.tenant_save_seconds = time.perf_counter() - t0
 
     def shutdown(self) -> None:
         """Idempotent: stop and drain the compaction queue, checkpoint
         when the store has a WAL (the JAX package checkpoints at every
-        clean shutdown under its default config), flush the WAL, close the
-        store (which releases the WAL's single-writer lock even when the
-        checkpoint or the flush raises)."""
+        clean shutdown under its default config; the tenant snapshot is
+        saved inside it, and has nowhere to go without a WAL), flush the
+        WAL, close the store (which releases the WAL's single-writer lock
+        even when the checkpoint or the flush raises)."""
         if getattr(self, "_shutdown_done", False):
             return
         self._shutdown_done = True

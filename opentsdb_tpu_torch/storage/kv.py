@@ -83,9 +83,10 @@ _BASE_HI = UID_WIDTH + TIMESTAMP_BYTES
 # names (the JAX package's storage/sharded.py).
 _SHARDS_NAME = "SHARDS.json"
 
-# Version written into <wal>.tenants.json at each checkpoint: any value
-# but the JAX package's 1 makes its next open rebuild tenant accounting
-# from storage (MemKVStore._retire_snapshots).
+# Version written into <wal>.tenants.json at a checkpoint by a writer that
+# keeps no tenant accounting: any value but the snapshot's 1 makes the
+# next open (either package's) rebuild tenant accounting from storage
+# (MemKVStore._retire_snapshots).
 _FOREIGN_TENANTS_VERSION = 0
 
 
@@ -795,10 +796,13 @@ class MemKVStore(KVStore):
 
     # -- checkpoint / spill -----------------------------------------------
 
-    def checkpoint(self) -> int:
+    def checkpoint(self, tenant_marker: bool = True) -> int:
         """Spill the memtable to a new sstable generation and drop the
         pre-checkpoint WAL records. Returns rows written (0: no WAL, a
         checkpoint already in flight, or nothing to spill).
+        ``tenant_marker=False`` (a writer that saved its own tenant
+        snapshot just before) leaves ``<wal>.tenants.json`` alone
+        (``_retire_snapshots``).
 
         Normally the frozen memtable spills alone as a new generation.
         When the generation count reaches _MAX_GENERATIONS, a size-tiered
@@ -825,7 +829,7 @@ class MemKVStore(KVStore):
         with self._lock:
             if self._frozen is not None:
                 return 0  # a spill is already in flight
-            self._retire_snapshots()
+            self._retire_snapshots(tenant_marker)
             self._frozen = self._tables
             self._tables = {name: _Table() for name in self._frozen}
             self.mutation_seq += 1
@@ -954,20 +958,24 @@ class MemKVStore(KVStore):
                 os.unlink(old_path)
         return n
 
-    def _retire_snapshots(self) -> None:
-        """Leave the JAX package's snapshots beside the WAL in a state
-        its next open rebuilds exactly from, before anything spills.
+    def _retire_snapshots(self, tenant_marker: bool = True) -> None:
+        """Leave the snapshots beside the WAL in a state the next open
+        (either package's) rebuilds exactly from, before anything spills.
 
-        The JAX daemon keeps ``<wal>.tenants.json`` (and
-        ``<wal>.sketches``, which ``TSDB.checkpoint`` saves or removes),
-        covering the sstable tier, and on open re-folds only the
-        WAL-replayed memtable on top of it.
+        A writer keeps ``<wal>.tenants.json`` (and ``<wal>.sketches``,
+        which ``TSDB.checkpoint`` saves or removes), covering the sstable
+        tier, and on open re-folds only the WAL-replayed memtable on top
+        of it. ``TSDB.checkpoint`` saves a real tenant snapshot first
+        when it keeps accounting (``tenant_marker=False``).
 
-        This store keeps no tenant accounting, so the tenant snapshot is
-        replaced by a file of a foreign version, which the JAX package
+        Otherwise (``tenant_accounting=False``, or this store checkpointed
+        alone) the tenant snapshot would miss the rows spilled now, so it
+        is replaced by a file of a foreign version, which the next open
         rejects and answers with a full storage rescan (exact totals). A
         missing tenant file is not enough: without one, and without
-        tenant limits, the JAX package skips the rescan.
+        tenant limits, an open skips the rescan. The JAX package leaves
+        its stale snapshot in place here (ROADMAP queue C, reference
+        note 8).
 
         A JAX rollup tier (``<wal>.rollup-<res>/``) would need its
         summaries folded at every spill, which this port cannot do yet:
@@ -982,6 +990,8 @@ class MemKVStore(KVStore):
                 f"({rollups}); checkpointing it would leave its summaries "
                 f"behind the spilled rows, and rollups are not ported yet "
                 f"(ROADMAP queue A item 6)")
+        if not tenant_marker:
+            return
         tenants = self._wal_path + ".tenants.json"
         with open(tenants + ".tmp", "w") as f:
             json.dump({"version": _FOREIGN_TENANTS_VERSION,

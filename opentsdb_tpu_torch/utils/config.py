@@ -70,6 +70,52 @@ class Config:
     device_window_staging: int = 1 << 20   # points per upload chunk
     device_window_points: int = 1 << 26    # resident budget, all metrics
 
+    # Admission control / backpressure (serve/admission.py). All off
+    # by default (0); per-tenant buckets key on the ?tenant= query
+    # param (HTTP) or the connection's tenant (telnet; "default").
+    # - ingest_rate/_burst_s: per-tenant token bucket in points/s;
+    #   over-quota puts shed with "Please throttle" + Retry-After
+    #   instead of queueing.
+    # - ingest_queue_points: global cap on decoded-but-not-yet-applied
+    #   points across connections — sheds before memory does.
+    # - query_rate/_burst: per-tenant queries/s bucket;
+    #   query_max_inflight N: the load-shedding ladder. The JAX
+    #   package's query half; the port's /q does not consult it yet
+    #   (ROADMAP queue A items 6 and 10).
+    ingest_rate: float = 0.0
+    ingest_burst_s: float = 2.0
+    ingest_queue_points: int = 0
+    query_rate: float = 0.0
+    query_burst: float = 8.0
+    query_max_inflight: int = 0
+
+    # Tenant cardinality control plane (tenant/):
+    # - tenant_accounting: track per-tenant series cardinality from
+    #   the ingest path's series-identity hash (exact set below
+    #   tenant_exact_cutoff distinct series, HLL above it) plus
+    #   heavy-hitter summaries; snapshotted to <wal>.tenants.json in
+    #   the checkpoint bracket and rebuilt from storage on a
+    #   torn/foreign state file. Writers only.
+    # - tenant_max_series: refuse a NEW series from a tenant already
+    #   at this many distinct series (0 = unlimited). Existing series
+    #   keep ingesting; the refusal is a declared wire error (telnet
+    #   "tenant series limit exceeded" line / HTTP 429), never a
+    #   retryable throttle.
+    # - tenant_global_max_series: directory-wide backstop across all
+    #   tenants (0 = unlimited).
+    # - tenant_limit_mode: "enforce" refuses; "warn" only counts +
+    #   logs what would have been refused (would_refuse).
+    # - tenant_overrides: ("name=limit", ...) per-tenant caps beating
+    #   the blanket tenant_max_series; 0 = unlimited for that tenant.
+    tenant_accounting: bool = True
+    tenant_max_series: int = 0
+    tenant_global_max_series: int = 0
+    tenant_limit_mode: str = "enforce"
+    tenant_overrides: tuple = ()
+    tenant_exact_cutoff: int = 4096
+    tenant_hll_p: int = 12
+    tenant_topk: int = 16
+
     # network
     port: int = 4242
     bind: str = "0.0.0.0"

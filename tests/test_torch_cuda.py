@@ -1459,3 +1459,63 @@ def test_sketch_queries_on_card_launch_kernels(card):
              sk.hll_estimate.launches, sk.merged_quantile.launches)
     assert all(a > b for a, b in zip(after, before))
     t.shutdown()
+
+
+@pytest.mark.cuda
+def test_accounting_daemon_on_card_answers_like_cpu(card, tmp_path):
+    """The daemon with the default Config (tenant accounting on, the
+    window and the sketches on the card) answers /api/put (JSON and put
+    lines, a 429 past the limit) and /api/tenants with the bytes the
+    same daemon on the CPU answers."""
+    import asyncio
+    import json
+
+    from opentsdb_tpu_torch.core.tsdb import TSDB
+    from opentsdb_tpu_torch.server.tsd import TSDServer
+    from opentsdb_tpu_torch.storage.kv import MemKVStore
+    from opentsdb_tpu_torch.utils.config import Config
+    bt = 1356998400
+    rng = np.random.default_rng(6)
+    pts = [{"metric": "card.m", "timestamp": bt + 30 * i,
+            "value": round(float(v), 3), "tags": {"host": f"h{i % 12}"}}
+           for i, v in enumerate(rng.normal(0, 5, 240))]
+    lines = "\n".join(f"card.l {p['timestamp']} {p['value']} "
+                      f"host={p['tags']['host']}" for p in pts)
+    script = [("/api/put?tenant=a", "POST", json.dumps(pts)),
+              ("/api/put?tenant=b", "POST", lines),
+              ("/api/put?tenant=a", "POST",
+               f"card.m {bt} 1 host=new\n"),
+              ("/api/tenants", "GET", "")]
+
+    async def http(port, target, method, body):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        raw = body.encode()
+        writer.write((f"{method} {target} HTTP/1.1\r\nContent-Length: "
+                      f"{len(raw)}\r\nConnection: close\r\n\r\n").encode()
+                     + raw)
+        await writer.drain()
+        out = await reader.read()
+        writer.close()
+        return out
+
+    answers = []
+    for device in ("cuda", "cpu"):
+        tsdb = TSDB(MemKVStore(wal_path=str(tmp_path / f"{device}.wal")),
+                    Config(auto_create_metrics=True, device=device,
+                           port=0, bind="127.0.0.1", tenant_max_series=12),
+                    start_compaction_thread=False)
+        assert tsdb.tenants is not None
+        server = TSDServer(tsdb)
+
+        async def main():
+            await server.start()
+            try:
+                return [await http(server.port, *step) for step in script]
+            finally:
+                await server.stop()
+        answers.append(asyncio.run(main()))
+    assert answers[0] == answers[1]
+    assert answers[0][2].startswith(b"HTTP/1.1 429 ")
+    info = json.loads(answers[0][3].partition(b"\r\n\r\n")[2])
+    assert info["tenants"]["a"]["series"] == info["tenants"]["b"][
+        "series"] == 12
