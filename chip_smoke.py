@@ -4,7 +4,9 @@
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds every kernel of ``opentsdb_tpu_torch/csrc`` with nvcc for sm_90a
-   (one nvcc per source, all started together).
+   (one nvcc per source, all started together), and beside them the
+   native ingest extension and telnet decoder of
+   ``opentsdb_tpu_torch/native`` with gcc and g++ (``utils/nativeext.py``).
 3. Kernel phase: holds each CUDA kernel against its plain PyTorch version
    on the card, at the shapes the two query paths give it (the window's
    chunk fold, the scan path's series stage, once more with its points
@@ -103,15 +105,27 @@
    build and each scan-path query must launch ``segment_sum``, the
    resident path its three kernels, the scan loop both segment kernels
    and the un-downsampled path interp_moments and masked_select.
+   The daemon's host path runs through the native C where the JAX
+   package's does: with the sites' call counts set to 0 before and read
+   after, the corpus ingest must call ``slice_cells``, ``slice_keys`` and
+   ``upsert_cells``, and the telnet lines and the ``/api/put`` bodies
+   ``tsd_parse`` (the decoder) and ``upsert_cells`` too.
 5. Restart phase, on the path phase's daemon and corpus at full width:
-   ``TSDB.checkpoint()`` spills the ingested store to its first sstable
+   first a copy of the WAL (every put so far, nothing spilled yet) is
+   replayed into a bare store, timed (the recovery a crash would pay; it
+   must call ``slice_varlen`` and ``upsert_cells`` and hold the
+   memtable's row keys), then ``TSDB.checkpoint()`` spills the ingested store to its first sstable
    generation (rows, generation bytes and seconds printed); a few hundred
    telnet ``put`` lines add 20 series (one point per series and hour, so
    their sums are exact in any order); the ten resident queries must still
    answer ``"rollup": "resident"`` (their answers are the reference below);
-   a second checkpoint makes two generations. The daemon shuts down (which
-   checkpoints once more), and a new TSDB and daemon open the same WAL:
-   opening the generations, replaying ``<wal>.old`` and the WAL, and the
+   a second checkpoint makes two generations. Each checkpoint must frame
+   its records in C (``frame_rows_dict``), the telnet puts between them
+   must call ``rows_update_new`` (their rows lie inside the generation's
+   key range: the bulk branch that probes the tiers). The daemon shuts
+   down (which checkpoints once more), and a new TSDB and daemon open the
+   same WAL: opening the generations (their footer keys sliced in C,
+   ``slice_varlen``), replaying ``<wal>.old`` and the WAL, and the
    window's warm-up from the tiers are timed apart. With the launch counts
    set to 0, the ten queries run once cold and WARM_REPS times warm: each
    must be resident, the path must launch segment_sum, segment_minmax and
@@ -162,7 +176,9 @@
    batch must evict the oldest chunk, advance ``complete_from`` and turn a
    query reaching before it away.
 8. Prints the card line first; at the end the per-query, sketch,
-   ingest, profiler, tenants, restart, budget and launch-floor lines, the
+   ingest, profiler, tenants, restart, native (build seconds and calls
+   per C site, per stage, and the WAL replay), budget and launch-floor
+   lines, the
    kernels
    line (eight
    kernels) and, last, the ok line.
@@ -186,11 +202,13 @@ result. The full details go to standard error as one JSON line.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import gc
 import http.client
 import itertools
 import json
 import os
+import shutil
 import socket
 import statistics
 import subprocess
@@ -220,6 +238,7 @@ from opentsdb_tpu_torch.storage.devstore import DeviceWindow
 from opentsdb_tpu_torch.storage.kv import MemKVStore
 from opentsdb_tpu_torch.tenant.accounting import hll_rel_error
 from opentsdb_tpu_torch.tools.cli import open_tsdb
+from opentsdb_tpu_torch.utils import nativeext
 from opentsdb_tpu_torch.utils.config import Config
 from opentsdb_tpu_torch.utils.gctune import tune_for_ingest
 
@@ -293,12 +312,31 @@ OLD_TENANT_MARKER = {"version": 0, "written_by": "opentsdb_tpu_torch",
                              "rebuild it from storage"}
 
 
+# Calls per native C site in each stage of the daemon's path (native_calls).
+NATIVE_STAGES: dict = {}
+
+
 def fail(msg: str):
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+@contextlib.contextmanager
+def native_calls(stage: str, need: tuple[str, ...]):
+    """Set the native sites' call counts to 0, run the stage, keep its
+    counts under ``stage`` and fail if a site in ``need`` was not called:
+    the daemon's path must run through the C where the JAX package's
+    does."""
+    nativeext.reset_calls()
+    yield
+    got = NATIVE_STAGES[stage] = dict(nativeext.calls)
+    missing = [site for site in need if got[site] == 0]
+    if missing:
+        fail(f"{stage}: the native site(s) {missing} were never called "
+             f"({got})")
 
 
 def median_ms(fn, reps: int = 20, flush: torch.Tensor | None = None) -> float:
@@ -897,10 +935,12 @@ def ingest(tsdb: TSDB, port: int, ts: np.ndarray, vals: np.ndarray) -> dict:
     every write and the live sketches buffer every value (folding on
     their own thread at each hand-off). After the rate's clock stops, the
     sketches' remaining buffer is folded and timed apart."""
-    t0 = time.perf_counter()
-    for s in range(SERIES):
-        tsdb.add_batch("bench.metric", ts[s], vals[s], series_tags(s))
-    t_batch = time.perf_counter() - t0
+    with native_calls("corpus_ingest",
+                      ("slice_cells", "slice_keys", "upsert_cells")):
+        t0 = time.perf_counter()
+        for s in range(SERIES):
+            tsdb.add_batch("bench.metric", ts[s], vals[s], series_tags(s))
+        t_batch = time.perf_counter() - t0
     rng = np.random.default_rng(2)
     lines = []
     telnet_vals = []
@@ -911,9 +951,11 @@ def ingest(tsdb: TSDB, port: int, ts: np.ndarray, vals: np.ndarray) -> dict:
                          f"dc=dc{s % 10}")
             telnet_vals.append((f"t{s:02d}", f"dc{s % 10}",
                                 float(f"{v:.4f}")))
-    t1 = time.perf_counter()
-    said = telnet(port, lines)
-    t_telnet = time.perf_counter() - t1
+    with native_calls("telnet_ingest", ("tsd_parse", "slice_cells",
+                                        "slice_keys", "upsert_cells")):
+        t1 = time.perf_counter()
+        said = telnet(port, lines)
+        t_telnet = time.perf_counter() - t1
     if "put:" in said or "opentsdb_tpu_torch" not in said:
         fail(f"telnet ingest answered: {said[:500]!r}")
     points = SERIES * POINTS + len(lines)
@@ -923,6 +965,8 @@ def ingest(tsdb: TSDB, port: int, ts: np.ndarray, vals: np.ndarray) -> dict:
     out = {"points": points, "batch_s": t_batch, "telnet_s": t_telnet,
            "telnet_lines": len(lines),
            "points_per_s": points / (t_batch + t_telnet),
+           "add_batch_points_per_s": SERIES * POINTS / t_batch,
+           "telnet_points_per_s": len(lines) / t_telnet,
            "without_sketches_points_per_s":
                INGEST_WITHOUT_SKETCHES_POINTS_PER_S,
            "window_appended": tsdb.devwindow.appended_points,
@@ -1484,23 +1528,25 @@ def http_put_phase(port: int, start: int, end: int) -> dict:
     bodies = http_bodies("smoke.http", ts, vals)
     if max(len(b) for b in bodies) > 1 << 20:
         fail("an /api/put body is over the daemon's 1 MiB bound")
-    t0 = time.perf_counter()
-    for body in bodies:
-        status, resp = http_post(port, f"/api/put?tenant={HTTP_TENANT}",
-                                 body)
-        got = json.loads(resp) if status == 200 else None
-        if got is None or got["errors"] or got["points"] * len(bodies) \
-                != HTTP_SERIES * HTTP_POINTS:
-            fail(f"/api/put answered {status}: {resp[:300]!r}")
-    http_s = time.perf_counter() - t0
+    with native_calls("api_put", ("tsd_parse", "upsert_cells")):
+        t0 = time.perf_counter()
+        for body in bodies:
+            status, resp = http_post(
+                port, f"/api/put?tenant={HTTP_TENANT}", body)
+            got = json.loads(resp) if status == 200 else None
+            if got is None or got["errors"] or got["points"] \
+                    * len(bodies) != HTTP_SERIES * HTTP_POINTS:
+                fail(f"/api/put answered {status}: {resp[:300]!r}")
+        http_s = time.perf_counter() - t0
     points = HTTP_SERIES * HTTP_POINTS
     lines = [f"tenant {TELNET_TENANT}"] + [
         f"put smoke.telnet {t} {v} host=s{s:03d}"
         for s in range(HTTP_SERIES)
         for t, v in zip(ts[s].tolist(), vals[s].tolist())]
-    t0 = time.perf_counter()
-    said = telnet(port, lines)
-    telnet_s = time.perf_counter() - t0
+    with native_calls("api_put_telnet", ("tsd_parse", "upsert_cells")):
+        t0 = time.perf_counter()
+        said = telnet(port, lines)
+        telnet_s = time.perf_counter() - t0
     if "put:" in said or not said.startswith(f"tenant {TELNET_TENANT}\n"):
         fail(f"telnet answered: {said[:500]!r}")
     out = {"http_points": points, "http_bodies": len(bodies),
@@ -1651,6 +1697,39 @@ def same_answer(expr: str, got: list, want: list, exact: bool) -> float:
     return worst
 
 
+def wal_replay(tsdb: TSDB) -> dict:
+    """The recovery a crash before checkpoint 1 would pay: a copy of the
+    ingested store's WAL (every put since open, none spilled yet) replayed
+    into a bare MemKVStore, timed. The daemon's own boot replays an empty
+    WAL, since its shutdown checkpoints. The replayed tables must hold the
+    live memtable's row keys."""
+    store = tsdb.store
+    with tempfile.TemporaryDirectory() as d:
+        copy = os.path.join(d, "wal")
+        with store._lock:
+            store._wal.flush()
+            shutil.copyfile(store._wal_path, copy)
+            want = {name: set(t.rows) for name, t in store._tables.items()}
+        nbytes = os.path.getsize(copy)
+        with native_calls("wal_replay", ("slice_varlen", "upsert_cells")):
+            t0 = time.perf_counter()
+            again = MemKVStore(wal_path=copy)
+            secs = time.perf_counter() - t0
+        try:
+            got = {name: set(t.rows) for name, t in again._tables.items()
+                   if t.rows}
+            if got != {name: k for name, k in want.items() if k}:
+                fail("the replayed WAL holds other rows than the memtable")
+            rows = sum(len(k) for k in got.values())
+        finally:
+            again.close()
+    out = {"wal_bytes": nbytes, "rows": rows, "seconds": secs,
+           "rows_per_s": rows / secs}
+    log(f"WAL replay of the ingested store: {nbytes} bytes, {rows} rows "
+        f"in {secs:.2f} s")
+    return out
+
+
 def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
     """Checkpoint the ingested store, add a few hundred telnet puts and
     checkpoint again (two generations), shut the daemon down (which
@@ -1665,7 +1744,9 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
     # in the restarted process (rows in the generations): the collector's
     # cost in each state, beside the warm queries' outliers.
     out["gc_full_ms"] = {"memtable": gc_full_ms()}
-    out["checkpoint_1"] = timed_checkpoint(tsdb, "checkpoint 1")
+    out["wal_replay"] = wal_replay(tsdb)
+    with native_calls("checkpoint_1", ("frame_rows_dict",)):
+        out["checkpoint_1"] = timed_checkpoint(tsdb, "checkpoint 1")
     out["checkpoint_1"]["sketch_save_s"] = tsdb.sketch_save_seconds
     out["checkpoint_1"]["tenant_save_s"] = tsdb.tenant_save_seconds
     out["checkpoint_1"]["tenant_snapshot_bytes"] = tsdb.tenant_snapshot_bytes
@@ -1679,7 +1760,9 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
         for t, v in zip(tt, rng.normal(100, 1, EXTRA_POINTS)):
             lines.append(f"put bench.metric {t} {v:.4f} host=u{s:02d} "
                          f"dc=dc{s % 10}")
-    said = telnet(daemon.port, lines)
+    with native_calls("between_checkpoints",
+                      ("tsd_parse", "rows_update_new")):
+        said = telnet(daemon.port, lines)
     if "put:" in said:
         fail(f"telnet puts between the checkpoints answered: "
              f"{said[:500]!r}")
@@ -1690,7 +1773,8 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
               for expr in QUERIES + PCT_QUERIES}
     sketch_before = sketch_answers(daemon.port, start, end)
     tenants_before = http_json(daemon.port, "/api/tenants")
-    out["checkpoint_2"] = timed_checkpoint(tsdb, "checkpoint 2")
+    with native_calls("checkpoint_2", ("frame_rows_dict",)):
+        out["checkpoint_2"] = timed_checkpoint(tsdb, "checkpoint 2")
     if out["checkpoint_2"]["generations"] != 2:
         fail(f"{out['checkpoint_2']['generations']} generations after two "
              f"checkpoints")
@@ -1698,10 +1782,11 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
     t0 = time.perf_counter()
     daemon.stop()
     out["shutdown_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    tsdb2 = open_daemon_tsdb(wal)
-    store = tsdb2.store
-    out["boot_s"] = time.perf_counter() - t0
+    with native_calls("boot", ("slice_varlen",)):
+        t0 = time.perf_counter()
+        tsdb2 = open_daemon_tsdb(wal)
+        store = tsdb2.store
+        out["boot_s"] = time.perf_counter() - t0
     out["open_generations_s"] = store.open_seconds["generations"]
     out["replay_s"] = store.open_seconds["replay"]
     out["warm_s"] = tsdb2.warm_seconds
@@ -2556,6 +2641,13 @@ def sketch_path(tsdb: TSDB, port: int, vals: np.ndarray, telnet: list,
     return out
 
 
+def _catch(fn, errs: list) -> None:
+    try:
+        fn()
+    except BaseException as e:  # re-raised by the caller
+        errs.append(e)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -2569,9 +2661,19 @@ def main() -> int:
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
+    # The native ingest extension and telnet decoder (gcc / g++) build
+    # beside the kernels (nvcc).
+    native_err: list = []
+    native = threading.Thread(target=lambda: _catch(nativeext.build_all,
+                                                    native_err))
+    native.start()
     cuda_build.build_all()
+    native.join()
+    if native_err:
+        raise native_err[0]
     build_s = time.perf_counter() - t0
-    log(f"built {cuda_build.sources()} in {build_s:.1f} s")
+    log(f"built {cuda_build.sources()} and the native libraries in "
+        f"{build_s:.1f} s (native: {nativeext.build_seconds})")
 
     ts, vals = corpus()
     kernels = (kernel_phase(ts, vals) + select_interp_phase(ts, vals)
@@ -2679,7 +2781,8 @@ def main() -> int:
     print(json.dumps({"restart": {
         "checkpoints": [r["checkpoint_1"], r["checkpoint_2"]],
         **{k: r[k] for k in ("shutdown_s", "boot_s", "open_generations_s",
-                             "replay_s", "warm_s", "generations",
+                             "replay_s", "wal_replay", "warm_s",
+                             "generations",
                              "generation_bytes", "generation_scan_ms",
                              "generation_scan_warm_ms", "gc_full_ms",
                              "bloom", "qcache", "repeats")},
@@ -2691,6 +2794,12 @@ def main() -> int:
                      "union": r["launches_union"],
                      "sketch": r["launches_sketch"],
                      "repeats": r["launches_repeats"]}}, "card": smi}))
+    totals = {site: sum(c[site] for c in NATIVE_STAGES.values())
+              for site in nativeext.SITES}
+    print(json.dumps({"native": {
+        "build_s": nativeext.build_seconds, "calls": totals,
+        "stages": NATIVE_STAGES, "wal_replay": r["wal_replay"]},
+        "card": smi}))
     print(json.dumps({"window_at_budget": {
         k: budget[k] for k in ("points", "chunks", "resident_bytes",
                                "fill_points_per_s", "queries",

@@ -1,7 +1,10 @@
 """Vectorized batch codecs: byte cells <-> columnar numpy arrays.
 
 Mirrors ``opentsdb_tpu/core/codec_np.py`` of the JAX package, copied rather
-than imported: the port imports nothing of that package.
+than imported: the port imports nothing of that package. As there, the
+native ingest extension (``utils/nativeext.py``) slices the encode
+buffers into per-row cells; a test sets ``_EXT`` to None to take the
+Python reference.
 
 The scalar codec (codec.py) is the semantics oracle; this module is the hot
 path. Batch ingest encodes thousands of points per call (one compacted cell
@@ -20,6 +23,7 @@ import numpy as np
 
 from opentsdb_tpu_torch.core.const import FLAG_BITS, FLAG_FLOAT, LENGTH_MASK
 from opentsdb_tpu_torch.core.errors import IllegalDataError
+from opentsdb_tpu_torch.utils.nativeext import EXT as _EXT
 
 _INT_WIDTH_BOUNDS = (
     (1, -0x80, 0x7F),
@@ -102,6 +106,13 @@ def encode_cells_multi(deltas: np.ndarray, float_values: np.ndarray,
     else:
         val_starts = offsets[row_starts]
         val_ends = np.append(val_starts[1:], total)
+    if _EXT is not None:
+        return _EXT.slice_cells(
+            quals, vbytes,
+            np.ascontiguousarray(row_starts).tobytes(),
+            np.ascontiguousarray(row_ends).tobytes(),
+            np.ascontiguousarray(val_starts, np.int64).tobytes(),
+            np.ascontiguousarray(val_ends, np.int64).tobytes())
     # tolist() yields native ints once (indexing numpy scalars per row
     # plus int() casts cost ~2.7 us/row across millions of row-hours);
     # list comprehensions beat an append loop by ~30% on top. Two

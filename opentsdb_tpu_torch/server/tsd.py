@@ -257,10 +257,12 @@ class TSDServer:
         finally:
             if npts:
                 self.admission.ingest_done(npts)
-        for line, err in zip(batch.error_lines, batch.errors):
-            writer.write(
-                f"put: illegal argument at line {line + 1}: {err}\n"
-                .encode())
+        elines = list(batch.error_lines)
+        for k, err in enumerate(batch.errors):
+            # 1-based stream line numbers where the decoder gave them
+            # (the native one does not); the same line prefix either way.
+            at = f" at line {elines[k] + 1}" if k < len(elines) else ""
+            writer.write(f"put: illegal argument{at}: {err}\n".encode())
         for err in series_errors:
             if "No such name" in err:
                 kind = "unknown metric"

@@ -1,19 +1,24 @@
 """Wire decoding of telnet ``put`` lines and ``/api/put`` JSON bodies into
 columnar batches.
 
-Mirrors ``opentsdb_tpu/server/wire.py`` of the JAX package, numpy path
-only: ``decode_puts`` turns a buffer of ``put`` lines, and
-``decode_json_puts`` a JSON datapoint object or array, into columnar
-arrays plus a canonical series table (the form ``TSDB.add_batch``
-consumes), and ``ingest_batch`` feeds such a batch in, series by series,
-charged to one tenant. The native C++ decoder of the JAX package stays
-out (ROADMAP queue A item 13); this is its vectorized, semantically
-identical fallback. Left out with their items: the ``[fenced]`` error tag
-(item 10) and the WAL group-commit barrier (item 3).
+Mirrors ``opentsdb_tpu/server/wire.py`` of the JAX package:
+``decode_puts`` turns a buffer of ``put`` lines, and ``decode_json_puts``
+a JSON datapoint object or array, into columnar arrays plus a canonical
+series table (the form ``TSDB.add_batch`` consumes), and ``ingest_batch``
+feeds such a batch in, series by series, charged to one tenant.
+``decode_puts`` runs the native C++ decoder (the port's copy,
+``native/wire_decoder.cpp``, built at first use by ``utils/nativeext.py``
+and loaded with ctypes) unless the caller passes ``use_native=False`` or
+a test sets ``_NATIVE`` to None; the vectorized numpy decoder is the
+reference. Both accept the same lines, but the native decoder words its
+errors its own way and reports no line numbers (``error_lines`` empty).
+Left out with their items: the ``[fenced]`` error tag (item 10) and the
+WAL group-commit barrier (item 3).
 """
 
 from __future__ import annotations
 
+import ctypes
 import re
 from typing import NamedTuple
 
@@ -21,6 +26,7 @@ import numpy as np
 
 from opentsdb_tpu_torch.core import tags as tags_mod
 from opentsdb_tpu_torch.core.errors import TenantLimitError
+from opentsdb_tpu_torch.utils.nativeext import WIRE as _NATIVE
 
 
 class DecodedBatch(NamedTuple):
@@ -40,14 +46,64 @@ class DecodedBatch(NamedTuple):
 
 
 
-def decode_puts(buf: bytes, line_base: int = 0) -> DecodedBatch:
+def native_available() -> bool:
+    return _NATIVE is not None
+
+
+def _parse_series_name(name: str) -> tuple[str, dict[str, str]]:
+    parts = name.split(" ")
+    tag_map: dict[str, str] = {}
+    for t in parts[1:]:
+        k, _, v = t.partition("=")
+        tag_map[k] = v
+    return parts[0], tag_map
+
+
+def decode_puts(buf: bytes, use_native: bool | None = None,
+                line_base: int = 0) -> DecodedBatch:
     """Decode a buffer of ``put`` lines into a columnar batch.
 
-    ``line_base`` offsets the per-error line numbers so chunked callers
-    (the telnet bulk path feeds one TCP read at a time) report exact
-    stream line indices rather than batch-relative offsets.
+    ``use_native`` None or True takes the native decoder when the module
+    holds one. ``line_base`` offsets the per-error line numbers of the
+    numpy decoder so chunked callers (the telnet bulk path feeds one TCP
+    read at a time) report exact stream line indices rather than
+    batch-relative offsets.
     """
+    if use_native is None:
+        use_native = _NATIVE is not None
+    if use_native and _NATIVE is not None:
+        return _decode_native(buf)
     return _decode_python(buf, line_base)
+
+
+def _decode_native(buf: bytes) -> DecodedBatch:
+    arena = _NATIVE.tsd_parse(buf, len(buf))
+    try:
+        n = _NATIVE.tsd_npoints(arena)
+        ts = np.empty(n, np.int64)
+        fv = np.empty(n, np.float64)
+        iv = np.empty(n, np.int64)
+        isf = np.empty(n, np.uint8)
+        sid = np.empty(n, np.int32)
+        if n:
+            _NATIVE.tsd_copy_points(
+                arena,
+                ts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                fv.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+                iv.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                isf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+                sid.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+        series = [
+            _parse_series_name(
+                _NATIVE.tsd_series_name(arena, i).decode())
+            for i in range(_NATIVE.tsd_nseries(arena))]
+        errors = [_NATIVE.tsd_error(arena, i).decode()
+                  for i in range(_NATIVE.tsd_nerrors(arena))]
+        consumed = _NATIVE.tsd_consumed(arena)
+    finally:
+        _NATIVE.tsd_free(arena)
+    return DecodedBatch(ts, fv, iv, isf.astype(bool), sid, series,
+                        errors, consumed)
 
 
 def _parse_scalar_line(raw: bytes, series: list, series_ids: dict):

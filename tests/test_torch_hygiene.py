@@ -101,3 +101,36 @@ def test_live_sketches_default_to_the_card(monkeypatch, tmp_path):
     for init in (sketches.tdigest_init, sketches.hll_init):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             init()
+
+
+def test_native_sources_live_in_the_port():
+    """The port builds its own copies of the native sources: every C/C++
+    source of the package sits in opentsdb_tpu_torch/native/, the loader
+    builds from there into the package's _build/, and no module names the
+    repo-root native/ directory, the JAX package's library names or
+    opentsdb_tpu.utils.nativeext (the import walk above would also catch
+    an import of it)."""
+    import re
+    from opentsdb_tpu_torch.utils import nativeext
+    pkg = os.path.join(ROOT, "opentsdb_tpu_torch")
+    assert nativeext.NATIVE_DIR == os.path.join(pkg, "native")
+    assert nativeext.BUILD_DIR == os.path.join(pkg, "_build")
+    sources, modules = [], []
+    for d, dirs, files in os.walk(pkg):
+        dirs[:] = [x for x in dirs if x not in ("_build", "__pycache__")]
+        for fn in files:
+            path = os.path.join(d, fn)
+            if fn.endswith((".c", ".cc", ".cpp", ".h", ".hpp")):
+                sources.append(os.path.relpath(path, pkg))
+            elif fn.endswith(".py"):
+                modules.append(path)
+    assert sorted(sources) == ["native/ingest_ext.c",
+                               "native/wire_decoder.cpp"]
+    named = re.compile(r"""["']native["']""")
+    for path in modules:
+        text = open(path).read()
+        assert "opentsdb_tpu.utils.nativeext" not in text, path
+        assert "libtsdwire.so" not in text, path
+        assert re.search(r"""tsd_ingest_ext["']""", text) is None, path
+        if path != os.path.join(pkg, "utils", "nativeext.py"):
+            assert named.search(text) is None, path

@@ -315,3 +315,57 @@ def test_sketch_and_distinct_match_jax_daemon():
     assert statuses.count(200) == 9
     assert json.loads(got[5][2])["distinct"] == 3
     assert json.loads(got[3][2])["rollup"] == "raw"
+
+
+def _telnet_script_answers(server_cls, tsdb, lines):
+    server = server_cls(tsdb)
+
+    async def main():
+        await server.start()
+        try:
+            return await _telnet(server.port, lines)
+        finally:
+            await server.stop()
+    return asyncio.run(main())
+
+
+def test_telnet_error_replies_under_native_decoders(tmp_path, monkeypatch):
+    """A pipelined burst of put lines, malformed ones among them, to the
+    JAX daemon with its native decoder built and patched in, and to the
+    port's daemon (native by default): the replies are byte-identical, one
+    ``put: illegal argument: ...`` line per bad line and none with a line
+    number (the native decoder gives none), and both stores hold the same
+    rows and UIDs (tags arrive unsorted: the native decoder sorts them)."""
+    from opentsdb_tpu.server import wire as jax_wire
+    from opentsdb_tpu.server.tsd import TSDServer as JaxServer
+    from opentsdb_tpu_torch.server import wire as port_wire
+    from test_torch_native import build_jax_native
+    _, lib = build_jax_native(str(tmp_path))
+    monkeypatch.setattr(jax_wire, "_NATIVE", lib)
+    assert port_wire._NATIVE is not None
+    good = [f"put sys.load {t} {v} host={h} dc=x" if i % 2 else
+            f"put sys.load {t} {v} dc=x host={h}"
+            for i, (t, v, h) in enumerate(_points()[:60])]
+    bad = ["put sys.load", "put sys.load! 1 1 a=b", f"put sys.load {BT} x a=b",
+           f"put sys.load {BT} 1 a", f"put sys.load {BT} 1 a=b a=c",
+           f"put sys.load 0 1 a=b", f"put sys.load {BT} nan a=b"]
+    lines = good[:20] + bad[:4] + good[20:40] + bad[4:] + good[40:]
+    cfg = dict(auto_create_metrics=True, port=0, bind="127.0.0.1")
+    jt = JaxTSDB(JaxStore(), JaxConfig(device_window=False, **cfg),
+                 start_compaction_thread=False)
+    pt = TSDB(MemKVStore(), Config(device="cpu", **cfg),
+              start_compaction_thread=False)
+    want = _telnet_script_answers(JaxServer, jt, lines)
+    got = _telnet_script_answers(TSDServer, pt, lines)
+    # Everything before the reply to ``version``, which names the package.
+    got, want = (a[:a.index("opentsdb_tpu")] for a in (got, want))
+    assert got == want
+    errs = got.splitlines()
+    assert len(errs) == len(bad)
+    assert all(ln.startswith("put: illegal argument: ") for ln in errs)
+    assert "at line" not in got
+    for table in ("tsdb", "tsdb-uid"):
+        assert list(pt.store.scan_raw(table, b"", b"")) == \
+            list(jt.store.scan_raw(table, b"", b"")), table
+    jt.shutdown()
+    pt.shutdown()
