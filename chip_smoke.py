@@ -163,6 +163,28 @@
    (The card's machine has no JAX, so the crossings with the JAX package's
    store directories run only in the CPU tests,
    ``tests/test_torch_checkpoint.py``.)
+5b. Sharded phase: the daemon over a SHARDS-shard store
+   (``storage/sharded.py``, ``tsdb tsd --shards 4 --wal-group-ms 2``)
+   ingests the same corpus (as wire batches of BARRIER_SERIES series:
+   ``sync=False`` per series, one covering ``wal_barrier()`` per batch),
+   the telnet lines and the ``/api/put`` phase (its native stages under
+   ``sharded_``); the ten resident and the four un-downsampled answers
+   must equal the one-shard daemon's from the path phase (REFERENCE:
+   tags and timestamps identical, max and percentiles exactly, sums at
+   the resident tolerance; how many are the same JSON is counted), and
+   each path must launch its kernels. Checkpoint 1 spills everything
+   (total and per-shard seconds); checkpoint 2 runs while a writer thread
+   adds WRITER_SERIES series (the longest ``add_batch`` during it is the
+   pause a writer saw). The daemon shuts down and a new one opens the
+   directory by its ``SHARDS.json`` (boot seconds, the tenant snapshot
+   loaded, not rebuilt); the resident answers and ``sum:rate`` of
+   ``{host=h00001}`` again, the cold ``{host=*}`` week
+   scan, ``{host=h00001}``'s ``bloom_shards_skipped`` (a positive
+   multiple of SHARDS - 1: its one series routes to one shard) and
+   ``tools/fsck.run_fsck`` clean, as on the one-shard store at the end of
+   the restart phase. Then the writer-pause A/B: PAUSE_SERIES corpus
+   series into a 1-shard and a SHARDS-shard store (group commit off),
+   each checkpointed while a writer ingests.
 6. Refusal phase: a small second daemon on the card with
    ``tenant_max_series=1`` must refuse a new series over telnet (the bulk
    path's and the per-line path's declared lines) and over ``/api/put``
@@ -177,8 +199,8 @@
    query reaching before it away.
 8. Prints the card line first; at the end the per-query, sketch,
    ingest, profiler, tenants, restart, native (build seconds and calls
-   per C site, per stage, and the WAL replay), budget and launch-floor
-   lines, the
+   per C site, per stage, and the WAL replay), sharded, budget and
+   launch-floor lines, the
    kernels
    line (eight
    kernels) and, last, the ok line.
@@ -238,6 +260,7 @@ from opentsdb_tpu_torch.storage.devstore import DeviceWindow
 from opentsdb_tpu_torch.storage.kv import MemKVStore
 from opentsdb_tpu_torch.tenant.accounting import hll_rel_error
 from opentsdb_tpu_torch.tools.cli import open_tsdb
+from opentsdb_tpu_torch.tools.fsck import run_fsck
 from opentsdb_tpu_torch.utils import nativeext
 from opentsdb_tpu_torch.utils.config import Config
 from opentsdb_tpu_torch.utils.gctune import tune_for_ingest
@@ -314,6 +337,16 @@ OLD_TENANT_MARKER = {"version": 0, "written_by": "opentsdb_tpu_torch",
 
 # Calls per native C site in each stage of the daemon's path (native_calls).
 NATIVE_STAGES: dict = {}
+# The sharded phase: the store's shard count and WAL group-commit window
+# (ms), the series per covering barrier of its corpus ingest (a wire
+# batch's shape), and the writer that ingests while checkpoints run.
+SHARDS, WAL_GROUP_MS, BARRIER_SERIES = 4, 2.0, 100
+WRITER_SERIES, WRITER_POINTS = 1_000, 1_000
+# Corpus series per store of the writer-pause A/B (1 vs SHARDS shards).
+PAUSE_SERIES = 2_000
+# The one-shard daemon's answers (path phase, before any checkpoint): the
+# sharded phase's reference.
+REFERENCE: dict = {}
 
 
 def fail(msg: str):
@@ -930,16 +963,25 @@ def path_launches(path: str, kernels: tuple) -> dict:
     return out
 
 
-def ingest(tsdb: TSDB, port: int, ts: np.ndarray, vals: np.ndarray) -> dict:
+def ingest(tsdb: TSDB, port: int, ts: np.ndarray, vals: np.ndarray,
+           stage: str = "", barrier_series: int = 0) -> dict:
     """The corpus through add_batch, then telnet puts; the window mirrors
     every write and the live sketches buffer every value (folding on
     their own thread at each hand-off). After the rate's clock stops, the
-    sketches' remaining buffer is folded and timed apart."""
-    with native_calls("corpus_ingest",
+    sketches' remaining buffer is folded and timed apart. ``stage``
+    prefixes the native stages' names; ``barrier_series`` > 0 writes the
+    corpus as wire batches of that many series do under group commit
+    (``sync=False`` per series, one covering ``wal_barrier()`` per
+    batch)."""
+    with native_calls(stage + "corpus_ingest",
                       ("slice_cells", "slice_keys", "upsert_cells")):
         t0 = time.perf_counter()
         for s in range(SERIES):
-            tsdb.add_batch("bench.metric", ts[s], vals[s], series_tags(s))
+            tsdb.add_batch("bench.metric", ts[s], vals[s], series_tags(s),
+                           sync=not barrier_series)
+            if barrier_series and (s + 1) % barrier_series == 0:
+                tsdb.store.wal_barrier()
+        tsdb.store.wal_barrier()
         t_batch = time.perf_counter() - t0
     rng = np.random.default_rng(2)
     lines = []
@@ -951,8 +993,9 @@ def ingest(tsdb: TSDB, port: int, ts: np.ndarray, vals: np.ndarray) -> dict:
                          f"dc=dc{s % 10}")
             telnet_vals.append((f"t{s:02d}", f"dc{s % 10}",
                                 float(f"{v:.4f}")))
-    with native_calls("telnet_ingest", ("tsd_parse", "slice_cells",
-                                        "slice_keys", "upsert_cells")):
+    with native_calls(stage + "telnet_ingest",
+                      ("tsd_parse", "slice_cells", "slice_keys",
+                       "upsert_cells")):
         t1 = time.perf_counter()
         said = telnet(port, lines)
         t_telnet = time.perf_counter() - t1
@@ -1283,12 +1326,15 @@ def profile_share(ex: QueryExecutor, spec: QuerySpec, start: int,
             "top_device_ms": top}
 
 
-def open_daemon_tsdb(wal: str) -> TSDB:
+def open_daemon_tsdb(wal: str, shards: int = 0,
+                     wal_group_ms: float = 0.0) -> TSDB:
     """The TSDB as ``tsdb tsd`` opens it (tools/cli.py cmd_tsd): the
-    default Config (the window, the sketches and tenant accounting on),
-    then the heap frozen out of cycle collection."""
+    default Config (the window, the sketches and tenant accounting on;
+    ``--shards`` and ``--wal-group-ms`` as given), then the heap frozen
+    out of cycle collection."""
     tsdb = open_tsdb(Config(auto_create_metrics=True, port=0,
-                            bind="127.0.0.1", device=DEVICE), wal)
+                            bind="127.0.0.1", device=DEVICE,
+                            wal_group_ms=wal_group_ms), wal, shards=shards)
     tune_for_ingest()
     if tsdb.devwindow is None or tsdb.tenants is None:
         fail("the daemon's TSDB came up without the resident window or "
@@ -1387,6 +1433,7 @@ def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
                 daemon.port, expr, start, start + span - 1)
         out["launches"]["union"] = path_launches(
             "union path", ("masked_select", "interp_moments"))
+        REFERENCE.update(resident=dict(answers), union=dict(union_answers))
         # Before any checkpoint every chunk of the week holds memtable
         # rows: the fragment cache is bypassed, nothing is cached, and the
         # answers are the whole-range scan's.
@@ -1518,7 +1565,8 @@ def http_bodies(metric: str, ts: np.ndarray, vals: np.ndarray) -> list:
     return bodies
 
 
-def http_put_phase(port: int, start: int, end: int) -> dict:
+def http_put_phase(port: int, start: int, end: int,
+                   stage: str = "") -> dict:
     """New series through /api/put under ?tenant=smoke (JSON and put-line
     bodies, timed: the HTTP ingest rate), the same points through telnet
     on another tenant under another metric, /q of each held against the
@@ -1528,7 +1576,7 @@ def http_put_phase(port: int, start: int, end: int) -> dict:
     bodies = http_bodies("smoke.http", ts, vals)
     if max(len(b) for b in bodies) > 1 << 20:
         fail("an /api/put body is over the daemon's 1 MiB bound")
-    with native_calls("api_put", ("tsd_parse", "upsert_cells")):
+    with native_calls(stage + "api_put", ("tsd_parse", "upsert_cells")):
         t0 = time.perf_counter()
         for body in bodies:
             status, resp = http_post(
@@ -1543,7 +1591,8 @@ def http_put_phase(port: int, start: int, end: int) -> dict:
         f"put smoke.telnet {t} {v} host=s{s:03d}"
         for s in range(HTTP_SERIES)
         for t, v in zip(ts[s].tolist(), vals[s].tolist())]
-    with native_calls("api_put_telnet", ("tsd_parse", "upsert_cells")):
+    with native_calls(stage + "api_put_telnet",
+                      ("tsd_parse", "upsert_cells")):
         t0 = time.perf_counter()
         said = telnet(port, lines)
         telnet_s = time.perf_counter() - t0
@@ -1946,6 +1995,7 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
         out["qcache"] = qcache_counters(ex2, store)
         log(f"fragment cache after the restart: {out['qcache']}; bloom "
             f"{out['bloom']}; repeats {out['repeats']}")
+        out["fsck"] = fsck_clean(tsdb2, "the one-shard store")
     finally:
         daemon2.stop()
     out["marker_rebuild"] = marker_rebuild(wal, tenants_before)
@@ -1985,6 +2035,219 @@ def marker_rebuild(wal: str, want: dict) -> dict:
     finally:
         tsdb.shutdown()
     log(f"tenant rebuild over the old version-0 marker: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The sharded store
+# ---------------------------------------------------------------------------
+
+def fsck_clean(tsdb: TSDB, what: str) -> dict:
+    """``tools/fsck.run_fsck`` over the store (timed); any error fails."""
+    t0 = time.perf_counter()
+    rep = run_fsck(tsdb)
+    out = {"rows": rep.rows, "kvs": rep.kvs, "errors": rep.errors,
+           "bloomed": rep.bloomed, "seconds": time.perf_counter() - t0}
+    if rep.errors or not rep.rows:
+        fail(f"fsck of {what}: {out}")
+    log(f"fsck of {what}: clean, {rep.rows} rows in {out['seconds']:.1f} s")
+    return out
+
+
+def writer_during(tsdb: TSDB, action, series: int, points: int,
+                  seed: int) -> dict:
+    """A writer thread ingests ``series`` new series (``bench.writer``,
+    one add_batch each); once a quarter of them are in, ``action`` (a
+    checkpoint) runs on this thread. Returns the action's result and
+    seconds, and the writer's add_batch calls that overlapped it: the
+    longest is the pause a writer saw."""
+    rng = np.random.default_rng(seed)
+    vals = rng.normal(50, 5, (series, points))
+    base = BASE + np.arange(points, dtype=np.int64) * (SPAN // points)
+    calls: list[tuple[float, float]] = []
+    quarter = threading.Event()
+    errs: list = []
+
+    def write():
+        for s in range(series):
+            c0 = time.perf_counter()
+            tsdb.add_batch("bench.writer", base + s % 600, vals[s],
+                           {"host": f"w{s:04d}"})
+            calls.append((c0, time.perf_counter()))
+            if s + 1 == series // 4:
+                quarter.set()
+
+    th = threading.Thread(target=lambda: _catch(write, errs))
+    th.start()
+    quarter.wait(600)
+    a0 = time.perf_counter()
+    result = action()
+    a1 = time.perf_counter()
+    th.join(600)
+    if errs:
+        raise errs[0]
+    during = [b - a for a, b in calls if b > a0 and a < a1]
+    outside = [b - a for a, b in calls if b <= a0 or a >= a1]
+    return {"result": result, "seconds": a1 - a0,
+            "writer_calls_during": len(during),
+            "longest_add_batch_ms": max(during, default=0.0) * 1e3,
+            "median_add_batch_ms_outside": statistics.median(outside) * 1e3
+            if outside else None}
+
+
+def writer_pause_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
+    """The pause a writer sees during a checkpoint, 1 shard against
+    SHARDS (group commit off, the default Config otherwise): each store
+    takes the first PAUSE_SERIES corpus series, then checkpoints while a
+    writer ingests WRITER_SERIES more."""
+    out = {}
+    for shards in (1, SHARDS):
+        with tempfile.TemporaryDirectory() as d:
+            tsdb = open_tsdb(Config(auto_create_metrics=True, device=DEVICE),
+                             os.path.join(d, "store"), shards=shards)
+            try:
+                for s in range(PAUSE_SERIES):
+                    tsdb.add_batch("bench.metric", ts[s], vals[s],
+                                   series_tags(s))
+                got = writer_during(tsdb, tsdb.checkpoint, WRITER_SERIES,
+                                    WRITER_POINTS, seed=31)
+                got["rows"] = got.pop("result")
+                got["spill_s"] = list(getattr(tsdb.store, "spill_seconds",
+                                              [got["seconds"]]))
+                out[f"shards_{shards}"] = got
+            finally:
+                tsdb.shutdown()
+    log(f"writer pause during a checkpoint, 1 vs {SHARDS} shards: {out}")
+    return out
+
+
+def sharded_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
+    """The daemon over a SHARDS-shard store under WAL group commit: the
+    corpus (as wire batches of BARRIER_SERIES series), the telnet and
+    /api/put ingest; the resident and un-downsampled /q answers held
+    against the one-shard daemon's (REFERENCE: tags and timestamps
+    identical, max and percentiles exact, sums at the resident
+    tolerance); two checkpoints (per-shard spill seconds; a writer
+    ingests during the second); a restart on the same directory (boot
+    seconds), the resident answers and {host=h00001}'s again, the cold
+    {host=*} week scan, the shard
+    skip of {host=h00001} and fsck."""
+    start, end = BASE, BASE + SPAN - 1
+    out: dict = {"shards": SHARDS, "wal_group_ms": WAL_GROUP_MS}
+    with tempfile.TemporaryDirectory() as d:
+        root = os.path.join(d, "store")
+        tsdb = open_daemon_tsdb(root, shards=SHARDS,
+                                wal_group_ms=WAL_GROUP_MS)
+        store = tsdb.store
+        if getattr(store, "shard_count", 1) != SHARDS \
+                or store.wal_group_ms != WAL_GROUP_MS:
+            fail(f"the sharded daemon opened {type(store).__name__}")
+        daemon = Daemon(tsdb)
+        try:
+            f0, t0 = store.wal_group_flushes, time.perf_counter()
+            out["ingest"], _ = ingest(tsdb, daemon.port, ts, vals,
+                                      stage="sharded_",
+                                      barrier_series=BARRIER_SERIES)
+            out["tenants"] = http_put_phase(daemon.port, start, end,
+                                            stage="sharded_")
+            secs = time.perf_counter() - t0
+            out["group_flushes"] = store.wal_group_flushes - f0
+            out["group_flushes_per_s"] = out["group_flushes"] / secs
+            out["answers"] = compare_reference(daemon, tsdb, start, end,
+                                               UNION_QUERIES)
+            with native_calls("sharded_checkpoint_1", ("frame_rows_dict",)):
+                c0 = time.perf_counter()
+                rows = tsdb.checkpoint()
+                out["checkpoint_1"] = {
+                    "rows": rows, "seconds": time.perf_counter() - c0,
+                    "spill_s": list(store.spill_seconds)}
+            with native_calls("sharded_checkpoint_2", ("frame_rows_dict",)):
+                got = writer_during(tsdb, tsdb.checkpoint, WRITER_SERIES,
+                                    WRITER_POINTS, seed=37)
+            got["rows"] = got.pop("result")
+            got["spill_s"] = list(store.spill_seconds)
+            out["checkpoint_2"] = got
+            if out["checkpoint_1"]["rows"] <= 0 or got["rows"] <= 0:
+                fail(f"sharded checkpoints spilled nothing: {out}")
+            log(f"sharded checkpoints: {out['checkpoint_1']}, {got}")
+            t0 = time.perf_counter()
+            daemon.stop()
+            out["shutdown_s"] = time.perf_counter() - t0
+            with native_calls("sharded_boot", ("slice_varlen",)):
+                t0 = time.perf_counter()
+                tsdb = open_daemon_tsdb(root, wal_group_ms=WAL_GROUP_MS)
+                out["boot_s"] = time.perf_counter() - t0
+            store = tsdb.store
+            if store.shard_count != SHARDS or tsdb.tenants.rebuilt:
+                fail("the restarted sharded daemon did not reopen its "
+                     "shards and tenant snapshot")
+            out["warm_s"] = tsdb.warm_seconds
+            out["open_seconds"] = store.open_seconds
+            daemon = Daemon(tsdb)
+            ex = daemon.server.executor
+            # After the restart the un-downsampled query whose scans the
+            # shard skip prunes (the week-long sum alone takes ~15 s).
+            out["answers_after_restart"] = compare_reference(
+                daemon, tsdb, start, end,
+                [q for q in UNION_QUERIES if q[0] == RESTART_UNION])
+            s0 = time.perf_counter()
+            info: dict = {}
+            week = ex._find_spans(spec_of("sum:bench.metric{host=*}"),
+                                  start, end, info)
+            out["host_week_scan_cold_ms"] = (time.perf_counter() - s0) * 1e3
+            if info.get("cached") or \
+                    sum(map(len, week.values())) != SERIES + TELNET_SERIES:
+                fail("the cold {host=*} week scan over the shards")
+            del week
+            # {host=h00001}'s series hint names one series: each of its
+            # chunk scans skips the other SHARDS - 1 shards.
+            out["bloom_shards_skipped"] = out["answers_after_restart"][
+                "union"][RESTART_UNION]["shards_skipped"]
+            if out["bloom_shards_skipped"] <= 0 or \
+                    out["bloom_shards_skipped"] % (SHARDS - 1):
+                fail(f"{RESTART_UNION}: bloom_shards_skipped "
+                     f"{out['bloom_shards_skipped']}")
+            out["fsck"] = fsck_clean(tsdb, f"the {SHARDS}-shard store")
+        finally:
+            daemon.stop()
+    return out
+
+
+def compare_reference(daemon: "Daemon", tsdb: TSDB, start: int,
+                      end: int, union: list) -> dict:
+    """The ten resident queries (each once: its stage built) and the
+    un-downsampled ``union`` queries on this daemon, each against the
+    one-shard daemon's answer; launches counted per path."""
+    dw, ex = tsdb.devwindow, daemon.server.executor
+    out: dict = {"resident": {}, "union": {}, "launches": {}}
+    zero_launches()
+    for expr in QUERIES + PCT_QUERIES:
+        run, got = http_resident(daemon.port, dw, ex, expr, start, end)
+        want = REFERENCE["resident"][expr]
+        exact = expr.startswith(("max", "p"))
+        out["resident"][expr] = {
+            "ms": run["wall_ms"], "identical": got == want,
+            "max_rel_diff": same_answer(expr, got, want, exact)}
+    out["launches"]["resident"] = path_launches("sharded resident path",
+                                                KERNELS[:3])
+    zero_launches()
+    for expr, span in union:
+        skipped0 = tsdb.store.bloom_shards_skipped
+        got, run, _ = http_union(daemon.port, expr, start, start + span - 1)
+        want = REFERENCE["union"][expr]
+        exact = Aggregators.get(spec_of(expr).aggregator).kind \
+            == "percentile"
+        # "identical": the same JSON, the "cached" flag included.
+        out["union"][expr] = {
+            "ms": run["wall_ms"], "identical": got == want,
+            "max_rel_diff": same_answer(expr, got, want, exact),
+            "shards_skipped": tsdb.store.bloom_shards_skipped - skipped0}
+    need = {"masked_select" if Aggregators.get(spec_of(expr).aggregator)
+            .kind == "percentile" else "interp_moments" for expr, _ in union}
+    out["launches"]["union"] = path_launches("sharded union path",
+                                             tuple(sorted(need)))
+    log(f"sharded answers against the one-shard daemon's: "
+        f"{json.dumps(out)}")
     return out
 
 
@@ -2680,6 +2943,9 @@ def main() -> int:
                + sketch_kernel_phase(vals))
     with tempfile.TemporaryDirectory() as wal_dir:
         path = path_phase(ts, vals, wal_dir)
+    sharded = sharded_phase(ts, vals)
+    REFERENCE.clear()
+    sharded["writer_pause"] = writer_pause_phase(ts, vals)
     del ts, vals
     refusal = refusal_phase()
     budget = budget_phase()
@@ -2741,7 +3007,7 @@ def main() -> int:
     log(json.dumps({"details": {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "kernel_cases": kernels, "path": path,
-        "refusal": refusal, "budget": budget}}))
+        "sharded": sharded, "refusal": refusal, "budget": budget}}))
     for expr, q in path["queries"].items():
         print(json.dumps({"query": expr, "plan": "resident", **q,
                           "card": smi}))
@@ -2799,6 +3065,35 @@ def main() -> int:
     print(json.dumps({"native": {
         "build_s": nativeext.build_seconds, "calls": totals,
         "stages": NATIVE_STAGES, "wal_replay": r["wal_replay"]},
+        "card": smi}))
+    a = sharded["answers"]
+    print(json.dumps({"sharded": {
+        "shards": SHARDS, "wal_group_ms": WAL_GROUP_MS,
+        "ingest_points_per_s": sharded["ingest"]["points_per_s"],
+        "add_batch_points_per_s": sharded["ingest"]["add_batch_points_per_s"],
+        "telnet_points_per_s": sharded["ingest"]["telnet_points_per_s"],
+        "api_put_points_per_s": sharded["tenants"]["http_points_per_s"],
+        "group_flushes_per_s": sharded["group_flushes_per_s"],
+        "checkpoint_1": sharded["checkpoint_1"],
+        "checkpoint_2": sharded["checkpoint_2"],
+        "writer_pause": sharded["writer_pause"],
+        "shutdown_s": sharded["shutdown_s"], "boot_s": sharded["boot_s"],
+        "warm_s": sharded["warm_s"],
+        "host_week_scan_cold_ms": sharded["host_week_scan_cold_ms"],
+        "bloom_shards_skipped": sharded["bloom_shards_skipped"],
+        "answers_identical": {
+            "before": sum(q["identical"] for k in ("resident", "union")
+                          for q in a[k].values()),
+            "after_restart": sum(
+                q["identical"] for k in ("resident", "union")
+                for q in sharded["answers_after_restart"][k].values()),
+            "of": [len(QUERIES + PCT_QUERIES) + len(UNION_QUERIES),
+                   len(QUERIES + PCT_QUERIES) + 1]},
+        "launches": {"resident": a["launches"]["resident"],
+                     "union": a["launches"]["union"]},
+        "fsck": {"one_shard": r["fsck"], "sharded": sharded["fsck"]},
+        "native": {k: v for k, v in NATIVE_STAGES.items()
+                   if k.startswith("sharded_")}},
         "card": smi}))
     print(json.dumps({"window_at_budget": {
         k: budget[k] for k in ("points", "chunks", "resident_bytes",

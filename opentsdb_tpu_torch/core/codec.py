@@ -252,6 +252,10 @@ class Cell(NamedTuple):
         return decode_value(self.value, self.flags)
 
 
+def is_compacted_qualifier(qual: bytes) -> bool:
+    """A qualifier longer than 2 (even) bytes marks a compacted cell."""
+    return len(qual) > 2 and len(qual) % 2 == 0
+
 
 def explode_cell(qual: bytes, value: bytes) -> list[Cell]:
     """Break a cell (single or compacted) into individual fixed-up Cells.

@@ -31,6 +31,14 @@ snapshot; at start-up it is loaded and the WAL-replayed memtable's series
 folded on top, or, when the file is torn or foreign (a file another
 writer marked for a rebuild among them), rebuilt from all of storage.
 
+The store may be a ``MemKVStore`` or a ``ShardedKVStore``
+(``storage/sharded.py``); over a sharded store the sketch snapshot is
+``<dir>/store.sketches`` and the tenant snapshot ``<dir>/TENANTS.json``,
+both saved once at the root. ``Config.wal_group_ms`` turns on the store's
+WAL group commit; ``add_batch(..., sync=False)`` then leaves the covering
+wait to the caller's ``store.wal_barrier()`` (``server/wire.ingest_batch``
+calls it once per wire batch).
+
 Left out of this slice (all off here; see ROADMAP): the mesh-sharded
 window, rollups, replicas and the cluster tier.
 """
@@ -73,6 +81,11 @@ class TSDB:
         # run on a card that is not there must not come up at all.
         self.device = resolve_device(self.config.device)
         self.store = store
+        # WAL group commit (storage/kv.py), pushed onto the store as the
+        # JAX package does.
+        group_ms = float(self.config.wal_group_ms or 0.0)
+        if group_ms > 0 and hasattr(store, "wal_group_ms"):
+            store.wal_group_ms = group_ms
         store.ensure_table(self.config.table)
         store.ensure_table(self.config.uidtable)
         self.table = self.config.table
@@ -223,11 +236,15 @@ class TSDB:
     # ------------------------------------------------------------------
 
     def _tenants_path(self) -> str | None:
-        """``<wal>.tenants.json`` beside a single-file WAL (a sharded
-        store's root ``TENANTS.json`` comes with ROADMAP queue A item
-        3)."""
+        """``<wal>.tenants.json`` beside a single-file WAL; a sharded
+        store's ``TENANTS.json`` at its root, beside ``SHARDS.json`` (its
+        ``_wal_path`` is the ``<dir>/store`` naming root, not a file)."""
         wal = getattr(self.store, "_wal_path", None)
-        return wal + ".tenants.json" if wal else None
+        if not wal:
+            return None
+        if getattr(self.store, "shard_count", None) is not None:
+            return os.path.join(os.path.dirname(wal), "TENANTS.json")
+        return wal + ".tenants.json"
 
     def _init_tenants(self) -> None:
         """Load the snapshot and re-fold the WAL-replayed memtable's
@@ -434,7 +451,7 @@ class TSDB:
                   durable: bool = True,
                   is_float: np.ndarray | None = None,
                   int_values: np.ndarray | None = None,
-                  tenant: str = "default") -> int:
+                  tenant: str = "default", sync: bool = True) -> int:
         """Columnar ingest for one series: one pre-compacted cell per
         row-hour.
 
@@ -444,7 +461,9 @@ class TSDB:
         within a float-dtyped ``values`` array, with ``int_values`` (int64)
         alongside to keep integers above 2^53 exact. ``tenant`` is charged
         for the series (raising TenantLimitError when it is NEW and over
-        budget) and its points. Returns the points written."""
+        budget) and its points. ``sync=False`` skips the WAL group-commit
+        wait, so a caller writing many series acknowledges them after one
+        ``store.wal_barrier()``. Returns the points written."""
         timestamps = np.asarray(timestamps, dtype=np.int64)
         if timestamps.size == 0:
             return 0
@@ -497,7 +516,8 @@ class TSDB:
             self.sketches.note_series(skey)
         try:
             existed = self.store.put_many_columnar(
-                self.table, FAMILY, kb, L, quals, vals, durable=durable)
+                self.table, FAMILY, kb, L, quals, vals, durable=durable,
+                sync=sync)
         except PleaseThrottleError as e:
             # The rows that did apply still need compaction; they will
             # never reach the window (this raise skips its append), and a

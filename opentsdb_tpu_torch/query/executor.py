@@ -39,7 +39,10 @@ columns (``MemKVStore.chunk_state``); chunks with memtable rows are
 scanned afresh every time. A warm answer is bit-identical to a cold scan.
 The scan passes the storage a candidate-series hint from the sketch
 directory, so generations whose series bloom holds none of the selector's
-series are skipped.
+series are skipped, and over a sharded store (``storage/sharded.py``)
+whole shards no candidate routes to; ``chunk_state`` is then one element
+per shard, and a fragment validates only when every shard agrees. The
+``query.scan`` fault point fires once per selector scan.
 
 Sketch queries (``/sketch`` and ``/distinct``) read the live sketches
 (``stats/livesketch.py``) without a storage scan: quantiles of the merged
@@ -64,6 +67,7 @@ from opentsdb_tpu_torch.core import codec
 from opentsdb_tpu_torch.core.const import (MAX_TIMESPAN, TIMESTAMP_BYTES,
                                            UID_WIDTH)
 from opentsdb_tpu_torch.core.errors import BadRequestError, NoSuchUniqueName
+from opentsdb_tpu_torch.fault.faultpoints import fire as _fault
 from opentsdb_tpu_torch.ops import kernels, oracle, sketches
 from opentsdb_tpu_torch.query.aggregators import Aggregators
 from opentsdb_tpu_torch.storage.sstable import series_hash
@@ -230,7 +234,8 @@ class QueryExecutor:
     def _series_hint(self, metric_uid: bytes, exact, group_bys,
                      ) -> np.ndarray | None:
         """uint64 identity hashes of every known series matching the
-        selector: a pruning hint for the per-generation series blooms.
+        selector: a pruning hint for the per-generation series blooms and,
+        over a sharded store, for the shards (``h % N`` routes).
         Read from the sketch slot directory, which the write path keeps a
         superset of the series with stored data (``TSDB.add_point`` and
         ``add_batch`` register with ``note_series`` before the put). None,
@@ -283,6 +288,9 @@ class QueryExecutor:
         tsdb = self.tsdb
         cfg = tsdb.config
         store = tsdb.store
+        # Query-path fault point: delay or raise stretch or break exactly
+        # the scan stage. Unarmed: one empty-dict check per selector scan.
+        _fault("query.scan")
         hint = self._series_hint(metric_uid, exact, group_bys)
         b_lo = codec.base_time(max(start, 0))
         b_hi = min(codec.base_time(min(end, 0xFFFFFFFF)), 0xFFFFFFFF)

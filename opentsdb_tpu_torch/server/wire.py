@@ -12,8 +12,10 @@ and loaded with ctypes) unless the caller passes ``use_native=False`` or
 a test sets ``_NATIVE`` to None; the vectorized numpy decoder is the
 reference. Both accept the same lines, but the native decoder words its
 errors its own way and reports no line numbers (``error_lines`` empty).
-Left out with their items: the ``[fenced]`` error tag (item 10) and the
-WAL group-commit barrier (item 3).
+Under WAL group commit (``Config.wal_group_ms``) ``ingest_batch`` writes
+each series with ``sync=False`` and runs one covering
+``store.wal_barrier()`` before it returns, as the JAX package does. Left
+out with its item: the ``[fenced]`` error tag (ROADMAP queue A item 10).
 """
 
 from __future__ import annotations
@@ -637,20 +639,32 @@ def ingest_batch(tsdb, batch: DecodedBatch, durable: bool = True,
     sid_sorted = batch.sid[order]
     starts = np.concatenate(
         ([0], np.flatnonzero(np.diff(sid_sorted)) + 1, [len(order)]))
-    for i in range(len(starts) - 1):
-        run = order[starts[i]:starts[i + 1]]
-        s = int(sid_sorted[starts[i]])
-        metric, tag_map = batch.series[s]
-        try:
-            n += tsdb.add_batch(
-                metric, batch.timestamps[run], batch.fvalues[run],
-                tag_map, durable=durable,
-                is_float=batch.is_float[run],
-                int_values=batch.ivalues[run], tenant=tenant)
-        except Exception as e:
-            # A tenant-limit refusal is per-series: the tenant's EXISTING
-            # series in this batch still ingest; only the new one refuses.
-            tag = ("[tenant-limit] " if isinstance(e, TenantLimitError)
-                   else "")
-            errors.append(f"{metric}: {tag}{e}")
+    # Under WAL group commit each series' put skips its own wait
+    # (sync=False) and one covering barrier runs before this returns: the
+    # batch waits for one flush instead of one per series, and the
+    # caller's acknowledgement still follows it. The finally keeps that
+    # when a put raises mid-batch.
+    try:
+        for i in range(len(starts) - 1):
+            run = order[starts[i]:starts[i + 1]]
+            s = int(sid_sorted[starts[i]])
+            metric, tag_map = batch.series[s]
+            try:
+                n += tsdb.add_batch(
+                    metric, batch.timestamps[run], batch.fvalues[run],
+                    tag_map, durable=durable,
+                    is_float=batch.is_float[run],
+                    int_values=batch.ivalues[run], tenant=tenant,
+                    sync=False)
+            except Exception as e:
+                # A tenant-limit refusal is per-series: the tenant's
+                # EXISTING series in this batch still ingest; only the new
+                # one refuses.
+                tag = ("[tenant-limit] " if isinstance(e, TenantLimitError)
+                       else "")
+                errors.append(f"{metric}: {tag}{e}")
+    finally:
+        barrier = getattr(tsdb.store, "wal_barrier", None)
+        if barrier is not None:
+            barrier()
     return n, errors

@@ -39,15 +39,28 @@ checkpoint.
   records and, in ``storage/sstable.py``, the checkpoint's framing, as
   the JAX store does where its extension is built; the Python paths stay
   as the reference (a test sets ``_EXT`` to None to take them).
+- Durability knobs: ``fsync=True`` adds an ``os.fsync`` to every WAL
+  flush (power-loss safety); ``wal_group_ms > 0`` (``Config.wal_group_ms``)
+  turns on WAL group commit: appends take a ticket under the store lock
+  and the acknowledging call parks, after releasing it, until one
+  leader's covering flush (+ fsync) has covered its ticket. Nothing
+  acknowledges before its covering flush; only the number of fsyncs
+  changes, and the WAL bytes are the same either way.
+- Fault points (``fault/faultpoints.py``) sit where the JAX store's do:
+  ``kv.wal.append``, ``kv.wal.fsync``, ``kv.wal.group.write`` /
+  ``.fsync`` and ``kv.checkpoint.freeze`` / ``.commit`` / ``.manifest``,
+  with the same path and byte arguments, so a torn write cuts the same
+  span.
 
-Not ported yet, each refused rather than half-read where it leaves
-something on disk: a sharded store (``SHARDS.json``; ROADMAP queue A item
-3), the cluster epoch fence and WAL epoch headers (item 10), TSST4
-generations (item 5, refused by the sstable reader); and without an
-on-disk trace: read-only replicas with their ``refresh`` and the rebuild's
-stamp-floor jump (item 10), WAL group commit, fault points and per-shard
-mutation seqs (item 3), and the rollup tier's spill-key record with its
-undrained dirty set ``_spill_dirty`` (item 6).
+A sharded store (``SHARDS.json`` at the root of a directory of
+``shard-<i>/`` stores) opens through ``storage/sharded.py``; handing its
+root to this class is an error. Not ported yet, each refused rather than
+half-read where it leaves something on disk: the cluster epoch fence and
+WAL epoch headers (ROADMAP queue A item 10), TSST4 generations (item 5,
+refused by the sstable reader); and without an on-disk trace: read-only
+replicas with their ``refresh`` and the rebuild's stamp-floor jump (item
+10), and the rollup tier's spill-key record with its undrained dirty set
+``_spill_dirty`` (item 6).
 """
 
 from __future__ import annotations
@@ -67,6 +80,7 @@ import numpy as np
 
 from opentsdb_tpu_torch.core.const import TIMESTAMP_BYTES, UID_WIDTH
 from opentsdb_tpu_torch.core.errors import PleaseThrottleError
+from opentsdb_tpu_torch.fault.faultpoints import fire as _fault
 from opentsdb_tpu_torch.storage.sstable import (SSTable, merge_sstables,
                                                 write_sstable_bulk)
 from opentsdb_tpu_torch.utils.nativeext import EXT as _EXT
@@ -86,7 +100,7 @@ _BASE_LO = UID_WIDTH
 _BASE_HI = UID_WIDTH + TIMESTAMP_BYTES
 
 # A sharded store's manifest, at the root of the directory its --wal
-# names (the JAX package's storage/sharded.py).
+# names (storage/sharded.py).
 _SHARDS_NAME = "SHARDS.json"
 
 # Version written into <wal>.tenants.json at a checkpoint by a writer that
@@ -94,6 +108,26 @@ _SHARDS_NAME = "SHARDS.json"
 # next open (either package's) rebuild tenant accounting from storage
 # (MemKVStore._retire_snapshots).
 _FOREIGN_TENANTS_VERSION = 0
+
+
+def write_tenant_marker(path: str) -> None:
+    """Replace the tenant snapshot at ``path`` with a file of a foreign
+    version (durably: tmp + fsync + rename + directory fsync), which the
+    next open of either package answers with a full rebuild from storage
+    (``MemKVStore._retire_snapshots``)."""
+    with open(path + ".tmp", "w") as f:
+        json.dump({"version": _FOREIGN_TENANTS_VERSION,
+                   "written_by": "opentsdb_tpu_torch",
+                   "note": "this store keeps no tenant accounting; "
+                           "rebuild it from storage"}, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(path + ".tmp", path)
+    dfd = os.open(os.path.dirname(os.path.abspath(path)), os.O_RDONLY)
+    try:
+        os.fsync(dfd)
+    finally:
+        os.close(dfd)
 
 
 class Cell(NamedTuple):
@@ -110,14 +144,33 @@ class KVStore:
             family: bytes | None = None) -> list[Cell]:
         raise NotImplementedError
 
+    def has_row(self, table: str, key: bytes) -> bool:
+        raise NotImplementedError
+
     def put(self, table: str, key: bytes, family: bytes, qualifier: bytes,
             value: bytes, durable: bool = True) -> None:
+        raise NotImplementedError
+
+    def put_many(self, table: str, family: bytes,
+                 cells: list[tuple[bytes, bytes, bytes]],
+                 durable: bool = True, sync: bool = True) -> list[bool]:
+        """Write (key, qualifier, value) cells; returns, per cell, True
+        when the row holds other cells by the time this one lands (it
+        existed before the batch, or an earlier cell of the batch hit it:
+        the caller queues a compaction). On a PleaseThrottleError
+        mid-batch, its ``partial_existed`` carries the flags of the cells
+        that did apply. ``sync=False`` defers the WAL group-commit wait
+        (stores without group commit ignore it): the caller must call
+        ``wal_barrier()`` before acknowledging."""
         raise NotImplementedError
 
     def put_many_columnar(self, table: str, family: bytes,
                           key_blob: bytes, key_len: int,
                           quals: list[bytes], vals: list[bytes],
-                          durable: bool = True) -> list[bool]:
+                          durable: bool = True,
+                          sync: bool = True) -> list[bool]:
+        """``put_many`` with cell i's key the i-th ``key_len``-byte slice
+        of ``key_blob``."""
         raise NotImplementedError
 
     def delete(self, table: str, key: bytes, family: bytes,
@@ -125,6 +178,11 @@ class KVStore:
         raise NotImplementedError
 
     def delete_row(self, table: str, key: bytes) -> None:
+        raise NotImplementedError
+
+    def scan(self, table: str, start: bytes, stop: bytes,
+             family: bytes | None = None,
+             key_regexp: bytes | None = None) -> Iterator[list[Cell]]:
         raise NotImplementedError
 
     def scan_raw(self, table: str, start: bytes, stop: bytes,
@@ -148,6 +206,11 @@ class KVStore:
 
     def flush(self) -> None:
         raise NotImplementedError
+
+    def wal_barrier(self, ticket: int | None = None) -> None:
+        """Wait for the WAL group-commit flush covering everything
+        appended so far (see MemKVStore). Default: nothing to wait for, a
+        store without group commit is durable when a mutation returns."""
 
     def ensure_table(self, table: str) -> None:
         raise NotImplementedError
@@ -298,9 +361,16 @@ class MemKVStore(KVStore):
 
     Thread-safe: a single lock guards all mutation (ingest is batched above
     this layer, so lock traffic is per batch, not per point). Every
-    mutation's WAL record is flushed past the userspace buffer before the
-    call returns; ``flush()`` fsyncs.
+    mutation's WAL record is flushed past the userspace buffer (and, with
+    ``fsync``, to stable storage) before the call acknowledges: at once,
+    or under group commit by the covering group flush; ``flush()`` fsyncs.
     """
+
+    # Sabotage gate for the crash matrix (fault/harness.py --bug
+    # ack-before-fsync): True makes _wal_barrier return at once, so
+    # group-commit writes acknowledge before their covering flush, the
+    # regression the kv.wal.group.* rows must catch.
+    _ACK_BEFORE_FSYNC = False
 
     # _REC frames a payload with a u32 length: batches whose blobs approach
     # that split into several _OP_PUT_BATCH records (replay applies them in
@@ -312,11 +382,12 @@ class MemKVStore(KVStore):
     _MAX_GENERATIONS = 8
 
     def __init__(self, wal_path: str | None = None,
-                 throttle_rows: int | None = None,
+                 throttle_rows: int | None = None, fsync: bool = False,
                  max_generations: int | None = None) -> None:
         """``throttle_rows``: live rows per table past which puts that
-        create a row raise PleaseThrottleError. ``max_generations``
-        overrides the generation cap (at least 2)."""
+        create a row raise PleaseThrottleError. ``fsync``: fsync the WAL
+        at every flush. ``max_generations`` overrides the generation cap
+        (at least 2; the sharded store staggers it per shard)."""
         self._tables: dict[str, _Table] = {}
         self._lock = threading.RLock()
         if max_generations is not None:
@@ -325,6 +396,7 @@ class MemKVStore(KVStore):
                     f"max_generations must be >= 2, got {max_generations}")
             self._MAX_GENERATIONS = max_generations
         self.throttle_rows = throttle_rows
+        self._fsync = fsync
         self._wal_path = wal_path
         self._wal = None
         self._lockfd: int | None = None
@@ -362,13 +434,32 @@ class MemKVStore(KVStore):
         # Generations skipped by the series-bloom prefilter (scan_raw
         # with a series_hint).
         self.bloom_files_skipped = 0
+        # WAL group commit (Config.wal_group_ms, set after open like the
+        # JAX store's): > 0 defers the per-append flush (+ fsync) to a
+        # leader-elected group flush. Appends bump _grp_written (a ticket
+        # counter) under the store lock; acknowledging calls run
+        # _wal_barrier(ticket) after releasing it and park on _grp_cond
+        # until _grp_flushed covers their ticket. Lock order: store lock,
+        # then _grp_cond, everywhere.
+        self._wal_group_ms = 0.0
+        self._grp_cond = threading.Condition()
+        self._grp_written = 0     # tickets issued (appends recorded)
+        self._grp_flushed = 0     # tickets covered by a flush
+        self._grp_leader = False  # a leader is collecting or flushing
+        self._grp_file_epoch = 0  # bumped per WAL rotation
+        # Last byte offset covered by a group flush: bounds the span the
+        # kv.wal.group.fsync fault point may tear (never bytes an earlier
+        # group flush made durable).
+        self._grp_synced_pos = 0
+        # Covering group flushes done (the smoke's fsyncs per second).
+        self.wal_group_flushes = 0
         if not wal_path:
             return
         if os.path.exists(os.path.join(wal_path, _SHARDS_NAME)):
             raise RuntimeError(
-                f"{wal_path!r} is a sharded store ({_SHARDS_NAME}); "
-                f"sharded stores are not ported yet (ROADMAP queue A "
-                f"item 3)")
+                f"{wal_path!r} is the root of a sharded store "
+                f"({_SHARDS_NAME}): open it with "
+                f"storage.sharded.ShardedKVStore")
         os.makedirs(os.path.dirname(os.path.abspath(wal_path)),
                     exist_ok=True)
         # Single-writer lock on a side file (the JAX store's convention,
@@ -590,6 +681,11 @@ class MemKVStore(KVStore):
         with self._lock:
             return self._has_row_locked(table, key)
 
+    def cell_count(self, table: str, key: bytes) -> int:
+        with self._lock:
+            row = self._merged_row(table, key)
+            return len(row) if row else 0
+
     def _has_row_locked(self, table: str, key: bytes) -> bool:
         row = self._table(table).rows.get(key)
         if row:
@@ -659,13 +755,175 @@ class MemKVStore(KVStore):
             return
         payload = b"".join(struct.pack(">I", len(p)) + p for p in parts)
         self._wal.write(_REC.pack(op, len(payload)) + payload)
-        self._wal_flush()
+        if self._wal_group_ms > 0:
+            self._grp_note()
+        else:
+            self._wal_flush()
+            _fault("kv.wal.append", self._wal_path,
+                   _REC.size + len(payload))
 
     def _wal_flush(self) -> None:
-        # Past the userspace buffer before the mutation returns: a crash
-        # of the process then loses nothing acknowledged (flush() adds the
-        # fsync that survives power loss).
+        # Past the userspace buffer before the mutation acknowledges: a
+        # crash of the process then loses nothing acknowledged; ``fsync``
+        # also survives power loss.
         self._wal.flush()
+        # Between the userspace flush and the optional fsync: a crash here
+        # loses nothing on process death, everything unsynced on power
+        # loss; ioerror stands for the fsync itself failing.
+        _fault("kv.wal.fsync", self._wal_path)
+        if self._fsync:
+            os.fsync(self._wal.fileno())
+        # In group mode every direct flush runs under the store lock
+        # (checkpoint rotation, close, flush) and covers every record
+        # written so far: every issued ticket is durable.
+        if self._wal_group_ms > 0:
+            self._grp_sync_locked()
+
+    # -- WAL group commit (Config.wal_group_ms) ---------------------------
+    #
+    # Appends write into the WAL's userspace buffer under the store lock,
+    # but the per-append flush (+ fsync) is deferred: each append takes a
+    # ticket, and the acknowledging call parks in _wal_barrier, after
+    # releasing the store lock, until a group flush covers its ticket. The
+    # first parked thread elects itself leader, lingers up to wal_group_ms
+    # collecting followers, then flushes once for everything written so
+    # far.
+
+    def _grp_note(self) -> None:
+        """Record a deferred-flush append (store lock held). The fault
+        point has no path on purpose: the record may still sit in the
+        userspace buffer, so a torn cut could reach bytes an earlier
+        group flush made durable; torn degrades to a crash here."""
+        _fault("kv.wal.group.write")
+        with self._grp_cond:
+            self._grp_written += 1
+
+    def _grp_ticket(self) -> int:
+        """The ticket for _wal_barrier, read under the store lock (every
+        _grp_written bump happens under it); 0 outside group mode."""
+        if self._wal_group_ms > 0 and self._wal is not None:
+            return self._grp_written
+        return 0
+
+    def _grp_sync_locked(self) -> None:
+        """After a direct full flush under the store lock: every issued
+        ticket is covered. Advance the watermark and the durable byte
+        position, and wake the parked barriers."""
+        pos = 0
+        if self._wal is not None:
+            try:
+                pos = self._wal.tell()
+            except ValueError:
+                pos = 0
+        with self._grp_cond:
+            self._grp_flushed = self._grp_written
+            self._grp_synced_pos = max(self._grp_synced_pos, pos)
+            self._grp_cond.notify_all()
+
+    def _grp_rotated_locked(self) -> None:
+        """The WAL was just rotated to a fresh file (store lock held):
+        reset the durable position and bump the file epoch, so a leader
+        still flushing the old file cannot move the new file's
+        position."""
+        with self._grp_cond:
+            self._grp_file_epoch += 1
+            self._grp_synced_pos = 0
+
+    def _wal_group_flush(self) -> None:
+        """The leader's covering flush (+ fsync), without the store lock
+        (the buffered writer serializes against concurrent appends).
+        Raises ValueError or OSError when a rotation closed the file
+        underneath (the barrier decides)."""
+        wal = self._wal
+        if wal is None:
+            return
+        with self._grp_cond:
+            epoch = self._grp_file_epoch
+            synced = self._grp_synced_pos
+        # The position before the flush is at most the file's size after
+        # it, so the torn span below never reaches bytes an earlier group
+        # flush covered.
+        tell_pos = wal.tell()
+        wal.flush()
+        _fault("kv.wal.group.fsync", self._wal_path,
+               max(tell_pos - synced, 1))
+        if self._fsync:
+            os.fsync(wal.fileno())
+        with self._grp_cond:
+            if self._grp_file_epoch == epoch:
+                self._grp_synced_pos = max(self._grp_synced_pos, tell_pos)
+            self.wal_group_flushes += 1
+
+    def _wal_barrier(self, ticket: int) -> None:
+        """Park until a group flush covers ``ticket``; the first caller not
+        yet covered lingers wal_group_ms to collect followers, then
+        flushes for everyone. Call after releasing the store lock."""
+        if not ticket or MemKVStore._ACK_BEFORE_FSYNC:
+            return
+        cond = self._grp_cond
+        linger = self._wal_group_ms / 1000.0
+        while True:
+            with cond:
+                if self._grp_flushed >= ticket:
+                    break
+                if self._grp_leader:
+                    # A leader is collecting or flushing; the timeout
+                    # guards against a lost notify.
+                    cond.wait(0.05)
+                    continue
+                self._grp_leader = True
+                if linger > 0:
+                    cond.wait(linger)
+                target = self._grp_written
+            err = None
+            try:
+                self._wal_group_flush()
+            except BaseException as e:
+                err = e
+            with cond:
+                self._grp_leader = False
+                if err is None:
+                    self._grp_flushed = max(self._grp_flushed, target)
+                covered = self._grp_flushed >= ticket
+                cond.notify_all()
+            if err is not None:
+                # A rotation or close may close the file under a leader,
+                # but only after its own full flush covered every issued
+                # ticket.
+                if covered and isinstance(err, (ValueError, OSError)):
+                    break
+                raise err
+
+    def wal_barrier(self, ticket: int | None = None) -> None:
+        """Block until every WAL record appended so far (or up to
+        ``ticket``) is covered by a group flush. Nothing to do outside
+        group mode; safe to call without the store lock. Batch ingest
+        calls it once per wire batch (``put_many(..., sync=False)`` per
+        series, then one barrier)."""
+        if self._wal_group_ms <= 0 or self._wal is None:
+            return
+        if ticket is None:
+            with self._grp_cond:
+                ticket = self._grp_written
+        self._wal_barrier(ticket)
+
+    @property
+    def wal_group_ms(self) -> float:
+        return self._wal_group_ms
+
+    @wal_group_ms.setter
+    def wal_group_ms(self, ms: float) -> None:
+        """Set after open (``TSDB`` plumbs ``Config.wal_group_ms``).
+        Turning it on seeds the durable byte position from the WAL's end:
+        replayed history must never fall inside a torn group span."""
+        self._wal_group_ms = float(ms)
+        if self._wal_group_ms > 0 and self._wal is not None:
+            with self._grp_cond:
+                try:
+                    self._grp_synced_pos = max(self._grp_synced_pos,
+                                               self._wal.tell())
+                except ValueError:
+                    pass
 
     @classmethod
     def _batch_splits(cls, cell_bytes: np.ndarray) -> list[tuple[int, int]]:
@@ -685,6 +943,42 @@ class MemKVStore(KVStore):
             base = int(csum[hi - 1])
             lo = hi
         return out
+
+    def _wal_batch_written(self, rec_bytes: int) -> None:
+        """After a batch's records: note the group-commit ticket, or flush
+        and pass the ``kv.wal.append`` fault point (its torn span is the
+        last record)."""
+        if self._wal_group_ms > 0:
+            self._grp_note()
+            return
+        self._wal_flush()
+        _fault("kv.wal.append", self._wal_path, rec_bytes)
+
+    def _wal_append_batch(self, table: bytes, family: bytes,
+                          keys: list[bytes], quals: list[bytes],
+                          vals: list[bytes]) -> None:
+        """The _OP_PUT_BATCH record of a batch whose keys may differ in
+        length (``put_many``); with keys of one length its bytes are the
+        columnar record's."""
+        if self._wal is None:
+            return
+        n = len(keys)
+        kl = np.fromiter(map(len, keys), ">u4", n)
+        ql = np.fromiter(map(len, quals), ">u4", n)
+        vl = np.fromiter(map(len, vals), ">u4", n)
+        for lo, hi in self._batch_splits(kl.astype(np.int64)
+                                         + ql.astype(np.int64)
+                                         + vl.astype(np.int64)):
+            payload = b"".join((
+                struct.pack(">IHH", hi - lo, len(table), len(family)),
+                table, family,
+                kl[lo:hi].tobytes(), ql[lo:hi].tobytes(),
+                vl[lo:hi].tobytes(),
+                b"".join(keys[lo:hi]), b"".join(quals[lo:hi]),
+                b"".join(vals[lo:hi])))
+            self._wal.write(_REC.pack(_OP_PUT_BATCH, len(payload))
+                            + payload)
+        self._wal_batch_written(_REC.size + len(payload))
 
     def _wal_append_batch_columnar(self, table: bytes, family: bytes,
                                    key_blob: bytes, n: int, key_len: int,
@@ -707,7 +1001,7 @@ class MemKVStore(KVStore):
                 b"".join(quals[lo:hi]), b"".join(vals[lo:hi])))
             self._wal.write(_REC.pack(_OP_PUT_BATCH, len(payload))
                             + payload)
-        self._wal_flush()
+        self._wal_batch_written(_REC.size + len(payload))
 
     @staticmethod
     def _split_payload(payload: bytes) -> list[bytes]:
@@ -801,6 +1095,8 @@ class MemKVStore(KVStore):
             if self._wal is not None:
                 self._wal.flush()
                 os.fsync(self._wal.fileno())
+                if self._wal_group_ms > 0:
+                    self._grp_sync_locked()
 
     def close(self) -> None:
         with self._lock:
@@ -818,6 +1114,16 @@ class MemKVStore(KVStore):
                 if self._lockfd is not None:
                     os.close(self._lockfd)
                     self._lockfd = None
+
+    def _simulate_crash(self) -> None:
+        """Test hook: release the single-writer lock without flushing or
+        closing, as process death does (the OS drops a dead process's
+        flock; unflushed state is lost). Crash-recovery tests reopen the
+        WAL path after calling this."""
+        with self._lock:
+            if self._lockfd is not None:
+                os.close(self._lockfd)
+                self._lockfd = None
 
     # -- checkpoint / spill -----------------------------------------------
 
@@ -859,6 +1165,11 @@ class MemKVStore(KVStore):
             self._tables = {name: _Table() for name in self._frozen}
             self.mutation_seq += 1
             if self._wal is not None:
+                # Cover every deferred group-commit ticket before the file
+                # goes away: parked barriers wake durable, and a leader
+                # racing the close finds its ticket covered.
+                if self._wal_group_ms > 0:
+                    self._wal_flush()
                 self._wal.close()
                 if os.path.exists(old_path):
                     # A crash-recovered .old is still live state: append
@@ -879,6 +1190,7 @@ class MemKVStore(KVStore):
                 else:
                     os.replace(self._wal_path, old_path)
                     self._wal = open(self._wal_path, "ab")
+                self._grp_rotated_locked()
             frozen = self._frozen
             gens = list(self._ssts)
             tombstoned = any(ft.row_tombs or ft.tombs
@@ -909,6 +1221,11 @@ class MemKVStore(KVStore):
             return 0
 
         try:
+            # End of phase 1: the WAL is rotated (<wal>.old holds every
+            # pre-checkpoint record), nothing spilled yet. A crash here
+            # recovers from .old and the WAL alone; raise takes the thaw
+            # below.
+            _fault("kv.checkpoint.freeze", self._wal_path)
             if use_merge:
                 n = merge_sstables(out_path, merge_gens, {
                     name: (ft.rows, ft.row_tombs, bool(ft.tombs))
@@ -933,6 +1250,10 @@ class MemKVStore(KVStore):
             unlink_new = True
             try:
                 new_sst = SSTable(out_path)
+                # Durable, but no manifest names it yet: a crash leaves a
+                # stray the next open deletes (.old still replays
+                # everything); raise takes the unlink-and-thaw below.
+                _fault("kv.checkpoint.commit", out_path)
                 # The new generation replaces exactly the merged suffix
                 # (all of them on a full merge, none on a plain spill);
                 # everything in `keep` is older than what it holds.
@@ -967,6 +1288,10 @@ class MemKVStore(KVStore):
                 raise
             self._frozen = None
             self.mutation_seq += 1
+            # Manifest durable, the merged generations and <wal>.old not
+            # yet unlinked: a crash leaves strays the next open deletes
+            # and a .old that replays idempotently.
+            _fault("kv.checkpoint.manifest", self._wal_path)
             # The frozen tier retires: its transition stamps fold into the
             # store-level map, so fragments built while (or before) its
             # rows were live keep invalidating, bases a create-then-delete
@@ -1015,22 +1340,8 @@ class MemKVStore(KVStore):
                 f"({rollups}); checkpointing it would leave its summaries "
                 f"behind the spilled rows, and rollups are not ported yet "
                 f"(ROADMAP queue A item 6)")
-        if not tenant_marker:
-            return
-        tenants = self._wal_path + ".tenants.json"
-        with open(tenants + ".tmp", "w") as f:
-            json.dump({"version": _FOREIGN_TENANTS_VERSION,
-                       "written_by": "opentsdb_tpu_torch",
-                       "note": "this store keeps no tenant accounting; "
-                               "rebuild it from storage"}, f)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tenants + ".tmp", tenants)
-        dfd = os.open(d, os.O_RDONLY)
-        try:
-            os.fsync(dfd)
-        finally:
-            os.close(dfd)
+        if tenant_marker:
+            write_tenant_marker(self._wal_path + ".tenants.json")
 
     @staticmethod
     def _select_merge_suffix(gens: list[SSTable],
@@ -1156,6 +1467,8 @@ class MemKVStore(KVStore):
                 self._wal_append(_OP_PUT, table.encode(), key, family,
                                  qualifier, value)
             self._apply_put(table, key, family, qualifier, value)
+            ticket = self._grp_ticket()
+        self._wal_barrier(ticket)
 
     def _dirty_add_new(self, t: _Table, keys: list[bytes],
                        existed: list[bool]) -> None:
@@ -1254,10 +1567,28 @@ class MemKVStore(KVStore):
             t.pending.update(ks - dups)
         return existed
 
+    def put_many(self, table: str, family: bytes,
+                 cells: list[tuple[bytes, bytes, bytes]],
+                 durable: bool = True, sync: bool = True) -> list[bool]:
+        """Batched put of (key, qualifier, value) cells under one lock, with
+        one WAL record: ``put_many_columnar``'s semantics for keys of any
+        length."""
+        if not cells:
+            return []
+        keys = [c[0] for c in cells]
+        quals = [c[1] for c in cells]
+        vals = [c[2] for c in cells]
+        tenc = table.encode()
+        return self._put_batch(
+            table, family, keys, quals, vals, durable, sync,
+            lambda m: self._wal_append_batch(tenc, family, keys[:m],
+                                             quals[:m], vals[:m]))
+
     def put_many_columnar(self, table: str, family: bytes,
                           key_blob: bytes, key_len: int,
                           quals: list[bytes], vals: list[bytes],
-                          durable: bool = True) -> list[bool]:
+                          durable: bool = True,
+                          sync: bool = True) -> list[bool]:
         """Batched put with cell i's key the i-th ``key_len``-byte slice of
         ``key_blob``. Returns, per cell, True when the row held other
         cells by the time this one landed (it existed before the batch,
@@ -1268,7 +1599,12 @@ class MemKVStore(KVStore):
         takes the per-cell loop, where a cell that would create a row
         past ``throttle_rows`` stops the batch: the cells before it stay
         applied, their WAL record is written, and the PleaseThrottleError
-        raised carries their flags as ``partial_existed``."""
+        raised carries their flags as ``partial_existed``.
+
+        ``sync=False`` (group commit only) returns without waiting for
+        the covering group flush: the caller batches several puts and
+        calls ``wal_barrier()`` once before acknowledging any of them
+        (``server/wire.ingest_batch``)."""
         n = len(quals)
         L = key_len
         if len(vals) != n or len(key_blob) != n * L:
@@ -1283,57 +1619,93 @@ class MemKVStore(KVStore):
             keys = _EXT.slice_keys(key_blob, L)
         else:
             keys = [key_blob[i:i + L] for i in range(0, n * L, L)]
+        tenc = table.encode()
+        return self._put_batch(
+            table, family, keys, quals, vals, durable, sync,
+            lambda m: self._wal_append_batch_columnar(
+                tenc, family, key_blob[:m * L], m, L, quals[:m], vals[:m]))
+
+    def _put_batch(self, table: str, family: bytes, keys: list[bytes],
+                   quals: list[bytes], vals: list[bytes], durable: bool,
+                   sync: bool, wal_record) -> list[bool]:
+        """The batched put under one lock; ``wal_record(m)`` writes the
+        record of the first m cells."""
         existed: list[bool] = []
-        with self._lock:
-            self.mutation_seq += 1
-            seq = self.mutation_seq
-            t = self._table(table)
-            fast = self._try_fast_batch(table, t, family, keys, quals, vals)
-            if fast is not None:
-                if durable:
-                    self._wal_append_batch_columnar(
-                        table.encode(), family, key_blob, n, L, quals, vals)
-                return fast
-            rows = t.rows
-            # With no lower tiers the memtable is the whole truth, so
-            # existence is one dict probe.
-            pure_mem = not self._ssts and self._frozen is None
-            throttle = self.throttle_rows
-            batch_ok = False
-            try:
-                for k, q, v in zip(keys, quals, vals):
-                    row = rows.get(k)
-                    if row is None:
-                        if throttle is not None and len(rows) >= throttle:
-                            err = self._throttle_error(table)
-                            err.partial_existed = existed
-                            raise err
-                        e = not pure_mem and self._has_row_locked(table, k)
-                        row = rows[k] = {}
-                        t.pending.add(k)
-                        # One dirty entry per created row, never per point.
-                        t.dirty_add(k, seq)
-                    else:
-                        e = pure_mem or self._has_row_locked(table, k)
-                    row[(family, q)] = v
-                    existed.append(e)
-                batch_ok = True
-            finally:
-                # The applied prefix is acknowledged (on success, or via
-                # partial_existed), so its record reaches the OS before
-                # the call returns or raises. A WAL failure must not
-                # replace a throttle error in flight: callers rely on
-                # partial_existed.
-                m = len(existed)
-                if durable and m:
-                    try:
-                        self._wal_append_batch_columnar(
-                            table.encode(), family, key_blob[:m * L], m, L,
-                            quals[:m], vals[:m])
-                    except Exception:
-                        if batch_ok:
-                            raise
+        wal = durable and self._wal is not None
+        try:
+            with self._lock:
+                self.mutation_seq += 1
+                seq = self.mutation_seq
+                t = self._table(table)
+                fast = self._try_fast_batch(table, t, family, keys, quals,
+                                            vals)
+                if fast is not None:
+                    if wal:
+                        wal_record(len(keys))
+                    existed = fast
+                else:
+                    self._put_loop_locked(table, t, family, keys, quals,
+                                          vals, seq, existed, wal,
+                                          wal_record)
+                ticket = self._grp_ticket()
+        except BaseException:
+            # A mid-batch throttle has applied, and will acknowledge
+            # through partial_existed, a prefix whose records in group
+            # mode are still unflushed tickets: cover them before the
+            # exception escapes. A barrier failure must not replace the
+            # error in flight.
+            if sync and self._wal_group_ms > 0:
+                try:
+                    self.wal_barrier()
+                except Exception:
+                    pass
+            raise
+        if sync:
+            self._wal_barrier(ticket)
         return existed
+
+    def _put_loop_locked(self, table: str, t: _Table, family: bytes,
+                         keys: list[bytes], quals: list[bytes],
+                         vals: list[bytes], seq: int, existed: list[bool],
+                         wal: bool, wal_record) -> None:
+        """The per-cell loop of an irregular batch (lock held), appending
+        each applied cell's flag to ``existed``."""
+        rows = t.rows
+        # With no lower tiers the memtable is the whole truth, so
+        # existence is one dict probe.
+        pure_mem = not self._ssts and self._frozen is None
+        throttle = self.throttle_rows
+        batch_ok = False
+        try:
+            for k, q, v in zip(keys, quals, vals):
+                row = rows.get(k)
+                if row is None:
+                    if throttle is not None and len(rows) >= throttle:
+                        err = self._throttle_error(table)
+                        err.partial_existed = existed
+                        raise err
+                    e = not pure_mem and self._has_row_locked(table, k)
+                    row = rows[k] = {}
+                    t.pending.add(k)
+                    # One dirty entry per created row, never per point.
+                    t.dirty_add(k, seq)
+                else:
+                    e = pure_mem or self._has_row_locked(table, k)
+                row[(family, q)] = v
+                existed.append(e)
+            batch_ok = True
+        finally:
+            # The applied prefix is acknowledged (on success, or via
+            # partial_existed), so its record reaches the OS before the
+            # call returns or raises. A WAL failure must not replace a
+            # throttle error in flight: callers rely on partial_existed.
+            m = len(existed)
+            if wal and m:
+                try:
+                    wal_record(m)
+                except Exception:
+                    if batch_ok:
+                        raise
 
     def delete(self, table: str, key: bytes, family: bytes,
                qualifiers: list[bytes]) -> None:
@@ -1342,12 +1714,16 @@ class MemKVStore(KVStore):
             self._wal_append(_OP_DELETE, table.encode(), key, family,
                              *qualifiers)
             self._apply_delete(table, key, family, qualifiers)
+            ticket = self._grp_ticket()
+        self._wal_barrier(ticket)
 
     def delete_row(self, table: str, key: bytes) -> None:
         with self._lock:
             self.mutation_seq += 1
             self._wal_append(_OP_DELETE_ROW, table.encode(), key)
             self._apply_delete_row(table, key)
+            ticket = self._grp_ticket()
+        self._wal_barrier(ticket)
 
     # -- reads ------------------------------------------------------------
 
@@ -1386,6 +1762,28 @@ class MemKVStore(KVStore):
         if extra:
             keys = sorted(set(keys) | extra)
         return keys
+
+    def scan(self, table: str, start: bytes, stop: bytes,
+             family: bytes | None = None,
+             key_regexp: bytes | None = None) -> Iterator[list[Cell]]:
+        """One sorted cell list per row with key in [start, stop) (the
+        per-row read fsck uses; queries read through ``scan_raw``), with
+        ``scan_raw``'s snapshot semantics."""
+        pattern = re.compile(key_regexp, re.S) if key_regexp else None
+        with self._lock:
+            keys = self._snapshot_keys(table, start, stop)
+        for key in keys:
+            if pattern is not None and not pattern.match(key):
+                continue
+            with self._lock:
+                row = self._merged_row(table, key)
+                if not row:
+                    continue
+                cells = [Cell(key, f, q, v) for (f, q), v in row.items()
+                         if family is None or f == family]
+            cells.sort(key=lambda c: (c.family, c.qualifier))
+            if cells:
+                yield cells
 
     def scan_raw(self, table: str, start: bytes, stop: bytes,
                  family: bytes | None = None,
@@ -1515,6 +1913,8 @@ class MemKVStore(KVStore):
             self._wal_append(_OP_PUT, table.encode(), key, family,
                              qualifier, packed)
             self._apply_put(table, key, family, qualifier, packed)
+            ticket = self._grp_ticket()
+        self._wal_barrier(ticket)
         return value
 
     def compare_and_set(self, table: str, key: bytes, family: bytes,
@@ -1531,4 +1931,6 @@ class MemKVStore(KVStore):
             self._wal_append(_OP_PUT, table.encode(), key, family,
                              qualifier, value)
             self._apply_put(table, key, family, qualifier, value)
+            ticket = self._grp_ticket()
+        self._wal_barrier(ticket)
         return True

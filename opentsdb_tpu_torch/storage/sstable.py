@@ -47,10 +47,17 @@ writes a table with no rows as a footer entry of zero keys with an empty
 bloom, where the streaming writer leaves the table out. Both read the
 same.
 
+Fault points (``fault/faultpoints.py``), at the JAX writer's places
+and with its torn spans: ``sst.write.footer`` (footer, bloom and
+trailer written, not yet fsynced), ``sst.write.body`` (the temp file
+complete, not renamed) and ``sst.rename`` (renamed, the directory not
+yet fsynced). ``bloom_check`` is fsck's probe for bloom false
+negatives.
+
 Not ported yet: format v4 (TSST4, compressed columnar blocks; ROADMAP
-queue A item 5), whose generations are refused at open rather than
-half-read, the pipelined encode pool, fault points and the metrics
-registry.
+queue A item 5) with its ``sst.write.block`` fault point, whose
+generations are refused at open rather than half-read, the pipelined
+encode pool and the metrics registry.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ from typing import Iterable, Iterator
 import numpy as np
 
 from opentsdb_tpu_torch.core.const import TIMESTAMP_BYTES, UID_WIDTH
+from opentsdb_tpu_torch.fault.faultpoints import fire as _fault
 from opentsdb_tpu_torch.utils.nativeext import EXT as _EXT
 
 _MAGIC_V1 = b"TSST1"
@@ -183,6 +191,11 @@ def _write_bloom_and_trailer(f, ntables: int, footer_start: int,
             f.write(bits.tobytes())
     f.write(_TRAILER_V3.pack(ntables, footer_start, bloom_start))
     f.flush()
+    # Footer, bloom and trailer written, not yet durable: torn cuts inside
+    # this section (the bytes since footer_start), leaving a file whose
+    # index is garbage, which recovery must treat as a stray temp file.
+    _fault("sst.write.footer", getattr(f, "name", None),
+           max(f.tell() - footer_start, 1))
     os.fsync(f.fileno())
 
 
@@ -220,7 +233,13 @@ def _durable_rename(tmp: str, path: str) -> None:
     directory: the rename itself must be durable before the caller
     truncates its WAL, or a power loss could surface the old generation
     beside an already-truncated WAL."""
+    # The body complete in the page cache, not renamed: a crash leaves a
+    # temp file recovery ignores.
+    _fault("sst.write.body", tmp, 1 << 12)
     os.replace(tmp, path)
+    # The rename visible, the directory not yet fsynced: recovery must
+    # treat the new file as a stray until a manifest names it.
+    _fault("sst.rename", path)
     dfd = os.open(os.path.dirname(os.path.abspath(path)), os.O_RDONLY)
     try:
         os.fsync(dfd)
@@ -601,6 +620,26 @@ class SSTable:
             if not (bits[pos >> 3] >> (pos & 7)) & 1:
                 return False
         return True
+
+    def bloom_check(self, table: str) -> int | None:
+        """fsck's probe: how many of the table's indexed keys its bloom
+        excludes (must be 0: a false negative hides rows from pruned
+        scans). None when the table has no bloom."""
+        bits = self._blooms.get(table)
+        if bits is None:
+            return None
+        idx = self._index.get(table)
+        if not idx or not idx[0]:
+            return 0
+        hs = _bloom_hashes_for_keys(idx[0])
+        if hs is None:
+            # Short keys under a bloom: every such key is invisible to
+            # bloom-pruned scans.
+            return sum(1 for k in idx[0] if len(k) < _IDENT_HI)
+        pos = _bloom_positions(np.asarray(hs, np.uint64))
+        got = (bits[(pos >> np.uint64(3)).astype(np.int64)]
+               >> (pos & np.uint64(7)).astype(np.uint8)) & 1
+        return int((~got.all(axis=1)).sum())
 
     def has_key(self, table: str, key: bytes) -> bool:
         idx = self._index.get(table)

@@ -42,8 +42,12 @@ tier, and boot re-folds only the WAL-replayed memtable's series on top
 torn state file rebuilds from a full storage scan instead: totals come
 back exact, per-tenant splits re-accumulate.
 
-Left out (ROADMAP): the snapshot's two fault points (queue A item 3)
-and the ``/stats`` gauges, ``collect_stats`` (item 8).
+The snapshot's two fault points are the JAX package's:
+``tenant.snapshot.write`` (the temp file durable, the rename pending)
+and ``tenant.snapshot.commit`` (renamed).
+
+Left out (ROADMAP): the ``/stats`` gauges, ``collect_stats`` (queue A
+item 8).
 """
 
 from __future__ import annotations
@@ -54,6 +58,8 @@ import os
 import threading
 
 import numpy as np
+
+from opentsdb_tpu_torch.fault.faultpoints import fire as _fault
 
 _VERSION = 1
 
@@ -308,7 +314,10 @@ class TenantAccountant:
     def save(self, path: str | None = None) -> int:
         """Atomic snapshot (tmp + fsync + rename + dir fsync), called
         from the checkpoint bracket BEFORE the storage spill. Returns
-        the bytes written (0 without a path)."""
+        the bytes written (0 without a path). Fault points:
+        ``tenant.snapshot.write`` (a torn temp file leaves the previous
+        snapshot in place) and ``tenant.snapshot.commit`` (a torn final
+        file is the corruption the rebuild from storage absorbs)."""
         path = path or self.path
         if not path:
             return 0
@@ -348,6 +357,8 @@ class TenantAccountant:
             f.write(body)
             f.flush()
             os.fsync(f.fileno())
+        _fault("tenant.snapshot.write", tmp,
+               rec_bytes=min(len(body), 64))
         os.replace(tmp, path)
         try:
             dfd = os.open(os.path.dirname(path) or ".", os.O_RDONLY)
@@ -357,6 +368,8 @@ class TenantAccountant:
                 os.close(dfd)
         except OSError:
             pass
+        _fault("tenant.snapshot.commit", path,
+               rec_bytes=min(len(body), 64))
         self.snapshots_written += 1
         return len(body)
 

@@ -17,13 +17,15 @@ contract:
   the sum (any tenant's new series refuses once the whole directory
   hits it, named as such).
 
-Left out: the JAX package's ``TSDB_TENANT_BUG`` environment hook, which
-belongs to its fault harness (ROADMAP queue A item 3).
+Sabotage hook, as in the JAX package: ``TSDB_TENANT_BUG=no-limit``
+silently disables enforcement, so a harness can show that it catches a
+limiter that stopped limiting.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 
 from opentsdb_tpu_torch.core.errors import TenantLimitError
 
@@ -77,6 +79,10 @@ class TenantLimiter:
         spent; warn mode records + logs instead. Existing series never
         reach this — the caller checks the seen-set first."""
         if not self.enabled:
+            return
+        if os.environ.get("TSDB_TENANT_BUG") == "no-limit":
+            # The harness's gate: a disabled limiter must be caught by
+            # the harness, not discovered as an out-of-memory.
             return
         warn = self.mode == "warn"
         limit = self.limit_for(tenant)

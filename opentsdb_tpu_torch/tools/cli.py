@@ -1,7 +1,7 @@
-"""The ``tsd`` and ``tenants`` commands.
+"""The ``tsd``, ``tenants`` and ``fsck`` commands.
 
 Mirrors those subcommands of ``opentsdb_tpu/tools/cli.py`` (the
-reference's TSDMain.java for ``tsd``). The daemon serves on the CUDA card
+reference's TSDMain.java for ``tsd``, Fsck.java for ``fsck``). The daemon serves on the CUDA card
 unless ``--device cpu`` is given; ``--backend cpu`` answers queries with
 the float64 oracle instead of the kernels. As in the JAX package's
 daemon, the resident device window is on: ingest (and, at start-up, what
@@ -18,8 +18,17 @@ daemon freezes its heap out of cycle collection
     python -m opentsdb_tpu_torch.tools.cli tsd --port 4242 \\
         --wal /var/tsdb/wal --auto-metric
 
+``--shards N`` (N > 1) opens ``--wal`` as the directory of a
+series-sharded store (``storage/sharded.py``: ``shard-<i>/`` and
+``SHARDS.json``); the default 0 opens a sharded store exactly when
+``--wal`` already holds a ``SHARDS.json`` (its count wins), and an
+explicit count that disagrees with it is a hard error. ``--wal-group-ms``
+turns on WAL group commit in the daemon.
+
 ``tenants`` prints the per-tenant cardinality report of a store
 (``--wal``) or of a live daemon (``--url``, its ``/api/tenants``).
+``fsck`` checks a store (``tools/fsck.py``); ``--fix`` salvages bad rows
+and ``--expect-clean`` exits 2 on any error, even when fixed.
 """
 
 from __future__ import annotations
@@ -27,23 +36,40 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
 import signal
 import sys
+import time
 import urllib.request
 
 from opentsdb_tpu_torch.core.tsdb import TSDB
 from opentsdb_tpu_torch.server.tsd import TSDServer
-from opentsdb_tpu_torch.storage.kv import MemKVStore
+from opentsdb_tpu_torch.storage.kv import KVStore, MemKVStore
+from opentsdb_tpu_torch.storage.sharded import ShardedKVStore, manifest_path
 from opentsdb_tpu_torch.utils.config import Config
 from opentsdb_tpu_torch.utils.gctune import tune_for_ingest
 
 
+def open_store(cfg: Config, wal: str | None, shards: int = 0) -> KVStore:
+    """The store at ``wal``, replayed and opened: sharded when ``shards``
+    > 1 or ``wal`` holds a ``SHARDS.json`` (an explicit count, 1 included,
+    must then match it), else one WAL store."""
+    if shards > 1 or (wal and os.path.exists(manifest_path(wal))):
+        return ShardedKVStore(wal, shards=shards if shards >= 1 else None,
+                              data_table=cfg.table,
+                              throttle_rows=cfg.throttle_rows,
+                              fsync=cfg.fsync)
+    return MemKVStore(wal_path=wal, throttle_rows=cfg.throttle_rows,
+                      fsync=cfg.fsync)
+
+
 def open_tsdb(cfg: Config, wal: str | None,
-              start_compaction_thread: bool = True) -> TSDB:
-    """The store and TSDB the daemon serves: the WAL (or memory) store,
-    replayed and opened, under ``cfg``."""
-    return TSDB(MemKVStore(wal_path=wal, throttle_rows=cfg.throttle_rows),
-                cfg, start_compaction_thread=start_compaction_thread)
+              start_compaction_thread: bool = True,
+              shards: int = 0) -> TSDB:
+    """The store and TSDB the daemon serves: the WAL, sharded or memory
+    store (``open_store``), replayed and opened, under ``cfg``."""
+    return TSDB(open_store(cfg, wal, shards), cfg,
+                start_compaction_thread=start_compaction_thread)
 
 
 def cmd_tsd(args) -> int:
@@ -59,8 +85,9 @@ def cmd_tsd(args) -> int:
         tenant_global_max_series=args.tenant_global_max_series,
         tenant_limit_mode=args.tenant_limit_mode,
         tenant_overrides=tuple(args.tenant_override),
-        tenant_exact_cutoff=args.tenant_exact_cutoff)
-    tsdb = open_tsdb(cfg, args.wal)
+        tenant_exact_cutoff=args.tenant_exact_cutoff,
+        wal_group_ms=args.wal_group_ms)
+    tsdb = open_tsdb(cfg, args.wal, shards=args.shards)
     # The replayed WAL and the opened generations are in place: freeze
     # them out of cycle collection (utils/gctune.py).
     tune_for_ingest()
@@ -99,7 +126,7 @@ def cmd_tenants(args) -> int:
         tsdb = open_tsdb(Config(table=args.table, uidtable=args.uidtable,
                                 backend=args.backend, device=args.device,
                                 device_window=False), args.wal,
-                         start_compaction_thread=False)
+                         start_compaction_thread=False, shards=args.shards)
         try:
             info = tsdb.tenants.snapshot_info(tsdb.tenant_limits)
         finally:
@@ -136,11 +163,60 @@ def cmd_tenants(args) -> int:
     return 0
 
 
+def cmd_fsck(args) -> int:
+    """Table consistency check (``tools/fsck.py``): qualifiers, values,
+    duplicate or out-of-order points, series blooms; ``--fix`` rewrites
+    bad rows. ``--expect-clean`` exits 2 on any error found, even under
+    ``--fix``: a store that needed fixing after a crash is a failed
+    invariant."""
+    from opentsdb_tpu_torch.tools.fsck import run_fsck
+
+    # A storage tool: no window to warm, no sketches to re-fold (the
+    # port's full re-fold refuses the conflicting duplicates fsck is here
+    # to report). It closes the store without a checkpoint, so the
+    # snapshots beside it stay as they were and the next open re-folds
+    # the rows --fix rewrote from the WAL.
+    tsdb = open_tsdb(Config(table=args.table, uidtable=args.uidtable,
+                            backend=args.backend, device=args.device,
+                            device_window=False, enable_sketches=False),
+                     args.wal, start_compaction_thread=False,
+                     shards=args.shards)
+    try:
+        t0 = time.time()
+        rep = run_fsck(tsdb, fix=args.fix, log=print)
+        print(f"sstables: {rep.bloomed} with series blooms, {rep.plain} "
+              f"bloomless/legacy, {rep.bloom_misses} bloom false "
+              f"negatives")
+        if rep.format_counts:
+            mix = " ".join(f"v{fmt}={n}" for fmt, n in
+                           sorted(rep.format_counts.items()))
+            print(f"sstable formats: {mix}")
+        dt = max(time.time() - t0, 1e-9)
+        print(f"{rep.kvs} KVs (in {rep.rows} rows) analyzed in "
+              f"{dt * 1000:.0f}ms (~{rep.kvs / dt:.0f} KV/s)")
+        print(f"Found {rep.errors} errors."
+              + (f" Fixed {rep.fixed} rows." if args.fix else ""))
+    finally:
+        tsdb.compactionq.shutdown()
+        tsdb.store.close()
+    if args.expect_clean and rep.errors:
+        return 2
+    return 1 if rep.errors and not args.fix else 0
+
+
 def _store_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--table", default="tsdb")
     p.add_argument("--uidtable", default="tsdb-uid")
     p.add_argument("--wal", default=None, help="WAL file path (durable "
                    "state; the JAX package's WAL format)")
+    p.add_argument("--shards", type=int, default=0,
+                   help="partition storage into N series-sharded KVStore "
+                        "shards; with N > 1 the --wal path is the store "
+                        "DIRECTORY (shard-<i>/ subdirs + SHARDS.json). "
+                        "0 = auto: sharded iff --wal already holds a "
+                        "SHARDS.json manifest (its count wins); an "
+                        "explicit N that disagrees with the manifest is "
+                        "a hard error")
     p.add_argument("--backend", default="device", choices=["device", "cpu"],
                    help="device: the port's kernels; cpu: the float64 "
                         "oracle")
@@ -162,6 +238,13 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--checkpoint-interval", type=float, default=0.0,
                    help="seconds between sstable spills + WAL truncation "
                         "(0 disables; requires --wal)")
+    p.add_argument("--wal-group-ms", type=float, default=0.0,
+                   help="WAL group-commit window in ms: concurrent "
+                        "durable appends coalesce into one WAL "
+                        "write+fsync per window, acks release only "
+                        "after the covering fsync (storage/kv.py). "
+                        "0 (default) = legacy per-barrier flushing, "
+                        "bit-identical WAL bytes")
     # Tenant cardinality control plane (tenant/).
     p.add_argument("--tenant-max-series", type=int, default=0,
                    help="refuse a NEW series from any tenant already "
@@ -209,6 +292,14 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--top", type=int, default=3,
                    help="heavy-hitter rows to print per tenant")
     p.set_defaults(func=cmd_tenants)
+
+    p = sub.add_parser("fsck", help="check table consistency")
+    _store_args(p)
+    p.add_argument("--fix", action="store_true")
+    p.add_argument("--expect-clean", action="store_true",
+                   help="exit 2 if ANY error is found (even with "
+                        "--fix) — the crash-harness/CI contract")
+    p.set_defaults(func=cmd_fsck)
     args = parser.parse_args(argv)
     return args.func(args)
 

@@ -1,9 +1,9 @@
 """The port's configuration object and device resolution.
 
 Mirrors ``opentsdb_tpu/utils/config.py`` of the JAX package, trimmed to
-the fields this port reads (the resident window's, the spill tier's, the
-live sketches' and the fragment cache's among them, with the JAX
-package's defaults), plus
+the fields this port reads (the resident window's, the spill tier's and
+its durability knobs, the live sketches' and the fragment cache's among
+them, with the JAX package's defaults), plus
 ``device``: where the query kernels run.
 ``backend="cpu"`` keeps its JAX-package meaning — the float64 numpy
 oracle answers every query (``ops/oracle.py``) — and is independent of
@@ -24,6 +24,14 @@ class Config:
     table: str = "tsdb"
     uidtable: str = "tsdb-uid"
     throttle_rows: int | None = None  # memtable rows before PleaseThrottle
+    # fsync the WAL at every flush (power-loss safety; off by default, as
+    # in the JAX package).
+    fsync: bool = False
+    # WAL group commit (storage/kv.py): > 0 lets concurrent appends share
+    # one flush (+ fsync) per this many milliseconds; acknowledgements
+    # still wait for the covering flush, so durability is unchanged. 0
+    # (default) flushes every append, with the same WAL bytes.
+    wal_group_ms: float = 0.0
 
     # core behavior (names mirror the reference's system properties)
     auto_create_metrics: bool = False   # tsd.core.auto_create_metrics

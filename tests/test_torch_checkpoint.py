@@ -791,13 +791,22 @@ def test_jax_serves_port_checkpointed_store(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_refuses_sharded_store(tmp_path):
+    """A sharded store's root handed to MemKVStore is refused with an
+    error naming the class that opens it; ShardedKVStore reads it."""
     from opentsdb_tpu.storage.sharded import ShardedKVStore
+    from opentsdb_tpu_torch.storage.sharded import \
+        ShardedKVStore as PortSharded
     d = str(tmp_path / "store")
     s = ShardedKVStore(d, shards=2)
     s.put(T, _key(0, 1), F, b"\x00\x01", b"v")
     s.close()
-    with pytest.raises(RuntimeError, match="item 3"):
+    with pytest.raises(RuntimeError, match="ShardedKVStore"):
         port_kv.MemKVStore(wal_path=d)
+    p = PortSharded(d)
+    try:
+        assert [c.value for c in p.get(T, _key(0, 1))] == [b"v"]
+    finally:
+        p.close()
 
 
 def test_refuses_wal_epoch_header(tmp_path):

@@ -134,3 +134,24 @@ def test_native_sources_live_in_the_port():
         assert re.search(r"""tsd_ingest_ext["']""", text) is None, path
         if path != os.path.join(pkg, "utils", "nativeext.py"):
             assert named.search(text) is None, path
+
+
+def test_fault_sharded_and_fsck_live_in_the_port():
+    """The port's fault points, sharded store and fsck are its own: no
+    module names the JAX package's fault, sharded-store or fsck modules,
+    and the crash harness spawns the port's harness as its child."""
+    import re
+    from opentsdb_tpu_torch.fault import harness
+    pkg = os.path.join(ROOT, "opentsdb_tpu_torch")
+    banned = re.compile(r"opentsdb_tpu\.(fault|storage\.sharded|"
+                        r"tools\.fsck)\b")
+    for d, dirs, files in os.walk(pkg):
+        dirs[:] = [x for x in dirs if x not in ("_build", "__pycache__")]
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(d, fn)
+                assert banned.search(open(path).read()) is None, path
+    sc = harness.Scenario(label="x", site="kv.wal.append", mode="crash")
+    cmd = harness.child_command(sc, "/store", "/progress")
+    assert cmd[1:4] == ["-m", "opentsdb_tpu_torch.fault.harness", "--child"]
+    assert "opentsdb_tpu_torch.fault.harness" in harness.repro_command(sc)
