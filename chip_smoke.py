@@ -182,9 +182,10 @@
    scan, ``{host=h00001}``'s ``bloom_shards_skipped`` (a positive
    multiple of SHARDS - 1: its one series routes to one shard) and
    ``tools/fsck.run_fsck`` clean, as on the one-shard store at the end of
-   the restart phase. Then the writer-pause A/B: PAUSE_SERIES corpus
-   series into a 1-shard and a SHARDS-shard store (group commit off),
-   each checkpointed while a writer ingests.
+   the restart phase. Then the 1-vs-SHARDS A/B with group commit off:
+   the whole corpus through ``add_batch`` into a 1-shard and a
+   SHARDS-shard store (the ingest rate of each), each then checkpointed
+   while a writer ingests (the pause it sees over a full memtable).
 6. Refusal phase: a small second daemon on the card with
    ``tenant_max_series=1`` must refuse a new series over telnet (the bulk
    path's and the per-line path's declared lines) and over ``/api/put``
@@ -342,8 +343,6 @@ NATIVE_STAGES: dict = {}
 # batch's shape), and the writer that ingests while checkpoints run.
 SHARDS, WAL_GROUP_MS, BARRIER_SERIES = 4, 2.0, 100
 WRITER_SERIES, WRITER_POINTS = 1_000, 1_000
-# Corpus series per store of the writer-pause A/B (1 vs SHARDS shards).
-PAUSE_SERIES = 2_000
 # The one-shard daemon's answers (path phase, before any checkpoint): the
 # sharded phase's reference.
 REFERENCE: dict = {}
@@ -2096,21 +2095,26 @@ def writer_during(tsdb: TSDB, action, series: int, points: int,
 
 
 def writer_pause_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
-    """The pause a writer sees during a checkpoint, 1 shard against
-    SHARDS (group commit off, the default Config otherwise): each store
-    takes the first PAUSE_SERIES corpus series, then checkpoints while a
-    writer ingests WRITER_SERIES more."""
+    """1 shard against SHARDS with group commit off (the default Config
+    otherwise): each store takes the whole corpus through ``add_batch``
+    (timed: what the shard count alone does to ingest), then checkpoints
+    that full memtable while a writer ingests WRITER_SERIES more (the
+    pause a writer sees)."""
     out = {}
     for shards in (1, SHARDS):
         with tempfile.TemporaryDirectory() as d:
             tsdb = open_tsdb(Config(auto_create_metrics=True, device=DEVICE),
                              os.path.join(d, "store"), shards=shards)
             try:
-                for s in range(PAUSE_SERIES):
+                t0 = time.perf_counter()
+                for s in range(len(ts)):
                     tsdb.add_batch("bench.metric", ts[s], vals[s],
                                    series_tags(s))
+                ingest_s = time.perf_counter() - t0
                 got = writer_during(tsdb, tsdb.checkpoint, WRITER_SERIES,
                                     WRITER_POINTS, seed=31)
+                got["ingest_s"] = ingest_s
+                got["add_batch_points_per_s"] = ts.size / ingest_s
                 got["rows"] = got.pop("result")
                 got["spill_s"] = list(getattr(tsdb.store, "spill_seconds",
                                               [got["seconds"]]))

@@ -5,9 +5,10 @@ the port's tiers. One scenario:
 
 1. spawn a child process (``python -m opentsdb_tpu_torch.fault.harness
    --child``) that runs a seeded, deterministic ingest / backfill / delete
-   / checkpoint workload against a real store (``device="cpu"``, window
-   and sketches off, as the JAX child runs), with one failpoint armed
-   through ``TSDB_FAULTPOINTS`` (``fault/faultpoints.py``);
+   / checkpoint workload against a real store (the float64 host backend,
+   window and sketches off, as the JAX child runs; on the card unless
+   ``--device cpu`` asks for the CPU), with one failpoint armed through
+   ``TSDB_FAULTPOINTS`` (``fault/faultpoints.py``);
 2. the armed site kills the child (``os._exit``: the flock drops, the
    page cache survives, as under SIGKILL);
 3. the parent reopens the store and checks the crash-consistency
@@ -39,9 +40,10 @@ Left out (ROADMAP queue A): the rollup rows and the rollup query parity
 promote kinds and the replica refresh check (item 10), and
 ``meshreshard`` (item 11).
 
-Run the port's matrix (or one scenario) on the CPU::
+Run the port's matrix (or one scenario); ``--device cpu`` on a host
+without a card::
 
-    python -m opentsdb_tpu_torch.fault.harness --fast
+    python -m opentsdb_tpu_torch.fault.harness --fast --device cpu
     python -m opentsdb_tpu_torch.fault.harness --only ckpt-freeze-crash-s4
     python -m opentsdb_tpu_torch.fault.harness --site kv.wal.append \\
         --mode torn --skip 2 --shards 1 --seed 1001 --n-ops 36
@@ -105,6 +107,8 @@ class Scenario:
     # are reachable and acknowledged ops must be covered by a group flush
     # before the progress file sees them.
     wal_group_ms: float = 0.0
+    # Config.device of the child's and the verifier's TSDB.
+    device: str = "cuda"
 
 
 # ---------------------------------------------------------------------------
@@ -224,13 +228,13 @@ def open_store(dirpath: str, shards: int):
 
 
 def open_tsdb(dirpath: str, shards: int, tenant_cutoff: int = -1,
-              wal_group_ms: float = 0.0) -> TSDB:
-    """The writer TSDB with the harness's profile: the CPU and the float64
-    oracle, sketches and the device window off, compactions off and no
+              wal_group_ms: float = 0.0, device: str = "cuda") -> TSDB:
+    """The writer TSDB with the harness's profile: the float64 host
+    backend, sketches and the device window off, compactions off and no
     background thread (a deterministic schedule). Tenant accounting stays
     on (its default): every crash scenario is also a recovery check of
     the tenant snapshot."""
-    cfg = Config(device="cpu", backend="cpu", auto_create_metrics=True,
+    cfg = Config(device=device, backend="cpu", auto_create_metrics=True,
                  enable_compactions=False, enable_sketches=False,
                  device_window=False, wal_group_ms=wal_group_ms)
     if tenant_cutoff >= 0:
@@ -306,7 +310,7 @@ def _child_main(args) -> int:
         _apply_bug(args.bug)
     tsdb = open_tsdb(args.dir, args.shards,
                      tenant_cutoff=args.tenant_cutoff,
-                     wal_group_ms=args.wal_group_ms)
+                     wal_group_ms=args.wal_group_ms, device=args.device)
     with open(args.progress, "a") as pf:
         for i, op in enumerate(ops):
             apply_op(tsdb, op)
@@ -443,7 +447,7 @@ def verify(dirpath: str, sc: Scenario, ops: list[tuple],
     try:
         tsdb = open_tsdb(dirpath, sc.shards,
                          tenant_cutoff=sc.tenant_cutoff,
-                         wal_group_ms=sc.wal_group_ms)
+                         wal_group_ms=sc.wal_group_ms, device=sc.device)
     except Exception as e:
         return [f"reopen failed: {e!r}"], ""
     try:
@@ -487,7 +491,7 @@ def child_command(sc: Scenario, store_dir: str, progress: str) -> list[str]:
     cmd = [sys.executable, "-m", "opentsdb_tpu_torch.fault.harness",
            "--child", "--dir", store_dir, "--seed", str(sc.seed),
            "--n-ops", str(sc.n_ops), "--shards", str(sc.shards),
-           "--progress", progress]
+           "--device", sc.device, "--progress", progress]
     if sc.delete_heavy:
         cmd.append("--delete-heavy")
     if sc.bug:
@@ -553,7 +557,7 @@ def repro_command(sc: Scenario) -> str:
     reproduce too)."""
     out = (f"python -m opentsdb_tpu_torch.fault.harness --site {sc.site} "
            f"--mode {sc.mode} --skip {sc.skip} --shards {sc.shards} "
-           f"--seed {sc.seed} --n-ops {sc.n_ops}")
+           f"--seed {sc.seed} --n-ops {sc.n_ops} --device {sc.device}")
     if sc.delete_heavy:
         out += " --delete-heavy"
     if sc.bug:
@@ -732,6 +736,9 @@ def main(argv=None) -> int:
     p.add_argument("--bug", default=None, choices=BUGS)
     p.add_argument("--tenant-cutoff", type=int, default=-1)
     p.add_argument("--wal-group-ms", type=float, default=0.0)
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="Config.device of the workload and the verifier "
+                        "(cpu on a host without a card)")
     p.add_argument("--site", default=None,
                    help="run one ad-hoc scenario at this failpoint site")
     p.add_argument("--mode", default="crash", choices=("crash", "torn"))
@@ -759,6 +766,7 @@ def main(argv=None) -> int:
     else:
         scens = [s for s in build_matrix()
                  if not args.only or any(o in s.label for o in args.only)]
+    scens = [dataclasses.replace(s, device=args.device) for s in scens]
     work = args.work_dir or tempfile.mkdtemp(prefix="crashmatrix-")
     results = run_matrix(scens, work, log=print)
     if args.json:

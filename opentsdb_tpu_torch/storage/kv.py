@@ -180,11 +180,6 @@ class KVStore:
     def delete_row(self, table: str, key: bytes) -> None:
         raise NotImplementedError
 
-    def scan(self, table: str, start: bytes, stop: bytes,
-             family: bytes | None = None,
-             key_regexp: bytes | None = None) -> Iterator[list[Cell]]:
-        raise NotImplementedError
-
     def scan_raw(self, table: str, start: bytes, stop: bytes,
                  family: bytes | None = None,
                  key_regexp: bytes | None = None,
@@ -1762,28 +1757,6 @@ class MemKVStore(KVStore):
         if extra:
             keys = sorted(set(keys) | extra)
         return keys
-
-    def scan(self, table: str, start: bytes, stop: bytes,
-             family: bytes | None = None,
-             key_regexp: bytes | None = None) -> Iterator[list[Cell]]:
-        """One sorted cell list per row with key in [start, stop) (the
-        per-row read fsck uses; queries read through ``scan_raw``), with
-        ``scan_raw``'s snapshot semantics."""
-        pattern = re.compile(key_regexp, re.S) if key_regexp else None
-        with self._lock:
-            keys = self._snapshot_keys(table, start, stop)
-        for key in keys:
-            if pattern is not None and not pattern.match(key):
-                continue
-            with self._lock:
-                row = self._merged_row(table, key)
-                if not row:
-                    continue
-                cells = [Cell(key, f, q, v) for (f, q), v in row.items()
-                         if family is None or f == family]
-            cells.sort(key=lambda c: (c.family, c.qualifier))
-            if cells:
-                yield cells
 
     def scan_raw(self, table: str, start: bytes, stop: bytes,
                  family: bytes | None = None,

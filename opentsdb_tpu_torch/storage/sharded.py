@@ -92,8 +92,8 @@ class ShardedKVStore(KVStore):
 
     def __init__(self, dir_path: str | None, shards: int | None = None,
                  data_table: str = "tsdb",
-                 throttle_rows: int | None = None, fsync: bool = False,
-                 spill_workers: int | None = None) -> None:
+                 throttle_rows: int | None = None,
+                 fsync: bool = False) -> None:
         self._dir = dir_path
         self.data_table = data_table
         # Whole shards dropped from a fan-out by the series hint.
@@ -148,8 +148,6 @@ class ShardedKVStore(KVStore):
         if n < 1:
             raise ValueError(f"shard count must be >= 1, got {n}")
         self.shard_count = n
-        self._spill_workers = (spill_workers if spill_workers
-                               else min(n, max(os.cpu_count() or 2, 2)))
         # The naming root of the store-global snapshots (TSDB's
         # _sketch_path): they live beside the manifest, in no shard.
         self._wal_path = (os.path.join(dir_path, "store")
@@ -342,16 +340,6 @@ class ShardedKVStore(KVStore):
 
     # -- scans (cross-shard fan-in) -----------------------------------------
 
-    def scan(self, table: str, start: bytes, stop: bytes,
-             family: bytes | None = None,
-             key_regexp: bytes | None = None) -> Iterator[list[Cell]]:
-        """Ordered fan-in of every shard's sorted scan (shard key sets are
-        disjoint, so the merge is an interleave). Snapshot semantics are
-        per shard."""
-        its = [s.scan(table, start, stop, family=family,
-                      key_regexp=key_regexp) for s in self.shards]
-        return heapq.merge(*its, key=lambda cells: cells[0].key)
-
     def scan_raw(self, table: str, start: bytes, stop: bytes,
                  family: bytes | None = None,
                  key_regexp: bytes | None = None,
@@ -488,10 +476,10 @@ class ShardedKVStore(KVStore):
                 total += self._timed_spill(i)
                 _fp.fire("sharded.spill.shard", self._dir)
             return total
-        if self.shard_count == 1 or self._spill_workers <= 1:
-            return sum(self._timed_spill(i)
-                       for i in range(self.shard_count))
-        with ThreadPoolExecutor(max_workers=self._spill_workers,
+        if self.shard_count == 1:
+            return self._timed_spill(0)
+        workers = min(self.shard_count, max(os.cpu_count() or 2, 2))
+        with ThreadPoolExecutor(max_workers=workers,
                                 thread_name_prefix="shard-spill") as pool:
             return sum(pool.map(self._timed_spill,
                                 range(self.shard_count)))

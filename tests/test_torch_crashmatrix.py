@@ -25,7 +25,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _by_label():
-    return {s.label: s for s in harness.build_matrix()}
+    """The matrix rows, run on the CPU (the harness defaults to the card)."""
+    return {s.label: dataclasses.replace(s, device="cpu")
+            for s in harness.build_matrix()}
 
 
 def test_matrix_shape():
@@ -97,7 +99,8 @@ def test_same_seed_same_fingerprint(tmp_path):
     out = tmp_path / "matrix.json"
     proc = subprocess.run(
         [sys.executable, "-m", "opentsdb_tpu_torch.fault.harness",
-         "--only", "ckpt-commit-crash-s4", "--json", str(out),
+         "--only", "ckpt-commit-crash-s4", "--device", "cpu",
+         "--json", str(out),
          "--work-dir", str(tmp_path / "b")],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -111,7 +114,7 @@ def test_same_seed_same_fingerprint(tmp_path):
 
 def test_child_scenarios_reject_inprocess_modes(tmp_path):
     sc = harness.Scenario(label="bad-mode", site="kv.wal.fsync",
-                          mode="delay")
+                          mode="delay", device="cpu")
     with pytest.raises(ValueError, match="crash/torn"):
         harness.run_scenario(sc, str(tmp_path))
 
@@ -120,7 +123,7 @@ def test_unreachable_site_reports_not_hit(tmp_path):
     """Group-commit sites without group commit never fire: reported, not
     counted as covered."""
     sc = harness.Scenario(label="unreachable", site="kv.wal.group.write",
-                          mode="crash", n_ops=8)
+                          mode="crash", n_ops=8, device="cpu")
     res = harness.run_scenario(sc, str(tmp_path), shrink=False)
     assert res["status"] == "not-hit"
 
@@ -151,7 +154,7 @@ def test_crashed_store_recovers_alike_in_both_packages(tmp_path):
     assert 0 < done and not finished
     for name in ("port", "jax"):
         shutil.copytree(store, tmp_path / name)
-    pt = harness.open_tsdb(str(tmp_path / "port"), sc.shards)
+    pt = harness.open_tsdb(str(tmp_path / "port"), sc.shards, device="cpu")
     jt = jax_harness.open_tsdb(str(tmp_path / "jax"), sc.shards,
                                rollups=False)
     try:
@@ -168,7 +171,7 @@ def test_crashed_store_recovers_alike_in_both_packages(tmp_path):
 
 @pytest.mark.slow
 def test_full_matrix(tmp_path):
-    results = harness.run_matrix(harness.build_matrix(), str(tmp_path),
+    results = harness.run_matrix(list(_by_label().values()), str(tmp_path),
                                  shrink=False)
     bad = [(r["label"], r["status"], r["problems"][:2])
            for r in results if r["status"] != "ok"]

@@ -154,4 +154,7 @@ def test_fault_sharded_and_fsck_live_in_the_port():
     sc = harness.Scenario(label="x", site="kv.wal.append", mode="crash")
     cmd = harness.child_command(sc, "/store", "/progress")
     assert cmd[1:4] == ["-m", "opentsdb_tpu_torch.fault.harness", "--child"]
+    # An entry point of the port: the child runs on the card unless the
+    # caller asks for the CPU.
+    assert cmd[cmd.index("--device") + 1] == "cuda"
     assert "opentsdb_tpu_torch.fault.harness" in harness.repro_command(sc)

@@ -106,8 +106,8 @@ def test_scan_is_globally_ordered():
     keys = [rowkey(t, h) for t in range(20) for h in range(3)]
     for k in reversed(keys):
         s.put(T, k, F, b"q", b"v" + k[-1:])
-    assert [c[0].key for c in s.scan(T, b"", b"")] == sorted(keys)
-    assert [r[0] for r in s.scan_raw(T, b"", b"")] == sorted(keys)
+    assert list(s.scan_raw(T, b"", b"")) == \
+        [(k, [(b"q", b"v" + k[-1:])]) for k in sorted(keys)]
 
 
 def test_scan_range_and_regexp():
@@ -115,10 +115,10 @@ def test_scan_range_and_regexp():
     for t in range(10):
         s.put(T, rowkey(t), F, b"q", b"v")
     lo, hi = rowkey(2), rowkey(7)
-    assert [c[0].key for c in s.scan(T, lo, hi)] == \
+    assert [r[0] for r in s.scan_raw(T, lo, hi)] == \
         sorted(rowkey(t) for t in range(2, 7))
     rx = b"(?s)^.{7}.{3}" + struct.pack(">I", 4)[1:] + b"$"
-    assert [c[0].key for c in s.scan(T, b"", b"", key_regexp=rx)] == \
+    assert [r[0] for r in s.scan_raw(T, b"", b"", key_regexp=rx)] == \
         [rowkey(4)]
 
 
@@ -263,7 +263,7 @@ def test_crash_replay_per_shard(tmp_path):
     s.put_many(T, F, [(k, b"q", b"v" + k[-1:]) for k in keys])
     s._simulate_crash()
     s2 = ShardedKVStore(d)
-    assert [c[0].key for c in s2.scan(T, b"", b"")] == sorted(keys)
+    assert [r[0] for r in s2.scan_raw(T, b"", b"")] == sorted(keys)
     for k in keys:
         assert s2.get(T, k, F) == [Cell(k, F, b"q", b"v" + k[-1:])]
     s2.close()
