@@ -186,6 +186,25 @@
    the whole corpus through ``add_batch`` into a 1-shard and a
    SHARDS-shard store (the ingest rate of each), each then checkpointed
    while a writer ingests (the pause it sees over a full memtable).
+5c. Observability (``obs/``), on the path phase's daemon at full width
+   before the restart: one resident and one scan ``/q?trace=1`` (the
+   ``{dc=dc0}`` day's ``zimsum``); each span tree must have the names and
+   plan tags the JAX daemon gives for that plan (resident: the root over
+   one ``planner.pick``; scan: ``planner.pick``, ``scan`` with its
+   fragment-cache tags over ``chunk.decode`` spans, ``aggregate``), and
+   every span's children must sum to at most its own wall time. Each is
+   run once more under ``torch.profiler``: its spans' ms print beside the
+   card's busy ms. The resident query alternates untraced and traced
+   warm runs (the cost of tracing). ``/stats``, ``/stats?json``,
+   ``/metrics`` (valid Prometheus text), ``/logs``, ``/api/traces``,
+   ``/api/queries`` and the telnet ``stats`` command must answer. The
+   sharded phase traces the same scan query over its 4 shards (one
+   ``shard.scan`` span per shard under each ``chunk.decode``) and takes
+   its two checkpoints' ``checkpoint.phase`` and ``checkpoint.shard_spill``
+   split from the daemon's ``/stats``; the restart phase's daemon gives the
+   ``wal.append``, ``wal.fsync``, ``ingest.parse`` and ``checkpoint.phase``
+   percentiles (process-wide since the smoke began). One ``obs`` stdout
+   line carries these.
 6. Refusal phase: a small second daemon on the card with
    ``tenant_max_series=1`` must refuse a new series over telnet (the bulk
    path's and the per-line path's declared lines) and over ``/api/put``
@@ -200,7 +219,7 @@
    query reaching before it away.
 8. Prints the card line first; at the end the per-query, sketch,
    ingest, profiler, tenants, restart, native (build seconds and calls
-   per C site, per stage, and the WAL replay), sharded, budget and
+   per C site, per stage, and the WAL replay), sharded, obs, budget and
    launch-floor lines, the
    kernels
    line (eight
@@ -245,6 +264,7 @@ import numpy as np
 import torch
 
 from opentsdb_tpu_torch.core.tsdb import TSDB
+from opentsdb_tpu_torch.obs.registry import METRICS
 from opentsdb_tpu_torch.ops import (cuda_build, interp_moments,
                                     kernels as wk, masked_select, oracle,
                                     segment_reduce, sketches)
@@ -1357,6 +1377,246 @@ class GcClock:
             self.ms[g] += (time.perf_counter() - self._t) * 1e3
 
 
+# ---------------------------------------------------------------------------
+# Observability
+# ---------------------------------------------------------------------------
+
+OBS_SCAN_QUERY = UNION_QUERIES[1]      # zimsum {dc=dc0} over one day
+OBS_REPS = 10                          # untraced / traced warm pairs
+OBS_ROUTES = ("/stats", "/stats?json", "/metrics", "/logs",
+              "/api/traces", "/api/queries")
+
+
+def validate_exposition(text: str) -> int:
+    """Prometheus text exposition, checked the way scrapers fail on it:
+    each sample under a ``# TYPE`` line of its family that precedes it,
+    families contiguous, no (name, labels) twice, every value a float.
+    Returns the sample count."""
+    declared: dict = {}
+    seen = set()
+    current = None
+    n = 0
+    for line in text.rstrip("\n").split("\n"):
+        if line.startswith("# TYPE "):
+            _, _, name, ftype = line.split(" ")
+            if name in declared or ftype not in (
+                    "counter", "gauge", "summary", "histogram", "untyped"):
+                fail(f"/metrics: bad or repeated TYPE line {line!r}")
+            declared[name] = ftype
+            current = name
+            continue
+        name, _, rest = line.partition("{")
+        if rest:
+            labels, _, value = rest.partition("} ")
+        else:
+            name, _, value = line.partition(" ")
+            labels = ""
+        ok = {current} | ({current + "_count", current + "_sum"}
+                          if declared.get(current) == "summary" else set())
+        float(value)
+        if current is None or name not in ok or (name, labels) in seen:
+            fail(f"/metrics: sample {line!r} outside its family")
+        seen.add((name, labels))
+        n += 1
+    return n
+
+
+def stat_lines(port: int) -> dict:
+    """name -> {tags (host aside) -> value} of the daemon's /stats."""
+    status, body = http_get(port, "/stats")
+    if status != 200:
+        fail(f"/stats: HTTP {status}")
+    out: dict = {}
+    for ln in body.decode().splitlines():
+        parts = ln.split()
+        tags = " ".join(t for t in parts[3:] if not t.startswith("host="))
+        out.setdefault(parts[0], {})[tags] = float(parts[2])
+    return out
+
+
+def timer_lines(stats: dict, name: str) -> dict:
+    """A timer's /stats lines by tag set: p50/p95/p99, count, sum_ms."""
+    out: dict = {}
+    for tags, v in stats.get(f"tsd.{name}", {}).items():
+        base = " ".join(t for t in tags.split()
+                        if not t.startswith("percentile="))
+        pct = tags.split("percentile=")[-1] if "percentile=" in tags else ""
+        out.setdefault(base, {})[f"p{pct}"] = v
+    for suffix in ("count", "sum_ms"):
+        for tags, v in stats.get(f"tsd.{name}.{suffix}", {}).items():
+            out.setdefault(tags, {})[suffix] = v
+    return out
+
+
+def timer_totals(name: str) -> dict:
+    """count and sum_ms per tag set of one registry timer, read in
+    process (for the deltas across a stretch of the smoke)."""
+    return {" ".join(f"{k}={v}" for k, v in tkey): (obj.count,
+                                                     obj.total_ms)
+            for n, kind, tkey, obj in METRICS._snapshot() if n == name}
+
+
+def timer_delta(before: dict, after: dict) -> dict:
+    return {tags: {"count": c - before.get(tags, (0, 0.0))[0],
+                   "sum_ms": s - before.get(tags, (0, 0.0))[1]}
+            for tags, (c, s) in sorted(after.items())}
+
+
+def span_names(tree: dict) -> list:
+    return [tree["name"]] + [n for c in tree.get("spans", ())
+                             for n in span_names(c)]
+
+
+def check_children_fit(tree: dict, what: str) -> None:
+    """Each span's children take at most its own wall time (the
+    rounding of three decimals aside)."""
+    kids = tree.get("spans", ())
+    total = sum(k["ms"] for k in kids)
+    if total > tree["ms"] + 1e-3 * (len(kids) + 1):
+        fail(f"{what}: the children of {tree['name']} sum to {total} ms "
+             f"over its {tree['ms']} ms")
+    for k in kids:
+        check_children_fit(k, what)
+
+
+def check_scan_tree(tree: dict, expr: str, shards: int) -> None:
+    """The JAX daemon's tree for a raw (scan) plan: planner.pick, scan
+    (cached, qcache_* tags) over chunk.decode spans (one shard.scan per
+    shard under each over a sharded store), aggregate."""
+    top = [c["name"] for c in tree.get("spans", ())]
+    if top != ["planner.pick", "scan", "aggregate"] \
+            or tree["tags"] != {"q": expr, "plan": "raw", "cached": False}:
+        fail(f"{expr}: scan trace shape {top} {tree['tags']}")
+    pick, scan, _ = tree["spans"]
+    if pick.get("tags") != {"plan": "raw"} or "spans" in pick:
+        fail(f"{expr}: planner.pick {pick}")
+    # All chunks in the memtable: one unchunked scan, counted as bypasses
+    # alone; otherwise the hit, miss and bypass counts.
+    qtags = set(scan["tags"]) - {"cached"}
+    if scan["tags"].get("cached") is not False or not qtags or not qtags \
+            <= {"qcache_hit", "qcache_miss", "qcache_bypass"}:
+        fail(f"{expr}: scan tags {scan['tags']}")
+    decodes = scan.get("spans", ())
+    if not decodes or any(
+            d["name"] != "chunk.decode"
+            or d["tags"]["outcome"] not in ("unchunked", "bypass", "miss")
+            for d in decodes):
+        fail(f"{expr}: scan children {[d['name'] for d in decodes]}")
+    for d in decodes:
+        kids = d.get("spans", ())
+        got = sorted(k["tags"]["shard"] for k in kids)
+        if shards > 1 and (len(set(got)) != len(got)
+                           or not set(got) <= set(range(shards))
+                           or len(got) + d["tags"].get("shards_skipped", 0)
+                           != shards):
+            fail(f"{expr}: chunk.decode without a shard.scan per shard "
+                 f"not skipped: {got}, {d['tags']}")
+        if shards == 1 and kids:
+            fail(f"{expr}: shard spans over a one-shard store")
+
+
+def traced_q(port: int, expr: str, start: int, end: int,
+             trace: bool) -> tuple[float, list]:
+    params = {"start": start, "end": end, "m": expr, "json": ""}
+    if trace:
+        params["trace"] = "1"
+    q0 = time.perf_counter()
+    status, body = http_get(port, "/q?" + urllib.parse.urlencode(params))
+    wall = (time.perf_counter() - q0) * 1e3
+    if status != 200:
+        fail(f"{expr}: HTTP {status}: {body[:300]!r}")
+    answer = json.loads(body)
+    if not answer or any(("trace" in g) != trace for g in answer):
+        fail(f"{expr}: trace key {'missing' if trace else 'present'}")
+    return wall, answer
+
+
+def profiled_q(port: int, expr: str, start: int, end: int) -> dict:
+    """One traced /q under torch.profiler: each top-level span's ms
+    beside the card's busy ms over the request (the daemon shares this
+    process, so its launches are traced)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, answer = traced_q(port, expr, start, end, True)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    tree = answer[0]["trace"]
+    return {"wall_ms": wall, "trace_ms": tree["ms"],
+            "spans_ms": {c["name"]: c["ms"] for c in tree.get("spans", ())},
+            "device_busy_ms": busy if dev else "not measured",
+            "device_events": len(dev)}
+
+
+def obs_phase(daemon: "Daemon", start: int, end: int) -> dict:
+    """On the path phase's daemon: traced resident and scan /q (the span
+    trees' shapes, children within their parents, each beside the card's
+    busy ms), untraced against traced warm wall ms, and every
+    observability route and the telnet stats command answering."""
+    port = daemon.port
+    out: dict = {}
+    expr = QUERIES[1]
+    untraced, traced = [], []
+    for _ in range(OBS_REPS):
+        untraced.append(traced_q(port, expr, start, end, False)[0])
+        wall, answer = traced_q(port, expr, start, end, True)
+        traced.append(wall)
+    for g in answer:
+        tree = g["trace"]
+        want = {"name": "query", "tags": {"q": expr, "plan": "resident",
+                                          "cached": False}}
+        if {k: tree[k] for k in ("name", "tags")} != want \
+                or [c["name"] for c in tree["spans"]] != ["planner.pick"] \
+                or tree["spans"][0].get("tags") != {"plan": "resident"}:
+            fail(f"{expr}: resident trace shape {tree}")
+        check_children_fit(tree, expr)
+    out["resident"] = {
+        "query": expr, "untraced_warm_ms": untraced,
+        "traced_warm_ms": traced,
+        "untraced_warm_p50_ms": statistics.median(untraced),
+        "traced_warm_p50_ms": statistics.median(traced),
+        "trace": answer[0]["trace"],
+        "profiled": profiled_q(port, expr, start, end)}
+    sexpr, span = OBS_SCAN_QUERY
+    wall, answer = traced_q(port, sexpr, start, start + span - 1, True)
+    for g in answer:
+        check_scan_tree(g["trace"], sexpr, 1)
+        check_children_fit(g["trace"], sexpr)
+    out["scan"] = {"query": sexpr, "wall_ms": wall,
+                   "trace": answer[0]["trace"],
+                   "profiled": profiled_q(port, sexpr, start,
+                                          start + span - 1)}
+    for k in ("resident", "scan"):
+        log(f"obs {k} {out[k]['query']}: {out[k]['profiled']}")
+    log(f"obs: untraced warm {untraced} ms, traced {traced} ms")
+    answered = {}
+    for route in OBS_ROUTES:
+        status, body = http_get(port, route)
+        # The log ring holds what the root logger let through (WARNING
+        # and up by default): it may be empty.
+        if status != 200 or not (body.strip() or route == "/logs"):
+            fail(f"{route}: HTTP {status}, {len(body)} bytes")
+        answered[route] = len(body)
+    if not isinstance(http_json(port, "/logs?json"), list):
+        fail("/logs?json is not a list")
+    out["metrics_samples"] = validate_exposition(
+        http_get(port, "/metrics")[1].decode())
+    records = http_json(port, "/api/traces")
+    if len(records) < OBS_REPS + 2 or any(
+            r["trace"]["name"] != "query" for r in records):
+        fail(f"/api/traces holds {len(records)} records")
+    said = telnet(port, ["stats"])
+    stats = [ln for ln in said.splitlines() if ln.startswith("tsd.")]
+    if len(stats) < 100:
+        fail(f"telnet stats answered {len(stats)} lines")
+    answered["telnet stats"] = len(stats)
+    out["answered"] = answered
+    return out
+
+
 def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
     tsdb = open_daemon_tsdb(os.path.join(wal_dir, "wal"))
     dw = tsdb.devwindow
@@ -1518,6 +1778,8 @@ def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
         out["profile_stage_build"] = profile_share(ex, spec, start, end)
         for k in ("profile_warm", "profile_stage_build"):
             log(f"{k} {QUERIES[1]}: {out[k]}")
+
+        out["obs"] = obs_phase(daemon, start, end)
 
         out["restart"] = restart_phase(tsdb, daemon,
                                        os.path.join(wal_dir, "wal"))
@@ -1705,16 +1967,22 @@ def gc_full_ms() -> float:
 
 
 def timed_checkpoint(tsdb: TSDB, what: str) -> dict:
+    """One checkpoint: rows, seconds, generations, and its phases' ms
+    from the ``checkpoint.phase`` timers (freeze, spill, commit)."""
+    before = timer_totals("checkpoint.phase")
     t0 = time.perf_counter()
     rows = tsdb.checkpoint()
     secs = time.perf_counter() - t0
+    phases = {tags.split("=")[1]: d["sum_ms"] for tags, d in timer_delta(
+        before, timer_totals("checkpoint.phase")).items()}
     gens, nbytes = generation_bytes(tsdb)
     if rows <= 0 or os.path.exists(tsdb.store._wal_path + ".old"):
         fail(f"{what}: spilled {rows} rows, <wal>.old left behind")
     out = {"rows": rows, "seconds": secs, "rows_per_s": rows / secs,
-           "generations": gens, "generation_bytes": nbytes}
+           "generations": gens, "generation_bytes": nbytes,
+           "phase_ms": phases}
     log(f"{what}: {rows} rows in {secs:.2f} s ({rows / secs:,.0f} rows/s), "
-        f"{gens} generation(s), {nbytes} bytes")
+        f"{gens} generation(s), {nbytes} bytes, phases {phases} ms")
     return out
 
 
@@ -1994,6 +2262,10 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
         out["qcache"] = qcache_counters(ex2, store)
         log(f"fragment cache after the restart: {out['qcache']}; bloom "
             f"{out['bloom']}; repeats {out['repeats']}")
+        stats = stat_lines(daemon2.port)
+        out["timers"] = {name: timer_lines(stats, name) for name in (
+            "wal.append", "wal.fsync", "ingest.parse", "checkpoint.phase")}
+        log(f"timers from /stats after the restart: {out['timers']}")
         out["fsck"] = fsck_clean(tsdb2, "the one-shard store")
     finally:
         daemon2.stop()
@@ -2159,6 +2431,16 @@ def sharded_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
             out["group_flushes_per_s"] = out["group_flushes"] / secs
             out["answers"] = compare_reference(daemon, tsdb, start, end,
                                                UNION_QUERIES)
+            sexpr, span = OBS_SCAN_QUERY
+            wall, answer = traced_q(daemon.port, sexpr, start,
+                                    start + span - 1, True)
+            for g in answer:
+                check_scan_tree(g["trace"], sexpr, SHARDS)
+                check_children_fit(g["trace"], sexpr)
+            out["traced_scan"] = {"query": sexpr, "wall_ms": wall,
+                                  "trace": answer[0]["trace"]}
+            split0 = {n: timer_totals(n) for n in (
+                "checkpoint.phase", "checkpoint.shard_spill")}
             with native_calls("sharded_checkpoint_1", ("frame_rows_dict",)):
                 c0 = time.perf_counter()
                 rows = tsdb.checkpoint()
@@ -2174,6 +2456,20 @@ def sharded_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
             if out["checkpoint_1"]["rows"] <= 0 or got["rows"] <= 0:
                 fail(f"sharded checkpoints spilled nothing: {out}")
             log(f"sharded checkpoints: {out['checkpoint_1']}, {got}")
+            # The two checkpoints' split: the phases' and each shard's
+            # spill (count and ms summed over both), and the lines of the
+            # daemon's /stats.
+            stats = stat_lines(daemon.port)
+            out["checkpoint_split"] = {
+                n: timer_delta(split0[n], timer_totals(n)) for n in split0}
+            out["checkpoint_split_stats"] = {n: timer_lines(stats, n)
+                                             for n in split0}
+            spills = out["checkpoint_split"]["checkpoint.shard_spill"]
+            if sorted(spills) != [f"shard={i}" for i in range(SHARDS)] \
+                    or any(v["count"] != 2 for v in spills.values()):
+                fail(f"checkpoint.shard_spill after two checkpoints: "
+                     f"{spills}")
+            log(f"sharded checkpoint split: {out['checkpoint_split']}")
             t0 = time.perf_counter()
             daemon.stop()
             out["shutdown_s"] = time.perf_counter() - t0
@@ -3099,6 +3395,19 @@ def main() -> int:
         "native": {k: v for k, v in NATIVE_STAGES.items()
                    if k.startswith("sharded_")}},
         "card": smi}))
+    r_obs = path["obs"]
+    print(json.dumps({"obs": {
+        "resident": {k: v for k, v in r_obs["resident"].items()
+                     if k != "trace"},
+        "scan": {k: v for k, v in r_obs["scan"].items() if k != "trace"},
+        "answered": r_obs["answered"],
+        "metrics_samples": r_obs["metrics_samples"],
+        "sharded_scan_wall_ms": sharded["traced_scan"]["wall_ms"],
+        "sharded_checkpoint_split": sharded["checkpoint_split"],
+        "sharded_checkpoint_stats": sharded["checkpoint_split_stats"],
+        "checkpoint_phase_ms": [r["checkpoint_1"]["phase_ms"],
+                                r["checkpoint_2"]["phase_ms"]],
+        "timers_after_restart": r["timers"]}, "card": smi}))
     print(json.dumps({"window_at_budget": {
         k: budget[k] for k in ("points", "chunks", "resident_bytes",
                                "fill_points_per_s", "queries",

@@ -39,6 +39,10 @@ WAL group commit; ``add_batch(..., sync=False)`` then leaves the covering
 wait to the caller's ``store.wal_barrier()`` (``server/wire.ingest_batch``
 calls it once per wire batch).
 
+``collect_stats`` pushes the engine's ``/stats`` lines (the JAX
+package's names) into a StatsCollector; ``drop_caches`` and the
+``suggest_*`` calls serve the daemon's ``dropcaches`` and ``/suggest``.
+
 Left out of this slice (all off here; see ROADMAP): the mesh-sharded
 window, rollups, replicas and the cluster tier.
 """
@@ -90,6 +94,8 @@ class TSDB:
         store.ensure_table(self.config.uidtable)
         self.table = self.config.table
         uidtable = self.config.uidtable
+        # Points written (the reference's datapoints_added counter).
+        self.datapoints_added = 0
         self.metrics = UniqueId(store, uidtable, "metrics", 3)
         self.tagk = UniqueId(store, uidtable, "tagk", 3)
         self.tagv = UniqueId(store, uidtable, "tagv", 3)
@@ -438,6 +444,7 @@ class TSDB:
         self.store.put(self.table, row, FAMILY, qual, buf, durable=durable)
         if self.config.enable_compactions:
             self.compactionq.add(row)
+        self.datapoints_added += 1
         self._account_points(tenant, metric, tag_map, 1, skey)
         self._observe(skey, metric_uid, pairs,
                       np.asarray([value], np.float64))
@@ -530,6 +537,7 @@ class TSDB:
             raise
         self._queue_compactions(kb, L, existed)
         n = len(ts_s)
+        self.datapoints_added += n
         self._account_points(tenant, metric, tag_map, n, skey)
         # The sketch fold covers fully applied batches only (a throttled
         # batch raised above); one float32 conversion serves the sketches
@@ -685,6 +693,74 @@ class TSDB:
             for s, (a, b) in enumerate(zip(bounds[:-1], bounds[1:]))
             if b > a}
         return skeys, per_series
+
+    # ------------------------------------------------------------------
+    # UID admin and stats
+    # ------------------------------------------------------------------
+
+    def suggest_metrics(self, prefix: str = "") -> list[str]:
+        return self.metrics.suggest(prefix)
+
+    def suggest_tag_names(self, prefix: str = "") -> list[str]:
+        return self.tagk.suggest(prefix)
+
+    def suggest_tag_values(self, prefix: str = "") -> list[str]:
+        return self.tagv.suggest(prefix)
+
+    def drop_caches(self) -> None:
+        self.metrics.drop_caches()
+        self.tagk.drop_caches()
+        self.tagv.drop_caches()
+
+    def collect_stats(self, collector) -> None:
+        """Push the engine's counters into a StatsCollector (reference
+        TSDB.collectStats :129-175; the JAX package's lines and order).
+
+        Left out, each with the item that brings it (ROADMAP queue A):
+        ``compress.ratio`` (item 5: the port writes no TSST4), the rollup
+        tier's lines (item 6) and the cluster lines ``cluster.epoch`` /
+        ``.fenced`` / ``.fenced_bytes_refused`` (item 10). The JAX package
+        emits none of them under its default config either."""
+        collector.record("datapoints.added", self.datapoints_added)
+        for uid in (self.metrics, self.tagk, self.tagv):
+            kind = uid.kind()
+            collector.record("uid.cache-hit", uid.cache_hits,
+                             f"kind={kind}")
+            collector.record("uid.cache-miss", uid.cache_misses,
+                             f"kind={kind}")
+            collector.record("uid.cache-size", uid.cache_size(),
+                             f"kind={kind}")
+        store = self.store
+        collector.record("storage.wal.swallowed_flush_errors",
+                         store.wal_swallowed_flush_errors)
+        nshards = getattr(store, "shard_count", None)
+        if nshards is not None:
+            collector.record("storage.shards", nshards)
+        # Live-memtable rows per shard: the skew a slow spill join shows
+        # after the fact (checkpoint.shard_spill), live.
+        for i, n in enumerate(store.memtable_row_counts(self.table)):
+            collector.record("storage.memtable.rows", n, f"shard={i}")
+        for fmt, nbytes in sorted(store.sstable_format_bytes().items()):
+            collector.record("sstable.bytes", nbytes, f"format=v{fmt}")
+        collector.record("bloom.files_skipped", store.bloom_files_skipped)
+        if nshards is not None:
+            collector.record("bloom.shards_skipped",
+                             store.bloom_shards_skipped)
+        collector.record("bloom.point_skips", store.bloom_point_skips)
+        collector.record("dirty_set.size",
+                         int(len(store.dirty_bases(self.table))))
+        cq = self.compactionq
+        collector.record("compaction.count", cq.written_cells)
+        collector.record("compaction.deleted_cells", cq.deleted_cells)
+        collector.record("compaction.errors", cq.errors)
+        collector.record("compaction.queue.size", len(cq))
+        if self.sketches is not None:
+            collector.record("sketches.series",
+                             self.sketches.series_count())
+        if self.tenants is not None:
+            self.tenants.collect_stats(collector)
+        if self.devwindow is not None:
+            self.devwindow.collect_stats(collector)
 
     # ------------------------------------------------------------------
     # Lifecycle

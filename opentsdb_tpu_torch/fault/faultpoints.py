@@ -26,9 +26,9 @@ through, then ``count`` hits trigger the action:
     raise    raise FaultInjected (in-process error paths: the spill's
              thaw, the manifest rollback).
     ioerror  raise OSError (the fsync-failed / disk-full shape).
-    delay    sleep ``delay`` seconds and continue (race widening). The
-             JAX package also records a ``fault.delay`` trace span here;
-             the port has no tracing yet (ROADMAP queue A item 8).
+    delay    sleep ``delay`` seconds and continue (race widening). A
+             traced request records a ``fault.delay`` child span (tag
+             ``site``) under the span current when it fires.
 
 Schedules are per process and deterministic: the sharded store spills
 serially while any site is armed, hits count up monotonically, and the
@@ -137,7 +137,12 @@ def _fire_armed(site: str, path: str | None, rec_bytes: int) -> None:
     if mode == "ioerror":
         raise OSError(f"injected I/O error at failpoint {site}")
     if mode == "delay":
-        time.sleep(delay)
+        # The deterministic proof that exactly one stage stretched
+        # (obs/trace.py). Imported here: the fault module stays light for
+        # the crash harness's child processes.
+        from opentsdb_tpu_torch.obs import trace as _obs_trace
+        with _obs_trace.span("fault.delay", site=site):
+            time.sleep(delay)
 
 
 def _tear(path: str | None, rec_bytes: int, k: int) -> None:

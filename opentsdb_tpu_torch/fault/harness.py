@@ -451,7 +451,17 @@ def verify(dirpath: str, sc: Scenario, ops: list[tuple],
     except Exception as e:
         return [f"reopen failed: {e!r}"], ""
     try:
+        # Instrumentation canary: the recovery fsck must land an
+        # fsck.duration sample in the metrics registry, so instruments
+        # that break on a recovery path fail the matrix.
+        from opentsdb_tpu_torch.obs.registry import METRICS
+        fsck_timer = METRICS.timer("fsck.duration")
+        fsck_count0 = fsck_timer.count
         rep = run_fsck(tsdb, log=problems.append)
+        if fsck_timer.count <= fsck_count0:
+            problems.append(
+                "fsck ran but recorded no fsck.duration timer sample "
+                "(metrics registry broken on the recovery path)")
         if rep.errors:
             problems.append(f"fsck: {rep.errors} errors")
         oracle = Oracle()

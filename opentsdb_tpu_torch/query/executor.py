@@ -44,6 +44,17 @@ whole shards no candidate routes to; ``chunk_state`` is then one element
 per shard, and a fragment validates only when every shard agrees. The
 ``query.scan`` fault point fires once per selector scan.
 
+Tracing (``obs/trace.py``): ``run_with_plan(..., trace=)`` records the
+JAX package's span tree under the trace's root: ``planner.pick`` (tag
+``plan``; the resident path runs inside it, its results' host copy
+included), then on the scan path ``scan`` (tag ``cached``, the fragment
+cache's ``qcache_hit`` / ``qcache_miss`` / ``qcache_bypass`` counts, and
+a ``chunk.decode`` span per decoded chunk, tagged ``outcome`` and
+``base``, with one ``shard.scan`` span per shard of a sharded store
+under it) and ``aggregate``. Spans are wall-clock; untraced, each hook
+is one global integer check. ``scan_latency`` (a LatencyDigest) keeps
+the scan stage's milliseconds, traced or not.
+
 Sketch queries (``/sketch`` and ``/distinct``) read the live sketches
 (``stats/livesketch.py``) without a storage scan: quantiles of the merged
 t-digests of the matching series, and the HyperLogLog estimate of a
@@ -57,6 +68,7 @@ from __future__ import annotations
 
 import re
 import threading
+import time
 import weakref
 from typing import NamedTuple
 
@@ -68,8 +80,10 @@ from opentsdb_tpu_torch.core.const import (MAX_TIMESPAN, TIMESTAMP_BYTES,
                                            UID_WIDTH)
 from opentsdb_tpu_torch.core.errors import BadRequestError, NoSuchUniqueName
 from opentsdb_tpu_torch.fault.faultpoints import fire as _fault
+from opentsdb_tpu_torch.obs import trace as obs_trace
 from opentsdb_tpu_torch.ops import kernels, oracle, sketches
 from opentsdb_tpu_torch.query.aggregators import Aggregators
+from opentsdb_tpu_torch.stats.collector import LatencyDigest
 from opentsdb_tpu_torch.storage.sstable import series_hash
 from opentsdb_tpu_torch.utils.lru import LRUCache
 
@@ -156,6 +170,9 @@ class QueryExecutor:
         self.qcache_hits = 0
         self.qcache_misses = 0
         self.qcache_bypasses = 0
+        # Scan-stage latency (the reference's TsdbQuery.scanlatency,
+        # TsdbQuery.java:52,278): the /stats scan.latency lines.
+        self.scan_latency = LatencyDigest()
 
     # ------------------------------------------------------------------
     # Planning: scan + span assembly + grouping
@@ -296,8 +313,9 @@ class QueryExecutor:
         b_hi = min(codec.base_time(min(end, 0xFFFFFFFF)), 0xFFFFFFFF)
 
         def full_scan() -> dict:
-            return self._scan_chunk(metric_uid, regexp, hint, b_lo,
-                                    b_hi + MAX_TIMESPAN)
+            with obs_trace.span("chunk.decode", outcome="unchunked"):
+                return self._scan_chunk(metric_uid, regexp, hint, b_lo,
+                                        b_hi + MAX_TIMESPAN)
 
         chunk_s = cfg.qcache_chunk_s - cfg.qcache_chunk_s % MAX_TIMESPAN
         if not cfg.qcache or chunk_s <= 0 or b_hi < b_lo:
@@ -323,28 +341,40 @@ class QueryExecutor:
             self.qcache_bypasses += nchunks
             if info is not None:
                 info["cached"] = False
+            sp = obs_trace.current_span()
+            if sp is not None:
+                sp.tags["qcache_bypass"] = (
+                    sp.tags.get("qcache_bypass", 0) + nchunks)
             return full_scan()
         parts: dict[bytes, list] = {}
         all_hit = True
+        n_hit = n_miss = n_byp = 0
         for c, (seqs, floors, stamps, dirty) in zip(chunks, states):
             key = (fkey, c, chunk_s)
             if dirty:
                 self.qcache_bypasses += 1
+                n_byp += 1
                 all_hit = False
-                frag = self._scan_chunk(metric_uid, regexp, hint, c,
-                                        c + chunk_s)
+                with obs_trace.span("chunk.decode", outcome="bypass",
+                                    base=int(c)):
+                    frag = self._scan_chunk(metric_uid, regexp, hint, c,
+                                            c + chunk_s)
             else:
                 ent = self._frag_cache.get(key)
                 if ent is not None and all(
                         e >= f and m <= e
                         for e, f, m in zip(ent[0], floors, stamps)):
                     self.qcache_hits += 1
+                    n_hit += 1
                     frag = ent[1]
                 else:
                     self.qcache_misses += 1
+                    n_miss += 1
                     all_hit = False
-                    frag = self._scan_chunk(metric_uid, regexp, hint, c,
-                                            c + chunk_s)
+                    with obs_trace.span("chunk.decode", outcome="miss",
+                                        base=int(c)):
+                        frag = self._scan_chunk(metric_uid, regexp, hint,
+                                                c, c + chunk_s)
                     cost = sum(len(cols.timestamps)
                                for cols in frag.values())
                     self._frag_cache.put(key, (seqs, frag),
@@ -353,6 +383,15 @@ class QueryExecutor:
                 parts.setdefault(skey, []).append(cols)
         if info is not None:
             info["cached"] = all_hit
+        # The fragment cache's outcome on the enclosing span, accumulated
+        # (a query scans several selectors). Hits cost a dict get: a
+        # count, not a span.
+        sp = obs_trace.current_span()
+        if sp is not None:
+            t = sp.tags
+            t["qcache_hit"] = t.get("qcache_hit", 0) + n_hit
+            t["qcache_miss"] = t.get("qcache_miss", 0) + n_miss
+            t["qcache_bypass"] = t.get("qcache_bypass", 0) + n_byp
         out: dict[bytes, codec.Columns] = {}
         for skey, lst in parts.items():
             if len(lst) == 1:
@@ -391,12 +430,27 @@ class QueryExecutor:
         return self.run_with_plan(spec, start, end)[0]
 
     def run_with_plan(self, spec: QuerySpec, start: int, end: int,
-                      ) -> tuple[list[QueryResult], str, bool]:
+                      trace=None) -> tuple[list[QueryResult], str, bool]:
         """run() plus the plan label ("resident" when the device window
         served it, else "raw") and whether the scan's every fragment
         came from the warm fragment cache (always False for "resident",
         as in the JAX package: the window's stage cache holds grids, not
-        scanned columns)."""
+        scanned columns).
+
+        ``trace`` (``obs/trace.Trace``): the stages record themselves as
+        a span tree under ``trace.root``, whose tags then carry the plan
+        and the cached flag. None (the default) costs one global integer
+        check per hook."""
+        if trace is None:
+            return self._run_planned(spec, start, end)
+        with obs_trace.activate(trace):
+            results, plan, cached = self._run_planned(spec, start, end)
+        trace.root.tags["plan"] = plan
+        trace.root.tags["cached"] = bool(cached)
+        return results, plan, cached
+
+    def _run_planned(self, spec: QuerySpec, start: int, end: int,
+                     ) -> tuple[list[QueryResult], str, bool]:
         if end <= start:
             raise BadRequestError(
                 f"end time {end} is <= start time {start}")
@@ -404,13 +458,25 @@ class QueryExecutor:
         if agg.kind == "cardinality":
             raise BadRequestError(
                 "use the /distinct endpoint for cardinality queries")
-        dev = self._run_devwindow(spec, start, end, agg)
+        # The plan decision, the resident path's whole run included (its
+        # answer's host copy ends inside it, so the window's device time
+        # falls in this span).
+        with obs_trace.span("planner.pick") as sp:
+            dev = self._run_devwindow(spec, start, end, agg)
+            if sp is not None:
+                sp.tags["plan"] = "resident" if dev is not None else "raw"
         if dev is not None:
             return dev, "resident", False
+        t0 = time.time()
         info: dict = {}
-        groups = self._find_spans(spec, start, end, info)
-        return (self._execute_groups(spec, groups, start, end), "raw",
-                bool(info.get("cached")))
+        with obs_trace.span("scan") as sp:
+            groups = self._find_spans(spec, start, end, info)
+            if sp is not None:
+                sp.tags["cached"] = bool(info.get("cached"))
+        self.scan_latency.add((time.time() - t0) * 1000)
+        with obs_trace.span("aggregate"):
+            results = self._execute_groups(spec, groups, start, end)
+        return results, "raw", bool(info.get("cached"))
 
     @staticmethod
     def _oracle_downsample(spec: QuerySpec) -> bool:

@@ -1,8 +1,8 @@
 """Admission control: per-tenant quotas + the query load-shedding ladder.
 
 Mirrors ``opentsdb_tpu/serve/admission.py`` of the JAX package, whole
-but for ``collect_stats`` (the ``/stats`` lines: ROADMAP queue A item 8).
-The port's daemon consults its ingest half (``admit_ingest`` /
+(``collect_stats`` records the ``admission.*`` lines of ``/stats``). The
+port's daemon consults its ingest half (``admit_ingest`` /
 ``ingest_done``) on every telnet and HTTP put; its ``/q`` does not yet
 consult the query half (``admit_query``, the in-flight ladder and its
 rollup-only step, which needs rollups: ROADMAP queue A items 6 and 10).
@@ -252,3 +252,26 @@ class AdmissionController:
                     b = buckets[tenant] = TokenBucket(
                         rate, burst, tokens=0.0 if cold else None)
         return b
+
+    def collect_stats(self, collector) -> None:
+        collector.record("admission.inflight_queries",
+                         self.inflight_queries)
+        collector.record("admission.inflight_ingest_points",
+                         self.inflight_ingest_points)
+        collector.record("admission.shed", self.ingest_shed_quota,
+                         "path=ingest reason=quota")
+        collector.record("admission.shed", self.ingest_shed_queue,
+                         "path=ingest reason=queue")
+        collector.record("admission.shed", self.query_shed_quota,
+                         "path=query reason=quota")
+        collector.record("admission.shed", self.query_shed_load,
+                         "path=query reason=load")
+        collector.record("admission.degraded_queries",
+                         self.query_degraded)
+        collector.record("admission.tenants",
+                         max(len(self._ingest_buckets),
+                             len(self._query_buckets)))
+        collector.record("admission.tenants_evicted",
+                         self.tenants_evicted)
+        collector.record("admission.tenants_collapsed",
+                         self.tenants_collapsed)

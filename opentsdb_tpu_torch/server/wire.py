@@ -16,6 +16,8 @@ Under WAL group commit (``Config.wal_group_ms``) ``ingest_batch`` writes
 each series with ``sync=False`` and runs one covering
 ``store.wal_barrier()`` before it returns, as the JAX package does. Left
 out with its item: the ``[fenced]`` error tag (ROADMAP queue A item 10).
+Both decoders run under the ``ingest.parse`` timer (``obs/registry.py``),
+once per buffer or body.
 """
 
 from __future__ import annotations
@@ -28,7 +30,10 @@ import numpy as np
 
 from opentsdb_tpu_torch.core import tags as tags_mod
 from opentsdb_tpu_torch.core.errors import TenantLimitError
+from opentsdb_tpu_torch.obs.registry import METRICS as _metrics
 from opentsdb_tpu_torch.utils.nativeext import WIRE as _NATIVE
+
+_M_PARSE = _metrics.timer("ingest.parse")
 
 
 class DecodedBatch(NamedTuple):
@@ -71,11 +76,12 @@ def decode_puts(buf: bytes, use_native: bool | None = None,
     read at a time) report exact stream line indices rather than
     batch-relative offsets.
     """
-    if use_native is None:
-        use_native = _NATIVE is not None
-    if use_native and _NATIVE is not None:
-        return _decode_native(buf)
-    return _decode_python(buf, line_base)
+    with _M_PARSE.time():
+        if use_native is None:
+            use_native = _NATIVE is not None
+        if use_native and _NATIVE is not None:
+            return _decode_native(buf)
+        return _decode_python(buf, line_base)
 
 
 def _decode_native(buf: bytes) -> DecodedBatch:
@@ -467,6 +473,11 @@ def decode_json_puts(obj) -> DecodedBatch:
     typed entries. ``error_lines`` carries the failing point's array
     index.
     """
+    with _M_PARSE.time():
+        return _decode_json_puts(obj)
+
+
+def _decode_json_puts(obj) -> DecodedBatch:
     if isinstance(obj, dict):
         obj = [obj]
     if not isinstance(obj, list):

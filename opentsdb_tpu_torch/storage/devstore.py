@@ -483,7 +483,7 @@ class DeviceWindow:
 
     def collect_stats(self, collector) -> None:
         """Record the window's counters on ``collector`` (any object with
-        ``record(name, value)``); the port has no /stats endpoint yet."""
+        ``record(name, value)``): the daemon's /stats lines."""
         collector.record("devwindow.points.appended", self.appended_points)
         collector.record("devwindow.points.evicted", self.evicted_points)
         collector.record("devwindow.hits", self.window_hits)

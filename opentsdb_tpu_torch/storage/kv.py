@@ -51,6 +51,14 @@ checkpoint.
   ``.fsync`` and ``kv.checkpoint.freeze`` / ``.commit`` / ``.manifest``,
   with the same path and byte arguments, so a torn write cuts the same
   span.
+- Instruments (``obs/registry.py``, the JAX store's names, always on):
+  ``wal.appends`` / ``wal.append_bytes`` per WAL record, the
+  ``wal.append`` timer per batch record, ``wal.fsync`` (a timer around the
+  ``os.fsync`` and a trace span around the flush's fault point and
+  fsync), the group commit's ``wal.group.batches`` / ``.points`` /
+  ``.fsyncs`` and ``wal.group.wait_ms``, and ``checkpoint.phase`` timers
+  tagged ``phase=freeze|spill|commit``. Each fires per WAL batch or
+  checkpoint phase, never per point.
 
 A sharded store (``SHARDS.json`` at the root of a directory of
 ``shard-<i>/`` stores) opens through ``storage/sharded.py``; handing its
@@ -67,6 +75,7 @@ from __future__ import annotations
 
 import fcntl
 import json
+import logging
 import os
 import re
 import struct
@@ -81,11 +90,32 @@ import numpy as np
 from opentsdb_tpu_torch.core.const import TIMESTAMP_BYTES, UID_WIDTH
 from opentsdb_tpu_torch.core.errors import PleaseThrottleError
 from opentsdb_tpu_torch.fault.faultpoints import fire as _fault
+from opentsdb_tpu_torch.obs import trace as _trace
+from opentsdb_tpu_torch.obs.registry import METRICS as _metrics
 from opentsdb_tpu_torch.storage.sstable import (SSTable, merge_sstables,
                                                 write_sstable_bulk)
 from opentsdb_tpu_torch.utils.nativeext import EXT as _EXT
 
 _REC = struct.Struct(">BI")  # op, payload length
+_perf = time.perf_counter
+
+# Engine instruments (obs/registry.py): registered once at import, so the
+# hot paths pay one attribute increment or one perf_counter pair per WAL
+# batch or checkpoint phase, never per point.
+_M_WAL_APPENDS = _metrics.counter("wal.appends")
+_M_WAL_BYTES = _metrics.counter("wal.append_bytes")
+_M_WAL_APPEND = _metrics.timer("wal.append")
+_M_WAL_FSYNC = _metrics.timer("wal.fsync")
+# Group commit (Config.wal_group_ms): batches = appends whose flush was
+# deferred to a group leader, points = the records' cells, fsyncs = the
+# covering group flushes, wait_ms = the time acknowledging calls spent
+# parked in the barrier.
+_M_GRP_BATCHES = _metrics.counter("wal.group.batches")
+_M_GRP_POINTS = _metrics.counter("wal.group.points")
+_M_GRP_FSYNCS = _metrics.counter("wal.group.fsyncs")
+_M_GRP_WAIT = _metrics.timer("wal.group.wait_ms")
+_M_CKPT_PHASE = {ph: _metrics.timer("checkpoint.phase", {"phase": ph})
+                 for ph in ("freeze", "spill", "commit")}
 
 # WAL opcodes (the JAX store's numbering).
 _OP_PUT = 1
@@ -429,6 +459,12 @@ class MemKVStore(KVStore):
         # Generations skipped by the series-bloom prefilter (scan_raw
         # with a series_hint).
         self.bloom_files_skipped = 0
+        # Point lookups (_lower_tier_has) a generation's bloom answered
+        # without a bisect; WAL flush failures swallowed because an
+        # exception was already in flight (the applied cells are not
+        # durable until the next flush succeeds). Both /stats lines.
+        self.bloom_point_skips = 0
+        self.wal_swallowed_flush_errors = 0
         # WAL group commit (Config.wal_group_ms, set after open like the
         # JAX store's): > 0 defers the per-append flush (+ fsync) to a
         # leader-elected group flush. Appends bump _grp_written (a ticket
@@ -649,6 +685,26 @@ class MemKVStore(KVStore):
         with self._lock:
             return list(self._table(table).rows)
 
+    def memtable_row_counts(self, table: str) -> list[int]:
+        """Live-memtable row count, one element per shard (one here):
+        the /stats ``storage.memtable.rows`` lines."""
+        with self._lock:
+            return [len(self._table(table).rows)]
+
+    def sstable_format_bytes(self) -> dict[int, int]:
+        """On-disk bytes of the live generations by sstable format
+        version: the /stats ``sstable.bytes`` lines."""
+        out: dict[int, int] = {}
+        with self._lock:
+            gens = list(self._ssts)
+        for sst in gens:
+            try:
+                sz = os.path.getsize(sst.path)
+            except OSError:
+                continue
+            out[sst.format] = out.get(sst.format, 0) + sz
+        return out
+
     def memtable_cells(self, table: str, key: bytes,
                        family: bytes | None = None) -> list[Cell]:
         """Live-memtable cells of one row, without the spilled tiers
@@ -738,6 +794,7 @@ class MemKVStore(KVStore):
             h = zlib.crc32(key[_BASE_HI:], zlib.crc32(key[:_BASE_LO]))
         for sst in self._ssts:
             if h is not None and not sst.bloom_may_contain_hash(table, h):
+                self.bloom_point_skips += 1
                 continue
             if sst.has_key(table, key):
                 return True
@@ -750,8 +807,10 @@ class MemKVStore(KVStore):
             return
         payload = b"".join(struct.pack(">I", len(p)) + p for p in parts)
         self._wal.write(_REC.pack(op, len(payload)) + payload)
+        _M_WAL_APPENDS.inc()
+        _M_WAL_BYTES.inc(_REC.size + len(payload))
         if self._wal_group_ms > 0:
-            self._grp_note()
+            self._grp_note(1)
         else:
             self._wal_flush()
             _fault("kv.wal.append", self._wal_path,
@@ -764,10 +823,14 @@ class MemKVStore(KVStore):
         self._wal.flush()
         # Between the userspace flush and the optional fsync: a crash here
         # loses nothing on process death, everything unsynced on power
-        # loss; ioerror stands for the fsync itself failing.
-        _fault("kv.wal.fsync", self._wal_path)
-        if self._fsync:
-            os.fsync(self._wal.fileno())
+        # loss; ioerror stands for the fsync itself failing. The span
+        # brackets the fault point too, so an armed delay stretches
+        # exactly the wal.fsync span of a traced ingest.
+        with _trace.span("wal.fsync"):
+            _fault("kv.wal.fsync", self._wal_path)
+            if self._fsync:
+                with _M_WAL_FSYNC.time():
+                    os.fsync(self._wal.fileno())
         # In group mode every direct flush runs under the store lock
         # (checkpoint rotation, close, flush) and covers every record
         # written so far: every issued ticket is durable.
@@ -784,14 +847,17 @@ class MemKVStore(KVStore):
     # collecting followers, then flushes once for everything written so
     # far.
 
-    def _grp_note(self) -> None:
-        """Record a deferred-flush append (store lock held). The fault
-        point has no path on purpose: the record may still sit in the
-        userspace buffer, so a torn cut could reach bytes an earlier
-        group flush made durable; torn degrades to a crash here."""
+    def _grp_note(self, points: int) -> None:
+        """Record a deferred-flush append of ``points`` cells (store lock
+        held). The fault point has no path on purpose: the record may
+        still sit in the userspace buffer, so a torn cut could reach bytes
+        an earlier group flush made durable; torn degrades to a crash
+        here."""
         _fault("kv.wal.group.write")
         with self._grp_cond:
             self._grp_written += 1
+        _M_GRP_BATCHES.inc()
+        _M_GRP_POINTS.inc(points)
 
     def _grp_ticket(self) -> int:
         """The ticket for _wal_barrier, read under the store lock (every
@@ -840,14 +906,17 @@ class MemKVStore(KVStore):
         # flush covered.
         tell_pos = wal.tell()
         wal.flush()
-        _fault("kv.wal.group.fsync", self._wal_path,
-               max(tell_pos - synced, 1))
-        if self._fsync:
-            os.fsync(wal.fileno())
+        with _trace.span("wal.fsync"):
+            _fault("kv.wal.group.fsync", self._wal_path,
+                   max(tell_pos - synced, 1))
+            if self._fsync:
+                with _M_WAL_FSYNC.time():
+                    os.fsync(wal.fileno())
         with self._grp_cond:
             if self._grp_file_epoch == epoch:
                 self._grp_synced_pos = max(self._grp_synced_pos, tell_pos)
             self.wal_group_flushes += 1
+        _M_GRP_FSYNCS.inc()
 
     def _wal_barrier(self, ticket: int) -> None:
         """Park until a group flush covers ``ticket``; the first caller not
@@ -855,6 +924,7 @@ class MemKVStore(KVStore):
         flushes for everyone. Call after releasing the store lock."""
         if not ticket or MemKVStore._ACK_BEFORE_FSYNC:
             return
+        t0 = _perf()
         cond = self._grp_cond
         linger = self._wal_group_ms / 1000.0
         while True:
@@ -888,6 +958,7 @@ class MemKVStore(KVStore):
                 if covered and isinstance(err, (ValueError, OSError)):
                     break
                 raise err
+        _M_GRP_WAIT.observe((_perf() - t0) * 1000.0)
 
     def wal_barrier(self, ticket: int | None = None) -> None:
         """Block until every WAL record appended so far (or up to
@@ -939,14 +1010,18 @@ class MemKVStore(KVStore):
             lo = hi
         return out
 
-    def _wal_batch_written(self, rec_bytes: int) -> None:
-        """After a batch's records: note the group-commit ticket, or flush
-        and pass the ``kv.wal.append`` fault point (its torn span is the
-        last record)."""
+    def _wal_batch_written(self, rec_bytes: int, cells: int,
+                           t_app0: float) -> None:
+        """After a batch's records (its ``cells``, written from
+        ``t_app0``): note the group-commit ticket, or flush and pass the
+        ``kv.wal.append`` fault point (its torn span is the last record);
+        then the ``wal.append`` timer."""
         if self._wal_group_ms > 0:
-            self._grp_note()
+            self._grp_note(cells)
+            _M_WAL_APPEND.observe((_perf() - t_app0) * 1000.0)
             return
         self._wal_flush()
+        _M_WAL_APPEND.observe((_perf() - t_app0) * 1000.0)
         _fault("kv.wal.append", self._wal_path, rec_bytes)
 
     def _wal_append_batch(self, table: bytes, family: bytes,
@@ -957,6 +1032,7 @@ class MemKVStore(KVStore):
         columnar record's."""
         if self._wal is None:
             return
+        t_app0 = _perf()
         n = len(keys)
         kl = np.fromiter(map(len, keys), ">u4", n)
         ql = np.fromiter(map(len, quals), ">u4", n)
@@ -973,7 +1049,9 @@ class MemKVStore(KVStore):
                 b"".join(vals[lo:hi])))
             self._wal.write(_REC.pack(_OP_PUT_BATCH, len(payload))
                             + payload)
-        self._wal_batch_written(_REC.size + len(payload))
+            _M_WAL_APPENDS.inc()
+            _M_WAL_BYTES.inc(_REC.size + len(payload))
+        self._wal_batch_written(_REC.size + len(payload), n, t_app0)
 
     def _wal_append_batch_columnar(self, table: bytes, family: bytes,
                                    key_blob: bytes, n: int, key_len: int,
@@ -983,6 +1061,7 @@ class MemKVStore(KVStore):
         length arrays, then the key/qualifier/value blobs."""
         if self._wal is None:
             return
+        t_app0 = _perf()
         ql = np.fromiter(map(len, quals), ">u4", n)
         vl = np.fromiter(map(len, vals), ">u4", n)
         for lo, hi in self._batch_splits(ql.astype(np.int64)
@@ -996,7 +1075,9 @@ class MemKVStore(KVStore):
                 b"".join(quals[lo:hi]), b"".join(vals[lo:hi])))
             self._wal.write(_REC.pack(_OP_PUT_BATCH, len(payload))
                             + payload)
-        self._wal_batch_written(_REC.size + len(payload))
+            _M_WAL_APPENDS.inc()
+            _M_WAL_BYTES.inc(_REC.size + len(payload))
+        self._wal_batch_written(_REC.size + len(payload), n, t_app0)
 
     @staticmethod
     def _split_payload(payload: bytes) -> list[bytes]:
@@ -1152,6 +1233,7 @@ class MemKVStore(KVStore):
         if self._sst_path is None:
             return 0
         old_path = self._wal_path + ".old"
+        t_p1 = _perf()
         with self._lock:
             if self._frozen is not None:
                 return 0  # a spill is already in flight
@@ -1201,6 +1283,7 @@ class MemKVStore(KVStore):
             empty = not any(ft.rows or ft.row_tombs
                             for ft in frozen.values())
             out_path = self._next_generation_path()
+        _M_CKPT_PHASE["freeze"].observe((_perf() - t_p1) * 1000.0)
 
         if empty:
             # Nothing to spill, but the rotation above must still
@@ -1221,17 +1304,18 @@ class MemKVStore(KVStore):
             # recovers from .old and the WAL alone; raise takes the thaw
             # below.
             _fault("kv.checkpoint.freeze", self._wal_path)
-            if use_merge:
-                n = merge_sstables(out_path, merge_gens, {
-                    name: (ft.rows, ft.row_tombs, bool(ft.tombs))
-                    for name, ft in frozen.items()})
-            else:
-                # No tombstones in the frozen tier: every cell value is
-                # bytes and no lower generation needs reading.
-                n = write_sstable_bulk(out_path, {
-                    name: ([k for k in sorted(ft.rows) if ft.rows[k]],
-                           ft.rows)
-                    for name, ft in frozen.items()})
+            with _M_CKPT_PHASE["spill"].time():
+                if use_merge:
+                    n = merge_sstables(out_path, merge_gens, {
+                        name: (ft.rows, ft.row_tombs, bool(ft.tombs))
+                        for name, ft in frozen.items()})
+                else:
+                    # No tombstones in the frozen tier: every cell value
+                    # is bytes and no lower generation needs reading.
+                    n = write_sstable_bulk(out_path, {
+                        name: ([k for k in sorted(ft.rows) if ft.rows[k]],
+                               ft.rows)
+                        for name, ft in frozen.items()})
         except Exception:
             # Disk full or similar: thaw the frozen tier back under the
             # live memtable so the store is not wedged. <wal>.old stays;
@@ -1240,6 +1324,7 @@ class MemKVStore(KVStore):
                 self._thaw_frozen_locked()
             raise
 
+        t_p3 = _perf()
         with self._lock:
             new_sst = None
             unlink_new = True
@@ -1301,6 +1386,7 @@ class MemKVStore(KVStore):
                     pass
             if os.path.exists(old_path):
                 os.unlink(old_path)
+        _M_CKPT_PHASE["commit"].observe((_perf() - t_p3) * 1000.0)
         return n
 
     def _retire_snapshots(self, tenant_marker: bool = True) -> None:
@@ -1653,7 +1739,10 @@ class MemKVStore(KVStore):
                 try:
                     self.wal_barrier()
                 except Exception:
-                    pass
+                    self.wal_swallowed_flush_errors += 1
+                    logging.getLogger(__name__).exception(
+                        "group-commit barrier failed during "
+                        "exceptional put_many exit")
             raise
         if sync:
             self._wal_barrier(ticket)
@@ -1701,6 +1790,11 @@ class MemKVStore(KVStore):
                 except Exception:
                     if batch_ok:
                         raise
+                    self.wal_swallowed_flush_errors += 1
+                    logging.getLogger(__name__).exception(
+                        "WAL batch append failed during exceptional "
+                        "put_many exit; %d applied cells not yet durable",
+                        m)
 
     def delete(self, table: str, key: bytes, family: bytes,
                qualifiers: list[bytes]) -> None:

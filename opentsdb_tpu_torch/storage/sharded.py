@@ -41,8 +41,12 @@ last durable record.
 
 Not ported yet (ROADMAP queue A): the replica and cluster surface
 (``refresh``, ``promote_writable``, ``demote_readonly``, the epoch fence;
-item 10), the rollup spill-key record (item 6), the TSST4 codec switch
-(item 5) and the per-shard trace spans and timers (item 8).
+item 10), the rollup spill-key record (item 6) and the TSST4 codec switch
+(item 5).
+
+Instruments (``obs/``): a traced scan gets one ``shard.scan`` span per
+shard (the time pulled from that shard's iterator), and each shard's
+spill the ``checkpoint.shard_spill`` timer tagged with its index.
 """
 
 from __future__ import annotations
@@ -60,6 +64,8 @@ import numpy as np
 from opentsdb_tpu_torch.core.const import TIMESTAMP_BYTES, UID_WIDTH
 from opentsdb_tpu_torch.core.errors import PleaseThrottleError
 from opentsdb_tpu_torch.fault import faultpoints as _fp
+from opentsdb_tpu_torch.obs import trace as _trace
+from opentsdb_tpu_torch.obs.registry import METRICS as _metrics
 from opentsdb_tpu_torch.storage.kv import (Cell, KVStore, MemKVStore,
                                            write_tenant_marker)
 
@@ -361,6 +367,19 @@ class ShardedKVStore(KVStore):
         its = [s.scan_raw(table, start, stop, family=family,
                           key_regexp=key_regexp, series_hint=series_hint)
                for s in shards]
+        parent = _trace.current_span()
+        if parent is not None:
+            # Per-shard fan-out spans: each accumulates only the time
+            # spent pulling from its shard's iterator (the heap merge
+            # interleaves them) and attaches to the span current at
+            # fan-out time once its iterator is exhausted.
+            idx_of = {id(s): i for i, s in enumerate(self.shards)}
+            its = [_trace.timed_iter(it, parent, "shard.scan",
+                                     {"shard": idx_of[id(s)]})
+                   for it, s in zip(its, shards)]
+            if len(shards) < self.shard_count:
+                parent.tags["shards_skipped"] = (
+                    self.shard_count - len(shards))
         return heapq.merge(*its, key=lambda row: row[0])
 
     # -- memtable introspection (the start-up re-folds) ---------------------
@@ -437,6 +456,27 @@ class ShardedKVStore(KVStore):
         return sum(s.bloom_files_skipped for s in self.shards)
 
     @property
+    def bloom_point_skips(self) -> int:
+        return sum(s.bloom_point_skips for s in self.shards)
+
+    @property
+    def wal_swallowed_flush_errors(self) -> int:
+        return sum(s.wal_swallowed_flush_errors for s in self.shards)
+
+    def memtable_row_counts(self, table: str) -> list[int]:
+        """Live-memtable rows per shard, in shard order."""
+        return [s.memtable_row_counts(table)[0] for s in self.shards]
+
+    def sstable_format_bytes(self) -> dict[int, int]:
+        """On-disk generation bytes by format version, over every
+        shard."""
+        out: dict[int, int] = {}
+        for s in self.shards:
+            for fmt, n in s.sstable_format_bytes().items():
+                out[fmt] = out.get(fmt, 0) + n
+        return out
+
+    @property
     def open_seconds(self) -> dict:
         return {k: sum(s.open_seconds[k] for s in self.shards)
                 for k in ("generations", "replay")}
@@ -485,9 +525,15 @@ class ShardedKVStore(KVStore):
                                 range(self.shard_count)))
 
     def _timed_spill(self, i: int) -> int:
+        """One shard's checkpoint, timed per shard: ``spill_seconds[i]``
+        and the ``checkpoint.shard_spill`` timer tagged with the shard
+        (a writer blocks on one shard's spill; the per-shard timer shows
+        the skew)."""
         t0 = time.perf_counter()
         try:
-            return self.shards[i].checkpoint(tenant_marker=False)
+            with _metrics.timer("checkpoint.shard_spill",
+                                {"shard": str(i)}).time():
+                return self.shards[i].checkpoint(tenant_marker=False)
         finally:
             self.spill_seconds[i] = time.perf_counter() - t0
 

@@ -46,8 +46,7 @@ The snapshot's two fault points are the JAX package's:
 ``tenant.snapshot.write`` (the temp file durable, the rename pending)
 and ``tenant.snapshot.commit`` (renamed).
 
-Left out (ROADMAP): the ``/stats`` gauges, ``collect_stats`` (queue A
-item 8).
+``collect_stats`` records the ``tenant.*`` lines of ``/stats``.
 """
 
 from __future__ import annotations
@@ -455,3 +454,46 @@ class TenantAccountant:
                 body["mode"] = limits.mode
                 body["global_limit"] = limits.global_limit
             return body
+
+    # -- /stats lines --------------------------------------------------------
+
+    # Per-tenant lines are bounded: /stats is scraped into time series and
+    # tenant ids come from clients, so only the top N by series count get
+    # per-tenant lines; the rest show in tenant.count and /api/tenants.
+    STATS_TENANTS = 32
+
+    @staticmethod
+    def _stats_tag(tenant: str) -> str:
+        """Tenant ids are client strings and a /stats line is
+        whitespace-split k=v pairs: anything outside a safe charset folds
+        to '_' (the JSON endpoints carry the raw id)."""
+        safe = "".join(ch if ch.isalnum() or ch in "._-" else "_"
+                       for ch in tenant)
+        return f"tenant={safe or '_'}"
+
+    def collect_stats(self, collector) -> None:
+        with self._lock:
+            collector.record("tenant.count", len(self._tenants))
+            collector.record("tenant.tracked_series", len(self._seen))
+            collector.record("tenant.recovered_series",
+                             self.recovered_series)
+            collector.record("tenant.refused", sum(
+                st.refused for st in self._tenants.values()))
+            collector.record("tenant.would_refuse", sum(
+                st.would_refuse for st in self._tenants.values()))
+            ranked = sorted(self._tenants.items(),
+                            key=lambda kv: -kv[1].count())
+            for name, st in ranked[:self.STATS_TENANTS]:
+                tag = self._stats_tag(name)
+                collector.record("tenant.series", st.count(), tag)
+                if st.refused:
+                    collector.record("tenant.refused_by", st.refused,
+                                     tag)
+                top = st.hh_series.top(1)
+                if top:
+                    collector.record("tenant.hh.series_points",
+                                     top[0][1], tag)
+                top = st.hh_prefixes.top(1)
+                if top:
+                    collector.record("tenant.hh.prefix_series",
+                                     top[0][1], tag)

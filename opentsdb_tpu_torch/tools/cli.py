@@ -1,4 +1,4 @@
-"""The ``tsd``, ``tenants`` and ``fsck`` commands.
+"""The ``tsd``, ``tenants``, ``fsck`` and ``stats`` commands.
 
 Mirrors those subcommands of ``opentsdb_tpu/tools/cli.py`` (the
 reference's TSDMain.java for ``tsd``, Fsck.java for ``fsck``). The daemon serves on the CUDA card
@@ -29,6 +29,12 @@ turns on WAL group commit in the daemon.
 (``--wal``) or of a live daemon (``--url``, its ``/api/tenants``).
 ``fsck`` checks a store (``tools/fsck.py``); ``--fix`` salvages bad rows
 and ``--expect-clean`` exits 2 on any error, even when fixed.
+
+``stats`` prints the ``/stats`` lines (``--metrics``: the Prometheus text
+of ``/metrics``) of a live daemon (``--url``) or of a store (``--wal``:
+the engine's stats and the metrics registry; the server's own counters
+need ``--url``). The daemon's observability flags: ``--slow-query-ms``,
+``--selfmon-interval``, ``--trace-ring`` and ``--trace-sample-n``.
 """
 
 from __future__ import annotations
@@ -86,7 +92,10 @@ def cmd_tsd(args) -> int:
         tenant_limit_mode=args.tenant_limit_mode,
         tenant_overrides=tuple(args.tenant_override),
         tenant_exact_cutoff=args.tenant_exact_cutoff,
-        wal_group_ms=args.wal_group_ms)
+        wal_group_ms=args.wal_group_ms,
+        slow_query_ms=args.slow_query_ms,
+        selfmon_interval_s=args.selfmon_interval,
+        trace_ring=args.trace_ring, trace_sample_n=args.trace_sample_n)
     tsdb = open_tsdb(cfg, args.wal, shards=args.shards)
     # The replayed WAL and the opened generations are in place: freeze
     # them out of cycle collection (utils/gctune.py).
@@ -204,6 +213,40 @@ def cmd_fsck(args) -> int:
     return 1 if rep.errors and not args.fix else 0
 
 
+def cmd_stats(args) -> int:
+    """Print the /stats lines (or, with --metrics, the Prometheus text)
+    of a live daemon (--url) or of an opened store. A store opens as the
+    one-shot tools do (no window, no sketches) and closes without a
+    checkpoint; the server's counters (connections, RPC latency) need
+    --url."""
+    if args.url:
+        url = args.url.rstrip("/") + (
+            "/metrics" if args.metrics else "/stats")
+        with urllib.request.urlopen(url, timeout=15) as r:
+            sys.stdout.write(r.read().decode("utf-8", "replace"))
+        return 0
+    from opentsdb_tpu_torch.obs.registry import METRICS
+    from opentsdb_tpu_torch.stats.collector import StatsCollector
+
+    tsdb = open_tsdb(Config(table=args.table, uidtable=args.uidtable,
+                            backend=args.backend, device=args.device,
+                            device_window=False, enable_sketches=False),
+                     args.wal, start_compaction_thread=False,
+                     shards=args.shards)
+    try:
+        c = StatsCollector("tsd")
+        tsdb.collect_stats(c)
+        METRICS.collect(c)
+    finally:
+        tsdb.compactionq.shutdown()
+        tsdb.store.close()
+    if args.metrics:
+        sys.stdout.write(METRICS.prometheus_text(extra_lines=c.lines))
+    elif c.lines:
+        print("\n".join(c.lines))
+    return 0
+
+
 def _store_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--table", default="tsdb")
     p.add_argument("--uidtable", default="tsdb-uid")
@@ -277,6 +320,22 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--ingest-queue-points", type=int, default=0,
                    help="global in-flight decoded-point cap; over it "
                         "puts shed with a throttle line")
+    # Observability (obs/).
+    p.add_argument("--slow-query-ms", type=float, default=0.0,
+                   help="trace every /q and log one-line JSON records "
+                        "(span tree + plan) for queries at/over this "
+                        "wall time; they land in /api/traces too "
+                        "(0 disables)")
+    p.add_argument("--selfmon-interval", type=float, default=0.0,
+                   help="seconds between self-monitoring cycles that "
+                        "ingest /stats into the store itself as tsd.* "
+                        "series (0 disables)")
+    p.add_argument("--trace-ring", type=int, default=256,
+                   help="traced / slow query records kept for "
+                        "/api/traces")
+    p.add_argument("--trace-sample-n", type=int, default=0,
+                   help="trace 1 /q in N into the trace ring (0 "
+                        "disables)")
     p.set_defaults(func=cmd_tsd)
 
     p = sub.add_parser(
@@ -300,6 +359,18 @@ def main(argv: list[str] | None = None) -> int:
                    help="exit 2 if ANY error is found (even with "
                         "--fix) — the crash-harness/CI contract")
     p.set_defaults(func=cmd_fsck)
+
+    p = sub.add_parser(
+        "stats", help="print /stats lines from a server or a store")
+    _store_args(p)
+    p.add_argument("--url", default=None,
+                   help="base URL of a live tsd (e.g. "
+                        "http://localhost:4242): fetch its /stats "
+                        "instead of opening a store")
+    p.add_argument("--metrics", action="store_true",
+                   help="Prometheus text exposition (/metrics) instead "
+                        "of classic stats lines")
+    p.set_defaults(func=cmd_stats)
     args = parser.parse_args(argv)
     return args.func(args)
 

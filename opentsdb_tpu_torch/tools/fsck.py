@@ -14,9 +14,10 @@ local format's audits):
 
 ``fix=True`` salvages rows (explode what decodes, keep the first value per
 delta, rewrite); the CLI's ``--expect-clean`` maps any error to a distinct
-exit code. Left out: the JAX package's ``fsck.duration`` timer (ROADMAP
-queue A item 8) and the TSST4 block audit (item 5; the port writes no
-TSST4 and refuses to open it).
+exit code. Each run lands one ``fsck.duration`` observation in the
+metrics registry (``obs/registry.py``). Left out: the TSST4 block audit
+(ROADMAP queue A item 5; the port writes no TSST4 and refuses to open
+it).
 """
 
 from __future__ import annotations
@@ -26,6 +27,12 @@ import dataclasses
 from opentsdb_tpu_torch.core import codec
 from opentsdb_tpu_torch.core.errors import IllegalDataError
 from opentsdb_tpu_torch.core.tsdb import FAMILY
+from opentsdb_tpu_torch.obs.registry import METRICS
+
+# One observation per fsck run: tsd.fsck.duration (p50/p95/p99 and
+# .count/.sum_ms). The crash harness asserts that a sample lands during
+# its recovery check.
+_M_FSCK = METRICS.timer("fsck.duration")
 
 
 @dataclasses.dataclass
@@ -49,6 +56,11 @@ def run_fsck(tsdb, fix: bool = False, log=None) -> FsckReport:
     """Scan the data table and audit the sstable blooms; returns the
     report. ``log`` (a callable) receives one line per finding; None is
     silent."""
+    with _M_FSCK.time():
+        return _run_fsck(tsdb, fix, log)
+
+
+def _run_fsck(tsdb, fix: bool, log) -> FsckReport:
     say = log if log is not None else (lambda *_: None)
     rep = FsckReport()
     # The batched row scan (the JAX fsck reads per row through ``scan``:

@@ -13,6 +13,10 @@ the MAXID cell, check the id fits the width, CAS the *reverse* mapping into
 existence first (a dangling reverse mapping is harmless; a forward mapping
 without reverse is not), then CAS the forward mapping — the loser of a
 concurrent race leaks one id and retries, discovering the winner's id.
+
+The cache counters (``cache_hits``, ``cache_misses``, ``cache_size``),
+``suggest`` and ``drop_caches`` feed ``/stats``, ``/suggest`` and
+``dropcaches`` as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,6 +31,11 @@ ID_FAMILY = b"id"
 NAME_FAMILY = b"name"
 MAXID_ROW = b"\x00"
 MAX_ATTEMPTS_ASSIGN_ID = 3
+MAX_SUGGESTIONS = 25
+# Bound on cache entries a suggest scan adds: a scan over a huge UID set
+# must not grow the caches for good (lookup-path entries stay unbounded:
+# they are sized by the series the daemon serves).
+SCAN_CACHE_MAX = 65536
 
 class UniqueId:
     """One UID dictionary of a given kind ('metrics' | 'tagk' | 'tagv')."""
@@ -46,7 +55,19 @@ class UniqueId:
         # entries are impossible (reference UniqueId.java:73-83).
         self._id_cache: dict[str, bytes] = {}
         self._name_cache: dict[bytes, str] = {}
+        self.cache_hits = 0
+        self.cache_misses = 0
         self._lock = threading.Lock()
+
+    def kind(self) -> str:
+        return self._kind
+
+    def cache_size(self) -> int:
+        return len(self._id_cache) + len(self._name_cache)
+
+    def drop_caches(self) -> None:
+        self._id_cache.clear()
+        self._name_cache.clear()
 
     # -- lookups ----------------------------------------------------------
 
@@ -58,7 +79,9 @@ class UniqueId:
                 f"required for '{self._kind}'")
         name = self._name_cache.get(uid)
         if name is not None:
+            self.cache_hits += 1
             return name
+        self.cache_misses += 1
         cells = self._store.get(self._table, uid, NAME_FAMILY)
         for c in cells:
             if c.qualifier == self._kindb:
@@ -72,7 +95,9 @@ class UniqueId:
         """name -> id, raising NoSuchUniqueName when absent."""
         uid = self._id_cache.get(name)
         if uid is not None:
+            self.cache_hits += 1
             return uid
+        self.cache_misses += 1
         cells = self._store.get(self._table, name.encode("iso-8859-1"),
                                 ID_FAMILY)
         for c in cells:
@@ -127,6 +152,34 @@ class UniqueId:
             f"Failed to assign an ID for kind='{self._kind}' name='{name}'")
 
     # -- admin ------------------------------------------------------------
+
+    def suggest(self, prefix: str, limit: int = MAX_SUGGESTIONS) -> list[str]:
+        """Names starting with ``prefix``, ordered, capped (reference
+        UniqueId.suggest :367-406). An empty prefix scans the printable
+        range [b'!', b'~'] like the reference's START_ROW/END_ROW."""
+        if prefix:
+            start = prefix.encode("iso-8859-1")
+            # The smallest key above every key with this prefix: bump the
+            # last byte below 0xFF, dropping trailing 0xFFs; an all-0xFF
+            # prefix has no upper bound (an open-ended scan).
+            stop = start.rstrip(b"\xff")
+            stop = stop[:-1] + bytes([stop[-1] + 1]) if stop else b""
+        else:
+            start, stop = b"!", b"~"
+        out: list[str] = []
+        for key, items in self._store.scan_raw(self._table, start, stop,
+                                               family=ID_FAMILY):
+            for qual, uid in items:
+                if qual == self._kindb:
+                    name = key.decode("iso-8859-1")
+                    # Warm the caches, bounded.
+                    if len(self._id_cache) < SCAN_CACHE_MAX:
+                        self._id_cache.setdefault(name, uid)
+                        self._name_cache.setdefault(uid, name)
+                    out.append(name)
+                    if len(out) >= limit:
+                        return out
+        return out
 
 
     def __str__(self) -> str:

@@ -124,6 +124,21 @@ class Config:
     tenant_hll_p: int = 12
     tenant_topk: int = 16
 
+    # Observability (obs/), the JAX package's names and defaults:
+    # - slow_query_ms: /q requests at or over this wall time are traced
+    #   and logged as one-line JSON records (span tree, plan) into the
+    #   trace ring and the slow-query logger. 0 disables; queries are
+    #   then traced only when asked (?trace=1).
+    # - selfmon_interval_s: period of the self-monitoring loop that
+    #   ingests the /stats lines into the store as tsd.* series. 0 = off.
+    # - trace_ring: records kept for /api/traces.
+    # - trace_sample_n: trace 1 /q in N into the ring (baselines between
+    #   incidents). 0 disables.
+    slow_query_ms: float = 0.0
+    selfmon_interval_s: float = 0.0
+    trace_ring: int = 256
+    trace_sample_n: int = 0
+
     # network
     port: int = 4242
     bind: str = "0.0.0.0"

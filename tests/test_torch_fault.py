@@ -60,7 +60,9 @@ PORT_SITES = ("kv.wal.append", "kv.wal.fsync", "kv.wal.group.write",
 
 @pytest.fixture(autouse=True)
 def _disarmed(monkeypatch):
-    """Nothing armed before or after a test, and both packages on their
+    """Nothing armed before or after a test, each package's cumulative
+    fired counters fresh for the test (other test files in the process
+    fire sites in one package only), and both packages on their
     Python storage paths (the JAX package runs without its native build
     here; the port's C paths differ from it on an empty table, ROADMAP
     queue C note 9). ``native`` cases point both at their C."""
@@ -68,6 +70,7 @@ def _disarmed(monkeypatch):
     use(monkeypatch, (None, None), False, False)
     for fp in FP.values():
         fp.clear()
+        monkeypatch.setattr(fp, "FIRED", {})
     yield
     for fp in FP.values():
         fp.clear()

@@ -158,3 +158,35 @@ def test_fault_sharded_and_fsck_live_in_the_port():
     # caller asks for the CPU.
     assert cmd[cmd.index("--device") + 1] == "cuda"
     assert "opentsdb_tpu_torch.fault.harness" in harness.repro_command(sc)
+
+
+def test_observability_lives_in_the_port():
+    """The port's observability layer is its own copy: obs/, the stats
+    collector and the log ring exist in the package, each names the JAX
+    module it mirrors, no module names the JAX package's obs, collector
+    or log-ring modules, and the slow-query log is the port's logger."""
+    import importlib
+    import re
+    from opentsdb_tpu_torch.obs import ring
+    mirrors = {
+        "opentsdb_tpu_torch.obs.registry": "opentsdb_tpu/obs/registry.py",
+        "opentsdb_tpu_torch.obs.trace": "opentsdb_tpu/obs/trace.py",
+        "opentsdb_tpu_torch.obs.ring": "opentsdb_tpu/obs/ring.py",
+        "opentsdb_tpu_torch.obs.selfmon": "opentsdb_tpu/obs/selfmon.py",
+        "opentsdb_tpu_torch.stats.collector":
+            "opentsdb_tpu/stats/collector.py",
+        "opentsdb_tpu_torch.server.logbuffer":
+            "opentsdb_tpu/server/logbuffer.py",
+    }
+    for mod, src in mirrors.items():
+        assert src in importlib.import_module(mod).__doc__, mod
+    pkg = os.path.join(ROOT, "opentsdb_tpu_torch")
+    banned = re.compile(r"opentsdb_tpu\.(obs|stats\.collector|"
+                        r"server\.logbuffer)\b")
+    for d, dirs, files in os.walk(pkg):
+        dirs[:] = [x for x in dirs if x not in ("_build", "__pycache__")]
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(d, fn)
+                assert banned.search(open(path).read()) is None, path
+    assert ring.SLOW_LOG.name == "opentsdb_tpu_torch.slowquery"

@@ -369,3 +369,45 @@ def test_telnet_error_replies_under_native_decoders(tmp_path, monkeypatch):
             list(jt.store.scan_raw(table, b"", b"")), table
     jt.shutdown()
     pt.shutdown()
+
+
+UNTRACED_TARGETS = [
+    f"/q?start={START}&end={END}&m=sum:10m-avg:sys.load%7Bhost=*%7D&json",
+    f"/q?start={START}&end={END}&m=max:sys.load&json&trace=0",
+    f"/q?start={START}&end={END}&m=sum:10m-avg:sys.load&ascii",
+]
+
+
+def test_untraced_q_has_no_trace_key_and_matches_jax_daemon(monkeypatch):
+    """Without ?trace=1 (or with trace=0) a /q answer carries no trace
+    key, and its bytes are the JAX daemon's for the same puts (both on
+    the float64 oracle, window off, so every float is the same; both on
+    the numpy telnet decoder, which keeps the tags' arrival order:
+    ROADMAP queue C, reference note 10)."""
+    from opentsdb_tpu.server.tsd import TSDServer as JaxServer
+    from opentsdb_tpu_torch.server import wire as port_wire
+    monkeypatch.setattr(port_wire, "_NATIVE", None)
+    cfg = dict(auto_create_metrics=True, port=0, bind="127.0.0.1",
+               device_window=False, backend="cpu")
+
+    def answers(server_cls, tsdb):
+        server = server_cls(tsdb)
+
+        async def main():
+            await server.start()
+            try:
+                await _telnet(server.port, _lines(_points()))
+                return [await _get(server.port, t)
+                        for t in UNTRACED_TARGETS]
+            finally:
+                await server.stop()
+        return asyncio.run(main())
+
+    want = answers(JaxServer, JaxTSDB(JaxStore(), JaxConfig(**cfg),
+                                      start_compaction_thread=False))
+    got = answers(TSDServer, TSDB(MemKVStore(), Config(device="cpu", **cfg),
+                                  start_compaction_thread=False))
+    assert got == want
+    for (st, body), target in zip(got, UNTRACED_TARGETS):
+        assert st == 200 and b"trace" not in body, target
+    assert all("trace" not in g for g in json.loads(got[0][1]))
