@@ -183,9 +183,36 @@
    multiple of SHARDS - 1: its one series routes to one shard) and
    ``tools/fsck.run_fsck`` clean, as on the one-shard store at the end of
    the restart phase. Then the 1-vs-SHARDS A/B with group commit off:
-   the whole corpus through ``add_batch`` into a 1-shard and a
-   SHARDS-shard store (the ingest rate of each), each then checkpointed
-   while a writer ingests (the pause it sees over a full memtable).
+   the corpus' first PAUSE_SERIES series through ``add_batch`` into a
+   1-shard and a SHARDS-shard store (the ingest rate of each), each then
+   checkpointed while a writer ingests (the pause it sees over a full
+   memtable).
+5d. Compressed phase (``compress/``), after the path phase, at full
+   width: a daemon with ``sstable_codec="tsst4"``, the resident window
+   off (it would answer first) and otherwise the default Config ingests
+   the corpus, its telnet series and INT_SERIES integer series over telnet
+   (``bench.int``, the TSINT leg), then checkpoint 1 (seconds, rows/s, v4
+   bytes beside the path phase's v3 ones, ``compress.ratio`` from
+   ``/stats``). The block-decode kernel (``csrc/block_decode.cu``) is held
+   bit for bit against ``decode_points_plain`` on the card and timed like
+   the others at three shapes from the store's own gathers: the week of
+   ``bench.metric`` (TSF32), one day of it, and the week of ``bench.int``
+   (TSINT). With the launch counts set to 0, the ten ``/q`` queries run
+   once cold and FUSED_WARM_REPS times warm over HTTP: every group must
+   say ``"rollup": "fused"`` and each answer must match the path phase's
+   (REFERENCE, the resident tolerance) and the float64 oracle's; the path
+   must launch block_decode, segment_sum and (the percentiles)
+   masked_select. One ``bench.int`` query must equal the raw scan's
+   answer exactly. Then one day of ``sum:1h-avg`` through each leg, cold
+   and warm: the byte-stream leg (device block cache off), the cache's
+   miss and its hit, and ``max:1h-max{host=h00001}``'s selector legs; the
+   gather's host time with the blocks' parsed keys dropped and kept; the
+   ``/api/queries`` fused section. A telnet put of another metric into a
+   covered hour must make the next query decline ``dirty`` (counted) and
+   be served raw with the same answer. Checkpoint 2, then a restart on the
+   WAL: the ten queries fused again, max and percentiles byte for byte,
+   the sums within the resident tolerance, and fsck of the v4 store with
+   its per-codec block counts and no codec error.
 5c. Observability (``obs/``), on the path phase's daemon at full width
    before the restart: one resident and one scan ``/q?trace=1`` (the
    ``{dc=dc0}`` day's ``zimsum``); each span tree must have the names and
@@ -220,9 +247,9 @@
 8. Prints the card line first; at the end the per-query, sketch,
    ingest, profiler, tenants, restart, native (build seconds and calls
    per C site, per stage, and the WAL replay), sharded, obs, budget and
-   launch-floor lines, the
+   launch-floor lines, the compressed line, the
    kernels
-   line (eight
+   line (nine
    kernels) and, last, the ok line.
    In the kernels line each kernel's top-level numbers are its first
    path's: the segment kernels' and the select's the resident path's
@@ -263,9 +290,11 @@ import urllib.parse
 import numpy as np
 import torch
 
+from opentsdb_tpu_torch.compress import fused as cfused
+from opentsdb_tpu_torch.compress.devcache import pad_fine
 from opentsdb_tpu_torch.core.tsdb import TSDB
 from opentsdb_tpu_torch.obs.registry import METRICS
-from opentsdb_tpu_torch.ops import (cuda_build, interp_moments,
+from opentsdb_tpu_torch.ops import (block_decode, cuda_build, interp_moments,
                                     kernels as wk, masked_select, oracle,
                                     segment_reduce, sketches)
 from opentsdb_tpu_torch.query.aggregators import Aggregators
@@ -363,9 +392,20 @@ NATIVE_STAGES: dict = {}
 # batch's shape), and the writer that ingests while checkpoints run.
 SHARDS, WAL_GROUP_MS, BARRIER_SERIES = 4, 2.0, 100
 WRITER_SERIES, WRITER_POINTS = 1_000, 1_000
-# The one-shard daemon's answers (path phase, before any checkpoint): the
-# sharded phase's reference.
+# The one-shard daemon's answers (path phase, before any checkpoint) and
+# the float64 oracle's answers to its ten downsampled queries: the sharded
+# and compressed phases' reference.
 REFERENCE: dict = {}
+# The writer-pause A/B's corpus: its first PAUSE_SERIES series (a quarter,
+# to keep the smoke inside its time limit).
+PAUSE_SERIES = 2_500
+# Compressed phase: integer series through telnet (bench.int, one point
+# every INT_STEP seconds over the week: the TSINT leg; one point per
+# row-hour, so each row is one cell whichever telnet batch carried it, as
+# the columnar codecs need), warm /q runs per query after the first.
+INT_SERIES, INT_STEP = 200, 3600
+FUSED_WARM_REPS = 2
+NO_LIBRARY = "no single PyTorch call computes this function"
 
 
 def fail(msg: str):
@@ -982,6 +1022,23 @@ def path_launches(path: str, kernels: tuple) -> dict:
     return out
 
 
+def telnet_corpus_lines() -> tuple[list, list]:
+    """The corpus' telnet part: TELNET_SERIES series of TELNET_POINTS
+    points, from a seed; the put lines and each point's (host, dc,
+    value)."""
+    rng = np.random.default_rng(2)
+    lines = []
+    telnet_vals = []
+    for s in range(TELNET_SERIES):
+        tt = np.sort(rng.choice(SPAN, TELNET_POINTS, replace=False))
+        for t, v in zip(tt + BASE, rng.normal(100, 1, TELNET_POINTS)):
+            lines.append(f"put bench.metric {t} {v:.4f} host=t{s:02d} "
+                         f"dc=dc{s % 10}")
+            telnet_vals.append((f"t{s:02d}", f"dc{s % 10}",
+                                float(f"{v:.4f}")))
+    return lines, telnet_vals
+
+
 def ingest(tsdb: TSDB, port: int, ts: np.ndarray, vals: np.ndarray,
            stage: str = "", barrier_series: int = 0) -> dict:
     """The corpus through add_batch, then telnet puts; the window mirrors
@@ -1002,16 +1059,7 @@ def ingest(tsdb: TSDB, port: int, ts: np.ndarray, vals: np.ndarray,
                 tsdb.store.wal_barrier()
         tsdb.store.wal_barrier()
         t_batch = time.perf_counter() - t0
-    rng = np.random.default_rng(2)
-    lines = []
-    telnet_vals = []
-    for s in range(TELNET_SERIES):
-        tt = np.sort(rng.choice(SPAN, TELNET_POINTS, replace=False))
-        for t, v in zip(tt + BASE, rng.normal(100, 1, TELNET_POINTS)):
-            lines.append(f"put bench.metric {t} {v:.4f} host=t{s:02d} "
-                         f"dc=dc{s % 10}")
-            telnet_vals.append((f"t{s:02d}", f"dc{s % 10}",
-                                float(f"{v:.4f}")))
+    lines, telnet_vals = telnet_corpus_lines()
     with native_calls(stage + "telnet_ingest",
                       ("tsd_parse", "slice_cells", "slice_keys",
                        "upsert_cells")):
@@ -1233,13 +1281,13 @@ def new_answer_checks(ex: QueryExecutor, tsdb: TSDB, spans: list,
         spec = spec_of(expr)
         g = regroup(ex, spans, spec.tags)
         scan = ex._execute_groups(spec, g, start, end)
+        want = REFERENCE["oracle"][expr] = oracle_percentiles(
+            ex, spec, g, downsampled)
         out[expr] = {
             "scan_rel_err": check_answer(expr, answers[expr], scan, 1e-5,
                                          "scan path"),
-            "oracle_rel_err": check_answer(
-                expr, answers[expr],
-                oracle_percentiles(ex, spec, g, downsampled), 1e-4,
-                "oracle")}
+            "oracle_rel_err": check_answer(expr, answers[expr], want,
+                                           1e-4, "oracle")}
         log(f"check {expr}: {out[expr]}")
     cpu = QueryExecutor(tsdb, backend="cpu")
     for expr, span in UNION_QUERIES:
@@ -1317,20 +1365,20 @@ def stage_and_apply(ex: QueryExecutor, dw: DeviceWindow, spec: QuerySpec,
 
 
 def profile_share(ex: QueryExecutor, spec: QuerySpec, start: int,
-                  end: int) -> dict:
-    """One resident query in process under torch.profiler: device-busy
-    share = the summed durations of the card's activities (kernels,
-    copies, fills) over the query's wall time. "not measured" when the
-    trace holds no device activity."""
+                  end: int, plan: str = "resident") -> dict:
+    """One query in process under torch.profiler, which must take
+    ``plan``: device-busy share = the summed durations of the card's
+    activities (kernels, copies, fills) over the query's wall time. "not
+    measured" when the trace holds no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall_ms, (_, plan, _) = sync_ms(
+        wall_ms, (_, got, _) = sync_ms(
             lambda: ex.run_with_plan(spec, start, end))
-    if plan != "resident":
-        fail(f"profiled query took plan {plan!r}")
+    if got != plan:
+        fail(f"profiled query took plan {got!r}, not {plan!r}")
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     by_name: dict = {}
@@ -1692,7 +1740,8 @@ def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
                 daemon.port, expr, start, start + span - 1)
         out["launches"]["union"] = path_launches(
             "union path", ("masked_select", "interp_moments"))
-        REFERENCE.update(resident=dict(answers), union=dict(union_answers))
+        REFERENCE.update(resident=dict(answers), union=dict(union_answers),
+                         oracle={})
         # Before any checkpoint every chunk of the week holds memtable
         # rows: the fragment cache is bypassed, nothing is cached, and the
         # answers are the whole-range scan's.
@@ -1753,10 +1802,10 @@ def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
             groups, scan = scans.pop(expr)
             q["scan_rel_err"] = check_answer(expr, answers[expr], scan,
                                              1e-5, "scan path")
-            q["oracle_rel_err"] = check_answer(
-                expr, answers[expr],
-                oracle._execute_groups(spec, groups, start, end), 1e-4,
-                "oracle")
+            want = REFERENCE["oracle"][expr] = oracle._execute_groups(
+                spec, groups, start, end)
+            q["oracle_rel_err"] = check_answer(expr, answers[expr], want,
+                                               1e-4, "oracle")
             log(f"query {expr}: {q['chunks']} chunks, stage "
                 f"{q['stage_ms']:.2f} ms, apply+fetch "
                 f"{q['apply_fetch_ms']:.2f} ms; scan path: device stage "
@@ -2371,8 +2420,9 @@ def writer_pause_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
     otherwise): each store takes the whole corpus through ``add_batch``
     (timed: what the shard count alone does to ingest), then checkpoints
     that full memtable while a writer ingests WRITER_SERIES more (the
-    pause a writer sees)."""
+    pause a writer sees). The corpus' first PAUSE_SERIES series only."""
     out = {}
+    ts, vals = ts[:PAUSE_SERIES], vals[:PAUSE_SERIES]
     for shards in (1, SHARDS):
         with tempfile.TemporaryDirectory() as d:
             tsdb = open_tsdb(Config(auto_create_metrics=True, device=DEVICE),
@@ -2508,6 +2558,403 @@ def sharded_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
                 fail(f"{RESTART_UNION}: bloom_shards_skipped "
                      f"{out['bloom_shards_skipped']}")
             out["fsck"] = fsck_clean(tsdb, f"the {SHARDS}-shard store")
+        finally:
+            daemon.stop()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Compressed phase: TSST4 generations, the fused plan, the decode kernel
+# ---------------------------------------------------------------------------
+
+def decode_launches() -> tuple:
+    return launches() + (block_decode.decode_points.launches,)
+
+
+def zero_decode_launches() -> None:
+    zero_launches()
+    block_decode.decode_points.launches = 0
+
+
+FUSED_KERNELS = KERNELS + ("block_decode",)
+
+
+def int_lines() -> list:
+    """INT_SERIES integer series (bench.int) over the week, from a seed:
+    the telnet lines of the TSINT leg."""
+    rng = np.random.default_rng(23)
+    t = BASE + np.arange(0, SPAN, INT_STEP, dtype=np.int64)
+    lines = []
+    for s in range(INT_SERIES):
+        v = rng.integers(-1000, 10_000, len(t))
+        lines.extend(f"put bench.int {a} {b} host=i{s:03d}"
+                     for a, b in zip(t.tolist(), v.tolist()))
+    return lines
+
+
+def gather_streams(store, table: str, metric_uid: bytes, b_lo: int,
+                   b_hi: int, dev) -> tuple:
+    """A gather's decode inputs as the fused byte-stream leg uploads them
+    (pad_fine points, power-of-two payloads), on ``dev``; and the
+    gather's point count and value kind."""
+    src = cfused.gather(store, table, metric_uid, b_lo, b_hi)
+    P_pad = pad_fine(src.npoints)
+
+    def pad(a):
+        out = np.zeros(P_pad, np.int32)
+        out[:len(a)] = a
+        return torch.from_numpy(out).to(dev)
+
+    def padbuf(a):
+        n = max(len(a), 1)
+        out = np.zeros(1 << (n - 1).bit_length(), np.uint8)
+        out[:len(a)] = a
+        return torch.from_numpy(out).to(dev)
+
+    args = (pad(src.ts_nb), padbuf(src.ts_pay), pad(src.v_nb),
+            padbuf(src.v_pay), pad(src.first_idx), pad(src.blk_first),
+            pad(src.rel_base_pt))
+    return args, src.npoints, src.kind
+
+
+def decode_case(stage: str, args: tuple, npoints: int, vkind: str,
+                flush: torch.Tensor) -> dict:
+    """The decode kernel on one gather against decode_points_plain on the
+    same card tensors: rel_ts and the value bits identical on every
+    point (padding included), then timed like the other kernels. Bytes:
+    every input read once, both outputs written once."""
+    fn = block_decode.decode_points
+    got = fn(*args, vkind=vkind)
+    want = block_decode.decode_points_plain(*args, vkind=vkind)
+    torch.cuda.synchronize()
+    if not torch.equal(got[0], want[0]) or not torch.equal(
+            got[1].view(torch.int32), want[1].view(torch.int32)):
+        fail(f"block_decode {stage}: the kernel's output differs from "
+             f"decode_points_plain")
+    n = args[0].numel()
+    nbytes = sum(a.numel() * a.element_size() for a in args) + 8 * n
+    b_ms, b_by = bound_ms(nbytes, 0.0)
+    rec = {"name": "block_decode", "stage": stage, "points": npoints,
+           "padded_points": n, "vkind": vkind,
+           "payload_bytes": args[1].numel() + args[3].numel(),
+           "max_abs_err": 0.0,
+           "ms": median_ms(lambda: fn(*args, vkind=vkind)),
+           "ms_cold": median_ms(lambda: fn(*args, vkind=vkind),
+                                flush=flush),
+           "ms_device": device_ms(lambda: fn(*args, vkind=vkind)),
+           "plain_ms": median_ms(lambda: block_decode.decode_points_plain(
+               *args, vkind=vkind), reps=5),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "library": NO_LIBRARY, "bytes": nbytes}
+    log(f"block_decode {stage}: {rec}")
+    return rec
+
+
+def http_fused(port: int, expr: str, start: int, end: int,
+               plan: str = "fused") -> tuple[dict, list, bytes]:
+    """One /q run whose every group must carry ``plan``; the run's wall
+    ms and kernel launches."""
+    target = "/q?" + urllib.parse.urlencode(
+        {"start": start, "end": end, "m": expr, "json": ""})
+    before = decode_launches()
+    q0 = time.perf_counter()
+    status, body = http_get(port, target)
+    wall = (time.perf_counter() - q0) * 1e3
+    if status != 200:
+        fail(f"{expr}: HTTP {status}: {body[:300]!r}")
+    answer = json.loads(body)
+    if not answer or any(g["rollup"] != plan for g in answer):
+        fail(f"{expr}: not served {plan}: "
+             f"{sorted({g.get('rollup') for g in answer})}")
+    return ({"wall_ms": wall,
+             **{k: a - b for k, a, b in zip(FUSED_KERNELS,
+                                             decode_launches(), before)}},
+            answer, body)
+
+
+def devcache_counts() -> dict:
+    return {k: METRICS.counter(f"compress.devcache.{k}").value
+            for k in ("hit", "miss", "evict")}
+
+
+def decline_count(reason: str) -> int:
+    return METRICS.counter("compress.fused.decline",
+                           {"reason": reason}).value
+
+
+def leg_runs(daemon: "Daemon", ex: QueryExecutor) -> dict:
+    """One day of sum:1h-avg through each leg of the fused plan, cold
+    (its stage cache emptied first) then warm: the byte-stream leg
+    (device block cache off), the cache's miss, its hit; and
+    max:1h-max{host=h00001}'s selector legs (bytes, the cache's miss and
+    hit)."""
+    start, end = BASE, BASE + DAY - 1
+    out = {}
+    saved = ex._devcache
+
+    def run(label, expr, cache, want):
+        ex._devcache = cache
+        ex._fused_stage_cache.clear()
+        c0 = devcache_counts()
+        cold, answer, _ = http_fused(daemon.port, expr, start, end)
+        warm, again, _ = http_fused(daemon.port, expr, start, end)
+        c1 = devcache_counts()
+        delta = {k: c1[k] - c0[k] for k in c0}
+        if warm["block_decode"]:
+            fail(f"{label}: the warm run decoded again")
+        out[label] = {"query": expr, "cold_ms": cold["wall_ms"],
+                      "warm_ms": warm["wall_ms"],
+                      "cold_launches": {k: cold[k] for k in FUSED_KERNELS},
+                      "devcache": delta}
+        for k, n in want.items():
+            if delta[k] != n:
+                fail(f"{label}: devcache {k} {delta[k]}, not {n}")
+        if cache is not None and delta["hit"] + delta["miss"] != 1:
+            fail(f"{label}: devcache {delta}: not one lookup")
+        if cache is None and cold["block_decode"] != 1:
+            fail(f"{label}: the byte-stream leg decoded "
+                 f"{cold['block_decode']} times")
+        if again != answer:
+            fail(f"{label}: the warm answer differs from the cold one")
+        return answer
+
+    try:
+        day = "sum:1h-avg:bench.metric"
+        host = "max:1h-max:bench.metric{host=h00001}"
+        a = run("bytes", day, None, {"hit": 0, "miss": 0})
+        b = run("devcache_miss", day, saved, {"hit": 0, "miss": 1})
+        c = run("devcache_hit", day, saved, {"hit": 1, "miss": 0})
+        out["same_answer_max_rel_diff"] = max(
+            same_answer(day, b, a, False), same_answer(day, c, a, True))
+        # The selector gathers only the blocks holding h00001's records:
+        # where that is fewer blocks than the day's, another cache entry
+        # (a miss), else the day's (a hit).
+        d = run("bytes_sel", host, None, {"hit": 0, "miss": 0})
+        e = run("devcache_sel_first", host, saved, {})
+        f = run("devcache_sel_hit", host, saved, {"hit": 1, "miss": 0})
+        if not d == e == f:
+            fail(f"{host}: the selector legs answer differently")
+    finally:
+        ex._devcache = saved
+    log(f"fused legs over one day: {out}")
+    return out
+
+
+def gather_host_ms(tsdb: TSDB) -> dict:
+    """The week's gather of bench.metric on the host: with every block's
+    parsed keys dropped (the cold query's first step, ``_prep_keys`` in
+    Python over every record) and with them kept (points=False, as the
+    device-cache leg gathers)."""
+    uid = tsdb.metrics.get_id("bench.metric")
+    b_lo, b_hi = BASE, BASE + SPAN - 1 - (BASE + SPAN - 1) % 3600
+    for g in tsdb.store._ssts:
+        g.__dict__.pop("_fused_prep", None)
+    t0 = time.perf_counter()
+    src = cfused.gather(tsdb.store, tsdb.table, uid, b_lo, b_hi,
+                        points=False)
+    cold = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cfused.gather(tsdb.store, tsdb.table, uid, b_lo, b_hi, points=False)
+    warm = (time.perf_counter() - t0) * 1e3
+    records = sum(prep.n for _, _, prep, *_ in src.blocks)
+    out = {"cold_ms": cold, "warm_ms": warm, "blocks": len(src.blocks),
+           "records": records, "points": src.npoints}
+    log(f"week gather on the host: {out}")
+    return out
+
+
+def open_compressed_tsdb(wal: str) -> TSDB:
+    tsdb = open_tsdb(Config(auto_create_metrics=True, port=0,
+                            bind="127.0.0.1", device=DEVICE,
+                            sstable_codec="tsst4", device_window=False),
+                     wal)
+    tune_for_ingest()
+    if tsdb.devwindow is not None or tsdb.store.sstable_codec != "tsst4":
+        fail("the compressed daemon's TSDB came up with the window or "
+             "without the tsst4 codec")
+    return tsdb
+
+
+def fused_queries(daemon: "Daemon", start: int, end: int,
+                  warm_reps: int) -> tuple[dict, dict]:
+    """The ten queries over HTTP, each once cold and ``warm_reps`` times
+    warm: every group fused. Returns (runs, answers)."""
+    runs, answers = {}, {}
+    for expr in QUERIES + PCT_QUERIES:
+        rs = []
+        for _ in range(1 + warm_reps):
+            run, answers[expr], _ = http_fused(daemon.port, expr, start,
+                                               end)
+            rs.append(run)
+        runs[expr] = {"first_ms": rs[0]["wall_ms"],
+                      "first_launches": {k: rs[0][k] for k in FUSED_KERNELS},
+                      "warm_ms": [r["wall_ms"] for r in rs[1:]]}
+        log(f"fused {expr}: {runs[expr]}")
+    return runs, answers
+
+
+def compressed_phase(ts: np.ndarray, vals: np.ndarray, path: dict) -> dict:
+    """See 5d in the module docstring."""
+    start, end = BASE, BASE + SPAN - 1
+    out: dict = {}
+    dev = torch.device(DEVICE)
+    with tempfile.TemporaryDirectory() as d:
+        wal = os.path.join(d, "wal")
+        tsdb = open_compressed_tsdb(wal)
+        daemon = Daemon(tsdb)
+        try:
+            t0 = time.perf_counter()
+            for s in range(SERIES):
+                tsdb.add_batch("bench.metric", ts[s], vals[s],
+                               series_tags(s))
+            lines, _ = telnet_corpus_lines()
+            said = telnet(daemon.port, lines + int_lines())
+            if "put:" in said:
+                fail(f"compressed ingest answered {said[:300]!r}")
+            n_int = INT_SERIES * len(range(0, SPAN, INT_STEP))
+            points = SERIES * POINTS + len(lines) + n_int
+            ingest_s = time.perf_counter() - t0
+            out["ingest"] = {"points": points, "seconds": ingest_s,
+                             "points_per_s": points / ingest_s}
+            ck = out["checkpoint_1"] = timed_checkpoint(
+                tsdb, "compressed checkpoint 1")
+            raw, stored = tsdb.store.compress_stats()
+            ratio = stat_lines(daemon.port).get("tsd.compress.ratio")
+            if not ratio or not raw > stored > 0:
+                fail(f"no compress.ratio after checkpoint 1: {ratio}")
+            v3 = path["restart"]["checkpoint_1"]
+            out["bytes"] = {
+                "v4_file_bytes": ck["generation_bytes"],
+                "v4_record_bytes": stored, "raw_record_bytes": raw,
+                "compress_ratio": next(iter(ratio.values())),
+                "path_phase_v3_file_bytes": v3["generation_bytes"],
+                "path_phase_v3_rows": v3["rows"],
+                "formats": tsdb.store.sstable_format_bytes()}
+            log(f"compressed checkpoint 1: {out['bytes']}")
+
+            # The decode kernel at three gathers of this store.
+            flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                                device=dev)
+            cases = []
+            week_hi = end - end % 3600
+            for stage, metric, b_lo, b_hi in (
+                    ("week gather (TSF32)", "bench.metric", BASE,
+                     week_hi),
+                    ("one-day gather (TSF32)", "bench.metric", BASE,
+                     BASE + DAY - 3600),
+                    ("week gather (TSINT)", "bench.int", BASE, week_hi)):
+                args, npts, kind = gather_streams(
+                    tsdb.store, tsdb.table, tsdb.metrics.get_id(metric),
+                    b_lo, b_hi, dev)
+                if kind != ("int" if metric == "bench.int" else "f32"):
+                    fail(f"{metric}: gathered {kind} blocks")
+                cases.append(decode_case(stage, args, npts, kind, flush))
+                del args
+            del flush
+            out["kernel_cases"] = cases
+
+            # The fused path: the ten queries, launches counted.
+            zero_decode_launches()
+            out["queries"], answers = fused_queries(
+                daemon, start, end, FUSED_WARM_REPS)
+            got = dict(zip(FUSED_KERNELS, decode_launches()))
+            for k in ("segment_sum", "masked_select", "block_decode"):
+                if got[k] == 0:
+                    fail(f"the fused path never launched {k}")
+            out["launches"] = got
+            for expr in QUERIES + PCT_QUERIES:
+                q = out["queries"][expr]
+                q["resident_max_rel_diff"] = same_answer(
+                    expr, answers[expr], REFERENCE["resident"][expr],
+                    False)
+                q["oracle_rel_err"] = check_answer(
+                    expr, answers[expr], REFERENCE["oracle"][expr], 1e-4,
+                    "oracle")
+            ex = daemon.server.executor
+            iexpr = "sum:1h-sum:bench.int"
+            irun, ians, _ = http_fused(daemon.port, iexpr, start, end)
+            tsdb.config.sstable_fused_agg = False
+            try:
+                _, iraw, _ = http_fused(daemon.port, iexpr, start, end,
+                                        plan="raw")
+            finally:
+                tsdb.config.sstable_fused_agg = True
+            if [(g["tags"], g["dps"]) for g in ians] \
+                    != [(g["tags"], g["dps"]) for g in iraw]:
+                fail(f"{iexpr}: the fused answer is not the raw scan's")
+            out["int_query"] = {"query": iexpr, "ms": irun["wall_ms"],
+                                "block_decode": irun["block_decode"],
+                                "equal_to_raw": True}
+            out["legs"] = leg_runs(daemon, ex)
+            # The card's share of one fused query's wall time, its stage
+            # built (the week's columns decoded: too large for the device
+            # cache) and from the stage cache.
+            spec = spec_of(QUERIES[1])
+            ex._fused_stage_cache.clear()
+            out["profile_cold"] = profile_share(ex, spec, start, end,
+                                                "fused")
+            out["profile_warm"] = profile_share(ex, spec, start, end,
+                                                "fused")
+            log(f"fused {QUERIES[1]} under the profiler: cold "
+                f"{out['profile_cold']}, warm {out['profile_warm']}")
+            out["gather_host"] = gather_host_ms(tsdb)
+            out["api_queries"] = http_json(daemon.port,
+                                           "/api/queries")["fused"]
+            if out["api_queries"]["served"] < 10 \
+                    or out["api_queries"]["devcache"]["miss"] < 1:
+                fail(f"/api/queries fused: {out['api_queries']}")
+
+            # A put of another metric into a covered hour: dirty, raw,
+            # the same answer.
+            expr = QUERIES[0]
+            d0 = decline_count("dirty")
+            said = telnet(daemon.port, [
+                f"put bench.dirty {BASE + 3600 + 17} 1.5 host=h00000"])
+            if "put:" in said:
+                fail(f"the dirty put answered {said!r}")
+            _, dirty_answer, _ = http_fused(daemon.port, expr, start, end,
+                                            plan="raw")
+            if decline_count("dirty") != d0 + 1:
+                fail("the dirty query did not count a dirty decline")
+            out["dirty"] = {"query": expr, "declined": "dirty",
+                            "max_rel_diff": same_answer(
+                                expr, dirty_answer, answers[expr], False)}
+            out["checkpoint_2"] = timed_checkpoint(
+                tsdb, "compressed checkpoint 2")
+            t0 = time.perf_counter()
+            daemon.stop()
+            out["shutdown_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tsdb = open_compressed_tsdb(wal)
+            out["boot_s"] = time.perf_counter() - t0
+            daemon = Daemon(tsdb)
+            zero_decode_launches()
+            runs, after = fused_queries(daemon, start, end, 0)
+            out["launches_after_restart"] = dict(zip(FUSED_KERNELS,
+                                                     decode_launches()))
+            if out["launches_after_restart"]["block_decode"] == 0:
+                fail("the fused path after the restart decoded nothing")
+            same = {}
+            for expr in QUERIES + PCT_QUERIES:
+                exact = expr.startswith(("max", "p"))
+                same[expr] = {
+                    "ms": runs[expr]["first_ms"],
+                    "identical": after[expr] == answers[expr],
+                    "max_rel_diff": same_answer(expr, after[expr],
+                                                answers[expr], exact)}
+            out["after_restart"] = same
+            t0 = time.perf_counter()
+            rep = run_fsck(tsdb)
+            out["fsck"] = {"rows": rep.rows, "errors": rep.errors,
+                           "blocks": rep.blocks,
+                           "codec_errors": rep.codec_errors,
+                           "codec_counts": rep.codec_counts,
+                           "format_counts": rep.format_counts,
+                           "seconds": time.perf_counter() - t0}
+            if rep.errors or rep.codec_errors or not rep.blocks \
+                    or set(rep.format_counts) != {4}:
+                fail(f"fsck of the v4 store: {out['fsck']}")
+            log(f"fsck of the v4 store: {out['fsck']}")
         finally:
             daemon.stop()
     return out
@@ -3243,6 +3690,8 @@ def main() -> int:
                + sketch_kernel_phase(vals))
     with tempfile.TemporaryDirectory() as wal_dir:
         path = path_phase(ts, vals, wal_dir)
+    compressed = compressed_phase(ts, vals, path)
+    kernels += compressed["kernel_cases"]
     sharded = sharded_phase(ts, vals)
     REFERENCE.clear()
     sharded["writer_pause"] = writer_pause_phase(ts, vals)
@@ -3263,7 +3712,8 @@ def main() -> int:
         "hll_fold": {"sketch": "one hand-off: host + dc, p = 12"},
         "hll_estimate": {"sketch": "over the p = 12 stack (8 x 4096)"},
         "merged_quantile": {
-            "sketch": "all series, S = 16,384 (2,097,152 entries)"}}
+            "sketch": "all series, S = 16,384 (2,097,152 entries)"},
+        "block_decode": {"fused": "week gather (TSF32)"}}
     where = {
         "segment_sum": ("segment_reduce.cu",
                         "opentsdb_tpu/ops/pallas_kernels.py:77"),
@@ -3278,17 +3728,21 @@ def main() -> int:
         "hll_fold": ("sketches.cu", "opentsdb_tpu/stats/livesketch.py:451"),
         "hll_estimate": ("sketches.cu", "opentsdb_tpu/ops/sketches.py:196"),
         "merged_quantile": ("sketches.cu",
-                            "opentsdb_tpu/stats/livesketch.py:460")}
+                            "opentsdb_tpu/stats/livesketch.py:460"),
+        "block_decode": ("block_decode.cu",
+                         "opentsdb_tpu/compress/kernels.py:72")}
     numbers = ("max_abs_err", "ms", "ms_cold", "ms_device", "plain_ms",
                "bound_ms", "bound_by", "library_ms")
     by_case = {(r["name"], r["stage"]): r for r in kernels}
+    path_launches_of = dict(path["launches"],
+                            fused=compressed["launches"])
     line = []
     for name, shape in shapes.items():
         paths = {}
         for p, stage in shape.items():
             r = by_case[(name, stage)]
             paths[p] = {"stage": stage,
-                        "launches": path["launches"][p][name],
+                        "launches": path_launches_of[p][name],
                         **{k: r[k] for k in numbers}}
         entry = {"name": name, "route": "cuda",
                  "source": f"opentsdb_tpu_torch/csrc/{where[name][0]}",
@@ -3299,15 +3753,18 @@ def main() -> int:
             entry["full_width"] = {k: r[k] for k in numbers}
         others = [r for r in kernels if r["name"] == name
                   and r["stage"] not in shape.values()
-                  and name in SKETCH_KERNELS]
+                  and name in SKETCH_KERNELS + ("block_decode",)]
         if others:
             entry["other_cases"] = {r["stage"]: {k: r[k] for k in numbers}
                                     for r in others}
+        if name == "block_decode":
+            entry["library"] = NO_LIBRARY
         line.append(entry)
     log(json.dumps({"details": {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "kernel_cases": kernels, "path": path,
-        "sharded": sharded, "refusal": refusal, "budget": budget}}))
+        "compressed": compressed, "sharded": sharded, "refusal": refusal,
+        "budget": budget}}))
     for expr, q in path["queries"].items():
         print(json.dumps({"query": expr, "plan": "resident", **q,
                           "card": smi}))
@@ -3395,6 +3852,25 @@ def main() -> int:
         "native": {k: v for k, v in NATIVE_STAGES.items()
                    if k.startswith("sharded_")}},
         "card": smi}))
+    c = compressed
+    print(json.dumps({"compressed": {
+        "ingest": c["ingest"], "checkpoint_1": c["checkpoint_1"],
+        "checkpoint_2": c["checkpoint_2"], "bytes": c["bytes"],
+        "queries": c["queries"], "int_query": c["int_query"],
+        "legs": c["legs"], "gather_host": c["gather_host"],
+        "profile": {k: {"query": QUERIES[1], **{
+            f: c[k][f] for f in ("wall_ms", "device_busy_ms",
+                                 "device_busy_share")}}
+            for k in ("profile_cold", "profile_warm")},
+        "launches": c["launches"],
+        "launches_after_restart": c["launches_after_restart"],
+        "api_queries": c["api_queries"], "dirty": c["dirty"],
+        "shutdown_s": c["shutdown_s"], "boot_s": c["boot_s"],
+        "after_restart": c["after_restart"], "fsck": c["fsck"],
+        "decode": {r["stage"]: {k: r[k] for k in (
+            "points", "padded_points", "payload_bytes", "ms", "ms_cold",
+            "ms_device", "plain_ms", "bound_ms", "bytes")}
+            for r in c["kernel_cases"]}}, "card": smi}))
     r_obs = path["obs"]
     print(json.dumps({"obs": {
         "resident": {k: v for k, v in r_obs["resident"].items()

@@ -66,6 +66,7 @@ from opentsdb_tpu_torch.core.errors import (IllegalDataError,
 from opentsdb_tpu_torch.stats.livesketch import LiveSketches
 from opentsdb_tpu_torch.storage.devstore import DeviceWindow
 from opentsdb_tpu_torch.storage.kv import KVStore
+from opentsdb_tpu_torch.storage import sstable
 from opentsdb_tpu_torch.storage.sstable import series_hash
 from opentsdb_tpu_torch.tenant.accounting import TenantAccountant
 from opentsdb_tpu_torch.tenant.limits import TenantLimiter, parse_overrides
@@ -90,6 +91,19 @@ class TSDB:
         group_ms = float(self.config.wal_group_ms or 0.0)
         if group_ms > 0 and hasattr(store, "wal_group_ms"):
             store.wal_group_ms = group_ms
+        # Write-side sstable codec (compress/), pushed onto the store so
+        # spills and merges encode in it; only a non-default value
+        # overrides a store the embedder configured itself.
+        codec = self.config.sstable_codec or "none"
+        if codec != "none":
+            if codec != "tsst4":
+                raise ValueError(f"unknown sstable_codec {codec!r} "
+                                 f"(one of: none, tsst4)")
+            if hasattr(store, "sstable_codec"):
+                store.sstable_codec = codec
+        # The spill-encode pool is a module knob, shared by every store.
+        sstable.set_encode_workers(
+            int(self.config.spill_encode_workers or 0))
         store.ensure_table(self.config.table)
         store.ensure_table(self.config.uidtable)
         self.table = self.config.table
@@ -716,8 +730,8 @@ class TSDB:
         """Push the engine's counters into a StatsCollector (reference
         TSDB.collectStats :129-175; the JAX package's lines and order).
 
-        Left out, each with the item that brings it (ROADMAP queue A):
-        ``compress.ratio`` (item 5: the port writes no TSST4), the rollup
+        ``compress.ratio`` appears once a v4 generation exists. Left out,
+        each with the item that brings it (ROADMAP queue A): the rollup
         tier's lines (item 6) and the cluster lines ``cluster.epoch`` /
         ``.fenced`` / ``.fenced_bytes_refused`` (item 10). The JAX package
         emits none of them under its default config either."""
@@ -742,6 +756,11 @@ class TSDB:
             collector.record("storage.memtable.rows", n, f"shard={i}")
         for fmt, nbytes in sorted(store.sstable_format_bytes().items()):
             collector.record("sstable.bytes", nbytes, f"format=v{fmt}")
+        raw, enc = store.compress_stats()
+        if enc:
+            # Uncompressed-record bytes per stored byte across the v4
+            # generations.
+            collector.record("compress.ratio", round(raw / enc, 4))
         collector.record("bloom.files_skipped", store.bloom_files_skipped)
         if nshards is not None:
             collector.record("bloom.shards_skipped",

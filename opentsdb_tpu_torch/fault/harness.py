@@ -35,10 +35,15 @@ shards; ``FAST_LABELS`` names the tier-1 subset. ``--bug
 ack-before-fsync`` re-introduces, in the child, the group-commit bug the
 matrix must catch (acknowledging before the covering flush).
 
+A scenario's ``codec`` ("tsst4") makes the workload spill compressed
+TSST4 generations; the verifier reopens with the same codec, so its
+checkpoints and fsck's block audit run the v4 writers and readers again.
+The ``sst-block-*`` rows cut or kill inside a compressed block
+(``sst.write.block``).
+
 Left out (ROADMAP queue A): the rollup rows and the rollup query parity
-(item 6), the TSST4 ``sst.write.block`` rows (item 5), the replica and
-promote kinds and the replica refresh check (item 10), and
-``meshreshard`` (item 11).
+(item 6), the replica and promote kinds and the replica refresh check
+(item 10), and ``meshreshard`` (item 11).
 
 Run the port's matrix (or one scenario); ``--device cpu`` on a host
 without a card::
@@ -107,6 +112,8 @@ class Scenario:
     # are reachable and acknowledged ops must be covered by a group flush
     # before the progress file sees them.
     wal_group_ms: float = 0.0
+    # Write-side sstable codec of the workload ("none" | "tsst4").
+    codec: str = "none"
     # Config.device of the child's and the verifier's TSDB.
     device: str = "cuda"
 
@@ -228,7 +235,8 @@ def open_store(dirpath: str, shards: int):
 
 
 def open_tsdb(dirpath: str, shards: int, tenant_cutoff: int = -1,
-              wal_group_ms: float = 0.0, device: str = "cuda") -> TSDB:
+              wal_group_ms: float = 0.0, device: str = "cuda",
+              codec: str = "none") -> TSDB:
     """The writer TSDB with the harness's profile: the float64 host
     backend, sketches and the device window off, compactions off and no
     background thread (a deterministic schedule). Tenant accounting stays
@@ -236,7 +244,8 @@ def open_tsdb(dirpath: str, shards: int, tenant_cutoff: int = -1,
     the tenant snapshot."""
     cfg = Config(device=device, backend="cpu", auto_create_metrics=True,
                  enable_compactions=False, enable_sketches=False,
-                 device_window=False, wal_group_ms=wal_group_ms)
+                 device_window=False, wal_group_ms=wal_group_ms,
+                 sstable_codec=codec)
     if tenant_cutoff >= 0:
         cfg.tenant_exact_cutoff = tenant_cutoff
     return TSDB(open_store(dirpath, shards), cfg,
@@ -310,7 +319,8 @@ def _child_main(args) -> int:
         _apply_bug(args.bug)
     tsdb = open_tsdb(args.dir, args.shards,
                      tenant_cutoff=args.tenant_cutoff,
-                     wal_group_ms=args.wal_group_ms, device=args.device)
+                     wal_group_ms=args.wal_group_ms, device=args.device,
+                     codec=args.codec)
     with open(args.progress, "a") as pf:
         for i, op in enumerate(ops):
             apply_op(tsdb, op)
@@ -447,7 +457,8 @@ def verify(dirpath: str, sc: Scenario, ops: list[tuple],
     try:
         tsdb = open_tsdb(dirpath, sc.shards,
                          tenant_cutoff=sc.tenant_cutoff,
-                         wal_group_ms=sc.wal_group_ms, device=sc.device)
+                         wal_group_ms=sc.wal_group_ms, device=sc.device,
+                         codec=sc.codec)
     except Exception as e:
         return [f"reopen failed: {e!r}"], ""
     try:
@@ -510,6 +521,8 @@ def child_command(sc: Scenario, store_dir: str, progress: str) -> list[str]:
         cmd += ["--tenant-cutoff", str(sc.tenant_cutoff)]
     if sc.wal_group_ms > 0:
         cmd += ["--wal-group-ms", str(sc.wal_group_ms)]
+    if sc.codec != "none":
+        cmd += ["--codec", sc.codec]
     return cmd
 
 
@@ -576,6 +589,8 @@ def repro_command(sc: Scenario) -> str:
         out += f" --tenant-cutoff {sc.tenant_cutoff}"
     if sc.wal_group_ms > 0:
         out += f" --wal-group-ms {sc.wal_group_ms}"
+    if sc.codec != "none":
+        out += f" --codec {sc.codec}"
     return out
 
 
@@ -629,6 +644,7 @@ FAST_LABELS = (
     "ckpt-commit-crash-s1",
     "sst-body-torn-s4",
     "sst-footer-torn-s1",
+    "sst-block-torn-s1",
     "tenant-snap-commit-torn-s4",
     "shard-join-crash-k2",
 )
@@ -684,6 +700,16 @@ def build_matrix() -> list[Scenario]:
         add(f"sst-body-torn-{t}", "sst.write.body", "torn", **c)
         # Torn inside the footer section (index, bloom, trailer).
         add(f"sst-footer-torn-{t}", "sst.write.footer", "torn", **c)
+        # Inside a TSST4 compressed block (sst.write.block fires per
+        # flushed block): the spill dies mid-compression, leaving a temp
+        # file whose last block is cut, which recovery must treat as a
+        # stray while replaying <wal>.old.
+        add(f"sst-block-crash-{t}", "sst.write.block", "crash",
+            codec="tsst4", **c)
+        add(f"sst-block-torn-{t}", "sst.write.block", "torn",
+            codec="tsst4", **c)
+        add(f"sst-block-torn-late-{t}", "sst.write.block", "torn",
+            skip=2, codec="tsst4", **c)
         add(f"sst-rename-crash-{t}", "sst.rename", "crash", **c)
         # The tenant snapshot: a torn temp file leaves the previous
         # snapshot governing; a torn committed file is the corruption the
@@ -703,6 +729,10 @@ def build_matrix() -> list[Scenario]:
         shards=1, seed=3001)
     add("ckpt-commit-crash-norollup", "kv.checkpoint.commit", "crash",
         shards=1, seed=3002)
+    add("sst-block-torn-norollup", "sst.write.block", "torn",
+        shards=1, codec="tsst4", seed=3003)
+    add("sst-block-torn-norollup-s4", "sst.write.block", "torn",
+        shards=4, codec="tsst4", seed=3004)
     # The HLL tier of tenant accounting (every tenant on it at cutoff 0):
     # a torn committed snapshot recovers within the declared error.
     add("tenant-snap-commit-torn-hll", "tenant.snapshot.commit",
@@ -746,6 +776,8 @@ def main(argv=None) -> int:
     p.add_argument("--bug", default=None, choices=BUGS)
     p.add_argument("--tenant-cutoff", type=int, default=-1)
     p.add_argument("--wal-group-ms", type=float, default=0.0)
+    p.add_argument("--codec", default="none", choices=("none", "tsst4"),
+                   help="Config.sstable_codec of the workload")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="Config.device of the workload and the verifier "
                         "(cpu on a host without a card)")
@@ -770,7 +802,7 @@ def main(argv=None) -> int:
             shards=args.shards, seed=args.seed, n_ops=args.n_ops,
             delete_heavy=args.delete_heavy, bug=args.bug,
             tenant_cutoff=args.tenant_cutoff,
-            wal_group_ms=args.wal_group_ms)]
+            wal_group_ms=args.wal_group_ms, codec=args.codec)]
     elif args.fast:
         scens = fast_matrix()
     else:

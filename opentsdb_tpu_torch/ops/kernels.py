@@ -9,9 +9,12 @@ names, arguments, padding and results:
 - the resident-window path (``storage/devstore.py``), over the window's
   chunk list: ``_chunk_fold``, ``_chunk_stage_finish``,
   ``window_series_stage_chunks``, ``_shrink_wrap``,
-  ``window_moment_apply`` and ``window_quantile_apply``. The JAX package's
-  stage over concatenated columns (``window_series_stage``,
-  ``window_query``) is left out: the executor serves only from the chunks;
+  ``window_moment_apply`` and ``window_quantile_apply``;
+- the window stage over one concatenated point stream,
+  ``_window_series_stage``, which the fused block plan
+  (``compress/kernels.py``) runs, and ``_stage_tail``, the fill both
+  stages share. The JAX package's jitted wrappers of it
+  (``window_series_stage``, ``window_query``) have no caller here;
 - percentile group aggregation: ``_order_key``, ``_key_to_float``,
   ``masked_quantile_axis0``, ``masked_quantile_groups`` and
   ``downsample_multigroup_quantile``;
@@ -575,6 +578,44 @@ def _fold_chunks(chunks, lo, hi, shift, *, num_series, num_buckets,
     return acc
 
 
+def _window_series_stage(rel_ts, vals, sid, valid_in, lo, hi, shift, *,
+                         num_series, num_buckets, interval, agg_down,
+                         rate=False, counter_max=0.0, reset_value=0.0,
+                         counter=False, drop_resets=False):
+    """The window stage over one flat point stream: range masking +
+    per-series downsample [+ rate] + the row-local fill, the
+    FILTER-INDEPENDENT half of a query (the JAX package's function of the
+    same name). ``rel_ts`` are int32 offsets from the stream's epoch;
+    ``lo``/``hi`` bound them, ``shift`` moves them to the query's
+    bucket-aligned base. Returns (series_values, series_mask, filled,
+    in_range, presence)."""
+    ok = valid_in & (rel_ts >= lo) & (rel_ts <= hi)
+    # downsample_group's per-series half alone: XLA drops the JAX
+    # function's unused group stage and member timestamps; eager torch
+    # would compute them.
+    series_values, series_mask, _ = _series_stage(
+        rel_ts - shift, vals, sid, ok, num_series=num_series,
+        num_buckets=num_buckets, interval=interval, agg_down=agg_down,
+        with_ts=False)
+    presence = series_mask.any(dim=1)  # pre-rate, like downsample_group
+    if rate:
+        series_values, series_mask = bucket_rate(
+            series_values, series_mask, interval, counter_max,
+            reset_value, counter=counter, drop_resets=drop_resets)
+    return _stage_tail(series_values, series_mask, presence,
+                       num_buckets=num_buckets, rate=rate)
+
+
+def _stage_tail(series_values, series_mask, presence, *, num_buckets,
+                rate):
+    """The shared tail of both window stages (one stream and chunked):
+    fill per the rate family and return the stage contract. One
+    definition, so the fill choice cannot diverge between them."""
+    fill = step_fill if rate else gap_fill
+    filled, in_range = fill(series_values, series_mask, num_buckets)
+    return series_values, series_mask, filled, in_range, presence
+
+
 def _chunk_stage_finish(count, total, m2, mn, mx, *, num_series,
                         num_buckets, interval, agg_down, rate=False,
                         counter_max=0.0, reset_value=0.0, counter=False,
@@ -590,9 +631,8 @@ def _chunk_stage_finish(count, total, m2, mn, mx, *, num_series,
         series_values, series_mask = bucket_rate(
             series_values, series_mask, interval, counter_max,
             reset_value, counter=counter, drop_resets=drop_resets)
-    fill = step_fill if rate else gap_fill
-    filled, in_range = fill(series_values, series_mask, num_buckets)
-    return series_values, series_mask, filled, in_range, presence
+    return _stage_tail(series_values, series_mask, presence,
+                       num_buckets=num_buckets, rate=rate)
 
 
 def window_series_stage_chunks(chunks, lo, hi, shift, *, num_series,

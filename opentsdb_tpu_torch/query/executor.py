@@ -25,11 +25,25 @@ window (``storage/devstore.py``) when it exactly covers the range — plan
 label "resident": no storage scan, no upload of points, only the [S]-sized
 include/group maps (cached) and the filter-independent [S, B] stage
 (cached per data version) — and otherwise from the storage scan, plan
-"raw". Queries without a downsampler always take the scan: their spans
+"raw". Between the two, as in the JAX package (resident, then fused,
+then raw; there is no rollup tier here), the fused plan serves a range
+straight from TSST4 compressed blocks (``_run_fused_blocks``, plan label
+"fused"): ``compress/fused.gather`` collects the covering blocks' payload
+streams (exact or a counted decline), the hand-written decode kernel and
+the segment kernels produce the same [S, B] stage grids the window path
+makes, and the same apply kernels finish. It declines, counted under
+``compress.fused.decline{reason=}``, on memtable rows in range
+(``dirty``), a non-v4 generation, an ineligible block, mixed value
+codecs, overlapping duplicate rows or an int32 overflow, and never runs
+on the oracle backend. Warm gathers decode from the device block cache
+(``compress/devcache.py``); stages cache per (range, plan, filter),
+keyed on the generation set they came from. ``compress.fused.attempt`` /
+``.served`` / ``.coverage`` and the ``compress.fused_agg`` timer account
+for it. Queries without a downsampler always take the scan: their spans
 are aggregated on the union of their timestamps (``group_interpolate``,
 or the union-grid quantile), with rates taken per point first. Percentile
 downsamplers (``1h-p95``) run on the float64 oracle, as in the JAX
-package. There is no rollup tier here.
+package.
 
 The scan reads through the fragment cache (``_scan_selector``, on by
 default as in the JAX package): the range splits into row-span-aligned
@@ -75,17 +89,39 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from opentsdb_tpu_torch.compress import fused as _fused
+from opentsdb_tpu_torch.compress import kernels as _ck
+from opentsdb_tpu_torch.compress.devcache import DeviceBlockCache
+from opentsdb_tpu_torch.compress.devcache import pad_fine as _pad_fine
 from opentsdb_tpu_torch.core import codec
 from opentsdb_tpu_torch.core.const import (MAX_TIMESPAN, TIMESTAMP_BYTES,
                                            UID_WIDTH)
 from opentsdb_tpu_torch.core.errors import BadRequestError, NoSuchUniqueName
 from opentsdb_tpu_torch.fault.faultpoints import fire as _fault
 from opentsdb_tpu_torch.obs import trace as obs_trace
+from opentsdb_tpu_torch.obs.registry import METRICS as _metrics
 from opentsdb_tpu_torch.ops import kernels, oracle, sketches
 from opentsdb_tpu_torch.query.aggregators import Aggregators
 from opentsdb_tpu_torch.stats.collector import LatencyDigest
 from opentsdb_tpu_torch.storage.sstable import series_hash
 from opentsdb_tpu_torch.utils.lru import LRUCache
+
+# The fused plan off TSST4 blocks: wall time of the gather + stage + apply
+# per served query, and the coverage accounting (attempts = queries past
+# the fused gates, served = answered plan "fused"; every decline between
+# the two counts under compress.fused.decline{reason=}).
+_M_FUSED = _metrics.timer("compress.fused_agg")
+_C_FUSED_ATTEMPT = _metrics.counter("compress.fused.attempt")
+_C_FUSED_SERVED = _metrics.counter("compress.fused.served")
+_metrics.gauge(
+    "compress.fused.coverage",
+    lambda: (_C_FUSED_SERVED.value / _C_FUSED_ATTEMPT.value
+             if _C_FUSED_ATTEMPT.value else 0.0))
+
+
+def _count_decline(reason: str) -> None:
+    _metrics.counter("compress.fused.decline", {"reason": reason}).inc()
+
 
 # One fragment cache PER STORE, shared by every QueryExecutor over it, so
 # a second executor over the same store starts warm. Keyed by store
@@ -159,6 +195,16 @@ class QueryExecutor:
         self._dw_plan_cache = LRUCache(128)
         self._dw_stage_cache = LRUCache(4)
         cfg = tsdb.config
+        # Fused-block stage cache: device grids keyed by range + plan +
+        # filter; each entry pins the SSTable objects it came from, so a
+        # generation swap mismatches (and id reuse cannot alias).
+        self._fused_stage_cache = LRUCache(4)
+        # Device block cache (compress/devcache.py): decoded columns of
+        # whole gathers, bounded by cached points.
+        self._devcache = None
+        if cfg.devblock_points > 0 and self.backend != "cpu":
+            self._devcache = DeviceBlockCache(cfg.devblock_points,
+                                              self.device)
         # Fragment cache: decoded per-(selector, aligned time-chunk)
         # columns, bounded by cached POINTS; one per store, shared by
         # every executor over it.
@@ -432,10 +478,10 @@ class QueryExecutor:
     def run_with_plan(self, spec: QuerySpec, start: int, end: int,
                       trace=None) -> tuple[list[QueryResult], str, bool]:
         """run() plus the plan label ("resident" when the device window
-        served it, else "raw") and whether the scan's every fragment
-        came from the warm fragment cache (always False for "resident",
-        as in the JAX package: the window's stage cache holds grids, not
-        scanned columns).
+        served it, "fused" when the compressed blocks did, else "raw") and
+        whether the scan's every fragment came from the warm fragment
+        cache (always False for "resident" and "fused", as in the JAX
+        package: their stage caches hold grids, not scanned columns).
 
         ``trace`` (``obs/trace.Trace``): the stages record themselves as
         a span tree under ``trace.root``, whose tags then carry the plan
@@ -463,10 +509,19 @@ class QueryExecutor:
         # falls in this span).
         with obs_trace.span("planner.pick") as sp:
             dev = self._run_devwindow(spec, start, end, agg)
+            fusedr = None
+            if dev is None:
+                # Fused decode-plus-aggregate off TSST4 blocks: after the
+                # resident window (a materialized tier beats re-deriving
+                # from storage), before the raw scan. Exact or None.
+                fusedr = self._run_fused_blocks(spec, start, end, agg)
             if sp is not None:
-                sp.tags["plan"] = "resident" if dev is not None else "raw"
+                sp.tags["plan"] = ("resident" if dev is not None else
+                                   "fused" if fusedr is not None else "raw")
         if dev is not None:
             return dev, "resident", False
+        if fusedr is not None:
+            return fusedr, "fused", False
         t0 = time.time()
         info: dict = {}
         with obs_trace.span("scan") as sp:
@@ -834,41 +889,58 @@ class QueryExecutor:
                         and k[2] != cols.version:
                     cache.pop(k)
             cache.put(skey, stage)
-        sv, sm, filled, in_range, presence_dev = stage[:5]
-        # Shrink-wrap the fetch: clip to the live group/bucket counts
-        # (64-quantized) and bit-pack the mask on the device.
-        b_live = int((end - qbase) // interval + 1)
-        g_out = min(ngroups, _pad64(len(gkeys)))
-        b_out = min(num_buckets, _pad64(b_live))
         try:
-            if agg.kind == "percentile":
-                gv, gm = kernels.window_quantile_apply(
-                    sm, filled, in_range, include, gmap, [agg.quantile],
-                    num_groups=ngroups, g_out=g_out, b_out=b_out,
-                    layout=layout)
-            else:
-                gv, gm = kernels.window_moment_apply(
-                    sv, sm, filled, in_range, include, gmap,
-                    num_groups=ngroups, agg_group=spec.aggregator,
-                    g_out=g_out, b_out=b_out)
-            gv, gm = gv.cpu().numpy(), gm.cpu().numpy()
-            if stage[5] is None:
-                stage[5] = presence_dev.cpu().numpy()
+            gv, gm, b_out = self._apply_stage(
+                spec, agg, stage, include, gmap, layout, ngroups,
+                len(gkeys), num_buckets, int((end - qbase) // interval + 1))
         except torch.cuda.OutOfMemoryError:
             # Drop the stage too: it pins grids in the very memory that
             # just ran out.
             cache.pop(skey, None)
             return None
-        # Series with no in-range points must not shape group labels or
-        # emit empty groups — the scan path never sees them.
-        has_points = stage[5]
+        return self._stage_results(spec, groups, cols.series_keys, named,
+                                   stage[5], gv, gm, b_out, interval,
+                                   qbase)
+
+    @staticmethod
+    def _apply_stage(spec, agg, stage, include, gmap, layout, ngroups,
+                     live_groups, num_buckets, b_live):
+        """The per-query half over a cached stage (resident and fused
+        plans): include masking and group aggregation (moments, or the
+        percentile), shrink-wrapped to the live group / bucket counts
+        (64-quantized) with the mask bit-packed on the device, then
+        fetched; the stage's presence is fetched once into ``stage[5]``.
+        Returns (values, packed mask, b_out)."""
+        sv, sm, filled, in_range, presence_dev = stage[:5]
+        g_out = min(ngroups, _pad64(live_groups))
+        b_out = min(num_buckets, _pad64(b_live))
+        if agg.kind == "percentile":
+            gv, gm = kernels.window_quantile_apply(
+                sm, filled, in_range, include, gmap, [agg.quantile],
+                num_groups=ngroups, g_out=g_out, b_out=b_out,
+                layout=layout)
+        else:
+            gv, gm = kernels.window_moment_apply(
+                sv, sm, filled, in_range, include, gmap,
+                num_groups=ngroups, agg_group=spec.aggregator,
+                g_out=g_out, b_out=b_out)
+        gv, gm = gv.cpu().numpy(), gm.cpu().numpy()
+        if stage[5] is None:
+            stage[5] = presence_dev.cpu().numpy()
+        return gv, gm, b_out
+
+    def _stage_results(self, spec, groups, series_keys, named, has_points,
+                       gv, gm, b_out, interval, qbase):
+        """QueryResults from a fetched apply: one per group in key order.
+        Series with no in-range points must not shape group labels or
+        emit empty groups (the scan path never sees them)."""
         gm = np.unpackbits(gm, axis=1, count=b_out).astype(bool)
         results = []
-        for gi, gkey in enumerate(gkeys):
+        for gi, gkey in enumerate(sorted(groups)):
             live = [sid for sid in groups[gkey] if has_points[sid]]
             if not live:
                 continue
-            spans = [_Span(cols.series_keys[sid], named[sid], None, None)
+            spans = [_Span(series_keys[sid], named[sid], None, None)
                      for sid in live]
             tags, aggregated = self._group_tags(spans)
             mask = gm[gi]
@@ -896,6 +968,208 @@ class QueryExecutor:
                                             group_bys)
         self._dw_plan_cache.put(fkey, (cols.generation, groups, named))
         return groups, named
+
+    # -- fused plan over TSST4 compressed blocks ------------------------
+
+    def _run_fused_blocks(self, spec: QuerySpec, start: int, end: int,
+                          agg) -> list[QueryResult] | None:
+        """Serve a downsampled query straight from TSST4 blocks: the
+        decode kernel and the window stage produce the per-(series,
+        bucket) grids on the device, then the apply kernels the resident
+        window uses finish grouping and percentiles. Exact or None (the
+        scan serves): memtable rows in range, a non-v4 generation, an
+        ineligible block, overlay risk or an int32 overflow decline, each
+        counted."""
+        tsdb = self.tsdb
+        cfg = tsdb.config
+        if (self.backend == "cpu"
+                or not spec.downsample
+                or agg.kind not in ("moment", "percentile")
+                or Aggregators.get(spec.downsample[1]).kind != "moment"
+                or not cfg.sstable_fused_agg):
+            return None
+        store = tsdb.store
+        interval, dsagg = spec.downsample
+        imax = 2**31 - 1
+        if start < 0 or end > 0xFFFFFFFF \
+                or end - start > imax - 4 * MAX_TIMESPAN:
+            return None
+        qbase = start - start % interval
+        if end - qbase > imax:
+            return None
+        try:
+            metric_uid = tsdb.metrics.get_id(spec.metric)
+            exact, group_bys = self._tag_filters(spec.tags)
+        except NoSuchUniqueName:
+            return None  # the scan path raises the canonical error
+        b_lo = codec.base_time(start)
+        b_hi = min(codec.base_time(end), 0xFFFFFFFF)
+        _C_FUSED_ATTEMPT.inc()
+        # Memtable rows in range: decline, since a frozen answer must
+        # equal the scan's and overlaying live rows is the scan's job.
+        if store.chunk_state(tsdb.table, b_lo, b_hi + MAX_TIMESPAN)[3]:
+            _count_decline("dirty")
+            return None
+        with _M_FUSED.time():
+            res = self._run_fused_inner(
+                spec, start, end, agg, metric_uid, exact, group_bys,
+                interval, dsagg, qbase, b_lo, b_hi)
+        if res is not None:
+            _C_FUSED_SERVED.inc()
+        return res
+
+    def _fused_stage(self, src, selector, S_pad, num_buckets, interval,
+                     dsagg, rate_kw, lo32, hi32, shift32):
+        """The stage grids of one gather: from the device block cache's
+        decoded columns when the executor has one (only per-record arrays
+        go up, plus the matched points of a selective filter), else from
+        the payload byte streams. Both legs decode identically."""
+        dev = self.device
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        if self._devcache is not None:
+            qd, vals, rec, _P, _P_pad, _R = self._devcache.columns(src)
+            rel_base, sid_r, valid_r, sel = self._devcache.record_inputs(
+                src, S_pad, selective=selector is not None)
+            dev_kw = dict(
+                num_series=S_pad, num_buckets=num_buckets,
+                interval=interval, agg_down=dsagg, rate=rate_kw["rate"],
+                counter=rate_kw["counter"],
+                drop_resets=rate_kw["drop_resets"])
+            args = (up(rel_base), up(sid_r), up(valid_r), lo32, hi32,
+                    shift32, float(np.float32(rate_kw["counter_max"])),
+                    float(np.float32(rate_kw["reset_value"])))
+            if sel is not None:
+                return _ck.devcache_window_stage_sel(
+                    qd, vals, rec, up(sel), *args, **dev_kw)
+            return _ck.devcache_window_stage(qd, vals, rec, *args,
+                                             **dev_kw)
+        P_pad = _pad_fine(src.npoints)
+
+        def pad(a, dtype, fill=0):
+            out = np.full(P_pad, fill, dtype)
+            out[:len(a)] = a
+            return up(out)
+
+        def padbuf(a):
+            # Payload bytes pad to a power of two, as in the JAX package.
+            n = max(len(a), 1)
+            out = np.zeros(1 << (n - 1).bit_length(), np.uint8)
+            out[:len(a)] = a
+            return up(out)
+
+        streams = (pad(src.ts_nb, np.int32), padbuf(src.ts_pay),
+                   pad(src.v_nb, np.int32), padbuf(src.v_pay),
+                   pad(src.first_idx, np.int32),
+                   pad(src.blk_first, np.int32))
+        kw = dict(num_series=S_pad, num_buckets=num_buckets,
+                  interval=interval, agg_down=dsagg, vkind=src.kind,
+                  **rate_kw)
+        matched = (np.flatnonzero(src.valid) if selector is not None
+                   else None)
+        if matched is not None and len(matched) < src.npoints:
+            # Selective filter: decode the full streams (the value chains
+            # span whole blocks) but stage only the matched points.
+            # Padding sel entries re-read point 0 under valid=False.
+            M_pad = _pad_fine(max(len(matched), 1))
+
+            def padm(a, dtype, fill=0):
+                out = np.full(M_pad, fill, dtype)
+                out[:len(matched)] = a
+                return up(out)
+
+            return _ck.fused_block_stage_sel(
+                *streams, padm(matched, np.int32),
+                padm(src.rel_base_pt[matched], np.int32),
+                padm(np.minimum(src.sid_pt[matched], S_pad - 1), np.int32),
+                padm(np.ones(len(matched), bool), bool, False),
+                lo32, hi32, shift32, **kw)
+        return _ck.fused_block_stage(
+            *streams, pad(src.rel_base_pt, np.int32),
+            pad(np.minimum(src.sid_pt, S_pad - 1), np.int32),
+            pad(src.valid, bool, False), lo32, hi32, shift32, **kw)
+
+    def _run_fused_inner(self, spec, start, end, agg, metric_uid, exact,
+                         group_bys, interval, dsagg, qbase, b_lo, b_hi):
+        tsdb = self.tsdb
+        rate_kw = self._rate_kw(spec)
+        # The tag filter is part of the stage's identity (it is pushed
+        # into the gather: filtered-out series never reach the grid).
+        skey_cache = (metric_uid, b_lo, b_hi, interval, dsagg, start, end,
+                      _filter_key(exact, group_bys),
+                      tuple(sorted(rate_kw.items())))
+        hit = self._fused_stage_cache.get(skey_cache)
+        if hit is not None:
+            gens_hit, src_keys, epoch, stage, groups = hit
+            # Valid only over the same generation objects (the entry
+            # pins them): any checkpoint or merge swap rebuilds.
+            spans = tsdb.store.encoded_range(
+                tsdb.table, metric_uid + _u32(b_lo),
+                metric_uid + _u32(min(b_hi + MAX_TIMESPAN, 0xFFFFFFFF)))
+            if spans is None or len(spans) != len(gens_hit) or any(
+                    g is not h for (g, _, _), h in zip(spans, gens_hit)):
+                hit = None
+                self._fused_stage_cache.pop(skey_cache)
+        if hit is None:
+            selector = self._series_selector(exact, group_bys)
+            try:
+                src = _fused.gather(tsdb.store, tsdb.table, metric_uid,
+                                    b_lo, b_hi, selector=selector,
+                                    points=self._devcache is None)
+            except _fused.Decline as d:
+                _count_decline(d.reason)
+                return None
+            if src.npoints == 0:
+                return []
+            epoch = src.epoch
+            src_keys = src.series_keys
+            groups = src.groups
+        if not groups:
+            return []
+        S_pad = _pad_size(len(src_keys))
+        imin, imax = -(2**31), 2**31 - 1
+        if not imin <= qbase - epoch <= imax:
+            _count_decline("int32-span")
+            return None
+        num_buckets = _pad_size(int((end - qbase) // interval + 1))
+        if S_pad * num_buckets >= 2**31:
+            _count_decline("grid-too-large")
+            return None
+        named = {sid: self._named_tags(src_keys[sid])
+                 for sids in groups.values() for sid in sids}
+        lo32 = min(max(start - epoch, imin), imax)
+        hi32 = min(max(end - epoch, imin), imax)
+        shift32 = qbase - epoch
+        if hit is None:
+            # [5] fills with the host copy of presence on first fetch.
+            stage = list(self._fused_stage(
+                src, selector, S_pad, num_buckets, interval, dsagg,
+                rate_kw, lo32, hi32, shift32)) + [None]
+            # Keyed on the snapshot the stage was computed FROM (src.spans,
+            # not a fresh encoded_range a racing checkpoint could move).
+            self._fused_stage_cache.put(
+                skey_cache, (tuple(g for g, _, _ in src.spans), src_keys,
+                             epoch, stage, groups))
+        gkeys = sorted(groups)
+        G = _pad_size(len(gkeys))
+        ngroups = 1 if len(gkeys) == 1 else G
+        include = np.zeros(S_pad, bool)
+        gmap = np.full(S_pad, G - 1, np.int32)
+        for gi, gkey in enumerate(gkeys):
+            for sid in groups[gkey]:
+                include[sid] = True
+                gmap[sid] = gi
+        dev = self.device
+        layout = (kernels.group_layout(gmap, G, dev)
+                  if agg.kind == "percentile" and ngroups > 1 else None)
+        gv, gm, b_out = self._apply_stage(
+            spec, agg, stage, torch.from_numpy(include).to(dev),
+            torch.from_numpy(gmap).to(dev), layout, ngroups, len(gkeys),
+            num_buckets, int((end - qbase) // interval + 1))
+        return self._stage_results(spec, groups, src_keys, named, stage[5],
+                                   gv, gm, b_out, interval, qbase)
 
     @staticmethod
     def _series_selector(exact, group_bys):

@@ -33,9 +33,11 @@ plans served and the caches. Every HTTP route is timed
 (``telnet.handler{cmd=}``), and error answers count in ``http.errors`` /
 ``telnet.errors``. A self-monitor (``obs/selfmon.py``) ingests the
 ``/stats`` lines into the store every ``Config.selfmon_interval_s``
-seconds (off by default). The ``/api/queries`` sections of tiers the port
-lacks (rollups, fused blocks, the mesh) hold what the JAX daemon reports
-with those tiers off.
+seconds (off by default). The ``/api/queries`` fused section reports the
+fused block plan's attempts, serves, declines by reason and device block
+cache counts, as the JAX daemon's does; the sections of tiers the port
+lacks (rollups, the mesh) hold what the JAX daemon reports with those
+tiers off.
 
 Not ported yet, and answered with 400 "not yet ported": PNG graphs
 (``/q`` without ``ascii``/``json``) and ``/forecast``. Other paths (the
@@ -645,10 +647,13 @@ class TSDServer:
     def _http_queries(self, req) -> tuple:
         """JSON feed behind the /queries page: plans served, the ingest
         fast path's group commit and parse timers, the fragment cache,
-        admission. The rollup, fused-block, sketch-serving and mesh
-        sections report those tiers off, as the JAX daemon does without
-        them."""
+        admission, and the fused block plan's coverage (attempts, serves,
+        declines by reason, the device block cache). The rollup,
+        sketch-serving and mesh sections report those tiers off, as the
+        JAX daemon does without them."""
         sketch: dict = {}
+        fused = {"attempt": 0, "served": 0, "declines": {},
+                 "devcache": {"hit": 0, "miss": 0, "evict": 0}}
         ingest = {"group": {"batches": 0, "points": 0, "fsyncs": 0,
                             "waits": 0, "wait_ms_p95": 0.0},
                   "parse": {"count": 0, "p95_ms": 0.0}}
@@ -678,6 +683,18 @@ class TSDServer:
                 ingest["parse"]["count"] += obj.count
                 ingest["parse"]["p95_ms"] = round(
                     obj.digest.percentile(95), 4)
+            elif name == "compress.fused.attempt":
+                fused["attempt"] += obj.value
+            elif name == "compress.fused.served":
+                fused["served"] += obj.value
+            elif name == "compress.fused.decline":
+                reason = dict(tkey).get("reason", "?")
+                fused["declines"][reason] = \
+                    fused["declines"].get(reason, 0) + obj.value
+            elif name.startswith("compress.devcache."):
+                fused["devcache"][name.rsplit(".", 1)[1]] = obj.value
+        fused["coverage"] = (fused["served"] / fused["attempt"]
+                             if fused["attempt"] else 0.0)
         g = ingest["group"]
         g["batches_per_fsync"] = (g["batches"] / g["fsyncs"]
                                   if g["fsyncs"] else 0.0)
@@ -686,9 +703,7 @@ class TSDServer:
         body = {
             "uptime_s": int(time.time()) - self.start_time,
             "plans": plans,
-            "fused": {"attempt": 0, "served": 0, "declines": {},
-                      "devcache": {"hit": 0, "miss": 0, "evict": 0},
-                      "coverage": 0.0},
+            "fused": fused,
             "ingest": ingest,
             "sketch": sketch,
             "rollup": None,

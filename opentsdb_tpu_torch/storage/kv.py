@@ -62,10 +62,18 @@ checkpoint.
 
 A sharded store (``SHARDS.json`` at the root of a directory of
 ``shard-<i>/`` stores) opens through ``storage/sharded.py``; handing its
-root to this class is an error. Not ported yet, each refused rather than
-half-read where it leaves something on disk: the cluster epoch fence and
-WAL epoch headers (ROADMAP queue A item 10), TSST4 generations (item 5,
-refused by the sstable reader); and without an on-disk trace: read-only
+root to this class is an error.
+
+``sstable_codec`` (``Config.sstable_codec``, set after open as in the JAX
+package) picks the spill's format: "none" writes TSST3, "tsst4"
+compressed columnar blocks; the checkpoint's merge re-encodes into it,
+and generations of every format mix in one store. ``compress_stats`` sums
+the v4 generations' raw and stored record bytes (``compress.ratio``), and
+``encoded_range`` is the fused query plan's source check.
+
+Not ported yet, each refused rather than half-read where it leaves
+something on disk: the cluster epoch fence and WAL epoch headers (ROADMAP
+queue A item 10); and without an on-disk trace: read-only
 replicas with their ``refresh`` and the rebuild's stamp-floor jump (item
 10), and the rollup tier's spill-key record with its undrained dirty set
 ``_spill_dirty`` (item 6).
@@ -430,6 +438,10 @@ class MemKVStore(KVStore):
         self._sst_path = wal_path + ".sst" if wal_path else None
         # Immutable middle tier while a checkpoint's spill is in flight.
         self._frozen: dict[str, _Table] | None = None
+        # Write-side sstable codec: "none" spills TSST3, "tsst4"
+        # compressed blocks. The read side sniffs each file's format, so
+        # this affects only later spills and merges.
+        self.sstable_codec = "none"
         # Seconds the last open spent loading generations and replaying
         # <wal>.old + the WAL.
         self.open_seconds = {"generations": 0.0, "replay": 0.0}
@@ -704,6 +716,54 @@ class MemKVStore(KVStore):
                 continue
             out[sst.format] = out.get(sst.format, 0) + sz
         return out
+
+    def compress_stats(self) -> tuple[int, int]:
+        """(uncompressed_record_bytes, stored_record_bytes) summed over
+        the v4 generations: ``compress.ratio`` = raw / stored. (0, 0)
+        when no generation is compressed."""
+        raw = enc = 0
+        with self._lock:
+            gens = list(self._ssts)
+        for sst in gens:
+            cs = sst.codec_stats()
+            if cs is not None:
+                raw += cs[0]
+                enc += cs[1]
+        return raw, enc
+
+    def encoded_range(self, table: str, start: bytes,
+                      stop: bytes | None):
+        """The fused plan's source check: when every generation holding
+        keys in [start, stop) is format v4, [(sstable, lo_idx, hi_idx)]
+        ordered by first key. None whenever serving the range off raw
+        blocks could diverge from a scan: a frozen mid-checkpoint tier,
+        live row tombstones, or a non-v4 generation in range. Two overlay
+        risks stay the CALLER's: memtable rows (the executor's
+        chunk_state declines on any dirty base) and duplicate keys across
+        generations (compress/fused.gather serves them only when the
+        copies' qualifier-delta ranges are disjoint)."""
+        with self._lock:
+            if self._frozen is not None:
+                return None
+            t = self._tables.get(table)
+            if t is not None and t.row_tombs:
+                return None
+            gens = list(self._ssts)
+        spans = []
+        for g in gens:
+            idx = g._index.get(table)
+            if not idx or not idx[0]:
+                continue
+            keys, _ = idx
+            lo = bisect_left(keys, start)
+            hi = bisect_left(keys, stop) if stop else len(keys)
+            if lo == hi:
+                continue
+            if g.format != 4:
+                return None
+            spans.append((g, lo, hi, keys[lo]))
+        spans.sort(key=lambda sp: sp[3])
+        return [(g, lo, hi) for g, lo, hi, _ in spans]
 
     def memtable_cells(self, table: str, key: bytes,
                        family: bytes | None = None) -> list[Cell]:
@@ -1304,18 +1364,22 @@ class MemKVStore(KVStore):
             # recovers from .old and the WAL alone; raise takes the thaw
             # below.
             _fault("kv.checkpoint.freeze", self._wal_path)
+            # The codec keyword only when compressing, so the default
+            # spill calls keep their shape.
+            kw = ({"codec": self.sstable_codec}
+                  if self.sstable_codec not in (None, "none") else {})
             with _M_CKPT_PHASE["spill"].time():
                 if use_merge:
                     n = merge_sstables(out_path, merge_gens, {
                         name: (ft.rows, ft.row_tombs, bool(ft.tombs))
-                        for name, ft in frozen.items()})
+                        for name, ft in frozen.items()}, **kw)
                 else:
                     # No tombstones in the frozen tier: every cell value
                     # is bytes and no lower generation needs reading.
                     n = write_sstable_bulk(out_path, {
                         name: ([k for k in sorted(ft.rows) if ft.rows[k]],
                                ft.rows)
-                        for name, ft in frozen.items()})
+                        for name, ft in frozen.items()}, **kw)
         except Exception:
             # Disk full or similar: thaw the frozen tier back under the
             # live memtable so the store is not wedged. <wal>.old stays;

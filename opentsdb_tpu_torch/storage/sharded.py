@@ -41,8 +41,12 @@ last durable record.
 
 Not ported yet (ROADMAP queue A): the replica and cluster surface
 (``refresh``, ``promote_writable``, ``demote_readonly``, the epoch fence;
-item 10), the rollup spill-key record (item 6) and the TSST4 codec switch
-(item 5).
+item 10) and the rollup spill-key record (item 6).
+
+``sstable_codec`` sets every shard's spill codec; ``compress_stats`` and
+``encoded_range`` fan in over the shards (the fused query plan's source
+check: shards are key-disjoint by the series routing, so the union of
+their disjoint spans is disjoint).
 
 Instruments (``obs/``): a traced scan gets one ``shard.scan`` span per
 shard (the time pulled from that shard's iterator), and each shard's
@@ -474,6 +478,34 @@ class ShardedKVStore(KVStore):
         for s in self.shards:
             for fmt, n in s.sstable_format_bytes().items():
                 out[fmt] = out.get(fmt, 0) + n
+        return out
+
+    @property
+    def sstable_codec(self) -> str:
+        return self.shards[0].sstable_codec if self.shards else "none"
+
+    @sstable_codec.setter
+    def sstable_codec(self, codec: str) -> None:
+        for s in self.shards:
+            s.sstable_codec = codec
+
+    def compress_stats(self) -> tuple[int, int]:
+        raw = enc = 0
+        for s in self.shards:
+            r, e = s.compress_stats()
+            raw += r
+            enc += e
+        return raw, enc
+
+    def encoded_range(self, table: str, start: bytes,
+                      stop: bytes | None):
+        """Per-shard encoded_range fan-in; None if any shard declines."""
+        out = []
+        for s in self.shards:
+            got = s.encoded_range(table, start, stop)
+            if got is None:
+                return None
+            out.extend(got)
         return out
 
     @property

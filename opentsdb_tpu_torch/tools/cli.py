@@ -23,7 +23,10 @@ series-sharded store (``storage/sharded.py``: ``shard-<i>/`` and
 ``SHARDS.json``); the default 0 opens a sharded store exactly when
 ``--wal`` already holds a ``SHARDS.json`` (its count wins), and an
 explicit count that disagrees with it is a hard error. ``--wal-group-ms``
-turns on WAL group commit in the daemon.
+turns on WAL group commit in the daemon, and ``--sstable-codec tsst4``
+makes its spills compressed TSST4 generations (``compress/``; the
+encode pool's width is ``Config.spill_encode_workers``, with no flag, as
+in the JAX package).
 
 ``tenants`` prints the per-tenant cardinality report of a store
 (``--wal``) or of a live daemon (``--url``, its ``/api/tenants``).
@@ -93,6 +96,7 @@ def cmd_tsd(args) -> int:
         tenant_overrides=tuple(args.tenant_override),
         tenant_exact_cutoff=args.tenant_exact_cutoff,
         wal_group_ms=args.wal_group_ms,
+        sstable_codec=args.sstable_codec,
         slow_query_ms=args.slow_query_ms,
         selfmon_interval_s=args.selfmon_interval,
         trace_ring=args.trace_ring, trace_sample_n=args.trace_sample_n)
@@ -174,7 +178,8 @@ def cmd_tenants(args) -> int:
 
 def cmd_fsck(args) -> int:
     """Table consistency check (``tools/fsck.py``): qualifiers, values,
-    duplicate or out-of-order points, series blooms; ``--fix`` rewrites
+    duplicate or out-of-order points, series blooms, TSST4 blocks (with a
+    per-codec count line); ``--fix`` rewrites
     bad rows. ``--expect-clean`` exits 2 on any error found, even under
     ``--fix``: a store that needed fixing after a crash is a failed
     invariant."""
@@ -200,6 +205,11 @@ def cmd_fsck(args) -> int:
             mix = " ".join(f"v{fmt}={n}" for fmt, n in
                            sorted(rep.format_counts.items()))
             print(f"sstable formats: {mix}")
+        if rep.blocks:
+            per = " ".join(f"{name}={n}" for name, n in
+                           sorted(rep.codec_counts.items()))
+            print(f"compressed blocks: {rep.blocks} audited ({per}), "
+                  f"{rep.codec_errors} codec errors")
         dt = max(time.time() - t0, 1e-9)
         print(f"{rep.kvs} KVs (in {rep.rows} rows) analyzed in "
               f"{dt * 1000:.0f}ms (~{rep.kvs / dt:.0f} KV/s)")
@@ -288,6 +298,14 @@ def main(argv: list[str] | None = None) -> int:
                         "after the covering fsync (storage/kv.py). "
                         "0 (default) = legacy per-barrier flushing, "
                         "bit-identical WAL bytes")
+    p.add_argument("--sstable-codec", default="none",
+                   choices=["none", "tsst4"],
+                   help="write-side sstable format: 'tsst4' spills "
+                        "compressed columnar blocks (delta-of-delta "
+                        "timestamps + XOR floats; compress/). The read "
+                        "side sniffs each file, so existing v1-v3 "
+                        "generations keep serving and compaction "
+                        "re-encodes as they merge")
     # Tenant cardinality control plane (tenant/).
     p.add_argument("--tenant-max-series", type=int, default=0,
                    help="refuse a NEW series from any tenant already "

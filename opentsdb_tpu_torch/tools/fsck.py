@@ -10,20 +10,24 @@ local format's audits):
 - duplicate or out-of-order timestamps inside compacted cells;
 - whole-row compactability (conflicting duplicate points across cells);
 - sstable series blooms: a false negative (an indexed key its own table's
-  bloom excludes) would hide rows from bloom-pruned scans, a hard error.
+  bloom excludes) would hide rows from bloom-pruned scans, a hard error;
+- TSST4 blocks: every block's codec tag known, its payload decoding, its
+  decoded size matching the header (``codec_errors``), with the blocks
+  counted per codec (``codec_counts``). A data scan that a corrupt block
+  cuts short counts one codec error instead of crashing.
 
 ``fix=True`` salvages rows (explode what decodes, keep the first value per
 delta, rewrite); the CLI's ``--expect-clean`` maps any error to a distinct
 exit code. Each run lands one ``fsck.duration`` observation in the
-metrics registry (``obs/registry.py``). Left out: the TSST4 block audit
-(ROADMAP queue A item 5; the port writes no TSST4 and refuses to open
-it).
+metrics registry (``obs/registry.py``). Left out: the rollup tier's
+stores (ROADMAP queue A item 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from opentsdb_tpu_torch.compress.codecs import CODEC_NAMES, BlockCodecError
 from opentsdb_tpu_torch.core import codec
 from opentsdb_tpu_torch.core.errors import IllegalDataError
 from opentsdb_tpu_torch.core.tsdb import FAMILY
@@ -46,6 +50,12 @@ class FsckReport:
     bloom_misses: int = 0   # bloom false negatives (counted in errors)
     # Generation count per sstable format version.
     format_counts: dict = dataclasses.field(default_factory=dict)
+    blocks: int = 0         # TSST4 blocks audited
+    # Block-level failures (counted in errors): unknown codec tag, decode
+    # failure, or uncompressed-size mismatch.
+    codec_errors: int = 0
+    # Blocks per codec name.
+    codec_counts: dict = dataclasses.field(default_factory=dict)
 
     @property
     def clean(self) -> bool:
@@ -60,13 +70,29 @@ def run_fsck(tsdb, fix: bool = False, log=None) -> FsckReport:
         return _run_fsck(tsdb, fix, log)
 
 
+def _scan_rows(tsdb, rep: FsckReport, say):
+    """The batched row scan (the JAX fsck reads per row through
+    ``scan``: the same rows, each row's cells in qualifier order). A
+    corrupt compressed block raises mid-iteration and ends the scan: it
+    counts here, and the per-generation block audit pinpoints it."""
+    it = tsdb.store.scan_raw(tsdb.table, b"", b"", family=FAMILY)
+    while True:
+        try:
+            row = next(it)
+        except StopIteration:
+            return
+        except (BlockCodecError, IOError) as e:
+            rep.errors += 1
+            rep.codec_errors += 1
+            say(f"ERROR: data scan aborted by unreadable storage: {e}")
+            return
+        yield row
+
+
 def _run_fsck(tsdb, fix: bool, log) -> FsckReport:
     say = log if log is not None else (lambda *_: None)
     rep = FsckReport()
-    # The batched row scan (the JAX fsck reads per row through ``scan``:
-    # the same rows, each row's cells in qualifier order).
-    for key, cells in tsdb.store.scan_raw(tsdb.table, b"", b"",
-                                          family=FAMILY):
+    for key, cells in _scan_rows(tsdb, rep, say):
         rep.rows += 1
         bad = False
         for qual, val in cells:
@@ -115,7 +141,8 @@ def _run_fsck(tsdb, fix: bool, log) -> FsckReport:
                 say(f"ERROR: row {key.hex()}: {e}")
         if bad and fix:
             rep.fixed += _fix_row(tsdb, key, cells)
-    # The series-bloom audit over every generation of every shard.
+    # The series-bloom and block audits over every generation of every
+    # shard.
     stores = list(getattr(tsdb.store, "shards", None) or [tsdb.store])
     for s in stores:
         for sst in getattr(s, "_ssts", []):
@@ -134,6 +161,19 @@ def _run_fsck(tsdb, fix: bool, log) -> FsckReport:
                         f"'{name}' excludes {miss} of its own keys")
             rep.bloomed += 1 if any_bloom else 0
             rep.plain += 0 if any_bloom else 1
+            if sst.block_count:
+                rep.blocks += sst.block_count
+                for j in range(sst.block_count):
+                    try:
+                        tag = sst.block_header(j)[0]
+                    except Exception:
+                        continue    # block_audit reports it below
+                    name = CODEC_NAMES.get(tag, f"tag{tag}")
+                    rep.codec_counts[name] = \
+                        rep.codec_counts.get(name, 0) + 1
+                bad = sst.block_audit(say)
+                rep.codec_errors += bad
+                rep.errors += bad
     return rep
 
 

@@ -2,8 +2,9 @@
 
 Mirrors ``opentsdb_tpu/utils/config.py`` of the JAX package, trimmed to
 the fields this port reads (the resident window's, the spill tier's and
-its durability knobs, the live sketches' and the fragment cache's among
-them, with the JAX package's defaults), plus
+its durability and compression knobs, the live sketches', the fragment
+cache's and the fused block plan's among them, with the JAX package's
+defaults), plus
 ``device``: where the query kernels run.
 ``backend="cpu"`` keeps its JAX-package meaning — the float64 numpy
 oracle answers every query (``ops/oracle.py``) — and is independent of
@@ -32,6 +33,30 @@ class Config:
     # still wait for the covering flush, so durability is unchanged. 0
     # (default) flushes every append, with the same WAL bytes.
     wal_group_ms: float = 0.0
+    # Write-side sstable format (compress/):
+    # - "none": spill the uncompressed TSST3 layout (the default);
+    # - "tsst4": spill compressed columnar blocks (delta-of-delta
+    #   timestamps, XOR floats, zigzag int deltas; zlib/verbatim
+    #   fallbacks; each block self-describing). The read side sniffs each
+    #   file, so v1-v4 generations mix and flipping this changes only
+    #   later spills; compaction re-encodes as generations merge.
+    sstable_codec: str = "none"
+    # Spill-encode pipelining (storage/sstable.py): overlap per-block
+    # TSST4 encoding (its self-check round trip included) with the
+    # spill's file writes on this many encoder threads. The bytes equal
+    # the serial encode's (blocks drain in submission order); 0 disables;
+    # serial while fault points are armed.
+    spill_encode_workers: int = 2
+    # Fused decode-plus-aggregate serving (compress/kernels.py): eligible
+    # downsampled queries run straight off TSST4 blocks, the decoded
+    # columns living only on the device. Exact or declined; off forces
+    # the decode-then-reduce scan.
+    sstable_fused_agg: bool = True
+    # Device-side block cache (compress/devcache.py): total decoded
+    # POINTS kept resident on the device (~12 bytes a point across the
+    # qualifier-delta, value and record columns). Warm fused queries then
+    # upload only per-record arrays. 0 disables the cache.
+    devblock_points: int = 1 << 23
 
     # core behavior (names mirror the reference's system properties)
     auto_create_metrics: bool = False   # tsd.core.auto_create_metrics

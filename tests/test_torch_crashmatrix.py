@@ -38,7 +38,8 @@ def test_matrix_shape():
         "kv.wal.append", "kv.wal.fsync", "kv.wal.group.write",
         "kv.wal.group.fsync", "kv.checkpoint.freeze",
         "kv.checkpoint.commit", "kv.checkpoint.manifest",
-        "sst.write.body", "sst.write.footer", "sst.rename",
+        "sst.write.body", "sst.write.footer", "sst.write.block",
+        "sst.rename",
         "tenant.snapshot.write", "tenant.snapshot.commit",
         "sharded.spill.shard"}
     # Every port row is the JAX matrix's row of the same label (its site,
@@ -47,10 +48,19 @@ def test_matrix_shape():
     for s in scens:
         j = jax[s.label]
         assert (s.site, s.mode, s.skip, s.shards, s.seed, s.n_ops,
-                s.wal_group_ms, s.tenant_cutoff) == \
+                s.wal_group_ms, s.tenant_cutoff, s.codec) == \
             (j.site, j.mode, j.skip, j.shards, j.seed, j.n_ops,
-             j.wal_group_ms, j.tenant_cutoff), s.label
-    assert len(harness.fast_matrix()) == len(harness.FAST_LABELS) == 8
+             j.wal_group_ms, j.tenant_cutoff, j.codec), s.label
+    # Every TSST4 row of the JAX matrix that needs no rollup tier.
+    assert sorted(s.label for s in scens if s.codec == "tsst4") == sorted(
+        s.label for s in jax.values()
+        if s.codec == "tsst4" and s.label in {x.label for x in scens})
+    assert {s.label for s in scens if s.codec == "tsst4"} == {
+        "sst-block-crash-s1", "sst-block-crash-s4", "sst-block-torn-s1",
+        "sst-block-torn-s4", "sst-block-torn-late-s1",
+        "sst-block-torn-late-s4", "sst-block-torn-norollup",
+        "sst-block-torn-norollup-s4"}
+    assert len(harness.fast_matrix()) == len(harness.FAST_LABELS) == 9
 
 
 def test_workload_is_the_jax_workload():
@@ -63,6 +73,21 @@ def test_workload_is_the_jax_workload():
 
 @pytest.mark.parametrize("label", harness.FAST_LABELS)
 def test_fast_scenario(label, tmp_path):
+    sc = _by_label()[label]
+    res = harness.run_scenario(sc, str(tmp_path), shrink=False)
+    assert res["status"] == "ok", (res["problems"], res)
+    assert res["child_exit"] == faultpoints.EXIT_CODE
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("label", [
+    "sst-block-crash-s1", "sst-block-crash-s4", "sst-block-torn-s4",
+    "sst-block-torn-late-s1", "sst-block-torn-late-s4",
+    "sst-block-torn-norollup", "sst-block-torn-norollup-s4"])
+def test_tsst4_scenario(label, tmp_path):
+    """The TSST4 rows outside the fast subset: a crash or cut inside a
+    compressed block, recovered with the v4 writers and fsck's block
+    audit."""
     sc = _by_label()[label]
     res = harness.run_scenario(sc, str(tmp_path), shrink=False)
     assert res["status"] == "ok", (res["problems"], res)

@@ -1519,3 +1519,134 @@ def test_accounting_daemon_on_card_answers_like_cpu(card, tmp_path):
     info = json.loads(answers[0][3].partition(b"\r\n\r\n")[2])
     assert info["tenants"]["a"]["series"] == info["tenants"]["b"][
         "series"] == 12
+
+
+# ---------------------------------------------------------------------------
+# The TSST4 block decode (csrc/block_decode.cu) and the fused plan
+# ---------------------------------------------------------------------------
+
+def decode_stream(rng, P, pad=0, pad_layout="bytes", scalar_base=False,
+                  empty_payload=False):
+    """A seeded decode input: random byte counts (0-4) and payload bytes
+    (so the running sums overflow int32 and the value words take every
+    float32 bit pattern, NaNs included), records and blocks of random
+    length, and ``pad`` padding points in the byte-stream layout
+    (first_idx = blk_first = 0) or the device cache's (each pointing at
+    itself)."""
+    ts_nb = rng.integers(0, 5, P).astype(np.int32)
+    v_nb = rng.integers(0, 5, P).astype(np.int32)
+    starts = np.sort(rng.choice(P, min(P, max(P // 20, 1)), replace=False))
+    starts[0] = 0
+    first = starts[np.searchsorted(starts, np.arange(P), "right") - 1]
+    bstarts = starts[::5]
+    blk = bstarts[np.searchsorted(bstarts, np.arange(P), "right") - 1]
+    if pad_layout == "bytes":
+        pad_idx = np.zeros(pad, np.int64)
+    else:
+        pad_idx = np.arange(P, P + pad)
+    ts_nb = np.concatenate([ts_nb, np.zeros(pad, np.int32)])
+    v_nb = np.concatenate([v_nb, np.zeros(pad, np.int32)])
+    if empty_payload:
+        ts_nb[:] = 0
+        v_nb[:] = 0
+        ts_pay = v_pay = np.zeros(0, np.uint8)
+    else:
+        ts_pay = rng.integers(0, 256, int(ts_nb.sum()) + 3).astype(np.uint8)
+        v_pay = rng.integers(0, 256, int(v_nb.sum())).astype(np.uint8)
+    n = P + pad
+    base = (int(rng.integers(-2**31, 2**31)) if scalar_base else
+            rng.integers(-2**31, 2**31, n).astype(np.int32))
+    return (ts_nb, ts_pay, v_nb, v_pay,
+            np.concatenate([first, pad_idx]).astype(np.int32),
+            np.concatenate([blk, pad_idx]).astype(np.int32), base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vkind", ["f32", "int"])
+@pytest.mark.parametrize("case", [
+    "small", "bytes_padding", "devcache_padding", "scalar_base",
+    "empty_payload", "one_point", "many_tiles"])
+def test_block_decode_matches_plain_bit_for_bit(card, case, vkind):
+    """The decode kernel against decode_points_plain on the same inputs:
+    rel_ts and the value bits identical on every point, padding points
+    included; int32 sums that wrap; an empty payload; more tiles than
+    the aggregate scan's block has threads (2.5M points)."""
+    from opentsdb_tpu_torch.ops.block_decode import (decode_points,
+                                                     decode_points_plain)
+    rng = np.random.default_rng(len(case))
+    kw = {"small": dict(P=3000), "bytes_padding": dict(P=5000, pad=777),
+          "devcache_padding": dict(P=5000, pad=777, pad_layout="self"),
+          "scalar_base": dict(P=4096, scalar_base=True),
+          "empty_payload": dict(P=100, pad=10, empty_payload=True),
+          "one_point": dict(P=1),
+          "many_tiles": dict(P=2_500_000, pad=1000)}[case]
+    args = decode_stream(rng, **kw)
+    cpu = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+           for a in args]
+    gpu = [a.to(card) if isinstance(a, torch.Tensor) else a for a in cpu]
+    before = decode_points.launches
+    rel, vals = decode_points(*gpu, vkind=vkind)
+    torch.cuda.synchronize()
+    assert decode_points.launches == before + 1
+    want_rel, want_vals = decode_points_plain(*cpu, vkind=vkind)
+    assert torch.equal(rel.cpu(), want_rel)
+    assert torch.equal(vals.cpu().view(torch.int32),
+                       want_vals.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_fused_query_on_card(card, tmp_path):
+    """A TSST4 store on a CUDA TSDB: downsampled queries take the fused
+    plan through the decode kernel, with the answers of the raw scan and
+    of the same store's fused plan on the CPU (within the executor's
+    float32 contract)."""
+    from opentsdb_tpu_torch.core.tsdb import TSDB
+    from opentsdb_tpu_torch.ops.block_decode import decode_points
+    from opentsdb_tpu_torch.query.executor import QueryExecutor, QuerySpec
+    from opentsdb_tpu_torch.storage.kv import MemKVStore
+    from opentsdb_tpu_torch.utils.config import Config
+    base = 1356998400
+    rng = np.random.default_rng(11)
+    t = TSDB(MemKVStore(wal_path=str(tmp_path / "wal")),
+             Config(auto_create_metrics=True, device="cuda",
+                    enable_sketches=False, device_window=False,
+                    sstable_codec="tsst4"), start_compaction_thread=False)
+    try:
+        for si in range(8):
+            ts = base + np.arange(0, 24 * 3600, 300, dtype=np.int64) + si
+            t.add_batch("m.cpu", ts,
+                        np.cumsum(rng.normal(0, 1, len(ts))) + 50 + si,
+                        {"host": f"h{si}", "dc": f"d{si % 2}"})
+            t.add_batch("m.int", ts,
+                        rng.integers(-1000, 10_000, len(ts)).astype(float),
+                        {"host": f"h{si}"})
+        t.checkpoint()
+        ex = QueryExecutor(t)
+        for spec in [QuerySpec("m.cpu", {}, "sum", downsample=(3600, "avg")),
+                     QuerySpec("m.cpu", {"host": "*"}, "max",
+                               downsample=(3600, "max")),
+                     QuerySpec("m.cpu", {"dc": "d1"}, "p95",
+                               downsample=(7200, "sum")),
+                     QuerySpec("m.int", {}, "sum", downsample=(3600, "sum"))]:
+            before = decode_points.launches
+            ex._fused_stage_cache.clear()
+            got, plan, _ = ex.run_with_plan(spec, base + 100,
+                                            base + 20 * 3600)
+            assert plan == "fused"
+            t.config.sstable_fused_agg = False
+            raw, plan_raw, _ = ex.run_with_plan(spec, base + 100,
+                                                base + 20 * 3600)
+            t.config.sstable_fused_agg = True
+            assert plan_raw == "raw"
+            assert len(got) == len(raw) > 0
+            for a, b in zip(got, raw):
+                assert a.tags == b.tags
+                assert np.array_equal(a.timestamps, b.timestamps)
+                np.testing.assert_allclose(a.values, b.values, rtol=1e-5,
+                                           atol=1e-5)
+            # The first query of a gather decodes (a device cache miss);
+            # later ones over the same blocks reuse its columns.
+            assert decode_points.launches >= before
+        assert decode_points.launches > 0
+    finally:
+        t.shutdown()

@@ -190,3 +190,34 @@ def test_observability_lives_in_the_port():
                 path = os.path.join(d, fn)
                 assert banned.search(open(path).read()) is None, path
     assert ring.SLOW_LOG.name == "opentsdb_tpu_torch.slowquery"
+
+
+def test_compress_and_block_decode_live_in_the_port():
+    """The compressed-block slice is the port's own: the compress/ modules
+    and csrc/block_decode.cu sit in the package, the kernel builds from
+    there, no module names the JAX package's compress modules, and
+    codecs.py is the JAX package's file but for the docstring's note and
+    the import of the port's constants."""
+    import re
+    from opentsdb_tpu_torch.ops import cuda_build
+    pkg = os.path.join(ROOT, "opentsdb_tpu_torch")
+    for rel in ("compress/__init__.py", "compress/codecs.py",
+                "compress/kernels.py", "compress/fused.py",
+                "compress/devcache.py", "ops/block_decode.py",
+                "csrc/block_decode.cu"):
+        assert os.path.exists(os.path.join(pkg, rel)), rel
+    assert "block_decode" in cuda_build.sources()
+    banned = re.compile(r"opentsdb_tpu\.compress\b")
+    for d, dirs, files in os.walk(pkg):
+        dirs[:] = [x for x in dirs if x not in ("_build", "__pycache__")]
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(d, fn)
+                assert banned.search(open(path).read()) is None, path
+    port = open(os.path.join(pkg, "compress", "codecs.py")).read()
+    jax = open(os.path.join(ROOT, "opentsdb_tpu", "compress",
+                            "codecs.py")).read()
+    port = re.sub(r"\nA copy of ``opentsdb_tpu/compress/codecs.py``.*?\n\n",
+                  "\n", port, count=1, flags=re.S)
+    assert port.replace("opentsdb_tpu_torch.core.const",
+                        "opentsdb_tpu.core.const") == jax

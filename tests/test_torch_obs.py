@@ -48,10 +48,13 @@ HOUR = 3600
 # /stats lines and /metrics families of the JAX daemon that the port
 # leaves out, by prefix, each with the ROADMAP queue A item that brings
 # its tier: the instruments the JAX package registers at import for
-# rollups (6), compressed blocks (5), the mesh (11), the serving tier and
-# cluster (10) and approximate serving (9).
-LEFT_OUT = ("rollup", "compress", "mesh", "router", "replica", "cluster",
-            "sketch")
+# rollups (6), the mesh (11), the serving tier and cluster (10) and
+# approximate serving (9).
+LEFT_OUT = ("rollup", "mesh", "router", "replica", "cluster", "sketch")
+# Counters that exist only once their event happened in the process
+# (METRICS is process-wide in each package): the fused plan's declines,
+# which other tests in the same worker may have counted in one package.
+HISTORY = ("compress.fused.decline", "compress_fused_decline")
 
 
 def _left_out(name: str) -> bool:
@@ -60,6 +63,10 @@ def _left_out(name: str) -> bool:
     rest = name[4:]
     return any(rest.startswith(t + sep) for t in LEFT_OUT
                for sep in "._")
+
+
+def _history(name: str) -> bool:
+    return name[4:] in HISTORY
 
 
 def _no_ms(d):
@@ -721,8 +728,9 @@ def _stat_lines(body: bytes) -> dict:
 
 def test_stats_names_equal_but_for_the_left_out_tiers(both):
     want, got = both
-    jn = {n for n in _stat_lines(want["stats"][1]) if not _left_out(n)}
-    pn = set(_stat_lines(got["stats"][1]))
+    jn = {n for n in _stat_lines(want["stats"][1])
+          if not _left_out(n) and not _history(n)}
+    pn = {n for n in _stat_lines(got["stats"][1]) if not _history(n)}
     assert pn == jn
     assert {"tsd.wal.appends", "tsd.checkpoint.phase.count",
             "tsd.checkpoint.shard_spill", "tsd.ingest.parse",
@@ -788,8 +796,10 @@ def test_metrics_families_and_types_equal(both):
     assert got["metrics"][0] == 200
     wt, gt = want["metrics"][1].decode(), got["metrics"][1].decode()
     assert validate_exposition(gt) > 50
-    jf = {f: t for f, t in _families(wt).items() if not _left_out(f)}
-    assert _families(gt) == jf
+    jf = {f: t for f, t in _families(wt).items()
+          if not _left_out(f) and not _history(f)}
+    assert {f: t for f, t in _families(gt).items()
+            if not _history(f)} == jf
     assert 'endpoint="/q"' in gt and 'cmd="help"' in gt
 
 
@@ -868,12 +878,15 @@ def test_api_queries_sections(both):
     assert g.keys() == w.keys()
     for k in ("plans", "rollup", "qcache", "admission"):
         assert g[k] == w[k], k
-    # The JAX fused section sums process-wide registry counters (other
-    # tests' daemons count into them): its shape, and the port's "off".
+    # Each package's fused section sums its process-wide registry counters
+    # (other tests' daemons count into them): the same shape, and counts
+    # that agree with each other.
     assert g["fused"].keys() == w["fused"].keys()
-    assert g["fused"] == {"attempt": 0, "served": 0, "declines": {},
-                          "devcache": {"hit": 0, "miss": 0, "evict": 0},
-                          "coverage": 0.0}
+    assert g["fused"]["devcache"].keys() == w["fused"]["devcache"].keys()
+    f = g["fused"]
+    assert 0 <= f["served"] <= f["attempt"]
+    assert f["coverage"] == (f["served"] / f["attempt"]
+                             if f["attempt"] else 0.0)
     assert g["ingest"].keys() == w["ingest"].keys()
     assert g["ingest"]["group"].keys() == w["ingest"]["group"].keys()
     assert g["ingest"]["parse"]["count"] > 0
