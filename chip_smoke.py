@@ -197,7 +197,12 @@
    bit for bit against ``decode_points_plain`` on the card and timed like
    the others at three shapes from the store's own gathers: the week of
    ``bench.metric`` (TSF32), one day of it, and the week of ``bench.int``
-   (TSINT). With the launch counts set to 0, the ten ``/q`` queries run
+   (TSINT), and on a synthetic gather of 10-second records (360 points a
+   record, 10M points, from a seed: records that cross tile edges); a
+   child process counts, under ``torch.profiler``, the kernels and
+   memsets of one decode at each case's size (at most
+   DECODE_MAX_KERNELS kernels, no memset). With the
+   launch counts set to 0, the ten ``/q`` queries run
    once cold and FUSED_WARM_REPS times warm over HTTP: every group must
    say ``"rollup": "fused"`` and each answer must match the path phase's
    (REFERENCE, the resident tolerance) and the float64 oracle's; the path
@@ -207,6 +212,8 @@
    and warm: the byte-stream leg (device block cache off), the cache's
    miss and its hit, and ``max:1h-max{host=h00001}``'s selector legs; the
    gather's host time with the blocks' parsed keys dropped and kept; the
+   decode kernels' share of a cold ``sum:1h-avg``'s card time under the
+   profiler; the
    ``/api/queries`` fused section. A telnet put of another metric into a
    covered hour must make the next query decline ``dirty`` (counted) and
    be served raw with the same answer. Checkpoint 2, then a restart on the
@@ -310,6 +317,7 @@ from opentsdb_tpu_torch.storage.devstore import DeviceWindow
 from opentsdb_tpu_torch.storage.kv import MemKVStore
 from opentsdb_tpu_torch.tenant.accounting import hll_rel_error
 from opentsdb_tpu_torch.tools.cli import open_tsdb
+from opentsdb_tpu_torch.tools.compare_kernels import decode_inputs
 from opentsdb_tpu_torch.tools.fsck import run_fsck
 from opentsdb_tpu_torch.utils import nativeext
 from opentsdb_tpu_torch.utils.config import Config
@@ -404,6 +412,11 @@ PAUSE_SERIES = 2_500
 # row-hour, so each row is one cell whichever telnet batch carried it, as
 # the columnar codecs need), warm /q runs per query after the first.
 INT_SERIES, INT_STEP = 200, 3600
+# The decode kernel's synthetic long-record gather (compare_kernels'
+# decode_inputs: 10-second scrapes, 360 points a record hour, blocks of
+# 120 records, about BLOCK_RAW_TARGET raw bytes).
+LONG_RECORD_GATHER_POINTS = 10_000_080
+DECODE_MAX_KERNELS = 3
 FUSED_WARM_REPS = 2
 NO_LIBRARY = "no single PyTorch call computes this function"
 
@@ -1365,11 +1378,13 @@ def stage_and_apply(ex: QueryExecutor, dw: DeviceWindow, spec: QuerySpec,
 
 
 def profile_share(ex: QueryExecutor, spec: QuerySpec, start: int,
-                  end: int, plan: str = "resident") -> dict:
+                  end: int, plan: str = "resident", match: tuple = ()) -> dict:
     """One query in process under torch.profiler, which must take
     ``plan``: device-busy share = the summed durations of the card's
     activities (kernels, copies, fills) over the query's wall time. "not
-    measured" when the trace holds no device activity."""
+    measured" when the trace holds no device activity. With ``match``,
+    also the device ms of the activities whose names hold one of those
+    strings, and their share of the device-busy ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1386,11 +1401,19 @@ def profile_share(ex: QueryExecutor, spec: QuerySpec, start: int,
         by_name[e.name] = by_name.get(e.name, 0.0) \
             + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall_ms, "device_events": len(dev),
-            "device_busy_ms": busy_ms if dev else "not measured",
-            "device_busy_share": busy_ms / wall_ms if dev
-            else "not measured",
-            "top_device_ms": top}
+    out = {"wall_ms": wall_ms, "device_events": len(dev),
+           "device_busy_ms": busy_ms if dev else "not measured",
+           "device_busy_share": busy_ms / wall_ms if dev
+           else "not measured",
+           "top_device_ms": top}
+    if match:
+        got = sum(ms for name, ms in by_name.items()
+                  if any(m in name for m in match))
+        out["matched"] = list(match)
+        out["matched_ms"] = got if dev else "not measured"
+        out["matched_share_of_busy"] = (got / busy_ms if dev and busy_ms
+                                        else "not measured")
+    return out
 
 
 def open_daemon_tsdb(wal: str, shards: int = 0,
@@ -2617,12 +2640,69 @@ def gather_streams(store, table: str, metric_uid: bytes, b_lo: int,
     return args, src.npoints, src.kind
 
 
+# One decode per (padded points, value kind) pair of argv under
+# torch.profiler, in a fresh process: one JSON line each, the CUDA
+# kernels it launched and the memsets it made.
+DECODE_COUNT = """
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from opentsdb_tpu_torch.ops import block_decode
+from opentsdb_tpu_torch.tools.compare_kernels import decode_inputs
+for n, vkind in zip(sys.argv[1::2], sys.argv[2::2]):
+    args = decode_inputs(torch.device("cuda"), int(n), seed=5)
+    block_decode.decode_points(*args, vkind=vkind)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        block_decode.decode_points(*args, vkind=vkind)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    memsets = [n for n in names if "memset" in n.lower()]
+    kernels = [n for n in names
+               if n not in memsets and "memcpy" not in n.lower()]
+    print(json.dumps({"kernels_per_call": len(kernels),
+                      "memsets_per_call": len(memsets),
+                      "kernel_names": sorted(set(kernels))}))
+    del args
+"""
+
+
+def count_decode_kernels(cases: list) -> None:
+    """Each decode case's kernels and memsets in one call, counted under
+    torch.profiler in a child process on a gather of the case's size and
+    kind (compare_kernels' decode_inputs; the count does not depend on
+    the data): at most DECODE_MAX_KERNELS kernels and no memset. In this
+    process, right after the plain version's run, the profiler has shown
+    no device activity at all for one decode on the card, while a fresh
+    process records both kernels."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = [str(x) for r in cases for x in (r["padded_points"], r["vkind"])]
+    out = subprocess.run([sys.executable, "-c", DECODE_COUNT, *argv],
+                         cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"the decode's kernel count failed: {out.stderr[-2000:]}")
+    counts = [json.loads(ln) for ln in out.stdout.splitlines()
+              if ln.startswith("{")]
+    if len(counts) != len(cases):
+        fail(f"the decode's kernel count printed {out.stdout[-2000:]}")
+    for r, c in zip(cases, counts):
+        r.update(c)
+        if not 0 < c["kernels_per_call"] <= DECODE_MAX_KERNELS \
+                or c["memsets_per_call"]:
+            fail(f"block_decode {r['stage']}: one call made {c}")
+
+
 def decode_case(stage: str, args: tuple, npoints: int, vkind: str,
                 flush: torch.Tensor) -> dict:
     """The decode kernel on one gather against decode_points_plain on the
     same card tensors: rel_ts and the value bits identical on every
-    point (padding included), then timed like the other kernels. Bytes:
-    every input read once, both outputs written once."""
+    point (padding included), then timed like the other kernels
+    (count_decode_kernels counts its launches). Bytes: every input read
+    once, both outputs written once."""
     fn = block_decode.decode_points
     got = fn(*args, vkind=vkind)
     want = block_decode.decode_points_plain(*args, vkind=vkind)
@@ -2631,6 +2711,7 @@ def decode_case(stage: str, args: tuple, npoints: int, vkind: str,
             got[1].view(torch.int32), want[1].view(torch.int32)):
         fail(f"block_decode {stage}: the kernel's output differs from "
              f"decode_points_plain")
+    del got, want
     n = args[0].numel()
     nbytes = sum(a.numel() * a.element_size() for a in args) + 8 * n
     b_ms, b_by = bound_ms(nbytes, 0.0)
@@ -2850,7 +2931,12 @@ def compressed_phase(ts: np.ndarray, vals: np.ndarray, path: dict) -> dict:
                     fail(f"{metric}: gathered {kind} blocks")
                 cases.append(decode_case(stage, args, npts, kind, flush))
                 del args
+            cases.append(decode_case(
+                "synthetic long-record gather (TSF32, 360-point records)",
+                decode_inputs(dev, LONG_RECORD_GATHER_POINTS, seed=31),
+                LONG_RECORD_GATHER_POINTS, "f32", flush))
             del flush
+            count_decode_kernels(cases)
             out["kernel_cases"] = cases
 
             # The fused path: the ten queries, launches counted.
@@ -2897,6 +2983,23 @@ def compressed_phase(ts: np.ndarray, vals: np.ndarray, path: dict) -> dict:
                                                 "fused")
             log(f"fused {QUERIES[1]} under the profiler: cold "
                 f"{out['profile_cold']}, warm {out['profile_warm']}")
+            # The decode's share of a cold sum:1h-avg's card time: the
+            # decode kernels in the trace, and, in case the trace misses
+            # them (count_decode_kernels), the week case's ms_device
+            # over the trace's busy ms plus it (the query decodes that
+            # same gather).
+            ex._fused_stage_cache.clear()
+            cold = out["profile_cold_sum"] = profile_share(
+                ex, spec_of(QUERIES[0]), start, end, "fused",
+                match=("decode_main", "decode_general"))
+            week_ms = cases[0]["ms_device"]
+            busy = cold["device_busy_ms"]
+            if isinstance(busy, float):
+                seen = cold["matched_ms"] if cold["matched_ms"] else 0.0
+                cold["week_case_ms_device"] = week_ms
+                cold["share_from_week_case"] = week_ms / (busy - seen
+                                                          + week_ms)
+            log(f"fused {QUERIES[0]} cold under the profiler: {cold}")
             out["gather_host"] = gather_host_ms(tsdb)
             out["api_queries"] = http_json(daemon.port,
                                            "/api/queries")["fused"]
@@ -3759,6 +3862,8 @@ def main() -> int:
                                     for r in others}
         if name == "block_decode":
             entry["library"] = NO_LIBRARY
+            entry["kernels_per_call"] = by_case[(
+                name, shape["fused"])]["kernels_per_call"]
         line.append(entry)
     log(json.dumps({"details": {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -3862,6 +3967,11 @@ def main() -> int:
             f: c[k][f] for f in ("wall_ms", "device_busy_ms",
                                  "device_busy_share")}}
             for k in ("profile_cold", "profile_warm")},
+        "decode_share_cold": {"query": QUERIES[0], **{
+            f: c["profile_cold_sum"].get(f, "not measured") for f in (
+                "wall_ms", "device_busy_ms", "matched_ms",
+                "matched_share_of_busy", "week_case_ms_device",
+                "share_from_week_case")}},
         "launches": c["launches"],
         "launches_after_restart": c["launches_after_restart"],
         "api_queries": c["api_queries"], "dirty": c["dirty"],
@@ -3869,7 +3979,8 @@ def main() -> int:
         "after_restart": c["after_restart"], "fsck": c["fsck"],
         "decode": {r["stage"]: {k: r[k] for k in (
             "points", "padded_points", "payload_bytes", "ms", "ms_cold",
-            "ms_device", "plain_ms", "bound_ms", "bytes")}
+            "ms_device", "plain_ms", "bound_ms", "bytes",
+            "kernels_per_call", "memsets_per_call")}
             for r in c["kernel_cases"]}}, "card": smi}))
     r_obs = path["obs"]
     print(json.dumps({"obs": {

@@ -25,11 +25,19 @@ for CUDA tensors it launches the kernel on the calling thread's current
 stream or raises. ``decode_points.launches`` counts kernel calls (one per
 decode, whatever the launches inside), so a run can show that its path
 went through the kernel.
+
+The kernel's tiles publish their scan prefixes in status words that
+outlive the call: one buffer a (card, stream), zeroed once when it is
+made or grown, each call's words tagged with a sequence number of its
+own, so no call resets them. Calls on one stream run in order; calls on
+two streams use two buffers.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
+import threading
 
 import torch
 
@@ -38,6 +46,9 @@ from opentsdb_tpu_torch.ops import cuda_build
 _lib = None
 _VKINDS = ("f32", "int")
 _M32 = 0xFFFFFFFF
+_state: dict = {}
+_state_lock = threading.Lock()
+_tags = itertools.count()
 
 
 def _kernels() -> ctypes.CDLL:
@@ -47,8 +58,11 @@ def _kernels() -> ctypes.CDLL:
         p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
         lib.block_decode_scratch_words.argtypes = [i64]
         lib.block_decode_scratch_words.restype = i64
+        lib.block_decode_state_words.argtypes = [i64]
+        lib.block_decode_state_words.restype = i64
         lib.block_decode_points.argtypes = [p, p, i64, p, p, i64, p, p, p,
-                                            i32, i32, i64, p, p, p, p]
+                                            i32, i32, i64, p,
+                                            ctypes.c_uint32, p, p, p, p]
         lib.block_decode_points.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -161,6 +175,26 @@ def decode_points_plain(ts_nb, ts_pay, v_nb, v_pay, first_idx, blk_first,
     return rel_ts, vals
 
 
+def _status_words(lib: ctypes.CDLL, dev: torch.device, stream: int,
+                  n: int) -> tuple[torch.Tensor, int]:
+    """The status words of (card, stream) for n points, and this call's
+    tag (1 .. 2^31 - 1). A buffer grows by a new zeroed one, enqueued on
+    the stream ahead of the launch."""
+    words = lib.block_decode_state_words(n)
+    with _state_lock:
+        buf = _state.get((dev.index, stream))
+        if buf is None or buf.numel() < words:
+            buf = _state[(dev.index, stream)] = torch.zeros(
+                words, dtype=torch.int64, device=dev)
+        return buf, next(_tags) % (2**31 - 1) + 1
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, contiguous and 16-byte aligned (the kernel's vector loads)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(fn, dev: int, *args) -> None:
     """Launch on the current stream of card ``dev``, entering the device
     guard only when ``dev`` is not the thread's current card (its enter
@@ -187,29 +221,32 @@ def decode_points(ts_nb, ts_pay, v_nb, v_pay, first_idx, blk_first,
         raise ValueError(f"no kernel for device {ts_nb.device}")
     dev = ts_nb.device
     n = ts_nb.shape[0]
+    if n >= 2**31 - 2**12:
+        raise ValueError(f"{n} points: the kernel indexes points in int32")
     lib = _kernels()
     rel_ts = torch.empty(n, dtype=torch.int32, device=dev)
     vals = torch.empty(n, dtype=torch.float32, device=dev)
     # Every input bound to a name until the launch is enqueued: a
     # temporary's block could otherwise go back to the allocator and
     # into the next temporary.
-    ins = [t.contiguous() for t in (ts_nb, ts_pay, v_nb, v_pay, first_idx,
-                                    blk_first)]
+    ts_nb, v_nb, first_idx, blk_first = (
+        _aligned(t) for t in (ts_nb, v_nb, first_idx, blk_first))
+    ts_pay, v_pay = ts_pay.contiguous(), v_pay.contiguous()
     if isinstance(rel_base, torch.Tensor) and rel_base.dim() == 1:
-        base_t, base_scalar = rel_base.contiguous(), 0
-        ins.append(base_t)
+        base_t, base_scalar = _aligned(rel_base), 0
         base_ptr = base_t.data_ptr()
     else:
         base_ptr, base_scalar = None, _scalar(rel_base)
-    ts_nb, ts_pay, v_nb, v_pay, first_idx, blk_first = ins[:6]
     scratch = torch.empty(lib.block_decode_scratch_words(n),
                           dtype=torch.int32, device=dev)
+    state, tag = _status_words(
+        lib, dev, torch._C._cuda_getCurrentRawStream(dev.index), n)
     _launch(lib.block_decode_points, dev.index, ts_nb.data_ptr(),
             ts_pay.data_ptr(), ts_pay.shape[0], v_nb.data_ptr(),
             v_pay.data_ptr(), v_pay.shape[0], first_idx.data_ptr(),
             blk_first.data_ptr(), base_ptr, base_scalar,
-            1 if vkind == "int" else 0, n, scratch.data_ptr(),
-            rel_ts.data_ptr(), vals.data_ptr())
+            1 if vkind == "int" else 0, n, state.data_ptr(), tag,
+            scratch.data_ptr(), rel_ts.data_ptr(), vals.data_ptr())
     decode_points.launches += 1
     return rel_ts, vals
 

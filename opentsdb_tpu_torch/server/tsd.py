@@ -60,7 +60,7 @@ from typing import NamedTuple
 
 import torch
 
-from opentsdb_tpu_torch import __version__
+from opentsdb_tpu_torch.build_data import build_data, version_string
 from opentsdb_tpu_torch.core import tags as tags_mod
 from opentsdb_tpu_torch.core.errors import (BadRequestError,
                                              NoSuchUniqueName,
@@ -563,9 +563,12 @@ class TSDServer:
 
     def _http_version(self, req) -> tuple:
         if "json" in req.q:
-            return (200, "application/json", json.dumps({
-                "version": __version__, "torch": torch.__version__,
-                "device": str(self.executor.device)}).encode(), {})
+            # The JAX daemon's keys, plus the port's torch and device.
+            info = dict(build_data(), start_time=self.start_time,
+                        torch=torch.__version__,
+                        device=str(self.executor.device))
+            return (200, "application/json",
+                    json.dumps(info).encode(), {})
         return 200, "text/plain", self._version_text().encode(), {}
 
     def _not_ported(self, req) -> tuple:
@@ -875,8 +878,7 @@ class TSDServer:
         return 200, "application/json", json.dumps(body).encode(), {}
 
     def _version_text(self) -> str:
-        return (f"opentsdb_tpu_torch {__version__} (torch "
-                f"{torch.__version__}, device {self.executor.device})\n")
+        return version_string()
 
     async def _query(self, req) -> tuple:
         q, params = req.q, req.params

@@ -277,6 +277,15 @@ def _store_args(p: argparse.ArgumentParser) -> None:
                    help="torch device of the kernels (cuda or cpu)")
 
 
+def cmd_version(args) -> int:
+    from opentsdb_tpu_torch.build_data import build_data, version_string
+    print(version_string(), end="")
+    if args.verbose:
+        for k, v in build_data().items():
+            print(f"{k}: {v}")
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="tsdb", description="opentsdb_tpu_torch command-line tool")
@@ -389,6 +398,10 @@ def main(argv: list[str] | None = None) -> int:
                    help="Prometheus text exposition (/metrics) instead "
                         "of classic stats lines")
     p.set_defaults(func=cmd_stats)
+
+    p = sub.add_parser("version", help="print build/version information")
+    p.add_argument("--verbose", action="store_true")
+    p.set_defaults(func=cmd_version)
     args = parser.parse_args(argv)
     return args.func(args)
 

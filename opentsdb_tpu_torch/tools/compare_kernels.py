@@ -5,7 +5,7 @@ each other on one NVIDIA card, at the shapes of the query paths.
     python -m opentsdb_tpu_torch.tools.compare_kernels [--kernels K,..] \\
         DIR [DIR ...]
 
-Kernels (``--kernels``, default all four):
+Kernels (``--kernels``, default all five):
 - ``segment_reduce``: ``segment_sum_f32`` and ``segment_minmax_f32`` at
   the group-stage shapes;
 - ``masked_select``: ``masked_select_columns`` on the resident window's
@@ -20,7 +20,14 @@ Kernels (``--kernels``, default all four):
   one ingest hand-off and at the 4096-value chunk,
   ``tdigest_merged_quantile_f32`` over all 10,000 series' digests (each
   revision's own scratch size); the t-digest fold's outputs must be
-  bit-identical between the revisions.
+  bit-identical between the revisions;
+- ``block_decode``: ``block_decode_points`` on synthetic byte-stream
+  gathers from a seed at the smoke's three sizes (the week's 10,485,760
+  padded points, the day's 1,572,864, the TSINT week's 40,960; TSF32,
+  records of 360 points, blocks of 120 records, the fused leg's
+  padding), bit for bit against ``decode_points_plain``; a revision with
+  ``block_decode_state_words`` gets its status words (zeroed once) and a
+  new tag a call, an older one its scratch.
 The data is ``chip_smoke.py``'s corpus (10,000 series x 1,000 points over
 7 days, drawn from seed 0), staged by this checkout's own functions.
 
@@ -55,14 +62,16 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from opentsdb_tpu_torch.ops import interp_moments, kernels as wk, \
-    masked_select, sketches
+from opentsdb_tpu_torch.compress.devcache import pad_fine
+from opentsdb_tpu_torch.ops import block_decode, interp_moments, \
+    kernels as wk, masked_select, sketches
 from opentsdb_tpu_torch.ops.cuda_build import NVCC_FLAGS, _nvcc
 from opentsdb_tpu_torch.query.executor import _pad_size
 from opentsdb_tpu_torch.stats.livesketch import LiveSketches, _pad
 from opentsdb_tpu_torch.utils.config import Config
 
-SOURCES = ("segment_reduce", "masked_select", "interp_moments", "sketches")
+SOURCES = ("segment_reduce", "masked_select", "interp_moments", "sketches",
+           "block_decode")
 S, B, SERIES = 16384, 256, 10_000    # chip_smoke.py's group stage
 POINTS, SPAN, DAY, INTERVAL = 1_000, 7 * 86400, 86400, 3600
 BASE = 1356998400
@@ -78,6 +87,16 @@ def bind(lib: ctypes.CDLL, kernel: str) -> ctypes.CDLL:
         lib.masked_select_columns.argtypes = [p, p, i64, i64, p, i32, p, p]
         lib.masked_select_groups.argtypes = [p, p, i64, i64, p, p, i64, p,
                                              i64, p, i32, p, p]
+    elif kernel == "block_decode":
+        lib.block_decode_scratch_words.argtypes = [i64]
+        lib.block_decode_scratch_words.restype = i64
+        tail = [p, p, p, p]
+        if hasattr(lib, "block_decode_state_words"):
+            lib.block_decode_state_words.argtypes = [i64]
+            lib.block_decode_state_words.restype = i64
+            tail = [p, ctypes.c_uint32, p, p, p, p]
+        lib.block_decode_points.argtypes = [p, p, i64, p, p, i64, p, p, p,
+                                            i32, i32, i64] + tail
     elif kernel == "interp_moments":
         lib.interp_moments_f32.argtypes = [p, p, p, i64, i64, p, i64, i32,
                                            p, p, p, p, p, p]
@@ -592,6 +611,81 @@ def hll_cases(dev, first: int, pool: int = 24) -> list[Case]:
                  _nothing, est_call, est_check)]
 
 
+def decode_inputs(dev, points: int, seed: int) -> tuple:
+    """A byte-stream gather of ``points`` points from a seed, padded to
+    pad_fine as the fused leg pads it: 360-point records, 120 records a
+    block, byte counts as a TSF32 block's (entries 0-2, value words 1-4),
+    random payload bytes, one base time a record."""
+    rng = np.random.default_rng(seed)
+    n = pad_fine(points)
+    pt = np.arange(points)
+    ts_nb = np.zeros(n, np.int32)
+    v_nb = np.zeros(n, np.int32)
+    first = np.zeros(n, np.int32)
+    blk = np.zeros(n, np.int32)
+    base = np.zeros(n, np.int32)
+    ts_nb[:points] = rng.choice(3, points, p=[0.3, 0.6, 0.1])
+    v_nb[:points] = rng.choice(np.arange(1, 5), points,
+                               p=[0.05, 0.25, 0.4, 0.3])
+    first[:points] = pt - pt % 360
+    blk[:points] = pt - pt % (360 * 120)
+    base[:points] = rng.integers(0, 7 * DAY, -(-points // 360)).repeat(
+        360)[:points]
+
+    def pay(nbytes):
+        out = np.zeros(1 << (max(nbytes, 1) - 1).bit_length(), np.uint8)
+        out[:nbytes] = rng.integers(0, 256, nbytes, dtype=np.uint8)
+        return torch.from_numpy(out).to(dev)
+
+    return tuple(torch.from_numpy(a).to(dev) if isinstance(a, np.ndarray)
+                 else a for a in (ts_nb, pay(int(ts_nb.sum())), v_nb,
+                                  pay(int(v_nb.sum())), first, blk, base))
+
+
+def decode_cases(dev) -> list[Case]:
+    out = []
+    for label, points in (("week-size gather", 10_000_400),
+                          ("day-size gather", 1_500_000),
+                          ("TSINT-week-size gather", 40_320)):
+        args = decode_inputs(dev, points, seed=len(label))
+        ts_nb, ts_pay, v_nb, v_pay, first, blk, base = args
+        n = ts_nb.numel()
+        rel = torch.empty(n, dtype=torch.int32, device=dev)
+        vals = torch.empty(n, dtype=torch.float32, device=dev)
+        want = block_decode.decode_points_plain(*args, vkind="f32")
+        own: dict = {}   # per library: scratch, status words, tags
+
+        def call(lib, args=args, rel=rel, vals=vals, own=own, n=n):
+            st = own.get(id(lib))
+            if st is None:
+                st = own[id(lib)] = [torch.empty(
+                    lib.block_decode_scratch_words(n), dtype=torch.int32,
+                    device=dev)]
+                if hasattr(lib, "block_decode_state_words"):
+                    st += [torch.zeros(lib.block_decode_state_words(n),
+                                       dtype=torch.int64, device=dev), 0]
+            a = [args[0].data_ptr(), args[1].data_ptr(), args[1].numel(),
+                 args[2].data_ptr(), args[3].data_ptr(), args[3].numel(),
+                 args[4].data_ptr(), args[5].data_ptr(), args[6].data_ptr(),
+                 0, 0, n]
+            if len(st) > 1:
+                st[2] += 1
+                a += [st[1].data_ptr(), st[2]]
+            _rc(lib.block_decode_points(*a, st[0].data_ptr(),
+                                        rel.data_ptr(), vals.data_ptr(),
+                                        _stream()))
+
+        def check(rel=rel, vals=vals, want=want):
+            same = torch.equal(rel, want[0]) and torch.equal(
+                vals.view(torch.int32), want[1].view(torch.int32))
+            return 0.0 if same else float("inf")
+
+        out.append(Case("block_decode", label,
+                        {"points": points, "padded_points": n},
+                        _nothing, call, check))
+    return out
+
+
 def cases(dev, kernels=SOURCES) -> list[Case]:
     out = []
     if "segment_reduce" in kernels:
@@ -604,6 +698,8 @@ def cases(dev, kernels=SOURCES) -> list[Case]:
             out += interp_cases(dev, ts, vals)
         if "sketches" in kernels:
             out += sketch_cases(dev, vals)
+    if "block_decode" in kernels:
+        out += decode_cases(dev)
     return out
 
 

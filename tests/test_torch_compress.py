@@ -13,7 +13,10 @@ Contracts:
   alike;
 - decode_points: bit-identical to the JAX function (jitted on the CPU) on
   rel_ts and the value bits, both value kinds, streams whose running sums
-  overflow int32, both padding layouts and an empty payload;
+  overflow int32, both padding layouts, an empty payload, and the layouts
+  whose lookups cross the card kernel's 4,096-point tiles (records of
+  3,600 points, first_idx more than a tile back, starts on tile edges,
+  n one off a multiple of the tile);
 - the five stage functions on one gather: grids and masks exact, count /
   min / max exact, sums, averages and deviations within rtol 1e-5 (the
   executor's float32 contract, opentsdb_tpu/query/executor.py:16-18);
@@ -430,18 +433,24 @@ def test_fsck_counts_codec_errors_alike(tmp_path):
 # decode_points
 # ---------------------------------------------------------------------------
 
-def _stream(rng, P, pad=0, pad_layout="bytes", scalar_base=False):
+def _stream(rng, P, pad=0, pad_layout="bytes", scalar_base=False,
+            rec=None, blk_recs=5):
     """A seeded decode input (random byte counts and payload bytes, so the
     running sums wrap and the value words take every float32 bit
-    pattern), records and blocks of random length, and ``pad`` padding
-    points in the byte-stream layout (first_idx = blk_first = 0) or the
-    device cache's (each pointing at itself)."""
+    pattern), records of random length (or of ``rec`` points each),
+    blocks of ``blk_recs`` records, and ``pad`` padding points in the
+    byte-stream layout (first_idx = blk_first = 0) or the device cache's
+    (each pointing at itself)."""
     ts_nb = rng.integers(0, 5, P).astype(np.int32)
     v_nb = rng.integers(0, 5, P).astype(np.int32)
-    starts = np.sort(rng.choice(P, min(P, max(P // 20, 1)), replace=False))
+    if rec is None:
+        starts = np.sort(rng.choice(P, min(P, max(P // 20, 1)),
+                                    replace=False))
+    else:
+        starts = np.arange(0, P, rec)
     starts[0] = 0
     first = starts[np.searchsorted(starts, np.arange(P), "right") - 1]
-    bstarts = starts[::5]
+    bstarts = starts[::blk_recs]
     blk = bstarts[np.searchsorted(bstarts, np.arange(P), "right") - 1]
     pad_idx = (np.zeros(pad, np.int64) if pad_layout == "bytes"
                else np.arange(P, P + pad))
@@ -496,6 +505,43 @@ def test_decode_points_bit_identical(case, vkind):
     if case == "devcache_padding":
         P = kw["P"]
         assert not jv[P:].any() and not (jr[P:] - args[6][P:]).any()
+
+
+TILE = 4096  # the decode kernel's tile (csrc/block_decode.cu kTile)
+
+TILE_LAYOUTS = {
+    # 1-second records (3,600 points) spanning several tiles, 2 a block.
+    "long_records": dict(P=4 * 3600 + 11, rec=3600, blk_recs=2, pad=300),
+    # first_idx and blk_first more than one tile back, device-cache
+    # padding.
+    "first_idx_far": dict(P=6 * (2 * TILE + 3), rec=2 * TILE + 3,
+                          blk_recs=1, pad=77, pad_layout="self"),
+    # record and block starts exactly on tile edges.
+    "tile_edges": dict(P=6 * TILE, rec=TILE, blk_recs=2, pad=TILE),
+}
+# n = k * tile - 1, k * tile, k * tile + 1 in both padding layouts.
+for _d in (-1, 0, 1):
+    for _lay in ("bytes", "self"):
+        TILE_LAYOUTS[f"n_3tile{_d:+d}_{_lay}"] = dict(
+            P=3 * TILE + _d - 40, pad=40, pad_layout=_lay,
+            rec=TILE // 3 + 5)
+
+
+@pytest.mark.parametrize("vkind", ["f32", "int"])
+@pytest.mark.parametrize("case", list(TILE_LAYOUTS))
+def test_decode_points_tile_layouts(case, vkind):
+    """The layouts whose lookups cross the kernel's tiles: the plain
+    version against the JAX function, bit for bit."""
+    kw = TILE_LAYOUTS[case]
+    args = _stream(np.random.default_rng(sum(map(ord, case))), **kw)
+    n = kw["P"] + kw.get("pad", 0)
+    assert len(args[0]) == n
+    first = args[4]
+    if case == "first_idx_far":
+        assert (np.arange(n) - first).max() > TILE
+    if case == "tile_edges":
+        assert np.all(np.unique(first)[1:] % TILE == 0)
+    _decode_both(args, vkind)
 
 
 @pytest.mark.parametrize("vkind", ["f32", "int"])

@@ -1526,20 +1526,31 @@ def test_accounting_daemon_on_card_answers_like_cpu(card, tmp_path):
 # ---------------------------------------------------------------------------
 
 def decode_stream(rng, P, pad=0, pad_layout="bytes", scalar_base=False,
-                  empty_payload=False):
+                  empty_payload=False, rec=None, blk_recs=5,
+                  irregular=False):
     """A seeded decode input: random byte counts (0-4) and payload bytes
     (so the running sums overflow int32 and the value words take every
-    float32 bit pattern, NaNs included), records and blocks of random
-    length, and ``pad`` padding points in the byte-stream layout
-    (first_idx = blk_first = 0) or the device cache's (each pointing at
-    itself)."""
+    float32 bit pattern, NaNs included), records of random length (or of
+    ``rec`` points each), blocks of ``blk_recs`` records, and ``pad``
+    padding points in the byte-stream layout (first_idx = blk_first = 0)
+    or the device cache's (each pointing at itself). ``irregular`` points
+    1% of first_idx and blk_first anywhere in [-5, n + 5), forward and
+    out of range included."""
     ts_nb = rng.integers(0, 5, P).astype(np.int32)
     v_nb = rng.integers(0, 5, P).astype(np.int32)
-    starts = np.sort(rng.choice(P, min(P, max(P // 20, 1)), replace=False))
+    if rec is None:
+        starts = np.sort(rng.choice(P, min(P, max(P // 20, 1)),
+                                    replace=False))
+    else:
+        starts = np.arange(0, P, rec)
     starts[0] = 0
     first = starts[np.searchsorted(starts, np.arange(P), "right") - 1]
-    bstarts = starts[::5]
+    bstarts = starts[::blk_recs]
     blk = bstarts[np.searchsorted(bstarts, np.arange(P), "right") - 1]
+    if irregular:
+        for a in (first, blk):
+            m = rng.random(P) < 0.01
+            a[m] = rng.integers(-5, P + pad + 5, int(m.sum()))
     if pad_layout == "bytes":
         pad_idx = np.zeros(pad, np.int64)
     else:
@@ -1561,37 +1572,90 @@ def decode_stream(rng, P, pad=0, pad_layout="bytes", scalar_base=False,
             np.concatenate([blk, pad_idx]).astype(np.int32), base)
 
 
+TILE = 4096  # csrc/block_decode.cu kTile
+
+DECODE_CASES = {
+    "small": dict(P=3000), "bytes_padding": dict(P=5000, pad=777),
+    "devcache_padding": dict(P=5000, pad=777, pad_layout="self"),
+    "scalar_base": dict(P=4096, scalar_base=True),
+    "empty_payload": dict(P=100, pad=10, empty_payload=True),
+    "one_point": dict(P=1),
+    "many_tiles": dict(P=2_500_000, pad=1000),
+    # 1-second records (3,600 points) over several tiles, 2 a block.
+    "long_records": dict(P=20 * TILE + 17, rec=3600, blk_recs=2, pad=900),
+    # first_idx and blk_first more than one tile back (4 tiles a record,
+    # one record a block), device-cache padding.
+    "first_idx_far": dict(P=40 * TILE, rec=4 * TILE + 3, blk_recs=1,
+                          pad=333, pad_layout="self"),
+    # every record and block start on a tile edge.
+    "tile_edges": dict(P=24 * TILE, rec=TILE, blk_recs=2, pad=TILE),
+    # first_idx / blk_first anywhere: the general launch's path.
+    "irregular": dict(P=300_000, pad=100, irregular=True),
+    # the week's gather: 10,485,760 points, 360-point records.
+    "week_size": dict(P=10_000_400, rec=360, blk_recs=8, pad=485_360),
+}
+# n = k * tile - 1, k * tile, k * tile + 1, in both padding layouts.
+for _k in (1, 7):
+    for _d in (-1, 0, 1):
+        for _lay in ("bytes", "self"):
+            DECODE_CASES[f"edge_{_k}tile{_d:+d}_{_lay}"] = dict(
+                P=_k * TILE + _d - 37, pad=37, pad_layout=_lay,
+                rec=TILE // 3 + 5)
+
+
+def _decode_inputs(case, card):
+    rng = np.random.default_rng(sum(map(ord, case)))
+    args = decode_stream(rng, **DECODE_CASES[case])
+    cpu = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+           for a in args]
+    return cpu, [a.to(card) if isinstance(a, torch.Tensor) else a
+                 for a in cpu]
+
+
+def _same_decode(got, want):
+    return torch.equal(got[0].cpu(), want[0].cpu()) and torch.equal(
+        got[1].cpu().view(torch.int32), want[1].cpu().view(torch.int32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("vkind", ["f32", "int"])
-@pytest.mark.parametrize("case", [
-    "small", "bytes_padding", "devcache_padding", "scalar_base",
-    "empty_payload", "one_point", "many_tiles"])
+@pytest.mark.parametrize("case", list(DECODE_CASES))
 def test_block_decode_matches_plain_bit_for_bit(card, case, vkind):
     """The decode kernel against decode_points_plain on the same inputs:
     rel_ts and the value bits identical on every point, padding points
-    included; int32 sums that wrap; an empty payload; more tiles than
-    the aggregate scan's block has threads (2.5M points)."""
+    included; int32 sums that wrap; an empty payload; records far longer
+    than a tile, lookups several tiles back, starts on tile edges, n one
+    off a multiple of the tile; irregular lookups (the general launch);
+    the week's gather size (10.5M points)."""
     from opentsdb_tpu_torch.ops.block_decode import (decode_points,
                                                      decode_points_plain)
-    rng = np.random.default_rng(len(case))
-    kw = {"small": dict(P=3000), "bytes_padding": dict(P=5000, pad=777),
-          "devcache_padding": dict(P=5000, pad=777, pad_layout="self"),
-          "scalar_base": dict(P=4096, scalar_base=True),
-          "empty_payload": dict(P=100, pad=10, empty_payload=True),
-          "one_point": dict(P=1),
-          "many_tiles": dict(P=2_500_000, pad=1000)}[case]
-    args = decode_stream(rng, **kw)
-    cpu = [torch.from_numpy(a) if isinstance(a, np.ndarray) else a
-           for a in args]
-    gpu = [a.to(card) if isinstance(a, torch.Tensor) else a for a in cpu]
+    cpu, gpu = _decode_inputs(case, card)
     before = decode_points.launches
-    rel, vals = decode_points(*gpu, vkind=vkind)
+    got = decode_points(*gpu, vkind=vkind)
     torch.cuda.synchronize()
     assert decode_points.launches == before + 1
-    want_rel, want_vals = decode_points_plain(*cpu, vkind=vkind)
-    assert torch.equal(rel.cpu(), want_rel)
-    assert torch.equal(vals.cpu().view(torch.int32),
-                       want_vals.view(torch.int32))
+    assert _same_decode(got, decode_points_plain(*cpu, vkind=vkind))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["long_records", "irregular"])
+def test_block_decode_repeats_without_reset(card, case):
+    """Three calls in a row, then calls on two streams at once, give the
+    first call's bits: the status words need no reset between calls."""
+    from opentsdb_tpu_torch.ops.block_decode import decode_points
+    _, gpu = _decode_inputs(case, card)
+    first = decode_points(*gpu, vkind="f32")
+    for _ in range(3):
+        assert _same_decode(decode_points(*gpu, vkind="f32"), first)
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(3):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(decode_points(*gpu, vkind="f32"))
+    torch.cuda.synchronize()
+    assert all(_same_decode(o, first) for o in outs)
 
 
 @pytest.mark.cuda

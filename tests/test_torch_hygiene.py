@@ -221,3 +221,18 @@ def test_compress_and_block_decode_live_in_the_port():
                   "\n", port, count=1, flags=re.S)
     assert port.replace("opentsdb_tpu_torch.core.const",
                         "opentsdb_tpu.core.const") == jax
+
+
+def test_build_data_lives_in_the_port():
+    """The version surface is the port's own copy of
+    opentsdb_tpu/build_data.py: it names that module, and neither the
+    daemon nor the CLI names the JAX package's."""
+    import re
+    from opentsdb_tpu_torch import build_data
+    assert "opentsdb_tpu/build_data.py" in build_data.__doc__
+    assert build_data.version_string().startswith("opentsdb_tpu_torch ")
+    banned = re.compile(r"opentsdb_tpu\.build_data\b")
+    for rel in ("server/tsd.py", "tools/cli.py", "build_data.py"):
+        src = open(os.path.join(ROOT, "opentsdb_tpu_torch", rel)).read()
+        assert banned.search(src) is None, rel
+        assert "build_data" in src, rel

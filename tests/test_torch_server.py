@@ -357,9 +357,15 @@ def test_telnet_error_replies_under_native_decoders(tmp_path, monkeypatch):
               start_compaction_thread=False)
     want = _telnet_script_answers(JaxServer, jt, lines)
     got = _telnet_script_answers(TSDServer, pt, lines)
-    # Everything before the reply to ``version``, which names the package.
-    got, want = (a[:a.index("opentsdb_tpu")] for a in (got, want))
+    # Everything before the reply to ``version``, which names the package;
+    # that reply has the JAX daemon's two-line shape.
+    from test_torch_version import _fields
+    (got, got_v), (want, want_v) = (
+        (a[:a.index("opentsdb_tpu")], a[a.index("opentsdb_tpu"):])
+        for a in (got, want))
     assert got == want
+    assert _fields(got_v, "opentsdb_tpu_torch") == _fields(
+        want_v, "opentsdb_tpu")
     errs = got.splitlines()
     assert len(errs) == len(bad)
     assert all(ln.startswith("put: illegal argument: ") for ln in errs)
