@@ -44,6 +44,19 @@
    the same on every run). Beside them the card's launch floor: an empty
    kernel launched the way the sketch wrappers launch theirs, timed the
    same three ways, and the host's time in each step of a wrapper call.
+   The rollup window fold (``csrc/rollup_fold.cu``) the same way at one
+   (series, day) of the corpus (~143 points, 24 windows: the checkpoint
+   fold's call) and at a week of one series at 1 s (604,800 points, 168
+   windows): two calls bit-identical, count, min, max, first, last and
+   the brackets exact against its plain version, the sum within rtol
+   1e-12, the records the host fold's (``window_fold`` and the tier's
+   entry, ``window_summaries_device``); beside the plain version, a
+   three-call scatter composite (no single PyTorch call computes it). A
+   child process counts, under ``torch.profiler``, the fold kernels of
+   20 and 5 calls of ``window_summaries_device`` at the two shapes and
+   of 100 checkpoint-fold calls (5e): the kernels line's
+   ``kernels_per_call`` is that count, and anything but one fold kernel
+   a call, or any other device event but copies, fails.
 4. Path phase: starts the port's daemon on loopback as ``tsdb tsd`` does
    (``tools/cli.py``: the default settings, so the resident device window,
    the live sketches and tenant accounting on, and the heap frozen out of
@@ -163,8 +176,8 @@
    (The card's machine has no JAX, so the crossings with the JAX package's
    store directories run only in the CPU tests,
    ``tests/test_torch_checkpoint.py``.)
-5b. Sharded phase: the daemon over a SHARDS-shard store
-   (``storage/sharded.py``, ``tsdb tsd --shards 4 --wal-group-ms 2``)
+5b. Sharded phase, beside the path phase: the daemon over a SHARDS-shard
+   store (``storage/sharded.py``, ``tsdb tsd --shards 4 --wal-group-ms 2``)
    ingests the same corpus (as wire batches of BARRIER_SERIES series:
    ``sync=False`` per series, one covering ``wal_barrier()`` per batch),
    the telnet lines and the ``/api/put`` phase (its native stages under
@@ -220,6 +233,35 @@
    WAL: the ten queries fused again, max and percentiles byte for byte,
    the sums within the resident tolerance, and fsck of the v4 store with
    its per-codec block counts and no codec error.
+5e. Rollup phase (``rollup/``), beside the path phase, over the
+   first ROLLUP_SERIES (2,500) series of the corpus (the cut and its
+   reason print first): a daemon with the rollup tier on and the window
+   off (it would answer first), default ``Config`` otherwise. Checkpoint
+   1 (fold s, records, tier bytes, ``rollup.fold`` with its declared
+   kind); six ``/q`` shapes, each ``"rollup": "1h"`` or ``"1d"``, cold and
+   WARM_REPS times warm, and once under ``torch.profiler`` (card time),
+   with the segment and select launch counts set to 0 before and read
+   after (each must launch); each held on the float64 oracle backend
+   against a raw scan with the tier set aside (bit-equal: every bucket
+   is one window), and the card's answer against that oracle answer.
+   ``sum:rate:1h-avg`` and ``sum:1h-p95`` over a day must be declined
+   (``raw``), each counted under its reason. A telnet backfill into a folded hour
+   makes it dirty: the next answer is stitched from raw (bit-equal to
+   the raw scan again). Checkpoint 2; the ranged week ``/sketch`` (``1d``,
+   ``X-Tsd-Approx``) and ``/distinct`` (``rollup``: 2,500 hosts). A
+   restart adopts the tier (no rebuild, the same answers); a second
+   backfill, then a checkpoint whose fold raises (the ``rollup.fold.start``
+   fault point) and process death: the reopen catches the in-flight
+   windows up (one rebuild) with the answers of before the crash. Then a
+   TSDB folding the same series on the card (``rollup_device_fold``):
+   ``rollup_fold``'s launches counted over its checkpoint (must be > 0),
+   its fold s beside the host fold's, every record against the host
+   tier's (count, min, max, first, last and the brackets exact, the sum
+   within rtol 1e-12, the sketch cells byte-identical). The kernel
+   phase's child also counts 100 of the tier's own fold calls (the first
+   day of each of the corpus' first 100 series: exactly one fold kernel
+   a call, nothing but copies besides), reported here. One ``rollup``
+   stdout line.
 5c. Observability (``obs/``), on the path phase's daemon at full width
    before the restart: one resident and one scan ``/q?trace=1`` (the
    ``{dc=dc0}`` day's ``zimsum``); each span tree must have the names and
@@ -254,37 +296,50 @@
 8. Prints the card line first; at the end the per-query, sketch,
    ingest, profiler, tenants, restart, native (build seconds and calls
    per C site, per stage, and the WAL replay), sharded, obs, budget and
-   launch-floor lines, the compressed line, the
-   kernels
-   line (nine
-   kernels) and, last, the ok line.
+   launch-floor lines, the compressed and rollup lines, the kernels line
+   (ten kernels) and, last, the ok line.
    In the kernels line each kernel's top-level numbers are its first
    path's: the segment kernels' and the select's the resident path's
    (at the chunk-fold shape and the columns select at one quantile),
    interp_moments' the un-downsampled path's (at the one-day {dc=dc0}
    shape; its full-width numbers under ``full_width``), the sketch
    kernels' the sketch path's (their other shapes under
-   ``other_cases``). Under ``paths``
+   ``other_cases``), rollup_fold's the device-folded checkpoint's (at the
+   (series, day) shape; the week under ``other_cases``). Under ``paths``
    each path's launches stand beside the times at its own shape (the scan
    path's: the series stage; the select's un-downsampled path: the p95
    contributions). Counts include the group stages' launches, whose times
    are in the details line.
 
+Overlap: after the kernel phase the sharded phase (with its writer-pause
+A/B) and the rollup phase each run in a child process of this script
+(``--child <phase>``) while the path phase runs here; the sharded child
+waits for the path phase's answers (REFERENCE, written to a shared file)
+before it compares its own. Both are joined before the compressed phase,
+whose decode-kernel timings so run on an otherwise idle card. The three
+share the machine's cores and the card while they overlap, so their host
+times are not those of a phase run alone. Each child dies with this
+process, and its result comes back as JSON.
+
 Any failure raises and exits nonzero before the last line. Without a CUDA
 card, or without the package beside it, it exits nonzero and prints no
-result. The full details go to standard error as one JSON line.
+result. The full details go to standard error as one JSON line; every
+standard-error line starts with the seconds since the smoke began (and
+the child's phase).
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextlib
+import ctypes
 import gc
 import http.client
 import itertools
 import json
 import os
 import shutil
+import signal
 import socket
 import statistics
 import subprocess
@@ -301,14 +356,16 @@ from opentsdb_tpu_torch.compress import fused as cfused
 from opentsdb_tpu_torch.compress.devcache import pad_fine
 from opentsdb_tpu_torch.core.tsdb import TSDB
 from opentsdb_tpu_torch.obs.registry import METRICS
+from opentsdb_tpu_torch.fault import faultpoints
 from opentsdb_tpu_torch.ops import (block_decode, cuda_build, interp_moments,
                                     kernels as wk, masked_select, oracle,
-                                    segment_reduce, sketches)
+                                    rollup_fold, segment_reduce, sketches)
 from opentsdb_tpu_torch.query.aggregators import Aggregators
 from opentsdb_tpu_torch.query.executor import (QueryExecutor, QueryResult,
                                                QuerySpec, _filter_key,
                                                _pad64, _pad_size, _Span)
 from opentsdb_tpu_torch.query.grammar import parse_m
+from opentsdb_tpu_torch.rollup import summary as rsummary
 from opentsdb_tpu_torch.server.tsd import TSDServer
 from opentsdb_tpu_torch.sketch.bounds import hll_error
 from opentsdb_tpu_torch.stats.livesketch import LiveSketches
@@ -425,8 +482,100 @@ def fail(msg: str):
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
+# The smoke's start on the wall clock (a child gets its parent's) and the
+# phase a child process runs: the head of every standard-error line.
+START = time.time()
+LOG_TAG = ""
+# The directory the path phase writes REFERENCE into and the children
+# write their results into (see "Overlap" in the module docstring).
+SHARE_DIR = ""
+CHILD_PHASES = ("sharded", "rollup")
+REFERENCE_WAIT_S = 900
+
+
 def log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
+    print(f"[{time.time() - START:7.1f} s{LOG_TAG}] {msg}", file=sys.stderr,
+          flush=True)
+
+
+def write_json(path: str, obj) -> None:
+    """``obj`` as JSON at ``path``, whole or not at all (tmp + rename)."""
+    with open(path + ".tmp", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".tmp", path)
+
+
+def publish_reference() -> None:
+    """REFERENCE's one-shard answers for the sharded phase's child."""
+    if SHARE_DIR:
+        write_json(os.path.join(SHARE_DIR, "reference.json"),
+                   {k: REFERENCE[k] for k in ("resident", "union")})
+
+
+def reference() -> dict:
+    """REFERENCE; in the sharded child, read from the file the path phase
+    writes, waiting for it."""
+    if "resident" not in REFERENCE and SHARE_DIR:
+        path = os.path.join(SHARE_DIR, "reference.json")
+        deadline = time.time() + REFERENCE_WAIT_S
+        while not os.path.exists(path):
+            if time.time() > deadline:
+                fail(f"no reference answers after {REFERENCE_WAIT_S} s")
+            time.sleep(0.5)
+        with open(path) as f:
+            REFERENCE.update(json.load(f))
+        log("read the path phase's reference answers")
+    return REFERENCE
+
+
+def start_child(phase: str) -> subprocess.Popen:
+    """This script with ``--child phase``: its standard output goes to
+    standard error, so this process alone prints the result lines."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--child", phase,
+         SHARE_DIR, repr(START), str(os.getpid())],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdin=subprocess.DEVNULL, stdout=sys.stderr)
+
+
+def join_child(phase: str, proc: subprocess.Popen) -> dict:
+    rc = proc.wait()
+    if rc != 0:
+        fail(f"the {phase} phase's process exited with code {rc}")
+    with open(os.path.join(SHARE_DIR, f"{phase}.json")) as f:
+        got = json.load(f)
+    NATIVE_STAGES.update(got["native"])
+    return got["out"]
+
+
+def stop_children(children: dict) -> None:
+    for proc in children.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+
+
+def child_main(phase: str, share: str, start: float, parent: int) -> int:
+    """One phase of CHILD_PHASES in its own process: its result and the
+    native calls of its stages to ``<share>/<phase>.json``."""
+    global START, LOG_TAG, SHARE_DIR
+    START, LOG_TAG, SHARE_DIR = start, f" {phase}", share
+    # Die with the parent (PR_SET_PDEATHSIG = 1), and at once if it is
+    # already gone.
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)
+    if os.getppid() != parent or not torch.cuda.is_available():
+        return 1
+    ts, vals = corpus()
+    if phase == "sharded":
+        out = sharded_phase(ts, vals)
+        REFERENCE.clear()
+        out["writer_pause"] = writer_pause_phase(ts, vals)
+    else:
+        out = rollup_phase(ts, vals)
+    write_json(os.path.join(share, f"{phase}.json"),
+               {"out": out, "native": NATIVE_STAGES})
+    log(f"{phase} phase done")
+    return 0
 
 
 @contextlib.contextmanager
@@ -1765,6 +1914,7 @@ def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
             "union path", ("masked_select", "interp_moments"))
         REFERENCE.update(resident=dict(answers), union=dict(union_answers),
                          oracle={})
+        publish_reference()
         # Before any checkpoint every chunk of the week holds memtable
         # rows: the fragment cache is bypassed, nothing is cached, and the
         # answers are the whole-range scan's.
@@ -3070,10 +3220,11 @@ def compare_reference(daemon: "Daemon", tsdb: TSDB, start: int,
     one-shard daemon's answer; launches counted per path."""
     dw, ex = tsdb.devwindow, daemon.server.executor
     out: dict = {"resident": {}, "union": {}, "launches": {}}
+    ref = reference()
     zero_launches()
     for expr in QUERIES + PCT_QUERIES:
         run, got = http_resident(daemon.port, dw, ex, expr, start, end)
-        want = REFERENCE["resident"][expr]
+        want = ref["resident"][expr]
         exact = expr.startswith(("max", "p"))
         out["resident"][expr] = {
             "ms": run["wall_ms"], "identical": got == want,
@@ -3084,7 +3235,7 @@ def compare_reference(daemon: "Daemon", tsdb: TSDB, start: int,
     for expr, span in union:
         skipped0 = tsdb.store.bloom_shards_skipped
         got, run, _ = http_union(daemon.port, expr, start, start + span - 1)
-        want = REFERENCE["union"][expr]
+        want = ref["union"][expr]
         exact = Aggregators.get(spec_of(expr).aggregator).kind \
             == "percentile"
         # "identical": the same JSON, the "cached" flag included.
@@ -3754,6 +3905,546 @@ def sketch_path(tsdb: TSDB, port: int, vals: np.ndarray, telnet: list,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Rollup phase (5e)
+# ---------------------------------------------------------------------------
+
+# The rollup phase folds the first ROLLUP_SERIES series of the corpus:
+# on the H100 machine the host fold of the whole corpus took 95.6 s and
+# the device fold of 2,500 series 28.3 s, so the whole corpus' host and
+# device folds would take ~210 s, past the ~120 s the phase may spend
+# folding in a smoke that already runs ~860 s of its 1200.
+ROLLUP_SERIES = 2_500
+ROLLUP_QUERIES = {"sum:1h-avg:bench.metric": "1h",
+                  "sum:1h-avg:bench.metric{dc=*}": "1h",
+                  "max:1d-max:bench.metric{host=h00001}": "1d",
+                  "dev:1h-avg:bench.metric": "1h",
+                  "p95:1h-avg:bench.metric{dc=*}": "1h",
+                  "sum:1d-count:bench.metric": "1d"}
+ROLLUP_DECLINES = {"sum:rate:1h-avg:bench.metric": "rate",
+                   "sum:1h-p95:bench.metric": "dsagg-p95"}
+ROLLUP_FOLD_WHERE = ("rollup_fold.cu", "opentsdb_tpu/rollup/summary.py:553")
+ROLLUP_PROFILED_CALLS = 100
+
+
+def fold_case(stage: str, ts: np.ndarray, vals: np.ndarray, res: int,
+              flush: torch.Tensor) -> dict:
+    """The window-fold kernel on one series' sorted columns: held against
+    its plain version on the card (count, min, max, first, last and the
+    brackets exact, the sum within rtol 1e-12) and against the host fold
+    ``window_summaries``, then timed three ways beside the plain version
+    and a three-call scatter composite (index_add_, amin, amax: not the
+    same function, it has no brackets). count_fold_kernels counts its
+    kernels a call."""
+    dev = torch.device(DEVICE)
+    origin = int(ts[0]) - int(ts[0]) % res
+    W = (int(ts[-1]) - origin) // res + 1
+    rel = torch.from_numpy((ts - origin).astype(np.int32)).to(dev)
+    v = torch.from_numpy(np.asarray(vals, np.float64)).to(dev)
+    got = [x.cpu() for x in rollup_fold.window_fold(rel, v, num_windows=W,
+                                                    res=res)]
+    again = [x.cpu() for x in rollup_fold.window_fold(
+        rel, v, num_windows=W, res=res)]
+    plain = [x.cpu() for x in rollup_fold.window_fold_plain(
+        rel, v, num_windows=W, res=res)]
+    if not all(a.numpy().tobytes() == b.numpy().tobytes()
+               for a, b in zip(got, again)):
+        fail(f"rollup_fold [{stage}]: two calls differ")
+    some = got[0] > 0
+    for i, name in ((0, "count"), (2, "min"), (3, "max"), (4, "first"),
+                    (5, "last"), (6, "t_first"), (7, "t_last")):
+        if not torch.equal(got[i][some], plain[i][some]):
+            fail(f"rollup_fold [{stage}]: {name} differs from the plain "
+                 f"version")
+    err = float((got[1] - plain[1]).abs().max())
+    if not torch.allclose(got[1], plain[1], rtol=1e-12, atol=0):
+        fail(f"rollup_fold [{stage}]: sum off by {err}")
+    wb, rec = rsummary.window_summaries(ts, vals, res)
+    idx = (wb - origin) // res
+    if not (np.array_equal(np.flatnonzero(got[0].numpy()), idx)
+            and np.array_equal(got[2].numpy()[idx], rec["min"])
+            and np.array_equal(got[5].numpy()[idx], rec["last"])
+            and np.allclose(got[1].numpy()[idx], rec["sum"], rtol=1e-12,
+                            atol=0)):
+        fail(f"rollup_fold [{stage}]: records differ from the host fold")
+    # The tier's entry (window_fold behind the uploads and one download).
+    dwb, drec = rsummary.window_summaries_device(ts, vals, res,
+                                                 device=DEVICE)
+    if not (np.array_equal(dwb, wb) and all(
+            np.array_equal(drec[f], rec[f]) for f in (
+                "count", "min", "max", "first", "last", "first_dt",
+                "last_dt"))
+            and np.allclose(drec["sum"], rec["sum"], rtol=1e-12, atol=0)):
+        fail(f"rollup_fold [{stage}]: window_summaries_device's records "
+             f"differ from the host fold")
+    w_ = torch.clamp(torch.div(rel.long(), res, rounding_mode="floor"),
+                     0, W - 1)
+
+    def scatter():
+        s = torch.zeros(W, dtype=torch.float64, device=dev)
+        s.index_add_(0, w_, v)
+        mn = torch.full((W,), float("inf"), dtype=torch.float64,
+                        device=dev).scatter_reduce_(0, w_, v, "amin")
+        mx = torch.full((W,), float("-inf"), dtype=torch.float64,
+                        device=dev).scatter_reduce_(0, w_, v, "amax")
+        return s, mn, mx
+
+    nbytes = 12 * len(ts) + 52 * W
+    bms, by = bound_ms(nbytes, 0)
+    res_ = {"name": "rollup_fold", "stage": stage, "points": len(ts),
+            "windows": W, "res": res, "max_abs_err": err, "bound_ms": bms,
+            "bound_by": by, "bytes": nbytes}
+    time_case(res_, lambda: rollup_fold._fold_launch(rel, v, W, res),
+              lambda: rollup_fold._fold_plain(rel, v, W, res), None, flush)
+    res_["library"] = NO_LIBRARY
+    res_["scatter_composite_ms"] = median_ms(scatter)
+    return res_
+
+
+def rollup_fold_cases() -> list:
+    """The fold kernel at two shapes: one (series, day) of the corpus
+    (~143 points, 24 windows, res 3600: the checkpoint fold's call) and
+    a week of one series at a 1 s scrape (604,800 points, 168 windows)."""
+    ts, vals = corpus()
+    days = [(ts[s][ts[s] < BASE + DAY].astype(np.int64),
+             vals[s][ts[s] < BASE + DAY].astype(np.float64))
+            for s in range(ROLLUP_PROFILED_CALLS)]
+    small = days[0]
+    del ts, vals
+    rng = np.random.default_rng(53)
+    week = (BASE + np.arange(SPAN, dtype=np.int64),
+            1000.0 + np.cumsum(rng.normal(0, 0.1, SPAN)))
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=DEVICE)
+    out = [fold_case("one (series, day) of the corpus, res 3600",
+                     *small, 3600, flush),
+           fold_case("a week at a 1 s scrape, res 3600", *week, 3600,
+                     flush)]
+    del flush
+    counts = count_fold_kernels([([small], 3600, 20), ([week], 3600, 5),
+                                 (days, 3600, 1)])
+    for r, c in zip(out, counts):
+        r["kernels_per_call"] = c["kernels_per_call"]
+        r["profiled"] = c
+    # The checkpoint fold's own calls: the first day of each of the
+    # corpus' first ROLLUP_PROFILED_CALLS series (reported with the
+    # rollup phase's device fold).
+    out[0]["profiled_tier_calls"] = counts[2]
+    return out
+
+
+# Calls of window_summaries_device (the tier's checkpoint fold) under
+# torch.profiler, in a fresh process: per case of the .npz in argv[1],
+# one JSON line with the fold kernels the card ran, the calls made and
+# every other device event but copies; then the same calls timed without
+# the profiler, and through the host fold window_summaries (us a call).
+FOLD_COUNT = """
+import json, sys, time
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from opentsdb_tpu_torch.rollup import summary
+data = np.load(sys.argv[1])
+for c in range(int(data["cases"])):
+    calls = [(data[f"ts{c}_{i}"], data[f"v{c}_{i}"])
+             for i in range(int(data[f"n{c}"]))] * int(data[f"repeat{c}"])
+    res = int(data[f"res{c}"])
+    summary.window_summaries_device(*calls[0], res, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for ts, v in calls:
+            summary.window_summaries_device(ts, v, res, device="cuda")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    names = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    fold = sum(n for k, n in names.items() if "window_fold" in k)
+    t0 = time.perf_counter()
+    for ts, v in calls:
+        summary.window_summaries_device(ts, v, res, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for ts, v in calls:
+        summary.window_summaries(ts, v, res)
+    t2 = time.perf_counter()
+    print(json.dumps({
+        "calls": len(calls), "fold_kernels": fold,
+        "kernels_per_call": fold / len(calls),
+        "other_device_events": {k: n for k, n in names.items()
+                                if "window_fold" not in k
+                                and "memcpy" not in k.lower()},
+        "profiled_host_ms_per_call": wall / len(calls),
+        "device_us_per_call": (t1 - t0) * 1e6 / len(calls),
+        "host_fold_us_per_call": (t2 - t1) * 1e6 / len(calls)}))
+"""
+
+
+def count_fold_kernels(cases: list) -> list:
+    """Each case, (calls [(ts, vals)], res, repeat), through
+    window_summaries_device ``repeat`` times over under torch.profiler in
+    a child process (the same count in the smoke's own process once
+    recorded 90 fold kernels for 100 calls): exactly one fold kernel a
+    call and no other device event but copies, or the run fails."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "fold_calls.npz")
+        arrays = {"cases": len(cases)}
+        for c, (calls, res, repeat) in enumerate(cases):
+            arrays.update({f"n{c}": len(calls), f"res{c}": res,
+                           f"repeat{c}": repeat})
+            for i, (ts, v) in enumerate(calls):
+                arrays[f"ts{c}_{i}"] = ts
+                arrays[f"v{c}_{i}"] = v
+        np.savez(path, **arrays)
+        out = subprocess.run([sys.executable, "-c", FOLD_COUNT, path],
+                             cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                             capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"the fold's kernel count failed: {out.stderr[-2000:]}")
+    counts = [json.loads(ln) for ln in out.stdout.splitlines()
+              if ln.startswith("{")]
+    if len(counts) != len(cases):
+        fail(f"the fold's kernel count printed {out.stdout[-2000:]}")
+    for c in counts:
+        if c["fold_kernels"] != c["calls"] or c["other_device_events"]:
+            fail(f"window_summaries_device: not one fold kernel a call, "
+                 f"or other device work: {c}")
+    return counts
+
+
+def open_rollup_tsdb(wal: str, **over) -> TSDB:
+    """The rollup daemon's TSDB, opened as ``tsdb tsd --rollups`` does:
+    default Config but the tier on and the window off (it would answer
+    first)."""
+    cfg = Config(auto_create_metrics=True, port=0, bind="127.0.0.1",
+                 device=DEVICE, device_window=False, enable_rollups=True,
+                 **over)
+    tsdb = open_tsdb(cfg, wal)
+    tune_for_ingest()
+    if tsdb.rollups is None or tsdb.devwindow is not None:
+        fail("the rollup daemon came up without its tier or with the "
+             "window")
+    return tsdb
+
+
+def tier_bytes(tsdb: TSDB) -> int:
+    return sum(os.path.getsize(os.path.join(d, fn))
+               for dirs in tsdb.rollups._dirs.values() for d in dirs
+               for fn in os.listdir(d))
+
+
+def tier_records(tsdb: TSDB) -> dict:
+    """{(res, row key): (moment map entries, sketch map bytes)}."""
+    tier, out = tsdb.rollups, {}
+    for r, stores in tier.stores.items():
+        for s in stores:
+            for key, items in s.scan_raw(tier.table, b"", b"",
+                                         family=b"r"):
+                cells = dict(items)
+                out[(r, bytes(key))] = (
+                    rsummary.decode_moment_map(cells[b"\x00"]),
+                    cells.get(b"\x01"))
+    return out
+
+
+def http_rollup(port: int, expr: str, start: int, end: int,
+                plan: str) -> tuple[float, list]:
+    """One /q whose every group must carry ``plan``: (wall ms, answer)."""
+    target = "/q?" + urllib.parse.urlencode(
+        {"start": start, "end": end, "m": expr, "json": ""})
+    q0 = time.perf_counter()
+    status, body = http_get(port, target)
+    wall = (time.perf_counter() - q0) * 1e3
+    if status != 200:
+        fail(f"{expr}: HTTP {status}: {body[:300]!r}")
+    answer = json.loads(body)
+    if not answer or any(g["rollup"] != plan for g in answer):
+        fail(f"{expr}: not served {plan}: "
+             f"{sorted({g.get('rollup') for g in answer})}")
+    return wall, answer
+
+
+def rollup_answers(port: int, start: int, end: int) -> dict:
+    return {expr: http_rollup(port, expr, start, end, plan)[1]
+            for expr, plan in ROLLUP_QUERIES.items()}
+
+
+def rollup_against_raw(tsdb: TSDB, answers: dict, start: int,
+                       end: int) -> dict:
+    """Each query of ``answers`` on the float64 oracle backend, from the
+    tier and from a raw scan (the tier set aside): bit-equal, since every
+    bucket is one window; and the daemon's card answer against that
+    oracle answer."""
+    ex = QueryExecutor(tsdb, backend="cpu")
+    out = {}
+    for expr in answers:
+        plan = ROLLUP_QUERIES[expr]
+        spec = spec_of(expr)
+        rolled, got_plan, _ = ex.run_with_plan(spec, start, end)
+        saved, tsdb.rollups = tsdb.rollups, None
+        try:
+            raw, raw_plan, _ = ex.run_with_plan(spec, start, end)
+        finally:
+            tsdb.rollups = saved
+        if (got_plan, raw_plan) != (plan, "raw"):
+            fail(f"{expr}: plans {got_plan} / {raw_plan}")
+        if len(rolled) != len(raw) or any(
+                a.tags != b.tags
+                or not np.array_equal(a.timestamps, b.timestamps)
+                or not np.array_equal(a.values, b.values)
+                for a, b in zip(rolled, raw)):
+            fail(f"{expr}: the rollup answer is not the raw scan's")
+        out[expr] = {"equal_to_raw": True, "oracle_rel_err": check_answer(
+            expr, answers[expr], raw, 1e-4, "oracle")}
+    return out
+
+
+def rollup_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
+    """See 5e in the module docstring."""
+    S = ROLLUP_SERIES
+    start, end = BASE, BASE + SPAN - 1
+    out: dict = {"series": S, "of_series": SERIES}
+    log(f"rollup phase over the first {S:,} of {SERIES:,} series: the "
+        f"whole corpus' host and device folds would take ~210 s")
+    fold_timer = METRICS.timer("rollup.fold")
+    steps = out["step_s"] = {}
+    mark = [time.perf_counter()]
+
+    def step(name: str) -> None:
+        now = time.perf_counter()
+        steps[name] = now - mark[0]
+        mark[0] = now
+
+    with tempfile.TemporaryDirectory() as d:
+        wal = os.path.join(d, "wal")
+        tsdb = open_rollup_tsdb(wal)
+        daemon = Daemon(tsdb)
+        try:
+            t0 = time.perf_counter()
+            for s in range(S):
+                tsdb.add_batch("bench.metric", ts[s], vals[s],
+                               series_tags(s))
+            secs = time.perf_counter() - t0
+            out["ingest"] = {"points": S * POINTS, "seconds": secs,
+                             "points_per_s": S * POINTS / secs}
+            f0 = fold_timer.total_ms
+            ck = out["checkpoint_1"] = timed_checkpoint(
+                tsdb, "rollup checkpoint 1")
+            tier = tsdb.rollups
+            ck["fold_s"] = (fold_timer.total_ms - f0) / 1e3
+            ck["records"] = tier.records_written
+            ck["tier_bytes"] = tier_bytes(tsdb)
+            ck["fold_split"] = {"delta": tier.fold_delta,
+                                "full": tier.fold_full}
+            stats = stat_lines(daemon.port)
+            ck["rollup.fold"] = stats.get("tsd.rollup.fold", {})
+            if not tier.ready or "kind=host-f64" not in ck["rollup.fold"]:
+                fail(f"rollup checkpoint 1: tier not ready or wrong kind "
+                     f"{ck['rollup.fold']}")
+            log(f"rollup checkpoint 1: fold {ck['fold_s']:.2f} s, "
+                f"{ck['records']} records, {ck['tier_bytes']} tier bytes, "
+                f"fold split {ck['fold_split']}")
+            host_records = tier_records(tsdb)
+            step("ingest + checkpoint 1")
+
+            # The six queries: cold, then WARM_REPS warm, and each once
+            # under the profiler (its card time).
+            ex = daemon.server.executor
+            zero_launches()
+            runs, answers = {}, {}
+            for expr, plan in ROLLUP_QUERIES.items():
+                walls = []
+                for _ in range(1 + WARM_REPS):
+                    wall, answers[expr] = http_rollup(daemon.port, expr,
+                                                      start, end, plan)
+                    walls.append(wall)
+                prof = profile_share(ex, spec_of(expr), start, end, plan)
+                runs[expr] = {"plan": plan, "first_ms": walls[0],
+                              "warm_ms": statistics.median(walls[1:]),
+                              "warm_runs": walls[1:],
+                              "card": {k: prof[k] for k in (
+                                  "wall_ms", "device_busy_ms",
+                                  "device_busy_share")}}
+                log(f"rollup {expr}: {runs[expr]}")
+            out["launches"] = path_launches("rollup path",
+                                            ("segment_sum",
+                                             "masked_select"))
+            step("queries")
+            checks = rollup_against_raw(tsdb, answers, start, end)
+            step("raw and oracle checks")
+            for expr in runs:
+                runs[expr].update(checks[expr])
+            out["queries"] = runs
+            # Over one day: a decline is decided before the range is read.
+            declines = {}
+            for expr, reason in ROLLUP_DECLINES.items():
+                n0 = tier.fallbacks.get(reason, 0)
+                wall, _ = http_rollup(daemon.port, expr, start,
+                                      start + DAY - 1, "raw")
+                if tier.fallbacks.get(reason, 0) != n0 + 1:
+                    fail(f"{expr}: no {reason} decline counted")
+                declines[expr] = {"reason": reason, "ms": wall}
+            out["declines"] = declines
+            step("declines")
+
+            # A backfill into a folded hour: that window is dirty and
+            # stitched from raw, the answers still the raw scan's.
+            said = telnet(daemon.port, [
+                f"put bench.metric {BASE + 3600 + 17} 123.5 host=h00000 "
+                f"dc=dc0"])
+            if "put:" in said:
+                fail(f"the backfill put answered {said!r}")
+            if BASE + 3600 not in tier.dirty_hour_bases().tolist():
+                fail("the backfilled hour is not dirty")
+            expr = next(iter(ROLLUP_QUERIES))
+            _, answer = http_rollup(daemon.port, expr, start, end,
+                                    ROLLUP_QUERIES[expr])
+            rollup_against_raw(tsdb, {expr: answer}, start, end)
+            out["backfill"] = {"hour": BASE + 3600, "query": expr,
+                               "stitched": True}
+            out["checkpoint_2"] = timed_checkpoint(
+                tsdb, "rollup checkpoint 2")
+            step("backfill + checkpoint 2")
+
+            # Ranged week /sketch and /distinct.
+            ranged = {}
+            for target, label, key in (
+                    (f"/sketch?m=bench.metric&start={start}&end={end}",
+                     "1d", "rollup"),
+                    (f"/distinct?metric=bench.metric&tagk=host"
+                     f"&start={start}&end={end}", "rollup", "source")):
+                conn = http.client.HTTPConnection("127.0.0.1", daemon.port,
+                                                  timeout=600)
+                q0 = time.perf_counter()
+                conn.request("GET", target)
+                resp = conn.getresponse()
+                body = json.loads(resp.read())
+                wall = (time.perf_counter() - q0) * 1e3
+                hdr = resp.getheader("X-Tsd-Approx")
+                conn.close()
+                if resp.status != 200 or body.get(key) != label:
+                    fail(f"{target}: {resp.status} {body}")
+                ranged[target.split("?")[0]] = {"ms": wall, "header": hdr,
+                                                "answer": body}
+            if not (ranged["/sketch"]["header"] or "").startswith(
+                    "tdigest;rel_error=") \
+                    or ranged["/distinct"]["answer"]["distinct"] != S:
+                fail(f"ranged sketch routes: {ranged}")
+            out["ranged"] = ranged
+            log(f"rollup ranged routes: {ranged}")
+            reference = rollup_answers(daemon.port, start, end)
+            step("ranged routes")
+
+            # A restart adopts the tier: no rebuild, the same answers.
+            daemon.stop()
+            t0 = time.perf_counter()
+            tsdb = open_rollup_tsdb(wal)
+            out["boot_s"] = time.perf_counter() - t0
+            daemon = Daemon(tsdb)
+            if tsdb.rollups.rebuilds != 0 or not tsdb.rollups.ready:
+                fail("the restart rebuilt the tier")
+            after = rollup_answers(daemon.port, start, end)
+            out["after_restart"] = {
+                expr: same_answer(expr, after[expr], reference[expr],
+                                  expr.startswith(("max", "p")))
+                for expr in ROLLUP_QUERIES}
+            step("restart")
+
+            # A crash between the spill and the fold: the reopen catches
+            # the in-flight windows up, the answers still the same.
+            said = telnet(daemon.port, [
+                f"put bench.metric {BASE + 5 * 3600 + 23} 77.25 "
+                f"host=h00002 dc=dc2"])
+            if "put:" in said:
+                fail(f"the second backfill put answered {said!r}")
+            before_crash = rollup_answers(daemon.port, start, end)
+            faultpoints.arm("rollup.fold.start", "raise")
+            try:
+                tsdb.checkpoint()
+                fail("the armed fold did not raise")
+            except faultpoints.FaultInjected:
+                pass
+            finally:
+                faultpoints.clear()
+            tsdb.compactionq.shutdown()
+            tsdb._shutdown_done = True      # the process dies: no shutdown
+            daemon.stop()
+            tsdb.rollups._simulate_crash()
+            tsdb.store._simulate_crash()
+            t0 = time.perf_counter()
+            tsdb = open_rollup_tsdb(wal, rollup_catchup="sync")
+            out["crash_reopen_s"] = time.perf_counter() - t0
+            daemon = Daemon(tsdb)
+            if tsdb.rollups.rebuilds != 1 or not tsdb.rollups.ready:
+                fail(f"the crash reopen did not rebuild: "
+                     f"{tsdb.rollups.rebuilds}")
+            after = rollup_answers(daemon.port, start, end)
+            out["after_crash"] = {
+                expr: same_answer(expr, after[expr], before_crash[expr],
+                                  expr.startswith(("max", "p")))
+                for expr in ROLLUP_QUERIES}
+            out["api_queries"] = http_json(daemon.port,
+                                           "/api/queries")["rollup"]
+            log(f"rollup restart: boot {out['boot_s']:.2f} s; crash "
+                f"reopen (catch-up) {out['crash_reopen_s']:.2f} s")
+        finally:
+            daemon.stop()
+    step("crash + reopen")
+
+    # The same corpus folded on the card: the window-fold kernel.
+    with tempfile.TemporaryDirectory() as d:
+        dtsdb = open_tsdb(Config(auto_create_metrics=True, device=DEVICE,
+                                 device_window=False, enable_rollups=True,
+                                 rollup_device_fold=True),
+                          os.path.join(d, "wal"))
+        try:
+            for s in range(S):
+                dtsdb.add_batch("bench.metric", ts[s], vals[s],
+                                series_tags(s))
+            rollup_fold.window_fold.launches = 0
+            f0 = fold_timer.total_ms
+            dck = timed_checkpoint(dtsdb, "device-folded checkpoint")
+            dck["fold_s"] = (fold_timer.total_ms - f0) / 1e3
+            launches = rollup_fold.window_fold.launches
+            if launches == 0:
+                fail("the device-folded checkpoint never launched "
+                     "rollup_fold")
+            dev_records = tier_records(dtsdb)
+            kind = dtsdb.rollups.fold_kind
+        finally:
+            dtsdb.shutdown()
+    if dev_records.keys() != host_records.keys() or kind != "device-f64":
+        fail(f"device-folded tier: {kind}, rows differ from the host's")
+    worst = 0.0
+    for k, (m, sk) in host_records.items():
+        dm, dsk = dev_records[k]
+        if sk != dsk or not np.array_equal(m["idx"], dm["idx"]):
+            fail(f"device-folded tier: {k} differs in its windows")
+        for f in ("count", "min", "max", "first", "last", "first_dt",
+                  "last_dt"):
+            if not np.array_equal(m["rec"][f], dm["rec"][f]):
+                fail(f"device-folded tier: {f} differs at {k}")
+        a, b = m["rec"]["sum"], dm["rec"]["sum"]
+        if not np.allclose(b, a, rtol=1e-12, atol=0):
+            fail(f"device-folded tier: sum beyond rtol 1e-12 at {k}")
+        worst = max(worst, float((np.abs(b - a) / np.maximum(
+            np.abs(a), 1e-300)).max()))
+    out["device_fold"] = {"checkpoint": dck, "fold_s": dck["fold_s"],
+                          "host_fold_s": out["checkpoint_1"]["fold_s"],
+                          "launches": launches, "kind": kind,
+                          "records": sum(len(m) for m, _ in
+                                         dev_records.values()),
+                          "sum_max_rel_err": worst}
+    step("device-folded tier")
+    log(f"device-folded tier: {out['device_fold']}; steps {steps}")
+    return out
+
+
 def _catch(fn, errs: list) -> None:
     try:
         fn()
@@ -3762,6 +4453,7 @@ def _catch(fn, errs: list) -> None:
 
 
 def main() -> int:
+    global SHARE_DIR
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is false; this smoke "
             "runs only on an NVIDIA card")
@@ -3790,14 +4482,23 @@ def main() -> int:
 
     ts, vals = corpus()
     kernels = (kernel_phase(ts, vals) + select_interp_phase(ts, vals)
-               + sketch_kernel_phase(vals))
-    with tempfile.TemporaryDirectory() as wal_dir:
-        path = path_phase(ts, vals, wal_dir)
+               + sketch_kernel_phase(vals) + rollup_fold_cases())
+    with tempfile.TemporaryDirectory() as share:
+        SHARE_DIR = share
+        children = {p: start_child(p) for p in CHILD_PHASES}
+        try:
+            with tempfile.TemporaryDirectory() as wal_dir:
+                path = path_phase(ts, vals, wal_dir)
+            log("path phase done; joining the sharded and rollup phases")
+            done = {p: join_child(p, proc) for p, proc in children.items()}
+        finally:
+            stop_children(children)
+        SHARE_DIR = ""
+    sharded, rollup = done["sharded"], done["rollup"]
+    log("compressed phase")
     compressed = compressed_phase(ts, vals, path)
     kernels += compressed["kernel_cases"]
-    sharded = sharded_phase(ts, vals)
     REFERENCE.clear()
-    sharded["writer_pause"] = writer_pause_phase(ts, vals)
     del ts, vals
     refusal = refusal_phase()
     budget = budget_phase()
@@ -3816,7 +4517,9 @@ def main() -> int:
         "hll_estimate": {"sketch": "over the p = 12 stack (8 x 4096)"},
         "merged_quantile": {
             "sketch": "all series, S = 16,384 (2,097,152 entries)"},
-        "block_decode": {"fused": "week gather (TSF32)"}}
+        "block_decode": {"fused": "week gather (TSF32)"},
+        "rollup_fold": {
+            "device fold": "one (series, day) of the corpus, res 3600"}}
     where = {
         "segment_sum": ("segment_reduce.cu",
                         "opentsdb_tpu/ops/pallas_kernels.py:77"),
@@ -3833,12 +4536,15 @@ def main() -> int:
         "merged_quantile": ("sketches.cu",
                             "opentsdb_tpu/stats/livesketch.py:460"),
         "block_decode": ("block_decode.cu",
-                         "opentsdb_tpu/compress/kernels.py:72")}
+                         "opentsdb_tpu/compress/kernels.py:72"),
+        "rollup_fold": ROLLUP_FOLD_WHERE}
     numbers = ("max_abs_err", "ms", "ms_cold", "ms_device", "plain_ms",
                "bound_ms", "bound_by", "library_ms")
     by_case = {(r["name"], r["stage"]): r for r in kernels}
-    path_launches_of = dict(path["launches"],
-                            fused=compressed["launches"])
+    path_launches_of = dict(
+        path["launches"], fused=compressed["launches"],
+        **{"device fold": {
+            "rollup_fold": rollup["device_fold"]["launches"]}})
     line = []
     for name, shape in shapes.items():
         paths = {}
@@ -3856,20 +4562,21 @@ def main() -> int:
             entry["full_width"] = {k: r[k] for k in numbers}
         others = [r for r in kernels if r["name"] == name
                   and r["stage"] not in shape.values()
-                  and name in SKETCH_KERNELS + ("block_decode",)]
+                  and name in SKETCH_KERNELS + ("block_decode",
+                                                "rollup_fold")]
         if others:
             entry["other_cases"] = {r["stage"]: {k: r[k] for k in numbers}
                                     for r in others}
-        if name == "block_decode":
+        if name in ("block_decode", "rollup_fold"):
             entry["library"] = NO_LIBRARY
             entry["kernels_per_call"] = by_case[(
-                name, shape["fused"])]["kernels_per_call"]
+                name, next(iter(shape.values())))]["kernels_per_call"]
         line.append(entry)
     log(json.dumps({"details": {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "kernel_cases": kernels, "path": path,
-        "compressed": compressed, "sharded": sharded, "refusal": refusal,
-        "budget": budget}}))
+        "compressed": compressed, "rollup": rollup, "sharded": sharded,
+        "refusal": refusal, "budget": budget}}))
     for expr, q in path["queries"].items():
         print(json.dumps({"query": expr, "plan": "resident", **q,
                           "card": smi}))
@@ -3982,6 +4689,27 @@ def main() -> int:
             "ms_device", "plain_ms", "bound_ms", "bytes",
             "kernels_per_call", "memsets_per_call")}
             for r in c["kernel_cases"]}}, "card": smi}))
+    ro = rollup
+    print(json.dumps({"rollup": {
+        "series": ro["series"], "of_series": ro["of_series"],
+        "ingest": ro["ingest"], "checkpoint_1": ro["checkpoint_1"],
+        "checkpoint_2": ro["checkpoint_2"], "queries": ro["queries"],
+        "launches": ro["launches"], "declines": ro["declines"],
+        "backfill": ro["backfill"],
+        "ranged": {k: {"ms": v["ms"], "header": v["header"]}
+                   for k, v in ro["ranged"].items()},
+        "boot_s": ro["boot_s"], "after_restart": ro["after_restart"],
+        "crash_reopen_s": ro["crash_reopen_s"],
+        "after_crash": ro["after_crash"], "api_queries": ro["api_queries"],
+        "device_fold": dict(ro["device_fold"], profiled=next(
+            r["profiled_tier_calls"] for r in kernels
+            if "profiled_tier_calls" in r)),
+        "fold_cases": {r["stage"]: {k: r[k] for k in (
+            "points", "windows", "ms", "ms_cold", "ms_device", "plain_ms",
+            "scatter_composite_ms", "bound_ms", "bytes", "max_abs_err",
+            "kernels_per_call", "profiled")}
+            for r in kernels if r["name"] == "rollup_fold"}},
+        "card": smi}))
     r_obs = path["obs"]
     print(json.dumps({"obs": {
         "resident": {k: v for k, v in r_obs["resident"].items()
@@ -4009,4 +4737,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        sys.exit(child_main(sys.argv[2], sys.argv[3], float(sys.argv[4]),
+                            int(sys.argv[5])))
     sys.exit(main())

@@ -43,8 +43,16 @@ calls it once per wire batch).
 package's names) into a StatsCollector; ``drop_caches`` and the
 ``suggest_*`` calls serve the daemon's ``dropcaches`` and ``/suggest``.
 
+The rollup tier (``rollup/tier.py``, ``Config.enable_rollups``, off by
+default as in the JAX package) opens on a writer with a WAL: the
+checkpoint brackets its spill with the tier's ``begin_spill`` and
+``fold_after_spill``, ``add_batch`` feeds the tier's delta accumulators
+(a throttled batch kills its windows, a scalar ``add_point`` invalidates
+its window, ``compact_row`` marks its deletes as preserving), the tier
+closes before the store, and ``collect_stats`` adds its lines.
+
 Left out of this slice (all off here; see ROADMAP): the mesh-sharded
-window, rollups, replicas and the cluster tier.
+window, replicas and the cluster tier.
 """
 
 from __future__ import annotations
@@ -134,6 +142,9 @@ class TSDB:
         # rebuild (sort + join) it every batch. Cleared wholesale at the
         # cap.
         self._series_labels: dict[bytes, str] = {}
+        # The rollup tier (set up last, below; the compaction thread's
+        # compact_row may read it first).
+        self.rollups = None
         self.compactionq = CompactionQueue(
             self, start_thread=start_compaction_thread)
         # Streaming sketch state (stats/livesketch.py): loaded from the
@@ -158,6 +169,15 @@ class TSDB:
         if (self.config.tenant_accounting
                 and not getattr(store, "read_only", False)):
             self._init_tenants()
+        # Materialized rollup tier (rollup/tier.py): writers with a
+        # persistent store only (an in-memory store never spills, so every
+        # window would stay memtable-dirty).
+        if (self.config.enable_rollups
+                and getattr(store, "_wal_path", None)
+                and not getattr(store, "read_only", False)):
+            from opentsdb_tpu_torch.rollup.tier import RollupTier
+
+            self.rollups = RollupTier(self, self.config)
 
     def _warm_devwindow(self) -> None:
         """Mirror what storage already holds (the sstable generations and
@@ -456,6 +476,11 @@ class TSDB:
         if self.sketches is not None:
             self.sketches.note_series(skey)
         self.store.put(self.table, row, FAMILY, qual, buf, durable=durable)
+        # Scalar puts bypass the delta-fold feed (add_batch): their coarse
+        # window must take the full fold's re-read.
+        delta = getattr(self.rollups, "delta", None)
+        if delta is not None:
+            delta.invalidate(skey, base_ts)
         if self.config.enable_compactions:
             self.compactionq.add(row)
         self.datapoints_added += 1
@@ -535,11 +560,16 @@ class TSDB:
         self._admit_series(tenant, skey, metric)
         if self.sketches is not None:
             self.sketches.note_series(skey)
+        delta = getattr(self.rollups, "delta", None)
         try:
             existed = self.store.put_many_columnar(
                 self.table, FAMILY, kb, L, quals, vals, durable=durable,
                 sync=sync)
         except PleaseThrottleError as e:
+            # Which rows landed is unknowable here: the batch's rollup
+            # windows can no longer be folded from the delta buffers.
+            if delta is not None:
+                delta.kill_batch(skey, base[row_starts])
             # The rows that did apply still need compaction; they will
             # never reach the window (this raise skips its append), and a
             # retry of the batch would fail its order check anyway: drop
@@ -550,6 +580,10 @@ class TSDB:
                 self.devwindow.invalidate(metric_uid)
             raise
         self._queue_compactions(kb, L, existed)
+        # The applied batch's columns are what a checkpoint fold's raw
+        # re-read would decode: buffer them for the delta fold.
+        if delta is not None:
+            delta.feed(skey, ts_s, f_s, i_s, m_s, base, row_starts, existed)
         n = len(ts_s)
         self.datapoints_added += n
         self._account_points(tenant, metric, tag_map, n, skey)
@@ -584,6 +618,20 @@ class TSDB:
         is written before the originals are deleted, and an original cell
         that already equals the merged form is never deleted-after-write.
         """
+        delta = getattr(self.rollups, "delta", None)
+        if delta is None:
+            self._compact_row(key)
+            return
+        # Compaction keeps the row's point set: this thread's deletes are
+        # preserving, so the store's delete hook leaves the row's rollup
+        # delta window alone.
+        delta.preserve.on = True
+        try:
+            self._compact_row(key)
+        finally:
+            delta.preserve.on = False
+
+    def _compact_row(self, key: bytes) -> None:
         cells = self.store.get(self.table, key, FAMILY)
         if len(cells) <= 1:
             if cells:
@@ -730,11 +778,11 @@ class TSDB:
         """Push the engine's counters into a StatsCollector (reference
         TSDB.collectStats :129-175; the JAX package's lines and order).
 
-        ``compress.ratio`` appears once a v4 generation exists. Left out,
-        each with the item that brings it (ROADMAP queue A): the rollup
-        tier's lines (item 6) and the cluster lines ``cluster.epoch`` /
-        ``.fenced`` / ``.fenced_bytes_refused`` (item 10). The JAX package
-        emits none of them under its default config either."""
+        ``compress.ratio`` appears once a v4 generation exists, the rollup
+        tier's ``rollup.*`` and ``sketch.bytes`` lines while it is open.
+        Left out (ROADMAP queue A item 10): the cluster lines
+        ``cluster.epoch`` / ``.fenced`` / ``.fenced_bytes_refused``, which
+        the JAX package emits only in cluster mode."""
         collector.record("datapoints.added", self.datapoints_added)
         for uid in (self.metrics, self.tagk, self.tagv):
             kind = uid.kind()
@@ -780,6 +828,8 @@ class TSDB:
             self.tenants.collect_stats(collector)
         if self.devwindow is not None:
             self.devwindow.collect_stats(collector)
+        if self.rollups is not None:
+            self.rollups.collect_stats(collector)
 
     # ------------------------------------------------------------------
     # Lifecycle
@@ -823,7 +873,17 @@ class TSDB:
                 self._save_tenants()
             if ckpt is None:
                 return 0
-            return ckpt(tenant_marker=self.tenants is None)
+            # The rollup tier brackets the spill: the about-to-spill
+            # windows go in flight (and the tier pending on disk) before
+            # the spill, the spilled keys fold after it; a crash between
+            # leaves the pending marker and the next open catches up.
+            rollups = getattr(self, "rollups", None)
+            if rollups is not None:
+                rollups.begin_spill()
+            rows = ckpt(tenant_marker=self.tenants is None)
+            if rollups is not None:
+                rollups.fold_after_spill()
+            return rows
 
     def _save_tenants(self) -> None:
         t0 = time.perf_counter()
@@ -846,6 +906,13 @@ class TSDB:
                 self.checkpoint()
             self.store.flush()
         finally:
-            close = getattr(self.store, "close", None)
-            if close:
-                close()
+            # The rollup tier closes first: its close stops and joins the
+            # catch-up thread, which reads the store. The store closes
+            # even when that raises (it releases the WAL's flock).
+            try:
+                if getattr(self, "rollups", None) is not None:
+                    self.rollups.close()
+            finally:
+                close = getattr(self.store, "close", None)
+                if close:
+                    close()

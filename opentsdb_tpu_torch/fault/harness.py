@@ -21,7 +21,14 @@ the port's tiers. One scenario:
        record, present or absent as a whole);
      - **tenant accounting**: every stored series is known to the
        accountant, and its counts are exact (or, on the HLL tier, within
-       the declared error).
+       the declared error);
+     - **rollup query parity** (a scenario with ``rollups``, the JAX
+       matrix's default): after one more checkpoint folds the recovered
+       memtable, rollup-served answers are bit-identical to raw-scan
+       answers on the same engine, and the tier serves at least one
+       query; a ``catchup_compare`` row also recovers a copy of the
+       crashed store with the full rebuild and demands the incremental
+       catch-up's answers bit for bit.
 
 Scenarios are deterministic given (seed, site, mode, skip): the sharded
 store spills serially while a fault is armed, the workload is a pure
@@ -31,9 +38,10 @@ smaller failing repro, and ``repro_command`` prints a command line that
 reruns it alone.
 
 ``build_matrix()`` is the sweep over the sites the port has, at 1 and 4
-shards; ``FAST_LABELS`` names the tier-1 subset. ``--bug
-ack-before-fsync`` re-introduces, in the child, the group-commit bug the
-matrix must catch (acknowledging before the covering flush).
+shards, the rollup sites among them; ``FAST_LABELS`` names the tier-1
+subset. ``--bug`` re-introduces, in the child, a bug the matrix must
+catch: ``ack-before-fsync`` (acknowledging before the covering group
+flush) or ``torn-bracket`` (the rollup spill bracket never opens).
 
 A scenario's ``codec`` ("tsst4") makes the workload spill compressed
 TSST4 generations; the verifier reopens with the same codec, so its
@@ -41,9 +49,8 @@ checkpoints and fsck's block audit run the v4 writers and readers again.
 The ``sst-block-*`` rows cut or kill inside a compressed block
 (``sst.write.block``).
 
-Left out (ROADMAP queue A): the rollup rows and the rollup query parity
-(item 6), the replica and promote kinds and the replica refresh check
-(item 10), and ``meshreshard`` (item 11).
+Left out (ROADMAP queue A): the replica and promote kinds and the
+replica refresh check (item 10), and ``meshreshard`` (item 11).
 
 Run the port's matrix (or one scenario); ``--device cpu`` on a host
 without a card::
@@ -88,7 +95,7 @@ _SERIES = [
 
 CHILD_TIMEOUT = 120.0
 
-BUGS = ("ack-before-fsync",)
+BUGS = ("torn-bracket", "ack-before-fsync")
 
 
 @dataclasses.dataclass
@@ -99,6 +106,8 @@ class Scenario:
     skip: int = 0
     count: int = 1
     shards: int = 1
+    # The rollup tier in the workload (the JAX matrix's default).
+    rollups: bool = True
     seed: int = 1234
     n_ops: int = 36
     delete_heavy: bool = False
@@ -116,6 +125,10 @@ class Scenario:
     codec: str = "none"
     # Config.device of the child's and the verifier's TSDB.
     device: str = "cuda"
+    # Incremental catch-up parity: verify also recovers a pristine copy
+    # of the crashed store with rollup_incremental_catchup=False (the
+    # full rebuild) and demands bit-identical rollup answers from both.
+    catchup_compare: bool = False
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +233,12 @@ class Oracle:
                 h.update(f"{si}:{t}:{int(isf)}:{v!r};".encode())
         return h.hexdigest()
 
+    def bounds(self) -> tuple[int, int] | None:
+        ts = [t for d in self.data.values() for t in d]
+        if not ts:
+            return None
+        return min(ts), max(ts)
+
 
 # ---------------------------------------------------------------------------
 # Store plumbing shared by the child and the parent
@@ -234,18 +253,24 @@ def open_store(dirpath: str, shards: int):
     return MemKVStore(wal_path=os.path.join(dirpath, "wal"))
 
 
-def open_tsdb(dirpath: str, shards: int, tenant_cutoff: int = -1,
-              wal_group_ms: float = 0.0, device: str = "cuda",
-              codec: str = "none") -> TSDB:
+def open_tsdb(dirpath: str, shards: int, rollups: bool = True,
+              tenant_cutoff: int = -1, wal_group_ms: float = 0.0,
+              device: str = "cuda", codec: str = "none",
+              incremental: bool = True) -> TSDB:
     """The writer TSDB with the harness's profile: the float64 host
     backend, sketches and the device window off, compactions off and no
-    background thread (a deterministic schedule). Tenant accounting stays
-    on (its default): every crash scenario is also a recovery check of
-    the tenant snapshot."""
+    background thread (a deterministic schedule), and with ``rollups``
+    the JAX harness's tier: catch-up sync (a reopen finishes its rebuild
+    before verify queries) and sketch columns at 1h too. Tenant
+    accounting stays on (its default): every crash scenario is also a
+    recovery check of the tenant snapshot."""
     cfg = Config(device=device, backend="cpu", auto_create_metrics=True,
                  enable_compactions=False, enable_sketches=False,
                  device_window=False, wal_group_ms=wal_group_ms,
-                 sstable_codec=codec)
+                 sstable_codec=codec, enable_rollups=rollups,
+                 rollup_catchup="sync",
+                 rollup_incremental_catchup=incremental,
+                 rollup_sketch_min_res=3600)
     if tenant_cutoff >= 0:
         cfg.tenant_exact_cutoff = tenant_cutoff
     return TSDB(open_store(dirpath, shards), cfg,
@@ -299,11 +324,31 @@ def _op_applied(tsdb: TSDB, op: tuple) -> bool:
 
 def _apply_bug(bug: str) -> None:
     """Re-introduce a durability bug in the child, so tests can show the
-    matrix catches it. ``ack-before-fsync``: the WAL barrier returns
-    before the covering group flush, so acknowledged appends (which the
-    progress file records) sit in the userspace buffer, and a crash at
+    matrix catches it.
+
+    ``torn-bracket``: the checkpoint's rollup spill bracket never opens
+    (no pending marker, no in-flight windows), so a crash between the
+    spill-key drain and the fold leaves summaries stale with nothing
+    owing a rebuild. The fold side re-persists the bracket before
+    draining, so both writers of the pending marker are torn, or that
+    defence would repair the sabotage.
+
+    ``ack-before-fsync``: the WAL barrier returns before the covering
+    group flush, so acknowledged appends (which the progress file
+    records) sit in the userspace buffer, and a crash at
     ``kv.wal.group.write`` loses them; verify must flag the rows."""
-    if bug == "ack-before-fsync":
+    if bug == "torn-bracket":
+        from opentsdb_tpu_torch.rollup.tier import RollupTier
+        RollupTier.begin_spill = lambda self: None
+        orig_write = RollupTier._write_state
+
+        def torn_write(self, pending, inflight=None):
+            if pending:
+                return  # the bracket never opens
+            orig_write(self, pending)
+
+        RollupTier._write_state = torn_write
+    elif bug == "ack-before-fsync":
         MemKVStore._ACK_BEFORE_FSYNC = True
     else:
         raise ValueError(f"unknown --bug {bug!r} (one of {BUGS})")
@@ -317,7 +362,7 @@ def _child_main(args) -> int:
     ops = gen_ops(args.seed, args.n_ops, args.delete_heavy)
     if args.bug:
         _apply_bug(args.bug)
-    tsdb = open_tsdb(args.dir, args.shards,
+    tsdb = open_tsdb(args.dir, args.shards, args.rollups,
                      tenant_cutoff=args.tenant_cutoff,
                      wal_group_ms=args.wal_group_ms, device=args.device,
                      codec=args.codec)
@@ -448,14 +493,156 @@ def _check_tenant_accounting(tsdb: TSDB) -> list[str]:
     return problems
 
 
+def _query_specs():
+    from opentsdb_tpu_torch.query.executor import QuerySpec
+    return [
+        QuerySpec("sys.cpu.user", {"host": "*"}, aggregator="sum",
+                  downsample=(3600, "sum")),
+        QuerySpec("sys.cpu.user", {}, aggregator="max",
+                  downsample=(86400, "max")),
+        QuerySpec("sys.cpu.user", {"dc": "east"}, aggregator="sum",
+                  downsample=(3600, "avg")),
+        QuerySpec("net.bytes", {}, aggregator="sum",
+                  downsample=(3600, "sum")),
+        QuerySpec("sys.cpu.user", {}, aggregator="p95",
+                  downsample=(3600, "sum")),
+    ]
+
+
+def _same_answers(a, b) -> tuple[bool, list]:
+    """(group sets equal, [group keys whose answers differ])."""
+    ka = {tuple(sorted(r.tags.items())): r for r in a}
+    kb = {tuple(sorted(r.tags.items())): r for r in b}
+    if set(ka) != set(kb):
+        return False, []
+    return True, [gk for gk, r in ka.items()
+                  if not (np.array_equal(r.timestamps, kb[gk].timestamps)
+                          and np.array_equal(r.values, kb[gk].values))]
+
+
+def _check_query_parity(tsdb: TSDB, oracle: Oracle,
+                        require_rollup: bool) -> list[str]:
+    """Rollup-served and raw-scan answers are bit-identical for the same
+    spec (the golden-parity invariant after any crash)."""
+    from opentsdb_tpu_torch.query.executor import QueryExecutor
+    bounds = oracle.bounds()
+    if bounds is None:
+        return []
+    lo, hi = bounds
+    hi = max(hi, lo + 1)
+    # A range too narrow to hold one aligned 1h window falls back
+    # everywhere (very early crashes).
+    require_rollup = require_rollup and hi - lo >= 2 * 3600
+    ex = QueryExecutor(tsdb, backend="cpu")
+    problems: list[str] = []
+    rollup_served = False
+    for spec in _query_specs():
+        try:
+            served, plan, _ = ex.run_with_plan(spec, lo, hi)
+            saved, tsdb.rollups = tsdb.rollups, None
+            try:
+                raw = ex.run(spec, lo, hi)
+            finally:
+                tsdb.rollups = saved
+        except NoSuchUniqueName:
+            # The crash can land before this metric's first ingest was
+            # acknowledged; only a metric the oracle holds data for must
+            # be queryable.
+            if any(pts for si, pts in oracle.data.items()
+                   if _SERIES[si][0] == spec.metric):
+                problems.append(f"query {spec.metric}: UID missing but "
+                                f"the oracle holds its points")
+            continue
+        except Exception as e:
+            problems.append(f"query {spec.aggregator}/{spec.downsample}"
+                            f" failed: {e!r}")
+            continue
+        if plan not in ("raw", "resident"):
+            rollup_served = True
+        same_groups, differ = _same_answers(served, raw)
+        if not same_groups:
+            problems.append(f"query {spec.aggregator} plan={plan}: "
+                            f"group sets differ")
+        for gk in differ:
+            problems.append(
+                f"query {spec.aggregator}/{spec.downsample} plan={plan} "
+                f"group={dict(gk)}: rollup-served answer != raw answer")
+    if require_rollup and not rollup_served:
+        problems.append("rollup tier never served an eligible query "
+                        "(planner fell back everywhere)")
+    return problems
+
+
+def _check_catchup_parity(dirpath: str, sc: Scenario, tsdb: TSDB,
+                          oracle: Oracle) -> list[str]:
+    """The two crash-recovery paths agree: the control copy of the
+    crashed store (made before the primary reopen) recovers with the full
+    rebuild, and both engines give bit-identical rollup-served answers for
+    the whole battery."""
+    from opentsdb_tpu_torch.query.executor import QueryExecutor
+    ctl_dir = dirpath + "-fullctl"
+    if not os.path.isdir(ctl_dir):
+        return ["catchup_compare set but no control copy was made"]
+    problems: list[str] = []
+    try:
+        ctl = open_tsdb(ctl_dir, sc.shards, sc.rollups, device=sc.device,
+                        codec=sc.codec, incremental=False)
+    except Exception as e:
+        return [f"full-rebuild control reopen failed: {e!r}"]
+    try:
+        ctl.checkpoint()   # the post-crash fold the primary ran
+        bounds = oracle.bounds()
+        if bounds is None:
+            return problems
+        lo, hi = bounds
+        hi = max(hi, lo + 1)
+        ex_i = QueryExecutor(tsdb, backend="cpu")
+        ex_f = QueryExecutor(ctl, backend="cpu")
+        for spec in _query_specs():
+            try:
+                ri, plan_i, _ = ex_i.run_with_plan(spec, lo, hi)
+                rf, plan_f, _ = ex_f.run_with_plan(spec, lo, hi)
+            except NoSuchUniqueName:
+                continue
+            except Exception as e:
+                problems.append(f"catchup-compare query "
+                                f"{spec.aggregator} failed: {e!r}")
+                continue
+            if plan_i != plan_f:
+                problems.append(
+                    f"catchup-compare {spec.aggregator}/{spec.downsample}"
+                    f": plans diverge (incr={plan_i} full={plan_f})")
+                continue
+            same_groups, differ = _same_answers(ri, rf)
+            if not same_groups:
+                problems.append(f"catchup-compare {spec.aggregator}: "
+                                f"group sets diverge")
+            for gk in differ:
+                problems.append(
+                    f"catchup-compare {spec.aggregator}/"
+                    f"{spec.downsample} group={dict(gk)}: incremental != "
+                    f"full-rebuild answer")
+    finally:
+        try:
+            ctl.shutdown()
+        except Exception as e:
+            problems.append(f"control shutdown failed: {e!r}")
+    return problems
+
+
 def verify(dirpath: str, sc: Scenario, ops: list[tuple],
            ops_done: int) -> tuple[list[str], str]:
     """Reopen after the crash and check every invariant. Returns
     (problems, the oracle's state hash)."""
     from opentsdb_tpu_torch.tools.fsck import run_fsck
     problems: list[str] = []
+    if sc.catchup_compare:
+        # Copy the crashed store before the primary reopen changes it: the
+        # full-rebuild control recovers from the bytes the incremental
+        # path saw.
+        shutil.copytree(dirpath, dirpath + "-fullctl", dirs_exist_ok=True)
     try:
-        tsdb = open_tsdb(dirpath, sc.shards,
+        tsdb = open_tsdb(dirpath, sc.shards, sc.rollups,
                          tenant_cutoff=sc.tenant_cutoff,
                          wal_group_ms=sc.wal_group_ms, device=sc.device,
                          codec=sc.codec)
@@ -484,6 +671,16 @@ def verify(dirpath: str, sc: Scenario, ops: list[tuple],
             oracle.apply(ops[ops_done])
         problems += _check_raw_parity(tsdb, oracle)
         problems += _check_tenant_accounting(tsdb)
+        if sc.rollups:
+            # Fold the recovered (WAL-replayed) memtable so the tier
+            # covers the whole history, then demand bit-identical
+            # rollup-against-raw answers.
+            tsdb.checkpoint()
+            problems += _check_query_parity(tsdb, oracle,
+                                            require_rollup=True)
+            if sc.catchup_compare:
+                problems += _check_catchup_parity(dirpath, sc, tsdb,
+                                                  oracle)
         return problems, oracle.state_hash()
     except Exception as e:  # the verification itself broke
         import traceback
@@ -513,6 +710,8 @@ def child_command(sc: Scenario, store_dir: str, progress: str) -> list[str]:
            "--child", "--dir", store_dir, "--seed", str(sc.seed),
            "--n-ops", str(sc.n_ops), "--shards", str(sc.shards),
            "--device", sc.device, "--progress", progress]
+    if sc.rollups:
+        cmd.append("--rollups")
     if sc.delete_heavy:
         cmd.append("--delete-heavy")
     if sc.bug:
@@ -538,8 +737,9 @@ def _run_once(sc: Scenario, workdir: str) -> dict:
         env.get("PYTHONPATH", "")
     result = {
         "label": sc.label, "site": sc.site, "mode": sc.mode,
-        "skip": sc.skip, "shards": sc.shards, "seed": sc.seed,
-        "n_ops": sc.n_ops, "bug": sc.bug, "problems": [], "ops_done": 0,
+        "skip": sc.skip, "shards": sc.shards, "rollups": sc.rollups,
+        "seed": sc.seed, "n_ops": sc.n_ops, "bug": sc.bug,
+        "problems": [], "ops_done": 0,
     }
     try:
         proc = subprocess.run(child_command(sc, store_dir, progress),
@@ -581,6 +781,8 @@ def repro_command(sc: Scenario) -> str:
     out = (f"python -m opentsdb_tpu_torch.fault.harness --site {sc.site} "
            f"--mode {sc.mode} --skip {sc.skip} --shards {sc.shards} "
            f"--seed {sc.seed} --n-ops {sc.n_ops} --device {sc.device}")
+    if not sc.rollups:
+        out += " --no-rollups"
     if sc.delete_heavy:
         out += " --delete-heavy"
     if sc.bug:
@@ -645,6 +847,10 @@ FAST_LABELS = (
     "sst-body-torn-s4",
     "sst-footer-torn-s1",
     "sst-block-torn-s1",
+    "rollup-foldstart-crash-s1",
+    "rollup-flip-crash-s1",
+    "rollup-folddel-crash-s1",
+    "rollup-foldflush-incrcmp-s1",
     "tenant-snap-commit-torn-s4",
     "shard-join-crash-k2",
 )
@@ -652,8 +858,7 @@ FAST_LABELS = (
 
 def build_matrix() -> list[Scenario]:
     """The JAX matrix's rows whose sites the port has, at 1 and 4 shards,
-    with their labels, skips and seeds (``rollups=False``: the port has no
-    rollup tier)."""
+    with their labels, skips, seeds and rollup settings."""
     scens: list[Scenario] = []
 
     def add(label: str, site: str, mode: str, **kw) -> None:
@@ -661,7 +866,7 @@ def build_matrix() -> list[Scenario]:
 
     for shards in (1, 4):
         t = f"s{shards}"
-        c = dict(shards=shards, seed=1000 + shards)
+        c = dict(shards=shards, rollups=True, seed=1000 + shards)
         add(f"wal-append-crash-{t}", "kv.wal.append", "crash",
             skip=2, **c)
         add(f"wal-append-torn-{t}", "kv.wal.append", "torn",
@@ -711,6 +916,31 @@ def build_matrix() -> list[Scenario]:
         add(f"sst-block-torn-late-{t}", "sst.write.block", "torn",
             skip=2, codec="tsst4", **c)
         add(f"sst-rename-crash-{t}", "sst.rename", "crash", **c)
+        # The rollup tier's bracket and fold sites.
+        add(f"rollup-begin-crash-{t}", "rollup.begin_spill", "crash",
+            **c)
+        add(f"rollup-foldstart-crash-{t}", "rollup.fold.start",
+            "crash", **c)
+        add(f"rollup-foldflush-crash-{t}", "rollup.fold.flush",
+            "crash", **c)
+        add(f"rollup-foldcommit-crash-{t}", "rollup.fold.commit",
+            "crash", **c)
+        add(f"rollup-flip-crash-{t}", "rollup.bracket.flip", "crash",
+            **c)
+        # Delete-heavy fold crashes: zero records against surviving
+        # coarse windows.
+        add(f"rollup-folddel-crash-{t}", "rollup.fold.flush", "crash",
+            delete_heavy=True, **{**c, "seed": 77 + shards})
+        # Incremental catch-up parity: the crash lands between spill and
+        # fold commit, the reopen refolds only the persisted in-flight
+        # windows, and verify also recovers a copy with the full rebuild;
+        # both must give bit-identical rollup answers.
+        add(f"rollup-foldflush-incrcmp-{t}", "rollup.fold.flush",
+            "crash", catchup_compare=True,
+            **{**c, "seed": 4100 + shards})
+        add(f"rollup-folddel-incrcmp-{t}", "rollup.fold.flush",
+            "crash", delete_heavy=True, catchup_compare=True,
+            **{**c, "seed": 4200 + shards})
         # The tenant snapshot: a torn temp file leaves the previous
         # snapshot governing; a torn committed file is the corruption the
         # rebuild from storage must absorb exactly.
@@ -723,20 +953,20 @@ def build_matrix() -> list[Scenario]:
     # Partial cross-shard spills: a crash after exactly k of 4 shards.
     for k in (1, 2, 3):
         add(f"shard-join-crash-k{k}", "sharded.spill.shard", "crash",
-            skip=k - 1, shards=4, seed=2000 + k)
+            skip=k - 1, shards=4, rollups=True, seed=2000 + k)
     # The JAX matrix's rollup-less raw-store rows.
     add("wal-append-crash-norollup", "kv.wal.append", "crash", skip=3,
-        shards=1, seed=3001)
+        shards=1, rollups=False, seed=3001)
     add("ckpt-commit-crash-norollup", "kv.checkpoint.commit", "crash",
-        shards=1, seed=3002)
+        shards=1, rollups=False, seed=3002)
     add("sst-block-torn-norollup", "sst.write.block", "torn",
-        shards=1, codec="tsst4", seed=3003)
+        shards=1, rollups=False, codec="tsst4", seed=3003)
     add("sst-block-torn-norollup-s4", "sst.write.block", "torn",
-        shards=4, codec="tsst4", seed=3004)
+        shards=4, rollups=False, codec="tsst4", seed=3004)
     # The HLL tier of tenant accounting (every tenant on it at cutoff 0):
     # a torn committed snapshot recovers within the declared error.
     add("tenant-snap-commit-torn-hll", "tenant.snapshot.commit",
-        "torn", shards=1, seed=5101, tenant_cutoff=0)
+        "torn", shards=1, rollups=True, seed=5101, tenant_cutoff=0)
     return scens
 
 
@@ -773,6 +1003,10 @@ def main(argv=None) -> int:
     p.add_argument("--n-ops", type=int, default=36)
     p.add_argument("--shards", type=int, default=1)
     p.add_argument("--delete-heavy", action="store_true")
+    p.add_argument("--rollups", action="store_true",
+                   help="the child's workload keeps the rollup tier")
+    p.add_argument("--no-rollups", action="store_true",
+                   help="an ad-hoc scenario without the rollup tier")
     p.add_argument("--bug", default=None, choices=BUGS)
     p.add_argument("--tenant-cutoff", type=int, default=-1)
     p.add_argument("--wal-group-ms", type=float, default=0.0)
@@ -799,7 +1033,8 @@ def main(argv=None) -> int:
     if args.site:
         scens = [Scenario(
             label="adhoc", site=args.site, mode=args.mode, skip=args.skip,
-            shards=args.shards, seed=args.seed, n_ops=args.n_ops,
+            shards=args.shards, rollups=not args.no_rollups,
+            seed=args.seed, n_ops=args.n_ops,
             delete_heavy=args.delete_heavy, bug=args.bug,
             tenant_cutoff=args.tenant_cutoff,
             wal_group_ms=args.wal_group_ms, codec=args.codec)]

@@ -25,8 +25,13 @@ window (``storage/devstore.py``) when it exactly covers the range — plan
 label "resident": no storage scan, no upload of points, only the [S]-sized
 include/group maps (cached) and the filter-independent [S, B] stage
 (cached per data version) — and otherwise from the storage scan, plan
-"raw". Between the two, as in the JAX package (resident, then fused,
-then raw; there is no rollup tier here), the fused plan serves a range
+"raw". Between the two, in the JAX package's order (resident, then
+rollups, then fused, then raw): with the rollup tier open
+(``Config.enable_rollups``), ``rollup/planner.plan`` serves a
+window-aligned downsample from the tier's per-window records, raw
+stitched over the edge and dirty windows, and the shared group stage
+finishes on the planner's spans (plan label "1h" or "1d", the
+resolution); then the fused plan serves a range
 straight from TSST4 compressed blocks (``_run_fused_blocks``, plan label
 "fused"): ``compress/fused.gather`` collects the covering blocks' payload
 streams (exact or a counted decline), the hand-written decode kernel and
@@ -72,10 +77,13 @@ the scan stage's milliseconds, traced or not.
 Sketch queries (``/sketch`` and ``/distinct``) read the live sketches
 (``stats/livesketch.py``) without a storage scan: quantiles of the merged
 t-digests of the matching series, and the HyperLogLog estimate of a
-(metric, tag key)'s distinct values. With a time range, with no rollup
-tier to serve it, they take the JAX package's exact fallbacks: the pooled
-float32 values' quantiles, an exact count of tag values, or, with a tag
-filter, the tag values' HyperLogLog at p = 14 (``distinct_tagv``).
+(metric, tag key)'s distinct values. With a time range they are served
+from the rollup tier where it covers the range (the windows' t-digest or
+moment columns with their declared bound, record presence for a tag
+value count, the windows' HLL registers for distinct values; label "1h"
+or "1d"), else the JAX package's exact fallbacks: the pooled float32
+values' quantiles, an exact count of tag values, or, with a tag filter,
+the tag values' HyperLogLog at p = 14 (``distinct_tagv``).
 """
 
 from __future__ import annotations
@@ -102,6 +110,10 @@ from opentsdb_tpu_torch.obs import trace as obs_trace
 from opentsdb_tpu_torch.obs.registry import METRICS as _metrics
 from opentsdb_tpu_torch.ops import kernels, oracle, sketches
 from opentsdb_tpu_torch.query.aggregators import Aggregators
+from opentsdb_tpu_torch.rollup import planner as rplanner
+from opentsdb_tpu_torch.rollup import summary as rsummary
+from opentsdb_tpu_torch.sketch import bounds as sbounds
+from opentsdb_tpu_torch.sketch.moment import MomentSketch
 from opentsdb_tpu_torch.stats.collector import LatencyDigest
 from opentsdb_tpu_torch.storage.sstable import series_hash
 from opentsdb_tpu_torch.utils.lru import LRUCache
@@ -478,10 +490,10 @@ class QueryExecutor:
     def run_with_plan(self, spec: QuerySpec, start: int, end: int,
                       trace=None) -> tuple[list[QueryResult], str, bool]:
         """run() plus the plan label ("resident" when the device window
-        served it, "fused" when the compressed blocks did, else "raw") and
-        whether the scan's every fragment came from the warm fragment
-        cache (always False for "resident" and "fused", as in the JAX
-        package: their stage caches hold grids, not scanned columns).
+        served it, the resolution ("1h", "1d") when the rollup tier did,
+        "fused" when the compressed blocks did, else "raw") and whether
+        the scan's every fragment came from the warm fragment cache
+        (always False for the other plans, as in the JAX package).
 
         ``trace`` (``obs/trace.Trace``): the stages record themselves as
         a span tree under ``trace.root``, whose tags then carry the plan
@@ -509,17 +521,39 @@ class QueryExecutor:
         # falls in this span).
         with obs_trace.span("planner.pick") as sp:
             dev = self._run_devwindow(spec, start, end, agg)
+            planned = None
             fusedr = None
             if dev is None:
+                # The rollup step (rollup/planner.py): window-aligned
+                # downsamples from the summary tier, raw stitched over the
+                # edge and dirty windows; its spans are already per-bucket
+                # values, so the rewritten spec's downsample is the identity
+                # and the shared group stage below runs unchanged. Its tier
+                # reads and raw stitches are child spans of this one.
+                planned = self._plan_rollup(spec, start, end)
+            if planned is not None:
+                # Imported here: the tier's module registers its
+                # instruments, which a daemon without the tier shows none
+                # of (as in the JAX package).
+                from opentsdb_tpu_torch.rollup.tier import res_label
+                rlabel = res_label(planned[2])
+            if dev is None and planned is None:
                 # Fused decode-plus-aggregate off TSST4 blocks: after the
-                # resident window (a materialized tier beats re-deriving
-                # from storage), before the raw scan. Exact or None.
+                # materialized tiers (the resident window, rollups), before
+                # the raw scan. Exact or None.
                 fusedr = self._run_fused_blocks(spec, start, end, agg)
             if sp is not None:
-                sp.tags["plan"] = ("resident" if dev is not None else
-                                   "fused" if fusedr is not None else "raw")
+                sp.tags["plan"] = (
+                    "resident" if dev is not None else
+                    rlabel if planned is not None else
+                    "fused" if fusedr is not None else "raw")
         if dev is not None:
             return dev, "resident", False
+        if planned is not None:
+            groups, spec2, _res = planned
+            with obs_trace.span("aggregate"):
+                results = self._execute_groups(spec2, groups, start, end)
+            return results, rlabel, False
         if fusedr is not None:
             return fusedr, "fused", False
         t0 = time.time()
@@ -532,6 +566,14 @@ class QueryExecutor:
         with obs_trace.span("aggregate"):
             results = self._execute_groups(spec, groups, start, end)
         return results, "raw", bool(info.get("cached"))
+
+    def _plan_rollup(self, spec: QuerySpec, start: int, end: int):
+        """The rollup tier's plan, ``(groups, spec2, res)``, or None.
+        ``rollup_only`` (load shedding's degraded step) stays False until
+        the query half of admission is ported (ROADMAP queue A item 10)."""
+        if getattr(self.tsdb, "rollups", None) is None:
+            return None
+        return rplanner.plan(self, spec, start, end, rollup_only=False)
 
     @staticmethod
     def _oracle_downsample(spec: QuerySpec) -> bool:
@@ -1238,14 +1280,14 @@ class QueryExecutor:
 
         Without a range: the merged per-series t-digests folded at ingest,
         each series' whole history, no storage rescan. With [start, end]:
-        with no rollup tier to serve it, the JAX package's exact raw
-        fallback (``max_error`` is a budget only a tier could use)."""
+        the rollup tier's window sketches and the raw edges, or the exact
+        raw fallback (``_sketch_quantiles_range``)."""
         if start is not None or end is not None:
             if start is None or end is None or end <= start:
                 raise BadRequestError(
                     "sketch range needs both start and end (end > start)")
             return self._sketch_quantiles_range(metric, tags, qs, start,
-                                                end)
+                                                end, max_error)
         sk = self.tsdb.sketches
         if sk is None:
             raise BadRequestError(
@@ -1260,21 +1302,115 @@ class QueryExecutor:
                               for q, v in zip(qs, out)}}
 
     def _sketch_quantiles_range(self, metric: str, tags: dict[str, str],
-                                qs: list[float], start: int,
-                                end: int) -> dict:
-        """Exact quantiles of every in-range value, pooled as float32
-        (the digests' precision), as the JAX package answers when its
-        rollup tier cannot serve the range."""
-        groups = self._find_spans(QuerySpec(metric, tags), start, end)
-        vals = [sp.values for spans in groups.values() for sp in spans]
-        if not vals:
-            raise BadRequestError(f"no data for metric {metric} in range")
-        pool = np.concatenate(vals)
-        est = np.quantile(pool.astype(np.float32).astype(np.float64),
-                          np.clip(qs, 0.0, 1.0))
-        return {"metric": metric, "series": len(vals), "rollup": "raw",
+                                qs: list[float], start: int, end: int,
+                                max_error: float | None = None) -> dict:
+        """Quantiles over [start, end] from the rollup tier's per-window
+        digest (or moment) columns, folded with the raw edge and dirty
+        windows, with the declared enclosure (``approx``); the JAX
+        package's exact raw fallback when the tier cannot serve the range
+        or its bound exceeds ``max_error``."""
+
+        def exact_raw() -> dict:
+            # Every in-range value pooled as float32, the digests'
+            # precision.
+            groups = self._find_spans(QuerySpec(metric, tags), start, end)
+            vals = [sp.values for spans in groups.values() for sp in spans]
+            if not vals:
+                raise BadRequestError(
+                    f"no data for metric {metric} in range")
+            pool = np.concatenate(vals)
+            est = np.quantile(pool.astype(np.float32).astype(np.float64),
+                              np.clip(qs, 0.0, 1.0))
+            return {"metric": metric, "series": len(vals), "rollup": "raw",
+                    "quantiles": {f"{q:g}": float(v)
+                                  for q, v in zip(qs, est)}}
+
+        tier = getattr(self.tsdb, "rollups", None)
+        sel = rplanner.sketch_windows(self, tier, metric, tags, start, end)
+        if sel is None:
+            return exact_raw()
+        from opentsdb_tpu_torch.rollup.tier import res_label
+        res, records, raw_parts, dirty = sel
+        kind = "tdigest" if tier.sketch_kinds(res)[0] else "moment"
+        means: list[np.ndarray] = []
+        weights: list[np.ndarray] = []
+        msk: MomentSketch | None = None
+        vmin, vmax = np.inf, -np.inf
+        # Pooled-CDF rank uncertainty: each contributing window digest's
+        # heaviest centroid weight; raw points contribute none.
+        unc = 0.0
+        # Series counted by contribution (digest or raw values), not by
+        # map membership: a series whose windows are all dirty
+        # contributes only through raw_parts.
+        contributing: set[bytes] = set()
+        for skey, (bases, recs, sketch_cells) in records.items():
+            wstats = {int(b): (float(r["min"]), float(r["max"]))
+                      for b, r in zip(bases, recs)}
+            for wb, blob in sketch_cells:
+                if wb in dirty:
+                    continue
+                m, w, _r, mblob = rsummary.sketch_decode_full(blob)
+                got = False
+                if kind == "tdigest" and len(m):
+                    means.append(m.astype(np.float64))
+                    weights.append(w.astype(np.float64))
+                    unc += float(np.max(w))
+                    got = True
+                elif kind == "moment" and mblob is not None:
+                    ms = MomentSketch.decode(mblob)
+                    msk = ms if msk is None else msk.merge(ms)
+                    got = True
+                if got:
+                    contributing.add(skey)
+                    lo, hi = wstats.get(int(wb), (np.inf, -np.inf))
+                    vmin, vmax = min(vmin, lo), max(vmax, hi)
+        for skey, (ts, vals) in raw_parts.items():
+            if len(vals):
+                v32 = vals.astype(np.float32).astype(np.float64)
+                if kind == "tdigest":
+                    means.append(v32)
+                    weights.append(np.ones(len(vals)))
+                else:
+                    add = MomentSketch(
+                        msk.k if msk is not None else
+                        MomentSketch().k).add(v32)
+                    msk = add if msk is None else msk.merge(add)
+                contributing.add(skey)
+                vmin = min(vmin, float(v32.min()))
+                vmax = max(vmax, float(v32.max()))
+        if kind == "tdigest" and not means:
+            return exact_raw()
+        if kind == "moment" and (msk is None or msk.count <= 0):
+            return exact_raw()
+        ests, errs = [], {}
+        rel_worst = 0.0
+        if kind == "tdigest":
+            m = np.concatenate(means)
+            w = np.concatenate(weights)
+            if len(m) > (1 << 16):
+                m, w = rsummary.digest_compress(m, w, 4096)
+                # The recompression adds its own within-centroid
+                # uncertainty.
+                unc += float(np.max(w))
+            bounds = [sbounds.tdigest_quantile_bound(
+                m, w, q, vmin=vmin, vmax=vmax, cdf_uncertainty_w=unc)
+                for q in qs]
+        else:
+            bounds = [sbounds.moment_quantile_bound(msk, q) for q in qs]
+        for q, qb in zip(qs, bounds):
+            ests.append(qb.est)
+            errs[f"{q:g}"] = qb.error
+            rel_worst = max(rel_worst, qb.error / max(abs(qb.est), 1e-12))
+        if max_error is not None and rel_worst > max_error:
+            # The caller's budget is tighter than the sketch can promise.
+            return exact_raw()
+        return {"metric": metric, "series": len(contributing),
+                "rollup": res_label(res),
                 "quantiles": {f"{q:g}": float(v)
-                              for q, v in zip(qs, est)}}
+                              for q, v in zip(qs, ests)},
+                "approx": {"kind": kind, "error": errs,
+                           "rel_error": rel_worst,
+                           "res": res_label(res)}}
 
     def sketch_distinct(self, metric: str, tagk: str,
                         start: int | None = None,
@@ -1290,8 +1426,8 @@ class QueryExecutor:
             self, metric: str, tagk: str, start: int | None = None,
             end: int | None = None) -> tuple[int | None, str]:
         """sketch_distinct() plus the label of what answered this call:
-        "stream" (no range) or "scan" (the exact ranged count; "rollup"
-        needs the tier this port does not have yet)."""
+        "stream" (no range), "rollup" (record presence) or "scan" (the
+        exact ranged count)."""
         if start is not None or end is not None:
             if start is None or end is None or end <= start:
                 raise BadRequestError(
@@ -1308,23 +1444,72 @@ class QueryExecutor:
 
     def _sketch_distinct_range(self, metric: str, tagk: str, start: int,
                                end: int) -> tuple[int, str]:
-        self.tsdb.tagk.get_id(tagk)  # an unknown tag key is a 400
-        return (self.distinct_tagv(metric, {}, tagk, start, end,
-                                   exact=True), "scan")
+        """Exact count over the series with data in the range: from
+        rollup record presence at the finest resolution plus the raw
+        stitches ("rollup"), or the exact scan ("scan")."""
+        tagk_uid = self.tsdb.tagk.get_id(tagk)  # an unknown tag key: 400
+        tier = getattr(self.tsdb, "rollups", None)
+        sel = rplanner.sketch_windows(self, tier, metric, {}, start, end,
+                                      presence_only=True)
+        if sel is None:
+            return (self.distinct_tagv(metric, {}, tagk, start, end,
+                                       exact=True), "scan")
+        _, records, raw_parts, dirty = sel
+        vals: set[bytes] = set()
+        for skey, (bases, _recs, _sk) in records.items():
+            live = bases if not dirty else bases[
+                ~np.isin(bases, np.fromiter(dirty, np.int64, len(dirty)))]
+            if len(live):
+                v = codec.series_tag_uids(skey).get(tagk_uid)
+                if v is not None:
+                    vals.add(v)
+        for skey in raw_parts:
+            v = codec.series_tag_uids(skey).get(tagk_uid)
+            if v is not None:
+                vals.add(v)
+        return len(vals), "rollup"
 
     def sketch_distinct_values(self, metric: str, tags: dict[str, str],
                                start: int, end: int) -> dict:
-        """Count of distinct values a metric took over a range: with no
-        rollup tier, the JAX package's exact fallback over the float32
-        bit patterns of every in-range value."""
-        groups = self._find_spans(QuerySpec(metric, tags), start, end)
-        uniq: set = set()
-        for spans in groups.values():
-            for sp in spans:
-                uniq.update(np.unique(sp.values.astype(np.float32)
-                                      .view(np.uint32)).tolist())
-        return {"metric": metric, "rollup": "raw",
-                "distinct_values": len(uniq)}
+        """Estimated count of distinct values a metric took over a range,
+        from the rollup tier's per-window HLL registers (register max
+        across windows and series) plus a raw fold over the edge and
+        dirty windows; the JAX package's exact fallback over the float32
+        bit patterns when no HLL-bearing resolution can serve."""
+        tier = getattr(self.tsdb, "rollups", None)
+        # Only HLL-bearing resolutions serve a distinct-values estimate:
+        # a moment-only rung's cells carry no registers.
+        sel = rplanner.sketch_windows(self, tier, metric, tags, start, end,
+                                      want_hll=True)
+        hll_p = tier.sketch_kinds(sel[0])[2] if sel is not None else 0
+        if sel is None or not hll_p:
+            groups = self._find_spans(QuerySpec(metric, tags), start, end)
+            uniq: set = set()
+            for spans in groups.values():
+                for sp in spans:
+                    uniq.update(np.unique(sp.values.astype(np.float32)
+                                          .view(np.uint32)).tolist())
+            return {"metric": metric, "rollup": "raw",
+                    "distinct_values": len(uniq)}
+        from opentsdb_tpu_torch.rollup.tier import res_label
+        res, records, raw_parts, dirty = sel
+        regs = np.zeros(1 << hll_p, np.uint8)
+        for skey, (_bases, _recs, sketch_cells) in records.items():
+            for wb, blob in sketch_cells:
+                if wb in dirty:
+                    continue
+                _m, _w, r = rsummary.sketch_decode(blob)
+                if r is not None and len(r) == len(regs):
+                    np.maximum(regs, r, out=regs)
+        for skey, (ts, vals) in raw_parts.items():
+            if len(vals):
+                rsummary.hll_update(
+                    regs, vals.astype(np.float32).view(np.uint32))
+        est = int(round(rsummary.hll_estimate(regs)))
+        return {"metric": metric, "rollup": res_label(res),
+                "distinct_values": est,
+                "approx": {"kind": "hll",
+                           "error": sbounds.hll_error(hll_p, est)}}
 
     def distinct_tagv(self, metric: str, tags: dict[str, str],
                       tagk: str, start: int, end: int,

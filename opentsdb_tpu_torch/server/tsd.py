@@ -35,9 +35,12 @@ plans served and the caches. Every HTTP route is timed
 ``/stats`` lines into the store every ``Config.selfmon_interval_s``
 seconds (off by default). The ``/api/queries`` fused section reports the
 fused block plan's attempts, serves, declines by reason and device block
-cache counts, as the JAX daemon's does; the sections of tiers the port
-lacks (rollups, the mesh) hold what the JAX daemon reports with those
-tiers off.
+cache counts, as the JAX daemon's does, and its rollup section the rollup
+tier's state (ready, resolutions, hits, fallbacks, the sketch allocation
+and bytes, the fold split and the delta accumulators) when the tier is
+open; the sections of tiers the port lacks (the mesh) hold what the JAX
+daemon reports with those tiers off. A ranged ``/sketch`` served from
+rollups declares its bound in ``X-Tsd-Approx``.
 
 Not ported yet, and answered with 400 "not yet ported": PNG graphs
 (``/q`` without ``ascii``/``json``) and ``/forecast``. Other paths (the
@@ -644,16 +647,20 @@ class TSDServer:
         return 404, "text/plain", b"", {}
 
     def _note_plan(self, plan: str) -> None:
+        """Bump the bounded per-plan counters: rollup resolution labels
+        ("1h", "1d") fold into "rollup", as in the JAX daemon."""
+        key = plan if plan in ("raw", "resident", "fused") else "rollup"
         with self._plan_lock:
-            self.plan_counts[plan] = self.plan_counts.get(plan, 0) + 1
+            self.plan_counts[key] = self.plan_counts.get(key, 0) + 1
 
     def _http_queries(self, req) -> tuple:
         """JSON feed behind the /queries page: plans served, the ingest
         fast path's group commit and parse timers, the fragment cache,
         admission, and the fused block plan's coverage (attempts, serves,
-        declines by reason, the device block cache). The rollup,
-        sketch-serving and mesh sections report those tiers off, as the
-        JAX daemon does without them."""
+        declines by reason, the device block cache), and the rollup
+        tier's section when it is open. The sketch-serving and mesh
+        sections report those tiers off, as the JAX daemon does without
+        them."""
         sketch: dict = {}
         fused = {"attempt": 0, "served": 0, "declines": {},
                  "devcache": {"hit": 0, "miss": 0, "evict": 0}}
@@ -709,7 +716,7 @@ class TSDServer:
             "fused": fused,
             "ingest": ingest,
             "sketch": sketch,
-            "rollup": None,
+            "rollup": self._rollup_section(),
             "mesh": {"devices": 1, "expert_enabled": False,
                      "compile_cache": {"size": 0, "hit": 0, "miss": 0,
                                        "devices": 1},
@@ -725,6 +732,32 @@ class TSDServer:
             },
         }
         return (200, "application/json", json.dumps(body).encode(), {})
+
+    def _rollup_section(self) -> dict | None:
+        """The rollup tier's /api/queries section (the JAX daemon's keys),
+        None without the tier."""
+        tier = getattr(self.tsdb, "rollups", None)
+        if tier is None:
+            return None
+        from opentsdb_tpu_torch.rollup.tier import res_label
+        rollup = {
+            "ready": bool(tier.ready),
+            "resolutions": [res_label(r) for r in tier.resolutions],
+            "hits": {res_label(r): tier.hits.get(r, 0)
+                     for r in tier.resolutions},
+            "fallbacks": dict(tier.fallbacks),
+            "sketch_alloc": {
+                res_label(r): {"digest_k": a[0], "moment_k": a[1],
+                               "hll_p": a[2]}
+                for r, a in sorted(tier.sketch_alloc.items())},
+            "sketch_bytes": dict(tier.sketch_bytes),
+            # Checkpoint fold sourcing: windows served from the delta
+            # buffers against full re-reads of spilled rows.
+            "folds": {"delta": tier.fold_delta, "full": tier.fold_full},
+        }
+        if tier.delta is not None:
+            rollup["delta"] = tier.delta.stats()
+        return rollup
 
     def _http_queries_page(self, req) -> tuple:
         return (200, "text/html; charset=UTF-8",
@@ -1050,10 +1083,14 @@ class TSDServer:
         out = await loop.run_in_executor(
             self._pool, self.executor.sketch_quantiles, metric, tag_map,
             qs, start, end, max_error)
-        # No answer here is approximate beyond the digests' own error:
-        # the JAX daemon's X-Tsd-Approx header on /sketch comes only with
-        # a rollup tier's answers.
-        return 200, "application/json", json.dumps(out).encode(), {}
+        # A rollup-served range declares its bound (the JAX daemon's
+        # header).
+        hdrs = {}
+        ap = out.get("approx") if isinstance(out, dict) else None
+        if ap:
+            rel = ap.get("rel_error", 0)
+            hdrs["X-Tsd-Approx"] = f"{ap.get('kind', '?')};rel_error={rel:.6g}"
+        return 200, "application/json", json.dumps(out).encode(), hdrs
 
     @staticmethod
     def _fmt_value(v: float) -> str:

@@ -71,12 +71,18 @@ and generations of every format mix in one store. ``compress_stats`` sums
 the v4 generations' raw and stored record bytes (``compress.ratio``), and
 ``encoded_range`` is the fused query plan's source check.
 
+The rollup tier's hooks (rollup/tier.py): ``record_spill_keys`` makes the
+checkpoint record the spilled row keys (``peek_spill_keys`` /
+``take_spill_keys``), whose bases stay in ``dirty_bases`` until drained
+(``_spill_dirty``); ``pending_keys`` is the fold's dirty source, and
+``delete_hook`` tells the delta accumulators of deletes. A store with a
+rollup tier on disk refuses to checkpoint unless the tier is open.
+
 Not ported yet, each refused rather than half-read where it leaves
 something on disk: the cluster epoch fence and WAL epoch headers (ROADMAP
 queue A item 10); and without an on-disk trace: read-only
 replicas with their ``refresh`` and the rebuild's stamp-floor jump (item
-10), and the rollup tier's spill-key record with its undrained dirty set
-``_spill_dirty`` (item 6).
+10).
 """
 
 from __future__ import annotations
@@ -449,6 +455,18 @@ class MemKVStore(KVStore):
         # cell) and per checkpoint tier transition: an unchanged seq means
         # the stored rows cannot have changed.
         self.mutation_seq = 0
+        # Rollup-tier hooks (rollup/tier.py). ``record_spill_keys``: the
+        # checkpoint records the row keys of every spilled frozen tier
+        # (row tombstones included) so the fold covers exactly what left
+        # the memtable; ``take_spill_keys`` drains the record, and
+        # ``_spill_dirty`` carries its base refcounts, so the undrained
+        # spill stays in ``dirty_bases``. ``delete_hook(table, key)`` runs
+        # on every delete / delete_row, so the delta accumulators
+        # (rollup/delta.py) learn of out-of-band point-set changes.
+        self.record_spill_keys = False
+        self._last_spill_keys: dict[str, list[bytes]] = {}
+        self._spill_dirty: dict[str, dict[int, int]] = {}
+        self.delete_hook = None
         # The fragment cache's invalidation spine: per (table, base), the
         # mutation_seq of the last row create/remove that touched it,
         # folded in from each tier's ``touch`` map when the tier retires
@@ -633,10 +651,52 @@ class MemKVStore(KVStore):
         shard)."""
         return (self.mutation_seq,)
 
+    def pending_keys(self, table: str) -> list[bytes]:
+        """Row keys (and row tombstones) the rollup fold does not cover
+        yet: the live memtable, a frozen mid-checkpoint tier, and the
+        undrained spilled-key record. Spilled keys stay pending until the
+        fold drains them (``take_spill_keys``), so no instant exists where
+        a spilled-but-unfolded window is in neither this set nor the
+        tier's in-flight set."""
+        with self._lock:
+            t = self._table(table)
+            out = list(t.rows)
+            out.extend(t.row_tombs)
+            if self._frozen is not None:
+                ft = self._frozen.get(table)
+                if ft is not None:
+                    out.extend(ft.rows)
+                    out.extend(ft.row_tombs)
+            out.extend(self._last_spill_keys.get(table, ()))
+            return out
+
+    def peek_spill_keys(self) -> dict[str, list[bytes]]:
+        """Non-draining copy of the spilled-key record: the rollup fold
+        marks their windows in flight while the keys still read as
+        pending, then drains with ``take_spill_keys``."""
+        with self._lock:
+            return {name: list(ks)
+                    for name, ks in self._last_spill_keys.items()}
+
+    def take_spill_keys(self) -> dict[str, list[bytes]]:
+        """Drain the spilled-key record (see ``record_spill_keys``)."""
+        with self._lock:
+            out, self._last_spill_keys = self._last_spill_keys, {}
+            self._spill_dirty = {}
+            self.mutation_seq += 1  # the dirty-base set just shrank
+            return out
+
+    @property
+    def spilled(self) -> bool:
+        """Whether any sstable generation exists (data outside the
+        WAL-replayable memtable)."""
+        return bool(self._ssts)
+
     def dirty_bases(self, table: str) -> np.ndarray:
         """Sorted unique base times whose rows the immutable sstable
         tiers do not fully cover: live memtable rows and row tombstones,
-        and the frozen mid-checkpoint tier's. Kept incrementally
+        the frozen mid-checkpoint tier's, and the undrained spill record
+        (``_spill_dirty``, while a rollup tier records). Kept incrementally
         (``_Table.dirty``), so deriving it never sweeps the key list;
         cached per mutation_seq."""
         with self._lock:
@@ -648,6 +708,9 @@ class MemKVStore(KVStore):
                 ft = self._frozen.get(table)
                 if ft is not None:
                     bases.update(ft.dirty)
+            sd = self._spill_dirty.get(table)
+            if sd:
+                bases.update(sd)
             arr = np.fromiter(bases, np.int64, len(bases))
             arr.sort()
             self._dirty_snap[table] = (self.mutation_seq, arr)
@@ -1329,6 +1392,16 @@ class MemKVStore(KVStore):
                     self._wal = open(self._wal_path, "ab")
                 self._grp_rotated_locked()
             frozen = self._frozen
+            spill_keys = None
+            if self.record_spill_keys:
+                # Keys leaving the memtable this checkpoint (row
+                # tombstones included: a delete of spilled data must
+                # reach the rollup fold too, or stale summaries would
+                # keep serving the deleted points).
+                spill_keys = {
+                    name: list(ft.rows) + list(ft.row_tombs)
+                    for name, ft in frozen.items()
+                    if ft.rows or ft.row_tombs}
             gens = list(self._ssts)
             tombstoned = any(ft.row_tombs or ft.tombs
                              for ft in frozen.values())
@@ -1441,6 +1514,17 @@ class MemKVStore(KVStore):
             # rows were live keep invalidating, bases a create-then-delete
             # netted back to clean included.
             self._fold_touch_locked(frozen)
+            if spill_keys is not None:
+                for name, ks in spill_keys.items():
+                    self._last_spill_keys.setdefault(name, []).extend(ks)
+                # The frozen tier's dirty index is the spilled keys' base
+                # refcounts (rows and row tombstones): carry it as the
+                # undrained spill's dirty set, summed like the key record.
+                for name, ft in frozen.items():
+                    if ft.dirty:
+                        sd = self._spill_dirty.setdefault(name, {})
+                        for b, c in ft.dirty.items():
+                            sd[b] = sd.get(b, 0) + c
             for g in merge_gens:
                 path = g.path
                 g.close()
@@ -1472,19 +1556,24 @@ class MemKVStore(KVStore):
         its stale snapshot in place here (ROADMAP queue C, reference
         note 8).
 
-        A JAX rollup tier (``<wal>.rollup-<res>/``) would need its
-        summaries folded at every spill, which this port cannot do yet:
-        such a store is refused here (ROADMAP queue A item 6)."""
-        d = os.path.dirname(os.path.abspath(self._wal_path))
-        base = os.path.basename(self._wal_path)
-        rollups = sorted(fn for fn in os.listdir(d)
-                         if fn.startswith(base + ".rollup"))
-        if rollups:
-            raise RuntimeError(
-                f"{self._wal_path!r} has a rollup tier beside it "
-                f"({rollups}); checkpointing it would leave its summaries "
-                f"behind the spilled rows, and rollups are not ported yet "
-                f"(ROADMAP queue A item 6)")
+        A rollup tier on disk (``<wal>.rollup-<res>/``) needs its
+        summaries folded at every spill: unless the tier is open
+        (``record_spill_keys``, set by ``rollup/tier.py``), such a store is
+        refused here rather than spilled under stale summaries (ROADMAP
+        queue C, the note on item 6: the JAX package spills without
+        folding)."""
+        if not self.record_spill_keys:
+            d = os.path.dirname(os.path.abspath(self._wal_path))
+            base = os.path.basename(self._wal_path)
+            rollups = sorted(fn for fn in os.listdir(d)
+                             if fn.startswith(base + ".rollup"))
+            if rollups:
+                raise RuntimeError(
+                    f"{self._wal_path!r} has a rollup tier beside it "
+                    f"({rollups}); checkpointing it without the tier open "
+                    f"would leave its summaries behind the spilled rows: "
+                    f"open it with enable_rollups=True (ROADMAP queue A "
+                    f"item 6)")
         if tenant_marker:
             write_tenant_marker(self._wal_path + ".tenants.json")
 
@@ -1862,6 +1951,9 @@ class MemKVStore(KVStore):
 
     def delete(self, table: str, key: bytes, family: bytes,
                qualifiers: list[bytes]) -> None:
+        hook = self.delete_hook
+        if hook is not None:
+            hook(table, key)
         with self._lock:
             self.mutation_seq += 1
             self._wal_append(_OP_DELETE, table.encode(), key, family,
@@ -1871,6 +1963,9 @@ class MemKVStore(KVStore):
         self._wal_barrier(ticket)
 
     def delete_row(self, table: str, key: bytes) -> None:
+        hook = self.delete_hook
+        if hook is not None:
+            hook(table, key)
         with self._lock:
             self.mutation_seq += 1
             self._wal_append(_OP_DELETE_ROW, table.encode(), key)

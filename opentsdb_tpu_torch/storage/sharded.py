@@ -39,9 +39,13 @@ and reopening with another count, data table or routing is a hard error.
 There is no cross-shard atomic cut: a crash recovers each shard to its own
 last durable record.
 
-Not ported yet (ROADMAP queue A): the replica and cluster surface
-(``refresh``, ``promote_writable``, ``demote_readonly``, the epoch fence;
-item 10) and the rollup spill-key record (item 6).
+The rollup tier's surface (``record_spill_keys``, ``peek_spill_keys`` /
+``take_spill_keys``, ``pending_keys``, ``delete_hook``, ``spilled``) fans
+out over the shards; the tier keeps ``shard-<i>/rollup-<res>/`` beside
+each shard and ``ROLLUP.json`` at the root.
+
+Not ported yet (ROADMAP queue A item 10): the replica and cluster surface
+(``refresh``, ``promote_writable``, ``demote_readonly``, the epoch fence).
 
 ``sstable_codec`` sets every shard's spill codec; ``compress_stats`` and
 ``encoded_range`` fan in over the shards (the fused query plan's source
@@ -429,8 +433,51 @@ class ShardedKVStore(KVStore):
         instead of treating a put anywhere as a change everywhere."""
         return tuple(s.mutation_seq for s in self.shards)
 
+    def pending_keys(self, table: str) -> list[bytes]:
+        out: list[bytes] = []
+        for s in self.shards:
+            out.extend(s.pending_keys(table))
+        return out
+
+    def peek_spill_keys(self) -> dict[str, list[bytes]]:
+        out: dict[str, list[bytes]] = {}
+        for s in self.shards:
+            for name, ks in s.peek_spill_keys().items():
+                out.setdefault(name, []).extend(ks)
+        return out
+
+    def take_spill_keys(self) -> dict[str, list[bytes]]:
+        out: dict[str, list[bytes]] = {}
+        for s in self.shards:
+            for name, ks in s.take_spill_keys().items():
+                out.setdefault(name, []).extend(ks)
+        return out
+
+    @property
+    def record_spill_keys(self) -> bool:
+        return all(s.record_spill_keys for s in self.shards)
+
+    @record_spill_keys.setter
+    def record_spill_keys(self, value: bool) -> None:
+        for s in self.shards:
+            s.record_spill_keys = value
+
+    @property
+    def delete_hook(self):
+        return self.shards[0].delete_hook if self.shards else None
+
+    @delete_hook.setter
+    def delete_hook(self, fn) -> None:
+        for s in self.shards:
+            s.delete_hook = fn
+
+    @property
+    def spilled(self) -> bool:
+        return any(s.spilled for s in self.shards)
+
     def dirty_bases(self, table: str) -> np.ndarray:
-        """Union of every shard's dirty-base set, sorted unique."""
+        """Union of every shard's dirty-base set (each with its undrained
+        spill record), sorted unique."""
         arrs = [a for a in (s.dirty_bases(table) for s in self.shards)
                 if len(a)]
         if not arrs:
@@ -571,19 +618,20 @@ class ShardedKVStore(KVStore):
 
     def _retire_root(self, tenant_marker: bool) -> None:
         """The root's share of ``MemKVStore._retire_snapshots``: refuse a
-        JAX rollup tier (``shard-<i>/rollup-<res>/``, which the port
-        cannot fold yet), and write the version-0 tenant marker at the
-        root when asked."""
-        for i in range(self.shard_count):
+        rollup tier on disk (``shard-<i>/rollup-<res>/``) unless it is
+        open (``record_spill_keys``), and write the version-0 tenant
+        marker at the root when asked."""
+        for i in range(self.shard_count if not self.record_spill_keys
+                       else 0):
             d = os.path.join(self._dir, f"shard-{i}")
             rollups = sorted(fn for fn in os.listdir(d)
                              if fn.startswith("rollup"))
             if rollups:
                 raise RuntimeError(
                     f"{d!r} has a rollup tier ({rollups}); checkpointing "
-                    f"it would leave its summaries behind the spilled "
-                    f"rows, and rollups are not ported yet (ROADMAP "
-                    f"queue A item 6)")
+                    f"it without the tier open would leave its summaries "
+                    f"behind the spilled rows: open it with "
+                    f"enable_rollups=True (ROADMAP queue A item 6)")
         if tenant_marker:
             write_tenant_marker(os.path.join(self._dir, TENANTS_NAME))
 

@@ -28,6 +28,16 @@ makes its spills compressed TSST4 generations (``compress/``; the
 encode pool's width is ``Config.spill_encode_workers``, with no flag, as
 in the JAX package).
 
+``--rollups`` keeps the materialized rollup tier (``rollup/``: per-series
+1h/1d summaries folded at every checkpoint, served by the query planner
+for window-aligned downsamples); ``--rollup-resolutions`` sets its windows
+(and implies the tier), ``--rollup-device-fold`` folds on the card with
+the window-fold kernel (declared ``device-f64``). As in the JAX package,
+a store whose tier already exists (``<wal>.rollup.json`` or
+``ROLLUP.json``) adopts it with its own layout, flag or no flag, in every
+subcommand that opens the store, so no writer spills under stale
+summaries.
+
 ``tenants`` prints the per-tenant cardinality report of a store
 (``--wal``) or of a live daemon (``--url``, its ``/api/tenants``).
 ``fsck`` checks a store (``tools/fsck.py``); ``--fix`` salvages bad rows
@@ -72,6 +82,30 @@ def open_store(cfg: Config, wal: str | None, shards: int = 0) -> KVStore:
                       fsync=cfg.fsync)
 
 
+def apply_rollup_args(cfg: Config, args) -> Config:
+    """The rollup flags onto ``cfg``, and the auto-adopt of an existing
+    tier: its state file's layout wins over the defaults (an unreadable
+    or foreign file leaves them, and the tier then rebuilds)."""
+    if getattr(args, "rollups", False):
+        cfg.enable_rollups = True
+    if getattr(args, "rollup_resolutions", None):
+        # An explicit layout implies the tier.
+        cfg.enable_rollups = True
+        cfg.rollup_resolutions = tuple(
+            int(r) for r in args.rollup_resolutions.split(","))
+    elif args.wal:
+        from opentsdb_tpu_torch.rollup.tier import STATE_NAME, RollupTier
+        for sp in (os.path.join(args.wal, STATE_NAME),
+                   args.wal + ".rollup.json"):
+            if os.path.exists(sp):
+                cfg.enable_rollups = True
+                RollupTier.adopt_config(sp, cfg)
+                break
+    cfg.rollup_device_fold = bool(getattr(args, "rollup_device_fold",
+                                          False))
+    return cfg
+
+
 def open_tsdb(cfg: Config, wal: str | None,
               start_compaction_thread: bool = True,
               shards: int = 0) -> TSDB:
@@ -100,6 +134,7 @@ def cmd_tsd(args) -> int:
         slow_query_ms=args.slow_query_ms,
         selfmon_interval_s=args.selfmon_interval,
         trace_ring=args.trace_ring, trace_sample_n=args.trace_sample_n)
+    apply_rollup_args(cfg, args)
     tsdb = open_tsdb(cfg, args.wal, shards=args.shards)
     # The replayed WAL and the opened generations are in place: freeze
     # them out of cycle collection (utils/gctune.py).
@@ -136,10 +171,12 @@ def cmd_tenants(args) -> int:
             return 0
     else:
         # A one-shot tool: no resident window to warm and throw away.
-        tsdb = open_tsdb(Config(table=args.table, uidtable=args.uidtable,
-                                backend=args.backend, device=args.device,
-                                device_window=False), args.wal,
-                         start_compaction_thread=False, shards=args.shards)
+        cfg = apply_rollup_args(
+            Config(table=args.table, uidtable=args.uidtable,
+                   backend=args.backend, device=args.device,
+                   device_window=False), args)
+        tsdb = open_tsdb(cfg, args.wal, start_compaction_thread=False,
+                         shards=args.shards)
         try:
             info = tsdb.tenants.snapshot_info(tsdb.tenant_limits)
         finally:
@@ -238,10 +275,14 @@ def cmd_stats(args) -> int:
     from opentsdb_tpu_torch.obs.registry import METRICS
     from opentsdb_tpu_torch.stats.collector import StatsCollector
 
-    tsdb = open_tsdb(Config(table=args.table, uidtable=args.uidtable,
-                            backend=args.backend, device=args.device,
-                            device_window=False, enable_sketches=False),
-                     args.wal, start_compaction_thread=False,
+    # An existing rollup tier is adopted for its /stats lines, without a
+    # catch-up: this command neither spills nor folds.
+    cfg = apply_rollup_args(
+        Config(table=args.table, uidtable=args.uidtable,
+               backend=args.backend, device=args.device,
+               device_window=False, enable_sketches=False,
+               rollup_catchup="off"), args)
+    tsdb = open_tsdb(cfg, args.wal, start_compaction_thread=False,
                      shards=args.shards)
     try:
         c = StatsCollector("tsd")
@@ -249,7 +290,11 @@ def cmd_stats(args) -> int:
         METRICS.collect(c)
     finally:
         tsdb.compactionq.shutdown()
-        tsdb.store.close()
+        try:
+            if tsdb.rollups is not None:
+                tsdb.rollups.close()
+        finally:
+            tsdb.store.close()
     if args.metrics:
         sys.stdout.write(METRICS.prometheus_text(extra_lines=c.lines))
     elif c.lines:
@@ -315,6 +360,23 @@ def main(argv: list[str] | None = None) -> int:
                         "side sniffs each file, so existing v1-v3 "
                         "generations keep serving and compaction "
                         "re-encodes as they merge")
+    # Materialized rollup tier (rollup/).
+    p.add_argument("--rollups", action="store_true",
+                   help="maintain the materialized rollup tier "
+                        "(rollup/): per-series 1h/1d summaries folded at "
+                        "checkpoint spill and served by the query "
+                        "planner for window-aligned downsamples. Writer "
+                        "daemons with --wal only; a stale/missing tier "
+                        "degrades to raw scans")
+    p.add_argument("--rollup-resolutions", default=None,
+                   help="comma-separated rollup window sizes in seconds "
+                        "(ascending, each a multiple of 3600 dividing "
+                        "the next; default 3600,86400)")
+    p.add_argument("--rollup-device-fold", action="store_true",
+                   help="fold the rollup tier at each checkpoint on the "
+                        "card with the window-fold kernel, in float64 "
+                        "(declared device-f64 in the tier's state file; "
+                        "a fold-kind change rebuilds the tier)")
     # Tenant cardinality control plane (tenant/).
     p.add_argument("--tenant-max-series", type=int, default=0,
                    help="refuse a NEW series from any tenant already "

@@ -67,6 +67,44 @@ class Config:
     compaction_flush_speed: int = 2
     checkpoint_interval: float = 0.0    # spill+WAL-truncate period (s); 0=off
 
+    # Materialized rollup tier (rollup/): per-series coarse-window
+    # summaries (count/sum/min/max/first/last + t-digest, HLL and moment
+    # sketch columns) folded at checkpoint-spill time into a parallel
+    # per-shard store and served by the query planner for window-aligned
+    # downsamples. Writers with a persistent store only; a stale or
+    # missing tier degrades to raw scans. The JAX package's names and
+    # defaults.
+    enable_rollups: bool = False
+    rollup_resolutions: tuple = (3600, 86400)  # ascending, each divides next
+    rollup_pack: int = 48          # windows packed per rollup row
+    rollup_digest_k: int = 64      # t-digest centroids per window (0=off)
+    rollup_hll_p: int = 8          # HLL registers exponent per window
+    rollup_sketch_min_res: int = 86400  # digest + HLL columns at res >= this
+    rollup_catchup: str = "background"  # background | sync | off
+    # After a crash mid-fold, refold only the windows the persisted
+    # in-flight set names; False forces the full rebuild.
+    rollup_incremental_catchup: bool = True
+    # Ingest-time delta accumulators (rollup/delta.py): a fold serves a
+    # window whose whole point set is buffered from memory, with the same
+    # record bytes as the raw re-read. False forces every fold to re-read.
+    rollup_delta_fold: bool = True
+    rollup_delta_points: int = 1 << 22  # buffered points, all windows
+    # Moment-sketch columns (sketch/moment.py): stored at resolutions >=
+    # rollup_moment_min_res (0 = every resolution); 0 disables.
+    rollup_moment_k: int = 5
+    rollup_moment_min_res: int = 0
+    # Debug oracle: derive the dirty-window set both ways (the store's
+    # index and a memtable sweep) and fail on divergence. Test-only.
+    rollup_sweep_check: bool = False
+    # The checkpoint fold on the device (ops/rollup_fold.py, the
+    # hand-written window-fold kernel, in float64): the tier declares
+    # "device-f64" in its state file; off keeps the host fold.
+    rollup_device_fold: bool = False
+    # Accuracy-budgeted sketch allocation (sketch/budget.py in the JAX
+    # package): > 0 is refused by the port's tier until ROADMAP queue A
+    # item 9 brings the allocator.
+    sketch_byte_budget: int = 0
+
     # compute: 'device' = the port's kernels on ``device``; 'cpu' = the
     # float64 numpy oracle.
     backend: str = "device"

@@ -5,7 +5,9 @@ crashed store recovered by both packages, and the full sweep (slow).
 Every scenario spawns a child process that runs the seeded workload on
 the port, dies at the armed failpoint (os._exit, SIGKILL semantics), and
 is verified by the parent: recovery, fsck clean, raw golden parity
-against the oracle, and tenant accounting."""
+against the oracle, tenant accounting and, with the rollup tier (the JAX
+matrix's default), rollup-served answers bit-identical to raw ones. The
+re-introduced torn rollup bracket must fail the matrix."""
 
 import dataclasses
 import json
@@ -41,16 +43,24 @@ def test_matrix_shape():
         "sst.write.body", "sst.write.footer", "sst.write.block",
         "sst.rename",
         "tenant.snapshot.write", "tenant.snapshot.commit",
-        "sharded.spill.shard"}
+        "sharded.spill.shard", "rollup.begin_spill", "rollup.fold.start",
+        "rollup.fold.flush", "rollup.fold.commit", "rollup.bracket.flip"}
     # Every port row is the JAX matrix's row of the same label (its site,
-    # mode, skip, shards and seed), rollups off.
+    # mode, skip, shards, seed and rollup settings).
     jax = {s.label: s for s in jax_harness.build_matrix()}
     for s in scens:
         j = jax[s.label]
         assert (s.site, s.mode, s.skip, s.shards, s.seed, s.n_ops,
-                s.wal_group_ms, s.tenant_cutoff, s.codec) == \
+                s.wal_group_ms, s.tenant_cutoff, s.codec, s.rollups,
+                s.delete_heavy, s.catchup_compare) == \
             (j.site, j.mode, j.skip, j.shards, j.seed, j.n_ops,
-             j.wal_group_ms, j.tenant_cutoff, j.codec), s.label
+             j.wal_group_ms, j.tenant_cutoff, j.codec, j.rollups,
+             j.delete_heavy, j.catchup_compare), s.label
+    # Every crash row of the JAX matrix (its replica, promote and
+    # meshreshard kinds wait for items 10 and 11).
+    assert {s.label for s in scens} == {
+        s.label for s in jax.values() if s.kind == "crash"
+        and s.site != "mesh.reshard.commit"}
     # Every TSST4 row of the JAX matrix that needs no rollup tier.
     assert sorted(s.label for s in scens if s.codec == "tsst4") == sorted(
         s.label for s in jax.values()
@@ -60,7 +70,8 @@ def test_matrix_shape():
         "sst-block-torn-s4", "sst-block-torn-late-s1",
         "sst-block-torn-late-s4", "sst-block-torn-norollup",
         "sst-block-torn-norollup-s4"}
-    assert len(harness.fast_matrix()) == len(harness.FAST_LABELS) == 9
+    assert len(harness.fast_matrix()) == len(harness.FAST_LABELS) == 13
+    assert sum(s.site.startswith("rollup.") for s in scens) == 16
 
 
 def test_workload_is_the_jax_workload():
@@ -92,6 +103,24 @@ def test_tsst4_scenario(label, tmp_path):
     res = harness.run_scenario(sc, str(tmp_path), shrink=False)
     assert res["status"] == "ok", (res["problems"], res)
     assert res["child_exit"] == faultpoints.EXIT_CODE
+
+
+def test_reintroduced_torn_bracket_bug_is_caught(tmp_path):
+    """The rollup gate: re-introduce the torn spill bracket in the child
+    (begin_spill never opens it, the pending marker is never written)
+    and crash between the spill-key drain and the fold. The matrix must
+    catch the stale rollup answers, and the shrinker a smaller failing
+    schedule; the same scenario without the bug passes (a fast row)."""
+    sc = dataclasses.replace(_by_label()["rollup-foldstart-crash-s1"],
+                             label="bug-torn-bracket", bug="torn-bracket")
+    res = harness.run_scenario(sc, str(tmp_path), shrink=True)
+    assert res["status"] == "invariant-failed", res
+    assert any("rollup-served answer != raw answer" in p
+               or "group sets differ" in p
+               for p in res["problems"]), res["problems"]
+    assert res["min_repro"] and res["min_repro"]["n_ops"] < sc.n_ops
+    assert "--site rollup.fold.start" in res["repro"]
+    assert "--bug torn-bracket" in res["repro"]
 
 
 def test_reintroduced_ack_before_fsync_bug_is_caught(tmp_path):
@@ -158,11 +187,21 @@ def _rows(store):
             for tb in ("tsdb", "tsdb-uid")}
 
 
+def _rollup_cells(tsdb):
+    tier = tsdb.rollups
+    return {(r, si, bytes(k), bytes(q)): bytes(v)
+            for r, stores in tier.stores.items()
+            for si, s in enumerate(stores)
+            for k, items in s.scan_raw(tier.table, b"", b"", family=b"r")
+            for q, v in items}
+
+
 def test_crashed_store_recovers_alike_in_both_packages(tmp_path):
     """The port's child dies mid-spill in a 4-shard store (after two of
     four shards); a copy of the crashed directory is recovered by each
-    package: the same rows, fsck clean in both, and the port's verify
-    holds every invariant."""
+    package: the same rows, fsck clean in both, the same rollup cells
+    after each caught its tier up, and the port's verify holds every
+    invariant."""
     sc = _by_label()["shard-join-crash-k2"]
     work = tmp_path / "w"
     store = work / "store"
@@ -181,11 +220,14 @@ def test_crashed_store_recovers_alike_in_both_packages(tmp_path):
         shutil.copytree(store, tmp_path / name)
     pt = harness.open_tsdb(str(tmp_path / "port"), sc.shards, device="cpu")
     jt = jax_harness.open_tsdb(str(tmp_path / "jax"), sc.shards,
-                               rollups=False)
+                               rollups=sc.rollups)
     try:
         assert _rows(pt.store) == _rows(jt.store)
         assert port_fsck(pt).errors == jax_fsck(jt).errors == 0
         assert pt.tenants.total_tracked() == jt.tenants.total_tracked()
+        # Both caught the rollup tier up over the crash alike.
+        assert pt.rollups.ready and jt.rollups.ready
+        assert _rollup_cells(pt) == _rollup_cells(jt)
     finally:
         pt.shutdown()
         jt.shutdown()

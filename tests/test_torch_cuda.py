@@ -1714,3 +1714,160 @@ def test_fused_query_on_card(card, tmp_path):
         assert decode_points.launches > 0
     finally:
         t.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# The rollup window fold (csrc/rollup_fold.cu)
+# ---------------------------------------------------------------------------
+
+def _fold_series(case: str):
+    """(ts int64 sorted, vals float64, res) of one rollup fold layout."""
+    rng = np.random.default_rng(ROLLUP_FOLD_CASES.index(case))
+    base = 1356998400
+    if case == "one point":
+        return np.array([base + 17]), np.array([3.25]), 3600
+    if case == "one window":
+        ts = base + np.sort(rng.choice(3600, 40, replace=False))
+        return ts, rng.normal(50, 10, 40), 3600
+    if case == "empty interior windows":
+        ts = np.concatenate([base + np.arange(0, 600, 60),
+                             base + 5 * 3600 + np.arange(0, 900, 90),
+                             base + 23 * 3600 + np.arange(0, 300, 30)])
+        return ts, rng.normal(50, 10, len(ts)), 3600
+    if case == "special values":
+        ts = base + np.arange(0, 6 * 3600, 300)
+        v = rng.normal(50, 10, len(ts))
+        v[[2, 20, 41]] = [np.inf, -np.inf, np.inf]
+        v[[55, 56]] = [-np.inf, np.nan]
+        return ts, v, 3600
+    if case.startswith("smoke day"):
+        # One (series, day) of the smoke's corpus: ~143 points.
+        step = 7 * 86400 // 1000
+        ts = np.unique(base + np.minimum(
+            np.arange(143) * step + rng.integers(0, step // 2, 143),
+            86399))
+        return (ts, 100 + np.cumsum(rng.normal(0, 1, len(ts))),
+                int(case.split()[-1]))
+    if case == "week at 1 s":
+        ts = base + np.arange(604_800)
+        return ts, 1000 + np.cumsum(rng.normal(0, 0.1, len(ts))), 3600
+    if case == "2^22 windows":
+        ts = np.unique(np.concatenate([
+            rng.integers(0, (1 << 22) * 60, 5000), [(1 << 22) * 60 - 1]]))
+        return base + ts, rng.normal(0, 1e6, len(ts)), 60
+    raise AssertionError(case)
+
+
+ROLLUP_FOLD_CASES = ("one point", "one window", "empty interior windows",
+              "special values", "smoke day 3600", "smoke day 7200",
+              "smoke day 86400", "week at 1 s", "2^22 windows")
+
+
+def _fold_on(dev, ts, vals, res):
+    from opentsdb_tpu_torch.ops import rollup_fold
+    origin = int(ts[0]) - int(ts[0]) % res
+    W = (int(ts[-1]) - origin) // res + 1
+    rel = torch.from_numpy((ts - origin).astype(np.int32)).to(dev)
+    v = torch.from_numpy(np.asarray(vals, np.float64)).to(dev)
+    return rollup_fold.window_fold(rel, v, num_windows=W, res=res), W
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ROLLUP_FOLD_CASES)
+def test_rollup_fold_matches_plain_and_host(card, case):
+    """The kernel against its plain version and the host fold: count,
+    min, max, first, last and the brackets exact (NaN where numpy gives
+    NaN), sum within rtol 1e-12 (a fixed order, not numpy's pairwise
+    one); one launch a call; two calls bit-identical."""
+    from opentsdb_tpu_torch.ops import rollup_fold
+    from opentsdb_tpu_torch.rollup import summary
+    ts, vals, res = _fold_series(case)
+    before = rollup_fold.window_fold.launches
+    got, W = _fold_on(card, ts, vals, res)
+    again, _ = _fold_on(card, ts, vals, res)
+    torch.cuda.synchronize()
+    assert rollup_fold.window_fold.launches == before + 2
+    for a, b in zip(got, again):
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.int32
+                           else a.view(torch.int64),
+                           b.view(torch.int32) if b.dtype == torch.int32
+                           else b.view(torch.int64))
+    plain, _ = _fold_on(torch.device("cpu"), ts, vals, res)
+    g = [x.cpu() for x in got]
+    count = g[0]
+    assert torch.equal(count, plain[0])
+    some = count > 0
+    for i in (2, 3, 4, 5, 6, 7):
+        assert torch.equal(g[i][some].nan_to_num(7.5),
+                           plain[i][some].nan_to_num(7.5)), i
+    torch.testing.assert_close(g[1][some], plain[1][some], rtol=1e-12,
+                               atol=0, equal_nan=True)
+    wbase, rec = summary.window_summaries(ts, vals, res)
+    w_idx = torch.nonzero(some).flatten().numpy()
+    origin = int(ts[0]) - int(ts[0]) % res
+    assert np.array_equal(origin + w_idx.astype(np.int64) * res, wbase)
+    assert np.array_equal(count[some].numpy(), rec["count"])
+    for i, f in ((2, "min"), (3, "max"), (4, "first"), (5, "last")):
+        np.testing.assert_array_equal(g[i][some].numpy(), rec[f])
+    np.testing.assert_allclose(g[1][some].numpy(), rec["sum"], rtol=1e-12,
+                               atol=0)
+    assert np.array_equal(g[6][some].numpy() + origin - wbase,
+                          rec["first_dt"])
+    assert np.array_equal(g[7][some].numpy() + origin - wbase,
+                          rec["last_dt"])
+
+
+@pytest.mark.cuda
+def test_rollup_fold_device_summaries_match_host(card):
+    """window_summaries_device on the card, the tier's checkpoint fold:
+    one launch a call, the host fold's records but for the sum's last
+    bits."""
+    from opentsdb_tpu_torch.ops import rollup_fold
+    from opentsdb_tpu_torch.rollup import summary
+    for case in ROLLUP_FOLD_CASES:
+        ts, vals, res = _fold_series(case)
+        before = rollup_fold.window_fold.launches
+        wb, rec = summary.window_summaries_device(ts, vals, res,
+                                                  device="cuda")
+        assert rollup_fold.window_fold.launches == before + 1, case
+        wb2, rec2 = summary.window_summaries(ts, vals, res)
+        assert np.array_equal(wb, wb2), case
+        for f in ("count", "min", "max", "first", "last", "first_dt",
+                  "last_dt"):
+            np.testing.assert_array_equal(rec[f], rec2[f], err_msg=case)
+        np.testing.assert_allclose(rec["sum"], rec2["sum"], rtol=1e-12,
+                                   atol=0, err_msg=case)
+
+
+@pytest.mark.cuda
+def test_rollup_fold_rejects_unsorted_and_launch_failure(card):
+    """Unsorted timestamps raise (the windows that see it read count
+    -1); a launch the card refuses (the library's call returns
+    cudaErrorInvalidConfiguration, 9) raises, with no fallback, and
+    counts no launch."""
+    from opentsdb_tpu_torch.ops import rollup_fold
+    from opentsdb_tpu_torch.rollup import summary
+    rel = torch.tensor([0, 5, 3, 7200], dtype=torch.int32, device=card)
+    v = torch.ones(4, dtype=torch.float64, device=card)
+    with pytest.raises(ValueError, match="sorted"):
+        rollup_fold.window_fold(rel, v, num_windows=3, res=3600)
+    with pytest.raises(ValueError, match="sorted"):
+        summary.window_summaries_device(
+            np.array([100, 50, 4000]), np.ones(3), 3600, device="cuda")
+    rel = torch.tensor([0, 5, 30], dtype=torch.int32, device=card)
+
+    class Refused:
+        @staticmethod
+        def rollup_window_fold_f64(*args):
+            return 9
+
+    rollup_fold._kernels()
+    before = rollup_fold.window_fold.launches
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(rollup_fold, "_lib", Refused())
+        with pytest.raises(RuntimeError, match="launch failed"):
+            rollup_fold.window_fold(rel, v[:3], num_windows=1, res=3600)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            summary.window_summaries_device(
+                np.array([0, 5, 30]), np.ones(3), 3600, device="cuda")
+    assert rollup_fold.window_fold.launches == before

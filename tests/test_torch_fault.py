@@ -5,8 +5,9 @@ opentsdb_tpu/storage/kv.py, opentsdb_tpu/tools/fsck.py).
 - the spec grammar, schedules and status are the JAX module's;
 - every fault site fires where the JAX site fires, in the same order,
   with the same file and torn span, over one store and over four shards,
-  and an armed ``raise`` at each site breaks the same step and leaves the
-  same rows;
+  with and without the rollup tier (its six sites among them), and an
+  armed ``raise`` at each site breaks the same step and leaves the same
+  rows (and rollup cells);
 - the WAL bytes are the same with group commit on and off (and the JAX
   package's); a put under group commit does not return before its
   covering flush (a patched os.fsync that blocks shows it), unless the
@@ -16,6 +17,7 @@ opentsdb_tpu/storage/kv.py, opentsdb_tpu/tools/fsck.py).
   negative), and ``--fix`` repairs both packages' copies to the same rows.
 """
 
+import json
 import os
 import shutil
 import struct
@@ -55,7 +57,11 @@ PORT_SITES = ("kv.wal.append", "kv.wal.fsync", "kv.wal.group.write",
               "kv.checkpoint.commit", "kv.checkpoint.manifest",
               "sst.write.footer", "sst.write.body", "sst.rename",
               "tenant.snapshot.write", "tenant.snapshot.commit",
-              "query.scan", "sharded.spill.shard")
+              "query.scan", "sharded.spill.shard",
+              "rollup.fold.flush", "rollup.begin_spill",
+              "rollup.fold.start", "rollup.fold.commit",
+              "rollup.bracket.flip", "rollup.catchup.commit")
+ROLLUP_SITES = tuple(s for s in PORT_SITES if s.startswith("rollup."))
 
 
 @pytest.fixture(autouse=True)
@@ -174,7 +180,9 @@ def _parts(seed=4):
     return parts
 
 
-def _open(name, d, shards, **kw):
+def _open(name, d, shards, rollups=False, **kw):
+    if rollups:
+        kw.update(enable_rollups=True, rollup_catchup="sync")
     if name == "port":
         store = (port_sharded.ShardedKVStore(d, shards=shards) if shards > 1
                  else port_kv.MemKVStore(wal_path=os.path.join(d, "wal")))
@@ -230,11 +238,29 @@ def _dump(store):
     return {tb: list(store.scan_raw(tb, b"", b"")) for tb in (T, "tsdb-uid")}
 
 
-@pytest.mark.parametrize("shards,group_ms,c", [
-    (1, 0.0, False), (4, 0.0, False), (1, 2.0, False), (4, 2.0, False),
-    (4, 0.0, True)])
+def _rollup_cells(tsdb):
+    tier = tsdb.rollups
+    if tier is None:
+        return None
+    return {(r, si): list(s.scan_raw(T, b"", b""))
+            for r, stores in tier.stores.items()
+            for si, s in enumerate(stores)}
+
+
+def _close(tsdb):
+    """Close without a checkpoint: the rollup tier first (its stores hold
+    flocks), then the store."""
+    if tsdb.rollups is not None:
+        tsdb.rollups.close()
+    tsdb.store.close()
+
+
+@pytest.mark.parametrize("shards,group_ms,c,rollups", [
+    (1, 0.0, False, False), (4, 0.0, False, False), (1, 2.0, False, False),
+    (4, 2.0, False, False), (4, 0.0, True, False), (1, 0.0, False, True),
+    (4, 0.0, False, True)])
 def test_sites_fire_in_the_jax_order(tmp_path, monkeypatch, request, shards,
-                                     group_ms, c):
+                                     group_ms, c, rollups):
     """With every site passed through a recorder, the same workload visits
     the same sites in the same order, with the same file names and torn
     spans, in both packages (on their Python paths, or both on their
@@ -249,10 +275,11 @@ def test_sites_fire_in_the_jax_order(tmp_path, monkeypatch, request, shards,
                             log.append((site, path and os.path.relpath(
                                 path, str(tmp_path / name)), n)))
         fp.arm("nothing.here", "delay")
-        t = _open(name, str(tmp_path / name), shards, wal_group_ms=group_ms)
+        t = _open(name, str(tmp_path / name), shards, rollups,
+                  wal_group_ms=group_ms)
         for step in _steps(name, t):
             step()
-        t.store.close()
+        _close(t)
         fp.clear()
     assert seen["port"] == seen["jax"]
     sites = {s for s, _, _ in seen["port"]}
@@ -264,20 +291,25 @@ def test_sites_fire_in_the_jax_order(tmp_path, monkeypatch, request, shards,
              else {"kv.wal.append"})
     if shards > 1:
         want.add("sharded.spill.shard")
+    if rollups:
+        want |= set(ROLLUP_SITES) - {"rollup.catchup.commit"}
     assert want <= sites <= set(PORT_SITES)
 
 
 @pytest.mark.parametrize("site", [s for s in PORT_SITES
-                                  if s != "kv.wal.group.write"])
+                                  if s not in ("kv.wal.group.write",
+                                               "rollup.catchup.commit")])
 def test_armed_raise_breaks_the_same_step(tmp_path, site):
     """An armed raise at a site breaks the same step of the workload in
     both packages, and the stores hold the same rows after the rest of
     the workload ran (the thaw and manifest rollback paths included)."""
     shards = 4 if site == "sharded.spill.shard" else 1
     group = 2.0 if site.startswith("kv.wal.group") else 0.0
+    rollups = site in ROLLUP_SITES
     got = {}
     for name, fp in FP.items():
-        t = _open(name, str(tmp_path / name), shards, wal_group_ms=group)
+        t = _open(name, str(tmp_path / name), shards, rollups,
+                  wal_group_ms=group)
         # The second hit (the merging checkpoint's, for the checkpoint
         # sites); the query scans once.
         fp.arm(site, "raise", skip=0 if site == "query.scan" else 1)
@@ -288,10 +320,40 @@ def test_armed_raise_breaks_the_same_step(tmp_path, site):
             except fp.FaultInjected:
                 broke.append(i)
         fp.clear()
-        got[name] = (broke, _dump(t.store))
-        t.store.close()
+        got[name] = (broke, _dump(t.store), _rollup_cells(t))
+        _close(t)
     assert got["port"][0] == got["jax"][0] != []
-    assert got["port"][1] == got["jax"][1]
+    assert got["port"][1:] == got["jax"][1:]
+
+
+def test_catchup_commit_raise_leaves_the_tier_owing_its_rebuild(tmp_path):
+    """rollup.catchup.commit fires only in a catch-up: a store spilled
+    without its tier reopens with it (no state file: a full rebuild, run
+    synchronously). A raise there is kept as the rebuild's error in both
+    packages: the tier is not ready, its state stays pending, and the
+    next open rebuilds it to the same cells."""
+    got = {}
+    for name, fp in FP.items():
+        d = str(tmp_path / name)
+        t = _open(name, d, 1)
+        for step in _steps(name, t)[:2]:      # ingest, checkpoint
+            step()
+        _close(t)
+        fp.arm("rollup.catchup.commit", "raise")
+        t = _open(name, d, 1, rollups=True)
+        fp.clear()
+        state = json.load(open(t.rollups.state_path))
+        got[name] = [t.rollups.ready,
+                     type(t.rollups._rebuild_error).__name__,
+                     state["pending"], _rollup_cells(t)]
+        _close(t)
+        t = _open(name, d, 1, rollups=True)
+        got[name] += [t.rollups.ready, t.rollups.rebuilds,
+                      _rollup_cells(t)]
+        _close(t)
+    assert got["port"] == got["jax"]
+    assert got["port"][:3] == [False, "FaultInjected", True]
+    assert got["port"][4:6] == [True, 1] and got["port"][6]
 
 
 def test_group_write_raise_breaks_the_same_step(tmp_path):

@@ -236,3 +236,50 @@ def test_build_data_lives_in_the_port():
         src = open(os.path.join(ROOT, "opentsdb_tpu_torch", rel)).read()
         assert banned.search(src) is None, rel
         assert "build_data" in src, rel
+
+
+def test_rollup_slice_lives_in_the_port():
+    """The rollup slice is the port's own: rollup/, sketch/moment.py,
+    sketch/bounds.py and ops/rollup_fold.py each name the JAX module they
+    mirror (the kernel its TPU function), csrc/rollup_fold.cu builds from
+    the package, no module names the JAX package's rollup or sketch
+    modules, and the numpy modules copied whole are the JAX files but for
+    the docstring's note and the package name."""
+    import importlib
+    import re
+    from opentsdb_tpu_torch.ops import cuda_build
+    mirrors = {
+        "opentsdb_tpu_torch.rollup.summary": "opentsdb_tpu/rollup/summary.py",
+        "opentsdb_tpu_torch.rollup.tier": "opentsdb_tpu/rollup/tier.py",
+        "opentsdb_tpu_torch.rollup.delta": "opentsdb_tpu/rollup/delta.py",
+        "opentsdb_tpu_torch.rollup.planner":
+            "opentsdb_tpu/rollup/planner.py",
+        "opentsdb_tpu_torch.rollup": "opentsdb_tpu/rollup/",
+        "opentsdb_tpu_torch.sketch.moment": "opentsdb_tpu/sketch/moment.py",
+        "opentsdb_tpu_torch.sketch.bounds": "opentsdb_tpu/sketch/bounds.py",
+        "opentsdb_tpu_torch.ops.rollup_fold":
+            "opentsdb_tpu/rollup/summary.py",
+    }
+    for mod, src in mirrors.items():
+        assert src in importlib.import_module(mod).__doc__, mod
+    assert "rollup_fold" in cuda_build.sources()
+    pkg = os.path.join(ROOT, "opentsdb_tpu_torch")
+    cu = open(os.path.join(pkg, "csrc", "rollup_fold.cu")).read()
+    assert "opentsdb_tpu/rollup/summary.py _device_fold_fn" in cu
+    banned = re.compile(r"opentsdb_tpu\.(rollup|sketch)\b")
+    for d, dirs, files in os.walk(pkg):
+        dirs[:] = [x for x in dirs if x not in ("_build", "__pycache__")]
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(d, fn)
+                assert banned.search(open(path).read()) is None, path
+    for rel in ("sketch/moment.py", "sketch/bounds.py", "rollup/delta.py",
+                "rollup/planner.py"):
+        port = open(os.path.join(pkg, rel)).read()
+        jax = open(os.path.join(ROOT, "opentsdb_tpu", rel)).read()
+        port = re.sub(r"\n\nMirrors ``opentsdb_tpu/.*?\n\n", "\n\n", port,
+                      count=1, flags=re.S)
+        # One comment names the reference's own history differently.
+        jax = jax.replace("(PR-13 pre-release)", "(a pre-release)")
+        assert port.replace("opentsdb_tpu_torch.", "opentsdb_tpu.") == jax, \
+            rel

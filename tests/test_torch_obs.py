@@ -8,6 +8,7 @@ operator routes' bodies."""
 import asyncio
 import json
 import logging
+import sys
 import time
 
 import numpy as np
@@ -45,12 +46,17 @@ from test_obs import validate_exposition
 BT = 1356998400
 HOUR = 3600
 
-# /stats lines and /metrics families of the JAX daemon that the port
-# leaves out, by prefix, each with the ROADMAP queue A item that brings
-# its tier: the instruments the JAX package registers at import for
-# rollups (6), the mesh (11), the serving tier and cluster (10) and
-# approximate serving (9).
+# /stats lines and /metrics families of the JAX daemon that the ``both``
+# comparisons leave out, by prefix, each with the ROADMAP queue A item
+# that brings its tier: the instruments the JAX package registers at
+# import for the mesh (11), the serving tier and cluster (10) and
+# approximate serving (9), which the port leaves out, and those of its
+# rollup tier module (6), which other tests in the process may have
+# imported. ``both_rollups`` compares the rollup ones with both tiers on.
 LEFT_OUT = ("rollup", "mesh", "router", "replica", "cluster", "sketch")
+# The port's rollup tier module, which registers the tier's instruments
+# when it is imported: only a daemon with the tier on imports it.
+PORT_TIER = "opentsdb_tpu_torch.rollup.tier"
 # Counters that exist only once their event happened in the process
 # (METRICS is process-wide in each package): the fused plan's declines,
 # which other tests in the same worker may have counted in one package.
@@ -67,6 +73,17 @@ def _left_out(name: str) -> bool:
 
 def _history(name: str) -> bool:
     return name[4:] in HISTORY
+
+
+def _port_names(names, got) -> set:
+    """The port daemon's /stats names or /metrics families, history
+    aside. The rollup tier's instruments are left out only when another
+    test in this process had imported the port's tier module before the
+    daemon ran (METRICS is process-wide); the daemon itself, tier off,
+    never imports it (test_tier_off_daemon_imports_no_tier_module)."""
+    return {n for n in names if not _history(n)
+            and not (got["tier_preloaded"]
+                     and n[4:].startswith(("rollup.", "rollup_")))}
 
 
 def _no_ms(d):
@@ -709,10 +726,13 @@ def both(tmp_path_factory):
         jt = JaxTSDB(JaxSharded(str(base / "j"), shards=2),
                      JaxConfig(**cfg), start_compaction_thread=False)
         want = _scenario(JaxServer(jt), jt)
+        preloaded = PORT_TIER in sys.modules
         pt = TSDB(ShardedKVStore(str(base / "p"), shards=2),
                   Config(device="cpu", **cfg),
                   start_compaction_thread=False)
         got = _scenario(TSDServer(pt), pt)
+        got["tier_preloaded"] = preloaded
+        got["tier_imported"] = PORT_TIER in sys.modules and not preloaded
     return want, got
 
 
@@ -730,7 +750,7 @@ def test_stats_names_equal_but_for_the_left_out_tiers(both):
     want, got = both
     jn = {n for n in _stat_lines(want["stats"][1])
           if not _left_out(n) and not _history(n)}
-    pn = {n for n in _stat_lines(got["stats"][1]) if not _history(n)}
+    pn = _port_names(_stat_lines(got["stats"][1]), got)
     assert pn == jn
     assert {"tsd.wal.appends", "tsd.checkpoint.phase.count",
             "tsd.checkpoint.shard_spill", "tsd.ingest.parse",
@@ -786,6 +806,53 @@ def test_stats_json_and_telnet_stats_answer(both):
     assert {ln.split()[0] for ln in said} == {ln.split()[0] for ln in lines}
 
 
+def test_tier_off_daemon_imports_no_tier_module(both):
+    """The tier-off port daemon's whole scenario (puts, traced /q, the
+    checkpoint, /stats, /metrics, /api/queries) leaves the rollup tier's
+    module unimported, so it registers none of the tier's instruments."""
+    _, got = both
+    assert not got["tier_imported"]
+
+
+TIER_OFF_PROCESS = """
+import sys
+from opentsdb_tpu_torch.core.tsdb import TSDB
+from opentsdb_tpu_torch.obs.registry import METRICS
+from opentsdb_tpu_torch.query.executor import QueryExecutor, QuerySpec
+from opentsdb_tpu_torch.server.tsd import TSDServer
+from opentsdb_tpu_torch.storage.kv import MemKVStore
+from opentsdb_tpu_torch.tools import cli
+from opentsdb_tpu_torch.utils.config import Config
+tsdb = TSDB(MemKVStore(wal_path=sys.argv[1]),
+            Config(device="cpu", auto_create_metrics=True,
+                   device_window=False), start_compaction_thread=False)
+TSDServer(tsdb)
+tsdb.add_point("m", 1356998400, 1.0, {"host": "a"})
+tsdb.checkpoint()
+QueryExecutor(tsdb).run(QuerySpec("m", {}, downsample=(3600, "avg")),
+                        1356998400, 1357002000)
+print(sorted(n for n in METRICS.names() if n.startswith("rollup")))
+print("opentsdb_tpu_torch.rollup.tier" in sys.modules)
+tsdb.shutdown()
+"""
+
+
+def test_tier_off_process_registers_no_rollup_instrument(tmp_path):
+    """A fresh process that imports the daemon's modules (server, CLI,
+    executor) and serves a downsample with the tier off registers no
+    rollup.* instrument, so its /stats and /metrics show none (the JAX
+    daemon's tier-off surface)."""
+    import os
+    import subprocess
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-c", TIER_OFF_PROCESS, str(tmp_path / "wal")],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root),
+        capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split("\n")[:2] == ["[]", "False"]
+
+
 def _families(text: str) -> dict:
     return {ln.split()[2]: ln.split()[3] for ln in text.splitlines()
             if ln.startswith("# TYPE ")}
@@ -798,8 +865,8 @@ def test_metrics_families_and_types_equal(both):
     assert validate_exposition(gt) > 50
     jf = {f: t for f, t in _families(wt).items()
           if not _left_out(f) and not _history(f)}
-    assert {f: t for f, t in _families(gt).items()
-            if not _history(f)} == jf
+    pf = _families(gt)
+    assert {f: pf[f] for f in _port_names(pf, got)} == jf
     assert 'endpoint="/q"' in gt and 'cmd="help"' in gt
 
 
@@ -894,6 +961,100 @@ def test_api_queries_sections(both):
     assert g["mesh"] == mesh
     assert g["sketch"] == {}
     assert got["queries_page"] == want["queries_page"]
+
+
+@pytest.fixture(scope="module")
+def both_rollups(tmp_path_factory):
+    """A JAX and a port daemon, each over a WAL store with the rollup tier
+    on (catch-up sync): the same puts, a checkpoint, rollup-served,
+    declined and ranged-sketch queries, then /stats, /metrics and
+    /api/queries."""
+    from test_torch_native import use
+    base = tmp_path_factory.mktemp("obs_rollup")
+    cfg = dict(auto_create_metrics=True, port=0, bind="127.0.0.1",
+               device_window=False, backend="cpu", enable_rollups=True,
+               rollup_catchup="sync", enable_compactions=False)
+    lines = _put_lines()
+    targets = [Q + "&m=sum:1h-avg:obs.m",
+               Q + "&m=max:1h-max:obs.m%7Bhost=*%7D",
+               Q + "&m=sum:rate:1h-avg:obs.m", Q + "&m=sum:30m-avg:obs.m",
+               f"/sketch?m=obs.m&start={BT}&end={BT + 12 * HOUR}",
+               f"/distinct?metric=obs.m&tagk=host&start={BT}"
+               f"&end={BT + 12 * HOUR}", "/stats", "/metrics",
+               "/api/queries"]
+
+    def scenario(server, tsdb):
+        async def main():
+            await server.start()
+            try:
+                await _telnet(server.port, lines)
+                tsdb.checkpoint()
+                return [await _http(server.port, q) for q in targets]
+            finally:
+                await server.stop()
+        return asyncio.run(main())
+
+    with pytest.MonkeyPatch.context() as mp:
+        use(mp, (None, None), False, False)
+        jt = JaxTSDB(JaxStore(wal_path=str(base / "j" / "wal")),
+                     JaxConfig(**cfg), start_compaction_thread=False)
+        want = scenario(JaxServer(jt), jt)
+        pt = TSDB(MemKVStore(wal_path=str(base / "p" / "wal")),
+                  Config(device="cpu", **cfg),
+                  start_compaction_thread=False)
+        got = scenario(TSDServer(pt), pt)
+        jt.shutdown()
+        pt.shutdown()
+    return dict(zip(targets, want)), dict(zip(targets, got))
+
+
+ROLLUP_TIER_LINES = ("tsd.rollup.ready", "tsd.rollup.fold",
+                     "tsd.rollup.folds", "tsd.rollup.records",
+                     "tsd.rollup.rebuilds", "tsd.rollup.miss",
+                     "tsd.rollup.hit", "tsd.rollup.fallback",
+                     "tsd.sketch.bytes")
+
+
+def test_rollup_stats_names_and_tier_lines_equal(both_rollups):
+    """With both tiers open, every rollup.* /stats name (the tier's lines
+    and the fold timers and counters) is the JAX daemon's, and the tier's
+    own lines carry its values (the timers and the fold split counters
+    are process-wide, so their values are not compared)."""
+    want, got = both_rollups
+    w = _stat_lines(want["/stats"][1])
+    g = _stat_lines(got["/stats"][1])
+    wn = {n for n in w if n.startswith(("tsd.rollup", "tsd.sketch.bytes"))}
+    gn = {n for n in g if n.startswith(("tsd.rollup", "tsd.sketch.bytes"))}
+    assert gn == wn
+    assert set(ROLLUP_TIER_LINES) | {"tsd.rollup.fold.count",
+                                     "tsd.rollup.fold.delta",
+                                     "tsd.rollup.fold.full"} <= gn
+    for name in ROLLUP_TIER_LINES:
+        # tsd.rollup.fold is also the fold timer's name (its percentile
+        # lines): only the tier's kind=... line is the tier's.
+        assert {k: v for k, v in g[name].items()
+                if "percentile=" not in k} == \
+            {k: v for k, v in w[name].items()
+             if "percentile=" not in k}, name
+    assert g["tsd.rollup.fold"]["kind=host-f64"] == "1"
+    assert g["tsd.query.plan"] == w["tsd.query.plan"]
+    jf = {f: t for f, t in _families(want["/metrics"][1].decode()).items()
+          if f.startswith(("tsd_rollup", "tsd_sketch_bytes"))}
+    assert {f: t for f, t in _families(got["/metrics"][1].decode()).items()
+            if f.startswith(("tsd_rollup", "tsd_sketch_bytes"))} == jf
+
+
+def test_api_queries_rollup_section_equal(both_rollups):
+    want, got = both_rollups
+    w = json.loads(want["/api/queries"][1])
+    g = json.loads(got["/api/queries"][1])
+    assert g["rollup"] == w["rollup"]
+    # Two /q, the ranged /sketch (moment columns at 1h) and /distinct.
+    assert g["rollup"]["ready"] and g["rollup"]["hits"]["1h"] == 4
+    assert g["rollup"]["fallbacks"] == {"rate": 1, "interval": 1}
+    assert g["plans"] == w["plans"]
+    for q in list(want)[:6]:
+        assert got[q] == want[q], q
 
 
 def test_trace_ring_records_match(both):
