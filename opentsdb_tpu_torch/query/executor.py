@@ -74,6 +74,13 @@ under it) and ``aggregate``. Spans are wall-clock; untraced, each hook
 is one global integer check. ``scan_latency`` (a LatencyDigest) keeps
 the scan stage's milliseconds, traced or not.
 
+Approximate serving (``run_approx``, ``sketch/serving.py``): a caller
+that opts in (``/q``'s ``approx=1`` or ``max_error=``) gets a percentile
+downsample (``1h-p95``) served from the rollup tier's sketch columns with
+its reported error bound (plan label ``approx-1h`` / ``approx-1d``), or,
+when the bound exceeds ``max_error`` or the tier cannot serve it, the
+exact answer.
+
 Sketch queries (``/sketch`` and ``/distinct``) read the live sketches
 (``stats/livesketch.py``) without a storage scan: quantiles of the merged
 t-digests of the matching series, and the HyperLogLog estimate of a
@@ -225,6 +232,11 @@ class QueryExecutor:
         # Candidate-series hint per (metric, filter), revalidated on the
         # metric's directory size; bounded in total cached hashes.
         self._ident_cache = LRUCache(256, max_cost=1 << 21)
+        # Approximate serving's rail cache (sketch/serving.py): per-series
+        # (bucket_ts, est, lo, hi) rails of clean, fully window-covered
+        # percentile ranges, revalidated against the tier's fold stamps.
+        # Cost = cached buckets.
+        self._sketch_rail_cache = LRUCache(16, max_cost=1 << 22)
         self.qcache_hits = 0
         self.qcache_misses = 0
         self.qcache_bypasses = 0
@@ -499,13 +511,46 @@ class QueryExecutor:
         a span tree under ``trace.root``, whose tags then carry the plan
         and the cached flag. None (the default) costs one global integer
         check per hook."""
+        return self.run_approx(spec, start, end, trace)[:3]
+
+    def run_approx(self, spec: QuerySpec, start: int, end: int,
+                   trace=None, approx=None):
+        """``run_with_plan`` under the approximate-serving contract
+        (``sketch/serving.py``): ``(results, plan, cached, info)``, where
+        ``info`` is None for an exact answer and an ``ApproxInfo`` for a
+        percentile downsample served from the rollup tier's sketch
+        columns (plan label ``approx-1h`` ...). ``approx``
+        (``ApproxSpec``, None: exact) is the caller's opt-in and relative
+        error budget: a reported bound over the budget runs the exact path
+        instead. The degraded (rollup-only) mode of the JAX executor
+        comes with the query half of admission (ROADMAP queue A item 10):
+        ``rollup_only`` stays False here."""
         if trace is None:
-            return self._run_planned(spec, start, end)
+            return self._run_approx_inner(spec, start, end, approx)
         with obs_trace.activate(trace):
-            results, plan, cached = self._run_planned(spec, start, end)
-        trace.root.tags["plan"] = plan
-        trace.root.tags["cached"] = bool(cached)
-        return results, plan, cached
+            out = self._run_approx_inner(spec, start, end, approx)
+        trace.root.tags["plan"] = out[1]
+        trace.root.tags["cached"] = bool(out[2])
+        if out[3] is not None:
+            trace.root.tags["approx"] = True
+        return out
+
+    def _run_approx_inner(self, spec: QuerySpec, start: int, end: int,
+                          approx):
+        if (approx is not None and approx.enabled
+                and self._oracle_downsample(spec)):
+            from opentsdb_tpu_torch.sketch import serving as _serving
+            got = _serving.plan_percentile(self, spec, start, end)
+            if got is not None:
+                results, res, info = got
+                if (approx.max_error is None
+                        or info.rel_error <= approx.max_error):
+                    from opentsdb_tpu_torch.rollup.tier import res_label
+                    return (results, f"approx-{res_label(res)}", False,
+                            info)
+                _serving._M_FALLBACK.inc()
+        results, plan, cached = self._run_planned(spec, start, end)
+        return results, plan, cached, None
 
     def _run_planned(self, spec: QuerySpec, start: int, end: int,
                      ) -> tuple[list[QueryResult], str, bool]:

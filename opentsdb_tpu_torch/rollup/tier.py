@@ -11,8 +11,6 @@ differs:
   declares ``device-f64``;
 - a tier store's own checkpoint writes no tenant marker (the JAX store
   has none to write);
-- ``sketch_byte_budget > 0`` raises: its allocator (``sketch/budget.py``)
-  comes with ROADMAP queue A item 9;
 - ``ReadOnlyRollupTier`` (replicas) comes with item 10.
 
 A parallel per-shard storage tier holding one summary record per
@@ -312,11 +310,6 @@ class RollupTier:
                                           "rollup_moment_min_res", 0))
         self.sketch_byte_budget = int(getattr(config,
                                               "sketch_byte_budget", 0))
-        if self.sketch_byte_budget > 0:
-            raise ValueError(
-                "sketch_byte_budget > 0 needs the budgeted sketch "
-                "allocator (sketch/budget.py), which the port brings with "
-                "approximate serving (ROADMAP queue A item 9)")
 
         # Checkpoint fold backend. Default is the host NumPy f64
         # pairwise fold (bit-exact across chunkings); Config.
@@ -404,10 +397,12 @@ class RollupTier:
         self.stores: dict[int, list[MemKVStore]] = {}
 
         # Per-resolution sketch-column allocation: {res: (digest_k,
-        # moment_k, hll_p)}: the uniform cutoffs (digest at res >=
-        # sketch_min_res, moment at res >= moment_min_res; the budgeted
-        # allocator comes with item 9). Participates in the state file,
-        # so a layout change rebuilds.
+        # moment_k, hll_p)}. With Config.sketch_byte_budget set, a
+        # Storyboard-style optimizer (sketch/budget.py) spends the
+        # budget across resolutions; otherwise the uniform cutoffs apply
+        # (digest at res >= sketch_min_res, moment at res >=
+        # moment_min_res). Participates in the state file, so a layout
+        # change rebuilds.
         self.sketch_alloc = self._compute_alloc()
         # Cumulative sketch-column bytes written per (resolution,
         # kind) — process lifetime; /stats `sketch.bytes{kind=}` sums
@@ -424,6 +419,16 @@ class RollupTier:
         return out
 
     def _compute_alloc(self) -> dict[int, tuple[int, int, int]]:
+        if self.sketch_byte_budget > 0:
+            from opentsdb_tpu_torch.sketch import budget as _budget
+            rows = self._estimate_row_hours()
+            records = {r: max(rows // max(r // MAX_TIMESPAN, 1), 1)
+                       for r in self.resolutions}
+            allocs = _budget.allocate(self.sketch_byte_budget, records,
+                                      hll_p=self.hll_p)
+            return {r: (a.digest_k, a.moment_k,
+                        a.hll_p if a.digest_k else 0)
+                    for r, a in allocs.items()}
         out = {}
         for r in self.resolutions:
             dk = self.digest_k if r >= self.sketch_min_res else 0
@@ -433,6 +438,26 @@ class RollupTier:
             # point); /distinct falls back to presence/exact there.
             out[r] = (dk, mk, self.hll_p if dk else 0)
         return out
+
+    def _estimate_row_hours(self) -> int:
+        """Rough raw row-hour count (the budget allocator's record-
+        density input): memtable pending keys + sstable index sizes.
+        The allocator quantizes, so order of magnitude is enough."""
+        store = self.tsdb.store
+        n = 0
+        try:
+            n += len(list(store.pending_keys(self.table)))
+        except Exception:
+            pass
+        shards = getattr(store, "shards", None)
+        subs = shards if isinstance(shards, list) else [store]
+        for s in subs:
+            for sst in getattr(s, "_ssts", []) or []:
+                try:
+                    n += sst.key_count(self.table)
+                except Exception:
+                    pass
+        return max(n, 1)
 
     # -- state file --------------------------------------------------------
 
@@ -532,6 +557,22 @@ class RollupTier:
             return ("full" if getattr(self.tsdb.store, "spilled",
                                       False) else "none")
         cfg = self._config_dict()
+        # Same-budget reopen: adopt the persisted allocation before
+        # comparing, so a record-count estimate that drifted across a
+        # quantization edge can't force a rebuild the operator never
+        # asked for (the budget knob itself still does).
+        alloc = st.get("alloc")
+        if (self.sketch_byte_budget > 0 and isinstance(alloc, dict)
+                and st.get("budget") == self.sketch_byte_budget):
+            try:
+                adopted = {int(r): tuple(int(x) for x in v)
+                           for r, v in alloc.items()}
+            except (TypeError, ValueError):
+                adopted = None
+            if adopted is not None and set(adopted) == set(
+                    self.resolutions):
+                self.sketch_alloc = adopted
+                cfg = self._config_dict()
         # "fold" compares against a host-f64 default: legacy state
         # files predate the key and their records ARE host-f64 folds.
         config_ok = (all(st.get(k) == v for k, v in cfg.items()

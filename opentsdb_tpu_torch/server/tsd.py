@@ -38,14 +38,20 @@ fused block plan's attempts, serves, declines by reason and device block
 cache counts, as the JAX daemon's does, and its rollup section the rollup
 tier's state (ready, resolutions, hits, fallbacks, the sketch allocation
 and bytes, the fold split and the delta accumulators) when the tier is
-open; the sections of tiers the port lacks (the mesh) hold what the JAX
-daemon reports with those tiers off. A ranged ``/sketch`` served from
-rollups declares its bound in ``X-Tsd-Approx``.
+open, and its sketch section the approximate-serving counters; the
+sections of tiers the port lacks (the mesh) hold what the JAX daemon
+reports with those tiers off. A ranged ``/sketch`` served from rollups
+declares its bound in ``X-Tsd-Approx``, and so does a ``/q`` with
+``approx=1`` or ``max_error=`` whose percentile downsample was served
+from the tier's sketch columns (plan label ``approx-1h``, the bound per
+result under ``"approx"``). ``/forecast`` answers Holt-Winters / EWMA
+forecasts and anomaly bands over a query's series (``models/``, one
+launch of the smoothing kernels).
 
 Not ported yet, and answered with 400 "not yet ported": PNG graphs
-(``/q`` without ``ascii``/``json``) and ``/forecast``. Other paths (the
-JAX daemon's ``/``, ``/s/``, ``/fault`` and the serving tier's routes
-among them) are 404.
+(``/q`` without ``ascii``/``json``, ``/forecast`` with ``png``). Other
+paths (the JAX daemon's ``/``, ``/s/``, ``/fault`` and the serving
+tier's routes among them) are 404.
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ from opentsdb_tpu_torch.core.errors import (BadRequestError,
                                              PleaseThrottleError,
                                              TenantLimitError)
 from opentsdb_tpu_torch.fault import faultpoints
+from opentsdb_tpu_torch.models import forecast as fcast
 from opentsdb_tpu_torch.obs import trace as obs_trace
 from opentsdb_tpu_torch.obs.registry import METRICS, read_rss_bytes
 from opentsdb_tpu_torch.obs.ring import TraceRing, log_slow, make_record
@@ -122,7 +129,7 @@ def _retry_after(seconds: float) -> dict:
 
 
 def _parse_max_error(q) -> float | None:
-    """The ``max_error=`` budget of /sketch: a positive relative
+    """The ``max_error=`` budget of /sketch and /q: a positive relative
     half-width, or None when absent."""
     if "max_error" not in q:
         return None
@@ -223,7 +230,7 @@ class TSDServer:
             "/q": self._query,
             "/distinct": self._distinct,
             "/sketch": self._sketch,
-            "/forecast": self._not_ported,
+            "/forecast": self._forecast,
         }
 
     # ------------------------------------------------------------------
@@ -574,9 +581,6 @@ class TSDServer:
                     json.dumps(info).encode(), {})
         return 200, "text/plain", self._version_text().encode(), {}
 
-    def _not_ported(self, req) -> tuple:
-        raise not_yet_ported(req.path)
-
     # ------------------------------------------------------------------
     # Operator surface: stats, logs, metrics, traces, caches
     # ------------------------------------------------------------------
@@ -646,21 +650,31 @@ class TSDServer:
     def _http_favicon(self, req) -> tuple:
         return 404, "text/plain", b"", {}
 
-    def _note_plan(self, plan: str) -> None:
-        """Bump the bounded per-plan counters: rollup resolution labels
-        ("1h", "1d") fold into "rollup", as in the JAX daemon."""
-        key = plan if plan in ("raw", "resident", "fused") else "rollup"
+    def _note_plan(self, plan: str, approx: bool = False) -> None:
+        """Bump the bounded per-plan counters, as in the JAX daemon:
+        "approx-1h" labels count as "approx", rollup resolution labels
+        ("1h", "1d") fold into "rollup", and an exact-plan answer that
+        carries approx metadata counts both."""
+        if plan.startswith("approx"):
+            key = "approx"
+        elif plan in ("raw", "resident", "fused"):
+            key = plan
+        else:
+            key = "rollup"
         with self._plan_lock:
             self.plan_counts[key] = self.plan_counts.get(key, 0) + 1
+            if approx and key != "approx":
+                self.plan_counts["approx"] = \
+                    self.plan_counts.get("approx", 0) + 1
 
     def _http_queries(self, req) -> tuple:
         """JSON feed behind the /queries page: plans served, the ingest
         fast path's group commit and parse timers, the fragment cache,
-        admission, and the fused block plan's coverage (attempts, serves,
-        declines by reason, the device block cache), and the rollup
-        tier's section when it is open. The sketch-serving and mesh
-        sections report those tiers off, as the JAX daemon does without
-        them."""
+        admission, the fused block plan's coverage (attempts, serves,
+        declines by reason, the device block cache), the approximate-
+        serving counters (``sketch.*``), and the rollup tier's section
+        when it is open. The mesh section reports that tier off, as the
+        JAX daemon does without it."""
         sketch: dict = {}
         fused = {"attempt": 0, "served": 0, "declines": {},
                  "devcache": {"hit": 0, "miss": 0, "evict": 0}}
@@ -939,13 +953,25 @@ class TSDServer:
             self._trace_sample_seq += 1
             sampled = self._trace_sample_seq % sample_n == 0
         do_trace = want_trace or sampled or slow_ms > 0
-        # No /q disk cache here: every query executes.
+        # Approximate serving (sketch/serving.py, whose import registers
+        # the sketch.* instruments, as every /q of the JAX daemon does):
+        # ``approx=1`` lets a percentile downsample be served from the
+        # rollup tier's sketch columns at any reported bound;
+        # ``max_error=X`` (a relative half-width) implies the opt-in and
+        # caps it, an answer over it falls back to the exact path.
+        from opentsdb_tpu_torch.sketch.serving import ApproxSpec
+        max_error = _parse_max_error(q)
+        aspec = ApproxSpec(q.get("approx", "0") not in ("", "0")
+                           or max_error is not None, max_error)
+        # No /q disk cache here: every query executes (so no exact caller
+        # can be served an approximate answer from a cached one).
         self.cache_misses += 1
         loop = asyncio.get_running_loop()
         results = []
         plans = []
         cached = []
         traces = []
+        approx = []
         for m in ms:
             parsed = parse_m(m)
             spec = QuerySpec(
@@ -959,10 +985,12 @@ class TSDServer:
             trace = (obs_trace.Trace(
                 m, trace_id=q.get("trace_parent") or None)
                 if do_trace else None)
-            rs, plan, hit = await loop.run_in_executor(
-                self._pool, self.executor.run_with_plan, spec, start, end,
-                trace)
-            self._note_plan(plan)
+            rs, plan, hit, ainfo = await loop.run_in_executor(
+                self._pool, functools.partial(
+                    self.executor.run_approx, spec, start, end, trace,
+                    approx=aspec))
+            ajson = ainfo.as_json() if ainfo is not None else None
+            self._note_plan(plan, approx=ajson is not None)
             tdict = None
             if trace is not None:
                 rec = make_record(
@@ -982,13 +1010,25 @@ class TSDServer:
             plans.extend([plan] * len(rs))
             cached.extend([hit] * len(rs))
             traces.extend([tdict] * len(rs))
+            approx.extend([ajson] * len(rs))
+        extra = {}
+        served = [a for a in approx if a]
+        if served:
+            # The declared approximation, header form: the kinds involved
+            # and the worst reported relative bound.
+            tagv = ",".join(sorted({a.get("kind", "?") for a in served}))
+            rels = [a["rel_error"] for a in served
+                    if isinstance(a.get("rel_error"), (int, float))]
+            if rels:
+                tagv += f";rel_error={max(rels):.6g}"
+            extra["X-Tsd-Approx"] = tagv
         if "ascii" in q:
             return (200, "text/plain", self._ascii_output(results).encode(),
-                    {})
+                    extra)
         return (200, "application/json",
                 json.dumps(self._json_output(
                     results, plans, cached,
-                    traces if want_trace else None)).encode(), {})
+                    traces if want_trace else None, approx)).encode(), extra)
 
     async def _distinct(self, req) -> tuple:
         """Distinct values of one tag key. Without ``start`` (or with
@@ -1092,6 +1132,84 @@ class TSDServer:
             hdrs["X-Tsd-Approx"] = f"{ap.get('kind', '?')};rel_error={rel:.6g}"
         return 200, "application/json", json.dumps(out).encode(), hdrs
 
+    async def _forecast(self, req) -> tuple:
+        """Holt-Winters / EWMA forecasts and anomaly bands over a query's
+        result series (no reference analog), as the JAX daemon answers
+        them. Params: start, end, m= (each with a downsample, all with
+        one interval: the model's bucket grid), horizon (future buckets,
+        default 10), season (buckets, default 0), alpha / beta / gamma,
+        nsigma (default 3), model (hw or ewma). The series come from the
+        executor's ``run``; the model runs in one launch of the smoothing
+        kernels (``models/forecast.py``). ``png`` is answered 400 "not
+        yet ported"."""
+        q, params = req.q, req.params
+        if "start" not in q:
+            raise BadRequestError("Missing parameter: start")
+        now = int(time.time())
+        tz = q.get("tz")
+        start = timeparse.parse_date(q["start"], tz=tz, now=now)
+        end = (timeparse.parse_date(q["end"], tz=tz, now=now)
+               if q.get("end") else now)
+        ms = params.get("m", [])
+        if not ms:
+            raise BadRequestError("Missing parameter: m")
+
+        def num(name, default, lo, hi, as_int=False):
+            try:
+                v = float(q.get(name, default))
+                if as_int:
+                    v = int(v)
+            except (ValueError, OverflowError):
+                raise BadRequestError(
+                    f"invalid '{name}' parameter") from None
+            if not (lo <= v <= hi):
+                raise BadRequestError(
+                    f"'{name}' out of range [{lo}, {hi}]")
+            return v
+
+        opts = fcast.ForecastOpts(
+            horizon=num("horizon", 10, 1, 10000, as_int=True),
+            season=num("season", 0, 0, 10000, as_int=True),
+            alpha=num("alpha", 0.3, 0.0, 1.0),
+            beta=num("beta", 0.1, 0.0, 1.0),
+            gamma=num("gamma", 0.1, 0.0, 1.0),
+            nsigma=num("nsigma", 3.0, 0.1, 1000.0),
+            model=q.get("model", "hw"))
+        if opts.model not in ("hw", "ewma"):
+            raise BadRequestError(f"unknown model: {opts.model}")
+        loop = asyncio.get_running_loop()
+        results = []
+        interval = None
+        for m in ms:
+            parsed = parse_m(m)
+            if not parsed.downsample:
+                raise BadRequestError(
+                    "forecast queries need a downsample interval "
+                    "(e.g. m=sum:5m-avg:metric) to define the model grid")
+            if interval is None:
+                interval = parsed.downsample[0]
+            elif interval != parsed.downsample[0]:
+                raise BadRequestError(
+                    "all m= specs must share one downsample interval")
+            spec = QuerySpec(
+                metric=parsed.metric, tags=parsed.tags,
+                aggregator=parsed.aggregator, rate=parsed.rate,
+                downsample=parsed.downsample, counter=parsed.counter,
+                counter_max=parsed.counter_max,
+                reset_value=parsed.reset_value)
+            results.extend(await loop.run_in_executor(
+                self._pool, self.executor.run, spec, start, end))
+        if "png" in q:
+            raise not_yet_ported("PNG forecast graphs (leave out &png)")
+
+        def compute() -> bytes:
+            grid = fcast.model_grid(results, start, end, interval)
+            out = fcast.run_model(grid, opts, self.executor.device)
+            return fcast.body(results, grid, out, opts)
+
+        body = await loop.run_in_executor(self._pool, compute)
+        return 200, "application/json", body, {}
+
     @staticmethod
     def _fmt_value(v: float) -> str:
         return str(int(v)) if float(v).is_integer() else repr(float(v))
@@ -1109,7 +1227,8 @@ class TSDServer:
         return "\n".join(out) + ("\n" if out else "")
 
     @staticmethod
-    def _json_output(results, plans, cached, traces=None) -> list:
+    def _json_output(results, plans, cached, traces=None,
+                     approx=None) -> list:
         out = [{
             "metric": r.metric,
             "tags": r.tags,
@@ -1121,6 +1240,12 @@ class TSDServer:
             "dps": {str(int(t)): float(v)
                     for t, v in zip(r.timestamps, r.values)},
         } for i, r in enumerate(results)]
+        if approx:
+            # The error contract: a sketch-served answer carries its kind
+            # and reported bound.
+            for ent, ap in zip(out, approx):
+                if ap:
+                    ent["approx"] = ap
         if traces is not None:
             # ?trace=1 only: each sub-query's span tree, inline.
             for ent, tr in zip(out, traces):

@@ -1,4 +1,5 @@
-"""The ``tsd``, ``tenants``, ``fsck`` and ``stats`` commands.
+"""The ``tsd``, ``tenants``, ``fsck``, ``stats`` and ``sketch-plan``
+commands.
 
 Mirrors those subcommands of ``opentsdb_tpu/tools/cli.py`` (the
 reference's TSDMain.java for ``tsd``, Fsck.java for ``fsck``). The daemon serves on the CUDA card
@@ -43,6 +44,12 @@ summaries.
 ``fsck`` checks a store (``tools/fsck.py``); ``--fix`` salvages bad rows
 and ``--expect-clean`` exits 2 on any error, even when fixed.
 
+``--sketch-byte-budget N`` (every subcommand, as in the JAX CLI) spends
+N summary bytes across the rollup resolutions (``sketch/budget.py``)
+instead of the uniform cutoffs, and ``sketch-plan --budget N`` prints the
+allocation it would choose (the JAX CLI's bytes), with ``--url`` weighted
+by a live daemon's trace ring.
+
 ``stats`` prints the ``/stats`` lines (``--metrics``: the Prometheus text
 of ``/metrics``) of a live daemon (``--url``) or of a store (``--wal``:
 the engine's stats and the metrics registry; the server's own counters
@@ -54,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import os
 import signal
@@ -103,6 +111,8 @@ def apply_rollup_args(cfg: Config, args) -> Config:
                 break
     cfg.rollup_device_fold = bool(getattr(args, "rollup_device_fold",
                                           False))
+    if getattr(args, "sketch_byte_budget", None) is not None:
+        cfg.sketch_byte_budget = int(args.sketch_byte_budget)
     return cfg
 
 
@@ -275,8 +285,23 @@ def cmd_stats(args) -> int:
     from opentsdb_tpu_torch.obs.registry import METRICS
     from opentsdb_tpu_torch.stats.collector import StatsCollector
 
-    # An existing rollup tier is adopted for its /stats lines, without a
-    # catch-up: this command neither spills nor folds.
+    with _reader_tsdb(args) as tsdb:
+        c = StatsCollector("tsd")
+        tsdb.collect_stats(c)
+        METRICS.collect(c)
+    if args.metrics:
+        sys.stdout.write(METRICS.prometheus_text(extra_lines=c.lines))
+    elif c.lines:
+        print("\n".join(c.lines))
+    return 0
+
+
+@contextlib.contextmanager
+def _reader_tsdb(args):
+    """The store of a reading subcommand (``stats``, ``sketch-plan``): no
+    window, no sketches, an existing rollup tier adopted without a
+    catch-up (nothing spills or folds), and closed without a
+    checkpoint."""
     cfg = apply_rollup_args(
         Config(table=args.table, uidtable=args.uidtable,
                backend=args.backend, device=args.device,
@@ -285,9 +310,7 @@ def cmd_stats(args) -> int:
     tsdb = open_tsdb(cfg, args.wal, start_compaction_thread=False,
                      shards=args.shards)
     try:
-        c = StatsCollector("tsd")
-        tsdb.collect_stats(c)
-        METRICS.collect(c)
+        yield tsdb
     finally:
         tsdb.compactionq.shutdown()
         try:
@@ -295,10 +318,63 @@ def cmd_stats(args) -> int:
                 tsdb.rollups.close()
         finally:
             tsdb.store.close()
-    if args.metrics:
-        sys.stdout.write(METRICS.prometheus_text(extra_lines=c.lines))
-    elif c.lines:
-        print("\n".join(c.lines))
+
+
+def cmd_sketch_plan(args) -> int:
+    """Preview the accuracy-budgeted sketch allocation
+    (``sketch/budget.py``): record densities from the opened store's raw
+    tier, the query-workload profile from a live daemon's trace ring
+    (``--url``) or uniform weights. Printing only: the tier applies a
+    budget through ``--sketch-byte-budget`` at daemon start (a layout
+    change rebuilds). The store opens as ``stats`` opens it."""
+    from opentsdb_tpu_torch.core.const import MAX_TIMESPAN
+    from opentsdb_tpu_torch.sketch import budget as _budget
+
+    budget = args.budget
+    if budget is None:
+        budget = args.sketch_byte_budget
+    if not budget or budget <= 0:
+        print("sketch-plan needs --budget (or --sketch-byte-budget) "
+              "> 0", file=sys.stderr)
+        return 2
+    with _reader_tsdb(args) as tsdb:
+        tier = tsdb.rollups
+        if tier is not None:
+            resolutions = tier.resolutions
+            rows = tier._estimate_row_hours()
+            hll_p = tier.hll_p
+        else:
+            resolutions = tuple(sorted(
+                int(r) for r in tsdb.config.rollup_resolutions))
+            rows = 1
+            hll_p = tsdb.config.rollup_hll_p
+        records = {r: max(rows // max(r // MAX_TIMESPAN, 1), 1)
+                   for r in resolutions}
+        workload = None
+        if args.url:
+            try:
+                with urllib.request.urlopen(
+                        args.url.rstrip("/") + "/api/traces",
+                        timeout=10) as resp:
+                    ring = json.loads(resp.read())
+                workload = _budget.workload_from_ring(ring, resolutions)
+                print(f"workload profile from {args.url}: "
+                      + ", ".join(f"{r}s={w:g}" for r, w in
+                                  sorted(workload.items())))
+            except Exception as e:
+                print(f"could not fetch workload from {args.url}: {e}"
+                      f" (using uniform weights)", file=sys.stderr)
+        allocs = _budget.allocate(int(budget), records, workload,
+                                  hll_p=hll_p)
+        print(_budget.render_plan(allocs, int(budget)))
+        if tier is not None and tier.sketch_byte_budget:
+            current = {r: tuple(a) for r, a in tier.sketch_alloc.items()}
+            planned = {r: (a.digest_k, a.moment_k, a.hll_p)
+                       for r, a in allocs.items()}
+            if current != planned:
+                print("NOTE: differs from the tier's current applied "
+                      "allocation — restarting the writer with this "
+                      "budget will rebuild the tier")
     return 0
 
 
@@ -320,6 +396,13 @@ def _store_args(p: argparse.ArgumentParser) -> None:
                         "oracle")
     p.add_argument("--device", default="cuda",
                    help="torch device of the kernels (cuda or cpu)")
+    p.add_argument("--sketch-byte-budget", type=int, default=None,
+                   help="accuracy-budgeted sketch allocation (sketch/"
+                        "budget.py): spend this many summary bytes "
+                        "across the rollup resolutions (kind + size "
+                        "per resolution, Storyboard-style) instead of "
+                        "the uniform sketch_min_res cutoff; `tsdb "
+                        "sketch-plan` previews the allocation")
 
 
 def cmd_version(args) -> int:
@@ -460,6 +543,20 @@ def main(argv: list[str] | None = None) -> int:
                    help="Prometheus text exposition (/metrics) instead "
                         "of classic stats lines")
     p.set_defaults(func=cmd_stats)
+
+    p = sub.add_parser(
+        "sketch-plan",
+        help="preview the accuracy-budgeted sketch allocation for a "
+             "byte budget (sketch/budget.py)")
+    _store_args(p)
+    p.add_argument("--budget", type=int, default=None,
+                   help="summary-byte budget to plan for (falls back "
+                        "to --sketch-byte-budget)")
+    p.add_argument("--url", default=None,
+                   help="base URL of a live tsd: derive the query-"
+                        "workload profile from its /api/traces ring "
+                        "instead of uniform weights")
+    p.set_defaults(func=cmd_sketch_plan)
 
     p = sub.add_parser("version", help="print build/version information")
     p.add_argument("--verbose", action="store_true")

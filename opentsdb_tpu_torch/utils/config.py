@@ -100,9 +100,9 @@ class Config:
     # hand-written window-fold kernel, in float64): the tier declares
     # "device-f64" in its state file; off keeps the host fold.
     rollup_device_fold: bool = False
-    # Accuracy-budgeted sketch allocation (sketch/budget.py in the JAX
-    # package): > 0 is refused by the port's tier until ROADMAP queue A
-    # item 9 brings the allocator.
+    # Accuracy-budgeted sketch allocation (sketch/budget.py): > 0 spends
+    # this many summary bytes across the rollup resolutions instead of
+    # the uniform sketch_min_res / moment_min_res cutoffs.
     sketch_byte_budget: int = 0
 
     # compute: 'device' = the port's kernels on ``device``; 'cpu' = the

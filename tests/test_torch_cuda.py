@@ -1871,3 +1871,132 @@ def test_rollup_fold_rejects_unsorted_and_launch_failure(card):
             summary.window_summaries_device(
                 np.array([0, 5, 30]), np.ones(3), 3600, device="cuda")
     assert rollup_fold.window_fold.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The smoothing scans (csrc/smoothing.cu)
+# ---------------------------------------------------------------------------
+
+SMOOTHING_CASES = [
+    # (S, T, season, horizon): /forecast's hourly week at full width, its
+    # 5-minute week of ten dcs, the longest season the route takes, and
+    # the seasons around the kernel's prefetch switch (m >= 16).
+    (10_000, 169, 24, 24),
+    (10, 2017, 288, 24),
+    (64, 12_000, 10_000, 50),
+    (100, 300, 0, 10),
+    (100, 300, 1, 10),
+    (100, 300, 7, 10),
+    (100, 300, 15, 20),
+    (100, 300, 16, 20),
+    (33, 5, 24, 30),
+]
+
+
+def _smoothing_inputs(S, T, seed):
+    """Time-major [T, S] values and mask: a level, a drift, a daily
+    cycle, noise, ~20% gaps, one all-masked series and a spike."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T)[:, None]
+    v = (rng.normal(100, 30, (1, S)) + rng.normal(0, 0.05, (1, S)) * t
+         + rng.uniform(0, 10, (1, S)) * np.sin(2 * np.pi * t / 24)
+         + rng.normal(0, 2, (T, S)))
+    m = rng.random((T, S)) > 0.2
+    m[:, 0] = False
+    if S > 2:
+        v[T // 2, 2] += 1000.0
+        m[T // 2, 2] = True
+    v = np.where(m, v, 0.0).astype(np.float32)
+    return torch.from_numpy(v), torch.from_numpy(m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T,season,horizon", SMOOTHING_CASES)
+def test_smoothing_kernels_bit_identical_to_plain(card, S, T, season,
+                                                  horizon):
+    """Both kernels against their plain versions on the card, bit for bit
+    (every operation rounded on its own on both sides, sqrt correctly
+    rounded): the EWMA, and the fused Holt-Winters fit, bands, anomaly
+    flags, final state and forecasts; two calls bit-identical; one launch
+    a call."""
+    from opentsdb_tpu_torch.ops import smoothing
+    v, m = _smoothing_inputs(S, T, S + T + season)
+    v, m = v.to(card), m.to(card)
+    kw = dict(alpha=0.3, beta=0.1, gamma=0.2, season=season, nsigma=3.0,
+              resid_alpha=0.05, warmup=10, horizon=horizon)
+    before = (smoothing.ewma_scan.launches,
+              smoothing.holt_winters_bands.launches)
+    got = smoothing.holt_winters_bands(v, m, **kw)
+    again = smoothing.holt_winters_bands(v, m, **kw)
+    e = smoothing.ewma_scan(v, m, 0.3)
+    torch.cuda.synchronize()
+    assert (smoothing.ewma_scan.launches,
+            smoothing.holt_winters_bands.launches) == (before[0] + 1,
+                                                       before[1] + 2)
+    want = smoothing.holt_winters_bands_plain(v, m, **kw)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    for k in again:
+        assert torch.equal(again[k], want[k]), k
+    assert torch.equal(e, smoothing.ewma_scan_plain(v, m, 0.3))
+    if S > 2:
+        assert bool(got["anomaly"][T // 2, 2]) or T < 12
+
+
+@pytest.mark.cuda
+def test_smoothing_models_on_card(card):
+    """models/smoothing.py on CUDA tensors: the [S, T] views of the
+    kernels' time-major outputs equal the plain versions'."""
+    from opentsdb_tpu_torch.models import smoothing as sm
+    v, m = _smoothing_inputs(500, 169, 3)
+    v, m = v.t().to(card), m.t().to(card)
+    got = sm.anomaly_bands(v, m, 0.3, 0.1, 0.1, 24, horizon=24)
+    want = sm.anomaly_bands_plain(v, m, 0.3, 0.1, 0.1, 24, horizon=24)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert torch.equal(sm.ewma(v, m, 0.5), sm.ewma_plain(v, m, 0.5))
+    hw = sm.holt_winters(v, m, season_length=24)
+    fc = sm.hw_forecast(hw["level"], hw["trend"], hw["seasonal"],
+                        horizon=24, season_length=24, t_fitted=169)
+    assert torch.equal(fc, got["forecast"])
+
+
+@pytest.mark.cuda
+def test_smoothing_build_or_launch_failure_raises(card):
+    """A launch the card refuses (the library returns
+    cudaErrorInvalidConfiguration, 9) and a failed build both raise, with
+    no fallback to the plain version, and count no launch."""
+    from opentsdb_tpu_torch.ops import cuda_build, smoothing
+    v, m = _smoothing_inputs(8, 20, 1)
+    v, m = v.to(card), m.to(card)
+
+    class Refused:
+        @staticmethod
+        def ewma_scan_f32(*args):
+            return 9
+
+        @staticmethod
+        def holt_winters_bands_f32(*args):
+            return 9
+
+    def no_build(name):
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu")
+
+    smoothing._kernels()
+    before = (smoothing.ewma_scan.launches,
+              smoothing.holt_winters_bands.launches)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(smoothing, "_lib", Refused())
+        with pytest.raises(RuntimeError, match="launch failed"):
+            smoothing.ewma_scan(v, m, 0.3)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            smoothing.holt_winters_bands(v, m, season=4, horizon=3)
+        mp.setattr(smoothing, "_lib", None)
+        mp.setattr(cuda_build, "load", no_build)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            smoothing.ewma_scan(v, m, 0.3)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            smoothing.holt_winters_bands(v, m)
+    assert (smoothing.ewma_scan.launches,
+            smoothing.holt_winters_bands.launches) == before

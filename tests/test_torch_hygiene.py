@@ -283,3 +283,51 @@ def test_rollup_slice_lives_in_the_port():
         jax = jax.replace("(PR-13 pre-release)", "(a pre-release)")
         assert port.replace("opentsdb_tpu_torch.", "opentsdb_tpu.") == jax, \
             rel
+
+
+def test_smoothing_and_approx_slice_lives_in_the_port():
+    """The smoothing and approximate-serving slice is the port's own:
+    models/, ops/smoothing.py, sketch/serving.py and sketch/budget.py
+    each name the JAX module they mirror, csrc/smoothing.cu builds from
+    the package and names the scans it replaces, no module names the JAX
+    package's models module, and budget.py is the JAX file but for its
+    docstring and the package name."""
+    import importlib
+    import re
+    from opentsdb_tpu_torch.ops import cuda_build
+    mirrors = {
+        "opentsdb_tpu_torch.models": "opentsdb_tpu/models/",
+        "opentsdb_tpu_torch.models.smoothing":
+            "opentsdb_tpu/models/smoothing.py",
+        "opentsdb_tpu_torch.models.forecast": "opentsdb_tpu/server/tsd.py",
+        "opentsdb_tpu_torch.ops.smoothing":
+            "opentsdb_tpu/models/smoothing.py",
+        "opentsdb_tpu_torch.sketch.serving":
+            "opentsdb_tpu/sketch/serving.py",
+        "opentsdb_tpu_torch.sketch.budget": "opentsdb_tpu/sketch/budget.py",
+    }
+    for mod, src in mirrors.items():
+        assert src in importlib.import_module(mod).__doc__, mod
+    assert "smoothing" in cuda_build.sources()
+    pkg = os.path.join(ROOT, "opentsdb_tpu_torch")
+    cu = open(os.path.join(pkg, "csrc", "smoothing.cu")).read()
+    assert "opentsdb_tpu/models/smoothing.py" in cu
+    for fn in ("ewma_scan_f32", "holt_winters_bands_f32", "__fmul_rn",
+               "__fsqrt_rn"):
+        assert fn in cu, fn
+    banned = re.compile(r"opentsdb_tpu\.models\b")
+    for d, dirs, files in os.walk(pkg):
+        dirs[:] = [x for x in dirs if x not in ("_build", "__pycache__")]
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(d, fn)
+                assert banned.search(open(path).read()) is None, path
+    port = open(os.path.join(pkg, "sketch", "budget.py")).read()
+    jax = open(os.path.join(ROOT, "opentsdb_tpu", "sketch",
+                            "budget.py")).read()
+    strip = lambda s: s.split('"""', 2)[2]  # noqa: E731
+    # One docstring names the JAX project's history differently.
+    jax = re.sub(r"\(the \S+ slow-query/ambient-sample ring",
+                 "(the slow-query / ambient-sample ring", jax)
+    assert strip(port).replace("opentsdb_tpu_torch.", "opentsdb_tpu.") == \
+        strip(jax)

@@ -49,11 +49,12 @@ HOUR = 3600
 # /stats lines and /metrics families of the JAX daemon that the ``both``
 # comparisons leave out, by prefix, each with the ROADMAP queue A item
 # that brings its tier: the instruments the JAX package registers at
-# import for the mesh (11), the serving tier and cluster (10) and
-# approximate serving (9), which the port leaves out, and those of its
-# rollup tier module (6), which other tests in the process may have
-# imported. ``both_rollups`` compares the rollup ones with both tiers on.
-LEFT_OUT = ("rollup", "mesh", "router", "replica", "cluster", "sketch")
+# import for the mesh (11) and the serving tier and cluster (10), which
+# the port leaves out, and those of its rollup tier module (6), which
+# other tests in the process may have imported. ``both_rollups`` compares
+# the rollup ones with both tiers on. Approximate serving's ``sketch.*``
+# instruments (9) are compared: both daemons register them in /q.
+LEFT_OUT = ("rollup", "mesh", "router", "replica", "cluster")
 # The port's rollup tier module, which registers the tier's instruments
 # when it is imported: only a daemon with the tier on imports it.
 PORT_TIER = "opentsdb_tpu_torch.rollup.tier"
@@ -752,6 +753,10 @@ def test_stats_names_equal_but_for_the_left_out_tiers(both):
           if not _left_out(n) and not _history(n)}
     pn = _port_names(_stat_lines(got["stats"][1]), got)
     assert pn == jn
+    # Approximate serving's instruments, registered by /q in both.
+    assert {"tsd.sketch.serve.hit", "tsd.sketch.serve.fallback",
+            "tsd.sketch.error.reported",
+            "tsd.sketch.error.reported.count"} <= pn
     assert {"tsd.wal.appends", "tsd.checkpoint.phase.count",
             "tsd.checkpoint.shard_spill", "tsd.ingest.parse",
             "tsd.http.handler", "tsd.telnet.handler", "tsd.fsck.duration",
@@ -868,6 +873,8 @@ def test_metrics_families_and_types_equal(both):
     pf = _families(gt)
     assert {f: pf[f] for f in _port_names(pf, got)} == jf
     assert 'endpoint="/q"' in gt and 'cmd="help"' in gt
+    assert {f for f in pf if f.startswith("tsd_sketch_")} == {
+        f for f in jf if f.startswith("tsd_sketch_")} != set()
 
 
 @pytest.mark.parametrize("key", ["raw_cold", "raw_miss", "raw_hit",
@@ -959,7 +966,11 @@ def test_api_queries_sections(both):
     assert g["ingest"]["parse"]["count"] > 0
     mesh = dict(w["mesh"], compile_cache=g["mesh"]["compile_cache"])
     assert g["mesh"] == mesh
-    assert g["sketch"] == {}
+    # Approximate serving's counters: the JAX daemon's labels (the values
+    # are process-wide registry counts).
+    assert sorted(g["sketch"]) == sorted(w["sketch"]) == [
+        "error.reported.count", "error.reported.p95", "serve.fallback",
+        "serve.hit"]
     assert got["queries_page"] == want["queries_page"]
 
 

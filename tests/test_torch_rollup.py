@@ -19,8 +19,8 @@ and over four shards.
   the X-Tsd-Approx header byte for byte;
 - the device fold (the window-fold kernel's plain version here) declares
   device-f64 and matches the host tier's records within its contract;
-- the port's own limits: a sketch byte budget raises (ROADMAP item 9),
-  and a tier on disk with enable_rollups=False refuses a checkpoint;
+- a sketch byte budget opens a tier with the JAX tier's allocation, and
+  a tier on disk with enable_rollups=False refuses a checkpoint;
 - the CLI: ``tsd --rollups``, ``--rollup-resolutions``,
   ``--rollup-device-fold``, the auto-adopt, and ``stats``' rollup lines.
 """
@@ -639,8 +639,18 @@ def test_fold_kind_change_is_a_layout_change(tmp_path):
 
 
 def test_sketch_byte_budget_is_refused_until_item_9(tmp_path):
-    with pytest.raises(ValueError, match="item 9"):
-        port_tsdb(str(tmp_path / "p"), sketch_byte_budget=1 << 20)
+    """Item 9 brought the allocator (sketch/budget.py): a budget no
+    longer raises, and the port's tier spends it as the JAX tier does
+    (tests/test_torch_sketch_serving.py holds the budgeted tiers' bytes
+    and their crossing)."""
+    p = port_tsdb(str(tmp_path / "p"), sketch_byte_budget=1 << 20)
+    j = jax_tsdb(str(tmp_path / "j"), sketch_byte_budget=1 << 20)
+    try:
+        assert p.rollups.sketch_byte_budget == 1 << 20
+        assert p.rollups.sketch_alloc == j.rollups.sketch_alloc
+    finally:
+        p.shutdown()
+        j.shutdown()
 
 
 @pytest.mark.parametrize("shards", [1, 4])

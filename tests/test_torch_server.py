@@ -208,7 +208,7 @@ def test_cli_daemon_serves_and_keeps_its_wal(tmp_path):
     ("/q?start=1&m=sum:1h-avg:sys.load", 400, "not yet ported"),
     ("/q?start=1&m=sum:1h-avg:nope&ascii", 400, "No such name"),
     ("/sketch?m=sys.load", 200, '"series": 1'),
-    ("/forecast?m=sys.load", 400, "not yet ported"),
+    ("/forecast?start=1&m=sum:1h-avg:sys.load&png", 400, "not yet ported"),
     ("/aggregators", 200, "mimmax"),
     ("/version", 200, "opentsdb_tpu_torch"),
     ("/nothing", 404, "Not Found"),
@@ -417,3 +417,116 @@ def test_untraced_q_has_no_trace_key_and_matches_jax_daemon(monkeypatch):
     for (st, body), target in zip(got, UNTRACED_TARGETS):
         assert st == 200 and b"trace" not in body, target
     assert all("trace" not in g for g in json.loads(got[0][1]))
+
+
+# ---------------------------------------------------------------------------
+# /forecast against the JAX daemon
+# ---------------------------------------------------------------------------
+
+FC_START, FC_END = BT, BT + 4 * 86400 - 1
+FC_Q = f"/forecast?start={FC_START}&end={FC_END}"
+FC_TARGETS = [
+    FC_Q + "&m=sum:1h-avg:fc.m%7Bhost=*%7D&season=24&horizon=12",
+    FC_Q + "&m=sum:1h-avg:fc.m%7Bhost=*%7D&horizon=5&alpha=0.5&beta=0.2",
+    FC_Q + "&m=max:1h-max:fc.m&m=sum:1h-avg:fc.m%7Bhost=a%7D&season=24"
+    "&nsigma=2&gamma=0.3",
+    FC_Q + "&m=sum:1h-avg:fc.m%7Bhost=*%7D&model=ewma&alpha=0.2&horizon=3",
+    FC_Q + "&m=avg:30m-avg:fc.m&season=48&horizon=48&alpha=1&beta=0",
+    # The 400s.
+    FC_Q + "&m=sum:1h-avg:fc.m%7Bhost=zzz%7D",
+    "/forecast?m=sum:1h-avg:fc.m",
+    f"/forecast?start={FC_START}",
+    f"{FC_Q}&m=sum:fc.m",
+    f"{FC_Q}&m=sum:1h-avg:fc.m&m=sum:30m-avg:fc.m",
+    f"{FC_Q}&m=sum:1h-avg:fc.m&horizon=0",
+    f"{FC_Q}&m=sum:1h-avg:fc.m&horizon=10001",
+    f"{FC_Q}&m=sum:1h-avg:fc.m&horizon=abc",
+    f"{FC_Q}&m=sum:1h-avg:fc.m&horizon=inf",
+    f"{FC_Q}&m=sum:1h-avg:fc.m&season=-1",
+    f"{FC_Q}&m=sum:1h-avg:fc.m&season=10001",
+    f"{FC_Q}&m=sum:1h-avg:fc.m&alpha=-0.1",
+    f"{FC_Q}&m=sum:1h-avg:fc.m&alpha=1.5",
+    f"{FC_Q}&m=sum:1h-avg:fc.m&beta=2",
+    f"{FC_Q}&m=sum:1h-avg:fc.m&gamma=-1",
+    f"{FC_Q}&m=sum:1h-avg:fc.m&gamma=nan",
+    f"{FC_Q}&m=sum:1h-avg:fc.m&nsigma=0.05",
+    f"{FC_Q}&m=sum:1h-avg:fc.m&nsigma=1001",
+    f"{FC_Q}&m=sum:1h-avg:fc.m&model=arima",
+    f"{FC_Q}&m=sum:1h-avg:nope",
+    f"/forecast?start={FC_END}&end={FC_START}&m=sum:1h-avg:fc.m",
+]
+
+
+def _fc_lines(seed=5):
+    """Three hosts, 4 days at 10-minute steps: a daily cycle, a drift,
+    noise, gaps, and one spike on host b."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    for hi, host in enumerate("abc"):
+        ts = np.arange(FC_START, FC_END, 600)
+        ts = ts[rng.random(len(ts)) > 0.1]
+        day = np.sin(2 * np.pi * (ts - FC_START) / 86400)
+        v = 40 + 10 * hi + 8 * day + 0.0003 * (ts - FC_START) \
+            + rng.normal(0, 1, len(ts))
+        if host == "b":
+            v[len(v) * 3 // 4] += 150
+        lines += [f"put fc.m {t} {round(x, 3)} host={host}"
+                  for t, x in zip(ts.tolist(), v.tolist())]
+    return lines
+
+
+def _fc_answers(server_cls, tsdb):
+    server = server_cls(tsdb)
+
+    async def main():
+        await server.start()
+        try:
+            await _telnet(server.port, _fc_lines())
+            return [await _get_raw(server.port, t) for t in FC_TARGETS]
+        finally:
+            await server.stop()
+    return asyncio.run(main())
+
+
+def test_forecast_matches_jax_daemon():
+    """The same puts, then the same /forecast requests, to both daemons:
+    hw with and without a season, ewma, two m= at once;
+    the parsed bodies' keys, timestamps and anomaly lists equal, values
+    within rtol 1e-5 plus 1e-5 x the answer's scale (float32 on both
+    sides, XLA's CPU fusion rounding differently: tests/test_torch_models.py);
+    every 400 byte-identical."""
+    from opentsdb_tpu.server.tsd import TSDServer as JaxServer
+    cfg = dict(auto_create_metrics=True, port=0, bind="127.0.0.1",
+               device_window=False, enable_sketches=False)
+    want = _fc_answers(JaxServer, JaxTSDB(JaxStore(), JaxConfig(**cfg),
+                                          start_compaction_thread=False))
+    got = _fc_answers(TSDServer, TSDB(MemKVStore(),
+                                      Config(device="cpu", **cfg),
+                                      start_compaction_thread=False))
+    n_ok = anomalies = 0
+    for target, (gs, gh, gb), (ws, wh, wb) in zip(FC_TARGETS, got, want):
+        assert gs == ws, (target, gb)
+        assert gh.get("Content-Type") == wh.get("Content-Type"), target
+        if gs != 200:
+            assert gb == wb, target
+            continue
+        n_ok += 1
+        g, w = json.loads(gb), json.loads(wb)
+        assert len(g) == len(w), target
+        for ge, we in zip(g, w):
+            assert list(ge) == list(we), target
+            for k in ("metric", "tags", "model"):
+                assert ge[k] == we[k], (target, k)
+            if "anomalies" in we:
+                assert ge["anomalies"] == we["anomalies"], target
+                anomalies += len(we["anomalies"])
+            scale = max(abs(v) for v in we["fitted"].values())
+            for k in ("fitted", "forecast", "upper", "lower"):
+                if k not in we:
+                    continue
+                assert list(ge[k]) == list(we[k]), (target, k)
+                np.testing.assert_allclose(
+                    list(ge[k].values()), list(we[k].values()),
+                    rtol=1e-5, atol=1e-5 * scale, err_msg=f"{target} {k}")
+    assert n_ok == 5
+    assert anomalies > 0
