@@ -44,20 +44,26 @@
    the same on every run). Beside them the card's launch floor: an empty
    kernel launched the way the sketch wrappers launch theirs, timed the
    same three ways, and the host's time in each step of a wrapper call.
-   The rollup window fold (``csrc/rollup_fold.cu``) the same way at one
-   (series, day) of the corpus (~143 points, 24 windows: the checkpoint
-   fold's call) and at a week of one series at 1 s (604,800 points, 168
-   windows): two calls bit-identical, count, min, max, first, last and
-   the brackets exact against its plain version, the sum within rtol
-   1e-12, the records the host fold's (``window_fold`` and the tier's
-   entry, ``window_summaries_device``); beside the plain version, a
-   three-call scatter composite (no single PyTorch call computes it). A
-   child process (beside the path phase, see "Overlap") counts, under
-   ``torch.profiler``, the fold kernels of
-   20 and 5 calls of ``window_summaries_device`` at the two shapes and
-   of 100 checkpoint-fold calls (5e): the kernels line's
-   ``kernels_per_call`` is that count, and anything but one fold kernel
-   a call, or any other device event but copies, fails. The smoothing
+   The rollup window fold (``csrc/rollup_fold.cu``) the same way at the
+   tier's group (the first day of the rollup phase's 2,500 series at 1 h
+   and 1 d: one launch, the device-folded checkpoint's call), at one
+   (series, day) of the corpus (~143 points, 24 windows) and at a week
+   of one series at 1 s (604,800 points, 168 windows): two calls
+   bit-identical, every output bit for bit against its plain version
+   (which follows the kernel's order of addition), the records the host
+   fold's (count, min, max, first, last and the brackets exact, the sum
+   within rtol 1e-12) through ``window_fold`` and the tier's entries
+   (``group_summaries_device``, also byte for byte against its CPU run,
+   and ``window_summaries_device``); the group entry's host-inclusive
+   time beside one pass of the one-series entry over the same series
+   and resolutions and of the host fold; beside the plain version of a
+   series, a three-call scatter composite (no single PyTorch call
+   computes it). A child process (beside the path phase, see "Overlap")
+   counts, under ``torch.profiler``, the fold kernels of 3, 20 and 5
+   calls of ``group_summaries_device`` at the three shapes: the kernels
+   line's ``kernels_per_call`` is that count, and anything but one fold
+   kernel a call, or any other device event but copies, fails. The
+   smoothing
    scans (``csrc/smoothing.cu``) at ``/forecast``'s two grids, made from
    the corpus (each series' hourly means, 10,000 x 169 time-major; each
    dc's five-minute sums, 10 x 2,017): the fused Holt-Winters fit, bands
@@ -281,13 +287,15 @@
    fault point) and process death: the reopen catches the in-flight
    windows up (one rebuild) with the answers of before the crash. Then a
    TSDB folding the same series on the card (``rollup_device_fold``):
-   ``rollup_fold``'s launches counted over its checkpoint (must be > 0),
-   its fold s beside the host fold's, every record against the host
-   tier's (count, min, max, first, last and the brackets exact, the sum
-   within rtol 1e-12, the sketch cells byte-identical). The kernel
-   phase's child also counts 100 of the tier's own fold calls (the first
-   day of each of the corpus' first 100 series: exactly one fold kernel
-   a call, nothing but copies besides), reported here. Between the
+   ``rollup_fold``'s launches counted over its checkpoint (must be > 0
+   and at most one a (metric, coarse day) group) beside the groups, its
+   fold s beside the host fold's, every record against the host tier's
+   (count, min, max, first, last and the brackets exact, the sum within
+   rtol 1e-12, the sketch cells byte-identical) and every group's
+   records byte for byte against the plain version's on the host. The
+   kernel phase's child also counts the tier's own group call (the first
+   day of the 2,500 series: exactly one fold kernel a call, nothing but
+   copies besides), reported here. Between the
    ranged routes and the restart, approximate serving
    (``sketch/serving.py``): ``sum:1h-p95`` with ``approx=1``
    (``approx-1h``, moment columns) and ``max:1d-p99{dc=*}`` with
@@ -342,7 +350,8 @@
    shape; its full-width numbers under ``full_width``), the sketch
    kernels' the sketch path's (their other shapes under
    ``other_cases``), rollup_fold's the device-folded checkpoint's (at the
-   (series, day) shape; the week under ``other_cases``), the smoothing
+   group shape; the (series, day) and the week under ``other_cases``),
+   the smoothing
    kernels' the forecast path's (at the ``{host=*}`` 1h grid; the
    five-minute grid under ``other_cases``; with ``bytes_bound_ms``,
    ``chain_floor_ms`` and ``binds`` beside ``bound_ms``). Under ``paths``
@@ -3973,15 +3982,47 @@ ROLLUP_QUERIES = {"sum:1h-avg:bench.metric": "1h",
 ROLLUP_DECLINES = {"sum:rate:1h-avg:bench.metric": "rate",
                    "sum:1h-p95:bench.metric": "dsagg-p95"}
 ROLLUP_FOLD_WHERE = ("rollup_fold.cu", "opentsdb_tpu/rollup/summary.py:553")
-ROLLUP_PROFILED_CALLS = 100
+
+
+# Earlier times of the kernels this tree redesigned: (name, stage) ->
+# the PR that measured them and its numbers (PERF.md, H100 80GB HBM3 at
+# 700 W). Not this run's: they go on a labelled stderr line of their own
+# ("earlier"), beside this run's times at the same stages, and never into
+# the kernels line.
+EARLIER_MS = {
+    ("rollup_fold", "one (series, day) of the corpus, res 3600"): {
+        "pr": 17, "ms": 0.039983998984098434, "ms_cold": 0.014448000118136406,
+        "ms_device": 0.0040352001786232},
+    ("rollup_fold", "a week at a 1 s scrape, res 3600"): {
+        "pr": 17, "ms": 0.05371199920773506, "ms_cold": 0.07329599931836128,
+        "ms_device": 0.03420799970626831},
+    ("holt_winters", "{host=*} 1h, season 24"): {
+        "pr": 18, "ms": 0.11185599863529205, "ms_cold": 0.09011200070381165,
+        "ms_device": 0.05545439720153809},
+    ("holt_winters", "{dc=*} 5m, season 288"): {
+        "pr": 18, "ms": 0.5465919971466064, "ms_cold": 0.5783680081367493,
+        "ms_device": 0.4914576053619385},
+}
+ROLLUP_GROUP_STAGE = ("the tier's group: 2,500 series x one day, res 3600 "
+                      "and 86400")
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Two tensors bit for bit (floats compared as integers)."""
+    a, b = a.cpu(), b.cpu()
+    if a.is_floating_point():
+        a = a.view(torch.int64 if a.element_size() == 8 else torch.int32)
+        b = b.view(torch.int64 if b.element_size() == 8 else torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
 
 
 def fold_case(stage: str, ts: np.ndarray, vals: np.ndarray, res: int,
               flush: torch.Tensor) -> dict:
-    """The window-fold kernel on one series' sorted columns: held against
-    its plain version on the card (count, min, max, first, last and the
-    brackets exact, the sum within rtol 1e-12) and against the host fold
-    ``window_summaries``, then timed three ways beside the plain version
+    """The window-fold kernel on one series' sorted columns (its
+    one-series entry ``window_fold``): held against its plain version on
+    the card bit for bit (the plain version follows the kernel's order of
+    addition) and against the host fold ``window_summaries`` (the sum
+    within rtol 1e-12), then timed three ways beside the plain version
     and a three-call scatter composite (index_add_, amin, amax: not the
     same function, it has no brackets). The fold-count child counts its
     kernels a call (``start_fold_count``)."""
@@ -3990,33 +4031,31 @@ def fold_case(stage: str, ts: np.ndarray, vals: np.ndarray, res: int,
     W = (int(ts[-1]) - origin) // res + 1
     rel = torch.from_numpy((ts - origin).astype(np.int32)).to(dev)
     v = torch.from_numpy(np.asarray(vals, np.float64)).to(dev)
+    offs = torch.tensor([0, len(ts)], dtype=torch.int64, device=dev)
     got = [x.cpu() for x in rollup_fold.window_fold(rel, v, num_windows=W,
                                                     res=res)]
     again = [x.cpu() for x in rollup_fold.window_fold(
         rel, v, num_windows=W, res=res)]
     plain = [x.cpu() for x in rollup_fold.window_fold_plain(
         rel, v, num_windows=W, res=res)]
-    if not all(a.numpy().tobytes() == b.numpy().tobytes()
-               for a, b in zip(got, again)):
+    if not all(same_bits(a, b) for a, b in zip(got, again)):
         fail(f"rollup_fold [{stage}]: two calls differ")
-    some = got[0] > 0
-    for i, name in ((0, "count"), (2, "min"), (3, "max"), (4, "first"),
-                    (5, "last"), (6, "t_first"), (7, "t_last")):
-        if not torch.equal(got[i][some], plain[i][some]):
+    for i, name in enumerate(("count", "sum", "min", "max", "first", "last",
+                              "t_first", "t_last")):
+        if not same_bits(got[i], plain[i]):
             fail(f"rollup_fold [{stage}]: {name} differs from the plain "
                  f"version")
-    err = float((got[1] - plain[1]).abs().max())
-    if not torch.allclose(got[1], plain[1], rtol=1e-12, atol=0):
-        fail(f"rollup_fold [{stage}]: sum off by {err}")
     wb, rec = rsummary.window_summaries(ts, vals, res)
     idx = (wb - origin) // res
+    err = float(np.abs(got[1].numpy()[idx] - rec["sum"]).max())
     if not (np.array_equal(np.flatnonzero(got[0].numpy()), idx)
             and np.array_equal(got[2].numpy()[idx], rec["min"])
             and np.array_equal(got[5].numpy()[idx], rec["last"])
             and np.allclose(got[1].numpy()[idx], rec["sum"], rtol=1e-12,
                             atol=0)):
         fail(f"rollup_fold [{stage}]: records differ from the host fold")
-    # The tier's entry (window_fold behind the uploads and one download).
+    # The tier's one-series entry (window_fold behind the uploads and one
+    # download).
     dwb, drec = rsummary.window_summaries_device(ts, vals, res,
                                                  device=DEVICE)
     if not (np.array_equal(dwb, wb) and all(
@@ -4038,57 +4077,163 @@ def fold_case(stage: str, ts: np.ndarray, vals: np.ndarray, res: int,
                         device=dev).scatter_reduce_(0, w_, v, "amax")
         return s, mn, mx
 
-    nbytes = 12 * len(ts) + 52 * W
+    nbytes = 12 * len(ts) + 16 + 52 * W
     bms, by = bound_ms(nbytes, 0)
     res_ = {"name": "rollup_fold", "stage": stage, "points": len(ts),
-            "windows": W, "res": res, "max_abs_err": err, "bound_ms": bms,
-            "bound_by": by, "bytes": nbytes}
-    time_case(res_, lambda: rollup_fold._fold_launch(rel, v, W, res),
-              lambda: rollup_fold._fold_plain(rel, v, W, res), None, flush)
+            "series": 1, "windows": W, "res": res, "max_abs_err": err,
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes}
+    time_case(res_, lambda: rollup_fold._fold_launch(rel, v, offs, (res,),
+                                                     (W,)),
+              lambda: rollup_fold._fold_plain(rel, v, offs, (res,), (W,)),
+              None, flush)
     res_["library"] = NO_LIBRARY
     res_["scatter_composite_ms"] = median_ms(scatter)
     return res_
 
 
+def group_fold_case(stage: str, ts: np.ndarray, vals: np.ndarray,
+                    bounds: np.ndarray, res: tuple, flush) -> dict:
+    """The window-fold kernel at the tier's group shape (every series of
+    one coarse day at every resolution: one launch): bit for bit against
+    its plain version on the card, every series' records against the host
+    fold (the sum within rtol 1e-12) and, through the tier's entry
+    ``group_summaries_device``, byte for byte against the same entry on
+    the CPU; timed three ways beside the plain version; then the entry's
+    host-inclusive time a group (uploads, launch, one read-back, the
+    records) beside one pass of the one-series entry over the group's
+    series and resolutions (the launches the tier made before) and of the
+    host fold."""
+    dev = torch.device(DEVICE)
+    S = len(bounds) - 1
+    W = tuple(DAY // r for r in res)
+    rel = torch.from_numpy((ts - BASE).astype(np.int32)).to(dev)
+    v = torch.from_numpy(np.asarray(vals, np.float64)).to(dev)
+    offs = torch.from_numpy(bounds).to(dev)
+    got = rollup_fold.window_fold_batch(rel, v, offs, res=res,
+                                        num_windows=W)
+    again = rollup_fold.window_fold_batch(rel, v, offs, res=res,
+                                          num_windows=W)
+    plain = rollup_fold.window_fold_batch_plain(rel, v, offs, res=res,
+                                                num_windows=W)
+    if not all(same_bits(a, b) for a, b in zip(got, again)):
+        fail(f"rollup_fold [{stage}]: two calls differ")
+    if not all(same_bits(a, b) for a, b in zip(got, plain)):
+        fail(f"rollup_fold [{stage}]: differs from the plain version")
+    out = rsummary.group_summaries_device(ts, vals, bounds, BASE, DAY, res,
+                                          device=DEVICE)
+    cpu = rsummary.group_summaries_device(ts, vals, bounds, BASE, DAY, res,
+                                          device="cpu")
+    err = 0.0
+    for (wb, rec, st), (cwb, crec, cst), r in zip(out, cpu, res):
+        if not (np.array_equal(wb, cwb) and np.array_equal(st, cst)
+                and rec.tobytes() == crec.tobytes()):
+            fail(f"rollup_fold [{stage}]: group_summaries_device differs "
+                 f"from its CPU run")
+        for j in range(S):
+            a, b = bounds[j], bounds[j + 1]
+            hwb, hrec = rsummary.window_summaries(ts[a:b], vals[a:b], r)
+            got_rec = rec[st[j]:st[j + 1]]
+            if not (np.array_equal(wb[st[j]:st[j + 1]], hwb) and all(
+                    np.array_equal(got_rec[f], hrec[f]) for f in (
+                        "count", "min", "max", "first", "last",
+                        "first_dt", "last_dt"))
+                    and np.allclose(got_rec["sum"], hrec["sum"],
+                                    rtol=1e-12, atol=0)):
+                fail(f"rollup_fold [{stage}]: series {j} at {r} differs "
+                     f"from the host fold")
+            if len(hrec):
+                err = max(err, float(np.abs(got_rec["sum"]
+                                            - hrec["sum"]).max()))
+    N = rollup_fold.grid_slots(S, W)[-1]
+    nbytes = 12 * len(ts) + 8 * (S + 1) + 52 * N
+    bms, by = bound_ms(nbytes, 0)
+    res_ = {"name": "rollup_fold", "stage": stage, "points": len(ts),
+            "series": S, "windows": list(W), "res": list(res), "slots": N,
+            "max_abs_err": err, "bound_ms": bms, "bound_by": by,
+            "bytes": nbytes}
+    time_case(res_, lambda: rollup_fold._fold_launch(rel, v, offs, res, W),
+              lambda: rollup_fold._fold_plain(rel, v, offs, res, W), None,
+              flush)
+    res_["library"] = NO_LIBRARY
+    res_["entry_ms"] = median_ms(lambda: rsummary.group_summaries_device(
+        ts, vals, bounds, BASE, DAY, res, device=DEVICE), 5)
+    t0 = time.perf_counter()
+    for j in range(S):
+        for r in res:
+            rsummary.window_summaries_device(ts[bounds[j]:bounds[j + 1]],
+                                             vals[bounds[j]:bounds[j + 1]],
+                                             r, device=DEVICE)
+    t1 = time.perf_counter()
+    for j in range(S):
+        for r in res:
+            rsummary.window_summaries(ts[bounds[j]:bounds[j + 1]],
+                                      vals[bounds[j]:bounds[j + 1]], r)
+    t2 = time.perf_counter()
+    res_["one_series_entry_ms"] = (t1 - t0) * 1e3
+    res_["one_series_calls"] = S * len(res)
+    res_["host_fold_ms"] = (t2 - t1) * 1e3
+    log(f"rollup_fold group entry: {res_['entry_ms']:.2f} ms a group "
+        f"against {res_['one_series_entry_ms']:.1f} ms through "
+        f"{S * len(res):,} one-series calls and {res_['host_fold_ms']:.1f} "
+        f"ms of host fold")
+    return res_
+
+
+def corpus_day_group(ts: np.ndarray, vals: np.ndarray, S: int) -> tuple:
+    """(ts, vals, bounds) of the first day of the corpus' first S series,
+    concatenated: the tier's group (one coarse day of the metric)."""
+    cols = [(ts[s][ts[s] < BASE + DAY].astype(np.int64),
+             vals[s][ts[s] < BASE + DAY].astype(np.float64))
+            for s in range(S)]
+    bounds = np.concatenate(([0], np.cumsum([len(t) for t, _ in cols])))
+    return (np.concatenate([t for t, _ in cols]),
+            np.concatenate([v for _, v in cols]), bounds.astype(np.int64))
+
+
 def rollup_fold_cases() -> tuple:
-    """The fold kernel at two shapes: one (series, day) of the corpus
-    (~143 points, 24 windows, res 3600: the checkpoint fold's call) and
-    a week of one series at a 1 s scrape (604,800 points, 168 windows);
-    and the cases of the child that counts their kernels
+    """The fold kernel at three shapes: the tier's group (the first day
+    of the rollup phase's 2,500 series at 1 h and 1 d: one launch a
+    group, the device-folded checkpoint's call), one (series, day) of the
+    corpus (~143 points, 24 windows, res 3600: the call a (series,
+    resolution) that the tier made before the group fold) and a week of
+    one series at a 1 s scrape (604,800 points, 168 windows); and the
+    cases of the child that counts their kernels
     (``start_fold_count``)."""
     ts, vals = corpus()
-    days = [(ts[s][ts[s] < BASE + DAY].astype(np.int64),
-             vals[s][ts[s] < BASE + DAY].astype(np.float64))
-            for s in range(ROLLUP_PROFILED_CALLS)]
-    small = days[0]
+    group = corpus_day_group(ts, vals, ROLLUP_SERIES)
     del ts, vals
+    small = (group[0][:group[2][1]], group[1][:group[2][1]])
     rng = np.random.default_rng(53)
     week = (BASE + np.arange(SPAN, dtype=np.int64),
             1000.0 + np.cumsum(rng.normal(0, 0.1, SPAN)))
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=DEVICE)
-    out = [fold_case("one (series, day) of the corpus, res 3600",
+    out = [group_fold_case(ROLLUP_GROUP_STAGE, *group, (3600, DAY), flush),
+           fold_case("one (series, day) of the corpus, res 3600",
                      *small, 3600, flush),
            fold_case("a week at a 1 s scrape, res 3600", *week, 3600,
                      flush)]
     del flush
-    return out, [([small], 3600, 20), ([week], 3600, 5), (days, 3600, 1)]
+    one = lambda t, v: (t, v, np.array([0, len(t)], np.int64))  # noqa
+    return out, [([group], (3600, DAY), DAY, 3),
+                 ([one(*small)], (3600,), DAY, 20),
+                 ([one(*week)], (3600,), SPAN, 5)]
 
 
-# Calls of window_summaries_device (the tier's checkpoint fold) under
-# torch.profiler, in a fresh process: per case of the .npz in argv[1],
-# one JSON line with the fold kernels the card ran, the calls made, the
-# wrapper's own launch count over them and every other device event but
-# copies; then the same calls timed without the profiler, and through
-# the host fold window_summaries (us a call). The profiler's CUPTI trace
-# has lost kernel records on a loaded card (99 of 100 fold kernels once
-# in this child beside the path phase, 90 of 100 once in the smoke's own
-# process, while the wrapper counted 100 launches and the records were
-# right): a profile whose fold records fall short of the wrapper's
-# launches, with no other device event, is taken again, up to
-# PROFILES times, and each shortfall is reported ("records_lost"). Any
-# other outcome is final, and join_fold_count holds it to one fold
-# kernel a call.
+# Calls of group_summaries_device (the tier's checkpoint fold: one call a
+# (metric, coarse window) group) under torch.profiler, in a fresh
+# process: per case of the .npz in argv[1], one JSON line with the fold
+# kernels the card ran, the calls made, the wrapper's own launch count
+# over them and every other device event but copies; then the same calls
+# timed without the profiler, and through the host fold window_summaries
+# (us a call). The profiler's CUPTI trace has lost kernel records on a
+# loaded card (99 of 100 fold kernels once in this child beside the path
+# phase, 90 of 100 once in the smoke's own process, while the wrapper
+# counted 100 launches and the records were right): a profile whose fold
+# records fall short of the wrapper's launches, with no other device
+# event, is taken again, up to PROFILES times, and each shortfall is
+# reported ("records_lost"). Any other outcome is final, and
+# join_fold_count holds it to one fold kernel a call.
 FOLD_COUNT = """
 import json, sys, time
 import numpy as np
@@ -4100,50 +4245,59 @@ from opentsdb_tpu_torch.rollup import summary
 PROFILES = 5
 
 
-def profiled(calls, res):
+def fold(calls, origin, span, res):
+    for ts, v, b in calls:
+        summary.group_summaries_device(ts, v, b, origin, span, res,
+                                       device="cuda")
+
+
+def profiled(calls, origin, span, res):
     before = rollup_fold.window_fold.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for ts, v in calls:
-            summary.window_summaries_device(ts, v, res, device="cuda")
+        fold(calls, origin, span, res)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     names = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             names[e.name] = names.get(e.name, 0) + 1
-    fold = sum(n for k, n in names.items() if "window_fold" in k)
-    other = {k: n for k, n in names.items()
-             if "window_fold" not in k and "memcpy" not in k.lower()}
-    return fold, other, rollup_fold.window_fold.launches - before, wall
+    n = sum(k for name, k in names.items() if "window_fold" in name)
+    other = {name: k for name, k in names.items()
+             if "window_fold" not in name and "memcpy" not in name.lower()}
+    return n, other, rollup_fold.window_fold.launches - before, wall
 
 
 data = np.load(sys.argv[1])
 for c in range(int(data["cases"])):
-    calls = [(data[f"ts{c}_{i}"], data[f"v{c}_{i}"])
+    calls = [(data[f"ts{c}_{i}"], data[f"v{c}_{i}"], data[f"b{c}_{i}"])
              for i in range(int(data[f"n{c}"]))] * int(data[f"repeat{c}"])
-    res = int(data[f"res{c}"])
-    summary.window_summaries_device(*calls[0], res, device="cuda")
+    res = tuple(int(r) for r in data[f"res{c}"])
+    origin, span = int(data[f"origin{c}"]), int(data[f"span{c}"])
+    fold(calls[:1], origin, span, res)
     torch.cuda.synchronize()
     lost = []
     for taken in range(1, PROFILES + 1):
-        fold, other, launched, wall = profiled(calls, res)
-        if fold >= launched or other or launched != len(calls):
+        n, other, launched, wall = profiled(calls, origin, span, res)
+        if n >= launched or other or launched != len(calls):
             break
-        lost.append(launched - fold)
+        lost.append(launched - n)
     t0 = time.perf_counter()
-    for ts, v in calls:
-        summary.window_summaries_device(ts, v, res, device="cuda")
+    fold(calls, origin, span, res)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    for ts, v in calls:
-        summary.window_summaries(ts, v, res)
+    for ts, v, b in calls:
+        for j in range(len(b) - 1):
+            for r in res:
+                summary.window_summaries(ts[b[j]:b[j + 1]],
+                                         v[b[j]:b[j + 1]], r)
     t2 = time.perf_counter()
     print(json.dumps({
-        "calls": len(calls), "fold_kernels": fold,
+        "calls": len(calls), "series_per_call": len(calls[0][2]) - 1,
+        "resolutions": list(res), "fold_kernels": n,
         "wrapper_launches": launched,
-        "kernels_per_call": fold / len(calls),
+        "kernels_per_call": n / len(calls),
         "other_device_events": other,
         "profiles": taken, "records_lost": lost,
         "profiled_host_ms_per_call": wall / len(calls),
@@ -4185,35 +4339,38 @@ def join_count(job: tuple, what: str) -> list:
 
 
 def start_fold_count(cases: list) -> tuple:
-    """Each case, (calls [(ts, vals)], res, repeat), through
-    window_summaries_device ``repeat`` times over under torch.profiler in
-    a child process."""
+    """Each case, (groups [(ts, vals, bounds)], res, span, repeat),
+    through group_summaries_device (origin BASE) ``repeat`` times over
+    under torch.profiler in a child process."""
     arrays = {"cases": len(cases)}
-    for c, (calls, res, repeat) in enumerate(cases):
-        arrays.update({f"n{c}": len(calls), f"res{c}": res,
+    for c, (calls, res, span, repeat) in enumerate(cases):
+        arrays.update({f"n{c}": len(calls), f"res{c}": np.asarray(res),
+                       f"origin{c}": BASE, f"span{c}": span,
                        f"repeat{c}": repeat})
-        for i, (ts, v) in enumerate(calls):
+        for i, (ts, v, b) in enumerate(calls):
             arrays[f"ts{c}_{i}"] = ts
             arrays[f"v{c}_{i}"] = v
+            arrays[f"b{c}_{i}"] = b
     return start_count(FOLD_COUNT, arrays)
 
 
 def join_fold_count(job: tuple, records: list) -> None:
     """The fold-count child's counts onto the fold records: exactly one
     fold kernel a call, as many wrapper launches as calls and no other
-    device event but copies, or the run fails. The third case is the checkpoint fold's own calls (the first
-    day of each of the corpus' first ROLLUP_PROFILED_CALLS series),
-    reported with the rollup phase's device fold."""
+    device event but copies, or the run fails. The first case is the
+    tier's own call (the group of the first day of the rollup phase's
+    series at both resolutions), reported with the rollup phase's device
+    fold."""
     counts = join_count(job, "fold")
     for c in counts:
         if c["fold_kernels"] != c["calls"] or c["other_device_events"] \
                 or c["wrapper_launches"] != c["calls"]:
-            fail(f"window_summaries_device: not one fold kernel a call, "
+            fail(f"group_summaries_device: not one fold kernel a call, "
                  f"or other device work: {c}")
     for r, c in zip(records, counts):
         r["kernels_per_call"] = c["kernels_per_call"]
         r["profiled"] = c
-    records[0]["profiled_tier_calls"] = counts[2]
+    records[0]["profiled_tier_calls"] = counts[0]
 
 
 # ---------------------------------------------------------------------------
@@ -4937,6 +5094,18 @@ def rollup_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
             for s in range(S):
                 dtsdb.add_batch("bench.metric", ts[s], vals[s],
                                 series_tags(s))
+            # Each group fold's inputs and records, kept (not copied: the
+            # tier hands it fresh arrays) to be held against the plain
+            # version on the host after the checkpoint.
+            groups = []
+            group_fold = dtsdb.rollups._group_fold
+
+            def kept(ts_, vals_, bounds, origin, span, res):
+                out_ = group_fold(ts_, vals_, bounds, origin, span, res)
+                groups.append((ts_, vals_, bounds, origin, span, res, out_))
+                return out_
+
+            dtsdb.rollups._group_fold = kept
             rollup_fold.window_fold.launches = 0
             f0 = fold_timer.total_ms
             dck = timed_checkpoint(dtsdb, "device-folded checkpoint")
@@ -4945,10 +5114,23 @@ def rollup_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
             if launches == 0:
                 fail("the device-folded checkpoint never launched "
                      "rollup_fold")
+            if launches > len(groups):
+                fail(f"the device-folded checkpoint launched rollup_fold "
+                     f"{launches} times for {len(groups)} groups")
             dev_records = tier_records(dtsdb)
             kind = dtsdb.rollups.fold_kind
         finally:
             dtsdb.shutdown()
+    t0 = time.perf_counter()
+    for ts_, vals_, bounds, origin, span, res, out_ in groups:
+        want = rsummary.group_summaries_device(ts_, vals_, bounds, origin,
+                                               span, res, device="cpu")
+        for (wb, rec, st), (pwb, prec, pst) in zip(out_, want):
+            if not (np.array_equal(wb, pwb) and np.array_equal(st, pst)
+                    and rec.tobytes() == prec.tobytes()):
+                fail("device-folded tier: a group's records differ from "
+                     "the plain version's on the host")
+    plain_check_s = time.perf_counter() - t0
     if dev_records.keys() != host_records.keys() or kind != "device-f64":
         fail(f"device-folded tier: {kind}, rows differ from the host's")
     worst = 0.0
@@ -4967,11 +5149,18 @@ def rollup_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
             np.abs(a), 1e-300)).max()))
     out["device_fold"] = {"checkpoint": dck, "fold_s": dck["fold_s"],
                           "host_fold_s": out["checkpoint_1"]["fold_s"],
-                          "launches": launches, "kind": kind,
+                          "launches": launches, "groups": len(groups),
+                          "series_per_group": [len(g[2]) - 1
+                                               for g in groups],
+                          "plain_check_s": plain_check_s, "kind": kind,
                           "records": sum(len(m) for m, _ in
                                          dev_records.values()),
                           "sum_max_rel_err": worst}
     step("device-folded tier")
+    d = out["device_fold"]
+    log(f"device-folded checkpoint: rollup_fold launched {launches} times "
+        f"for {len(groups)} groups; fold_s {d['fold_s']:.2f} against the "
+        f"host fold's {d['host_fold_s']:.2f}")
     log(f"device-folded tier: {out['device_fold']}; steps {steps}")
     return out
 
@@ -5067,8 +5256,7 @@ def main() -> int:
         "merged_quantile": {
             "sketch": "all series, S = 16,384 (2,097,152 entries)"},
         "block_decode": {"fused": "week gather (TSF32)"},
-        "rollup_fold": {
-            "device fold": "one (series, day) of the corpus, res 3600"},
+        "rollup_fold": {"device fold": ROLLUP_GROUP_STAGE},
         "ewma_scan": {"forecast": "{host=*} 1h"},
         "holt_winters": {"forecast": "{host=*} 1h, season 24"}}
     where = {
@@ -5118,8 +5306,9 @@ def main() -> int:
                                                 "rollup_fold")
                   + tuple(SMOOTHING_WHERE)]
         if others:
-            entry["other_cases"] = {r["stage"]: {k: r[k] for k in numbers}
-                                    for r in others}
+            entry["other_cases"] = {
+                r["stage"]: {k: r[k] for k in numbers if k in r}
+                for r in others}
         if name in ("block_decode", "rollup_fold") + tuple(
                 SMOOTHING_WHERE):
             entry["library"] = NO_LIBRARY
@@ -5263,9 +5452,11 @@ def main() -> int:
             r["profiled_tier_calls"] for r in kernels
             if "profiled_tier_calls" in r)),
         "fold_cases": {r["stage"]: {k: r[k] for k in (
-            "points", "windows", "ms", "ms_cold", "ms_device", "plain_ms",
-            "scatter_composite_ms", "bound_ms", "bytes", "max_abs_err",
-            "kernels_per_call", "profiled")}
+            "points", "series", "windows", "ms", "ms_cold", "ms_device",
+            "plain_ms", "scatter_composite_ms", "entry_ms",
+            "one_series_entry_ms", "host_fold_ms", "bound_ms", "bytes",
+            "max_abs_err", "kernels_per_call", "profiled")
+            if k in r}
             for r in kernels if r["name"] == "rollup_fold"}},
         "card": smi}))
     print(json.dumps({"forecast": {
@@ -5296,6 +5487,13 @@ def main() -> int:
                                "eviction")}, "card": smi}))
     print(json.dumps({"launch_floor": next(
         r for r in kernels if r["name"] == "launch_floor"), "card": smi}))
+    log(json.dumps({"earlier": {
+        "note": "typed in from PERF.md (earlier PRs' chip runs, H100 80GB "
+                "HBM3, 700 W), not measured by this run",
+        "cases": [{"name": name, "stage": stage, **then,
+                   "this_run": {k: by_case[(name, stage)][k] for k in (
+                       "ms", "ms_cold", "ms_device")}}
+                  for (name, stage), then in EARLIER_MS.items()]}}))
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,46 +1,63 @@
 // Rollup window fold: per-window count, sum, min, max, first, last and
-// the first/last timestamps of one series' time-sorted points, in float64.
+// the first/last timestamps of many series' time-sorted points at several
+// resolutions, in float64, in one launch.
 //
 // Replaces: the XLA fold of the JAX package's device checkpoint fold,
 // opentsdb_tpu/rollup/summary.py _device_fold_fn / fold (a scatter add,
 // a scatter min and a scatter max over w = rel_ts // res, plus scatter
 // min/max of point indices for the first/last brackets), behind
-// window_summaries_device. The TPU ran it in float32; this kernel runs it
-// in float64 (the tier declares "device-f64").
+// window_summaries_device, which the JAX tier calls once a (series,
+// resolution). The TPU ran it in float32; this kernel runs it in float64
+// (the tier declares "device-f64").
 //
-// Input: rel_ts int32 [n], sorted ascending (the rollup fold's lexsorted,
-// deduplicated columns), vals float64 [n]; windows w in [0, W) of res
-// seconds. As in the JAX fold, window 0 also takes points below 0 and
-// window W - 1 points at or past W * res (the clip).
+// Input: S segments (series) of one coarse window, concatenated:
+// rel_ts int32 [n] (timestamps less the group's origin, sorted ascending
+// within each segment: the rollup fold's lexsorted, deduplicated
+// columns), vals float64 [n], offsets int64 [S + 1]. Up to kMaxRes
+// resolutions; resolution i has W_i windows of res_i seconds from the
+// origin. As in the JAX fold, window 0 also takes points below 0 and
+// window W_i - 1 points at or past W_i * res_i (the clip).
 //
-// Design: one warp per window slot, eight warps a block, one launch a
-// call, no atomics and no memset (every output slot is written).
-// - Two binary searches over rel_ts give the window's [lo, hi): lo is the
-//   first point >= w * res (0 for window 0), hi the first >= (w + 1) * res
-//   (n for the last window). Neighbouring windows search the same key, so
-//   on sorted input the ranges tile [0, n) exactly.
+// Output: a dense grid of slots (resolution, series, window), slot
+// slot0[i] + j * W_i + w, every slot written: icol int32 [3, N] (count,
+// t_first, t_last) and fcol float64 [5, N] (sum, min, max, first, last).
+//
+// Design: one warp per slot, eight warps a block, one launch for the
+// whole group, no atomics and no memset.
+// - Two binary searches over the slot's series give the window's
+//   [lo, hi): lo is the first point >= w * res (the series' start for
+//   window 0), hi the first >= (w + 1) * res (its end for the last
+//   window). Neighbouring windows search the same key, so on sorted input
+//   the ranges tile each series exactly.
 // - Lane l folds points lo + l, lo + l + 32, ... in index order; then a
 //   fixed __shfl_xor_sync butterfly (offsets 16, 8, 4, 2, 1) combines the
 //   lanes. The sum order is therefore fixed: per lane, a sequential sum
-//   over its stride; across lanes, the butterfly tree. Two calls on the
-//   same input give identical bits. It is not numpy's pairwise order, so
-//   sums agree with the host fold to float64 associativity (rtol 1e-12),
-//   and count, min, max, first, last and the brackets exactly.
+//   over its stride; across lanes, the butterfly tree. It is the order of
+//   the one-call-a-(series, resolution) kernel this one replaced, so a
+//   record's bytes are the ones that kernel wrote and a tier folded by
+//   it opens without a rebuild (the kind stays "device-f64"). Keep the
+//   order: a faster one would put records of two orders in one stored
+//   row, which is what a fold-kind change exists to forbid. The plain
+//   version (ops/rollup_fold.py) reproduces it, so the two agree bit for
+//   bit; against numpy's pairwise sums the records agree to float64
+//   associativity (rtol 1e-12), count, min, max, first, last and the
+//   brackets exactly.
 // - min and max propagate NaN as numpy's minimum / maximum do.
 // - Order check without a flag word: each warp checks every adjacent pair
-//   (i, i + 1) with i in its [lo, hi), and that lo <= hi. On sorted input
-//   that covers every pair once; if any check fails the window's count is
-//   written as -1 and the wrapper raises.
+//   (i, i + 1) of its series with i in its [lo, hi), and that lo <= hi.
+//   If the searches' ranges are monotone they tile the series and every
+//   pair is checked; if not, some lo > hi. A slot that sees a violation
+//   writes count -1, and the wrapper raises after its one read-back.
 //
-// Bound: bytes. Each point is read once (4 B timestamp + 8 B value) and
-// each window writes 3 int32 + 5 float64 (52 B; the record's 56 B less
-// padding). At the rollup tier's shapes (a coarse window's series: ~100
-// points, 24 windows) a call is a few hundred bytes, far below the launch
-// floor, so the call's cost is the launch and the copies around it.
-// A long series (604,800 points, 168 windows) keeps 168 warps busy on 21
-// SMs: each lane's loop is unrolled four deep so several loads are in
-// flight; a block per window would spread wider, at the cost of a shared
-// memory combine (later work).
+// Bound: bytes. Each point is read once (4 B timestamp + 8 B value), the
+// offsets once, and each slot writes 3 int32 + 5 float64 (52 B). The
+// tier's group (2,500 series x one day, 143 points each, resolutions 1 h
+// and 1 d: 25 slots a series) is ~4.3 MB in and ~3.3 MB out: ~2.3 us at
+// the card's 3.35 TB/s. The kernel it replaced ran once a (series,
+// resolution) at ~1.7 KB a call, so each call cost the launch floor
+// (~1.8 us on the card) and the wrapper's host work around it (two
+// uploads, a sync, a read-back: ~0.2-0.3 ms); a group is now one launch,
+// two uploads and one read-back.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -50,6 +67,20 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarpsPerBlock = 8;
+constexpr int kMaxRes = 8;
+
+}  // namespace
+
+// The slot grid: resolution i has W_i = windows[i] windows of res[i]
+// seconds, its slots start at slot0[i]; slot0[nres] is the grid's size.
+struct FoldGrid {
+  int32_t nres;
+  int32_t res[kMaxRes];
+  int32_t windows[kMaxRes];
+  int64_t slot0[kMaxRes + 1];
+};
+
+namespace {
 
 __device__ __forceinline__ int64_t lower_bound(const int32_t* __restrict__ a,
                                                int64_t n, int64_t key) {
@@ -74,28 +105,40 @@ __device__ __forceinline__ double nan_max(double a, double b) {
 
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 window_fold_kernel(const int32_t* __restrict__ rel,
-                   const double* __restrict__ vals, int64_t n, int32_t W,
-                   int32_t res, int32_t* __restrict__ icol,
-                   double* __restrict__ fcol) {
+                   const double* __restrict__ vals,
+                   const int64_t* __restrict__ offs, const FoldGrid g,
+                   int32_t* __restrict__ icol, double* __restrict__ fcol) {
   const int lane = threadIdx.x & 31;
-  const int64_t w = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) +
-                    (threadIdx.x >> 5);
-  if (w >= W) return;
-  const int64_t lo =
-      w == 0 ? 0 : lower_bound(rel, n, w * static_cast<int64_t>(res));
-  const int64_t hi =
-      w == W - 1 ? n
-                 : lower_bound(rel, n, (w + 1) * static_cast<int64_t>(res));
-  bool bad = lo > hi;
+  const int64_t N = g.slot0[g.nres];
+  const int64_t slot = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
+                       (threadIdx.x >> 5);
+  if (slot >= N) return;  // warp-uniform: a warp owns one slot
+  int i = 0;
+  while (slot >= g.slot0[i + 1]) ++i;
+  const int64_t W = g.windows[i];
+  const int64_t res = g.res[i];
+  const int64_t local = slot - g.slot0[i];
+  const int64_t series = local / W;
+  const int64_t w = local - series * W;
+  const int64_t a = offs[series], b = offs[series + 1];
+  const int64_t n = b - a;
+  bool bad = n < 0;
+  int64_t lo = a, hi = a;
+  if (!bad) {
+    const int32_t* const r = rel + a;
+    lo = a + (w == 0 ? 0 : lower_bound(r, n, w * res));
+    hi = a + (w == W - 1 ? n : lower_bound(r, n, (w + 1) * res));
+    bad = lo > hi;
+  }
   double s = 0.0, mn = INFINITY, mx = -INFINITY;
   if (!bad) {
 #pragma unroll 4
-    for (int64_t i = lo + lane; i < hi; i += 32) {
-      const double v = vals[i];
+    for (int64_t k = lo + lane; k < hi; k += 32) {
+      const double v = vals[k];
       s += v;
       mn = nan_min(mn, v);
       mx = nan_max(mx, v);
-      if (i + 1 < n && rel[i + 1] < rel[i]) bad = true;
+      if (k + 1 < b && rel[k + 1] < rel[k]) bad = true;
     }
   }
 #pragma unroll
@@ -108,29 +151,33 @@ window_fold_kernel(const int32_t* __restrict__ rel,
   if (lane == 0) {
     const int32_t cnt = bad ? -1 : static_cast<int32_t>(hi - lo);
     const bool some = cnt > 0;
-    icol[w] = cnt;
-    icol[W + w] = some ? rel[lo] : 0;
-    icol[2 * static_cast<int64_t>(W) + w] = some ? rel[hi - 1] : 0;
-    fcol[w] = s;
-    fcol[W + w] = mn;
-    fcol[2 * static_cast<int64_t>(W) + w] = mx;
-    fcol[3 * static_cast<int64_t>(W) + w] = some ? vals[lo] : 0.0;
-    fcol[4 * static_cast<int64_t>(W) + w] = some ? vals[hi - 1] : 0.0;
+    icol[slot] = cnt;
+    icol[N + slot] = some ? rel[lo] : 0;
+    icol[2 * N + slot] = some ? rel[hi - 1] : 0;
+    fcol[slot] = s;
+    fcol[N + slot] = mn;
+    fcol[2 * N + slot] = mx;
+    fcol[3 * N + slot] = some ? vals[lo] : 0.0;
+    fcol[4 * N + slot] = some ? vals[hi - 1] : 0.0;
   }
 }
 
 }  // namespace
 
-// icol: int32 [3, W] (count, t_first, t_last); fcol: float64 [5, W] (sum,
-// min, max, first, last). Returns the launch's cudaError_t (0 = launched).
+// icol: int32 [3, N] (count, t_first, t_last); fcol: float64 [5, N] (sum,
+// min, max, first, last), N = grid->slot0[grid->nres]. Returns the
+// launch's cudaError_t (0 = launched); 1 (cudaErrorInvalidValue) for a
+// grid the kernel does not take.
 extern "C" int rollup_window_fold_f64(const int32_t* rel, const double* vals,
-                                      int64_t n, int32_t W, int32_t res,
-                                      int32_t* icol, double* fcol,
-                                      cudaStream_t stream) {
-  if (W <= 0) return 0;
-  const int64_t blocks =
-      (static_cast<int64_t>(W) + kWarpsPerBlock - 1) / kWarpsPerBlock;
+                                      const int64_t* offs,
+                                      const FoldGrid* grid, int32_t* icol,
+                                      double* fcol, cudaStream_t stream) {
+  if (grid->nres < 1 || grid->nres > kMaxRes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t N = grid->slot0[grid->nres];
+  if (N <= 0) return 0;
+  const int64_t blocks = (N + kWarpsPerBlock - 1) / kWarpsPerBlock;
   window_fold_kernel<<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32, 0,
-                       stream>>>(rel, vals, n, W, res, icol, fcol);
+                       stream>>>(rel, vals, offs, *grid, icol, fcol);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,9 @@ the numpy t-digest and HLL twins, the sketch cell codec and
 ``window_sketches`` are copied unchanged, so the port's tier stores the
 JAX package's bytes. The device checkpoint fold
 (``window_summaries_device``) runs the port's hand-written window-fold
-kernel (``ops/rollup_fold.py``) in float64, and declares ``device-f64``.
+kernel (``ops/rollup_fold.py``) in float64, and declares ``device-f64``;
+the tier folds a whole (metric, coarse window) group in one launch
+(``group_summaries_device``).
 The mesh leg ``window_summaries_sharded`` waits for ``parallel/``
 (ROADMAP queue A item 11).
 
@@ -459,6 +461,109 @@ def device_fold_kind() -> str:
     return "device-f64"
 
 
+def _records(count, total, mn, mx, first, last, t_first, t_last, origin,
+             res) -> tuple[np.ndarray, np.ndarray]:
+    """(window_bases, REC_DTYPE records) of the non-empty windows of a
+    fold's per-window columns (windows from ``origin``, row-major)."""
+    mask = count > 0
+    w_idx = np.flatnonzero(mask)
+    if count.ndim > 1:
+        w_idx = w_idx % count.shape[-1]
+    rec = np.empty(len(w_idx), REC_DTYPE)
+    rec["count"] = count[mask].astype(np.uint32)
+    rec["sum"] = total[mask]
+    rec["min"] = mn[mask]
+    rec["max"] = mx[mask]
+    rec["first"] = first[mask]
+    rec["last"] = last[mask]
+    wbase = origin + w_idx.astype(np.int64) * res
+    rec["first_dt"] = (t_first[mask].astype(np.int64)
+                       + origin - wbase).astype(np.uint32)
+    rec["last_dt"] = (t_last[mask].astype(np.int64)
+                      + origin - wbase).astype(np.uint32)
+    return wbase, rec
+
+
+def group_summaries(ts: np.ndarray, vals: np.ndarray, bounds: np.ndarray,
+                    origin: int, span: int, resolutions,
+                    fold=window_summaries) -> list:
+    """The host kind's group fold: ``fold`` (by default
+    :func:`window_summaries`) of each series of one group at every
+    resolution, in the layout of :func:`group_summaries_device` --
+    per resolution ``(window_bases, records, starts)``, series ``j``'s
+    records at ``[starts[j], starts[j + 1])``. ``origin`` and ``span``
+    are the group's window; a one-series fold needs neither."""
+    out = []
+    for r in resolutions:
+        parts = [fold(ts[a:b], vals[a:b], int(r))
+                 for a, b in zip(bounds[:-1], bounds[1:])]
+        out.append((
+            np.concatenate([wb for wb, _ in parts]
+                           or [np.empty(0, np.int64)]),
+            np.concatenate([rec for _, rec in parts]
+                           or [np.empty(0, REC_DTYPE)]),
+            np.concatenate(([0], np.cumsum(
+                [len(wb) for wb, _ in parts], dtype=np.int64))
+            ).astype(np.int64)))
+    return out
+
+
+def group_summaries_device(ts: np.ndarray, vals: np.ndarray,
+                           bounds: np.ndarray, origin: int, span: int,
+                           resolutions, device="cuda") -> list:
+    """:func:`window_summaries` of every series of one group at every
+    resolution, in ONE launch of the window-fold kernel
+    (``ops/rollup_fold.window_fold_batch``) and one read-back.
+
+    ``ts`` / ``vals`` are the group's columns, series ``j`` at
+    ``[bounds[j], bounds[j + 1])``, each sorted (the tier's lexsorted,
+    deduplicated columns); every point lies in ``[origin, origin +
+    span)``, and each resolution divides ``span``. Returns, per
+    resolution, ``(window_bases, records, starts)``: series ``j``'s
+    records are ``[starts[j], starts[j + 1])``, the same ones
+    :func:`window_summaries_device` gives it, byte for byte (the same
+    windows, the same order of addition). Unsorted input raises after
+    the read-back. The domain rule of the one-series entry (a span past
+    int32, more than 2^22 windows) cannot meet a group, which spans one
+    coarse window: such a group, or a point outside it, raises."""
+    import torch
+
+    from opentsdb_tpu_torch.ops import rollup_fold
+
+    resolutions = [int(r) for r in resolutions]
+    windows = [span // r for r in resolutions]
+    if span > 2**31 - 1 or any(span % r or not 0 < W <= _DEVICE_MAX_WINDOWS
+                               for r, W in zip(resolutions, windows)):
+        raise ValueError(f"a group's fold takes a span of at most int32 "
+                         f"seconds that each resolution divides, in at "
+                         f"most 2^22 windows: span {span}, {resolutions}")
+    rel = np.asarray(ts, np.int64) - origin
+    if len(rel) and (rel.min() < 0 or rel.max() >= span):
+        raise ValueError(f"a point lies outside the group's window "
+                         f"[{origin}, {origin + span})")
+    S = len(bounds) - 1
+    dev = torch.device(device)
+    icol, fcol = rollup_fold.read_back(*rollup_fold.window_fold_batch(
+        torch.from_numpy(rel.astype(np.int32)).to(dev, non_blocking=True),
+        torch.from_numpy(np.ascontiguousarray(vals, np.float64)).to(
+            dev, non_blocking=True),
+        torch.from_numpy(np.asarray(bounds, np.int64)).to(
+            dev, non_blocking=True),
+        res=resolutions, num_windows=windows))
+    slot0 = rollup_fold.grid_slots(S, windows)
+    out = []
+    for i, (r, W) in enumerate(zip(resolutions, windows)):
+        cols = [c[slot0[i]:slot0[i + 1]].reshape(S, W)
+                for c in (*icol, *fcol)]
+        count, t_first, t_last, total, mn, mx, first, last = cols
+        wb, rec = _records(count, total, mn, mx, first, last, t_first,
+                           t_last, origin, r)
+        starts = np.concatenate(([0], np.cumsum(
+            (count > 0).sum(axis=1)))).astype(np.int64)
+        out.append((wb, rec, starts))
+    return out
+
+
 def window_summaries_device(ts: np.ndarray, vals: np.ndarray, res: int,
                             device="cuda",
                             ) -> tuple[np.ndarray, np.ndarray]:
@@ -490,18 +595,5 @@ def window_summaries_device(ts: np.ndarray, vals: np.ndarray, res: int,
     (count, total, mn, mx, first, last, t_first,
      t_last) = rollup_fold.to_numpy(rollup_fold.window_fold(
          rel, v, num_windows=num_windows, res=res))
-    mask = count > 0
-    w_idx = np.flatnonzero(mask)
-    rec = np.empty(len(w_idx), REC_DTYPE)
-    rec["count"] = count[mask].astype(np.uint32)
-    rec["sum"] = total[mask]
-    rec["min"] = mn[mask]
-    rec["max"] = mx[mask]
-    rec["first"] = first[mask]
-    rec["last"] = last[mask]
-    wbase = origin + w_idx.astype(np.int64) * res
-    rec["first_dt"] = (t_first[mask].astype(np.int64)
-                       + origin - wbase).astype(np.uint32)
-    rec["last_dt"] = (t_last[mask].astype(np.int64)
-                      + origin - wbase).astype(np.uint32)
-    return wbase, rec
+    return _records(count, total, mn, mx, first, last, t_first, t_last,
+                    origin, res)

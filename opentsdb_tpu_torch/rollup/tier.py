@@ -7,8 +7,8 @@ tier without a rebuild and the host fold writes the same bytes. What
 differs:
 
 - ``Config.rollup_device_fold`` folds with the port's window-fold kernel
-  (``rollup/summary.window_summaries_device`` on the TSDB's device) and
-  declares ``device-f64``;
+  (``rollup/summary.group_summaries_device`` on the TSDB's device: one
+  launch a (metric, coarse window) group) and declares ``device-f64``;
 - a tier store's own checkpoint writes no tenant marker (the JAX store
   has none to write);
 - ``ReadOnlyRollupTier`` (replicas) comes with item 10.
@@ -210,6 +210,38 @@ class _MapBuffer:
         self.total = 0
 
 
+class _PlanCollector:
+    """The tier as ``DeltaFolds.serve`` sees it. ``serve``
+    (rollup/delta.py, the JAX module copied whole) emits a plan's series
+    one ``_emit_series`` call at a time; this stand-in keeps their
+    columns, and ``emit`` folds the whole plan -- one (metric, coarse
+    window) group -- in one ``fold_group`` call, then emits the series in
+    the order ``serve`` gave them. Everything else is the tier's."""
+
+    def __init__(self, tier: "RollupTier") -> None:
+        self._tier = tier
+        self._series: list = []
+
+    def __getattr__(self, name: str):
+        return getattr(self._tier, name)
+
+    def _emit_series(self, skey: bytes, ts: np.ndarray, vals: np.ndarray,
+                     buf: "_MapBuffer") -> None:
+        self._series.append((skey, ts, vals))
+
+    def emit(self, buf: "_MapBuffer") -> None:
+        if not self._series:
+            return
+        tier = self._tier
+        folded = tier.fold_group(
+            np.concatenate([ts for _, ts, _ in self._series]),
+            np.concatenate([v for _, _, v in self._series]),
+            np.concatenate(([0], np.cumsum(
+                [len(ts) for _, ts, _ in self._series]))))
+        for j, (skey, ts, vals) in enumerate(self._series):
+            tier._emit_series(skey, ts, vals, buf, folded(j))
+
+
 class RollupTier:
     def __init__(self, tsdb, config) -> None:
         self._init_layout(tsdb, config)
@@ -320,13 +352,17 @@ class RollupTier:
         # accumulation orders inside the same stored rows, so a kind
         # change rebuilds like any layout change (but a legacy state
         # file with no "fold" key means host-f64 — see _needs_rebuild).
+        # Both kinds fold a whole (metric, coarse window) group at once
+        # (fold_group): the device kind in one launch, whose records
+        # equal, byte for byte, the one-series entry's
+        # (window_summaries_device), which folds in the same order.
         if bool(getattr(config, "rollup_device_fold", False)):
             self.fold_kind = summary.device_fold_kind()
-            self._fold_fn = functools.partial(
-                summary.window_summaries_device, device=tsdb.device)
+            self._group_fold = functools.partial(
+                summary.group_summaries_device, device=tsdb.device)
         else:
             self.fold_kind = "host-f64"
-            self._fold_fn = summary.window_summaries
+            self._group_fold = summary.group_summaries
 
         store = tsdb.store
         self._sharded = hasattr(store, "shards") and hasattr(store, "_route")
@@ -994,8 +1030,10 @@ class RollupTier:
             # record bytes are independent of the split.
             per_metric: dict[bytes, set[int]] = {}
             for (muid, cb), ks in groups.items():
+                plan = _PlanCollector(self)
                 if self.delta is not None and self.delta.serve(
-                        self, cb, ks, buf, seen):
+                        plan, cb, ks, buf, seen):
+                    plan.emit(buf)
                     self.fold_delta += 1
                     _M_FOLD_DELTA.inc()
                     continue
@@ -1196,16 +1234,37 @@ class RollupTier:
                 keep = np.concatenate(([True], ~dup))
                 ts, f, sid = ts[keep], f[keep], sid[keep]
         bounds = np.searchsorted(sid, np.arange(len(skeys) + 1))
+        folded = self.fold_group(ts, f, bounds)
         for s, (a, b) in enumerate(zip(bounds[:-1], bounds[1:])):
             if b <= a:
                 continue
-            self._emit_series(skeys[s], ts[a:b], f[a:b], buf)
+            self._emit_series(skeys[s], ts[a:b], f[a:b], buf, folded(s))
+
+    def fold_group(self, ts: np.ndarray, vals: np.ndarray,
+                   bounds: np.ndarray):
+        """The records of one non-empty (metric, coarse window) group --
+        series ``j`` at ``[bounds[j], bounds[j + 1])`` of the sorted
+        columns -- at every resolution, in one call of the kind's group
+        fold (one launch on the device): a function of ``j`` giving
+        ``_emit_series``' ``folded``."""
+        coarse = self.resolutions[-1]
+        origin = int(ts[0]) - int(ts[0]) % coarse
+        per_res = self._group_fold(ts, vals, bounds, origin, coarse,
+                                   self.resolutions)
+
+        def folded(j: int) -> list:
+            return [(wb[st[j]:st[j + 1]], rec[st[j]:st[j + 1]])
+                    for wb, rec, st in per_res]
+        return folded
 
     def _emit_series(self, skey: bytes, ts: np.ndarray, vals: np.ndarray,
-                     buf: _MapBuffer) -> None:
+                     buf: _MapBuffer, folded: list) -> None:
+        """Emit one series' records (and sketches) of one coarse window
+        at every resolution; ``folded``, one ``(window_bases, records)``
+        a resolution, is the group fold's (``fold_group``)."""
         head, tail = skey[:UID_WIDTH], skey[UID_WIDTH:]
-        for r in self.resolutions:
-            wb, recs = self._fold_fn(ts, vals, r)
+        for k, r in enumerate(self.resolutions):
+            wb, recs = folded[k]
             blob = recs.tobytes()
             span = r * self.pack
             # Window emission is the fold's per-record hot loop: hoist

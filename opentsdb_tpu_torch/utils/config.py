@@ -97,8 +97,12 @@ class Config:
     # index and a memtable sweep) and fail on divergence. Test-only.
     rollup_sweep_check: bool = False
     # The checkpoint fold on the device (ops/rollup_fold.py, the
-    # hand-written window-fold kernel, in float64): the tier declares
-    # "device-f64" in its state file; off keeps the host fold.
+    # hand-written window-fold kernel, in float64, one launch a (metric,
+    # coarse window) group): the tier declares "device-f64" in its state
+    # file; off keeps the host fold. Only the moment fold moves: the
+    # record build and the sketches stay on the host, so a checkpoint of
+    # 2,500 series gains the ~1.3-1.7 s of its moment fold in 14-21 s
+    # (PERF.md §6, PR 19).
     rollup_device_fold: bool = False
     # Accuracy-budgeted sketch allocation (sketch/budget.py): > 0 spends
     # this many summary bytes across the rollup resolutions instead of

@@ -1873,6 +1873,120 @@ def test_rollup_fold_rejects_unsorted_and_launch_failure(card):
     assert rollup_fold.window_fold.launches == before
 
 
+def _fold_group(S: int, seed: int, points: int = 143):
+    """(ts int64, vals float64, bounds [S + 1]) of S series of one day:
+    the smoke's group (``points`` a series) with every fourth series
+    empty, one point or a few points instead, and NaN in some."""
+    rng = np.random.default_rng(seed)
+    base = 1356998400
+    ts, vs, bounds = [], [], [0]
+    for j in range(S):
+        n = (points, 0, 1, int(rng.integers(2, 40)))[j % 4] if S > 1 \
+            else points
+        t = base + np.sort(rng.choice(86400, n, replace=False))
+        v = 100 + np.cumsum(rng.normal(0, 1, n))
+        if n > 3 and j % 7 == 0:
+            v[rng.integers(0, n)] = np.nan
+        ts.append(t)
+        vs.append(v)
+        bounds.append(bounds[-1] + n)
+    return (np.concatenate(ts).astype(np.int64), np.concatenate(vs),
+            np.asarray(bounds, np.int64))
+
+
+def _bits(x: torch.Tensor) -> np.ndarray:
+    x = x.cpu()
+    return x.view(torch.int64 if x.element_size() == 8 else torch.int32) \
+        .numpy() if x.is_floating_point() else x.numpy()
+
+
+ROLLUP_GROUP_CASES = [
+    # (series, points a full series, resolutions): the smoke's group
+    # (2,500 series x one day at 1 h and 1 d), three nested resolutions,
+    # one series, a long day of one series, and a lone empty series.
+    (2500, 143, (3600, 86400)),
+    (50, 143, (3600, 21600, 86400)),
+    (1, 143, (3600, 86400)),
+    (3, 86400, (3600, 86400)),
+    (1, 0, (3600, 86400)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,points,res", ROLLUP_GROUP_CASES)
+def test_rollup_group_fold_bit_identical_to_plain(card, S, points, res):
+    """The batched fold on the card against its plain version on the
+    CPU, every output bit for bit (the plain version follows the kernel's
+    order of addition); two calls identical; one launch a call; and the
+    tier's entry, group_summaries_device, gives the CPU's records byte
+    for byte."""
+    from opentsdb_tpu_torch.ops import rollup_fold
+    from opentsdb_tpu_torch.rollup import summary
+    base = 1356998400
+    ts, vals, bounds = _fold_group(S, S + points, points)
+    W = [86400 // r for r in res]
+    args = [torch.from_numpy((ts - base).astype(np.int32)),
+            torch.from_numpy(vals), torch.from_numpy(bounds)]
+    before = rollup_fold.window_fold.launches
+    got = rollup_fold.window_fold_batch(*(a.to(card) for a in args),
+                                        res=res, num_windows=W)
+    again = rollup_fold.window_fold_batch(*(a.to(card) for a in args),
+                                          res=res, num_windows=W)
+    torch.cuda.synchronize()
+    assert rollup_fold.window_fold.launches == before + 2
+    want = rollup_fold.window_fold_batch_plain(*args, res=res,
+                                               num_windows=W)
+    for g, a, w in zip(got, again, want):
+        assert np.array_equal(_bits(g), _bits(w))
+        assert np.array_equal(_bits(a), _bits(w))
+    before = rollup_fold.window_fold.launches
+    dev = summary.group_summaries_device(ts, vals, bounds, base, 86400, res,
+                                         device="cuda")
+    assert rollup_fold.window_fold.launches == before + 1
+    cpu = summary.group_summaries_device(ts, vals, bounds, base, 86400, res,
+                                         device="cpu")
+    for (wb, rec, st), (wb2, rec2, st2) in zip(dev, cpu):
+        assert np.array_equal(wb, wb2) and np.array_equal(st, st2)
+        assert rec.tobytes() == rec2.tobytes()
+
+
+@pytest.mark.cuda
+def test_rollup_group_fold_rejects_unsorted_and_launch_failure(card,
+                                                               monkeypatch):
+    """An unsorted series raises after the group's one read-back; a
+    launch the card refuses raises, with no fallback, and counts no
+    launch."""
+    from opentsdb_tpu_torch.ops import rollup_fold
+    from opentsdb_tpu_torch.rollup import summary
+    base = 1356998400
+    ts, vals, bounds = _fold_group(12, 5)
+    a = bounds[4]
+    ts[a], ts[a + 1] = ts[a + 1], ts[a]
+    reads = []
+    to_numpy = rollup_fold.to_numpy
+    monkeypatch.setattr(rollup_fold, "to_numpy",
+                        lambda out: reads.append(1) or to_numpy(out))
+    with pytest.raises(ValueError, match="sorted"):
+        summary.group_summaries_device(ts, vals, bounds, base, 86400,
+                                       (3600, 86400), device="cuda")
+    assert len(reads) == 1
+
+    class Refused:
+        @staticmethod
+        def rollup_window_fold_f64(*args):
+            return 9
+
+    rollup_fold._kernels()
+    before = rollup_fold.window_fold.launches
+    monkeypatch.setattr(rollup_fold, "_lib", Refused())
+    ts.sort()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        summary.group_summaries_device(ts[:bounds[1]], vals[:bounds[1]],
+                                       bounds[:2], base, 86400,
+                                       (3600, 86400), device="cuda")
+    assert rollup_fold.window_fold.launches == before
+
+
 # ---------------------------------------------------------------------------
 # The smoothing scans (csrc/smoothing.cu)
 # ---------------------------------------------------------------------------
@@ -1942,6 +2056,65 @@ def test_smoothing_kernels_bit_identical_to_plain(card, S, T, season,
     assert torch.equal(e, smoothing.ewma_scan_plain(v, m, 0.3))
     if S > 2:
         assert bool(got["anomaly"][T // 2, 2]) or T < 12
+
+
+HW_GRID = [(S, m, T) for S in (1, 10, 33, 10_000) for m in (0, 1, 7, 24, 288)
+           for T in (1, 15, 169, 2017)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,season,T", HW_GRID)
+def test_holt_winters_grid_bit_identical_to_plain(card, S, season, T):
+    """holt_winters_bands on the card against its plain version on the
+    card, every output bit for bit (NaN bits too), over the grid of
+    series, seasons and steps: gaps in the mask, an all-masked series
+    (series 0), a spike, NaN values where S > 3 and T > 3, seasons
+    longer than the fit (m > T), horizons 0 and 24; one launch a call."""
+    from opentsdb_tpu_torch.ops import smoothing
+    v, m = _smoothing_inputs(S, T, S + T + season)
+    if S > 3 and T > 3:
+        v[T // 3, 3] = float("nan")
+        v[1, S - 1] = float("nan")
+        m[1, S - 1] = True
+    v, m = v.to(card), m.to(card)
+    horizon = 24 if (S + T + season) % 2 else 0
+    kw = dict(alpha=0.3, beta=0.1, gamma=0.2, season=season, nsigma=3.0,
+              resid_alpha=0.05, warmup=10, horizon=horizon)
+    before = smoothing.holt_winters_bands.launches
+    got = smoothing.holt_winters_bands(v, m, **kw)
+    torch.cuda.synchronize()
+    assert smoothing.holt_winters_bands.launches == before + 1
+    want = smoothing.holt_winters_bands_plain(v, m, **kw)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        assert np.array_equal(_bits(got[k]), _bits(want[k])), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,season", [(33, 24), (7, 5), (10, 288)])
+def test_holt_winters_views_and_tiny_variances(card, S, season):
+    """Inputs that are views at any offset (the kernel stages the aligned
+    16-byte chunks around each row) and series whose residual variance
+    is tiny (denormal), zero, huge or infinite (the square root's scaled
+    and special cases; sigma shows the root only above its floor),
+    bit for bit against the plain version."""
+    from opentsdb_tpu_torch.ops import smoothing
+    T = 500
+    v, m = _smoothing_inputs(S, T + 1, S + season)
+    v[:, 1] = v[:, 1] * 1e-22
+    v[:, S - 1] = 7.0
+    if S > 3:
+        v[:, 3] = v[:, 3] * 1e18
+        v[T // 2, 3] = float("inf")
+    kw = dict(alpha=0.3, beta=0.1, gamma=0.2, season=season, nsigma=3.0,
+              resid_alpha=0.05, warmup=10, horizon=24)
+    v, m = v.to(card)[1:], m.to(card)[1:]
+    assert m.data_ptr() % 4 or S % 4 == 0
+    got = smoothing.holt_winters_bands(v, m, **kw)
+    want = smoothing.holt_winters_bands_plain(v, m, **kw)
+    for k in want:
+        assert np.array_equal(_bits(got[k]), _bits(want[k])), k
 
 
 @pytest.mark.cuda

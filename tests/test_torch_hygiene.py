@@ -313,7 +313,7 @@ def test_smoothing_and_approx_slice_lives_in_the_port():
     cu = open(os.path.join(pkg, "csrc", "smoothing.cu")).read()
     assert "opentsdb_tpu/models/smoothing.py" in cu
     for fn in ("ewma_scan_f32", "holt_winters_bands_f32", "__fmul_rn",
-               "__fsqrt_rn"):
+               "sqrt_core"):
         assert fn in cu, fn
     banned = re.compile(r"opentsdb_tpu\.models\b")
     for d, dirs, files in os.walk(pkg):

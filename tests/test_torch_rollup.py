@@ -26,6 +26,7 @@ and over four shards.
 """
 
 import asyncio
+import functools
 import json
 import os
 import shutil
@@ -607,6 +608,56 @@ def test_device_folded_tier_declares_f64_and_matches_the_host_tier(both):
                                        rtol=1e-12, atol=0)
     spec = (METRIC, {"dc": "*"}, "sum", False, (3600, "sum"))
     assert_same(run(dev, spec)[0], run(host, spec)[0], rtol=1e-12)
+
+
+@pytest.mark.parametrize("res", [(3600, 86400), (3600, 21600, 86400)],
+                         ids=["1h,1d", "1h,6h,1d"])
+def test_device_tier_group_fold_equals_the_per_series_fold(tmp_path,
+                                                           monkeypatch,
+                                                           res):
+    """A device-kind tier folds each (metric, coarse window) group of
+    _summarize_group in one call of the group fold; its stored cells are
+    byte for byte those of the same tier folding one series at a time
+    through the one-series entry window_summaries_device (the
+    order-emulating plain version here), and both declare device-f64."""
+    from opentsdb_tpu_torch.rollup import summary as port_summary
+    calls = []
+    group = port_summary.group_summaries_device
+
+    def counted(ts, *a, **k):
+        calls.append(len(ts))
+        return group(ts, *a, **k)
+
+    monkeypatch.setattr(port_summary, "group_summaries_device", counted)
+    per_series = functools.partial(
+        port_summary.group_summaries,
+        fold=functools.partial(port_summary.window_summaries_device,
+                               device="cpu"))
+    made = []
+    for name in ("group", "series"):
+        t = port_tsdb(str(tmp_path / name), rollup_device_fold=True,
+                      rollup_resolutions=res)
+        if name == "series":
+            t.rollups._group_fold = per_series
+        made.append(t)
+    try:
+        for part in (0, 1):
+            for t in made:
+                ingest(t, part)
+                t.checkpoint()
+        assert calls and sum(calls) > 0
+        # One group a coarse day of the one metric: three days, the
+        # second checkpoint refolding day 1 and folding day 2.
+        assert len(calls) == 4
+        files = [tier_files(str(tmp_path / n)) for n in ("group", "series")]
+        assert files[0] == files[1]
+        for t in made:
+            st = json.load(open(t.rollups.state_path))
+            assert st["fold"] == t.rollups.fold_kind == "device-f64"
+            assert t.rollups.resolutions == res
+    finally:
+        for t in made:
+            t.shutdown()
 
 
 def test_fold_kind_change_is_a_layout_change(tmp_path):

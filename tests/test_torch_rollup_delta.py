@@ -12,6 +12,7 @@ puts, duplicate re-ingest, compaction, the eviction cap and a restart
 over prior data; and the fast path must engage where the JAX tests say
 it does (or fall back where they say it does)."""
 
+import functools
 import os
 
 import numpy as np
@@ -153,6 +154,50 @@ def test_append_only_parity_and_engagement(trio_of, shards):
         spec, BASE, BASE + 40 * 3600)
     assert pa == pb == "1h"
     np.testing.assert_array_equal(ra[0].values, rb[0].values)
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_device_kind_delta_folds_batch_the_plan(tmp_path, monkeypatch,
+                                                shards):
+    """A device-kind tier (rollup_device_fold, the plain version here)
+    folds a delta plan's series in one call of the group fold; its cells
+    are byte for byte those of the same tier folding one series at a
+    time through window_summaries_device, and of the same tier without
+    delta folds."""
+    from opentsdb_tpu_torch.rollup import summary as port_summary
+    calls = []
+    group = port_summary.group_summaries_device
+
+    def counted(ts, vals, bounds, *a, **k):
+        calls.append(len(bounds) - 1)
+        return group(ts, vals, bounds, *a, **k)
+
+    monkeypatch.setattr(port_summary, "group_summaries_device", counted)
+    grouped = port_tsdb(str(tmp_path / "g"), shards, True,
+                        rollup_device_fold=True)
+    single = port_tsdb(str(tmp_path / "s"), shards, True,
+                       rollup_device_fold=True)
+    single.rollups._group_fold = functools.partial(
+        port_summary.group_summaries,
+        fold=functools.partial(port_summary.window_summaries_device,
+                               device="cpu"))
+    full = port_tsdb(str(tmp_path / "f"), shards, False,
+                     rollup_device_fold=True)
+    try:
+        for t in (grouped, single):
+            drive(t, batches(series=5))
+        n_delta = len(calls)
+        drive(full, batches(series=5))
+        assert grouped.rollups.delta.served > 0
+        assert single.rollups.delta.served == grouped.rollups.delta.served
+        assert grouped.rollups.fold_full == 0
+        # Every delta-served group took one call for all its series.
+        assert n_delta > 0 and max(calls[:n_delta]) > 1
+        assert_same_records(grouped, single, full)
+        assert grouped.rollups.fold_kind == "device-f64"
+    finally:
+        for t in (grouped, single, full):
+            t.shutdown()
 
 
 @pytest.mark.parametrize("shards", [1, 4])

@@ -4,8 +4,14 @@ the JAX package's host fold ``window_summaries`` on the same seeded
 series (count, min, max, first, last and the brackets exact, the sum
 within rtol 1e-12), and against the JAX package's own device fold within
 its declared float32 tolerance (rtol 1e-5; in this sandbox its jax has no
-``enable_x64``, so it folds in float32). The kernel itself runs only on
-the card (``tests/test_torch_cuda.py``)."""
+``enable_x64``, so it folds in float32). The tier's group fold
+(``window_fold_batch_plain`` behind ``summary.group_summaries_device``):
+seeded groups of 1-50 series with empty, one-point and many-point
+windows and NaN values, at resolutions (3600, 86400) and (3600, 21600,
+86400), against the port's and the JAX package's host folds, against a
+numpy loop of the kernel's order of addition (bit for bit), and against
+the one-series entry (byte for byte). The kernel itself runs only on the
+card (``tests/test_torch_cuda.py``)."""
 
 import numpy as np
 import pytest
@@ -176,3 +182,196 @@ def test_against_the_jax_device_fold_within_its_declared_tolerance(case):
     for f in ("sum", "min", "max", "first", "last"):
         np.testing.assert_allclose(rec[f], want[f], rtol=1e-5, err_msg=f)
     assert summary.device_fold_kind() == "device-f64"
+
+
+# ---------------------------------------------------------------------------
+# The group fold: every series of a coarse window at every resolution
+# ---------------------------------------------------------------------------
+
+GROUP_RES = ((3600, 86400), (3600, 21600, 86400))
+GROUP_SERIES = (1, 7, 50)
+
+
+def _group(S: int, seed: int, nan: bool):
+    """(ts int64, vals float64, bounds [S + 1]) of S series of one day:
+    some series empty, some one point, some a few points an hour, some
+    hundreds (windows of 0, 1 and many points), values over six decades,
+    NaN in some series when ``nan``."""
+    rng = np.random.default_rng(seed)
+    ts, vs, bounds = [], [], [0]
+    for j in range(S):
+        n = (0, 1, int(rng.integers(2, 40)),
+             int(rng.integers(40, 600)))[j % 4 if S > 1 else 3]
+        t = BASE + np.sort(rng.choice(86400, n, replace=False))
+        v = rng.normal(50, 10, n) * 10.0 ** int(rng.integers(-3, 4))
+        if nan and n > 3 and j % 3 == 0:
+            v[rng.integers(0, n, 2)] = np.nan
+        ts.append(t)
+        vs.append(v)
+        bounds.append(bounds[-1] + n)
+    return (np.concatenate(ts).astype(np.int64), np.concatenate(vs),
+            np.asarray(bounds, np.int64))
+
+
+def _butterfly_sums(vals: np.ndarray) -> np.float64:
+    """The kernel's sum of one window's values: lane l adds values l,
+    l + 32, ... in order from 0.0; then the xor butterfly over 32
+    lanes."""
+    lanes = np.zeros(32)
+    for i, v in enumerate(vals):
+        lanes[i % 32] = lanes[i % 32] + v
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[np.arange(32) ^ off]
+    return lanes[0]
+
+
+def _same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    """Bit for bit, NaN positions equal (a NaN's payload is the
+    platform's)."""
+    na, nb = np.isnan(a), np.isnan(b)
+    return bool(np.array_equal(na, nb) and np.array_equal(
+        a[~na].view(np.int64), b[~nb].view(np.int64)))
+
+
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
+@pytest.mark.parametrize("S", GROUP_SERIES)
+@pytest.mark.parametrize("res", GROUP_RES, ids=["1h,1d", "1h,6h,1d"])
+def test_group_fold_matches_the_host_folds(res, S, nan):
+    """Each series' records of the group fold against the port's host
+    fold and the JAX package's: count, min, max, first, last and the
+    brackets exact (NaN where numpy gives NaN), the sum within rtol
+    1e-12."""
+    ts, vals, bounds = _group(S, S * 7 + len(res), nan)
+    out = summary.group_summaries_device(ts, vals, bounds, BASE, 86400,
+                                         res, device="cpu")
+    assert len(out) == len(res)
+    for (wb_all, rec_all, st), r in zip(out, res):
+        assert len(st) == S + 1 and st[-1] == len(rec_all)
+        for j in range(S):
+            a, b = bounds[j], bounds[j + 1]
+            wb, rec = wb_all[st[j]:st[j + 1]], rec_all[st[j]:st[j + 1]]
+            for host in (summary.window_summaries,
+                         jax_summary.window_summaries):
+                wb_want, want = host(ts[a:b], vals[a:b], r)
+                assert np.array_equal(wb, wb_want)
+                for f in ("count", "first_dt", "last_dt"):
+                    assert np.array_equal(rec[f], want[f]), f
+                for f in ("min", "max", "first", "last"):
+                    np.testing.assert_array_equal(rec[f], want[f],
+                                                  err_msg=f)
+                np.testing.assert_allclose(rec["sum"], want["sum"],
+                                           rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("S", GROUP_SERIES)
+@pytest.mark.parametrize("res", GROUP_RES, ids=["1h,1d", "1h,6h,1d"])
+def test_group_fold_sums_follow_the_kernels_order(res, S):
+    """Every window's sum equals, bit for bit, a numpy loop of the
+    kernel's order: lane-strided sums, then the xor butterfly."""
+    ts, vals, bounds = _group(S, S * 11 + len(res), True)
+    out = summary.group_summaries_device(ts, vals, bounds, BASE, 86400,
+                                         res, device="cpu")
+    for (wb_all, rec_all, st), r in zip(out, res):
+        for j in range(S):
+            a, b = bounds[j], bounds[j + 1]
+            t, v = ts[a:b], vals[a:b]
+            want = np.array([_butterfly_sums(v[(t - t % r) == w])
+                             for w in wb_all[st[j]:st[j + 1]]])
+            assert _same_bits(rec_all["sum"][st[j]:st[j + 1]], want)
+
+
+@pytest.mark.parametrize("S", GROUP_SERIES)
+@pytest.mark.parametrize("res", GROUP_RES, ids=["1h,1d", "1h,6h,1d"])
+def test_group_fold_equals_the_one_series_entry(res, S):
+    """The group fold's records are the one-series entry's
+    (window_summaries_device), byte for byte: the same windows in the
+    same order of addition."""
+    ts, vals, bounds = _group(S, S * 13 + len(res), True)
+    out = summary.group_summaries_device(ts, vals, bounds, BASE, 86400,
+                                         res, device="cpu")
+    for (wb_all, rec_all, st), r in zip(out, res):
+        for j in range(S):
+            a, b = bounds[j], bounds[j + 1]
+            wb, rec = summary.window_summaries_device(ts[a:b], vals[a:b],
+                                                      r, device="cpu")
+            assert np.array_equal(wb_all[st[j]:st[j + 1]], wb)
+            assert rec_all[st[j]:st[j + 1]].tobytes() == rec.tobytes()
+
+
+def test_batch_plain_grid_and_one_segment_case():
+    """window_fold_batch_plain's dense slot grid (resolution-major, then
+    series, then window; empty slots count 0, min +inf, max -inf) and
+    window_fold as its one-series, one-resolution case."""
+    ts, vals, bounds = _group(6, 3, False)
+    rel = torch.from_numpy((ts - BASE).astype(np.int32))
+    v = torch.from_numpy(vals)
+    offs = torch.from_numpy(bounds)
+    icol, fcol = rollup_fold.window_fold_batch_plain(
+        rel, v, offs, res=(3600, 86400), num_windows=(24, 1))
+    assert icol.shape == (3, 6 * 25) and fcol.shape == (5, 6 * 25)
+    assert rollup_fold.grid_slots(6, (24, 1)) == [0, 144, 150]
+    count = icol[0].numpy()
+    for j in range(6):
+        a, b = bounds[j], bounds[j + 1]
+        hours = np.bincount((ts[a:b] - BASE) // 3600, minlength=24)
+        assert np.array_equal(count[j * 24:(j + 1) * 24], hours)
+        assert count[144 + j] == b - a
+        one = rollup_fold.window_fold_plain(rel[a:b], v[a:b],
+                                            num_windows=24, res=3600)
+        for k, x in enumerate((icol[0], fcol[0], fcol[1], fcol[2],
+                               fcol[3], fcol[4], icol[1], icol[2])):
+            assert torch.equal(x[j * 24:(j + 1) * 24], one[k]), k
+    empty = icol[0] == 0
+    assert (fcol[0][empty] == 0).all() and torch.isposinf(
+        fcol[1][empty]).all() and torch.isneginf(fcol[2][empty]).all()
+    host_i, host_f = rollup_fold.read_back(icol, fcol)
+    assert np.array_equal(host_i, icol.numpy())
+    assert host_f.tobytes() == fcol.numpy().tobytes()
+
+
+def test_group_fold_refuses_what_it_does_not_take():
+    """Unsorted series raise after the read-back; a point outside the
+    group's window, a span a resolution does not divide, a span past
+    int32 or too many windows raise before any fold; bad arguments to
+    the batch entry raise."""
+    ts, vals, bounds = _group(5, 17, False)
+    bad = ts.copy()
+    a = bounds[3]
+    bad[a], bad[a + 1] = bad[a + 1], bad[a]
+    with pytest.raises(ValueError, match="sorted"):
+        summary.group_summaries_device(bad, vals, bounds, BASE, 86400,
+                                       (3600, 86400), device="cpu")
+    with pytest.raises(ValueError, match="outside"):
+        summary.group_summaries_device(ts, vals, bounds, BASE + 3600,
+                                       86400, (3600, 86400), device="cpu")
+    with pytest.raises(ValueError, match="divides"):
+        summary.group_summaries_device(ts, vals, bounds, BASE, 86400,
+                                       (3600, 7000), device="cpu")
+    with pytest.raises(ValueError, match="divides"):
+        summary.group_summaries_device(ts, vals, bounds, BASE, 2**31,
+                                       (3600,), device="cpu")
+    with pytest.raises(ValueError, match="divides"):
+        summary.group_summaries_device(ts, vals, bounds, BASE,
+                                       (1 << 22) * 2 * 60, (60,),
+                                       device="cpu")
+    rel = torch.zeros(3, dtype=torch.int32)
+    v = torch.ones(3, dtype=torch.float64)
+    offs = torch.tensor([0, 3])
+    with pytest.raises(ValueError, match="resolutions"):
+        rollup_fold.window_fold_batch_plain(
+            rel, v, offs, res=tuple(range(3600, 3600 * 10, 3600)),
+            num_windows=(1,) * 9)
+    with pytest.raises(ValueError, match="offsets"):
+        rollup_fold.window_fold_batch_plain(
+            rel, v, offs.int(), res=(3600,), num_windows=(1,))
+    with pytest.raises(ValueError, match="offsets"):
+        rollup_fold.window_fold_batch_plain(
+            rel, v, torch.tensor([0, 2]), res=(3600,), num_windows=(1,))
+
+
+def test_empty_group():
+    out = summary.group_summaries_device(
+        np.empty(0, np.int64), np.empty(0), np.zeros(3, np.int64), BASE,
+        86400, (3600, 86400), device="cpu")
+    for wb, rec, st in out:
+        assert len(wb) == len(rec) == 0 and list(st) == [0, 0, 0]
