@@ -354,7 +354,8 @@
    the smoothing
    kernels' the forecast path's (at the ``{host=*}`` 1h grid; the
    five-minute grid under ``other_cases``; with ``bytes_bound_ms``,
-   ``chain_floor_ms`` and ``binds`` beside ``bound_ms``). Under ``paths``
+   ``chain_floor_ms``, ``launch_floor_ms``, ``binds`` and ``share``
+   beside ``bound_ms``). Under ``paths``
    each path's launches stand beside the times at its own shape (the scan
    path's: the series stage; the select's un-downsampled path: the p95
    contributions). Counts include the group stages' launches, whose times
@@ -2850,7 +2851,10 @@ def gather_streams(store, table: str, metric_uid: bytes, b_lo: int,
 
 # One decode per (padded points, value kind) pair of argv under
 # torch.profiler, in a fresh process: one JSON line each, the CUDA
-# kernels it launched and the memsets it made.
+# kernels it launched, the memsets it made and the wrapper's own launch
+# count. A profile that recorded no device event at all while the
+# wrapper launched (CUPTI lost the records, as FOLD_COUNT's can) is
+# taken again, up to PROFILES times.
 DECODE_COUNT = """
 import json, sys
 import torch
@@ -2858,10 +2862,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 from opentsdb_tpu_torch.ops import block_decode
 from opentsdb_tpu_torch.tools.compare_kernels import decode_inputs
-for n, vkind in zip(sys.argv[1::2], sys.argv[2::2]):
-    args = decode_inputs(torch.device("cuda"), int(n), seed=5)
-    block_decode.decode_points(*args, vkind=vkind)
-    torch.cuda.synchronize()
+PROFILES = 5
+
+
+def profiled(args, vkind):
+    before = block_decode.decode_points.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         block_decode.decode_points(*args, vkind=vkind)
@@ -2871,9 +2876,21 @@ for n, vkind in zip(sys.argv[1::2], sys.argv[2::2]):
     memsets = [n for n in names if "memset" in n.lower()]
     kernels = [n for n in names
                if n not in memsets and "memcpy" not in n.lower()]
+    return kernels, memsets, block_decode.decode_points.launches - before
+
+
+for n, vkind in zip(sys.argv[1::2], sys.argv[2::2]):
+    args = decode_inputs(torch.device("cuda"), int(n), seed=5)
+    block_decode.decode_points(*args, vkind=vkind)
+    torch.cuda.synchronize()
+    for taken in range(1, PROFILES + 1):
+        kernels, memsets, launched = profiled(args, vkind)
+        if kernels or memsets or launched != 1:
+            break
     print(json.dumps({"kernels_per_call": len(kernels),
                       "memsets_per_call": len(memsets),
-                      "kernel_names": sorted(set(kernels))}))
+                      "kernel_names": sorted(set(kernels)),
+                      "wrapper_launches": launched, "profiles": taken}))
     del args
 """
 
@@ -2882,10 +2899,12 @@ def count_decode_kernels(cases: list) -> None:
     """Each decode case's kernels and memsets in one call, counted under
     torch.profiler in a child process on a gather of the case's size and
     kind (compare_kernels' decode_inputs; the count does not depend on
-    the data): at most DECODE_MAX_KERNELS kernels and no memset. In this
-    process, right after the plain version's run, the profiler has shown
-    no device activity at all for one decode on the card, while a fresh
-    process records both kernels."""
+    the data): at most DECODE_MAX_KERNELS kernels, no memset and one
+    wrapper launch. In this process, right after the plain version's run,
+    the profiler has shown no device activity at all for one decode on
+    the card, while a fresh process records both kernels; a fresh
+    process lost every record of one call once too, so a profile with no
+    device event is taken again."""
     root = os.path.dirname(os.path.abspath(__file__))
     argv = [str(x) for r in cases for x in (r["padded_points"], r["vkind"])]
     out = subprocess.run([sys.executable, "-c", DECODE_COUNT, *argv],
@@ -2900,7 +2919,7 @@ def count_decode_kernels(cases: list) -> None:
     for r, c in zip(cases, counts):
         r.update(c)
         if not 0 < c["kernels_per_call"] <= DECODE_MAX_KERNELS \
-                or c["memsets_per_call"]:
+                or c["memsets_per_call"] or c["wrapper_launches"] != 1:
             fail(f"block_decode {r['stage']}: one call made {c}")
 
 
@@ -4002,6 +4021,12 @@ EARLIER_MS = {
     ("holt_winters", "{dc=*} 5m, season 288"): {
         "pr": 18, "ms": 0.5465919971466064, "ms_cold": 0.5783680081367493,
         "ms_device": 0.4914576053619385},
+    ("ewma_scan", "{host=*} 1h"): {
+        "pr": 18, "ms": 0.031072000041604042,
+        "ms_cold": 0.022127999924123287, "ms_device": 0.012777599692344665},
+    ("ewma_scan", "{dc=*} 5m"): {
+        "pr": 18, "ms": 0.1390719935297966, "ms_cold": 0.13473600149154663,
+        "ms_device": 0.12465759515762329},
 }
 ROLLUP_GROUP_STAGE = ("the tier's group: 2,500 series x one day, res 3600 "
                       "and 86400")
@@ -4392,13 +4417,24 @@ SMOOTHING_WHERE = {
     "ewma_scan": ("smoothing.cu", "opentsdb_tpu/models/smoothing.py:25"),
     "holt_winters": ("smoothing.cu", "opentsdb_tpu/models/smoothing.py:50"),
 }
-# The chain's floor: each step of a series waits on the previous one.
-# Dependent float32 operations on the level/trend path of one
-# Holt-Winters step (add, mul, add, select, sub, mul, add, select,
-# select) and of one EWMA step (mul, add, select, select), at Hopper's
-# ~4-cycle dependent-issue latency, at the card's maximum SM clock.
+# The chain's floor: the longest path of dependent operations a series,
+# at Hopper's ~4-cycle dependent-issue latency, at the card's maximum SM
+# clock. Holt-Winters: each of T steps waits on the previous one, 9
+# operations on the level/trend path (add, mul, add, select, sub, mul,
+# add, select, select). The EWMA's segmented scan: a segment's summaries,
+# L steps of 3 (B: mul, add, select), the carries, ceil(T / L) steps of 4
+# (mul, add, select, select), and the outputs from the carry, L steps of 4
+# (mul, add, select, select): 3L + 4 ceil(T / L) + 4L operations.
 DEP_LATENCY_CYCLES = 4
-CHAIN_OPS = {"holt_winters": 9, "ewma_scan": 4}
+
+
+def chain_ops(name: str, T: int) -> int:
+    if name == "ewma_scan":
+        L = smoothing.EWMA_SEGMENT
+        return 3 * L + 4 * -(-T // L) + 4 * L
+    return 9 * T
+
+
 # float32 operations a cell: the Holt-Winters fit (14) and bands (15);
 # the EWMA (3).
 CELL_OPS = {"holt_winters": 29, "ewma_scan": 3}
@@ -4434,11 +4470,14 @@ def corpus_grids(ts: np.ndarray, vals: np.ndarray) -> dict:
 
 
 def smoothing_case(name: str, stage: str, grid: tuple, season: int,
-                   horizon: int, clock_hz: float, flush) -> dict:
+                   horizon: int, clock_hz: float, flush,
+                   launch_floor_ms: float) -> dict:
     """One smoothing kernel at /forecast's shape: bit for bit against its
     plain version on the card, timed three ways beside the plain version
-    (3 runs: a Python loop over T), the byte / operation bound and the
-    chain's floor."""
+    (3 runs: Python loops over T, or over the EWMA's segments), the byte /
+    operation bound, the chain's floor and the launch floor (the empty
+    kernel's ``ms_device``); ``share`` is the largest of the three over
+    ``ms_device``."""
     dev = torch.device(DEVICE)
     v = torch.from_numpy(grid[0]).to(dev)
     m = torch.from_numpy(grid[1]).to(dev)
@@ -4465,20 +4504,26 @@ def smoothing_case(name: str, stage: str, grid: tuple, season: int,
     err = max(float((got[k].float() - want[k].float()).abs().max())
               for k in want if want[k].numel())
     bms, by = bound_ms(nbytes, CELL_OPS[name] * S * T)
-    chain = T * CHAIN_OPS[name] * DEP_LATENCY_CYCLES / clock_hz * 1e3
+    chain = chain_ops(name, T) * DEP_LATENCY_CYCLES / clock_hz * 1e3
+    floors = {by: bms, "chain": chain, "launch": launch_floor_ms}
+    binds = max(floors, key=floors.get)
     res = {"name": name, "stage": stage, "series": S, "steps": T,
            "season": season, "horizon": horizon, "max_abs_err": err,
            "bytes": nbytes, "bound_ms": bms, "bound_by": by,
            "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-           "chain_floor_ms": chain,
-           "binds": "chain" if chain > bms else by,
+           "chain_floor_ms": chain, "launch_floor_ms": launch_floor_ms,
+           "binds": binds,
            "ms": median_ms(fn), "ms_cold": median_ms(fn, flush=flush),
            "ms_device": device_ms(fn), "plain_ms": median_ms(plain, 3),
            "library_ms": None, "library": NO_LIBRARY}
+    if name == "ewma_scan":
+        res["segment"] = smoothing.EWMA_SEGMENT
+    res["share"] = floors[binds] / res["ms_device"]
     log(f"kernel {name} [{stage}]: {res['ms']:.4f} ms, cold "
         f"{res['ms_cold']:.4f}, device {res['ms_device']:.4f} (plain "
         f"{res['plain_ms']:.1f}; bytes {res['bytes_bound_ms']:.5f}, chain "
-        f"floor {chain:.5f}: {res['binds']} binds)")
+        f"floor {chain:.5f}, launch floor {launch_floor_ms:.5f}: {binds} "
+        f"binds, share {res['share']:.3f})")
     return res
 
 
@@ -4496,7 +4541,7 @@ from torch.profiler import ProfilerActivity, profile
 from opentsdb_tpu_torch.models import forecast as mf
 from opentsdb_tpu_torch.ops import smoothing
 PROFILES = 5
-MODEL = ("ewma_kernel", "holt_winters_kernel")
+MODEL = ("ewma_kernel", "ewma_cluster_kernel", "holt_winters_kernel")
 
 
 def launches():
@@ -4563,7 +4608,8 @@ def join_forecast_count(job: tuple, records: list) -> None:
         r["profiled"] = c
 
 
-def smoothing_kernel_cases(ts: np.ndarray, vals: np.ndarray) -> tuple:
+def smoothing_kernel_cases(ts: np.ndarray, vals: np.ndarray,
+                           launch_floor_ms: float) -> tuple:
     """Both smoothing kernels at /forecast's two grids (see
     ``smoothing_case``), and the cases of the child that counts the
     kernels of one /forecast (``start_forecast_count``)."""
@@ -4571,14 +4617,13 @@ def smoothing_kernel_cases(ts: np.ndarray, vals: np.ndarray) -> tuple:
     clock = max_sm_clock_hz()
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=DEVICE)
-    out = [smoothing_case("holt_winters", "{host=*} 1h, season 24",
-                          grids["1h"], 24, 24, clock, flush),
-           smoothing_case("ewma_scan", "{host=*} 1h", grids["1h"], 0, 24,
-                          clock, flush),
-           smoothing_case("holt_winters", "{dc=*} 5m, season 288",
-                          grids["5m"], 288, 24, clock, flush),
-           smoothing_case("ewma_scan", "{dc=*} 5m", grids["5m"], 0, 24,
-                          clock, flush)]
+    out = [smoothing_case(name, stage, grids[g], season, 24, clock, flush,
+                          launch_floor_ms)
+           for name, stage, g, season in (
+               ("holt_winters", "{host=*} 1h, season 24", "1h", 24),
+               ("ewma_scan", "{host=*} 1h", "1h", 0),
+               ("holt_winters", "{dc=*} 5m, season 288", "5m", 288),
+               ("ewma_scan", "{dc=*} 5m", "5m", 0))]
     del flush
     for r in out:
         r["sm_clock_hz"] = clock
@@ -5204,7 +5249,8 @@ def main() -> int:
     kernels = (kernel_phase(ts, vals) + select_interp_phase(ts, vals)
                + sketch_kernel_phase(vals))
     folds, fold_counts = rollup_fold_cases()
-    smooth, forecast_counts = smoothing_kernel_cases(ts, vals)
+    smooth, forecast_counts = smoothing_kernel_cases(ts, vals, next(
+        r["ms_device"] for r in kernels if r["name"] == "launch_floor"))
     kernels += folds + smooth
     # The kernel-count children run beside the path phase, after every
     # timed case.
@@ -5306,8 +5352,10 @@ def main() -> int:
                                                 "rollup_fold")
                   + tuple(SMOOTHING_WHERE)]
         if others:
+            floors = (("chain_floor_ms", "launch_floor_ms", "binds", "share")
+                      if name in SMOOTHING_WHERE else ())
             entry["other_cases"] = {
-                r["stage"]: {k: r[k] for k in numbers if k in r}
+                r["stage"]: {k: r[k] for k in numbers + floors if k in r}
                 for r in others}
         if name in ("block_decode", "rollup_fold") + tuple(
                 SMOOTHING_WHERE):
@@ -5316,8 +5364,9 @@ def main() -> int:
                 name, next(iter(shape.values())))]["kernels_per_call"]
         if name in SMOOTHING_WHERE:
             r = by_case[(name, next(iter(shape.values())))]
-            entry.update({k: r[k] for k in ("bytes_bound_ms",
-                                            "chain_floor_ms", "binds")})
+            entry.update({k: r[k] for k in (
+                "bytes_bound_ms", "chain_floor_ms", "launch_floor_ms",
+                "binds", "share")})
         line.append(entry)
     log(json.dumps({"details": {
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -5465,7 +5514,8 @@ def main() -> int:
         "kernels": {f"{r['name']} [{r['stage']}]": {k: r[k] for k in (
             "series", "steps", "ms", "ms_cold", "ms_device", "plain_ms",
             "bound_ms", "bound_by", "bytes_bound_ms", "chain_floor_ms",
-            "binds", "kernels_per_call", "profiled")}
+            "launch_floor_ms", "binds", "share", "kernels_per_call",
+            "profiled")}
             for r in kernels if r["name"] in SMOOTHING_WHERE}},
         "approx": rollup["approx"], "card": smi}))
     r_obs = path["obs"]

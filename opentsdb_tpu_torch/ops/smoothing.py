@@ -9,19 +9,43 @@ puts the JAX package's signatures ([S, T] in and out) over them.
 
 Everything here is time-major: ``values`` [T, S] float32 and ``mask``
 [T, S] bool in, [T, S] grids out, the seasonal state [m, S] and the
-forecasts [horizon, S]. One thread of the kernel owns one series, so
+forecasts [horizon, S]. A warp's lanes own neighbouring series, so
 time-major keeps a warp's loads and stores on neighbouring words.
 
-- ``ewma_scan(values, mask, alpha)`` returns the EWMA [T, S].
+- ``ewma_scan(values, mask, alpha)`` returns the EWMA [T, S]: a segmented
+  scan over time (below).
 - ``holt_winters_bands(values, mask, *, alpha, beta, gamma, season,
   nsigma, resid_alpha, warmup, horizon)`` returns a dict: fitted, upper,
   lower, sigma [T, S] and anomaly [T, S] bool; level and trend [S];
   seasonal [max(season, 1), S]; forecast [horizon, S] (empty when
   ``horizon`` is 0). One launch.
 - ``ewma_scan_plain`` / ``holt_winters_bands_plain`` are the plain
-  versions: a Python loop over T of tensor operations, the JAX step
-  functions op for op, each rounded on its own, so on the card they agree
-  with the kernels bit for bit.
+  versions, each float32 operation rounded on its own in the kernel's
+  order, so on the card they agree with the kernels bit for bit.
+  ``holt_winters_bands_plain`` is a Python loop over T of the JAX step
+  functions, op for op.
+
+The EWMA's order of operations (the contract ``ewma_scan_plain`` and the
+kernel share). Between observations the step ``mean' = oma * mean + a *
+x`` (oma = 1 - a) is affine in the mean, so time splits into segments of
+``EWMA_SEGMENT`` (L) steps, the last possibly shorter, and:
+
+1. per (series, segment), in parallel, over the segment's steps: A, the
+   product of oma over its real steps (from 1); B, the segment run from
+   mean 0 as if already seen (``B = oma * B + a * x`` at a real step);
+   U, the segment run with the JAX step from (0, unseen), and whether the
+   segment has a real step;
+2. per series, over the segments in order, the carry (mean, seen) into
+   each segment: from (0, unseen); when seen, ``mean = AC + B`` with
+   ``AC = mean`` if mean is +-inf and oma > 0 (``A * mean`` could be 0 x
+   inf where the step keeps inf) and ``A * mean`` otherwise; when not yet
+   seen, U (and seen) if the segment has a real step, else unchanged;
+3. per (series, segment), in parallel: the JAX step from the segment's
+   carry, each step's mean stored.
+
+Outputs within the first segment are the JAX step's bits; later ones
+differ from the sequential recurrence only by the rounding of the carries
+(JAX on the CPU itself fuses a multiply-add there).
 
 The wrappers take the plain version only for CPU tensors; on a CUDA
 tensor they launch the kernel on the current stream or raise.
@@ -39,6 +63,10 @@ from opentsdb_tpu_torch.ops import cuda_build
 
 _lib = None
 
+# L, the EWMA's segment length in steps: the order of operations of
+# ewma_scan_plain, passed to the kernel, which refuses another L.
+EWMA_SEGMENT = 16
+
 
 def _kernels() -> ctypes.CDLL:
     global _lib
@@ -46,7 +74,7 @@ def _kernels() -> ctypes.CDLL:
         lib = cuda_build.load("smoothing")
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
         f32 = ctypes.c_float
-        lib.ewma_scan_f32.argtypes = [p, p, i64, i64, f32, p, p]
+        lib.ewma_scan_f32.argtypes = [p, p, i64, i64, f32, i32, p, p]
         lib.ewma_scan_f32.restype = ctypes.c_int
         lib.holt_winters_bands_f32.argtypes = [
             p, p, i64, i64, f32, f32, f32, i32, f32, f32, i32, i32,
@@ -89,21 +117,49 @@ def _scalar(v: float, device) -> torch.Tensor:
 
 def ewma_scan_plain(values: torch.Tensor, mask: torch.Tensor,
                     alpha: float) -> torch.Tensor:
-    """Plain PyTorch ``ewma_scan``: the JAX step, once per time step."""
+    """Plain PyTorch ``ewma_scan``: the segmented scan's three phases
+    (module docstring), vectorised over [segments, S]."""
     _check(values, mask)
     T, S = values.shape
-    a = _scalar(alpha, values.device)
-    oma = _scalar(1.0, values.device) - a
-    mean = torch.zeros(S, dtype=torch.float32, device=values.device)
-    seen = torch.zeros(S, dtype=torch.bool, device=values.device)
-    out = torch.empty_like(values)
-    for t in range(T):
-        x, m = values[t], mask[t]
-        new_mean = torch.where(seen, oma * mean + a * x, x)
-        mean = torch.where(m, new_mean, mean)
-        seen = seen | m
-        out[t] = mean
-    return out
+    dev = values.device
+    a = _scalar(alpha, dev)
+    oma = _scalar(1.0, dev) - a
+    L = EWMA_SEGMENT
+    K = -(-T // L)
+    x = torch.cat([values, values.new_zeros(K * L - T, S)]).view(K, L, S)
+    m = torch.cat([mask, mask.new_zeros(K * L - T, S)]).view(K, L, S)
+    # 1. Each segment's summaries.
+    A = torch.ones(K, S, dtype=torch.float32, device=dev)
+    B = torch.zeros(K, S, dtype=torch.float32, device=dev)
+    U = torch.zeros(K, S, dtype=torch.float32, device=dev)
+    has = torch.zeros(K, S, dtype=torch.bool, device=dev)
+    for u in range(L):
+        xu, mu = x[:, u], m[:, u]
+        ax = a * xu
+        A = torch.where(mu, A * oma, A)
+        B = torch.where(mu, oma * B + ax, B)
+        U = torch.where(mu, torch.where(has, oma * U + ax, xu), U)
+        has = has | mu
+    # 2. The carries, segment by segment.
+    mean = torch.empty(K, S, dtype=torch.float32, device=dev)
+    seen = torch.empty(K, S, dtype=torch.bool, device=dev)
+    c = torch.zeros(S, dtype=torch.float32, device=dev)
+    cs = torch.zeros(S, dtype=torch.bool, device=dev)
+    keep = oma > 0
+    for k in range(K):
+        mean[k], seen[k] = c, cs
+        ac = torch.where(torch.isinf(c) & keep, c, A[k] * c)
+        c = torch.where(cs, ac + B[k], torch.where(has[k], U[k], c))
+        cs = cs | has[k]
+    # 3. The JAX step from each segment's carry.
+    out = torch.empty(K, L, S, dtype=torch.float32, device=dev)
+    for u in range(L):
+        xu, mu = x[:, u], m[:, u]
+        new_mean = torch.where(seen, oma * mean + a * xu, xu)
+        mean = torch.where(mu, new_mean, mean)
+        seen = seen | mu
+        out[:, u] = mean
+    return out.view(K * L, S)[:T]
 
 
 def ewma_scan(values: torch.Tensor, mask: torch.Tensor,
@@ -119,7 +175,7 @@ def ewma_scan(values: torch.Tensor, mask: torch.Tensor,
     out = torch.empty_like(values)
     if S and T:
         _launch("ewma_scan_f32", values, values.data_ptr(), mask.data_ptr(),
-                S, T, float(alpha), out.data_ptr())
+                S, T, float(alpha), EWMA_SEGMENT, out.data_ptr())
         ewma_scan.launches += 1
     return out
 

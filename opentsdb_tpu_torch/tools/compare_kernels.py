@@ -5,7 +5,7 @@ each other on one NVIDIA card, at the shapes of the query paths.
     python -m opentsdb_tpu_torch.tools.compare_kernels [--kernels K,..] \\
         DIR [DIR ...]
 
-Kernels (``--kernels``, default all five):
+Kernels (``--kernels``, default all six):
 - ``segment_reduce``: ``segment_sum_f32`` and ``segment_minmax_f32`` at
   the group-stage shapes;
 - ``masked_select``: ``masked_select_columns`` on the resident window's
@@ -27,7 +27,15 @@ Kernels (``--kernels``, default all five):
   records of 360 points, blocks of 120 records, the fused leg's
   padding), bit for bit against ``decode_points_plain``; a revision with
   ``block_decode_state_words`` gets its status words (zeroed once) and a
-  new tag a call, an older one its scratch.
+  new tag a call, an older one its scratch;
+- ``smoothing``: ``ewma_scan_f32`` (alpha 0.3) at /forecast's two grids
+  of the corpus, each series' hourly mean (169 x 10,000) and each dc's
+  five-minute sum of its hosts' means (2,017 x 10). Each revision is called
+  through its own C signature (the segmented scan's takes its checkout's
+  ``EWMA_SEGMENT``) and held bit for bit against its own checkout's plain
+  version (NaN cells as NaN), and every revision against the first within
+  the models' tolerance (rtol 1e-5 plus 1e-5 x the series' largest
+  |value|): revisions may differ in their order of operations.
 The data is ``chip_smoke.py``'s corpus (10,000 series x 1,000 points over
 7 days, drawn from seed 0), staged by this checkout's own functions.
 
@@ -53,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import os
 import subprocess
@@ -71,7 +80,7 @@ from opentsdb_tpu_torch.stats.livesketch import LiveSketches, _pad
 from opentsdb_tpu_torch.utils.config import Config
 
 SOURCES = ("segment_reduce", "masked_select", "interp_moments", "sketches",
-           "block_decode")
+           "block_decode", "smoothing")
 S, B, SERIES = 16384, 256, 10_000    # chip_smoke.py's group stage
 POINTS, SPAN, DAY, INTERVAL = 1_000, 7 * 86400, 86400, 3600
 BASE = 1356998400
@@ -97,6 +106,8 @@ def bind(lib: ctypes.CDLL, kernel: str) -> ctypes.CDLL:
             tail = [p, ctypes.c_uint32, p, p, p, p]
         lib.block_decode_points.argtypes = [p, p, i64, p, p, i64, p, p, p,
                                             i32, i32, i64] + tail
+    elif kernel == "smoothing":
+        lib.ewma_scan_f32.restype = ctypes.c_int
     elif kernel == "interp_moments":
         lib.interp_moments_f32.argtypes = [p, p, p, i64, i64, p, i64, i32,
                                            p, p, p, p, p, p]
@@ -128,7 +139,26 @@ def build(dirs: list[str], kernels=SOURCES) -> list[dict]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {out}:\n{log}")
         libs[d][k] = bind(ctypes.CDLL(os.path.abspath(out)), k)
+        if k == "smoothing":
+            own_smoothing(libs[d][k], d)
     return [libs[d] for d in dirs]
+
+
+def own_smoothing(lib: ctypes.CDLL, d: str) -> None:
+    """Bind ``ewma_scan_f32`` by DIR's own signature, and attach DIR's
+    plain ``ewma_scan_plain`` (``lib.plain``) and segment (``lib.segment``:
+    None before the segmented scan)."""
+    path = os.path.join(d, "opentsdb_tpu_torch", "ops", "smoothing.py")
+    spec = importlib.util.spec_from_file_location(
+        f"_compare_smoothing_{abs(hash(d))}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    lib.segment = getattr(mod, "EWMA_SEGMENT", None)
+    lib.plain = mod.ewma_scan_plain
+    lib.ewma_scan_f32.argtypes = (
+        [p, p, i64, i64, ctypes.c_float, p, p] if lib.segment is None
+        else [p, p, i64, i64, ctypes.c_float, i32, p, p])
 
 
 def device_ms(fn, reps: int = 20) -> float:
@@ -686,11 +716,68 @@ def decode_cases(dev) -> list[Case]:
     return out
 
 
+def forecast_grids(ts, vals) -> dict:
+    """chip_smoke.py's /forecast grids, time-major: each series' hourly
+    mean [169, 10,000] and each dc's five-minute sum of its hosts' means
+    [2,017, 10] (values, mask)."""
+    out = {}
+    for stage, step, by_dc in (("1h", 3600, False), ("5m", 300, True)):
+        T = SPAN // step + 1
+        b = (ts - BASE) // step
+        rows = (np.arange(SERIES) % 10 if by_dc
+                else np.arange(SERIES))[:, None].repeat(POINTS, 1)
+        S = 10 if by_dc else SERIES
+        cell = (b * S + rows).ravel()
+        sums = np.bincount(cell, vals.ravel().astype(np.float64),
+                           minlength=T * S)
+        cnt = np.bincount(cell, minlength=T * S)
+        mean = np.where(cnt > 0, sums / np.maximum(cnt, 1), 0.0)
+        out[stage] = (mean.reshape(T, S).astype(np.float32),
+                      (cnt > 0).reshape(T, S))
+    return out
+
+
+def smoothing_cases(dev, ts, vals, alpha: float = 0.3) -> list[Case]:
+    out = []
+    for stage, (v, m) in forecast_grids(ts, vals).items():
+        v = torch.from_numpy(v).to(dev)
+        m = torch.from_numpy(m).to(dev)
+        T, S = v.shape
+        res = torch.empty_like(v)
+        first: dict = {}
+        last: list = []
+        tol = 1e-5 * v.abs().amax(dim=0)
+
+        def call(lib, v=v, m=m, res=res, last=last, T=T, S=S):
+            last[:] = [lib]
+            seg = () if lib.segment is None else (lib.segment,)
+            _rc(lib.ewma_scan_f32(v.data_ptr(), m.data_ptr(), S, T, alpha,
+                                  *seg, res.data_ptr(), _stream()))
+
+        def check(v=v, m=m, res=res, last=last, first=first, tol=tol):
+            want = last[0].plain(v, m, alpha)
+            nan = torch.isnan(want)
+            if not (torch.equal(torch.isnan(res), nan) and torch.equal(
+                    res.view(torch.int32)[~nan],
+                    want.view(torch.int32)[~nan])):
+                raise AssertionError("differs from its own plain version")
+            ref = first.setdefault("out", res.clone())
+            if (torch.abs(res - ref) > 1e-5 * torch.abs(ref) + tol).any():
+                raise AssertionError("outside the models' tolerance of the "
+                                     "first revision")
+            return float((res - ref).abs().nan_to_num(0.0).max())
+
+        out.append(Case("smoothing", f"ewma_scan_f32 /forecast {stage}",
+                        {"series": S, "steps": T}, _nothing, call, check))
+    return out
+
+
 def cases(dev, kernels=SOURCES) -> list[Case]:
     out = []
     if "segment_reduce" in kernels:
         out += segment_cases(dev)
-    if {"masked_select", "interp_moments", "sketches"} & set(kernels):
+    if {"masked_select", "interp_moments", "sketches",
+            "smoothing"} & set(kernels):
         ts, vals = corpus()
         if "masked_select" in kernels:
             out += select_cases(dev, ts, vals)
@@ -698,6 +785,8 @@ def cases(dev, kernels=SOURCES) -> list[Case]:
             out += interp_cases(dev, ts, vals)
         if "sketches" in kernels:
             out += sketch_cases(dev, vals)
+        if "smoothing" in kernels:
+            out += smoothing_cases(dev, ts, vals)
     if "block_decode" in kernels:
         out += decode_cases(dev)
     return out

@@ -14,6 +14,7 @@ import torch
 
 from opentsdb_tpu_torch.ops import interp_moments as im_mod
 from opentsdb_tpu_torch.ops import kernels, masked_select
+from opentsdb_tpu_torch.ops.smoothing import EWMA_SEGMENT
 from opentsdb_tpu_torch.ops.segment_reduce import (
     segment_minmax,
     segment_minmax_plain,
@@ -2056,6 +2057,64 @@ def test_smoothing_kernels_bit_identical_to_plain(card, S, T, season,
     assert torch.equal(e, smoothing.ewma_scan_plain(v, m, 0.3))
     if S > 2:
         assert bool(got["anomaly"][T // 2, 2]) or T < 12
+
+
+EWMA_GRID = [(S, T) for S in (1, 31, 33, 10_000)
+             for T in (1, EWMA_SEGMENT - 1, EWMA_SEGMENT, EWMA_SEGMENT + 1,
+                       2 * EWMA_SEGMENT + 1, 2017, 12_000)]
+
+
+def _ewma_inputs(S, T, seed, device):
+    """Time-major [T, S] values and mask on ``device``, each a view one
+    element into its buffer (no row starts 16-byte aligned where S % 4,
+    and none of them where S % 4 == 0): noise around a level, ~20% gaps,
+    series 0 all masked (S > 1), NaN, +inf and -inf at real and masked
+    steps, and in the last series an inf then the opposite inf across
+    the first segment boundary."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(100, 30, (T, S)).astype(np.float32)
+    m = rng.random((T, S)) > 0.2
+    if S > 1:
+        m[:, 0] = False
+    k = max(4, S * T // 1000)
+    rows, cols = rng.integers(T, size=k), rng.integers(S, size=k)
+    v[rows, cols] = rng.choice(np.array([np.nan, np.inf, -np.inf],
+                                        np.float32), k)
+    m[rows, cols] = rng.random(k) > 0.3
+    if T > EWMA_SEGMENT + 1:
+        v[EWMA_SEGMENT:EWMA_SEGMENT + 2, S - 1] = (np.inf, -np.inf)
+        m[EWMA_SEGMENT:EWMA_SEGMENT + 2, S - 1] = True
+    out = []
+    for a in (v, m):
+        buf = torch.zeros(a.size + 1, dtype=torch.from_numpy(a).dtype,
+                          device=device)
+        buf[1:] = torch.from_numpy(a.ravel()).to(device)
+        out.append(buf[1:].view(T, S))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T", EWMA_GRID)
+def test_ewma_grid_bit_identical_to_plain(card, S, T):
+    """The segmented EWMA scan on the card against its plain version on
+    the card over the grid of series and steps around the segment length,
+    at alpha 0, 0.3, 0.999 and 1: the plain version's bits wherever it is
+    not NaN, and NaN at the same cells (NaN payloads may differ); inputs
+    that are views one element in (offsets into the aligned chunks the
+    kernel stages); one launch a call."""
+    from opentsdb_tpu_torch.ops import smoothing
+    v, m = _ewma_inputs(S, T, S + T, card)
+    assert v.data_ptr() % 16 and m.data_ptr() % 16
+    for alpha in (0.0, 0.3, 0.999, 1.0):
+        before = smoothing.ewma_scan.launches
+        got = smoothing.ewma_scan(v, m, alpha)
+        torch.cuda.synchronize()
+        assert smoothing.ewma_scan.launches == before + 1
+        want = smoothing.ewma_scan_plain(v, m, alpha)
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan), alpha
+        assert torch.equal(got.view(torch.int32)[~nan],
+                           want.view(torch.int32)[~nan]), alpha
 
 
 HW_GRID = [(S, m, T) for S in (1, 10, 33, 10_000) for m in (0, 1, 7, 24, 288)

@@ -122,15 +122,108 @@ def test_holt_winters_and_forecast_match_jax(S, T, season, alpha, beta,
         assert torch.equal(fused["forecast"], gf)
 
 
-@pytest.mark.parametrize("S,T,alpha,seed", [
-    (1, 50, 0.3, 1), (8, 300, 0.0, 2), (37, 200, 1.0, 3), (37, 300, 0.2, 4),
-])
+L = ops_sm.EWMA_SEGMENT
+# The EWMA's grid: T around the segment length L (one step, a segment
+# less one, one, one more, two and one more) and /forecast's lengths, by
+# S and alpha at its ends (0: the first value forever; 0.999: oma^L
+# underflows; 1: the last value).
+EWMA_CASES = [(1, 50, 0.3, 1), (8, 300, 0.0, 2), (37, 200, 1.0, 3),
+              (37, 300, 0.2, 4)] + [
+    (S, T, alpha, 1000 + i) for i, (S, T, alpha) in enumerate(
+        (S, T, alpha) for T in (1, L - 1, L, L + 1, 2 * L + 1, 300, 2017)
+        for S in (1, 10, 37) for alpha in (0.0, 0.3, 0.999, 1.0))]
+
+
+def _first_real_at(mask, row, t):
+    """Series ``row``'s first real step at ``t`` (earlier steps masked)."""
+    t = min(t, mask.shape[1] - 1)
+    mask[row, :t] = False
+    mask[row, t] = True
+
+
+@pytest.mark.parametrize("S,T,alpha,seed", EWMA_CASES)
 def test_ewma_matches_jax(S, T, alpha, seed):
+    """Over the grid; where S >= 5, series 3 first sees a real step at the
+    last step of the first segment and series 4 at the first step of the
+    second."""
     vals, mask = _series(S, T, 0, seed)
+    if S >= 5:
+        _first_real_at(mask, 3, L - 1)
+        _first_real_at(mask, 4, L)
+        vals = np.where(mask, vals, 0.0).astype(np.float32)
     want = np.asarray(jax_sm.ewma(vals, mask, alpha))
     got = sm.ewma(_t(vals), _t(mask), alpha)
     assert got.shape == (S, T) and got.dtype == torch.float32
     _close(got.numpy(), want, vals, "ewma")
+
+
+def _nonfinite_series(T, seed):
+    """[12, T] values and mask with NaN, +inf and -inf at real and masked
+    steps: an inf then the opposite inf, infs on both sides of a segment
+    boundary, an inf as the first real value, the same inf twice."""
+    vals, mask = _series(12, T, 0, seed)
+    mask[:, :2] = True
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    cells = [(0, 5, inf, True), (1, 5, -inf, True), (1, 40, inf, True),
+             (2, 20, nan, True), (3, 7, inf, False), (4, 9, nan, False),
+             (5, 0, inf, True), (6, L - 1, inf, True), (6, L, -inf, True),
+             (7, 3, -inf, True), (7, 60, -inf, True),
+             (8, 2 * L + 3, -inf, True), (9, 11, inf, False),
+             (9, 12, -inf, True), (10, T - 1, nan, True),
+             (11, L + 2, -inf, False), (11, L + 4, inf, True)]
+    for row, t, v, real in cells:
+        vals[row, t] = v
+        mask[row, t] = real
+    vals = np.where(mask | ~np.isfinite(vals), vals, 0.0).astype(np.float32)
+    return vals, mask
+
+
+@pytest.mark.parametrize("alpha", [0.3, 0.999, 1.0])
+@pytest.mark.parametrize("T", [80, 300])
+def test_ewma_nonfinite_matches_jax(T, alpha):
+    """NaN cells and signed-inf cells equal JAX's (the carries keep an inf
+    the step keeps, and make NaN where it does); finite cells within the
+    tolerance of the finite values' scale."""
+    vals, mask = _nonfinite_series(T, T + int(alpha * 10))
+    want = np.asarray(jax_sm.ewma(vals, mask, alpha))
+    got = sm.ewma(_t(vals), _t(mask), alpha).numpy()
+    assert np.isnan(want).any() and np.isinf(want).any()
+    assert (np.isnan(got) == np.isnan(want)).all()
+    inf = np.isinf(want)
+    assert (got[inf] == want[inf]).all() and (np.isinf(got) == inf).all()
+    fin = np.isfinite(want)
+    scale = np.abs(np.where(np.isfinite(vals), vals, 0.0)).max(
+        axis=1, keepdims=True)
+    with np.errstate(invalid="ignore"):
+        bad = fin & (np.abs(got - want) > RTOL * np.abs(want) + RTOL * scale)
+    assert not bad.any(), np.argwhere(bad)[:5]
+
+
+@pytest.mark.parametrize("alpha", [0.0, 0.3, 0.999, 1.0])
+def test_ewma_first_segment_is_the_jax_step(alpha):
+    """The first segment's outputs (t < L) are the JAX step's bits: phase
+    3 runs it from the initial carry. The step here is numpy float32, one
+    rounding an operation."""
+    vals, mask = _series(10, 2 * L + 1, 0, 12)
+    _first_real_at(mask, 3, L - 1)
+    vals[5, 2] = np.nan
+    vals[6, 4] = np.inf
+    got = sm.ewma(_t(vals), _t(mask), alpha).numpy()[:, :L]
+    a = np.float32(alpha)
+    oma = np.float32(1.0) - a
+    mean = np.zeros(10, np.float32)
+    seen = np.zeros(10, bool)
+    want = np.empty((10, L), np.float32)
+    with np.errstate(invalid="ignore"):
+        for t in range(L):
+            x, m = vals[:, t], mask[:, t]
+            new = np.where(seen, oma * mean + a * x, x).astype(np.float32)
+            mean = np.where(m, new, mean)
+            seen = seen | m
+            want[:, t] = mean
+    nan = np.isnan(want)
+    assert (np.isnan(got) == nan).all()
+    assert (got.view(np.int32)[~nan] == want.view(np.int32)[~nan]).all()
 
 
 def test_plain_versions_are_the_cpu_path():
