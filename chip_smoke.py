@@ -326,6 +326,50 @@
    ``wal.append``, ``wal.fsync``, ``ingest.parse`` and ``checkpoint.phase``
    percentiles (process-wide since the smoke began). One ``obs`` stdout
    line carries these.
+5f. Replica phase (ROADMAP item 10a), last in the restart phase, over
+   its writer and its store (10,020 series, 10M points in two
+   generations): a replica opened as ``tsdb tsd --role replica`` opens it
+   (``cli.make_tsdb`` read-only: no window, no tenant accounting) with a
+   ``WalTailer`` (0.25 s) and a daemon of its own; its boot seconds split
+   into generations, replay and sketch load. With the launch counts set to
+   0 and a ``KernelTap`` recording every call of the seven kernels and the
+   thread that makes it, ``sum:1h-avg{dc=*}`` and ``p95:1h-avg{dc=*}``
+   over the first day and ``max:1h-max{host=h00001}`` over the week (each
+   ``"rollup": "raw"``: the scan path) and the seven sketch routes run on
+   the replica; segment_sum, segment_minmax, masked_select, hll_estimate
+   and merged_quantile must each count launches, from the replica
+   daemon's threads too. Each ``/q`` answer is held against the writer's
+   (resident) one: tags and timestamps equal, values within rtol 1e-5 +
+   1e-5 x scale; every sketch route answers the writer's bytes. Then 200
+   telnet points into the writer's telnet series (an hour past the week)
+   and the time until the replica's ``/q`` holds all of them (the tail
+   lag), ``/healthz`` before and after; a writer checkpoint, the
+   replica's rebuild and sketch reload timed apart (the tailer stopped),
+   after which every sketch route answers the writer's bytes; three more
+   checkpoints, each followed by the WAL suffix the writer ingests in one
+   tail interval at the path phase's rate (through ``add_batch``), so
+   each ``refresh_replica`` re-folds that suffix on the card:
+   tdigest_fold and hll_fold must count launches, from the new sketch
+   set's folder thread too; the card's allocated memory, read around
+   each refresh (the writer shares the process), must grow by no more
+   than 1 MiB over the three, the replaced set's stacks must be freed
+   and its folder thread ended; every sketch route must then answer the
+   writer's bytes. Then failover: the writer stops, the epoch file is
+   bumped, ``TSDB.promote`` takes the store (seconds, split into store,
+   sketches, tenants, rollups), the WAL must begin with that epoch's
+   header, and 200 telnet points into the promoted replica must answer.
+   Last, every recorded replica call is replayed on the card against the
+   kernel's plain version (the kernel and sketch phases' tolerances), and
+   the largest call of each kernel is timed as those phases time theirs
+   (stages ``replica <what ran>: <shape>``). The sharded child opens a
+   replica of its 4-shard store after its fsck (one day's
+   ``sum:1h-avg{dc=*}`` against the writer's), and the rollup child one
+   of its store after the crash reopen (the six rollup shapes, each with
+   the writer's plan, max and percentiles exactly, sums by the resident
+   tolerance; where a body is not the writer's bytes, the kernel calls
+   of both queries must have had the same inputs bit for bit, and the
+   group sum runs 20 times on the writer's input to count its different
+   outputs). One ``replica`` stdout line.
 6. Refusal phase: a small second daemon on the card with
    ``tenant_max_series=1`` must refuse a new series over telnet (the bulk
    path's and the per-line path's declared lines) and over ``/api/put``
@@ -341,8 +385,8 @@
 8. Prints the card line first; at the end the per-query, sketch,
    ingest, profiler, tenants, restart, native (build seconds and calls
    per C site, per stage, and the WAL replay), sharded, obs, budget and
-   launch-floor lines, the compressed, forecast and rollup lines, the
-   kernels line (twelve kernels) and, last, the ok line.
+   launch-floor lines, the compressed, forecast, rollup and replica
+   lines, the kernels line (twelve kernels) and, last, the ok line.
    In the kernels line each kernel's top-level numbers are its first
    path's: the segment kernels' and the select's the resident path's
    (at the chunk-fold shape and the columns select at one quantile),
@@ -358,8 +402,9 @@
    beside ``bound_ms``). Under ``paths``
    each path's launches stand beside the times at its own shape (the scan
    path's: the series stage; the select's un-downsampled path: the p95
-   contributions). Counts include the group stages' launches, whose times
-   are in the details line.
+   contributions; the replica path's: its own largest call of each
+   kernel). Counts include the group stages' launches, whose times are
+   in the details line.
 
 Overlap: after the kernel phase the sharded phase (with its writer-pause
 A/B) and the rollup phase each run in a child process of this script
@@ -388,6 +433,7 @@ import contextlib
 import ctypes
 import gc
 import http.client
+import inspect
 import io
 import itertools
 import json
@@ -402,10 +448,12 @@ import tempfile
 import threading
 import time
 import urllib.parse
+import weakref
 
 import numpy as np
 import torch
 
+from opentsdb_tpu_torch.cluster import epoch as cepoch
 from opentsdb_tpu_torch.compress import fused as cfused
 from opentsdb_tpu_torch.compress.devcache import pad_fine
 from opentsdb_tpu_torch.core.tsdb import TSDB
@@ -423,11 +471,13 @@ from opentsdb_tpu_torch.query.executor import (QueryExecutor, QueryResult,
                                                _pad64, _pad_size, _Span)
 from opentsdb_tpu_torch.query.grammar import parse_m
 from opentsdb_tpu_torch.rollup import summary as rsummary
+from opentsdb_tpu_torch.serve.tailer import WalTailer
 from opentsdb_tpu_torch.server.tsd import TSDServer
 from opentsdb_tpu_torch.sketch.bounds import hll_error
 from opentsdb_tpu_torch.stats.livesketch import LiveSketches
 from opentsdb_tpu_torch.stats.livesketch import _pad as _sk_pad
 from opentsdb_tpu_torch.storage.devstore import DeviceWindow
+from opentsdb_tpu_torch.storage import kv as port_kv
 from opentsdb_tpu_torch.storage.kv import MemKVStore
 from opentsdb_tpu_torch.tenant.accounting import hll_rel_error
 from opentsdb_tpu_torch.tools import cli as port_cli
@@ -2063,7 +2113,8 @@ def path_phase(ts: np.ndarray, vals: np.ndarray, wal_dir: str) -> dict:
         out["forecast"] = forecast_phase(daemon)
 
         out["restart"] = restart_phase(tsdb, daemon,
-                                       os.path.join(wal_dir, "wal"))
+                                       os.path.join(wal_dir, "wal"),
+                                       out["ingest"]["points_per_s"])
     finally:
         daemon.stop()
     return out
@@ -2327,14 +2378,16 @@ def wal_replay(tsdb: TSDB) -> dict:
     return out
 
 
-def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
+def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str,
+                  ingest_rate: float) -> dict:
     """Checkpoint the ingested store, add a few hundred telnet puts and
     checkpoint again (two generations), shut the daemon down (which
     checkpoints once more), open a new TSDB and daemon on the same WAL
     (timing the generations' open, the replay and the window's warm-up
     from the tiers), then the resident queries against their answers
     from before the restart and one un-downsampled query and one host
-    scan over the generations."""
+    scan over the generations; last the replica phase (``ingest_rate``:
+    the path phase's points/s)."""
     out: dict = {}
     start, end = BASE, BASE + SPAN - 1
     # One full garbage collection with the ingested memtable live, and one
@@ -2548,10 +2601,755 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
             "wal.append", "wal.fsync", "ingest.parse", "checkpoint.phase")}
         log(f"timers from /stats after the restart: {out['timers']}")
         out["fsck"] = fsck_clean(tsdb2, "the one-shard store")
+        # Last: a replica of this store, which ends with the writer
+        # stopped and the replica promoted in its place.
+        out["replica"] = replica_phase(tsdb2, daemon2, wal, ingest_rate)
     finally:
         daemon2.stop()
     out["marker_rebuild"] = marker_rebuild(wal, tenants_before)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Kernel tap: the inputs a daemon's path gives each kernel
+# ---------------------------------------------------------------------------
+
+# The replica path's kernel wrappers, each under every name it is called
+# by (ops/kernels.py imports the segment wrappers by name; the others are
+# called through their modules).
+TAP_TARGETS = {
+    "segment_sum": ((segment_reduce, "segment_sum"), (wk, "segment_sum")),
+    "segment_minmax": ((segment_reduce, "segment_minmax"),
+                       (wk, "segment_minmax")),
+    "masked_select": ((masked_select, "select_columns"),
+                      (masked_select, "select_groups")),
+    "tdigest_fold": ((sketches, "tdigest_fold"),),
+    "hll_fold": ((sketches, "hll_fold"),),
+    "hll_estimate": ((sketches, "hll_estimate"),),
+    "merged_quantile": ((sketches, "merged_quantile"),)}
+REPLICA_KERNELS = tuple(TAP_TARGETS)
+# Runs of the group sum on one recorded input, to see whether its float32
+# sums (atomics, in a run-dependent order) change from run to run.
+GROUP_SUM_REPEATS = 20
+
+
+def tap_copy(x, fn):
+    """``x`` with ``fn`` applied to every tensor in it (tuples, named
+    tuples, lists and dicts walked)."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(tap_copy(v, fn) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(tap_copy(v, fn) for v in x)
+    if isinstance(x, dict):
+        return {k: tap_copy(v, fn) for k, v in x.items()}
+    return x
+
+
+class TapCall:
+    """One recorded wrapper call: the kernel, the entry point, the label
+    the smoke had set, the calling thread, a copy of the arguments made
+    before the call (the folds update their stacks in place) and the
+    launches the call made."""
+
+    def __init__(self, name, entry, label, args):
+        self.name, self.entry, self.label = name, entry, label
+        self.thread = threading.current_thread()
+        self.args = args
+        self.launched = 0
+
+
+class _Tapped:
+    """Stands in for a kernel wrapper while a KernelTap is open: records
+    the call, then makes it. ``launches`` reads and writes the wrapper's
+    own count, which the wrapper bumps through its module's name (this
+    object while the tap is open)."""
+
+    def __init__(self, tap: "KernelTap", name: str, entry: str, fn) -> None:
+        self.tap, self.name, self.entry, self.fn = tap, name, entry, fn
+        self.sig = inspect.signature(fn)
+
+    @property
+    def launches(self) -> int:
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.fn.launches = n
+
+    def __call__(self, *args, **kw):
+        bound = self.sig.bind(*args, **kw)
+        bound.apply_defaults()
+        call = TapCall(self.name, self.entry, self.tap.label,
+                       tap_copy(dict(bound.arguments), torch.Tensor.clone))
+        n0 = self.fn.launches
+        out = self.fn(*args, **kw)
+        call.launched = self.fn.launches - n0
+        self.tap.calls.append(call)
+        return out
+
+
+class KernelTap:
+    """While open, every call of the replica path's kernel wrappers is
+    recorded (``TapCall``) from whichever thread makes it; ``of`` keeps
+    the calls of given threads, ``to_host`` moves the copies off the
+    card (so a reading of its allocated memory leaves them out)."""
+
+    def __init__(self) -> None:
+        self.calls: list[TapCall] = []
+        self.label = ""
+        self._saved: list = []
+
+    def __enter__(self) -> "KernelTap":
+        proxies: dict = {}
+        for name, entries in TAP_TARGETS.items():
+            for mod, attr in entries:
+                fn = getattr(mod, attr)
+                if id(fn) not in proxies:
+                    proxies[id(fn)] = _Tapped(self, name, attr, fn)
+                self._saved.append((mod, attr, fn))
+                setattr(mod, attr, proxies[id(fn)])
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        for mod, attr, fn in reversed(self._saved):
+            setattr(mod, attr, fn)
+        self._saved.clear()
+        return False
+
+    def of(self, threads) -> list:
+        return [c for c in self.calls if c.thread in threads]
+
+    def to_host(self) -> None:
+        torch.cuda.synchronize()
+        for c in self.calls:
+            c.args = tap_copy(c.args, lambda t: t.cpu())
+
+
+def pool_threads(daemon: "Daemon") -> set:
+    """The threads a daemon runs its /q and sketch routes on."""
+    return set(daemon.server._pool._threads)
+
+
+def tap_counts(calls: list) -> dict:
+    """Launches by kernel among ``calls``."""
+    out = dict.fromkeys(REPLICA_KERNELS, 0)
+    for c in calls:
+        out[c.name] += c.launched
+    return out
+
+
+def same_arg_bits(a, b) -> bool:
+    """Two recorded argument trees hold the same values, bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype \
+            and same_bits(a, b)
+    if isinstance(a, (tuple, list)):
+        return isinstance(b, (tuple, list)) and len(a) == len(b) \
+            and all(same_arg_bits(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() \
+            and all(same_arg_bits(a[k], b[k]) for k in a)
+    return a == b
+
+
+def _replay_segment_sum(a: dict) -> tuple:
+    x, ids, ns = a["feat"], a["seg"], a["num_segments"]
+    got = segment_reduce.segment_sum(x, ids, ns)
+    want = segment_reduce.segment_sum_plain(x, ids, ns)
+    torch.cuda.synchronize()
+    # Float32 sums in another (run-dependent) order: the kernel phase's
+    # tolerance.
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    n, k = x.shape
+    return ({"n": n, "k": k, "segments": ns,
+             "max_abs_err": float((got - want).abs().max()) if got.numel()
+             else 0.0},
+            f"N={n:,} K={k} -> {ns:,} segments",
+            bound_ms(n * k * 4 + n * 4 + ns * k * 4, n * k),
+            lambda: segment_reduce.segment_sum(x, ids, ns),
+            lambda: segment_reduce.segment_sum_plain(x, ids, ns),
+            lambda: torch.zeros((ns, k), device=x.device).index_add_(
+                0, ids, x))
+
+
+def _replay_segment_minmax(a: dict) -> tuple:
+    x, ids, ns, need = a["vals"], a["seg"], a["num_segments"], a["need"]
+    got = segment_reduce.segment_minmax(x, ids, ns, need=need)
+    want = segment_reduce.segment_minmax_plain(x, ids, ns, need=need)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            fail(f"segment_minmax ({need}): not exact on a replica input")
+    n, k = x.shape
+    outs = len(got)
+    library = None
+    if need != "both":
+        fill = float("-inf") if need == "max" else float("inf")
+        idx = ids.long()[:, None].expand(-1, k)
+        library = (lambda: torch.full((ns, k), fill, device=x.device)
+                   .scatter_reduce_(0, idx, x, "a" + need))
+    return ({"n": n, "k": k, "segments": ns, "need": need,
+             "max_abs_err": max((float((g - w).abs().nan_to_num(0.0).max())
+                                 for g, w in zip(got, want) if g.numel()),
+                                default=0.0)},
+            f"N={n:,} K={k} -> {ns:,} segments, {need}",
+            bound_ms(n * k * 4 + n * 4 + outs * ns * k * 4, outs * n * k),
+            lambda: segment_reduce.segment_minmax(x, ids, ns, need=need),
+            lambda: segment_reduce.segment_minmax_plain(x, ids, ns,
+                                                        need=need),
+            library)
+
+
+def _replay_masked_select(a: dict, entry: str) -> tuple:
+    x, m, q = a["vals"], a["mask"], a["q"]
+    layout = a.get("layout")
+    if entry == "select_columns":
+        def fn():
+            return masked_select.select_columns(x, m, q)
+
+        def plain():
+            return masked_select.select_columns_plain(x, m, q)
+        G, extra = 1, 0
+        qt = torch.tensor(masked_select._q_list(q), device=x.device)
+        nan_grid = torch.where(m, x, float("nan"))
+
+        def library():
+            return torch.nanquantile(nan_grid, qt, dim=0,
+                                     interpolation="linear")
+    else:
+        def fn():
+            return masked_select.select_groups(x, m, layout, q)
+
+        def plain():
+            return masked_select.select_groups_plain(x, m, layout, q)
+        G = layout.offsets.numel() - 1
+        extra = 4 * (x.shape[0] + G + 1 + layout.big.numel())
+        library = None
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    # Both select exact rank keys and lerp with separate roundings.
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    rows, cols = x.shape
+    nq = len(masked_select._q_list(q))
+    return ({"rows": rows, "cols": cols, "groups": G, "quantiles": nq,
+             "max_abs_err": float((got - want).abs().nan_to_num(0.0).max())
+             if got.numel() else 0.0},
+            f"[{rows:,}, {cols:,}] into {G:,} group(s), {nq} quantile(s)",
+            bound_ms(rows * cols * 5 + extra + nq * G * cols * 4,
+                     rows * cols),
+            fn, plain, library)
+
+
+def _replay_tdigest_fold(a: dict) -> tuple:
+    m0, w0, idx, batch = a["means"], a["weights"], a["idx"], a["batch"]
+    valid, bw, K = a["valid"], a["batch_weights"], a["compression"]
+    m1, w1, m2, w2 = m0.clone(), w0.clone(), m0.clone(), w0.clone()
+    sketches.tdigest_fold(m1, w1, idx, batch, valid=valid, batch_weights=bw,
+                          compression=K)
+    sketches.tdigest_fold_plain(m2, w2, idx, batch, valid, bw,
+                                compression=K)
+    torch.cuda.synchronize()
+    # Weights: integral float32 sums, exact; means: the sketch phase's
+    # tolerance.
+    if not torch.equal(w1, w2):
+        fail("tdigest_fold: cluster weights differ on a replica input")
+    torch.testing.assert_close(m1, m2, rtol=1e-5, atol=1e-6)
+    live = valid if valid is not None else bw > 0
+    keys = fold_sort_keys(idx, batch, live, m0, w0)
+    m, w = m0.clone(), w0.clone()
+    mp, wp = m0.clone(), w0.clone()
+    rows = int((idx < m0.shape[0]).sum())
+    P = batch.shape[1]
+    return ({"rows": rows, "K": K, "P": P,
+             "max_abs_err": float((m1 - m2).abs().max())},
+            f"{rows:,} rows x ({K} + {P:,}) entries",
+            fold_bound(idx, live, m0, w0),
+            lambda: sketches.tdigest_fold(m, w, idx, batch, valid=valid,
+                                          batch_weights=bw, compression=K),
+            lambda: sketches.tdigest_fold_plain(mp, wp, idx, batch, valid,
+                                                bw, compression=K),
+            lambda: torch.sort(keys, dim=1))
+
+
+def _replay_hll_fold(a: dict) -> tuple:
+    regs0, idx, items, valid, p = (a["regs"], a["idx"], a["items"],
+                                   a["valid"], a["p"])
+    r1, r2 = regs0.clone(), regs0.clone()
+    sketches.hll_fold(r1, idx, items, valid, p=p)
+    sketches.hll_fold_plain(r2, idx, items, valid, p=p)
+    torch.cuda.synchronize()
+    if not torch.equal(r1, r2):
+        fail(f"hll_fold p={p}: registers differ on a replica input")
+    C = regs0.shape[0]
+    keep = (idx >= 0) & (idx < C)
+    reg_idx, rank = sketches._hll_ranks(items[keep], valid[keep], p)
+    tgt = torch.zeros((int(keep.sum()), (1 << p) + 1), dtype=torch.int32,
+                      device=regs0.device)
+    live = reg_idx < (1 << p)
+    slots = idx[keep].long()[:, None].expand_as(reg_idx)
+    touched = int(torch.unique(slots[live] * (1 << p)
+                               + reg_idx[live]).numel())
+    raised = int((r2 != regs0).sum())
+    n_items = int(valid[keep].sum())
+    # Each timed call folds into a stack of its own, as it stood before
+    # the call (as the sketch phase times the fold).
+    stacks = itertools.cycle([regs0.clone() for _ in range(64)])
+    rp = regs0.clone()
+    return ({"p": p, "rows": list(items.shape), "items": n_items,
+             "touched": touched, "raised": raised, "max_abs_err": 0.0},
+            f"{items.shape[0]} x {items.shape[1]:,} items ({n_items:,} "
+            f"valid), p = {p}",
+            bound_ms(int(keep.sum()) * items.shape[1] + 4 * n_items
+                     + 4 * touched + 4 * raised, 10 * n_items),
+            lambda: sketches.hll_fold(next(stacks), idx, items, valid, p=p),
+            lambda: sketches.hll_fold_plain(rp, idx, items, valid, p=p),
+            lambda: tgt.scatter_reduce_(1, reg_idx, rank, "amax"))
+
+
+def _replay_hll_estimate(a: dict) -> tuple:
+    regs = a["registers"]
+    got = sketches.hll_estimate(regs)
+    want = sketches.hll_estimate_plain(regs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    if not torch.equal(torch.round(got), torch.round(want)):
+        fail("hll_estimate: rounded estimates differ on a replica input")
+    rows = regs.numel() // regs.shape[-1]
+    return ({"rows": rows, "max_abs_err": float((got - want).abs().max())},
+            f"{rows} x {regs.shape[-1]:,} registers",
+            bound_ms(regs.numel() * 4 + rows * 4, 3 * regs.numel()),
+            lambda: sketches.hll_estimate(regs),
+            lambda: sketches.hll_estimate_plain(regs), None)
+
+
+def _replay_merged_quantile(a: dict) -> tuple:
+    m, w, idx, valid, q, K = (a["means"], a["weights"], a["idx"],
+                              a["valid"], a["q"], a["compression"])
+    got = sketches.merged_quantile(m, w, idx, valid, q, compression=K)
+    again = sketches.merged_quantile(m, w, idx, valid, q, compression=K)
+    want = sketches.merged_quantile_plain(m, w, idx, valid, q,
+                                          compression=K)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail("merged_quantile: two runs on one replica input differ")
+    # The sketch phase's tolerance (a cluster's mean sums many centroids
+    # in another order than the plain version's atomics).
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    rows = idx[valid].long()
+    keyf = torch.where(w[rows] > 0, m[rows],
+                       torch.full_like(m[rows], float("inf")))
+    comp = sketches._sort_keys(keyf.reshape(-1))
+    live = (w[rows] != 0).sum().reshape(1)
+    S = idx.shape[0]
+    return ({"S": S, "valid": len(rows), "K": K,
+             "live_entries": int(live),
+             "max_abs_err": float((got - want).abs().max())},
+            f"S = {S:,} ({len(rows):,} valid), {q.numel()} quantile(s)",
+            sort_bound(len(rows) * K * 8 + S * 5 + q.numel() * 8, live),
+            lambda: sketches.merged_quantile(m, w, idx, valid, q,
+                                             compression=K),
+            lambda: sketches.merged_quantile_plain(m, w, idx, valid, q,
+                                                   compression=K),
+            lambda: torch.sort(comp))
+
+
+def arg_bytes(args: dict) -> int:
+    sizes: list = []
+    tap_copy(args, lambda t: sizes.append(t.numel() * t.element_size()))
+    return sum(sizes)
+
+
+def replica_kernel_cases(calls: list, what: str) -> tuple[list, list]:
+    """Every call in ``calls`` (recorded on ``what``'s path) replayed on
+    the card: the wrapper against its plain version on the same inputs,
+    at the kernel and sketch phases' tolerances. Of each kernel, the call
+    with the most input bytes is timed as those phases time theirs,
+    under the stage ``<what> <label>: <shape>``. Returns the timed cases
+    and every call's check."""
+    dev = torch.device(DEVICE)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    checks, biggest = [], {}
+    for c in calls:
+        a = tap_copy(c.args, lambda t: t.to(dev))
+        if c.name == "masked_select":
+            rec = _replay_masked_select(a, c.entry)
+        else:
+            rec = globals()[f"_replay_{c.name}"](a)
+        res, shape = rec[0], rec[1]
+        checks.append({"name": c.name, "label": c.label, "shape": shape,
+                       "launched": c.launched, **res})
+        size = arg_bytes(c.args)
+        if size > biggest.get(c.name, (-1,))[0]:
+            biggest[c.name] = (size, c, a, rec)
+        del a
+    cases = []
+    for name, (_, c, a, (res, shape, bound, fn, plain, library)) in \
+            biggest.items():
+        cases.append(time_case(
+            {"name": name, "stage": f"{what} {c.label}: {shape}", **res,
+             "bound_ms": bound[0], "bound_by": bound[1]},
+            fn, plain, library, flush))
+    del biggest, flush
+    torch.cuda.empty_cache()
+    return cases, checks
+
+
+# ---------------------------------------------------------------------------
+# Replica phase: a read-only replica tailing the restarted writer
+# ---------------------------------------------------------------------------
+
+# The replica's /q shapes, each with the length of its range from BASE.
+REPLICA_QUERIES = [("sum:1h-avg:bench.metric{dc=*}", DAY),
+                   ("max:1h-max:bench.metric{host=h00001}", SPAN),
+                   ("p95:1h-avg:bench.metric{dc=*}", DAY)]
+# The kernels of the replica's path: its scan-path queries', its sketch
+# routes' and its sketch reload's.
+REPLICA_QUERY_KERNELS = ("segment_sum", "segment_minmax", "masked_select")
+REPLICA_SKETCH_KERNELS = ("hll_estimate", "merged_quantile")
+REPLICA_RELOAD_KERNELS = ("tdigest_fold", "hll_fold")
+# Points the replica phase adds, to existing telnet series only (so the
+# tenant totals marker_rebuild checks stay as they are), in hours past the
+# corpus' week: TAIL_POINTS at hour 0 for the tail lag, RELOAD_POINTS
+# before each of RELOADS writer checkpoints at hours 1..RELOADS,
+# TAIL_POINTS at hour PROMOTED_HOUR after the promotion; from
+# SUFFIX_HOUR0 on, each checkpoint's WAL suffix: what the writer ingests
+# in one tail interval at the path phase's rate, one point a second a
+# series.
+REPLICA_HOUR0 = BASE + SPAN
+TAIL_POINTS, RELOAD_POINTS, RELOADS = 200, 20, 3
+PROMOTED_HOUR = RELOADS + 1
+SUFFIX_HOUR0 = RELOADS + 2
+# How far the card's allocated memory may move across the reloads, in
+# the replica's own steps (the writer shares the process and the card).
+RELOAD_MEMORY_SLACK = 1 << 20
+
+
+def open_replica_tsdb(wal: str, **over) -> TSDB:
+    """The TSDB as ``tsdb tsd --role replica`` opens it (tools/cli.py
+    cmd_tsd: ``make_tsdb`` read-only, the role's 5,000 ms staleness
+    contract and 0.25 s tail interval), then the heap frozen."""
+    cfg = Config(auto_create_metrics=True, port=0, bind="127.0.0.1",
+                 device=DEVICE, role="replica", max_staleness_ms=5000.0,
+                 tail_interval_s=0.25, **over)
+    tsdb = port_cli.make_tsdb(cfg, wal, read_only=True)
+    tune_for_ingest()
+    if tsdb.devwindow is not None or tsdb.tenants is not None \
+            or not tsdb.store.read_only:
+        fail("the replica came up with the window, tenant accounting or "
+             "a writable store")
+    return tsdb
+
+
+def replica_daemon(tsdb: TSDB) -> tuple["Daemon", WalTailer]:
+    """A daemon over the replica with its WAL tailer attached and
+    running, as cmd_tsd --role replica starts it."""
+    daemon = Daemon(tsdb)
+    tailer = WalTailer(tsdb)
+    daemon.server.attach_tailer(tailer)
+    tailer.start()
+    return daemon, tailer
+
+
+def q_body(port: int, expr: str, start: int, end: int) -> tuple:
+    """One /q's wall ms and body (JSON)."""
+    target = "/q?" + urllib.parse.urlencode(
+        {"start": start, "end": end, "m": expr, "json": ""})
+    q0 = time.perf_counter()
+    status, body = http_get(port, target)
+    wall = (time.perf_counter() - q0) * 1e3
+    if status != 200:
+        fail(f"{expr}: HTTP {status}: {body[:300]!r}")
+    return wall, body
+
+
+def q_json(port: int, expr: str, start: int, end: int) -> tuple[float, list]:
+    wall, body = q_body(port, expr, start, end)
+    return wall, json.loads(body)
+
+
+def replica_put_lines(hour: int, per_series: int) -> list[str]:
+    """Points for the existing telnet series, each at its own second of
+    the hour ``hour`` past the week, so a zimsum over that hour has one
+    bucket per point."""
+    t0 = REPLICA_HOUR0 + hour * 3600
+    return [f"put bench.metric {t0 + s * per_series + j} "
+            f"{100 + s + j / 8:.3f} host=t{s:02d} dc=dc{s % 10}"
+            for s in range(TELNET_SERIES) for j in range(per_series)]
+
+
+def put_ok(port: int, lines: list[str], what: str) -> None:
+    said = telnet(port, lines)
+    if "put:" in said:
+        fail(f"{what}: telnet puts answered {said[:300]!r}")
+
+
+def reload_suffix(tsdb: TSDB, cycle: int, per_series: int) -> None:
+    """One reload cycle's WAL suffix through the writer's add_batch:
+    ``per_series`` points a telnet series, one a second from the cycle's
+    first hour, values from a seed."""
+    hours = -(-per_series // 3600)
+    t0 = REPLICA_HOUR0 + (SUFFIX_HOUR0 + cycle * hours) * 3600
+    ts = t0 + np.arange(per_series, dtype=np.int64)
+    vals = (100 + np.random.default_rng(41 + cycle).normal(
+        0, 5, (TELNET_SERIES, per_series))).astype(np.float32)
+    for s in range(TELNET_SERIES):
+        tsdb.add_batch("bench.metric", ts, vals[s].astype(np.float64),
+                       {"host": f"t{s:02d}", "dc": f"dc{s % 10}"})
+
+
+def hour_points(port: int, hour: int) -> int:
+    """The buckets a daemon's /q answers over one added hour."""
+    t0 = REPLICA_HOUR0 + hour * 3600
+    _, ans = q_json(port, "zimsum:bench.metric", t0, t0 + 3599)
+    return sum(len(g["dps"]) for g in ans)
+
+
+def held_sketches(got: dict, want: dict, what: str) -> dict:
+    """Every sketch route of the replica (``got``) answers the writer's
+    (``want``) bytes."""
+    for name, a in got.items():
+        if a["body"] != want[name]["body"]:
+            fail(f"{what}: replica /sketch {name} {a['body'][:200]!r}, "
+                 f"writer {want[name]['body'][:200]!r}")
+    return {name: {"replica_ms": a["wall_ms"],
+                   "writer_ms": want[name]["wall_ms"]}
+            for name, a in got.items()}
+
+
+def replica_phase(tsdb: TSDB, daemon: "Daemon", wal: str,
+                  ingest_rate: float) -> dict:
+    """A replica over the restarted writer's store, in this process (ROADMAP
+    item 10a): boot, first answers held against the writer's, tailing,
+    a writer checkpoint and the sketch reloads, then failover; last each
+    kernel call of the replica's path replayed against its plain
+    version. Stops the writer's daemon."""
+    out: dict = {}
+    start, end = BASE, BASE + SPAN - 1
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    rtsdb = open_replica_tsdb(wal)
+    out["boot_s"] = time.perf_counter() - t0
+    out["boot_split_s"] = {
+        "generations": rtsdb.store.open_seconds["generations"],
+        "replay": rtsdb.store.open_seconds["replay"],
+        "sketch_load": rtsdb.sketch_load_seconds}
+    rdaemon, tailer = replica_daemon(rtsdb)
+    calls: list = []
+    try:
+        # 1. First answers: the replica's scan path against the writer's
+        # window, and every sketch route byte for byte. The tap keeps the
+        # kernel calls of the replica daemon's threads.
+        zero_launches()
+        zero_sketch_launches()
+        answers = {}
+        with KernelTap() as tap:
+            for expr, span in REPLICA_QUERIES:
+                tap.label = f"{expr}, {'a day' if span == DAY else 'the week'}"
+                wall, ans = q_json(rdaemon.port, expr, start,
+                                   start + span - 1)
+                if any(g["rollup"] != "raw" for g in ans):
+                    fail(f"replica {expr}: plans "
+                         f"{sorted({g['rollup'] for g in ans})}, not raw")
+                answers[expr] = (wall, ans)
+            sk_got = sketch_answers(rdaemon.port, start, end, tap)
+        counts = dict(zip(KERNELS, launches()), **sketch_launches())
+        calls += tap.of(pool_threads(rdaemon))
+        tap.to_host()
+        mine = tap_counts(calls)
+        for name in REPLICA_QUERY_KERNELS + REPLICA_SKETCH_KERNELS:
+            if counts[name] == 0 or mine[name] == 0:
+                fail(f"the replica's queries never launched {name} (all "
+                     f"threads {counts[name]}, the replica's {mine[name]})")
+        out["launches_queries"] = counts
+        out["replica_launches_queries"] = mine
+        out["queries"] = {}
+        for expr, span in REPLICA_QUERIES:
+            wall_w, want = q_json(daemon.port, expr, start,
+                                  start + span - 1)
+            wall, got = answers[expr]
+            out["queries"][expr] = {
+                "replica_ms": wall, "writer_ms": wall_w,
+                "writer_plan": want[0]["rollup"],
+                "rel_diff_vs_writer": same_answer(expr, got, want, False)}
+        out["sketch_at_boot"] = held_sketches(
+            sk_got, sketch_answers(daemon.port, start, end), "at boot")
+        log(f"replica boot {out['boot_s']:.2f} s {out['boot_split_s']}; "
+            f"queries {out['queries']}; launches {counts}, the replica's "
+            f"{mine}")
+
+        # 2. Tailing: the telnet series' next TAIL_POINTS points into the
+        # writer, then until the replica's /q holds all of them.
+        out["healthz_before"] = http_json(rdaemon.port, "/healthz")
+        lines = replica_put_lines(0, TAIL_POINTS // TELNET_SERIES)
+        put_ok(daemon.port, lines, "the tail's puts")
+        t0 = time.perf_counter()
+        polls = 0
+        while hour_points(rdaemon.port, 0) < len(lines):
+            polls += 1
+            if time.perf_counter() - t0 > 30:
+                fail("the replica did not tail the writer's puts in 30 s")
+            time.sleep(0.005)
+        out["tail_lag_ms"] = (time.perf_counter() - t0) * 1e3
+        out["tail_polls"] = polls
+        out["healthz_after"] = http_json(rdaemon.port, "/healthz")
+        if not out["healthz_after"]["ok"] or \
+                out["healthz_after"]["refreshes"] <= \
+                out["healthz_before"]["refreshes"]:
+            fail(f"/healthz across the tail: {out['healthz_before']} -> "
+                 f"{out['healthz_after']}")
+        if hour_points(daemon.port, 0) != len(lines):
+            fail("the writer does not hold the tail's puts")
+        log(f"replica tail lag {out['tail_lag_ms']:.1f} ms ({polls} polls, "
+            f"tail interval {tailer.interval_s} s)")
+
+        # 3. A writer checkpoint: the replica's rebuild and sketch reload
+        # (the tailer stopped, so they run here, timed apart), after which
+        # every sketch route answers the writer's bytes.
+        tailer.stop()
+        rebuilds = rtsdb.store.rebuilds
+        out["writer_checkpoint_s"] = timed_checkpoint(
+            tsdb, "the writer's checkpoint under the replica")["seconds"]
+        t0 = time.perf_counter()
+        rtsdb.store.refresh()
+        out["rebuild_ms"] = (time.perf_counter() - t0) * 1e3
+        if rtsdb.store.rebuilds != rebuilds + 1:
+            fail("the writer's checkpoint did not rebuild the replica")
+        t0 = time.perf_counter()
+        rtsdb.reload_sketches()
+        out["reload_ms"] = (time.perf_counter() - t0) * 1e3
+        out["sketch_after_checkpoint"] = held_sketches(
+            sketch_answers(rdaemon.port, start, end),
+            sketch_answers(daemon.port, start, end),
+            "after the writer's checkpoint")
+        # RELOADS more cycles: a few puts, a checkpoint, then the suffix
+        # the writer ingests in one tail interval at the path phase's rate,
+        # so each refresh_replica rebuilds and re-folds that suffix on the
+        # card. The tap keeps the calls of the new sketch set's folder
+        # thread and this thread. The card's allocated memory is read
+        # around each refresh (the writer's folds drained first): the
+        # replica's growth, which the replaced sketch set's freed stacks
+        # must cancel; the replaced set's stacks must be gone and its
+        # folder thread ended. The sketch routes are then held against the
+        # writer's.
+        per = max(1, round(ingest_rate * tailer.interval_s / TELNET_SERIES))
+        out["reload_suffix_points"] = per * TELNET_SERIES
+        out["reloads"] = []
+        for i in range(RELOADS):
+            put_ok(daemon.port, replica_put_lines(
+                1 + i, RELOAD_POINTS // TELNET_SERIES),
+                "a reload cycle's puts")
+            tsdb.checkpoint()
+            reload_suffix(tsdb, i, per)
+            tsdb.sketches.flush()
+            old = rtsdb.sketches
+            stacks = [weakref.ref(t) for t in (
+                old._td_means, old._td_weights, old._hll_regs)]
+            folder = old._folder
+            del old
+            gc.collect()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            zero_sketch_launches()
+            with KernelTap() as tap:
+                tap.label = f"reload {i + 1}"
+                t0 = time.perf_counter()
+                rtsdb.refresh_replica()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            sk = sketch_launches()
+            mine = tap.of({rtsdb.sketches._folder, threading.current_thread()})
+            tap.calls = mine
+            tap.to_host()
+            calls += mine
+            mine = tap_counts(mine)
+            for name in REPLICA_RELOAD_KERNELS:
+                if sk[name] == 0 or mine[name] == 0:
+                    fail(f"the replica's sketch reload {i} never launched "
+                         f"{name} (all threads {sk[name]}, the replica's "
+                         f"{mine[name]})")
+            gc.collect()
+            after = torch.cuda.memory_allocated()
+            if any(r() is not None for r in stacks) or (
+                    folder is not None and folder.is_alive()):
+                fail(f"reload {i + 1} left the replaced sketch set's "
+                     f"stacks or folder thread alive")
+            held = held_sketches(sketch_answers(rdaemon.port, start, end),
+                                 sketch_answers(daemon.port, start, end),
+                                 f"after reload {i + 1}")
+            out["reloads"].append({
+                "refresh_replica_ms": wall, "launches": sk,
+                "replica_launches": mine,
+                "fold_calls": rtsdb.sketches.fold_calls,
+                "sketches": held, "memory_before": before,
+                "memory_after": after})
+        growth = [r["memory_after"] - r["memory_before"]
+                  for r in out["reloads"]]
+        out["reload_memory_delta_bytes"] = sum(growth)
+        if abs(sum(growth)) > RELOAD_MEMORY_SLACK:
+            fail(f"card memory across {RELOADS} sketch reloads grew by "
+                 f"{growth} bytes")
+        # The replica path's launches: its queries' and its reloads'.
+        out["launches"] = {
+            name: n + sum(r["launches"].get(name, 0) for r in out["reloads"])
+            for name, n in out["launches_queries"].items()}
+        out["replica_launches"] = tap_counts(calls)
+        log(f"replica rebuild {out['rebuild_ms']:.1f} ms, reload "
+            f"{out['reload_ms']:.1f} ms; suffix "
+            f"{out['reload_suffix_points']} points; reloads "
+            f"{out['reloads']}")
+
+        # 4. Failover: the writer stops, the epoch file is bumped, and the
+        # replica takes the store over (its WAL then begins with its
+        # epoch's header) and ingests.
+        t0 = time.perf_counter()
+        daemon.stop()
+        out["writer_stop_s"] = time.perf_counter() - t0
+        epath = cepoch.epoch_path_for_wal(wal)
+        epoch = cepoch.bump_epoch(epath, "smoke-replica")
+        rdaemon.server.tailer = None
+        t0 = time.perf_counter()
+        rtsdb.promote(epoch, epoch_guard=cepoch.EpochGuard(
+            epath, epoch, interval_s=rtsdb.config.epoch_check_interval_s))
+        out["promotion_s"] = time.perf_counter() - t0
+        out["promotion_split_s"] = dict(rtsdb.promote_seconds)
+        rtsdb.config.role = "writer"
+        if rtsdb.store.read_only or rtsdb.tenants is None:
+            fail("the promoted replica is not a writer")
+        with open(wal, "rb") as f:
+            op, plen = port_kv._REC.unpack(f.read(port_kv._REC.size))
+            head = f.read(plen)
+        if op != port_kv._OP_EPOCH or int.from_bytes(head[4:], "big") \
+                != epoch:
+            fail(f"the promoted WAL begins with op {op}, not epoch {epoch}")
+        lines = replica_put_lines(PROMOTED_HOUR,
+                                  TAIL_POINTS // TELNET_SERIES)
+        put_ok(rdaemon.port, lines, "puts into the promoted replica")
+        got = hour_points(rdaemon.port, PROMOTED_HOUR)
+        if got != len(lines):
+            fail(f"the promoted replica answers {got} of {len(lines)} "
+                 f"points")
+        out["promoted"] = {"epoch": epoch, "wal_header_epoch": epoch,
+                           "points_answered": got}
+        log(f"promotion {out['promotion_s']:.2f} s "
+            f"{out['promotion_split_s']}; {out['promoted']}")
+    finally:
+        tailer.stop()
+        rdaemon.stop()
+    out["phase_s"] = time.perf_counter() - t_phase
+    # Each kernel call of the replica's path, at the shape the path gave
+    # it, against its plain version; the largest of each kernel timed.
+    out["kernel_cases"], out["kernel_checks"] = replica_kernel_cases(
+        calls, "replica")
+    missing = set(REPLICA_KERNELS) - {r["name"] for r in out["kernel_cases"]}
+    if missing:
+        fail(f"no replica call of {sorted(missing)} to replay")
+    log(f"replica kernel checks: {out['kernel_checks']}")
+    return out
+
 
 
 def marker_rebuild(wal: str, want: dict) -> dict:
@@ -2790,8 +3588,79 @@ def sharded_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
                 fail(f"{RESTART_UNION}: bloom_shards_skipped "
                      f"{out['bloom_shards_skipped']}")
             out["fsck"] = fsck_clean(tsdb, f"the {SHARDS}-shard store")
+            out["replica"] = replica_check(daemon, root, [
+                (REPLICA_QUERIES[0][0], start, start + DAY - 1)])
         finally:
             daemon.stop()
+    return out
+
+
+def group_sum_runs(calls: list) -> list:
+    """For each recorded segment_sum call, how many different outputs
+    GROUP_SUM_REPEATS runs on its input give (float32 sums added by
+    atomics in a run-dependent order)."""
+    dev = torch.device(DEVICE)
+    out = []
+    for c in calls:
+        if c.name != "segment_sum":
+            continue
+        a = tap_copy(c.args, lambda t: t.to(dev))
+        seen = {segment_reduce.segment_sum(
+            a["feat"], a["seg"], a["num_segments"]).cpu().numpy().tobytes()
+            for _ in range(GROUP_SUM_REPEATS)}
+        out.append(len(seen))
+    return out
+
+
+def replica_check(daemon: "Daemon", wal: str, queries: list,
+                  plans: dict | None = None) -> dict:
+    """A replica daemon over ``wal`` beside the writer's ``daemon``: its
+    boot, and each (expr, start, end) of ``queries`` held against the
+    writer's answer (tags and timestamps equal, max and percentiles
+    exactly, sums by the resident tolerance), for a query ``plans``
+    names (the rollup tier's) served with that plan by both; the
+    writer's window, where it has one, answers from other inputs.
+    ``identical`` says whether the bodies are the same bytes. Where a
+    planned query's bodies differ, the kernel calls of the two queries
+    must have had the same inputs, bit for bit (``same_inputs``: so the
+    replica read what the writer reads, and only the card's order of
+    addition differs), and ``group_sum_outputs`` gives, for each of the
+    writer's segment_sum calls, the different outputs of
+    GROUP_SUM_REPEATS runs on its input."""
+    t0 = time.perf_counter()
+    rtsdb = open_replica_tsdb(wal, enable_rollups=bool(plans))
+    out: dict = {"boot_s": time.perf_counter() - t0, "queries": {}}
+    rdaemon, tailer = replica_daemon(rtsdb)
+    try:
+        for expr, start, end in queries:
+            with KernelTap() as tap:
+                wall, got = q_body(rdaemon.port, expr, start, end)
+                _, want = q_body(daemon.port, expr, start, end)
+            plan = (plans or {}).get(expr)
+            ga, wa = json.loads(got), json.loads(want)
+            if plan is not None and {g["rollup"] for g in ga + wa} != {plan}:
+                fail(f"replica {expr}: plans {ga[0]['rollup']} / writer "
+                     f"{wa[0]['rollup']}, not {plan}")
+            exact = plan is not None and expr.startswith(("max", "p"))
+            rec = {"replica_ms": wall, "replica_plan": ga[0]["rollup"],
+                   "writer_plan": wa[0]["rollup"], "identical": got == want,
+                   "rel_diff_vs_writer": same_answer(expr, ga, wa, exact)}
+            if plan is not None and got != want:
+                mine = tap.of(pool_threads(rdaemon))
+                theirs = tap.of(pool_threads(daemon))
+                rec["same_inputs"] = len(mine) == len(theirs) and all(
+                    (a.name, a.entry) == (b.name, b.entry)
+                    and same_arg_bits(a.args, b.args)
+                    for a, b in zip(mine, theirs))
+                if not rec["same_inputs"]:
+                    fail(f"replica {expr}: other bytes than the writer's, "
+                         f"from other kernel inputs")
+                rec["group_sum_outputs"] = group_sum_runs(theirs)
+            out["queries"][expr] = rec
+    finally:
+        tailer.stop()
+        rdaemon.stop()
+    log(f"replica of {wal}: {out}")
     return out
 
 
@@ -3907,9 +4776,15 @@ def sketch_targets(start: int, end: int) -> list:
     ]
 
 
-def sketch_answers(port: int, start: int, end: int) -> dict:
+def sketch_answers(port: int, start: int, end: int,
+                   tap: "KernelTap | None" = None) -> dict:
+    """Each sketch route's body and wall ms; with ``tap``, the route's
+    name labels the kernel calls it makes."""
     out = {}
     for name, target in sketch_targets(start, end):
+        if tap is not None:
+            tap.label = (target.split("?")[0] + " "
+                         + name.replace("distinct ", ""))
         q0 = time.perf_counter()
         status, body = http_get(port, target)
         wall = (time.perf_counter() - q0) * 1e3
@@ -5121,6 +5996,11 @@ def rollup_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
                 for expr in ROLLUP_QUERIES}
             out["api_queries"] = http_json(daemon.port,
                                            "/api/queries")["rollup"]
+            # A replica of the store serves the six shapes from the
+            # writer's tier, the writer's bytes.
+            out["replica"] = replica_check(
+                daemon, wal, [(e, start, end) for e in ROLLUP_QUERIES],
+                ROLLUP_QUERIES)
             log(f"rollup restart: boot {out['boot_s']:.2f} s; crash "
                 f"reopen (catch-up) {out['crash_reopen_s']:.2f} s")
         finally:
@@ -5288,19 +6168,23 @@ def main() -> int:
     budget = budget_phase()
 
     # Each path's launches beside the times at that path's shape; the
-    # first path listed gives a kernel's top-level numbers.
+    # first path listed gives a kernel's top-level numbers. The replica
+    # path's times are those of its own largest call of each kernel.
+    replica = path["restart"]["replica"]
+    kernels += replica["kernel_cases"]
+    at_replica = {r["name"]: r["stage"] for r in replica["kernel_cases"]}
     fold = {"resident": "window chunk fold", "scan": "series stage"}
     shapes = {
         "segment_sum": fold, "segment_minmax": fold,
         "masked_select": {"resident": "window select, columns",
                           "union": "union p95 {dc=dc0} one day"},
         "interp_moments": {"union": "union {dc=dc0} one day"},
-        "tdigest_fold": {
-            "sketch": "one hand-off (1,049 series x 1,000 values)"},
+        "tdigest_fold": {"sketch":
+                         "one hand-off (1,049 series x 1,000 values)"},
         "hll_fold": {"sketch": "one hand-off: host + dc, p = 12"},
         "hll_estimate": {"sketch": "over the p = 12 stack (8 x 4096)"},
-        "merged_quantile": {
-            "sketch": "all series, S = 16,384 (2,097,152 entries)"},
+        "merged_quantile": {"sketch":
+                            "all series, S = 16,384 (2,097,152 entries)"},
         "block_decode": {"fused": "week gather (TSF32)"},
         "rollup_fold": {"device fold": ROLLUP_GROUP_STAGE},
         "ewma_scan": {"forecast": "{host=*} 1h"},
@@ -5323,12 +6207,15 @@ def main() -> int:
         "block_decode": ("block_decode.cu",
                          "opentsdb_tpu/compress/kernels.py:72"),
         "rollup_fold": ROLLUP_FOLD_WHERE, **SMOOTHING_WHERE}
+    for name, stage in at_replica.items():
+        shapes[name] = dict(shapes[name], replica=stage)
     numbers = ("max_abs_err", "ms", "ms_cold", "ms_device", "plain_ms",
                "bound_ms", "bound_by", "library_ms")
     by_case = {(r["name"], r["stage"]): r for r in kernels}
     path_launches_of = dict(
         path["launches"], fused=compressed["launches"],
         forecast=path["forecast"]["launches"],
+        replica=replica["launches"],
         **{"device fold": {
             "rollup_fold": rollup["device_fold"]["launches"]}})
     line = []
@@ -5348,6 +6235,7 @@ def main() -> int:
             entry["full_width"] = {k: r[k] for k in numbers}
         others = [r for r in kernels if r["name"] == name
                   and r["stage"] not in shape.values()
+                  and not r["stage"].startswith("replica ")
                   and name in SKETCH_KERNELS + ("block_decode",
                                                 "rollup_fold")
                   + tuple(SMOOTHING_WHERE)]
@@ -5531,6 +6419,22 @@ def main() -> int:
         "checkpoint_phase_ms": [r["checkpoint_1"]["phase_ms"],
                                 r["checkpoint_2"]["phase_ms"]],
         "timers_after_restart": r["timers"]}, "card": smi}))
+    print(json.dumps({"replica": {
+        **{k: replica[k] for k in (
+            "boot_s", "boot_split_s", "queries", "sketch_at_boot",
+            "healthz_before", "healthz_after", "tail_lag_ms", "tail_polls",
+            "writer_checkpoint_s", "rebuild_ms", "reload_ms",
+            "sketch_after_checkpoint", "reloads",
+            "reload_suffix_points", "reload_memory_delta_bytes",
+            "writer_stop_s", "promotion_s", "promotion_split_s",
+            "promoted", "launches", "replica_launches", "phase_s")},
+        "kernel_checks": {name: {
+            "calls": sum(c["name"] == name for c in replica["kernel_checks"]),
+            "max_abs_err": max(c["max_abs_err"] for c in
+                               replica["kernel_checks"] if c["name"] == name)}
+            for name in REPLICA_KERNELS},
+        "sharded": sharded["replica"], "rollup": rollup["replica"]},
+        "card": smi}))
     print(json.dumps({"window_at_budget": {
         k: budget[k] for k in ("points", "chunks", "resident_bytes",
                                "fill_points_per_s", "queries",

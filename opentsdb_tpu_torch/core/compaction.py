@@ -21,7 +21,8 @@ pressure the whole queue can be discarded — it is reconstructible soft state
 
 The flusher thread also drives the periodic checkpoint
 (``Config.checkpoint_interval``; 0 = off): it spills the memtable to the
-sstable tier and truncates the WAL.
+sstable tier and truncates the WAL, or, over a read-only replica store,
+catches the replica up (``TSDB.refresh_replica``).
 """
 
 from __future__ import annotations
@@ -74,6 +75,12 @@ class CompactionQueue:
         with self._lock:
             self._queue[row_key] = base_ts
 
+    def clear(self) -> None:
+        """Drop every queued row (a demoted writer's queue: writer work,
+        and soft state the new writer rebuilds as it reads)."""
+        with self._lock:
+            self._queue.clear()
+
     def flush(self, cutoff: int | None = None,
               max_flushes: int | None = None) -> int:
         """Compact every queued row with base_time <= cutoff; returns count.
@@ -116,7 +123,15 @@ class CompactionQueue:
                 if (self.checkpoint_interval
                         and now - self._last_checkpoint
                         >= self.checkpoint_interval):
-                    self._tsdb.checkpoint()
+                    if getattr(self._tsdb.store, "read_only", False):
+                        # A legacy --read-only daemon: the timer polls
+                        # the writer's durable state instead of spilling
+                        # (TSDB.refresh_replica: store, sketches, rollup
+                        # view, in that order). A --role replica daemon
+                        # runs the same call from its WalTailer.
+                        self._tsdb.refresh_replica()
+                    else:
+                        self._tsdb.checkpoint()
                     self._last_checkpoint = now
                 size = len(self._queue)
                 if size <= self.min_flush_threshold:

@@ -25,6 +25,40 @@ class PleaseThrottleError(Exception):
     """
 
 
+class ReadOnlyStoreError(Exception):
+    """A mutation was attempted on a read-only store replica.
+
+    Read-only stores open another daemon's WAL/sstable state without
+    the single-writer lock (the N-TSDs-over-one-store deployment
+    shape, reference README:8-17); every write path refuses with this.
+
+    Subclasses Exception (like PleaseThrottleError), NOT OSError: a
+    broad ``except OSError`` around storage I/O must never silently
+    swallow a replica's write refusal as if it were a disk error.
+    """
+
+
+class FencedWriterError(Exception):
+    """This writer's epoch has been superseded (cluster/epoch.py).
+
+    A monotonically increasing writer epoch is persisted next to the
+    WAL (EPOCH.json); a replica promotion bumps it. A deposed writer
+    that keeps running sees the bump on its next fence check and every
+    mutation refuses with this error instead of silently
+    split-braining the store.
+
+    Subclasses Exception (the ReadOnlyStoreError precedent), NOT
+    OSError: the writer is no longer the writer, and the caller has to
+    hear it.
+    """
+
+    def __init__(self, message: str, own_epoch: int = 0,
+                 current_epoch: int = 0):
+        super().__init__(message)
+        self.own_epoch = own_epoch
+        self.current_epoch = current_epoch
+
+
 class BadRequestError(Exception):
     """An HTTP 400-class client error (reference src/tsd/BadRequestException.java)."""
 

@@ -51,8 +51,21 @@ checkpoint brackets its spill with the tier's ``begin_spill`` and
 its window, ``compact_row`` marks its deletes as preserving), the tier
 closes before the store, and ``collect_stats`` adds its lines.
 
-Left out of this slice (all off here; see ROADMAP): the mesh-sharded
-window, replicas and the cluster tier.
+Replicas (ROADMAP item 10a): over a read-only store the device window
+and tenant accounting stay off (nothing would keep the window in step
+with the writer's appends, and a replica neither admits nor snapshots),
+queries take the scan path, and a rollup tier opens as
+``ReadOnlyRollupTier``. ``refresh_replica`` catches up in the order that
+keeps rollup answers safe: the store, then the sketches (reloaded from
+the writer's snapshot when the store rebuilt, the old set's folder thread
+stopped so its device stacks go once no query holds them), then the
+rollup view. ``promote`` takes write ownership (store, sketches, tenants,
+then the owning rollup tier) and ``demote`` gives it back.
+``cluster_epoch_path`` (set by the CLI in cluster mode) adds the
+``cluster.epoch`` / ``cluster.fenced`` / ``cluster.fenced_bytes_refused``
+stats lines.
+
+Left out of this slice (off here; see ROADMAP): the mesh-sharded window.
 """
 
 from __future__ import annotations
@@ -124,6 +137,10 @@ class TSDB:
         # One checkpoint at a time (the compaction thread's timer and an
         # explicit call may race).
         self._checkpoint_lock = threading.Lock()
+        # Cluster mode: the epoch file this daemon's store is governed by
+        # (None: not a cluster member), set by the CLI.
+        self.cluster_epoch_path: str | None = None
+        read_only = getattr(store, "read_only", False)
         self.sketch_save_seconds = 0.0
         # Tenant cardinality control plane (tenant/): per-tenant series
         # accounting + heavy hitters + admission limits, fed from this
@@ -152,6 +169,8 @@ class TSDB:
         # WAL-replayed memtable), else rebuilt from a full storage scan.
         self.sketches = None
         self.sketch_load_seconds = 0.0
+        # Seconds of the last promote(), by step.
+        self.promote_seconds: dict[str, float] = {}
         if self.config.enable_sketches:
             self._init_sketches()
         # Device-resident columnar hot window (storage/devstore.py):
@@ -160,24 +179,31 @@ class TSDB:
         # from it.
         self.devwindow = None
         self.warm_seconds = 0.0
-        if self.config.device_window and self.config.backend != "cpu":
+        # A replica never ingests, so nothing would keep a boot-warmed
+        # window in step with the appends store.refresh() brings: it would
+        # serve stale resident answers while claiming coverage. Replicas
+        # take the scan path. Checked here, not written into the config,
+        # which the caller owns.
+        if (self.config.device_window and self.config.backend != "cpu"
+                and not read_only):
             self.devwindow = DeviceWindow(
                 staging_points=self.config.device_window_staging,
                 max_points=self.config.device_window_points,
                 device=self.device)
             self._warm_devwindow()
-        if (self.config.tenant_accounting
-                and not getattr(store, "read_only", False)):
+        if self.config.tenant_accounting and not read_only:
             self._init_tenants()
-        # Materialized rollup tier (rollup/tier.py): writers with a
-        # persistent store only (an in-memory store never spills, so every
-        # window would stay memtable-dirty).
-        if (self.config.enable_rollups
-                and getattr(store, "_wal_path", None)
-                and not getattr(store, "read_only", False)):
-            from opentsdb_tpu_torch.rollup.tier import RollupTier
+        # Materialized rollup tier (rollup/tier.py): stores with a WAL only
+        # (an in-memory store never spills, so every window would stay
+        # memtable-dirty). Writers own the fold; replicas open the
+        # writer's tier read-only.
+        if self.config.enable_rollups and getattr(store, "_wal_path", None):
+            if read_only:
+                self._open_replica_rollups()
+            else:
+                from opentsdb_tpu_torch.rollup.tier import RollupTier
 
-            self.rollups = RollupTier(self, self.config)
+                self.rollups = RollupTier(self, self.config)
 
     def _warm_devwindow(self) -> None:
         """Mirror what storage already holds (the sstable generations and
@@ -212,24 +238,30 @@ class TSDB:
         (rows read without the spilled tiers, so nothing the snapshot
         covers folds twice), or, without a snapshot, build the sketches
         from all of storage. ``sketch_load_seconds`` keeps the load's
-        time."""
+        time. The set is built whole before it is published, so a query
+        racing a replica's reload reads the previous set, never a half
+        folded one; the previous set's folder thread then stops
+        (``LiveSketches.close``)."""
         path = self._sketch_path()
         cfg = self.config
         if path and os.path.exists(path):
             t0 = time.perf_counter()
-            self.sketches = LiveSketches.load(
+            sk = LiveSketches.load(
                 path, flush_points=cfg.sketch_flush_points,
                 device=self.device)
             self.sketch_load_seconds = time.perf_counter() - t0
             self._refold(
-                (k, self.read_row(k, self.store.memtable_cells(
+                ((k, self.read_row(k, self.store.memtable_cells(
                     self.table, k, FAMILY)))
-                for k in self.store.memtable_keys(self.table))
-            return
-        self.sketches = LiveSketches(
-            compression=cfg.sketch_compression, hll_p=cfg.sketch_hll_p,
-            flush_points=cfg.sketch_flush_points, device=self.device)
-        self._refold(self._scan_rows())
+                 for k in self.store.memtable_keys(self.table)), sk)
+        else:
+            sk = LiveSketches(
+                compression=cfg.sketch_compression, hll_p=cfg.sketch_hll_p,
+                flush_points=cfg.sketch_flush_points, device=self.device)
+            self._refold(self._scan_rows(), sk)
+        old, self.sketches = self.sketches, sk
+        if old is not None:
+            old.close()
 
     def _scan_rows(self):
         """Every stored row, in row-key order, as (row key, columns): the
@@ -253,15 +285,15 @@ class TSDB:
                                      cols.int_values[a:b],
                                      cols.is_float[a:b])
 
-    def _refold(self, rows) -> None:
+    @staticmethod
+    def _refold(rows, sk: LiveSketches) -> None:
         for key, cols in rows:
             if len(cols.timestamps) == 0:
                 continue
             pr = codec.parse_row_key(key)
-            self.sketches.observe(
-                codec.series_key(key), cols.values,
-                [(pr.metric_uid, k, v) for k, v in pr.tag_uids])
-        self.sketches.flush()
+            sk.observe(codec.series_key(key), cols.values,
+                       [(pr.metric_uid, k, v) for k, v in pr.tag_uids])
+        sk.flush()
 
     def _observe(self, series_key: bytes, metric_uid: bytes,
                  pairs: list[tuple[bytes, bytes]],
@@ -270,6 +302,143 @@ class TSDB:
             return
         self.sketches.observe(
             series_key, values, [(metric_uid, k, v) for k, v in pairs])
+
+    # ------------------------------------------------------------------
+    # Replicas and the cluster tier (ROADMAP item 10a)
+    # ------------------------------------------------------------------
+
+    def _open_replica_rollups(self) -> bool:
+        """Open the writer's rollup tier read-only. A replica must come up
+        even when that tier is mid-rebuild or foreign: it then serves raw,
+        and every ``refresh_replica`` tries again."""
+        from opentsdb_tpu_torch.rollup.tier import ReadOnlyRollupTier
+        try:
+            self.rollups = ReadOnlyRollupTier(self, self.config)
+            return True
+        except Exception:
+            LOG.exception("replica rollup tier unavailable; serving raw")
+            return False
+
+    def refresh_replica(self) -> bool:
+        """One replica catch-up: the store (a WAL suffix replay, or a
+        rebuild after a writer checkpoint), the sketches when the store
+        rebuilt (``reload_sketches``), then the read-only rollup tier, in
+        THAT order, which keeps replica rollup answers safe
+        (``ReadOnlyRollupTier``'s docstring). The WalTailer and the legacy
+        ``--read-only`` timer drive it. True when the raw view changed."""
+        if not getattr(self.store, "read_only", False):
+            raise ValueError("refresh_replica() is for read-only "
+                             "replica stores")
+        before = self.store.rebuilds
+        changed = self.store.refresh()
+        if self.store.rebuilds != before:
+            self.reload_sketches()
+        tier = self.rollups
+        if (tier is None and self.config.enable_rollups
+                and getattr(self.store, "_wal_path", None)):
+            # The tier failed to open at boot (the writer mid-rebuild, a
+            # torn state file): adopt it once the writer settles.
+            if self._open_replica_rollups():
+                tier = self.rollups
+        if tier is not None and getattr(tier, "read_only", False):
+            tier.refresh()
+        return changed
+
+    def reload_sketches(self) -> None:
+        """Re-load the writer's sketch snapshot and re-fold the (freshly
+        rebuilt) memtable on top, as a boot does (``_init_sketches``).
+        ``refresh_replica`` calls it whenever the store rebuilt, which
+        every writer checkpoint causes, so a replica's sketches lag by at
+        most the writer's checkpoint interval plus a poll (suffix replays
+        are not folded). The replaced set's folder thread stops, and its
+        device stacks go once no query holds it."""
+        if self.config.enable_sketches:
+            self._init_sketches()
+
+    def promote(self, writer_epoch: int, epoch_guard=None) -> None:
+        """Replica -> writer takeover. The caller has already bumped the
+        persisted epoch. The store takes ownership first (fresh-inode WAL
+        + epoch header, ``promote_writable``), then the sketches and the
+        tenant accounting initialize as a writer's boot does, under the
+        checkpoint lock; a failure there demotes the store back, so a
+        half-promoted daemon never serves. Then the read-only rollup view
+        swaps for the owning tier, outside the lock (the tier's close
+        joins a catch-up thread that takes it). The device window stays
+        off until the next restart. ``promote_seconds`` keeps the time of
+        each step (store, sketches, tenants, rollups)."""
+        times = {}
+        with self._checkpoint_lock:
+            t0 = time.perf_counter()
+            self.store.promote_writable(writer_epoch,
+                                        epoch_guard=epoch_guard)
+            times["store"] = time.perf_counter() - t0
+            try:
+                t0 = time.perf_counter()
+                if self.config.enable_sketches:
+                    self._init_sketches()
+                times["sketches"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                if self.config.tenant_accounting:
+                    # The promoted writer owns admission now: adopt the
+                    # dead writer's snapshot (or rebuild).
+                    self._init_tenants()
+                times["tenants"] = time.perf_counter() - t0
+                old = self.rollups
+                self.rollups = None
+            except BaseException:
+                self.tenants = None
+                self.tenant_limits = None
+                try:
+                    self.store.demote_readonly()
+                except Exception:
+                    LOG.exception("rollback demote after failed "
+                                  "promotion")
+                raise
+        t0 = time.perf_counter()
+        if old is not None:
+            try:
+                old.close()
+            except Exception:
+                LOG.exception("closing replica rollup view during "
+                              "promotion")
+        if self.config.enable_rollups and getattr(self.store, "_wal_path",
+                                                  None):
+            from opentsdb_tpu_torch.rollup.tier import RollupTier
+            try:
+                self.rollups = RollupTier(self, self.config)
+            except Exception:
+                # The promoted writer must serve even over a torn tier:
+                # raw answers stay exact.
+                LOG.exception("promoted writer rollup tier unavailable; "
+                              "serving raw")
+        times["rollups"] = time.perf_counter() - t0
+        self.promote_seconds = times
+
+    def demote(self) -> None:
+        """Writer -> tailing replica, in place. The owning rollup tier
+        closes first, outside the checkpoint lock (its catch-up thread
+        reads the store and takes that lock); then the queued compactions
+        are dropped (writer work, reconstructible), the store drops its
+        WAL and flock and rebuilds as a replica, the sketches reload from
+        the new writer's snapshot, tenant accounting goes, and the
+        read-only rollup view opens as a replica boot opens it."""
+        with self._checkpoint_lock:
+            old = self.rollups
+            self.rollups = None
+        if old is not None:
+            try:
+                old.close()
+            except Exception:
+                LOG.exception("closing rollup tier during demotion")
+        with self._checkpoint_lock:
+            self.compactionq.clear()
+            self.store.demote_readonly()
+            self.reload_sketches()
+            self.tenants = None
+            self.tenant_limits = None
+        if self.config.enable_rollups and getattr(self.store, "_wal_path",
+                                                  None):
+            self._open_replica_rollups()
 
     # ------------------------------------------------------------------
     # Tenant cardinality control plane (tenant/)
@@ -779,10 +948,10 @@ class TSDB:
         TSDB.collectStats :129-175; the JAX package's lines and order).
 
         ``compress.ratio`` appears once a v4 generation exists, the rollup
-        tier's ``rollup.*`` and ``sketch.bytes`` lines while it is open.
-        Left out (ROADMAP queue A item 10): the cluster lines
-        ``cluster.epoch`` / ``.fenced`` / ``.fenced_bytes_refused``, which
-        the JAX package emits only in cluster mode."""
+        tier's ``rollup.*`` and ``sketch.bytes`` lines while it is open,
+        and in cluster mode ``cluster.epoch`` (the epoch a writer owns, or
+        the file's for a replica or a fenced writer), ``cluster.fenced``
+        and, once nonzero, ``cluster.fenced_bytes_refused``."""
         collector.record("datapoints.added", self.datapoints_added)
         for uid in (self.metrics, self.tagk, self.tagv):
             kind = uid.kind()
@@ -816,6 +985,22 @@ class TSDB:
         collector.record("bloom.point_skips", store.bloom_point_skips)
         collector.record("dirty_set.size",
                          int(len(store.dirty_bases(self.table))))
+        if self.cluster_epoch_path:
+            epoch = getattr(store, "writer_epoch", None)
+            if epoch is None:
+                from opentsdb_tpu_torch.cluster.epoch import read_epoch
+                try:
+                    epoch, _ = read_epoch(self.cluster_epoch_path)
+                except (OSError, ValueError, KeyError):
+                    epoch = None
+            if epoch is not None:
+                collector.record("cluster.epoch", int(epoch))
+            guard = getattr(store, "epoch_guard", None)
+            if guard is not None:
+                collector.record("cluster.fenced", int(guard.fenced))
+            refused = getattr(store, "fenced_bytes_refused", 0)
+            if refused:
+                collector.record("cluster.fenced_bytes_refused", refused)
         cq = self.compactionq
         collector.record("compaction.count", cq.written_cells)
         collector.record("compaction.deleted_cells", cq.deleted_cells)
@@ -860,6 +1045,10 @@ class TSDB:
         and re-fold only the memtable, under-counting. So it is removed,
         and that open re-folds all of storage (ROADMAP queue C, reference
         note 5)."""
+        if getattr(self.store, "read_only", False):
+            # A replica owns neither the snapshots nor the spill tier:
+            # writing either would race the writer daemon.
+            return 0
         ckpt = getattr(self.store, "checkpoint", None)
         with self._checkpoint_lock:
             path = self._sketch_path()

@@ -28,7 +28,18 @@ the port's tiers. One scenario:
        answers on the same engine, and the tier serves at least one
        query; a ``catchup_compare`` row also recovers a copy of the
        crashed store with the full rebuild and demands the incremental
-       catch-up's answers bit for bit.
+       catch-up's answers bit for bit;
+     - **replica parity**: a read-only replica over the recovered store
+       dumps the writer's rows, then again after the writer ingests,
+       checkpoints (the WAL rotation and its fresh-inode recreate) and
+       ingests once more.
+
+Two in-process kinds run without a child: ``replica`` (an injected
+``replica.refresh`` / ``replica.rebuild`` failure leaves the replica
+serving its pre-refresh view, and the next clean refresh converges) and
+``promote`` (an injected failure at ``cluster.promote.take`` /
+``.rotate`` leaves a coherent, still read-only replica, the retry takes
+over with every record, and the deposed writer's next ingest is fenced).
 
 Scenarios are deterministic given (seed, site, mode, skip): the sharded
 store spills serially while a fault is armed, the workload is a pure
@@ -49,8 +60,7 @@ checkpoints and fsck's block audit run the v4 writers and readers again.
 The ``sst-block-*`` rows cut or kill inside a compressed block
 (``sst.write.block``).
 
-Left out (ROADMAP queue A): the replica and promote kinds and the
-replica refresh check (item 10), and ``meshreshard`` (item 11).
+Left out (ROADMAP queue A): ``meshreshard`` (item 11).
 
 Run the port's matrix (or one scenario); ``--device cpu`` on a host
 without a card::
@@ -75,7 +85,8 @@ import sys
 import numpy as np
 
 from opentsdb_tpu_torch.core import codec
-from opentsdb_tpu_torch.core.errors import NoSuchUniqueName
+from opentsdb_tpu_torch.core.errors import (FencedWriterError,
+                                             NoSuchUniqueName)
 from opentsdb_tpu_torch.core.tsdb import TSDB
 from opentsdb_tpu_torch.fault import faultpoints
 from opentsdb_tpu_torch.storage.kv import MemKVStore
@@ -92,6 +103,10 @@ _SERIES = [
     ("sys.cpu.user", {"host": "db1", "dc": "west"}),
     ("net.bytes", {"host": "web1"}),
 ]
+
+# Hour bases reserved for the parent's replica phase, far above anything
+# the generated schedule allocates.
+_EXTRA_HOUR = T0 + 5000 * 3600
 
 CHILD_TIMEOUT = 120.0
 
@@ -112,6 +127,8 @@ class Scenario:
     n_ops: int = 36
     delete_heavy: bool = False
     bug: str | None = None
+    # "crash" (a child process) | "replica" / "promote" (in-process).
+    kind: str = "crash"
     # Tenant accounting tier (-1 = the Config default exact cutoff): 0
     # puts every tenant on the HLL tier, so the snapshot rows also cover
     # the estimate-within-error recovery contract.
@@ -244,13 +261,15 @@ class Oracle:
 # Store plumbing shared by the child and the parent
 # ---------------------------------------------------------------------------
 
-def open_store(dirpath: str, shards: int):
+def open_store(dirpath: str, shards: int, read_only: bool = False):
     """The scenario's store, at the JAX harness's paths: a sharded store
-    at ``dirpath`` itself, one store's WAL at ``dirpath/wal``."""
+    at ``dirpath`` itself, one store's WAL at ``dirpath/wal``;
+    ``read_only`` opens it as a replica."""
     if shards > 1:
         from opentsdb_tpu_torch.storage.sharded import ShardedKVStore
-        return ShardedKVStore(dirpath, shards=shards)
-    return MemKVStore(wal_path=os.path.join(dirpath, "wal"))
+        return ShardedKVStore(dirpath, shards=shards, read_only=read_only)
+    return MemKVStore(wal_path=os.path.join(dirpath, "wal"),
+                      read_only=read_only)
 
 
 def open_tsdb(dirpath: str, shards: int, rollups: bool = True,
@@ -400,6 +419,14 @@ def _read_progress(path: str) -> tuple[int, bool]:
 # ---------------------------------------------------------------------------
 # The parent: verification
 # ---------------------------------------------------------------------------
+
+def _dump_store(store, tables=("tsdb", "tsdb-uid")) -> dict:
+    out = {}
+    for table in tables:
+        for key, items in store.scan_raw(table, b"", b""):
+            out[(table, key)] = tuple(items)
+    return out
+
 
 def _check_raw_parity(tsdb: TSDB, oracle: Oracle) -> list[str]:
     problems: list[str] = []
@@ -630,6 +657,32 @@ def _check_catchup_parity(dirpath: str, sc: Scenario, tsdb: TSDB,
     return problems
 
 
+def _check_replica(dirpath: str, sc: Scenario, tsdb: TSDB) -> list[str]:
+    """A replica over the live recovered writer dumps its rows, across a
+    writer checkpoint (the WAL rotation, the crash-left <wal>.old append
+    and the fresh-inode recreate: a recycled inode would make the replica
+    replay mid-record bytes) and a suffix ingest after it."""
+    problems: list[str] = []
+    replica = open_store(dirpath, sc.shards, read_only=True)
+    try:
+        replica.refresh()
+        if _dump_store(replica) != _dump_store(tsdb.store):
+            problems.append("replica diverged after initial refresh")
+        for i, (hour_off, vb) in enumerate(((0, 7), (1, 9))):
+            apply_op(tsdb, ("ingest", i, _EXTRA_HOUR + hour_off * 3600,
+                            1, 300, 0, vb))
+            if i == 0:
+                tsdb.checkpoint()
+            replica.refresh()
+            if _dump_store(replica) != _dump_store(tsdb.store):
+                problems.append(
+                    f"replica diverged after post-crash "
+                    f"{'checkpoint' if i == 0 else 'suffix ingest'}")
+    finally:
+        replica.close()
+    return problems
+
+
 def verify(dirpath: str, sc: Scenario, ops: list[tuple],
            ops_done: int) -> tuple[list[str], str]:
     """Reopen after the crash and check every invariant. Returns
@@ -670,7 +723,9 @@ def verify(dirpath: str, sc: Scenario, ops: list[tuple],
             # decides its fate.
             oracle.apply(ops[ops_done])
         problems += _check_raw_parity(tsdb, oracle)
+        # Tenant accounting before the replica phase ingests its rows.
         problems += _check_tenant_accounting(tsdb)
+        problems += _check_replica(dirpath, sc, tsdb)
         if sc.rollups:
             # Fold the recovered (WAL-replayed) memtable so the tier
             # covers the whole history, then demand bit-identical
@@ -816,8 +871,158 @@ def _shrink(sc: Scenario, workdir: str) -> dict | None:
     return best
 
 
+def _inprocess_result(sc: Scenario, n_ops: int,
+                      problems: list[str]) -> dict:
+    status = "ok" if not problems else "invariant-failed"
+    return {"label": sc.label, "site": sc.site, "mode": sc.mode,
+            "skip": sc.skip, "shards": sc.shards, "rollups": False,
+            "seed": sc.seed, "n_ops": n_ops, "bug": None,
+            "child_exit": None, "ops_done": n_ops, "status": status,
+            "problems": problems,
+            "fingerprint": hashlib.sha1(
+                f"{status}|{';'.join(problems)}".encode()).hexdigest(),
+            "repro": (f"python -m opentsdb_tpu_torch.fault.harness "
+                      f"--only {sc.label} --device {sc.device}")}
+
+
+def _shutdown_writer(tsdb: TSDB, problems: list[str]) -> None:
+    """Close an in-process scenario's writer. A deposed one cannot take
+    its shutdown checkpoint (the fence refuses it, loudly); its store
+    closes all the same."""
+    try:
+        tsdb.shutdown()
+    except FencedWriterError:
+        pass
+    except Exception as e:
+        problems.append(f"writer shutdown failed: {e!r}")
+
+
+def _run_replica_scenario(sc: Scenario, workdir: str) -> dict:
+    """In-process faults on the replica refresh path: an injected refresh
+    or rebuild failure must leave the replica serving its coherent
+    pre-refresh view, and the next clean refresh must converge."""
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir, exist_ok=True)
+    store_dir = os.path.join(workdir, "store")
+    problems: list[str] = []
+    tsdb = open_tsdb(store_dir, sc.shards, rollups=False, device=sc.device)
+    try:
+        for op in gen_ops(sc.seed, 8):
+            apply_op(tsdb, op)
+        tsdb.checkpoint()
+        replica = open_store(store_dir, sc.shards, read_only=True)
+        try:
+            before = _dump_store(replica)
+            apply_op(tsdb, ("ingest", 2, _EXTRA_HOUR, 1, 300, 0, 3))
+            tsdb.checkpoint()   # the refresh must take the rebuild path
+            faultpoints.arm(sc.site, sc.mode, skip=sc.skip,
+                            count=sc.count, seed=sc.seed)
+            try:
+                replica.refresh()
+                problems.append(f"injected {sc.mode} at {sc.site} was "
+                                f"swallowed by refresh()")
+            except (faultpoints.FaultInjected, OSError):
+                pass
+            finally:
+                faultpoints.disarm(sc.site)
+            if _dump_store(replica) != before:
+                problems.append("replica view changed across a FAILED "
+                                "refresh (torn rebuild served)")
+            replica.refresh()
+            if _dump_store(replica) != _dump_store(tsdb.store):
+                problems.append("replica did not converge on the clean "
+                                "refresh after an injected failure")
+        finally:
+            replica.close()
+    except Exception as e:
+        problems.append(f"replica scenario crashed: {e!r}")
+    finally:
+        faultpoints.disarm(sc.site)
+        _shutdown_writer(tsdb, problems)
+    return _inprocess_result(sc, 8, problems)
+
+
+def _run_promote_scenario(sc: Scenario, workdir: str) -> dict:
+    """In-process faults on the promotion path: an injected failure
+    mid-promotion must leave the candidate a coherent, still read-only
+    replica; the retry must take over with every record; and the deposed
+    writer's next ingest must be fenced."""
+    from opentsdb_tpu_torch.cluster import epoch as cepoch
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir, exist_ok=True)
+    store_dir = os.path.join(workdir, "store")
+    problems: list[str] = []
+    epoch_path = (os.path.join(store_dir, "EPOCH.json") if sc.shards > 1
+                  else os.path.join(store_dir, "wal") + ".epoch.json")
+    tsdb = open_tsdb(store_dir, sc.shards, rollups=False, device=sc.device)
+    try:
+        cepoch.write_epoch(epoch_path, 1, "writer")
+        # The writer runs unguarded until the fence matters: the ops
+        # below predate the promotion.
+        for op in gen_ops(sc.seed, 10):
+            apply_op(tsdb, op)
+        tsdb.checkpoint()
+        apply_op(tsdb, ("ingest", 1, _EXTRA_HOUR, 1, 300, 0, 5))
+        tsdb.store.flush()
+        replica = open_store(store_dir, sc.shards, read_only=True)
+        try:
+            before = _dump_store(replica)
+            new_epoch = cepoch.bump_epoch(epoch_path, "replica", expect=1)
+            faultpoints.arm(sc.site, sc.mode, skip=sc.skip,
+                            count=sc.count, seed=sc.seed)
+            try:
+                replica.promote_writable(
+                    new_epoch, epoch_guard=cepoch.EpochGuard(
+                        epoch_path, new_epoch, 0.0))
+                problems.append(f"injected {sc.mode} at {sc.site} was "
+                                f"swallowed by promote_writable()")
+            except (faultpoints.FaultInjected, OSError):
+                pass
+            finally:
+                faultpoints.disarm(sc.site)
+            if not replica.read_only:
+                problems.append("failed promotion left the store "
+                                "writable (half-promoted)")
+            if _dump_store(replica) != before:
+                problems.append("replica view changed across a FAILED "
+                                "promotion (torn takeover served)")
+            replica.promote_writable(
+                new_epoch, epoch_guard=cepoch.EpochGuard(
+                    epoch_path, new_epoch, 0.0))
+            if _dump_store(replica) != _dump_store(tsdb.store):
+                problems.append("promoted store != writer store "
+                                "(takeover lost records)")
+            # The deposed writer must be fenced: arm its guard (a
+            # production writer carries one from boot) and watch a
+            # mutation refuse.
+            guard = cepoch.EpochGuard(epoch_path, 1, 0.0)
+            tsdb.store.epoch_guard = guard
+            for s in getattr(tsdb.store, "shards", None) or []:
+                s.epoch_guard = guard
+            try:
+                apply_op(tsdb, ("ingest", 0, _EXTRA_HOUR + 3600, 1, 300,
+                                0, 7))
+                problems.append("deposed writer's post-promotion "
+                                "ingest was NOT fenced")
+            except FencedWriterError:
+                pass
+        finally:
+            replica.close()
+    except Exception as e:
+        problems.append(f"promote scenario crashed: {e!r}")
+    finally:
+        faultpoints.disarm(sc.site)
+        _shutdown_writer(tsdb, problems)
+    return _inprocess_result(sc, 10, problems)
+
+
 def run_scenario(sc: Scenario, work_root: str,
                  shrink: bool = True) -> dict:
+    if sc.kind == "replica":
+        return _run_replica_scenario(sc, os.path.join(work_root, sc.label))
+    if sc.kind == "promote":
+        return _run_promote_scenario(sc, os.path.join(work_root, sc.label))
     if sc.mode not in ("crash", "torn"):
         # A raise/ioerror/delay child either errors out or finishes, and
         # _run_once would misreport both: those modes are for in-process
@@ -853,6 +1058,8 @@ FAST_LABELS = (
     "rollup-foldflush-incrcmp-s1",
     "tenant-snap-commit-torn-s4",
     "shard-join-crash-k2",
+    "replica-rebuild-raise",
+    "promote-rotate-raise",
 )
 
 
@@ -967,6 +1174,21 @@ def build_matrix() -> list[Scenario]:
     # a torn committed snapshot recovers within the declared error.
     add("tenant-snap-commit-torn-hll", "tenant.snapshot.commit",
         "torn", shards=1, rollups=True, seed=5101, tenant_cutoff=0)
+    # Replica refresh and promotion faults (in-process, no child).
+    add("replica-refresh-ioerror", "replica.refresh", "ioerror",
+        shards=1, kind="replica", seed=3101)
+    add("replica-rebuild-raise", "replica.rebuild", "raise",
+        shards=1, kind="replica", seed=3102)
+    add("replica-rebuild-raise-s4", "replica.rebuild", "raise",
+        shards=4, kind="replica", seed=3103)
+    add("promote-take-raise", "cluster.promote.take", "raise",
+        shards=1, kind="promote", seed=3201)
+    add("promote-rotate-raise", "cluster.promote.rotate", "raise",
+        shards=1, kind="promote", seed=3202)
+    add("promote-rotate-raise-s4", "cluster.promote.rotate", "raise",
+        shards=4, kind="promote", seed=3203)
+    add("promote-rotate-ioerror", "cluster.promote.rotate", "ioerror",
+        shards=1, kind="promote", seed=3204)
     return scens
 
 

@@ -326,9 +326,11 @@ class QueryExecutor:
         Read from the sketch slot directory, which the write path keeps a
         superset of the series with stored data (``TSDB.add_point`` and
         ``add_batch`` register with ``note_series`` before the put). None,
-        which never prunes, without sketches or when nothing matches."""
+        which never prunes, without sketches, when nothing matches, or on
+        a read-only replica: its directory reloads only at a writer's
+        checkpoint, so it lags the series a WAL suffix replay brought."""
         sk = self.tsdb.sketches
-        if sk is None:
+        if sk is None or getattr(self.tsdb.store, "read_only", False):
             return None
         fkey = (metric_uid, _filter_key(exact, group_bys))
         # Revalidate on THIS metric's directory size (it only grows): a

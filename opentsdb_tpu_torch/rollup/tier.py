@@ -10,8 +10,10 @@ differs:
   (``rollup/summary.group_summaries_device`` on the TSDB's device: one
   launch a (metric, coarse window) group) and declares ``device-f64``;
 - a tier store's own checkpoint writes no tenant marker (the JAX store
-  has none to write);
-- ``ReadOnlyRollupTier`` (replicas) comes with item 10.
+  has none to write).
+
+``ReadOnlyRollupTier`` serves a replica's rollup reads from the writer's
+tier (ROADMAP item 10a).
 
 A parallel per-shard storage tier holding one summary record per
 (series, coarse window) at each configured resolution (default 1h and
@@ -1484,3 +1486,171 @@ class RollupTier:
         for stores in self.stores.values():
             for s in stores:
                 s._simulate_crash()
+
+
+class ReadOnlyRollupTier(RollupTier):
+    """Replica-side rollup reads: the writer's rollup stores opened
+    read-only behind the planner's surface (``scan_records``,
+    ``pick_resolution``, ``dirty_hour_bases``), so long downsamples cost
+    O(windows) on replicas too. It never folds, never rebuilds and never
+    writes the state file, so no rollup kernel runs on a replica.
+
+    Correctness leans on the refresh ORDER plus the writer's spill
+    bracket. ``refresh()`` runs AFTER the raw store's refresh:
+
+    1. The raw view is fixed at T_raw; every raw row it considers clean
+       (not memtable-resident) was spilled by a checkpoint that STARTED
+       before T_raw.
+    2. ``begin_spill`` writes ``pending`` durably BEFORE any raw spill,
+       and ``pending=false`` lands only after that spill's fold is
+       durable in the rollup WALs. So reading ``ok`` at T > T_raw proves
+       every spill the raw view contains has a durable fold.
+    3. Refreshing the rollup stores after that read therefore captures a
+       fold superset of the raw view's spilled data. Newer folds the
+       refresh may half-capture touch only windows whose rows are still
+       memtable-dirty in the raw view, which the planner stitches from
+       raw anyway.
+
+    A ``pending`` state (writer mid-checkpoint, a crashed bracket, a
+    rebuild in progress) parks the tier not-ready: the planner degrades
+    to raw. ``refreshes`` stamps each capture, so record caches built on
+    an earlier one (the approximate planner's rail cache) revalidate.
+
+    Mirrors ``ReadOnlyRollupTier`` of ``opentsdb_tpu/rollup/tier.py``.
+    """
+
+    read_only = True
+
+    def __init__(self, tsdb, config) -> None:
+        if not getattr(tsdb.store, "read_only", False):
+            raise ValueError("ReadOnlyRollupTier serves a READ-ONLY "
+                             "replica store; writers own RollupTier")
+        self._init_layout(tsdb, config)
+        self.refreshes = 0
+        # Serializes refresh() against itself: a replica can have both
+        # the WalTailer and the compaction timer driving it.
+        self._refresh_lock = threading.Lock()
+        # Stores retired by a layout adoption, closed only at close(): an
+        # in-flight query may still be scanning them.
+        self._retired: list[MemKVStore] = []
+        # Best effort at open: a missing or pending tier leaves the
+        # replica serving raw until the next cycle.
+        self.refresh()
+
+    def refresh(self) -> bool:
+        """One catch-up cycle (after the raw store's refresh). Returns the
+        resulting readiness. Any failure (state unreadable, store churn
+        past the open retries, an injected fault) degrades to not-ready
+        instead of raising: replicas keep serving.
+
+        ``self.stores`` is only ever swapped WHOLE and replaced stores are
+        parked in ``_retired``, so a query that passed the ``ready`` check
+        keeps a coherent (at most one cycle stale) view."""
+        with self._refresh_lock:
+            return self._refresh_locked()
+
+    def _refresh_locked(self) -> bool:
+        st = self._read_state()
+        if st is None or st.get("pending", True):
+            self._ready = False
+            return False
+        try:
+            if any(st.get(k) != v for k, v in self._config_dict().items()):
+                # The writer changed the tier's layout: adopt it and reopen
+                # from empty.
+                self._adopt_state(st)
+            if not self.stores:
+                self.stores = self._open_stores()
+            else:
+                for stores in self.stores.values():
+                    for s in stores:
+                        s.refresh()
+        except Exception as e:
+            LOG.warning("replica rollup refresh degraded to raw: %r", e)
+            self._ready = False
+            return False
+        # Re-read the state AFTER the store refresh: a writer that went
+        # pending (or began a layout rebuild) meanwhile may have fed a
+        # partial capture; ok before AND after brackets a coherent one.
+        st2 = self._read_state()
+        self._ready = (st2 is not None and not st2.get("pending", True)
+                       and st2 == st)
+        self.refreshes += 1
+        return self._ready
+
+    def _open_stores(self) -> dict[int, list[MemKVStore]]:
+        out: dict[int, list[MemKVStore]] = {}
+        try:
+            for r in self.resolutions:
+                out[r] = []
+                for d in self._dirs[r]:
+                    s = MemKVStore(wal_path=os.path.join(d, "wal"),
+                                   read_only=True)
+                    s.ensure_table(self.table)
+                    out[r].append(s)
+        except BaseException:
+            for stores in out.values():
+                for s in stores:
+                    try:
+                        s.close()
+                    except Exception:
+                        pass
+            raise
+        return out
+
+    def _adopt_state(self, st: dict) -> None:
+        """Re-derive the layout from the writer's new state file: retire
+        the old stores and recompute the per-resolution directories."""
+        self._ready = False
+        for stores in self.stores.values():
+            self._retired.extend(stores)
+        self.stores = {}
+        self.resolutions = tuple(int(r) for r in st["resolutions"])
+        self.pack = int(st["pack"])
+        self.digest_k = int(st["digest_k"])
+        self.hll_p = int(st["hll_p"])
+        self.sketch_min_res = int(st["sketch_min_res"])
+        self.moment_k = int(st.get("moment_k", 0))
+        self.moment_min_res = int(st.get("moment_min_res", 0))
+        self.sketch_byte_budget = int(st.get("budget", 0))
+        # Replicas never fold; adopting the writer's declared kind keeps
+        # the _config_dict comparison stable (no key means host-f64).
+        self.fold_kind = str(st.get("fold", "host-f64"))
+        alloc = st.get("alloc")
+        try:
+            self.sketch_alloc = (
+                {int(r): tuple(int(x) for x in v)
+                 for r, v in alloc.items()}
+                if isinstance(alloc, dict) else self._compute_alloc())
+        except (TypeError, ValueError):
+            self.sketch_alloc = self._compute_alloc()
+        base = os.path.dirname(self.state_path)
+        self._dirs = {}
+        for r in self.resolutions:
+            if self._sharded:
+                self._dirs[r] = [os.path.join(base, f"shard-{i}",
+                                              f"rollup-{r}")
+                                 for i in range(self.shard_count)]
+            else:
+                self._dirs[r] = [f"{self.tsdb.store._wal_path}.rollup-{r}"]
+        self.hits = {r: self.hits.get(r, 0) for r in self.resolutions}
+
+    # -- writer entry points: refuse loudly ---------------------------------
+
+    def begin_spill(self) -> None:
+        raise RuntimeError("read-only rollup tier cannot spill")
+
+    def fold_after_spill(self) -> None:
+        raise RuntimeError("read-only rollup tier cannot fold")
+
+    def close(self) -> None:
+        with self._refresh_lock:
+            for stores in self.stores.values():
+                self._retired.extend(stores)
+            self.stores = {}
+            retired, self._retired = self._retired, []
+        for s in retired:
+            try:
+                s.close()
+            except Exception:
+                pass

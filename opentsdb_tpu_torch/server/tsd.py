@@ -48,10 +48,22 @@ result under ``"approx"``). ``/forecast`` answers Holt-Winters / EWMA
 forecasts and anomaly bands over a query's series (``models/``, one
 launch of the smoothing kernels).
 
+Replicas (ROADMAP item 10a): a ``--role replica`` daemon has a
+``serve/tailer.WalTailer`` attached (``attach_tailer``). ``/healthz``
+answers its staleness contract (200 while fresh, 503 past
+``Config.max_staleness_ms``; a writer answers its role, and in cluster
+mode its epoch and whether it was fenced), and while the replica is stale
+every ``/q`` result carries ``"degraded": "stale"`` and the answer the
+``X-Tsd-Degraded`` header. Puts to a replica or to a fenced writer are
+refused with the JAX daemon's telnet lines (``put: read-only replica:``,
+``put: fenced writer ...``) and ``/api/put`` bodies; ``/api/tenants``
+of a daemon without accounting names its role. ``/fault`` arms, disarms
+and lists fault points on a live daemon.
+
 Not ported yet, and answered with 400 "not yet ported": PNG graphs
 (``/q`` without ``ascii``/``json``, ``/forecast`` with ``png``). Other
-paths (the JAX daemon's ``/``, ``/s/``, ``/fault`` and the serving
-tier's routes among them) are 404.
+paths (the JAX daemon's ``/``, ``/s/``, and the router's ``/promote`` and
+``/demote``, ROADMAP item 10b) are 404.
 """
 
 from __future__ import annotations
@@ -72,9 +84,11 @@ import torch
 from opentsdb_tpu_torch.build_data import build_data, version_string
 from opentsdb_tpu_torch.core import tags as tags_mod
 from opentsdb_tpu_torch.core.errors import (BadRequestError,
+                                             FencedWriterError,
                                              NoSuchUniqueName,
                                              OverloadedError,
                                              PleaseThrottleError,
+                                             ReadOnlyStoreError,
                                              TenantLimitError)
 from opentsdb_tpu_torch.fault import faultpoints
 from opentsdb_tpu_torch.models import forecast as fcast
@@ -194,6 +208,9 @@ class TSDServer:
         # selfmon_interval_s (0: off; built anyway, so run_once works).
         self.selfmon = SelfMonitor(tsdb, self._collect_stats,
                                    self.config.selfmon_interval_s)
+        # The WAL tailer of a --role replica daemon (attach_tailer): the
+        # staleness contract behind /healthz and the /q stale tag.
+        self.tailer = None
         # Handlers take (words, writer, conn): ``conn`` is the
         # connection's state (its tenant). False closes the connection.
         self.telnet_commands = {
@@ -231,7 +248,14 @@ class TSDServer:
             "/distinct": self._distinct,
             "/sketch": self._sketch,
             "/forecast": self._forecast,
+            "/healthz": self._http_healthz,
+            "/fault": self._http_fault,
         }
+
+    def attach_tailer(self, tailer) -> None:
+        """Wire a ``serve.tailer.WalTailer`` into /healthz and the /q
+        staleness tag; ``stop()`` stops it."""
+        self.tailer = tailer
 
     # ------------------------------------------------------------------
     # Lifecycle
@@ -255,6 +279,8 @@ class TSDServer:
             await self._server.wait_closed()
             self._server = None
         self.selfmon.stop()
+        if self.tailer is not None:
+            self.tailer.stop()
         self._pool.shutdown(wait=True)
         self.tsdb.shutdown()
 
@@ -393,6 +419,14 @@ class TSDServer:
                 # limit moves); the batch's existing series applied.
                 self.hbase_errors_put += 1
                 kind = "tenant series limit exceeded"
+            elif "read-only" in err:
+                self.hbase_errors_put += 1
+                kind = "read-only replica"
+            elif "[fenced]" in err:
+                # A deposed writer (tagged by ingest_batch): refused, the
+                # collector re-sends to the current writer.
+                self.hbase_errors_put += 1
+                kind = "fenced writer"
             else:
                 self.illegal_arguments_put += 1
                 kind = "illegal argument"
@@ -457,6 +491,17 @@ class TSDServer:
             self.hbase_errors_put += 1
             _M_TELNET_ERRORS.inc()
             writer.write(f"put: Please throttle writes: {e}\n".encode())
+        except ReadOnlyStoreError as e:
+            # A replica serves reads only: write to the writer instead.
+            self.hbase_errors_put += 1
+            _M_TELNET_ERRORS.inc()
+            writer.write(f"put: read-only replica: {e}\n".encode())
+        except FencedWriterError as e:
+            # A deposed writer: refused, never acknowledged.
+            self.hbase_errors_put += 1
+            _M_TELNET_ERRORS.inc()
+            writer.write(f"put: fenced writer (superseded by epoch "
+                         f"{e.current_epoch}): {e}\n".encode())
 
     def _telnet_dropcaches(self, words, writer, conn) -> None:
         self.tsdb.drop_caches()
@@ -650,6 +695,58 @@ class TSDServer:
     def _http_favicon(self, req) -> tuple:
         return 404, "text/plain", b"", {}
 
+    def _http_fault(self, req) -> tuple:
+        """Fault-injection admin (fault/faultpoints.py) on a live daemon:
+        ``/fault`` lists the registry, ``?arm=site=mode:k=v`` arms (a
+        crash mode kills the daemon at the next hit), ``?disarm=site``
+        disarms one site, ``?clear=1`` every site."""
+        q = req.q
+        if "arm" in q:
+            try:
+                faultpoints.install_spec(q["arm"])
+            except ValueError as e:
+                raise BadRequestError(str(e)) from None
+        if "disarm" in q:
+            faultpoints.disarm(q["disarm"])
+        if "clear" in q:
+            faultpoints.clear()
+        return (200, "application/json",
+                json.dumps(faultpoints.status()).encode(), {})
+
+    def _http_healthz(self, req) -> tuple:
+        """Liveness and the replica staleness contract: 200 while ok, 503
+        while a replica is stale (the body still carries the measured
+        lag). In cluster mode the body carries the epoch this daemon owns
+        and, once deposed, ``fenced`` and the epoch that fenced it."""
+        if self.tailer is not None:
+            body = self.tailer.health()
+        else:
+            body = {"role": self.config.role, "ok": True,
+                    "read_only": bool(getattr(self.tsdb.store,
+                                              "read_only", False))}
+        store = self.tsdb.store
+        epoch = getattr(store, "writer_epoch", None)
+        if epoch is not None:
+            body["writer_epoch"] = int(epoch)
+        guard = getattr(store, "epoch_guard", None)
+        if guard is not None and guard.fenced:
+            # Deposed but alive: reads still serve, every write refuses.
+            body["fenced"] = True
+            body["fenced_by_epoch"] = guard.fenced_epoch
+        body["uptime_s"] = int(time.time()) - self.start_time
+        body["inflight_queries"] = self.admission.inflight_queries
+        status = 200 if body.get("ok") else 503
+        return status, "application/json", json.dumps(body).encode(), {}
+
+    def _degraded_reason(self) -> str | None:
+        """The /q result tag: "stale" while the replica staleness contract
+        is violated, None at full service. (The JAX daemon's
+        "rollup-only" step comes with the query half of admission, ROADMAP
+        item 10b.)"""
+        if self.tailer is not None and self.tailer.stale():
+            return "stale"
+        return None
+
     def _note_plan(self, plan: str, approx: bool = False) -> None:
         """Bump the bounded per-plan counters, as in the JAX daemon:
         "approx-1h" labels count as "approx", rollup resolution labels
@@ -783,7 +880,7 @@ class TSDServer:
         lines, admission and the self-monitor, the engine's
         ``TSDB.collect_stats`` and the metrics registry (timers as
         p50/p95/p99 plus ``.count`` / ``.sum_ms``). The JAX daemon's
-        lines, less the replica tailer's (ROADMAP queue A item 10)."""
+        lines."""
         c = StatsCollector("tsd")
         c.record("connectionmgr.connections", self.connections_established)
         c.record("connectionmgr.exceptions", self.exceptions_caught)
@@ -838,10 +935,11 @@ class TSDServer:
         cardinality (exact or HLL tier, error declared), the limit
         governing each tenant, refusal counters, the heavy-hitter
         summaries, and the admission controller's bucket table. A daemon
-        without accounting answers ``enabled: false``."""
+        without accounting (a replica among them) answers ``enabled:
+        false`` and its role."""
         acct = self.tsdb.tenants
         if acct is None:
-            body = {"enabled": False, "role": "writer"}
+            body = {"enabled": False, "role": self.config.role}
             return (200, "application/json",
                     json.dumps(body).encode(), {})
         body = acct.snapshot_info(self.tsdb.tenant_limits)
@@ -963,6 +1061,10 @@ class TSDServer:
         max_error = _parse_max_error(q)
         aspec = ApproxSpec(q.get("approx", "0") not in ("", "0")
                            or max_error is not None, max_error)
+        # Anything less than full service is declared: "stale" while a
+        # replica is past its staleness contract, per result in JSON and
+        # as X-Tsd-Degraded.
+        degraded = self._degraded_reason()
         # No /q disk cache here: every query executes (so no exact caller
         # can be served an approximate answer from a cached one).
         self.cache_misses += 1
@@ -1012,6 +1114,8 @@ class TSDServer:
             traces.extend([tdict] * len(rs))
             approx.extend([ajson] * len(rs))
         extra = {}
+        if degraded:
+            extra["X-Tsd-Degraded"] = degraded
         served = [a for a in approx if a]
         if served:
             # The declared approximation, header form: the kinds involved
@@ -1028,7 +1132,8 @@ class TSDServer:
         return (200, "application/json",
                 json.dumps(self._json_output(
                     results, plans, cached,
-                    traces if want_trace else None, approx)).encode(), extra)
+                    traces if want_trace else None, approx,
+                    degraded)).encode(), extra)
 
     async def _distinct(self, req) -> tuple:
         """Distinct values of one tag key. Without ``start`` (or with
@@ -1228,7 +1333,7 @@ class TSDServer:
 
     @staticmethod
     def _json_output(results, plans, cached, traces=None,
-                     approx=None) -> list:
+                     approx=None, degraded=None) -> list:
         out = [{
             "metric": r.metric,
             "tags": r.tags,
@@ -1240,6 +1345,9 @@ class TSDServer:
             "dps": {str(int(t)): float(v)
                     for t, v in zip(r.timestamps, r.values)},
         } for i, r in enumerate(results)]
+        if degraded:
+            for ent in out:
+                ent["degraded"] = degraded
         if approx:
             # The error contract: a sketch-served answer carries its kind
             # and reported bound.

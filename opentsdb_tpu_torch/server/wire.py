@@ -29,7 +29,7 @@ from typing import NamedTuple
 import numpy as np
 
 from opentsdb_tpu_torch.core import tags as tags_mod
-from opentsdb_tpu_torch.core.errors import TenantLimitError
+from opentsdb_tpu_torch.core.errors import FencedWriterError, TenantLimitError
 from opentsdb_tpu_torch.obs.registry import METRICS as _metrics
 from opentsdb_tpu_torch.utils.nativeext import WIRE as _NATIVE
 
@@ -638,7 +638,8 @@ def ingest_batch(tsdb, batch: DecodedBatch, durable: bool = True,
     metric, conflicting duplicate, tenant limit) does not drop the
     others — matching the per-line put semantics. Returns
     (points_written, per-series error strings); a tenant-limit refusal
-    carries the stable ``[tenant-limit] `` tag the server's classifier
+    carries the stable ``[tenant-limit] `` tag and a deposed writer's
+    refusal the ``[fenced] `` tag the server's classifier
     keys on. One argsort groups points by series; no per-series
     full-array masks.
     """
@@ -670,9 +671,14 @@ def ingest_batch(tsdb, batch: DecodedBatch, durable: bool = True,
             except Exception as e:
                 # A tenant-limit refusal is per-series: the tenant's
                 # EXISTING series in this batch still ingest; only the new
-                # one refuses.
-                tag = ("[tenant-limit] " if isinstance(e, TenantLimitError)
-                       else "")
+                # one refuses. The server's classifier keys on the stable
+                # tags, not on the exception's wording.
+                if isinstance(e, FencedWriterError):
+                    tag = "[fenced] "
+                elif isinstance(e, TenantLimitError):
+                    tag = "[tenant-limit] "
+                else:
+                    tag = ""
                 errors.append(f"{metric}: {tag}{e}")
     finally:
         barrier = getattr(tsdb.store, "wal_barrier", None)

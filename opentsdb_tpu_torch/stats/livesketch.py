@@ -192,14 +192,31 @@ class LiveSketches:
         guard = (torch.cuda.device(self.device)
                  if self.device.type == "cuda" else contextlib.nullcontext())
         while True:
-            td_buf, hll_buf = self._pending.get()
+            item = self._pending.get()
             try:
+                if item is None:
+                    return  # close(): the thread ends, its reference goes
                 with guard:
-                    self._fold_buffers(td_buf, hll_buf)
+                    self._fold_buffers(*item)
             except BaseException as e:  # surfaced on the next flush()
                 self._fold_error = e
             finally:
                 self._pending.task_done()
+
+    def close(self) -> None:
+        """Fold what is buffered and end the folder thread, which holds
+        the only reference to this object besides its owner's: once the
+        owner drops it (a replica's ``TSDB.reload_sketches`` swaps in a
+        new one) and no query holds it any more, the device stacks are
+        freed. Waits for queries inside the lock to finish; a query that
+        comes later still answers, folding inline."""
+        with self._lock:
+            self.flush()
+            folder, self._folder = self._folder, None
+            self.background = False
+        if folder is not None:
+            self._pending.put(None)
+            folder.join()
 
     def flush(self) -> None:
         """Fold every buffered observation and wait for the folder to

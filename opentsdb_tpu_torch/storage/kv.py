@@ -78,11 +78,31 @@ checkpoint record the spilled row keys (``peek_spill_keys`` /
 ``delete_hook`` tells the delta accumulators of deletes. A store with a
 rollup tier on disk refuses to checkpoint unless the tier is open.
 
-Not ported yet, each refused rather than half-read where it leaves
-something on disk: the cluster epoch fence and WAL epoch headers (ROADMAP
-queue A item 10); and without an on-disk trace: read-only
-replicas with their ``refresh`` and the rebuild's stamp-floor jump (item
-10).
+Read-only replicas (``read_only=True``, ROADMAP item 10a) open another
+daemon's store without the single-writer lock: they never truncate a
+torn tail (the writer may be mid-append), never delete a generation the
+manifest does not name, and refuse every mutation with
+``ReadOnlyStoreError``. ``refresh()`` catches a replica up: a suffix
+replay on the open WAL fd while the writer only appended, else a full
+rebuild (``rebuilds``; ``mutation_seq`` moves and the fragment cache's
+stamp floor jumps, since what changed is unknown). An open or rebuild
+validates its capture: the manifest, ``<wal>.old`` and the WAL's inode
+must be what they were while it loaded, else it loads again (the JAX
+replica can read the generations of one moment and the WAL files of
+another, ROADMAP queue C). Fault points ``replica.refresh`` and
+``replica.rebuild``.
+
+The cluster epoch fence (``cluster/epoch.py``): a store opened with
+``writer_epoch`` begins every WAL segment it opens with an ``_OP_EPOCH``
+record, and replay refuses everything from a header whose epoch is lower
+than one already replayed (``fenced_bytes_refused``); ``epoch_guard`` is
+checked at every mutation and, forced, around the checkpoint's rotation
+and commit. A store without an epoch writes no header, so a non-cluster
+WAL's bytes are unchanged. ``promote_writable`` turns a replica into the
+writer (fault points ``cluster.promote.take`` and
+``cluster.promote.rotate``: the WAL is copied into ``<wal>.old`` and
+reopened under a fresh inode, so a zombie's open fd appends to a file
+nobody replays) and ``demote_readonly`` turns it back.
 """
 
 from __future__ import annotations
@@ -92,6 +112,7 @@ import json
 import logging
 import os
 import re
+import shutil
 import struct
 import threading
 import time
@@ -102,7 +123,9 @@ from typing import Iterator, NamedTuple
 import numpy as np
 
 from opentsdb_tpu_torch.core.const import TIMESTAMP_BYTES, UID_WIDTH
-from opentsdb_tpu_torch.core.errors import PleaseThrottleError
+from opentsdb_tpu_torch.core.errors import (FencedWriterError,
+                                             PleaseThrottleError,
+                                             ReadOnlyStoreError)
 from opentsdb_tpu_torch.fault.faultpoints import fire as _fault
 from opentsdb_tpu_torch.obs import trace as _trace
 from opentsdb_tpu_torch.obs.registry import METRICS as _metrics
@@ -136,7 +159,15 @@ _OP_PUT = 1
 _OP_DELETE = 2
 _OP_DELETE_ROW = 3
 _OP_PUT_BATCH = 4   # one columnar record for a whole put_many batch
-_OP_EPOCH = 5       # cluster-mode segment header (fence not ported)
+# WAL segment epoch header (cluster/epoch.py): a cluster-mode writer
+# begins every WAL segment it opens with its epoch, and replay refuses any
+# segment whose header epoch is LOWER than one already seen.
+_OP_EPOCH = 5
+
+# Bounded retries of a replica's open (_open_tiers_retrying): a writer's
+# merge can unlink a generation, or its checkpoint move the WAL files,
+# while the replica loads.
+_RO_OPEN_TRIES = 64
 
 # Row-key bytes holding the base time (core/codec.row_key): the bloom
 # probe hashes the key around them.
@@ -172,6 +203,11 @@ def write_tenant_marker(path: str) -> None:
         os.fsync(dfd)
     finally:
         os.close(dfd)
+
+
+class _CaptureChanged(Exception):
+    """A replica's open read the store files of two moments (the writer
+    checkpointed meanwhile): load again."""
 
 
 class Cell(NamedTuple):
@@ -422,11 +458,20 @@ class MemKVStore(KVStore):
 
     def __init__(self, wal_path: str | None = None,
                  throttle_rows: int | None = None, fsync: bool = False,
-                 max_generations: int | None = None) -> None:
+                 max_generations: int | None = None,
+                 read_only: bool = False,
+                 writer_epoch: int | None = None,
+                 epoch_guard=None) -> None:
         """``throttle_rows``: live rows per table past which puts that
         create a row raise PleaseThrottleError. ``fsync``: fsync the WAL
         at every flush. ``max_generations`` overrides the generation cap
-        (at least 2; the sharded store staggers it per shard)."""
+        (at least 2; the sharded store staggers it per shard).
+
+        ``read_only=True`` opens another daemon's store without the
+        single-writer lock, as a replica (module docstring).
+        ``writer_epoch`` (cluster mode) stamps this writer's epoch into
+        every WAL segment it opens; ``epoch_guard`` (an ``EpochGuard``)
+        fences every mutation and the checkpoint. Both default off."""
         self._tables: dict[str, _Table] = {}
         self._lock = threading.RLock()
         if max_generations is not None:
@@ -439,6 +484,21 @@ class MemKVStore(KVStore):
         self._wal_path = wal_path
         self._wal = None
         self._lockfd: int | None = None
+        self.read_only = read_only
+        # Cluster write tier: the epoch this writer owns (None: no
+        # headers, no fence), its mutation-path guard, the highest header
+        # epoch the replay stream has produced, and the bytes replay
+        # refused past a fence line (zombie segments).
+        self.writer_epoch = writer_epoch
+        self.epoch_guard = epoch_guard
+        self._replay_epoch = 0
+        self.fenced_bytes_refused = 0
+        # Replica full rebuilds (each follows a writer checkpoint); the
+        # TSDB reloads its sketches when this moves.
+        self.rebuilds = 0
+        # Replica replay position: {"wal": (inode, replayed bytes),
+        # "old": (inode, size) | None}, as of the last open or refresh.
+        self._ro_state: dict | None = None
         # Spill tier: sstable generations, OLDEST FIRST.
         self._ssts: list[SSTable] = []
         self._sst_path = wal_path + ".sst" if wal_path else None
@@ -476,8 +536,8 @@ class MemKVStore(KVStore):
         # the range carries a stamp > E and E >= _stamp_floor: rows enter
         # or leave the visible data only through stamped memtable
         # transitions, and a checkpoint merely moves them between tiers.
-        # The floor stays 0 here: only a replica's rebuild (not ported)
-        # raises it.
+        # The floor stays 0 on a writer: a replica's rebuild (and a
+        # promotion), where what changed is unknown, jumps it instead.
         self._base_stamps: dict[str, dict[int, int]] = {}
         self._stamp_floor = 0
         # Lazy snapshots for range queries, rebuilt when mutation_seq
@@ -521,6 +581,9 @@ class MemKVStore(KVStore):
                 f"{wal_path!r} is the root of a sharded store "
                 f"({_SHARDS_NAME}): open it with "
                 f"storage.sharded.ShardedKVStore")
+        if read_only:
+            self._open_tiers_retrying(wal_path)
+            return
         os.makedirs(os.path.dirname(os.path.abspath(wal_path)),
                     exist_ok=True)
         # Single-writer lock on a side file (the JAX store's convention,
@@ -549,25 +612,193 @@ class MemKVStore(KVStore):
     def _open_tiers(self, wal_path: str) -> None:
         """Load the generations, replay <wal>.old (a checkpoint that a
         crash interrupted) then the WAL, truncating a torn tail of either,
-        and open the WAL for append."""
+        and open the WAL for append (stamping this writer's epoch header).
+        A replica truncates nothing, opens nothing for append, and
+        validates its capture (``_open_replica_wals``)."""
         t0 = time.perf_counter()
-        for path in self._generation_paths():
+        self._replay_epoch = 0
+        gens = self._generation_paths()
+        for path in gens:
             sst = SSTable(path)
             self._ssts.append(sst)
             for name in sst.tables():
                 self._table(name)
         t1 = time.perf_counter()
-        for path in (wal_path + ".old", wal_path):
-            if os.path.exists(path):
-                valid = self._replay(path)
-                if valid < os.path.getsize(path):
-                    # Torn record at the tail (crash mid-write): truncate
-                    # so appends continue from the last valid boundary.
-                    with open(path, "r+b") as f:
-                        f.truncate(valid)
-        self._wal = open(wal_path, "ab")
+        if self.read_only:
+            self._open_replica_wals(wal_path, gens)
+        else:
+            for path in (wal_path + ".old", wal_path):
+                if os.path.exists(path):
+                    valid = self._replay(path)
+                    if valid < os.path.getsize(path):
+                        # Torn record at the tail (crash mid-write, or a
+                        # zombie segment past a fence line): truncate so
+                        # appends continue from the last valid boundary.
+                        with open(path, "r+b") as f:
+                            f.truncate(valid)
+            self._wal = open(wal_path, "ab")
+            self._stamp_epoch_header()
         self.open_seconds = {"generations": t1 - t0,
                              "replay": time.perf_counter() - t1}
+
+    def _open_replica_wals(self, wal_path: str, gens: list[str]) -> None:
+        """A replica's replay of <wal>.old then the WAL over the
+        generations ``gens`` named, each through one open fd, then a check
+        that the capture is of one moment: the manifest still names
+        ``gens``, <wal>.old is the file (inode and size) that was
+        replayed, or still absent, and the WAL is the inode replayed.
+
+        A writer's checkpoint moves records from the WAL to <wal>.old
+        (phase 1) and from <wal>.old into a generation (phase 3: the
+        manifest, then the unlink). A replica that read the manifest
+        before phase 3 and looked for <wal>.old after it would serve the
+        old generations and the new WAL without the frozen records; one
+        that replayed <wal>.old and then opened a WAL that phase 1 had
+        just rotated would miss the rotated records. Either way one of
+        the three signatures changed, and ``_CaptureChanged`` makes
+        ``_open_tiers_retrying`` load again."""
+        old_path = wal_path + ".old"
+        old_seen = None
+        try:
+            with open(old_path, "rb") as f:
+                st = os.fstat(f.fileno())
+                old_seen = (st.st_ino, st.st_size)
+                self._replay_file(f)
+        except FileNotFoundError:
+            pass
+        valid, ino = 0, -1
+        try:
+            with open(wal_path, "rb") as f:
+                ino = os.fstat(f.fileno()).st_ino
+                valid = self._replay_file(f)
+        except FileNotFoundError:
+            pass
+        try:
+            ino_now = os.stat(wal_path).st_ino
+        except FileNotFoundError:
+            ino_now = -1
+        if (self._generation_paths() != gens
+                or self._stat_old() != old_seen or ino_now != ino):
+            raise _CaptureChanged(wal_path)
+        self._ro_state = {"wal": (ino, valid), "old": old_seen}
+
+    def _open_tiers_retrying(self, wal_path: str) -> None:
+        """_open_tiers for replicas, retrying while the writer moves the
+        files under it: a merge can unlink a generation between the
+        manifest read and the file open (FileNotFoundError), and a
+        checkpoint can change the capture (_CaptureChanged). The writer's
+        state converges, so a bounded re-read wins the race; the later
+        tries back off a millisecond each."""
+        for attempt in range(_RO_OPEN_TRIES):
+            for sst in self._ssts:
+                sst.close()
+            self._tables = {}
+            self._ssts = []
+            try:
+                self._open_tiers(wal_path)
+                return
+            except (FileNotFoundError, _CaptureChanged):
+                if attempt >= 8:
+                    time.sleep(0.001 * (attempt - 7))
+        for sst in self._ssts:
+            sst.close()
+        self._ssts = []
+        raise FileNotFoundError(
+            f"store files for {wal_path!r} kept changing mid-open "
+            f"(writer checkpointing continuously?); gave up after "
+            f"{_RO_OPEN_TRIES} tries")
+
+    def _stat_old(self) -> "tuple[int, int] | None":
+        try:
+            st = os.stat(self._wal_path + ".old")
+            return (st.st_ino, st.st_size)
+        except OSError:
+            return None
+
+    def refresh(self) -> bool:
+        """Catch a read-only replica up to the writer's current durable
+        state. Returns True when anything changed.
+
+        When the WAL is the same file and has only grown, just the suffix
+        replays, read through the open fd whose inode was checked (a
+        rotation between a path stat and the open would otherwise seek
+        the old offset inside the new file). A changed manifest, a
+        <wal>.old that appeared or changed, or a rotated WAL (the writer
+        checkpointed) triggers a full rebuild, which is crash recovery,
+        so it is correct in any in-flight writer state."""
+        if not self.read_only:
+            raise ValueError("refresh() is for read-only stores")
+        if not self._wal_path:
+            return False
+        # raise / ioerror here stand for a poll hitting writer churn or a
+        # flaky volume: the replica keeps serving its pre-refresh view.
+        _fault("replica.refresh", self._wal_path)
+        with self._lock:
+            if [s.path for s in self._ssts] != self._generation_paths():
+                self._rebuild_locked()
+                return True
+            state = self._ro_state or {"wal": (-1, 0), "old": None}
+            if self._stat_old() != state["old"]:
+                # A checkpoint is in flight (or a new crash remnant): its
+                # records precede the current WAL, so only a rebuild
+                # catches up. Recording its (inode, size) makes a long
+                # merge cost one rebuild, not one per poll.
+                self._rebuild_locked()
+                return True
+            try:
+                f = open(self._wal_path, "rb")
+            except OSError:
+                return False
+            with f:
+                st = os.fstat(f.fileno())
+                ino, off = state["wal"]
+                if st.st_ino != ino or st.st_size < off:
+                    self._rebuild_locked()
+                    return True
+                if st.st_size == off:
+                    return False
+                valid = self._replay_file(f, start=off)
+            self._ro_state = {"wal": (ino, valid), "old": state["old"]}
+            if valid > off:
+                # The suffix mutated the memtable outside the put and
+                # delete entry points: caches keyed on mutation_seq must
+                # see it move.
+                self.mutation_seq += 1
+            return valid > off
+
+    def _rebuild_locked(self) -> None:
+        """Full replica reload: fresh tables, the current generations,
+        <wal>.old + WAL replay (crash recovery without truncation). Caller
+        holds the lock. Handles of dropped generations close afterwards
+        (an unlinked file stays readable until its fd closes). On failure
+        the pre-rebuild view stays, whole."""
+        old_ssts, old_tables = self._ssts, self._tables
+        old_state = self._ro_state
+        _fault("replica.rebuild", self._wal_path)
+        self._ssts = []
+        self._ro_state = None
+        try:
+            self._open_tiers_retrying(self._wal_path)
+        except BaseException:
+            for sst in self._ssts:
+                sst.close()
+            self._ssts, self._tables = old_ssts, old_tables
+            self._ro_state = old_state
+            raise
+        self.rebuilds += 1
+        self._jump_stamp_floor()
+        for sst in old_ssts:
+            sst.close()
+
+    def _jump_stamp_floor(self) -> None:
+        """The generation set was replaced whole and what changed inside
+        it is unknown: move mutation_seq and raise the stamp floor to it,
+        so every fragment cached against an earlier seq is invalid."""
+        self.mutation_seq += 1
+        self._stamp_floor = self.mutation_seq
+        self._base_stamps = {}
+        self._stamps_snap = {}
+        self._dirty_snap = {}
 
     # -- generation set -----------------------------------------------------
 
@@ -585,6 +816,12 @@ class MemKVStore(KVStore):
                 else []
         with open(man) as f:
             names = json.load(f)
+        if self.read_only:
+            # A replica never deletes (a "stray" may be the live writer's
+            # generation mid-rename) and never filters on existence: a
+            # generation a merge unlinked since the manifest read makes
+            # the open raise FileNotFoundError, and the retry re-reads.
+            return [os.path.join(d, fn) for fn in names]
         liveset = set(names)
         base = os.path.basename(self._sst_path)
         for fn in os.listdir(d):
@@ -644,6 +881,15 @@ class MemKVStore(KVStore):
     def ensure_table(self, table: str) -> None:
         with self._lock:
             self._table(table)
+
+    def _check_writable(self) -> None:
+        if self.read_only:
+            raise ReadOnlyStoreError(
+                f"store on {self._wal_path!r} is a read-only replica")
+        if self.epoch_guard is not None:
+            # The zombie fence: raises FencedWriterError once a promotion
+            # has bumped the persisted epoch past ours (stat-cached).
+            self.epoch_guard.check()
 
     @property
     def mutation_seqs(self) -> tuple[int, ...]:
@@ -1215,39 +1461,78 @@ class MemKVStore(KVStore):
 
     def _replay(self, path: str) -> int:
         """Apply every complete WAL record; returns the valid byte count."""
-        valid = 0
         with open(path, "rb") as f:
-            while True:
-                hdr = f.read(_REC.size)
-                if len(hdr) < _REC.size:
-                    break  # truncated tail: stop at last complete record
-                op, plen = _REC.unpack(hdr)
-                payload = f.read(plen)
-                if len(payload) < plen:
+            return self._replay_file(f)
+
+    def _replay_file(self, f, start: int = 0) -> int:
+        """_replay over an open file from byte ``start``; returns the
+        valid byte count (absolute). An epoch header LOWER than one
+        already replayed is a deposed writer's segment landing after a
+        newer writer's: replay stops there (a writer's torn-tail
+        truncation then cuts it; a replica's cursor stops) and the bytes
+        from it on count in ``fenced_bytes_refused``."""
+        valid = start
+        if start:
+            f.seek(start)
+        while True:
+            hdr = f.read(_REC.size)
+            if len(hdr) < _REC.size:
+                break  # truncated tail: stop at last complete record
+            op, plen = _REC.unpack(hdr)
+            payload = f.read(plen)
+            if len(payload) < plen:
+                break
+            if op == _OP_EPOCH:
+                (e,) = struct.unpack(">Q", self._split_payload(payload)[0])
+                if e < self._replay_epoch:
+                    try:
+                        end = os.fstat(f.fileno()).st_size
+                    except OSError:
+                        end = valid
+                    self.fenced_bytes_refused += max(end - valid, 0)
                     break
+                self._replay_epoch = e
                 valid += _REC.size + plen
-                if op == _OP_PUT_BATCH:
-                    self._replay_batch(payload)
-                    continue
-                if op == _OP_EPOCH:
-                    raise RuntimeError(
-                        f"WAL {path!r} carries cluster epoch headers; the "
-                        f"cluster write tier is not ported yet (ROADMAP "
-                        f"queue A item 10)")
-                parts = self._split_payload(payload)
-                table = parts[0].decode()
-                if op == _OP_PUT:
-                    _, key, fam, qual, value = parts
-                    self._apply_put(table, key, fam, qual, value)
-                elif op == _OP_DELETE:
-                    _, key, fam, *quals = parts
-                    self._apply_delete(table, key, fam, quals)
-                elif op == _OP_DELETE_ROW:
-                    _, key = parts
-                    self._apply_delete_row(table, key)
-                else:
-                    raise RuntimeError(f"unknown WAL opcode {op} in {path!r}")
+                continue
+            valid += _REC.size + plen
+            if op == _OP_PUT_BATCH:
+                self._replay_batch(payload)
+                continue
+            parts = self._split_payload(payload)
+            table = parts[0].decode()
+            if op == _OP_PUT:
+                _, key, fam, qual, value = parts
+                self._apply_put(table, key, fam, qual, value)
+            elif op == _OP_DELETE:
+                _, key, fam, *quals = parts
+                self._apply_delete(table, key, fam, quals)
+            elif op == _OP_DELETE_ROW:
+                _, key = parts
+                self._apply_delete_row(table, key)
+            else:
+                raise RuntimeError(
+                    f"unknown WAL opcode {op} in {f.name!r}")
         return valid
+
+    def _stamp_epoch_header(self, force: bool = False) -> None:
+        """Begin (or continue) this writer's span in the WAL with an
+        ``_OP_EPOCH`` record. ``force`` stamps unconditionally (a freshly
+        rotated segment always needs a header); otherwise the stamp is
+        skipped when the replayed stream already ended inside this
+        writer's epoch (a clean same-epoch restart). A replayed epoch
+        ABOVE our own means this process was deposed while down: refuse
+        the WAL."""
+        if self._wal is None or self.writer_epoch is None:
+            return
+        if self._replay_epoch > self.writer_epoch:
+            raise FencedWriterError(
+                f"WAL at {self._wal_path!r} already carries epoch "
+                f"{self._replay_epoch}, this writer owns "
+                f"{self.writer_epoch}: superseded while down",
+                self.writer_epoch, self._replay_epoch)
+        if force or self._replay_epoch < self.writer_epoch:
+            self._wal_append(_OP_EPOCH, struct.pack(">Q", self.writer_epoch))
+            self._replay_epoch = self.writer_epoch
 
     def _replay_batch(self, payload: bytes) -> None:
         n, tl, fl = struct.unpack_from(">IHH", payload, 0)
@@ -1310,9 +1595,7 @@ class MemKVStore(KVStore):
                 for sst in self._ssts:
                     sst.close()
                 self._ssts = []
-                if self._lockfd is not None:
-                    os.close(self._lockfd)
-                    self._lockfd = None
+                self._release_lock()
 
     def _simulate_crash(self) -> None:
         """Test hook: release the single-writer lock without flushing or
@@ -1320,9 +1603,151 @@ class MemKVStore(KVStore):
         flock; unflushed state is lost). Crash-recovery tests reopen the
         WAL path after calling this."""
         with self._lock:
-            if self._lockfd is not None:
-                os.close(self._lockfd)
-                self._lockfd = None
+            self._release_lock()
+
+    # -- cluster promotion / demotion (cluster/) ----------------------------
+
+    def _try_take_lock(self) -> bool:
+        """Non-blocking attempt at the single-writer flock (a promotion,
+        and a lockless promoted writer's later checkpoints). True when
+        held after the call."""
+        if self._lockfd is not None:
+            return True
+        lockfd = os.open(self._wal_path + ".lock",
+                         os.O_CREAT | os.O_RDWR, 0o644)
+        try:
+            fcntl.flock(lockfd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except OSError:
+            os.close(lockfd)
+            return False
+        self._lockfd = lockfd
+        logging.getLogger(__name__).info(
+            "took the single-writer lock at %s.lock", self._wal_path)
+        return True
+
+    def _release_lock(self) -> None:
+        if self._lockfd is not None:
+            os.close(self._lockfd)
+            self._lockfd = None
+
+    def promote_writable(self, writer_epoch: int,
+                         epoch_guard=None) -> None:
+        """Take write ownership of this replica's store. The caller has
+        already bumped the persisted epoch (``bump_epoch``); this is the
+        storage half:
+
+        1. Try the single-writer flock, but do not let a wedged zombie
+           that still holds it block the takeover: in cluster mode the
+           epoch is the authority. The zombie is fenced by its guard at
+           its next mutation, and its appends land on an unlinked inode.
+        2. Run the writer's recovery over the store (torn tails
+           truncated, <wal>.old + WAL replayed).
+        3. Reopen the WAL under a fresh inode (``_promote_rotate_locked``)
+           and stamp the new epoch header.
+
+        Any failure leaves a coherent replica: the pre-promotion view,
+        read-only, the lock released."""
+        with self._lock:
+            if not self.read_only:
+                raise ValueError("promote_writable() is for read-only "
+                                 "replica stores")
+            if not self._wal_path:
+                raise ValueError("an in-memory store cannot be promoted")
+            if writer_epoch < 1:
+                raise ValueError(f"writer epoch must be >= 1, got "
+                                 f"{writer_epoch}")
+            if not self._try_take_lock():
+                logging.getLogger(__name__).warning(
+                    "promoting over a held writer lock at %s.lock — "
+                    "epoch fence (epoch %d) deposes the holder",
+                    self._wal_path, writer_epoch)
+            old_ssts, old_tables = self._ssts, self._tables
+            old_state = self._ro_state
+            self._ssts = []
+            self._tables = {}
+            self._ro_state = None
+            self.read_only = False
+            self.writer_epoch = int(writer_epoch)
+            try:
+                _fault("cluster.promote.take", self._wal_path)
+                self._open_tiers(self._wal_path)
+                self._promote_rotate_locked()
+            except BaseException:
+                for sst in self._ssts:
+                    sst.close()
+                if self._wal is not None:
+                    self._wal.close()
+                    self._wal = None
+                self._ssts, self._tables = old_ssts, old_tables
+                self._ro_state = old_state
+                self.read_only = True
+                self.writer_epoch = None
+                self._release_lock()
+                raise
+            self.epoch_guard = epoch_guard
+            for sst in old_ssts:
+                sst.close()
+            # The generation set was replaced whole: a rebuild, as far as
+            # the sketch reload and the fragment cache can tell.
+            self.rebuilds += 1
+            self._jump_stamp_floor()
+
+    def _promote_rotate_locked(self) -> None:
+        """The fresh-inode WAL rotation of a promotion (the checkpoint's
+        rotation, minus the spill): the WAL's records are COPIED into
+        <wal>.old (appended to a crash remnant), never renamed there: a
+        rename would keep the zombie's open inode linked at a name
+        recovery replays. tmp + ``os.replace`` then mints the new WAL,
+        whose first record is this writer's epoch header. Recovery
+        replays .old then the WAL (an upsert, so a crash between the copy
+        and the replace double-applies harmlessly)."""
+        _fault("cluster.promote.rotate", self._wal_path)
+        if self._wal is not None:
+            self._wal_flush()
+            self._wal.close()
+            self._wal = None
+        old_path = self._wal_path + ".old"
+        if os.path.exists(self._wal_path):
+            with open(old_path, "ab") as dst, \
+                    open(self._wal_path, "rb") as src:
+                # Streamed: the WAL at failover time can be the whole
+                # ingest history.
+                shutil.copyfileobj(src, dst, 1 << 20)
+                dst.flush()
+                os.fsync(dst.fileno())
+            tmp = self._wal_path + ".rotate"
+            self._wal = open(tmp, "wb")
+            os.replace(tmp, self._wal_path)
+        else:
+            self._wal = open(self._wal_path, "ab")
+        self._grp_rotated_locked()
+        self._stamp_epoch_header(force=True)
+        self._wal_flush()
+
+    def demote_readonly(self) -> None:
+        """Deposed writer -> tailing replica, in place: drop the WAL fd
+        and the flock, flip read-only, and rebuild the view through the
+        replica's recovery (which never truncates: the new writer owns
+        the files). The caller (TSDB.demote) holds the checkpoint lock,
+        so no spill is in flight."""
+        with self._lock:
+            if self.read_only:
+                return
+            if self._wal is not None:
+                try:
+                    self._wal.flush()
+                except OSError:
+                    pass  # likely an unlinked inode already
+                self._wal.close()
+                self._wal = None
+            self._release_lock()
+            # A frozen tier (fence tripped mid-checkpoint) is covered by
+            # <wal>.old (the rotation preceded the freeze).
+            self._frozen = None
+            self.read_only = True
+            self.writer_epoch = None
+            self.epoch_guard = None
+            self._rebuild_locked()
 
     # -- checkpoint / spill -----------------------------------------------
 
@@ -1353,8 +1778,20 @@ class MemKVStore(KVStore):
         <wal>.old survives until the new generation is durable; recovery
         replays <wal>.old then the WAL, idempotently, over any manifest
         state."""
-        if self._sst_path is None:
+        if self._sst_path is None or self.read_only:
             return 0
+        if self.epoch_guard is not None:
+            # Fence BEFORE the rotation: a deposed writer's checkpoint
+            # renames WAL files by path and rewrites the manifest, the
+            # most destructive thing a zombie can do to its successor's
+            # store. Forced: a checkpoint can afford a fresh read.
+            self.epoch_guard.check(force=True)
+        if self._lockfd is None and self.writer_epoch is not None:
+            # A promotion over a still-held zombie flock came out
+            # lockless (the epoch was the authority): take the lock once
+            # the zombie is gone, so a later non-cluster writer is refused
+            # by it as on any other store.
+            self._try_take_lock()
         old_path = self._wal_path + ".old"
         t_p1 = _perf()
         with self._lock:
@@ -1391,6 +1828,9 @@ class MemKVStore(KVStore):
                     os.replace(self._wal_path, old_path)
                     self._wal = open(self._wal_path, "ab")
                 self._grp_rotated_locked()
+                # A cluster-mode writer begins the fresh segment with its
+                # epoch header (the replay fence's anchor).
+                self._stamp_epoch_header(force=True)
             frozen = self._frozen
             spill_keys = None
             if self.record_spill_keys:
@@ -1466,6 +1906,13 @@ class MemKVStore(KVStore):
             new_sst = None
             unlink_new = True
             try:
+                if self.epoch_guard is not None:
+                    # Re-fence at the commit: a promotion that landed
+                    # while phase 2 spilled must stop this checkpoint
+                    # before it rewrites the manifest and unlinks
+                    # <wal>.old under the new owner (the handler below
+                    # backs the commit out).
+                    self.epoch_guard.check(force=True)
                 new_sst = SSTable(out_path)
                 # Durable, but no manifest names it yet: a crash leaves a
                 # stray the next open deletes (.old still replays
@@ -1694,6 +2141,7 @@ class MemKVStore(KVStore):
 
     def put(self, table: str, key: bytes, family: bytes, qualifier: bytes,
             value: bytes, durable: bool = True) -> None:
+        self._check_writable()
         with self._lock:
             self._check_throttle(table, key)
             self.mutation_seq += 1
@@ -1807,6 +2255,7 @@ class MemKVStore(KVStore):
         """Batched put of (key, qualifier, value) cells under one lock, with
         one WAL record: ``put_many_columnar``'s semantics for keys of any
         length."""
+        self._check_writable()
         if not cells:
             return []
         keys = [c[0] for c in cells]
@@ -1839,6 +2288,7 @@ class MemKVStore(KVStore):
         the covering group flush: the caller batches several puts and
         calls ``wal_barrier()`` once before acknowledging any of them
         (``server/wire.ingest_batch``)."""
+        self._check_writable()
         n = len(quals)
         L = key_len
         if len(vals) != n or len(key_blob) != n * L:
@@ -1951,6 +2401,7 @@ class MemKVStore(KVStore):
 
     def delete(self, table: str, key: bytes, family: bytes,
                qualifiers: list[bytes]) -> None:
+        self._check_writable()
         hook = self.delete_hook
         if hook is not None:
             hook(table, key)
@@ -1963,6 +2414,7 @@ class MemKVStore(KVStore):
         self._wal_barrier(ticket)
 
     def delete_row(self, table: str, key: bytes) -> None:
+        self._check_writable()
         hook = self.delete_hook
         if hook is not None:
             hook(table, key)
@@ -2130,6 +2582,7 @@ class MemKVStore(KVStore):
         """Increment an 8-byte big-endian counter cell, returning the new
         value (initialized from 0 like HBase's ICV); logged as the
         absolute value so replay is idempotent."""
+        self._check_writable()
         with self._lock:
             row = self._merged_row(table, key)
             cur = row.get((family, qualifier)) if row else None
@@ -2148,6 +2601,7 @@ class MemKVStore(KVStore):
                         value: bytes) -> bool:
         """Atomic CAS: write only if the cell currently equals ``expected``
         (None = cell must not exist). Returns success."""
+        self._check_writable()
         with self._lock:
             row = self._merged_row(table, key)
             cur = row.get((family, qualifier)) if row else None

@@ -44,8 +44,14 @@ The rollup tier's surface (``record_spill_keys``, ``peek_spill_keys`` /
 out over the shards; the tier keeps ``shard-<i>/rollup-<res>/`` beside
 each shard and ``ROLLUP.json`` at the root.
 
-Not ported yet (ROADMAP queue A item 10): the replica and cluster surface
-(``refresh``, ``promote_writable``, ``demote_readonly``, the epoch fence).
+Replicas and the cluster tier (ROADMAP item 10a): ``read_only=True``
+opens every shard as a replica (a replica cannot create a sharded store),
+``refresh`` catches each shard up, ``rebuilds`` and
+``fenced_bytes_refused`` sum over them. One epoch (``EPOCH.json`` at the
+root, beside ``SHARDS.json``) covers all shards, and one guard is shared
+by every shard's mutation path. ``promote_writable`` is all or nothing:
+a shard that fails demotes the promoted prefix back; ``demote_readonly``
+demotes every shard.
 
 ``sstable_codec`` sets every shard's spill codec; ``compress_stats`` and
 ``encoded_range`` fan in over the shards (the fused query plan's source
@@ -107,9 +113,14 @@ class ShardedKVStore(KVStore):
     def __init__(self, dir_path: str | None, shards: int | None = None,
                  data_table: str = "tsdb",
                  throttle_rows: int | None = None,
-                 fsync: bool = False) -> None:
+                 fsync: bool = False, read_only: bool = False,
+                 writer_epoch: int | None = None,
+                 epoch_guard=None) -> None:
         self._dir = dir_path
         self.data_table = data_table
+        self.read_only = read_only
+        self.writer_epoch = writer_epoch
+        self.epoch_guard = epoch_guard
         # Whole shards dropped from a fan-out by the series hint.
         self.bloom_shards_skipped = 0
         # Seconds each shard's last checkpoint took, by shard index.
@@ -146,6 +157,10 @@ class ShardedKVStore(KVStore):
                         f"build routes with v1 / {[_TS_LO, _TS_HI]}")
                 n = n_disk
             else:
+                if read_only:
+                    raise FileNotFoundError(
+                        f"no {MANIFEST_NAME} at {dir_path!r}: a replica "
+                        f"cannot create a sharded store")
                 if shards is None:
                     raise ValueError(
                         f"no {MANIFEST_NAME} at {dir_path!r} and no "
@@ -180,7 +195,9 @@ class ShardedKVStore(KVStore):
                 self.shards.append(MemKVStore(
                     wal_path=wal, throttle_rows=per_throttle, fsync=fsync,
                     max_generations=(MemKVStore._MAX_GENERATIONS
-                                     + i % min(n, 8))))
+                                     + i % min(n, 8)),
+                    read_only=read_only, writer_epoch=writer_epoch,
+                    epoch_guard=epoch_guard))
         except BaseException:
             for s in self.shards:
                 try:
@@ -581,7 +598,7 @@ class ShardedKVStore(KVStore):
         so ``tenant_marker`` writes its version-0 marker there, once, and
         every shard checkpoints with ``tenant_marker=False`` (a shard
         writes no tenant file of its own)."""
-        if self._dir is None:
+        if self._dir is None or self.read_only:
             return 0
         self._retire_root(tenant_marker)
         self.spill_seconds = [0.0] * self.shard_count
@@ -654,3 +671,48 @@ class ShardedKVStore(KVStore):
         for s in self.shards:
             s._simulate_crash()
 
+    # -- replicas and the cluster tier (item 10a) ----------------------------
+
+    def refresh(self) -> bool:
+        """Replica catch-up across every shard (each shard's suffix replay
+        or rebuild)."""
+        changed = False
+        for s in self.shards:
+            changed |= s.refresh()
+        return changed
+
+    @property
+    def rebuilds(self) -> int:
+        return sum(s.rebuilds for s in self.shards)
+
+    @property
+    def fenced_bytes_refused(self) -> int:
+        return sum(s.fenced_bytes_refused for s in self.shards)
+
+    def promote_writable(self, writer_epoch: int,
+                         epoch_guard=None) -> None:
+        """Replica promotion across every shard. A shard that fails to
+        promote demotes the already-promoted prefix back: the store comes
+        out all writer or all replica, never mixed."""
+        done: list[MemKVStore] = []
+        try:
+            for s in self.shards:
+                s.promote_writable(writer_epoch, epoch_guard=epoch_guard)
+                done.append(s)
+        except BaseException:
+            for s in done:
+                try:
+                    s.demote_readonly()
+                except Exception:
+                    pass
+            raise
+        self.read_only = False
+        self.writer_epoch = int(writer_epoch)
+        self.epoch_guard = epoch_guard
+
+    def demote_readonly(self) -> None:
+        for s in self.shards:
+            s.demote_readonly()
+        self.read_only = True
+        self.writer_epoch = None
+        self.epoch_guard = None

@@ -50,6 +50,21 @@ instead of the uniform cutoffs, and ``sketch-plan --budget N`` prints the
 allocation it would choose (the JAX CLI's bytes), with ``--url`` weighted
 by a live daemon's trace ring.
 
+Replicas and the cluster tier (ROADMAP item 10a): ``--read-only`` opens
+``--wal`` as a read-only replica of a (possibly live) writer daemon over
+the same files, refreshed every ``--checkpoint-interval`` seconds
+(default 5); ``--role replica`` is a read-only daemon with a WAL tailer
+(``serve/tailer.py``: every ``--tail-interval`` seconds, with the
+staleness contract ``--max-staleness-ms``, default 5000 for the role).
+``--cluster`` makes a writer adopt or create ``EPOCH.json`` beside its
+WAL: every writer boot bumps the epoch (``--cluster-owner`` labels the
+bump), stamps it into its WAL segments and fences its mutations once a
+promotion bumps past it. ``--role router`` is not ported yet (item 10b).
+A replica of the writer above::
+
+    python -m opentsdb_tpu_torch.tools.cli tsd --port 4243 \
+        --wal /var/tsdb/wal --role replica
+
 ``stats`` prints the ``/stats`` lines (``--metrics``: the Prometheus text
 of ``/metrics``) of a live daemon (``--url``) or of a store (``--wal``:
 the engine's stats and the metrics registry; the server's own counters
@@ -77,17 +92,24 @@ from opentsdb_tpu_torch.utils.config import Config
 from opentsdb_tpu_torch.utils.gctune import tune_for_ingest
 
 
-def open_store(cfg: Config, wal: str | None, shards: int = 0) -> KVStore:
+def _is_dir_store(wal: str | None, shards: int) -> bool:
+    return bool(shards > 1 or (wal and os.path.exists(manifest_path(wal))))
+
+
+def open_store(cfg: Config, wal: str | None, shards: int = 0,
+               read_only: bool = False, writer_epoch: int | None = None,
+               epoch_guard=None) -> KVStore:
     """The store at ``wal``, replayed and opened: sharded when ``shards``
     > 1 or ``wal`` holds a ``SHARDS.json`` (an explicit count, 1 included,
-    must then match it), else one WAL store."""
-    if shards > 1 or (wal and os.path.exists(manifest_path(wal))):
+    must then match it), else one WAL store. ``read_only`` opens it as a
+    replica; ``writer_epoch`` / ``epoch_guard`` as a cluster writer."""
+    kw = dict(throttle_rows=cfg.throttle_rows, fsync=cfg.fsync,
+              read_only=read_only, writer_epoch=writer_epoch,
+              epoch_guard=epoch_guard)
+    if _is_dir_store(wal, shards):
         return ShardedKVStore(wal, shards=shards if shards >= 1 else None,
-                              data_table=cfg.table,
-                              throttle_rows=cfg.throttle_rows,
-                              fsync=cfg.fsync)
-    return MemKVStore(wal_path=wal, throttle_rows=cfg.throttle_rows,
-                      fsync=cfg.fsync)
+                              data_table=cfg.table, **kw)
+    return MemKVStore(wal_path=wal, **kw)
 
 
 def apply_rollup_args(cfg: Config, args) -> Config:
@@ -118,14 +140,66 @@ def apply_rollup_args(cfg: Config, args) -> Config:
 
 def open_tsdb(cfg: Config, wal: str | None,
               start_compaction_thread: bool = True,
-              shards: int = 0) -> TSDB:
+              shards: int = 0, **store_kw) -> TSDB:
     """The store and TSDB the daemon serves: the WAL, sharded or memory
-    store (``open_store``), replayed and opened, under ``cfg``."""
-    return TSDB(open_store(cfg, wal, shards), cfg,
+    store (``open_store``, which takes ``store_kw``), replayed and opened,
+    under ``cfg``."""
+    return TSDB(open_store(cfg, wal, shards, **store_kw), cfg,
                 start_compaction_thread=start_compaction_thread)
 
 
+def make_tsdb(cfg: Config, wal: str | None, shards: int = 0,
+              read_only: bool = False,
+              start_compaction_thread: bool = True) -> TSDB:
+    """The daemon's TSDB under its role: a replica (``read_only``, whose
+    legacy timer, unless ``cfg.role`` is "replica", polls the writer every
+    ``checkpoint_interval`` seconds, 5 when unset), or a writer, which in
+    cluster mode (``cfg.cluster``) claims a new epoch at every boot (the
+    file's first epoch is 1): a restarted deposed writer adopting the
+    promoted replica's epoch would leave two unfenced writers at one
+    epoch, while a fresh bump leaves exactly one of them fenced."""
+    if (read_only and not cfg.checkpoint_interval
+            and cfg.role != "replica"):
+        cfg.checkpoint_interval = 5.0
+    epoch_path = writer_epoch = epoch_guard = None
+    if cfg.cluster and wal:
+        from opentsdb_tpu_torch.cluster import epoch as ep
+        if not cfg.cluster_owner:
+            cfg.cluster_owner = f"{os.uname().nodename}:{os.getpid()}"
+        epoch_path = ep.epoch_path_for_wal(
+            wal, is_dir=_is_dir_store(wal, shards))
+        if not read_only:
+            cur, _ = ep.read_epoch(epoch_path)
+            if cur == 0:
+                ep.write_epoch(epoch_path, 1, cfg.cluster_owner)
+                cur = 1
+            else:
+                cur = ep.bump_epoch(epoch_path, cfg.cluster_owner,
+                                    expect=cur)
+            writer_epoch = cur
+            epoch_guard = ep.EpochGuard(
+                epoch_path, cur, interval_s=cfg.epoch_check_interval_s)
+    tsdb = open_tsdb(cfg, wal,
+                     start_compaction_thread=start_compaction_thread,
+                     shards=shards, read_only=read_only,
+                     writer_epoch=writer_epoch, epoch_guard=epoch_guard)
+    tsdb.cluster_epoch_path = epoch_path
+    return tsdb
+
+
 def cmd_tsd(args) -> int:
+    role = args.role
+    if role == "router":
+        print("tsd --role router: not yet ported (ROADMAP item 10b)",
+              file=sys.stderr)
+        return 2
+    read_only = args.read_only
+    if role == "replica":
+        # A replica is a read-only daemon plus the WAL tailer and the
+        # staleness contract, on by default for the role.
+        read_only = True
+        if not args.max_staleness_ms:
+            args.max_staleness_ms = 5000.0
     cfg = Config(
         table=args.table, uidtable=args.uidtable, backend=args.backend,
         device=args.device, auto_create_metrics=args.auto_metric,
@@ -143,13 +217,22 @@ def cmd_tsd(args) -> int:
         sstable_codec=args.sstable_codec,
         slow_query_ms=args.slow_query_ms,
         selfmon_interval_s=args.selfmon_interval,
-        trace_ring=args.trace_ring, trace_sample_n=args.trace_sample_n)
+        trace_ring=args.trace_ring, trace_sample_n=args.trace_sample_n,
+        role=role, max_staleness_ms=args.max_staleness_ms,
+        tail_interval_s=args.tail_interval, cluster=args.cluster,
+        cluster_owner=args.cluster_owner)
     apply_rollup_args(cfg, args)
-    tsdb = open_tsdb(cfg, args.wal, shards=args.shards)
+    tsdb = make_tsdb(cfg, args.wal, shards=args.shards,
+                     read_only=read_only)
     # The replayed WAL and the opened generations are in place: freeze
     # them out of cycle collection (utils/gctune.py).
     tune_for_ingest()
     server = TSDServer(tsdb)
+    if role == "replica":
+        from opentsdb_tpu_torch.serve.tailer import WalTailer
+        tailer = WalTailer(tsdb)
+        server.attach_tailer(tailer)
+        tailer.start()
 
     async def main():
         await server.start()
@@ -428,6 +511,37 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--checkpoint-interval", type=float, default=0.0,
                    help="seconds between sstable spills + WAL truncation "
                         "(0 disables; requires --wal)")
+    p.add_argument("--read-only", action="store_true",
+                   help="open the WAL as a read-only replica of a "
+                        "(possibly live) writer daemon: serve reads "
+                        "over the same store files without the "
+                        "single-writer lock; all mutations refused. "
+                        "A replica daemon polls the writer's durable "
+                        "state every --checkpoint-interval seconds "
+                        "(default 5 when read-only)")
+    p.add_argument("--role", default="writer",
+                   choices=["writer", "replica", "router"],
+                   help="writer: the single ingesting daemon "
+                        "(default). replica: read-only daemon that "
+                        "TAILS the writer's WAL continuously with a "
+                        "bounded staleness contract (/healthz reports "
+                        "lag vs --max-staleness-ms). router: not yet "
+                        "ported")
+    p.add_argument("--max-staleness-ms", type=float, default=0.0,
+                   help="replica staleness contract: beyond this lag "
+                        "every answer is tagged degraded/stale and "
+                        "/healthz turns unhealthy (replica role "
+                        "defaults to 5000; 0 elsewhere disables)")
+    p.add_argument("--tail-interval", type=float, default=0.25,
+                   help="seconds between WAL tail cycles (replica)")
+    p.add_argument("--cluster", action="store_true",
+                   help="join the cluster write tier: adopt/create "
+                        "EPOCH.json next to the WAL, stamp writer "
+                        "epochs into WAL segments, fence mutations "
+                        "once deposed (writers)")
+    p.add_argument("--cluster-owner", default=None,
+                   help="this daemon's label in EPOCH.json bumps "
+                        "(default host:pid)")
     p.add_argument("--wal-group-ms", type=float, default=0.0,
                    help="WAL group-commit window in ms: concurrent "
                         "durable appends coalesce into one WAL "

@@ -3,8 +3,8 @@
 Mirrors ``opentsdb_tpu/utils/config.py`` of the JAX package, trimmed to
 the fields this port reads (the resident window's, the spill tier's and
 its durability and compression knobs, the live sketches', the fragment
-cache's and the fused block plan's among them, with the JAX package's
-defaults), plus
+cache's, the fused block plan's and the replica and cluster knobs among
+them, with the JAX package's defaults), plus
 ``device``: where the query kernels run.
 ``backend="cpu"`` keeps its JAX-package meaning — the float64 numpy
 oracle answers every query (``ops/oracle.py``) — and is independent of
@@ -205,6 +205,27 @@ class Config:
     selfmon_interval_s: float = 0.0
     trace_ring: int = 256
     trace_sample_n: int = 0
+
+    # Replicas (serve/tailer.py, ROADMAP item 10a):
+    # - role: "writer" (the single ingesting daemon) or "replica" (a
+    #   read-only daemon that tails the writer's WAL).
+    # - max_staleness_ms: the replica staleness contract; a replica whose
+    #   last successful catch-up is older answers every /q with a
+    #   "degraded": "stale" tag and reports unhealthy at /healthz. 0
+    #   turns the contract off.
+    # - tail_interval_s: the tailer's poll period.
+    role: str = "writer"
+    max_staleness_ms: float = 0.0
+    tail_interval_s: float = 0.25
+    # Cluster write tier (cluster/epoch.py):
+    # - cluster: a writer adopts (or creates) the EPOCH.json beside its
+    #   WAL, stamps its epoch into every WAL segment, and fences every
+    #   mutation once a promotion bumps the persisted epoch past its own.
+    # - cluster_owner: this daemon's label in EPOCH.json bumps.
+    # - epoch_check_interval_s: the zombie guard's stat cadence.
+    cluster: bool = False
+    cluster_owner: str | None = None
+    epoch_check_interval_s: float = 0.05
 
     # network
     port: int = 4242

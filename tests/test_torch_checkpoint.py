@@ -34,7 +34,8 @@ from opentsdb_tpu.query.executor import QuerySpec as JaxSpec
 from opentsdb_tpu.query.grammar import parse_m
 from opentsdb_tpu.server.tsd import TSDServer as JaxServer
 from opentsdb_tpu.utils.config import Config as JaxConfig
-from opentsdb_tpu_torch.core.errors import PleaseThrottleError
+from opentsdb_tpu_torch.core.errors import (FencedWriterError,
+                                             PleaseThrottleError)
 from opentsdb_tpu_torch.core.tsdb import TSDB
 from opentsdb_tpu_torch.query.executor import QueryExecutor, QuerySpec
 from opentsdb_tpu_torch.server.tsd import TSDServer
@@ -810,14 +811,21 @@ def test_refuses_sharded_store(tmp_path):
 
 
 def test_refuses_wal_epoch_header(tmp_path):
+    """A JAX cluster writer's WAL (epoch headers) opens in the port, and a
+    port cluster writer of a LOWER epoch refuses it: it was superseded
+    while down (ROADMAP item 10a, cluster/epoch.py)."""
     w = _wal(tmp_path)
-    s = jax_kv.MemKVStore(wal_path=w, writer_epoch=1)
+    s = jax_kv.MemKVStore(wal_path=w, writer_epoch=2)
     s.put(T, _key(0, 1), F, b"\x00\x01", b"v")
     s.close()
     # Refused again, not "locked": the failed open released its lock.
     for _ in range(2):
-        with pytest.raises(RuntimeError, match="item 10"):
-            port_kv.MemKVStore(wal_path=w)
+        with pytest.raises(FencedWriterError, match="superseded while down"):
+            port_kv.MemKVStore(wal_path=w, writer_epoch=1)
+    p = port_kv.MemKVStore(wal_path=w)
+    assert p._replay_epoch == 2
+    assert [c.value for c in p.get(T, _key(0, 1))] == [b"v"]
+    p.close()
 
 
 def test_refuses_store_missing_a_named_generation(tmp_path):

@@ -44,7 +44,9 @@ def test_matrix_shape():
         "sst.rename",
         "tenant.snapshot.write", "tenant.snapshot.commit",
         "sharded.spill.shard", "rollup.begin_spill", "rollup.fold.start",
-        "rollup.fold.flush", "rollup.fold.commit", "rollup.bracket.flip"}
+        "rollup.fold.flush", "rollup.fold.commit", "rollup.bracket.flip",
+        "replica.refresh", "replica.rebuild", "cluster.promote.take",
+        "cluster.promote.rotate"}
     # Every port row is the JAX matrix's row of the same label (its site,
     # mode, skip, shards, seed and rollup settings).
     jax = {s.label: s for s in jax_harness.build_matrix()}
@@ -52,15 +54,15 @@ def test_matrix_shape():
         j = jax[s.label]
         assert (s.site, s.mode, s.skip, s.shards, s.seed, s.n_ops,
                 s.wal_group_ms, s.tenant_cutoff, s.codec, s.rollups,
-                s.delete_heavy, s.catchup_compare) == \
+                s.delete_heavy, s.catchup_compare, s.kind) == \
             (j.site, j.mode, j.skip, j.shards, j.seed, j.n_ops,
              j.wal_group_ms, j.tenant_cutoff, j.codec, j.rollups,
-             j.delete_heavy, j.catchup_compare), s.label
-    # Every crash row of the JAX matrix (its replica, promote and
-    # meshreshard kinds wait for items 10 and 11).
+             j.delete_heavy, j.catchup_compare, j.kind), s.label
+    # Every row of the JAX matrix but its meshreshard kind (item 11).
     assert {s.label for s in scens} == {
-        s.label for s in jax.values() if s.kind == "crash"
-        and s.site != "mesh.reshard.commit"}
+        s.label for s in jax.values() if s.kind != "meshreshard"}
+    assert sorted(s.label for s in scens if s.kind != "crash") == sorted(
+        INPROCESS_LABELS)
     # Every TSST4 row of the JAX matrix that needs no rollup tier.
     assert sorted(s.label for s in scens if s.codec == "tsst4") == sorted(
         s.label for s in jax.values()
@@ -70,7 +72,7 @@ def test_matrix_shape():
         "sst-block-torn-s4", "sst-block-torn-late-s1",
         "sst-block-torn-late-s4", "sst-block-torn-norollup",
         "sst-block-torn-norollup-s4"}
-    assert len(harness.fast_matrix()) == len(harness.FAST_LABELS) == 13
+    assert len(harness.fast_matrix()) == len(harness.FAST_LABELS) == 15
     assert sum(s.site.startswith("rollup.") for s in scens) == 16
 
 
@@ -87,7 +89,47 @@ def test_fast_scenario(label, tmp_path):
     sc = _by_label()[label]
     res = harness.run_scenario(sc, str(tmp_path), shrink=False)
     assert res["status"] == "ok", (res["problems"], res)
-    assert res["child_exit"] == faultpoints.EXIT_CODE
+    # A crash row's child died at the armed site; an in-process row
+    # (replica, promote) has no child.
+    assert res["child_exit"] == (faultpoints.EXIT_CODE
+                                 if sc.kind == "crash" else None)
+
+
+INPROCESS_LABELS = (
+    "replica-refresh-ioerror", "replica-rebuild-raise",
+    "replica-rebuild-raise-s4", "promote-take-raise",
+    "promote-rotate-raise", "promote-rotate-raise-s4",
+    "promote-rotate-ioerror")
+
+
+def _dump_with(harness_mod, dirpath, shards):
+    s = harness_mod.open_store(dirpath, shards, read_only=True)
+    try:
+        return harness_mod._dump_store(s)
+    finally:
+        s.close()
+
+
+@pytest.mark.parametrize("label", INPROCESS_LABELS)
+def test_inprocess_row_crosses_to_jax(label, tmp_path):
+    """Each replica / promote row runs in the port and, with its seed, in
+    the JAX harness; both pass, and each package, reading the other's
+    final store as a replica, dumps what the other's own reader dumps."""
+    sc = _by_label()[label]
+    res = harness.run_scenario(sc, str(tmp_path / "port"), shrink=False)
+    assert res["status"] == "ok", res["problems"]
+    jsc = {s.label: s for s in jax_harness.build_matrix()}[label]
+    jres = jax_harness.run_scenario(jsc, str(tmp_path / "jax"),
+                                    shrink=False)
+    assert jres["status"] == "ok", jres["problems"]
+    pdir = str(tmp_path / "port" / label / "store")
+    jdir = str(tmp_path / "jax" / label / "store")
+    assert _dump_with(jax_harness, pdir, sc.shards) == \
+        _dump_with(harness, pdir, sc.shards)
+    assert _dump_with(harness, jdir, sc.shards) == \
+        _dump_with(jax_harness, jdir, sc.shards)
+    assert _dump_with(harness, pdir, sc.shards) == \
+        _dump_with(harness, jdir, sc.shards)
 
 
 @pytest.mark.slow

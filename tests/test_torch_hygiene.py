@@ -331,3 +331,26 @@ def test_smoothing_and_approx_slice_lives_in_the_port():
                  "(the slow-query / ambient-sample ring", jax)
     assert strip(port).replace("opentsdb_tpu_torch.", "opentsdb_tpu.") == \
         strip(jax)
+
+
+def test_replica_slice_lives_in_the_port():
+    """The replica and epoch-fence slice is the port's own: cluster/ and
+    serve/tailer.py name the JAX modules they mirror, and no module of
+    the port names the JAX package's cluster or serve modules."""
+    import importlib
+    import re
+    mirrors = {
+        "opentsdb_tpu_torch.cluster": "opentsdb_tpu/cluster/",
+        "opentsdb_tpu_torch.cluster.epoch": "opentsdb_tpu/cluster/epoch.py",
+        "opentsdb_tpu_torch.serve.tailer": "opentsdb_tpu/serve/tailer.py",
+    }
+    for mod, src in mirrors.items():
+        assert src in importlib.import_module(mod).__doc__, mod
+    banned = re.compile(r"opentsdb_tpu\.(cluster|serve)\b")
+    pkg = os.path.join(ROOT, "opentsdb_tpu_torch")
+    for d, dirs, files in os.walk(pkg):
+        dirs[:] = [x for x in dirs if x not in ("_build", "__pycache__")]
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(d, fn)
+                assert banned.search(open(path).read()) is None, path

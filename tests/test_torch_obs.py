@@ -49,19 +49,22 @@ HOUR = 3600
 # /stats lines and /metrics families of the JAX daemon that the ``both``
 # comparisons leave out, by prefix, each with the ROADMAP queue A item
 # that brings its tier: the instruments the JAX package registers at
-# import for the mesh (11) and the serving tier and cluster (10), which
-# the port leaves out, and those of its rollup tier module (6), which
-# other tests in the process may have imported. ``both_rollups`` compares
-# the rollup ones with both tiers on. Approximate serving's ``sketch.*``
-# instruments (9) are compared: both daemons register them in /q.
-LEFT_OUT = ("rollup", "mesh", "router", "replica", "cluster")
+# import for the mesh (11) and the router and cluster (10b), which the
+# port leaves out, and those of its rollup tier module (6), which other
+# tests in the process may have imported. ``both_rollups`` compares the
+# rollup ones with both tiers on. Approximate serving's ``sketch.*``
+# instruments (9) are compared: both daemons register them in /q; so are
+# the replica tailer's ``replica.*`` (10a), registered at import.
+LEFT_OUT = ("rollup", "mesh", "router", "cluster")
 # The port's rollup tier module, which registers the tier's instruments
 # when it is imported: only a daemon with the tier on imports it.
 PORT_TIER = "opentsdb_tpu_torch.rollup.tier"
-# Counters that exist only once their event happened in the process
+# Instruments that exist only once their event happened in the process
 # (METRICS is process-wide in each package): the fused plan's declines,
-# which other tests in the same worker may have counted in one package.
-HISTORY = ("compress.fused.decline", "compress_fused_decline")
+# which other tests in the same worker may have counted in one package,
+# and the replica lag gauge, registered by the first WalTailer built.
+HISTORY = ("compress.fused.decline", "compress_fused_decline",
+           "replica.lag_ms", "replica_lag_ms")
 
 
 def _left_out(name: str) -> bool:
