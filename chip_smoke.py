@@ -370,6 +370,47 @@
    of both queries must have had the same inputs bit for bit, and the
    group sum runs 20 times on the writer's input to count its different
    outputs). One ``replica`` stdout line.
+5g. Router phase (ROADMAP item 10b), in the restart phase just before
+   the replica phase, over the same writer and store: two replicas opened
+   as 5f opens one, each with its tailer and daemon, and in front of them
+   a router started as ``tsdb tsd --role router`` does, as its own process
+   (``python -X importtime -m opentsdb_tpu_torch.tools.cli``: its boot s,
+   spawn to the ready line, and every module it imported, where torch,
+   jax, the storage engine, the core, the daemon or the ops fail the
+   smoke), over both replicas, forwarding puts to the writer's daemon.
+   First, uncounted, the replica phase's three ``/q`` from their owner
+   replicas, then HOP_REPS (5) runs of the day's p95 direct and through
+   the router in turns (the hop's overhead). Then, with the launch counts
+   set to 0 and a ``KernelTap`` open, routed requests only: the three
+   ``/q`` through the router, each held against its owner replica's own
+   answer (max and percentiles exactly, the sum by the resident
+   tolerance; ``identical`` says whether the bytes are), the day's p95
+   with the owner's listener stopped (the router must count a retry and
+   answer from the other replica), then through a second router process
+   whose hops hedge after 1 ms (it must count a hedge); the counts are
+   read right after. Each routed request must have launched a kernel on
+   a replica's threads, and segment_sum, segment_minmax and
+   masked_select must each have launched for one.
+   Twenty telnet puts through the router into the telnet series (two
+   days past the week) must come back through the router and stand in
+   the writer. Both routers stop on SIGTERM with exit 0. Every recorded
+   replica call is then replayed against its plain version and the
+   largest of each kernel timed (stages ``router <what ran>: <shape>``).
+   The rollup child ends with the degraded and failover leg over its
+   store: the store reopened as a ``--cluster`` writer, one ``--cluster``
+   replica with its tailer and the tier read-only, a router process with
+   ``--writer-grace-ms`` 1000. ``max:1h-p95`` over the week's first day
+   through the router with ``degrade=rollup-only`` must answer 200 tagged ``rollup-only`` (header
+   and each result) with ``X-Tsd-Approx``, every bucket within its
+   declared ``error`` of the writer's exact answer; ``sum:`` without a
+   downsample must answer 503 with Retry-After. Then the writer's listener
+   stops (its TSDB stays up: a zombie holding its locks): the router must
+   promote the replica (its ``/api/topology`` event) and a put through the
+   router must be acked by the promoted daemon and read back through the
+   router (seconds from the stop to each). The old writer must refuse a
+   put (fenced), and, its listener back on its port, be demoted by the
+   router and tail the promoted writer's point. One ``router`` stdout
+   line.
 6. Refusal phase: a small second daemon on the card with
    ``tenant_max_series=1`` must refuse a new series over telnet (the bulk
    path's and the per-line path's declared lines) and over ``/api/put``
@@ -385,8 +426,8 @@
 8. Prints the card line first; at the end the per-query, sketch,
    ingest, profiler, tenants, restart, native (build seconds and calls
    per C site, per stage, and the WAL replay), sharded, obs, budget and
-   launch-floor lines, the compressed, forecast, rollup and replica
-   lines, the kernels line (twelve kernels) and, last, the ok line.
+   launch-floor lines, the compressed, forecast, rollup, replica and
+   router lines, the kernels line (twelve kernels) and, last, the ok line.
    In the kernels line each kernel's top-level numbers are its first
    path's: the segment kernels' and the select's the resident path's
    (at the chunk-fold shape and the columns select at one quantile),
@@ -403,7 +444,8 @@
    each path's launches stand beside the times at its own shape (the scan
    path's: the series stage; the select's un-downsampled path: the p95
    contributions; the replica path's: its own largest call of each
-   kernel). Counts include the group stages' launches, whose times are
+   kernel; the router path's, ``router``: the largest call the replicas
+   made for a routed request). Counts include the group stages' launches, whose times are
    in the details line.
 
 Overlap: after the kernel phase the sharded phase (with its writer-pause
@@ -456,6 +498,7 @@ import torch
 from opentsdb_tpu_torch.cluster import epoch as cepoch
 from opentsdb_tpu_torch.compress import fused as cfused
 from opentsdb_tpu_torch.compress.devcache import pad_fine
+from opentsdb_tpu_torch.core.errors import FencedWriterError
 from opentsdb_tpu_torch.core.tsdb import TSDB
 from opentsdb_tpu_torch.obs.registry import METRICS
 from opentsdb_tpu_torch.fault import faultpoints
@@ -1161,7 +1204,10 @@ class Daemon:
             self._started.set()
             return
         self._started.set()
-        self.loop.run_until_complete(self.server.serve_forever())
+        try:
+            self.loop.run_until_complete(self.server.serve_forever())
+        except BaseException as e:  # reported by stop
+            self._error = e
 
     @property
     def port(self) -> int:
@@ -1169,13 +1215,16 @@ class Daemon:
 
     def stop(self) -> None:
         """Stop the server, which shuts the TSDB down (a checkpoint, the
-        store closed); a second call does nothing."""
-        if not self.thread.is_alive():
-            return
-        self.loop.call_soon_threadsafe(self.server.request_shutdown)
-        self.thread.join(600)
+        store closed); a second call does nothing. A stop that raised (the
+        shutdown's checkpoint among others) fails the smoke."""
         if self.thread.is_alive():
-            fail("daemon did not stop")
+            self.loop.call_soon_threadsafe(self.server.request_shutdown)
+            self.thread.join(600)
+            if self.thread.is_alive():
+                fail("daemon did not stop")
+        if self._error is not None:
+            err, self._error = self._error, None
+            fail(f"the daemon's stop raised {err!r}")
 
 
 def telnet(port: int, lines: list[str], pause: bool = False) -> str:
@@ -2601,6 +2650,8 @@ def restart_phase(tsdb: TSDB, daemon: "Daemon", wal: str,
             "wal.append", "wal.fsync", "ingest.parse", "checkpoint.phase")}
         log(f"timers from /stats after the restart: {out['timers']}")
         out["fsck"] = fsck_clean(tsdb2, "the one-shard store")
+        # Two replicas of this store behind a router process.
+        out["router"] = router_phase(tsdb2, daemon2, wal)
         # Last: a replica of this store, which ends with the writer
         # stopped and the replica promoted in its place.
         out["replica"] = replica_phase(tsdb2, daemon2, wal, ingest_rate)
@@ -3348,6 +3399,459 @@ def replica_phase(tsdb: TSDB, daemon: "Daemon", wal: str,
     if missing:
         fail(f"no replica call of {sorted(missing)} to replay")
     log(f"replica kernel checks: {out['kernel_checks']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Router phase: the storage-free front door over the card's replicas
+# ---------------------------------------------------------------------------
+
+# The router's hop options (no hedging but in the hedge check, quick
+# probes) and the promotion grace of the failover leg. A backend is
+# ejected only after 50 failed probes (10 s), so the owner whose listener
+# the retry check stops is still in rotation when the routed query comes
+# and the router must retry around it.
+ROUTER_ARGS = ("--probe-interval", "0.2", "--router-eject-after", "50",
+               "--router-retries", "2", "--router-deadline-ms", "120000")
+WRITER_GRACE_MS = 1000.0
+# Runs of the cheapest query direct and through the router (hop overhead).
+HOP_REPS = 5
+# The router leg's puts: an hour of the telnet series well past the week
+# and past every hour the replica phase writes.
+ROUTER_HOUR = 48
+
+
+def start_router(*args: str) -> tuple:
+    """``tsdb tsd --role router`` as its own process, under ``python -X
+    importtime`` (every module it imports, on its standard error, which
+    ``router_imports`` checks once the router is up): the process, its
+    port, its boot seconds (spawn to the ready line) and its imports."""
+    fd, err_path = tempfile.mkstemp(suffix=".router.err")
+    try:
+        t0 = time.perf_counter()
+        with os.fdopen(fd, "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-X", "importtime", "-m",
+                 "opentsdb_tpu_torch.tools.cli", "tsd", "--role", "router",
+                 "--port", "0", "--bind", "127.0.0.1", *args],
+                stdout=subprocess.PIPE, stderr=err, text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+        line = proc.stdout.readline()
+        boot_s = time.perf_counter() - t0
+        if not line.startswith("Ready to serve on "):
+            stop_router(proc)
+            with open(err_path) as f:
+                fail(f"the router did not come up: {line!r} "
+                     f"{f.read()[-2000:]}")
+        try:
+            imports = router_imports(err_path)
+        except BaseException:
+            stop_router(proc)
+            raise
+    finally:
+        os.unlink(err_path)
+    return proc, int(line.strip().rsplit(":", 1)[1]), boot_s, imports
+
+
+def stop_router(proc) -> int:
+    """SIGTERM, as an operator stops it; its exit code."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    proc.stdout.close()
+    return proc.returncode
+
+
+def router_imports(err_path: str) -> dict:
+    """What the router process imported (its ``-X importtime`` lines): the
+    count, and any module of torch, jax, the storage engine, the core or
+    the daemon, which fails the smoke."""
+    names = []
+    with open(err_path) as f:
+        for ln in f:
+            if ln.startswith("import time:") and "|" in ln:
+                name = ln.rsplit("|", 1)[1].strip()
+                if name != "package":
+                    names.append(name)
+    banned = sorted(n for n in names if n.split(".")[0] in (
+        "torch", "jax", "jaxlib", "opentsdb_tpu") or n.startswith((
+            "opentsdb_tpu_torch.core", "opentsdb_tpu_torch.storage",
+            "opentsdb_tpu_torch.server", "opentsdb_tpu_torch.ops")))
+    if banned or "opentsdb_tpu_torch.serve.router" not in names:
+        fail(f"the router process imported {banned[:20]} (router module "
+             f"seen: {'opentsdb_tpu_torch.serve.router' in names})")
+    return {"modules": len(names), "torch": False, "jax": False}
+
+
+def on_loop(daemon: "Daemon", coro_fn) -> object:
+    """Run ``coro_fn()`` on the daemon's event loop; its result."""
+    return asyncio.run_coroutine_threadsafe(coro_fn(), daemon.loop).result(60)
+
+
+def stop_listener(daemon: "Daemon") -> int:
+    """Close the daemon's listening socket (the process, its TSDB and its
+    event loop stay up: a writer or a replica that stops answering); its
+    port."""
+    port = daemon.port
+
+    async def close():
+        daemon.server._server.close()
+        await daemon.server._server.wait_closed()
+    on_loop(daemon, close)
+    return port
+
+
+def restart_listener(daemon: "Daemon", port: int) -> None:
+    async def listen():
+        daemon.server._server = await asyncio.start_server(
+            daemon.server._handle_conn, "127.0.0.1", port)
+    on_loop(daemon, listen)
+
+
+def router_counters(port: int) -> dict:
+    return http_json(port, "/api/topology")["counters"]
+
+
+def idle_pools(*daemons) -> None:
+    """Wait until the daemons answer no /q (a hedge's loser included)."""
+    t0 = time.perf_counter()
+    while any(d.server.admission.inflight_queries for d in daemons):
+        if time.perf_counter() - t0 > 120:
+            fail("a replica still runs a routed query after 120 s")
+        time.sleep(0.01)
+
+
+def router_phase(tsdb: TSDB, daemon: "Daemon", wal: str) -> dict:
+    """The fan-out leg (ROADMAP item 10b, 5g of the module docstring): two
+    replicas of the restarted store on the card, each with its tailer and
+    daemon, and in front of them a router process over both, forwarding
+    puts to the writer's daemon. Stops both replicas and the router."""
+    out: dict = {}
+    start = BASE
+    t_phase = time.perf_counter()
+    reps = []
+    routers = []
+    calls: list = []
+    try:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            rtsdb = open_replica_tsdb(wal)
+            reps.append((rtsdb, *replica_daemon(rtsdb)))
+            out.setdefault("replica_boot_s", []).append(
+                time.perf_counter() - t0)
+        (_, ra, _), (_, rb, _) = reps[0], reps[1]
+        backends = ",".join(f"http://127.0.0.1:{d.port}" for d in (ra, rb))
+        writer_url = f"http://127.0.0.1:{daemon.port}"
+        proc, rport, boot_s, out["router_imports"] = start_router(
+            "--backends", backends, "--writer-url", writer_url,
+            "--router-hedge-ms", "-1", *ROUTER_ARGS)
+        routers.append(proc)
+        out["router_boot_s"] = boot_s
+        # A second router whose hops hedge after 1 ms.
+        proc2, hport, _, _ = start_router(
+            "--backends", backends, "--router-hedge-ms", "1", *ROUTER_ARGS)
+        routers.append(proc2)
+        owner = {expr: [ra, rb][port_router_owner(expr, 2)]
+                 for expr, _ in REPLICA_QUERIES}
+        # 1. Outside the counted window: each query's owner replica's own
+        # answer, then the hop's overhead on the cheapest query, warm,
+        # direct and through the router in turns.
+        direct = {}
+        for expr, span in REPLICA_QUERIES:
+            direct[expr] = q_body(owner[expr].port, expr, start,
+                                  start + span - 1)
+        expr, span = REPLICA_QUERIES[2]
+        end = start + span - 1
+        direct_ms, router_ms = [], []
+        for _ in range(HOP_REPS):
+            direct_ms.append(q_body(owner[expr].port, expr, start, end)[0])
+            router_ms.append(q_body(rport, expr, start, end)[0])
+        out["hop"] = {"query": expr, "direct_ms": direct_ms,
+                      "router_ms": router_ms,
+                      "overhead_ms": statistics.median(router_ms)
+                      - statistics.median(direct_ms)}
+        # 2. The counted window holds routed requests only: the counts are
+        # set to 0 just before the first and read just after the last, and
+        # the tap records what the replicas' threads launched for each.
+        routed_labels = []
+        zero_launches()
+        with KernelTap() as tap:
+            out["queries"] = {}
+            for q_expr, q_span in REPLICA_QUERIES:
+                tap.label = f"{q_expr} via the router"
+                routed_labels.append(tap.label)
+                wall_r, routed = q_body(rport, q_expr, start,
+                                        start + q_span - 1)
+                wall_d, body_d = direct[q_expr]
+                out["queries"][q_expr] = {
+                    "owner": "a" if owner[q_expr] is ra else "b",
+                    "direct_ms": wall_d, "router_ms": wall_r,
+                    "identical": routed == body_d,
+                    "rel_diff_vs_owner": same_answer(
+                        q_expr, json.loads(routed), json.loads(body_d),
+                        q_expr.startswith(("max", "p")))}
+            # A retry: the owner's listener stops, the hop retries on the
+            # other replica and still answers.
+            c0 = router_counters(rport)
+            down = owner[expr]
+            port = stop_listener(down)
+            tap.label = f"{expr}, its owner's listener stopped"
+            routed_labels.append(tap.label)
+            try:
+                wall, routed = q_body(rport, expr, start, end)
+            finally:
+                restart_listener(down, port)
+            c1 = router_counters(rport)
+            if c1["retries"] <= c0["retries"]:
+                fail(f"no retry counted around the stopped replica: {c1}")
+            out["retry"] = {"ms": wall, "retries": c1["retries"]
+                            - c0["retries"], "rel_diff_vs_owner":
+                            same_answer(expr, json.loads(routed),
+                                        json.loads(direct[expr][1]), True)}
+            # A hedge, through the second router.
+            tap.label = f"{expr} hedged"
+            routed_labels.append(tap.label)
+            wall, hedged = q_body(hport, expr, start, end)
+            h = router_counters(hport)
+            idle_pools(ra, rb)
+            counts = path_launches("router path", REPLICA_QUERY_KERNELS)
+        if h["hedges"] < 1:
+            fail(f"the hedged router recorded no hedge: {h}")
+        out["hedge"] = {"ms": wall, "hedges": h["hedges"],
+                        "hedge_wins": h["hedge_wins"],
+                        "rel_diff_vs_owner": same_answer(
+                            expr, json.loads(hedged),
+                            json.loads(direct[expr][1]), True)}
+        calls = tap.of(pool_threads(ra) | pool_threads(rb))
+        tap.calls = calls
+        tap.to_host()
+        # Every routed request launched kernels on a replica's threads,
+        # and every kernel of the path launched for one. (A call's own
+        # count is its wrapper's count across the call, which the other
+        # replica's concurrent calls also raise during the hedge: the
+        # path's count is the one read above.)
+        for label in routed_labels:
+            if not any(c.label == label and c.launched for c in calls):
+                fail(f"no replica thread launched a kernel for {label!r}")
+        for name in REPLICA_QUERY_KERNELS:
+            if not any(c.name == name and c.launched for c in calls):
+                fail(f"no replica thread launched {name} for a routed "
+                     f"request ({counts[name]} launches in all)")
+        out["launches"] = counts
+        # 3. A put through the router's telnet reaches the writer, and the
+        # router answers it back.
+        lines = replica_put_lines(ROUTER_HOUR, 1)
+        put_ok(rport, lines, "puts through the router")
+        t0 = time.perf_counter()
+        while hour_points(rport, ROUTER_HOUR) < len(lines):
+            if time.perf_counter() - t0 > 30:
+                fail("the router's put never came back through the router")
+            time.sleep(0.01)
+        out["put"] = {"points": len(lines),
+                      "read_back_ms": (time.perf_counter() - t0) * 1e3,
+                      "writer_points": hour_points(daemon.port,
+                                                   ROUTER_HOUR)}
+        if out["put"]["writer_points"] != len(lines):
+            fail(f"the writer holds {out['put']['writer_points']} of the "
+                 f"router's {len(lines)} puts")
+        out["router_healthz"] = http_json(rport, "/healthz")
+        out["router_exit"] = [stop_router(p) for p in routers]
+        if any(out["router_exit"]):
+            fail(f"a router exited {out['router_exit']} on SIGTERM")
+    finally:
+        for p in routers:
+            stop_router(p)
+        for rtsdb, rdaemon, tailer in reps:
+            tailer.stop()
+            rdaemon.stop()
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["kernel_cases"], out["kernel_checks"] = replica_kernel_cases(
+        calls, "router")
+    log(f"router phase: {({k: v for k, v in out.items() if k not in ('kernel_cases', 'kernel_checks')})}")
+    return out
+
+
+def port_router_owner(expr: str, n: int) -> int:
+    """The backend index the router sends ``expr`` to (its ownership hash,
+    ``serve/router.series_hash``)."""
+    from opentsdb_tpu_torch.serve.router import series_hash
+    return series_hash(expr.encode()) % n
+
+
+def failover_leg(wal: str, start: int, end: int) -> dict:
+    """The degraded and failover leg (5g of the module docstring), over the
+    rollup child's store: a ``--cluster`` writer, one replica and a router
+    process driving promotion."""
+    out: dict = {}
+    t_leg = time.perf_counter()
+    cfg = Config(auto_create_metrics=True, port=0, bind="127.0.0.1",
+                 device=DEVICE, device_window=False, enable_rollups=True,
+                 cluster=True, cluster_owner="smoke-writer")
+    wtsdb = port_cli.make_tsdb(cfg, wal)
+    tune_for_ingest()
+    wd = Daemon(wtsdb)
+    rtsdb = open_replica_tsdb(wal, enable_rollups=True, cluster=True,
+                              cluster_owner="smoke-replica")
+    rd, tailer = replica_daemon(rtsdb)
+    proc = None
+    try:
+        out["writer_epoch"] = wtsdb.store.writer_epoch
+        if not rtsdb.rollups or not rtsdb.rollups.ready:
+            fail("the cluster replica has no ready rollup tier")
+        proc, rport, out["router_boot_s"], out["router_imports"] = \
+            start_router(
+                "--backends", f"http://127.0.0.1:{rd.port}", "--writer-url",
+                f"http://127.0.0.1:{wd.port}", "--writer-grace-ms",
+                str(WRITER_GRACE_MS), "--router-hedge-ms", "-1",
+                *ROUTER_ARGS)
+        # 1. The degraded step through the router: a percentile from the
+        # replica's sketch columns within its bound of the writer's exact
+        # answer; a raw-only query 503.
+        expr = "max:1h-p95:bench.metric"
+        q = urllib.parse.urlencode({"start": start, "end": end, "m": expr,
+                                    "json": ""})
+        q0 = time.perf_counter()
+        status, exact = http_get(wd.port, "/q?" + q)
+        exact_ms = (time.perf_counter() - q0) * 1e3
+        if status != 200:
+            fail(f"the writer's exact {expr}: {status} {exact[:300]!r}")
+        exact_dps = {}
+        for ent in json.loads(exact):
+            exact_dps.update(ent["dps"])
+        conn = http.client.HTTPConnection("127.0.0.1", rport, timeout=600)
+        q0 = time.perf_counter()
+        conn.request("GET", "/q?" + q + "&degrade=rollup-only")
+        resp = conn.getresponse()
+        body = resp.read()
+        deg_ms = (time.perf_counter() - q0) * 1e3
+        hdrs = {k.lower(): v for k, v in resp.getheaders()}
+        conn.close()
+        if resp.status != 200 or "rollup-only" not in hdrs.get(
+                "x-tsd-degraded", "") or not hdrs.get("x-tsd-approx"):
+            fail(f"degraded {expr}: {resp.status} {hdrs} {body[:300]!r}")
+        buckets, worst = 0, 0.0
+        for ent in json.loads(body):
+            ap = ent.get("approx") or {}
+            if "rollup-only" not in ent.get("degraded", "") or ap.get(
+                    "kind") not in ("tdigest", "moment") or not isinstance(
+                    ap.get("error"), float):
+                fail(f"degraded {expr}: a result without its tag or bound: "
+                     f"{ent.get('degraded')} {ap}")
+            for ts_s, v in ent["dps"].items():
+                buckets += 1
+                if ts_s not in exact_dps:
+                    fail(f"degraded {expr}: bucket {ts_s} not in the exact "
+                         f"answer")
+                diff = abs(exact_dps[ts_s] - v)
+                if diff > ap["error"] + 1e-9:
+                    fail(f"degraded {expr}: bound violated at {ts_s}: "
+                         f"{v} vs {exact_dps[ts_s]}, error {ap['error']}")
+                worst = max(worst, diff)
+        if not buckets:
+            fail(f"degraded {expr}: no bucket")
+        raw = urllib.parse.urlencode({"start": start, "end": end,
+                                      "m": "sum:bench.metric", "json": "",
+                                      "degrade": "rollup-only"})
+        conn = http.client.HTTPConnection("127.0.0.1", rport, timeout=600)
+        conn.request("GET", "/q?" + raw)
+        resp = conn.getresponse()
+        shed = (resp.status, resp.getheader("Retry-After"), resp.read())
+        conn.close()
+        if shed[0] != 503 or not shed[1]:
+            fail(f"the raw-only degraded query: {shed}")
+        out["degraded"] = {"query": expr, "exact_ms": exact_ms,
+                           "degraded_ms": deg_ms, "buckets": buckets,
+                           "x_tsd_approx": hdrs["x-tsd-approx"],
+                           "x_tsd_degraded": hdrs["x-tsd-degraded"],
+                           "max_abs_diff": worst,
+                           "bounds": sorted({e["approx"]["error"] for e in
+                                             json.loads(body)}),
+                           "raw_only": {"status": shed[0],
+                                        "retry_after": shed[1]}}
+        # 2. Failover: the writer's listener stops; the router promotes
+        # the replica after the grace, flips its forwarding, and a put
+        # through it is answered by the promoted daemon.
+        t_stop = time.perf_counter()
+        wport = stop_listener(wd)
+        promoted = None
+        while promoted is None:
+            if time.perf_counter() - t_stop > 60:
+                fail("the router did not promote the replica in 60 s")
+            time.sleep(0.02)
+            promo = http_json(rport, "/api/topology")["promotion"]
+            promoted = next((e for e in promo["events"]
+                             if e["event"] == "promoted"), None)
+        t_promoted = time.perf_counter()
+        if rtsdb.store.read_only or promoted["url"] != \
+                f"http://127.0.0.1:{rd.port}":
+            fail(f"promotion: {promoted}, replica read-only "
+                 f"{rtsdb.store.read_only}")
+        t_put = BASE + SPAN + 3600
+        line = f"put bench.metric {t_put} 42.5 host=h00000 dc=dc0"
+        target = "/q?" + urllib.parse.urlencode(
+            {"start": t_put - 60, "end": t_put + 60,
+             "m": "sum:bench.metric{host=h00000}", "json": ""})
+        while True:
+            said = telnet(rport, [line])
+            if "put:" not in said:
+                status, body = http_get(rport, target)
+                if status == 200 and any(str(t_put) in e["dps"]
+                                         for e in json.loads(body)):
+                    break
+            if time.perf_counter() - t_stop > 90:
+                fail(f"no put acked through the router after the "
+                     f"promotion: {said!r}")
+            time.sleep(0.05)
+        t_acked = time.perf_counter()
+        out["failover"] = {
+            "grace_ms": WRITER_GRACE_MS,
+            "stop_to_promoted_s": t_promoted - t_stop,
+            "stop_to_first_acked_put_s": t_acked - t_stop,
+            "promoted_epoch": promoted["epoch"],
+            "promote_split_s": dict(rtsdb.promote_seconds)}
+        # 3. The old writer returns on its port: fenced, then demoted by
+        # the router, then tailing the promoted writer's WAL.
+        try:
+            wtsdb.add_point("bench.metric", t_put + 60, 1.0,
+                            {"host": "h00000", "dc": "dc0"})
+            fail("the deposed writer took a put")
+        except FencedWriterError:
+            pass
+        t0 = time.perf_counter()
+        restart_listener(wd, wport)
+        while not (wtsdb.store.read_only and wd.server.tailer is not None):
+            if time.perf_counter() - t0 > 60:
+                fail("the router never demoted the returning writer")
+            time.sleep(0.02)
+        out["demote_s"] = time.perf_counter() - t0
+        while True:
+            status, body = http_get(wd.port, target)
+            if status == 200 and any(str(t_put) in e["dps"]
+                                     for e in json.loads(body)):
+                break
+            if time.perf_counter() - t0 > 60:
+                fail("the demoted writer never tailed the promoted one")
+            time.sleep(0.05)
+        out["demoted_tails_s"] = time.perf_counter() - t0
+        out["events"] = [e["event"] for e in http_json(
+            rport, "/api/topology")["promotion"]["events"]]
+        if out["events"][-2:] != ["promoted", "demoted"]:
+            fail(f"the router's failover events: {out['events']}")
+        out["router_exit"] = stop_router(proc)
+        if out["router_exit"]:
+            fail(f"the router exited {out['router_exit']} on SIGTERM")
+    finally:
+        if proc is not None:
+            stop_router(proc)
+        tailer.stop()
+        wd.stop()
+        rd.stop()
+    out["leg_s"] = time.perf_counter() - t_leg
+    log(f"failover leg: {out}")
     return out
 
 
@@ -6003,6 +6507,12 @@ def rollup_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
                 ROLLUP_QUERIES)
             log(f"rollup restart: boot {out['boot_s']:.2f} s; crash "
                 f"reopen (catch-up) {out['crash_reopen_s']:.2f} s")
+            # The store again as a --cluster writer, a replica and a
+            # router process: the degraded step and failover, over the
+            # week's first day (the writer's exact answer is a host scan
+            # that shares the host with the path phase).
+            daemon.stop()
+            out["router"] = failover_leg(wal, start, start + DAY - 1)
         finally:
             daemon.stop()
     step("crash + reopen")
@@ -6171,8 +6681,10 @@ def main() -> int:
     # first path listed gives a kernel's top-level numbers. The replica
     # path's times are those of its own largest call of each kernel.
     replica = path["restart"]["replica"]
-    kernels += replica["kernel_cases"]
+    router = path["restart"]["router"]
+    kernels += replica["kernel_cases"] + router["kernel_cases"]
     at_replica = {r["name"]: r["stage"] for r in replica["kernel_cases"]}
+    at_router = {r["name"]: r["stage"] for r in router["kernel_cases"]}
     fold = {"resident": "window chunk fold", "scan": "series stage"}
     shapes = {
         "segment_sum": fold, "segment_minmax": fold,
@@ -6209,13 +6721,15 @@ def main() -> int:
         "rollup_fold": ROLLUP_FOLD_WHERE, **SMOOTHING_WHERE}
     for name, stage in at_replica.items():
         shapes[name] = dict(shapes[name], replica=stage)
+    for name, stage in at_router.items():
+        shapes[name] = dict(shapes[name], router=stage)
     numbers = ("max_abs_err", "ms", "ms_cold", "ms_device", "plain_ms",
                "bound_ms", "bound_by", "library_ms")
     by_case = {(r["name"], r["stage"]): r for r in kernels}
     path_launches_of = dict(
         path["launches"], fused=compressed["launches"],
         forecast=path["forecast"]["launches"],
-        replica=replica["launches"],
+        replica=replica["launches"], router=router["launches"],
         **{"device fold": {
             "rollup_fold": rollup["device_fold"]["launches"]}})
     line = []
@@ -6235,7 +6749,7 @@ def main() -> int:
             entry["full_width"] = {k: r[k] for k in numbers}
         others = [r for r in kernels if r["name"] == name
                   and r["stage"] not in shape.values()
-                  and not r["stage"].startswith("replica ")
+                  and not r["stage"].startswith(("replica ", "router "))
                   and name in SKETCH_KERNELS + ("block_decode",
                                                 "rollup_fold")
                   + tuple(SMOOTHING_WHERE)]
@@ -6435,6 +6949,18 @@ def main() -> int:
             for name in REPLICA_KERNELS},
         "sharded": sharded["replica"], "rollup": rollup["replica"]},
         "card": smi}))
+    print(json.dumps({"router": {
+        **{k: router[k] for k in (
+            "replica_boot_s", "router_boot_s", "router_imports", "queries",
+            "hop", "retry", "hedge", "put", "launches", "router_exit",
+            "phase_s")},
+        "kernel_checks": {name: {
+            "calls": sum(c["name"] == name for c in router["kernel_checks"]),
+            "max_abs_err": max(c["max_abs_err"] for c in
+                               router["kernel_checks"] if c["name"] == name)}
+            for name in sorted({c["name"] for c in
+                                router["kernel_checks"]})},
+        "failover": rollup["router"]}, "card": smi}))
     print(json.dumps({"window_at_budget": {
         k: budget[k] for k in ("points", "chunks", "resident_bytes",
                                "fill_points_per_s", "queries",

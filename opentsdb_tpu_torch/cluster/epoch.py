@@ -29,8 +29,10 @@ Three cooperating mechanisms make a deposed writer harmless:
 
 Fault points ``cluster.epoch.write`` (the tmp file written, before the
 replace) and ``cluster.epoch.commit`` (after the replace) sit where the
-JAX package's do. Its ``TSDB_CLUSTER_BUG=split-brain`` sabotage switch is
-not ported (ROADMAP queue A item 10b).
+JAX package's do. ``TSDB_CLUSTER_BUG=split-brain`` turns mechanism 2 off
+(an unfenced zombie keeps acking), so the serve matrix
+(``tools/servematrix.py --bug split-brain``) can prove that it catches the
+zombie; the daemon's ``/demote`` refuses under the same switch.
 """
 
 from __future__ import annotations
@@ -42,6 +44,8 @@ import time
 
 from opentsdb_tpu_torch.core.errors import FencedWriterError
 from opentsdb_tpu_torch.fault.faultpoints import fire as _fault
+
+_BUG_ENV = "TSDB_CLUSTER_BUG"
 
 EPOCH_NAME = "EPOCH.json"
 
@@ -176,6 +180,9 @@ class EpochGuard:
         and the manifest commit must see the CURRENT epoch."""
         if self.fenced:
             self._raise()
+        if os.environ.get(_BUG_ENV) == "split-brain":
+            # The serve matrix's gate: an unfenced zombie keeps acking.
+            return
         now = time.monotonic()
         if not force and now < self._next_check:
             return

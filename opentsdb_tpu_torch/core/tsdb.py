@@ -169,8 +169,10 @@ class TSDB:
         # WAL-replayed memtable), else rebuilt from a full storage scan.
         self.sketches = None
         self.sketch_load_seconds = 0.0
-        # Seconds of the last promote(), by step.
+        # Seconds of the last promote(), by step; whether its owning
+        # rollup tier is still to be opened (_open_owning_tier).
         self.promote_seconds: dict[str, float] = {}
+        self._tier_pending = False
         if self.config.enable_sketches:
             self._init_sketches()
         # Device-resident columnar hot window (storage/devstore.py):
@@ -403,16 +405,27 @@ class TSDB:
                               "promotion")
         if self.config.enable_rollups and getattr(self.store, "_wal_path",
                                                   None):
-            from opentsdb_tpu_torch.rollup.tier import RollupTier
-            try:
-                self.rollups = RollupTier(self, self.config)
-            except Exception:
-                # The promoted writer must serve even over a torn tier:
-                # raw answers stay exact.
-                LOG.exception("promoted writer rollup tier unavailable; "
-                              "serving raw")
+            self._open_owning_tier()
         times["rollups"] = time.perf_counter() - t0
         self.promote_seconds = times
+
+    def _open_owning_tier(self) -> None:
+        """A promoted writer's owning rollup tier. The promoted writer must
+        serve even without it (raw answers stay exact): a torn tier, or a
+        deposed writer that still runs and holds the tier's lock. Then the
+        next checkpoint opens it again before it spills (once the deposed
+        writer is demoted or gone, its lock is free); while it cannot, the
+        spill is refused (``MemKVStore._retire_snapshots``) rather than
+        made under stale summaries. The JAX package tries once, at the
+        promotion."""
+        from opentsdb_tpu_torch.rollup.tier import RollupTier
+        try:
+            self.rollups = RollupTier(self, self.config)
+            self._tier_pending = False
+        except Exception:
+            self._tier_pending = True
+            LOG.exception("promoted writer rollup tier unavailable; "
+                          "serving raw")
 
     def demote(self) -> None:
         """Writer -> tailing replica, in place. The owning rollup tier
@@ -1049,6 +1062,8 @@ class TSDB:
             # A replica owns neither the snapshots nor the spill tier:
             # writing either would race the writer daemon.
             return 0
+        if self._tier_pending and self.rollups is None:
+            self._open_owning_tier()
         ckpt = getattr(self.store, "checkpoint", None)
         with self._checkpoint_lock:
             path = self._sketch_path()

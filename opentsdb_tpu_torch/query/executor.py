@@ -111,7 +111,8 @@ from opentsdb_tpu_torch.compress.devcache import pad_fine as _pad_fine
 from opentsdb_tpu_torch.core import codec
 from opentsdb_tpu_torch.core.const import (MAX_TIMESPAN, TIMESTAMP_BYTES,
                                            UID_WIDTH)
-from opentsdb_tpu_torch.core.errors import BadRequestError, NoSuchUniqueName
+from opentsdb_tpu_torch.core.errors import (BadRequestError, NoSuchUniqueName,
+                                             OverloadedError)
 from opentsdb_tpu_torch.fault.faultpoints import fire as _fault
 from opentsdb_tpu_torch.obs import trace as obs_trace
 from opentsdb_tpu_torch.obs.registry import METRICS as _metrics
@@ -516,21 +517,31 @@ class QueryExecutor:
         return self.run_approx(spec, start, end, trace)[:3]
 
     def run_approx(self, spec: QuerySpec, start: int, end: int,
-                   trace=None, approx=None):
+                   trace=None, approx=None, rollup_only: bool = False):
         """``run_with_plan`` under the approximate-serving contract
         (``sketch/serving.py``): ``(results, plan, cached, info)``, where
-        ``info`` is None for an exact answer and an ``ApproxInfo`` for a
-        percentile downsample served from the rollup tier's sketch
-        columns (plan label ``approx-1h`` ...). ``approx``
-        (``ApproxSpec``, None: exact) is the caller's opt-in and relative
-        error budget: a reported bound over the budget runs the exact path
-        instead. The degraded (rollup-only) mode of the JAX executor
-        comes with the query half of admission (ROADMAP queue A item 10):
-        ``rollup_only`` stays False here."""
+        ``info`` is None for an exact answer, an ``ApproxInfo`` for a
+        percentile downsample served from the rollup tier's sketch columns
+        (plan label ``approx-1h`` ...), or a ``"rollup-stale"`` dict that
+        declares the stale, omitted and missing windows of a rollup-only
+        answer over a dirty range. ``approx`` (``ApproxSpec``, None:
+        exact) is the caller's opt-in and relative error budget: a
+        reported bound over the budget runs the exact path instead.
+
+        ``rollup_only`` is the load-shedding ladder's degraded step
+        (``serve/admission.py``): a percentile downsample serves from the
+        sketch columns (opted in or not); everything else serves from the
+        materialized tier with no raw work (dirty and edge windows are
+        omitted, not stitched). A query the tier cannot serve, or whose
+        sketch answer is over the budget, raises ``OverloadedError``
+        (503). The resident window's answers stay allowed: they are exact
+        and read no storage."""
         if trace is None:
-            return self._run_approx_inner(spec, start, end, approx)
+            return self._run_approx_inner(spec, start, end, approx,
+                                          rollup_only)
         with obs_trace.activate(trace):
-            out = self._run_approx_inner(spec, start, end, approx)
+            out = self._run_approx_inner(spec, start, end, approx,
+                                         rollup_only)
         trace.root.tags["plan"] = out[1]
         trace.root.tags["cached"] = bool(out[2])
         if out[3] is not None:
@@ -538,23 +549,45 @@ class QueryExecutor:
         return out
 
     def _run_approx_inner(self, spec: QuerySpec, start: int, end: int,
-                          approx):
-        if (approx is not None and approx.enabled
-                and self._oracle_downsample(spec)):
+                          approx, rollup_only: bool = False):
+        enabled = approx is not None and approx.enabled
+        if (enabled or rollup_only) and self._oracle_downsample(spec):
             from opentsdb_tpu_torch.sketch import serving as _serving
-            got = _serving.plan_percentile(self, spec, start, end)
+            got = _serving.plan_percentile(self, spec, start, end,
+                                           rollup_only=rollup_only)
             if got is not None:
                 results, res, info = got
-                if (approx.max_error is None
-                        or info.rel_error <= approx.max_error):
+                max_error = approx.max_error if approx is not None else None
+                if max_error is None or info.rel_error <= max_error:
                     from opentsdb_tpu_torch.rollup.tier import res_label
                     return (results, f"approx-{res_label(res)}", False,
                             info)
                 _serving._M_FALLBACK.inc()
-        results, plan, cached = self._run_planned(spec, start, end)
-        return results, plan, cached, None
+            if rollup_only:
+                raise OverloadedError(
+                    "shedding load: no approximate answer within the "
+                    "error budget for this percentile query; retry "
+                    "shortly", retry_after=0.5, status=503)
+        meta: dict = {}
+        results, plan, cached = self._run_planned(
+            spec, start, end, rollup_only=rollup_only, meta_out=meta)
+        info = None
+        if rollup_only and (meta.get("stale_windows")
+                            or meta.get("omitted_edges")
+                            or meta.get("missing_windows")):
+            # Rollup-only over a dirty range: stale windows were served
+            # (their records reflect the last fold), edge windows omitted,
+            # never-folded dirty windows absent; all declared.
+            info = {"kind": "rollup-stale",
+                    "stale_windows": int(meta.get("stale_windows", 0)),
+                    "omitted_edges": int(meta.get("omitted_edges", 0)),
+                    "missing_windows": int(meta.get("missing_windows", 0)),
+                    "error": None}
+        return results, plan, cached, info
 
     def _run_planned(self, spec: QuerySpec, start: int, end: int,
+                     rollup_only: bool = False,
+                     meta_out: dict | None = None,
                      ) -> tuple[list[QueryResult], str, bool]:
         if end <= start:
             raise BadRequestError(
@@ -577,7 +610,14 @@ class QueryExecutor:
                 # values, so the rewritten spec's downsample is the identity
                 # and the shared group stage below runs unchanged. Its tier
                 # reads and raw stitches are child spans of this one.
-                planned = self._plan_rollup(spec, start, end)
+                planned = self._plan_rollup(spec, start, end,
+                                            rollup_only=rollup_only,
+                                            meta_out=meta_out)
+            if dev is None and planned is None and rollup_only:
+                raise OverloadedError(
+                    "shedding load: this query needs a raw scan (no "
+                    "eligible rollup resolution); retry shortly",
+                    retry_after=0.5, status=503)
             if planned is not None:
                 # Imported here: the tier's module registers its
                 # instruments, which a daemon without the tier shows none
@@ -614,13 +654,16 @@ class QueryExecutor:
             results = self._execute_groups(spec, groups, start, end)
         return results, "raw", bool(info.get("cached"))
 
-    def _plan_rollup(self, spec: QuerySpec, start: int, end: int):
+    def _plan_rollup(self, spec: QuerySpec, start: int, end: int,
+                     rollup_only: bool = False,
+                     meta_out: dict | None = None):
         """The rollup tier's plan, ``(groups, spec2, res)``, or None.
-        ``rollup_only`` (load shedding's degraded step) stays False until
-        the query half of admission is ported (ROADMAP queue A item 10)."""
+        ``rollup_only`` (load shedding's degraded step) omits the raw
+        stitches and counts what it left out into ``meta_out``."""
         if getattr(self.tsdb, "rollups", None) is None:
             return None
-        return rplanner.plan(self, spec, start, end, rollup_only=False)
+        return rplanner.plan(self, spec, start, end,
+                             rollup_only=rollup_only, meta_out=meta_out)
 
     @staticmethod
     def _oracle_downsample(spec: QuerySpec) -> bool:

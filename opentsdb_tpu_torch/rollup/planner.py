@@ -4,9 +4,8 @@ materialized tier, stitching raw points over partial and dirty windows.
 Mirrors ``opentsdb_tpu/rollup/planner.py`` of the JAX package, copied
 whole. The rollup spans then run the port's group stage
 (``QueryExecutor._execute_groups``: the card's kernels on the device
-backend), as the JAX package runs its own. ``rollup_only`` stays in the
-signature; the executor passes False until the query half of admission
-(ROADMAP queue A item 10) brings the degraded step.
+backend), as the JAX package runs its own. The executor passes
+``rollup_only`` at the admission ladder's degraded step.
 
 ``plan()`` is the executor's rollup step. It either returns
 ``(groups, spec2, res)`` — per-series spans that are ALREADY

@@ -3,9 +3,9 @@
 Mirrors ``opentsdb_tpu/serve/admission.py`` of the JAX package, whole
 (``collect_stats`` records the ``admission.*`` lines of ``/stats``). The
 port's daemon consults its ingest half (``admit_ingest`` /
-``ingest_done``) on every telnet and HTTP put; its ``/q`` does not yet
-consult the query half (``admit_query``, the in-flight ladder and its
-rollup-only step, which needs rollups: ROADMAP queue A items 6 and 10).
+``ingest_done``) on every telnet and HTTP put and its query half
+(``admit_query`` / ``query_done``) on every ``/q``; the router consults
+both, without the rollup-only step, which it asks of the replicas.
 
 The failure this prevents is the classic collapse: an overloaded
 daemon queues work it will never finish, memory grows, every request
@@ -21,7 +21,10 @@ Admission control sheds EARLY and CHEAPLY instead:
   ``Config.query_max_inflight`` N:
 
       inflight <  N   full service
-      inflight < 2N   DEGRADED (the JAX daemon serves rollup-only)
+      inflight < 2N   DEGRADED: traces stripped, /q serves rollup-only
+                      (no raw stitching; results carry
+                      "degraded": "rollup-only"; a query the tier
+                      cannot serve at all gets 503 + Retry-After)
       inflight >= 2N  503 + Retry-After
 
 Retry-After values are honest: the bucket's time-to-refill for quota

@@ -48,6 +48,19 @@ result under ``"approx"``). ``/forecast`` answers Holt-Winters / EWMA
 forecasts and anomaly bands over a query's series (``models/``, one
 launch of the smoothing kernels).
 
+Admission (``serve/admission.py``): every ``/q`` passes the query half
+first (a dry per-tenant ``Config.query_rate`` bucket answers 429, past
+2 x ``Config.query_max_inflight`` in flight 503, both with Retry-After).
+Between N and 2N in flight, or when asked with ``?degrade=rollup-only``
+(a router's degraded step), the query runs degraded: trace work is shed,
+it is served from the rollup tier only (``QueryExecutor.run_approx``
+with ``rollup_only``; a percentile downsample from the tier's sketch
+columns under ``Config.degrade_max_error``; a query the tier cannot
+serve answers 503 + Retry-After; stale windows declared by a
+``"rollup-stale"`` approx info), and every result and the
+``X-Tsd-Degraded`` header carry ``"rollup-only"``, comma-joined with
+``"stale"`` when both hold.
+
 Replicas (ROADMAP item 10a): a ``--role replica`` daemon has a
 ``serve/tailer.WalTailer`` attached (``attach_tailer``). ``/healthz``
 answers its staleness contract (200 while fresh, 503 past
@@ -58,12 +71,20 @@ every ``/q`` result carries ``"degraded": "stale"`` and the answer the
 refused with the JAX daemon's telnet lines (``put: read-only replica:``,
 ``put: fenced writer ...``) and ``/api/put`` bodies; ``/api/tenants``
 of a daemon without accounting names its role. ``/fault`` arms, disarms
-and lists fault points on a live daemon.
+and lists fault points on a live daemon. In cluster mode (``--cluster``)
+``/promote`` turns a replica into the writer (the epoch bumped first, the
+tailer stopped, ``TSDB.promote``; a failure goes back to tailing) and
+``/demote`` a deposed writer into a tailing replica, each idempotent and
+one at a time; the router's ``cluster/promote.PromotionManager`` calls
+them. The JAX daemon's test-only switches are kept:
+``TSDB_SERVE_BUG=stale-serve`` drops the "stale" tag, and
+``TSDB_CLUSTER_BUG=split-brain`` refuses ``/demote`` (and unfences the
+writer, ``cluster/epoch.py``), so the serve matrix can prove that it
+catches both.
 
 Not ported yet, and answered with 400 "not yet ported": PNG graphs
 (``/q`` without ``ascii``/``json``, ``/forecast`` with ``png``). Other
-paths (the JAX daemon's ``/``, ``/s/``, and the router's ``/promote`` and
-``/demote``, ROADMAP item 10b) are 404.
+paths (the JAX daemon's ``/`` and ``/s/``) are 404.
 """
 
 from __future__ import annotations
@@ -74,6 +95,7 @@ import functools
 import json
 import logging
 import math
+import os
 import threading
 import time
 import urllib.parse
@@ -100,7 +122,9 @@ from opentsdb_tpu_torch.query.aggregators import Aggregators
 from opentsdb_tpu_torch.query.executor import (QueryExecutor, QuerySpec,
                                                not_yet_ported)
 from opentsdb_tpu_torch.query.grammar import parse_m
-from opentsdb_tpu_torch.serve.admission import AdmissionController
+from opentsdb_tpu_torch.serve.admission import (DEGRADE, SHED_LOAD,
+                                                SHED_QUOTA,
+                                                AdmissionController)
 from opentsdb_tpu_torch.server import logbuffer, wire
 from opentsdb_tpu_torch.sketch.bounds import hll_error
 from opentsdb_tpu_torch.stats.collector import LatencyDigest, StatsCollector
@@ -119,6 +143,11 @@ MAX_BODY_BYTES = 1 << 20
 # clients, oversized bodies and shed load without parsing log text.
 _M_HTTP_ERRORS = METRICS.counter("http.errors")
 _M_TELNET_ERRORS = METRICS.counter("telnet.errors")
+
+# Test-only sabotage switch of the serve matrix (tools/servematrix.py
+# --bug): "stale-serve" drops the stale tag while a replica keeps serving,
+# the contract violation the matrix's staleness oracle must catch.
+_SERVE_BUG = os.environ.get("TSDB_SERVE_BUG", "")
 
 _REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
             405: "Method Not Allowed", 413: "Payload Too Large",
@@ -211,6 +240,8 @@ class TSDServer:
         # The WAL tailer of a --role replica daemon (attach_tailer): the
         # staleness contract behind /healthz and the /q stale tag.
         self.tailer = None
+        # One role transition (/promote, /demote) at a time.
+        self._role_lock = threading.Lock()
         # Handlers take (words, writer, conn): ``conn`` is the
         # connection's state (its tenant). False closes the connection.
         self.telnet_commands = {
@@ -250,6 +281,8 @@ class TSDServer:
             "/forecast": self._forecast,
             "/healthz": self._http_healthz,
             "/fault": self._http_fault,
+            "/promote": self._http_promote,
+            "/demote": self._http_demote,
         }
 
     def attach_tailer(self, tailer) -> None:
@@ -738,14 +771,133 @@ class TSDServer:
         status = 200 if body.get("ok") else 503
         return status, "application/json", json.dumps(body).encode(), {}
 
-    def _degraded_reason(self) -> str | None:
+    # ------------------------------------------------------------------
+    # Cluster failover: /promote and /demote
+    # ------------------------------------------------------------------
+
+    async def _http_promote(self, req) -> tuple:
+        """Replica -> writer takeover, asked by the router's promotion
+        manager when the writer's /healthz stayed dead past its grace, or
+        by an operator. Bumps the persisted epoch (the EPOCH.json CAS;
+        ``expect=`` pins the epoch the bump must start from), stops the
+        tailer and promotes the TSDB. Idempotent: a promoted daemon asked
+        again answers its epoch without another bump."""
+        path = getattr(self.tsdb, "cluster_epoch_path", None)
+        if not path:
+            raise BadRequestError(
+                "not a cluster member (start the daemon with --cluster)")
+        store = self.tsdb.store
+        if not getattr(store, "read_only", False):
+            return (200, "application/json", json.dumps({
+                "role": "writer", "already_writer": True,
+                "epoch": int(getattr(store, "writer_epoch", 0) or 0),
+            }).encode(), {})
+        expect = None
+        if req.q.get("expect"):
+            try:
+                expect = int(req.q["expect"])
+            except ValueError:
+                raise BadRequestError("expect must be an integer") from None
+        loop = asyncio.get_running_loop()
+        epoch = await loop.run_in_executor(
+            self._pool, functools.partial(self._do_promote, path, expect))
+        return (200, "application/json", json.dumps(
+            {"role": "writer", "epoch": epoch}).encode(), {})
+
+    def _do_promote(self, path: str, expect: int | None) -> int:
+        from opentsdb_tpu_torch.cluster import epoch as _ep
+        from opentsdb_tpu_torch.serve.tailer import WalTailer
+        # Under the lock, the check again: two retried /promote requests
+        # can both pass the one on the event loop, and a second bump would
+        # fence the writer the first one made.
+        with self._role_lock:
+            if not getattr(self.tsdb.store, "read_only", False):
+                return int(getattr(self.tsdb.store, "writer_epoch", 0) or 0)
+            # Bump before the tailer stops: a failed bump (a CAS conflict,
+            # a disk error) leaves the replica tailing as it was. A crash
+            # after the bump leaves an epoch without a writer, which the
+            # next promotion bumps past.
+            owner = (self.config.cluster_owner
+                     or f"{self.config.bind}:{self.config.port}")
+            new = _ep.bump_epoch(path, owner=owner, expect=expect)
+            faultpoints.fire("cluster.promote.bumped", path)
+            guard = _ep.EpochGuard(
+                path, new, interval_s=self.config.epoch_check_interval_s)
+            tailer, self.tailer = self.tailer, None
+            if tailer is not None:
+                # The tailer drives refresh_replica, which a writable store
+                # refuses: it stops before the store flips.
+                tailer.stop()
+            try:
+                self.tsdb.promote(new, epoch_guard=guard)
+            except BaseException:
+                # The store restored itself to a coherent replica: tail
+                # again, so this daemon keeps its place in rotation while
+                # the router tries the next candidate.
+                self.tailer = WalTailer(self.tsdb)
+                self.tailer.start()
+                raise
+            self.config.role = "writer"
+            # A promoted replica spills at the cadence it was configured
+            # with (0: checkpoints at shutdown only).
+            self.tsdb.compactionq.checkpoint_interval = \
+                self.config.checkpoint_interval or 0.0
+            LOG.warning("promoted to writer at epoch %d", new)
+            return new
+
+    async def _http_demote(self, req) -> tuple:
+        """Writer -> tailing replica: the deposed writer's way back into
+        the fleet, asked by the router when a fenced or stale-epoch writer
+        reappears. Idempotent on a replica."""
+        path = getattr(self.tsdb, "cluster_epoch_path", None)
+        if not path:
+            raise BadRequestError(
+                "not a cluster member (start the daemon with --cluster)")
+        if getattr(self.tsdb.store, "read_only", False):
+            return (200, "application/json", json.dumps(
+                {"role": "replica", "already_replica": True}).encode(), {})
+        if os.environ.get("TSDB_CLUSTER_BUG") == "split-brain":
+            # The serve matrix's cluster gate: an unfenced zombie ignores
+            # the protocol, demotion included.
+            return (500, "text/plain",
+                    b"demote sabotaged by TSDB_CLUSTER_BUG\n", {})
+        loop = asyncio.get_running_loop()
+        await loop.run_in_executor(self._pool, self._do_demote)
+        return (200, "application/json", json.dumps(
+            {"role": "replica"}).encode(), {})
+
+    def _do_demote(self) -> None:
+        from opentsdb_tpu_torch.serve.tailer import WalTailer
+        with self._role_lock:
+            if getattr(self.tsdb.store, "read_only", False):
+                return  # a concurrent demote won the race
+            self.tsdb.demote()
+            self.config.role = "replica"
+            if not self.config.max_staleness_ms:
+                # A demoted daemon serves under the staleness contract a
+                # born replica has (cmd_tsd's replica default).
+                self.config.max_staleness_ms = 5000.0
+            # The tailer becomes the only thing that refreshes: the compaction
+            # timer stops driving refresh_replica.
+            self.tsdb.compactionq.checkpoint_interval = 0.0
+            self.tailer = WalTailer(self.tsdb)
+            self.tailer.start()
+            LOG.warning("demoted to tailing replica")
+
+    def _degraded_reason(self, load_degraded: bool = False) -> str | None:
         """The /q result tag: "stale" while the replica staleness contract
-        is violated, None at full service. (The JAX daemon's
-        "rollup-only" step comes with the query half of admission, ROADMAP
-        item 10b.)"""
-        if self.tailer is not None and self.tailer.stale():
-            return "stale"
-        return None
+        is violated, "rollup-only" at the admission ladder's degraded step,
+        both comma-joined when both hold; None at full service. The stale
+        half is what the serve matrix's staleness oracle checks, and what
+        ``TSDB_SERVE_BUG=stale-serve`` drops so the oracle can be shown to
+        catch a replica that lies."""
+        reasons = []
+        if (self.tailer is not None and self.tailer.stale()
+                and _SERVE_BUG != "stale-serve"):
+            reasons.append("stale")
+        if load_degraded:
+            reasons.append("rollup-only")
+        return ",".join(reasons) if reasons else None
 
     def _note_plan(self, plan: str, approx: bool = False) -> None:
         """Bump the bounded per-plan counters, as in the JAX daemon:
@@ -1039,32 +1191,65 @@ class TSDServer:
         ms = params.get("m", [])
         if not ms:
             raise BadRequestError("Missing parameter: m")
+        # Admission (serve/admission.py): a dry per-tenant bucket is 429,
+        # the ladder's top 503, both through OverloadedError so that the
+        # Retry-After reaches the wire. The degraded step takes a slot as
+        # full service does (the work still runs, cheaper), released in the
+        # finally below. Only valid requests take slots.
+        tenant = q.get("tenant", "default")
+        verdict, retry = self.admission.admit_query(tenant)
+        if verdict == SHED_QUOTA:
+            raise OverloadedError(
+                f"query quota exceeded for tenant {tenant!r}", retry,
+                status=429)
+        if verdict == SHED_LOAD:
+            raise OverloadedError(
+                "shedding load: too many queries in flight", retry,
+                status=503)
+        # ?degrade=rollup-only: an overloaded router asking for the cheap
+        # path on this hop, honoured as the local ladder's degraded step.
+        degrade = (verdict == DEGRADE
+                   or q.get("degrade") == "rollup-only")
+        try:
+            return await self._query_admitted(q, ms, start, end, degrade)
+        finally:
+            self.admission.query_done()
+
+    async def _query_admitted(self, q, ms, start: int, end: int,
+                              degrade: bool) -> tuple:
         # Tracing: asked for (?trace=1), implied for every query by a
         # slow-query threshold, or 1 in trace_sample_n (a baseline between
         # incidents). Off, each hook is one global integer check; on, a
-        # perf_counter pair per stage, never per point.
-        want_trace = q.get("trace", "0") not in ("", "0")
+        # perf_counter pair per stage, never per point. The degraded step
+        # sheds trace work first.
+        want_trace = q.get("trace", "0") not in ("", "0") and not degrade
         slow_ms = float(self.config.slow_query_ms or 0)
         sample_n = int(self.config.trace_sample_n or 0)
         sampled = False
-        if sample_n > 0 and not want_trace:
+        if sample_n > 0 and not want_trace and not degrade:
             self._trace_sample_seq += 1
             sampled = self._trace_sample_seq % sample_n == 0
-        do_trace = want_trace or sampled or slow_ms > 0
+        do_trace = want_trace or sampled or (slow_ms > 0 and not degrade)
         # Approximate serving (sketch/serving.py, whose import registers
         # the sketch.* instruments, as every /q of the JAX daemon does):
         # ``approx=1`` lets a percentile downsample be served from the
         # rollup tier's sketch columns at any reported bound;
         # ``max_error=X`` (a relative half-width) implies the opt-in and
-        # caps it, an answer over it falls back to the exact path.
+        # caps it, an answer over it falls back to the exact path. The
+        # degraded step serves percentile downsamples from the sketch
+        # columns under Config.degrade_max_error.
         from opentsdb_tpu_torch.sketch.serving import ApproxSpec
         max_error = _parse_max_error(q)
-        aspec = ApproxSpec(q.get("approx", "0") not in ("", "0")
-                           or max_error is not None, max_error)
-        # Anything less than full service is declared: "stale" while a
-        # replica is past its staleness contract, per result in JSON and
-        # as X-Tsd-Degraded.
-        degraded = self._degraded_reason()
+        approx_on = (q.get("approx", "0") not in ("", "0")
+                     or max_error is not None)
+        if degrade and max_error is None:
+            budget = float(self.config.degrade_max_error or 0)
+            max_error = budget if budget > 0 else None
+        aspec = ApproxSpec(approx_on, max_error)
+        # Anything less than full service is declared, per result in JSON
+        # and as X-Tsd-Degraded: "stale" while a replica is past its
+        # staleness contract, "rollup-only" at the degraded step.
+        degraded = self._degraded_reason(degrade)
         # No /q disk cache here: every query executes (so no exact caller
         # can be served an approximate answer from a cached one).
         self.cache_misses += 1
@@ -1090,8 +1275,10 @@ class TSDServer:
             rs, plan, hit, ainfo = await loop.run_in_executor(
                 self._pool, functools.partial(
                     self.executor.run_approx, spec, start, end, trace,
-                    approx=aspec))
-            ajson = ainfo.as_json() if ainfo is not None else None
+                    approx=aspec, rollup_only=degrade))
+            # An ApproxInfo, or the rollup-stale dict of a degraded answer.
+            ajson = (ainfo.as_json() if hasattr(ainfo, "as_json")
+                     else ainfo)
             self._note_plan(plan, approx=ajson is not None)
             tdict = None
             if trace is not None:

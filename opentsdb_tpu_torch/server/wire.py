@@ -14,8 +14,8 @@ reference. Both accept the same lines, but the native decoder words its
 errors its own way and reports no line numbers (``error_lines`` empty).
 Under WAL group commit (``Config.wal_group_ms``) ``ingest_batch`` writes
 each series with ``sync=False`` and runs one covering
-``store.wal_barrier()`` before it returns, as the JAX package does. Left
-out with its item: the ``[fenced]`` error tag (ROADMAP queue A item 10).
+``store.wal_barrier()`` before it returns, as the JAX package does, and a
+fenced writer's refusal carries the ``[fenced]`` error tag.
 Both decoders run under the ``ingest.parse`` timer (``obs/registry.py``),
 once per buffer or body.
 """

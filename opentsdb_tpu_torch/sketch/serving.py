@@ -9,10 +9,9 @@ rails, the bounds-propagating group stage (``_group_stage``,
 ``sketch.error.reported``, registered when this module is imported (the
 daemon imports it in every ``/q``, as the JAX daemon does). The JAX
 module's test-only sabotage switch (its accuracy harness's
-``TSDB_SKETCH_BUG``) is left out. The executor passes
-``rollup_only=False`` until the query half of admission is ported
-(ROADMAP queue A item 10), so the degraded (rollup-only) mode below is
-kept for the signature and not reached.
+``TSDB_SKETCH_BUG``) is left out. The executor passes ``rollup_only``
+at the admission ladder's degraded step (``/q`` past
+``Config.query_max_inflight`` or ``?degrade=rollup-only``).
 
 The planner step behind ``dsagg pNN`` approximate answers: merge the
 rollup tier's per-window sketch columns (t-digest or moment — the

@@ -59,17 +59,35 @@ staleness contract ``--max-staleness-ms``, default 5000 for the role).
 ``--cluster`` makes a writer adopt or create ``EPOCH.json`` beside its
 WAL: every writer boot bumps the epoch (``--cluster-owner`` labels the
 bump), stamps it into its WAL segments and fences its mutations once a
-promotion bumps past it. ``--role router`` is not ported yet (item 10b).
-A replica of the writer above::
+promotion bumps past it; a ``--cluster`` replica accepts ``/promote``.
+
+``--role router`` (ROADMAP item 10b, ``serve/router.py``) is the
+storage-free front door over ``--backends`` (replica URLs): ``/q`` fans
+out by series-hash ownership with ``--router-deadline-ms``,
+``--router-retries``, hedging (``--router-hedge-ms``) and ``/healthz``
+probes (``--probe-interval``, ``--router-eject-after``); telnet ``put``
+lines forward to ``--writer-url`` under ingest admission, and with
+``--writer-grace-ms`` the router promotes a replica once the writer has
+been dead that long (``cluster/promote.py``). ``--writers`` (more than
+one) shards ingest and reads by the ``--cluster-map`` ownership map. The
+router imports neither torch nor the storage engine: this module loads
+the engine (``core/``, ``storage/``) and the daemon inside the
+subcommands that use them, as the JAX CLI does. A replica of the writer
+above, and a router over two replicas::
 
     python -m opentsdb_tpu_torch.tools.cli tsd --port 4243 \
         --wal /var/tsdb/wal --role replica
+    python -m opentsdb_tpu_torch.tools.cli tsd --port 4240 --role router \
+        --backends http://127.0.0.1:4243,http://127.0.0.1:4244 \
+        --writer-url http://127.0.0.1:4242
 
 ``stats`` prints the ``/stats`` lines (``--metrics``: the Prometheus text
 of ``/metrics``) of a live daemon (``--url``) or of a store (``--wal``:
 the engine's stats and the metrics registry; the server's own counters
 need ``--url``). The daemon's observability flags: ``--slow-query-ms``,
-``--selfmon-interval``, ``--trace-ring`` and ``--trace-sample-n``.
+``--selfmon-interval``, ``--trace-ring`` and ``--trace-sample-n``; its
+query admission flags (every role): ``--query-max-inflight``,
+``--query-rate`` and ``--query-burst``.
 """
 
 from __future__ import annotations
@@ -83,16 +101,18 @@ import signal
 import sys
 import time
 import urllib.request
+from typing import TYPE_CHECKING
 
-from opentsdb_tpu_torch.core.tsdb import TSDB
-from opentsdb_tpu_torch.server.tsd import TSDServer
-from opentsdb_tpu_torch.storage.kv import KVStore, MemKVStore
-from opentsdb_tpu_torch.storage.sharded import ShardedKVStore, manifest_path
 from opentsdb_tpu_torch.utils.config import Config
 from opentsdb_tpu_torch.utils.gctune import tune_for_ingest
 
+if TYPE_CHECKING:
+    from opentsdb_tpu_torch.core.tsdb import TSDB
+    from opentsdb_tpu_torch.storage.kv import KVStore
+
 
 def _is_dir_store(wal: str | None, shards: int) -> bool:
+    from opentsdb_tpu_torch.storage.sharded import manifest_path
     return bool(shards > 1 or (wal and os.path.exists(manifest_path(wal))))
 
 
@@ -103,6 +123,9 @@ def open_store(cfg: Config, wal: str | None, shards: int = 0,
     > 1 or ``wal`` holds a ``SHARDS.json`` (an explicit count, 1 included,
     must then match it), else one WAL store. ``read_only`` opens it as a
     replica; ``writer_epoch`` / ``epoch_guard`` as a cluster writer."""
+    from opentsdb_tpu_torch.storage.kv import MemKVStore
+    from opentsdb_tpu_torch.storage.sharded import ShardedKVStore
+
     kw = dict(throttle_rows=cfg.throttle_rows, fsync=cfg.fsync,
               read_only=read_only, writer_epoch=writer_epoch,
               epoch_guard=epoch_guard)
@@ -144,6 +167,8 @@ def open_tsdb(cfg: Config, wal: str | None,
     """The store and TSDB the daemon serves: the WAL, sharded or memory
     store (``open_store``, which takes ``store_kw``), replayed and opened,
     under ``cfg``."""
+    from opentsdb_tpu_torch.core.tsdb import TSDB
+
     return TSDB(open_store(cfg, wal, shards, **store_kw), cfg,
                 start_compaction_thread=start_compaction_thread)
 
@@ -190,9 +215,7 @@ def make_tsdb(cfg: Config, wal: str | None, shards: int = 0,
 def cmd_tsd(args) -> int:
     role = args.role
     if role == "router":
-        print("tsd --role router: not yet ported (ROADMAP item 10b)",
-              file=sys.stderr)
-        return 2
+        return _cmd_router(args)
     read_only = args.read_only
     if role == "replica":
         # A replica is a read-only daemon plus the WAL tailer and the
@@ -220,13 +243,16 @@ def cmd_tsd(args) -> int:
         trace_ring=args.trace_ring, trace_sample_n=args.trace_sample_n,
         role=role, max_staleness_ms=args.max_staleness_ms,
         tail_interval_s=args.tail_interval, cluster=args.cluster,
-        cluster_owner=args.cluster_owner)
+        cluster_owner=args.cluster_owner,
+        query_max_inflight=args.query_max_inflight,
+        query_rate=args.query_rate, query_burst=args.query_burst)
     apply_rollup_args(cfg, args)
     tsdb = make_tsdb(cfg, args.wal, shards=args.shards,
                      read_only=read_only)
     # The replayed WAL and the opened generations are in place: freeze
     # them out of cycle collection (utils/gctune.py).
     tune_for_ingest()
+    from opentsdb_tpu_torch.server.tsd import TSDServer
     server = TSDServer(tsdb)
     if role == "replica":
         from opentsdb_tpu_torch.serve.tailer import WalTailer
@@ -243,6 +269,55 @@ def cmd_tsd(args) -> int:
             loop.add_signal_handler(sig, server.request_shutdown)
         print(f"Ready to serve on {tsdb.config.bind}:{server.port}",
               flush=True)
+        await server.serve_forever()
+
+    asyncio.run(main())
+    return 0
+
+
+def _csv(text: str | None) -> tuple:
+    return tuple(u.strip() for u in (text or "").split(",") if u.strip())
+
+
+def router_config(args) -> Config:
+    """The Config of ``tsd --role router``, the JAX CLI's fields."""
+    return Config(
+        port=args.port, bind=args.bind, role="router",
+        router_backends=_csv(args.backends),
+        writer_url=args.writer_url or None,
+        router_deadline_ms=args.router_deadline_ms,
+        router_retries=args.router_retries,
+        router_hedge_ms=args.router_hedge_ms,
+        probe_interval_s=args.probe_interval,
+        router_eject_after=args.router_eject_after,
+        query_max_inflight=args.query_max_inflight,
+        query_rate=args.query_rate, query_burst=args.query_burst,
+        ingest_rate=args.ingest_rate,
+        ingest_queue_points=args.ingest_queue_points,
+        writer_grace_ms=args.writer_grace_ms,
+        router_writers=_csv(args.writers),
+        cluster_map=args.cluster_map or None,
+        cluster_slots=args.cluster_slots,
+        router_rcache=args.router_rcache,
+        router_rcache_ms=args.router_rcache_ms,
+        trace_ring=args.trace_ring)
+
+
+def _cmd_router(args) -> int:
+    """``tsd --role router``: the storage-free front door
+    (``serve/router.py``). Loads neither torch nor the storage engine, so
+    a router restarts in well under a second."""
+    from opentsdb_tpu_torch.serve.router import RouterServer
+
+    cfg = router_config(args)
+    server = RouterServer(cfg)
+
+    async def main():
+        await server.start()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            loop.add_signal_handler(sig, server.request_shutdown)
+        print(f"Ready to serve on {cfg.bind}:{server.port}", flush=True)
         await server.serve_forever()
 
     asyncio.run(main())
@@ -498,6 +573,11 @@ def cmd_version(args) -> int:
 
 
 def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.func(args)
+
+
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="tsdb", description="opentsdb_tpu_torch command-line tool")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -525,8 +605,10 @@ def main(argv: list[str] | None = None) -> int:
                         "(default). replica: read-only daemon that "
                         "TAILS the writer's WAL continuously with a "
                         "bounded staleness contract (/healthz reports "
-                        "lag vs --max-staleness-ms). router: not yet "
-                        "ported")
+                        "lag vs --max-staleness-ms). router: "
+                        "storage-free front door fanning /q across "
+                        "--backends with deadlines, retries, hedging "
+                        "and health-probe ejection")
     p.add_argument("--max-staleness-ms", type=float, default=0.0,
                    help="replica staleness contract: beyond this lag "
                         "every answer is tagged degraded/stale and "
@@ -534,14 +616,49 @@ def main(argv: list[str] | None = None) -> int:
                         "defaults to 5000; 0 elsewhere disables)")
     p.add_argument("--tail-interval", type=float, default=0.25,
                    help="seconds between WAL tail cycles (replica)")
+    p.add_argument("--backends", default="",
+                   help="router: comma-separated replica base URLs "
+                        "(http://host:port)")
+    p.add_argument("--writer-url", default=None,
+                   help="router: forward telnet put lines here")
+    p.add_argument("--router-deadline-ms", type=float, default=10000.0)
+    p.add_argument("--router-retries", type=int, default=2)
+    p.add_argument("--router-hedge-ms", type=float, default=0.0,
+                   help="hedge a slow hop after this many ms (0 = "
+                        "derive from the observed p95; negative "
+                        "disables)")
+    p.add_argument("--probe-interval", type=float, default=1.0)
+    p.add_argument("--router-eject-after", type=int, default=3)
     p.add_argument("--cluster", action="store_true",
                    help="join the cluster write tier: adopt/create "
                         "EPOCH.json next to the WAL, stamp writer "
                         "epochs into WAL segments, fence mutations "
-                        "once deposed (writers)")
+                        "once deposed (writers); accept /promote "
+                        "(replicas)")
     p.add_argument("--cluster-owner", default=None,
                    help="this daemon's label in EPOCH.json bumps "
                         "(default host:pid)")
+    p.add_argument("--writer-grace-ms", type=float, default=0.0,
+                   help="router: promote a replica once the writer's "
+                        "/healthz has been dead this long (0 = "
+                        "operator-driven failover only)")
+    p.add_argument("--writers", default="",
+                   help="router: comma-separated writer base URLs; "
+                        ">1 enables multi-writer series-hash "
+                        "sharding via the ownership map")
+    p.add_argument("--cluster-map", default=None,
+                   help="router: CLUSTER.json ownership-map path "
+                        "(created as an equal split over --writers "
+                        "when missing)")
+    p.add_argument("--cluster-slots", type=int, default=64,
+                   help="hash-space slots for a newly created "
+                        "ownership map")
+    p.add_argument("--router-rcache", type=int, default=0,
+                   help="router: bounded result-cache entries keyed "
+                        "by (query, ownership epoch, staleness "
+                        "bound); 0 disables")
+    p.add_argument("--router-rcache-ms", type=float, default=1000.0,
+                   help="router result-cache staleness bound")
     p.add_argument("--wal-group-ms", type=float, default=0.0,
                    help="WAL group-commit window in ms: concurrent "
                         "durable appends coalesce into one WAL "
@@ -600,7 +717,14 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--no-tenant-accounting", action="store_true",
                    help="disable per-tenant series accounting + "
                         "tenant snapshots entirely")
-    # Ingest admission (serve/admission.py; off by default).
+    # Admission control (serve/admission.py; any role, off by default).
+    p.add_argument("--query-max-inflight", type=int, default=0,
+                   help="load-shedding ladder threshold N: N..2N in "
+                        "flight degrades (rollup-only), 2N sheds 503")
+    p.add_argument("--query-rate", type=float, default=0.0,
+                   help="per-tenant queries/s quota (429 when dry)")
+    p.add_argument("--query-burst", type=float, default=8.0,
+                   help="per-tenant query bucket burst allowance")
     p.add_argument("--ingest-rate", type=float, default=0.0,
                    help="per-tenant ingest points/s quota")
     p.add_argument("--ingest-queue-points", type=int, default=0,
@@ -675,8 +799,7 @@ def main(argv: list[str] | None = None) -> int:
     p = sub.add_parser("version", help="print build/version information")
     p.add_argument("--verbose", action="store_true")
     p.set_defaults(func=cmd_version)
-    args = parser.parse_args(argv)
-    return args.func(args)
+    return parser
 
 
 if __name__ == "__main__":

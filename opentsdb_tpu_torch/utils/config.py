@@ -3,8 +3,9 @@
 Mirrors ``opentsdb_tpu/utils/config.py`` of the JAX package, trimmed to
 the fields this port reads (the resident window's, the spill tier's and
 its durability and compression knobs, the live sketches', the fragment
-cache's, the fused block plan's and the replica and cluster knobs among
-them, with the JAX package's defaults), plus
+cache's, the fused block plan's, the admission ladder's and the replica,
+cluster and router knobs among them, with the JAX package's defaults),
+plus
 ``device``: where the query kernels run.
 ``backend="cpu"`` keeps its JAX-package meaning — the float64 numpy
 oracle answers every query (``ops/oracle.py``) — and is independent of
@@ -15,8 +16,6 @@ from __future__ import annotations
 
 import dataclasses
 import multiprocessing
-
-import torch
 
 
 @dataclasses.dataclass
@@ -93,6 +92,11 @@ class Config:
     # rollup_moment_min_res (0 = every resolution); 0 disables.
     rollup_moment_k: int = 5
     rollup_moment_min_res: int = 0
+    # The admission ladder's bounded-error step: a degraded pNN query is
+    # served from the tier's sketch columns whenever its reported relative
+    # bound is <= this budget (0: any bound admits; the answer reports its
+    # bound either way).
+    degrade_max_error: float = 0.0
     # Debug oracle: derive the dirty-window set both ways (the store's
     # index and a memtable sweep) and fail on divergence. Test-only.
     rollup_sweep_check: bool = False
@@ -154,9 +158,11 @@ class Config:
     # - ingest_queue_points: global cap on decoded-but-not-yet-applied
     #   points across connections — sheds before memory does.
     # - query_rate/_burst: per-tenant queries/s bucket;
-    #   query_max_inflight N: the load-shedding ladder. The JAX
-    #   package's query half; the port's /q does not consult it yet
-    #   (ROADMAP queue A items 6 and 10).
+    # - query_max_inflight N: the load-shedding ladder. Below N
+    #   queries in flight: full service. N..2N: degraded: traces are
+    #   stripped and /q serves rollup-only (no raw stitching; results
+    #   tagged "degraded": "rollup-only"; queries the tier cannot serve
+    #   get 503 + Retry-After). At 2N: 503 + Retry-After.
     ingest_rate: float = 0.0
     ingest_burst_s: float = 2.0
     ingest_queue_points: int = 0
@@ -207,8 +213,9 @@ class Config:
     trace_sample_n: int = 0
 
     # Replicas (serve/tailer.py, ROADMAP item 10a):
-    # - role: "writer" (the single ingesting daemon) or "replica" (a
-    #   read-only daemon that tails the writer's WAL).
+    # - role: "writer" (the single ingesting daemon), "replica" (a
+    #   read-only daemon that tails the writer's WAL) or "router" (the
+    #   storage-free front door over the replicas, serve/router.py).
     # - max_staleness_ms: the replica staleness contract; a replica whose
     #   last successful catch-up is older answers every /q with a
     #   "degraded": "stale" tag and reports unhealthy at /healthz. 0
@@ -223,9 +230,53 @@ class Config:
     #   mutation once a promotion bumps the persisted epoch past its own.
     # - cluster_owner: this daemon's label in EPOCH.json bumps.
     # - epoch_check_interval_s: the zombie guard's stat cadence.
+    # - writer_grace_ms (router role): how long the writer's /healthz must
+    #   stay dead before the router promotes a replica. 0 leaves
+    #   promotion to an operator's /promote.
     cluster: bool = False
     cluster_owner: str | None = None
     epoch_check_interval_s: float = 0.05
+    writer_grace_ms: float = 0.0
+
+    # Multi-writer sharding (cluster/ownership.py; router role only):
+    # - router_writers: writer base URLs. With more than one, the router
+    #   routes ingest by the series-hash ownership map and fans each read
+    #   over its slot's owner history (the answers merge).
+    # - cluster_map: the CLUSTER.json path; a missing file is created as
+    #   an equal split over router_writers.
+    # - cluster_slots: hash-space slots of a newly created map.
+    router_writers: tuple = ()
+    cluster_map: str | None = None
+    cluster_slots: int = 64
+    # The router's bounded result cache: full-service /q answers keyed by
+    # (normalized query, ownership epoch, staleness bound), expiring after
+    # router_rcache_ms. 0 entries: off.
+    router_rcache: int = 0
+    router_rcache_ms: float = 1000.0
+
+    # Query router (serve/router.py; role="router" only):
+    # - router_backends: replica base URLs ("http://host:port").
+    # - writer_url: where forwarded telnet puts go (None: refused).
+    # - router_deadline_ms: one budget a request; each hop gets a share of
+    #   what remains.
+    # - router_retries / router_backoff_ms: more attempts on the next
+    #   replica after a failed or expired hop, with capped exponential
+    #   backoff.
+    # - router_hedge_ms: a duplicate hop to the next replica when the
+    #   first is slower than this; the first answer wins, the loser is
+    #   cancelled. 0 derives the delay from the observed p95 hop latency;
+    #   negative disables hedging.
+    # - probe_interval_s / router_eject_after: the /healthz probe cadence
+    #   and the consecutive failures that eject a replica from rotation
+    #   (readmitted on the next healthy probe).
+    router_backends: tuple = ()
+    writer_url: str | None = None
+    router_deadline_ms: float = 10_000.0
+    router_retries: int = 2
+    router_backoff_ms: float = 50.0
+    router_hedge_ms: float = 0.0
+    probe_interval_s: float = 1.0
+    router_eject_after: int = 3
 
     # network
     port: int = 4242
@@ -234,9 +285,13 @@ class Config:
         default_factory=lambda: 2 * multiprocessing.cpu_count())
 
 
-def resolve_device(name: str) -> torch.device:
+def resolve_device(name: str) -> "torch.device":
     """``name`` as a torch device, refusing a CUDA device without a card:
-    the port runs where its caller asked or not at all."""
+    the port runs where its caller asked or not at all. torch is imported
+    here, not with the module, so the router's chain (``tools/cli.py``
+    ``tsd --role router``) reads its Config without loading torch."""
+    import torch
+
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

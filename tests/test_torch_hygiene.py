@@ -354,3 +354,69 @@ def test_replica_slice_lives_in_the_port():
             if fn.endswith(".py"):
                 path = os.path.join(d, fn)
                 assert banned.search(open(path).read()) is None, path
+
+
+_ROUTER_CHAIN = """
+import sys
+import opentsdb_tpu_torch.cluster.ownership
+import opentsdb_tpu_torch.cluster.promote
+import opentsdb_tpu_torch.serve.router as router
+from opentsdb_tpu_torch.tools import cli
+args = cli.build_parser().parse_args([
+    "tsd", "--role", "router", "--port", "0",
+    "--backends", "http://127.0.0.1:1,http://127.0.0.1:2",
+    "--writer-url", "http://127.0.0.1:3", "--writer-grace-ms", "500"])
+server = router.RouterServer(cli.router_config(args))
+assert server.promotion is not None and len(server.backends) == 2
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("torch", "jax", "jaxlib")
+             or m.startswith(("opentsdb_tpu.", "opentsdb_tpu_torch.core",
+                              "opentsdb_tpu_torch.storage",
+                              "opentsdb_tpu_torch.server"))))
+"""
+
+
+def test_router_chain_loads_no_torch_jax_or_storage():
+    """``tsd --role router`` up to its RouterServer (the router, the
+    ownership map, the promotion manager, the CLI and its Config) loads
+    neither torch nor jax, nor the storage engine, the core or the
+    daemon: a router restarts in well under a second."""
+    out = subprocess.run([sys.executable, "-c", _ROUTER_CHAIN],
+                         capture_output=True, text=True, cwd=ROOT,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_router_slice_lives_in_the_port():
+    """The router slice is the port's own: each module names the JAX
+    module it mirrors, no module of the port names the JAX package's
+    cluster, serve or tools modules, and the serve matrix spawns the
+    port's CLI, never the JAX one or scripts/."""
+    import importlib
+    import re
+    mirrors = {
+        "opentsdb_tpu_torch.cluster.ownership":
+            "opentsdb_tpu/cluster/ownership.py",
+        "opentsdb_tpu_torch.cluster.promote":
+            "opentsdb_tpu/cluster/promote.py",
+        "opentsdb_tpu_torch.serve.router": "opentsdb_tpu/serve/router.py",
+        "opentsdb_tpu_torch.tools.servematrix": "scripts/servematrix.py",
+    }
+    for mod, src in mirrors.items():
+        assert src in importlib.import_module(mod).__doc__, mod
+    banned = re.compile(r"opentsdb_tpu\.(cluster|serve|tools)\b")
+    pkg = os.path.join(ROOT, "opentsdb_tpu_torch")
+    for d, dirs, files in os.walk(pkg):
+        dirs[:] = [x for x in dirs if x not in ("_build", "__pycache__")]
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(d, fn)
+                assert banned.search(open(path).read()) is None, path
+    from opentsdb_tpu_torch.tools import servematrix
+    assert servematrix.CLI == "opentsdb_tpu_torch.tools.cli"
+    src = open(servematrix.__file__).read()
+    assert "sys.path.insert" not in src and "import scripts" not in src
+    from opentsdb_tpu_torch.tools import cli
+    assert cli.build_parser().parse_args(
+        ["tsd", "--role", "router"]).device == "cuda"

@@ -750,7 +750,7 @@ class _FakeServer:
     (["--rollups", "--rollup-device-fold"], ((3600, 86400), "device-f64")),
     ([], None)])
 def test_cli_tsd_rollup_flags(tmp_path, monkeypatch, flags, want):
-    monkeypatch.setattr(cli, "TSDServer", _FakeServer)
+    monkeypatch.setattr("opentsdb_tpu_torch.server.tsd.TSDServer", _FakeServer)
     monkeypatch.setattr(cli, "tune_for_ingest", lambda: None)
     _FakeServer.seen.clear()
     wal = str(tmp_path / "wal")
@@ -774,7 +774,7 @@ def test_cli_adopts_an_existing_tier(tmp_path, monkeypatch, shards):
     ingest(t, 0)
     t.shutdown()
     wal = path if shards else os.path.join(path, "wal")
-    monkeypatch.setattr(cli, "TSDServer", _FakeServer)
+    monkeypatch.setattr("opentsdb_tpu_torch.server.tsd.TSDServer", _FakeServer)
     monkeypatch.setattr(cli, "tune_for_ingest", lambda: None)
     _FakeServer.seen.clear()
     assert cli.main(["tsd", "--device", "cpu", "--port", "0", "--wal",

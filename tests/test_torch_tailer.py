@@ -541,7 +541,9 @@ def test_fault_route_arms_and_clears(tmp_path):
 def test_cmd_tsd_roles(monkeypatch, tmp_path):
     """``tsd --role replica`` opens the store read-only under the role's
     5,000 ms contract and attaches a started tailer; ``--role router``
-    answers that it is not ported yet; ``--read-only`` polls every 5 s."""
+    starts a ``RouterServer`` over ``--backends`` without opening a store;
+    ``--read-only`` polls every 5 s."""
+    import opentsdb_tpu_torch.serve.router as prouter
     from opentsdb_tpu_torch.tools import cli as pcli
     w = make_writer(tmp_path)
     ingest(w, 10)
@@ -573,8 +575,24 @@ def test_cmd_tsd_roles(monkeypatch, tmp_path):
         def request_shutdown(self):
             pass
 
+    class FakeRouter:
+        port = 0
+
+        def __init__(self, cfg):
+            seen["router"] = cfg
+
+        async def start(self):
+            pass
+
+        async def serve_forever(self):
+            pass
+
+        def request_shutdown(self):
+            pass
+
     monkeypatch.setattr(pcli, "tune_for_ingest", lambda: None)
-    monkeypatch.setattr(pcli, "TSDServer", FakeServer)
+    monkeypatch.setattr("opentsdb_tpu_torch.server.tsd.TSDServer", FakeServer)
+    monkeypatch.setattr(prouter, "RouterServer", FakeRouter)
     base = ["tsd", "--device", "cpu", "--port", "0",
             "--wal", str(tmp_path / "wal")]
     try:
@@ -584,6 +602,11 @@ def test_cmd_tsd_roles(monkeypatch, tmp_path):
         assert pcli.main(base + ["--read-only"]) == 0
         assert seen["store_read_only"] and not seen["tailer"]
         assert seen["cfg"] == ("writer", 0.0, 5.0)
-        assert pcli.main(base + ["--role", "router"]) == 2
+        assert pcli.main(["tsd", "--port", "0", "--role", "router",
+                          "--backends", "http://127.0.0.1:1",
+                          "--writer-url", "http://127.0.0.1:2"]) == 0
+        cfg = seen["router"]
+        assert (cfg.role, cfg.router_backends, cfg.writer_url) == (
+            "router", ("http://127.0.0.1:1",), "http://127.0.0.1:2")
     finally:
         w.shutdown()

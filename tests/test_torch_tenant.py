@@ -936,7 +936,7 @@ def test_cmd_tsd_tunes_gc_once_after_the_store_opens(monkeypatch, tmp_path):
     monkeypatch.setattr(pcli, "open_tsdb", recording_open)
     monkeypatch.setattr(pcli, "tune_for_ingest",
                         lambda: calls.append("tune"))
-    monkeypatch.setattr(pcli, "TSDServer", FakeServer)
+    monkeypatch.setattr("opentsdb_tpu_torch.server.tsd.TSDServer", FakeServer)
     assert pcli.main(["tsd", "--device", "cpu", "--port", "0",
                       "--wal", str(tmp_path / "wal"),
                       "--tenant-max-series", "3",
