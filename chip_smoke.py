@@ -411,6 +411,25 @@
    put (fenced), and, its listener back on its port, be demoted by the
    router and tail the promoted writer's point. One ``router`` stdout
    line.
+5h. Mesh phase (ROADMAP item 11a), beside the path phase in a child
+   process (``mesh_phase``): the corpus into a TSDB whose resident window
+   is the mesh-sharded one (``devwindow_shards`` MESH_D = 4, each shard a
+   quarter of the budget), behind a daemon whose executor holds
+   ``Mesh([cuda:0] * 4)``: four logical shards of one card, so the phase
+   measures the per-shard work and the combines and no interconnect. The
+   ten ``/q`` shapes resident (``_dw_sharded_stage``) against REFERENCE
+   (max exactly, the rest at the resident tolerance); ``/healthz`` and
+   ``/api/queries`` report width 4; ``/api/mesh/reshard`` to 2 and back to
+   4 while a thread's telnet puts flow (each reshard's ms; the ten answers
+   unchanged; every acknowledged flow point served resident afterwards);
+   then, the window set aside, the scan legs MESH_SCAN (series-sharded
+   day, multigroup day and ``{host=*}`` week, time-sharded
+   ``{host=h00001}`` week), each dispatched through the plane and held
+   against the same TSDB's single-device executor, the two combine
+   kernels' launches counted there and every payload they took held bit
+   for bit against their plain versions; the plane's compile cache live.
+   The kernel phase times both kernels at those shapes (MESH_CASES,
+   ``mesh_kernel_phase``). One ``mesh`` stdout line.
 6. Refusal phase: a small second daemon on the card with
    ``tenant_max_series=1`` must refuse a new series over telnet (the bulk
    path's and the per-line path's declared lines) and over ``/api/put``
@@ -426,8 +445,10 @@
 8. Prints the card line first; at the end the per-query, sketch,
    ingest, profiler, tenants, restart, native (build seconds and calls
    per C site, per stage, and the WAL replay), sharded, obs, budget and
-   launch-floor lines, the compressed, forecast, rollup, replica and
-   router lines, the kernels line (twelve kernels) and, last, the ok line.
+   launch-floor lines, the compressed, forecast, rollup, replica, router
+   and mesh lines, the kernels line (fourteen kernels; the two mesh
+   combines' path is ``mesh``, their other shapes under ``other_cases``)
+   and, last, the ok line.
    In the kernels line each kernel's top-level numbers are its first
    path's: the segment kernels' and the select's the resident path's
    (at the chunk-fold shape and the columns select at one quantile),
@@ -449,12 +470,13 @@
    in the details line.
 
 Overlap: after the kernel phase the sharded phase (with its writer-pause
-A/B) and the rollup phase each run in a child process of this script
+A/B), the rollup phase and the mesh phase each run in a child process of
+this script
 (``--child <phase>``) while the path phase runs here, and so do the two
 kernel-count children (the fold's and the smoothing kernels', ``python
--c``, started once every kernel case is timed); the sharded child waits
-for the path phase's answers (REFERENCE, written to a shared file)
-before it compares its own. All are joined before the compressed phase,
+-c``, started once every kernel case is timed); the sharded and mesh
+children wait for the path phase's answers (REFERENCE, written to a
+shared file) before they compare their own. All are joined before the compressed phase,
 whose decode-kernel timings so run on an otherwise idle card. They share
 the machine's cores and the card while they overlap, so their host times
 are not those of a phase run alone. Each child dies with this process
@@ -505,9 +527,11 @@ from opentsdb_tpu_torch.fault import faultpoints
 from opentsdb_tpu_torch.models import forecast as mforecast
 from opentsdb_tpu_torch.models import smoothing as msmooth
 from opentsdb_tpu_torch.ops import (block_decode, cuda_build, interp_moments,
-                                    kernels as wk, masked_select, oracle,
-                                    rollup_fold, segment_reduce, sketches,
-                                    smoothing)
+                                    kernels as wk, masked_select,
+                                    mesh_combine, oracle, rollup_fold,
+                                    segment_reduce, sketches, smoothing)
+from opentsdb_tpu_torch.parallel import compile as mesh_plane
+from opentsdb_tpu_torch.parallel.mesh import Mesh
 from opentsdb_tpu_torch.query.aggregators import Aggregators
 from opentsdb_tpu_torch.query.executor import (QueryExecutor, QueryResult,
                                                QuerySpec, _filter_key,
@@ -640,7 +664,7 @@ LOG_TAG = ""
 # The directory the path phase writes REFERENCE into and the children
 # write their results into (see "Overlap" in the module docstring).
 SHARE_DIR = ""
-CHILD_PHASES = ("sharded", "rollup")
+CHILD_PHASES = ("sharded", "rollup", "mesh")
 REFERENCE_WAIT_S = 900
 
 
@@ -721,6 +745,8 @@ def child_main(phase: str, share: str, start: float, parent: int) -> int:
         out = sharded_phase(ts, vals)
         REFERENCE.clear()
         out["writer_pause"] = writer_pause_phase(ts, vals)
+    elif phase == "mesh":
+        out = mesh_phase(ts, vals)
     else:
         out = rollup_phase(ts, vals)
     write_json(os.path.join(share, f"{phase}.json"),
@@ -1185,8 +1211,12 @@ def select_interp_phase(ts: np.ndarray, vals: np.ndarray) -> list:
 class Daemon:
     """The port's TSD server on loopback, on its own event-loop thread."""
 
-    def __init__(self, tsdb: TSDB) -> None:
+    def __init__(self, tsdb: TSDB, executor=None) -> None:
         self.server = TSDServer(tsdb)
+        if executor is not None:
+            # An executor of the smoke's own (the mesh phase's logical
+            # shards on one card, which the daemon's --mesh refuses).
+            self.server.executor = executor
         self.loop = asyncio.new_event_loop()
         self._started = threading.Event()
         self._error: BaseException | None = None
@@ -6600,6 +6630,421 @@ def rollup_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Mesh phase: the serving mesh in one process (ROADMAP item 11a)
+# ---------------------------------------------------------------------------
+
+# D logical shards of one card: per-shard work and the combines, no
+# interconnect.
+MESH_D = 4
+# The scan legs, each with its range from BASE: series-sharded (a group
+# of >= D series), multigroup (groups split across the shards; {host=*}
+# is the combine kernel's full width) and time-sharded (one series, >= 4
+# buckets a shard).
+MESH_SCAN = [("sum:1h-avg:bench.metric", DAY),
+             ("p95:1h-avg:bench.metric", DAY),
+             ("sum:1h-avg:bench.metric{dc=*}", DAY),
+             ("p95:1h-avg:bench.metric{dc=*}", DAY),
+             ("sum:1h-avg:bench.metric{host=*}", SPAN),
+             ("sum:rate:1h-avg:bench.metric{host=h00001}", SPAN),
+             ("p95:1h-avg:bench.metric{host=h00001}", SPAN)]
+MESH_KERNELS = ("moment_combine", "tile_carries")
+MESH_WHERE = {
+    "moment_combine": ("mesh_combine.cu",
+                       "opentsdb_tpu/parallel/sharded.py:114"),
+    "tile_carries": ("mesh_combine.cu",
+                     "opentsdb_tpu/parallel/timeshard.py:79")}
+# The kernels' shapes on the scan legs (executor padding: groups and
+# buckets to powers of two): (agg, D, C) of the moment combine and
+# (mode, D, S) of the carries.
+MESH_CASES = {
+    ("moment_combine", "{host=*} week"):
+        ("sum", MESH_D, _pad_size(SERIES + TELNET_SERIES)
+         * _pad_size(SPAN // INTERVAL + 1)),
+    ("moment_combine", "{dc=*} day"):
+        ("sum", MESH_D, _pad_size(10) * _pad_size(DAY // INTERVAL + 1)),
+    ("tile_carries", "{host=h00001} week"): (0, MESH_D, _pad_size(1)),
+    # timeshard_rate's predecessor search: the same kernel's other mode,
+    # at the same shape; no executor leg runs it.
+    ("tile_carries", "timeshard_rate (mode 1)"): (1, MESH_D, _pad_size(1)),
+}
+MESH_FLOW_SERIES = 8
+
+
+def mesh_launches() -> dict:
+    return {"moment_combine": mesh_combine.moment_combine.launches,
+            "tile_carries": mesh_combine.tile_carries.launches}
+
+
+def zero_mesh_launches() -> None:
+    mesh_combine.moment_combine.launches = 0
+    mesh_combine.tile_carries.launches = 0
+
+
+def mesh_partials(agg: str, D: int, C: int, seed: int) -> tuple:
+    """[D, C] partial planes as a shard's group stage makes them (counts
+    with empty cells, sums, centered m2, min, max, any flags), from a
+    seed, on the card; the planes ``agg`` does not read are None."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(0, 40, (D, C)).astype(np.float32)
+    total = (rng.normal(100, 5, (D, C)) * n).astype(np.float32)
+    m2 = (rng.random((D, C)) * n).astype(np.float32)
+    mn = np.where(n > 0, rng.normal(90, 3, (D, C)), np.inf)
+    mx = np.where(n > 0, rng.normal(110, 3, (D, C)), -np.inf)
+    want = mesh_combine.needs(agg)
+    planes = {"total": total, "m2": m2, "min": mn, "max": mx}
+    dev = torch.device(DEVICE)
+    out = [torch.from_numpy(n).to(dev)]
+    for k in ("total", "m2", "min", "max"):
+        out.append(torch.from_numpy(planes[k].astype(np.float32)).to(dev)
+                   if k in want else None)
+    out.append(torch.from_numpy((n > 0).astype(np.int32)).to(dev))
+    return tuple(out)
+
+
+def mesh_summaries(mode: int, D: int, S: int, seed: int) -> torch.Tensor:
+    """[D, S, 4] int32 tile summaries (float values as their bits), some
+    series absent from whole tiles."""
+    rng = np.random.default_rng(seed)
+    present = rng.random((D, S)) < 0.7
+    rows = np.zeros((D, S, 4), np.int32)
+    v = rng.normal(100, 5, (D, S, 2)).astype(np.float32).view(np.int32)
+    if mode == 0:
+        base = (np.arange(D) * 64)[:, None]
+        rows[:, :, 0] = np.where(present, base + rng.integers(0, 64, (D, S)),
+                                 -1)
+        rows[:, :, 2] = np.where(present, base + rng.integers(0, 64, (D, S)),
+                                 2**31 - 1)
+        rows[:, :, 1], rows[:, :, 3] = v[:, :, 0], v[:, :, 1]
+    else:
+        rows[:, :, 0] = present
+        rows[:, :, 1] = (np.arange(D) * 151200)[:, None] + rng.integers(
+            0, 151200, (D, S))
+        rows[:, :, 2] = v[:, :, 0]
+    return torch.from_numpy(rows).to(DEVICE)
+
+
+def mesh_kernel_phase() -> list:
+    """The two combine kernels against their plain versions at the scan
+    legs' shapes (MESH_CASES), bit for bit, timed as the kernel phase
+    times the others. Inputs are made from a seed at those shapes; the
+    mesh child holds the kernels bit for bit on the legs' own payloads.
+    Bound: bytes (each plane the kernel reads, once; each output written
+    once); no single PyTorch call computes either function."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=DEVICE)
+    results = []
+    for (name, stage), (a, D, X) in MESH_CASES.items():
+        if name == "moment_combine":
+            args = mesh_partials(a, D, X, seed=X)
+            got = mesh_combine.moment_combine(*args, agg=a)
+            want = mesh_combine.moment_combine_plain(*args, a)
+
+            def fn(args=args, a=a):
+                return mesh_combine.moment_combine(*args, agg=a)
+
+            def plain(args=args, a=a):
+                return mesh_combine.moment_combine_plain(*args, a)
+            # The planes the aggregator reads, and the any flags.
+            planes = len(mesh_combine.needs(a)) + 1
+            nbytes = planes * 4 * D * X + 5 * X
+            extra = {"agg": a, "D": D, "cells": X}
+        else:
+            rows = mesh_summaries(a, D, X, seed=X + a)
+            got = (mesh_combine.tile_carries(rows, a),)
+            want = (mesh_combine.tile_carries_plain(rows, a),)
+
+            def fn(rows=rows, a=a):
+                return mesh_combine.tile_carries(rows, a)
+
+            def plain(rows=rows, a=a):
+                return mesh_combine.tile_carries_plain(rows, a)
+            nbytes = 16 * D * X * 2
+            extra = {"mode": a, "D": D, "series": X}
+        torch.cuda.synchronize()
+        if not all(same_bits(g, w) for g, w in zip(got, want)):
+            fail(f"{name} [{stage}]: the kernel and its plain version "
+                 f"differ")
+        b_ms, b_by = bound_ms(nbytes, D * X)
+        res = {"name": name, "stage": stage, **extra, "bytes": nbytes,
+               "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
+               "library": NO_LIBRARY}
+        results.append(time_case(res, fn, plain, None, flush))
+    del flush
+    torch.cuda.empty_cache()
+    return results
+
+
+def mesh_tap(calls: list):
+    """Wrap the combine wrappers so each call's arguments are kept (for
+    the bit-for-bit check on the legs' own payloads); returns the
+    restore function."""
+    orig_mc, orig_tc = mesh_combine.moment_combine, mesh_combine.tile_carries
+
+    def mc(*args, agg):
+        calls.append(("moment_combine", [None if x is None else x.clone()
+                                         for x in args], agg))
+        return orig_mc(*args, agg=agg)
+
+    def tc(rows, mode):
+        calls.append(("tile_carries", [rows.clone()], mode))
+        return orig_tc(rows, mode)
+
+    # The wrappers count their launches on the module's name, which is
+    # the tap while it is in: it carries the counts and hands them back.
+    mc.launches, tc.launches = orig_mc.launches, orig_tc.launches
+    mesh_combine.moment_combine, mesh_combine.tile_carries = mc, tc
+
+    def restore():
+        orig_mc.launches, orig_tc.launches = mc.launches, tc.launches
+        mesh_combine.moment_combine = orig_mc
+        mesh_combine.tile_carries = orig_tc
+    return restore
+
+
+def mesh_checks(calls: list) -> list:
+    """Each captured call's kernel against its plain version, bit for
+    bit, and its shape against the kernel phase's cases (run after the
+    tap is gone and the path's launches are read)."""
+    out = []
+    shapes = {(n, v[0], v[1], v[2]) for (n, _), v in MESH_CASES.items()}
+    for name, args, a in calls:
+        if name == "moment_combine":
+            got = mesh_combine.moment_combine(*args, agg=a)
+            want = mesh_combine.moment_combine_plain(*args, a)
+            D, X = args[0].shape
+        else:
+            got = (mesh_combine.tile_carries(args[0], a),)
+            want = (mesh_combine.tile_carries_plain(args[0], a),)
+            D, X = args[0].shape[:2]
+        torch.cuda.synchronize()
+        equal = all(same_bits(g, w) for g, w in zip(got, want))
+        if not equal:
+            fail(f"{name} on a mesh leg's payload ({a}, {D} x {X}): the "
+                 f"kernel and its plain version differ")
+        out.append({"name": name, "arg": a, "D": D, "size": X,
+                    "bit_equal": equal, "timed_shape": (name, a, D, X)
+                    in shapes})
+    return out
+
+
+def mesh_flow(port: int, stop: threading.Event, sent: list) -> None:
+    """Telnet puts of MESH_FLOW_SERIES series of ``mesh.flow`` until
+    ``stop``: ten points a series a batch, each batch acknowledged."""
+    t = BASE + SPAN
+    while not stop.is_set():
+        lines = [f"put mesh.flow {t + i} {i} host=f{s}"
+                 for s in range(MESH_FLOW_SERIES) for i in range(10)]
+        said = telnet(port, lines)
+        if "put:" in said:
+            fail(f"mesh flow puts answered: {said[:300]!r}")
+        sent.append(len(lines))
+        t += 10
+
+
+def mesh_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
+    """The serving mesh in one process at full width (ROADMAP item 11a),
+    5h of the module docstring: a TSDB with a MESH_D-shard resident hot
+    set behind a daemon whose executor holds ``Mesh([cuda:0] * MESH_D)``.
+    Resident legs (the ten /q shapes through _dw_sharded_stage, against
+    REFERENCE), a live reshard to 2 and back to MESH_D while telnet puts
+    flow (the answers unchanged, the flow's acknowledged points served
+    resident), then the scan legs (the window set aside) against the same
+    TSDB's single-device executor, the combine kernels launched on them
+    and held bit for bit on their payloads."""
+    t_phase = time.perf_counter()
+    start, end = BASE, BASE + SPAN - 1
+    out: dict = {"shards": MESH_D, "resident": {}, "scan": {},
+                 "reshard": []}
+    mesh = Mesh([DEVICE] * MESH_D)
+    mesh_plane.set_mesh_devices(MESH_D)
+    with tempfile.TemporaryDirectory() as d:
+        tsdb = open_tsdb(Config(auto_create_metrics=True, port=0,
+                                bind="127.0.0.1", device=DEVICE,
+                                enable_sketches=False,
+                                devwindow_shards=MESH_D),
+                         os.path.join(d, "wal"))
+        tune_for_ingest()
+        dw = tsdb.devwindow
+        if getattr(dw, "n_shards", 0) != MESH_D:
+            fail("the mesh TSDB came up without a sharded hot set")
+        ex = QueryExecutor(tsdb, mesh=mesh)
+        daemon = Daemon(tsdb, ex)
+        try:
+            t0 = time.perf_counter()
+            for s in range(SERIES):
+                tsdb.add_batch("bench.metric", ts[s], vals[s],
+                               series_tags(s))
+            tsdb.store.wal_barrier()
+            lines, _ = telnet_corpus_lines()
+            said = telnet(daemon.port, lines)
+            if "put:" in said:
+                fail(f"mesh telnet ingest answered: {said[:300]!r}")
+            dw.flush()
+            points = SERIES * POINTS + len(lines)
+            out["ingest"] = {"points": points,
+                             "s": time.perf_counter() - t0,
+                             "resident_points": dw.resident_points()}
+            if out["ingest"]["resident_points"] != points:
+                fail(f"the sharded window holds "
+                     f"{out['ingest']['resident_points']} of {points}")
+            log(f"mesh ingest: {points} points in "
+                f"{out['ingest']['s']:.1f} s")
+
+            # 1. Resident legs.
+            ref = reference()
+            answers = {}
+            zero_launches()
+            for expr in QUERIES + PCT_QUERIES:
+                run, answers[expr] = http_resident(daemon.port, dw, ex,
+                                                   expr, start, end)
+                exact = expr.startswith("max")
+                want = ref["resident"][expr]
+                out["resident"][expr] = {
+                    "ms": run["wall_ms"], "identical": answers[expr] == want,
+                    "max_rel_diff": same_answer(expr, answers[expr], want,
+                                                exact)}
+            out["launches"] = {"resident": path_launches(
+                "mesh resident path", KERNELS[:3])}
+            health = http_json(daemon.port, "/healthz")
+            queries = http_json(daemon.port, "/api/queries")["mesh"]
+            if (health.get("mesh") or {}).get("width") != MESH_D \
+                    or queries["devices"] != MESH_D \
+                    or (queries["serving"] or {}).get("width") != MESH_D:
+                fail(f"the mesh daemon reports {health.get('mesh')}, "
+                     f"{queries}")
+            out["healthz_mesh"] = health["mesh"]
+            log(f"mesh resident legs against REFERENCE: "
+                f"{json.dumps(out['resident'])}")
+
+            # 2. Reshard while telnet puts flow.
+            stop, sent = threading.Event(), []
+            flow = threading.Thread(target=mesh_flow,
+                                    args=(daemon.port, stop, sent))
+            flow.start()
+            try:
+                while not sent:
+                    time.sleep(0.05)
+                for n in (2, MESH_D):
+                    r0 = time.perf_counter()
+                    status, body = http_get(
+                        daemon.port, f"/api/mesh/reshard?shards={n}")
+                    wall = (time.perf_counter() - r0) * 1e3
+                    if status != 200:
+                        fail(f"reshard to {n}: HTTP {status}: {body[:300]!r}")
+                    got = json.loads(body)
+                    if got["n_shards"] != n:
+                        fail(f"reshard to {n} answered {got}")
+                    out["reshard"].append({**got, "wall_ms": wall,
+                                           "flow_batches": len(sent)})
+                    log(f"reshard to {n}: {got} ({wall:.0f} ms wall)")
+            finally:
+                stop.set()
+                flow.join()
+            zero_launches()
+            out["after_reshard"] = {}
+            for expr in QUERIES + PCT_QUERIES:
+                _, got = http_resident(daemon.port, dw, ex, expr, start,
+                                       end)
+                out["after_reshard"][expr] = same_answer(
+                    expr, got, answers[expr], expr.startswith("max"))
+            flow_points = sum(sent)
+            _, got = http_resident(
+                daemon.port, dw, ex, "zimsum:1h-count:mesh.flow",
+                BASE + SPAN, BASE + SPAN + 10 * len(sent) + 10)
+            served = sum(sum(g["dps"].values()) for g in got)
+            if served != flow_points:
+                fail(f"the flow's {flow_points} acknowledged points, "
+                     f"{served} served resident after the reshards")
+            out["flow"] = {"batches": len(sent), "points": flow_points,
+                           "served_resident": served}
+            health = http_json(daemon.port, "/healthz")["mesh"]
+            if health["width"] != MESH_D or \
+                    health["resident"]["reshards"] != 2:
+                fail(f"after the reshards /healthz says {health}")
+
+            # 3. Scan legs: the window set aside; each leg against the
+            # same TSDB's single-device executor.
+            # The counts are zeroed just before the mesh legs' /q and
+            # read just after; the single-device answers come after that,
+            # so the counts hold the mesh legs' launches and no others.
+            plain = QueryExecutor(tsdb)
+            calls: list = []
+            mesh_got = {}
+            tsdb.devwindow = None
+            try:
+                zero_launches()
+                zero_mesh_launches()
+                restore = mesh_tap(calls)
+                try:
+                    for expr, span in MESH_SCAN:
+                        d0 = mesh_plane._M_DISPATCH.count
+                        got, run, _ = http_union_any(
+                            daemon.port, expr, start, start + span - 1)
+                        dispatches = mesh_plane._M_DISPATCH.count - d0
+                        if dispatches == 0:
+                            fail(f"{expr}: not dispatched through the mesh")
+                        mesh_got[expr] = (got, run["wall_ms"], dispatches)
+                finally:
+                    restore()
+                out["launches"]["mesh"] = {**path_launches(
+                    "mesh scan path", ("segment_sum", "masked_select")),
+                    **mesh_launches()}
+                for name in MESH_KERNELS:
+                    if out["launches"]["mesh"][name] == 0:
+                        fail(f"the mesh scan legs never launched {name}")
+                for expr, span in MESH_SCAN:
+                    got, wall_ms, dispatches = mesh_got[expr]
+                    s0 = time.perf_counter()
+                    want = plain.run(spec_of(expr), start, start + span - 1)
+                    torch.cuda.synchronize()
+                    single_ms = (time.perf_counter() - s0) * 1e3
+                    err = check_answer(expr, got, want, 1e-5,
+                                       "single-device executor")
+                    out["scan"][expr] = {
+                        "ms": wall_ms, "single_device_ms": single_ms,
+                        "groups": len(got), "max_rel_err": err,
+                        "dispatches": dispatches}
+                    log(f"mesh scan leg {expr}: {wall_ms:.0f} ms "
+                        f"(single-device {single_ms:.0f} ms), rel err "
+                        f"{err:g}")
+            finally:
+                tsdb.devwindow = dw
+            del mesh_got
+            out["kernel_checks"] = mesh_checks(calls)
+            del calls
+            cache = http_json(daemon.port, "/api/queries")["mesh"][
+                "compile_cache"]
+            if cache["size"] < 1 or cache["miss"] < 1 \
+                    or cache["devices"] != MESH_D:
+                fail(f"the mesh daemon's compile cache: {cache}")
+            out["compile_cache"] = cache
+        finally:
+            daemon.stop()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"mesh phase: {json.dumps({k: out[k] for k in ('launches', 'reshard', 'flow', 'compile_cache', 'phase_s')})}")
+    return out
+
+
+def http_union_any(port: int, expr: str, start: int,
+                   end: int) -> tuple[list, dict, bytes]:
+    """One /q run on the scan path (every group "rollup": "raw"), with
+    or without a downsampler."""
+    target = "/q?" + urllib.parse.urlencode(
+        {"start": start, "end": end, "m": expr, "json": ""})
+    q0 = time.perf_counter()
+    status, body = http_get(port, target)
+    wall = (time.perf_counter() - q0) * 1e3
+    if status != 200:
+        fail(f"{expr}: HTTP {status}: {body[:300]!r}")
+    answer = json.loads(body)
+    if not answer or any(g["rollup"] != "raw" for g in answer):
+        fail(f"{expr}: not answered by the scan path: "
+             f"{[g.get('rollup') for g in answer]}")
+    return answer, {"wall_ms": wall}, body
+
+
+
 def _catch(fn, errs: list) -> None:
     try:
         fn()
@@ -6641,7 +7086,7 @@ def main() -> int:
     folds, fold_counts = rollup_fold_cases()
     smooth, forecast_counts = smoothing_kernel_cases(ts, vals, next(
         r["ms_device"] for r in kernels if r["name"] == "launch_floor"))
-    kernels += folds + smooth
+    kernels += folds + smooth + mesh_kernel_phase()
     # The kernel-count children run beside the path phase, after every
     # timed case.
     jobs = [start_fold_count(fold_counts),
@@ -6653,8 +7098,8 @@ def main() -> int:
             try:
                 with tempfile.TemporaryDirectory() as wal_dir:
                     path = path_phase(ts, vals, wal_dir)
-                log("path phase done; joining the sharded and rollup "
-                    "phases")
+                log("path phase done; joining the sharded, rollup and "
+                    "mesh phases")
                 done = {p: join_child(p, proc)
                         for p, proc in children.items()}
             finally:
@@ -6668,7 +7113,7 @@ def main() -> int:
                 proc.kill()
                 proc.wait()
             shutil.rmtree(d, ignore_errors=True)
-    sharded, rollup = done["sharded"], done["rollup"]
+    sharded, rollup, mesh = done["sharded"], done["rollup"], done["mesh"]
     log("compressed phase")
     compressed = compressed_phase(ts, vals, path)
     kernels += compressed["kernel_cases"]
@@ -6700,7 +7145,9 @@ def main() -> int:
         "block_decode": {"fused": "week gather (TSF32)"},
         "rollup_fold": {"device fold": ROLLUP_GROUP_STAGE},
         "ewma_scan": {"forecast": "{host=*} 1h"},
-        "holt_winters": {"forecast": "{host=*} 1h, season 24"}}
+        "holt_winters": {"forecast": "{host=*} 1h, season 24"},
+        "moment_combine": {"mesh": "{host=*} week"},
+        "tile_carries": {"mesh": "{host=h00001} week"}}
     where = {
         "segment_sum": ("segment_reduce.cu",
                         "opentsdb_tpu/ops/pallas_kernels.py:77"),
@@ -6718,7 +7165,8 @@ def main() -> int:
                             "opentsdb_tpu/stats/livesketch.py:460"),
         "block_decode": ("block_decode.cu",
                          "opentsdb_tpu/compress/kernels.py:72"),
-        "rollup_fold": ROLLUP_FOLD_WHERE, **SMOOTHING_WHERE}
+        "rollup_fold": ROLLUP_FOLD_WHERE, **SMOOTHING_WHERE,
+        **MESH_WHERE}
     for name, stage in at_replica.items():
         shapes[name] = dict(shapes[name], replica=stage)
     for name, stage in at_router.items():
@@ -6730,6 +7178,7 @@ def main() -> int:
         path["launches"], fused=compressed["launches"],
         forecast=path["forecast"]["launches"],
         replica=replica["launches"], router=router["launches"],
+        mesh=mesh["launches"]["mesh"],
         **{"device fold": {
             "rollup_fold": rollup["device_fold"]["launches"]}})
     line = []
@@ -6752,13 +7201,15 @@ def main() -> int:
                   and not r["stage"].startswith(("replica ", "router "))
                   and name in SKETCH_KERNELS + ("block_decode",
                                                 "rollup_fold")
-                  + tuple(SMOOTHING_WHERE)]
+                  + tuple(SMOOTHING_WHERE) + MESH_KERNELS]
         if others:
             floors = (("chain_floor_ms", "launch_floor_ms", "binds", "share")
                       if name in SMOOTHING_WHERE else ())
             entry["other_cases"] = {
                 r["stage"]: {k: r[k] for k in numbers + floors if k in r}
                 for r in others}
+        if name in MESH_KERNELS:
+            entry["library"] = NO_LIBRARY
         if name in ("block_decode", "rollup_fold") + tuple(
                 SMOOTHING_WHERE):
             entry["library"] = NO_LIBRARY
@@ -6774,7 +7225,7 @@ def main() -> int:
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "kernel_cases": kernels, "path": path,
         "compressed": compressed, "rollup": rollup, "sharded": sharded,
-        "refusal": refusal, "budget": budget}}))
+        "mesh": mesh, "refusal": refusal, "budget": budget}}))
     for expr, q in path["queries"].items():
         print(json.dumps({"query": expr, "plan": "resident", **q,
                           "card": smi}))
@@ -6961,6 +7412,22 @@ def main() -> int:
             for name in sorted({c["name"] for c in
                                 router["kernel_checks"]})},
         "failover": rollup["router"]}, "card": smi}))
+    print(json.dumps({"mesh": {
+        **{k: mesh[k] for k in (
+            "shards", "ingest", "resident", "after_reshard", "reshard",
+            "flow", "scan", "launches", "compile_cache", "healthz_mesh",
+            "phase_s")},
+        "kernel_checks": {name: {
+            "calls": sum(c["name"] == name for c in mesh["kernel_checks"]),
+            "bit_equal": all(c["bit_equal"] for c in mesh["kernel_checks"]
+                             if c["name"] == name),
+            "shapes": sorted({(c["arg"], c["D"], c["size"])
+                              for c in mesh["kernel_checks"]
+                              if c["name"] == name})}
+            for name in MESH_KERNELS},
+        "interconnect": f"not measured: {MESH_D} logical shards of one "
+                        f"card"},
+        "card": smi}))
     print(json.dumps({"window_at_budget": {
         k: budget[k] for k in ("points", "chunks", "resident_bytes",
                                "fill_points_per_s", "queries",

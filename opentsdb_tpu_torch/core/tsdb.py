@@ -65,7 +65,10 @@ then the owning rollup tier) and ``demote`` gives it back.
 ``cluster.epoch`` / ``cluster.fenced`` / ``cluster.fenced_bytes_refused``
 stats lines.
 
-Left out of this slice (off here; see ROADMAP): the mesh-sharded window.
+With ``Config.devwindow_shards`` > 0 the resident window is the
+mesh-sharded one (``storage/devshard.py``): logical shards over the
+mesh's devices (``_devwindow_devices``), warmed at open like the single
+window.
 """
 
 from __future__ import annotations
@@ -188,10 +191,22 @@ class TSDB:
         # which the caller owns.
         if (self.config.device_window and self.config.backend != "cpu"
                 and not read_only):
-            self.devwindow = DeviceWindow(
-                staging_points=self.config.device_window_staging,
-                max_points=self.config.device_window_points,
-                device=self.device)
+            if self.config.devwindow_shards > 0:
+                # Mesh-sharded hot set: logical shards round-robined over
+                # the mesh devices (storage/devshard.py).
+                from opentsdb_tpu_torch.storage.devshard import \
+                    ShardedDeviceWindow
+
+                self.devwindow = ShardedDeviceWindow(
+                    devices=self._devwindow_devices(),
+                    n_shards=self.config.devwindow_shards,
+                    staging_points=self.config.device_window_staging,
+                    max_points=self.config.device_window_points)
+            else:
+                self.devwindow = DeviceWindow(
+                    staging_points=self.config.device_window_staging,
+                    max_points=self.config.device_window_points,
+                    device=self.device)
             self._warm_devwindow()
         if self.config.tenant_accounting and not read_only:
             self._init_tenants()
@@ -206,6 +221,21 @@ class TSDB:
                 from opentsdb_tpu_torch.rollup.tier import RollupTier
 
                 self.rollups = RollupTier(self, self.config)
+
+    def _devwindow_devices(self) -> list:
+        """The device list the sharded hot set pins its shards to: the
+        mesh's (``mesh_shape``) when set, else every device of the TSDB's
+        kind (each card, or the one CPU device). An unbuildable mesh
+        raises, as at the daemon's boot: no quiet single-device
+        placement."""
+        from opentsdb_tpu_torch.parallel.mesh import local_devices
+        from opentsdb_tpu_torch.parallel.plan import (build_mesh,
+                                                      flatten_series_mesh)
+        if self.config.mesh_shape:
+            mesh = flatten_series_mesh(
+                build_mesh(self.config.mesh_shape, device=self.device))
+            return list(mesh.devices)
+        return local_devices(self.device)
 
     def _warm_devwindow(self) -> None:
         """Mirror what storage already holds (the sstable generations and

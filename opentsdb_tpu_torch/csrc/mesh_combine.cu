@@ -1,0 +1,205 @@
+// Cross-shard combines of the mesh execution plane (parallel/compile.py):
+// the two steps where the JAX package's mesh bodies meet across chips.
+//
+// Replaces no Pallas kernel: the JAX package does these steps with XLA
+// collectives inside shard_map bodies. In the port the shards of a mesh
+// run in one process, one after another, and their partials meet on the
+// mesh's first device; each step below is one fused pass where the plain
+// tensor composite is 10-15 small launches.
+//
+// moment_combine_f32 -- the psum / pmin / pmax fan-in of
+// opentsdb_tpu/parallel/sharded.py _sharded_group_body (:114-141) and
+// _sharded_multigroup_body (:234-278), with the body's _finish:
+//   per cell c of C, over the D shards' partials [D, C] (count n, sum,
+//   centered m2, min, max as float32; an int32 any-real flag):
+//     g_n = sum_d n_d, g_total = sum_d total_d (shard order),
+//     g_mean = g_total / max(g_n, 1),
+//     g_m2 = sum_d (m2_d + n_d * (mean_d - g_mean)^2), mean_d =
+//       total_d / max(n_d, 1) (Chan et al.'s pairwise update),
+//     g_min / g_max over the shards (NaN propagates; a strict compare in
+//       shard order decides ties, so -0.0 vs +0.0 follows the order),
+//     mask = any_d != 0 for some d,
+//   then _finish(agg) writes the group value. Only the planes the
+//   aggregator reads are read, and the others may be null: n for avg,
+//   dev and count; total for sum, avg and dev; m2 for dev; min or max.
+//   One thread a cell; the loop over D reads each plane's [D, C] rows at
+//   stride C, so a warp's loads are 32 neighbouring words.
+//   Bound: bytes. Each plane the aggregator reads, and any, is read once
+//   (4 D C bytes each; the m2 leg reads n and total a second time, from
+//   L2), the value and mask written once (5 C bytes); at the {host=*}
+//   week, C = 16,384 x 256 and D = 4, a sum reads total and any, 134 MB,
+//   and writes 21 MB (~46 us at 3.35 TB/s).
+//
+// tile_carries_i32f32 -- the carry selection of
+// opentsdb_tpu/parallel/timeshard.py _cross_tile_edges (:79-122) and of
+// _timeshard_rate_body (:253-324), after the all_gather of the per-tile
+// summaries [D, S, 4] int32 (float values ride as their bits):
+//   mode 0, edges: row (last idx, last value, first idx, first value);
+//     for tile d and series s, the nearest nonempty bucket on an earlier
+//     tile (the largest last idx of tiles d' < d; -1 = none) and on a
+//     later tile (the smallest first idx of tiles d' > d; 2^31-1 = none),
+//     with their values: planes (left_idx, left_val, right_idx,
+//     right_val);
+//   mode 1, rate: row (has, last ts, last value, unused); the nearest
+//     earlier tile holding the series: planes (has_carry, carry_ts,
+//     carry_val, 0).
+//   Selections are argmax / argmin with the first extreme winning (the
+//   JAX argmax), so with no candidate the value of tile 0 is taken, as
+//   there. It only selects, so it equals its plain version bit for bit.
+//   One thread a (tile, series); output [4, D, S] int32.
+//   Bound: bytes, 16 D S in and 16 D S out.
+//
+// Rounding: every operation is an _rn intrinsic, so nvcc never contracts
+// a multiply and an add into an FMA and the division and square root are
+// the correctly rounded ones; the plain versions (ops/mesh_combine.py)
+// round each operation the same way, so the two agree bit for bit.
+// Never build this file with --use_fast_math.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int32_t kBig = 2147483647;
+
+enum Agg { kSum = 0, kMin = 1, kMax = 2, kAvg = 3, kDev = 4, kCount = 5 };
+
+__global__ void __launch_bounds__(kThreads)
+moment_combine_kernel(const float* __restrict__ n,
+                      const float* __restrict__ total,
+                      const float* __restrict__ m2,
+                      const float* __restrict__ mn,
+                      const float* __restrict__ mx,
+                      const int32_t* __restrict__ any, int32_t D,
+                      int64_t C, int32_t agg, float* __restrict__ out,
+                      uint8_t* __restrict__ mask) {
+  for (int64_t c = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; c < C;
+       c += (int64_t)gridDim.x * blockDim.x) {
+    bool g_any = any[c] != 0;
+    for (int32_t d = 1; d < D; ++d) g_any |= any[d * C + c] != 0;
+    // Only avg, dev and count read the counts: sum, min and max take
+    // their value from total, min or max and their mask from any.
+    float g_n = 0.0f;
+    if (agg == kAvg || agg == kDev || agg == kCount) {
+      g_n = n[c];
+      for (int32_t d = 1; d < D; ++d) g_n = __fadd_rn(g_n, n[d * C + c]);
+    }
+    const float safe = fmaxf(g_n, 1.0f);
+    float v = g_n;
+    if (agg == kSum || agg == kAvg || agg == kDev) {
+      float g_t = total[c];
+      for (int32_t d = 1; d < D; ++d) g_t = __fadd_rn(g_t, total[d * C + c]);
+      v = agg == kAvg ? __fdiv_rn(g_t, safe) : g_t;
+      if (agg == kDev) {
+        const float g_mean = __fdiv_rn(g_t, safe);
+        float acc = 0.0f;
+        for (int32_t d = 0; d < D; ++d) {
+          const float nd = n[d * C + c];
+          const float mean_d = __fdiv_rn(total[d * C + c], fmaxf(nd, 1.0f));
+          const float dd = __fsub_rn(mean_d, g_mean);
+          const float term =
+              __fadd_rn(m2[d * C + c], __fmul_rn(nd, __fmul_rn(dd, dd)));
+          acc = d == 0 ? term : __fadd_rn(acc, term);
+        }
+        // clamp(m2, min=0) keeps a NaN, as torch.clamp does.
+        const float m = acc < 0.0f ? 0.0f : acc;
+        v = __fsqrt_rn(__fdiv_rn(m, safe));
+      }
+    } else if (agg == kMin) {
+      v = mn[c];
+      for (int32_t d = 1; d < D; ++d) {
+        const float x = mn[d * C + c];
+        if (x < v || isnan(x)) v = x;
+      }
+    } else if (agg == kMax) {
+      v = mx[c];
+      for (int32_t d = 1; d < D; ++d) {
+        const float x = mx[d * C + c];
+        if (x > v || isnan(x)) v = x;
+      }
+    }
+    out[c] = v;
+    mask[c] = g_any ? 1 : 0;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+tile_carries_kernel(const int4* __restrict__ rows, int32_t D, int64_t S,
+                    int32_t mode, int32_t* __restrict__ out) {
+  const int64_t cells = (int64_t)D * S;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+       i < cells; i += (int64_t)gridDim.x * blockDim.x) {
+    const int32_t d = (int32_t)(i / S);
+    const int64_t s = i - (int64_t)d * S;
+    int32_t o0, o1, o2, o3;
+    if (mode == 0) {
+      // Left: argmax over d' of (d' < d and last >= 0 ? last : -1).
+      int32_t lbest = 0, lsel = 0, rbest = 0, rsel = 0;
+      for (int32_t e = 0; e < D; ++e) {
+        const int4 r = rows[(int64_t)e * S + s];
+        const int32_t lc = (e < d && r.x >= 0) ? r.x : -1;
+        const int32_t rc = (e > d && r.z < kBig) ? r.z : kBig;
+        if (e == 0 || lc > lbest) { lbest = lc; lsel = e; }
+        if (e == 0 || rc < rbest) { rbest = rc; rsel = e; }
+      }
+      o0 = lbest;
+      o1 = rows[(int64_t)lsel * S + s].y;
+      o2 = rbest;
+      o3 = rows[(int64_t)rsel * S + s].w;
+    } else {
+      int32_t best = 0, sel = 0;
+      for (int32_t e = 0; e < D; ++e) {
+        const int4 r = rows[(int64_t)e * S + s];
+        const int32_t c = (e < d && r.x > 0) ? e : -1;
+        if (e == 0 || c > best) { best = c; sel = e; }
+      }
+      const int4 r = rows[(int64_t)sel * S + s];
+      o0 = best >= 0 ? 1 : 0;
+      o1 = r.y;
+      o2 = r.z;
+      o3 = 0;
+    }
+    out[i] = o0;
+    out[cells + i] = o1;
+    out[2 * cells + i] = o2;
+    out[3 * cells + i] = o3;
+  }
+}
+
+int blocks_for(int64_t cells) {
+  int64_t b = (cells + kThreads - 1) / kThreads;
+  if (b > 65535 * 8) b = 65535 * 8;
+  return (int)(b < 1 ? 1 : b);
+}
+
+}  // namespace
+
+// Planes are [D, C] row-major (shard-major); n, total, m2, mn and mx may
+// be null when agg does not read them (see the kernel's comment). out [C] float32, mask [C] uint8 (0 / 1). Returns the CUDA error
+// of the launch (0 = cudaSuccess).
+extern "C" int moment_combine_f32(const float* n, const float* total,
+                                  const float* m2, const float* mn,
+                                  const float* mx, const int32_t* any,
+                                  int32_t D, int64_t C, int32_t agg,
+                                  float* out, uint8_t* mask, void* stream) {
+  if (C > 0 && D > 0) {
+    moment_combine_kernel<<<blocks_for(C), kThreads, 0,
+                            (cudaStream_t)stream>>>(n, total, m2, mn, mx,
+                                                    any, D, C, agg, out,
+                                                    mask);
+  }
+  return (int)cudaGetLastError();
+}
+
+// rows [D, S, 4] int32 (16-byte aligned), out [4, D, S] int32.
+extern "C" int tile_carries_i32f32(const int32_t* rows, int32_t D, int64_t S,
+                                   int32_t mode, int32_t* out,
+                                   void* stream) {
+  if (S > 0 && D > 0) {
+    tile_carries_kernel<<<blocks_for((int64_t)D * S), kThreads, 0,
+                          (cudaStream_t)stream>>>(
+        reinterpret_cast<const int4*>(rows), D, S, mode, out);
+  }
+  return (int)cudaGetLastError();
+}

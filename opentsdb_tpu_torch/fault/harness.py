@@ -60,7 +60,13 @@ checkpoints and fsck's block audit run the v4 writers and readers again.
 The ``sst-block-*`` rows cut or kill inside a compressed block
 (``sst.write.block``).
 
-Left out (ROADMAP queue A): ``meshreshard`` (item 11).
+The ``meshreshard`` kind (a child, like ``crash``) runs the workload
+through a 2-shard resident hot set (``storage/devshard.py``) on the
+device backend and reshards it to 4 halfway; the armed
+``mesh.reshard.commit`` site kills it at the swap gate. The verifier then
+reopens, rebuilds a coherent sharded window, serves fresh appends from it
+with scan parity, and finishes the interrupted reshard with the same
+parity (``_check_resident_parity``).
 
 Run the port's matrix (or one scenario); ``--device cpu`` on a host
 without a card::
@@ -127,7 +133,9 @@ class Scenario:
     n_ops: int = 36
     delete_heavy: bool = False
     bug: str | None = None
-    # "crash" (a child process) | "replica" / "promote" (in-process).
+    # "crash" (a child process) | "replica" / "promote" (in-process) |
+    # "meshreshard" (a child process with the sharded hot set on the
+    # device backend, dying at the reshard commit gate).
     kind: str = "crash"
     # Tenant accounting tier (-1 = the Config default exact cutoff): 0
     # puts every tenant on the HLL tier, so the snapshot rows also cover
@@ -275,17 +283,23 @@ def open_store(dirpath: str, shards: int, read_only: bool = False):
 def open_tsdb(dirpath: str, shards: int, rollups: bool = True,
               tenant_cutoff: int = -1, wal_group_ms: float = 0.0,
               device: str = "cuda", codec: str = "none",
-              incremental: bool = True) -> TSDB:
+              incremental: bool = True, mesh: bool = False) -> TSDB:
     """The writer TSDB with the harness's profile: the float64 host
     backend, sketches and the device window off, compactions off and no
     background thread (a deterministic schedule), and with ``rollups``
     the JAX harness's tier: catch-up sync (a reopen finishes its rebuild
     before verify queries) and sketch columns at 1h too. Tenant
     accounting stays on (its default): every crash scenario is also a
-    recovery check of the tenant snapshot."""
-    cfg = Config(device=device, backend="cpu", auto_create_metrics=True,
+    recovery check of the tenant snapshot.
+
+    ``mesh=True`` (the meshreshard rows only) runs the device backend with
+    a 2-shard resident hot set, so the ``mesh.reshard.commit`` site is
+    reachable."""
+    cfg = Config(device=device, backend="device" if mesh else "cpu",
+                 auto_create_metrics=True,
                  enable_compactions=False, enable_sketches=False,
-                 device_window=False, wal_group_ms=wal_group_ms,
+                 device_window=mesh, devwindow_shards=2 if mesh else 0,
+                 wal_group_ms=wal_group_ms,
                  sstable_codec=codec, enable_rollups=rollups,
                  rollup_catchup="sync",
                  rollup_incremental_catchup=incremental,
@@ -384,7 +398,7 @@ def _child_main(args) -> int:
     tsdb = open_tsdb(args.dir, args.shards, args.rollups,
                      tenant_cutoff=args.tenant_cutoff,
                      wal_group_ms=args.wal_group_ms, device=args.device,
-                     codec=args.codec)
+                     codec=args.codec, mesh=args.mesh_reshard)
     with open(args.progress, "a") as pf:
         for i, op in enumerate(ops):
             apply_op(tsdb, op)
@@ -393,6 +407,10 @@ def _child_main(args) -> int:
             # flushed first and recovery must surface it.
             pf.write(f"{i}\n")
             pf.flush()
+            if args.mesh_reshard and i == len(ops) // 2:
+                # A live hot-set reshard mid-schedule; the armed
+                # mesh.reshard.commit site kills the child at the swap.
+                tsdb.devwindow.reshard(n_shards=4)
         pf.write("end\n")
         pf.flush()
     tsdb.shutdown()
@@ -683,6 +701,67 @@ def _check_replica(dirpath: str, sc: Scenario, tsdb: TSDB) -> list[str]:
     return problems
 
 
+def _check_resident_parity(dirpath: str, sc: Scenario) -> list[str]:
+    """Post-crash rewarm of the sharded resident hot set. The crash
+    landed at the ``mesh.reshard.commit`` gate, so the swap never
+    happened and nothing half-redistributed reached durable state (the
+    hot set is device memory; durability is the WAL's). A restart must
+    (a) rebuild a coherent sharded window, (b) serve fresh appends from
+    the resident plan with scan parity, and (c) complete the interrupted
+    reshard, with the same parity at the new width."""
+    from opentsdb_tpu_torch.query.executor import QueryExecutor, QuerySpec
+    problems: list[str] = []
+    tsdb = open_tsdb(dirpath, sc.shards, rollups=False, device=sc.device,
+                     mesh=True)
+    try:
+        dw = tsdb.devwindow
+        if dw is None or not hasattr(dw, "shard_of"):
+            return ["mesh reopen did not build a sharded hot set"]
+        hour = _EXTRA_HOUR + 100 * 3600
+        for i in range(3):
+            apply_op(tsdb, ("ingest", i, hour + i * 3600, 1, 300, 0,
+                            11 + i))
+        spec = QuerySpec("sys.cpu.user", {"host": "*"},
+                         aggregator="sum", downsample=(600, "avg"))
+        ex = QueryExecutor(tsdb, backend="device")
+        lo, hi = hour, hour + 3 * 3600
+
+        def compare(tag: str) -> None:
+            h0 = dw.window_hits
+            got = ex.run(spec, lo, hi)
+            if dw.window_hits <= h0:
+                problems.append(f"{tag}: query fell back off the "
+                                f"resident plan")
+            keep, tsdb.devwindow = tsdb.devwindow, None
+            try:
+                want = ex.run(spec, lo, hi)
+            finally:
+                tsdb.devwindow = keep
+            k_g = {tuple(sorted(r.tags.items())): r for r in got}
+            k_w = {tuple(sorted(r.tags.items())): r for r in want}
+            if set(k_g) != set(k_w):
+                problems.append(f"{tag}: resident group set != scan")
+                return
+            for gk, a in k_g.items():
+                b = k_w[gk]
+                if not (np.array_equal(a.timestamps, b.timestamps)
+                        and np.allclose(a.values, b.values,
+                                        rtol=1e-5, atol=1e-5)):
+                    problems.append(f"{tag}: resident answer != scan "
+                                    f"answer group={dict(gk)}")
+
+        compare("post-crash rewarm")
+        dw.reshard(n_shards=4)
+        if dw.n_shards != 4 or dw.reshard_count != 1:
+            problems.append("post-crash reshard did not complete")
+        compare("post-crash reshard to width 4")
+    except Exception as e:
+        problems.append(f"resident parity check crashed: {e!r}")
+    finally:
+        tsdb.shutdown()
+    return problems
+
+
 def verify(dirpath: str, sc: Scenario, ops: list[tuple],
            ops_done: int) -> tuple[list[str], str]:
     """Reopen after the crash and check every invariant. Returns
@@ -777,6 +856,8 @@ def child_command(sc: Scenario, store_dir: str, progress: str) -> list[str]:
         cmd += ["--wal-group-ms", str(sc.wal_group_ms)]
     if sc.codec != "none":
         cmd += ["--codec", sc.codec]
+    if sc.kind == "meshreshard":
+        cmd.append("--mesh-reshard")
     return cmd
 
 
@@ -819,6 +900,10 @@ def _run_once(sc: Scenario, workdir: str) -> dict:
     else:
         ops = gen_ops(sc.seed, sc.n_ops, sc.delete_heavy)
         problems, state_hash = verify(store_dir, sc, ops, ops_done)
+        if not problems and sc.kind == "meshreshard":
+            # After verify's writer closed: the rewarm reopens the store
+            # read-write itself.
+            problems += _check_resident_parity(store_dir, sc)
         result["problems"] = problems
         result["status"] = "ok" if not problems else "invariant-failed"
     result["fingerprint"] = hashlib.sha1(
@@ -1060,6 +1145,7 @@ FAST_LABELS = (
     "shard-join-crash-k2",
     "replica-rebuild-raise",
     "promote-rotate-raise",
+    "meshreshard-commit-crash",
 )
 
 
@@ -1170,6 +1256,12 @@ def build_matrix() -> list[Scenario]:
         shards=1, rollups=False, codec="tsst4", seed=3003)
     add("sst-block-torn-norollup-s4", "sst.write.block", "torn",
         shards=4, rollups=False, codec="tsst4", seed=3004)
+    # The sharded resident hot set: killed at the reshard commit gate.
+    # The swap never lands; a restart must rebuild coherent, serve
+    # resident with scan parity, and finish the interrupted reshard.
+    add("meshreshard-commit-crash", "mesh.reshard.commit", "crash",
+        shards=1, rollups=False, kind="meshreshard", seed=6001,
+        n_ops=12)
     # The HLL tier of tenant accounting (every tenant on it at cutoff 0):
     # a torn committed snapshot recovers within the declared error.
     add("tenant-snap-commit-torn-hll", "tenant.snapshot.commit",
@@ -1232,6 +1324,9 @@ def main(argv=None) -> int:
     p.add_argument("--bug", default=None, choices=BUGS)
     p.add_argument("--tenant-cutoff", type=int, default=-1)
     p.add_argument("--wal-group-ms", type=float, default=0.0)
+    p.add_argument("--mesh-reshard", action="store_true",
+                   help="child: the 2-shard resident hot set, resharded "
+                        "to 4 halfway through the schedule")
     p.add_argument("--codec", default="none", choices=("none", "tsst4"),
                    help="Config.sstable_codec of the workload")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),

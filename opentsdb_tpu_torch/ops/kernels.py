@@ -21,6 +21,11 @@ names, arguments, padding and results:
 - the un-downsampled (union-grid) path: ``flat_rate``, ``union_grid``,
   ``series_contributions`` and ``group_interpolate``.
 
+``gap_fill``, ``bucket_rate``, ``step_fill`` and ``flat_rate`` take the
+JAX package's carry arguments, which the time-sharded path
+(``parallel/timeshard.py``) passes; called without them, each computes
+what it computes without a mesh.
+
 Every segment sum, min and max goes through the port's own kernels
 (``ops/segment_reduce.py``), every quantile through the rank-select kernel
 (``ops/masked_select.py``) and every union-grid moment reduction through
@@ -148,7 +153,8 @@ def _take(values: torch.Tensor, idx: torch.Tensor,
 
 
 def gap_fill(series_values: torch.Tensor, series_mask: torch.Tensor,
-             num_buckets: int):
+             num_buckets: int, *, glob_offset=0, left_idx=None,
+             left_val=None, right_idx=None, right_val=None):
     """Lerp-fill each series' empty buckets between its nonempty ones.
 
     A series with an empty bucket between two nonempty ones contributes a
@@ -157,6 +163,14 @@ def gap_fill(series_values: torch.Tensor, series_mask: torch.Tensor,
     it contributes nothing. Bucket starts are affine in the bucket index,
     so lerping in index space equals lerping in time space.
 
+    The optional carries serve the time-sharded path
+    (``parallel/timeshard.py``), where this tile's buckets are the window
+    ``[glob_offset, glob_offset + num_buckets)`` of a larger grid:
+    ``left_idx``/``left_val`` [S] give the nearest nonempty global bucket
+    before the window (-1 = none), ``right_idx``/``right_val`` the
+    nearest after (2^31-1 = none); rows with no local prev/next fall back
+    to them, so a cross-tile lerp equals the unsharded fill.
+
     Returns (filled [S, B], in_range [S, B]); filled is 0 outside range.
     """
     b_idx, prev_loc, next_loc = _bucket_index(series_mask, num_buckets)
@@ -164,19 +178,33 @@ def gap_fill(series_values: torch.Tensor, series_mask: torch.Tensor,
     has_next = next_loc < num_buckets
     y0 = _take(series_values, prev_loc, num_buckets)
     y1 = _take(series_values, next_loc, num_buckets)
-    prev_idx = torch.where(has_prev, prev_loc, -1)
-    next_idx = torch.where(has_next, next_loc, _I32_BIG)
+    if left_idx is None:
+        prev_idx = torch.where(has_prev, glob_offset + prev_loc, -1)
+        prev_val = y0
+    else:
+        prev_idx = torch.where(has_prev, glob_offset + prev_loc,
+                               left_idx[:, None])
+        prev_val = torch.where(has_prev, y0, left_val[:, None])
+    if right_idx is None:
+        next_idx = torch.where(has_next, glob_offset + next_loc, _I32_BIG)
+        next_val = y1
+    else:
+        next_idx = torch.where(has_next, glob_offset + next_loc,
+                               right_idx[:, None])
+        next_val = torch.where(has_next, y1, right_val[:, None])
     in_range = (prev_idx >= 0) & (next_idx < _I32_BIG)
     dx = torch.clamp((next_idx - prev_idx).to(torch.float32), min=1.0)
-    frac = (b_idx[None, :] - prev_idx).to(torch.float32) / dx
-    filled = torch.where(series_mask, series_values, y0 + frac * (y1 - y0))
+    frac = (glob_offset + b_idx[None, :] - prev_idx).to(torch.float32) / dx
+    filled = torch.where(series_mask, series_values,
+                         prev_val + frac * (next_val - prev_val))
     return torch.where(in_range, filled, 0.0), in_range
 
 
 def bucket_rate(series_values: torch.Tensor, series_mask: torch.Tensor,
                 interval: int, counter_max: float = 0.0,
                 reset_value: float = 0.0, *, counter: bool = False,
-                drop_resets: bool = False):
+                drop_resets: bool = False, glob_offset=0, left_idx=None,
+                left_val=None):
     """Per-series rate of change on the shared bucket grid.
 
     Each nonempty bucket's rate is its backward difference against the
@@ -184,6 +212,12 @@ def bucket_rate(series_values: torch.Tensor, series_mask: torch.Tensor,
     dt = (b - prev_b) * interval) — the downsample-then-rate composition
     of the reference (SpanGroup.java:736-784). The first nonempty bucket
     of a series yields no rate, matching oracle.rate.
+
+    The optional carries serve the time-sharded path: ``left_idx`` [S] is
+    the series' nearest nonempty global bucket before this tile's window
+    (-1 = none) and ``left_val`` its value; a tile-first bucket
+    differences against it instead of having no predecessor.
+    ``glob_offset`` maps local bucket indices to global ones.
 
     Returns (rates [S, B] float32, ok [S, B] bool).
     """
@@ -194,10 +228,19 @@ def bucket_rate(series_values: torch.Tensor, series_mask: torch.Tensor,
     prev_excl = torch.cat(
         [torch.full((S, 1), -1, dtype=torch.int32,
                     device=series_values.device), prev_incl[:, :-1]], dim=1)
-    has_prev = prev_excl >= 0
+    has_local = prev_excl >= 0
     prev_val = _take(series_values, prev_excl, B)
-    dt = torch.clamp((b_idx[None, :] - prev_excl).to(torch.float32)
-                     * interval, min=1e-9)
+    prev_glob = glob_offset + prev_excl
+    if left_idx is not None:
+        use_carry = ~has_local & (left_idx[:, None] >= 0)
+        prev_glob = torch.where(use_carry, left_idx[:, None], prev_glob)
+        prev_val = torch.where(use_carry, left_val[:, None], prev_val)
+        has_prev = has_local | use_carry
+    else:
+        has_prev = has_local
+    glob = glob_offset + b_idx[None, :]
+    dt = torch.clamp((glob - prev_glob).to(torch.float32) * interval,
+                     min=1e-9)
     dv = series_values - prev_val
     if counter:
         dv = torch.where(dv < 0, dv + counter_max, dv)
@@ -209,16 +252,32 @@ def bucket_rate(series_values: torch.Tensor, series_mask: torch.Tensor,
 
 
 def step_fill(series_values: torch.Tensor, series_mask: torch.Tensor,
-              num_buckets: int):
+              num_buckets: int, *, left_idx=None, left_val=None,
+              right_idx=None):
     """Last-value-hold fill of empty buckets (the rate counterpart of
     gap_fill: rates step between points, SpanGroup.java:736-784 /
     oracle.group_aggregate(interp='step')). A series contributes its
     previous bucket's value in empty buckets between its first and last
-    nonempty ones, nothing outside. Returns (filled [S, B], in_range)."""
+    nonempty ones, nothing outside.
+
+    The carries serve the time-sharded path; a step hold needs only
+    presence and the left value: ``left_idx`` [S] >= 0 means the series
+    has a nonempty bucket on an earlier tile, of value ``left_val``;
+    ``right_idx`` [S] < 2^31-1 means one exists on a later tile.
+    Returns (filled [S, B], in_range)."""
     _, prev_loc, next_loc = _bucket_index(series_mask, num_buckets)
-    in_range = (prev_loc >= 0) & (next_loc < num_buckets)
+    has_prev = prev_loc >= 0
+    has_next = next_loc < num_buckets
     y0 = _take(series_values, prev_loc, num_buckets)
-    filled = torch.where(series_mask, series_values, y0)
+    if left_idx is None:
+        prev_ok, prev_val = has_prev, y0
+    else:
+        prev_ok = has_prev | (left_idx[:, None] >= 0)
+        prev_val = torch.where(has_prev, y0, left_val[:, None])
+    next_ok = (has_next if right_idx is None
+               else has_next | (right_idx[:, None] < _I32_BIG))
+    in_range = prev_ok & next_ok
+    filled = torch.where(series_mask, series_values, prev_val)
     return torch.where(in_range, filled, 0.0), in_range
 
 
@@ -733,20 +792,29 @@ def window_quantile_apply(series_mask, filled, in_range, include, gmap, q,
 def flat_rate(ts: torch.Tensor, vals: torch.Tensor, sid: torch.Tensor,
               valid: torch.Tensor, counter_max: float = 0.0,
               reset_value: float = 0.0, *, counter: bool = False,
-              drop_resets: bool = False):
+              drop_resets: bool = False, carry_ts=None, carry_val=None,
+              use_carry=None):
     """Per-point rate of change within each series, in flat layout.
 
     Requires points sorted by (sid, ts) — the natural scan order. The
     first point of each series yields no rate (its valid bit clears),
     matching oracle.rate. ``counter`` adds rollover correction at
     counter_max; ``drop_resets``/reset_value zeroes implausible spikes.
-    The JAX package's carry arguments (its time-sharded path) are left
-    out. Returns (rates [N] float32 at each point's own ts, valid [N])."""
+    The optional carries serve the time-sharded path
+    (``parallel/timeshard.py``): where ``use_carry`` [N] is set, the
+    point's predecessor is (carry_ts, carry_val) [N] — the series' last
+    point on an earlier time tile — instead of the rolled neighbour,
+    keeping counter/reset semantics in this one place.
+    Returns (rates [N] float32 at each point's own ts, valid [N])."""
     prev_ts = torch.roll(ts, 1)
     prev_v = torch.roll(vals, 1)
     ok = valid & torch.roll(valid, 1) & (torch.roll(sid, 1) == sid)
     if ok.numel():
         ok[0] = False
+    if use_carry is not None:
+        prev_ts = torch.where(use_carry, carry_ts, prev_ts)
+        prev_v = torch.where(use_carry, carry_val, prev_v)
+        ok = ok | use_carry
     dt = torch.clamp((ts - prev_ts).to(torch.float32), min=1e-9)
     dv = vals - prev_v
     if counter:

@@ -1,0 +1,36 @@
+"""Mesh parallelism in one process: meshes, the execution plane and the
+sharded query bodies.
+
+Mirrors ``opentsdb_tpu/parallel/``. Series are sharded over the devices
+of a :class:`~opentsdb_tpu_torch.parallel.mesh.Mesh`; each shard's body
+reduces its own series, and the partial aggregates combine across the
+shards on the mesh's first device (``parallel/compile.py``): moments by
+the exact pairwise (Chan et al.) merge, in one hand-written kernel
+(``ops/mesh_combine.py``), sketches by register max or recompression.
+Time-axis sharding (``parallel/timeshard.py``) exchanges per-series edge
+carries between tiles for rate and fill correctness, selected by the
+second hand-written kernel. A mesh is a list of torch devices in which
+a device may repeat, so the whole path runs as logical shards on one
+CPU or one card.
+
+Not ported yet (ROADMAP item 11b): ``fleet.py`` (a plane across
+processes), ``multihost.py`` (hybrid RxC meshes) and ``expert.py``
+(expert-parallel dashboards).
+"""
+
+from opentsdb_tpu_torch.parallel.mesh import (
+    EXPERT_AXIS,
+    HOST_AXIS,
+    SERIES_AXIS,
+    TIME_AXIS,
+    Mesh,
+    make_mesh,
+)
+from opentsdb_tpu_torch.parallel.plan import (
+    ExecPlan,
+    build_mesh,
+    flatten_series_mesh,
+)
+
+__all__ = ["make_mesh", "Mesh", "SERIES_AXIS", "TIME_AXIS", "EXPERT_AXIS",
+           "HOST_AXIS", "ExecPlan", "build_mesh", "flatten_series_mesh"]

@@ -74,6 +74,17 @@ under it) and ``aggregate``. Spans are wall-clock; untraced, each hook
 is one global integer check. ``scan_latency`` (a LatencyDigest) keeps
 the scan stage's milliseconds, traced or not.
 
+Mesh legs (``QueryExecutor(mesh=...)``, ``parallel/``): with a mesh, a
+downsampled moment or percentile group runs series-sharded
+(``_tpu_downsample_sharded``; a wide group-by ``_multigroup_sharded``)
+when it has at least one series a shard, time-sharded when its range has
+at least four buckets a shard, else single-device, as in the JAX
+package; the resident plan serves only from the mesh-sharded window
+(``storage/devshard.py``, ``_dw_sharded_stage``: each shard's stage, then
+the [S_shard, B] grids concatenated on the first shard's device), and a
+single-device window declines under a mesh. The fused plan keeps its
+single-device leg.
+
 Approximate serving (``run_approx``, ``sketch/serving.py``): a caller
 that opts in (``/q``'s ``approx=1`` or ``max_error=``) gets a percentile
 downsample (``1h-p95``) served from the rollup tier's sketch columns with
@@ -200,8 +211,23 @@ def not_yet_ported(what: str) -> BadRequestError:
 
 
 class QueryExecutor:
-    def __init__(self, tsdb, backend: str | None = None) -> None:
+    def __init__(self, tsdb, backend: str | None = None,
+                 mesh=None) -> None:
+        """``mesh``: an optional ``parallel.mesh.Mesh``. With one, a
+        downsampled moment or percentile query distributes over it:
+        series-sharded (``parallel/sharded.py``) when a group has at
+        least one series a shard, time-sharded
+        (``parallel/timeshard.py``) when the range has at least four
+        buckets a shard, otherwise single-device, by the JAX package's
+        layout rules; the resident path serves only from a sharded
+        window (``storage/devshard.py``). The fused plan keeps its
+        single-device leg under a mesh (its mesh leg is item 11b)."""
         self.tsdb = tsdb
+        if mesh is not None:
+            from opentsdb_tpu_torch.parallel.plan import \
+                flatten_series_mesh
+            mesh = flatten_series_mesh(mesh)
+        self.mesh = mesh
         self.backend = backend or tsdb.config.backend
         if self.backend not in ("device", "cpu"):
             raise ValueError(f"unknown backend {self.backend!r} "
@@ -778,6 +804,11 @@ class QueryExecutor:
         # identical grids; padded series/buckets hold no points.
         num_buckets = _pad_size(int((end - qbase) // interval + 1))
         agg = Aggregators.get(spec.aggregator)
+        if self.mesh is not None and agg.kind in ("moment", "percentile"):
+            sharded = self._tpu_downsample_sharded(
+                spec, spans, qbase, interval, dsagg, num_buckets)
+            if sharded is not None:
+                return sharded
         rel, vals, sid, valid = self._flatten_spans(spans, qbase)
         out = kernels.downsample_group(
             rel, vals, sid, valid, num_series=_pad_size(len(spans)),
@@ -798,6 +829,71 @@ class QueryExecutor:
         values = gv.cpu().numpy()[gmask]
         grid_ts = np.flatnonzero(gmask).astype(np.int64) * interval + qbase
         return grid_ts, values.astype(np.float64)
+
+    def _tpu_downsample_sharded(self, spec: QuerySpec,
+                                spans: list[_Span], qbase: int,
+                                interval: int, dsagg: str,
+                                num_buckets: int):
+        """One group's downsample [+ rate] over self.mesh (the JAX
+        package's function of the same name). Series-parallel when the
+        group has at least one series a shard (local downsample + rate,
+        the moment combine kernel, or a gather of the contributions for
+        a percentile); time-parallel for long ranges with few series
+        (bucket-aligned tiles, carries for lerp, step hold and rate).
+        Returns (grid_ts, values), or None when neither layout applies
+        (the caller runs single-device)."""
+        from opentsdb_tpu_torch.parallel.mesh import TIME_AXIS, Mesh
+        from opentsdb_tpu_torch.parallel.sharded import (
+            pack_shards,
+            sharded_downsample_group,
+            sharded_downsample_quantile,
+        )
+        from opentsdb_tpu_torch.parallel.timeshard import (
+            pack_time_shards,
+            timeshard_downsample_group,
+        )
+
+        agg = Aggregators.get(spec.aggregator)
+        rate_kw = self._rate_kw(spec)
+        D = self.mesh.size
+        if len(spans) >= D:
+            series = [((sp.timestamps - qbase).astype(np.int64),
+                       sp.values) for sp in spans]
+            ts, vals, sid, valid, sps = pack_shards(series, D)
+            if agg.kind == "percentile":
+                gv, gm = sharded_downsample_quantile(
+                    ts, vals, sid, valid, [agg.quantile], mesh=self.mesh,
+                    series_per_shard=_pad_size(sps),
+                    num_buckets=num_buckets, interval=interval,
+                    agg_down=dsagg, **rate_kw)
+                gv = gv[0]
+            else:
+                gv, gm = sharded_downsample_group(
+                    ts, vals, sid, valid, mesh=self.mesh,
+                    series_per_shard=_pad_size(sps),
+                    num_buckets=num_buckets, interval=interval,
+                    agg_down=dsagg, agg_group=spec.aggregator, **rate_kw)
+        elif num_buckets >= 4 * D:
+            bps = -(-num_buckets // D)
+            rel = np.concatenate([sp.timestamps for sp in spans]) - qbase
+            vals = np.concatenate([sp.values for sp in spans])
+            sid = np.repeat(np.arange(len(spans), dtype=np.int32),
+                            [len(sp.timestamps) for sp in spans])
+            tsh = pack_time_shards(rel.astype(np.int32), vals, sid, D,
+                                   interval, bps)
+            gv, gm = timeshard_downsample_group(
+                *tsh, mesh=Mesh(self.mesh.devices, (TIME_AXIS,)),
+                num_series=_pad_size(len(spans)), buckets_per_shard=bps,
+                interval=interval, agg_down=dsagg,
+                agg_group=(spec.aggregator if agg.kind == "moment"
+                           else "count"),
+                quantile=(agg.quantile if agg.kind == "percentile"
+                          else None), **rate_kw)
+        else:
+            return None
+        gm = gm.cpu().numpy()
+        grid_ts = np.flatnonzero(gm).astype(np.int64) * interval + qbase
+        return grid_ts, gv.cpu().numpy()[gm].astype(np.float64)
 
     def _run_device_union(self, spec: QuerySpec, spans: list[_Span]):
         """An un-downsampled group (the JAX package's _run_tpu general
@@ -885,6 +981,13 @@ class QueryExecutor:
             all_spans.extend(spans)
             group_of_sid.extend([gi] * len(spans))
         G = _pad_size(len(span_groups))
+        D = self.mesh.size if self.mesh is not None else 0
+        if D and len(all_spans) >= D:
+            gv, gm = self._multigroup_sharded(
+                spec, all_spans, group_of_sid, G, qbase, interval, dsagg,
+                num_buckets, D)
+            return self._group_rows(gv, gm, len(span_groups), interval,
+                                    qbase)
         S = _pad_size(len(all_spans))
         # Padded series map to group G-1 (possibly a real group) — safe
         # solely because padded series carry no points.
@@ -906,15 +1009,63 @@ class QueryExecutor:
                 num_buckets=num_buckets, interval=interval,
                 agg_down=dsagg, agg_group=spec.aggregator,
                 **self._rate_kw(spec))
-        gv = out["group_values"].cpu().numpy()
-        gm = out["group_mask"].cpu().numpy()
+        return self._group_rows(out["group_values"].cpu().numpy(),
+                                out["group_mask"].cpu().numpy(),
+                                len(span_groups), interval, qbase)
+
+    @staticmethod
+    def _group_rows(gv, gm, n_groups: int, interval: int, qbase: int):
+        """[(grid_ts, values)] of the first n_groups rows of [G, B]
+        group values and masks."""
         results = []
-        for gi in range(len(span_groups)):
+        for gi in range(n_groups):
             mask = gm[gi]
             grid_ts = (np.flatnonzero(mask).astype(np.int64) * interval
                        + qbase)
             results.append((grid_ts, gv[gi][mask].astype(np.float64)))
         return results
+
+    def _multigroup_sharded(self, spec: QuerySpec, all_spans: list[_Span],
+                            group_of_sid: list[int], G: int, qbase: int,
+                            interval: int, dsagg: str, num_buckets: int,
+                            D: int):
+        """A wide group-by over the mesh (the JAX package's function of
+        the same name): series round-robin across the shards with a
+        per-shard group map; the moment combine kernel merges the
+        per-(group, bucket) partials, or the contributions are gathered
+        for one grouped rank select. Returns numpy (gv [G, B],
+        gm [G, B])."""
+        from opentsdb_tpu_torch.parallel.sharded import (
+            pack_shards,
+            shard_placement,
+            sharded_downsample_multigroup,
+            sharded_downsample_multigroup_quantile,
+        )
+        series = [((sp.timestamps - qbase).astype(np.int64), sp.values)
+                  for sp in all_spans]
+        ts, vals, sid, valid, sps = pack_shards(series, D)
+        sps_pad = _pad_size(sps)
+        # The group map laid out by the packing's own placement. Padded
+        # local series map to group G-1: safe, they carry no points.
+        gmap = np.full((D, sps_pad), G - 1, np.int32)
+        for (d, local), g in zip(shard_placement(len(series), D),
+                                 group_of_sid):
+            gmap[d, local] = g
+        agg = Aggregators.get(spec.aggregator)
+        if agg.kind == "percentile":
+            gv, gm = sharded_downsample_multigroup_quantile(
+                ts, vals, sid, valid, gmap, [agg.quantile],
+                mesh=self.mesh, series_per_shard=sps_pad, num_groups=G,
+                num_buckets=num_buckets, interval=interval,
+                agg_down=dsagg, **self._rate_kw(spec))
+        else:
+            gv, gm = sharded_downsample_multigroup(
+                ts, vals, sid, valid, gmap, mesh=self.mesh,
+                series_per_shard=sps_pad, num_groups=G,
+                num_buckets=num_buckets, interval=interval,
+                agg_down=dsagg, agg_group=spec.aggregator,
+                **self._rate_kw(spec))
+        return gv.cpu().numpy(), gm.cpu().numpy()
 
     # -- device-resident window path ----------------------------------
 
@@ -930,7 +1081,13 @@ class QueryExecutor:
         unknown UIDs, out-of-int32 epochs/ranges, device out of
         memory)."""
         dw = self.tsdb.devwindow
-        if (dw is None or self.backend == "cpu" or not spec.downsample
+        # A mesh executor serves the resident path only through the
+        # mesh-sharded window (devshard.py): a single-device window under
+        # a mesh declines, as in the JAX package.
+        sharded = hasattr(dw, "shard_of")
+        if (dw is None or self.backend == "cpu"
+                or (self.mesh is not None and not sharded)
+                or not spec.downsample
                 or agg.kind not in ("moment", "percentile")
                 or Aggregators.get(spec.downsample[1]).kind != "moment"):
             return None
@@ -956,8 +1113,11 @@ class QueryExecutor:
             return []
         # The shift (qbase - epoch) takes part in device arithmetic
         # (rel_ts - shift), unlike lo/hi, which only compare and clamp
-        # safely: past int32, fall back rather than mis-bucket.
-        if not imin <= qbase - cols.epoch <= imax:
+        # safely: past int32, fall back rather than mis-bucket. A sharded
+        # window carries one epoch a shard; all must fit.
+        epochs = ([sc.epoch for sc in cols.shards if sc is not None]
+                  if sharded else [cols.epoch])
+        if not all(imin <= qbase - e <= imax for e in epochs):
             return None
         num_buckets = _pad_size(int((end - qbase) // interval + 1))
         S_pad = _pad_size(len(cols.series_keys))
@@ -982,10 +1142,14 @@ class QueryExecutor:
                 for sid in groups[gkey]:
                     include[sid] = True
                     gmap[sid] = gi
-            layout = (kernels.group_layout(gmap, G, dw.device)
+            # A sharded window's maps go to the combine device (the
+            # first owning shard's), beside the gathered stage grids.
+            dev = (next(sc.chunks[0][0].device for sc in cols.shards
+                        if sc is not None) if sharded else dw.device)
+            layout = (kernels.group_layout(gmap, G, dev)
                       if len(gkeys) > 1 else None)
-            include = torch.from_numpy(include).to(dw.device)
-            gmap = torch.from_numpy(gmap).to(dw.device)
+            include = torch.from_numpy(include).to(dev)
+            gmap = torch.from_numpy(gmap).to(dev)
             self._dw_mask_cache.put(mkey, (cols.generation, include, gmap,
                                            layout))
         ngroups = 1 if len(gkeys) == 1 else G
@@ -1001,12 +1165,21 @@ class QueryExecutor:
         stage = cache.get(skey)
         if stage is None:
             try:
-                grids = kernels.window_series_stage_chunks(
-                    cols.chunks, min(max(start - cols.epoch, imin), imax),
-                    min(max(end - cols.epoch, imin), imax),
-                    qbase - cols.epoch, num_series=S_pad,
-                    num_buckets=num_buckets, interval=interval,
-                    agg_down=dsagg, **rate_kw)
+                if sharded:
+                    grids = self._dw_sharded_stage(
+                        cols, start, end, qbase, num_buckets=num_buckets,
+                        S_pad=S_pad, interval=interval, dsagg=dsagg,
+                        rate_kw=rate_kw)
+                    if grids is None:
+                        return None
+                else:
+                    grids = kernels.window_series_stage_chunks(
+                        cols.chunks,
+                        min(max(start - cols.epoch, imin), imax),
+                        min(max(end - cols.epoch, imin), imax),
+                        qbase - cols.epoch, num_series=S_pad,
+                        num_buckets=num_buckets, interval=interval,
+                        agg_down=dsagg, **rate_kw)
             except torch.cuda.OutOfMemoryError:
                 # A window filled near the device's memory can still run
                 # out building the stage grids: the scan path serves.
@@ -1033,6 +1206,58 @@ class QueryExecutor:
         return self._stage_results(spec, groups, cols.series_keys, named,
                                    stage[5], gv, gm, b_out, interval,
                                    qbase)
+
+    @staticmethod
+    def _dw_sharded_stage(cols, start: int, end: int, qbase: int, *,
+                          num_buckets: int, S_pad: int, interval: int,
+                          dsagg: str, rate_kw: dict):
+        """The stage half of a resident query over the mesh-sharded hot
+        set (storage/devshard.py): each shard's chunk fold runs on its own
+        device, then only the [S_shard, B] stage grids (never the point
+        columns) go to the first shard's device, concatenate in the
+        combined directory's order and pad to S_pad. Row order equals
+        ``cols.series_keys``, so include / gmap and the apply kernels
+        are oblivious to sharding.
+
+        Numeric contract: the per-shard folds are the single-window
+        kernels and a series never splits across shards, so count, min
+        and max rows are identical across shard counts, and sum / avg /
+        dev rows agree to float32 tolerance (bucket sums reassociate
+        across chunk boundaries that fall differently per shard).
+
+        Returns the window stage's grid tuple, or None when a shard's
+        epoch shift does not fit int32 (scan fallback)."""
+        imin, imax = -(2**31), 2**31 - 1
+        parts = []
+        for sc in cols.shards:
+            if sc is None:
+                continue
+            if not imin <= qbase - sc.epoch <= imax:
+                return None
+            S_i = len(sc.series_keys)
+            grids = kernels.window_series_stage_chunks(
+                sc.chunks, min(max(start - sc.epoch, imin), imax),
+                min(max(end - sc.epoch, imin), imax), qbase - sc.epoch,
+                num_series=_pad_size(S_i), num_buckets=num_buckets,
+                interval=interval, agg_down=dsagg, **rate_kw)
+            parts.append((S_i, grids))
+        if not parts:
+            return None
+        target = parts[0][1][0].device
+        outs = []
+        for gi in range(5):
+            rows = [grids[gi][:S_i].to(target) for S_i, grids in parts]
+            cat = rows[0] if len(rows) == 1 else torch.cat(rows)
+            short = S_pad - cat.shape[0]
+            if short:
+                # Zero / False rows are what the one-window stage gives
+                # its padding sids (no points), and the apply's include
+                # mask never selects them.
+                cat = torch.cat([cat, torch.zeros(
+                    (short, *cat.shape[1:]), dtype=cat.dtype,
+                    device=target)])
+            outs.append(cat)
+        return tuple(outs)
 
     @staticmethod
     def _apply_stage(spec, agg, stage, include, gmap, layout, ngroups,

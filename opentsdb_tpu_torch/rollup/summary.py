@@ -9,8 +9,9 @@ JAX package's bytes. The device checkpoint fold
 kernel (``ops/rollup_fold.py``) in float64, and declares ``device-f64``;
 the tier folds a whole (metric, coarse window) group in one launch
 (``group_summaries_device``).
-The mesh leg ``window_summaries_sharded`` waits for ``parallel/``
-(ROADMAP queue A item 11).
+The mesh leg ``window_summaries_sharded`` folds many series over a mesh
+through ``parallel/sharded.sharded_window_fold`` (float32, byte-identical
+across mesh widths).
 
 One rollup record summarizes one (series, coarse window) of raw points:
 count / sum / min / max / first / last, plus — at sketch-bearing
@@ -434,6 +435,73 @@ def window_sketches(ts: np.ndarray, vals: np.ndarray, res: int,
                                         + len(moment))
         blobs.append(sketch_encode(m, w, regs, moment))
     return bases[starts], blobs
+
+
+# ---------------------------------------------------------------------------
+# Mesh-sharded window fold (the execution plane's rollup-fold leg)
+# ---------------------------------------------------------------------------
+
+def window_summaries_sharded(series, res: int, mesh):
+    """Fold MANY series' points into per-window records across a mesh
+    (the JAX package's function of the same name).
+
+    ``series``: [(ts int64 sorted + deduplicated, vals)], the inputs
+    :func:`window_summaries` takes one at a time. The fold shards over
+    the mesh's series-hash axis (``parallel/sharded.sharded_window_fold``):
+    each shard folds its series block, the combine is a gather, so the
+    answer is byte-identical across mesh widths.
+
+    Returns [(wbase int64 [W_i], rec float32 structured array with
+    count / sum / min / max / first / last / first_dt / last_dt)] per
+    series. float32, as in the JAX package: this fold serves mesh
+    batteries and read-side pipelines; the checkpoint fold stays the
+    float64 one above."""
+    from opentsdb_tpu_torch.parallel.sharded import (
+        pack_shards,
+        shard_placement,
+        sharded_window_fold,
+    )
+
+    out_dtype = np.dtype([
+        ("count", "<f4"), ("sum", "<f4"), ("min", "<f4"),
+        ("max", "<f4"), ("first", "<f4"), ("last", "<f4"),
+        ("first_dt", "<u4"), ("last_dt", "<u4")])
+    if not series:
+        return []
+    nonempty = [i for i, (ts, _) in enumerate(series) if len(ts)]
+    results = [(np.empty(0, np.int64), np.empty(0, out_dtype))
+               for _ in series]
+    if not nonempty:
+        return results
+    origin = min(int(series[i][0][0]) for i in nonempty)
+    origin -= origin % res
+    hi = max(int(series[i][0][-1]) for i in nonempty)
+    num_windows = int((hi - origin) // res) + 1
+    D = int(mesh.devices.size)
+    packed = [(np.asarray(series[i][0], np.int64) - origin,
+               np.asarray(series[i][1], np.float32)) for i in nonempty]
+    ts, vals, sid, valid, sps = pack_shards(packed, D)
+    grids = sharded_window_fold(
+        ts, vals, sid, valid, mesh=mesh, series_per_shard=sps,
+        num_windows=num_windows, res=res).cpu().numpy()
+    for gi, (d, local) in zip(nonempty, shard_placement(len(packed), D)):
+        g = grids[d, :, local, :]                  # [8, W]
+        mask = g[0] > 0
+        w_idx = np.flatnonzero(mask)
+        rec = np.empty(len(w_idx), out_dtype)
+        for j, name in enumerate(("count", "sum", "min", "max", "first",
+                                  "last")):
+            rec[name] = g[j][mask]
+        wbase = origin + w_idx.astype(np.int64) * res
+        # The timestamp planes are int32 bits in the float32 grid.
+        t_min = np.ascontiguousarray(g[6][mask]).view(np.int32)
+        t_max = np.ascontiguousarray(g[7][mask]).view(np.int32)
+        rec["first_dt"] = (t_min.astype(np.int64)
+                           + origin - wbase).astype(np.uint32)
+        rec["last_dt"] = (t_max.astype(np.int64)
+                          + origin - wbase).astype(np.uint32)
+        results[gi] = (wbase, rec)
+    return results
 
 
 # ---------------------------------------------------------------------------

@@ -19,10 +19,10 @@ Request handling, in contract order:
   the shard router and the blooms use, computed here without the
   storage module), so repeat dashboards hit the same replica's warm
   fragment cache instead of spreading cold decodes over the fleet. The
-  JAX router weights that split by the serving-mesh width a backend
-  reports in ``/healthz``; the port has no mesh yet (ROADMAP item 11), so
-  every backend weighs 1 and the split is the plain modulo the JAX
-  router takes over a uniform fleet.
+  split weights each backend by the serving-mesh width it reports in
+  ``/healthz`` (its resident hot-set shards, ``--devwindow-shards``), so
+  a wider backend owns proportionally more of the series space; a
+  uniform fleet is the plain modulo.
 - **Deadlines**: one budget per request (``Config.router_deadline_ms``);
   every hop gets the remainder, so a wedged replica costs bounded time.
 - **Retries**: a failed/expired hop retries on the NEXT healthy
@@ -1146,13 +1146,26 @@ class RouterServer:
         return m.split("{", 1)[0].split(":")[-1]
 
     def _owner_index(self, m: str) -> int:
-        """Preferred backend for one sub-query: the spec's series hash
-        modulo the backends. The JAX router weights the series space by
-        each backend's serving-mesh width (``/healthz`` ``mesh``); the
-        port's daemons have no mesh until ROADMAP item 11, so every
-        backend weighs 1 and this is the split the JAX router takes over
-        a uniform fleet, byte for byte."""
-        return series_hash(m.encode()) % len(self.backends)
+        """Preferred backend for one sub-query. Mesh-aware: each backend
+        advertises its serving-mesh width (resident hot-set shards) in
+        /healthz, and ownership weights the series space by it — a
+        backend with 4 resident shards owns 4x the slots of a 1-shard
+        one. A uniform fleet (every width 1, or probes not yet landed)
+        is the plain modulo, keeping existing layouts' cache affinity
+        byte for byte. The JAX router's rule."""
+        h = series_hash(m.encode())
+        widths = [max(1, int((b.last_health.get("mesh") or {})
+                             .get("width", 1)))
+                  for b in self.backends]
+        total = sum(widths)
+        if total == len(widths):
+            return h % len(widths)
+        slot = h % total
+        for i, w in enumerate(widths):
+            slot -= w
+            if slot < 0:
+                return i
+        return 0
 
     async def _hop_cluster(self, m: str, base: dict, deadline: float):
         """One sub-query in multi-writer mode: concurrent hops to

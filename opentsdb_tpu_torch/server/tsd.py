@@ -38,10 +38,15 @@ fused block plan's attempts, serves, declines by reason and device block
 cache counts, as the JAX daemon's does, and its rollup section the rollup
 tier's state (ready, resolutions, hits, fallbacks, the sketch allocation
 and bytes, the fold split and the delta accumulators) when the tier is
-open, and its sketch section the approximate-serving counters; the
-sections of tiers the port lacks (the mesh) hold what the JAX daemon
-reports with those tiers off. A ranged ``/sketch`` served from rollups
-declares its bound in ``X-Tsd-Approx``, and so does a ``/q`` with
+open, and its sketch section the approximate-serving counters; its mesh
+section the execution plane's compile-cache line and, with a sharded
+resident hot set (``--devwindow-shards``), the serving mesh's shape, which
+``/healthz`` carries too (the router weighs backends by its ``width``).
+``--mesh N`` builds the query mesh at boot (N cards, or N logical shards
+on the CPU; past the cards it refuses to start), and
+``/api/mesh/reshard?shards=N`` reshards the hot set live. A ranged
+``/sketch`` served from rollups declares its bound in ``X-Tsd-Approx``,
+and so does a ``/q`` with
 ``approx=1`` or ``max_error=`` whose percentile downsample was served
 from the tier's sketch columns (plan label ``approx-1h``, the bound per
 result under ``"approx"``). ``/forecast`` answers Holt-Winters / EWMA
@@ -118,6 +123,7 @@ from opentsdb_tpu_torch.obs import trace as obs_trace
 from opentsdb_tpu_torch.obs.registry import METRICS, read_rss_bytes
 from opentsdb_tpu_torch.obs.ring import TraceRing, log_slow, make_record
 from opentsdb_tpu_torch.obs.selfmon import SelfMonitor
+from opentsdb_tpu_torch.parallel import compile as mesh_plane
 from opentsdb_tpu_torch.query.aggregators import Aggregators
 from opentsdb_tpu_torch.query.executor import (QueryExecutor, QuerySpec,
                                                not_yet_ported)
@@ -196,10 +202,28 @@ def _put_prefix_len(buf: bytes) -> int:
         pos = nl + 1
 
 
+def config_mesh(tsdb):
+    """The query mesh a daemon's config asks for (the JAX daemon's boot
+    rule): ``mesh_shape`` when set, else ``mesh_devices`` > 1 cards, else
+    None. A shape past the cards raises here, at boot."""
+    shape = tsdb.config.mesh_shape or ""
+    if shape:
+        from opentsdb_tpu_torch.parallel.plan import build_mesh
+        return build_mesh(shape, device=tsdb.device)
+    if tsdb.config.mesh_devices > 1:
+        from opentsdb_tpu_torch.parallel.mesh import local_devices, make_mesh
+        return make_mesh(tsdb.config.mesh_devices,
+                         devices=local_devices(tsdb.device))
+    return None
+
+
 class TSDServer:
     def __init__(self, tsdb) -> None:
         self.tsdb = tsdb
-        self.executor = QueryExecutor(tsdb)
+        mesh = config_mesh(tsdb)
+        if mesh is not None:
+            mesh_plane.set_mesh_devices(mesh.size)
+        self.executor = QueryExecutor(tsdb, mesh=mesh)
         self.config = tsdb.config
         self.admission = AdmissionController(self.config)
         self._server: asyncio.AbstractServer | None = None
@@ -283,6 +307,7 @@ class TSDServer:
             "/fault": self._http_fault,
             "/promote": self._http_promote,
             "/demote": self._http_demote,
+            "/api/mesh/reshard": self._http_mesh_reshard,
         }
 
     def attach_tailer(self, tailer) -> None:
@@ -768,8 +793,57 @@ class TSDServer:
             body["fenced_by_epoch"] = guard.fenced_epoch
         body["uptime_s"] = int(time.time()) - self.start_time
         body["inflight_queries"] = self.admission.inflight_queries
+        mesh = self._mesh_serving_info()
+        if mesh is not None:
+            # The router weights series ownership by this width (the
+            # resident hot set's shards).
+            body["mesh"] = mesh
         status = 200 if body.get("ok") else 503
         return status, "application/json", json.dumps(body).encode(), {}
+
+    def _mesh_serving_info(self) -> dict | None:
+        """The serving-mesh block of /healthz and /api/queries: the
+        sharded resident hot set's live shape. None when it is off, so
+        the body stays the same for a daemon without it. Plane
+        membership (the JAX daemon's ``plane``, from --mesh-plane) is
+        item 11b and never reported here."""
+        dw = self.tsdb.devwindow
+        if dw is None or not hasattr(dw, "shard_of"):
+            return None
+        return {"width": dw.n_shards,
+                "resident": {
+                    "shards": dw.n_shards,
+                    "points": dw.resident_points(),
+                    "generation": dw.generation,
+                    "reshards": dw.reshard_count,
+                    "last_reshard_ms": round(dw.reshard_ms, 2)}}
+
+    async def _http_mesh_reshard(self, req) -> tuple:
+        """``/api/mesh/reshard?shards=N``: redistribute the resident
+        device columns over N shards (a coherent swap: queries that
+        began before it finish on the complete old set; see
+        storage/devshard.py). Runs in the worker pool, so the drain and
+        rebuild never block the event loop's ingest."""
+        dw = self.tsdb.devwindow
+        if dw is None or not hasattr(dw, "shard_of"):
+            raise BadRequestError(
+                "resident hot set is not sharded (start the daemon "
+                "with --devwindow-shards)")
+        try:
+            n = int(req.q.get("shards", "0"))
+        except ValueError:
+            raise BadRequestError(
+                f"invalid shards: {req.q.get('shards')}") from None
+        if n < 1:
+            raise BadRequestError("shards must be >= 1")
+        loop = asyncio.get_running_loop()
+        try:
+            stats = await loop.run_in_executor(
+                self._pool, lambda: dw.reshard(n_shards=n))
+        except RuntimeError as e:
+            return (409, "application/json",
+                    json.dumps({"error": str(e)}).encode(), {})
+        return (200, "application/json", json.dumps(stats).encode(), {})
 
     # ------------------------------------------------------------------
     # Cluster failover: /promote and /demote
@@ -922,8 +996,8 @@ class TSDServer:
         admission, the fused block plan's coverage (attempts, serves,
         declines by reason, the device block cache), the approximate-
         serving counters (``sketch.*``), and the rollup tier's section
-        when it is open. The mesh section reports that tier off, as the
-        JAX daemon does without it."""
+        when it is open. The mesh section carries the plane's
+        compile-cache line and the serving mesh's shape."""
         sketch: dict = {}
         fused = {"attempt": 0, "served": 0, "declines": {},
                  "devcache": {"hit": 0, "miss": 0, "evict": 0}}
@@ -980,11 +1054,17 @@ class TSDServer:
             "ingest": ingest,
             "sketch": sketch,
             "rollup": self._rollup_section(),
-            "mesh": {"devices": 1, "expert_enabled": False,
-                     "compile_cache": {"size": 0, "hit": 0, "miss": 0,
-                                       "devices": 1},
+            # The mesh plane's compile-cache line: the configured
+            # mesh's devices, the plan cache's size / hit / miss, the
+            # expert counters (expert serving is item 11b: zeros) and the
+            # serving mesh's shape.
+            "mesh": {"devices": (self.executor.mesh.size
+                                 if self.executor.mesh is not None
+                                 else 1),
+                     "expert_enabled": False,
+                     "compile_cache": mesh_plane.cache_info(),
                      "expert": {"serve": 0, "decline": 0},
-                     "serving": None},
+                     "serving": self._mesh_serving_info()},
             "qcache": {"hit": self.executor.qcache_hits,
                        "miss": self.executor.qcache_misses,
                        "bypass": self.executor.qcache_bypasses},

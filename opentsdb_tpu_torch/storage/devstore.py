@@ -44,9 +44,13 @@ In PyTorch:
   only once the data is on the device, and the chunk is published under
   the lock after that, so no query stream can read a chunk in flight.
 
-Left out: ``quiesce``, ``_snapshot_metrics`` and ``set_complete_from``
-(they serve the mesh-sharded window, ``storage/devshard.py``, not ported
-yet), and ``columns()`` / ``DevColumns``, the concatenated view: the
+The reshard hooks of the mesh-sharded window (``storage/devshard.py``):
+``quiesce`` (every staged batch uploaded and every in-flight upload
+drained), ``_snapshot_metrics`` (a refs-only view of the chunk lists)
+and ``set_complete_from`` (a coverage floor carried over). A window
+pinned to one device of a mesh passes ``device=``.
+
+Left out: ``columns()`` / ``DevColumns``, the concatenated view: the
 executor serves only from the chunk list.
 """
 
@@ -366,6 +370,54 @@ class DeviceWindow:
         while (self._pending.unfinished_tasks
                and _time.monotonic() < deadline):
             _time.sleep(0.01)
+
+    def quiesce(self) -> None:
+        """Materialize everything into device chunks: upload every staged
+        batch and wait for every metric's in-flight uploads. The reshard
+        gate's drain (devshard.py): after it returns, a refs-only chunk
+        snapshot is the complete window. A metric whose uploads stall
+        past the wedge deadline degrades to dirty (the standard sticky
+        fallback) rather than blocking forever."""
+        self.flush()
+        deadline = _time.monotonic() + 2 * self.stall_timeout
+        with self._cond:
+            while any(mw.inflight > 0 and not mw.dirty
+                      for mw in self._metrics.values()):
+                now = _time.monotonic()
+                if now >= deadline:
+                    for mw in self._metrics.values():
+                        if mw.inflight > 0 and not mw.dirty:
+                            self.upload_stalls += 1
+                            self._mark_dirty(mw)
+                    self._cond.notify_all()
+                    break
+                self._cond.wait(timeout=min(deadline - now, 0.05))
+
+    def _snapshot_metrics(self) -> dict:
+        """Refs-only snapshot for the reshard rebuild (devshard.py): per
+        metric, the directory, epoch, chunk list and coverage state at
+        this instant. Chunks are immutable once inserted, so holding refs
+        is safe; every field is read-only to the caller. Call after
+        ``quiesce``: staged and in-flight batches are not in it."""
+        with self._lock:
+            return {uid: {"keys": list(mw.keys),
+                          "epoch": mw.epoch,
+                          "chunks": list(mw.chunks),
+                          "dirty": mw.dirty,
+                          "complete_from": mw.complete_from}
+                    for uid, mw in self._metrics.items()}
+
+    def set_complete_from(self, metric_uid: bytes, floor: int) -> None:
+        """Raise (never lower) a metric's coverage floor: the reshard
+        rebuild carries the source shards' eviction horizon into the
+        redistributed window, so it never claims coverage the old set
+        had already evicted."""
+        with self._lock:
+            mw = self._metrics.get(metric_uid)
+            if mw is None:
+                return
+            if mw.complete_from is None or floor > mw.complete_from:
+                mw.complete_from = floor
 
     def invalidate(self, metric_uid: bytes | None = None) -> None:
         """Mark window state unusable after storage mutations the append

@@ -61,6 +61,12 @@ WAL: every writer boot bumps the epoch (``--cluster-owner`` labels the
 bump), stamps it into its WAL segments and fences its mutations once a
 promotion bumps past it; a ``--cluster`` replica accepts ``/promote``.
 
+``--mesh N`` shards eligible downsampled queries over a mesh of N
+(``parallel/``: N cards, or N logical shards with ``--device cpu``; more
+than the cards refuses to boot), and ``--devwindow-shards N`` shards the
+resident hot window over the mesh's devices (``storage/devshard.py``,
+resharded live by ``/api/mesh/reshard?shards=N``).
+
 ``--role router`` (ROADMAP item 10b, ``serve/router.py``) is the
 storage-free front door over ``--backends`` (replica URLs): ``/q`` fans
 out by series-hash ownership with ``--router-deadline-ms``,
@@ -245,7 +251,9 @@ def cmd_tsd(args) -> int:
         tail_interval_s=args.tail_interval, cluster=args.cluster,
         cluster_owner=args.cluster_owner,
         query_max_inflight=args.query_max_inflight,
-        query_rate=args.query_rate, query_burst=args.query_burst)
+        query_rate=args.query_rate, query_burst=args.query_burst,
+        mesh_devices=args.mesh_devices, mesh_shape=args.mesh,
+        devwindow_shards=args.devwindow_shards)
     apply_rollup_args(cfg, args)
     tsdb = make_tsdb(cfg, args.wal, shards=args.shards,
                      read_only=read_only)
@@ -591,6 +599,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-interval", type=float, default=0.0,
                    help="seconds between sstable spills + WAL truncation "
                         "(0 disables; requires --wal)")
+    p.add_argument("--mesh-devices", type=int, default=0,
+                   help="shard fused queries over the first N local "
+                        "chips (0 = single-device)")
+    p.add_argument("--mesh", default="",
+                   help="mesh execution plane: 'N' = 1-D series-hash "
+                        "mesh of N shards (N cards; N logical shards "
+                        "with --device cpu). Eligible query reductions "
+                        "run sharded; supersedes --mesh-devices. The "
+                        "hybrid 'RxC' mesh is not yet ported (item 11b)")
+    p.add_argument("--devwindow-shards", type=int, default=0,
+                   help="shard the device-resident hot window into N "
+                        "columns round-robined over the local mesh "
+                        "devices (storage/devshard.py): capacity and "
+                        "fold throughput scale with device count, and "
+                        "the set reshards LIVE on grow/shrink "
+                        "(/api/mesh/reshard). 0 = one resident window")
     p.add_argument("--read-only", action="store_true",
                    help="open the WAL as a read-only replica of a "
                         "(possibly live) writer daemon: serve reads "

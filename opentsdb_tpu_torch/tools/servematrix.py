@@ -343,6 +343,54 @@ class Deployment:
                  f"host=h" for i in range(n)]
         telnet_acked(self.ports["writer"], lines)
 
+    def _health(self, name: str) -> dict:
+        _, _, body = http_get(self.ports[name], "/healthz", timeout=5)
+        return json.loads(body)
+
+    def wait_tail_cycles(self, names=("replica-a", "replica-b"),
+                         timeout: float = 60.0) -> bool:
+        """Block until every named replica has finished a tail cycle
+        that STARTED after this call: its ``/healthz`` ``refreshes``
+        counter rises by two (the cycle in flight now may have begun
+        before the caller's last ack; the one after it began later and
+        covers everything durable by then). A replica that was never
+        up, or is wedged, returns False at the deadline."""
+        base = {}
+        deadline = time.time() + timeout
+        while time.time() < deadline and len(base) < len(names):
+            for n in names:
+                if n not in base:
+                    try:
+                        base[n] = int(self._health(n)["refreshes"])
+                    except Exception:
+                        pass
+            if len(base) < len(names):
+                time.sleep(0.05)
+        pending = set(names)
+        while pending and time.time() < deadline:
+            for n in list(pending):
+                try:
+                    if int(self._health(n)["refreshes"]) >= base[n] + 2:
+                        pending.discard(n)
+                except Exception:
+                    pass
+            if pending:
+                time.sleep(0.05)
+        return not pending
+
+    def wait_inflight(self, name: str, timeout: float = 60.0) -> bool:
+        """Block until ``name`` reports a query in flight on its
+        ``/healthz`` (``inflight_queries`` >= 1)."""
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            try:
+                if int(self._health(name)["inflight_queries"]) >= 1:
+                    return True
+            except Exception:
+                pass
+            time.sleep(0.05)
+        return False
+
     def wait_backend_state(self, idx: int, healthy: bool,
                            timeout: float = 30.0) -> bool:
         deadline = time.time() + timeout
@@ -384,7 +432,8 @@ def scenario_replica_kill(dep: Deployment, seed: int) -> dict:
     m0 = owner_metric(0)
     n = 400
     dep.ingest_acked(m0.split(":", 1)[1], n, BT, seed % 97)
-    time.sleep(0.5)  # a tail cycle
+    if not dep.wait_tail_cycles():
+        problems.append("a replica never finished a tail cycle")
     golden = _golden(dep, m0, n)
 
     # Arm a delay over HTTP on the OWNER replica so its in-flight
@@ -407,7 +456,9 @@ def scenario_replica_kill(dep: Deployment, seed: int) -> dict:
 
     t = threading.Thread(target=query)
     t.start()
-    time.sleep(0.8)      # hop reached the wedged replica
+    if not dep.wait_inflight("replica-a"):
+        problems.append("the query's hop never reached the owner "
+                        "replica")
     dep.kill("replica-a")
     t.join(timeout=60)
     if "err" in out:
@@ -434,7 +485,8 @@ def scenario_router_partition(dep: Deployment, seed: int) -> dict:
     m1 = owner_metric(1)
     n = 400
     dep.ingest_acked(m1.split(":", 1)[1], n, BT, seed % 89)
-    time.sleep(0.5)
+    if not dep.wait_tail_cycles():
+        problems.append("a replica never finished a tail cycle")
     golden = _golden(dep, m1, n)
 
     # Partition: the replica hangs (SIGSTOP) — connects succeed but
@@ -473,7 +525,8 @@ def scenario_writer_crash(dep: Deployment, seed: int) -> dict:
     dep.kill("writer")
     # Replicas keep serving the acked history (tail catches up to the
     # durable WAL end; a dead writer is NOT staleness).
-    time.sleep(1.0)
+    if not dep.wait_tail_cycles():
+        problems.append("a replica never finished a tail cycle")
     status, headers, body = _router_q(dep, m0, n_acked)
     if status != 200:
         problems.append(f"router {status} with writer dead")
@@ -498,7 +551,8 @@ def scenario_writer_crash(dep: Deployment, seed: int) -> dict:
     # Restarted writer reconverges with the fleet.
     dep.restart("writer")
     dep.ingest_acked(metric, 50, BT + n_acked * 60, 7)
-    time.sleep(0.8)
+    if not dep.wait_tail_cycles():
+        problems.append("a replica never finished a tail cycle")
     golden = _golden(dep, m0, n_acked + 50)
     status, _, body = _router_q(dep, m0, n_acked + 50)
     if status != 200 or answer_hash(body) != golden:
@@ -516,7 +570,8 @@ def scenario_staleness_contract(dep: Deployment, seed: int) -> dict:
     metric = m0.split(":", 1)[1]
     n0 = 200
     dep.ingest_acked(metric, n0, BT, seed % 79)
-    time.sleep(0.5)
+    if not dep.wait_tail_cycles():
+        problems.append("a replica never finished a tail cycle")
     for rep in ("replica-a", "replica-b"):
         status, _, body = http_get(
             dep.ports[rep],
@@ -630,7 +685,9 @@ def scenario_writer_promote(dep: Deployment, seed: int) -> dict:
     metric = m0.split(":", 1)[1]
     n0 = 300
     dep.ingest_acked(metric, n0, BT, seed % 71)
-    time.sleep(0.5)  # a tail cycle: replicas hold everything durable
+    # A tail cycle: replicas hold everything durable.
+    if not dep.wait_tail_cycles():
+        problems.append("a replica never finished a tail cycle")
     dep.kill("writer")
     promoted, epoch = wait_promotion(dep)
     if promoted is None:
@@ -690,7 +747,8 @@ def scenario_zombie_fence(dep: Deployment, seed: int) -> dict:
     metric = m0.split(":", 1)[1]
     n0 = 250
     dep.ingest_acked(metric, n0, BT, seed % 67)
-    time.sleep(0.5)
+    if not dep.wait_tail_cycles():
+        problems.append("a replica never finished a tail cycle")
     dep.procs["writer"].send_signal(signal.SIGSTOP)
     try:
         promoted, epoch = wait_promotion(dep)
@@ -761,7 +819,8 @@ def scenario_promote_crash(dep: Deployment, seed: int) -> dict:
     metric = m0.split(":", 1)[1]
     n0 = 200
     dep.ingest_acked(metric, n0, BT, seed % 61)
-    time.sleep(0.5)
+    if not dep.wait_tail_cycles():
+        problems.append("a replica never finished a tail cycle")
     # The router's candidate walk probes replica-a first: arm its
     # rotate site to kill it at the worst moment (epoch already
     # bumped, WAL mid-rotation).
@@ -836,6 +895,15 @@ def scenario_degraded_approx(dep: Deployment, seed: int) -> dict:
         if not _wait_stats_value(dep.ports[rep],
                                  "tsd.rollup.ready", 1):
             problems.append(f"{rep} rollup tier never became ready")
+        # The replica rebuilt past the writer's checkpoint: its memtable
+        # no longer holds the tailed points, so no window is dirty.
+        if not _wait_stats_value(dep.ports[rep],
+                                 "tsd.dirty_set.size", 0):
+            problems.append(f"{rep} never caught up with the writer's "
+                            f"checkpoint (dirty windows left)")
+    # A tail cycle begun after that rebuild has refreshed the tier too.
+    if not dep.wait_tail_cycles():
+        problems.append("a replica never finished a tail cycle")
     if problems:
         return {"problems": problems, "fingerprint_parts": []}
     m = f"max:1h-p95:{metric}"

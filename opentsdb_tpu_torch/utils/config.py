@@ -148,6 +148,22 @@ class Config:
     device_window: bool = True
     device_window_staging: int = 1 << 20   # points per upload chunk
     device_window_points: int = 1 << 26    # resident budget, all metrics
+    # Mesh-sharded hot set (storage/devshard.py): shard the resident
+    # window on the series axis over the mesh devices. 0 = off (one
+    # window); N >= 1 = N logical shards round-robined over the devices
+    # (N may exceed the device count: the CPU tests run the sharded path
+    # on the one CPU device, the card four shards on one H100). The
+    # shards split device_window_points between them.
+    devwindow_shards: int = 0
+
+    # Device mesh for query execution (parallel/): 0 = single-device;
+    # N > 1 = shard downsampled queries over the first N cards. mesh_shape
+    # supersedes it when set: "" = no mesh; "N" = a 1-D series mesh of N
+    # shards (N cards on CUDA, past which the daemon refuses to boot; N
+    # logical shards on the CPU). The hybrid "RxC" mesh is not ported yet
+    # (item 11b) and raises. The JAX package's names and defaults.
+    mesh_devices: int = 0
+    mesh_shape: str = ""
 
     # Admission control / backpressure (serve/admission.py). All off
     # by default (0); per-tenant buckets key on the ?tenant= query

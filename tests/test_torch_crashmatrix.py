@@ -46,7 +46,7 @@ def test_matrix_shape():
         "sharded.spill.shard", "rollup.begin_spill", "rollup.fold.start",
         "rollup.fold.flush", "rollup.fold.commit", "rollup.bracket.flip",
         "replica.refresh", "replica.rebuild", "cluster.promote.take",
-        "cluster.promote.rotate"}
+        "cluster.promote.rotate", "mesh.reshard.commit"}
     # Every port row is the JAX matrix's row of the same label (its site,
     # mode, skip, shards, seed and rollup settings).
     jax = {s.label: s for s in jax_harness.build_matrix()}
@@ -58,10 +58,10 @@ def test_matrix_shape():
             (j.site, j.mode, j.skip, j.shards, j.seed, j.n_ops,
              j.wal_group_ms, j.tenant_cutoff, j.codec, j.rollups,
              j.delete_heavy, j.catchup_compare, j.kind), s.label
-    # Every row of the JAX matrix but its meshreshard kind (item 11).
-    assert {s.label for s in scens} == {
-        s.label for s in jax.values() if s.kind != "meshreshard"}
-    assert sorted(s.label for s in scens if s.kind != "crash") == sorted(
+    # Every row of the JAX matrix, its meshreshard kind included.
+    assert {s.label for s in scens} == set(jax)
+    assert sorted(s.label for s in scens
+                  if s.kind not in ("crash", "meshreshard")) == sorted(
         INPROCESS_LABELS)
     # Every TSST4 row of the JAX matrix that needs no rollup tier.
     assert sorted(s.label for s in scens if s.codec == "tsst4") == sorted(
@@ -72,7 +72,7 @@ def test_matrix_shape():
         "sst-block-torn-s4", "sst-block-torn-late-s1",
         "sst-block-torn-late-s4", "sst-block-torn-norollup",
         "sst-block-torn-norollup-s4"}
-    assert len(harness.fast_matrix()) == len(harness.FAST_LABELS) == 15
+    assert len(harness.fast_matrix()) == len(harness.FAST_LABELS) == 16
     assert sum(s.site.startswith("rollup.") for s in scens) == 16
 
 
@@ -92,7 +92,23 @@ def test_fast_scenario(label, tmp_path):
     # A crash row's child died at the armed site; an in-process row
     # (replica, promote) has no child.
     assert res["child_exit"] == (faultpoints.EXIT_CODE
-                                 if sc.kind == "crash" else None)
+                                 if sc.kind in ("crash", "meshreshard")
+                                 else None)
+
+
+def test_meshreshard_row_matches_jax(tmp_path):
+    """The meshreshard row in both harnesses: each child dies at the
+    reshard commit gate after the same acknowledged ops, and each
+    verifier's rewarm, resident parity and finished reshard pass."""
+    sc = _by_label()["meshreshard-commit-crash"]
+    res = harness.run_scenario(sc, str(tmp_path / "port"), shrink=False)
+    jsc = {s.label: s for s in jax_harness.build_matrix()}[sc.label]
+    jres = jax_harness.run_scenario(jsc, str(tmp_path / "jax"),
+                                    shrink=False)
+    assert res["status"] == jres["status"] == "ok", (res["problems"],
+                                                     jres["problems"])
+    assert res["ops_done"] == jres["ops_done"]
+    assert res["child_exit"] == jres["child_exit"] == faultpoints.EXIT_CODE
 
 
 INPROCESS_LABELS = (

@@ -2232,3 +2232,123 @@ def test_smoothing_build_or_launch_failure_raises(card):
             smoothing.holt_winters_bands(v, m)
     assert (smoothing.ewma_scan.launches,
             smoothing.holt_winters_bands.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# The mesh plane's combine kernels (csrc/mesh_combine.cu)
+# ---------------------------------------------------------------------------
+
+def _partials(rng, D, C, special=None):
+    """[D, C] partial planes as a shard's group stage makes them: counts
+    (with empty cells), sums, centered m2 >= 0, min, max, any flags.
+    ``special`` puts NaN or +-inf into every plane's values."""
+    n = rng.integers(0, 6, (D, C)).astype(np.float32)
+    total = (rng.normal(0, 50, (D, C)) * (n > 0)).astype(np.float32)
+    m2 = (rng.random((D, C)) * 30 * (n > 1)).astype(np.float32)
+    mn = np.where(n > 0, rng.normal(-5, 3, (D, C)), np.inf) \
+        .astype(np.float32)
+    mx = np.where(n > 0, rng.normal(5, 3, (D, C)), -np.inf) \
+        .astype(np.float32)
+    any_ = (n > 0).astype(np.int32)
+    if special == "nan":
+        for x in (total, m2, mn, mx):
+            x[:, ::7] = np.nan
+    elif special == "inf":
+        for x in (total, mn, mx):
+            x[:, ::5] = np.inf
+            x[:, 2::5] = -np.inf
+    return n, total, m2, mn, mx, any_
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("special", [None, "nan", "inf"])
+@pytest.mark.parametrize("D,C", [(1, 1000), (4, 16 * 32), (4, 65_537),
+                                 (8, 3000), (3, 0)])
+@pytest.mark.parametrize("agg", ["sum", "avg", "dev", "count", "min",
+                                 "max", "zimsum", "mimmin", "mimmax"])
+def test_moment_combine_bit_for_bit(card, agg, D, C, special):
+    """The moment combine kernel equals its plain version bit for bit
+    (NaN positions included), empty cells and every plane's NaN / +-inf
+    partials too, and counts one launch (none for no cells)."""
+    from opentsdb_tpu_torch.ops import mesh_combine as mc
+    rng = np.random.default_rng(D * 1000 + C)
+    planes = [torch.from_numpy(x).to(card)
+              for x in _partials(rng, D, C, special)]
+    want = mc.moment_combine_plain(*planes, agg)
+    before = mc.moment_combine.launches
+    got = mc.moment_combine(*planes, agg=agg)
+    torch.cuda.synchronize()
+    assert mc.moment_combine.launches == before + (C > 0)
+    assert torch.equal(got[1], want[1])
+    assert got[0].cpu().numpy().tobytes() == want[0].cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", ["dev", "avg", "min"])
+def test_moment_combine_non_contiguous_planes(card, agg):
+    """Planes given as transposed views (each copied to a contiguous
+    temporary inside the wrapper) give the plain version's bits: every
+    temporary lives until the launch is queued."""
+    from opentsdb_tpu_torch.ops import mesh_combine as mc
+    D, C = 4, 20_001
+    rng = np.random.default_rng(11)
+    planes = [torch.from_numpy(np.ascontiguousarray(x.T)).to(card).T
+              for x in _partials(rng, D, C)]
+    assert not any(p.is_contiguous() for p in planes)
+    want = mc.moment_combine_plain(*(p.contiguous() for p in planes), agg)
+    for _ in range(3):
+        got = mc.moment_combine(*planes, agg=agg)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1])
+        assert got[0].cpu().numpy().tobytes() == \
+            want[0].cpu().numpy().tobytes()
+
+
+def _summaries(rng, D, S, mode):
+    """[D, S, 4] int32 tile summaries with series missing from whole
+    tiles and one series (row 0) missing from every tile."""
+    present = rng.random((D, S)) < 0.6
+    if S:
+        present[:, 0] = False
+    rows = np.zeros((D, S, 4), np.int32)
+    vals = rng.normal(0, 10, (D, S, 2)).astype(np.float32)
+    if mode == 0:
+        bps = 8
+        base = (np.arange(D) * bps)[:, None]
+        last = base + rng.integers(0, bps, (D, S))
+        first = base + rng.integers(0, bps, (D, S))
+        rows[:, :, 0] = np.where(present, last, -1)
+        rows[:, :, 2] = np.where(present, first, 2**31 - 1)
+        rows[:, :, 1] = vals[:, :, 0].view(np.int32)
+        rows[:, :, 3] = vals[:, :, 1].view(np.int32)
+    else:
+        rows[:, :, 0] = present
+        rows[:, :, 1] = (np.arange(D) * 1000)[:, None] + rng.integers(
+            0, 1000, (D, S))
+        rows[:, :, 2] = vals[:, :, 0].view(np.int32)
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("D,S", [(1, 100), (4, 1), (4, 16_384), (8, 4097),
+                                 (2, 0)])
+def test_tile_carries_bit_for_bit(card, D, S, mode):
+    """The carry selection kernel equals its plain version bit for bit,
+    series absent from every tile included, and counts one launch (none
+    for no series)."""
+    from opentsdb_tpu_torch.ops import mesh_combine as mc
+    rows = torch.from_numpy(_summaries(np.random.default_rng(S), D, S,
+                                       mode)).to(card)
+    want = mc.tile_carries_plain(rows, mode)
+    before = mc.tile_carries.launches
+    got = mc.tile_carries(rows, mode)
+    torch.cuda.synchronize()
+    assert mc.tile_carries.launches == before + (S > 0)
+    assert torch.equal(got, want)
+    if S:
+        none = got[:, :, 0].cpu().numpy()
+        if mode == 0:
+            assert (none[0] == -1).all() and (none[2] == 2**31 - 1).all()
+        else:
+            assert (none[0] == 0).all()

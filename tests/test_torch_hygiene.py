@@ -420,3 +420,64 @@ def test_router_slice_lives_in_the_port():
     from opentsdb_tpu_torch.tools import cli
     assert cli.build_parser().parse_args(
         ["tsd", "--role", "router"]).device == "cuda"
+
+
+_IMPORT_MESH = """
+import importlib, sys
+for name in ("opentsdb_tpu_torch.parallel", "opentsdb_tpu_torch.parallel.mesh",
+             "opentsdb_tpu_torch.parallel.plan",
+             "opentsdb_tpu_torch.parallel.compile",
+             "opentsdb_tpu_torch.parallel.sharded",
+             "opentsdb_tpu_torch.parallel.timeshard",
+             "opentsdb_tpu_torch.storage.devshard",
+             "opentsdb_tpu_torch.ops.mesh_combine"):
+    importlib.import_module(name)
+print(sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "opentsdb_tpu" or m.startswith("opentsdb_tpu.")))
+"""
+
+
+def test_mesh_slice_lives_in_the_port():
+    """The serving mesh in one process (parallel/, storage/devshard.py,
+    ops/mesh_combine.py) loads no jax and nothing of the JAX package,
+    names the JAX module each mirrors, no port module names the JAX
+    package's parallel modules, and csrc/mesh_combine.cu builds from the
+    package with the _rn rounding its bit-exact contract needs."""
+    import importlib
+    import re
+    from opentsdb_tpu_torch.ops import cuda_build
+    out = subprocess.run([sys.executable, "-c", _IMPORT_MESH], cwd=ROOT,
+                         check=True, capture_output=True, text=True,
+                         timeout=120).stdout
+    assert out.strip() == "[]"
+    mirrors = {
+        "opentsdb_tpu_torch.parallel.mesh": "opentsdb_tpu/parallel/mesh.py",
+        "opentsdb_tpu_torch.parallel.plan": "opentsdb_tpu/parallel/plan.py",
+        "opentsdb_tpu_torch.parallel.compile":
+            "opentsdb_tpu/parallel/compile.py",
+        "opentsdb_tpu_torch.parallel.sharded":
+            "opentsdb_tpu/parallel/sharded.py",
+        "opentsdb_tpu_torch.parallel.timeshard":
+            "opentsdb_tpu/parallel/timeshard.py",
+        "opentsdb_tpu_torch.storage.devshard":
+            "opentsdb_tpu/storage/devshard.py",
+        "opentsdb_tpu_torch.parallel": "opentsdb_tpu/parallel/",
+    }
+    for mod, src in mirrors.items():
+        assert src in importlib.import_module(mod).__doc__, mod
+    assert "mesh_combine" in cuda_build.sources()
+    pkg = os.path.join(ROOT, "opentsdb_tpu_torch")
+    cu = open(os.path.join(pkg, "csrc", "mesh_combine.cu")).read()
+    for fn in ("moment_combine_f32", "tile_carries_i32f32", "__fadd_rn",
+               "__fmul_rn", "__fdiv_rn", "__fsqrt_rn",
+               "opentsdb_tpu/parallel/sharded.py",
+               "opentsdb_tpu/parallel/timeshard.py"):
+        assert fn in cu, fn
+    banned = re.compile(r"opentsdb_tpu\.parallel\b")
+    for d, dirs, files in os.walk(pkg):
+        dirs[:] = [x for x in dirs if x not in ("_build", "__pycache__")]
+        for fn in files:
+            if fn.endswith(".py"):
+                path = os.path.join(d, fn)
+                assert banned.search(open(path).read()) is None, path

@@ -48,14 +48,16 @@ HOUR = 3600
 
 # /stats lines and /metrics families of the JAX daemon that the ``both``
 # comparisons leave out, by prefix, each with the ROADMAP queue A item
-# that brings its tier: the instruments the JAX package registers at
-# import for the mesh (11, which the port leaves out) and the router and
-# cluster (10b), and those of its rollup tier module (6), which other
+# that brings its tier: expert-parallel serving's ``mesh.expert.*``
+# (11b, which the port leaves out), the router's and cluster's
+# instruments (10b), and those of the rollup tier module (6), which other
 # tests in the process may have imported. ``both_rollups`` compares the
-# rollup ones with both tiers on. Approximate serving's ``sketch.*``
-# instruments (9) are compared: both daemons register them in /q; so are
-# the replica tailer's ``replica.*`` (10a), registered at import.
-LEFT_OUT = ("rollup", "mesh", "router", "cluster")
+# rollup ones with both tiers on. The mesh plane's ``mesh.*`` (11a) is
+# compared: both daemons register it at import. Approximate serving's
+# ``sketch.*`` instruments (9) are compared too: both daemons register
+# them in /q; so are the replica tailer's ``replica.*`` (10a), registered
+# at import.
+LEFT_OUT = ("rollup", "mesh.expert", "mesh_expert", "router", "cluster")
 # The router's and the promotion manager's instruments (``router.*``,
 # ``cluster.*``, item 10b) register when their modules are imported, in
 # either package; other test files import both (METRICS is process-wide),
@@ -775,6 +777,10 @@ def test_stats_names_equal_but_for_the_left_out_tiers(both):
             "tsd.storage.memtable.rows", "tsd.tenant.series",
             "tsd.admission.shed", "tsd.uptime_s",
             "tsd.process.rss_bytes"} <= pn
+    # The mesh plane's instruments, in both daemons (item 11a).
+    assert {"tsd.mesh.compile", "tsd.mesh.dispatch", "tsd.mesh.cache.hit",
+            "tsd.mesh.cache.miss", "tsd.mesh.cache.size",
+            "tsd.mesh.devices"} <= pn
 
 
 COUNTERS = ["tsd.datapoints.added", "tsd.uid.cache-hit",
