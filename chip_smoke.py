@@ -429,7 +429,39 @@
    kernels' launches counted there and every payload they took held bit
    for bit against their plain versions; the plane's compile cache live.
    The kernel phase times both kernels at those shapes (MESH_CASES,
-   ``mesh_kernel_phase``). One ``mesh`` stdout line.
+   ``mesh_kernel_phase``). One ``mesh`` stdout line. Since item 11b the
+   executor's mesh is those four shards folded 2 x 2 (``tsd --mesh 2x2``)
+   and the daemon runs ``--expert-parallel``; last in the child, the
+   expert dashboard (``expert_leg``): one ``/q`` over the corpus's first
+   day with EXPERT_PANELS (sum / max / dev / p95 / p50, each ``{dc=*}``
+   at 1h: 50 slots of ~143k points at S = 1,024, B = 32) through the
+   expert path (the launches of that first run alone: ``dash_finish``,
+   the segment kernels, ``masked_select``; every ``dash_finish`` payload
+   held bit for bit against its plain version), EXPERT_REPS runs each of
+   the expert path, the serial scan path (expert off, window set aside:
+   the comparison the JAX path's host scan asks for) and the resident
+   path, every expert answer against the serial scan's (max exactly, the
+   rest at the resident tolerance, percentiles' identical groups
+   counted), and a second request with the rate panel, which must
+   decline whole (``expert-decline`` per result, six decline counts) with
+   the five panels' answers unchanged. One ``expert`` stdout line.
+5i. Fleet phase (item 11b), beside the path phase in a child process
+   (``fleet_phase``): the three hybrid bodies (group at sum and dev,
+   HLL, t-digest) over the corpus's week on ``Mesh([cuda:0] * 4)``
+   folded 2 x 2 (10M points, 2,500 series a shard), their launches
+   counted, the group against the single-device kernels, the HLL within
+   5% and the quantiles within SKETCH_RANK_TOL in rank of the exact
+   values, every ``hybrid_moment_combine`` payload held bit for bit
+   against its plain version and against the cross-process sequence on
+   it (each row's emit, the rows gathered, the finish over [2, 1, B]);
+   then ``tools/multihost_run.py --device cuda`` in its default mode and
+   ``--serve``: two gloo processes on the card whose cross-process
+   answers must equal a one-process run's bit for bit (the default mode
+   at the same week shapes: 10,000 series of 1,000 points in 2 x 2
+   shards, B = 256, each process one host row). The kernel phase
+   times ``dash_finish`` at the dashboard's three stages and the hybrid
+   combine at the week group (``expert_kernel_phase``). One ``fleet``
+   stdout line.
 6. Refusal phase: a small second daemon on the card with
    ``tenant_max_series=1`` must refuse a new series over telnet (the bulk
    path's and the per-line path's declared lines) and over ``/api/put``
@@ -446,8 +478,10 @@
    ingest, profiler, tenants, restart, native (build seconds and calls
    per C site, per stage, and the WAL replay), sharded, obs, budget and
    launch-floor lines, the compressed, forecast, rollup, replica, router
-   and mesh lines, the kernels line (fourteen kernels; the two mesh
-   combines' path is ``mesh``, their other shapes under ``other_cases``)
+   mesh, expert and fleet lines, the kernels line (sixteen kernels; the
+   two mesh combines' path is ``mesh``, ``dash_finish``'s ``expert`` and
+   ``hybrid_moment_combine``'s ``hybrid``, their other shapes under
+   ``other_cases``)
    and, last, the ok line.
    In the kernels line each kernel's top-level numbers are its first
    path's: the segment kernels' and the select's the resident path's
@@ -470,8 +504,8 @@
    in the details line.
 
 Overlap: after the kernel phase the sharded phase (with its writer-pause
-A/B), the rollup phase and the mesh phase each run in a child process of
-this script
+A/B), the rollup phase, the mesh phase and the fleet phase each run in a
+child process of this script
 (``--child <phase>``) while the path phase runs here, and so do the two
 kernel-count children (the fold's and the smoothing kernels', ``python
 -c``, started once every kernel case is timed); the sharded and mesh
@@ -526,12 +560,19 @@ from opentsdb_tpu_torch.obs.registry import METRICS
 from opentsdb_tpu_torch.fault import faultpoints
 from opentsdb_tpu_torch.models import forecast as mforecast
 from opentsdb_tpu_torch.models import smoothing as msmooth
-from opentsdb_tpu_torch.ops import (block_decode, cuda_build, interp_moments,
-                                    kernels as wk, masked_select,
-                                    mesh_combine, oracle, rollup_fold,
-                                    segment_reduce, sketches, smoothing)
+from opentsdb_tpu_torch.ops import (block_decode, cuda_build, expert_finish,
+                                    interp_moments, kernels as wk,
+                                    masked_select, mesh_combine, oracle,
+                                    rollup_fold, segment_reduce, sketches,
+                                    smoothing)
 from opentsdb_tpu_torch.parallel import compile as mesh_plane
+from opentsdb_tpu_torch.parallel import expert as pexpert
 from opentsdb_tpu_torch.parallel.mesh import Mesh
+from opentsdb_tpu_torch.parallel.multihost import (hybrid_downsample_group,
+                                                   hybrid_hll_distinct,
+                                                   hybrid_tdigest,
+                                                   make_hybrid_mesh)
+from opentsdb_tpu_torch.parallel.sharded import pack_shards
 from opentsdb_tpu_torch.query.aggregators import Aggregators
 from opentsdb_tpu_torch.query.executor import (QueryExecutor, QueryResult,
                                                QuerySpec, _filter_key,
@@ -551,6 +592,7 @@ from opentsdb_tpu_torch.tools import cli as port_cli
 from opentsdb_tpu_torch.tools.cli import open_tsdb
 from opentsdb_tpu_torch.tools.compare_kernels import decode_inputs
 from opentsdb_tpu_torch.tools.fsck import run_fsck
+from opentsdb_tpu_torch.tools import multihost_run
 from opentsdb_tpu_torch.utils import nativeext
 from opentsdb_tpu_torch.utils.config import Config
 from opentsdb_tpu_torch.utils.gctune import tune_for_ingest
@@ -664,7 +706,7 @@ LOG_TAG = ""
 # The directory the path phase writes REFERENCE into and the children
 # write their results into (see "Overlap" in the module docstring).
 SHARE_DIR = ""
-CHILD_PHASES = ("sharded", "rollup", "mesh")
+CHILD_PHASES = ("sharded", "rollup", "mesh", "fleet")
 REFERENCE_WAIT_S = 900
 
 
@@ -747,6 +789,8 @@ def child_main(phase: str, share: str, start: float, parent: int) -> int:
         out["writer_pause"] = writer_pause_phase(ts, vals)
     elif phase == "mesh":
         out = mesh_phase(ts, vals)
+    elif phase == "fleet":
+        out = fleet_phase(ts, vals)
     else:
         out = rollup_phase(ts, vals)
     write_json(os.path.join(share, f"{phase}.json"),
@@ -6856,13 +6900,17 @@ def mesh_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
     start, end = BASE, BASE + SPAN - 1
     out: dict = {"shards": MESH_D, "resident": {}, "scan": {},
                  "reshard": []}
-    mesh = Mesh([DEVICE] * MESH_D)
+    # The MESH_D logical shards folded host x series (tsd --mesh 2x2):
+    # the series-sharded legs run over all of them, the expert dashboard
+    # splits them by family.
+    mesh = make_hybrid_mesh(*EXPERT_FOLD, devices=[DEVICE] * MESH_D)
     mesh_plane.set_mesh_devices(MESH_D)
     with tempfile.TemporaryDirectory() as d:
         tsdb = open_tsdb(Config(auto_create_metrics=True, port=0,
                                 bind="127.0.0.1", device=DEVICE,
                                 enable_sketches=False,
-                                devwindow_shards=MESH_D),
+                                devwindow_shards=MESH_D,
+                                expert_parallel=True),
                          os.path.join(d, "wal"))
         tune_for_ingest()
         dw = tsdb.devwindow
@@ -7019,10 +7067,628 @@ def mesh_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
                     or cache["devices"] != MESH_D:
                 fail(f"the mesh daemon's compile cache: {cache}")
             out["compile_cache"] = cache
+
+            # 4. The expert dashboard (5h).
+            out["expert"] = expert_leg(daemon, tsdb, dw,
+                                       int((ts < BASE + DAY).sum()))
+            out["launches"]["expert"] = out["expert"].pop("launches")
+            log(f"expert dashboard: {json.dumps({k: out['expert'][k] for k in ('expert_ms', 'scan_ms', 'resident_ms', 'against_scan', 'decline')})}")
         finally:
             daemon.stop()
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"mesh phase: {json.dumps({k: out[k] for k in ('launches', 'reshard', 'flow', 'compile_cache', 'phase_s')})}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Expert dashboard (in the mesh child) and the hybrid mesh and plane
+# (fleet child): ROADMAP item 11b
+# ---------------------------------------------------------------------------
+
+# The mesh child's query mesh is folded host x series, as tsd --mesh 2x2.
+EXPERT_FOLD = (2, 2)
+# One /q over the corpus's first day: five {dc=*} panels at 1h, each dc
+# group a slot (50 slots of ~143k points); the sixth, rate panel makes a
+# second request decline.
+EXPERT_PANELS = ["sum:1h-avg:bench.metric{dc=*}",
+                 "max:1h-max:bench.metric{dc=*}",
+                 "dev:1h-avg:bench.metric{dc=*}",
+                 "p95:1h-avg:bench.metric{dc=*}",
+                 "p50:1h-avg:bench.metric{dc=*}"]
+EXPERT_DECLINE_PANEL = "sum:rate:1h-avg:bench.metric{dc=*}"
+EXPERT_GROUPS = 10
+EXPERT_REPS = 3
+# The dashboard's [S, B] (executor padding) and the fleet phase's week.
+EXPERT_GRID = (_pad_size(SERIES // EXPERT_GROUPS),
+               _pad_size(DAY // INTERVAL + 1))
+FLEET_B = _pad_size(SPAN // INTERVAL + 1)
+EXPERT_KERNELS = ("dash_finish", "hybrid_moment_combine")
+EXPERT_WHERE = {
+    "dash_finish": ("expert.cu", "opentsdb_tpu/parallel/expert.py:279"),
+    "hybrid_moment_combine": ("mesh_combine.cu",
+                              "opentsdb_tpu/parallel/multihost.py:97")}
+FLEET_AGGS = ("sum", "dev")
+FLEET_HLL_REL_ERR = 0.05       # the JAX test's bound
+MULTIHOST_WALL_S = 300.0
+
+
+def expert_plan():
+    """The dashboard's plan as the executor packs it (panel by panel, one
+    slot a dc group), from one-point stand-in slots: the shards'
+    families and their slots' aggregator codes."""
+    queries = []
+    for expr in EXPERT_PANELS:
+        p = parse_m(expr)
+        agg = Aggregators.get(p.aggregator)
+        for _ in range(EXPERT_GROUPS):
+            q = {"family": ("percentile" if agg.kind == "percentile"
+                            else "moment"), "ts": [0], "vals": [0.0],
+                 "sid": [0], "dsagg": p.downsample[1]}
+            if agg.kind == "percentile":
+                q["quantile"] = agg.quantile
+            else:
+                q["agg"] = p.aggregator
+            queries.append(q)
+    return pexpert.plan_dashboard_batch(queries, MESH_D)
+
+
+def expert_stages() -> dict:
+    """dash_finish's cases at the dashboard's shapes: stage -> (codes,
+    cells)."""
+    plan = expert_plan()
+    S, B = EXPERT_GRID
+    m = int(np.flatnonzero(plan.fam == 0)[0])
+    p = int(np.flatnonzero(plan.fam == 1)[0])
+    Q = plan.ds_id.shape[1]
+    return {
+        f"series stage, moment shard ({Q} x {S * B:,})":
+            ([int(c) for c in plan.ds_id[m]], S * B),
+        f"group stage, moment shard ({Q} x {B})":
+            ([int(c) for c in plan.agg_id[m]], B),
+        f"series stage, percentile shard ({Q} x {S * B:,})":
+            ([int(c) for c in plan.ds_id[p]], S * B)}
+
+
+def finish_planes(codes: list, cells: int, seed: int) -> list:
+    """[Q, cells] moment planes as a series stage makes them (counts with
+    empty cells, sums, centered m2, min, max) on the card; the planes no
+    slot's code reads are None."""
+    rng = np.random.default_rng(seed)
+    Q = len(codes)
+    n = rng.integers(0, 12, (Q, cells)).astype(np.float32)
+    total = (rng.normal(100, 5, (Q, cells)) * n).astype(np.float32)
+    m2 = (rng.random((Q, cells)) * n).astype(np.float32)
+    mn = np.where(n > 0, rng.normal(90, 3, (Q, cells)), np.inf)
+    mx = np.where(n > 0, rng.normal(110, 3, (Q, cells)), -np.inf)
+    need = expert_finish.needs(codes)
+    return [torch.from_numpy(x.astype(np.float32)).to(DEVICE)
+            if name in need else None
+            for name, x in zip(expert_finish.PLANES, (n, total, m2, mn, mx))]
+
+
+def hybrid_partials(H: int, C: int, cells: int, seed: int) -> list:
+    """[H, C, cells] partials as a shard's group stage makes them, on the
+    card (dev reads every plane)."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(0, 400, (H, C, cells)).astype(np.float32)
+    total = (rng.normal(100, 5, (H, C, cells)) * n).astype(np.float32)
+    mean = total / np.maximum(n, 1)
+    m2 = (rng.random((H, C, cells)) * n * 30).astype(np.float32)
+    mn = np.where(n > 0, rng.normal(90, 3, (H, C, cells)), np.inf)
+    mx = np.where(n > 0, rng.normal(110, 3, (H, C, cells)), -np.inf)
+    return [torch.from_numpy(np.asarray(x, np.float32)).to(DEVICE)
+            for x in (n, total, m2, mean, mn, mx)] + [
+        torch.from_numpy((n > 0).astype(np.int32)).to(DEVICE)]
+
+
+def hybrid_stages() -> dict:
+    H, C = EXPERT_FOLD
+    return {"finish": f"week group, finish ({H} x {C} x {FLEET_B})",
+            "emit": f"week group, a row's emit (1 x {C} x {FLEET_B})",
+            "gathered": f"week group, finish of the gathered rows "
+                        f"({H} x 1 x {FLEET_B})"}
+
+
+def expert_kernel_phase() -> list:
+    """dash_finish at the dashboard's shapes (a moment shard's series and
+    group stages and a percentile shard's series stage, with the plan's
+    codes) and hybrid_moment_combine at the fleet phase's week group (the
+    one-launch finish over [2, 2, B], one row's emit over [1, 2, B] and
+    the finish of the gathered rows over [2, 1, B], which must equal the
+    one-launch finish bit for bit), each against its plain version bit
+    for bit and timed as the kernel phase times the others. Inputs are
+    made from a seed at those shapes; the children hold the kernels bit
+    for bit on the paths' own payloads. Bound: bytes (each plane a slot
+    or the aggregator reads, once; each output written once); no single
+    PyTorch call computes either function."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=DEVICE)
+    results = []
+    for i, (stage, (codes, cells)) in enumerate(expert_stages().items()):
+        planes = finish_planes(codes, cells, seed=100 + i)
+        got = expert_finish.dash_finish(*planes, codes)
+        want = expert_finish.dash_finish_plain(*planes, codes)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            fail(f"dash_finish [{stage}]: the kernel and its plain version "
+                 f"differ")
+
+        def fn(planes=planes, codes=codes):
+            return expert_finish.dash_finish(*planes, codes)
+
+        def plain(planes=planes, codes=codes):
+            return expert_finish.dash_finish_plain(*planes, codes)
+        nbytes = expert_finish.bytes_moved(codes, cells)
+        b_ms, b_by = bound_ms(nbytes, len(codes) * cells)
+        res = {"name": "dash_finish", "stage": stage, "slots": len(codes),
+               "cells": cells, "codes": codes, "bytes": nbytes,
+               "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
+               "library": NO_LIBRARY}
+        results.append(time_case(res, fn, plain, None, flush))
+    H, C = EXPERT_FOLD
+    agg = "dev"
+    planes = hybrid_partials(H, C, FLEET_B, seed=7)
+    need = len(mesh_combine.hybrid_needs(agg)) + 1      # and any
+    rows = [mesh_combine.hybrid_moment_combine(
+        *(p[h:h + 1] for p in planes), agg=agg, emit=True)
+        for h in range(H)]
+    gathered = [None if rows[0][i] is None else
+                torch.cat([r[i] for r in rows])[:, None] for i in range(7)]
+    stages = hybrid_stages()
+    cases = {
+        "finish": (planes, False, need * 4 * H * C * FLEET_B
+                   + 5 * FLEET_B),
+        "emit": ([p[:1] for p in planes], True,
+                 need * 4 * C * FLEET_B + need * 4 * FLEET_B),
+        "gathered": (gathered, False, need * 4 * H * FLEET_B + 5 * FLEET_B)}
+    finished = None
+    for key, (args, emit, nbytes) in cases.items():
+        got = mesh_combine.hybrid_moment_combine(*args, agg=agg, emit=emit)
+        want = mesh_combine.hybrid_moment_combine_plain(*args, agg, emit)
+        torch.cuda.synchronize()
+        if not all(same_bits(g, w) for g, w in zip(got, want)
+                   if g is not None):
+            fail(f"hybrid_moment_combine [{stages[key]}]: the kernel and "
+                 f"its plain version differ")
+        if key == "finish":
+            finished = got
+        elif key == "gathered" and not all(
+                same_bits(a, b) for a, b in zip(got, finished)):
+            fail("hybrid_moment_combine: emit then finish differs from the "
+                 "one-launch finish")
+
+        def fn(args=args, emit=emit):
+            return mesh_combine.hybrid_moment_combine(*args, agg=agg,
+                                                      emit=emit)
+
+        def plain(args=args, emit=emit):
+            return mesh_combine.hybrid_moment_combine_plain(*args, agg,
+                                                            emit)
+        b_ms, b_by = bound_ms(nbytes, H * C * FLEET_B)
+        res = {"name": "hybrid_moment_combine", "stage": stages[key],
+               "agg": agg, "emit": emit, "bytes": nbytes,
+               "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
+               "library": NO_LIBRARY}
+        results.append(time_case(res, fn, plain, None, flush))
+    del flush
+    torch.cuda.empty_cache()
+    return results
+
+
+def dash_q(port: int, panels: list, start: int, end: int) -> tuple:
+    """One dashboard /q (every panel an m=): (answer, wall ms)."""
+    target = "/q?" + urllib.parse.urlencode(
+        [("start", start), ("end", end)] + [("m", m) for m in panels]
+        + [("json", "")])
+    q0 = time.perf_counter()
+    status, body = http_get(port, target)
+    wall = (time.perf_counter() - q0) * 1e3
+    if status != 200:
+        fail(f"dashboard /q: HTTP {status}: {body[:300]!r}")
+    return json.loads(body), wall
+
+
+def finish_tap(calls: list):
+    """Keep each dash_finish call's arguments (the expert body calls it
+    through its module's name); returns the restore function. Launches
+    still count on the wrapper."""
+    orig = pexpert.dash_finish
+
+    def tap(*args):
+        planes, codes = args[:5], args[5]
+        calls.append(([None if p is None else p.clone() for p in planes],
+                      list(codes)))
+        return orig(*planes, codes)
+    pexpert.dash_finish = tap
+
+    def restore():
+        pexpert.dash_finish = orig
+    return restore
+
+
+def finish_checks(calls: list) -> list:
+    """Each captured dash_finish call against its plain version, bit for
+    bit, and its shape against the kernel phase's cases."""
+    shapes = {(tuple(c), n) for c, n in expert_stages().values()}
+    out = []
+    for planes, codes in calls:
+        got = expert_finish.dash_finish(*planes, codes)
+        want = expert_finish.dash_finish_plain(*planes, codes)
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            fail(f"dash_finish on the expert leg's payload ({len(codes)} x "
+                 f"{got.shape[1]}): the kernel and its plain version differ")
+        out.append({"slots": len(codes), "cells": int(got.shape[1]),
+                    "codes": codes, "bit_equal": True,
+                    "timed_shape": (tuple(codes), int(got.shape[1]))
+                    in shapes})
+    return out
+
+
+def dash_compare(got: list, want: list, what: str) -> dict:
+    """A dashboard's answers against another path's: the same groups,
+    tags and timestamps panel by panel; max exactly, sums and deviations
+    within rtol 1e-5 + 1e-5 x scale (the segment sums add in another
+    order), percentiles the same rank selections over the same filled
+    grid, at the same tolerance (their grid's sums may differ by an ulp:
+    ``identical`` says whether they did). Returns per panel the largest
+    relative-to-scale difference and the identical group count."""
+    if len(got) != len(want) or len(got) % EXPERT_GROUPS:
+        fail(f"{what}: {len(got)} results against {len(want)}")
+    out = {}
+    for i in range(len(got) // EXPERT_GROUPS):
+        expr = (EXPERT_PANELS + [EXPERT_DECLINE_PANEL])[i]
+        worst, same = 0.0, 0
+        for g, w in zip(got[i * EXPERT_GROUPS:(i + 1) * EXPERT_GROUPS],
+                        want[i * EXPERT_GROUPS:(i + 1) * EXPERT_GROUPS]):
+            if g["tags"] != w["tags"] or list(g["dps"]) != list(w["dps"]) \
+                    or g["aggregateTags"] != w["aggregateTags"]:
+                fail(f"{what}, {expr}: tags or timestamps differ")
+            a = np.array(list(g["dps"].values()), np.float64)
+            b = np.array(list(w["dps"].values()), np.float64)
+            if not len(a) or not np.isfinite(a).all():
+                fail(f"{what}, {expr}: empty or non-finite answer")
+            scale = max(float(np.abs(b).max()), 1e-30)
+            err = np.abs(a - b)
+            if expr.startswith("max") and (a != b).any():
+                fail(f"{what}, {expr}: max differs")
+            if (err > 1e-5 * np.abs(b) + 1e-5 * scale).any():
+                j = int(np.argmax(err))
+                fail(f"{what}, {expr}: {a[j]!r} against {b[j]!r}")
+            worst = max(worst, float(err.max() / scale))
+            same += bool((a == b).all())
+        out[expr] = {"max_rel_diff": worst, "identical_groups": same}
+    return out
+
+
+def expert_leg(daemon: "Daemon", tsdb: TSDB, dw, day_points: int) -> dict:
+    """The expert dashboard on the mesh daemon (``--expert-parallel``,
+    the executor's mesh folded 2 x 2): the five panels through the
+    expert path (its launches counted on the first run alone, every
+    dash_finish payload held bit for bit), then the same /q served
+    serially on the scan path (expert off, window set aside) and from
+    the resident window (expert off), every expert answer held against
+    the serial scan's; then the sixth, rate panel must decline the whole
+    request (``expert-decline``, counted) with the five panels' answers
+    unchanged."""
+    start, end = BASE, BASE + DAY - 1
+    server = daemon.server
+    port = daemon.port
+    out: dict = {"panels": EXPERT_PANELS, "fold": list(EXPERT_FOLD),
+                 "grid": list(EXPERT_GRID)}
+    calls: list = []
+    server.expert_enabled = True
+    serve0 = METRICS.counter("mesh.expert.serve").value
+    zero_launches()
+    expert_finish.dash_finish.launches = 0
+    restore = finish_tap(calls)
+    try:
+        answer, ms = dash_q(port, EXPERT_PANELS, start, end)
+    finally:
+        restore()
+    counts = dict(zip(KERNELS, launches()),
+                  dash_finish=expert_finish.dash_finish.launches)
+    for name in ("dash_finish", "segment_sum", "masked_select"):
+        if counts[name] == 0:
+            fail(f"the expert dashboard never launched {name}")
+    out["launches"] = counts
+    if len(answer) != len(EXPERT_PANELS) * EXPERT_GROUPS or any(
+            r.get("plan") != "expert" or r["rollup"] != "expert"
+            for r in answer):
+        fail(f"the dashboard did not serve through the expert path: "
+             f"{[(r.get('plan'), r['rollup']) for r in answer][:6]}")
+    if METRICS.counter("mesh.expert.serve").value - serve0 != \
+            len(EXPERT_PANELS):
+        fail("mesh.expert.serve did not count the dashboard's panels")
+    out["expert_ms"] = [ms] + [dash_q(port, EXPERT_PANELS, start, end)[1]
+                               for _ in range(EXPERT_REPS - 1)]
+    server.expert_enabled = False
+    tsdb.devwindow = None
+    try:
+        scan = [dash_q(port, EXPERT_PANELS, start, end)
+                for _ in range(EXPERT_REPS)]
+        server.expert_enabled = True
+        d0 = METRICS.counter("mesh.expert.decline",
+                             {"reason": "rate"}).value
+        declined, declined_ms = dash_q(
+            port, EXPERT_PANELS + [EXPERT_DECLINE_PANEL], start, end)
+        declines = METRICS.counter("mesh.expert.decline",
+                                   {"reason": "rate"}).value - d0
+    finally:
+        tsdb.devwindow = dw
+        server.expert_enabled = False
+    if any(r["rollup"] != "raw" or "plan" in r for r in scan[0][0]):
+        fail("the serial dashboard did not take the scan path")
+    resident = [dash_q(port, EXPERT_PANELS, start, end)
+                for _ in range(EXPERT_REPS)]
+    server.expert_enabled = True
+    if any(r["rollup"] != "resident" for r in resident[0][0]):
+        fail("the serial dashboard did not serve resident")
+    out["scan_ms"] = [m for _, m in scan]
+    out["resident_ms"] = [m for _, m in resident]
+    out["against_scan"] = dash_compare(answer, scan[0][0], "expert vs scan")
+    out["resident_against_scan"] = dash_compare(
+        resident[0][0], scan[0][0], "resident vs scan")
+    n6 = (len(EXPERT_PANELS) + 1) * EXPERT_GROUPS
+    if len(declined) != n6 or any(r.get("plan") != "expert-decline"
+                                  for r in declined):
+        fail("the rate panel's dashboard did not declare its decline")
+    if declines != len(EXPERT_PANELS) + 1:
+        fail(f"mesh.expert.decline{{reason=rate}} counted {declines}")
+    out["decline"] = {
+        "reason": "rate", "counted": declines, "ms": declined_ms,
+        "panels_against_scan": dash_compare(
+            declined[:len(scan[0][0])], scan[0][0], "declined vs scan")}
+    out["kernel_checks"] = finish_checks(calls)
+    del calls
+    out["slots"] = len(EXPERT_PANELS) * EXPERT_GROUPS
+    out["corpus_points_per_slot"] = day_points // EXPERT_GROUPS
+    return out
+
+
+def hybrid_tap(calls: list):
+    """Keep each hybrid_moment_combine call's arguments; returns the
+    restore function (the wrapper counts its launches on the module's
+    name, which is the tap while it is in, as in ``mesh_tap``)."""
+    orig = mesh_combine.hybrid_moment_combine
+
+    def tap(*args, agg, emit=False):
+        calls.append(([None if x is None else x.clone() for x in args], agg,
+                      emit))
+        return orig(*args, agg=agg, emit=emit)
+    tap.launches = orig.launches
+    mesh_combine.hybrid_moment_combine = tap
+
+    def restore():
+        orig.launches = tap.launches
+        mesh_combine.hybrid_moment_combine = orig
+    return restore
+
+
+def hybrid_checks(calls: list) -> list:
+    """Each captured one-launch finish against its plain version bit for
+    bit, and against the cross-process sequence on the same partials
+    (each row's emit, the rows gathered, the finish over [H, 1, cells]):
+    the same bits."""
+    out = []
+    for args, agg, emit in calls:
+        got = mesh_combine.hybrid_moment_combine(*args, agg=agg, emit=emit)
+        want = mesh_combine.hybrid_moment_combine_plain(*args, agg, emit)
+        torch.cuda.synchronize()
+        if not all(same_bits(g, w) for g, w in zip(got, want)
+                   if g is not None):
+            fail(f"hybrid_moment_combine ({agg}) on the fleet phase's "
+                 f"payload: the kernel and its plain version differ")
+        H = args[6].shape[0]
+        rows = [mesh_combine.hybrid_moment_combine(
+            *(None if x is None else x[h:h + 1] for x in args), agg=agg,
+            emit=True) for h in range(H)]
+        again = mesh_combine.hybrid_moment_combine(
+            *(None if rows[0][i] is None else
+              torch.cat([r[i] for r in rows])[:, None] for i in range(7)),
+            agg=agg)
+        torch.cuda.synchronize()
+        two_level = all(same_bits(a, b) for a, b in zip(again, got))
+        if not two_level:
+            fail(f"hybrid_moment_combine ({agg}): emit then finish differs "
+                 f"from the one-launch finish")
+        out.append({"agg": agg, "shape": list(args[6].shape),
+                    "bit_equal": True, "emit_then_finish_equal": two_level})
+    return out
+
+
+MIXED_SLOTS = 4            # queries a family in the research batch
+MIXED_VALUES = 8_000       # values a percentile query (one fold row)
+
+
+def mixed_batch_case(ts: np.ndarray, vals: np.ndarray) -> dict:
+    """The research face (``run_mixed_batch``, which no daemon calls) on
+    the four logical shards: MIXED_SLOTS moment queries (ten series' day
+    each), percentile queries (MIXED_VALUES values) and cardinality
+    queries (a day's timestamps), against the same batch on the CPU:
+    moments at float32 tolerance, quantiles within 1% of the value
+    range (two digest builds), estimates within 1e-6; a percentile shard
+    folds its slots in one launch, a cardinality shard in one fold and
+    one estimate."""
+    spec = pexpert.ExpertSpecs(
+        moment=pexpert.MomentSpec(num_series=16, num_buckets=32,
+                                  interval=INTERVAL, agg_down="avg",
+                                  agg_group="sum"),
+        percentile=pexpert.PercentileSpec(qs=tuple(SKETCH_QS)))
+    queries = []
+    for i in range(MIXED_SLOTS):
+        rows = slice(10 * i, 10 * i + 10)
+        day = ts[rows] < BASE + DAY
+        queries.append({
+            "family": "moment", "ts": (ts[rows][day] - BASE).astype(np.int32),
+            "vals": vals[rows][day],
+            "sid": np.repeat(np.arange(10, dtype=np.int32),
+                             day.sum(axis=1))})
+        queries.append({"family": "percentile",
+                        "vals": vals[i, :].repeat(8)[:MIXED_VALUES]})
+        queries.append({"family": "cardinality",
+                        "items": (ts[rows][day] - BASE).astype(np.int32)})
+    before = {n: getattr(sketches, n).launches
+              for n in ("tdigest_fold", "hll_fold", "hll_estimate")}
+    t0 = time.perf_counter()
+    got = pexpert.run_mixed_batch(queries, Mesh([DEVICE] * MESH_D), spec)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {n: getattr(sketches, n).launches - v
+                for n, v in before.items()}
+    want = pexpert.run_mixed_batch(queries, Mesh(["cpu"] * MESH_D), spec)
+    plan = pexpert.plan_expert_batch(queries, MESH_D)
+    shards = {f: int((plan.fam == i).sum())
+              for i, f in enumerate(pexpert.FAMILIES)}
+    if launches != {"tdigest_fold": shards["percentile"],
+                    "hll_fold": shards["cardinality"],
+                    "hll_estimate": shards["cardinality"]}:
+        fail(f"the mixed batch launched {launches} for shards {shards}")
+    worst = {"moment": 0.0, "percentile": 0.0, "cardinality": 0.0}
+    for q, g, w in zip(queries, got, want):
+        g, w = np.atleast_1d(g), np.atleast_1d(w)
+        if q["family"] == "moment":
+            if not np.array_equal(np.isnan(g), np.isnan(w)):
+                fail("mixed batch: a moment query's mask differs")
+            g, w = g[~np.isnan(g)], w[~np.isnan(w)]
+            scale = float(np.abs(w).max())
+            err = float(np.abs(g - w).max() / scale)
+            bound = 1e-5 + 1e-5
+        elif q["family"] == "percentile":
+            span = float(np.ptp(q["vals"]))
+            err = float(np.abs(g - w).max() / span)
+            bound = 0.01
+        else:
+            err = float(abs(g[0] - w[0]) / w[0])
+            bound = 1e-6
+        if err > bound:
+            fail(f"mixed batch: a {q['family']} query differs from the "
+                 f"CPU's by {err}")
+        worst[q["family"]] = max(worst[q["family"]], err)
+    return {"queries": len(queries), "shards": shards, "ms": ms,
+            "launches": launches, "max_err": worst}
+
+
+FLEET_KERNELS = ("hybrid_moment_combine", "segment_sum", "hll_fold",
+                 "hll_estimate", "tdigest_fold")
+
+
+def fleet_launches() -> dict:
+    return {"hybrid_moment_combine":
+            mesh_combine.hybrid_moment_combine.launches,
+            "segment_sum": segment_reduce.segment_sum.launches,
+            "segment_minmax": segment_reduce.segment_minmax.launches,
+            "hll_fold": sketches.hll_fold.launches,
+            "hll_estimate": sketches.hll_estimate.launches,
+            "tdigest_fold": sketches.tdigest_fold.launches}
+
+
+def fleet_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
+    """The hybrid mesh and the mesh plane (ROADMAP item 11b), 5i of the
+    module docstring, in a child process beside the path phase: the
+    three hybrid bodies over the corpus's week (10M points, 2,500 series
+    a shard) on ``Mesh([cuda:0] * 4)`` folded 2 x 2, their launches
+    counted, each answer held against the single-device kernels or the
+    exact values, every hybrid combine payload held bit for bit (and the
+    cross-process sequence on it); then ``tools/multihost_run.py
+    --device cuda`` in its default mode and ``--serve``: two gloo
+    processes on the card, their cross-process answers bit for bit
+    against one process's."""
+    t_phase = time.perf_counter()
+    H, C = EXPERT_FOLD
+    out: dict = {"fold": [H, C], "points": int(ts.size)}
+    mesh = make_hybrid_mesh(H, C, devices=[DEVICE] * (H * C))
+    series = [(ts[s] - BASE, vals[s]) for s in range(SERIES)]
+    st, sv, ssid, svalid, sps = pack_shards(series, H * C)
+    del series
+    out["series_per_shard"] = sps
+    calls: list = []
+    zero_launches()
+    mesh_combine.hybrid_moment_combine.launches = 0
+    sketches.hll_fold.launches = 0
+    sketches.hll_estimate.launches = 0
+    sketches.tdigest_fold.launches = 0
+    restore = hybrid_tap(calls)
+    got: dict = {}
+    try:
+        for agg in FLEET_AGGS:
+            t0 = time.perf_counter()
+            gv, gm = hybrid_downsample_group(
+                st, sv, ssid, svalid, mesh=mesh, series_per_shard=sps,
+                num_buckets=FLEET_B, interval=INTERVAL, agg_down="avg",
+                agg_group=agg)
+            got[agg] = (gv.cpu().numpy(), gm.cpu().numpy(),
+                        (time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        est = float(hybrid_hll_distinct(st, svalid, mesh=mesh, p=14))
+        hll_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        tq = hybrid_tdigest(sv, svalid, SKETCH_QS, mesh=mesh).cpu().numpy()
+        td_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        restore()
+    out["launches"] = fleet_launches()
+    for name in FLEET_KERNELS:
+        if out["launches"][name] == 0:
+            fail(f"the hybrid bodies never launched {name}")
+    # The references, after the counts are read.
+    flat_ts = torch.from_numpy((ts - BASE).astype(np.int32).ravel()) \
+        .to(DEVICE)
+    flat_vals = torch.from_numpy(vals.ravel()).to(DEVICE)
+    flat_sid = torch.from_numpy(np.repeat(
+        np.arange(SERIES, dtype=np.int32), POINTS)).to(DEVICE)
+    valid = torch.ones_like(flat_sid, dtype=torch.bool)
+    out["group"] = {}
+    for agg in FLEET_AGGS:
+        ref = wk.downsample_group(
+            flat_ts, flat_vals, flat_sid, valid,
+            num_series=_pad_size(SERIES), num_buckets=FLEET_B,
+            interval=INTERVAL, agg_down="avg", agg_group=agg)
+        gv, gm, ms = got[agg]
+        wm = ref["group_mask"].cpu().numpy()
+        wv = ref["group_values"].cpu().numpy()
+        if not np.array_equal(gm, wm):
+            fail(f"hybrid group ({agg}): mask differs from the "
+                 f"single-device kernels'")
+        scale = float(np.abs(wv[wm]).max())
+        err = np.abs(gv[gm].astype(np.float64) - wv[wm])
+        if (err > 1e-5 * np.abs(wv[wm]) + 1e-5 * scale).any():
+            fail(f"hybrid group ({agg}): values differ from the "
+                 f"single-device kernels'")
+        out["group"][agg] = {"ms": ms, "buckets": int(gm.sum()),
+                             "max_rel_err": float(err.max() / scale)}
+    del flat_ts, flat_vals, flat_sid, valid
+    exact = len(np.unique(st[svalid]))
+    hll_rel = abs(est - exact) / exact
+    if hll_rel > FLEET_HLL_REL_ERR:
+        fail(f"hybrid HLL: {est} against {exact} distinct")
+    ordered = np.sort(vals.ravel())
+    rank = max(rank_error(ordered, float(v), q) for v, q in
+               zip(tq, SKETCH_QS))
+    if rank > SKETCH_RANK_TOL:
+        fail(f"hybrid t-digest: rank error {rank}")
+    del ordered
+    out["hll"] = {"ms": hll_ms, "estimate": est, "exact": exact,
+                  "rel_err": hll_rel}
+    out["tdigest"] = {"ms": td_ms, "qs": SKETCH_QS,
+                      "quantiles": tq.tolist(), "max_rank_err": rank}
+    out["kernel_checks"] = hybrid_checks(calls)
+    del calls
+    out["mixed_batch"] = mixed_batch_case(ts, vals)
+    log(f"fleet in-process: {json.dumps({k: out[k] for k in ('launches', 'group', 'hll', 'tdigest')})}")
+    out["multihost"] = {}
+    for mode in ("hybrid", "serve"):
+        t0 = time.perf_counter()
+        rec = multihost_run.run_parent(mode, DEVICE, None,
+                                       wall_s=MULTIHOST_WALL_S)
+        if not rec["ok"]:
+            fail(f"multihost_run {mode}: {rec['errors']}")
+        procs = [{k: v for k, v in p.items()
+                  if k not in ("group_values", "group_mask", "tdigest")}
+                 for p in rec["processes"]]
+        out["multihost"][mode] = {"wall_s": time.perf_counter() - t0,
+                                  "processes": procs}
+        log(f"multihost_run {mode}: {json.dumps(procs)}")
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -7086,7 +7752,7 @@ def main() -> int:
     folds, fold_counts = rollup_fold_cases()
     smooth, forecast_counts = smoothing_kernel_cases(ts, vals, next(
         r["ms_device"] for r in kernels if r["name"] == "launch_floor"))
-    kernels += folds + smooth + mesh_kernel_phase()
+    kernels += folds + smooth + mesh_kernel_phase() + expert_kernel_phase()
     # The kernel-count children run beside the path phase, after every
     # timed case.
     jobs = [start_fold_count(fold_counts),
@@ -7098,8 +7764,8 @@ def main() -> int:
             try:
                 with tempfile.TemporaryDirectory() as wal_dir:
                     path = path_phase(ts, vals, wal_dir)
-                log("path phase done; joining the sharded, rollup and "
-                    "mesh phases")
+                log("path phase done; joining the sharded, rollup, mesh "
+                    "and fleet phases")
                 done = {p: join_child(p, proc)
                         for p, proc in children.items()}
             finally:
@@ -7114,6 +7780,7 @@ def main() -> int:
                 proc.wait()
             shutil.rmtree(d, ignore_errors=True)
     sharded, rollup, mesh = done["sharded"], done["rollup"], done["mesh"]
+    fleet = done["fleet"]
     log("compressed phase")
     compressed = compressed_phase(ts, vals, path)
     kernels += compressed["kernel_cases"]
@@ -7147,7 +7814,9 @@ def main() -> int:
         "ewma_scan": {"forecast": "{host=*} 1h"},
         "holt_winters": {"forecast": "{host=*} 1h, season 24"},
         "moment_combine": {"mesh": "{host=*} week"},
-        "tile_carries": {"mesh": "{host=h00001} week"}}
+        "tile_carries": {"mesh": "{host=h00001} week"},
+        "dash_finish": {"expert": next(iter(expert_stages()))},
+        "hybrid_moment_combine": {"hybrid": hybrid_stages()["finish"]}}
     where = {
         "segment_sum": ("segment_reduce.cu",
                         "opentsdb_tpu/ops/pallas_kernels.py:77"),
@@ -7166,7 +7835,7 @@ def main() -> int:
         "block_decode": ("block_decode.cu",
                          "opentsdb_tpu/compress/kernels.py:72"),
         "rollup_fold": ROLLUP_FOLD_WHERE, **SMOOTHING_WHERE,
-        **MESH_WHERE}
+        **MESH_WHERE, **EXPERT_WHERE}
     for name, stage in at_replica.items():
         shapes[name] = dict(shapes[name], replica=stage)
     for name, stage in at_router.items():
@@ -7178,7 +7847,8 @@ def main() -> int:
         path["launches"], fused=compressed["launches"],
         forecast=path["forecast"]["launches"],
         replica=replica["launches"], router=router["launches"],
-        mesh=mesh["launches"]["mesh"],
+        mesh=mesh["launches"]["mesh"], expert=mesh["launches"]["expert"],
+        hybrid=fleet["launches"],
         **{"device fold": {
             "rollup_fold": rollup["device_fold"]["launches"]}})
     line = []
@@ -7201,14 +7871,15 @@ def main() -> int:
                   and not r["stage"].startswith(("replica ", "router "))
                   and name in SKETCH_KERNELS + ("block_decode",
                                                 "rollup_fold")
-                  + tuple(SMOOTHING_WHERE) + MESH_KERNELS]
+                  + tuple(SMOOTHING_WHERE) + MESH_KERNELS
+                  + EXPERT_KERNELS]
         if others:
             floors = (("chain_floor_ms", "launch_floor_ms", "binds", "share")
                       if name in SMOOTHING_WHERE else ())
             entry["other_cases"] = {
                 r["stage"]: {k: r[k] for k in numbers + floors if k in r}
                 for r in others}
-        if name in MESH_KERNELS:
+        if name in MESH_KERNELS + EXPERT_KERNELS:
             entry["library"] = NO_LIBRARY
         if name in ("block_decode", "rollup_fold") + tuple(
                 SMOOTHING_WHERE):
@@ -7225,7 +7896,8 @@ def main() -> int:
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "kernel_cases": kernels, "path": path,
         "compressed": compressed, "rollup": rollup, "sharded": sharded,
-        "mesh": mesh, "refusal": refusal, "budget": budget}}))
+        "mesh": mesh, "fleet": fleet, "refusal": refusal,
+        "budget": budget}}))
     for expr, q in path["queries"].items():
         print(json.dumps({"query": expr, "plan": "resident", **q,
                           "card": smi}))
@@ -7427,6 +8099,29 @@ def main() -> int:
             for name in MESH_KERNELS},
         "interconnect": f"not measured: {MESH_D} logical shards of one "
                         f"card"},
+        "card": smi}))
+    ex = mesh["expert"]
+    print(json.dumps({"expert": {
+        **{k: ex[k] for k in (
+            "panels", "fold", "grid", "slots", "corpus_points_per_slot",
+            "expert_ms", "scan_ms", "resident_ms", "against_scan",
+            "resident_against_scan", "decline")},
+        "launches": mesh["launches"]["expert"],
+        "kernel_checks": {
+            "calls": len(ex["kernel_checks"]),
+            "bit_equal": all(c["bit_equal"] for c in ex["kernel_checks"]),
+            "shapes": sorted({(c["slots"], c["cells"])
+                              for c in ex["kernel_checks"]})},
+        "concurrency": f"not claimed: {MESH_D} logical shards of one card "
+                       f"run one after another"},
+        "card": smi}))
+    print(json.dumps({"fleet": {
+        **{k: fleet[k] for k in (
+            "fold", "points", "series_per_shard", "launches", "group",
+            "hll", "tdigest", "mixed_batch", "multihost", "phase_s")},
+        "kernel_checks": fleet["kernel_checks"],
+        "transport": "gloo (two processes on one card; NCCL needs a card "
+                     "a rank: not measured)"},
         "card": smi}))
     print(json.dumps({"window_at_budget": {
         k: budget[k] for k in ("points", "chunks", "resident_bytes",

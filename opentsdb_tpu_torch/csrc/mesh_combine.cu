@@ -1,5 +1,5 @@
 // Cross-shard combines of the mesh execution plane (parallel/compile.py):
-// the two steps where the JAX package's mesh bodies meet across chips.
+// the steps where the JAX package's mesh bodies meet across chips.
 //
 // Replaces no Pallas kernel: the JAX package does these steps with XLA
 // collectives inside shard_map bodies. In the port the shards of a mesh
@@ -48,6 +48,36 @@
 //   there. It only selects, so it equals its plain version bit for bit.
 //   One thread a (tile, series); output [4, D, S] int32.
 //   Bound: bytes, 16 D S in and 16 D S out.
+//
+// hybrid_moment_combine_f32 -- the two-level merge of
+// opentsdb_tpu/parallel/multihost.py _hybrid_group_body (:97-128) on the
+// hybrid (host, series) mesh, over [H, C, cells] partials (count n, sum,
+// centered m2, mean, min, max as float32; an int32 any-real flag):
+//   level 1, per host row h over its C chips in chip order (JAX's chan
+//     over the series axis with the shipped chip means):
+//       h_n = sum_c n, h_total = sum_c total,
+//       h_mean = h_total / max(h_n, 1),
+//       h_m2 = sum_c (m2 + n * (mean - h_mean)^2),
+//       h_min / h_max over the chips (NaN propagates, a strict compare
+//       in chip order decides ties), h_any = any chip's flag;
+//   level 2, the same over the H rows in row order with each row's
+//     h_mean, then _finish(agg) and the mask.
+//   A level over one member (C == 1 or H == 1) takes that member's
+//   partials as they are: a sum of one term is the term, and its centred
+//   term is n * 0 wherever the mean is finite, as in the JAX body.
+//   emit = 1 stops after level 1 and writes each row's partials [H, cells]
+//   (n, total, m2, mean, min, max, any): what a process ships across the
+//   mesh plane. A finish over the gathered rows, [H, 1, cells], then
+//   gives the bits of the finish over [H, C, cells] in one launch, since
+//   its level 1 is the identity.
+//   Only the planes the aggregator reads are read and emitted (the others
+//   may be null): n for avg, dev and count; total for sum, avg and dev;
+//   m2 and mean for dev; min or max. One thread a cell, loads at stride
+//   cells, so a warp's loads are 32 neighbouring words.
+//   Bound: bytes. Each plane the aggregator reads, and any, is read once
+//   (4 H C cells bytes each; dev's second pass over n and total comes
+//   from L2), the value and mask written once (5 cells bytes), or the
+//   emitted planes (4 H cells bytes each).
 //
 // Rounding: every operation is an _rn intrinsic, so nvcc never contracts
 // a multiply and an add into an FMA and the division and square root are
@@ -167,6 +197,119 @@ tile_carries_kernel(const int4* __restrict__ rows, int32_t D, int64_t S,
   }
 }
 
+struct Partial {
+  float n, total, m2, mean, mn, mx;
+  bool any;
+};
+
+// One chan level over `k` members at `stride` apart from `base`:
+// members' partials come from the planes (level 1) or from `rows`
+// (level 2, rows != nullptr).
+__device__ Partial chan_level(const float* __restrict__ n,
+                              const float* __restrict__ total,
+                              const float* __restrict__ m2,
+                              const float* __restrict__ mean,
+                              const float* __restrict__ mn,
+                              const float* __restrict__ mx,
+                              const int32_t* __restrict__ any,
+                              const Partial* rows, int64_t base,
+                              int64_t stride, int32_t k, int32_t agg) {
+  auto at = [&](int32_t i) {
+    Partial p;
+    if (rows != nullptr) return rows[i];
+    const int64_t o = base + (int64_t)i * stride;
+    p.n = n != nullptr ? n[o] : 0.0f;
+    p.total = total != nullptr ? total[o] : 0.0f;
+    p.m2 = m2 != nullptr ? m2[o] : 0.0f;
+    p.mean = mean != nullptr ? mean[o] : 0.0f;
+    p.mn = mn != nullptr ? mn[o] : 0.0f;
+    p.mx = mx != nullptr ? mx[o] : 0.0f;
+    p.any = any[o] != 0;
+    return p;
+  };
+  Partial acc = at(0);
+  if (k == 1) return acc;
+  const bool dev = agg == kDev;
+  float m2acc = 0.0f;
+  for (int32_t i = 1; i < k; ++i) {
+    const Partial p = at(i);
+    acc.n = __fadd_rn(acc.n, p.n);
+    acc.total = __fadd_rn(acc.total, p.total);
+    if (p.mn < acc.mn || isnan(p.mn)) acc.mn = p.mn;
+    if (p.mx > acc.mx || isnan(p.mx)) acc.mx = p.mx;
+    acc.any = acc.any || p.any;
+  }
+  acc.mean = __fdiv_rn(acc.total, fmaxf(acc.n, 1.0f));
+  if (dev) {
+    for (int32_t i = 0; i < k; ++i) {
+      const Partial p = at(i);
+      const float d = __fsub_rn(p.mean, acc.mean);
+      const float term = __fadd_rn(p.m2, __fmul_rn(p.n, __fmul_rn(d, d)));
+      m2acc = i == 0 ? term : __fadd_rn(m2acc, term);
+    }
+    acc.m2 = m2acc;
+  }
+  return acc;
+}
+
+constexpr int kMaxHosts = 16;
+
+__global__ void __launch_bounds__(kThreads)
+hybrid_combine_kernel(const float* __restrict__ n,
+                      const float* __restrict__ total,
+                      const float* __restrict__ m2,
+                      const float* __restrict__ mean,
+                      const float* __restrict__ mn,
+                      const float* __restrict__ mx,
+                      const int32_t* __restrict__ any, int32_t H,
+                      int32_t C, int64_t cells, int32_t agg, int32_t emit,
+                      float* __restrict__ out, uint8_t* __restrict__ mask,
+                      float* __restrict__ e_n, float* __restrict__ e_total,
+                      float* __restrict__ e_m2, float* __restrict__ e_mean,
+                      float* __restrict__ e_mn, float* __restrict__ e_mx,
+                      int32_t* __restrict__ e_any) {
+  for (int64_t c = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+       c < cells; c += (int64_t)gridDim.x * blockDim.x) {
+    Partial rows[kMaxHosts];
+    for (int32_t h = 0; h < H; ++h) {
+      rows[h] = chan_level(n, total, m2, mean, mn, mx, any, nullptr,
+                           (int64_t)h * C * cells + c, cells, C, agg);
+    }
+    if (emit) {
+      for (int32_t h = 0; h < H; ++h) {
+        const int64_t o = (int64_t)h * cells + c;
+        if (e_n != nullptr) e_n[o] = rows[h].n;
+        if (e_total != nullptr) e_total[o] = rows[h].total;
+        if (e_m2 != nullptr) e_m2[o] = rows[h].m2;
+        if (e_mean != nullptr) e_mean[o] = rows[h].mean;
+        if (e_mn != nullptr) e_mn[o] = rows[h].mn;
+        if (e_mx != nullptr) e_mx[o] = rows[h].mx;
+        e_any[o] = rows[h].any ? 1 : 0;
+      }
+      continue;
+    }
+    const Partial g = chan_level(n, total, m2, mean, mn, mx, any, rows, 0,
+                                 0, H, agg);
+    const float safe = fmaxf(g.n, 1.0f);
+    float v = g.n;
+    if (agg == kSum) {
+      v = g.total;
+    } else if (agg == kAvg) {
+      v = __fdiv_rn(g.total, safe);
+    } else if (agg == kDev) {
+      // clamp(m2, min=0) keeps a NaN, as torch.clamp does.
+      const float m = g.m2 < 0.0f ? 0.0f : g.m2;
+      v = __fsqrt_rn(__fdiv_rn(m, safe));
+    } else if (agg == kMin) {
+      v = g.mn;
+    } else if (agg == kMax) {
+      v = g.mx;
+    }
+    out[c] = v;
+    mask[c] = g.any ? 1 : 0;
+  }
+}
+
 int blocks_for(int64_t cells) {
   int64_t b = (cells + kThreads - 1) / kThreads;
   if (b > 65535 * 8) b = 65535 * 8;
@@ -200,6 +343,27 @@ extern "C" int tile_carries_i32f32(const int32_t* rows, int32_t D, int64_t S,
     tile_carries_kernel<<<blocks_for((int64_t)D * S), kThreads, 0,
                           (cudaStream_t)stream>>>(
         reinterpret_cast<const int4*>(rows), D, S, mode, out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Partials [H, C, cells] row-major; a plane agg does not read may be null
+// (see the kernel's comment), and H <= 16. emit = 0: out [cells] float32
+// and mask [cells] uint8. emit = 1: the row partials [H, cells] into the
+// e_* planes (those agg reads, and e_any). Returns the CUDA error of the
+// launch, or cudaErrorInvalidValue past 16 rows.
+extern "C" int hybrid_moment_combine_f32(
+    const float* n, const float* total, const float* m2, const float* mean,
+    const float* mn, const float* mx, const int32_t* any, int32_t H,
+    int32_t C, int64_t cells, int32_t agg, int32_t emit, float* out,
+    uint8_t* mask, float* e_n, float* e_total, float* e_m2, float* e_mean,
+    float* e_mn, float* e_mx, int32_t* e_any, void* stream) {
+  if (H > kMaxHosts || H < 0 || C < 0) return (int)cudaErrorInvalidValue;
+  if (cells > 0 && H > 0 && C > 0) {
+    hybrid_combine_kernel<<<blocks_for(cells), kThreads, 0,
+                            (cudaStream_t)stream>>>(
+        n, total, m2, mean, mn, mx, any, H, C, cells, agg, emit, out, mask,
+        e_n, e_total, e_m2, e_mean, e_mn, e_mx, e_any);
   }
   return (int)cudaGetLastError();
 }

@@ -113,7 +113,6 @@ def _segment_moments(vals: torch.Tensor, seg: torch.Tensor,
 def _finish(agg: str, count, total, m2, mn, mx):
     """Combine segment moments (m2 = centered sum of squares) into the agg."""
     agg = NOLERP_AGGS.get(agg, agg)  # same reduction, different feed
-    safe = torch.clamp(count, min=1.0)
     if agg == "sum":
         return total
     if agg == "min":
@@ -121,9 +120,10 @@ def _finish(agg: str, count, total, m2, mn, mx):
     if agg == "max":
         return mx
     if agg == "avg":
-        return total / safe
+        return total / torch.clamp(count, min=1.0)
     if agg == "dev":
-        return torch.sqrt(torch.clamp(m2, min=0.0) / safe)
+        return torch.sqrt(torch.clamp(m2, min=0.0)
+                          / torch.clamp(count, min=1.0))
     if agg == "count":
         return count
     raise ValueError(f"unknown aggregator: {agg}")

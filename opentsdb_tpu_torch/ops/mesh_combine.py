@@ -4,10 +4,15 @@
 ``moment_combine`` merges D shards' per-cell partial moments into the
 group aggregate (the psum / pmin / pmax fan-in and ``_finish`` of
 ``opentsdb_tpu/parallel/sharded.py``'s group and multigroup bodies);
+``hybrid_moment_combine`` is the two-level merge of
+``opentsdb_tpu/parallel/multihost.py``'s hybrid group body (a host
+row's chips, then the rows), or its first level alone, the row partials
+a process ships across the mesh plane;
 ``tile_carries`` selects each (tile, series)'s cross-tile carries from
 the gathered tile summaries (``opentsdb_tpu/parallel/timeshard.py``
-``_cross_tile_edges`` and the rate body's predecessor search). Neither
-replaces a Pallas kernel: the JAX package does both with XLA collectives.
+``_cross_tile_edges`` and the rate body's predecessor search). None
+replaces a Pallas kernel: the JAX package does these with XLA
+collectives.
 The source file says what bounds each kernel and how it rounds.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
@@ -26,6 +31,7 @@ import torch
 
 from opentsdb_tpu_torch.core.const import NOLERP_AGGS
 from opentsdb_tpu_torch.ops import cuda_build
+from opentsdb_tpu_torch.ops.kernels import _finish
 
 # _finish's aggregators, as the kernel numbers them.
 AGG_CODES = {"sum": 0, "min": 1, "max": 2, "avg": 3, "dev": 4, "count": 5}
@@ -44,6 +50,9 @@ def _kernels() -> ctypes.CDLL:
         lib.moment_combine_f32.restype = ctypes.c_int
         lib.tile_carries_i32f32.argtypes = [p, i32, i64, i32, p, p]
         lib.tile_carries_i32f32.restype = ctypes.c_int
+        lib.hybrid_moment_combine_f32.argtypes = [p] * 7 + [
+            i32, i32, i64, i32, i32] + [p] * 10
+        lib.hybrid_moment_combine_f32.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -222,3 +231,143 @@ def tile_carries(rows: torch.Tensor, mode: int) -> torch.Tensor:
 
 
 tile_carries.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# hybrid_moment_combine
+# ---------------------------------------------------------------------------
+
+# The rows one launch merges (the kernel keeps them in registers).
+HYBRID_MAX_HOSTS = 16
+HYBRID_PLANES = ("n", "total", "m2", "mean", "min", "max")
+
+
+def hybrid_needs(agg: str) -> frozenset:
+    """The partial planes ``hybrid_moment_combine`` reads (and emits)
+    for ``agg``: ``needs`` and, for dev, the shipped means."""
+    want = needs(agg)
+    return want | {"mean"} if "m2" in want else want
+
+
+def _chan_plain(p: dict, dim: int, dev: bool) -> dict:
+    """One chan level over dimension ``dim`` (members in order); a level
+    of one member is the member."""
+    k = p["any"].shape[dim]
+
+    def member(name, i):
+        x = p[name]
+        return None if x is None else x.select(dim, i)
+
+    if k == 1:
+        return {name: member(name, 0) for name in p}
+    acc = {name: member(name, 0) for name in p}
+    acc["any"] = acc["any"] != 0
+    for i in range(1, k):
+        for name in ("n", "total"):
+            if acc[name] is not None:
+                acc[name] = acc[name] + member(name, i)
+        for name, beat in (("min", torch.lt), ("max", torch.gt)):
+            if acc[name] is not None:
+                x = member(name, i)
+                acc[name] = torch.where(beat(x, acc[name]) | torch.isnan(x),
+                                        x, acc[name])
+        acc["any"] = acc["any"] | (member("any", i) != 0)
+    acc["any"] = acc["any"].to(torch.int32)
+    if acc["n"] is not None and acc["total"] is not None:
+        acc["mean"] = acc["total"] / torch.clamp(acc["n"], min=1.0)
+    if dev:
+        m2 = None
+        for i in range(k):
+            d = member("mean", i) - acc["mean"]
+            term = member("m2", i) + member("n", i) * (d * d)
+            m2 = term if m2 is None else m2 + term
+        acc["m2"] = m2
+    return acc
+
+
+def hybrid_moment_combine_plain(n, total, m2, mean, mn, mx, any_, agg: str,
+                                emit: bool = False):
+    """Plain ``hybrid_moment_combine``: the same operations in the same
+    order."""
+    code = agg_code(agg)
+    want = hybrid_needs(agg)
+    planes = {"n": n, "total": total, "m2": m2, "mean": mean, "min": mn,
+              "max": mx}
+    p = {name: (x if name in want else None) for name, x in planes.items()}
+    p["any"] = any_
+    rows = _chan_plain(p, 1, code == 4)
+    if emit:
+        return tuple(rows[name] if name in want else None
+                     for name in HYBRID_PLANES) + (rows["any"],)
+    g = _chan_plain(rows, 0, code == 4)
+    v = _finish(agg, g["n"], g["total"], g["m2"], g["min"], g["max"])
+    return v, g["any"] != 0
+
+
+def hybrid_moment_combine(n, total, m2, mean, mn, mx, any_, *, agg: str,
+                          emit: bool = False):
+    """Merge [H, C, cells] float32 partials (count, sum, centered m2,
+    mean, min, max; ``any_`` [H, C, cells] int32) of H host rows of C
+    chips: the chips of each row in chip order, then the rows in row
+    order (Chan et al.'s exact pairwise update at each level, JAX's
+    ``_hybrid_group_body``), then the aggregator ``agg``: (value [cells]
+    float32, mask [cells] bool). ``emit``: stop after the first level and
+    return each row's partials, ``HYBRID_PLANES`` then any, [H, cells]
+    each (None for the planes ``agg`` does not read): what a process
+    ships across the mesh plane. A finish over the gathered rows as
+    [H, 1, cells] gives the bits of the finish over [H, C, cells]. The
+    planes ``agg`` does not read (``hybrid_needs``) may be None."""
+    want = hybrid_needs(agg)
+    planes = {"n": n, "total": total, "m2": m2, "mean": mean, "min": mn,
+              "max": mx}
+    if any_.dim() != 3 or any_.dtype != torch.int32:
+        raise ValueError(f"hybrid_moment_combine: any must be [H, C, "
+                         f"cells] int32, got {tuple(any_.shape)} "
+                         f"{any_.dtype}")
+    for name in want:
+        t = planes[name]
+        if t is None or t.shape != any_.shape \
+                or t.dtype != torch.float32 or t.device != any_.device:
+            raise ValueError(f"hybrid_moment_combine: {agg} needs a [H, "
+                             f"C, cells] float32 {name} plane on "
+                             f"{any_.device}")
+    H, C, cells = any_.shape
+    if H > HYBRID_MAX_HOSTS:
+        raise ValueError(f"hybrid_moment_combine: {H} host rows, at most "
+                         f"{HYBRID_MAX_HOSTS}")
+    if any_.device.type == "cpu":
+        return hybrid_moment_combine_plain(n, total, m2, mean, mn, mx,
+                                           any_, agg, emit)
+    if any_.device.type != "cuda":
+        raise ValueError(f"no kernel for device {any_.device}")
+    dev = any_.device
+    keep = {name: planes[name].contiguous() for name in want}
+    keep["any"] = any_.contiguous()
+    ins = [keep[k].data_ptr() if k in keep else None
+           for k in (*HYBRID_PLANES, "any")]
+    if emit:
+        outs = {name: torch.empty((H, cells), dtype=torch.float32,
+                                  device=dev) for name in want}
+        outs["any"] = torch.empty((H, cells), dtype=torch.int32,
+                                  device=dev)
+        eptr = [outs[k].data_ptr() if k in outs else None
+                for k in (*HYBRID_PLANES, "any")]
+        res = tuple(outs.get(k) for k in HYBRID_PLANES) + (outs["any"],)
+        optr = [None, None]
+    else:
+        out = torch.empty(cells, dtype=torch.float32, device=dev)
+        mask = torch.empty(cells, dtype=torch.bool, device=dev)
+        if cells == 0 or H == 0 or C == 0:
+            return out, torch.zeros_like(mask)
+        eptr = [None] * 7
+        res = (out, mask)
+        optr = [out.data_ptr(), mask.data_ptr()]
+    if cells == 0 or H == 0 or C == 0:
+        return res
+    _launch(_kernels().hybrid_moment_combine_f32, dev.index, *ins, H, C,
+            cells, agg_code(agg), int(emit), *optr, *eptr)
+    hybrid_moment_combine.launches += 1
+    return res
+
+
+hybrid_moment_combine.launches = 0

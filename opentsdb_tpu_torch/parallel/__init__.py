@@ -13,9 +13,13 @@ second hand-written kernel. A mesh is a list of torch devices in which
 a device may repeat, so the whole path runs as logical shards on one
 CPU or one card.
 
-Not ported yet (ROADMAP item 11b): ``fleet.py`` (a plane across
-processes), ``multihost.py`` (hybrid RxC meshes) and ``expert.py``
-(expert-parallel dashboards).
+A mesh may also fold its shards into the hybrid (host, series) grid
+(``parallel/multihost.py``: two-level moment, HLL and t-digest merges,
+the moments in the third hand-written kernel), span the processes of a
+mesh plane (``parallel/fleet.py``: a ``torch.distributed`` group whose
+collectives carry only host-level partials), or split by aggregator
+family (``parallel/expert.py``: a mixed dashboard in one dispatch,
+finished by the ``dash_finish`` kernel of ``ops/expert_finish.py``).
 """
 
 from opentsdb_tpu_torch.parallel.mesh import (

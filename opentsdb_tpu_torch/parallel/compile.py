@@ -32,6 +32,30 @@ function. On one card the shards' bodies share one stream, so they run
 one after another: the mesh measures per-shard work and the combines,
 no interconnect.
 
+Axes. Every collective takes an optional ``axis``. None (or the one axis
+of a 1-D mesh) combines every shard, as before. On a 2-D hybrid mesh
+(``parallel/mesh.py``), ``SERIES_AXIS`` combines each host row's shards
+in chip order and hands each shard its row's result, and ``HOST_AXIS``
+combines each chip column (the same chip of every row) in row order and
+hands each shard its column's result, as JAX's ``psum(x, HOST_AXIS)``
+does. The hybrid bodies yield there only the host-level partials a
+series collective has already handed every chip of the row: a row whose
+chips yielded the very same tensors counts as one payload, so one
+payload a row crosses a process boundary and, when every row is such,
+the combine runs once for all the columns.
+
+Across processes (a mesh with a ``plane``, ``parallel/fleet.py``): each
+process steps its own shards. A collective that combines shards of
+several processes first all-gathers the local payloads over the plane's
+``torch.distributed`` group (``fleet.all_gather``: each payload's
+tensors staged through pinned host memory under gloo), then runs the
+same combine over the same payloads in the same order in every process,
+so a mesh across processes gives the bits of the same mesh in one
+process. A series collective on a hybrid mesh never crosses (a process
+holds whole rows); a whole-mesh collective gathers every shard's
+payload. Every process must reach the same collectives in the same
+order, as under JAX's multi-controller model.
+
 Client-controlled rate parameters (``counter_max``, ``reset_value``)
 are operands, never statics, so distinct values never grow the cache
 (the JAX package's recompile-DoS guard, kept as the same contract).
@@ -90,16 +114,19 @@ def cache_info() -> dict:
 
 class Collective:
     """One cross-shard step a mesh body yields: ``fn(payloads, device)``
-    runs once on the mesh's first device over every shard's payload (in
-    shard order). ``per_shard``: fn returns one result per shard (shard
-    i gets entry i) instead of one replicated result."""
+    runs once on the mesh's first device over the payloads of the shards
+    ``axis`` groups (in shard order). ``per_shard``: fn returns one
+    result per shard of the group (shard i of the group gets entry i)
+    instead of one replicated result."""
 
-    __slots__ = ("fn", "payload", "per_shard")
+    __slots__ = ("fn", "payload", "per_shard", "axis")
 
-    def __init__(self, fn, payload, per_shard: bool = False) -> None:
+    def __init__(self, fn, payload, per_shard: bool = False,
+                 axis=None) -> None:
         self.fn = fn
         self.payload = payload
         self.per_shard = per_shard
+        self.axis = axis
 
 
 def _to(x, dev):
@@ -140,28 +167,30 @@ def _shard_stack(xs, dev):
     return torch.stack([x.to(dev) for x in xs])
 
 
-def psum(x) -> Collective:
-    """Sum over the shards, in shard order."""
-    return Collective(_shard_sum, x)
+def psum(x, axis=None) -> Collective:
+    """Sum over the shards ``axis`` groups, in shard order."""
+    return Collective(_shard_sum, x, axis=axis)
 
 
-def pmin(x) -> Collective:
-    return Collective(_shard_min, x)
+def pmin(x, axis=None) -> Collective:
+    return Collective(_shard_min, x, axis=axis)
 
 
-def pmax(x) -> Collective:
-    return Collective(_shard_max, x)
+def pmax(x, axis=None) -> Collective:
+    return Collective(_shard_max, x, axis=axis)
 
 
-def all_gather(x) -> Collective:
-    """Every shard's x stacked along a new leading axis [D, ...]."""
-    return Collective(_shard_stack, x)
+def all_gather(x, axis=None) -> Collective:
+    """The grouped shards' x stacked along a new leading axis."""
+    return Collective(_shard_stack, x, axis=axis)
 
 
-def combine(fn, *payload, per_shard: bool = False) -> Collective:
-    """A cross-shard function run once: ``fn(payloads, device)`` with
-    ``payloads[i]`` the tuple shard i yielded."""
-    return Collective(fn, payload, per_shard)
+def combine(fn, *payload, per_shard: bool = False,
+            axis=None) -> Collective:
+    """A cross-shard function run once per group: ``fn(payloads,
+    device)`` with ``payloads[i]`` the tuple shard i of the group
+    yielded."""
+    return Collective(fn, payload, per_shard, axis)
 
 
 # ---------------------------------------------------------------------------
@@ -176,10 +205,100 @@ def _place(x, dev):
     return x
 
 
+def _collective_groups(mesh, axis):
+    """How a collective over ``axis`` groups the shards: ("all", None)
+    every shard; ("rows", C) each host row of C shards (local to a
+    process); ("hosts", C) each chip column, the same chip of every host
+    row, as JAX's collectives over the host axis group them."""
+    names = mesh.axis_names
+    if axis is None or axis == names or len(names) == 1:
+        if axis is not None and len(names) == 1 and axis != names[0]:
+            raise ValueError(f"collective over {axis!r} on a mesh with "
+                             f"axis {names[0]!r}")
+        return "all", None
+    if axis not in names:
+        raise ValueError(f"collective over {axis!r} on a mesh with axes "
+                         f"{names}")
+    C = mesh.shape[1]
+    return ("hosts", C) if axis == names[0] else ("rows", C)
+
+
+def _gather(mesh, plan: ExecPlan, payloads: list, first) -> list:
+    """The payloads of every process of the mesh's plane, in process
+    order (this process's own without a plane)."""
+    if mesh.plane is None:
+        return payloads
+    from opentsdb_tpu_torch.parallel import fleet
+
+    return fleet.all_gather(payloads, mesh.devices[0],
+                            tag=(plan.name, first.fn.__qualname__,
+                                 first.axis))
+
+
+def _same_payload(a, b) -> bool:
+    """b holds the very tensors of a, and equal plain values."""
+    if isinstance(a, (tuple, list)):
+        return type(a) is type(b) and len(a) == len(b) and all(
+            _same_payload(x, y) for x, y in zip(a, b))
+    if a is b:
+        return True
+    plain = (str, int, float, bool, type(None))
+    return type(a) is type(b) and isinstance(a, plain) and a == b
+
+
+def _host_collective(mesh, plan: ExecPlan, steps, send, C: int) -> None:
+    """A host-axis collective: each chip column combined over the host
+    rows, in row order. A row whose chips yielded the very same tensors
+    (what a series collective hands the chips of a row on one device) is
+    one payload, sent across processes and combined once; when every
+    row is, the columns are one group and the combine runs once."""
+    first = steps[0]
+    target = mesh.devices[0]
+    rows = [[s.payload for s in steps[lo:lo + C]]
+            for lo in range(0, len(steps), C)]
+    packed = [(True, r[0]) if all(_same_payload(r[0], p) for p in r[1:])
+              else (False, r) for r in rows]
+    packed = _gather(mesh, plan, packed, first)
+    if all(one for one, _ in packed):
+        res = [first.fn([p for _, p in packed], target)] * C
+    else:
+        # Every row's payloads, row-major: column c is full[c::C].
+        full = [p for one, r in packed for p in ([r] * C if one else r)]
+        res = [first.fn(full[c::C], target) for c in range(C)]
+    for d, dev in enumerate(mesh.devices):
+        send[d] = _to(res[d % C], dev)
+
+
+def _step_collective(mesh, plan: ExecPlan, steps, send) -> None:
+    """Run the collective every local shard reached; fill ``send``."""
+    first = steps[0]
+    kind, C = _collective_groups(mesh, first.axis)
+    target = mesh.devices[0]
+    D = len(steps)
+    if kind == "rows":
+        for lo in range(0, D, C):
+            res = first.fn([s.payload for s in steps[lo:lo + C]], target)
+            for i in range(C):
+                send[lo + i] = _to(res[i] if first.per_shard else res,
+                                   mesh.devices[lo + i])
+        return
+    if kind == "hosts":
+        if first.per_shard:
+            raise ValueError(f"plan {plan.name}: a host-axis collective "
+                             f"is replicated, never per shard")
+        _host_collective(mesh, plan, steps, send, C)
+        return
+    payloads = _gather(mesh, plan, [s.payload for s in steps], first)
+    res = first.fn(payloads, target)
+    for d, dev in enumerate(mesh.devices):
+        send[d] = _to(res[mesh.offset + d] if first.per_shard else res,
+                      dev)
+
+
 def _run_shards(body, mesh, plan: ExecPlan, args) -> list:
-    """Each shard's body on its device, collectives in lockstep; the
-    per-shard return values."""
-    D = mesh.size
+    """Each local shard's body on its device, collectives in lockstep;
+    the per-shard return values."""
+    D = len(mesh.devices)
     specs = plan.in_specs
     if len(specs) != len(args):
         raise ValueError(f"plan {plan.name}: {len(args)} inputs, "
@@ -189,10 +308,11 @@ def _run_shards(body, mesh, plan: ExecPlan, args) -> list:
             raise ValueError(f"plan {plan.name}: a sharded input has "
                              f"{a.shape[0]} rows, the mesh {D} shards")
     gens, outs, steps = [], [None] * D, [None] * D
+    base = mesh.offset
     for d, dev in enumerate(mesh.devices):
         shard_args = [_place(a[d] if spec is not None else a, dev)
                       for a, spec in zip(args, specs)]
-        res = body(*shard_args, axis_index=d)
+        res = body(*shard_args, axis_index=base + d)
         gens.append(res if hasattr(res, "send") else None)
         if gens[d] is None:
             outs[d] = res
@@ -203,7 +323,6 @@ def _run_shards(body, mesh, plan: ExecPlan, args) -> list:
         raise RuntimeError(f"plan {plan.name}: shards disagree on "
                            f"whether the body has collectives")
     send = [None] * D
-    target = mesh.devices[0]
     while True:
         done = 0
         for d in range(D):
@@ -215,12 +334,11 @@ def _run_shards(body, mesh, plan: ExecPlan, args) -> list:
                 done += 1
         if done == D:
             return outs
-        if done or any(s.fn is not steps[0].fn for s in steps):
+        if done or any(s.fn is not steps[0].fn or s.axis != steps[0].axis
+                       for s in steps):
             raise RuntimeError(f"plan {plan.name}: shards reached "
                                f"different collectives")
-        res = steps[0].fn([s.payload for s in steps], target)
-        for d, dev in enumerate(mesh.devices):
-            send[d] = _to(res[d] if steps[0].per_shard else res, dev)
+        _step_collective(mesh, plan, steps, send)
 
 
 def _gather_out(outs, spec, dev):

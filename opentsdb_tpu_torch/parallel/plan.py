@@ -73,30 +73,42 @@ class ExecPlan:
 def build_mesh(shape: str, devices=None, *, device="cuda") -> Mesh:
     """Mesh from the ``Config.mesh_shape`` / ``tsd --mesh`` knob.
 
-    ``"N"`` builds a 1-D series mesh of N shards. On the CPU (``device``
-    of type cpu) they are N logical shards on the one CPU device, the
-    counterpart of the JAX package's virtual CPU devices. On CUDA, N
-    must not exceed the cards of this process: asking for more is a
-    loud boot error, never a quiet single-device fallback. ``devices``
-    overrides the list the shards take the first N of.
-
-    ``"RxC"`` (the JAX package's hybrid host x series mesh) is not
-    ported yet (ROADMAP item 11b) and raises."""
+    ``"N"`` builds a 1-D series mesh of N shards; ``"RxC"`` the 2-D
+    hybrid (host, series) mesh of R host rows of C chips
+    (``parallel/multihost.py`` ``make_hybrid_mesh``). On the CPU
+    (``device`` of type cpu) the shards are logical shards of the one
+    CPU device, the counterpart of the JAX package's virtual CPU
+    devices. On CUDA the shards take this process's cards, and asking
+    for more shards than cards is a loud boot error with the JAX
+    package's text, never a quiet single-device fallback (a fold of
+    logical shards of one card is built with ``make_hybrid_mesh`` and a
+    ``devices`` list that repeats it). ``devices`` overrides the list
+    the shards take the first N (or R * C) of."""
     shape = shape.strip().lower()
     if not shape:
         raise ValueError("empty mesh shape")
+    if devices is None:
+        devs = local_devices(device)
+        cpu = bool(devs) and devs[0].type == "cpu"
+    else:
+        devs, cpu = list(devices), False
     if "x" in shape:
-        raise ValueError(f"mesh shape {shape!r}: the hybrid RxC mesh is "
-                         f"not yet ported (item 11b)")
+        r_s, _, c_s = shape.partition("x")
+        r, c = int(r_s), int(c_s)
+        if r <= 0 or c <= 0:
+            raise ValueError(f"bad mesh shape {shape!r}")
+        from opentsdb_tpu_torch.parallel.multihost import make_hybrid_mesh
+        if cpu:
+            devs = devs * (r * c)
+        if r * c > len(devs):
+            raise ValueError(f"mesh {shape} needs {r * c} devices, have "
+                             f"{len(devs)}")
+        return make_hybrid_mesh(r, c, devices=devs[:r * c])
     n = int(shape)
     if n <= 0:
         raise ValueError(f"bad mesh shape {shape!r}")
-    if devices is None:
-        devs = local_devices(device)
-        if devs and devs[0].type == "cpu":
-            devs = devs * n
-    else:
-        devs = list(devices)
+    if cpu:
+        devs = devs * n
     if n > len(devs):
         raise ValueError(f"mesh {shape} needs {n} devices, have "
                          f"{len(devs)}")
@@ -104,11 +116,12 @@ def build_mesh(shape: str, devices=None, *, device="cuda") -> Mesh:
 
 
 def flatten_series_mesh(mesh):
-    """1-D series-axis view of any mesh (the series-sharded kernels run
-    over every device whatever the mesh's axis)."""
+    """1-D series-axis view of any mesh: the series-sharded query bodies
+    and the window fold run over every shard whatever the (host, series)
+    fold; the fold matters only to the hybrid bodies."""
     if getattr(mesh, "axis_names", None) in (None, (SERIES_AXIS,)):
         return mesh
-    return Mesh(mesh.devices, (SERIES_AXIS,))
+    return Mesh(mesh.devices, (SERIES_AXIS,), plane=mesh.plane)
 
 
 __all__ = ["ExecPlan", "build_mesh", "flatten_series_mesh", "BATCH_AXES",

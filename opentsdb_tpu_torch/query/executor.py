@@ -120,7 +120,8 @@ from opentsdb_tpu_torch.compress import kernels as _ck
 from opentsdb_tpu_torch.compress.devcache import DeviceBlockCache
 from opentsdb_tpu_torch.compress.devcache import pad_fine as _pad_fine
 from opentsdb_tpu_torch.core import codec
-from opentsdb_tpu_torch.core.const import (MAX_TIMESPAN, TIMESTAMP_BYTES,
+from opentsdb_tpu_torch.core.const import (MAX_TIMESPAN, NOLERP_AGGS,
+                                           TIMESTAMP_BYTES,
                                            UID_WIDTH)
 from opentsdb_tpu_torch.core.errors import (BadRequestError, NoSuchUniqueName,
                                              OverloadedError)
@@ -610,6 +611,117 @@ class QueryExecutor:
                     "missing_windows": int(meta.get("missing_windows", 0)),
                     "error": None}
         return results, plan, cached, info
+
+    # -- expert-parallel dashboard batches ----------------------------
+
+    def run_expert_batch(self, specs: "list[QuerySpec]", start: int,
+                         end: int):
+        """Serve a whole mixed dashboard batch in ONE mesh dispatch (the
+        JAX package's ``run_expert_batch``).
+
+        With a mesh (``Config.mesh_shape``) and expert serving on
+        (``Config.expert_parallel``), the ``/q`` sub-queries -- mixed
+        sum / avg / dev / max panels and pNN panels -- pack into expert
+        buckets (``parallel/expert.py`` ``run_dashboard_batch``): the
+        mesh's shards split by aggregator family and each shard runs its
+        slots under its family's kernels. Answers match the serial leg to
+        float32 tolerance. Like the JAX path, it scans the storage for
+        every spec (``_find_spans``), even where the resident window
+        covers the range.
+
+        Returns ``(per_spec_results, None)`` on success or ``(None,
+        reason)`` on a decline, with the JAX package's reasons in its
+        order: the caller declares the decline (``plan:
+        "expert-decline"`` per result and a counter) and runs the serial
+        leg. The oracle backend ("cpu") declines; the device backend on
+        the CPU runs the path."""
+        from opentsdb_tpu_torch.parallel.expert import DASH_AGG_ID
+        if self.mesh is None:
+            return None, "no-mesh"
+        if int(self.mesh.size) < 2:
+            return None, "single-device-mesh"
+        if self.backend == "cpu":
+            return None, "cpu-backend"
+        if len(specs) < 2:
+            return None, "single-query"
+        if end <= start:
+            raise BadRequestError(
+                f"end time {end} is <= start time {start}")
+        intervals = set()
+        for spec in specs:
+            if not spec.downsample:
+                return None, "no-downsample"
+            interval, dsagg = spec.downsample
+            ds = NOLERP_AGGS.get(dsagg, dsagg)
+            if (Aggregators.get(dsagg).kind != "moment"
+                    or ds not in DASH_AGG_ID):
+                return None, "downsampler"
+            agg = Aggregators.get(spec.aggregator)
+            if agg.kind == "moment":
+                if (spec.aggregator in NOLERP_AGGS
+                        or spec.aggregator not in DASH_AGG_ID):
+                    # The no-lerp family skips gap filling; the dash
+                    # body is the lerp family only.
+                    return None, "no-lerp-agg"
+            elif agg.kind != "percentile":
+                return None, "agg-family"
+            if spec.rate:
+                return None, "rate"
+            intervals.add(interval)
+        if len(intervals) != 1:
+            # Mixed intervals are ragged bucket grids: slots share one
+            # [S, B] layout.
+            return None, "ragged-intervals"
+        interval = intervals.pop()
+        qbase = start - start % interval
+        if end - qbase > 2**31 - 1:
+            return None, "range"
+        num_buckets = _pad_size(int((end - qbase) // interval + 1))
+        per_spec_groups = []
+        s_max = 1
+        for spec in specs:
+            with obs_trace.span("scan"):
+                groups = self._find_spans(spec, start, end)
+            per_spec_groups.append(groups)
+            for spans in groups.values():
+                s_max = max(s_max, len(spans))
+        S = _pad_size(s_max)
+        if S * num_buckets >= 2**31:
+            return None, "grid"
+        queries = []
+        refs = []
+        for si, (spec, groups) in enumerate(zip(specs, per_spec_groups)):
+            _, dsagg = spec.downsample
+            ds = NOLERP_AGGS.get(dsagg, dsagg)
+            agg = Aggregators.get(spec.aggregator)
+            for gkey in sorted(groups):
+                spans = groups[gkey]
+                rel, vals, sid = _flat_points(spans, qbase)
+                qq = {"family": ("percentile" if agg.kind == "percentile"
+                                 else "moment"),
+                      "ts": rel, "vals": vals, "sid": sid, "dsagg": ds}
+                if agg.kind == "percentile":
+                    qq["quantile"] = agg.quantile
+                else:
+                    qq["agg"] = spec.aggregator
+                queries.append(qq)
+                refs.append((si, spans))
+        per_spec: list = [[] for _ in specs]
+        if not queries:
+            return per_spec, None
+        from opentsdb_tpu_torch.parallel.expert import run_dashboard_batch
+        with obs_trace.span("aggregate"):
+            got = run_dashboard_batch(
+                queries, self.mesh, num_series=S,
+                num_buckets=num_buckets, interval=interval)
+        for (si, spans), (gv, gm) in zip(refs, got):
+            tags, aggregated = self._group_tags(spans)
+            grid_ts = (np.flatnonzero(gm).astype(np.int64) * interval
+                       + qbase)
+            per_spec[si].append(QueryResult(
+                specs[si].metric, tags, aggregated, grid_ts,
+                gv[gm].astype(np.float64)))
+        return per_spec, None
 
     def _run_planned(self, spec: QuerySpec, start: int, end: int,
                      rollup_only: bool = False,
@@ -1863,6 +1975,16 @@ class QueryExecutor:
 
 def _u32(v: int) -> bytes:
     return int(v).to_bytes(4, "big")
+
+
+def _flat_points(spans, qbase: int):
+    """Spans -> one flat (rel_ts int32, vals float32, sid int32) point
+    stream in numpy, as the expert planner packs a slot."""
+    ts = np.concatenate([sp.timestamps for sp in spans])
+    vals = np.concatenate([sp.values for sp in spans]).astype(np.float32)
+    sid = np.concatenate([np.full(len(sp.timestamps), i, np.int32)
+                          for i, sp in enumerate(spans)])
+    return (ts - qbase).astype(np.int32), vals, sid
 
 
 def _pad_size(n: int) -> int:

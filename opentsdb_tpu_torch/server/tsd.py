@@ -39,12 +39,19 @@ cache counts, as the JAX daemon's does, and its rollup section the rollup
 tier's state (ready, resolutions, hits, fallbacks, the sketch allocation
 and bytes, the fold split and the delta accumulators) when the tier is
 open, and its sketch section the approximate-serving counters; its mesh
-section the execution plane's compile-cache line and, with a sharded
-resident hot set (``--devwindow-shards``), the serving mesh's shape, which
-``/healthz`` carries too (the router weighs backends by its ``width``).
-``--mesh N`` builds the query mesh at boot (N cards, or N logical shards
-on the CPU; past the cards it refuses to start), and
-``/api/mesh/reshard?shards=N`` reshards the hot set live. A ranged
+section the execution plane's compile-cache line, the expert serve /
+decline counts and, with a sharded resident hot set
+(``--devwindow-shards``) or a mesh plane (``--mesh-plane``), the serving
+mesh's shape and the plane's membership, which ``/healthz`` carries too
+(the router weighs backends by its ``width``). ``--mesh N`` (or ``RxC``)
+builds the query mesh at boot (N cards, or N logical shards on the CPU;
+past the cards it refuses to start), and ``/api/mesh/reshard?shards=N``
+reshards the hot set live. With ``--expert-parallel``, a ``/q`` of two
+or more ``m=`` panels is first offered to the executor's expert path
+(``run_expert_batch``: one mesh dispatch, each result's ``"plan"``
+``"expert"``); a decline is declared as ``"plan": "expert-decline"`` and
+counted under ``mesh.expert.decline{reason=}``, and the panels serve
+one after another. A ranged
 ``/sketch`` served from rollups declares its bound in ``X-Tsd-Approx``,
 and so does a ``/q`` with
 ``approx=1`` or ``max_error=`` whose percentile downsample was served
@@ -202,6 +209,15 @@ def _put_prefix_len(buf: bytes) -> int:
         pos = nl + 1
 
 
+def _spec_of(parsed) -> QuerySpec:
+    """The executor's spec of one parsed ``m=``."""
+    return QuerySpec(
+        metric=parsed.metric, tags=parsed.tags,
+        aggregator=parsed.aggregator, rate=parsed.rate,
+        downsample=parsed.downsample, counter=parsed.counter,
+        counter_max=parsed.counter_max, reset_value=parsed.reset_value)
+
+
 def config_mesh(tsdb):
     """The query mesh a daemon's config asks for (the JAX daemon's boot
     rule): ``mesh_shape`` when set, else ``mesh_devices`` > 1 cards, else
@@ -225,6 +241,12 @@ class TSDServer:
             mesh_plane.set_mesh_devices(mesh.size)
         self.executor = QueryExecutor(tsdb, mesh=mesh)
         self.config = tsdb.config
+        # Expert-parallel dashboard serving: the knob alone arms the
+        # attempt, so a knob-on daemon without a (multi-shard) mesh still
+        # declares the decline (plan: "expert-decline",
+        # mesh.expert.decline{reason=no-mesh}) instead of quietly serving
+        # serially.
+        self.expert_enabled = bool(self.config.expert_parallel)
         self.admission = AdmissionController(self.config)
         self._server: asyncio.AbstractServer | None = None
         self._shutdown = asyncio.Event()
@@ -802,21 +824,27 @@ class TSDServer:
         return status, "application/json", json.dumps(body).encode(), {}
 
     def _mesh_serving_info(self) -> dict | None:
-        """The serving-mesh block of /healthz and /api/queries: the
-        sharded resident hot set's live shape. None when it is off, so
-        the body stays the same for a daemon without it. Plane
-        membership (the JAX daemon's ``plane``, from --mesh-plane) is
-        item 11b and never reported here."""
+        """The serving-mesh block of /healthz and /api/queries: plane
+        membership (``plane``, when --mesh-plane joined one) and the
+        sharded resident hot set's live shape. None when neither is on,
+        so the body stays the same for a daemon without them."""
+        from opentsdb_tpu_torch.parallel.fleet import plane_info
+        plane = plane_info()
         dw = self.tsdb.devwindow
-        if dw is None or not hasattr(dw, "shard_of"):
+        sharded = dw is not None and hasattr(dw, "shard_of")
+        if plane is None and not sharded:
             return None
-        return {"width": dw.n_shards,
-                "resident": {
-                    "shards": dw.n_shards,
-                    "points": dw.resident_points(),
-                    "generation": dw.generation,
-                    "reshards": dw.reshard_count,
-                    "last_reshard_ms": round(dw.reshard_ms, 2)}}
+        out: dict = {"width": dw.n_shards if sharded else 1}
+        if plane is not None:
+            out["plane"] = dict(plane)
+        if sharded:
+            out["resident"] = {
+                "shards": dw.n_shards,
+                "points": dw.resident_points(),
+                "generation": dw.generation,
+                "reshards": dw.reshard_count,
+                "last_reshard_ms": round(dw.reshard_ms, 2)}
+        return out
 
     async def _http_mesh_reshard(self, req) -> tuple:
         """``/api/mesh/reshard?shards=N``: redistribute the resident
@@ -980,7 +1008,7 @@ class TSDServer:
         carries approx metadata counts both."""
         if plan.startswith("approx"):
             key = "approx"
-        elif plan in ("raw", "resident", "fused"):
+        elif plan in ("raw", "resident", "fused", "expert"):
             key = plan
         else:
             key = "rollup"
@@ -1004,8 +1032,13 @@ class TSDServer:
         ingest = {"group": {"batches": 0, "points": 0, "fsyncs": 0,
                             "waits": 0, "wait_ms_p95": 0.0},
                   "parse": {"count": 0, "p95_ms": 0.0}}
+        expert_counts = {"serve": 0, "decline": 0}
         for name, kind, tkey, obj in METRICS._snapshot():
-            if name.startswith("sketch."):
+            if name == "mesh.expert.serve":
+                expert_counts["serve"] += obj.value
+            elif name == "mesh.expert.decline":
+                expert_counts["decline"] += obj.value
+            elif name.startswith("sketch."):
                 label = name[len("sketch."):]
                 if tkey:
                     label += "{" + ",".join(
@@ -1056,14 +1089,14 @@ class TSDServer:
             "rollup": self._rollup_section(),
             # The mesh plane's compile-cache line: the configured
             # mesh's devices, the plan cache's size / hit / miss, the
-            # expert counters (expert serving is item 11b: zeros) and the
-            # serving mesh's shape.
+            # expert serve / decline counters and the serving mesh's
+            # shape.
             "mesh": {"devices": (self.executor.mesh.size
                                  if self.executor.mesh is not None
                                  else 1),
-                     "expert_enabled": False,
+                     "expert_enabled": self.expert_enabled,
                      "compile_cache": mesh_plane.cache_info(),
-                     "expert": {"serve": 0, "decline": 0},
+                     "expert": expert_counts,
                      "serving": self._mesh_serving_info()},
             "qcache": {"hit": self.executor.qcache_hits,
                        "miss": self.executor.qcache_misses,
@@ -1339,14 +1372,45 @@ class TSDServer:
         cached = []
         traces = []
         approx = []
-        for m in ms:
-            parsed = parse_m(m)
-            spec = QuerySpec(
-                metric=parsed.metric, tags=parsed.tags,
-                aggregator=parsed.aggregator, rate=parsed.rate,
-                downsample=parsed.downsample, counter=parsed.counter,
-                counter_max=parsed.counter_max,
-                reset_value=parsed.reset_value)
+        # Expert-parallel batch serving (parallel/expert.py, behind
+        # Config.expert_parallel and a mesh): a mixed dashboard of two or
+        # more sub-queries runs in one mesh dispatch. Attempted only on
+        # the full-service path (tracing, the degraded step and approx
+        # contracts keep their serial semantics); a decline is declared
+        # (plan: "expert-decline" per result and mesh.expert.decline) and
+        # the batch serves serially with the parsed specs, answers
+        # unchanged.
+        expert_label = None
+        specs = None
+        if (self.expert_enabled and len(ms) >= 2 and not do_trace
+                and not degrade and not aspec.enabled):
+            specs = [_spec_of(parse_m(m)) for m in ms]
+            per_spec, reason = await loop.run_in_executor(
+                self._pool, functools.partial(
+                    self.executor.run_expert_batch, specs, start, end))
+            if per_spec is not None:
+                # Counted per sub-query, the serial loop's unit.
+                METRICS.counter("mesh.expert.serve").inc(len(ms))
+                for _ in ms:
+                    self._note_plan("expert")
+                expert_label = "expert"
+                for rs in per_spec:
+                    results.extend(rs)
+                    plans.extend(["expert"] * len(rs))
+                    cached.extend([False] * len(rs))
+                    traces.extend([None] * len(rs))
+                    approx.extend([None] * len(rs))
+                ms = ()
+            else:
+                METRICS.counter("mesh.expert.decline",
+                                {"reason": reason}).inc(len(ms))
+                with self._plan_lock:
+                    self.plan_counts["expert-decline"] = \
+                        self.plan_counts.get("expert-decline", 0) + len(ms)
+                expert_label = "expert-decline"
+        for mi, m in enumerate(ms):
+            spec = (specs[mi] if specs is not None
+                    else _spec_of(parse_m(m)))
             # trace_parent: a router's fan-out id, so a hop's record
             # carries the id of the tree it belongs to.
             trace = (obs_trace.Trace(
@@ -1400,7 +1464,7 @@ class TSDServer:
                 json.dumps(self._json_output(
                     results, plans, cached,
                     traces if want_trace else None, approx,
-                    degraded)).encode(), extra)
+                    degraded, expert_label)).encode(), extra)
 
     async def _distinct(self, req) -> tuple:
         """Distinct values of one tag key. Without ``start`` (or with
@@ -1600,7 +1664,7 @@ class TSDServer:
 
     @staticmethod
     def _json_output(results, plans, cached, traces=None,
-                     approx=None, degraded=None) -> list:
+                     approx=None, degraded=None, expert=None) -> list:
         out = [{
             "metric": r.metric,
             "tags": r.tags,
@@ -1612,6 +1676,13 @@ class TSDServer:
             "dps": {str(int(t)): float(v)
                     for t, v in zip(r.timestamps, r.values)},
         } for i, r in enumerate(results)]
+        if expert:
+            # Expert-path provenance, declared either way: "expert" when
+            # the batch served through the mesh's expert buckets,
+            # "expert-decline" when it was eligible for the attempt but
+            # fell off the path and served serially.
+            for ent in out:
+                ent["plan"] = expert
         if degraded:
             for ent in out:
                 ent["degraded"] = degraded

@@ -63,9 +63,14 @@ promotion bumps past it; a ``--cluster`` replica accepts ``/promote``.
 
 ``--mesh N`` shards eligible downsampled queries over a mesh of N
 (``parallel/``: N cards, or N logical shards with ``--device cpu``; more
-than the cards refuses to boot), and ``--devwindow-shards N`` shards the
-resident hot window over the mesh's devices (``storage/devshard.py``,
-resharded live by ``/api/mesh/reshard?shards=N``).
+than the cards refuses to boot; ``RxC`` folds R x C of them into the
+hybrid host x series mesh), ``--expert-parallel`` answers a mixed
+dashboard in one mesh dispatch (``parallel/expert.py``), and
+``--devwindow-shards N`` shards the resident hot window over the mesh's
+devices (``storage/devshard.py``, resharded live by
+``/api/mesh/reshard?shards=N``). ``--mesh-plane HOST:PORT
+--mesh-plane-procs P --mesh-plane-id I`` joins the daemon to a mesh plane
+of P processes (``parallel/fleet.py``) before the storage opens.
 
 ``--role router`` (ROADMAP item 10b, ``serve/router.py``) is the
 storage-free front door over ``--backends`` (replica URLs): ``/q`` fans
@@ -218,6 +223,15 @@ def make_tsdb(cfg: Config, wal: str | None, shards: int = 0,
     return tsdb
 
 
+def _mesh_width(shape: str) -> int:
+    """The shards a ``--mesh`` shape asks for (0 for none)."""
+    shape = (shape or "").strip().lower()
+    if not shape:
+        return 0
+    r, _, c = shape.partition("x")
+    return int(r) * int(c or 1)
+
+
 def cmd_tsd(args) -> int:
     role = args.role
     if role == "router":
@@ -253,8 +267,23 @@ def cmd_tsd(args) -> int:
         query_max_inflight=args.query_max_inflight,
         query_rate=args.query_rate, query_burst=args.query_burst,
         mesh_devices=args.mesh_devices, mesh_shape=args.mesh,
-        devwindow_shards=args.devwindow_shards)
+        devwindow_shards=args.devwindow_shards,
+        expert_parallel=args.expert_parallel, mesh_plane=args.mesh_plane,
+        mesh_plane_procs=args.mesh_plane_procs,
+        mesh_plane_id=args.mesh_plane_id)
     apply_rollup_args(cfg, args)
+    if cfg.mesh_plane:
+        # Join the plane before the storage engine builds a window: a
+        # failed join is a boot failure, never a silent singleton.
+        from opentsdb_tpu_torch.parallel.fleet import init_plane
+        local = cfg.devwindow_shards or _mesh_width(cfg.mesh_shape) or 1
+        plane = init_plane(cfg.mesh_plane, cfg.mesh_plane_procs,
+                           cfg.mesh_plane_id, devices_local=local,
+                           device=cfg.device)
+        if cfg.devwindow_shards == 0:
+            # The resident hot set defaults to one shard per local mesh
+            # device: the deployment mode's point.
+            cfg.devwindow_shards = max(1, plane["devices_local"])
     tsdb = make_tsdb(cfg, args.wal, shards=args.shards,
                      read_only=read_only)
     # The replayed WAL and the opened generations are in place: freeze
@@ -606,8 +635,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mesh execution plane: 'N' = 1-D series-hash "
                         "mesh of N shards (N cards; N logical shards "
                         "with --device cpu). Eligible query reductions "
-                        "run sharded; supersedes --mesh-devices. The "
-                        "hybrid 'RxC' mesh is not yet ported (item 11b)")
+                        "run sharded; supersedes --mesh-devices. "
+                        "'RxC' = the 2-D hybrid (host, series) mesh of R "
+                        "host rows of C shards")
+    p.add_argument("--expert-parallel", action="store_true",
+                   help="with --mesh: pack mixed /q dashboard batches "
+                        "into expert buckets (one mesh dispatch per "
+                        "batch; declines declared per-result as "
+                        "plan: expert-decline)")
+    p.add_argument("--mesh-plane", default="",
+                   help="join the serving mesh plane at HOST:PORT (a "
+                        "torch.distributed group, gloo, or NCCL when "
+                        "every rank holds a card of its own) before the "
+                        "storage opens; a failed join refuses to boot. "
+                        "/healthz reports the membership")
+    p.add_argument("--mesh-plane-procs", type=int, default=1,
+                   help="processes in the mesh plane")
+    p.add_argument("--mesh-plane-id", type=int, default=0,
+                   help="this process's rank in the mesh plane")
     p.add_argument("--devwindow-shards", type=int, default=0,
                    help="shard the device-resident hot window into N "
                         "columns round-robined over the local mesh "

@@ -160,10 +160,26 @@ class Config:
     # N > 1 = shard downsampled queries over the first N cards. mesh_shape
     # supersedes it when set: "" = no mesh; "N" = a 1-D series mesh of N
     # shards (N cards on CUDA, past which the daemon refuses to boot; N
-    # logical shards on the CPU). The hybrid "RxC" mesh is not ported yet
-    # (item 11b) and raises. The JAX package's names and defaults.
+    # logical shards on the CPU); "RxC" = the 2-D hybrid (host, series)
+    # mesh of R host rows of C shards (R * C cards on CUDA; logical
+    # shards on the CPU). The JAX package's names and defaults.
     mesh_devices: int = 0
     mesh_shape: str = ""
+    # Expert-parallel dashboard serving (parallel/expert.py): with a mesh,
+    # a mixed /q batch (>= 2 sub-queries, one shared downsample interval,
+    # lerp-family moment and percentile aggregators) packs into expert
+    # buckets and runs in one mesh dispatch. A batch that falls off the
+    # path declines, declared per result (plan: "expert-decline") and
+    # counted (mesh.expert.decline{reason=}), and serves serially.
+    expert_parallel: bool = False
+    # Served mesh-plane deployment mode (tsd --mesh-plane,
+    # parallel/fleet.py): non-empty = the coordinator's HOST:PORT; the
+    # daemon joins a torch.distributed group before the storage engine
+    # builds a window. Each process still serves its own mesh; plane
+    # membership is reported in /healthz for the router.
+    mesh_plane: str = ""
+    mesh_plane_procs: int = 1          # processes in the plane
+    mesh_plane_id: int = 0             # this process's plane rank
 
     # Admission control / backpressure (serve/admission.py). All off
     # by default (0); per-tenant buckets key on the ?tenant= query

@@ -2352,3 +2352,202 @@ def test_tile_carries_bit_for_bit(card, D, S, mode):
             assert (none[0] == -1).all() and (none[2] == 2**31 - 1).all()
         else:
             assert (none[0] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# The expert dashboard's finish (csrc/expert.cu) and the hybrid mesh's
+# two-level combine (csrc/mesh_combine.cu)
+# ---------------------------------------------------------------------------
+
+def _finish_planes(rng, Q, cells):
+    count = rng.integers(0, 5, (Q, cells)).astype(np.float32)
+    total = (rng.normal(0, 30, (Q, cells)) * (count > 0)).astype(np.float32)
+    m2 = (rng.random((Q, cells)) * 20 * (count > 1)).astype(np.float32)
+    mn = np.where(count > 0, rng.normal(-5, 3, (Q, cells)), np.inf) \
+        .astype(np.float32)
+    mx = np.where(count > 0, rng.normal(5, 3, (Q, cells)), -np.inf) \
+        .astype(np.float32)
+    for x in (total, m2, mn, mx):
+        x[:, ::9] = np.nan
+    m2[:, 4::11] = -1.0
+    return count, total, m2, mn, mx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,cells", [(1, 1), (6, 32), (15, 32_768),
+                                     (10, 32_768), (40, 1000), (3, 0)])
+def test_dash_finish_bit_for_bit(card, Q, cells):
+    """The dashboard finish kernel equals its plain version bit for bit
+    at every aggregator code (slots of mixed codes in one launch, NaN
+    partials, empty cells, a negative centred sum) and counts one launch
+    (none for no cells)."""
+    from opentsdb_tpu_torch.ops import expert_finish as ef
+    rng = np.random.default_rng(Q * 7 + cells)
+    planes = [torch.from_numpy(p).to(card)
+              for p in _finish_planes(rng, Q, cells)]
+    codes = [q % 6 for q in range(Q)]
+    want = ef.dash_finish_plain(*planes, codes)
+    before = ef.dash_finish.launches
+    got = ef.dash_finish(*planes, codes)
+    torch.cuda.synchronize()
+    assert ef.dash_finish.launches == before + (cells > 0)
+    assert got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("code", range(6))
+def test_dash_finish_reads_only_the_planes_its_codes_need(card, code):
+    """A launch whose slots all take one code runs with every other
+    plane absent, and views (one slot's trash column dropped) give the
+    contiguous planes' bits."""
+    from opentsdb_tpu_torch.ops import expert_finish as ef
+    rng = np.random.default_rng(code)
+    full = [torch.from_numpy(p).to(card)
+            for p in _finish_planes(rng, 4, 1025)]
+    views = [p[:, :-1] for p in full]
+    need = ef.needs([code] * 4)
+    planes = [v if n in need else None for v, n in zip(views, ef.PLANES)]
+    want = ef.dash_finish_plain(*(v.contiguous() for v in views),
+                                [code] * 4)
+    got = ef.dash_finish(*planes, [code] * 4)
+    torch.cuda.synchronize()
+    assert got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes()
+
+
+def _hybrid_partials(rng, H, C, cells, special=None):
+    n = rng.integers(0, 6, (H, C, cells)).astype(np.float32)
+    total = (rng.normal(0, 50, (H, C, cells)) * (n > 0)).astype(np.float32)
+    mean = (total / np.maximum(n, 1)).astype(np.float32)
+    m2 = (rng.random((H, C, cells)) * 30 * (n > 1)).astype(np.float32)
+    mn = np.where(n > 0, rng.normal(-5, 3, (H, C, cells)), np.inf) \
+        .astype(np.float32)
+    mx = np.where(n > 0, rng.normal(5, 3, (H, C, cells)), -np.inf) \
+        .astype(np.float32)
+    if special == "nan":
+        for x in (total, m2, mn, mx, mean):
+            x[..., ::7] = np.nan
+    elif special == "inf":
+        for x in (total, mn, mx, mean):
+            x[..., ::5] = np.inf
+            x[..., 2::5] = -np.inf
+    return n, total, m2, mean, mn, mx, (n > 0).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("special", [None, "nan", "inf"])
+@pytest.mark.parametrize("H,C,cells", [(2, 2, 32), (2, 4, 65_537),
+                                       (4, 2, 1000), (1, 3, 500),
+                                       (3, 1, 500), (16, 2, 300),
+                                       (2, 2, 0)])
+@pytest.mark.parametrize("agg", ["sum", "avg", "dev", "count", "min",
+                                 "max", "zimsum", "mimmin"])
+def test_hybrid_moment_combine_bit_for_bit(card, agg, H, C, cells,
+                                           special):
+    """The hybrid combine kernel equals its plain version bit for bit,
+    finishing and emitting, and emit-then-finish equals the finish in
+    one launch; one launch a call (none for no cells)."""
+    from opentsdb_tpu_torch.ops import mesh_combine as mc
+    rng = np.random.default_rng(H * 100 + C * 10 + cells)
+    planes = [torch.from_numpy(x).to(card)
+              for x in _hybrid_partials(rng, H, C, cells, special)]
+    want = mc.hybrid_moment_combine_plain(*planes, agg)
+    before = mc.hybrid_moment_combine.launches
+    got = mc.hybrid_moment_combine(*planes, agg=agg)
+    torch.cuda.synchronize()
+    assert mc.hybrid_moment_combine.launches == before + (cells > 0)
+    assert torch.equal(got[1], want[1])
+    assert got[0].cpu().numpy().tobytes() == want[0].cpu().numpy().tobytes()
+    if not cells:
+        return
+    rows = mc.hybrid_moment_combine(*planes, agg=agg, emit=True)
+    prow = mc.hybrid_moment_combine_plain(*planes, agg, emit=True)
+    for a, b in zip(rows, prow):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+    again = mc.hybrid_moment_combine(
+        *(None if r is None else r[:, None] for r in rows), agg=agg)
+    torch.cuda.synchronize()
+    assert torch.equal(again[1], got[1])
+    assert again[0].cpu().numpy().tobytes() == \
+        got[0].cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_hybrid_moment_combine_refuses_past_its_rows(card):
+    from opentsdb_tpu_torch.ops import mesh_combine as mc
+    z = torch.zeros((17, 1, 4), device=card)
+    with pytest.raises(ValueError, match="at most"):
+        mc.hybrid_moment_combine(z, z, z, z, z, z, z.int(), agg="sum")
+
+
+@pytest.mark.cuda
+def test_expert_dashboard_on_the_card_matches_the_cpu(card):
+    """The dashboard body on logical shards of the card against the same
+    body on the CPU: masks equal, counts / min / max exact, the rest at
+    float32 tolerance (the card's segment sums add in their own order);
+    the kernels launched."""
+    from opentsdb_tpu_torch.ops import expert_finish as ef
+    from opentsdb_tpu_torch.parallel import expert as tx
+    from opentsdb_tpu_torch.parallel.mesh import Mesh
+    rng = np.random.default_rng(3)
+    queries = []
+    for i, (fam, ds, agg) in enumerate([
+            ("moment", "avg", "sum"), ("percentile", "avg", 0.95),
+            ("moment", "max", "max"), ("moment", "sum", "dev"),
+            ("percentile", "count", 0.5), ("moment", "dev", "count")]):
+        n = 3000
+        q = {"family": fam, "dsagg": ds,
+             "ts": rng.integers(0, 32 * 300, n).astype(np.int32),
+             "sid": rng.integers(0, 60, n).astype(np.int32),
+             "vals": rng.normal(20, 6, n).astype(np.float32)}
+        q["quantile" if fam == "percentile" else "agg"] = agg
+        queries.append(q)
+    kw = dict(num_series=64, num_buckets=32, interval=300)
+    want = tx.run_dashboard_batch(queries, Mesh(["cpu"] * 4), **kw)
+    before = ef.dash_finish.launches
+    got = tx.run_dashboard_batch(queries, Mesh([card] * 4), **kw)
+    fam = tx.plan_dashboard_batch(queries, 4).fam
+    # Two finishes a moment shard, one a percentile shard.
+    assert ef.dash_finish.launches - before == \
+        2 * int((fam == 0).sum()) + int((fam == 1).sum())
+    for q, (gv, gm), (wv, wm) in zip(queries, got, want):
+        np.testing.assert_array_equal(gm, wm)
+        if q.get("agg") in ("max", "count"):
+            np.testing.assert_array_equal(gv[gm], wv[wm])
+        else:
+            np.testing.assert_allclose(gv[gm], wv[wm], rtol=1e-5,
+                                       atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_hybrid_bodies_on_the_card_match_the_cpu(card):
+    """The three hybrid bodies on four logical shards of the card folded
+    2 x 2 against the CPU fold: group masks equal and values at float32
+    tolerance, the HLL estimate equal, t-digest quantiles within 1e-3 of
+    the range; the hybrid combine launched once."""
+    from opentsdb_tpu_torch.ops import mesh_combine as mc
+    from opentsdb_tpu_torch.parallel import multihost as mh
+    rng = np.random.default_rng(8)
+    ts = rng.integers(0, 7200, (4, 5000)).astype(np.int32)
+    vals = rng.normal(50, 10, (4, 5000)).astype(np.float32)
+    sid = rng.integers(0, 8, (4, 5000)).astype(np.int32)
+    valid = rng.random((4, 5000)) < 0.9
+    on = mh.make_hybrid_mesh(2, 2, devices=[card] * 4)
+    off = mh.make_hybrid_mesh(2, 2, devices=["cpu"] * 4)
+    kw = dict(series_per_shard=8, num_buckets=32, interval=300,
+              agg_down="avg", agg_group="dev")
+    before = mc.hybrid_moment_combine.launches
+    gv, gm = mh.hybrid_downsample_group(ts, vals, sid, valid, mesh=on, **kw)
+    assert mc.hybrid_moment_combine.launches == before + 1
+    wv, wm = mh.hybrid_downsample_group(ts, vals, sid, valid, mesh=off,
+                                        **kw)
+    assert torch.equal(gm.cpu(), wm)
+    np.testing.assert_allclose(gv.cpu().numpy(), wv.numpy(), rtol=1e-5,
+                               atol=1e-4)
+    assert float(mh.hybrid_hll_distinct(ts, valid, mesh=on)) == \
+        float(mh.hybrid_hll_distinct(ts, valid, mesh=off))
+    q = [0.1, 0.5, 0.99]
+    a = mh.hybrid_tdigest(vals, valid, q, mesh=on).cpu().numpy()
+    b = mh.hybrid_tdigest(vals, valid, q, mesh=off).numpy()
+    assert np.abs(a - b).max() <= 1e-3 * (vals.max() - vals.min())

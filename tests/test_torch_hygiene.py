@@ -481,3 +481,57 @@ def test_mesh_slice_lives_in_the_port():
             if fn.endswith(".py"):
                 path = os.path.join(d, fn)
                 assert banned.search(open(path).read()) is None, path
+
+
+_IMPORT_11B = """
+import importlib, sys
+for name in ("opentsdb_tpu_torch.parallel.multihost",
+             "opentsdb_tpu_torch.parallel.fleet",
+             "opentsdb_tpu_torch.parallel.expert",
+             "opentsdb_tpu_torch.ops.expert_finish",
+             "opentsdb_tpu_torch.tools.multihost_run"):
+    importlib.import_module(name)
+print(sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "opentsdb_tpu" or m.startswith("opentsdb_tpu.")))
+"""
+
+
+def test_expert_and_fleet_slice_lives_in_the_port():
+    """The hybrid mesh, the mesh plane and the expert batches
+    (parallel/multihost.py, fleet.py, expert.py, ops/expert_finish.py,
+    tools/multihost_run.py) load no jax and nothing of the JAX package,
+    name the JAX modules they mirror, and their kernels build from the
+    package's csrc with the _rn rounding their bit-exact contracts
+    need."""
+    import importlib
+    from opentsdb_tpu_torch.ops import cuda_build
+    out = subprocess.run([sys.executable, "-c", _IMPORT_11B], cwd=ROOT,
+                         check=True, capture_output=True, text=True,
+                         timeout=120).stdout
+    assert out.strip() == "[]"
+    mirrors = {
+        "opentsdb_tpu_torch.parallel.multihost":
+            "opentsdb_tpu/parallel/multihost.py",
+        "opentsdb_tpu_torch.parallel.fleet": "opentsdb_tpu/parallel/fleet.py",
+        "opentsdb_tpu_torch.parallel.expert":
+            "opentsdb_tpu/parallel/expert.py",
+        "opentsdb_tpu_torch.ops.expert_finish":
+            "opentsdb_tpu/parallel/expert.py",
+        "opentsdb_tpu_torch.tools.multihost_run": "scripts/multihost_run.py",
+    }
+    for mod, src in mirrors.items():
+        assert src in importlib.import_module(mod).__doc__, mod
+    assert {"expert", "mesh_combine"} <= set(cuda_build.sources())
+    pkg = os.path.join(ROOT, "opentsdb_tpu_torch")
+    cu = open(os.path.join(pkg, "csrc", "expert.cu")).read()
+    for fn in ("dash_finish_f32", "__fdiv_rn", "__fsqrt_rn",
+               "opentsdb_tpu/parallel/expert.py"):
+        assert fn in cu, fn
+    cu = open(os.path.join(pkg, "csrc", "mesh_combine.cu")).read()
+    for fn in ("hybrid_moment_combine_f32",
+               "opentsdb_tpu/parallel/multihost.py"):
+        assert fn in cu, fn
+    # The tool writes only where it is told to.
+    src = open(os.path.join(pkg, "tools", "multihost_run.py")).read()
+    assert "write_artifacts" not in src and "REPO" not in src

@@ -157,8 +157,12 @@ def test_build_mesh_shapes_and_errors():
     for bad in ("", "0", "-1"):
         with pytest.raises(ValueError):
             build_mesh(bad, device="cpu")
-    with pytest.raises(ValueError, match="item 11b"):
-        build_mesh("2x4", device="cpu")
+    # "RxC" folds R x C logical shards into the hybrid (host, series)
+    # mesh (tests/test_torch_multihost.py holds it against JAX's).
+    hybrid = build_mesh("2x4", device="cpu")
+    assert hybrid.axis_names == ("host", "series")
+    assert hybrid.devices.shape == (2, 4)
+    assert flatten_series_mesh(hybrid).axis_names == ("series",)
     with pytest.raises(ValueError, match="needs 3 devices"):
         build_mesh("3", devices=["cpu", "cpu"])
     with pytest.raises(ValueError):

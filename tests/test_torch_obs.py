@@ -49,7 +49,9 @@ HOUR = 3600
 # /stats lines and /metrics families of the JAX daemon that the ``both``
 # comparisons leave out, by prefix, each with the ROADMAP queue A item
 # that brings its tier: expert-parallel serving's ``mesh.expert.*``
-# (11b, which the port leaves out), the router's and cluster's
+# (11b: both daemons register them at their first expert attempt, so
+# ``test_expert_instrument_names_equal_jax`` compares them on daemons
+# that make one), the router's and cluster's
 # instruments (10b), and those of the rollup tier module (6), which other
 # tests in the process may have imported. ``both_rollups`` compares the
 # rollup ones with both tiers on. The mesh plane's ``mesh.*`` (11a) is
@@ -1280,3 +1282,44 @@ def test_cli_stats_url_mode(capsys, metrics):
     else:
         assert "tsd.connectionmgr.connections " in out
         assert "tsd.uptime_s " in out
+
+
+def _expert_stats(server):
+    """A served and a declined (rate) dashboard, then /stats."""
+    async def main():
+        await server.start()
+        try:
+            await _telnet(server.port, _put_lines())
+            for ms in ("m=sum:1h-avg:obs.m&m=p95:1h-avg:obs.m",
+                       "m=sum:1h-avg:obs.m&m=sum:1h-avg:rate:obs.m"):
+                status, _ = await _http(server.port, f"{Q}&{ms}")
+                assert status == 200
+            return (await _http(server.port, "/stats"))[1]
+        finally:
+            await server.stop()
+    return asyncio.run(main())
+
+
+def test_expert_instrument_names_equal_jax():
+    """``mesh.expert.serve`` and ``mesh.expert.decline{reason=}``: the
+    same /stats names and reason tags in both daemons once each has
+    served and declined a dashboard (``--expert-parallel``, a 4-shard
+    mesh)."""
+    from opentsdb_tpu_torch.parallel.compile import set_mesh_devices
+    cfg = dict(auto_create_metrics=True, port=0, bind="127.0.0.1",
+               device_window=False, enable_sketches=False,
+               mesh_shape="4", expert_parallel=True)
+    jt = JaxTSDB(JaxStore(), JaxConfig(**cfg),
+                 start_compaction_thread=False)
+    want = _stat_lines(_expert_stats(JaxServer(jt)))
+    pt = TSDB(MemKVStore(), Config(device="cpu", **cfg),
+              start_compaction_thread=False)
+    try:
+        got = _stat_lines(_expert_stats(TSDServer(pt)))
+    finally:
+        set_mesh_devices(1)
+    names = {"tsd.mesh.expert.serve", "tsd.mesh.expert.decline"}
+    assert {n for n in got if n.startswith("tsd.mesh.expert")} == \
+        {n for n in want if n.startswith("tsd.mesh.expert")} == names
+    assert "reason=rate" in got["tsd.mesh.expert.decline"]
+    assert "reason=rate" in want["tsd.mesh.expert.decline"]
