@@ -253,7 +253,20 @@
    say ``"rollup": "fused"`` and each answer must match the path phase's
    (REFERENCE, the resident tolerance) and the float64 oracle's; the path
    must launch block_decode, segment_sum and (the percentiles)
-   masked_select. One ``bench.int`` query must equal the raw scan's
+   masked_select. The fused plan's mesh leg (``fused_mesh_phase``): a
+   second in-process executor over the same store with a mesh of
+   FUSED_MESH_D (4) logical shards of the card runs the ten queries
+   cold, with the leg's launches counted (block_decode, segment_sum,
+   segment_minmax and moment_combine must each launch) and every
+   moment_combine payload held bit for bit against its plain version,
+   and FUSED_WARM_REPS times warm; each answer must match the daemon's
+   single-device fused answer (max exact) and REFERENCE within the
+   resident tolerance; each cut's point count a shard is kept; the leg's
+   whole body is held against its plain version (every kernel replaced
+   by its plain version) at the week's full gather and timed like a
+   kernel beside its byte bound; one query at D = 3 must count
+   ``mesh-indivisible`` and serve fused on one device. One ``fused_mesh``
+   stdout line. One ``bench.int`` query must equal the raw scan's
    answer exactly. Then one day of ``sum:1h-avg`` through each leg, cold
    and warm: the byte-stream leg (device block cache off), the cache's
    miss and its hit, and ``max:1h-max{host=h00001}``'s selector legs; the
@@ -553,6 +566,7 @@ import torch
 
 from opentsdb_tpu_torch.cluster import epoch as cepoch
 from opentsdb_tpu_torch.compress import fused as cfused
+from opentsdb_tpu_torch.compress import kernels as ckernels
 from opentsdb_tpu_torch.compress.devcache import pad_fine
 from opentsdb_tpu_torch.core.errors import FencedWriterError
 from opentsdb_tpu_torch.core.tsdb import TSDB
@@ -4548,6 +4562,204 @@ def fused_queries(daemon: "Daemon", start: int, end: int,
     return runs, answers
 
 
+FUSED_MESH_D = 4
+# The mesh leg's kernels: each shard's decode and segment folds, the one
+# combine.
+FUSED_MESH_KERNELS = ("block_decode", "segment_sum", "segment_minmax",
+                      "moment_combine")
+FUSED_MESH_WHERE = {"source": "opentsdb_tpu_torch/compress/kernels.py",
+                    "replaces": "opentsdb_tpu/compress/kernels.py:139"}
+
+
+def fused_mesh_launches() -> dict:
+    return {"block_decode": block_decode.decode_points.launches,
+            "segment_sum": segment_reduce.segment_sum.launches,
+            "segment_minmax": segment_reduce.segment_minmax.launches,
+            "moment_combine": mesh_combine.moment_combine.launches}
+
+
+def zero_fused_mesh_launches() -> None:
+    zero_decode_launches()
+    mesh_combine.moment_combine.launches = 0
+
+
+def json_answer(results: list, plan: str) -> list:
+    """Executor results in the daemon's /q JSON shape."""
+    return json.loads(json.dumps(TSDServer._json_output(
+        results, [plan] * len(results), [False] * len(results))))
+
+
+@contextlib.contextmanager
+def plain_fused_mesh():
+    """The mesh leg's body with every kernel replaced by its plain
+    version (the body's plain version, for timing beside it)."""
+    saved = (ckernels.decode_points, wk.segment_sum, wk.segment_minmax,
+             mesh_combine.moment_combine)
+    ckernels.decode_points = block_decode.decode_points_plain
+    wk.segment_sum = segment_reduce.segment_sum_plain
+    wk.segment_minmax = segment_reduce.segment_minmax_plain
+    mesh_combine.moment_combine = (
+        lambda *a, agg: mesh_combine.moment_combine_plain(*a, agg))
+    try:
+        yield
+    finally:
+        (ckernels.decode_points, wk.segment_sum, wk.segment_minmax,
+         mesh_combine.moment_combine) = saved
+
+
+def fused_mesh_body_case(tsdb: TSDB, mesh: Mesh, start: int,
+                         end: int) -> dict:
+    """The mesh leg's whole body at the week's full gather (sum:1h-avg's
+    stage: every series, 1 h buckets), its shards on the card: held
+    against its plain version (masks identical, count-derived grids
+    exact, values within the resident tolerance) and timed like a kernel.
+    Bound: bytes (each shard stream read once, the five stage grids
+    written once)."""
+    dev = torch.device(DEVICE)
+    uid = tsdb.metrics.get_id("bench.metric")
+    src = cfused.gather(tsdb.store, tsdb.table, uid, BASE,
+                        end - end % INTERVAL)
+    S_pad = _pad_size(len(src.series_keys))
+    B = _pad_size((end - BASE) // INTERVAL + 1)
+    streams, counts = cfused.block_shards(
+        src.ts_nb, src.ts_pay, src.v_nb, src.v_pay, src.first_idx,
+        src.blk_first, src.rel_base_pt, np.minimum(src.sid_pt, S_pad - 1),
+        src.valid, mesh.size, pad_fine)
+    args = [torch.from_numpy(a).to(dev) for a in streams]
+    qbase = start - start % INTERVAL
+    tail = (start - src.epoch, end - src.epoch, qbase - src.epoch, 0.0,
+            0.0)
+    fn = ckernels.fused_block_stage_mesh(
+        mesh, num_series=S_pad, num_buckets=B, interval=INTERVAL,
+        agg_down="avg", rate=False, counter=False, drop_resets=False,
+        vkind=src.kind)
+
+    def run():
+        return fn(*args, *tail)
+
+    def plain():
+        with plain_fused_mesh():
+            return fn(*args, *tail)
+
+    zero_fused_mesh_launches()
+    got = run()
+    torch.cuda.synchronize()
+    per_call = fused_mesh_launches()
+    want = plain()
+    for i, name in enumerate(("series_mask", "in_range", "presence")):
+        if not torch.equal(got[(1, 3, 4)[i]], want[(1, 3, 4)[i]]):
+            fail(f"fused mesh body: {name} differs from its plain version")
+    sv = torch.where(got[1], got[0], 0.0).double()
+    pv = torch.where(want[1], want[0], 0.0).double()
+    scale = float(pv.abs().max())
+    err = float((sv - pv).abs().max())
+    if not bool(((sv - pv).abs() <= 1e-5 * pv.abs() + 1e-5 * scale).all()):
+        fail(f"fused mesh body: values off its plain version by {err}")
+    nbytes = sum(a.numel() * a.element_size() for a in args) \
+        + S_pad * B * 10 + S_pad
+    b_ms, b_by = bound_ms(nbytes, 0)
+    res = {"name": "fused_block_stage_mesh", "stage": "week gather "
+           "(TSF32), sum:1h-avg's stage", "D": mesh.size,
+           "points": src.npoints, "shard_points": counts,
+           "padded_points": int(streams[0].shape[1]),
+           "series": S_pad, "buckets": B, "launches_per_call": per_call,
+           "bytes": nbytes, "max_abs_err": err, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None, "library": NO_LIBRARY,
+           "ms": median_ms(run, reps=10),
+           "ms_device": device_ms(run, reps=10),
+           "plain_ms": median_ms(plain, reps=3)}
+    res["share"] = res["bound_ms"] / res["ms_device"]
+    del args, got, want
+    torch.cuda.empty_cache()
+    log(f"fused mesh body: {res}")
+    return res
+
+
+def fused_mesh_phase(tsdb: TSDB, answers: dict, start: int,
+                     end: int) -> dict:
+    """The fused plan's mesh leg: a second in-process executor over the
+    compressed store with a mesh of FUSED_MESH_D logical shards of the
+    card. The ten queries cold (launches of the leg counted, every
+    moment_combine payload kept and held bit for bit against its plain
+    version) and warm, each against the daemon's single-device fused
+    answer and REFERENCE (the resident tolerance, max exact); each cut's
+    point count a shard; the body timed (fused_mesh_body_case); one query
+    at D = 3 counts mesh-indivisible and serves fused on one device."""
+    t_phase = time.perf_counter()
+    mesh = Mesh([f"{DEVICE}:0"] * FUSED_MESH_D)
+    ex = QueryExecutor(tsdb, mesh=mesh)
+    out: dict = {"D": FUSED_MESH_D, "queries": {}}
+    calls: list = []
+    restore = mesh_tap(calls)
+    zero_fused_mesh_launches()
+    d0 = mesh_plane._M_DISPATCH.count
+    cold: dict = {}
+    try:
+        for expr in QUERIES + PCT_QUERIES:
+            ex.fused_shard_points = None
+            t0 = time.perf_counter()
+            res, plan, _ = ex.run_with_plan(spec_of(expr), start, end)
+            cold[expr] = ((time.perf_counter() - t0) * 1e3, res, plan,
+                          ex.fused_shard_points)
+    finally:
+        restore()
+    out["launches"] = fused_mesh_launches()
+    out["dispatches"] = mesh_plane._M_DISPATCH.count - d0
+    for k in FUSED_MESH_KERNELS:
+        if out["launches"][k] == 0:
+            fail(f"the fused mesh leg never launched {k}")
+    if out["dispatches"] < 1:
+        fail("the fused mesh leg made no mesh dispatch")
+    checks = mesh_checks(calls)
+    out["moment_combine_checks"] = {
+        "calls": len(checks),
+        "bit_equal": all(c["bit_equal"] for c in checks),
+        "shapes": sorted({(c["arg"], c["D"], c["size"]) for c in checks})}
+    del calls
+    for expr in QUERIES + PCT_QUERIES:
+        ms, res, plan, shard_points = cold[expr]
+        if plan != "fused":
+            fail(f"fused mesh {expr}: plan {plan}")
+        got = json_answer(res, plan)
+        warm = []
+        for _ in range(FUSED_WARM_REPS):
+            t0 = time.perf_counter()
+            again, plan2, _ = ex.run_with_plan(spec_of(expr), start, end)
+            warm.append((time.perf_counter() - t0) * 1e3)
+            if plan2 != "fused":
+                fail(f"fused mesh {expr}: warm plan {plan2}")
+            # The group stage's float32 sums run again on every query,
+            # in an order the card does not fix.
+            same_answer(expr, json_answer(again, plan2), got,
+                        expr.startswith("max"))
+        exact = expr.startswith("max")
+        out["queries"][expr] = {
+            "first_ms": ms, "warm_ms": warm, "shard_points": shard_points,
+            "single_device_max_rel_diff": same_answer(
+                expr, got, answers[expr], exact),
+            "resident_max_rel_diff": same_answer(
+                expr, got, REFERENCE["resident"][expr], False)}
+        log(f"fused mesh {expr}: {out['queries'][expr]}")
+    out["body"] = fused_mesh_body_case(tsdb, mesh, start, end)
+    # D = 3: the week's padded stream (10,485,760 points) is not a
+    # multiple of 3.
+    ex3 = QueryExecutor(tsdb, mesh=Mesh([f"{DEVICE}:0"] * 3))
+    d0 = decline_count("mesh-indivisible")
+    expr = QUERIES[0]
+    res, plan, _ = ex3.run_with_plan(spec_of(expr), start, end)
+    if plan != "fused" or decline_count("mesh-indivisible") != d0 + 1:
+        fail(f"D = 3: plan {plan}, mesh-indivisible "
+             f"{decline_count('mesh-indivisible') - d0}")
+    out["indivisible"] = {
+        "D": 3, "query": expr, "plan": plan, "declined": "mesh-indivisible",
+        "max_rel_diff": same_answer(expr, json_answer(res, plan),
+                                    answers[expr], False)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"fused mesh leg: {out['launches']}, {out['dispatches']} "
+        f"dispatches, {out['phase_s']:.1f} s")
+    return out
+
+
 def compressed_phase(ts: np.ndarray, vals: np.ndarray, path: dict) -> dict:
     """See 5d in the module docstring."""
     start, end = BASE, BASE + SPAN - 1
@@ -4630,6 +4842,7 @@ def compressed_phase(ts: np.ndarray, vals: np.ndarray, path: dict) -> dict:
                 q["oracle_rel_err"] = check_answer(
                     expr, answers[expr], REFERENCE["oracle"][expr], 1e-4,
                     "oracle")
+            out["fused_mesh"] = fused_mesh_phase(tsdb, answers, start, end)
             ex = daemon.server.executor
             iexpr = "sum:1h-sum:bench.int"
             irun, ians, _ = http_fused(daemon.port, iexpr, start, end)
@@ -4734,6 +4947,72 @@ def compressed_phase(ts: np.ndarray, vals: np.ndarray, path: dict) -> dict:
             log(f"fsck of the v4 store: {out['fsck']}")
         finally:
             daemon.stop()
+    return out
+
+
+CLI_SERIES = 100              # the cli line's import: 100 x 1,000 lines
+CLI_QUERY = "max:1h-max:bench.metric{host=*}"
+
+
+def run_cli(*argv: str) -> tuple[int, str, float]:
+    """``tsdb <argv>`` in this process: (exit code, stdout, seconds)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = port_cli.main(list(argv))
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def cli_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
+    """The storage tools on the card: ``import`` of the corpus' first
+    CLI_SERIES series as text lines, ``query`` of CLI_QUERY (max: exact on
+    every plan), whose lines must equal a daemon's ``/q?ascii`` over the
+    same WAL byte for byte, then ``scan --import`` back, whose lines must
+    be the imported ones (values as the float32 the store keeps)."""
+    out: dict = {"series": CLI_SERIES}
+    start, end = BASE, BASE + SPAN - 1
+    with tempfile.TemporaryDirectory() as d:
+        wal = os.path.join(d, "wal")
+        path = os.path.join(d, "corpus.txt")
+        want = []
+        with open(path, "w") as f:
+            for s in range(CLI_SERIES):
+                tags = series_tags(s)
+                for t, v in zip(ts[s].tolist(), vals[s].tolist()):
+                    f.write(f"bench.metric {t} {v!r} host={tags['host']} "
+                            f"dc={tags['dc']}\n")
+                    want.append(f"bench.metric {t} "
+                                f"{float(np.float32(v))!r} "
+                                f"dc={tags['dc']} host={tags['host']}")
+        rc, said, out["import_s"] = run_cli("import", "--wal", wal, path)
+        if rc or f"{len(want)} points" not in said:
+            fail(f"tsdb import: exit {rc}: {said[-300:]!r}")
+        rc, lines, out["query_s"] = run_cli(
+            "query", "--wal", wal, str(start), str(end), "max",
+            "downsample", "3600", "max", "bench.metric", "host=*")
+        if rc or not lines:
+            fail(f"tsdb query: exit {rc}, {len(lines)} bytes")
+        tsdb = open_daemon_tsdb(wal)
+        daemon = Daemon(tsdb)
+        try:
+            status, body = http_get(daemon.port, "/q?" + urllib.parse
+                                    .urlencode({"start": start, "end": end,
+                                                "m": CLI_QUERY,
+                                                "ascii": ""}))
+        finally:
+            daemon.stop()
+        if status != 200 or body.decode() != lines:
+            fail(f"tsdb query's lines differ from the daemon's /q?ascii "
+                 f"(HTTP {status})")
+        rc, dumped, out["scan_s"] = run_cli(
+            "scan", "--wal", wal, "--import", str(start), str(end),
+            "bench.metric")
+        if rc or sorted(dumped.splitlines()) != sorted(want):
+            fail(f"tsdb scan --import: exit {rc}, not the imported lines")
+    out.update({"lines": len(want), "query": CLI_QUERY,
+                "query_lines": lines.count("\n"), "ascii_equal": True,
+                "scan_lines": len(want), "roundtrip_equal": True})
+    log(f"cli: {out}")
     return out
 
 
@@ -7501,6 +7780,48 @@ MIXED_SLOTS = 4            # queries a family in the research batch
 MIXED_VALUES = 8_000       # values a percentile query (one fold row)
 
 
+@contextlib.contextmanager
+def plain_body_kernels():
+    """A body's kernels replaced by their plain versions (the segment
+    kernels through ``ops/kernels.py``, the sketch kernels through
+    ``ops/sketches.py``): the body's plain version, for timing beside
+    it."""
+    saved = (wk.segment_sum, wk.segment_minmax, sketches.hll_fold,
+             sketches.hll_estimate, sketches.tdigest_fold)
+    wk.segment_sum = segment_reduce.segment_sum_plain
+    wk.segment_minmax = segment_reduce.segment_minmax_plain
+    sketches.hll_fold = sketches.hll_fold_plain
+    sketches.hll_estimate = sketches.hll_estimate_plain
+    sketches.tdigest_fold = (
+        lambda means, weights, idx, batch, valid=None,
+        batch_weights=None, *, compression: sketches.tdigest_fold_plain(
+            means, weights, idx, batch, valid, batch_weights,
+            compression=compression))
+    try:
+        yield
+    finally:
+        (wk.segment_sum, wk.segment_minmax, sketches.hll_fold,
+         sketches.hll_estimate, sketches.tdigest_fold) = saved
+
+
+def body_bound(arrays) -> dict:
+    """A whole body's bound: its inputs read once (its outputs are a few
+    numbers a query); bytes over the HBM rate."""
+    nbytes = sum(np.asarray(a).nbytes for a in arrays)
+    b_ms, b_by = bound_ms(nbytes, 0)
+    return {"bytes": nbytes, "bound_ms": b_ms, "bound_by": b_by,
+            "library": NO_LIBRARY}
+
+
+def wall_ms(fn) -> float:
+    """One call's wall ms, the card synchronized after it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 def mixed_batch_case(ts: np.ndarray, vals: np.ndarray) -> dict:
     """The research face (``run_mixed_batch``, which no daemon calls) on
     the four logical shards: MIXED_SLOTS moment queries (ten series' day
@@ -7564,8 +7885,14 @@ def mixed_batch_case(ts: np.ndarray, vals: np.ndarray) -> dict:
             fail(f"mixed batch: a {q['family']} query differs from the "
                  f"CPU's by {err}")
         worst[q["family"]] = max(worst[q["family"]], err)
+    mesh = Mesh([DEVICE] * MESH_D)
+    with plain_body_kernels():
+        plain_ms = wall_ms(lambda: pexpert.run_mixed_batch(queries, mesh,
+                                                           spec))
+    inputs = [a for q in queries for k, a in q.items() if k != "family"]
     return {"queries": len(queries), "shards": shards, "ms": ms,
-            "launches": launches, "max_err": worst}
+            "launches": launches, "max_err": worst, "plain_ms": plain_ms,
+            **body_bound(inputs)}
 
 
 FLEET_KERNELS = ("hybrid_moment_combine", "segment_sum", "hll_fold",
@@ -7667,9 +7994,16 @@ def fleet_phase(ts: np.ndarray, vals: np.ndarray) -> dict:
     if rank > SKETCH_RANK_TOL:
         fail(f"hybrid t-digest: rank error {rank}")
     del ordered
+    with plain_body_kernels():
+        hll_plain = wall_ms(lambda: hybrid_hll_distinct(st, svalid,
+                                                        mesh=mesh, p=14))
+        td_plain = wall_ms(lambda: hybrid_tdigest(sv, svalid, SKETCH_QS,
+                                                  mesh=mesh))
     out["hll"] = {"ms": hll_ms, "estimate": est, "exact": exact,
-                  "rel_err": hll_rel}
-    out["tdigest"] = {"ms": td_ms, "qs": SKETCH_QS,
+                  "rel_err": hll_rel, "plain_ms": hll_plain,
+                  **body_bound([st, svalid])}
+    out["tdigest"] = {"ms": td_ms, "plain_ms": td_plain, "qs": SKETCH_QS,
+                      **body_bound([sv, svalid]),
                       "quantiles": tq.tolist(), "max_rank_err": rank}
     out["kernel_checks"] = hybrid_checks(calls)
     del calls
@@ -7785,6 +8119,7 @@ def main() -> int:
     compressed = compressed_phase(ts, vals, path)
     kernels += compressed["kernel_cases"]
     REFERENCE.clear()
+    cli = cli_phase(ts, vals)
     del ts, vals
     refusal = refusal_phase()
     budget = budget_phase()
@@ -7896,7 +8231,7 @@ def main() -> int:
         "card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "build_s": build_s, "kernel_cases": kernels, "path": path,
         "compressed": compressed, "rollup": rollup, "sharded": sharded,
-        "mesh": mesh, "fleet": fleet, "refusal": refusal,
+        "mesh": mesh, "fleet": fleet, "refusal": refusal, "cli": cli,
         "budget": budget}}))
     for expr, q in path["queries"].items():
         print(json.dumps({"query": expr, "plan": "resident", **q,
@@ -8010,6 +8345,20 @@ def main() -> int:
             "ms_device", "plain_ms", "bound_ms", "bytes",
             "kernels_per_call", "memsets_per_call")}
             for r in c["kernel_cases"]}}, "card": smi}))
+    fm = compressed["fused_mesh"]
+    print(json.dumps({"fused_mesh": {
+        **FUSED_MESH_WHERE,
+        **{k: fm[k] for k in ("D", "launches", "dispatches",
+                              "moment_combine_checks", "indivisible",
+                              "phase_s")},
+        "queries": fm["queries"],
+        "body": {k: fm["body"][k] for k in (
+            "stage", "points", "shard_points", "padded_points",
+            "launches_per_call", "ms", "ms_device", "plain_ms", "bound_ms",
+            "bound_by", "share", "max_abs_err", "library")},
+        "concurrency": f"not claimed: {FUSED_MESH_D} logical shards of "
+                       f"one card run one after another"}, "card": smi}))
+    print(json.dumps({"cli": cli, "card": smi}))
     ro = rollup
     print(json.dumps({"rollup": {
         "series": ro["series"], "of_series": ro["of_series"],

@@ -376,3 +376,75 @@ def gather(store, table: str, metric_uid: bytes, b_lo: int,
     src.sid_pt = np.concatenate(sid_pt)
     src.valid = np.concatenate(valid)
     return src
+
+
+def block_shards(ts_nb, ts_pay, v_nb, v_pay, first_idx, blk_first,
+                 rel_base, sid, valid, shards: int, pad_len):
+    """Cut one concatenated point stream (``npoints = len(ts_nb)``, no
+    padding) into ``shards`` runs of WHOLE blocks for the fused stage's
+    mesh leg, balanced by point count: each cut is the block start
+    nearest to d * P / D, so a shard holds at most P / D points plus one
+    block. No record and no value chain crosses a block (``first_idx`` /
+    ``blk_first`` are block-local plus the block's offset, and each
+    block's XOR or delta chain restarts at its start), so each shard
+    decodes alone.
+
+    Each shard gets its own byte slices of the payloads (from the
+    cumulative byte counts up to its cut) and its ``first_idx`` /
+    ``blk_first`` rebased to its first point. Every shard pads to one
+    length, ``pad_len(largest shard)``: padding points have nb = 0,
+    ``first_idx`` = ``blk_first`` = their own index and valid = False,
+    so they decode to zeros the stage masks out. Payloads pad to one
+    power of two. A shard may be empty (fewer blocks than shards, or a
+    block larger than P / D): it is all padding and adds nothing.
+
+    Returns the nine stacked streams (``[D, P_shard]`` per point,
+    ``[D, pay]`` uint8 payloads) in the stage's argument order, and each
+    shard's point count."""
+    P = len(ts_nb)
+    blk_first = np.asarray(blk_first)
+    starts = np.concatenate([[0], np.flatnonzero(np.diff(blk_first[:P]))
+                             + 1]) if P else np.zeros(0, np.int64)
+    cuts = [0]
+    for d in range(1, shards):
+        target = d * P / shards
+        i = int(np.searchsorted(starts, target))
+        best = P if i >= len(starts) else int(starts[i])
+        if i > 0 and target - starts[i - 1] < best - target:
+            best = int(starts[i - 1])
+        cuts.append(max(best, cuts[-1]))
+    cuts.append(P)
+    counts = [b - a for a, b in zip(cuts[:-1], cuts[1:])]
+    n_pad = pad_len(max(max(counts), 1))
+    # Byte offsets of the cuts alone (no per-point prefix sums).
+    ts_off = np.cumsum([0] + [int(ts_nb[a:b].sum(dtype=np.int64))
+                              for a, b in zip(cuts[:-1], cuts[1:])])
+    v_off = np.cumsum([0] + [int(v_nb[a:b].sum(dtype=np.int64))
+                             for a, b in zip(cuts[:-1], cuts[1:])])
+    pay_len = int(max(np.diff(ts_off).max(), np.diff(v_off).max()))
+    pay_pad = 1 << (max(pay_len, 1) - 1).bit_length()
+    out = [np.zeros((shards, n_pad), np.int32),
+           np.zeros((shards, pay_pad), np.uint8),
+           np.zeros((shards, n_pad), np.int32),
+           np.zeros((shards, pay_pad), np.uint8),
+           np.empty((shards, n_pad), np.int32),
+           np.empty((shards, n_pad), np.int32),
+           np.zeros((shards, n_pad), np.int32),
+           np.zeros((shards, n_pad), np.int32),
+           np.zeros((shards, n_pad), bool)]
+    own = np.arange(n_pad, dtype=np.int32)
+    for d, (a, b) in enumerate(zip(cuts[:-1], cuts[1:])):
+        n = b - a
+        out[0][d, :n] = ts_nb[a:b]
+        out[1][d, :ts_off[d + 1] - ts_off[d]] = ts_pay[ts_off[d]:
+                                                       ts_off[d + 1]]
+        out[2][d, :n] = v_nb[a:b]
+        out[3][d, :v_off[d + 1] - v_off[d]] = v_pay[v_off[d]:v_off[d + 1]]
+        np.subtract(first_idx[a:b], a, out=out[4][d, :n], casting="unsafe")
+        np.subtract(blk_first[a:b], a, out=out[5][d, :n], casting="unsafe")
+        out[4][d, n:] = own[n:]
+        out[5][d, n:] = own[n:]
+        out[6][d, :n] = rel_base[a:b]
+        out[7][d, :n] = sid[a:b]
+        out[8][d, :n] = valid[a:b]
+    return out, counts

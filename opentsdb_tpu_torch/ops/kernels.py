@@ -328,16 +328,26 @@ def _group_stage(filled, in_range, series_mask, gmap, *, num_groups,
     return gv, g_real > 0
 
 
+def _series_segments(ts, sid, valid, *, num_series, num_buckets,
+                     interval):
+    """Each point's (series, bucket) segment, S*B (the trash segment) for
+    invalid points, and its bucket: (seg int32, bucket)."""
+    bucket = torch.clamp(torch.div(ts, interval, rounding_mode="floor"),
+                         0, num_buckets - 1)
+    seg = torch.where(valid, sid * num_buckets + bucket,
+                      num_series * num_buckets).to(torch.int32)
+    return seg, bucket
+
+
 def _series_stage(ts, vals, sid, valid, *, num_series, num_buckets,
                   interval, agg_down, with_ts: bool):
     """Shared per-(series, bucket) downsample stage: one segment
     reduction pass producing series_values/series_mask [S, B] (and, when
     ``with_ts``, per-bucket integer-mean member timestamps). Invalid
     points go to an in-range trash segment S*B that is sliced off."""
-    bucket = torch.clamp(torch.div(ts, interval, rounding_mode="floor"),
-                         0, num_buckets - 1)
-    seg = torch.where(valid, sid * num_buckets + bucket,
-                      num_series * num_buckets).to(torch.int32)
+    seg, bucket = _series_segments(ts, sid, valid, num_series=num_series,
+                                   num_buckets=num_buckets,
+                                   interval=interval)
     nseg = num_series * num_buckets + 1  # +1 trash segment for padding
     need = _needs(agg_down)
     shape = (num_series, num_buckets)

@@ -82,8 +82,11 @@ at least four buckets a shard, else single-device, as in the JAX
 package; the resident plan serves only from the mesh-sharded window
 (``storage/devshard.py``, ``_dw_sharded_stage``: each shard's stage, then
 the [S_shard, B] grids concatenated on the first shard's device), and a
-single-device window declines under a mesh. The fused plan keeps its
-single-device leg.
+single-device window declines under a mesh. The fused plan runs its
+mesh leg (``compress/kernels.fused_block_stage_mesh``) over block-aligned
+shards of the gather when the padded point stream divides the mesh, and
+otherwise its single-device leg with ``mesh-indivisible`` counted; under a
+mesh the device block cache is not used, as in the JAX package.
 
 Approximate serving (``run_approx``, ``sketch/serving.py``): a caller
 that opts in (``/q``'s ``approx=1`` or ``max_error=``) gets a percentile
@@ -221,8 +224,10 @@ class QueryExecutor:
         (``parallel/timeshard.py``) when the range has at least four
         buckets a shard, otherwise single-device, by the JAX package's
         layout rules; the resident path serves only from a sharded
-        window (``storage/devshard.py``). The fused plan keeps its
-        single-device leg under a mesh (its mesh leg is item 11b)."""
+        window (``storage/devshard.py``). The fused plan runs its mesh
+        leg over block-aligned shards when the padded point stream
+        divides the mesh (else one device, ``mesh-indivisible`` counted),
+        without the device block cache."""
         self.tsdb = tsdb
         if mesh is not None:
             from opentsdb_tpu_torch.parallel.plan import \
@@ -246,6 +251,7 @@ class QueryExecutor:
         # filter; each entry pins the SSTable objects it came from, so a
         # generation swap mismatches (and id reuse cannot alias).
         self._fused_stage_cache = LRUCache(4)
+        self.fused_shard_points = None
         # Device block cache (compress/devcache.py): decoded columns of
         # whole gathers, bounded by cached points.
         self._devcache = None
@@ -1445,7 +1451,8 @@ class QueryExecutor:
         """Serve a downsampled query straight from TSST4 blocks: the
         decode kernel and the window stage produce the per-(series,
         bucket) grids on the device, then the apply kernels the resident
-        window uses finish grouping and percentiles. Exact or None (the
+        window uses finish grouping and percentiles; under a mesh the
+        stage runs over it (``_fused_stage_mesh``). Exact or None (the
         scan serves): memtable rows in range, a non-v4 generation, an
         ineligible block, overlay risk or an int32 overflow decline, each
         counted."""
@@ -1490,15 +1497,18 @@ class QueryExecutor:
     def _fused_stage(self, src, selector, S_pad, num_buckets, interval,
                      dsagg, rate_kw, lo32, hi32, shift32):
         """The stage grids of one gather: from the device block cache's
-        decoded columns when the executor has one (only per-record arrays
-        go up, plus the matched points of a selective filter), else from
-        the payload byte streams. Both legs decode identically."""
+        decoded columns when the executor has one and no mesh (only
+        per-record arrays go up, plus the matched points of a selective
+        filter), else from the payload byte streams: over the mesh when
+        the padded stream divides it (the JAX rule), else on one device,
+        with ``mesh-indivisible`` counted. Every leg decodes
+        identically."""
         dev = self.device
 
         def up(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-        if self._devcache is not None:
+        if self._devcache is not None and self.mesh is None:
             qd, vals, rec, _P, _P_pad, _R = self._devcache.columns(src)
             rel_base, sid_r, valid_r, sel = self._devcache.record_inputs(
                 src, S_pad, selective=selector is not None)
@@ -1516,6 +1526,14 @@ class QueryExecutor:
             return _ck.devcache_window_stage(qd, vals, rec, *args,
                                              **dev_kw)
         P_pad = _pad_fine(src.npoints)
+        kw = dict(num_series=S_pad, num_buckets=num_buckets,
+                  interval=interval, agg_down=dsagg, vkind=src.kind,
+                  **rate_kw)
+        if self.mesh is not None:
+            if P_pad % self.mesh.size == 0:
+                return self._fused_stage_mesh(src, S_pad, lo32, hi32,
+                                              shift32, **kw)
+            _count_decline("mesh-indivisible")
 
         def pad(a, dtype, fill=0):
             out = np.full(P_pad, fill, dtype)
@@ -1533,9 +1551,6 @@ class QueryExecutor:
                    pad(src.v_nb, np.int32), padbuf(src.v_pay),
                    pad(src.first_idx, np.int32),
                    pad(src.blk_first, np.int32))
-        kw = dict(num_series=S_pad, num_buckets=num_buckets,
-                  interval=interval, agg_down=dsagg, vkind=src.kind,
-                  **rate_kw)
         matched = (np.flatnonzero(src.valid) if selector is not None
                    else None)
         if matched is not None and len(matched) < src.npoints:
@@ -1559,6 +1574,27 @@ class QueryExecutor:
             *streams, pad(src.rel_base_pt, np.int32),
             pad(np.minimum(src.sid_pt, S_pad - 1), np.int32),
             pad(src.valid, bool, False), lo32, hi32, shift32, **kw)
+
+    def _fused_stage_mesh(self, src, S_pad, lo32, hi32, shift32, *,
+                          counter_max, reset_value, **statics):
+        """The fused stage's mesh leg: the gather's point stream cut into
+        one run of whole blocks a shard (``compress/fused.block_shards``),
+        every point staged under ``valid`` with no compaction (as the
+        JAX leg stages it), one dispatch through the plane.
+        ``fused_shard_points`` keeps the last cut's point count a shard
+        (the cut's balance)."""
+        mesh = self.mesh
+        streams, self.fused_shard_points = _fused.block_shards(
+            src.ts_nb, src.ts_pay, src.v_nb, src.v_pay, src.first_idx,
+            src.blk_first, src.rel_base_pt,
+            np.minimum(src.sid_pt, S_pad - 1), src.valid, mesh.size,
+            _pad_fine)
+        lo = mesh.offset
+        streams = [a[lo:lo + len(mesh.devices)] for a in streams]
+        fn = _ck.fused_block_stage_mesh(mesh, **statics)
+        return fn(*streams, lo32, hi32, shift32,
+                  float(np.float32(counter_max)),
+                  float(np.float32(reset_value)))
 
     def _run_fused_inner(self, spec, start, end, agg, metric_uid, exact,
                          group_bys, interval, dsagg, qbase, b_lo, b_hi):
@@ -1586,7 +1622,8 @@ class QueryExecutor:
             try:
                 src = _fused.gather(tsdb.store, tsdb.table, metric_uid,
                                     b_lo, b_hi, selector=selector,
-                                    points=self._devcache is None)
+                                    points=(self._devcache is None
+                                            or self.mesh is not None))
             except _fused.Decline as d:
                 _count_decline(d.reason)
                 return None

@@ -11,13 +11,14 @@ and ``json`` output), ``/sketch`` (quantiles of the live t-digests),
 ``/distinct`` (distinct tag values from the live HyperLogLogs, or counted
 over a range), ``/api/tenants`` and its page ``/tenants`` (per-tenant
 series cardinality, limits, refusals, heavy hitters), ``/aggregators``,
-``/version``, ``/suggest``, ``/dropcaches``, ``/diediedie`` and
-``/favicon.ico``. Every put, telnet or HTTP, is charged to a tenant (the
-connection's, set by ``tenant <id>``, or ``?tenant=``; "default" unless
-named) and passes the admission controller's ingest half first
-(``serve/admission.py``). Queries run in a thread pool off the event
-loop, so ingest keeps flowing while they compute; each pool thread
-launches its kernels on its own current CUDA stream.
+``/version``, ``/suggest``, ``/dropcaches``, ``/diediedie``,
+``/favicon.ico``, ``/`` and ``/s/``. Every put, telnet or HTTP, is
+charged to a tenant (the connection's, set by ``tenant <id>``, or
+``?tenant=``; "default" unless named) and passes the admission
+controller's ingest half first (``serve/admission.py``). Queries run in a
+thread pool off the event loop, so ingest keeps flowing while they
+compute; each pool thread launches its kernels on its own current CUDA
+stream.
 
 Observability (``obs/``, the JAX daemon's surface): ``/stats`` (text, or
 ``?json``) and the telnet ``stats`` command give the reference's counters
@@ -94,9 +95,21 @@ them. The JAX daemon's test-only switches are kept:
 writer, ``cluster/epoch.py``), so the serve matrix can prove that it
 catches both.
 
+With ``Config.cachedir`` (``tsd --cachedir``) ``/q`` answers go to a disk
+cache, as in the JAX daemon: one file per query string (its md5 plus
+``.txt`` or ``.json``, with a ``.meta`` sidecar for the answer's extra
+headers), fresh for a day when the query ended more than a day ago, a
+minute for a relative end, five minutes otherwise, and never longer than
+a replica's staleness bound; ``nocache``, a traced and a degraded request
+bypass it; ``http.graph.requests{cache=hit|miss}`` counts it. A cache
+directory written by either daemon serves the other. ``/`` serves the
+query UI and ``/s/<file>`` static files, from ``Config.staticroot``
+(``--staticroot``) or the packaged copy of the JAX daemon's
+``opentsdb_tpu/server/static/index.html`` (``server/static/``), with the
+JAX daemon's content types, ``..`` refusal and ``Cache-Control``.
+
 Not ported yet, and answered with 400 "not yet ported": PNG graphs
-(``/q`` without ``ascii``/``json``, ``/forecast`` with ``png``). Other
-paths (the JAX daemon's ``/`` and ``/s/``) are 404.
+(``/q`` without ``ascii``/``json``, ``/forecast`` with ``png``).
 """
 
 from __future__ import annotations
@@ -104,6 +117,7 @@ from __future__ import annotations
 import asyncio
 import concurrent.futures
 import functools
+import hashlib
 import json
 import logging
 import math
@@ -176,6 +190,19 @@ class HttpRequest(NamedTuple):
     q: dict                    # last-value-wins query params
     params: dict               # full multi-value query params
     body: bytes = b""          # bounded at MAX_BODY_BYTES; b"" for GETs
+    query_string: str = ""     # the raw query string (the /q cache key)
+
+
+# Static files' content types (the JAX daemon's table).
+_CONTENT_TYPES = {
+    ".html": "text/html; charset=UTF-8",
+    ".css": "text/css",
+    ".js": "application/javascript",
+    ".png": "image/png",
+    ".gif": "image/gif",
+    ".ico": "image/x-icon",
+    ".txt": "text/plain",
+}
 
 
 def _retry_after(seconds: float) -> dict:
@@ -248,6 +275,10 @@ class TSDServer:
         # serially.
         self.expert_enabled = bool(self.config.expert_parallel)
         self.admission = AdmissionController(self.config)
+        if self.config.cachedir:
+            # The /q disk cache writes <hash>.<ext>.tmp files here; made up
+            # front, so a fresh --cachedir needs no mkdir.
+            os.makedirs(self.config.cachedir, exist_ok=True)
         self._server: asyncio.AbstractServer | None = None
         self._shutdown = asyncio.Event()
         self._pool = concurrent.futures.ThreadPoolExecutor(
@@ -255,8 +286,9 @@ class TSDServer:
         self.log_ring = logbuffer.install()
         # The reference's counters (ConnectionManager, RpcHandler,
         # PutDataPointRpc) and latency digests, as the JAX daemon keeps
-        # them. The port has no /q disk cache and no PNG graphs, so every
-        # /q is a cache miss and the graph digest stays empty.
+        # them; cache_hits / cache_misses count the /q disk cache
+        # (http.graph.requests{cache=}). The port has no PNG graphs, so the
+        # graph digest stays empty.
         self.connections_established = 0
         self.exceptions_caught = 0
         self.telnet_rpcs = 0
@@ -306,6 +338,7 @@ class TSDServer:
             "diediedie": self._telnet_diediedie,
         }
         self.http_routes = {
+            "/": self._http_home,
             "/aggregators": self._http_aggregators,
             "/version": self._http_version,
             "/stats": self._http_stats,
@@ -677,6 +710,8 @@ class TSDServer:
         takes an HttpRequest and returns that shape."""
         self.http_rpcs += 1
         parsed = urllib.parse.urlsplit(target)
+        if parsed.path.startswith("/s/") or parsed.path == "/s":
+            return self._static_file(parsed.path[2:].lstrip("/"))
         route = parsed.path.rstrip("/") or "/"
         handler = self.http_routes.get(route)
         if handler is None:
@@ -687,10 +722,53 @@ class TSDServer:
         # Per-endpoint latency, tagged by the route (a bounded label set),
         # never the raw path.
         with METRICS.timer("http.handler", {"endpoint": route}).time():
-            out = handler(HttpRequest(method, parsed.path, q, params, body))
+            out = handler(HttpRequest(method, parsed.path, q, params, body,
+                                      parsed.query))
             if asyncio.iscoroutine(out):
                 out = await out
         return out
+
+    def _http_home(self, req) -> tuple:
+        """The query UI (``static/index.html``; reference HomePage,
+        RpcHandler.java:304-317), never cached by the browser, so a UI
+        update takes effect at once."""
+        status, ctype, body, hdrs = self._static_file("index.html")
+        if status == 200:
+            hdrs = dict(hdrs, **{"Cache-Control": "no-cache"})
+        return status, ctype, body, hdrs
+
+    # The packaged UI: served when no --staticroot is configured, and below
+    # one as the fallback.
+    _PACKAGED_STATIC = os.path.join(os.path.dirname(__file__), "static")
+
+    def _static_file(self, rel: str) -> tuple:
+        """``/s/<rel>`` from ``Config.staticroot``, else the packaged UI;
+        a path with ``..`` is refused as 404."""
+        if ".." in rel:
+            raise BadRequestError("Malformed path", 404)
+        rel = rel or "index.html"
+        path = None
+        for root in (self.config.staticroot, self._PACKAGED_STATIC):
+            if root is None:
+                continue
+            cand = os.path.join(root, rel)
+            if os.path.isfile(cand):
+                path = cand
+                break
+        if path is None:
+            return 404, "text/plain", b"File Not Found\n", {}
+        with open(path, "rb") as f:
+            body = f.read()
+        ctype = _CONTENT_TYPES.get(os.path.splitext(path)[1],
+                                   "application/octet-stream")
+        # The packaged files carry no content hash, so an upgrade must
+        # reach browsers; an operator's staticroot assets (hashed, GWT
+        # style) earn the year-long header (reference :30-54).
+        if path.startswith(self._PACKAGED_STATIC):
+            hdrs = {"Cache-Control": "no-cache"}
+        else:
+            hdrs = {"Cache-Control": "max-age=31536000"}
+        return 200, ctype, body, hdrs
 
     def _http_aggregators(self, req) -> tuple:
         return (200, "application/json",
@@ -1324,12 +1402,13 @@ class TSDServer:
         degrade = (verdict == DEGRADE
                    or q.get("degrade") == "rollup-only")
         try:
-            return await self._query_admitted(q, ms, start, end, degrade)
+            return await self._query_admitted(q, req.query_string, ms,
+                                              start, end, degrade)
         finally:
             self.admission.query_done()
 
-    async def _query_admitted(self, q, ms, start: int, end: int,
-                              degrade: bool) -> tuple:
+    async def _query_admitted(self, q, query_string: str, ms, start: int,
+                              end: int, degrade: bool) -> tuple:
         # Tracing: asked for (?trace=1), implied for every query by a
         # slow-query threshold, or 1 in trace_sample_n (a baseline between
         # incidents). Off, each hook is one global integer check; on, a
@@ -1363,8 +1442,35 @@ class TSDServer:
         # and as X-Tsd-Degraded: "stale" while a replica is past its
         # staleness contract, "rollup-only" at the degraded step.
         degraded = self._degraded_reason(degrade)
-        # No /q disk cache here: every query executes (so no exact caller
-        # can be served an approximate answer from a cached one).
+        # The /q disk cache (Config.cachedir; reference GraphHandler
+        # :335-468): a traced request bypasses it both ways (a cached body
+        # carries no trace, and a trace of a disk read would say the query
+        # cost nothing), and so does a degraded one (caching it would serve
+        # it after recovery; a cached full answer carries no tag). Approx
+        # opt-in does not bypass: the key is the md5 of the whole query
+        # string (approx=1 / max_error= included), so an exact caller never
+        # lands on an approximate slot, and X-Tsd-Approx survives hits
+        # through the .meta sidecar.
+        cache_path = (None if want_trace or degraded
+                      else self._cache_path(query_string, q))
+        if cache_path and self._cache_fresh(cache_path, q, end,
+                                            int(time.time())):
+            with open(cache_path, "rb") as f:
+                body = f.read()
+            # A 0-byte .json cannot be an answer (an empty one is b"[]"):
+            # regenerate it. A 0-byte .txt is the negative-cache hit (a
+            # query known to plot no point, reference :399-419).
+            if not (cache_path.endswith(".json") and not body):
+                self.cache_hits += 1
+                ctype = ("text/plain" if cache_path.endswith(".txt")
+                         else "application/json")
+                extra = {}
+                try:
+                    with open(cache_path + ".meta") as f:
+                        extra = json.load(f)
+                except (OSError, ValueError):
+                    pass
+                return 200, ctype, body, extra
         self.cache_misses += 1
         loop = asyncio.get_running_loop()
         results = []
@@ -1458,13 +1564,51 @@ class TSDServer:
                 tagv += f";rel_error={max(rels):.6g}"
             extra["X-Tsd-Approx"] = tagv
         if "ascii" in q:
-            return (200, "text/plain", self._ascii_output(results).encode(),
-                    extra)
-        return (200, "application/json",
-                json.dumps(self._json_output(
-                    results, plans, cached,
-                    traces if want_trace else None, approx,
-                    degraded, expert_label)).encode(), extra)
+            ctype, body = "text/plain", self._ascii_output(results).encode()
+        else:
+            ctype = "application/json"
+            body = json.dumps(self._json_output(
+                results, plans, cached, traces if want_trace else None,
+                approx, degraded, expert_label)).encode()
+        if cache_path:
+            tmp = cache_path + ".tmp"
+            with open(tmp, "wb") as f:
+                f.write(body)
+            os.replace(tmp, cache_path)
+            if extra:
+                with open(cache_path + ".meta.tmp", "w") as f:
+                    json.dump(extra, f)
+                os.replace(cache_path + ".meta.tmp", cache_path + ".meta")
+        return 200, ctype, body, extra
+
+    def _cache_path(self, query_string: str, q) -> str | None:
+        """The /q disk-cache file of a query: the md5 of its query string
+        plus ``.txt`` (ascii) or ``.json``, the JAX daemon's names, so a
+        cache directory written by either daemon serves the other."""
+        if self.config.cachedir is None or "nocache" in q:
+            return None
+        suffix = ".txt" if "ascii" in q else ".json"
+        h = hashlib.md5(query_string.encode()).hexdigest()
+        return os.path.join(self.config.cachedir, h + suffix)
+
+    def _cache_fresh(self, path: str, q, end: int, now: int) -> bool:
+        """Freshness (reference computeMaxAge :223-244): a query ending
+        more than a day ago caches a day, a relative end a minute, any
+        other five minutes; on a replica under a staleness contract never
+        longer than that bound."""
+        try:
+            mtime = os.path.getmtime(path)
+        except OSError:
+            return False
+        if end < now - 86400:
+            max_age = 86400
+        elif timeparse.is_relative_date(q.get("end")):
+            max_age = 60
+        else:
+            max_age = 300
+        if self.tailer is not None and self.config.max_staleness_ms > 0:
+            max_age = min(max_age, self.config.max_staleness_ms / 1000.0)
+        return (now - mtime) < max_age
 
     async def _distinct(self, req) -> tuple:
         """Distinct values of one tag key. Without ``start`` (or with

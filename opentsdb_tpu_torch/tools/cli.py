@@ -1,8 +1,19 @@
-"""The ``tsd``, ``tenants``, ``fsck``, ``stats`` and ``sketch-plan``
-commands.
+"""The ``tsdb`` command line: ``tsd``, ``import``, ``query``, ``scan``,
+``fsck``, ``uid``, ``mkmetric``, ``tenants``, ``stats``, ``sketch-plan``,
+``check``, ``drain``, ``clean-cache`` and ``version``.
 
-Mirrors those subcommands of ``opentsdb_tpu/tools/cli.py`` (the
-reference's TSDMain.java for ``tsd``, Fsck.java for ``fsck``). The daemon serves on the CUDA card
+Mirrors ``opentsdb_tpu/tools/cli.py`` (the reference's TSDMain.java for
+``tsd``, TextImporter.java for ``import``, CliQuery.java for ``query``,
+DumpSeries.java for ``scan``, Fsck.java for ``fsck``, UidManager.java for
+``uid``). The storage tools take the JAX CLI's grammar and print its
+bytes: ``import FILE...`` (``metric ts value tag=v`` lines, ``.gz``
+too), ``query START [END] AGG [rate] [downsample N FUNC] METRIC
+[tag=v...]`` (``--graph``, PNG output, is not yet ported and exits 2),
+``scan START [END] METRIC [tag=v...]`` (``--import`` prints
+re-importable lines, ``--delete`` removes what it prints), ``uid grep |
+assign | rename | fsck | KIND NAME`` and ``mkmetric NAME...``; a store
+either package wrote serves both. ``check``, ``drain`` and
+``clean-cache`` are ``tools/ops.py``'s. The daemon serves on the CUDA card
 unless ``--device cpu`` is given; ``--backend cpu`` answers queries with
 the float64 oracle instead of the kernels. As in the JAX package's
 daemon, the resident device window is on: ingest (and, at start-up, what
@@ -91,6 +102,10 @@ above, and a router over two replicas::
     python -m opentsdb_tpu_torch.tools.cli tsd --port 4240 --role router \
         --backends http://127.0.0.1:4243,http://127.0.0.1:4244 \
         --writer-url http://127.0.0.1:4242
+
+``--cachedir`` keeps ``/q`` answers in a disk cache (``nocache`` skips
+it) and ``--staticroot`` serves static files at ``/s/`` before the
+packaged query UI (``/``), as the JAX daemon does.
 
 ``stats`` prints the ``/stats`` lines (``--metrics``: the Prometheus text
 of ``/metrics``) of a live daemon (``--url``) or of a store (``--wal``:
@@ -247,6 +262,7 @@ def cmd_tsd(args) -> int:
         table=args.table, uidtable=args.uidtable, backend=args.backend,
         device=args.device, auto_create_metrics=args.auto_metric,
         port=args.port, bind=args.bind, flush_interval=args.flush_interval,
+        staticroot=args.staticroot, cachedir=args.cachedir,
         checkpoint_interval=args.checkpoint_interval,
         ingest_rate=args.ingest_rate,
         ingest_queue_points=args.ingest_queue_points,
@@ -465,6 +481,313 @@ def cmd_fsck(args) -> int:
     return 1 if rep.errors and not args.fix else 0
 
 
+def _tool_tsdb(args) -> TSDB:
+    """The store of a one-shot storage tool (``import``, ``query``,
+    ``scan``, ``uid``, ``mkmetric``), opened as the JAX CLI's
+    ``make_tsdb`` opens it for them: no resident window (a one-shot tool
+    would pay its warm-up to throw it away), no compaction thread, an
+    existing rollup tier adopted. The command's ``shutdown`` checkpoints a
+    WAL store, as the JAX tools' does."""
+    cfg = apply_rollup_args(
+        Config(table=args.table, uidtable=args.uidtable,
+               backend=args.backend, device=args.device,
+               auto_create_metrics=args.auto_metric,
+               sstable_codec=args.sstable_codec, device_window=False),
+        args)
+    return make_tsdb(cfg, args.wal, shards=args.shards,
+                     read_only=args.read_only,
+                     start_compaction_thread=False)
+
+
+def cmd_import(args) -> int:
+    """Bulk text loader (reference TextImporter.java): ``metric ts value
+    tag=v ...`` lines, gzipped when the name ends in ``.gz``."""
+    tsdb = _tool_tsdb(args)
+    try:
+        total = 0
+        t_start = time.time()
+        for path in args.files:
+            t0 = time.time()
+            n = _import_file(tsdb, path)
+            dt = max(time.time() - t0, 1e-9)
+            print(f"{path}: {n} points in {dt:.2f}s "
+                  f"({n / dt:,.0f} points/s)")
+            total += n
+        dt = max(time.time() - t_start, 1e-9)
+        print(f"Total: imported {total} data points in {dt:.2f}s "
+              f"({total / dt:,.0f} points/s)")
+    finally:
+        tsdb.shutdown()
+    return 0
+
+
+def _import_file(tsdb: TSDB, path: str) -> int:
+    """One (optionally gzipped) text file, buffered per series and
+    written through the columnar batch path (one compacted cell per
+    row-hour; durable: the WAL is the store the other tools replay).
+    Integers parse exactly as int64, as the reference's
+    Tags.looksLikeInteger sniff does per point."""
+    import gzip
+
+    import numpy as np
+
+    from opentsdb_tpu_torch.core import tags as tags_mod
+
+    opener = gzip.open if path.endswith(".gz") else open
+    series: dict[tuple, tuple[list, list, list, list]] = {}
+    n = 0
+    with opener(path, "rt") as f:
+        for lineno, line in enumerate(f, 1):
+            words = tags_mod.split_string(line.strip())
+            if not words:
+                continue
+            try:
+                metric = words[0]
+                ts = tags_mod.parse_long(words[1])
+                value = words[2]
+                tag_map: dict[str, str] = {}
+                for t in words[3:]:
+                    tags_mod.parse(tag_map, t)
+                key = (metric, tuple(sorted(tag_map.items())))
+                tsl, vl, il, fl = series.setdefault(key, ([], [], [], []))
+                tsl.append(ts)
+                if tags_mod.looks_like_integer(value):
+                    iv = tags_mod.parse_long(value)
+                    fl.append(False)
+                    il.append(iv)
+                    vl.append(float(iv))
+                else:
+                    fl.append(True)
+                    il.append(0)
+                    vl.append(float(value))
+                n += 1
+            except ValueError as e:
+                raise ValueError(
+                    f"Invalid data at line {lineno}: {line!r}: {e}") from e
+    for (metric, tag_items), (tsl, vl, il, fl) in series.items():
+        ts_arr = np.asarray(tsl, np.int64)
+        order = np.argsort(ts_arr, kind="stable")
+        tsdb.add_batch(metric, ts_arr[order],
+                       np.asarray(vl, np.float64)[order], dict(tag_items),
+                       is_float=np.asarray(fl, bool)[order],
+                       int_values=np.asarray(il, np.int64)[order])
+    return n
+
+
+def _fmt_value(v) -> str:
+    return str(int(v)) if float(v).is_integer() else repr(float(v))
+
+
+def cmd_query(args) -> int:
+    """CLI query (reference CliQuery.parseCommandLineQuery :191-243):
+    ``START [END] AGG [rate] [downsample N FUNC] METRIC [tag=v ...]``,
+    one ``metric ts value tags`` line per point."""
+    from opentsdb_tpu_torch.core import tags as tags_mod
+    from opentsdb_tpu_torch.query.aggregators import Aggregators
+    from opentsdb_tpu_torch.query.executor import QueryExecutor, QuerySpec
+    from opentsdb_tpu_torch.utils.timeparse import parse_date
+
+    if args.graph:
+        print("query --graph: not yet ported: PNG graphs (the port has "
+              "no plotting)", file=sys.stderr)
+        return 2
+    tsdb = _tool_tsdb(args)
+    try:
+        words = list(args.args)
+        start = parse_date(words.pop(0))
+        end = int(time.time())
+        if words and words[0] not in Aggregators.available():
+            end = parse_date(words.pop(0))
+        agg = words.pop(0)
+        rate = False
+        downsample = None
+        if words and words[0] == "rate":
+            rate = True
+            words.pop(0)
+        if words and words[0] == "downsample":
+            words.pop(0)
+            interval = int(words.pop(0))
+            downsample = (interval, words.pop(0))
+        metric = words.pop(0)
+        tag_map: dict[str, str] = {}
+        for t in words:
+            tags_mod.parse(tag_map, t)
+        spec = QuerySpec(metric, tag_map, aggregator=agg, rate=rate,
+                         downsample=downsample)
+        for r in QueryExecutor(tsdb).run(spec, start, end):
+            tag_str = " ".join(
+                f"{k}={v}" for k, v in sorted(r.tags.items()))
+            for ts, v in zip(r.timestamps, r.values):
+                print(f"{r.metric} {int(ts)} {_fmt_value(v)} "
+                      f"{tag_str}".rstrip())
+    finally:
+        tsdb.shutdown()
+    return 0
+
+
+def cmd_scan(args) -> int:
+    """Raw row dumper (reference DumpSeries.java): each row's key and
+    cells; ``--import`` prints re-importable lines instead, ``--delete``
+    removes every row it prints."""
+    from opentsdb_tpu_torch.core import codec
+    from opentsdb_tpu_torch.core import tags as tags_mod
+    from opentsdb_tpu_torch.core.tsdb import FAMILY
+    from opentsdb_tpu_torch.utils.timeparse import parse_date
+
+    tsdb = _tool_tsdb(args)
+    try:
+        words = list(args.args)
+        start = parse_date(words.pop(0))
+        end = int(time.time())
+        if words and not words[0][0].isalpha():
+            end = parse_date(words.pop(0))
+        metric = words.pop(0)
+        tag_map: dict[str, str] = {}
+        for t in words:
+            tags_mod.parse(tag_map, t)
+        metric_uid = tsdb.metrics.get_id(metric)
+        start_key = metric_uid + int(codec.base_time(start)).to_bytes(
+            4, "big")
+        stop_key = metric_uid + int(min(codec.base_time(end) + 3600,
+                                        0xFFFFFFFF)).to_bytes(4, "big")
+        for key, cells in tsdb.store.scan_raw(tsdb.table, start_key,
+                                              stop_key, family=FAMILY):
+            parsed = codec.parse_row_key(key)
+            named = {tsdb.tagk.get_name(k): tsdb.tagv.get_name(v)
+                     for k, v in parsed.tag_uids}
+            if tag_map and any(named.get(k) != v
+                               for k, v in tag_map.items()):
+                continue
+            tag_str = " ".join(f"{k}={v}" for k, v in sorted(named.items()))
+            if not args.importfmt:
+                print(f"{key.hex()} {metric} {parsed.base_time} {tag_str}")
+            for qual, value in cells:
+                for c in codec.explode_cell(qual, value):
+                    ts = parsed.base_time + c.delta
+                    val = c.decode()
+                    vs = (str(val) if isinstance(val, int)
+                          else repr(float(val)))
+                    if args.importfmt:
+                        print(f"{metric} {ts} {vs} {tag_str}".rstrip())
+                    else:
+                        kind = "float" if c.flags & 0x8 else "long"
+                        print(f"  [{c.qualifier.hex()}]\t[{c.value.hex()}]"
+                              f"\t{ts}\t{kind}\t{vs}")
+            if args.delete:
+                tsdb.store.delete_row(tsdb.table, key)
+    finally:
+        tsdb.shutdown()
+    return 0
+
+
+def cmd_uid(args) -> int:
+    """UID admin (reference UidManager.java): ``grep [KIND] [REGEX]``,
+    ``assign KIND NAME...``, ``rename KIND OLD NEW``, ``fsck`` and
+    ``KIND NAME`` lookups; the store is shut down on every exit."""
+    tsdb = _tool_tsdb(args)
+    try:
+        return _cmd_uid(tsdb, args)
+    finally:
+        tsdb.shutdown()
+
+
+def _cmd_uid(tsdb: TSDB, args) -> int:
+    import re
+
+    from opentsdb_tpu_torch.core.errors import NoSuchUniqueName
+
+    words = list(args.args)
+    if not words:
+        print("usage: uid [grep|assign|rename|fsck|KIND NAME|ID]",
+              file=sys.stderr)
+        return 2
+    uids = {"metrics": tsdb.metrics, "tagk": tsdb.tagk, "tagv": tsdb.tagv}
+    cmd = words[0]
+    if cmd == "grep":
+        words.pop(0)
+        kinds = list(uids)
+        if words and words[0] in uids:
+            kinds = [words.pop(0)]
+        pattern = re.compile(words[0] if words else ".")
+        found = False
+        for kind in kinds:
+            for name in uids[kind].suggest("", limit=1 << 30):
+                if pattern.search(name):
+                    print(f"{kind} {name}: "
+                          f"{uids[kind].get_id(name).hex()}")
+                    found = True
+        return 0 if found else 1
+    if cmd == "assign":
+        kind = words[1]
+        for name in words[2:]:
+            uid = uids[kind].get_or_create_id(name)
+            print(f"{name}: [{', '.join(str(b) for b in uid)}]")
+        return 0
+    if cmd == "rename":
+        _, kind, old, new = words
+        uids[kind].rename(old, new)
+        return 0
+    if cmd == "fsck":
+        return _uid_fsck(tsdb)
+    if cmd in uids and len(words) == 2:
+        name = words[1]
+        try:
+            print(f"{cmd} {name}: {uids[cmd].get_id(name).hex()}")
+            return 0
+        except NoSuchUniqueName:
+            print(f"{name}: No such {cmd}")
+            return 1
+    print(f"unknown uid subcommand: {cmd}", file=sys.stderr)
+    return 2
+
+
+def _uid_fsck(tsdb: TSDB) -> int:
+    """Forward / reverse mapping consistency (reference UidManager.fsck):
+    every forward mapping's reverse must name it back; a reverse mapping
+    with no forward one is a leaked id (a warning)."""
+    from opentsdb_tpu_torch.uid.uniqueid import (ID_FAMILY, MAXID_ROW,
+                                                 NAME_FAMILY)
+
+    errors = 0
+    maps: dict[bytes, dict] = {ID_FAMILY: {}, NAME_FAMILY: {}}
+    for family, out in maps.items():
+        for key, cells in tsdb.store.scan_raw(tsdb.config.uidtable, b"",
+                                              b"", family=family):
+            if key == MAXID_ROW:
+                continue
+            for qual, value in cells:
+                out[(qual, key)] = value
+    fwd, rev = maps[ID_FAMILY], maps[NAME_FAMILY]
+    for (kind, name), uid in fwd.items():
+        back = rev.get((kind, uid))
+        if back != name:
+            errors += 1
+            print(f"ERROR: forward {kind.decode()} "
+                  f"{name.decode('iso-8859-1')} -> {uid.hex()} but "
+                  f"reverse says {back!r}")
+    for (kind, uid), name in rev.items():
+        if (kind, name) not in fwd:
+            errors += 1
+            print(f"WARN: orphan reverse mapping {kind.decode()} "
+                  f"{uid.hex()} -> {name.decode('iso-8859-1')} "
+                  "(leaked UID, harmless)")
+    print(f"uid fsck: {len(fwd)} forward, {len(rev)} reverse mappings, "
+          f"{errors} errors")
+    return 1 if errors else 0
+
+
+def cmd_mkmetric(args) -> int:
+    """``uid assign metrics`` for each name (reference tsdb.in:62-64)."""
+    tsdb = _tool_tsdb(args)
+    try:
+        for name in args.names:
+            uid = tsdb.metrics.get_or_create_id(name)
+            print(f"metrics {name}: [{', '.join(str(b) for b in uid)}]")
+    finally:
+        tsdb.shutdown()
+    return 0
+
+
 def cmd_stats(args) -> int:
     """Print the /stats lines (or, with --metrics, the Prometheus text)
     of a live daemon (--url) or of an opened store. A store opens as the
@@ -624,6 +947,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="automatically create metric UIDs (ingest)")
     p.add_argument("--port", type=int, default=4242)
     p.add_argument("--bind", default="0.0.0.0")
+    p.add_argument("--staticroot", default=None,
+                   help="directory of static files served at /s/ (and "
+                        "its index.html at /), before the packaged UI")
+    p.add_argument("--cachedir", default=None,
+                   help="/q disk cache directory (made if missing)")
     p.add_argument("--flush-interval", type=float, default=10.0)
     p.add_argument("--checkpoint-interval", type=float, default=0.0,
                    help="seconds between sstable spills + WAL truncation "
@@ -865,10 +1193,83 @@ def build_parser() -> argparse.ArgumentParser:
                         "instead of uniform weights")
     p.set_defaults(func=cmd_sketch_plan)
 
+    p = sub.add_parser("import", help="bulk import text files")
+    _tool_args(p)
+    p.add_argument("files", nargs="+")
+    p.set_defaults(func=cmd_import, auto_metric=True)
+
+    p = sub.add_parser("query", help="run a query")
+    _tool_args(p)
+    p.add_argument("--graph", metavar="BASEPATH",
+                   help="PNG output: not yet ported (exits 2)")
+    p.add_argument("args", nargs="+")
+    p.set_defaults(func=cmd_query)
+
+    p = sub.add_parser("scan", help="dump raw rows")
+    _tool_args(p)
+    p.add_argument("--import", dest="importfmt", action="store_true")
+    p.add_argument("--delete", action="store_true")
+    p.add_argument("args", nargs="+")
+    p.set_defaults(func=cmd_scan)
+
+    p = sub.add_parser("uid", help="UID administration")
+    _tool_args(p)
+    p.add_argument("args", nargs="*")
+    p.set_defaults(func=cmd_uid)
+
+    p = sub.add_parser("mkmetric", help="create metric UIDs")
+    _tool_args(p)
+    p.add_argument("names", nargs="+")
+    p.set_defaults(func=cmd_mkmetric)
+
+    from opentsdb_tpu_torch.tools import ops
+
+    p = sub.add_parser(
+        "check", help="Nagios-style threshold probe over /q (check_tsd)")
+    ops.add_check_args(p)
+    p.set_defaults(func=ops.cmd_check)
+
+    p = sub.add_parser(
+        "drain", help="accept put lines to files during maintenance")
+    p.add_argument("--port", type=int, default=4242)
+    p.add_argument("--bind", default="0.0.0.0")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("dir", help="directory for per-client drain files")
+    p.set_defaults(func=ops.cmd_drain)
+
+    p = sub.add_parser(
+        "clean-cache", help="purge graph cache when the disk is nearly full")
+    p.add_argument("--threshold", type=float, default=90.0,
+                   help="disk-usage %% that triggers cleaning")
+    p.add_argument("--min-age", type=float, default=0.0,
+                   help="spare files younger than this many seconds")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("cachedir")
+    p.set_defaults(func=ops.cmd_clean_cache)
+
     p = sub.add_parser("version", help="print build/version information")
     p.add_argument("--verbose", action="store_true")
     p.set_defaults(func=cmd_version)
     return parser
+
+
+def _tool_args(p: argparse.ArgumentParser) -> None:
+    """The storage tools' flags: the store's, and the JAX CLI's common
+    ones they read."""
+    _store_args(p)
+    p.add_argument("--auto-metric", action="store_true",
+                   help="automatically create metric UIDs (ingest)")
+    p.add_argument("--sstable-codec", default="none",
+                   choices=["none", "tsst4"],
+                   help="write-side sstable format of the tool's spills")
+    p.add_argument("--rollups", action="store_true",
+                   help="keep the rollup tier current (rollup/)")
+    p.add_argument("--rollup-resolutions", default=None,
+                   help="comma-separated rollup window sizes in seconds "
+                        "(implies the tier)")
+    p.add_argument("--read-only", action="store_true",
+                   help="open the WAL as a read-only replica (a live "
+                        "writer keeps its lock); mutations refused")
 
 
 if __name__ == "__main__":

@@ -16,7 +16,7 @@ concurrent race leaks one id and retries, discovering the winner's id.
 
 The cache counters (``cache_hits``, ``cache_misses``, ``cache_size``),
 ``suggest`` and ``drop_caches`` feed ``/stats``, ``/suggest`` and
-``dropcaches`` as in the JAX package.
+``dropcaches`` as in the JAX package; ``rename`` is ``tsdb uid rename``.
 """
 
 from __future__ import annotations
@@ -181,6 +181,27 @@ class UniqueId:
                         return out
         return out
 
+    def rename(self, oldname: str, newname: str) -> None:
+        """Admin rename (``tsdb uid rename``): not atomic, as in the
+        reference (:425-495)."""
+        row = self.get_id(oldname)
+        try:
+            self.get_id(newname)
+        except NoSuchUniqueName:
+            pass
+        else:
+            raise ValueError(
+                f"An ID is already assigned to: '{newname}'")
+        self._store.put(self._table, row, NAME_FAMILY, self._kindb,
+                        newname.encode("iso-8859-1"))
+        self._store.put(self._table, newname.encode("iso-8859-1"),
+                        ID_FAMILY, self._kindb, row)
+        self._store.delete(self._table, oldname.encode("iso-8859-1"),
+                           ID_FAMILY, [self._kindb])
+        with self._lock:
+            self._id_cache.pop(oldname, None)
+            self._id_cache[newname] = row
+            self._name_cache[row] = newname
 
     def __str__(self) -> str:
         return f"UniqueId(table={self._table}, kind={self._kind})"

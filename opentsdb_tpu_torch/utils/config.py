@@ -313,6 +313,8 @@ class Config:
     # network
     port: int = 4242
     bind: str = "0.0.0.0"
+    staticroot: str | None = None       # tsd.http.staticroot
+    cachedir: str | None = None         # tsd.http.cachedir (/q disk cache)
     worker_threads: int = dataclasses.field(
         default_factory=lambda: 2 * multiprocessing.cpu_count())
 

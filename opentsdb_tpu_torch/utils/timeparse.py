@@ -43,6 +43,11 @@ def parse_duration(duration: str) -> int:
 
 
 
+def is_relative_date(date: str | None) -> bool:
+    """True if the date is absent (defaultable) or ends in "-ago"."""
+    return date is None or date.endswith("-ago")
+
+
 def parse_date(date: str, tz: str | None = None,
                now: int | None = None) -> int:
     """Parse a query date into UNIX seconds.

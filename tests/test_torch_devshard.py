@@ -762,9 +762,10 @@ def test_owner_index_weights_by_mesh_width(widths):
 
 def test_fused_plan_keeps_its_single_device_leg_under_a_mesh(tmp_path,
                                                              monkeypatch):
-    """Under a mesh the fused plan (TSST4 blocks) still serves through its
-    single-device leg (its mesh leg is item 11b): plan "fused", no mesh
-    dispatch, the answer equal to the executor's without a mesh."""
+    """Under a mesh the fused plan (TSST4 blocks) serves through its mesh
+    leg (the name predates it): plan "fused", one mesh dispatch through
+    the plane per query, the answer equal to the executor's without a
+    mesh."""
     from test_torch_compress import SPECS as FUSED_SPECS
     from test_torch_compress import _ingest, _port_tsdb
     from test_torch_native import use
@@ -781,7 +782,7 @@ def test_fused_plan_keeps_its_single_device_leg_under_a_mesh(tmp_path,
             spec = QuerySpec(metric, tags, agg, rate=rate, downsample=ds)
             d0 = plane._M_DISPATCH.count
             got, plan, _ = ex.run_with_plan(spec, BT + 100, BT + 11 * 3600)
-            assert plan == "fused" and plane._M_DISPATCH.count == d0
+            assert plan == "fused" and plane._M_DISPATCH.count == d0 + 1
             want, wplan, _ = plain.run_with_plan(spec, BT + 100,
                                                  BT + 11 * 3600)
             assert wplan == "fused"

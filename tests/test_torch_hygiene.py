@@ -535,3 +535,51 @@ def test_expert_and_fleet_slice_lives_in_the_port():
     # The tool writes only where it is told to.
     src = open(os.path.join(pkg, "tools", "multihost_run.py")).read()
     assert "write_artifacts" not in src and "REPO" not in src
+
+
+_IMPORT_LAST_HOST = """
+import importlib, sys
+for name in ("opentsdb_tpu_torch.compress.kernels",
+             "opentsdb_tpu_torch.compress.fused",
+             "opentsdb_tpu_torch.tools.ops",
+             "opentsdb_tpu_torch.tools.cli",
+             "opentsdb_tpu_torch.server.tsd"):
+    importlib.import_module(name)
+print(sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "opentsdb_tpu" or m.startswith("opentsdb_tpu.")))
+"""
+
+
+def test_fused_mesh_and_last_host_modules_live_in_the_port():
+    """The fused plan's mesh leg, the ops tools, the storage tools of the
+    CLI, the /q disk cache and the static pages load no jax and nothing
+    of the JAX package; the modules name the JAX modules they mirror, and
+    the packaged query UI is the JAX daemon's file byte for byte, shipped
+    as package data."""
+    import importlib
+    out = subprocess.run([sys.executable, "-c", _IMPORT_LAST_HOST],
+                         cwd=ROOT, check=True, capture_output=True,
+                         text=True, timeout=120).stdout
+    assert out.strip() == "[]"
+    mirrors = {
+        "opentsdb_tpu_torch.tools.ops": "opentsdb_tpu/tools/ops.py",
+        "opentsdb_tpu_torch.tools.cli": "opentsdb_tpu/tools/cli.py",
+        "opentsdb_tpu_torch.server.tsd":
+            "opentsdb_tpu/server/static/index.html",
+        "opentsdb_tpu_torch.compress.kernels":
+            "opentsdb_tpu/compress/kernels.py",
+    }
+    for mod, src in mirrors.items():
+        assert src in importlib.import_module(mod).__doc__, mod
+    from opentsdb_tpu_torch.compress import kernels
+    assert kernels.FUSED_STAGE_PLAN.name == "compress.fused_stage"
+    pkg = os.path.join(ROOT, "opentsdb_tpu_torch")
+    with open(os.path.join(pkg, "server", "static", "index.html"),
+              "rb") as f:
+        ours = f.read()
+    with open(os.path.join(ROOT, "opentsdb_tpu", "server", "static",
+                           "index.html"), "rb") as f:
+        assert ours == f.read()
+    with open(os.path.join(ROOT, "pyproject.toml")) as f:
+        assert '"opentsdb_tpu_torch.server" = ["static/*"]' in f.read()
