@@ -449,8 +449,10 @@
    day with EXPERT_PANELS (sum / max / dev / p95 / p50, each ``{dc=*}``
    at 1h: 50 slots of ~143k points at S = 1,024, B = 32) through the
    expert path (the launches of that first run alone: ``dash_finish``,
-   the segment kernels, ``masked_select``; every ``dash_finish`` payload
-   held bit for bit against its plain version), EXPERT_REPS runs each of
+   once a shard, the segment kernels, ``masked_select``; every
+   ``dash_finish`` payload held against its plain version: fills, masks,
+   counts, min and max bit for bit, sums at float32 tolerance),
+   EXPERT_REPS runs each of
    the expert path, the serial scan path (expert off, window set aside:
    the comparison the JAX path's host scan asks for) and the resident
    path, every expert answer against the serial scan's (max exactly, the
@@ -472,9 +474,12 @@
    answers must equal a one-process run's bit for bit (the default mode
    at the same week shapes: 10,000 series of 1,000 points in 2 x 2
    shards, B = 256, each process one host row). The kernel phase
-   times ``dash_finish`` at the dashboard's three stages and the hybrid
-   combine at the week group (``expert_kernel_phase``). One ``fleet``
-   stdout line.
+   times ``dash_finish`` at a moment shard's whole finish and a
+   percentile shard's fill, at the day (S = 1,024, B = 32) and the week
+   (B = 256), each A B B A against the chain it replaced (the per-cell
+   finish kernel, ``gap_fill``, ``group_moments``, the per-cell finish
+   again), and the hybrid combine at the week group
+   (``expert_kernel_phase``). One ``fleet`` stdout line.
 6. Refusal phase: a small second daemon on the card with
    ``tenant_max_series=1`` must refuse a new series over telnet (the bulk
    path's and the per-line path's declared lines) and over ``/api/put``
@@ -5759,6 +5764,17 @@ EARLIER_MS = {
     ("ewma_scan", "{dc=*} 5m"): {
         "pr": 18, "ms": 0.1390719935297966, "ms_cold": 0.13473600149154663,
         "ms_device": 0.12465759515762329},
+    ("hybrid_moment_combine", "week group, finish (2 x 2 x 256)"): {
+        "pr": 24, "ms": 0.044096000492572784,
+        "ms_cold": 0.022991999983787537, "ms_device": 0.004656000062823296},
+    ("hybrid_moment_combine", "week group, a row's emit (1 x 2 x 256)"): {
+        "pr": 24, "ms": 0.04681600071489811, "ms_cold": 0.053999999538064,
+        "ms_device": 0.003364799916744232},
+    ("hybrid_moment_combine",
+     "week group, finish of the gathered rows (2 x 1 x 256)"): {
+        "pr": 24, "ms": 0.05551999993622303,
+        "ms_cold": 0.041120000183582306,
+        "ms_device": 0.0034015998244285583},
 }
 ROLLUP_GROUP_STAGE = ("the tier's group: 2,500 series x one day, res 3600 "
                       "and 86400")
@@ -7383,7 +7399,7 @@ EXPERT_GRID = (_pad_size(SERIES // EXPERT_GROUPS),
 FLEET_B = _pad_size(SPAN // INTERVAL + 1)
 EXPERT_KERNELS = ("dash_finish", "hybrid_moment_combine")
 EXPERT_WHERE = {
-    "dash_finish": ("expert.cu", "opentsdb_tpu/parallel/expert.py:279"),
+    "dash_finish": ("expert.cu", "opentsdb_tpu/parallel/expert.py:400"),
     "hybrid_moment_combine": ("mesh_combine.cu",
                               "opentsdb_tpu/parallel/multihost.py:97")}
 FLEET_AGGS = ("sum", "dev")
@@ -7411,38 +7427,129 @@ def expert_plan():
     return pexpert.plan_dashboard_batch(queries, MESH_D)
 
 
-def expert_stages() -> dict:
-    """dash_finish's cases at the dashboard's shapes: stage -> (codes,
-    cells)."""
+def dash_cases() -> dict:
+    """dash_finish's cases at the dashboard's shapes, the day (B = 32)
+    and the week (B = 256): stage -> (downsampler codes, group
+    aggregator codes or None for a percentile shard's fill, S, B), with
+    the plan's codes of a moment and a percentile shard."""
     plan = expert_plan()
     S, B = EXPERT_GRID
     m = int(np.flatnonzero(plan.fam == 0)[0])
     p = int(np.flatnonzero(plan.fam == 1)[0])
     Q = plan.ds_id.shape[1]
-    return {
-        f"series stage, moment shard ({Q} x {S * B:,})":
-            ([int(c) for c in plan.ds_id[m]], S * B),
-        f"group stage, moment shard ({Q} x {B})":
-            ([int(c) for c in plan.agg_id[m]], B),
-        f"series stage, percentile shard ({Q} x {S * B:,})":
-            ([int(c) for c in plan.ds_id[p]], S * B)}
+    out = {}
+    for when, b in (("day", B), ("week", FLEET_B)):
+        out[f"{when}, moment shard ({Q} x {S:,} x {b})"] = (
+            [int(c) for c in plan.ds_id[m]],
+            [int(c) for c in plan.agg_id[m]], S, b)
+        out[f"{when}, percentile shard, fill ({Q} x {S:,} x {b})"] = (
+            [int(c) for c in plan.ds_id[p]], None, S, b)
+    return out
 
 
-def finish_planes(codes: list, cells: int, seed: int) -> list:
-    """[Q, cells] moment planes as a series stage makes them (counts with
-    empty cells, sums, centered m2, min, max) on the card; the planes no
-    slot's code reads are None."""
-    rng = np.random.default_rng(seed)
-    Q = len(codes)
-    n = rng.integers(0, 12, (Q, cells)).astype(np.float32)
-    total = (rng.normal(100, 5, (Q, cells)) * n).astype(np.float32)
-    m2 = (rng.random((Q, cells)) * n).astype(np.float32)
-    mn = np.where(n > 0, rng.normal(90, 3, (Q, cells)), np.inf)
-    mx = np.where(n > 0, rng.normal(110, 3, (Q, cells)), -np.inf)
-    need = expert_finish.needs(codes)
-    return [torch.from_numpy(x.astype(np.float32)).to(DEVICE)
-            if name in need else None
-            for name, x in zip(expert_finish.PLANES, (n, total, m2, mn, mx))]
+def dash_planes(ds: list, S: int, B: int, seed: int) -> tuple:
+    """A shard's series stage on the card as the dashboard's makes it
+    (``_dash_series_stage``: strided [Q, S * B] views): each slot a dc
+    group's SERIES // EXPERT_GROUPS series with the corpus's points per
+    series over B buckets' span (a day: ~143 points over 25 of the 32
+    buckets; a week: POINTS over 169 of 256), the padding series empty;
+    values a random walk's spread, drawn from ``seed`` on the card."""
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    Q, real = len(ds), SERIES // EXPERT_GROUPS
+    span, per = (DAY, POINTS * DAY // SPAN) if B == EXPERT_GRID[1] \
+        else (SPAN, POINTS)
+    n = real * per
+    ts = torch.randint(0, span, (Q, n), generator=g, device=dev,
+                       dtype=torch.int32)
+    sid = torch.arange(real, device=dev, dtype=torch.int32) \
+        .repeat_interleave(per)[None].expand(Q, n).contiguous()
+    vals = (100.0 + 10.0 * torch.randn((Q, n), generator=g, device=dev))
+    valid = torch.ones((Q, n), dtype=torch.bool, device=dev)
+    return pexpert._dash_series_stage(ts, vals, sid, valid, ds,
+                                      num_series=S, num_buckets=B,
+                                      interval=INTERVAL)
+
+
+def dash_compare(got, want, agg) -> float:
+    """The fused finish against its plain version: a fill (``agg``
+    None) and the group masks bit for bit, the min / max / count slots'
+    values bit for bit, sums, averages and deviations within rtol 1e-5 +
+    1e-5 x scale (the kernel sums over the series in its own order).
+    Returns the largest absolute difference."""
+    torch.cuda.synchronize()
+    if agg is None:
+        if not all(same_bits(a, b) for a, b in zip(got, want)):
+            fail("dash_finish (fill): the kernel and its plain version "
+                 "differ")
+        return 0.0
+    if not same_bits(got[1], want[1]):
+        fail("dash_finish: the group masks differ")
+    err = 0.0
+    for q, code in enumerate(agg):
+        a, b = got[0][q].double(), want[0][q].double()
+        if code in (1, 2, 5):
+            if not same_bits(got[0][q], want[0][q]):
+                fail(f"dash_finish: slot {q} ({expert_finish.DASH_AGGS[code]})"
+                     f" differs from its plain version")
+            continue
+        fin = torch.isfinite(b)
+        scale = float(b[fin].abs().max()) if bool(fin.any()) else 1.0
+        d = (a - b).abs().nan_to_num(0.0)
+        if bool((d > 1e-5 * b.abs() + 1e-5 * scale).any()) or not \
+                torch.equal(torch.isnan(a), torch.isnan(b)):
+            fail(f"dash_finish: slot {q} ({expert_finish.DASH_AGGS[code]}) "
+                 f"off its plain version by {float(d.max())}")
+        err = max(err, float(d.max()))
+    return err
+
+
+def dash_attribution(planes, ds, agg, kw) -> dict:
+    """Where a dash_finish call's device time goes: the same call with
+    one slot (the slots' clusters run side by side, so a time near the
+    whole call's says a slot's chain of steps, not the card's width,
+    sets it), without a second pass (every dev group aggregator taken as
+    sum), and the codes' upload alone (``ms_device`` each)."""
+    def one():
+        return expert_finish.dash_finish(
+            *(None if p is None else p[:1] for p in planes), ds[:1],
+            None if agg is None else agg[:1], **kw)
+
+    no_dev = None if agg is None else [0 if c == 4 else c for c in agg]
+
+    def no_dev_pass():
+        return expert_finish.dash_finish(*planes, ds, no_dev, **kw)
+
+    def upload():
+        return torch.tensor(ds + (agg or [0] * len(ds)),
+                            dtype=torch.int32).to(DEVICE, non_blocking=True)
+    out = {"one_slot_ms_device": device_ms(one),
+           "codes_upload_ms_device": device_ms(upload)}
+    if agg is not None and 4 in agg:
+        out["no_dev_pass_ms_device"] = device_ms(no_dev_pass)
+    log(f"kernel dash_finish attribution: {out}")
+    return out
+
+
+def dash_chain(planes, ds, agg, S, B):
+    """What the fused kernel replaced, through the same ported pieces:
+    the per-cell finish kernel by the downsamplers, ``gap_fill`` over the
+    [Q * S, B] rows, then (a moment shard) ``group_moments`` over the
+    [S, Q * B] view and the per-cell finish by the group aggregators."""
+    Q = len(ds)
+    per = expert_finish.finish_cells(*planes, ds)
+    sm = (planes[0] > 0).reshape(Q * S, B)
+    filled, in_range = wk.gap_fill(per.reshape(Q * S, B), sm, B)
+    gm = sm.reshape(Q, S, B).any(dim=1)
+    if agg is None:
+        return filled.reshape(Q, S, B), in_range.reshape(Q, S, B), gm
+    f2 = filled.reshape(Q, S, B).permute(1, 0, 2).reshape(S, Q * B)
+    r2 = in_range.reshape(Q, S, B).permute(1, 0, 2).reshape(S, Q * B)
+    g_n, g_total, g_m2, _, g_mn, g_mx = wk.group_moments(f2, r2)
+    return expert_finish.finish_cells(
+        *(x.reshape(Q, B) for x in (g_n, g_total, g_m2, g_mn, g_mx)),
+        agg), gm
 
 
 def hybrid_partials(H: int, C: int, cells: int, seed: int) -> list:
@@ -7469,41 +7576,61 @@ def hybrid_stages() -> dict:
 
 
 def expert_kernel_phase() -> list:
-    """dash_finish at the dashboard's shapes (a moment shard's series and
-    group stages and a percentile shard's series stage, with the plan's
-    codes) and hybrid_moment_combine at the fleet phase's week group (the
-    one-launch finish over [2, 2, B], one row's emit over [1, 2, B] and
-    the finish of the gathered rows over [2, 1, B], which must equal the
-    one-launch finish bit for bit), each against its plain version bit
-    for bit and timed as the kernel phase times the others. Inputs are
-    made from a seed at those shapes; the children hold the kernels bit
-    for bit on the paths' own payloads. Bound: bytes (each plane a slot
-    or the aggregator reads, once; each output written once); no single
-    PyTorch call computes either function."""
+    """dash_finish at the dashboard's shapes (a moment shard's whole
+    finish and a percentile shard's fill, at the day and the week, with
+    the plan's codes, over a series stage made on the card), each held
+    against its plain version (``dash_compare``), timed as the kernel
+    phase times the others and, in the same call, A B B A against the
+    chain it replaced (``dash_chain``: ``same_call``, device time); and
+    hybrid_moment_combine at the fleet phase's week group (the one-launch
+    finish over [2, 2, B], one row's emit over [1, 2, B] and the finish
+    of the gathered rows over [2, 1, B], which must equal the one-launch
+    finish bit for bit) against its plain version bit for bit. Inputs
+    are made from a seed at those shapes; the children hold the kernels
+    on the paths' own payloads. Bound: bytes (each plane a slot or the
+    aggregator reads, once; each output written once; dash_finish's
+    operations, ~12 a cell, bind at 1/100 of that); no single PyTorch
+    call computes either function."""
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
                         device=DEVICE)
     results = []
-    for i, (stage, (codes, cells)) in enumerate(expert_stages().items()):
-        planes = finish_planes(codes, cells, seed=100 + i)
-        got = expert_finish.dash_finish(*planes, codes)
-        want = expert_finish.dash_finish_plain(*planes, codes)
-        torch.cuda.synchronize()
-        if not same_bits(got, want):
-            fail(f"dash_finish [{stage}]: the kernel and its plain version "
-                 f"differ")
+    for i, (stage, (ds, agg, S, B)) in enumerate(dash_cases().items()):
+        planes = dash_planes(ds, S, B, seed=100 + i)
+        kw = dict(num_series=S, num_buckets=B)
+        err = dash_compare(
+            expert_finish.dash_finish(*planes, ds, agg, **kw),
+            expert_finish.dash_finish_plain(*planes, ds, agg, **kw), agg)
 
-        def fn(planes=planes, codes=codes):
-            return expert_finish.dash_finish(*planes, codes)
+        def fn(planes=planes, ds=ds, agg=agg, kw=kw):
+            return expert_finish.dash_finish(*planes, ds, agg, **kw)
 
-        def plain(planes=planes, codes=codes):
-            return expert_finish.dash_finish_plain(*planes, codes)
-        nbytes = expert_finish.bytes_moved(codes, cells)
-        b_ms, b_by = bound_ms(nbytes, len(codes) * cells)
-        res = {"name": "dash_finish", "stage": stage, "slots": len(codes),
-               "cells": cells, "codes": codes, "bytes": nbytes,
-               "max_abs_err": 0.0, "bound_ms": b_ms, "bound_by": b_by,
-               "library": NO_LIBRARY}
-        results.append(time_case(res, fn, plain, None, flush))
+        def plain(planes=planes, ds=ds, agg=agg, kw=kw):
+            return expert_finish.dash_finish_plain(*planes, ds, agg, **kw)
+
+        def chain(planes=planes, ds=ds, agg=agg, S=S, B=B):
+            return dash_chain(planes, ds, agg, S, B)
+        fill = agg is None
+        nbytes = expert_finish.dash_bytes(ds, fill, S, B)
+        b_ms, b_by = bound_ms(nbytes, 12 * len(ds) * S * B)
+        res = {"name": "dash_finish", "stage": stage, "slots": len(ds),
+               "S": S, "B": B, "ds_codes": ds, "agg_codes": agg,
+               "bytes": nbytes, "max_abs_err": err, "bound_ms": b_ms,
+               "bound_by": b_by, "library": NO_LIBRARY}
+        time_case(res, fn, plain, None, flush)
+        turns = [device_ms(f) for f in (fn, chain, chain, fn)]
+        res["same_call"] = {
+            "order": "fused, chain, chain, fused (device ms)",
+            "fused_ms_device": [turns[0], turns[3]],
+            "chain_ms_device": [turns[1], turns[2]],
+            "chain_launches": "per-cell finish, gap_fill, "
+                              + ("" if fill else "group_moments, per-cell "
+                                 "finish, ") + "their torch ops"}
+        log(f"kernel dash_finish [{stage}]: same call fused "
+            f"{turns[0]:.4f} / {turns[3]:.4f} ms, chain {turns[1]:.4f} / "
+            f"{turns[2]:.4f} ms (device)")
+        res["attribution"] = dash_attribution(planes, ds, agg, kw)
+        results.append(res)
+        del planes
     H, C = EXPERT_FOLD
     agg = "dev"
     planes = hybrid_partials(H, C, FLEET_B, seed=7)
@@ -7573,11 +7700,13 @@ def finish_tap(calls: list):
     still count on the wrapper."""
     orig = pexpert.dash_finish
 
-    def tap(*args):
-        planes, codes = args[:5], args[5]
+    def tap(*args, num_series, num_buckets):
+        planes, ds = args[:5], args[5]
+        agg = args[6] if len(args) > 6 else None
         calls.append(([None if p is None else p.clone() for p in planes],
-                      list(codes)))
-        return orig(*planes, codes)
+                      list(ds), None if agg is None else list(agg),
+                      num_series, num_buckets))
+        return orig(*args, num_series=num_series, num_buckets=num_buckets)
     pexpert.dash_finish = tap
 
     def restore():
@@ -7586,25 +7715,25 @@ def finish_tap(calls: list):
 
 
 def finish_checks(calls: list) -> list:
-    """Each captured dash_finish call against its plain version, bit for
-    bit, and its shape against the kernel phase's cases."""
-    shapes = {(tuple(c), n) for c, n in expert_stages().values()}
+    """Each captured dash_finish call against its plain version
+    (``dash_compare``), and its shape and codes against the kernel
+    phase's cases."""
+    shapes = {(tuple(ds), None if agg is None else tuple(agg), S, B)
+              for ds, agg, S, B in dash_cases().values()}
     out = []
-    for planes, codes in calls:
-        got = expert_finish.dash_finish(*planes, codes)
-        want = expert_finish.dash_finish_plain(*planes, codes)
-        torch.cuda.synchronize()
-        if not same_bits(got, want):
-            fail(f"dash_finish on the expert leg's payload ({len(codes)} x "
-                 f"{got.shape[1]}): the kernel and its plain version differ")
-        out.append({"slots": len(codes), "cells": int(got.shape[1]),
-                    "codes": codes, "bit_equal": True,
-                    "timed_shape": (tuple(codes), int(got.shape[1]))
-                    in shapes})
+    for planes, ds, agg, S, B in calls:
+        kw = dict(num_series=S, num_buckets=B)
+        err = dash_compare(
+            expert_finish.dash_finish(*planes, ds, agg, **kw),
+            expert_finish.dash_finish_plain(*planes, ds, agg, **kw), agg)
+        out.append({"slots": len(ds), "S": S, "B": B, "ds_codes": ds,
+                    "agg_codes": agg, "max_abs_err": err,
+                    "timed_shape": (tuple(ds), None if agg is None
+                                    else tuple(agg), S, B) in shapes})
     return out
 
 
-def dash_compare(got: list, want: list, what: str) -> dict:
+def dash_answers_compare(got: list, want: list, what: str) -> dict:
     """A dashboard's answers against another path's: the same groups,
     tags and timestamps panel by panel; max exactly, sums and deviations
     within rtol 1e-5 + 1e-5 x scale (the segment sums add in another
@@ -7670,6 +7799,9 @@ def expert_leg(daemon: "Daemon", tsdb: TSDB, dw, day_points: int) -> dict:
     for name in ("dash_finish", "segment_sum", "masked_select"):
         if counts[name] == 0:
             fail(f"the expert dashboard never launched {name}")
+    if counts["dash_finish"] != MESH_D:
+        fail(f"the expert dashboard's {MESH_D} shards launched dash_finish "
+             f"{counts['dash_finish']} times, not once each")
     out["launches"] = counts
     if len(answer) != len(EXPERT_PANELS) * EXPERT_GROUPS or any(
             r.get("plan") != "expert" or r["rollup"] != "expert"
@@ -7705,8 +7837,9 @@ def expert_leg(daemon: "Daemon", tsdb: TSDB, dw, day_points: int) -> dict:
         fail("the serial dashboard did not serve resident")
     out["scan_ms"] = [m for _, m in scan]
     out["resident_ms"] = [m for _, m in resident]
-    out["against_scan"] = dash_compare(answer, scan[0][0], "expert vs scan")
-    out["resident_against_scan"] = dash_compare(
+    out["against_scan"] = dash_answers_compare(answer, scan[0][0],
+                                              "expert vs scan")
+    out["resident_against_scan"] = dash_answers_compare(
         resident[0][0], scan[0][0], "resident vs scan")
     n6 = (len(EXPERT_PANELS) + 1) * EXPERT_GROUPS
     if len(declined) != n6 or any(r.get("plan") != "expert-decline"
@@ -7716,7 +7849,7 @@ def expert_leg(daemon: "Daemon", tsdb: TSDB, dw, day_points: int) -> dict:
         fail(f"mesh.expert.decline{{reason=rate}} counted {declines}")
     out["decline"] = {
         "reason": "rate", "counted": declines, "ms": declined_ms,
-        "panels_against_scan": dash_compare(
+        "panels_against_scan": dash_answers_compare(
             declined[:len(scan[0][0])], scan[0][0], "declined vs scan")}
     out["kernel_checks"] = finish_checks(calls)
     del calls
@@ -8150,7 +8283,7 @@ def main() -> int:
         "holt_winters": {"forecast": "{host=*} 1h, season 24"},
         "moment_combine": {"mesh": "{host=*} week"},
         "tile_carries": {"mesh": "{host=h00001} week"},
-        "dash_finish": {"expert": next(iter(expert_stages()))},
+        "dash_finish": {"expert": next(iter(dash_cases()))},
         "hybrid_moment_combine": {"hybrid": hybrid_stages()["finish"]}}
     where = {
         "segment_sum": ("segment_reduce.cu",
@@ -8458,8 +8591,12 @@ def main() -> int:
         "launches": mesh["launches"]["expert"],
         "kernel_checks": {
             "calls": len(ex["kernel_checks"]),
-            "bit_equal": all(c["bit_equal"] for c in ex["kernel_checks"]),
-            "shapes": sorted({(c["slots"], c["cells"])
+            "held": "fills, masks, counts, min and max bit for bit, sums "
+                    "within rtol 1e-5 + 1e-5 x scale",
+            "max_abs_err": max(c["max_abs_err"]
+                               for c in ex["kernel_checks"]),
+            "shapes": sorted({(c["slots"], c["S"], c["B"],
+                               c["agg_codes"] is None)
                               for c in ex["kernel_checks"]})},
         "concurrency": f"not claimed: {MESH_D} logical shards of one card "
                        f"run one after another"},

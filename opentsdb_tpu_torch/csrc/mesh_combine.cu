@@ -72,12 +72,25 @@
 //   its level 1 is the identity.
 //   Only the planes the aggregator reads are read and emitted (the others
 //   may be null): n for avg, dev and count; total for sum, avg and dev;
-//   m2 and mean for dev; min or max. One thread a cell, loads at stride
-//   cells, so a warp's loads are 32 neighbouring words.
+//   m2 and mean for dev; min or max.
+//   Design. A block takes cb <= 32 cells: its threads load every
+//   member's needed planes for those cells once, consecutive threads on
+//   consecutive cells, into shared memory; then one thread a (row, cell)
+//   folds level 1 from there in chip order (dev's centred pass reads the
+//   shared copy again) and writes the row's partials to shared memory;
+//   then one thread a cell folds level 2 in row order and finishes, the
+//   plain version's operations in its order. cb halves until
+//   the staged members fit 48 KB (one cell of all members must fit the
+//   block's opt-in shared memory, else the launch is refused). The
+//   week's 256 cells make 8 blocks. No array is indexed at run time
+//   outside shared memory: ptxas reports a 0-byte stack frame (registers
+//   in PERF.md's kernel table, from nvcc -Xptxas -v).
 //   Bound: bytes. Each plane the aggregator reads, and any, is read once
-//   (4 H C cells bytes each; dev's second pass over n and total comes
-//   from L2), the value and mask written once (5 cells bytes), or the
-//   emitted planes (4 H cells bytes each).
+//   (4 H C cells bytes each), the value and mask written once (5 cells
+//   bytes), or the emitted planes (4 H cells bytes each). At the week
+//   (2 x 2 x 256, dev: 5 planes) that is 21.8 KB, far under the launch
+//   floor, which bounds the kernel: a cell's load, two barriers and two
+//   folds are one chain under the launch (about 2.5 floors on the H100).
 //
 // Rounding: every operation is an _rn intrinsic, so nvcc never contracts
 // a multiply and an add into an FMA and the division and square root are
@@ -202,37 +215,65 @@ struct Partial {
   bool any;
 };
 
-// One chan level over `k` members at `stride` apart from `base`:
-// members' partials come from the planes (level 1) or from `rows`
-// (level 2, rows != nullptr).
-__device__ Partial chan_level(const float* __restrict__ n,
-                              const float* __restrict__ total,
-                              const float* __restrict__ m2,
-                              const float* __restrict__ mean,
-                              const float* __restrict__ mn,
-                              const float* __restrict__ mx,
-                              const int32_t* __restrict__ any,
-                              const Partial* rows, int64_t base,
-                              int64_t stride, int32_t k, int32_t agg) {
-  auto at = [&](int32_t i) {
-    Partial p;
-    if (rows != nullptr) return rows[i];
-    const int64_t o = base + (int64_t)i * stride;
-    p.n = n != nullptr ? n[o] : 0.0f;
-    p.total = total != nullptr ? total[o] : 0.0f;
-    p.m2 = m2 != nullptr ? m2[o] : 0.0f;
-    p.mean = mean != nullptr ? mean[o] : 0.0f;
-    p.mn = mn != nullptr ? mn[o] : 0.0f;
-    p.mx = mx != nullptr ? mx[o] : 0.0f;
-    p.any = any[o] != 0;
-    return p;
+// The hybrid combine's shared memory: the staged members' planes,
+// slot j of HybridPlanes::slot at stage[(j * members + m) * cb + cell],
+// then the level-1 rows, field f (n, total, m2, mean, min, max, any) at
+// rows[(f * H + h) * cb + cell].
+constexpr int kHybridThreads = 256;
+constexpr int kHybridCells = 32;      // cells a block, at most
+constexpr int kFields = 7;
+constexpr int kMaxHosts = 16;
+
+struct HybridPlanes {
+  const float* p[6];      // n, total, m2, mean, min, max (null: absent)
+  const int32_t* any;
+  int32_t slot[6];        // staged slot of each plane, -1 when absent
+  int32_t nslots;         // staged slots, any included (the last)
+};
+
+__device__ __forceinline__ Partial staged(const HybridPlanes& in,
+                                          const float* stage,
+                                          int32_t members, int32_t cb,
+                                          int32_t m, int32_t cell) {
+  auto at = [&](int i) {
+    const int32_t j = in.slot[i];
+    return j < 0 ? 0.0f : stage[((int64_t)j * members + m) * cb + cell];
   };
-  Partial acc = at(0);
+  Partial p;
+  p.n = at(0);
+  p.total = at(1);
+  p.m2 = at(2);
+  p.mean = at(3);
+  p.mn = at(4);
+  p.mx = at(5);
+  p.any = stage[((int64_t)(in.nslots - 1) * members + m) * cb + cell] != 0.0f;
+  return p;
+}
+
+__device__ __forceinline__ Partial row_at(const float* rows, int32_t H,
+                                          int32_t cb, int32_t h,
+                                          int32_t cell) {
+  auto at = [&](int f) { return rows[((int64_t)f * H + h) * cb + cell]; };
+  Partial p;
+  p.n = at(0);
+  p.total = at(1);
+  p.m2 = at(2);
+  p.mean = at(3);
+  p.mn = at(4);
+  p.mx = at(5);
+  p.any = at(6) != 0.0f;
+  return p;
+}
+
+// One chan level over k members: get(i) is member i's partials, read
+// from shared memory (twice for dev: the sums, then the centred pass).
+template <typename Get>
+__device__ __forceinline__ Partial chan_level(Get get, int32_t k,
+                                              bool dev) {
+  Partial acc = get(0);
   if (k == 1) return acc;
-  const bool dev = agg == kDev;
-  float m2acc = 0.0f;
   for (int32_t i = 1; i < k; ++i) {
-    const Partial p = at(i);
+    const Partial p = get(i);
     acc.n = __fadd_rn(acc.n, p.n);
     acc.total = __fadd_rn(acc.total, p.total);
     if (p.mn < acc.mn || isnan(p.mn)) acc.mn = p.mn;
@@ -241,8 +282,9 @@ __device__ Partial chan_level(const float* __restrict__ n,
   }
   acc.mean = __fdiv_rn(acc.total, fmaxf(acc.n, 1.0f));
   if (dev) {
+    float m2acc = 0.0f;
     for (int32_t i = 0; i < k; ++i) {
-      const Partial p = at(i);
+      const Partial p = get(i);
       const float d = __fsub_rn(p.mean, acc.mean);
       const float term = __fadd_rn(p.m2, __fmul_rn(p.n, __fmul_rn(d, d)));
       m2acc = i == 0 ? term : __fadd_rn(m2acc, term);
@@ -252,44 +294,79 @@ __device__ Partial chan_level(const float* __restrict__ n,
   return acc;
 }
 
-constexpr int kMaxHosts = 16;
-
-__global__ void __launch_bounds__(kThreads)
-hybrid_combine_kernel(const float* __restrict__ n,
-                      const float* __restrict__ total,
-                      const float* __restrict__ m2,
-                      const float* __restrict__ mean,
-                      const float* __restrict__ mn,
-                      const float* __restrict__ mx,
-                      const int32_t* __restrict__ any, int32_t H,
-                      int32_t C, int64_t cells, int32_t agg, int32_t emit,
+// A block stages cb cells of all H * C members, then folds level 1 a
+// (row, cell) a thread and level 2 a cell a thread.
+__global__ void __launch_bounds__(kHybridThreads)
+hybrid_combine_kernel(HybridPlanes in, int32_t H, int32_t C, int64_t cells,
+                      int32_t cb, int32_t agg, int32_t emit,
                       float* __restrict__ out, uint8_t* __restrict__ mask,
                       float* __restrict__ e_n, float* __restrict__ e_total,
                       float* __restrict__ e_m2, float* __restrict__ e_mean,
                       float* __restrict__ e_mn, float* __restrict__ e_mx,
                       int32_t* __restrict__ e_any) {
-  for (int64_t c = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-       c < cells; c += (int64_t)gridDim.x * blockDim.x) {
-    Partial rows[kMaxHosts];
-    for (int32_t h = 0; h < H; ++h) {
-      rows[h] = chan_level(n, total, m2, mean, mn, mx, any, nullptr,
-                           (int64_t)h * C * cells + c, cells, C, agg);
-    }
-    if (emit) {
-      for (int32_t h = 0; h < H; ++h) {
-        const int64_t o = (int64_t)h * cells + c;
-        if (e_n != nullptr) e_n[o] = rows[h].n;
-        if (e_total != nullptr) e_total[o] = rows[h].total;
-        if (e_m2 != nullptr) e_m2[o] = rows[h].m2;
-        if (e_mean != nullptr) e_mean[o] = rows[h].mean;
-        if (e_mn != nullptr) e_mn[o] = rows[h].mn;
-        if (e_mx != nullptr) e_mx[o] = rows[h].mx;
-        e_any[o] = rows[h].any ? 1 : 0;
+  extern __shared__ float smem[];
+  const int32_t members = H * C;
+  float* stage = smem;
+  float* rows = smem + (int64_t)in.nslots * members * cb;
+  const int64_t c0 = (int64_t)blockIdx.x * cb;
+  const bool dev = agg == kDev;
+  // Stage: consecutive threads take consecutive cells of one member.
+  const int64_t staged_n = (int64_t)in.nslots * members * cb;
+  for (int64_t i = threadIdx.x; i < staged_n; i += blockDim.x) {
+    const int32_t cell = (int32_t)(i % cb);
+    const int64_t jm = i / cb;
+    const int32_t m = (int32_t)(jm % members);
+    const int32_t j = (int32_t)(jm / members);
+    const int64_t c = c0 + cell;
+    float x = 0.0f;
+    if (c < cells) {
+      const int64_t o = (int64_t)m * cells + c;
+      if (j == in.nslots - 1) {
+        x = __ldg(in.any + o) != 0 ? 1.0f : 0.0f;
+      } else {
+#pragma unroll
+        for (int f = 0; f < 6; ++f) {
+          if (in.slot[f] == j) x = __ldg(in.p[f] + o);
+        }
       }
-      continue;
     }
-    const Partial g = chan_level(n, total, m2, mean, mn, mx, any, rows, 0,
-                                 0, H, agg);
+    stage[i] = x;
+  }
+  __syncthreads();
+  // Level 1: row h over its C chips, in chip order.
+  for (int32_t i = threadIdx.x; i < H * cb; i += blockDim.x) {
+    const int32_t h = i / cb, cell = i % cb;
+    const Partial r = chan_level(
+        [&](int32_t k) {
+          return staged(in, stage, members, cb, h * C + k, cell);
+        },
+        C, dev);
+    const float f[kFields] = {r.n, r.total, r.m2, r.mean, r.mn, r.mx,
+                              r.any ? 1.0f : 0.0f};
+#pragma unroll
+    for (int k = 0; k < kFields; ++k) {
+      rows[((int64_t)k * H + h) * cb + cell] = f[k];
+    }
+    const int64_t c = c0 + cell;
+    if (emit && c < cells) {
+      const int64_t o = (int64_t)h * cells + c;
+      if (e_n != nullptr) e_n[o] = r.n;
+      if (e_total != nullptr) e_total[o] = r.total;
+      if (e_m2 != nullptr) e_m2[o] = r.m2;
+      if (e_mean != nullptr) e_mean[o] = r.mean;
+      if (e_mn != nullptr) e_mn[o] = r.mn;
+      if (e_mx != nullptr) e_mx[o] = r.mx;
+      e_any[o] = r.any ? 1 : 0;
+    }
+  }
+  if (emit) return;
+  __syncthreads();
+  // Level 2: the H rows, in row order, then the finish.
+  for (int32_t cell = threadIdx.x; cell < cb; cell += blockDim.x) {
+    const int64_t c = c0 + cell;
+    if (c >= cells) continue;
+    const Partial g = chan_level(
+        [&](int32_t h) { return row_at(rows, H, cb, h, cell); }, H, dev);
     const float safe = fmaxf(g.n, 1.0f);
     float v = g.n;
     if (agg == kSum) {
@@ -351,7 +428,8 @@ extern "C" int tile_carries_i32f32(const int32_t* rows, int32_t D, int64_t S,
 // (see the kernel's comment), and H <= 16. emit = 0: out [cells] float32
 // and mask [cells] uint8. emit = 1: the row partials [H, cells] into the
 // e_* planes (those agg reads, and e_any). Returns the CUDA error of the
-// launch, or cudaErrorInvalidValue past 16 rows.
+// launch, or cudaErrorInvalidValue past 16 rows or when one cell of all
+// H * C members does not fit a block's shared memory.
 extern "C" int hybrid_moment_combine_f32(
     const float* n, const float* total, const float* m2, const float* mean,
     const float* mn, const float* mx, const int32_t* any, int32_t H,
@@ -359,11 +437,37 @@ extern "C" int hybrid_moment_combine_f32(
     uint8_t* mask, float* e_n, float* e_total, float* e_m2, float* e_mean,
     float* e_mn, float* e_mx, int32_t* e_any, void* stream) {
   if (H > kMaxHosts || H < 0 || C < 0) return (int)cudaErrorInvalidValue;
-  if (cells > 0 && H > 0 && C > 0) {
-    hybrid_combine_kernel<<<blocks_for(cells), kThreads, 0,
-                            (cudaStream_t)stream>>>(
-        n, total, m2, mean, mn, mx, any, H, C, cells, agg, emit, out, mask,
-        e_n, e_total, e_m2, e_mean, e_mn, e_mx, e_any);
+  if (cells <= 0 || H == 0 || C == 0) return (int)cudaGetLastError();
+  HybridPlanes in;
+  const float* planes[6] = {n, total, m2, mean, mn, mx};
+  in.nslots = 0;
+  for (int f = 0; f < 6; ++f) {
+    in.p[f] = planes[f];
+    in.slot[f] = planes[f] != nullptr ? in.nslots++ : -1;
   }
+  in.any = any;
+  ++in.nslots;
+  const int64_t per_cell =
+      4 * ((int64_t)in.nslots * H * C + (int64_t)kFields * H);
+  int64_t cb = kHybridCells;
+  while (cb > 1 && cb * per_cell > 48 * 1024) cb /= 2;
+  if (cb > cells) cb = cells;
+  const int64_t smem = cb * per_cell;
+  if (smem > 48 * 1024) {
+    int dev = 0, optin = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           dev);
+    if (smem > optin) return (int)cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        hybrid_combine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int64_t blocks = (cells + cb - 1) / cb;
+  hybrid_combine_kernel<<<(unsigned)blocks, kHybridThreads, (size_t)smem,
+                          (cudaStream_t)stream>>>(
+      in, H, C, cells, (int32_t)cb, agg, emit, out, mask, e_n, e_total, e_m2,
+      e_mean, e_mn, e_mx, e_any);
   return (int)cudaGetLastError();
 }

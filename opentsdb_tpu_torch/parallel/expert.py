@@ -23,14 +23,12 @@ Two faces, as in the JAX package:
   with its own downsampler and group aggregator. A shard stacks its
   slots into one segment space (slot q's segments offset by
   q * (S * B + 1), its padding in its own trash segment), so the
-  segment kernels fold every slot in one pass each; the hand-written
-  ``dash_finish`` kernel (``ops/expert_finish.py``) finishes the stack
-  with the slots' downsamplers; ``gap_fill`` runs over the [Q * S, B]
-  view (it fills along the buckets, so no row holds two slots);
-  ``group_moments`` over the [S, Q * B] view (it reduces over the
-  series); and ``dash_finish`` again with the slots' group aggregators.
-  The gap fill and the group moments are the plain PyTorch stages of the
-  serial ``downsample_group``; ``dash_finish`` only finishes.
+  segment kernels fold every slot in one pass each; then one launch of
+  the hand-written ``dash_finish`` kernel (``ops/expert_finish.py``)
+  finishes the whole shard from the stacked planes: each slot's series
+  by its downsampler, the gap fill of every series row, and for a moment
+  shard the moments over the series and the group aggregator; for a
+  percentile shard it stops after the fill.
   Percentile slots select with the rank-select kernel
   (``masked_quantile_axis0``) at each slot's own q, one launch a routed
   slot (the padding slots that square the plan select nothing).
@@ -52,8 +50,7 @@ import torch
 from opentsdb_tpu_torch.ops import sketches
 from opentsdb_tpu_torch.ops.expert_finish import DASH_AGGS, dash_finish
 from opentsdb_tpu_torch.ops.kernels import (_segment_moments,
-                                            downsample_group, gap_fill,
-                                            group_moments,
+                                            downsample_group,
                                             masked_quantile_axis0)
 from opentsdb_tpu_torch.parallel.compile import compile_with_plan
 from opentsdb_tpu_torch.parallel.mesh import EXPERT_AXIS, Mesh
@@ -359,8 +356,9 @@ def _dash_series_stage(ts, vals, sid, valid, ds_ids, *, num_series,
     (``ts`` ... [Q, N]) with each slot's downsampler (``ds_ids``, host
     codes): slot q's points fold into segments q * (S * B + 1) + s * B + b
     (its padding into q * (S * B + 1) + S * B), so one pass of each
-    segment kernel serves every slot; ``dash_finish`` then finishes each
-    slot by its code. Returns (values, mask), [Q, S, B] each."""
+    segment kernel serves every slot. Returns the segment moments (count,
+    total, m2, min, max) as [Q, S * B] views, None where no slot's
+    downsampler reads one."""
     Q = ts.shape[0]
     S, B = num_series, num_buckets
     span = S * B + 1
@@ -376,17 +374,11 @@ def _dash_series_stage(ts, vals, sid, valid, ds_ids, *, num_series,
         need |= {"sum"} if agg in ("sum", "avg") else \
             {"sum", "m2"} if agg == "dev" else \
             {agg} if agg in ("min", "max") else set()
-    count, total, m2, mn, mx = _segment_moments(
+    moments = _segment_moments(
         vals.reshape(-1), seg.reshape(-1), valid.reshape(-1), Q * span,
         need=frozenset(need))
-
-    def grid(x):
-        return None if x is None else x.reshape(Q, span)[:, :-1]
-
-    count = grid(count)
-    per = dash_finish(count, grid(total), grid(m2), grid(mn), grid(mx),
-                      ds_ids)
-    return per.reshape(Q, S, B), (count > 0).reshape(Q, S, B)
+    return tuple(None if x is None else x.reshape(Q, span)[:, :-1]
+                 for x in moments)
 
 
 def _expert_dash_body(ts, vals, sid, valid, routing, *, axis_index,
@@ -397,22 +389,15 @@ def _expert_dash_body(ts, vals, sid, valid, routing, *, axis_index,
     fam, ds_id, agg_id, qs, nslots = (r[axis_index] for r in routing)
     Q = ts.shape[0]
     S, B = num_series, num_buckets
-    sv, sm = _dash_series_stage(ts, vals, sid, valid, ds_id,
+    planes = _dash_series_stage(ts, vals, sid, valid, ds_id,
                                 num_series=S, num_buckets=B,
                                 interval=interval)
-    filled, in_range = gap_fill(sv.reshape(Q * S, B), sm.reshape(Q * S, B),
-                                B)
-    filled = filled.reshape(Q, S, B)
-    in_range = in_range.reshape(Q, S, B)
-    gm = sm.any(dim=1)
     if fam == 0:
-        # Reduce over the series of every slot at once: [S, Q * B].
-        f2 = filled.permute(1, 0, 2).reshape(S, Q * B)
-        r2 = in_range.permute(1, 0, 2).reshape(S, Q * B)
-        g_n, g_total, g_m2, _, g_mn, g_mx = group_moments(f2, r2)
-        gv = dash_finish(*(x.reshape(Q, B) for x in
-                           (g_n, g_total, g_m2, g_mn, g_mx)), agg_id)
+        gv, gm = dash_finish(*planes, ds_id, agg_id, num_series=S,
+                             num_buckets=B)
     else:
+        filled, in_range, gm = dash_finish(*planes, ds_id, num_series=S,
+                                           num_buckets=B)
         # One select a routed slot; the padding slots past them hold no
         # point and answer zeros, as the JAX body's do.
         gv = torch.zeros((Q, B), dtype=torch.float32, device=ts.device)

@@ -2376,42 +2376,145 @@ def _finish_planes(rng, Q, cells):
 @pytest.mark.cuda
 @pytest.mark.parametrize("Q,cells", [(1, 1), (6, 32), (15, 32_768),
                                      (10, 32_768), (40, 1000), (3, 0)])
-def test_dash_finish_bit_for_bit(card, Q, cells):
-    """The dashboard finish kernel equals its plain version bit for bit
-    at every aggregator code (slots of mixed codes in one launch, NaN
-    partials, empty cells, a negative centred sum) and counts one launch
-    (none for no cells)."""
+def test_finish_cells_bit_for_bit(card, Q, cells):
+    """The per-cell finish kernel (the fused dash_finish's first step,
+    timed beside it) equals its plain version bit for bit at every
+    aggregator code (slots of mixed codes in one launch, NaN partials,
+    empty cells, a negative centred sum) and counts one launch (none for
+    no cells)."""
     from opentsdb_tpu_torch.ops import expert_finish as ef
     rng = np.random.default_rng(Q * 7 + cells)
     planes = [torch.from_numpy(p).to(card)
               for p in _finish_planes(rng, Q, cells)]
     codes = [q % 6 for q in range(Q)]
-    want = ef.dash_finish_plain(*planes, codes)
-    before = ef.dash_finish.launches
-    got = ef.dash_finish(*planes, codes)
+    want = ef.finish_cells_plain(*planes, codes)
+    before = ef.finish_cells.launches
+    got = ef.finish_cells(*planes, codes)
     torch.cuda.synchronize()
-    assert ef.dash_finish.launches == before + (cells > 0)
+    assert ef.finish_cells.launches == before + (cells > 0)
     assert got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes()
+
+
+def _dash_stage(card, Q, S, B, ds, seed, special=True):
+    """A shard's series stage on the card, as the dashboard body makes
+    it (strided [Q, S * B] views): series s of a slot take 0, 1, 2 or
+    many non-empty buckets by s % 4 (one series: many); with
+    ``special``, the second-last slot holds NaN and +-inf values and the
+    last slot no valid point."""
+    from opentsdb_tpu_torch.parallel import expert as tx
+    rng = np.random.default_rng(seed)
+    slots = []
+    for q in range(Q):
+        ts, vals, sid = [], [], []
+        for s in range(S):
+            shape = 3 if S == 1 else s % 4
+            if shape == 0:
+                continue
+            buckets = (rng.choice(B, size=min(shape, B), replace=False)
+                       if shape < 3 else np.flatnonzero(rng.random(B) < .6))
+            k = rng.integers(1, 4, len(buckets))
+            ts += list(np.repeat(buckets, k) * 60
+                       + rng.integers(0, 60, int(k.sum())))
+            vals += list(rng.normal(50.0, 12.0, int(k.sum())))
+            sid += [s] * int(k.sum())
+        vals = np.asarray(vals, np.float32)
+        if special and Q > 2 and q == Q - 2 and len(vals):
+            vals[::7] = np.nan
+            vals[3::11] = np.inf
+            vals[5::13] = -np.inf
+        slots.append((ts, vals, sid,
+                      not (special and Q > 1 and q == Q - 1)))
+    n = max(1, max(len(x[0]) for x in slots))
+    arr = [np.zeros((Q, n), t) for t in (np.int32, np.float32, np.int32,
+                                         bool)]
+    for q, (ts, vals, sid, ok) in enumerate(slots):
+        arr[0][q, :len(ts)], arr[1][q, :len(ts)] = ts, vals
+        arr[2][q, :len(ts)], arr[3][q, :len(ts)] = sid, ok
+    return tx._dash_series_stage(
+        *(torch.from_numpy(x).to(card) for x in arr), ds, num_series=S,
+        num_buckets=B, interval=60)
+
+
+def _same_or_nan(got, want):
+    """Bit for bit, NaN in the same places (any NaN bits)."""
+    g, w = got.cpu().numpy(), want.cpu().numpy()
+    assert g.shape == w.shape and g.dtype == w.dtype
+    if g.dtype.kind != "f":
+        return np.array_equal(g, w)
+    return (np.array_equal(np.isnan(g), np.isnan(w))
+            and g[~np.isnan(g)].tobytes() == w[~np.isnan(w)].tobytes())
+
+
+def _dash_check(got, want, agg):
+    """A moment shard's answers: masks and the min / max / count slots
+    bit for bit, sums, averages and deviations within rtol 1e-5 + 1e-5 x
+    scale (the kernel sums over the series in its own order)."""
+    assert _same_or_nan(got[1], want[1])
+    for q, code in enumerate(agg):
+        g, w = got[0][q], want[0][q]
+        if code in (1, 2, 5):
+            assert _same_or_nan(g, w), q
+            continue
+        w64 = w.double().cpu().numpy()
+        fin = np.isfinite(w64)
+        scale = float(np.abs(w64[fin]).max()) if fin.any() else 1.0
+        np.testing.assert_allclose(g.double().cpu().numpy(), w64,
+                                   rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fill", [False, True])
+@pytest.mark.parametrize("Q,S,B", [(1, 1, 1), (6, 3, 7), (15, 16, 32),
+                                   (8, 5, 33), (15, 64, 256), (3, 20, 600),
+                                   (15, 1024, 32), (15, 1024, 256)])
+def test_dash_finish_bit_for_bit(card, Q, S, B, fill):
+    """The fused shard finish equals its plain version (the series
+    finish, gap_fill, group_moments and the group finish as torch runs
+    them): filled, in_range and the group mask bit for bit, and in a
+    moment shard the min / max / count slots bit for bit and the sums at
+    float32 tolerance, over every downsampler and group aggregator code,
+    series of 0, 1, 2 and many non-empty buckets, a NaN / inf slot and an
+    all-empty slot, B past one 256-bucket tile; one launch a call."""
+    from opentsdb_tpu_torch.ops import expert_finish as ef
+    ds = [q % 6 for q in range(Q)]
+    agg = None if fill else [(5 * q + 1) % 6 for q in range(Q)]
+    planes = _dash_stage(card, Q, S, B, ds, seed=Q * 1000 + S + B)
+    kw = dict(num_series=S, num_buckets=B)
+    want = ef.dash_finish_plain(*planes, ds, agg, **kw)
+    before = ef.dash_finish.launches
+    got = ef.dash_finish(*planes, ds, agg, **kw)
+    torch.cuda.synchronize()
+    assert ef.dash_finish.launches == before + 1
+    if fill:
+        assert all(_same_or_nan(g, w) for g, w in zip(got, want))
+    else:
+        _dash_check(got, want, agg)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("code", range(6))
 def test_dash_finish_reads_only_the_planes_its_codes_need(card, code):
-    """A launch whose slots all take one code runs with every other
-    plane absent, and views (one slot's trash column dropped) give the
-    contiguous planes' bits."""
+    """A launch whose slots all take one downsampler runs with every
+    plane it does not read absent (count always read: the series mask),
+    on the series stage's strided views, and gives the answers of the
+    plain version over contiguous copies of every plane, in both
+    modes."""
     from opentsdb_tpu_torch.ops import expert_finish as ef
-    rng = np.random.default_rng(code)
-    full = [torch.from_numpy(p).to(card)
-            for p in _finish_planes(rng, 4, 1025)]
-    views = [p[:, :-1] for p in full]
-    need = ef.needs([code] * 4)
+    Q, S, B = 4, 40, 64
+    ds = [code] * Q
+    agg = [(code + q) % 6 for q in range(Q)]
+    views = _dash_stage(card, Q, S, B, list(range(6)), seed=code)
+    need = ef.dash_needs(ds)
     planes = [v if n in need else None for v, n in zip(views, ef.PLANES)]
-    want = ef.dash_finish_plain(*(v.contiguous() for v in views),
-                                [code] * 4)
-    got = ef.dash_finish(*planes, [code] * 4)
+    assert all(v is not None and not v.is_contiguous() for v in views)
+    full = [v.contiguous() for v in views]
+    kw = dict(num_series=S, num_buckets=B)
+    got = ef.dash_finish(*planes, ds, agg, **kw)
+    _dash_check(got, ef.dash_finish_plain(*full, ds, agg, **kw), agg)
+    got = ef.dash_finish(*planes, ds, **kw)
+    want = ef.dash_finish_plain(*full, ds, **kw)
     torch.cuda.synchronize()
-    assert got.cpu().numpy().tobytes() == want.cpu().numpy().tobytes()
+    assert all(_same_or_nan(g, w) for g, w in zip(got, want))
 
 
 def _hybrid_partials(rng, H, C, cells, special=None):
@@ -2438,14 +2541,18 @@ def _hybrid_partials(rng, H, C, cells, special=None):
 @pytest.mark.parametrize("H,C,cells", [(2, 2, 32), (2, 4, 65_537),
                                        (4, 2, 1000), (1, 3, 500),
                                        (3, 1, 500), (16, 2, 300),
-                                       (2, 2, 0)])
+                                       (2, 2, 0), (16, 1, 257),
+                                       (1, 1, 33), (16, 16, 2_049),
+                                       (2, 200, 70)])
 @pytest.mark.parametrize("agg", ["sum", "avg", "dev", "count", "min",
                                  "max", "zimsum", "mimmin"])
 def test_hybrid_moment_combine_bit_for_bit(card, agg, H, C, cells,
                                            special):
     """The hybrid combine kernel equals its plain version bit for bit,
     finishing and emitting, and emit-then-finish equals the finish in
-    one launch; one launch a call (none for no cells)."""
+    one launch; one launch a call (none for no cells). The shapes take
+    16 rows, one chip a row, one member, and enough members that a
+    block stages fewer than 32 cells."""
     from opentsdb_tpu_torch.ops import mesh_combine as mc
     rng = np.random.default_rng(H * 100 + C * 10 + cells)
     planes = [torch.from_numpy(x).to(card)
@@ -2508,9 +2615,8 @@ def test_expert_dashboard_on_the_card_matches_the_cpu(card):
     before = ef.dash_finish.launches
     got = tx.run_dashboard_batch(queries, Mesh([card] * 4), **kw)
     fam = tx.plan_dashboard_batch(queries, 4).fam
-    # Two finishes a moment shard, one a percentile shard.
-    assert ef.dash_finish.launches - before == \
-        2 * int((fam == 0).sum()) + int((fam == 1).sum())
+    # One finish a shard, moment or percentile.
+    assert ef.dash_finish.launches - before == len(fam)
     for q, (gv, gm), (wv, wm) in zip(queries, got, want):
         np.testing.assert_array_equal(gm, wm)
         if q.get("agg") in ("max", "count"):

@@ -239,9 +239,9 @@ def test_dashboard_slots_equal_the_serial_kernels():
 
 
 def test_dashboard_shard_counts_its_kernel_calls(monkeypatch):
-    """A moment shard finishes twice (series stage, group stage) and a
-    percentile shard once, whatever their slot counts; a percentile
-    shard selects once a routed slot (none for the padding slots)."""
+    """A shard, moment or percentile, finishes in one dash_finish call,
+    whatever its slot count; a percentile shard selects once a routed
+    slot (none for the padding slots)."""
     from opentsdb_tpu_torch.ops import masked_select
     counts = {"finish": 0, "select": 0}
     real_f, real_s = ef.dash_finish, masked_select.select_columns
@@ -261,14 +261,14 @@ def test_dashboard_shard_counts_its_kernel_calls(monkeypatch):
                            num_buckets=16, interval=300)
     slots = plan.valid.any(axis=2).sum(axis=1)
     pct_dev = int(np.flatnonzero(plan.fam == 1)[0])
-    assert counts["finish"] == 2 + 1
+    assert counts["finish"] == len(plan.fam) == 2
     assert slots[pct_dev] == sum(q["family"] == "percentile"
                                  for q in queries)
     assert counts["select"] == slots[pct_dev] < plan.valid.shape[1]
 
 
 # ---------------------------------------------------------------------------
-# dash_finish's plain version
+# The per-cell finish (finish_cells, the first step of dash_finish)
 # ---------------------------------------------------------------------------
 
 def _finish_planes(rng, Q, cells):
@@ -287,14 +287,15 @@ def _finish_planes(rng, Q, cells):
 
 @pytest.mark.parametrize("code", range(6))
 def test_dash_finish_plain_matches_jax_finish(code):
-    """Every aggregator code, NaN partials and empty cells included,
-    against the JAX package's _finish_switch on the same planes; slots
-    of mixed codes in one call take each slot's own."""
+    """The per-cell finish dash_finish starts with (finish_cells): every
+    aggregator code, NaN partials and empty cells included, against the
+    JAX package's _finish_switch on the same planes; slots of mixed
+    codes in one call take each slot's own."""
     import jax.numpy as jnp
     rng = np.random.default_rng(code)
     planes = _finish_planes(rng, 3, 257)
     codes = [code, (code + 1) % 6, (code + 4) % 6]
-    got = ef.dash_finish(*(torch.from_numpy(p) for p in planes), codes)
+    got = ef.finish_cells(*(torch.from_numpy(p) for p in planes), codes)
     for q, c in enumerate(codes):
         want = np.asarray(jx._finish_switch(
             jnp.int32(c), tuple(jnp.asarray(p[q]) for p in planes)))
@@ -306,13 +307,13 @@ def test_dash_finish_plain_matches_jax_finish(code):
         else:
             np.testing.assert_allclose(g[fin], want[fin], rtol=1e-6)
     # Only the planes the codes read are needed.
-    only = ef.dash_finish(torch.from_numpy(planes[0]), None, None, None,
-                          None, [5, 5, 5])
+    only = ef.finish_cells(torch.from_numpy(planes[0]), None, None, None,
+                           None, [5, 5, 5])
     assert torch.equal(only, torch.from_numpy(planes[0]))
     with pytest.raises(ValueError, match="needs"):
-        ef.dash_finish(torch.from_numpy(planes[0]), None, None, None,
-                       None, [3, 5, 5])
-    assert ef.bytes_moved([0, 4], 10) == 4 * 10 * 2 + 4 * 10 * 3 + 8
+        ef.finish_cells(torch.from_numpy(planes[0]), None, None, None,
+                        None, [3, 5, 5])
+    assert ef.finish_cells_bytes([0, 4], 10) == 4 * 10 * 2 + 4 * 10 * 3 + 8
 
 
 # ---------------------------------------------------------------------------

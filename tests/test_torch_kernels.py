@@ -70,10 +70,26 @@ def _exact_keys(agg_down, agg_group, rate):
     return keys
 
 
-@pytest.mark.parametrize("mode", sorted(RATE_MODES))
+# The grid of test_downsample_group_and_multigroup, agg_down x agg_group
+# x mode (243 cases, ~1-6 s each), runs in six parts, one a file, so that
+# the tier-1 run's --dist loadfile workers share it: this file takes
+# agg_down AGGS[:5] without rate, tests/test_torch_kernels_grid{1..5}.py
+# the other parts (GRID_PARTS), every case once.
+GRID_PARTS = [(AGGS[:5], mode) for mode in ("none", "rate", "counter")] \
+    + [(AGGS[5:], mode) for mode in ("none", "rate", "counter")]
+
+
+@pytest.mark.parametrize("mode", [GRID_PARTS[0][1]])
 @pytest.mark.parametrize("agg_group", AGGS)
-@pytest.mark.parametrize("agg_down", AGGS)
+@pytest.mark.parametrize("agg_down", GRID_PARTS[0][0])
 def test_downsample_group_and_multigroup(agg_down, agg_group, mode):
+    check_downsample_group_and_multigroup(agg_down, agg_group, mode)
+
+
+def check_downsample_group_and_multigroup(agg_down, agg_group, mode):
+    """One case of the grid: downsample_group and downsample_multigroup
+    of both packages on the same inputs, under the contract's exact
+    keys."""
     ts, vals, sid, valid, gmap = _inputs()
     kw = dict(num_series=16, num_buckets=B, interval=INTERVAL,
               agg_down=agg_down, agg_group=agg_group, **RATE_MODES[mode])

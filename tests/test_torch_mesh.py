@@ -274,10 +274,19 @@ def _shard_gmap(gmap_global, D, sps_pad, G):
     return gmap
 
 
+# test_multigroup_body's grid (108 cases) runs in three parts, one rate
+# mode a file (this one "counter", tests/test_torch_mesh_multigroup_
+# {none,rate}.py the others), so that the tier-1 run's workers share it.
 @pytest.mark.parametrize("D", [1, 2, 4, 8])
-@pytest.mark.parametrize("mode", sorted(RATE_MODES))
+@pytest.mark.parametrize("mode", ["counter"])
 @pytest.mark.parametrize("agg", MOMENT_AGGS)
 def test_multigroup_body(D, mode, agg):
+    check_multigroup_body(D, mode, agg)
+
+
+def check_multigroup_body(D, mode, agg):
+    """One case: the sharded multigroup body of both packages at width
+    D."""
     # Groups split across shards: 21 series round-robin, 5 groups.
     series = series_set(21, 50 + D)
     ts, vals, sid, valid, sps = packed(series, D)
